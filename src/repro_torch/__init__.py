@@ -1,0 +1,12 @@
+"""PyTorch / CUDA port of ``repro`` for NVIDIA Hopper.
+
+It mirrors the JAX package's module names (``configs``, ``core``,
+``kernels``, ``layers``, ``models``, ``serve``) and imports nothing of it
+or of JAX.  Every Pallas kernel on a ported path is a hand-written CUDA
+kernel (``kernels/*/csrc``), built at first use, beside a plain PyTorch
+version; ``core.dispatch`` picks between them.  Entry points run on the
+card unless the caller passes ``device="cpu"``.
+"""
+from repro_torch.core.dispatch import resolve, use  # noqa: F401
+
+__version__ = "0.1.0"

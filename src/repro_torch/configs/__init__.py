@@ -1,0 +1,19 @@
+"""Registry of the architectures the port serves (``get(name)``)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ArchCfg  # noqa: F401
+
+_MODULES = {
+    "smollm-135m": "smollm_135m",
+}
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def get(name: str) -> ArchCfg:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG

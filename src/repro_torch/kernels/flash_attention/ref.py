@@ -1,0 +1,60 @@
+"""Plain PyTorch attention (GQA, causal, sliding window, offset, padded KV).
+
+``mha_ref`` is the semantic oracle: a full (Tq, Tk) softmax in fp32.  It is
+the decode path's attention (one query against a padded cache) and the
+``"torch"`` backend of ``flash_attention``, whose lse it also returns.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
+            scale: float | None = None, q_offset: int = 0,
+            kv_len: int | None = None, return_lse: bool = False):
+    """q: (B, Hq, Tq, d); k, v: (B, Hkv, Tk, d); Hq % Hkv == 0.
+
+    ``q_offset``: absolute position of q[0] (decode: Tq = 1, offset = pos).
+    ``kv_len``: number of valid kv positions (for padded decode caches).
+    ``window``: sliding-window size (positions <= pos - window masked).
+    Masked scores are ``NEG_INF`` (-1e30), not -inf, as in the reference.
+    With ``return_lse`` also returns the fp32 (B, Hq, Tq) log-sum-exp of
+    the scaled scores, ``NEG_INF`` for a row with no valid key.
+
+    GQA runs as a broadcast over the q heads of each kv group (q head h
+    reads kv head h // group), so K and V are never repeated.
+    """
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+
+    qg = q.float().reshape(b, hkv, group, tq, d)
+    kg = k.float()[:, :, None]
+    vg = v[:, :, None]
+    s = torch.matmul(qg, kg.transpose(-1, -2)) * scale   # (b,hkv,g,tq,tk)
+    q_pos = q_offset + torch.arange(tq, device=q.device)[:, None]
+    k_pos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    if kv_len is not None:
+        mask &= k_pos < kv_len
+    s = torch.where(mask, s, NEG_INF)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - mx)
+    den = p.sum(dim=-1, keepdim=True)
+    p = p / den
+    out = torch.matmul(p.to(v.dtype).float(), vg.float())
+    out = out.reshape(b, hq, tq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(mask.any(dim=-1, keepdim=True), mx + torch.log(den),
+                      NEG_INF)
+    return out, lse.reshape(b, hq, tq)

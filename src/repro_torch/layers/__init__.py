@@ -1,0 +1,1 @@
+"""Layers of the port: norms, rope, embeddings, gated MLP, GQA attention."""

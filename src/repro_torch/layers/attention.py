@@ -1,0 +1,114 @@
+"""GQA attention: the train, prefill and decode modes.
+
+Every projection routes through the batch-reduce GEMM; prefill and train
+run the flash kernel; decode runs the plain ``mha_ref`` of one query
+against the padded cache (as in the reference, where decode attention is
+no kernel).  That decode attention reads the whole ``max_len`` cache under
+a ``kv_len = pos + 1`` mask every step, so its cost grows with ``max_len``,
+not with the tokens written: a kernel for it is later work.
+
+The KV cache of a layer is ``{"k", "v"}``, each (B, Hkv, max_len, dh),
+preallocated by ``init_cache``.  Prefill and decode write into it **in
+place** (slice assignment, where the reference's ``dynamic_update_slice``
+makes a new array) and return the same dict.  MLA, ``prefill_chunk`` and
+the sliding-window ring cache wait for later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.core import brgemm
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.layers.rope import apply_rope
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int | None = None
+    rope_theta: float = 10000.0
+    window: int | None = None          # sliding-window size (None = full)
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+def init_cache(cfg: AttnCfg, batch: int, max_len: int, *,
+               dtype=torch.float32, device="cpu"):
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _split_heads(x, n_heads):
+    b, t, _ = x.shape
+    return x.reshape(b, t, n_heads, -1).transpose(1, 2)  # (B,H,T,dh) view
+
+
+def _merge_heads(x):
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+class Attention(nn.Module):
+    """Weights ``wq, wk, wv`` (d_model, H*dh) and ``wo`` (Hq*dh, d_model)."""
+
+    def __init__(self, cfg: AttnCfg, *, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        self.cfg = cfg
+        dh = cfg.dh
+
+        def w(k, n):
+            return nn.Parameter(torch.empty(k, n, dtype=dtype, device=device))
+
+        self.wq = w(cfg.d_model, cfg.n_heads * dh)
+        self.wk = w(cfg.d_model, cfg.n_kv_heads * dh)
+        self.wv = w(cfg.d_model, cfg.n_kv_heads * dh)
+        self.wo = w(cfg.n_heads * dh, cfg.d_model)
+
+    def _qkv(self, x, positions, backend):
+        cfg = self.cfg
+        q = _split_heads(brgemm.matmul(x, self.wq, backend=backend),
+                         cfg.n_heads)
+        k = _split_heads(brgemm.matmul(x, self.wk, backend=backend),
+                         cfg.n_kv_heads)
+        v = _split_heads(brgemm.matmul(x, self.wv, backend=backend),
+                         cfg.n_kv_heads)
+        q = apply_rope(q, positions, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, theta=cfg.rope_theta)
+        return q, k, v
+
+    def _out(self, o, backend):
+        return brgemm.matmul(_merge_heads(o), self.wo, backend=backend)
+
+    def forward(self, x, *, mode: str = "train", cache=None, pos: int = 0,
+                backend: str | None = None):
+        """x: (B, T, D).  Returns y for train, (y, cache) for prefill and
+        decode; decode takes T = 1 token at absolute position ``pos``."""
+        cfg = self.cfg
+        t = x.shape[1]
+        if mode in ("train", "prefill"):
+            q, k, v = self._qkv(x, torch.arange(t, device=x.device), backend)
+            o = flash_attention(q, k, v, causal=True, window=cfg.window,
+                                backend=backend)
+            if mode == "train":
+                return self._out(o, backend)
+            cache["k"][:, :, :t] = k
+            cache["v"][:, :, :t] = v
+            return self._out(o, backend), cache
+        if mode == "decode":
+            positions = torch.full((t,), pos, device=x.device)
+            q, k, v = self._qkv(x, positions, backend)
+            cache["k"][:, :, pos:pos + t] = k
+            cache["v"][:, :, pos:pos + t] = v
+            o = mha_ref(q, cache["k"], cache["v"], causal=False,
+                        window=cfg.window, q_offset=pos, kv_len=pos + 1)
+            return self._out(o, backend), cache
+        raise ValueError(f"unknown attention mode {mode!r}")

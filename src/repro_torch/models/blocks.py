@@ -1,0 +1,68 @@
+"""The dense decoder block: ``x += attn(ln1(x)); x += mlp(ln2(x))``.
+
+Other block families (MoE, MLA, xLSTM, RG-LRU, the sliding-window ring
+cache, encoder-decoder) wait for later slices.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchCfg
+from repro_torch.layers import attention
+from repro_torch.layers.mlp import MLP
+from repro_torch.layers.norms import RMSNorm
+
+
+def dtype_of(cfg: ArchCfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def attn_cfg(cfg: ArchCfg) -> attention.AttnCfg:
+    return attention.AttnCfg(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=cfg.window)
+
+
+def check_dense(cfg: ArchCfg) -> None:
+    if cfg.block != "dense" or cfg.mla or not cfg.gated_mlp:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense gated-MLP GQA decoders only "
+            f"(block={cfg.block!r})")
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, cfg: ArchCfg, *, device="cpu"):
+        super().__init__()
+        check_dense(cfg)
+        dt = dtype_of(cfg)
+        self.cfg = cfg
+        self.ln1 = RMSNorm(cfg.d_model, dtype=dt, device=device)
+        self.attn = attention.Attention(attn_cfg(cfg), dtype=dt,
+                                        device=device)
+        self.ln2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, activation=cfg.mlp_activation,
+                       dtype=dt, device=device)
+
+    def forward(self, x, *, mode: str = "train", cache=None, pos: int = 0,
+                backend: str | None = None):
+        """Returns ``(x, cache)``; the cache is the one given, written in
+        place (``None`` in train mode)."""
+        if self.cfg.window and mode != "train":
+            raise NotImplementedError(
+                "sliding-window serving (the ring cache) is not ported yet")
+        h = self.ln1(x)
+        if mode == "train":
+            x = x + self.attn(h, mode="train", backend=backend)
+        else:
+            y, cache = self.attn(h, mode=mode, cache=cache, pos=pos,
+                                 backend=backend)
+            x = x + y
+        x = x + self.mlp(self.ln2(x), backend=backend)
+        return x, cache
+
+
+def decoder_block_cache(cfg: ArchCfg, batch: int, max_len: int, *,
+                        device="cpu"):
+    return attention.init_cache(attn_cfg(cfg), batch, max_len,
+                                dtype=dtype_of(cfg), device=device)

@@ -1,0 +1,129 @@
+"""The dense decoder-only LM: init, forward, prefill and decode_step.
+
+The reference scans one traced block over layer parameters stacked on a
+leading axis; here the layers are an ``nn.ModuleList`` run by a Python
+loop, and the serve cache is a list with one ``{"k", "v"}`` dict per layer
+(``interop.py`` maps the stacked layout across).  Dtypes follow the
+reference step by step: the embedding is cast to ``cfg.dtype``, every GEMM
+returns its input dtype, the residual adds stay in that dtype, and the
+logits are fp32.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchCfg
+from repro_torch.core.dispatch import check_device
+from repro_torch.layers.embeddings import Embedding
+from repro_torch.layers.norms import RMSNorm
+from repro_torch.models import blocks
+
+ZERO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0,
+            "dropped_fraction": 0.0}
+
+
+class Transformer(nn.Module):
+    """Parameters of a dense LM with tied embeddings, uninitialised
+    (``init_params`` fills them from a generator, ``interop`` from the
+    reference's tree).  ``device`` defaults to the card."""
+
+    def __init__(self, cfg: ArchCfg, *, device="cuda"):
+        super().__init__()
+        blocks.check_dense(cfg)
+        if not cfg.tie_embeddings:
+            raise NotImplementedError("untied output heads are not ported")
+        device = check_device(device)
+        dt = blocks.dtype_of(cfg)
+        self.cfg = cfg
+        self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=dt,
+                               device=device)
+        self.final_ln = RMSNorm(cfg.d_model, dtype=dt, device=device)
+        self.blocks = nn.ModuleList(
+            blocks.DecoderBlock(cfg, device=device)
+            for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def _embed(self, tokens):
+        return self.embed.encode(tokens).to(blocks.dtype_of(self.cfg))
+
+    def _head(self, h, backend):
+        return self.embed.decode(self.final_ln(h), backend=backend)
+
+    def _run(self, h, *, mode, cache, pos, backend):
+        for i, block in enumerate(self.blocks):
+            layer_cache = None if cache is None else cache["blocks"][i]
+            h, _ = block(h, mode=mode, cache=layer_cache, pos=pos,
+                         backend=backend)
+        return h
+
+    def forward(self, tokens, *, backend: str | None = None):
+        """Train-mode forward: (B, T) tokens -> fp32 logits (B, T, V)."""
+        h = self._run(self._embed(tokens), mode="train", cache=None, pos=0,
+                      backend=backend)
+        return self._head(h, backend)
+
+    def prefill(self, tokens, cache, *, backend: str | None = None):
+        """Fills ``cache`` in place; returns (last-token logits (B, V),
+        cache)."""
+        h = self._run(self._embed(tokens), mode="prefill", cache=cache,
+                      pos=0, backend=backend)
+        return self._head(h[:, -1:], backend)[:, 0], cache
+
+    def decode_step(self, tokens, cache, pos: int, *,
+                    backend: str | None = None):
+        """tokens: (B, 1) at position ``pos``.  Returns (logits (B, V),
+        cache), the cache written in place."""
+        h = self._run(self._embed(tokens), mode="decode", cache=cache,
+                      pos=pos, backend=backend)
+        return self._head(h, backend)[:, 0], cache
+
+
+def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
+                device="cuda") -> Transformer:
+    """Random weights with the reference's distributions: each weight is
+    normal scaled by ``fan_in ** -0.5`` (the embedding table by
+    ``d_model ** -0.5``), each norm scale ones.  Draws come from
+    ``generator`` (default: a CPU generator seeded 0), in fp32, then are
+    cast to ``cfg.dtype``."""
+    model = Transformer(cfg, device=device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.fill_(1.0)
+                continue
+            fan_in = p.shape[1] if name == "embed.table" else p.shape[0]
+            draw = torch.randn(p.shape, generator=generator,
+                               device=generator.device)
+            p.copy_(draw * fan_in ** -0.5)
+    return model
+
+
+def init_cache(cfg: ArchCfg, batch: int, max_len: int, *, device="cuda"):
+    """``{"blocks": [{"k", "v"} per layer]}``, each (B, Hkv, max_len, dh)."""
+    device = check_device(device)
+    return {"blocks": [
+        blocks.decoder_block_cache(cfg, batch, max_len, device=device)
+        for _ in range(cfg.n_layers)]}
+
+
+def forward(params: Transformer, batch, cfg: ArchCfg, *, backend=None):
+    """Train-mode forward.  Returns (fp32 logits, aux)."""
+    return params(batch["tokens"], backend=backend), dict(ZERO_AUX)
+
+
+def prefill(params: Transformer, batch, cfg: ArchCfg, cache, *,
+            backend=None):
+    """Returns (last-token logits, cache)."""
+    return params.prefill(batch["tokens"], cache, backend=backend)
+
+
+def decode_step(params: Transformer, tokens, cfg: ArchCfg, cache, pos, *,
+                backend=None):
+    """tokens: (B, 1); pos: int.  Returns (logits (B, V), cache)."""
+    return params.decode_step(tokens, cache, int(pos), backend=backend)

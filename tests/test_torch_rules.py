@@ -1,0 +1,123 @@
+"""Rules of the port: no JAX, no reference package, no silent fallback, no
+quiet CPU run, and a chip smoke script that fails where it cannot run."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import dispatch
+from repro_torch.kernels.brgemm import matmul, matmul_cuda
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_cuda)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [SMOKE],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_neither_jax_nor_reference(path):
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):"
+        "\n    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_defaults_raise_without_cuda(monkeypatch):
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = configs.get("smollm-135m").reduced()
+    params = api.init_params(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, params, ServeConfig(max_len=8))
+
+
+def test_explicit_cuda_backend_on_cpu_tensors_raises():
+    x, w = torch.ones(4, 8), torch.ones(8, 3)
+    q = torch.ones(1, 2, 4, 32)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        matmul(x, w, backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attention(q, q, q, backend="cuda")
+    with dispatch.use(backend="cuda"), pytest.raises(ValueError):
+        matmul(x, w)
+    # The wrappers themselves refuse CPU tensors before building anything.
+    before = matmul_cuda.launches, flash_attention_cuda.launches
+    with pytest.raises(ValueError):
+        matmul_cuda(x, w)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q, q)
+    assert (matmul_cuda.launches, flash_attention_cuda.launches) == before
+
+
+def test_dispatch_precedence():
+    x = torch.ones(2, 2)
+    assert dispatch.resolve("matmul", None, x) == "torch"
+    with dispatch.use(backend="torch"):
+        assert dispatch.resolve("matmul", None, x) == "torch"
+        with dispatch.use():
+            assert dispatch.resolve("matmul", None, x) == "torch"
+        with pytest.raises(ValueError):   # the argument beats the context
+            dispatch.resolve("matmul", "cuda", x)
+    with pytest.raises(ValueError, match="unknown backend"):
+        dispatch.resolve("matmul", "xla", x)
+    with pytest.raises(KeyError):
+        dispatch.resolve("no_such_op", None, x)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, str(SMOKE)], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,16 +1,20 @@
-"""Drive the PyTorch port's serving path on one NVIDIA Hopper card.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA
+Hopper card.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure raises and exits non-zero):
   1. device  — a CUDA card of compute capability 9.0; its name and power
                limit as nvidia-smi gives them.
-  2. build   — both kernels (brgemm, flash_attention) built from
+  2. build   — the three kernel families (brgemm, flash_attention,
+               flash_attention_bwd) built from
                ``src/repro_torch/kernels/*/csrc`` by nvcc for sm_90a, in
                parallel; build seconds and the -Xptxas -v summary.
   3. parity  — each kernel against its plain PyTorch version on the card, at
                the main-path shapes of smollm-135m (B = 8 prompts of 512
-               tokens), in fp32 and bf16, within stated tolerances.
+               tokens; training's backward GEMMs, X or W read transposed in
+               place; the flash backward and its fused delta), in fp32 and
+               bf16, within stated tolerances.
   4. serve   — full-width smollm-135m (random weights from a seed)
                ``Engine.generate``: 8 prompts x 512 tokens, 64 greedy
                tokens, bf16.  Once on the kernels (counting launches) and
@@ -20,9 +24,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                device's busy and idle share of decode steps under
                torch.profiler, and the host's time by function under
                cProfile.
-  5. times   — each kernel's device time (profiler) and back-to-back wall
-               time (CUDA events) at each main-path shape, beside its
-               bound, its plain version and one library call.
+  5. train   — full-width smollm-135m (random weights from a seed), B = 8
+               sequences of 512 tokens of the ported synthetic stream:
+               4 steps of ``make_train_step`` on the kernels (counting
+               launches), then the same 4 steps from the same state and
+               batches with ``use(backend="torch")``; step-0 loss and
+               every parameter's step-0 gradient compared, and the loss
+               trajectory; in bf16, then in fp32 with tighter bands.  Step
+               time, tokens/s, peak memory, and the device's busy and idle
+               share of a step under torch.profiler.
+  6. times   — each kernel's device time (profiler) and back-to-back wall
+               time (CUDA events) at each main-path shape, serving's and
+               training's, beside its bound, its plain version and one
+               library call.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -47,6 +61,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 SEED = 0
 BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 8, 512, 64, 1024
+# T = 512, not SmolLM's 2048: the plain path on the card keeps a T^2 fp32
+# score tensor per layer for autograd, which at 2048 and 30 layers would
+# press on 80 GB.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
+FAMILIES = ("brgemm", "flash_attention", "flash_attention_bwd")
 
 # Tolerances, |kernel - plain| <= atol + rtol * |plain|, and why:
 #   fp32 GEMM / attention: both accumulate fp32 in different orders, with no
@@ -57,13 +76,32 @@ BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 8, 512, 64, 1024
 #   bf16 attention: the kernel rounds p = exp(s - m_running) to bf16, the
 #     plain version p / l after a full softmax; a few bf16 ulps.
 #   lse: fp32 on both sides.
+#   delta: fp32 sums of d = 64 products on both sides; the fused delta and
+#     the standalone kernel's share one reduction and must agree exactly.
 TOL = {
     ("matmul", torch.float32): (1e-4, 1e-4),
     ("matmul", torch.bfloat16): (1e-2, 1e-2),
     ("flash_attention", torch.float32): (1e-4, 1e-4),
     ("flash_attention", torch.bfloat16): (2e-2, 2e-2),
     ("lse", None): (1e-4, 1e-5),
+    ("delta", None): (1e-4, 1e-4),
 }
+# Flash backward, kernel against plain autograd of mha_ref, as
+# max |kernel - plain| <= band * max |plain| per gradient: fp32 sums in
+# other orders (1e-4); in bf16 the kernel rounds P and dS to bf16 before
+# each product, as the reference's kernel does, while the plain version
+# differentiates in fp32 and rounds once at the end: a few bf16 ulps of the
+# largest entry (3e-2).
+GRAD_BAND = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# Full-width training, kernels vs plain on one card, bands stated before the
+# first run: the step-0 loss (~log 49152 = 10.8) and the 4-step trajectory
+# (absolute), and every parameter's step-0 gradient as relative L2 error
+# ||g_kernel - g_plain|| / ||g_plain||.  bf16 rounds every activation and
+# every gradient to bf16 at other places on the two paths, through 30
+# layers and back; fp32 differs in sum order only (GEMMs, and the
+# embedding's scatter-add, whose atomics add in a run-dependent order).
+TRAIN_BAND = {torch.bfloat16: {"loss": 2e-2, "grad_rel_l2": 5e-2},
+              torch.float32: {"loss": 1e-4, "grad_rel_l2": 1e-4}}
 # Full-width serving, kernels vs plain on one card, prefill logits (fp32
 # values ~N(0, 1) over 49152 entries): bf16 runs round every activation to
 # bf16 in 30 layers on both paths, and a one-ulp flip early spreads, so the
@@ -120,8 +158,8 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:   # one nvcc per kernel, together
-        built = list(ex.map(_build.build, ["brgemm", "flash_attention"]))
+    with ThreadPoolExecutor(len(FAMILIES)) as ex:   # one nvcc each, together
+        built = list(ex.map(_build.build, FAMILIES))
     wall = time.perf_counter() - t0
     for b in built:
         lines = [ln.strip() for ln in b.ptxas.splitlines()
@@ -153,37 +191,77 @@ class Gemm:
     k: int
     n: int
     activation: str = "none"
-    head: bool = False        # w is the tied table read as table.T, fp32 out
-    per_forward: int = 0      # launches in one forward of the main path
+    # How the operands lie, as the path hands them over:
+    #   "fwd"  x row-major, w row-major           (x @ W)
+    #   "head" x row-major, w = table.T col-major (x @ table.T), fp32 out
+    #   "dx"   x = g row-major, w = W.T col-major (g @ W.T)
+    #   "dx_head" x = g, w = table row-major      (g @ table)
+    #   "dw"   x = X.T col-major, w = g row-major (X.T @ g)
+    #   "pre"  as "fwd", fp32 out                 (silu pre-activation)
+    kind: str = "fwd"
+    per_forward: int = 0      # launches in one serving forward
+    per_step: int = 0         # launches in one train step
+
+    @property
+    def out_dtype(self):
+        return torch.float32 if self.kind in ("head", "pre") else None
 
 
 def main_path_gemms(cfg):
+    """Serving's GEMMs; the prefill ones (m = 8 x 512 tokens) are also the
+    train step's forward GEMMs."""
     d, dq, dkv, f = cfg.d_model, cfg.n_heads * cfg.dh, \
         cfg.n_kv_heads * cfg.dh, cfg.d_ff
     L, out = cfg.n_layers, []
     for phase, m in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
-        out += [Gemm(f"{phase}.q", m, d, dq, per_forward=L),
-                Gemm(f"{phase}.kv", m, d, dkv, per_forward=2 * L),
-                Gemm(f"{phase}.o", m, dq, d, per_forward=L),
-                Gemm(f"{phase}.gate_silu", m, d, f, "silu", per_forward=L),
-                Gemm(f"{phase}.up", m, d, f, per_forward=L),
-                Gemm(f"{phase}.down", m, f, d, per_forward=L)]
+        step = L if phase == "prefill" else 0
+        out += [Gemm(f"{phase}.q", m, d, dq, per_forward=L, per_step=step),
+                Gemm(f"{phase}.kv", m, d, dkv, per_forward=2 * L,
+                     per_step=2 * step),
+                Gemm(f"{phase}.o", m, dq, d, per_forward=L, per_step=step),
+                Gemm(f"{phase}.gate_silu", m, d, f, "silu", per_forward=L,
+                     per_step=step),
+                Gemm(f"{phase}.up", m, d, f, per_forward=L, per_step=step),
+                Gemm(f"{phase}.down", m, f, d, per_forward=L,
+                     per_step=step)]
     # The head sees the last position only, in prefill and in decode.
-    out.append(Gemm("lm_head", BATCH, d, cfg.vocab, head=True,
+    out.append(Gemm("lm_head", BATCH, d, cfg.vocab, kind="head",
                     per_forward=1))
     return out
 
 
+def train_gemms(cfg):
+    """The train step's GEMMs beyond serving's prefill shapes: the head at
+    every position, each projection's dX and dW, and the gate's
+    pre-activation recompute, with their launches per step."""
+    d, dq, dkv, f, v = cfg.d_model, cfg.n_heads * cfg.dh, \
+        cfg.n_kv_heads * cfg.dh, cfg.d_ff, cfg.vocab
+    L, m = cfg.n_layers, TRAIN_BATCH * TRAIN_SEQ
+    out = [Gemm("train.lm_head", m, d, v, kind="head", per_step=1),
+           Gemm("train.dx.lm_head", m, v, d, kind="dx_head", per_step=1),
+           Gemm("train.dw.lm_head", d, m, v, kind="dw", per_step=1),
+           Gemm("train.pre.gate", m, d, f, kind="pre", per_step=L)]
+    for name, k, n, per in (("q", d, dq, L), ("kv", d, dkv, 2 * L),
+                            ("o", dq, d, L), ("gate_up", d, f, 2 * L),
+                            ("down", f, d, L)):
+        out += [Gemm(f"train.dx.{name}", m, n, k, kind="dx", per_step=per),
+                Gemm(f"train.dw.{name}", k, m, n, kind="dw", per_step=per)]
+    return out
+
+
 def gemm_inputs(g: Gemm, dtype, gen):
-    x = torch.randn(g.m, g.k, device="cuda", generator=gen).to(dtype)
-    if g.head:
-        table = (torch.randn(g.n, g.k, device="cuda", generator=gen)
-                 * g.k ** -0.5).to(dtype)
-        w = table.T                       # column-major view, read in place
-    else:
-        w = (torch.randn(g.k, g.n, device="cuda", generator=gen)
-             * g.k ** -0.5).to(dtype)
-    return x, w
+    """x (m, k) and w (k, n) laid out as the path hands them over; values
+    scaled so that outputs are O(1)."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    if g.kind == "dw":                    # X.T of an activation (k, m)
+        return randn(g.k, g.m).T, randn(g.k, g.n, scale=g.k ** -0.5)
+    x = randn(g.m, g.k)
+    if g.kind in ("head", "dx"):          # table.T or W.T, read in place
+        return x, randn(g.n, g.k, scale=g.k ** -0.5).T
+    return x, randn(g.k, g.n, scale=g.k ** -0.5)
 
 
 def close(got, ref, atol, rtol):
@@ -193,12 +271,21 @@ def close(got, ref, atol, rtol):
                                    ).max().item()
 
 
+def qkv_views(b, hq, hkv, t, d, dtype, gen):
+    """(B, T, H, d) activations viewed as (B, H, T, d), as the attention
+    layer's head split hands them over (q, k, v, and a dY of q's shape)."""
+    return tuple(torch.randn(b, t, h, d, device="cuda", generator=gen)
+                 .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv, hq))
+
+
 def phase_parity(cfg):
     from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     mha_ref)
+    from repro_torch.kernels.flash_attention import (
+        delta_rowsum_cuda, delta_rowsum_ref, flash_attention_bwd_cuda,
+        flash_attention_bwd_ref, flash_attention_cuda, mha_ref)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = {"matmul": 0.0, "flash_attention": 0.0}
+    worst = {"matmul": 0.0, "flash_attention": 0.0,
+             "flash_attention_bwd": 0.0, "delta_rowsum": 0.0}
     failed = []
 
     def record(kernel, case, dtype, got, ref, tol):
@@ -213,18 +300,21 @@ def phase_parity(cfg):
 
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[("matmul", dtype)]
-        for g in main_path_gemms(cfg):
+        for g in main_path_gemms(cfg) + [
+                g for g in train_gemms(cfg) if g.kind in ("dx", "dx_head",
+                                                          "dw")]:
             if g.name.endswith(".up") or g.name.endswith(".o"):
                 continue          # same (m, k, n) as q / gate
             x, w = gemm_inputs(g, dtype, gen)
-            out_dtype = torch.float32 if g.head else None
             got = matmul_cuda(x, w, activation=g.activation,
-                              out_dtype=out_dtype)
+                              out_dtype=g.out_dtype)
             ref = matmul_ref(x, w, activation=g.activation,
-                             out_dtype=out_dtype)
+                             out_dtype=g.out_dtype)
             record("matmul", f"{g.name} m{g.m} k{g.k} n{g.n} "
-                   f"{g.activation}", dtype, got, ref,
-                   TOL[("matmul", torch.float32)] if g.head else tol)
+                   f"{g.activation} x{'T' if x.stride(0) == 1 else ''}"
+                   f"w{'T' if w.stride(0) == 1 else ''}", dtype, got, ref,
+                   TOL[("matmul", torch.float32)] if g.out_dtype else tol)
+            del x, w, got, ref
         x = torch.randn(300, 576, device="cuda", generator=gen).to(dtype)
         w = (torch.randn(576, 576, device="cuda", generator=gen)
              / 24).to(dtype)
@@ -249,11 +339,7 @@ def phase_parity(cfg):
                 ("ragged T500", (BATCH, cfg.n_heads, cfg.n_kv_heads, 500,
                                  cfg.dh)),
                 ("d32", (2, 4, 2, 256, 32))):
-            # (B, T, H, d) activations viewed as (B, H, T, d), as the
-            # attention layer's head split hands them over.
-            q, k, v = (torch.randn(b, t, h, d, device="cuda",
-                                   generator=gen).to(dtype).transpose(1, 2)
-                       for h in (hq, hkv, hkv))
+            q, k, v, _ = qkv_views(b, hq, hkv, t, d, dtype, gen)
             o, lse = flash_attention_cuda(q, k, v, causal=True,
                                           return_residuals=True)
             ro, rl = mha_ref(q, k, v, causal=True, return_lse=True)
@@ -261,6 +347,38 @@ def phase_parity(cfg):
             record("flash_attention", f"{case} {shape}", dtype, o, ro, ftol)
             record("flash_attention", f"{case} lse", dtype, lse, rl,
                    TOL[("lse", None)])
+
+        # The backward: the forward's residuals from the kernel, as in
+        # training; dY a view of the merged heads' gradient.
+        band = GRAD_BAND[dtype]
+        for case, (b, hq, hkv, t, d), window in (
+                ("train", (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                           TRAIN_SEQ, cfg.dh), None),
+                ("ragged T500", (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                                 500, cfg.dh), None),
+                ("d32", (2, 4, 2, 256, 32), None),
+                ("window 100", (2, 4, 2, 300, 64), 100),
+                ("context 2048", (1, cfg.n_heads, cfg.n_kv_heads, 2048,
+                                  cfg.dh), None)):
+            q, k, v, dy = qkv_views(b, hq, hkv, t, d, dtype, gen)
+            o, lse = flash_attention_cuda(q, k, v, window=window,
+                                          return_residuals=True)
+            *grads, delta = flash_attention_bwd_cuda(
+                q, k, v, o, lse, dy, window=window, return_delta=True)
+            want = flash_attention_bwd_ref(q, k, v, o, lse, dy,
+                                           window=window)
+            shape = f"q{tuple(q.shape)} kv{tuple(k.shape)} causal" + (
+                f" window {window}" if window else "")
+            for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+                scale = ref.float().abs().max().item()
+                record("flash_attention_bwd", f"{case} {name} {shape}",
+                       dtype, got, ref, (band * scale, band))
+            record("delta_rowsum", f"{case} fused vs standalone", dtype,
+                   delta, delta_rowsum_cuda(o, dy), (0.0, 0.0))
+            record("delta_rowsum", f"{case} standalone vs plain", dtype,
+                   delta_rowsum_cuda(o, dy), delta_rowsum_ref(o, dy),
+                   TOL[("delta", None)])
+            del q, k, v, dy, o, lse, grads, want
     torch.cuda.synchronize()
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -389,20 +507,13 @@ def step_times(cfg, params, tokens):
                 tok = logits.argmax(-1).to(torch.int32)[:, None]
 
         by_name = device_ms_by_kernel(steps, prof_steps)
-        # Where the host's time goes in the same steps.  cProfile slows
-        # every Python call, so its milliseconds are read as shares.
-        host = cProfile.Profile()
-        host.runcall(steps)
-        torch.cuda.synchronize()
+        # Where the host's time goes in the same steps.
+        host_ms, host_fns = host_split(steps, prof_steps)
         prefill_busy_ms = sum(device_ms_by_kernel(
             lambda: api.prefill(params, {"tokens": tokens}, cfg, cache),
             1).values())
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    stats = pstats.Stats(host).stats   # (file, line, fn) -> (.., tt, ct, ..)
-    own = sorted(((f"{Path(f).parent.name}/{Path(f).name}:{fn}", ct)
-                  for (f, _, fn), (_, _, _, ct, _) in stats.items()
-                  if "repro_torch" in f), key=lambda kv: -kv[1])[:16]
     emit({"phase": "serve_steps", "prefill_ms": prefill_s * 1e3,
           "prefill_device_busy_ms": prefill_busy_ms,
           "prefill_device_idle_share": 1 - prefill_busy_ms / (prefill_s
@@ -412,33 +523,206 @@ def step_times(cfg, params, tokens):
           "decode_device_busy_ms": busy_ms,
           "decode_device_idle_share": 1 - busy_ms / (decode_s * 1e3),
           "decode_device_ms_by_kernel": {k[:80]: v for k, v in top},
-          "decode_host_cprofile_step_ms": sum(
-              tt for _, _, tt, _, _ in stats.values()) * 1e3 / prof_steps,
-          "decode_host_cprofile_cumulative_ms": {
-              k: ct * 1e3 / prof_steps for k, ct in own}})
+          "decode_host_cprofile_step_ms": host_ms,
+          "decode_host_cprofile_cumulative_ms": host_fns})
 
 
 # --------------------------------------------------------------------------
-# 5. kernel times
+# 5. full-width training
 # --------------------------------------------------------------------------
 
-def device_ms_by_kernel(run, calls):
+def expected_step_launches(cfg):
+    """Launches of one train step, from the code: each of the 7 GEMMs of a
+    layer and the head launches once forward and twice backward (dX, dW);
+    the gate's silu needs its pre-activation, recomputed by the kernel in
+    the backward; one flash forward and one flash backward call per
+    layer."""
+    from repro_torch.core import fusion
+    gemms = 7 * cfg.n_layers + 1
+    recompute = cfg.n_layers * fusion.needs_preact(cfg.mlp_activation)
+    return {"matmul": 3 * gemms + recompute,
+            "flash_attention": cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+
+
+def clone_state(state):
+    return {"opt": {"step": state["opt"]["step"],
+                    **{k: {n: t.clone() for n, t in state["opt"][k].items()}
+                       for k in ("m", "v", "master")}}}
+
+
+def step0_grad_errors(cfg, state, batch):
+    """Every parameter's step-0 gradient, kernels against plain, as
+    relative L2 error; the working params cast from the master as the step
+    does."""
+    from repro_torch.core import dispatch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    model = Transformer(cfg, device="cuda")
+    opt.cast_params(state["opt"], dict(model.named_parameters()))
+    _, gk = ts.loss_and_grads(model, batch, cfg)   # fresh tensors each call
+    with dispatch.use(backend="torch"):
+        _, gp = ts.loss_and_grads(model, batch, cfg)
+    errs, finite = {}, True
+    for n in gk:
+        a, b = gk[n].float(), gp[n].float()
+        finite &= bool(torch.isfinite(a).all())
+        errs[n] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    return errs, finite
+
+
+def phase_train(base_cfg):
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.core import dispatch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.brgemm import matmul_cuda
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    counters = {"matmul": matmul_cuda, "flash_attention": flash_attention_cuda,
+                "flash_attention_bwd": flash_attention_bwd_cuda}
+    main_launches = None
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = dataclasses.replace(base_cfg,
+                                  dtype=str(dtype).replace("torch.", ""))
+        ocfg = opt.AdamWCfg()
+        pipe = TokenPipeline(cfg, ShapeCfg("smoke", "train", TRAIN_SEQ,
+                                           TRAIN_BATCH), seed=SEED)
+        batches = [next(pipe) for _ in range(TRAIN_STEPS)]
+        pipe.close()
+        state = ts.init_state(cfg, ocfg, torch.Generator(
+            device="cuda").manual_seed(SEED), "cuda")
+        plain_state = clone_state(state)
+        grad_err, grads_finite = step0_grad_errors(cfg, state, batches[0])
+        torch.cuda.empty_cache()
+
+        # The main path: counts zeroed just before, read just after.
+        step = ts.make_train_step(cfg, ocfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        losses, step_s = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        launches = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        per_step = expected_step_launches(cfg)
+        expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+        if launches != expect:
+            raise AssertionError(f"train launch counts {launches} != "
+                                 f"{expect}")
+
+        plain_step = ts.make_train_step(cfg, ocfg)
+        torch.cuda.reset_peak_memory_stats()
+        plain_losses, plain_s = [], []
+        with dispatch.use(backend="torch"):
+            for batch in batches:
+                t0 = time.perf_counter()
+                plain_state, metrics = plain_step(plain_state, batch)
+                torch.cuda.synchronize()
+                plain_s.append(time.perf_counter() - t0)
+                plain_losses.append(float(metrics["loss"]))
+        plain_peak = torch.cuda.max_memory_allocated()
+        if {k: c.launches for k, c in counters.items()} != expect:
+            raise AssertionError("the plain train run launched a kernel")
+
+        band = TRAIN_BAND[dtype]
+        loss0_err = abs(losses[0] - plain_losses[0])
+        traj_err = max(abs(a - b) for a, b in zip(losses, plain_losses))
+        worst_grad = max(grad_err.items(), key=lambda kv: kv[1])
+        steady_s = sorted(step_s[1:])[len(step_s[1:]) // 2]   # median
+        rec = {"phase": "train", "dtype": cfg.dtype, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+               "launches": launches, "expected_launches": expect,
+               "expected_per_step": per_step,
+               "losses": losses, "plain_losses": plain_losses,
+               "step0_loss_err": loss0_err, "trajectory_max_err": traj_err,
+               "loss_band": band["loss"],
+               "grad_rel_l2_max": worst_grad[1],
+               "grad_rel_l2_worst_param": worst_grad[0],
+               "grad_rel_l2_median": sorted(grad_err.values())[
+                   len(grad_err) // 2],
+               "grad_rel_l2_table": grad_err["embed.table"],
+               "grad_band": band["grad_rel_l2"],
+               "step_ms": [x * 1e3 for x in step_s],
+               "plain_step_ms": [x * 1e3 for x in plain_s],
+               "steady_step_ms": steady_s * 1e3,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady_s,
+               "peak_mem_gb": peak / 1e9,
+               "plain_peak_mem_gb": plain_peak / 1e9}
+        ok = (grads_finite and all(math.isfinite(x) for x in losses)
+              and loss0_err <= band["loss"] and traj_err <= band["loss"]
+              and worst_grad[1] <= band["grad_rel_l2"])
+        if dtype == torch.bfloat16:      # the main path's dtype
+            # One more step each under the profiler and under cProfile.
+            by_name = device_ms_by_kernel(lambda: step(state, batches[0]), 1)
+            busy = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+            host_ms, host_fns = host_split(lambda: step(state, batches[1]),
+                                           1, top=24)
+            rec.update({"device_busy_ms": busy,
+                        "device_idle_share": 1 - busy / (steady_s * 1e3),
+                        "device_ms_by_kernel": {k[:80]: v for k, v in top},
+                        "host_cprofile_step_ms": host_ms,
+                        "host_cprofile_cumulative_ms": host_fns})
+            main_launches = launches
+        emit(rec)
+        if not ok:
+            raise AssertionError(
+                f"train {cfg.dtype}: loss err {loss0_err} / {traj_err}, "
+                f"worst gradient {worst_grad}, finite {grads_finite}")
+        del state, plain_state, step, plain_step
+        torch.cuda.empty_cache()
+    return main_launches
+
+
+# --------------------------------------------------------------------------
+# 6. kernel times
+# --------------------------------------------------------------------------
+
+def device_ms_by_kernel(run, calls, attempts=3):
     """Device ms per call of each kernel that ``run()`` launches, summed
     from the profiler's device events (the kernels' own durations, so host
-    gaps between launches do not count)."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                                + ev.device_time_total / 1e3 / calls)
-    if not by_name:
-        raise RuntimeError("the profiler recorded no device time")
-    return by_name
+    gaps between launches do not count).  A session that comes back with
+    no device event at all (seen once in some hundred sessions on the
+    card) is run again; a third empty one raises."""
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                    + ev.device_time_total / 1e3 / calls)
+        if by_name:
+            return by_name
+    raise RuntimeError(f"the profiler recorded no device time in "
+                       f"{attempts} sessions")
+
+
+def host_split(run, calls, top=16):
+    """(profiled host ms per call, {function: cumulative ms per call}) of
+    the port's own functions under cProfile.  cProfile slows every Python
+    call, so its milliseconds are read as shares."""
+    host = cProfile.Profile()
+    host.runcall(run)
+    torch.cuda.synchronize()
+    stats = pstats.Stats(host).stats   # (file, line, fn) -> (.., tt, ct, ..)
+    own = sorted(((f"{Path(f).parent.name}/{Path(f).name}:{fn}", ct)
+                  for (f, _, fn), (_, _, _, ct, _) in stats.items()
+                  if "repro_torch" in f), key=lambda kv: -kv[1])[:top]
+    total = sum(tt for _, _, tt, _, _ in stats.values())
+    return total * 1e3 / calls, {k: ct * 1e3 / calls for k, ct in own}
 
 
 def time_ms(fn, sets, iters=40):
@@ -470,95 +754,146 @@ def n_sets(nbytes):
     return max(2, min(256, math.ceil(120e6 / nbytes)))
 
 
+def bound(flops, nbytes, card):
+    """(bound ms, what bounds it) at the card's published bf16 peaks."""
+    peak, bw = peaks(card)
+    return (max(flops / peak, nbytes / bw) * 1e3,
+            "operations" if flops / peak > nbytes / bw else "bytes")
+
+
 def phase_times(cfg, card):
     import torch.nn.functional as F
     from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     mha_ref)
-    bf16_peak, bw = peaks(card)
+    from repro_torch.kernels.flash_attention import (
+        delta_rowsum_cuda, delta_rowsum_ref, flash_attention_bwd_cuda,
+        flash_attention_bwd_ref, flash_attention_cuda, mha_ref)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     dtype, rows = torch.bfloat16, []
-    for g in main_path_gemms(cfg):
-        out_bytes = 4 if g.head else 2
-        nbytes = (g.m * g.k + g.k * g.n) * 2 + g.m * g.n * out_bytes
-        flops = 2 * g.m * g.n * g.k
-        sets = [gemm_inputs(g, dtype, gen) for _ in range(n_sets(nbytes))]
-        out_dtype = torch.float32 if g.head else None
-        ms, wall = time_ms(lambda x, w: matmul_cuda(
-            x, w, activation=g.activation, out_dtype=out_dtype), sets)
-        plain, _ = time_ms(lambda x, w: matmul_ref(
-            x, w, activation=g.activation, out_dtype=out_dtype), sets)
-        lib, _ = time_ms(torch.matmul, sets)
-        bound = max(flops / bf16_peak, nbytes / bw) * 1e3
-        rows.append({"phase": "times", "kernel": "matmul", "shape": g.name,
-                     "m": g.m, "k": g.k, "n": g.n,
-                     "activation": g.activation, "ms": ms,
-                     "wall_ms": wall, "bound_ms": bound,
-                     "bound_by": ("operations" if flops / bf16_peak
-                                  > nbytes / bw else "bytes"),
-                     "plain_ms": plain, "library_ms": lib,
-                     "per_forward": g.per_forward})
+
+    def row(kernel, shape, ms, wall, flops, nbytes, plain, lib, **kw):
+        bms, by = bound(flops, nbytes, card)
+        rows.append({"phase": "times", "kernel": kernel, "shape": shape,
+                     "ms": ms, "wall_ms": wall, "bound_ms": bms,
+                     "bound_by": by, "plain_ms": plain, "library_ms": lib,
+                     **kw})
         emit(rows[-1])
+
+    for g in main_path_gemms(cfg) + train_gemms(cfg):
+        out_bytes = 4 if g.out_dtype else 2
+        nbytes = (g.m * g.k + g.k * g.n) * 2 + g.m * g.n * out_bytes
+        sets = [gemm_inputs(g, dtype, gen) for _ in range(n_sets(nbytes))]
+        ms, wall = time_ms(lambda x, w: matmul_cuda(
+            x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
+        plain, _ = time_ms(lambda x, w: matmul_ref(
+            x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
+        lib, _ = time_ms(torch.matmul, sets)
+        row("matmul", g.name, ms, wall, 2 * g.m * g.n * g.k, nbytes, plain,
+            lib, m=g.m, k=g.k, n=g.n, activation=g.activation,
+            layout=g.kind, per_forward=g.per_forward, per_step=g.per_step)
         del sets
+
     b, hq, hkv, t, d = BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT, cfg.dh
     pairs = t * (t + 1) // 2                      # causal (q, k) pairs
-    flops = 4 * b * hq * pairs * d
-    nbytes = 2 * (2 * b * hq * t * d + 2 * b * hkv * t * d)
-    sets = [tuple(torch.randn(b, t, h, d, device="cuda", generator=gen)
-                  .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv))
+    q_bytes, kv_bytes = 2 * b * hq * t * d, 2 * b * hkv * t * d
+    nbytes = 2 * q_bytes + 2 * kv_bytes           # q, k, v in; o out
+    sets = [qkv_views(b, hq, hkv, t, d, dtype, gen)
             for _ in range(n_sets(nbytes))]
-    ms, wall = time_ms(lambda q, k, v: flash_attention_cuda(q, k, v), sets)
-    plain, _ = time_ms(lambda q, k, v: mha_ref(q, k, v), sets)
-    lib, _ = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+    ms, wall = time_ms(lambda q, k, v, _: flash_attention_cuda(q, k, v),
+                       sets)
+    plain, _ = time_ms(lambda q, k, v, _: mha_ref(q, k, v), sets)
+    lib, _ = time_ms(lambda q, k, v, _: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), sets)
-    rows.append({"phase": "times", "kernel": "flash_attention",
-                 "shape": "prefill", "q": [b, hq, t, d], "kv": [b, hkv, t, d],
-                 "ms": ms, "wall_ms": wall,
-                 "bound_ms": max(flops / bf16_peak, nbytes / bw) * 1e3,
-                 "bound_by": ("operations" if flops / bf16_peak > nbytes / bw
-                              else "bytes"),
-                 "plain_ms": plain, "library_ms": lib,
-                 "per_forward": cfg.n_layers})
-    emit(rows[-1])
+    row("flash_attention", "prefill", ms, wall, 4 * b * hq * pairs * d,
+        nbytes, plain, lib, q=[b, hq, t, d], kv=[b, hkv, t, d],
+        per_forward=cfg.n_layers, per_step=cfg.n_layers)
+
+    # The backward at the train shape: q, k, v, o, dO, lse in; dq, dk, dv
+    # out; five products over the causal pairs.
+    lse_bytes = 4 * b * hq * t
+    nbytes = 3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes + 2 * kv_bytes
+    bwd_sets, lib_sets = [], []
+    for q, k, v, dy in sets:
+        o, lse = flash_attention_cuda(q, k, v, return_residuals=True)
+        bwd_sets.append((q, k, v, o, lse, dy))
+        leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        lib_sets.append((out, leaves, dy))
+    ms, wall = time_ms(flash_attention_bwd_cuda, bwd_sets)
+    plain, _ = time_ms(flash_attention_bwd_ref, bwd_sets)
+    lib, _ = time_ms(lambda out, leaves, dy: torch.autograd.grad(
+        out, leaves, dy, retain_graph=True), lib_sets)
+    row("flash_attention_bwd", "train", ms, wall, 10 * b * hq * pairs * d,
+        nbytes, plain, lib, q=[b, hq, t, d], kv=[b, hkv, t, d],
+        per_step=cfg.n_layers)
+    # No single PyTorch call takes bf16 y, dy to an fp32 rowsum.
+    ysets = [(o, dy) for _, _, _, o, _, dy in bwd_sets]
+    ms, wall = time_ms(delta_rowsum_cuda, ysets)
+    plain, _ = time_ms(delta_rowsum_ref, ysets)
+    row("delta_rowsum", "train", ms, wall, 2 * b * hq * t * d,
+        2 * q_bytes + lse_bytes, plain, None, y=[b, hq, t, d], per_step=0)
     return rows
 
 
-def kernels_line(rows, launches, worst):
-    """Per kernel, each time summed over the launches of the serving run
-    (one prefill and NEW_TOKENS - 1 decode forwards; flash runs at prefill
-    only), from the per-shape times of phase 5."""
-    srcs = {
-        "matmul": ("src/repro_torch/kernels/brgemm/csrc/matmul.cu",
-                   "src/repro/kernels/brgemm/kernel.py:118"),
-        "flash_attention": (
-            "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
-            "src/repro/kernels/flash_attention/kernel.py:37"),
-    }
+SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
+    "matmul": ("src/repro_torch/kernels/brgemm/csrc/matmul.cu",
+               "src/repro/kernels/brgemm/kernel.py:118"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+        "src/repro/kernels/flash_attention/kernel.py:37"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/flash_attention_bwd/csrc/flash_bwd.cu",
+        "src/repro/kernels/flash_attention/bwd.py:115"),
+    "delta_rowsum": (
+        "src/repro_torch/kernels/flash_attention_bwd/csrc/flash_bwd.cu",
+        "src/repro/kernels/flash_attention/bwd.py:79"),
+}
+
+
+def kernels_line(rows, serve_launches, train_launches, worst):
+    """Per kernel, each time summed over the launches of the runs that
+    drove the paths: the serving run (one prefill and NEW_TOKENS - 1 decode
+    forwards; flash at prefill only) and the TRAIN_STEPS train steps, from
+    the per-shape times of phase 6; the sums are also given by path.
+    ``delta_rowsum`` runs on neither path (it is the oracle of the fused
+    delta): its times are one call's at the train shape."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     out = []
-    for name, (source, replaces) in srcs.items():
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0}
-        by_ops = 0.0
+    for name, (source, replaces) in SOURCES.items():
+        paths = {}
+        by_ops = total_bound = 0.0
         for r in rows:
             if r["kernel"] != name:
                 continue
-            if r["shape"].startswith("decode"):
-                calls = r["per_forward"] * (NEW_TOKENS - 1)
-            elif r["shape"] == "lm_head":
-                calls = r["per_forward"] * NEW_TOKENS
+            if name == "delta_rowsum":
+                calls = {"one_call": 1}
             else:
-                calls = r["per_forward"]
-            for key in tot:
-                tot[key] += r[key] * calls
-            if r["bound_by"] == "operations":
-                by_ops += r["bound_ms"] * calls
+                serve = r.get("per_forward", 0)
+                if r["shape"].startswith("decode"):
+                    serve *= NEW_TOKENS - 1
+                elif r["shape"] == "lm_head":
+                    serve *= NEW_TOKENS
+                calls = {"serve": serve,
+                         "train": r.get("per_step", 0) * TRAIN_STEPS}
+            for path, n in calls.items():
+                acc = paths.setdefault(path, dict.fromkeys(keys, 0.0))
+                for key in keys:
+                    acc[key] = (None if r[key] is None or acc[key] is None
+                                else acc[key] + r[key] * n)
+                total_bound += r["bound_ms"] * n
+                if r["bound_by"] == "operations":
+                    by_ops += r["bound_ms"] * n
+        launches = {"serve": serve_launches.get(name, 0),
+                    "train": train_launches.get(name, 0)}
+        total = {k: (None if any(p[k] is None for p in paths.values())
+                     else sum(p[k] for p in paths.values())) for k in keys}
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": worst[name], "ms": tot["ms"],
-                    "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-                    "bound_by": ("operations" if by_ops > tot["bound_ms"] / 2
+                    "replaces": replaces,
+                    "launches": sum(launches.values()),
+                    "max_abs_err": worst[name], **total,
+                    "bound_by": ("operations" if by_ops > total_bound / 2
                                  else "bytes"),
-                    "library_ms": tot["library_ms"]})
+                    "launches_by_path": launches, "by_path": paths})
     return {"kernels": out}
 
 
@@ -568,9 +903,10 @@ def main():
     cfg = get("smollm-135m")
     phase_build()
     worst = phase_parity(cfg)
-    launches = phase_serve(cfg)
+    serve_launches = phase_serve(cfg)
+    train_launches = phase_train(cfg)
     rows = phase_times(cfg, card)
-    emit(kernels_line(rows, launches, worst))
+    emit(kernels_line(rows, serve_launches, train_launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """PyTorch / CUDA port of ``repro`` for NVIDIA Hopper.
 
 It mirrors the JAX package's module names (``configs``, ``core``,
-``kernels``, ``layers``, ``models``, ``serve``) and imports nothing of it
-or of JAX.  Every Pallas kernel on a ported path is a hand-written CUDA
-kernel (``kernels/*/csrc``), built at first use, beside a plain PyTorch
+``kernels``, ``layers``, ``models``, ``serve``, ``train``, ``data``,
+``checkpoint``, ``launch``) and imports nothing of it or of JAX.  Every
+Pallas kernel on a ported path is a hand-written CUDA kernel
+(``kernels/*/csrc``), built at first use, beside a plain PyTorch
 version; ``core.dispatch`` picks between them.  Entry points run on the
 card unless the caller passes ``device="cpu"``.
 """

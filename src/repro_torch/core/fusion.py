@@ -6,7 +6,10 @@ is the fp32 accumulator in registers, before the single store.  Every
 activation is defined in fp32; the plain path (``ACTIVATIONS``) and the CUDA
 epilogue (``kernels/brgemm/csrc/matmul.cu``, ``apply_act``) implement the
 same formulas, and ``CODES`` is the integer each one is known by on both
-sides of the ``ctypes`` boundary.  The gradient tables come with training.
+sides of the ``ctypes`` boundary.  ``GRAD_FROM_OUTPUT`` and
+``GRAD_FROM_PREACT`` are each activation's derivative, from the output
+``y = act(pre)`` where that is enough and from the pre-activation where it
+is not; the GEMM's backward (``kernels/brgemm/ops.py``) reads them.
 """
 from __future__ import annotations
 
@@ -36,6 +39,45 @@ ACTIVATIONS = {
 
 # Kept in the order of the ``Act`` enum in csrc/matmul.cu.
 CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
+
+
+# Derivatives expressible from the output y = act(pre): the backward needs
+# neither the pre-activation nor a recompute.
+GRAD_FROM_OUTPUT = {
+    "none": lambda y: torch.ones_like(y),
+    "relu": lambda y: (y > 0).to(y.dtype),
+    "sigmoid": lambda y: y * (1.0 - y),
+    "tanh": lambda y: 1.0 - y * y,
+    "exp": lambda y: y,
+}
+
+
+def _gelu_grad_pre(pre):
+    t = torch.tanh(_SQRT_2_OVER_PI * (pre + 0.044715 * pre ** 3))
+    return (0.5 * (1.0 + t) + 0.5 * pre * (1.0 - t * t) * _SQRT_2_OVER_PI
+            * (1.0 + 3 * 0.044715 * pre * pre))
+
+
+def _silu_grad_pre(pre):
+    s = torch.sigmoid(pre)
+    return s * (1.0 + pre * (1.0 - s))
+
+
+# Derivatives that need the pre-activation (the backward recomputes it).
+GRAD_FROM_PREACT = {
+    "gelu": _gelu_grad_pre,
+    "silu": _silu_grad_pre,
+    "square": lambda pre: 2.0 * pre,
+}
+
+
+def needs_preact(activation: str) -> bool:
+    """True if the activation's derivative cannot be taken from its output."""
+    if activation in GRAD_FROM_OUTPUT:
+        return False
+    if activation in GRAD_FROM_PREACT:
+        return True
+    raise ValueError(f"unknown activation {activation!r}")
 
 
 def code(activation: str) -> int:

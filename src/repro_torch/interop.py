@@ -6,8 +6,10 @@ with every leaf converted to a numpy array, and returns the port's
 (``params["blocks"][...][i]`` is layer i); it is sliced into per-layer
 modules here.  The embedding table stays tied: it is the one tensor both
 the input embedding and the output head read.  ``params_to_numpy`` is the
-inverse.  Only numpy crosses the boundary, so this module imports nothing
-of JAX.
+inverse.  ``opt_state_from_numpy`` and ``opt_state_to_numpy`` carry the
+AdamW state (step, m, v, master) across the same way: the port keeps it
+by parameter name, the reference as trees shaped like the parameters.
+Only numpy crosses the boundary, so this module imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchCfg
+from repro_torch.core.dispatch import check_device
 from repro_torch.models.blocks import dtype_of
 from repro_torch.models.transformer import Transformer
 
@@ -45,6 +48,40 @@ def _leaf(tree, path):
     return tree
 
 
+def named_leaves(tree, cfg: ArchCfg):
+    """(parameter name, numpy array) for every leaf of a reference tree,
+    the stacked layers sliced per layer."""
+    yield "embed.table", tree["embed"]["table"]
+    yield "final_ln.scale", tree["final_ln"]["scale"]
+    for path, attr in _BLOCK_LEAVES:
+        stacked = np.asarray(_leaf(tree["blocks"], path))
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"blocks/{'/'.join(path)} stacks "
+                             f"{stacked.shape[0]} layers, config has "
+                             f"{cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            yield f"blocks.{i}.{attr}", stacked[i]
+
+
+def _tree_of(named) -> dict:
+    """The reference's tree layout (layers stacked) with fp32 numpy leaves,
+    from tensors by parameter name."""
+    def np32(t):
+        return t.detach().float().cpu().numpy()
+
+    n_layers = len({n.split(".")[1] for n in named if n.startswith("blocks.")})
+    blocks: dict = {}
+    for path, attr in _BLOCK_LEAVES:
+        node = blocks
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(
+            [np32(named[f"blocks.{i}.{attr}"]) for i in range(n_layers)])
+    return {"embed": {"table": np32(named["embed.table"])},
+            "final_ln": {"scale": np32(named["final_ln.scale"])},
+            "blocks": blocks}
+
+
 def params_from_numpy(tree, cfg: ArchCfg, device="cuda",
                       dtype: torch.dtype | None = None) -> Transformer:
     """The reference's parameter tree (numpy leaves) as a ``Transformer``.
@@ -53,35 +90,31 @@ def params_from_numpy(tree, cfg: ArchCfg, device="cuda",
     model = Transformer(cfg, device=device)
     dtype = dtype or dtype_of(cfg)
     model.to(dtype=dtype)
-    dev = model.device
+    named = dict(model.named_parameters())
     with torch.no_grad():
-        model.embed.table.copy_(_to_torch(tree["embed"]["table"], dtype, dev))
-        model.final_ln.scale.copy_(
-            _to_torch(tree["final_ln"]["scale"], dtype, dev))
-        for path, attr in _BLOCK_LEAVES:
-            stacked = np.asarray(_leaf(tree["blocks"], path))
-            if stacked.shape[0] != cfg.n_layers:
-                raise ValueError(f"blocks/{'/'.join(path)} stacks "
-                                 f"{stacked.shape[0]} layers, config has "
-                                 f"{cfg.n_layers}")
-            for i, block in enumerate(model.blocks):
-                block.get_parameter(attr).copy_(
-                    _to_torch(stacked[i], dtype, dev))
+        for name, arr in named_leaves(tree, cfg):
+            named[name].copy_(_to_torch(arr, dtype, model.device))
     return model
 
 
 def params_to_numpy(model: Transformer) -> dict:
     """The reference's tree layout (layers stacked) with fp32 numpy leaves."""
-    def np32(t):
-        return t.detach().float().cpu().numpy()
+    return _tree_of(dict(model.named_parameters()))
 
-    blocks: dict = {}
-    for path, attr in _BLOCK_LEAVES:
-        node = blocks
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(
-            [np32(b.get_parameter(attr)) for b in model.blocks])
-    return {"embed": {"table": np32(model.embed.table)},
-            "final_ln": {"scale": np32(model.final_ln.scale)},
-            "blocks": blocks}
+
+def opt_state_from_numpy(tree, cfg: ArchCfg, device="cuda") -> dict:
+    """The reference's AdamW state ``{"step", "m", "v", "master"}`` (numpy
+    leaves) as the port's: a Python int step and fp32 tensors by parameter
+    name on ``device``."""
+    device = check_device(device)
+    return {"step": int(np.asarray(tree["step"])),
+            **{key: {name: _to_torch(arr, torch.float32, device)
+                     for name, arr in named_leaves(tree[key], cfg)}
+               for key in ("m", "v", "master")}}
+
+
+def opt_state_to_numpy(state) -> dict:
+    """The port's AdamW state in the reference's layout: an int32 step and
+    fp32 numpy trees."""
+    return {"step": np.asarray(state["step"], np.int32),
+            **{key: _tree_of(state[key]) for key in ("m", "v", "master")}}

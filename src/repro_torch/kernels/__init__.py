@@ -1,8 +1,14 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 Kernel families (one directory each, sources under ``csrc/``):
-  * ``brgemm``          — the batch-reduce GEMM with its fused epilogue,
-  * ``flash_attention`` — the online-softmax attention forward.
+  * ``brgemm``              — the batch-reduce GEMM with its fused epilogue,
+                              X and W each read row- or column-major, so
+                              one kernel serves the forward and both
+                              backward products;
+  * ``flash_attention``     — the online-softmax attention forward;
+  * ``flash_attention_bwd`` — the attention backward (dQ with delta fused,
+                              dK / dV) and the standalone delta pass; its
+                              wrappers live in ``flash_attention/bwd.py``.
 
 They build at first use (``_build.py``); importing this package builds
 nothing, so it imports on a machine without a card.

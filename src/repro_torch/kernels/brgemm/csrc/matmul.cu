@@ -21,6 +21,16 @@
 //     block row when m <= 64), 16 bytes per thread where aligned.  The LM
 //     head reads the tied embedding table in place through W's strides
 //     (W = table.T is column-major), so no transposed copy is ever made.
+//   * Training's backward (m = 4096 tokens): dX = g W^T reads W^T, and
+//     dW = X^T g reads X^T, both in place: X, like W, may be row-major
+//     (x_trans = 0) or column-major (x_trans = 1, as x.T is), chosen at run
+//     time, not by template, so the library keeps its 64 instances.  dW's
+//     reduction runs over the 4096 tokens into a (k, n) output of at most
+//     9 x 24 tiles for the layers' weights: too few blocks to fill 132 SMs,
+//     so those GEMMs are bound by the tiles in flight, not by the card's
+//     rate; a split-K schedule is later work.  The LM head's
+//     dW = x^T g is (576 x 4096)(4096 x 49152) and dX = g table is
+//     (4096 x 49152)(49152 x 576): both at the tensor-core bound.
 //
 // Ragged m, n and k are masked inside the kernel (zero-filled tiles, guarded
 // stores): there is no padding copy.  The fp32 path runs plain FMA on the
@@ -29,6 +39,7 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+#include <type_traits>
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
@@ -85,10 +96,12 @@ __device__ __forceinline__ void finish(const Epilogue& e, float acc, int row,
 // ---------------------------------------------------------------------------
 namespace tc {
 constexpr int BM = 64, BN = 64, BK = 32, THREADS = 128;
-constexpr int LDA = BK + 8;    // As[BM][LDA]
+constexpr int LDA = BK + 8;    // As[BM][LDA] when X is row-major (m, k)
+constexpr int LDAT = BM + 8;   // As[BK][LDAT] when X is column-major
 constexpr int LDB = BN + 8;    // Bs[BK][LDB] when W is row-major (k, n)
 constexpr int LDBT = BK + 8;   // Bs[BN][LDBT] when W is column-major
 constexpr int LDC = BN + 4;    // Cs[BM][LDC], fp32
+constexpr int A_ELEMS = (BM * LDA > BK * LDAT) ? BM * LDA : BK * LDAT;
 constexpr int B_ELEMS = (BK * LDB > BN * LDBT) ? BK * LDB : BN * LDBT;
 
 // Each thread moves two 8-element chunks of the A tile and two of the B tile
@@ -114,21 +127,57 @@ __device__ __forceinline__ Chunk load_chunk(const bf16* base, long long ld,
   return ch;
 }
 
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// One BK slice of this warp's 32 x 32 piece: A from As, B from Bs, each
+// stored row-major or column-major as its operand was read.
+template <typename LA, typename LB>
+__device__ __forceinline__ void mma_slice(Acc (&acc)[2][2], const bf16* As,
+                                          const bf16* Bs, int wm, int wn) {
+  constexpr bool A_ROW = std::is_same<LA, wmma::row_major>::value;
+  constexpr bool B_ROW = std::is_same<LB, wmma::row_major>::value;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      int r = wm * 32 + i * 16;
+      if constexpr (A_ROW)
+        wmma::load_matrix_sync(fa[i], &As[r * LDA + kk], LDA);
+      else
+        wmma::load_matrix_sync(fa[i], &As[kk * LDAT + r], LDAT);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      int c = wn * 32 + j * 16;
+      if constexpr (B_ROW)
+        wmma::load_matrix_sync(fb[j], &Bs[kk * LDB + c], LDB);
+      else
+        wmma::load_matrix_sync(fb[j], &Bs[c * LDBT + kk], LDBT);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  }
+}
+
 template <int ACT, bool HAS_BIAS, bool HAS_C0>
 __global__ void __launch_bounds__(THREADS)
 matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    Epilogue e, int m, int n, int k, long long ldx,
-                   long long ldw, int w_trans, int vec_x, int vec_w) {
-  __shared__ __align__(128) bf16 As[BM * LDA];
+                   long long ldw, int x_trans, int w_trans, int vec_x,
+                   int vec_w) {
+  __shared__ __align__(128) bf16 As[A_ELEMS];
   __shared__ __align__(128) bf16 Bs[B_ELEMS];
   __shared__ __align__(128) float Cs[BM * LDC];
 
   const int tid = threadIdx.x, warp = tid / 32;
   const int wm = warp / 2, wn = warp % 2;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const bf16* xb = x + (long long)m0 * ldx;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  Acc acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -139,7 +188,8 @@ matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
     int idx = tid + t * THREADS;            // 256 chunks per tile
-    a_r[t] = idx / (BK / 8); a_c[t] = (idx % (BK / 8)) * 8;
+    if (x_trans) { a_r[t] = idx / (BM / 8); a_c[t] = (idx % (BM / 8)) * 8; }
+    else         { a_r[t] = idx / (BK / 8); a_c[t] = (idx % (BK / 8)) * 8; }
     if (w_trans) { b_r[t] = idx / (BK / 8); b_c[t] = (idx % (BK / 8)) * 8; }
     else         { b_r[t] = idx / (BN / 8); b_c[t] = (idx % (BN / 8)) * 8; }
   }
@@ -147,8 +197,12 @@ matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   auto fetch = [&](int k0, Chunk (&ra)[2], Chunk (&rb)[2]) {
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      ra[t] = load_chunk(xb + k0, ldx, a_r[t], a_c[t], m - m0, k - k0,
-                         vec_x);
+      if (x_trans)  // X[mm][kk] at kk * ldx + mm: rows of the tile are k
+        ra[t] = load_chunk(x + (long long)k0 * ldx + m0, ldx, a_r[t], a_c[t],
+                           k - k0, m - m0, vec_x);
+      else
+        ra[t] = load_chunk(x + (long long)m0 * ldx + k0, ldx, a_r[t], a_c[t],
+                           m - m0, k - k0, vec_x);
       if (w_trans)  // W[kk][nn] at nn * ldw + kk: rows of the tile are n
         rb[t] = load_chunk(w + (long long)n0 * ldw + k0, ldw, b_r[t], b_c[t],
                            n - n0, k - k0, vec_w);
@@ -163,45 +217,21 @@ matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   for (int k0 = 0; k0 < k; k0 += BK) {
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      *reinterpret_cast<uint4*>(&As[a_r[t] * LDA + a_c[t]]) = ra[t].v;
-      int ld = w_trans ? LDBT : LDB;
-      *reinterpret_cast<uint4*>(&Bs[b_r[t] * ld + b_c[t]]) = rb[t].v;
+      int lda = x_trans ? LDAT : LDA, ldb = w_trans ? LDBT : LDB;
+      *reinterpret_cast<uint4*>(&As[a_r[t] * lda + a_c[t]]) = ra[t].v;
+      *reinterpret_cast<uint4*>(&Bs[b_r[t] * ldb + b_c[t]]) = rb[t].v;
     }
     __syncthreads();
     if (k0 + BK < k) fetch(k0 + BK, ra, rb);   // overlaps the products below
 
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[(wm * 32 + i * 16) * LDA + kk],
-                               LDA);
-      if (w_trans) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-            fb[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], &Bs[(wn * 32 + j * 16) * LDBT + kk],
-                                 LDBT);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      } else {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-            fb[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], &Bs[kk * LDB + wn * 32 + j * 16],
-                                 LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
+    using RM = wmma::row_major;
+    using CM = wmma::col_major;
+    if (x_trans) {
+      if (w_trans) mma_slice<CM, CM>(acc, As, Bs, wm, wn);
+      else mma_slice<CM, RM>(acc, As, Bs, wm, wn);
+    } else {
+      if (w_trans) mma_slice<RM, CM>(acc, As, Bs, wm, wn);
+      else mma_slice<RM, RM>(acc, As, Bs, wm, wn);
     }
     __syncthreads();
   }
@@ -232,7 +262,7 @@ template <int ACT, bool HAS_BIAS, bool HAS_C0>
 __global__ void __launch_bounds__(THREADS)
 matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   Epilogue e, int m, int n, int k, long long ldx,
-                  long long ldw, int w_trans) {
+                  long long ldw, int x_trans, int w_trans) {
   __shared__ float As[BK][BM + 4];   // transposed: As[kk][row]
   __shared__ float Bs[BK][BN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -243,9 +273,15 @@ matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       int idx = tid + t * THREADS;           // 1024 elements per tile
-      int r = idx / BK, kk = idx % BK;
-      As[kk][r] = (m0 + r < m && k0 + kk < k)
-                      ? x[(long long)(m0 + r) * ldx + k0 + kk] : 0.0f;
+      if (x_trans) {   // neighbouring threads on neighbouring rows
+        int r = idx % BM, kk = idx / BM;
+        As[kk][r] = (m0 + r < m && k0 + kk < k)
+                        ? x[(long long)(k0 + kk) * ldx + m0 + r] : 0.0f;
+      } else {
+        int r = idx / BK, kk = idx % BK;
+        As[kk][r] = (m0 + r < m && k0 + kk < k)
+                        ? x[(long long)(m0 + r) * ldx + k0 + kk] : 0.0f;
+      }
       if (w_trans) {
         int c = idx / BK, kq = idx % BK;
         Bs[kq][c] = (n0 + c < n && k0 + kq < k)
@@ -283,60 +319,59 @@ matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 template <int ACT, bool HAS_BIAS, bool HAS_C0>
 static void launch(const void* x, const void* w, const Epilogue& e, int m,
-                   int n, int k, long long ldx, long long ldw, int w_trans,
-                   int is_bf16, int vec_x, int vec_w, cudaStream_t stream) {
+                   int n, int k, long long ldx, long long ldw, int x_trans,
+                   int w_trans, int is_bf16, int vec_x, int vec_w,
+                   cudaStream_t stream) {
   if (is_bf16) {
     dim3 grid((n + tc::BN - 1) / tc::BN, (m + tc::BM - 1) / tc::BM);
     tc::matmul_bf16_kernel<ACT, HAS_BIAS, HAS_C0>
         <<<grid, tc::THREADS, 0, stream>>>(
             static_cast<const bf16*>(x), static_cast<const bf16*>(w), e, m, n,
-            k, ldx, ldw, w_trans, vec_x, vec_w);
+            k, ldx, ldw, x_trans, w_trans, vec_x, vec_w);
   } else {
     dim3 grid((n + simt::BN - 1) / simt::BN, (m + simt::BM - 1) / simt::BM);
     simt::matmul_f32_kernel<ACT, HAS_BIAS, HAS_C0>
         <<<grid, simt::THREADS, 0, stream>>>(
             static_cast<const float*>(x), static_cast<const float*>(w), e, m,
-            n, k, ldx, ldw, w_trans);
+            n, k, ldx, ldw, x_trans, w_trans);
   }
 }
 
 template <int ACT>
 static void launch_act(bool has_bias, bool has_c0, const void* x,
                        const void* w, const Epilogue& e, int m, int n, int k,
-                       long long ldx, long long ldw, int w_trans, int is_bf16,
-                       int vec_x, int vec_w, cudaStream_t s) {
-  if (has_bias && has_c0)
-    launch<ACT, true, true>(x, w, e, m, n, k, ldx, ldw, w_trans, is_bf16,
-                            vec_x, vec_w, s);
-  else if (has_bias)
-    launch<ACT, true, false>(x, w, e, m, n, k, ldx, ldw, w_trans, is_bf16,
-                             vec_x, vec_w, s);
-  else if (has_c0)
-    launch<ACT, false, true>(x, w, e, m, n, k, ldx, ldw, w_trans, is_bf16,
-                             vec_x, vec_w, s);
-  else
-    launch<ACT, false, false>(x, w, e, m, n, k, ldx, ldw, w_trans, is_bf16,
-                              vec_x, vec_w, s);
+                       long long ldx, long long ldw, int x_trans, int w_trans,
+                       int is_bf16, int vec_x, int vec_w, cudaStream_t s) {
+  auto go = [&](auto launcher) {
+    launcher(x, w, e, m, n, k, ldx, ldw, x_trans, w_trans, is_bf16, vec_x,
+             vec_w, s);
+  };
+  if (has_bias && has_c0) go(launch<ACT, true, true>);
+  else if (has_bias) go(launch<ACT, true, false>);
+  else if (has_c0) go(launch<ACT, false, true>);
+  else go(launch<ACT, false, false>);
 }
 
-// x: (m, k) with row stride ldx and unit column stride.  w: (k, n) either
-// row-major (w_trans = 0, element (kk, nn) at kk * ldw + nn) or column-major
-// (w_trans = 1, element at nn * ldw + kk).  bias / c0 may be null.  Returns
-// the launch's cudaGetLastError().
+// x: (m, k) either row-major (x_trans = 0, element (mm, kk) at
+// mm * ldx + kk) or column-major (x_trans = 1, element at kk * ldx + mm).
+// w: (k, n) either row-major (w_trans = 0, element (kk, nn) at
+// kk * ldw + nn) or column-major (w_trans = 1, element at nn * ldw + kk).
+// bias / c0 may be null.  Returns the launch's cudaGetLastError().
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias,
                             const void* c0, void* out, int m, int n, int k,
-                            long long ldx, long long ldw, int w_trans,
-                            long long ldc0, float alpha, float beta, int act,
-                            int is_bf16, int out_f32, int bias_f32,
-                            int c0_f32, int vec_x, int vec_w, void* stream) {
+                            long long ldx, long long ldw, int x_trans,
+                            int w_trans, long long ldc0, float alpha,
+                            float beta, int act, int is_bf16, int out_f32,
+                            int bias_f32, int c0_f32, int vec_x, int vec_w,
+                            void* stream) {
   if (act < 0 || act >= N_ACT) return (int)cudaErrorInvalidValue;
   Epilogue e{bias, c0, out, ldc0, alpha, beta, bias_f32, c0_f32, out_f32};
   bool hb = bias != nullptr, hc = c0 != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_ACT_CASE(A)                                                  \
   case A:                                                                  \
-    launch_act<A>(hb, hc, x, w, e, m, n, k, ldx, ldw, w_trans, is_bf16,    \
-                  vec_x, vec_w, s);                                        \
+    launch_act<A>(hb, hc, x, w, e, m, n, k, ldx, ldw, x_trans, w_trans,    \
+                  is_bf16, vec_x, vec_w, s);                               \
     break;
   switch (act) {
     REPRO_ACT_CASE(NONE) REPRO_ACT_CASE(RELU) REPRO_ACT_CASE(SIGMOID)

@@ -23,8 +23,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 def _lib():
     lib = _build.load("brgemm")
     lib.repro_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
-                                 _I, _LL, _F, _F, _I, _I, _I, _I, _I, _I, _I,
-                                 _P]
+                                 _I, _I, _LL, _F, _F, _I, _I, _I, _I, _I, _I,
+                                 _I, _P]
     lib.repro_matmul.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -41,15 +41,26 @@ def _aligned(t: torch.Tensor, ld: int) -> bool:
     return t.data_ptr() % 16 == 0 and ld % 8 == 0
 
 
+def _layout(t: torch.Tensor, name: str) -> tuple[int, int]:
+    """(trans, ld) of a 2-D operand read in place: row-major (trans 0, ld
+    the row stride) or column-major (trans 1, ld the column stride)."""
+    rows, cols = t.shape
+    if t.stride(1) == 1 or cols == 1:
+        return 0, _row_stride(t)
+    if t.stride(0) == 1 or rows == 1:
+        return 1, t.stride(1)
+    raise ValueError(f"matmul_cuda needs {name} row- or column-major, got "
+                     f"strides {t.stride()}")
+
+
 def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
                 alpha: float = 1.0, beta: float = 0.0, out_dtype=None):
     """``act(alpha * x @ w + beta * c0 + bias)`` on the card.
 
-    x: (m, k) with unit column stride.  w: (k, n), either row-major
-    (unit stride along n) or column-major (unit stride along k, as
-    ``table.T`` is), read in place.  bias: (n,) contiguous; c0: (m, n) with
-    unit column stride; both fp32 or x's dtype.  Returns a contiguous
-    (m, n) of ``out_dtype`` (fp32 or bf16; default x's dtype).
+    x: (m, k) and w: (k, n), each either row-major or column-major (as
+    ``x.T`` and ``table.T`` are), read in place.  bias: (n,) contiguous;
+    c0: (m, n) with unit column stride; both fp32 or x's dtype.  Returns a
+    contiguous (m, n) of ``out_dtype`` (fp32 or bf16; default x's dtype).
     """
     out_dtype = out_dtype or x.dtype
     if not (x.is_cuda and w.device == x.device):
@@ -65,16 +76,8 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
                          f"{tuple(w.shape)} do not chain")
     m, k = x.shape
     n = w.size(1)
-    if x.stride(1) != 1 and k > 1:
-        raise ValueError("matmul_cuda needs x with unit column stride")
-    ldx = _row_stride(x)
-    if w.stride(1) == 1 or n == 1:
-        w_trans, ldw = 0, _row_stride(w)
-    elif w.stride(0) == 1 or k == 1:
-        w_trans, ldw = 1, w.stride(1)
-    else:
-        raise ValueError(f"matmul_cuda needs w row- or column-major, got "
-                         f"strides {w.stride()}")
+    x_trans, ldx = _layout(x, "x")
+    w_trans, ldw = _layout(w, "w")
     for name, t, shape in (("bias", bias, (n,)), ("c0", c0, (m, n))):
         if t is None:
             continue
@@ -94,7 +97,7 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
         x.data_ptr(), w.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         c0.data_ptr() if has_c0 else None,
-        out.data_ptr(), m, n, k, ldx, ldw, w_trans,
+        out.data_ptr(), m, n, k, ldx, ldw, x_trans, w_trans,
         _row_stride(c0) if has_c0 else 0, float(alpha), float(beta),
         fusion.code(activation), int(is_bf16),
         int(out_dtype == torch.float32),

@@ -1,15 +1,23 @@
 """Public entry point of the batch-reduce GEMM, through the op registry.
 
 ``matmul`` registers two backends (``core/dispatch.py``): ``"torch"``, the
-plain version in ``ref.py``, and ``"cuda"``, the Hopper kernel in
-``kernel.py``.  Forward only: the ``"cuda"`` backend refuses a call that
-autograd would record, since the backward kernels come with training.
+plain version in ``ref.py``, differentiated by plain autograd; and
+``"cuda"``, the Hopper kernel in ``kernel.py``, whose gradient is the same
+kernel again (``_MatmulCuda``), as in the reference's custom VJP
+(``repro/kernels/brgemm/ops.py``, ``_matmul_fwd`` / ``_matmul_bwd``):
+
+    g  = dy * act'(pre)     fp32; act' from the output, or from ``pre``
+                            recomputed by the kernel (activation "none",
+                            fp32 out) when the output is not enough
+    dx = (alpha g) W^T      the kernel, W read transposed in place
+    dw = X^T (alpha g)      the kernel, X read transposed in place
+    dbias = sum_rows g,  dc0 = beta g
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import dispatch
+from repro_torch.core import dispatch, fusion
 from repro_torch.kernels.brgemm import kernel as K
 from repro_torch.kernels.brgemm import ref as R
 
@@ -20,13 +28,48 @@ def _matmul_torch(x, w, bias, c0, *, activation, alpha, beta, out_dtype):
                         beta=beta, c0=c0, out_dtype=out_dtype)
 
 
+class _MatmulCuda(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, c0, activation, alpha, beta, out_dtype):
+        y = K.matmul_cuda(x, w, bias, c0, activation=activation, alpha=alpha,
+                          beta=beta, out_dtype=out_dtype)
+        # The output is kept only when the derivative is read from it.
+        from_y = activation != "none" and not fusion.needs_preact(activation)
+        ctx.save_for_backward(x, w, bias, c0, y if from_y else None)
+        ctx.cfg = (activation, alpha, beta)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias, c0, y = ctx.saved_tensors
+        activation, alpha, beta = ctx.cfg
+        g = dy.float()
+        if fusion.needs_preact(activation):
+            pre = K.matmul_cuda(x, w, bias, c0, activation="none",
+                                alpha=alpha, beta=beta,
+                                out_dtype=torch.float32)
+            g = g * fusion.GRAD_FROM_PREACT[activation](pre)
+        elif activation != "none":
+            g = g * fusion.GRAD_FROM_OUTPUT[activation](y.float())
+        galpha = (g * alpha).to(x.dtype)
+        dx = dw = dbias = dc0 = None
+        if ctx.needs_input_grad[0]:
+            dx = K.matmul_cuda(galpha, w.T)
+        if ctx.needs_input_grad[1]:
+            dw = K.matmul_cuda(x.T, galpha).to(w.dtype)
+        if bias is not None and ctx.needs_input_grad[2]:
+            dbias = g.sum(0).to(bias.dtype)
+        if c0 is not None and ctx.needs_input_grad[3]:
+            dc0 = (g * beta).to(c0.dtype)
+        return dx, dw, dbias, dc0, None, None, None, None
+
+
 @dispatch.register("matmul", "cuda")
 def _matmul_cuda(x, w, bias, c0, *, activation, alpha, beta, out_dtype):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias, c0)):
-        raise NotImplementedError(
-            "the cuda matmul is forward only: backward kernels come with the "
-            "training slice (run under torch.inference_mode() or no_grad)")
+        return _MatmulCuda.apply(x, w, bias, c0, activation, alpha, beta,
+                                 out_dtype)
     return K.matmul_cuda(x, w, bias, c0, activation=activation, alpha=alpha,
                          beta=beta, out_dtype=out_dtype)
 

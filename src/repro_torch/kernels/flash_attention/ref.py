@@ -3,6 +3,8 @@
 ``mha_ref`` is the semantic oracle: a full (Tq, Tk) softmax in fp32.  It is
 the decode path's attention (one query against a padded cache) and the
 ``"torch"`` backend of ``flash_attention``, whose lse it also returns.
+``flash_attention_bwd_ref`` is its gradient by autograd, and
+``delta_rowsum_ref`` the softmax-Jacobian term the backward kernel fuses.
 """
 from __future__ import annotations
 
@@ -58,3 +60,23 @@ def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     lse = torch.where(mask.any(dim=-1, keepdim=True), mx + torch.log(den),
                       NEG_INF)
     return out, lse.reshape(b, hq, tq)
+
+
+def delta_rowsum_ref(y, dy):
+    """``rowsum(dY * Y)`` in fp32: (B, H, T, d) -> (B, H, T)."""
+    return (y.float() * dy.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, y, lse, dy, *, causal: bool = True,
+                            window: int | None = None,
+                            scale: float | None = None):
+    """(dq, dk, dv) by autograd through ``mha_ref``, in the inputs' dtypes.
+
+    The reference's ``xla`` backend of ``flash_attention_bwd``: it rebuilds
+    everything from q, k and v, so ``y`` and ``lse`` are not read.
+    """
+    del y, lse
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = mha_ref(*leaves, causal=causal, window=window, scale=scale)
+        return torch.autograd.grad(out, leaves, dy)

@@ -20,6 +20,10 @@ def forward(params, batch, cfg: ArchCfg, **kw):
     return transformer.forward(params, batch, cfg, **kw)
 
 
+def loss_fn(params, batch, cfg: ArchCfg, **kw):
+    return transformer.loss_fn(params, batch, cfg, **kw)
+
+
 def prefill(params, batch, cfg: ArchCfg, cache, **kw):
     return transformer.prefill(params, batch, cfg, cache, **kw)
 

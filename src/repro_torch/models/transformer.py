@@ -1,4 +1,4 @@
-"""The dense decoder-only LM: init, forward, prefill and decode_step.
+"""The dense decoder-only LM: init, forward, loss, prefill and decode_step.
 
 The reference scans one traced block over layer parameters stacked on a
 leading axis; here the layers are an ``nn.ModuleList`` run by a Python
@@ -115,6 +115,30 @@ def init_cache(cfg: ArchCfg, batch: int, max_len: int, *, device="cuda"):
 def forward(params: Transformer, batch, cfg: ArchCfg, *, backend=None):
     """Train-mode forward.  Returns (fp32 logits, aux)."""
     return params(batch["tokens"], backend=backend), dict(ZERO_AUX)
+
+
+def _xent(logits, labels, mask):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(params: Transformer, batch, cfg: ArchCfg, *, backend=None):
+    """Mean next-token cross-entropy over labels >= 0, from fp32 logits.
+
+    Labels < 0 are masked out (and clamped to 0 for the gather), as in the
+    reference.  Returns ``(loss, {"ce_loss", "loss"})``; the dense decoder
+    adds no MoE or MTP terms.
+    """
+    if cfg.mtp or cfg.block != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the port's loss covers the dense decoder only "
+            f"(no MoE balance or MTP terms)")
+    logits, _ = forward(params, batch, cfg, backend=backend)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    loss = _xent(logits, labels.clamp_min(0).long(), mask)
+    return loss, {"ce_loss": loss, "loss": loss}
 
 
 def prefill(params: Transformer, batch, cfg: ArchCfg, cache, *,

@@ -1,0 +1,101 @@
+"""AdamW with an fp32 master copy, as in the reference's ``train/optimizer``.
+
+The optimizer state mirrors the parameters by name (``model.
+named_parameters()``): ``{"step": int, "m": {...}, "v": {...},
+"master": {...}}``, with the fp32 master copy kept apart from the working
+(compute-dtype) parameters, which ``cast_params`` rewrites from it.  The
+update is the reference's, not ``torch.optim.AdamW``'s: gradients are cast
+to fp32 and clipped by the global norm of all of them, the bias
+corrections use the incremented step, ``eps`` sits outside the square
+root, and weight decay is applied to the master inside the same step.
+Where the reference builds new arrays, this updates ``m``, ``v`` and
+``master`` in place (``torch._foreach_*``), so the state costs no second
+copy.  SGDM is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWCfg:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"
+
+
+def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWCfg) -> dict:
+    mdt = getattr(torch, cfg.moment_dtype)
+    with torch.no_grad():
+        return {
+            "step": 0,
+            "m": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+                  for n, p in params.items()},
+            "v": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+                  for n, p in params.items()},
+            "master": {n: p.detach().float().clone()
+                       for n, p in params.items()},
+        }
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in fp32 (0-d tensor)."""
+    tensors = list(tensors.values() if isinstance(tensors, Mapping)
+                   else tensors)
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@torch.no_grad()
+def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
+                 cfg: AdamWCfg, lr_scale: float = 1.0):
+    """Returns ``(new_state, metrics)``; ``m``, ``v`` and ``master`` are
+    updated in place and carried into the new state."""
+    names = list(state["master"])
+    step = state["step"] + 1
+    g32 = [grads[n].float() for n in names]
+    gnorm = global_norm(g32)
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    g32 = torch._foreach_mul(g32, clip)
+    b1c = 1.0 - cfg.b1 ** step
+    b2c = 1.0 - cfg.b2 ** step
+    lr = cfg.lr * lr_scale
+
+    m = [state["m"][n] for n in names]
+    v = [state["v"][n] for n in names]
+    master = [state["master"][n] for n in names]
+    m32 = [t.float() for t in m]      # the same tensors when moments are fp32
+    v32 = [t.float() for t in v]
+    torch._foreach_mul_(m32, cfg.b1)
+    torch._foreach_add_(m32, g32, alpha=1 - cfg.b1)
+    torch._foreach_mul_(v32, cfg.b2)
+    torch._foreach_addcmul_(v32, g32, g32, value=1 - cfg.b2)
+    denom = torch._foreach_div(v32, b2c)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, cfg.eps)
+    upd = torch._foreach_div(m32, b1c)
+    torch._foreach_div_(upd, denom)
+    torch._foreach_add_(upd, master, alpha=cfg.weight_decay)
+    torch._foreach_add_(master, upd, alpha=-lr)
+    for dst, src in zip(m + v, m32 + v32):
+        if dst is not src:
+            dst.copy_(src)
+    new_state = {"step": step, "m": state["m"], "v": state["v"],
+                 "master": state["master"]}
+    return new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def cast_params(state: dict, params: Mapping[str, torch.Tensor]):
+    """Working (compute-dtype) params from the fp32 master copy, written in
+    place into ``params`` (name -> tensor); returns ``params``."""
+    for n, p in params.items():
+        p.copy_(state["master"][n])
+    return params

@@ -1,0 +1,101 @@
+"""The train step: working params from the master copy -> loss -> grads ->
+(microbatch accumulation) -> AdamW update, as in the reference's
+``train/train_step``.
+
+The state is ``{"opt": adamw state}``, the reference's tree.  The working
+parameters are a ``Transformer`` in ``cfg.dtype`` that the step builds once
+on the master copy's device and rewrites from the master at the start of
+every step; gradients are taken with respect to it by autograd, so in bf16
+training they are bf16, as in the reference, and the optimizer casts them to
+fp32.  With microbatches they are summed in fp32 and divided by their
+count.  The learning-rate scale reads the step *before* the update
+increments it, so the first update has lr = 0, as in the reference.
+Gradient compression, block policies, accumulator dtypes and meshes are not
+ported yet.  ``cfg.remat`` is not read: activation checkpointing changes
+memory, not numbers, and smollm-135m's activations at B = 8 x T = 512 fit
+on one card without it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchCfg
+from repro_torch.core import dispatch
+from repro_torch.models import api
+from repro_torch.models.transformer import Transformer
+from repro_torch.train import optimizer as opt
+from repro_torch.train.schedule import warmup_cosine
+
+
+def _to_device(batch, device):
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def loss_and_grads(model: Transformer, batch, cfg: ArchCfg):
+    """``(metrics, grads)``: the loss's metrics (0-d tensors) and the
+    gradient of every parameter, by name, in the parameter's dtype."""
+    for p in model.parameters():
+        p.grad = None
+    loss, metrics = api.loss_fn(model, _to_device(batch, model.device), cfg)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    return {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
+                    microbatches: int = 1, grad_compression: str = "none",
+                    backend: str | None = None, blocks_policy=None,
+                    accum_dtype=None, mesh=None, axis_specs=None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch`` holds ``tokens`` and ``labels`` (numpy or tensors), moved to
+    the master copy's device.  ``backend`` scopes every op of the step,
+    forward and backward.
+    """
+    if grad_compression != "none":
+        raise NotImplementedError("gradient compression is not ported yet")
+    if any(x is not None for x in (blocks_policy, accum_dtype, mesh,
+                                   axis_specs)):
+        raise NotImplementedError("block policies, accumulator dtypes and "
+                                  "meshes are not ported yet")
+    model = None     # the working params, built at the first step
+
+    def train_step(state, batch):
+        nonlocal model
+        if model is None:
+            device = next(iter(state["opt"]["master"].values())).device
+            model = Transformer(cfg, device=device)
+        opt.cast_params(state["opt"], dict(model.named_parameters()))
+        with dispatch.use(backend=backend):
+            if microbatches > 1:
+                rows = len(batch["tokens"])
+                if rows % microbatches:
+                    raise ValueError(f"a batch of {rows} rows does not split "
+                                     f"into {microbatches} microbatches")
+                size, grads = rows // microbatches, None
+                for i in range(microbatches):
+                    mb = {k: v[i * size:(i + 1) * size]
+                          for k, v in batch.items()}
+                    metrics, g = loss_and_grads(model, mb, cfg)
+                    if grads is None:
+                        grads = {n: t.float() for n, t in g.items()}
+                    else:
+                        torch._foreach_add_(list(grads.values()),
+                                            [g[n].float() for n in grads])
+                grads = {n: t / microbatches for n, t in grads.items()}
+            else:
+                metrics, grads = loss_and_grads(model, batch, cfg)
+        lr_scale = warmup_cosine(state["opt"]["step"])
+        new_opt, opt_metrics = opt.adamw_update(grads, state["opt"], ocfg,
+                                                lr_scale)
+        return {"opt": new_opt}, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def init_state(cfg: ArchCfg, ocfg: opt.AdamWCfg,
+               generator: torch.Generator | None = None, device="cuda"):
+    """``{"opt": adamw_init(params)}`` for random params drawn from
+    ``generator`` in ``cfg.dtype`` (the master copy holds them in fp32)."""
+    model = api.init_params(cfg, generator, device=device)
+    return {"opt": opt.adamw_init(dict(model.named_parameters()), ocfg)}

@@ -12,7 +12,10 @@ import torch
 
 from repro_torch.core import dispatch
 from repro_torch.kernels.brgemm import matmul, matmul_cuda
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,8 +64,13 @@ def test_importing_every_module_loads_no_jax():
 
 def test_defaults_raise_without_cuda(monkeypatch):
     from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.interop import opt_state_from_numpy, opt_state_to_numpy
+    from repro_torch.launch.train import run
     from repro_torch.models import api
     from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.train.optimizer import AdamWCfg
+    from repro_torch.train.train_step import init_state
     cfg = configs.get("smollm-135m").reduced()
     params = api.init_params(cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -72,24 +80,40 @@ def test_defaults_raise_without_cuda(monkeypatch):
         api.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, params, ServeConfig(max_len=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(cfg, AdamWCfg())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(cfg, ShapeCfg("t", "train", 8, 2), steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt_state_from_numpy(opt_state_to_numpy(
+            init_state(cfg, AdamWCfg(), device="cpu")["opt"]), cfg)
 
 
 def test_explicit_cuda_backend_on_cpu_tensors_raises():
     x, w = torch.ones(4, 8), torch.ones(8, 3)
     q = torch.ones(1, 2, 4, 32)
+    lse = torch.zeros(1, 2, 4)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         matmul(x, w, backend="cuda")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         flash_attention(q, q, q, backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attention_bwd(q, q, q, q, lse, q, backend="cuda")
     with dispatch.use(backend="cuda"), pytest.raises(ValueError):
         matmul(x, w)
     # The wrappers themselves refuse CPU tensors before building anything.
-    before = matmul_cuda.launches, flash_attention_cuda.launches
+    counters = (matmul_cuda, flash_attention_cuda, flash_attention_bwd_cuda,
+                delta_rowsum_cuda)
+    before = [c.launches for c in counters]
     with pytest.raises(ValueError):
         matmul_cuda(x, w)
     with pytest.raises(ValueError):
         flash_attention_cuda(q, q, q)
-    assert (matmul_cuda.launches, flash_attention_cuda.launches) == before
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, q, q, q, lse, q)
+    with pytest.raises(ValueError):
+        delta_rowsum_cuda(q, q)
+    assert [c.launches for c in counters] == before
 
 
 def test_dispatch_precedence():

@@ -1,20 +1,23 @@
-"""Drive the PyTorch port's serving and training paths on one NVIDIA
-Hopper card.
+"""Drive the PyTorch port's serving, training, ResNet-50 and batch-reduce
+GEMM paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure raises and exits non-zero):
   1. device  — a CUDA card of compute capability 9.0; its name and power
                limit as nvidia-smi gives them.
-  2. build   — the three kernel families (brgemm, flash_attention,
-               flash_attention_bwd) built from
+  2. build   — the five kernel families (brgemm, flash_attention,
+               flash_attention_bwd, conv2d, brgemm_batched) built from
                ``src/repro_torch/kernels/*/csrc`` by nvcc for sm_90a, in
                parallel; build seconds and the -Xptxas -v summary.
   3. parity  — each kernel against its plain PyTorch version on the card, at
-               the main-path shapes of smollm-135m (B = 8 prompts of 512
+               the main paths' shapes: smollm-135m's (B = 8 prompts of 512
                tokens; training's backward GEMMs, X or W read transposed in
-               place; the flash backward and its fused delta), in fp32 and
-               bf16, within stated tolerances.
+               place; the flash backward and its fused delta); the direct
+               convolution forward and its dgrad dual at ResNet-50's layer
+               shapes (N = 32); the stacked brgemm at the paper's cases and
+               the batched GEMM broadcast and transposed as brgemm's
+               backward reads it; in fp32 and bf16, within stated bands.
   4. serve   — full-width smollm-135m (random weights from a seed)
                ``Engine.generate``: 8 prompts x 512 tokens, 64 greedy
                tokens, bf16.  Once on the kernels (counting launches) and
@@ -33,16 +36,26 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                trajectory; in bf16, then in fp32 with tighter bands.  Step
                time, tokens/s, peak memory, and the device's busy and idle
                share of a step under torch.profiler.
-  6. times   — each kernel's device time (profiler) and back-to-back wall
-               time (CUDA events) at each main-path shape, serving's and
-               training's, beside its bound, its plain version and one
-               library call.
+  6. resnet  — full-width ResNet-50 (random weights from a seed), 32 images
+               of 224 x 224: one forward and one gradient step on the
+               kernels (exact launch counts), then on the plain path;
+               logits, loss and every parameter's gradient compared; bf16,
+               then fp32.  Forward ms, images/s, step ms, peak memory, and
+               the device's busy and idle share under torch.profiler.
+  7. brgemm  — the paper's ``brgemm`` (forward and backward) and
+               ``batched_matmul`` entry points at the paper's cases, on the
+               kernels (exact launch counts) and on the plain path.
+  8. times   — each kernel's device time (profiler) and back-to-back wall
+               time (CUDA events) at each main-path shape, serving's,
+               training's, ResNet-50's and brgemm's, beside its bound, its
+               plain version and one library call.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import cProfile
 import dataclasses
 import json
@@ -65,7 +78,27 @@ BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 8, 512, 64, 1024
 # score tensor per layer for autograd, which at 2048 and 30 layers would
 # press on 80 GB.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
-FAMILIES = ("brgemm", "flash_attention", "flash_attention_bwd")
+FAMILIES = ("brgemm", "flash_attention", "flash_attention_bwd", "conv2d",
+            "brgemm_batched")
+RESNET_BATCH, RESNET_HW = 32, 224
+# ResNet-50's convolution layers as the paper's Table 2 lists them
+# (benchmarks/common.py): id, C, K, H (= W), R (= S), stride.  The
+# reference's model puts the stride on the 3x3 convolution, so its own
+# shapes (resnet_convs) add a few; parity runs both.
+RESNET50_LAYERS = [
+    (1, 3, 64, 224, 7, 2), (2, 64, 256, 56, 1, 1), (3, 64, 64, 56, 1, 1),
+    (4, 64, 64, 56, 3, 1), (5, 256, 64, 56, 1, 1), (6, 256, 512, 56, 1, 2),
+    (7, 256, 128, 56, 1, 2), (8, 128, 128, 28, 3, 1),
+    (9, 128, 512, 28, 1, 1), (10, 512, 128, 28, 1, 1),
+    (11, 512, 1024, 28, 1, 2), (12, 512, 256, 28, 1, 2),
+    (13, 256, 256, 14, 3, 1), (14, 256, 1024, 14, 1, 1),
+    (15, 1024, 256, 14, 1, 1), (16, 1024, 2048, 14, 1, 2),
+    (17, 1024, 512, 14, 1, 2), (18, 512, 512, 7, 3, 1),
+    (19, 512, 2048, 7, 1, 1), (20, 2048, 512, 7, 1, 1)]
+# The paper's brgemm cases (benchmarks/bench_brgemm.py), (B, m, k, n), and
+# one that fills the card.
+BRGEMM_CASES = [(16, 64, 64, 64), (32, 128, 128, 128), (64, 64, 256, 64),
+                (8, 4096, 1024, 1024)]
 
 # Tolerances, |kernel - plain| <= atol + rtol * |plain|, and why:
 #   fp32 GEMM / attention: both accumulate fp32 in different orders, with no
@@ -107,6 +140,18 @@ TRAIN_BAND = {torch.bfloat16: {"loss": 2e-2, "grad_rel_l2": 5e-2},
 # bf16 in 30 layers on both paths, and a one-ulp flip early spreads, so the
 # bf16 band is wide; fp32 runs agree to fp32 sum order.
 LOGITS_BAND = {torch.bfloat16: 0.25, torch.float32: 1e-3}
+# The convolution and the stacked / batched GEMMs against their plain
+# versions: fp32 within 1e-4 of the largest |output| (sums in other
+# orders); bf16 outputs within one bf16 ulp (both round one fp32 sum).
+CONV_BAND = 1e-4
+# Full-width ResNet-50, kernels vs plain on one card, as relative L2 error
+# of the logits, relative error of the loss and each parameter's gradient's
+# relative L2 error, stated before the first run: fp32 differs in sum order
+# only; bf16 rounds every convolution's output, and the gradients'
+# operands, to bf16 at other places through 53 layers and back.  The run
+# showed the network too chaotic at its random initialisation for these
+# alone to hold (phase_resnet says what is held instead).
+RESNET_BAND = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 
 # Published dense peaks (NVIDIA data sheets), by the card nvidia-smi names.
 PEAKS = {  # bf16 tensor FLOP/s, HBM bytes/s
@@ -116,7 +161,14 @@ PEAKS = {  # bf16 tensor FLOP/s, HBM bytes/s
 }
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -379,6 +431,172 @@ def phase_parity(cfg):
                    delta_rowsum_cuda(o, dy), delta_rowsum_ref(o, dy),
                    TOL[("delta", None)])
             del q, k, v, dy, o, lse, grads, want
+    torch.cuda.synchronize()
+    if failed:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{failed}")
+    return worst
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv:
+    """One convolution of ResNet-50 at batch RESNET_BATCH (NHWC, square)."""
+    name: str
+    c: int
+    k: int
+    h: int
+    r: int
+    stride: int
+    padding: int
+    count: int = 1          # convolutions of one forward with this shape
+
+    @property
+    def p(self):
+        return (self.h + 2 * self.padding - self.r) // self.stride + 1
+
+    @property
+    def key(self):
+        return (self.c, self.k, self.h, self.r, self.stride, self.padding)
+
+    @property
+    def flops(self):
+        return 2 * RESNET_BATCH * self.p ** 2 * self.k * self.r ** 2 * self.c
+
+
+def resnet_convs(cfg, hw=RESNET_HW):
+    """Every convolution of one ResNet forward, in the model's order."""
+    from repro_torch.models.resnet import block_stride
+    w = cfg.width
+    out = [Conv("stem", 3, w, hw, 7, 2, 3)]
+    h = -(-((hw - 1) // 2 + 1) // 2)        # the stem, then the 3x3/2 pool
+    cin = w
+    for si, blocks in enumerate(cfg.stage_blocks):
+        cmid = w * 2 ** si
+        cout = 4 * cmid
+        for bi in range(blocks):
+            st, tag = block_stride(si, bi), f"stage{si + 1}.{bi}"
+            ho = (h - 1) // st + 1
+            out += [Conv(f"{tag}.conv1", cin, cmid, h, 1, 1, 0),
+                    Conv(f"{tag}.conv2", cmid, cmid, h, 3, st, 1),
+                    Conv(f"{tag}.conv3", cmid, cout, ho, 1, 1, 0)]
+            if st != 1 or cin != cout:
+                out.append(Conv(f"{tag}.proj", cin, cout, h, 1, st, 0))
+            cin, h = cout, ho
+    return out
+
+
+def unique_convs(convs):
+    """The distinct shapes, each with its first name and its count."""
+    by_key = {}
+    for cv in convs:
+        first = by_key.get(cv.key)
+        by_key[cv.key] = cv if first is None else dataclasses.replace(
+            first, count=first.count + 1)
+    return list(by_key.values())
+
+
+def conv_inputs(cv, dtype, gen):
+    """x (N, H, W, C) and w (R, S, C, K), values scaled so that outputs are
+    O(1)."""
+    x = torch.randn(RESNET_BATCH, cv.h, cv.h, cv.c, device="cuda",
+                    generator=gen).to(dtype)
+    w = (torch.randn(cv.r, cv.r, cv.c, cv.k, device="cuda", generator=gen)
+         * (cv.c * cv.r ** 2) ** -0.5).to(dtype)
+    return x, w
+
+
+def dgrad_inputs(cv, w, dtype, gen):
+    """The dual convolution's (input, weights, padding) for a random
+    dL/dy of the conv's output shape, as the backward hands them over."""
+    from repro_torch.kernels.conv2d import dual_operands
+    g = torch.randn(RESNET_BATCH, cv.p, cv.p, cv.k, device="cuda",
+                    generator=gen).to(dtype)
+    return dual_operands(g, w, (cv.h, cv.h), cv.stride, cv.padding)
+
+
+def band(ref):
+    """fp32 output: CONV_BAND of the largest |output|; bf16: one ulp."""
+    if ref.dtype == torch.float32:
+        return CONV_BAND * ref.abs().max().item(), 0.0
+    return TOL[("matmul", torch.bfloat16)]
+
+
+def phase_parity_paper(cfg):
+    """The convolution (forward and dgrad), the stacked brgemm and the
+    batched GEMM against their plain versions."""
+    from repro_torch.kernels.brgemm import (batched_matmul_cuda,
+                                            batched_matmul_ref, brgemm_ref,
+                                            brgemm_stacked_cuda)
+    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst = {"conv2d": 0.0, "brgemm_stacked": 0.0, "batched_matmul": 0.0}
+    failed = []
+
+    def record(kernel, case, dtype, got, ref):
+        tol = band(ref)
+        ok, abs_err, rel_err = close(got, ref, *tol)
+        worst[kernel] = max(worst[kernel], abs_err)
+        emit({"phase": "parity", "kernel": kernel, "case": case,
+              "dtype": str(dtype).replace("torch.", ""),
+              "max_abs_err": abs_err, "max_rel_err": rel_err,
+              "atol": tol[0], "rtol": tol[1], "ok": ok})
+        if not ok:
+            failed.append(f"{kernel}:{case}:{dtype}")
+
+    table = [Conv(f"L{i}", c, k, h, r, st, r // 2)
+             for i, c, k, h, r, st in RESNET50_LAYERS]
+    keys = {cv.key for cv in table}
+    shapes = table + [cv for cv in unique_convs(resnet_convs(cfg))
+                      if cv.key not in keys]
+    for dtype in (torch.float32, torch.bfloat16):
+        for cv in shapes:
+            shape = (f"{cv.name} N{RESNET_BATCH} C{cv.c} K{cv.k} H{cv.h} "
+                     f"{cv.r}x{cv.r}/{cv.stride} pad {cv.padding}")
+            x, w = conv_inputs(cv, dtype, gen)
+            kw = dict(stride=cv.stride, padding=cv.padding)
+            record("conv2d", f"fwd {shape}", dtype, conv2d_cuda(x, w, **kw),
+                   conv2d_ref(x, w, **kw))
+            gd, wd, pd = dgrad_inputs(cv, w, dtype, gen)
+            record("conv2d", f"dgrad {shape}", dtype,
+                   conv2d_cuda(gd, wd, padding=pd, out_dtype=torch.float32),
+                   conv2d_ref(gd, wd, padding=pd, out_dtype=torch.float32))
+            del x, w, gd, wd
+        # Fused bias and activation, ragged channels on every edge.
+        cv = Conv("ragged", 12, 20, 9, 3, 2, 1)
+        x, w = conv_inputs(cv, dtype, gen)
+        bias = torch.randn(cv.k, device="cuda", generator=gen).to(dtype)
+        kw = dict(stride=2, padding=1, activation="gelu")
+        record("conv2d", "bias gelu N32 C12 K20 H9 3x3/2", dtype,
+               conv2d_cuda(x, w, bias, **kw), conv2d_ref(x, w, bias, **kw))
+
+        for nb, m, k, n in BRGEMM_CASES:
+            a = torch.randn(nb, m, k, device="cuda", generator=gen).to(dtype)
+            b = (torch.randn(nb, k, n, device="cuda", generator=gen)
+                 * (nb * k) ** -0.5).to(dtype)
+            record("brgemm_stacked", f"B{nb} m{m} k{k} n{n}", dtype,
+                   brgemm_stacked_cuda(a, b), brgemm_ref(a, b))
+        bias = torch.randn(n, device="cuda", generator=gen).to(dtype)
+        c0 = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+        kw = dict(activation="gelu", alpha=0.5, beta=0.75)
+        record("brgemm_stacked", f"B{nb} m{m} k{k} n{n} bias c0 gelu", dtype,
+               brgemm_stacked_cuda(a, b, bias, c0, **kw),
+               brgemm_ref(a, b, bias, c0=c0, **kw))
+        # batched: no broadcast; then the backward's two products, g
+        # broadcast and B^T / A^T read in place as transposed views.
+        g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+        for case, lhs, rhs in (
+                ("A_i @ B_i", a, b),
+                ("g @ B_i^T (A broadcast)", g, b.transpose(1, 2)),
+                ("A_i^T @ g (B broadcast)", a.transpose(1, 2), g)):
+            record("batched_matmul", f"{case} B{nb} m{m} k{k} n{n}", dtype,
+                   batched_matmul_cuda(lhs, rhs),
+                   batched_matmul_ref(lhs, rhs))
+        record("batched_matmul", "bias relu alpha 2", dtype,
+               batched_matmul_cuda(a[:, :300], b, bias, activation="relu",
+                                   alpha=2.0),
+               batched_matmul_ref(a[:, :300], b, bias, activation="relu",
+                                  alpha=2.0))
+        del a, b, g
     torch.cuda.synchronize()
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -684,7 +902,359 @@ def phase_train(base_cfg):
 
 
 # --------------------------------------------------------------------------
-# 6. kernel times
+# 6. full-width ResNet-50
+# --------------------------------------------------------------------------
+
+def rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def expected_resnet_launches(cfg):
+    """Launches of one forward and of one gradient step, from the code:
+    each convolution launches the conv kernel once forward and, but for
+    the stem (its image takes no gradient), once for its dgrad dual; its
+    weight gradient is one GEMM; the head is one GEMM forward and two
+    backward."""
+    convs = len(resnet_convs(cfg))
+    return ({"conv2d": convs, "matmul": 1},
+            {"conv2d": 2 * convs - 1, "matmul": 1 + 2 + convs})
+
+
+@contextlib.contextmanager
+def checked_launches(worst):
+    """Inside, every conv2d and matmul kernel launch is also run through
+    its plain version on the same inputs; ``worst`` collects, by kernel,
+    the largest error over its band and which launch it was.  These are the
+    launches of the path itself, with the activations, gradients, dilated
+    duals and transposed operands the path hands over.
+
+    A bf16 output is held to one bf16 ulp of the plain version (``band``).
+    An fp32 output sums up to 401,408 products (the stem's weight
+    gradient), often to a value far smaller than its terms (normalisation
+    makes gradients cancel), so it is held against the float64 value with
+    the fp32 summation error a correct kernel may make,
+    CONV_BAND * max |y| + 4 sqrt(k) 2^-24 (|A| |B|), elementwise (the
+    probabilistic bound of fp32 dot products of length k); the plain
+    version's own error in those units is reported beside it."""
+    import torch.nn.functional as F
+    from repro_torch.core import fusion
+    from repro_torch.kernels.brgemm import kernel as BK
+    from repro_torch.kernels.brgemm import ref as BR
+    from repro_torch.kernels.conv2d import kernel as CK
+    from repro_torch.kernels.conv2d import ref as CR
+    real_conv, real_mm = CK.conv2d_cuda, BK.matmul_cuda
+
+    def note(kernel, what, got, ref, exact, k):
+        if got.dtype == torch.float32:
+            truth, scale = exact()
+            tol = (CONV_BAND * truth.abs().max()
+                   + 4 * math.sqrt(k) * 2.0 ** -24 * scale).clamp_min(1e-300)
+            excess = ((got.double() - truth).abs() / tol).max().item()
+            plain = ((ref.double() - truth).abs() / tol).max().item()
+        else:
+            atol, rtol = band(ref)
+            excess = ((got.float() - ref.float()).abs() / (
+                atol + rtol * ref.float().abs()).clamp_min(1e-30)
+                      ).max().item()
+            plain = None
+        if excess >= worst.get(kernel, {}).get("over_band", -1.0):
+            worst[kernel] = {"over_band": excess, "launch": what,
+                             "plain_over_band": plain}
+
+    def conv(x, w, bias=None, *, stride=1, padding=0, activation="none",
+             out_dtype=None):
+        kw = dict(stride=stride, padding=padding)
+        y = real_conv(x, w, bias, activation=activation, out_dtype=out_dtype,
+                      **kw)
+
+        def exact():
+            def f(a, b):
+                return F.conv2d(a.double().permute(0, 3, 1, 2),
+                                b.double().permute(3, 2, 0, 1),
+                                **kw).permute(0, 2, 3, 1)
+            y64 = f(x, w) + (bias.double() if bias is not None else 0.0)
+            return fusion.apply(activation, y64), f(x.abs(), w.abs())
+
+        note("conv2d", f"{tuple(x.shape)} * {tuple(w.shape)} /{stride} "
+             f"pad {padding} -> {y.dtype}", y,
+             CR.conv2d_ref(x, w, bias, activation=activation,
+                           out_dtype=out_dtype, **kw), exact,
+             w.shape[0] * w.shape[1] * w.shape[2])
+        return y
+
+    def mm(x, w, bias=None, c0=None, *, activation="none", alpha=1.0,
+           beta=0.0, out_dtype=None):
+        kw = dict(activation=activation, alpha=alpha, beta=beta,
+                  out_dtype=out_dtype)
+        y = real_mm(x, w, bias, c0, **kw)
+
+        def exact():
+            y64 = (x.double() @ w.double()) * alpha
+            if c0 is not None and beta != 0.0:
+                y64 = y64 + beta * c0.double()
+            if bias is not None:
+                y64 = y64 + bias.double()
+            return (fusion.apply(activation, y64),
+                    (x.double().abs() @ w.double().abs()) * abs(alpha))
+
+        note("matmul", f"{tuple(x.shape)} @ {tuple(w.shape)} -> {y.dtype}",
+             y, BR.matmul_ref(x, w, bias, c0=c0, **kw), exact, x.shape[1])
+        return y
+
+    # The wrappers count into the name they are bound to: these launches
+    # are comparisons and leave the path's counters alone.
+    conv.launches = mm.launches = 0
+    CK.conv2d_cuda, BK.matmul_cuda = conv, mm
+    try:
+        yield worst
+    finally:
+        CK.conv2d_cuda, BK.matmul_cuda = real_conv, real_mm
+
+
+def resnet_errors(got, want):
+    """Relative L2 error of the logits, relative error of the loss, and the
+    largest and median relative L2 error of a parameter's gradient."""
+    from repro_torch.models.resnet import named_leaves
+    grads = {n: rel_l2(g, w) for (n, g), (_, w) in zip(
+        named_leaves(got["grads"]), named_leaves(want["grads"]))}
+    worst = max(grads.items(), key=lambda kv: kv[1])
+    return {"logits": rel_l2(got["logits"], want["logits"]),
+            "loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_max": worst[1], "grad_worst_param": worst[0],
+            "grad_median": median(list(grads.values()))}
+
+
+def phase_resnet():
+    """Full-width ResNet-50, kernels against the plain path.
+
+    ResNet-50 at its random initialisation, normalised with its batch's
+    statistics, is chaotic: perturbing the images by one part in 10^6 moves
+    the plain fp32 path's gradients by ~3 % and its logits by ~4e-5 on an
+    H100 (PERF.md).  So the kernels are held in three
+    ways.  Every conv2d and matmul launch of one forward and gradient step
+    is compared with its plain version on the same inputs, at the parity
+    bands.  In fp32, the logits and the loss must agree with the plain
+    path within RESNET_BAND, and each gradient within RESNET_BAND or twice
+    the plain path's own change under that 1e-6 perturbation, whichever is
+    larger.  In bf16, where the two paths round to bf16 at other places,
+    each is measured against the fp32 plain path on the same bf16-valued
+    weights and images, and the kernels must be within RESNET_BAND of it,
+    or no more than 1.25 times as far from it as the plain bf16 path is.
+    """
+    from repro_torch.kernels.brgemm import matmul_cuda
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.models import resnet
+    cfg = resnet.ResNetCfg()
+    counters = {"conv2d": conv2d_cuda, "matmul": matmul_cuda}
+    per_fwd, per_step = expected_resnet_launches(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    params32 = resnet.init_params(cfg, gen)
+    images = torch.randn(RESNET_BATCH, RESNET_HW, RESNET_HW, 3,
+                         device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.n_classes, (RESNET_BATCH,), device="cuda",
+                           generator=gen)
+
+    def launches():
+        return {k: c.launches for k, c in counters.items()}
+
+    def run(params, x, backend=None):
+        with torch.no_grad():
+            logits = resnet.forward(params, x, cfg, backend=backend)
+        loss, grads = resnet.loss_and_grads(params, x, labels, cfg,
+                                            backend=backend)
+        return {"logits": logits, "loss": loss.item(), "grads": grads}
+
+    main_launches = None
+    for dtype in (torch.bfloat16, torch.float32):
+        params = resnet.map_params(lambda t: t.to(dtype), params32)
+        x = images.to(dtype)
+
+        def fwd(backend=None):
+            with torch.no_grad():
+                return resnet.forward(params, x, cfg, backend=backend)
+
+        def step(backend=None):
+            return resnet.loss_and_grads(params, x, labels, cfg,
+                                         backend=backend)
+
+        fwd()
+        step()                          # warm-up, not counted
+        torch.cuda.synchronize()
+        # The main path: counts zeroed just before, read just after.
+        for c in counters.values():
+            c.launches = 0
+        logits = fwd()
+        torch.cuda.synchronize()
+        fwd_launches = launches()
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        step_launches = launches()
+        peak = torch.cuda.max_memory_allocated()
+        if fwd_launches != per_fwd or step_launches != per_step:
+            raise AssertionError(f"resnet launch counts {fwd_launches} / "
+                                 f"{step_launches} != {per_fwd} / "
+                                 f"{per_step}")
+        kern = {"logits": logits, "loss": loss.item(), "grads": grads}
+        torch.cuda.reset_peak_memory_stats()
+        plain = run(params, x, "torch")
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated()
+        if launches() != step_launches:
+            raise AssertionError("the plain resnet run launched a kernel")
+
+        band = RESNET_BAND[dtype]
+        if dtype == torch.float32:
+            noise = torch.randn(x.shape, device="cuda", generator=gen)
+            floor = resnet_errors(run(params, x * (1 + 1e-6 * noise),
+                                      "torch"), plain)
+            err = resnet_errors(kern, plain)
+            limit = {"logits": band, "loss": band,
+                     "grad_max": max(band, 2 * floor["grad_max"])}
+            ref_name = "the plain fp32 path"
+        else:
+            ref = run(resnet.map_params(lambda t: t.float(), params),
+                      x.float(), "torch")
+            floor = resnet_errors(plain, ref)
+            err = resnet_errors(kern, ref)
+            limit = {q: max(band, 1.25 * floor[q])
+                     for q in ("logits", "loss", "grad_max")}
+            ref_name = "the plain fp32 path on the bf16 values"
+            del ref
+        with checked_launches({}) as per_launch:
+            run(params, x)
+        torch.cuda.synchronize()
+
+        fwd_s, step_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        finite = bool(torch.isfinite(logits).all()) and all(
+            bool(torch.isfinite(g).all()) for _, g in
+            resnet.named_leaves(grads))
+        rec = {"phase": "resnet", "dtype": str(dtype).replace("torch.", ""),
+               "batch": RESNET_BATCH, "image": RESNET_HW,
+               "launches_forward": fwd_launches,
+               "launches_step": step_launches,
+               "logits_shape": list(logits.shape), "finite": finite,
+               "loss": kern["loss"], "plain_loss": plain["loss"],
+               "kernel_vs_plain": resnet_errors(kern, plain),
+               "held_against": ref_name, "error": err,
+               "plain_floor": floor, "limit": limit,
+               "per_launch_worst_over_band": per_launch,
+               "forward_ms": [t * 1e3 for t in fwd_s],
+               "images_per_s": RESNET_BATCH / median(fwd_s),
+               "step_ms": [t * 1e3 for t in step_s],
+               "step_images_per_s": RESNET_BATCH / median(step_s),
+               "peak_mem_gb": peak / 1e9,
+               "plain_peak_mem_gb": plain_peak / 1e9}
+        if dtype == torch.bfloat16:       # the main path's dtype
+            for name, fn, wall in (("forward", fwd, median(fwd_s)),
+                                   ("step", step, median(step_s))):
+                by_name = device_ms_by_kernel(fn, 1)
+                busy = sum(by_name.values())
+                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+                rec.update({f"{name}_device_busy_ms": busy,
+                            f"{name}_device_idle_share": 1 - busy / (
+                                wall * 1e3),
+                            f"{name}_device_ms_by_kernel": {
+                                k[:80]: v for k, v in top}})
+            main_launches = {k: fwd_launches[k] + step_launches[k]
+                             for k in counters}
+        emit(rec)
+        ok = (finite and tuple(logits.shape) == (RESNET_BATCH, cfg.n_classes)
+              and all(err[q] <= limit[q] for q in limit)
+              and set(per_launch) == set(counters)
+              and all(v["over_band"] <= 1.0 for v in per_launch.values()))
+        if not ok:
+            raise AssertionError(f"resnet {dtype}: errors {err} against "
+                                 f"{ref_name}, limits {limit}, per-launch "
+                                 f"{per_launch}, finite {finite}")
+        del params, grads, kern, plain
+        torch.cuda.empty_cache()
+    return main_launches
+
+
+# --------------------------------------------------------------------------
+# 7. the paper's brgemm and batched_matmul entry points
+# --------------------------------------------------------------------------
+
+def phase_brgemm():
+    from repro_torch.core.brgemm import batched_matmul, brgemm
+    from repro_torch.kernels.brgemm import (batched_matmul_cuda,
+                                            brgemm_stacked_cuda)
+    counters = {"brgemm_stacked": brgemm_stacked_cuda,
+                "batched_matmul": batched_matmul_cuda}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    main_launches = None
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = []
+        for nb, m, k, n in BRGEMM_CASES:
+            a = torch.randn(nb, m, k, device="cuda", generator=gen).to(dtype)
+            b = (torch.randn(nb, k, n, device="cuda", generator=gen)
+                 * (nb * k) ** -0.5).to(dtype)
+            dy = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+            cases.append((a, b, dy))
+
+        def run(backend):
+            outs = []
+            for a, b, dy in cases:
+                leaves = [a.detach().clone().requires_grad_(),
+                          b.detach().clone().requires_grad_()]
+                y = brgemm(*leaves, backend=backend)
+                outs.append((y.detach(), *torch.autograd.grad(y, leaves, dy),
+                             batched_matmul(a, b, backend=backend)))
+            torch.cuda.synchronize()
+            return outs
+
+        # The main path: counts zeroed just before, read just after.
+        for c in counters.values():
+            c.launches = 0
+        got = run(None)
+        launches = {k: c.launches for k, c in counters.items()}
+        expect = {"brgemm_stacked": len(cases),
+                  "batched_matmul": 3 * len(cases)}
+        if launches != expect:
+            raise AssertionError(f"brgemm launch counts {launches} != "
+                                 f"{expect}")
+        want = run("torch")
+        if {k: c.launches for k, c in counters.items()} != expect:
+            raise AssertionError("the plain brgemm run launched a kernel")
+        errs = {}
+        for (nb, m, k, n), g, w in zip(BRGEMM_CASES, got, want):
+            for name, a, b in zip(("y", "da", "db", "batched"), g, w):
+                scale = b.float().abs().max().item()
+                errs[f"B{nb} m{m} k{k} n{n} {name}"] = (
+                    (a.float() - b.float()).abs().max().item() / scale)
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        emit({"phase": "brgemm", "dtype": str(dtype).replace("torch.", ""),
+              "cases": BRGEMM_CASES, "launches": launches,
+              "expected_launches": expect,
+              "max_err_of_largest": worst[1], "worst": worst[0],
+              "band": GRAD_BAND[dtype]})
+        if worst[1] > GRAD_BAND[dtype]:
+            raise AssertionError(f"brgemm {dtype}: {worst}")
+        if dtype == torch.bfloat16:       # the main path's dtype
+            main_launches = launches
+        del cases, got, want
+    return main_launches
+
+
+# --------------------------------------------------------------------------
+# 8. kernel times
 # --------------------------------------------------------------------------
 
 def device_ms_by_kernel(run, calls, attempts=3):
@@ -770,13 +1340,7 @@ def phase_times(cfg, card):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     dtype, rows = torch.bfloat16, []
 
-    def row(kernel, shape, ms, wall, flops, nbytes, plain, lib, **kw):
-        bms, by = bound(flops, nbytes, card)
-        rows.append({"phase": "times", "kernel": kernel, "shape": shape,
-                     "ms": ms, "wall_ms": wall, "bound_ms": bms,
-                     "bound_by": by, "plain_ms": plain, "library_ms": lib,
-                     **kw})
-        emit(rows[-1])
+    row = row_recorder(rows, card)
 
     for g in main_path_gemms(cfg) + train_gemms(cfg):
         out_bytes = 4 if g.out_dtype else 2
@@ -787,9 +1351,13 @@ def phase_times(cfg, card):
         plain, _ = time_ms(lambda x, w: matmul_ref(
             x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
         lib, _ = time_ms(torch.matmul, sets)
+        # The serving run: one prefill and NEW_TOKENS - 1 decode forwards;
+        # the head at the last position of each.
+        serve = g.per_forward * (NEW_TOKENS - 1 if g.name.startswith(
+            "decode") else NEW_TOKENS if g.name == "lm_head" else 1)
         row("matmul", g.name, ms, wall, 2 * g.m * g.n * g.k, nbytes, plain,
-            lib, m=g.m, k=g.k, n=g.n, activation=g.activation,
-            layout=g.kind, per_forward=g.per_forward, per_step=g.per_step)
+            lib, {"serve": serve, "train": g.per_step * TRAIN_STEPS},
+            m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind)
         del sets
 
     b, hq, hkv, t, d = BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT, cfg.dh
@@ -804,8 +1372,9 @@ def phase_times(cfg, card):
     lib, _ = time_ms(lambda q, k, v, _: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), sets)
     row("flash_attention", "prefill", ms, wall, 4 * b * hq * pairs * d,
-        nbytes, plain, lib, q=[b, hq, t, d], kv=[b, hkv, t, d],
-        per_forward=cfg.n_layers, per_step=cfg.n_layers)
+        nbytes, plain, lib, {"serve": cfg.n_layers,
+                             "train": cfg.n_layers * TRAIN_STEPS},
+        q=[b, hq, t, d], kv=[b, hkv, t, d])
 
     # The backward at the train shape: q, k, v, o, dO, lse in; dq, dk, dv
     # out; five products over the causal pairs.
@@ -824,14 +1393,163 @@ def phase_times(cfg, card):
     lib, _ = time_ms(lambda out, leaves, dy: torch.autograd.grad(
         out, leaves, dy, retain_graph=True), lib_sets)
     row("flash_attention_bwd", "train", ms, wall, 10 * b * hq * pairs * d,
-        nbytes, plain, lib, q=[b, hq, t, d], kv=[b, hkv, t, d],
-        per_step=cfg.n_layers)
+        nbytes, plain, lib, {"train": cfg.n_layers * TRAIN_STEPS},
+        q=[b, hq, t, d], kv=[b, hkv, t, d])
     # No single PyTorch call takes bf16 y, dy to an fp32 rowsum.
     ysets = [(o, dy) for _, _, _, o, _, dy in bwd_sets]
     ms, wall = time_ms(delta_rowsum_cuda, ysets)
     plain, _ = time_ms(delta_rowsum_ref, ysets)
+    # Off every path (the fused delta's oracle): one call's times.
     row("delta_rowsum", "train", ms, wall, 2 * b * hq * t * d,
-        2 * q_bytes + lse_bytes, plain, None, y=[b, hq, t, d], per_step=0)
+        2 * q_bytes + lse_bytes, plain, None, {"one_call": 1},
+        y=[b, hq, t, d])
+    return rows
+
+
+def row_recorder(rows, card):
+    def row(kernel, shape, ms, wall, flops, nbytes, plain, lib, calls, **kw):
+        """One per-shape time; ``calls``: the shape's launches in each
+        path's main run."""
+        bms, by = bound(flops, nbytes, card)
+        rows.append({"phase": "times", "kernel": kernel, "shape": shape,
+                     "ms": ms, "wall_ms": wall, "bound_ms": bms,
+                     "bound_by": by, "plain_ms": plain, "library_ms": lib,
+                     "calls": calls, **kw})
+        emit(rows[-1])
+    return row
+
+
+def channels_last(x, w):
+    """NHWC x and RSCK w as F.conv2d's NCHW / KCRS views, both in the
+    channels-last memory format cuDNN takes without a copy."""
+    return (x.permute(0, 3, 1, 2),
+            w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2))
+
+
+def phase_times_paper(card):
+    """ResNet-50's convolutions (forward, dgrad dual, wgrad GEMM) and head,
+    and the brgemm path's stacked and batched GEMMs, in bf16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.brgemm import (batched_matmul_cuda,
+                                            batched_matmul_ref, brgemm_ref,
+                                            brgemm_stacked_cuda, matmul_cuda,
+                                            matmul_ref)
+    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+    from repro_torch.kernels.conv2d.ops import patches
+    from repro_torch.models.resnet import ResNetCfg
+    cfg = ResNetCfg()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    dtype, rows, iters = torch.bfloat16, [], 10
+    row = row_recorder(rows, card)
+    for cv in unique_convs(resnet_convs(cfg)):
+        n, hw, p = RESNET_BATCH, cv.h, cv.p
+        kw = dict(stride=cv.stride, padding=cv.padding)
+        x_bytes, g_bytes = 2 * n * hw * hw * cv.c, 2 * n * p * p * cv.k
+        w_bytes = 2 * cv.r * cv.r * cv.c * cv.k
+        shape = dict(batch=n, c=cv.c, k=cv.k, h=hw, r=cv.r,
+                     stride=cv.stride, padding=cv.padding, layers=cv.count)
+        sets = [(*conv_inputs(cv, dtype, gen),)
+                for _ in range(n_sets(x_bytes + g_bytes))]
+        sets = [(x, w, *channels_last(x, w)) for x, w in sets]
+        ms, wall = time_ms(lambda x, w, *_: conv2d_cuda(x, w, **kw), sets,
+                           iters)
+        plain, _ = time_ms(lambda x, w, *_: conv2d_ref(x, w, **kw), sets,
+                           iters)
+        lib, _ = time_ms(lambda _x, _w, xc, wc: F.conv2d(xc, wc, **kw), sets,
+                         iters)
+        # forward of the measured forward and of the gradient step's
+        row("conv2d", f"resnet.fwd.{cv.name}", ms, wall, cv.flops,
+            x_bytes + w_bytes + g_bytes, plain, lib,
+            {"resnet": 2 * cv.count}, **shape)
+        if cv.name != "stem":           # the image takes no gradient
+            dsets = []
+            for x, w, *_ in sets:
+                gd, wd, pd = dgrad_inputs(cv, w, dtype, gen)
+                dsets.append((gd, wd, *channels_last(gd, wd)))
+            ms, wall = time_ms(lambda g, w, *_: conv2d_cuda(
+                g, w, padding=pd, out_dtype=torch.float32), dsets, iters)
+            plain, _ = time_ms(lambda g, w, *_: conv2d_ref(
+                g, w, padding=pd, out_dtype=torch.float32), dsets, iters)
+            lib, _ = time_ms(lambda _g, _w, gc, wc: F.conv2d(
+                gc, wc, padding=pd), dsets, iters)
+            # bound: dx = the transposed convolution's own work and bytes
+            row("conv2d", f"resnet.dgrad.{cv.name}", ms, wall, cv.flops,
+                g_bytes + w_bytes + 2 * x_bytes, plain, lib,
+                {"resnet": cv.count}, dual_input=list(dsets[0][0].shape),
+                **shape)
+            del dsets
+        wsets = [(patches(x, cv.r, cv.r, cv.stride, cv.padding).T,
+                  torch.randn(n * p * p, cv.k, device="cuda",
+                              generator=gen).to(dtype))
+                 for x, *_ in sets]
+        del sets
+        ms, wall = time_ms(lambda a, g: matmul_cuda(
+            a, g, out_dtype=torch.float32), wsets, iters)
+        plain, _ = time_ms(lambda a, g: matmul_ref(
+            a, g, out_dtype=torch.float32), wsets, iters)
+        lib, _ = time_ms(torch.matmul, wsets, iters)
+        row("matmul", f"resnet.wgrad.{cv.name}", ms, wall, cv.flops,
+            x_bytes + g_bytes + 2 * w_bytes, plain, lib,
+            {"resnet": cv.count}, gemm=list(wsets[0][0].shape) + [cv.k],
+            layout="dw", **shape)
+        del wsets
+    # The head: forward (with bias), dX = g W^T, dW = X^T g.
+    b_, c_, k_ = RESNET_BATCH, 4 * 8 * cfg.width, cfg.n_classes
+    for name, m, k, n, calls, make in (
+            ("fwd", b_, c_, k_, 2, lambda x, w, g: (x, w)),
+            ("dx", b_, k_, c_, 1, lambda x, w, g: (g, w.T)),
+            ("dw", c_, b_, k_, 1, lambda x, w, g: (x.T, g))):
+        hsets = []
+        for _ in range(8):
+            x = torch.randn(b_, c_, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(c_, k_, device="cuda", generator=gen)
+                 * c_ ** -0.5).to(dtype)
+            g = torch.randn(b_, k_, device="cuda", generator=gen).to(dtype)
+            hsets.append(make(x, w, g))
+        ms, wall = time_ms(matmul_cuda, hsets)
+        plain, _ = time_ms(matmul_ref, hsets)
+        lib, _ = time_ms(torch.matmul, hsets)
+        row("matmul", f"resnet.head.{name}", ms, wall, 2 * m * k * n,
+            2 * (m * k + k * n + m * n), plain, lib, {"resnet": calls},
+            m=m, k=k, n=n, layout=name)
+
+    for nb, m, k, n in BRGEMM_CASES:
+        def gemm_bytes(*mats):
+            return 2 * sum(math.prod(t) for t in mats)
+
+        case = f"B{nb} m{m} k{k} n{n}"
+        flops = 2 * nb * m * k * n
+        nbytes = gemm_bytes((nb, m, k), (nb, k, n), (m, n))
+        bsets = []
+        for _ in range(n_sets(nbytes)):
+            a = torch.randn(nb, m, k, device="cuda", generator=gen).to(dtype)
+            b = (torch.randn(nb, k, n, device="cuda", generator=gen)
+                 * (nb * k) ** -0.5).to(dtype)
+            g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+            bsets.append((a, b, g))
+        ms, wall = time_ms(lambda a, b, g: brgemm_stacked_cuda(a, b), bsets)
+        plain, _ = time_ms(lambda a, b, g: brgemm_ref(a, b), bsets)
+        lib, _ = time_ms(lambda a, b, g: torch.einsum("imk,ikn->mn", a, b),
+                         bsets)
+        row("brgemm_stacked", case, ms, wall, flops, nbytes, plain, lib,
+            {"brgemm": 1}, batch=nb, m=m, k=k, n=n)
+        # batched_matmul's own call, then brgemm's backward: g broadcast,
+        # B^T and A^T read in place.
+        for name, make, mats in (
+                ("A_i @ B_i", lambda a, b, g: (a, b),
+                 ((nb, m, k), (nb, k, n), (nb, m, n))),
+                ("dA = g @ B_i^T", lambda a, b, g: (g, b.transpose(1, 2)),
+                 ((m, n), (nb, k, n), (nb, m, k))),
+                ("dB = A_i^T @ g", lambda a, b, g: (a.transpose(1, 2), g),
+                 ((nb, m, k), (m, n), (nb, k, n)))):
+            sets = [make(*t) for t in bsets]
+            ms, wall = time_ms(batched_matmul_cuda, sets)
+            plain, _ = time_ms(batched_matmul_ref, sets)
+            lib, _ = time_ms(torch.matmul, sets)
+            row("batched_matmul", f"{name} {case}", ms, wall, flops,
+                gemm_bytes(*mats), plain, lib, {"brgemm": 1}, batch=nb,
+                m=m, k=k, n=n)
+        del bsets
     return rows
 
 
@@ -847,16 +1565,26 @@ SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
     "delta_rowsum": (
         "src/repro_torch/kernels/flash_attention_bwd/csrc/flash_bwd.cu",
         "src/repro/kernels/flash_attention/bwd.py:79"),
+    "conv2d": ("src/repro_torch/kernels/conv2d/csrc/conv2d.cu",
+               "src/repro/kernels/conv2d/kernel.py:42"),
+    "brgemm_stacked": (
+        "src/repro_torch/kernels/brgemm_batched/csrc/batched.cu",
+        "src/repro/kernels/brgemm/kernel.py:192"),
+    "batched_matmul": (
+        "src/repro_torch/kernels/brgemm_batched/csrc/batched.cu",
+        "src/repro/kernels/brgemm/kernel.py:263"),
 }
 
 
-def kernels_line(rows, serve_launches, train_launches, worst):
+def kernels_line(rows, launches_by_path, worst):
     """Per kernel, each time summed over the launches of the runs that
-    drove the paths: the serving run (one prefill and NEW_TOKENS - 1 decode
-    forwards; flash at prefill only) and the TRAIN_STEPS train steps, from
-    the per-shape times of phase 6; the sums are also given by path.
-    ``delta_rowsum`` runs on neither path (it is the oracle of the fused
-    delta): its times are one call's at the train shape."""
+    drove the paths, from the per-shape times of phase 8 (each row's
+    ``calls`` by path); the sums are also given by path.  The paths' runs:
+    serving, one bf16 ``Engine.generate``; training, TRAIN_STEPS bf16
+    steps; resnet, one bf16 forward and one gradient step; brgemm, the
+    bf16 forward and backward of each of BRGEMM_CASES and one
+    ``batched_matmul`` each.  ``delta_rowsum`` runs on none of them (it is
+    the oracle of the fused delta): its times are one call's."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     out = []
     for name, (source, replaces) in SOURCES.items():
@@ -865,17 +1593,9 @@ def kernels_line(rows, serve_launches, train_launches, worst):
         for r in rows:
             if r["kernel"] != name:
                 continue
-            if name == "delta_rowsum":
-                calls = {"one_call": 1}
-            else:
-                serve = r.get("per_forward", 0)
-                if r["shape"].startswith("decode"):
-                    serve *= NEW_TOKENS - 1
-                elif r["shape"] == "lm_head":
-                    serve *= NEW_TOKENS
-                calls = {"serve": serve,
-                         "train": r.get("per_step", 0) * TRAIN_STEPS}
-            for path, n in calls.items():
+            for path, n in r["calls"].items():
+                if n == 0:
+                    continue
                 acc = paths.setdefault(path, dict.fromkeys(keys, 0.0))
                 for key in keys:
                     acc[key] = (None if r[key] is None or acc[key] is None
@@ -883,8 +1603,8 @@ def kernels_line(rows, serve_launches, train_launches, worst):
                 total_bound += r["bound_ms"] * n
                 if r["bound_by"] == "operations":
                     by_ops += r["bound_ms"] * n
-        launches = {"serve": serve_launches.get(name, 0),
-                    "train": train_launches.get(name, 0)}
+        launches = {path: counts.get(name, 0)
+                    for path, counts in launches_by_path.items()}
         total = {k: (None if any(p[k] is None for p in paths.values())
                      else sum(p[k] for p in paths.values())) for k in keys}
         out.append({"name": name, "route": "cuda", "source": source,
@@ -900,13 +1620,15 @@ def kernels_line(rows, serve_launches, train_launches, worst):
 def main():
     card = phase_device()
     from repro_torch.configs import get
+    from repro_torch.models.resnet import ResNetCfg
     cfg = get("smollm-135m")
     phase_build()
     worst = phase_parity(cfg)
-    serve_launches = phase_serve(cfg)
-    train_launches = phase_train(cfg)
-    rows = phase_times(cfg, card)
-    emit(kernels_line(rows, serve_launches, train_launches, worst))
+    worst.update(phase_parity_paper(ResNetCfg()))
+    launches = {"serve": phase_serve(cfg), "train": phase_train(cfg),
+                "resnet": phase_resnet(), "brgemm": phase_brgemm()}
+    rows = phase_times(cfg, card) + phase_times_paper(card)
+    emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -80,6 +80,19 @@ def needs_preact(activation: str) -> bool:
     raise ValueError(f"unknown activation {activation!r}")
 
 
+def output_grad(dy, y, activation: str, recompute):
+    """``dy * act'(pre)`` in fp32, the gradient a GEMM's or a convolution's
+    backward starts from: act' read from the output ``y`` where that is
+    enough, else from the fp32 pre-activation that ``recompute()``
+    returns."""
+    g = dy.float()
+    if needs_preact(activation):
+        return g * GRAD_FROM_PREACT[activation](recompute())
+    if activation != "none":
+        return g * GRAD_FROM_OUTPUT[activation](y.float())
+    return g
+
+
 def code(activation: str) -> int:
     try:
         return CODES[activation]

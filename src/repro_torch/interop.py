@@ -9,6 +9,8 @@ the input embedding and the output head read.  ``params_to_numpy`` is the
 inverse.  ``opt_state_from_numpy`` and ``opt_state_to_numpy`` carry the
 AdamW state (step, m, v, master) across the same way: the port keeps it
 by parameter name, the reference as trees shaped like the parameters.
+``resnet_params_from_numpy`` and ``resnet_params_to_numpy`` carry
+ResNet-50's parameters, a tree of the same layout in both packages.
 Only numpy crosses the boundary, so this module imports nothing of JAX.
 """
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core.dispatch import check_device
+from repro_torch.models import resnet
 from repro_torch.models.blocks import dtype_of
 from repro_torch.models.transformer import Transformer
 
@@ -118,3 +121,36 @@ def opt_state_to_numpy(state) -> dict:
     fp32 numpy trees."""
     return {"step": np.asarray(state["step"], np.int32),
             **{key: _tree_of(state[key]) for key in ("m", "v", "master")}}
+
+
+def resnet_params_from_numpy(tree, cfg: resnet.ResNetCfg, device="cuda"):
+    """The reference's ResNet parameter tree (numpy leaves) as the port's,
+    fp32 tensors on ``device``; raises where the tree's keys, block counts
+    or leaf shapes differ from ``cfg``'s."""
+    device = check_device(device)
+
+    def convert(want, got, path):
+        if isinstance(want, dict):
+            if set(got) != set(want):
+                raise ValueError(f"{path or 'params'}: keys {sorted(got)}, "
+                                 f"config has {sorted(want)}")
+            return {k: convert(want[k], got[k], f"{path}/{k}") for k in want}
+        if isinstance(want, list):
+            if len(got) != len(want):
+                raise ValueError(f"{path}: {len(got)} entries, config has "
+                                 f"{len(want)}")
+            return [convert(a, b, f"{path}/{i}")
+                    for i, (a, b) in enumerate(zip(want, got))]
+        arr = np.asarray(got)
+        if arr.shape != tuple(want.shape):
+            raise ValueError(f"{path}: shape {arr.shape}, config has "
+                             f"{tuple(want.shape)}")
+        return _to_torch(arr, torch.float32, device)
+
+    return convert(resnet.init_params(cfg, device="meta"), tree, "")
+
+
+def resnet_params_to_numpy(params):
+    """The port's ResNet parameters as the reference's tree, fp32 numpy."""
+    return resnet.map_params(lambda t: t.detach().float().cpu().numpy(),
+                             params)

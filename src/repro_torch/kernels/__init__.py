@@ -8,7 +8,16 @@ Kernel families (one directory each, sources under ``csrc/``):
   * ``flash_attention``     — the online-softmax attention forward;
   * ``flash_attention_bwd`` — the attention backward (dQ with delta fused,
                               dK / dV) and the standalone delta pass; its
-                              wrappers live in ``flash_attention/bwd.py``.
+                              wrappers live in ``flash_attention/bwd.py``;
+  * ``conv2d``              — the direct convolution as an implicit GEMM
+                              (forward, and the backward by data as a dual
+                              convolution);
+  * ``brgemm_batched``      — the stacked batch-reduce GEMM and the batched
+                              GEMM; their wrappers live in
+                              ``brgemm/kernel.py``.
+
+``include/`` holds the tile GEMM that ``conv2d`` and ``brgemm_batched``
+share.
 
 They build at first use (``_build.py``); importing this package builds
 nothing, so it imports on a machine without a card.

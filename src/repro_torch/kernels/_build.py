@@ -5,10 +5,13 @@ any ``*.cuh``) behind a plain ``extern "C"`` launcher, so the build is one
 ``nvcc`` call that links nothing of PyTorch and takes seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so ...
+         -Xcompiler -fPIC -Xptxas -v -I kernels/include \
+         -o build/kernels/lib<name>-<hash>.so ...
 
-The library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  ``-Xptxas -v``
+``kernels/include`` holds device code that several families share.  The
+library's name carries a hash of the flags, the family's sources and the
+shared headers, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  ``-Xptxas -v``
 reports each kernel's registers, shared memory and spills; that report is
 kept beside the library (``.log``).  A failed build raises with nvcc's
 output: there is no other path to the kernel.
@@ -28,6 +31,7 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
+INCLUDE_DIR = KERNELS_DIR / "include"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -68,7 +72,8 @@ def sources(name: str) -> list[Path]:
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     csrc = KERNELS_DIR / name / "csrc"
-    for p in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
+    for p in (sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+              + sorted(INCLUDE_DIR.glob("*.cuh"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -82,7 +87,7 @@ def _compile(name: str) -> Built:
     seconds = 0.0
     if not lib_path.exists():
         tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.so"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
                *(str(s) for s in sources(name))]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)

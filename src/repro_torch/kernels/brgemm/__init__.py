@@ -1,4 +1,18 @@
-"""The batch-reduce GEMM: plain version, Hopper kernel, dispatched entry."""
-from repro_torch.kernels.brgemm.kernel import matmul_cuda  # noqa: F401
-from repro_torch.kernels.brgemm.ops import matmul  # noqa: F401
-from repro_torch.kernels.brgemm.ref import matmul_ref  # noqa: F401
+"""The batch-reduce GEMMs (matmul, the stacked brgemm, batched_matmul):
+plain versions, Hopper kernels, dispatched entries."""
+from repro_torch.kernels.brgemm.kernel import (  # noqa: F401
+    batched_matmul_cuda,
+    brgemm_stacked_cuda,
+    matmul_cuda,
+)
+from repro_torch.kernels.brgemm.ops import (  # noqa: F401
+    batched_matmul,
+    brgemm,
+    brgemm_bwd,
+    matmul,
+)
+from repro_torch.kernels.brgemm.ref import (  # noqa: F401
+    batched_matmul_ref,
+    brgemm_ref,
+    matmul_ref,
+)

@@ -1,8 +1,11 @@
-"""Wrapper of the Hopper GEMM kernel (``csrc/matmul.cu``).
+"""Wrappers of the Hopper GEMM kernels.
 
-``matmul_cuda`` checks what the kernel takes, allocates the output, and
-launches on the current stream; the library is built at first use
-(``kernels/_build.py``).  ``matmul_cuda.launches`` counts the launches.
+``matmul_cuda`` launches ``csrc/matmul.cu``; ``brgemm_stacked_cuda`` and
+``batched_matmul_cuda`` launch ``kernels/brgemm_batched/csrc/batched.cu``,
+a family of its own so that its nvcc runs beside matmul's.  Each checks
+what its kernel takes, allocates the output, and launches on the current
+stream; the libraries are built at first use (``kernels/_build.py``).
+``<wrapper>.launches`` counts each wrapper's launches.
 """
 from __future__ import annotations
 
@@ -31,6 +34,21 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _batched_lib():
+    lib = _build.load("brgemm_batched")
+    operands = [_P, _LL, _LL, _I, _I] * 2
+    lib.repro_brgemm_stacked.argtypes = operands + [
+        _P, _P, _LL, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P]
+    lib.repro_batched_matmul.argtypes = operands + [
+        _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]
+    for fn in (lib.repro_brgemm_stacked, lib.repro_batched_matmul):
+        fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _row_stride(t: torch.Tensor) -> int:
     # A single row may carry any stride; the kernel only needs a valid one.
     return t.stride(0) if t.size(0) > 1 else t.size(1)
@@ -49,8 +67,36 @@ def _layout(t: torch.Tensor, name: str) -> tuple[int, int]:
         return 0, _row_stride(t)
     if t.stride(0) == 1 or rows == 1:
         return 1, t.stride(1)
-    raise ValueError(f"matmul_cuda needs {name} row- or column-major, got "
-                     f"strides {t.stride()}")
+    raise ValueError(f"the GEMM kernels need {name} row- or column-major, "
+                     f"got strides {t.stride()}")
+
+
+def _check_dtypes(name, a, b, out_dtype):
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError(f"{name} needs its operands on one CUDA device")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"{name} takes fp32 or bf16 operands of one dtype, "
+                        f"got {a.dtype} and {b.dtype}")
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"{name} out_dtype must be fp32 or bf16, got "
+                        f"{out_dtype}")
+
+
+def _epilogue_operand(name, t, shape, like):
+    if t is None:
+        return
+    if t.device != like.device or t.dtype not in (torch.float32, like.dtype):
+        raise TypeError(f"{name} must be fp32 or {like.dtype} on "
+                        f"{like.device}")
+    if tuple(t.shape) != shape or t.stride(-1) != 1:
+        raise ValueError(f"{name} must be {shape} with unit last stride, got "
+                         f"{tuple(t.shape)}")
+
+
+def _raise_on(rc, lib, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({lib.repro_cuda_error_string(rc).decode()})")
 
 
 def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
@@ -63,14 +109,7 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
     contiguous (m, n) of ``out_dtype`` (fp32 or bf16; default x's dtype).
     """
     out_dtype = out_dtype or x.dtype
-    if not (x.is_cuda and w.device == x.device):
-        raise ValueError("matmul_cuda needs x and w on the same CUDA device")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"matmul_cuda takes fp32 or bf16 x and w of one "
-                        f"dtype, got {x.dtype} and {w.dtype}")
-    if out_dtype not in _DTYPES:
-        raise TypeError(f"matmul_cuda out_dtype must be fp32 or bf16, got "
-                        f"{out_dtype}")
+    _check_dtypes("matmul_cuda", x, w, out_dtype)
     if x.dim() != 2 or w.dim() != 2 or x.size(1) != w.size(0):
         raise ValueError(f"matmul_cuda shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)} do not chain")
@@ -78,15 +117,8 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
     n = w.size(1)
     x_trans, ldx = _layout(x, "x")
     w_trans, ldw = _layout(w, "w")
-    for name, t, shape in (("bias", bias, (n,)), ("c0", c0, (m, n))):
-        if t is None:
-            continue
-        if t.device != x.device or t.dtype not in (torch.float32, x.dtype):
-            raise TypeError(f"matmul_cuda {name} must be fp32 or {x.dtype} "
-                            f"on {x.device}")
-        if tuple(t.shape) != shape or t.stride(-1) != 1:
-            raise ValueError(f"matmul_cuda {name} must be {shape} with unit "
-                             f"last stride, got {tuple(t.shape)}")
+    _epilogue_operand("bias", bias, (n,), x)
+    _epilogue_operand("c0", c0, (m, n), x)
     has_c0 = c0 is not None and beta != 0.0
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
@@ -105,11 +137,105 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
         int(has_c0 and c0.dtype == torch.float32),
         int(is_bf16 and _aligned(x, ldx)), int(is_bf16 and _aligned(w, ldw)),
         torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"matmul kernel launch failed: CUDA error {rc} "
-                           f"({lib.repro_cuda_error_string(rc).decode()})")
+    _raise_on(rc, lib, "matmul")
     matmul_cuda.launches += 1
     return out
 
 
 matmul_cuda.launches = 0
+
+
+def _batched_operand(t: torch.Tensor, name: str) -> list:
+    """[ptr, batch stride, ld, trans, vec] of a (B, r, c) operand read in
+    place, or of a 2-D (r, c) one broadcast over the batch (stride 0)."""
+    mat = t[0] if t.dim() == 3 else t
+    trans, ld = _layout(mat, name)
+    bstride = t.stride(0) if t.dim() == 3 and t.size(0) > 1 else 0
+    vec = (t.dtype == torch.bfloat16 and _aligned(t, ld)
+           and bstride % 8 == 0)
+    return [t.data_ptr(), bstride, ld, trans, int(vec)]
+
+
+def _flags(a, out_dtype, *epilogue):
+    return [int(a.dtype == torch.bfloat16), int(out_dtype == torch.float32),
+            *(int(t is not None and t.dtype == torch.float32)
+              for t in epilogue)]
+
+
+def brgemm_stacked_cuda(a, b, bias=None, c0=None, *,
+                        activation: str = "none", alpha: float = 1.0,
+                        beta: float = 0.0, out_dtype=None):
+    """``act(alpha * sum_i a[i] @ b[i] + beta * c0 + bias)`` on the card.
+
+    a: (B, m, k) and b: (B, k, n), each entry row- or column-major with any
+    batch stride, read in place.  bias: (n,) contiguous; c0: (m, n) with
+    unit column stride; both fp32 or a's dtype.  Returns a contiguous
+    (m, n) of ``out_dtype`` (fp32 or bf16; default a's dtype).
+    """
+    out_dtype = out_dtype or a.dtype
+    _check_dtypes("brgemm_stacked_cuda", a, b, out_dtype)
+    if a.dim() != 3 or b.dim() != 3 or a.size(0) != b.size(0) \
+            or a.size(2) != b.size(1):
+        raise ValueError(f"brgemm_stacked_cuda shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} do not chain")
+    nb, m, k = a.shape
+    n = b.size(2)
+    _epilogue_operand("bias", bias, (n,), a)
+    _epilogue_operand("c0", c0, (m, n), a)
+    has_c0 = c0 is not None and beta != 0.0
+    c0 = c0 if has_c0 else None
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    lib = _batched_lib()
+    rc = lib.repro_brgemm_stacked(
+        *_batched_operand(a, "a"), *_batched_operand(b, "b"),
+        bias.data_ptr() if bias is not None else None,
+        c0.data_ptr() if has_c0 else None, _row_stride(c0) if has_c0 else 0,
+        out.data_ptr(), nb, m, n, k, float(alpha), float(beta),
+        fusion.code(activation), *_flags(a, out_dtype, bias, c0),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, lib, "brgemm_stacked")
+    brgemm_stacked_cuda.launches += 1
+    return out
+
+
+def batched_matmul_cuda(a, b, bias=None, *, activation: str = "none",
+                        alpha: float = 1.0, out_dtype=None):
+    """``act(alpha * a[i] @ b[i] + bias)`` for each i, on the card.
+
+    a: (B, m, k) or a 2-D (m, k) broadcast over the batch; b: (B, k, n) or
+    a 2-D (k, n) broadcast; not both 2-D.  Each entry row- or column-major
+    (as ``swapaxes(-1, -2)`` views are) with any batch stride, read in
+    place.  bias: (n,) contiguous, fp32 or a's dtype.  Returns a contiguous
+    (B, m, n) of ``out_dtype`` (default a's dtype).
+    """
+    out_dtype = out_dtype or a.dtype
+    _check_dtypes("batched_matmul_cuda", a, b, out_dtype)
+    if a.dim() not in (2, 3) or b.dim() not in (2, 3) \
+            or a.dim() + b.dim() == 4 or a.size(-1) != b.size(-2) \
+            or (a.dim() == b.dim() == 3 and a.size(0) != b.size(0)):
+        raise ValueError(f"batched_matmul_cuda shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} do not chain (one operand may "
+                         f"be 2-D)")
+    nb = a.size(0) if a.dim() == 3 else b.size(0)
+    m, k = a.shape[-2:]
+    n = b.size(-1)
+    _epilogue_operand("bias", bias, (n,), a)
+    out = torch.empty((nb, m, n), dtype=out_dtype, device=a.device)
+    if nb == 0 or m == 0 or n == 0:
+        return out
+    lib = _batched_lib()
+    rc = lib.repro_batched_matmul(
+        *_batched_operand(a, "a"), *_batched_operand(b, "b"),
+        bias.data_ptr() if bias is not None else None, out.data_ptr(), nb, m,
+        n, k, float(alpha), fusion.code(activation),
+        *_flags(a, out_dtype, bias),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, lib, "batched_matmul")
+    batched_matmul_cuda.launches += 1
+    return out
+
+
+brgemm_stacked_cuda.launches = 0
+batched_matmul_cuda.launches = 0

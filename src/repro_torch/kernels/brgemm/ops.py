@@ -1,4 +1,5 @@
-"""Public entry point of the batch-reduce GEMM, through the op registry.
+"""Public entry points of the batch-reduce GEMMs, through the op registry:
+``matmul``, the paper's stacked ``brgemm`` and ``batched_matmul``.
 
 ``matmul`` registers two backends (``core/dispatch.py``): ``"torch"``, the
 plain version in ``ref.py``, differentiated by plain autograd; and
@@ -12,6 +13,14 @@ kernel again (``_MatmulCuda``), as in the reference's custom VJP
     dx = (alpha g) W^T      the kernel, W read transposed in place
     dw = X^T (alpha g)      the kernel, X read transposed in place
     dbias = sum_rows g,  dc0 = beta g
+
+``brgemm``'s ``"cuda"`` backend (``_BrgemmCuda``) differentiates as the
+reference's ``_brgemm_bwd`` does, with ``g`` made the same way:
+
+    dA_i = (alpha g) B_i^T   the batched kernel, g broadcast over i and
+    dB_i = A_i^T (alpha g)   B_i^T / A_i^T read in place through strides
+
+``batched_matmul`` has no backward on the kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,14 +52,9 @@ class _MatmulCuda(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, bias, c0, y = ctx.saved_tensors
         activation, alpha, beta = ctx.cfg
-        g = dy.float()
-        if fusion.needs_preact(activation):
-            pre = K.matmul_cuda(x, w, bias, c0, activation="none",
-                                alpha=alpha, beta=beta,
-                                out_dtype=torch.float32)
-            g = g * fusion.GRAD_FROM_PREACT[activation](pre)
-        elif activation != "none":
-            g = g * fusion.GRAD_FROM_OUTPUT[activation](y.float())
+        g = fusion.output_grad(dy, y, activation, lambda: K.matmul_cuda(
+            x, w, bias, c0, activation="none", alpha=alpha, beta=beta,
+            out_dtype=torch.float32))
         galpha = (g * alpha).to(x.dtype)
         dx = dw = dbias = dc0 = None
         if ctx.needs_input_grad[0]:
@@ -89,3 +93,106 @@ def matmul(x, w, bias=None, c0=None, *, activation: str = "none",
     y = impl(x2, w, bias, c02, activation=activation, alpha=alpha,
              beta=beta, out_dtype=out_dtype)
     return y.reshape(*lead, n)
+
+
+def brgemm_bwd(stacked, batched, a, b, bias, c0, y, dy, *, activation,
+               alpha, beta, needs=(True, True, True, True)):
+    """(da, db, dbias, dc0) of ``brgemm``, as the reference's
+    ``_brgemm_bwd`` computes them, over the given stacked and batched GEMM
+    callables (the kernels on the card, the plain versions in the CPU
+    tests).  ``needs`` says which of the four to compute."""
+    g = fusion.output_grad(dy, y, activation, lambda: stacked(
+        a, b, bias, c0=c0, activation="none", alpha=alpha, beta=beta,
+        out_dtype=torch.float32))
+    galpha = (g * alpha).to(a.dtype)
+    da = db = dbias = dc0 = None
+    if needs[0]:
+        da = batched(galpha, b.transpose(-1, -2)).to(a.dtype)
+    if needs[1]:
+        db = batched(a.transpose(-1, -2), galpha).to(b.dtype)
+    if bias is not None and needs[2]:
+        dbias = g.sum(0).to(bias.dtype)
+    if c0 is not None and needs[3]:
+        dc0 = (g * beta).to(c0.dtype)
+    return da, db, dbias, dc0
+
+
+@dispatch.register("brgemm", "torch")
+def _brgemm_torch(a, b, bias, c0, *, activation, alpha, beta, out_dtype):
+    return R.brgemm_ref(a, b, bias, activation=activation, alpha=alpha,
+                        beta=beta, c0=c0, out_dtype=out_dtype)
+
+
+class _BrgemmCuda(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, bias, c0, activation, alpha, beta, out_dtype):
+        y = K.brgemm_stacked_cuda(a, b, bias, c0, activation=activation,
+                                  alpha=alpha, beta=beta,
+                                  out_dtype=out_dtype)
+        from_y = activation != "none" and not fusion.needs_preact(activation)
+        ctx.save_for_backward(a, b, bias, c0, y if from_y else None)
+        ctx.cfg = dict(activation=activation, alpha=alpha, beta=beta)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, bias, c0, y = ctx.saved_tensors
+        grads = brgemm_bwd(K.brgemm_stacked_cuda, K.batched_matmul_cuda, a,
+                           b, bias, c0, y, dy, needs=ctx.needs_input_grad[:4],
+                           **ctx.cfg)
+        return (*grads, None, None, None, None)
+
+
+@dispatch.register("brgemm", "cuda")
+def _brgemm_cuda(a, b, bias, c0, *, activation, alpha, beta, out_dtype):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, bias, c0)):
+        return _BrgemmCuda.apply(a, b, bias, c0, activation, alpha, beta,
+                                 out_dtype)
+    return K.brgemm_stacked_cuda(a, b, bias, c0, activation=activation,
+                                 alpha=alpha, beta=beta, out_dtype=out_dtype)
+
+
+def brgemm(a, b, bias=None, c0=None, *, activation: str = "none",
+           alpha: float = 1.0, beta: float = 0.0, out_dtype=None,
+           backend: str | None = None):
+    """The paper's batch-reduce GEMM,
+    ``act(alpha * sum_i a[i] @ b[i] + beta * c0 + bias)``.
+
+    a: (B, m, k), b: (B, k, n) -> (m, n); bias (n,), c0 (m, n).
+    """
+    impl = dispatch.get_impl("brgemm", backend, a)
+    return impl(a, b, bias, c0, activation=activation, alpha=alpha,
+                beta=beta, out_dtype=out_dtype)
+
+
+@dispatch.register("batched_matmul", "torch")
+def _batched_matmul_torch(a, b, bias, *, activation, alpha, out_dtype):
+    return R.batched_matmul_ref(a, b, bias, activation=activation,
+                                alpha=alpha, out_dtype=out_dtype)
+
+
+@dispatch.register("batched_matmul", "cuda")
+def _batched_matmul_cuda(a, b, bias, *, activation, alpha, out_dtype):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, bias)):
+        raise NotImplementedError(
+            "batched_matmul has no backward on the 'cuda' backend (nor on "
+            "the reference's Pallas one); use backend='torch' to "
+            "differentiate it")
+    return K.batched_matmul_cuda(a, b, bias, activation=activation,
+                                 alpha=alpha, out_dtype=out_dtype)
+
+
+def batched_matmul(a, b, bias=None, *, activation: str = "none",
+                   alpha: float = 1.0, out_dtype=None,
+                   backend: str | None = None):
+    """Strided-batched GEMM, ``act(alpha * a[i] @ b[i] + bias)``, with no
+    reduction across the batch.
+
+    a: (B, m, k) or (m, k) broadcast; b: (B, k, n) or (k, n) broadcast ->
+    (B, m, n).
+    """
+    impl = dispatch.get_impl("batched_matmul", backend, a)
+    return impl(a, b, bias, activation=activation, alpha=alpha,
+                out_dtype=out_dtype)

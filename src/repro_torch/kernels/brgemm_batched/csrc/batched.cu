@@ -1,0 +1,162 @@
+// The paper's two batched GEMM interfaces on Hopper.
+//
+//   brgemm_stacked:  C   = act(alpha * sum_i A_i @ B_i + beta * C0 + bias)
+//                    replaces src/repro/kernels/brgemm/kernel.py::
+//                    brgemm_stacked_pallas;
+//   batched_matmul:  C_i = act(alpha * A_i @ B_i + bias)
+//                    replaces src/repro/kernels/brgemm/kernel.py::
+//                    batched_matmul_pallas.
+//
+// On the TPU both walked a sequential grid axis with an fp32 accumulator in
+// VMEM scratch: (batch x k-block) for the stacked form, k-blocks for the
+// batched one.  Here one block owns one 64 x 64 output tile and walks that
+// axis in a loop of its own, with the accumulator in registers
+// (repro_tile.cuh): the stacked form's loop runs over every batch entry and
+// k-block, so C is written once, never re-read between entries (the
+// paper's point against a loop of GEMMs); the batched form takes its entry
+// from blockIdx.z.  Each operand carries a batch stride (0 for the 2-D
+// operand the batched form broadcasts, read again by every entry, never
+// copied) and may be row- or column-major per entry, so brgemm's backward
+// (dA_i = g B_i^T, dB_i = A_i^T g) reads the transposed views in place.
+//
+// What bounds it on an H100: the paper's shapes (m, n <= 128, k <= 256,
+// B <= 64) make few output tiles (1-4 blocks on 132 SMs), so a block's
+// serial walk over B * k bounds them, not the card's rates; the
+// (8, 4096, 1024, 1024) case fills the card and is tensor-core bound in
+// bf16.  Split-K over the batch, wgmma and TMA are later work.
+#include "repro_tile.cuh"
+
+using namespace repro;
+
+struct Operand {
+  const void* p;
+  long long bstride, ld;
+  int trans, vec;
+};
+
+// A is (m, k) per entry: row-major, or column-major when trans (staged
+// As[k][m]).  B is (k, n): row-major (staged Bs[k][n]) or column-major.
+template <typename T>
+__device__ __forceinline__ Strided<T> a_op(const Operand& a, int m0, int m,
+                                           int k, int bk, int batch0) {
+  return Strided<T>{static_cast<const T*>(a.p), a.bstride, a.ld, a.trans, m0,
+                    m, k, cdiv(k, bk), batch0, a.vec};
+}
+
+template <typename T>
+__device__ __forceinline__ Strided<T> b_op(const Operand& b, int n0, int n,
+                                           int k, int bk, int batch0) {
+  return Strided<T>{static_cast<const T*>(b.p), b.bstride, b.ld, !b.trans,
+                    n0, n, k, cdiv(k, bk), batch0, b.vec};
+}
+
+// One block: the output tile (blockIdx.y, blockIdx.x) of entry batch0, or,
+// when stacked, summed over all nb entries.  Output row `row_base + r`.
+__device__ __forceinline__ void tile_bf16(const Operand& a, const Operand& b,
+                                          const Epilogue& e, int m, int n,
+                                          int k, int batch0, int entries,
+                                          long long row_base) {
+  __shared__ __align__(128) bf16 As[tc::STAGE];
+  __shared__ __align__(128) bf16 Bs[tc::STAGE];
+  __shared__ __align__(128) float Cs[tc::BM * tc::LDC];
+  const int m0 = blockIdx.y * tc::BM, n0 = blockIdx.x * tc::BN;
+  tc::StridedFetch fa{a_op<bf16>(a, m0, m, k, tc::BK, batch0)};
+  tc::StridedFetch fb{b_op<bf16>(b, n0, n, k, tc::BK, batch0)};
+  tc::Acc acc[2][2];
+  tc::mainloop(acc, As, Bs, a.trans, !b.trans, entries * cdiv(k, tc::BK), fa,
+               fb);
+  tc::store_tile(acc, Cs, [&](int r, int c, float v) {
+    if (m0 + r < m && n0 + c < n) finish(e, v, row_base + m0 + r, n0 + c);
+  });
+}
+
+__device__ __forceinline__ void tile_f32(const Operand& a, const Operand& b,
+                                         const Epilogue& e, int m, int n,
+                                         int k, int batch0, int entries,
+                                         long long row_base) {
+  const int m0 = blockIdx.y * simt::BM, n0 = blockIdx.x * simt::BN;
+  simt::StridedFetch fa{a_op<float>(a, m0, m, k, simt::BK, batch0)};
+  simt::StridedFetch fb{b_op<float>(b, n0, n, k, simt::BK, batch0)};
+  float acc[4][4];
+  simt::mainloop(acc, a.trans, !b.trans, entries * cdiv(k, simt::BK), fa,
+                 fb);
+  simt::store_tile(acc, [&](int r, int c, float v) {
+    if (m0 + r < m && n0 + c < n) finish(e, v, row_base + m0 + r, n0 + c);
+  });
+}
+
+__global__ void __launch_bounds__(tc::THREADS)
+brgemm_stacked_bf16_kernel(Operand a, Operand b, Epilogue e, int nb, int m,
+                           int n, int k) {
+  tile_bf16(a, b, e, m, n, k, 0, nb, 0);
+}
+
+__global__ void __launch_bounds__(simt::THREADS)
+brgemm_stacked_f32_kernel(Operand a, Operand b, Epilogue e, int nb, int m,
+                          int n, int k) {
+  tile_f32(a, b, e, m, n, k, 0, nb, 0);
+}
+
+// Entry blockIdx.z writes rows blockIdx.z * m .. of the (nb * m, n) output.
+__global__ void __launch_bounds__(tc::THREADS)
+batched_matmul_bf16_kernel(Operand a, Operand b, Epilogue e, int m, int n,
+                           int k) {
+  tile_bf16(a, b, e, m, n, k, blockIdx.z, 1, (long long)blockIdx.z * m);
+}
+
+__global__ void __launch_bounds__(simt::THREADS)
+batched_matmul_f32_kernel(Operand a, Operand b, Epilogue e, int m, int n,
+                          int k) {
+  tile_f32(a, b, e, m, n, k, blockIdx.z, 1, (long long)blockIdx.z * m);
+}
+
+// Operand entry i: element (row, col) at p + i * bstride + row * ld + col
+// (trans = 0) or p + i * bstride + col * ld + row (trans = 1); bstride = 0
+// broadcasts one matrix to every entry.  vec: 16-byte loads are safe
+// (bf16 only: aligned base, ld and bstride multiples of 8).  bias / c0 may
+// be null; c0 has row stride ldc0.  Each returns the launch's
+// cudaGetLastError().
+extern "C" int repro_brgemm_stacked(
+    const void* a, long long sa, long long lda, int a_trans, int vec_a,
+    const void* b, long long sb, long long ldb, int b_trans, int vec_b,
+    const void* bias, const void* c0, long long ldc0, void* out, int nb,
+    int m, int n, int k, float alpha, float beta, int act, int is_bf16,
+    int out_f32, int bias_f32, int c0_f32, void* stream) {
+  if (act < 0 || act >= N_ACT) return (int)cudaErrorInvalidValue;
+  Operand oa{a, sa, lda, a_trans, vec_a}, ob{b, sb, ldb, b_trans, vec_b};
+  Epilogue e{out, bias, c0, n, ldc0, alpha, beta, act, out_f32, bias_f32,
+             c0_f32};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(cdiv(n, 64), cdiv(m, 64));
+  if (is_bf16)
+    brgemm_stacked_bf16_kernel<<<grid, tc::THREADS, 0, st>>>(oa, ob, e, nb,
+                                                             m, n, k);
+  else
+    brgemm_stacked_f32_kernel<<<grid, simt::THREADS, 0, st>>>(oa, ob, e, nb,
+                                                              m, n, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_batched_matmul(
+    const void* a, long long sa, long long lda, int a_trans, int vec_a,
+    const void* b, long long sb, long long ldb, int b_trans, int vec_b,
+    const void* bias, void* out, int nb, int m, int n, int k, float alpha,
+    int act, int is_bf16, int out_f32, int bias_f32, void* stream) {
+  if (act < 0 || act >= N_ACT) return (int)cudaErrorInvalidValue;
+  Operand oa{a, sa, lda, a_trans, vec_a}, ob{b, sb, ldb, b_trans, vec_b};
+  Epilogue e{out, bias, nullptr, n, 0, alpha, 0.0f, act, out_f32, bias_f32,
+             0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(cdiv(n, 64), cdiv(m, 64), nb);
+  if (is_bf16)
+    batched_matmul_bf16_kernel<<<grid, tc::THREADS, 0, st>>>(oa, ob, e, m, n,
+                                                             k);
+  else
+    batched_matmul_f32_kernel<<<grid, simt::THREADS, 0, st>>>(oa, ob, e, m,
+                                                              n, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,194 @@
+// Direct convolution on Hopper, NHWC x RSCK -> NPQK, as an implicit GEMM:
+// out[(n, p, q), k] = act(sum over (r, s, c) of
+//     x[n, p * stride - pad + r, q * stride - pad + s, c] * w[r, s, c, k]
+//     + bias[k]).
+//
+// Replaces src/repro/kernels/conv2d/kernel.py::conv2d_pallas.  On the TPU
+// the grid walked (n, k-block, output row, output column block) in
+// parallel and (r, s, c-block) as a sequential axis carrying an fp32
+// accumulator in VMEM, over a padded copy of x.  Here the paper's
+// Algorithm 4 becomes one GEMM per block:
+//   * M runs over the flattened output pixels (n, p, q), not along one
+//     output row: a stage-4 row of ResNet-50 has 7 pixels, and a per-row
+//     tile would leave most of a 64-row tile empty.  N runs over K.
+//   * The reduction walks the flattened (r, s, c) window (the row order of
+//     w viewed as an (R*S*C, K) matrix), 32 (bf16) or 16 (fp32) indices a
+//     slice.  Each slice of the A tile is gathered in place from x: the
+//     strided, padded input positions, zero for padding, for the channel
+//     tail and for rows past N*P*Q.  No padded copy of x and no im2col
+//     buffer is ever made.  Where C is a multiple of 8, 8 channels share
+//     one (r, s) tap and come in one 16-byte load; the stem's C = 3 goes
+//     element by element with no channel padding, so its 147-long window
+//     takes 5 slices, not 49.
+//   * bf16 runs on the tensor cores (wmma, fp32 accumulator); fp32 on FMA,
+//     no TF32.  Bias and activation are applied to the accumulator and the
+//     result is stored once, NHWC (repro_tile.cuh).
+//
+// What bounds it on an H100: ResNet-50's convolutions at N = 32 do 50-1000
+// FLOP per byte of x, w and out, so the tensor cores bound them in bf16
+// (and the FMA pipes in fp32).  This first kernel uses wmma (mma.sync) on
+// 64 x 64 tiles with a register prefetch of the next slice; wgmma, TMA
+// (im2col mode) and a persistent schedule are later work.  The backward by
+// data runs through this same kernel as a dual convolution
+// (kernels/conv2d/ops.py).
+#include "repro_tile.cuh"
+
+using namespace repro;
+
+struct Geom {
+  int n, h, w, c, k, r, s, p, q, stride, pad;
+  int m;      // n * p * q output pixels
+  int red;    // r * s * c reduction length
+};
+
+// Output pixel -> (image, top-left input row and column of its window).
+struct Pixel {
+  long long img;   // n * h: the image's first input row
+  int ih0, iw0;
+  bool live;
+};
+
+__device__ __forceinline__ Pixel pixel(const Geom& g, int m) {
+  Pixel px;
+  px.live = m < g.m;
+  int mm = px.live ? m : 0;
+  int pq = g.p * g.q;
+  int nn = mm / pq, rem = mm - nn * pq;
+  int pp = rem / g.q, qq = rem - pp * g.q;
+  px.img = (long long)nn * g.h;
+  px.ih0 = pp * g.stride - g.pad;
+  px.iw0 = qq * g.stride - g.pad;
+  return px;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* tap(const T* x, const Geom& g,
+                                        const Pixel& px, int r, int s,
+                                        int c) {
+  int ih = px.ih0 + r, iw = px.iw0 + s;
+  if (ih < 0 || ih >= g.h || iw < 0 || iw >= g.w) return nullptr;
+  return x + ((px.img + ih) * g.w + iw) * g.c + c;
+}
+
+// The gathered A operand, bf16: 8 consecutive window indices of one pixel.
+struct GatherTc {
+  const bf16* x;
+  Geom g;
+  int m0, vec;
+  Pixel px[2];
+  int col[2];
+  __device__ __forceinline__ void init(int t, int r, int c) {
+    px[t] = pixel(g, m0 + r);
+    col[t] = c;
+  }
+  __device__ __forceinline__ uint4 operator()(int sl, int t) const {
+    union { uint4 v; unsigned short h[8]; } u;
+    u.v = make_uint4(0u, 0u, 0u, 0u);
+    int kidx = sl * tc::BK + col[t];
+    if (!px[t].live || kidx >= g.red) return u.v;
+    int rs = kidx / g.c, c = kidx - rs * g.c;
+    int r = rs / g.s, s = rs - r * g.s;
+    if (vec) {   // c % 8 == 0: the 8 indices are 8 channels of one tap
+      const bf16* p = tap(x, g, px[t], r, s, c);
+      if (p) u.v = *reinterpret_cast<const uint4*>(p);
+      return u.v;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (kidx + i < g.red) {
+        const bf16* p = tap(x, g, px[t], r, s, c);
+        if (p) u.h[i] = __bfloat16_as_ushort(*p);
+      }
+      if (++c == g.c) { c = 0; if (++s == g.s) { s = 0; ++r; } }
+    }
+    return u.v;
+  }
+};
+
+// The gathered A operand, fp32: one window index of one pixel.
+struct GatherSimt {
+  const float* x;
+  Geom g;
+  int m0;
+  Pixel px[4];
+  int kk[4];
+  __device__ __forceinline__ void init(int t, int f, int k) {
+    px[t] = pixel(g, m0 + f);
+    kk[t] = k;
+  }
+  __device__ __forceinline__ float operator()(int sl, int t) const {
+    int kidx = sl * simt::BK + kk[t];
+    if (!px[t].live || kidx >= g.red) return 0.0f;
+    int rs = kidx / g.c, c = kidx - rs * g.c;
+    int r = rs / g.s, s = rs - r * g.s;
+    const float* p = tap(x, g, px[t], r, s, c);
+    return p ? *p : 0.0f;
+  }
+};
+
+// w viewed as the row-major (r * s * c, k) matrix B.
+template <typename T>
+__device__ __forceinline__ Strided<T> weights(const T* w, const Geom& g,
+                                              int n0, int bk, int vec) {
+  return Strided<T>{w, 0, g.k, /*red_rows=*/1, n0, g.k, g.red,
+                    cdiv(g.red, bk), 0, vec};
+}
+
+__global__ void __launch_bounds__(tc::THREADS)
+conv2d_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                   Epilogue e, Geom g, int vec_x, int vec_w) {
+  __shared__ __align__(128) bf16 As[tc::STAGE];
+  __shared__ __align__(128) bf16 Bs[tc::STAGE];
+  __shared__ __align__(128) float Cs[tc::BM * tc::LDC];
+  const int m0 = blockIdx.x * tc::BM, n0 = blockIdx.y * tc::BN;
+  GatherTc fa{x, g, m0, vec_x};
+  tc::StridedFetch fb{weights(w, g, n0, tc::BK, vec_w)};
+  tc::Acc acc[2][2];
+  tc::mainloop(acc, As, Bs, /*a_red_rows=*/0, /*b_red_rows=*/1,
+               cdiv(g.red, tc::BK), fa, fb);
+  tc::store_tile(acc, Cs, [&](int r, int c, float v) {
+    if (m0 + r < g.m && n0 + c < g.k) finish(e, v, m0 + r, n0 + c);
+  });
+}
+
+__global__ void __launch_bounds__(simt::THREADS)
+conv2d_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  Epilogue e, Geom g) {
+  const int m0 = blockIdx.x * simt::BM, n0 = blockIdx.y * simt::BN;
+  GatherSimt fa{x, g, m0};
+  simt::StridedFetch fb{weights(w, g, n0, simt::BK, 0)};
+  float acc[4][4];
+  simt::mainloop(acc, /*a_red_rows=*/0, /*b_red_rows=*/1,
+                 cdiv(g.red, simt::BK), fa, fb);
+  simt::store_tile(acc, [&](int r, int c, float v) {
+    if (m0 + r < g.m && n0 + c < g.k) finish(e, v, m0 + r, n0 + c);
+  });
+}
+
+// x: (n, h, w, c) contiguous; w: (r, s, c, k) contiguous; bias: (k,) or
+// null; out: (n, p, q, k) contiguous.  vec_x / vec_w: 16-byte loads are
+// safe (bf16 only: aligned base, c or k a multiple of 8).  Returns the
+// launch's cudaGetLastError().
+extern "C" int repro_conv2d(const void* x, const void* w, const void* bias,
+                            void* out, int n, int h, int wi, int c, int k,
+                            int r, int s, int p, int q, int stride, int pad,
+                            int act, int is_bf16, int out_f32, int bias_f32,
+                            int vec_x, int vec_w, void* stream) {
+  if (act < 0 || act >= N_ACT) return (int)cudaErrorInvalidValue;
+  Geom g{n, h, wi, c, k, r, s, p, q, stride, pad, n * p * q, r * s * c};
+  Epilogue e{out, bias, nullptr, k, 0, 1.0f, 0.0f, act, out_f32, bias_f32, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(cdiv(g.m, 64), cdiv(k, 64));
+  if (is_bf16)
+    conv2d_bf16_kernel<<<grid, tc::THREADS, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), e, g,
+        vec_x, vec_w);
+  else
+    conv2d_f32_kernel<<<grid, simt::THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), e, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

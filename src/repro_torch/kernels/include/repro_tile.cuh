@@ -1,0 +1,353 @@
+// Shared device code of the tile GEMMs written after matmul.cu: the
+// stacked and the batched batch-reduce GEMMs (kernels/brgemm_batched) and
+// the implicit-GEMM direct convolution (kernels/conv2d).
+//
+// One block owns one 64 x 64 output tile and walks a sequence of
+// reduction "slices".  What a slice is belongs to the caller, through two
+// fetch functors: a k-block of one batch entry (batched), a k-block of
+// each batch entry in turn (stacked), a block of the flattened (r, s, c)
+// window of a convolution (conv2d).  The fp32 accumulator stays in
+// registers (wmma fragments for bf16 inputs, plain registers and FMA for
+// fp32 inputs: no TF32, so fp32 keeps fp32 accuracy), and the epilogue
+// (alpha, beta * c0, bias, activation, cast) runs on it before the single
+// store.  Everything but the input type is a run-time value, so each
+// family compiles a handful of instances.
+//
+// A fetch functor F provides
+//   F.init(t, r, c)   once per block: this thread's t-th piece sits at row r,
+//                     column c of the staged tile (the orientation below);
+//   F(slice, t)       that piece of the given slice, zero outside the
+//                     operand: 8 bf16 values as a uint4 (tc) or one float
+//                     (simt).
+// Staging orientation: a tile is staged with the operand's memory rows as
+// its rows, so each piece is a run of contiguous memory.  For A (m x k)
+// that is As[m][k] (row-major A) or As[k][m] (A read column-major, as
+// x.T is); for B (k x n) Bs[k][n] or Bs[n][k].  ``red_rows`` says that the
+// staged rows run along the reduction.
+#pragma once
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <stdint.h>
+#include <type_traits>
+
+namespace repro {
+using bf16 = __nv_bfloat16;
+
+// Kept in the order of repro_torch/core/fusion.py::ACTIVATIONS.
+enum Act { NONE = 0, RELU, SIGMOID, TANH, GELU, SILU, EXP, SQUARE, N_ACT };
+
+__device__ __forceinline__ float apply_act(int act, float x) {
+  switch (act) {
+    case RELU: return fmaxf(x, 0.0f);
+    case SIGMOID: return 1.0f / (1.0f + expf(-x));
+    case TANH: return tanhf(x);
+    case GELU:
+      return 0.5f * x * (1.0f + tanhf(0.7978845608028654f *
+                                      (x + 0.044715f * x * x * x)));
+    case SILU: return x * (1.0f / (1.0f + expf(-x)));
+    case EXP: return expf(x);
+    case SQUARE: return x * x;
+    default: return x;
+  }
+}
+
+struct Epilogue {
+  void* out;           // rows of ld_out elements, fp32 or bf16
+  const void* bias;    // (n,) or null, fp32 or the input type
+  const void* c0;      // (m, n) with row stride ldc0, or null
+  long long ld_out, ldc0;
+  float alpha, beta;
+  int act, out_f32, bias_f32, c0_f32;
+};
+
+__device__ __forceinline__ float load_as_float(const void* p, long long i,
+                                               int is_f32) {
+  return is_f32 ? static_cast<const float*>(p)[i]
+                : __bfloat162float(static_cast<const bf16*>(p)[i]);
+}
+
+// The reference's epilogue order: alpha, beta * c0, bias, activation, cast.
+__device__ __forceinline__ void finish(const Epilogue& e, float acc,
+                                       long long row, int col) {
+  acc *= e.alpha;
+  if (e.c0) acc += e.beta * load_as_float(e.c0, row * e.ldc0 + col, e.c0_f32);
+  if (e.bias) acc += load_as_float(e.bias, col, e.bias_f32);
+  acc = apply_act(e.act, acc);
+  long long o = row * e.ld_out + col;
+  if (e.out_f32) static_cast<float*>(e.out)[o] = acc;
+  else static_cast<bf16*>(e.out)[o] = __float2bfloat16(acc);
+}
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A strided 2-D operand, one matrix per batch entry: element (row, col) of
+// entry i at p + i * bstride + row * ld + col, in memory order (rows are
+// the reduction when red_rows).  fixed0 / fixed_n: this block's first index
+// and the extent of the dimension that is not reduced; red_n: the
+// reduction's extent; kb: slices per batch entry; batch0: the first entry.
+// Slice sl reads entry batch0 + sl / kb at k0 = (sl % kb) * bk.
+template <typename T>
+struct Strided {
+  const T* p;
+  long long bstride, ld;
+  int red_rows, fixed0, fixed_n, red_n, kb, batch0, vec;
+
+  __device__ __forceinline__ void origin(int sl, int bk, const T*& base,
+                                         int& rmax, int& cmax) const {
+    int i = batch0 + sl / kb, k0 = (sl % kb) * bk;
+    if (red_rows) {
+      base = p + i * bstride + (long long)k0 * ld + fixed0;
+      rmax = red_n - k0;
+      cmax = fixed_n - fixed0;
+    } else {
+      base = p + i * bstride + (long long)fixed0 * ld + k0;
+      rmax = fixed_n - fixed0;
+      cmax = red_n - k0;
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// bf16 inputs: tensor cores through wmma.  128 threads = 4 warps in a 2 x 2
+// grid, each warp a 32 x 32 piece of the 64 x 64 tile; BK = 32 per slice.
+// ---------------------------------------------------------------------------
+namespace tc {
+namespace wmma = nvcuda::wmma;
+constexpr int BM = 64, BN = 64, BK = 32, THREADS = 128;
+constexpr int LD_RED = BM + 8;   // staged rows along the reduction: 32 x 64
+constexpr int LD_FIX = BK + 8;   // staged rows along m or n: 64 x 32
+constexpr int STAGE = 64 * LD_FIX > 32 * LD_RED ? 64 * LD_FIX : 32 * LD_RED;
+constexpr int LDC = BN + 4;
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// 8 elements from row r, columns c.. of a row-major block at base (row
+// stride ld): one 16-byte load where aligned and inside, else element by
+// element with zero fill.
+__device__ __forceinline__ uint4 load_chunk(const bf16* base, long long ld,
+                                            int r, int c, int rmax, int cmax,
+                                            int vec) {
+  if (vec && r < rmax && c + 8 <= cmax)
+    return *reinterpret_cast<const uint4*>(base + (long long)r * ld + c);
+  union { uint4 v; unsigned short h[8]; } u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    u.h[i] = (r < rmax && c + i < cmax)
+                 ? __bfloat16_as_ushort(base[(long long)r * ld + c + i])
+                 : (unsigned short)0;
+  return u.v;
+}
+
+// Chunk t of this thread: 256 chunks of 8 cover a 64 x 32 tile.
+__device__ __forceinline__ void chunk_at(int t, int red_rows, int& r,
+                                         int& c) {
+  int idx = threadIdx.x + t * THREADS;
+  if (red_rows) { r = idx / 8; c = (idx % 8) * 8; }   // 32 rows of 64
+  else          { r = idx / 4; c = (idx % 4) * 8; }   // 64 rows of 32
+}
+
+struct StridedFetch {
+  Strided<bf16> op;
+  int r[2], c[2];
+  __device__ __forceinline__ void init(int t, int rr, int cc) {
+    r[t] = rr;
+    c[t] = cc;
+  }
+  __device__ __forceinline__ uint4 operator()(int sl, int t) const {
+    const bf16* base;
+    int rmax, cmax;
+    op.origin(sl, BK, base, rmax, cmax);
+    return load_chunk(base, op.ld, r[t], c[t], rmax, cmax, op.vec);
+  }
+};
+
+template <typename LA, typename LB>
+__device__ __forceinline__ void mma_slice(Acc (&acc)[2][2], const bf16* As,
+                                          const bf16* Bs, int lda, int ldb,
+                                          int wm, int wn) {
+  constexpr bool A_ROW = std::is_same<LA, wmma::row_major>::value;
+  constexpr bool B_ROW = std::is_same<LB, wmma::row_major>::value;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      int m = wm * 32 + i * 16;
+      wmma::load_matrix_sync(fa[i], A_ROW ? &As[m * lda + kk]
+                                          : &As[kk * lda + m], lda);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      int n = wn * 32 + j * 16;
+      wmma::load_matrix_sync(fb[j], B_ROW ? &Bs[kk * ldb + n]
+                                          : &Bs[n * ldb + kk], ldb);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  }
+}
+
+// acc = sum over the slices of A_slice @ B_slice.  a_red_rows: A staged
+// As[k][m] (column-major A); b_red_rows: B staged Bs[k][n] (row-major B).
+// The next slice is fetched into registers while the current one is
+// multiplied.
+template <typename FA, typename FB>
+__device__ __forceinline__ void mainloop(Acc (&acc)[2][2], bf16* As, bf16* Bs,
+                                         int a_red_rows, int b_red_rows,
+                                         int slices, FA& fa, FB& fb) {
+  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
+  const int lda = a_red_rows ? LD_RED : LD_FIX;
+  const int ldb = b_red_rows ? LD_RED : LD_FIX;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  int a_off[2], b_off[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    int r, c;
+    chunk_at(t, a_red_rows, r, c);
+    fa.init(t, r, c);
+    a_off[t] = r * lda + c;
+    chunk_at(t, b_red_rows, r, c);
+    fb.init(t, r, c);
+    b_off[t] = r * ldb + c;
+  }
+  if (slices <= 0) return;
+  uint4 ra[2], rb[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) { ra[t] = fa(0, t); rb[t] = fb(0, t); }
+  using RM = wmma::row_major;
+  using CM = wmma::col_major;
+  for (int sl = 0; sl < slices; ++sl) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      *reinterpret_cast<uint4*>(&As[a_off[t]]) = ra[t];
+      *reinterpret_cast<uint4*>(&Bs[b_off[t]]) = rb[t];
+    }
+    __syncthreads();
+    if (sl + 1 < slices) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t) { ra[t] = fa(sl + 1, t); rb[t] = fb(sl + 1, t); }
+    }
+    if (a_red_rows) {
+      if (b_red_rows) mma_slice<CM, RM>(acc, As, Bs, lda, ldb, wm, wn);
+      else mma_slice<CM, CM>(acc, As, Bs, lda, ldb, wm, wn);
+    } else {
+      if (b_red_rows) mma_slice<RM, RM>(acc, As, Bs, lda, ldb, wm, wn);
+      else mma_slice<RM, CM>(acc, As, Bs, lda, ldb, wm, wn);
+    }
+    __syncthreads();
+  }
+}
+
+// Hands each element of the 64 x 64 accumulator to store(r, c, value),
+// neighbouring threads on neighbouring columns.
+template <typename Store>
+__device__ __forceinline__ void store_tile(Acc (&acc)[2][2], float* Cs,
+                                           Store store) {
+  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * LDC + wn * 32 + j * 16],
+                              acc[i][j], LDC, wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS)
+    store(idx / BN, idx % BN, Cs[(idx / BN) * LDC + idx % BN]);
+}
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// fp32 inputs: FMA on the CUDA cores.  256 threads, each a 4 x 4 piece of
+// the 64 x 64 tile (rows ty + 16 i, columns tx + 16 j); BK = 16 per slice.
+// ---------------------------------------------------------------------------
+namespace simt {
+constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
+
+// Element t (0..3) of this thread: 1024 elements cover a 64 x 16 tile.
+// When the staged rows run along the reduction, neighbouring threads take
+// neighbouring m (or n) indices; otherwise neighbouring k indices: either
+// way they read neighbouring addresses.  f is the m or n index, kk the
+// reduction index inside the slice.
+__device__ __forceinline__ void elem_at(int t, int red_rows, int& f,
+                                        int& kk) {
+  int idx = threadIdx.x + t * THREADS;
+  if (red_rows) { f = idx % 64; kk = idx / 64; }
+  else          { f = idx / BK; kk = idx % BK; }
+}
+
+struct StridedFetch {
+  Strided<float> op;
+  int f[4], kk[4];
+  __device__ __forceinline__ void init(int t, int ff, int k) {
+    f[t] = ff;
+    kk[t] = k;
+  }
+  __device__ __forceinline__ float operator()(int sl, int t) const {
+    const float* base;
+    int rmax, cmax;
+    op.origin(sl, BK, base, rmax, cmax);
+    int r = op.red_rows ? kk[t] : f[t], c = op.red_rows ? f[t] : kk[t];
+    return (r < rmax && c < cmax) ? base[(long long)r * op.ld + c] : 0.0f;
+  }
+};
+
+template <typename FA, typename FB>
+__device__ __forceinline__ void mainloop(float (&acc)[4][4], int a_red_rows,
+                                         int b_red_rows, int slices, FA& fa,
+                                         FB& fb) {
+  __shared__ float As[BK][BM + 4];   // As[kk][m]
+  __shared__ float Bs[BK][BN + 4];   // Bs[kk][n]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  int af[4], ak[4], bf[4], bk[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    elem_at(t, a_red_rows, af[t], ak[t]);
+    fa.init(t, af[t], ak[t]);
+    elem_at(t, b_red_rows, bf[t], bk[t]);
+    fb.init(t, bf[t], bk[t]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int sl = 0; sl < slices; ++sl) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      As[ak[t]][af[t]] = fa(sl, t);
+      Bs[bk[t]][bf[t]] = fb(sl, t);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename Store>
+__device__ __forceinline__ void store_tile(float (&acc)[4][4], Store store) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) store(ty + 16 * i, tx + 16 * j, acc[i][j]);
+}
+}  // namespace simt
+}  // namespace repro

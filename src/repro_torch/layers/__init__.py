@@ -1,1 +1,2 @@
-"""Layers of the port: norms, rope, embeddings, gated MLP, GQA attention."""
+"""Layers of the port: norms, rope, embeddings, gated MLP, GQA attention,
+convolution and fully-connected layers."""

@@ -1,1 +1,2 @@
-"""Models of the port: the dense decoder block and LM, and the model API."""
+"""Models of the port: the dense decoder block and LM, the model API, and
+ResNet-50."""

@@ -1,5 +1,6 @@
 """Card-only tests of the port's CUDA kernels, of serving and of training
-through them.
+through them, and of ResNet-50's path (the convolution, the stacked and
+batched GEMMs).
 
 Marked ``gpu``; each test skips without a CUDA device (decided in a
 fixture, so every test collects alike everywhere).  This file imports no
@@ -15,7 +16,11 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import dispatch, fusion
-from repro_torch.kernels.brgemm import matmul, matmul_cuda, matmul_ref
+from repro_torch.kernels.brgemm import (batched_matmul_cuda,
+                                        batched_matmul_ref, brgemm,
+                                        brgemm_ref, brgemm_stacked_cuda,
+                                        matmul, matmul_cuda, matmul_ref)
+from repro_torch.kernels.conv2d import conv2d, conv2d_cuda, conv2d_ref
 from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
                                                  delta_rowsum_ref,
                                                  flash_attention,
@@ -23,7 +28,7 @@ from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_cuda,
                                                  mha_ref)
-from repro_torch.models import api
+from repro_torch.models import api, resnet
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.train.optimizer import AdamWCfg
 from repro_torch.train.train_step import init_state, make_train_step
@@ -38,6 +43,7 @@ def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False      # the plain fp32 conv
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -236,3 +242,184 @@ def test_train_step_kernels_match_plain(gen):
         assert tuple(a - b for a, b in zip(after, before)) == expect
     np.testing.assert_allclose(losses["cuda"], losses["torch"], atol=1e-4,
                                rtol=0)
+
+
+def _band_close(got, want, dtype, what):
+    """fp32: 1e-4 of the largest |output| (sums in other orders); bf16
+    out: one bf16 ulp (the TOL band)."""
+    if dtype == torch.float32 and got.dtype == torch.float32:
+        scale = max(want.abs().max().item(), 1.0)
+        torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=1e-4,
+                                   msg=what)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[torch.bfloat16], msg=what)
+
+
+# (N, H, C, K, R, stride, padding, activation, bias): the stem (C = 3,
+# element-wise gather), 1x1 and 3x3 windows at strides 1 and 2, and ragged
+# counts that leave every tile edge partly empty.
+CONV_CASES = [
+    (2, 37, 3, 64, 7, 2, 3, "none", False),
+    (2, 14, 64, 256, 1, 1, 0, "none", False),
+    (3, 15, 64, 128, 1, 2, 0, "relu", True),
+    (2, 16, 64, 64, 3, 1, 1, "none", False),
+    (2, 17, 128, 72, 3, 2, 1, "gelu", True),
+    (1, 9, 12, 20, 3, 2, 1, "relu", True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,c,k,r,stride,padding,activation,use_bias",
+                         CONV_CASES)
+def test_conv2d_kernel(gen, dtype, n, h, c, k, r, stride, padding,
+                       activation, use_bias):
+    x = torch.randn(n, h, h, c, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(r, r, c, k, device="cuda", generator=gen)
+         * (c * r * r) ** -0.5).to(dtype)
+    bias = torch.randn(k, device="cuda", generator=gen).to(dtype) \
+        if use_bias else None
+    kw = dict(stride=stride, padding=padding, activation=activation)
+    launches = conv2d_cuda.launches
+    _band_close(conv2d_cuda(x, w, bias, **kw), conv2d_ref(x, w, bias, **kw),
+                dtype, "conv")
+    _band_close(conv2d_cuda(x, w, bias, out_dtype=torch.float32, **kw),
+                conv2d_ref(x, w, bias, out_dtype=torch.float32, **kw),
+                torch.float32, "conv fp32 out")
+    assert conv2d_cuda.launches - launches == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,c,k,r,stride,padding,activation,use_bias",
+                         CONV_CASES[1:])
+def test_conv2d_gradients_match_plain_autograd(gen, dtype, n, h, c, k, r,
+                                               stride, padding, activation,
+                                               use_bias):
+    x = torch.randn(n, h, h, c, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(r, r, c, k, device="cuda", generator=gen)
+         * (c * r * r) ** -0.5).to(dtype)
+    bias = torch.randn(k, device="cuda", generator=gen).to(dtype)
+    kw = dict(stride=stride, padding=padding, activation=activation)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        leaves = [a.detach().clone().requires_grad_() for a in (x, w, bias)]
+        y = conv2d(*leaves, backend=backend, **kw)
+        dy = torch.randn(y.shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1)
+                         ).to(dtype)
+        before = conv2d_cuda.launches, matmul_cuda.launches
+        grads[backend] = torch.autograd.grad(y, leaves, dy)
+        # the dual conv (+ the gelu pre-activation recompute) and one wgrad
+        expect = ((1 + (activation == "gelu"), 1) if backend == "cuda"
+                  else (0, 0))
+        assert (conv2d_cuda.launches - before[0],
+                matmul_cuda.launches - before[1]) == expect
+    for name, got, want in zip(("dx", "dw", "dbias"), grads["cuda"],
+                               grads["torch"]):
+        assert got.dtype == want.dtype == dtype
+        _rel_close(got, want, GRAD_BAND[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb,m,k,n,epilogue", [
+    (16, 64, 64, 64, "plain"), (3, 77, 100, 133, "bias+c0"),
+    (4, 300, 96, 40, "c0"), (8, 130, 1024, 96, "bias")])
+def test_brgemm_stacked_kernel(gen, dtype, nb, m, k, n, epilogue):
+    a = torch.randn(nb, m, k, device="cuda", generator=gen).to(dtype)
+    b = (torch.randn(nb, k, n, device="cuda", generator=gen)
+         * (nb * k) ** -0.5).to(dtype)
+    bias = torch.randn(n, device="cuda", generator=gen).to(dtype) \
+        if "bias" in epilogue else None
+    c0 = torch.randn(m, n, device="cuda", generator=gen).to(dtype) \
+        if "c0" in epilogue else None
+    kw = dict(activation="tanh", alpha=0.5, beta=0.75 if c0 is not None
+              else 0.0)
+    launches = brgemm_stacked_cuda.launches
+    _band_close(brgemm_stacked_cuda(a, b, bias, c0, **kw),
+                brgemm_ref(a, b, bias, c0=c0, **kw), dtype, "brgemm")
+    # column-major entries, read in place
+    at, bt = a.transpose(1, 2).contiguous().transpose(1, 2), \
+        b.transpose(1, 2).contiguous().transpose(1, 2)
+    _band_close(brgemm_stacked_cuda(at, bt, bias, c0, **kw),
+                brgemm_ref(a, b, bias, c0=c0, **kw), dtype, "brgemm^T")
+    assert brgemm_stacked_cuda.launches - launches == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bcast", ["none", "a", "b"])
+@pytest.mark.parametrize("trans", [False, True])
+def test_batched_matmul_kernel(gen, dtype, bcast, trans):
+    nb, m, k, n = 5, 70, 96, 130
+    a = torch.randn(nb, m, k, device="cuda", generator=gen).to(dtype)
+    b = (torch.randn(nb, k, n, device="cuda", generator=gen)
+         * k ** -0.5).to(dtype)
+    if trans:   # the swapaxes(-1, -2) views of brgemm's backward
+        a = a.transpose(1, 2).contiguous().transpose(1, 2)
+        b = b.transpose(1, 2).contiguous().transpose(1, 2)
+    a = a[0] if bcast == "a" else a
+    b = b[0] if bcast == "b" else b
+    bias = torch.randn(n, device="cuda", generator=gen)
+    launches = batched_matmul_cuda.launches
+    got = batched_matmul_cuda(a, b, bias, activation="relu", alpha=2.0)
+    assert got.shape == (nb, m, n) and got.dtype == dtype
+    _band_close(got, batched_matmul_ref(a, b, bias, activation="relu",
+                                        alpha=2.0), dtype, "batched")
+    assert batched_matmul_cuda.launches - launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["none", "gelu", "sigmoid"])
+def test_brgemm_gradients_match_plain_autograd(gen, dtype, activation):
+    nb, m, k, n = 6, 90, 72, 110
+    a = torch.randn(nb, m, k, device="cuda", generator=gen).to(dtype)
+    b = (torch.randn(nb, k, n, device="cuda", generator=gen)
+         * (nb * k) ** -0.5).to(dtype)
+    bias = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    c0 = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+    dy = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        leaves = [t.detach().clone().requires_grad_() for t in (a, b, bias,
+                                                                 c0)]
+        before = brgemm_stacked_cuda.launches, batched_matmul_cuda.launches
+        y = brgemm(*leaves, activation=activation, alpha=0.5, beta=0.25,
+                   backend=backend)
+        grads[backend] = torch.autograd.grad(y, leaves, dy)
+        # forward (+ the gelu recompute); dA and dB on the batched kernel
+        expect = ((1 + (activation == "gelu"), 2) if backend == "cuda"
+                  else (0, 0))
+        assert (brgemm_stacked_cuda.launches - before[0],
+                batched_matmul_cuda.launches - before[1]) == expect
+    for name, got, want in zip(("da", "db", "dbias", "dc0"), grads["cuda"],
+                               grads["torch"]):
+        assert got.dtype == want.dtype == dtype
+        _rel_close(got, want, GRAD_BAND[dtype], name)
+
+
+def test_resnet_launch_counts_and_plain_parity(gen):
+    """A reduced ResNet on the kernels: one conv launch per convolution
+    and one head GEMM per forward; a gradient step adds a dual conv for
+    each but the stem and a wgrad GEMM for each, plus the head's two."""
+    cfg = resnet.ResNetCfg(n_classes=10, width=8, stage_blocks=(1, 2, 1, 1))
+    params = resnet.init_params(cfg, gen)
+    x = torch.randn(2, 64, 64, 3, device="cuda", generator=gen)
+    labels = torch.tensor([3, 7], device="cuda")
+    convs = 1 + 3 * sum(cfg.stage_blocks) + len(cfg.stage_blocks)
+    conv2d_cuda.launches = matmul_cuda.launches = 0
+    with torch.no_grad():
+        logits = resnet.forward(params, x, cfg)
+    assert (conv2d_cuda.launches, matmul_cuda.launches) == (convs, 1)
+    with torch.no_grad():
+        want = resnet.forward(params, x, cfg, backend="torch")
+    _rel_close(logits, want, 1e-3, "logits")
+    conv2d_cuda.launches = matmul_cuda.launches = 0
+    loss, grads = resnet.loss_and_grads(params, x, labels, cfg)
+    assert (conv2d_cuda.launches, matmul_cuda.launches) == (
+        2 * convs - 1, 1 + 2 + convs)
+    want_loss, want_grads = resnet.loss_and_grads(params, x, labels, cfg,
+                                                  backend="torch")
+    assert abs(loss.item() - want_loss.item()) <= 1e-4
+    for (name, g), (_, w_) in zip(resnet.named_leaves(grads),
+                                  resnet.named_leaves(want_grads)):
+        err = ((g - w_).norm() / w_.norm().clamp_min(1e-30)).item()
+        assert err <= 1e-3, (name, err)

@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from repro_torch.core import dispatch
-from repro_torch.kernels.brgemm import matmul, matmul_cuda
+from repro_torch.kernels.brgemm import (batched_matmul, batched_matmul_cuda,
+                                        brgemm, brgemm_stacked_cuda, matmul,
+                                        matmul_cuda)
+from repro_torch.kernels.conv2d import conv2d, conv2d_cuda
 from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
                                                  flash_attention,
                                                  flash_attention_bwd,
@@ -65,15 +68,30 @@ def test_importing_every_module_loads_no_jax():
 def test_defaults_raise_without_cuda(monkeypatch):
     from repro_torch import configs
     from repro_torch.configs.shapes import ShapeCfg
-    from repro_torch.interop import opt_state_from_numpy, opt_state_to_numpy
+    from repro_torch.interop import (opt_state_from_numpy,
+                                     opt_state_to_numpy,
+                                     resnet_params_from_numpy,
+                                     resnet_params_to_numpy)
     from repro_torch.launch.train import run
-    from repro_torch.models import api
+    from repro_torch.layers import conv as conv_layer
+    from repro_torch.layers import linear
+    from repro_torch.models import api, resnet
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.train.optimizer import AdamWCfg
     from repro_torch.train.train_step import init_state
     cfg = configs.get("smollm-135m").reduced()
     params = api.init_params(cfg, device="cpu")
+    rcfg = resnet.ResNetCfg(n_classes=10, width=4, stage_blocks=(1, 1, 1, 1))
+    rtree = resnet_params_to_numpy(resnet.init_params(rcfg, device="cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet.init_params(rcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet_params_from_numpy(rtree, rcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        conv_layer.init(3, 8, 3, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        linear.init(8, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -99,11 +117,22 @@ def test_explicit_cuda_backend_on_cpu_tensors_raises():
         flash_attention(q, q, q, backend="cuda")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         flash_attention_bwd(q, q, q, q, lse, q, backend="cuda")
+    img, kern = torch.ones(1, 5, 5, 3), torch.ones(3, 3, 3, 4)
+    a, b = torch.ones(2, 4, 8), torch.ones(2, 8, 3)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        conv2d(img, kern, backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        brgemm(a, b, backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        batched_matmul(a, b, backend="cuda")
     with dispatch.use(backend="cuda"), pytest.raises(ValueError):
         matmul(x, w)
+    with dispatch.use(backend="cuda"), pytest.raises(ValueError):
+        conv2d(img, kern)
     # The wrappers themselves refuse CPU tensors before building anything.
     counters = (matmul_cuda, flash_attention_cuda, flash_attention_bwd_cuda,
-                delta_rowsum_cuda)
+                delta_rowsum_cuda, conv2d_cuda, brgemm_stacked_cuda,
+                batched_matmul_cuda)
     before = [c.launches for c in counters]
     with pytest.raises(ValueError):
         matmul_cuda(x, w)
@@ -113,6 +142,12 @@ def test_explicit_cuda_backend_on_cpu_tensors_raises():
         flash_attention_bwd_cuda(q, q, q, q, lse, q)
     with pytest.raises(ValueError):
         delta_rowsum_cuda(q, q)
+    with pytest.raises(ValueError):
+        conv2d_cuda(img, kern)
+    with pytest.raises(ValueError):
+        brgemm_stacked_cuda(a, b)
+    with pytest.raises(ValueError):
+        batched_matmul_cuda(a, b)
     assert [c.launches for c in counters] == before
 
 

@@ -1,23 +1,26 @@
-"""Drive the PyTorch port's serving, training, ResNet-50 and batch-reduce
-GEMM paths on one NVIDIA Hopper card.
+"""Drive the PyTorch port's serving, training, ResNet-50, batch-reduce
+GEMM and quantized serving paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure raises and exits non-zero):
   1. device  — a CUDA card of compute capability 9.0; its name and power
                limit as nvidia-smi gives them.
-  2. build   — the five kernel families (brgemm, flash_attention,
-               flash_attention_bwd, conv2d, brgemm_batched) built from
-               ``src/repro_torch/kernels/*/csrc`` by nvcc for sm_90a, in
-               parallel; build seconds and the -Xptxas -v summary.
+  2. build   — the six kernel families (brgemm, flash_attention,
+               flash_attention_bwd, conv2d, brgemm_batched, brgemm_quant)
+               built from ``src/repro_torch/kernels/*/csrc`` by nvcc for
+               sm_90a, in parallel; build seconds and the -Xptxas -v summary.
   3. parity  — each kernel against its plain PyTorch version on the card, at
                the main paths' shapes: smollm-135m's (B = 8 prompts of 512
                tokens; training's backward GEMMs, X or W read transposed in
-               place; the flash backward and its fused delta); the direct
-               convolution forward and its dgrad dual at ResNet-50's layer
-               shapes (N = 32); the stacked brgemm at the paper's cases and
-               the batched GEMM broadcast and transposed as brgemm's
-               backward reads it; in fp32 and bf16, within stated bands.
+               place; the flash backward and its fused delta; a flash row
+               with no valid key); the direct convolution forward and its
+               dgrad dual at ResNet-50's layer shapes (N = 32); the stacked
+               brgemm at the paper's cases and the batched GEMM broadcast and
+               transposed as brgemm's backward reads it; in fp32 and bf16,
+               within stated bands; the quantized GEMMs (int8, e4m3, e5m2;
+               bf16 and fp32 out) at the quantized serving path's shapes and
+               the paper's cases.
   4. serve   — full-width smollm-135m (random weights from a seed)
                ``Engine.generate``: 8 prompts x 512 tokens, 64 greedy
                tokens, bf16.  Once on the kernels (counting launches) and
@@ -45,9 +48,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   7. brgemm  — the paper's ``brgemm`` (forward and backward) and
                ``batched_matmul`` entry points at the paper's cases, on the
                kernels (exact launch counts) and on the plain path.
-  8. times   — each kernel's device time (profiler) and back-to-back wall
+  8. quant   — the serving run of phase 4 (bf16) in three quant tiers:
+               ``decode_quant="int8"`` on full-precision weights, weights
+               calibrated to int8, weights calibrated to fp8 (e4m3); on the
+               kernels (exact launch counts) and on the plain path; prefill
+               logits within a band, prefill and decode-step times and the
+               device's idle share beside phase 4's; the calibrated int8
+               tier in fp32, where the greedy tokens must match; then
+               ``brgemm(quant=)`` and ``batched_matmul(quant=)`` at the
+               paper's cases.
+  9. times   — each kernel's device time (profiler) and back-to-back wall
                time (CUDA events) at each main-path shape, serving's,
-               training's, ResNet-50's and brgemm's, beside its bound, its
+               training's, ResNet-50's, brgemm's and the quantized
+               serving's, beside its bound (at the input type's peak), its
                plain version and one library call.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
@@ -79,7 +92,7 @@ BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 8, 512, 64, 1024
 # press on 80 GB.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
 FAMILIES = ("brgemm", "flash_attention", "flash_attention_bwd", "conv2d",
-            "brgemm_batched")
+            "brgemm_batched", "brgemm_quant")
 RESNET_BATCH, RESNET_HW = 32, 224
 # ResNet-50's convolution layers as the paper's Table 2 lists them
 # (benchmarks/common.py): id, C, K, H (= W), R (= S), stride.  The
@@ -153,12 +166,63 @@ CONV_BAND = 1e-4
 # alone to hold (phase_resnet says what is held instead).
 RESNET_BAND = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 
-# Published dense peaks (NVIDIA data sheets), by the card nvidia-smi names.
-PEAKS = {  # bf16 tensor FLOP/s, HBM bytes/s
-    "sxm": (989e12, 3.35e12),
-    "pcie": (756e12, 2.0e12),
-    "nvl": (835e12, 3.9e12),
+# The quantized GEMMs against their plain versions, |kernel - plain| <= atol
+# + rtol |plain|, stated before the first run: int8 with no activation
+# exactly, with bf16 or fp32 out (the int32 sum is exact, the plain version
+# takes the same integer in float64, and both round the same fp32 epilogue,
+# acc * (sx * sw), * alpha, + bias, one rounding each, then the same cast);
+# int8 with an activation: the kernel's expf / tanhf against PyTorch's, a
+# few fp32 ulps (1e-5), or one bf16 ulp where that flips a bf16 rounding;
+# fp8: exact operands and products, fp32 sums in other orders, as the fp32
+# GEMM (1e-4), one bf16 ulp for bf16 out.
+def quant_tol(fmt, out_dtype, activation="none"):
+    if fmt == torch.int8 and activation == "none":
+        return (0.0, 0.0)
+    if out_dtype == torch.bfloat16:
+        return TOL[("matmul", torch.bfloat16)]
+    return (1e-5, 1e-5) if fmt == torch.int8 else TOL[("matmul",
+                                                        torch.float32)]
+
+
+# Full-width quantized serving, prefill logits.  The quantized GEMMs agree
+# exactly on equal inputs, but the attention (the flash kernel against
+# mha_ref) and the full-precision GEMMs (the head; decode_int8's prefill)
+# sum in other orders, and such a difference now and then flips an
+# activation's int8 rounding (a step of 1/127 of its row's absmax) that
+# later layers carry, and flip more roundings: rounding is discontinuous,
+# so the two paths drift apart by quantization steps, not by ulps.
+#   bf16: phase 4's band of 0.25 alone does not hold on an H100
+#     (calibrated int8: 0.281 from the plain path, against 0.088 at full
+#     precision), so, as phase_resnet does, each bf16 tier is held against
+#     the plain path in fp32 on the same bf16 weight values (calibrated
+#     alike): the kernels within 0.25 of it, or no further from it than
+#     1.25 times the plain bf16 path is.
+#   fp32 (calibrated int8): on an H100 the kernel path's logits lie 0.186
+#     from the plain path's and 51.6 % of its greedy tokens equal the
+#     plain path's, with every quantized GEMM exact.  So it is held two
+#     ways.  With the prefill attention of the kernel
+#     path swapped for the plain one, the quantized GEMMs are the kernels
+#     left (with the head's full-precision GEMM): greedy tokens equal to
+#     the plain path's and prefill logits within phase 4's fp32 band
+#     (1e-3).  With the flash kernel in place, the kernel path's logits
+#     differ from the plain path's by at most twice (relative L2) what the
+#     plain path's own logits move when only its prefill attention runs on
+#     the flash kernel.
+QUANT_LOGITS_BAND = {torch.bfloat16: 0.25, torch.float32: 1e-3}
+QUANT_TIERS = (   # name, Engine quant kwargs, calibration
+    ("decode_int8", {"decode_quant": "int8"}, None),
+    ("calibrated_int8", {}, "int8"),
+    ("calibrated_fp8", {}, "fp8"),
+)
+
+# Published dense peaks (NVIDIA data sheets), by the card nvidia-smi names:
+# bf16 tensor FLOP/s, int8 / fp8 tensor OP/s, HBM bytes/s.
+PEAKS = {
+    "sxm": (989e12, 1979e12, 3.35e12),
+    "pcie": (756e12, 1513e12, 2.0e12),
+    "nvl": (835e12, 1671e12, 3.9e12),
 }
+EIGHT_BIT = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 T0 = time.perf_counter()
@@ -179,10 +243,12 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def peaks(name: str):
+def peaks(name: str, dtype=torch.bfloat16):
+    """(tensor-core peak for ``dtype``'s inputs, memory bytes/s)."""
     low = name.lower()
-    return PEAKS["pcie" if "pcie" in low else "nvl" if "nvl" in low
-                 else "sxm"]
+    bf16, eight, bw = PEAKS["pcie" if "pcie" in low else "nvl" if "nvl" in
+                            low else "sxm"]
+    return (eight if dtype in EIGHT_BIT else bf16), bw
 
 
 # --------------------------------------------------------------------------
@@ -400,6 +466,21 @@ def phase_parity(cfg):
             record("flash_attention", f"{case} lse", dtype, lse, rl,
                    TOL[("lse", None)])
 
+        # A row with no valid key (non-causal, windowed, Tq > Tk: rows at
+        # q_pos >= Tk + window - 1 = 89): the mean of V, lse NEG_INF.
+        q = torch.randn(2, 4, 150, 64, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(2, 2, 70, 64, device="cuda", generator=gen
+                            ).to(dtype) for _ in range(2))
+        o, lse = flash_attention_cuda(q, k, v, causal=False, window=20,
+                                      return_residuals=True)
+        ro, rl = mha_ref(q, k, v, causal=False, window=20, return_lse=True)
+        shape = "q(2, 4, 150, 64) kv(2, 2, 70, 64) non-causal window 20"
+        record("flash_attention", f"no valid key (rows 89-149) {shape}",
+               dtype, o, ro, ftol)
+        record("flash_attention", "no valid key lse", dtype, lse, rl,
+               TOL[("lse", None)])
+        del q, k, v, o, lse, ro, rl
+
         # The backward: the forward's residuals from the kernel, as in
         # training; dY a view of the merged heads' gradient.
         band = GRAD_BAND[dtype]
@@ -604,6 +685,99 @@ def phase_parity_paper(cfg):
     return worst
 
 
+def quantized(x, w, fmt):
+    """(xq, sx, wq, sw): x quantized per row, w per output channel, as the
+    quantized path hands them over (w keeps its layout)."""
+    from repro_torch import quant
+    name = str(fmt).replace("torch.", "")
+    xq, sx = quant.quantize(x, name, axis=(-1,))
+    wq, sw = quant.quantize(w, name, axis=(-2,))
+    return xq, sx, wq, sw
+
+
+def phase_parity_quant(cfg):
+    """The three quantized GEMMs against their plain versions: matmul_q at
+    the quantized serving path's shapes (prefill, decode, the head on the
+    column-major table.T), brgemm_q and batched_matmul_q at the paper's
+    cases (one with a 2-D broadcast operand), in int8, e4m3 and e5m2, with
+    bf16 and fp32 out."""
+    from repro_torch import quant
+    from repro_torch.kernels.brgemm import (
+        batched_matmul_q_cuda, batched_matmul_q_ref, brgemm_q_cuda,
+        brgemm_q_ref, matmul_q_cuda, matmul_q_ref)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    worst = {"matmul_q": 0.0, "brgemm_q": 0.0, "batched_matmul_q": 0.0}
+    failed = []
+
+    def record(kernel, case, fmt, out_dtype, got, ref, tol):
+        ok, abs_err, rel_err = close(got, ref, *tol)
+        worst[kernel] = max(worst[kernel], abs_err)
+        emit({"phase": "parity", "kernel": kernel, "case": case,
+              "dtype": str(fmt).replace("torch.", ""),
+              "out_dtype": str(out_dtype).replace("torch.", ""),
+              "max_abs_err": abs_err, "max_rel_err": rel_err,
+              "atol": tol[0], "rtol": tol[1], "ok": ok})
+        if not ok:
+            failed.append(f"{kernel}:{case}:{fmt}:{out_dtype}")
+
+    gemms = [g for g in main_path_gemms(cfg)
+             if not g.name.endswith((".up", ".o"))]   # same shapes as q, gate
+    for fmt in EIGHT_BIT:
+        for out_dtype in (torch.float32, torch.bfloat16):
+            for g in gemms:
+                x, w = gemm_inputs(g, torch.float32, gen)
+                xq, sx, wq, sw = quantized(x, w, fmt)
+                kw = dict(activation=g.activation, out_dtype=out_dtype)
+                record("matmul_q", f"{g.name} m{g.m} k{g.k} n{g.n} "
+                       f"{g.activation} w{'T' if wq.stride(0) == 1 else ''}",
+                       fmt, out_dtype, matmul_q_cuda(xq, wq, sx, sw, **kw),
+                       matmul_q_ref(xq, wq, sx, sw, **kw),
+                       quant_tol(fmt, out_dtype, g.activation))
+                del x, w, xq, wq
+            # the epilogue: bias, alpha, gelu; ragged m, k, n
+            x = torch.randn(77, 100, device="cuda", generator=gen)
+            w = torch.randn(100, 133, device="cuda", generator=gen) / 10
+            bias = torch.randn(133, device="cuda", generator=gen)
+            xq, sx, wq, sw = quantized(x, w, fmt)
+            kw = dict(activation="gelu", alpha=0.5, out_dtype=out_dtype)
+            record("matmul_q", "ragged m77 k100 n133 bias gelu alpha 0.5",
+                   fmt, out_dtype, matmul_q_cuda(xq, wq, sx, sw, bias, **kw),
+                   matmul_q_ref(xq, wq, sx, sw, bias, **kw),
+                   quant_tol(fmt, out_dtype, "gelu"))
+            name = str(fmt).replace("torch.", "")
+            for nb, m, k, n in BRGEMM_CASES:
+                a = torch.randn(nb, m, k, device="cuda", generator=gen)
+                b = (torch.randn(nb, k, n, device="cuda", generator=gen)
+                     * (nb * k) ** -0.5)
+                # batch-shared scales, as brgemm(quant=) makes them
+                aq, sa = quant.quantize(a, name, axis=(0, 2))
+                bq, sb = quant.quantize(b, name, axis=(0, 1))
+                case = f"B{nb} m{m} k{k} n{n}"
+                kw = dict(out_dtype=out_dtype)
+                record("brgemm_q", case, fmt, out_dtype,
+                       brgemm_q_cuda(aq, bq, sa, sb, **kw),
+                       brgemm_q_ref(aq, bq, sa, sb, **kw),
+                       quant_tol(fmt, out_dtype))
+                # per-entry scales; then A broadcast, as one 2-D operand
+                aq, sa = quant.quantize(a, name, axis=(-1,))
+                bq, sb = quant.quantize(b * nb ** 0.5, name, axis=(-2,))
+                record("batched_matmul_q", case, fmt, out_dtype,
+                       batched_matmul_q_cuda(aq, bq, sa, sb, **kw),
+                       batched_matmul_q_ref(aq, bq, sa, sb, **kw),
+                       quant_tol(fmt, out_dtype))
+                record("batched_matmul_q", f"{case} A broadcast", fmt,
+                       out_dtype,
+                       batched_matmul_q_cuda(aq[0], bq, sa[0], sb, **kw),
+                       batched_matmul_q_ref(aq[0], bq, sa[0], sb, **kw),
+                       quant_tol(fmt, out_dtype))
+                del a, b, aq, bq
+    torch.cuda.synchronize()
+    if failed:
+        raise AssertionError(f"quantized kernels disagree with their plain "
+                             f"versions: {failed}")
+    return worst
+
+
 # --------------------------------------------------------------------------
 # 4. full-width serving
 # --------------------------------------------------------------------------
@@ -694,22 +868,33 @@ def phase_serve(base_cfg):
     return main_launches
 
 
-def step_times(cfg, params, tokens):
-    """Host-clock prefill and decode-step times of the kernel path."""
+def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
+               decode_quant=None):
+    """Host-clock prefill and decode-step times of the kernel path, under a
+    serving tier's quant configs (None: full precision)."""
+    from repro_torch.core import dispatch
     from repro_torch.models import api
+
+    def prefill(cache):
+        with dispatch.use(quant=prefill_quant):
+            return api.prefill(params, {"tokens": tokens}, cfg, cache)
+
+    def decode(tok, cache, pos):
+        with dispatch.use(quant=decode_quant):
+            return api.decode_step(params, tok, cfg, cache, pos)
+
     with torch.inference_mode():
         cache = api.init_cache(cfg, BATCH, MAX_LEN, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = api.prefill(params, {"tokens": tokens}, cfg, cache)
+        logits, cache = prefill(cache)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         tok = logits.argmax(-1).to(torch.int32)[:, None]
         n = 16
         t0 = time.perf_counter()
         for i in range(n):
-            logits, cache = api.decode_step(params, tok, cfg, cache,
-                                            PROMPT + i)
+            logits, cache = decode(tok, cache, PROMPT + i)
             tok = logits.argmax(-1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
         decode_s = (time.perf_counter() - t0) / n
@@ -720,29 +905,30 @@ def step_times(cfg, params, tokens):
         def steps():
             nonlocal logits, cache, tok
             for i in range(prof_steps):
-                logits, cache = api.decode_step(params, tok, cfg, cache,
-                                                PROMPT + n + i)
+                logits, cache = decode(tok, cache, PROMPT + n + i)
                 tok = logits.argmax(-1).to(torch.int32)[:, None]
 
         by_name = device_ms_by_kernel(steps, prof_steps)
         # Where the host's time goes in the same steps.
         host_ms, host_fns = host_split(steps, prof_steps)
         prefill_busy_ms = sum(device_ms_by_kernel(
-            lambda: api.prefill(params, {"tokens": tokens}, cfg, cache),
-            1).values())
+            lambda: prefill(cache), 1).values())
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    emit({"phase": "serve_steps", "prefill_ms": prefill_s * 1e3,
-          "prefill_device_busy_ms": prefill_busy_ms,
-          "prefill_device_idle_share": 1 - prefill_busy_ms / (prefill_s
-                                                               * 1e3),
-          "decode_step_ms": decode_s * 1e3,
-          "decode_tokens_per_s": BATCH / decode_s,
-          "decode_device_busy_ms": busy_ms,
-          "decode_device_idle_share": 1 - busy_ms / (decode_s * 1e3),
-          "decode_device_ms_by_kernel": {k[:80]: v for k, v in top},
-          "decode_host_cprofile_step_ms": host_ms,
-          "decode_host_cprofile_cumulative_ms": host_fns})
+    rec = {"phase": "serve_steps", "tier": tier,
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_device_busy_ms": prefill_busy_ms,
+           "prefill_device_idle_share": 1 - prefill_busy_ms / (prefill_s
+                                                                * 1e3),
+           "decode_step_ms": decode_s * 1e3,
+           "decode_tokens_per_s": BATCH / decode_s,
+           "decode_device_busy_ms": busy_ms,
+           "decode_device_idle_share": 1 - busy_ms / (decode_s * 1e3),
+           "decode_device_ms_by_kernel": {k[:80]: v for k, v in top},
+           "decode_host_cprofile_step_ms": host_ms,
+           "decode_host_cprofile_cumulative_ms": host_fns}
+    emit(rec)
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -1254,15 +1440,232 @@ def phase_brgemm():
 
 
 # --------------------------------------------------------------------------
-# 8. kernel times
+# 8. quantized serving, and the quantized brgemm / batched_matmul
 # --------------------------------------------------------------------------
+
+def expected_quant_launches(cfg, calibrated):
+    """Launches of one NEW_TOKENS-token ``Engine.generate``, from the code:
+    decode_quant="int8" runs prefill (one forward) at full precision and
+    each decode forward quantized, its head quantizing table.T dynamically;
+    a calibrated model runs every forward quantized but the head, whose
+    table is not a calibrated weight."""
+    per_forward = cfg.n_layers * 7 + 1
+    if calibrated:
+        return {"matmul": NEW_TOKENS,
+                "matmul_q": (per_forward - 1) * NEW_TOKENS,
+                "flash_attention": cfg.n_layers}
+    return {"matmul": per_forward, "matmul_q": per_forward * (NEW_TOKENS - 1),
+            "flash_attention": cfg.n_layers}
+
+
+@contextlib.contextmanager
+def attention_on(backend):
+    """Inside, the prefill attention runs on ``backend`` ("torch": mha_ref,
+    "cuda": the flash kernel) whatever the rest of the path runs on: the
+    op's registry entries swapped, and restored on exit."""
+    from repro_torch.core import dispatch
+    table = dispatch._REGISTRY["flash_attention"]
+    saved = dict(table)
+    table["torch"] = table["cuda"] = saved[backend]
+    try:
+        yield
+    finally:
+        table.update(saved)
+
+
+def tier_reference(cfg, calibration):
+    """The plain path's model in fp32 on a bf16 tier's own weight values
+    (the same seed's draws rounded through bf16), calibrated alike: the
+    same int8 / fp8 weights, fp32 activations."""
+    from repro_torch import quant
+    from repro_torch.models import api
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    ref = api.init_params(cfg32, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    with torch.no_grad():
+        for p in ref.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+    if calibration is not None:
+        ref = quant.calibrate_params(ref, calibration)
+    return cfg32, ref
+
+
+def phase_quant(base_cfg):
+    from repro_torch import quant
+    from repro_torch.core import dispatch
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_q_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    counters = {"matmul": matmul_cuda, "matmul_q": matmul_q_cuda,
+                "flash_attention": flash_attention_cuda}
+    main_launches = dict.fromkeys(counters, 0)
+    failed = []
+    runs = [(torch.bfloat16, t) for t in QUANT_TIERS] + [
+        (torch.float32, QUANT_TIERS[1])]
+    for dtype, (tier, kw, calibration) in runs:
+        cfg = dataclasses.replace(base_cfg,
+                                  dtype=str(dtype).replace("torch.", ""))
+        params = api.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda")
+        if calibration is not None:
+            params = quant.calibrate_params(params, calibration)
+        engine = Engine(cfg, params, ServeConfig(max_len=MAX_LEN), **kw)
+        tokens = prompts(cfg)
+        engine.generate({"tokens": tokens[:, :16]}, n_tokens=2,
+                        stop_tokens=())           # warm-up, not counted
+        torch.cuda.synchronize()
+        # The main path: counts zeroed just before, read just after.
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        ids = engine.generate({"tokens": tokens}, n_tokens=NEW_TOKENS,
+                              stop_tokens=())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        expect = expected_quant_launches(cfg, calibration is not None)
+        if launches != expect:
+            raise AssertionError(f"quant {tier} launch counts {launches} != "
+                                 f"{expect}")
+        with dispatch.use(backend="torch"):
+            ids_plain = engine.generate({"tokens": tokens},
+                                        n_tokens=NEW_TOKENS, stop_tokens=())
+        torch.cuda.synchronize()
+        if {k: c.launches for k, c in counters.items()} != expect:
+            raise AssertionError("the plain quant run launched a kernel")
+        with dispatch.use(quant=engine.quant):    # the tier's prefill
+            lk = prefill_logits(cfg, params, tokens, None)
+            lp = prefill_logits(cfg, params, tokens, "torch")
+        err = (lk - lp).abs().max().item()
+        band = QUANT_LOGITS_BAND[dtype]
+        match = (ids == ids_plain).float().mean().item()
+        if dtype == torch.bfloat16:
+            cfg32, ref = tier_reference(cfg, calibration)
+            with dispatch.use(quant=engine.quant):
+                lr = prefill_logits(cfg32, ref, tokens, "torch")
+            del ref
+            rec = {"vs_fp32_plain": (lk - lr).abs().max().item(),
+                   "plain_vs_fp32_plain": (lp - lr).abs().max().item()}
+            held = {"logits vs fp32 plain": (
+                rec["vs_fp32_plain"],
+                max(band, 1.25 * rec["plain_vs_fp32_plain"]))}
+        else:
+            with attention_on("torch"):          # kernel GEMMs, mha_ref
+                ids_pa = engine.generate({"tokens": tokens},
+                                         n_tokens=NEW_TOKENS, stop_tokens=())
+                with dispatch.use(quant=engine.quant):
+                    lk_pa = prefill_logits(cfg, params, tokens, None)
+            with attention_on("cuda"), dispatch.use(quant=engine.quant):
+                lp_ka = prefill_logits(cfg, params, tokens, "torch")
+            match_pa = (ids_pa == ids_plain).float().mean().item()
+            rec = {"plain_attention_logits_err":
+                   (lk_pa - lp).abs().max().item(),
+                   "plain_attention_token_match": match_pa,
+                   "floor_rel_l2": rel_l2(lp_ka, lp)}
+            held = {"plain attention logits": (
+                        rec["plain_attention_logits_err"], band),
+                    "plain attention token mismatch": (1.0 - match_pa, 0.0),
+                    "logits rel l2 vs 2x floor": (
+                        rel_l2(lk, lp), 2 * rec["floor_rel_l2"])}
+        finite = bool(torch.isfinite(lk).all())
+        shape_ok = tuple(ids.shape) == (BATCH, NEW_TOKENS) and tuple(
+            lk.shape) == (BATCH, cfg.vocab)
+        emit({"phase": "quant", "tier": tier, "dtype": cfg.dtype,
+              "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
+              "launches": launches, "expected_launches": expect,
+              "generate_s": seconds,
+              "tokens_per_s": BATCH * NEW_TOKENS / seconds,
+              "prefill_logits_max_abs_err": err,
+              "prefill_logits_rel_l2": rel_l2(lk, lp), **rec,
+              "held": held, "logits_finite": finite,
+              "greedy_token_match": match})
+        bad = [k for k, (got, limit) in held.items() if not got <= limit]
+        if not (finite and shape_ok) or bad:
+            failed.append(f"{tier} {cfg.dtype}: finite={finite} shape_ok="
+                          f"{shape_ok} over their limits: {bad}")
+        if dtype == torch.bfloat16:      # the main path's dtype
+            step_times(cfg, params, tokens, tier, engine.quant,
+                       engine.decode_quant)
+            for k in counters:
+                main_launches[k] += launches[k]
+        del params, engine
+        torch.cuda.empty_cache()
+    main_launches.update(quant_entry_points())
+    if failed:
+        raise AssertionError(f"quantized serving: {failed}")
+    return main_launches
+
+
+def quant_entry_points():
+    """``brgemm(quant="int8")`` and ``batched_matmul(quant="int8")`` at the
+    paper's cases, bf16 in and out: one launch a call, and, on the same
+    operands (quantized alike on both paths), exactly the plain path's
+    result (quant_tol)."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.brgemm import batched_matmul, brgemm
+    from repro_torch.kernels.brgemm import (batched_matmul_q_cuda,
+                                            brgemm_q_cuda)
+    counters = {"brgemm_q": brgemm_q_cuda,
+                "batched_matmul_q": batched_matmul_q_cuda}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    cases = []
+    for nb, m, k, n in BRGEMM_CASES:
+        a = torch.randn(nb, m, k, device="cuda", generator=gen)
+        b = torch.randn(nb, k, n, device="cuda", generator=gen) * k ** -0.5
+        cases.append((a.to(torch.bfloat16), b.to(torch.bfloat16)))
+
+    def run():
+        with torch.no_grad():
+            out = [(brgemm(a, b, quant="int8"),
+                    batched_matmul(a, b, quant="int8")) for a, b in cases]
+        torch.cuda.synchronize()
+        return out
+
+    # The main path: counts zeroed just before, read just after.
+    for c in counters.values():
+        c.launches = 0
+    got = run()
+    launches = {k: c.launches for k, c in counters.items()}
+    expect = dict.fromkeys(counters, len(cases))
+    if launches != expect:
+        raise AssertionError(f"quant brgemm launch counts {launches} != "
+                             f"{expect}")
+    with dispatch.use(backend="torch"):
+        want = run()
+    if {k: c.launches for k, c in counters.items()} != expect:
+        raise AssertionError("the plain quant brgemm run launched a kernel")
+    tol = quant_tol(torch.int8, torch.bfloat16)
+    errs = {}
+    for (nb, m, k, n), g, w in zip(BRGEMM_CASES, got, want):
+        for name, a, b in zip(("brgemm", "batched_matmul"), g, w):
+            errs[f"{name} B{nb} m{m} k{k} n{n}"] = close(a, b, *tol)
+    emit({"phase": "quant", "entry": "brgemm / batched_matmul (quant=int8)",
+          "cases": BRGEMM_CASES, "launches": launches,
+          "expected_launches": expect,
+          "max_abs_err": {k: v[1] for k, v in errs.items()},
+          "atol": tol[0], "rtol": tol[1]})
+    bad = [k for k, v in errs.items() if not v[0]]
+    if bad:
+        raise AssertionError(f"quant brgemm disagrees with plain: {bad}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# 9. kernel times
+# --------------------------------------------------------------------------
+
+class NoDeviceTime(RuntimeError):
+    """The profiler recorded no device event in any attempt."""
+
 
 def device_ms_by_kernel(run, calls, attempts=3):
     """Device ms per call of each kernel that ``run()`` launches, summed
     from the profiler's device events (the kernels' own durations, so host
     gaps between launches do not count).  A session that comes back with
     no device event at all (seen once in some hundred sessions on the
-    card) is run again; a third empty one raises."""
+    card) is run again; a third empty one raises NoDeviceTime."""
     for _ in range(attempts):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -1276,7 +1679,7 @@ def device_ms_by_kernel(run, calls, attempts=3):
                                     + ev.device_time_total / 1e3 / calls)
         if by_name:
             return by_name
-    raise RuntimeError(f"the profiler recorded no device time in "
+    raise NoDeviceTime(f"the profiler recorded no device time in "
                        f"{attempts} sessions")
 
 
@@ -1300,7 +1703,10 @@ def time_ms(fn, sets, iters=40):
     together exceed the 50 MB L2, so that each call finds its operands in
     device memory as the serving path does.  Device ms is the sum of the
     call's kernel durations; wall ms comes from CUDA events around
-    back-to-back calls and so also holds any host gap between launches."""
+    back-to-back calls and so also holds any host gap between launches.
+    Where the profiler records no device event for ``fn`` (seen for some
+    of cuDNN's convolutions at ResNet-50's shapes, three profiles in a
+    row), device ms is the CUDA-event time, and a line says so."""
     for i in range(3):
         fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
@@ -1317,16 +1723,22 @@ def time_ms(fn, sets, iters=40):
         for i in range(iters):
             fn(*sets[i % len(sets)])
 
-    return sum(device_ms_by_kernel(run, iters).values()), wall
+    try:
+        return sum(device_ms_by_kernel(run, iters).values()), wall
+    except NoDeviceTime as exc:
+        emit({"profiler_empty": str(exc), "device_ms_from": "cuda events",
+              "wall_ms": wall})
+        return wall, wall
 
 
 def n_sets(nbytes):
     return max(2, min(256, math.ceil(120e6 / nbytes)))
 
 
-def bound(flops, nbytes, card):
-    """(bound ms, what bounds it) at the card's published bf16 peaks."""
-    peak, bw = peaks(card)
+def bound(flops, nbytes, card, dtype=torch.bfloat16):
+    """(bound ms, what bounds it) at the card's published peaks for inputs
+    of ``dtype`` (bf16's, or int8 / fp8's twice as high)."""
+    peak, bw = peaks(card, dtype)
     return (max(flops / peak, nbytes / bw) * 1e3,
             "operations" if flops / peak > nbytes / bw else "bytes")
 
@@ -1352,11 +1764,16 @@ def phase_times(cfg, card):
             x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
         lib, _ = time_ms(torch.matmul, sets)
         # The serving run: one prefill and NEW_TOKENS - 1 decode forwards;
-        # the head at the last position of each.
+        # the head at the last position of each.  The quant tiers' runs:
+        # decode_int8's prefill at full precision; the calibrated tiers'
+        # head, every forward.
         serve = g.per_forward * (NEW_TOKENS - 1 if g.name.startswith(
             "decode") else NEW_TOKENS if g.name == "lm_head" else 1)
+        quant = (1 + 2 * NEW_TOKENS if g.name == "lm_head" else
+                 g.per_forward if g.name.startswith("prefill") else 0)
         row("matmul", g.name, ms, wall, 2 * g.m * g.n * g.k, nbytes, plain,
-            lib, {"serve": serve, "train": g.per_step * TRAIN_STEPS},
+            lib, {"serve": serve, "train": g.per_step * TRAIN_STEPS,
+                  "quant": quant},
             m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind)
         del sets
 
@@ -1373,7 +1790,8 @@ def phase_times(cfg, card):
         q, k, v, is_causal=True, enable_gqa=True), sets)
     row("flash_attention", "prefill", ms, wall, 4 * b * hq * pairs * d,
         nbytes, plain, lib, {"serve": cfg.n_layers,
-                             "train": cfg.n_layers * TRAIN_STEPS},
+                             "train": cfg.n_layers * TRAIN_STEPS,
+                             "quant": len(QUANT_TIERS) * cfg.n_layers},
         q=[b, hq, t, d], kv=[b, hkv, t, d])
 
     # The backward at the train shape: q, k, v, o, dO, lse in; dq, dk, dv
@@ -1406,11 +1824,11 @@ def phase_times(cfg, card):
     return rows
 
 
-def row_recorder(rows, card):
+def row_recorder(rows, card, dtype=torch.bfloat16):
     def row(kernel, shape, ms, wall, flops, nbytes, plain, lib, calls, **kw):
         """One per-shape time; ``calls``: the shape's launches in each
         path's main run."""
-        bms, by = bound(flops, nbytes, card)
+        bms, by = bound(flops, nbytes, card, dtype)
         rows.append({"phase": "times", "kernel": kernel, "shape": shape,
                      "ms": ms, "wall_ms": wall, "bound_ms": bms,
                      "bound_by": by, "plain_ms": plain, "library_ms": lib,
@@ -1553,6 +1971,111 @@ def phase_times_paper(card):
     return rows
 
 
+def library_runs(fn, *args):
+    """Time of one PyTorch call, or None where it refuses the shape (say,
+    torch._int_mm wants more than 16 rows); the refusal is printed."""
+    try:
+        fn(*args)
+    except RuntimeError as exc:
+        emit({"library_refused": str(exc).splitlines()[0][:160]})
+        return False
+    return True
+
+
+def phase_times_quant(cfg, card):
+    """The quantized GEMMs at the quantized serving path's shapes (int8 and
+    e4m3, bf16 out, fp32 for the head) and the quantized brgemm /
+    batched_matmul at the paper's cases (int8), with bounds at the 8-bit
+    peak: operand bytes at 1 an element, the fp32 scales, the output.  The
+    library column: fp8, torch._scaled_mm with row-wise fp32 scales (the
+    whole function, bf16 out); int8, torch._int_mm, the int32 product only
+    (no scales, no epilogue), so it undercounts the function's work."""
+    from repro_torch.kernels.brgemm import (
+        batched_matmul_q_cuda, batched_matmul_q_ref, brgemm_q_cuda,
+        brgemm_q_ref, matmul_q_cuda, matmul_q_ref)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = []
+    for fmt in (torch.int8, torch.float8_e4m3fn):
+        row = row_recorder(rows, card, fmt)
+        name = str(fmt).replace("torch.", "")
+        for g in main_path_gemms(cfg):
+            if g.name == "lm_head" and fmt != torch.int8:
+                continue          # only decode_int8 quantizes the head
+            out_dtype = g.out_dtype or torch.bfloat16
+            out_bytes = 4 if g.out_dtype else 2
+            nbytes = (g.m * g.k + g.k * g.n + 4 * (g.m + g.n)
+                      + g.m * g.n * out_bytes)
+            sets = []
+            for _ in range(n_sets(nbytes)):
+                x, w = gemm_inputs(g, torch.bfloat16, gen)
+                xq, sx, wq, sw = quantized(x, w, fmt)
+                # _scaled_mm wants B column-major: a copy made here, untimed
+                sets.append((xq, sx, wq, sw, wq.t().contiguous().t()))
+            kw = dict(activation=g.activation, out_dtype=out_dtype)
+            ms, wall = time_ms(lambda xq, sx, wq, sw, _: matmul_q_cuda(
+                xq, wq, sx, sw, **kw), sets)
+            plain, _ = time_ms(lambda xq, sx, wq, sw, _: matmul_q_ref(
+                xq, wq, sx, sw, **kw), sets)
+            if fmt == torch.int8:
+                lib_name = "torch._int_mm (int32 product only)"
+
+                def lib_fn(xq, sx, wq, sw, _):
+                    return torch._int_mm(xq, wq)
+            else:
+                lib_name = "torch._scaled_mm (row-wise scales, bf16 out)"
+
+                def lib_fn(xq, sx, wq, sw, wcol):
+                    return torch._scaled_mm(xq, wcol, scale_a=sx[:, None],
+                                            scale_b=sw[None, :],
+                                            out_dtype=torch.bfloat16)
+            lib = (time_ms(lib_fn, sets)[0] if library_runs(lib_fn, *sets[0])
+                   else None)
+            # Launches in the quant phase's bf16 runs: decode_int8 and the
+            # calibrated int8 tier run the int8 rows (the head's only in
+            # decode_int8's decode), the fp8 tier the e4m3 rows.
+            decode = NEW_TOKENS - 1
+            if g.name == "lm_head":
+                calls = decode
+            elif g.name.startswith("decode"):
+                calls = g.per_forward * decode * (2 if fmt == torch.int8
+                                                  else 1)
+            else:
+                calls = g.per_forward
+            row("matmul_q", f"{name} {g.name}", ms, wall,
+                2 * g.m * g.n * g.k, nbytes, plain, lib, {"quant": calls},
+                m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind,
+                library=lib_name)
+            del sets
+    row = row_recorder(rows, card, torch.int8)
+    for nb, m, k, n in BRGEMM_CASES:
+        case = f"int8 B{nb} m{m} k{k} n{n}"
+        flops = 2 * nb * m * k * n
+        sets = []
+        per_set = nb * m * k + nb * k * n
+        for _ in range(n_sets(per_set)):
+            a = torch.randn(nb, m, k, device="cuda", generator=gen)
+            b = torch.randn(nb, k, n, device="cuda", generator=gen)
+            aq, sa, bq, sb = quantized(a, b, torch.int8)
+            sets.append((aq, bq, sa, sb))
+        # brgemm_q: batch-shared scales (m,), (n,); batched_matmul_q:
+        # per-entry scales; bf16 out, as quant_entry_points runs them.  No
+        # one PyTorch call computes either.
+        shared = [(aq, bq, sa[0], sb[0]) for aq, bq, sa, sb in sets]
+        bf16 = dict(out_dtype=torch.bfloat16)
+        ms, wall = time_ms(lambda *t: brgemm_q_cuda(*t, **bf16), shared)
+        plain, _ = time_ms(lambda *t: brgemm_q_ref(*t, **bf16), shared)
+        row("brgemm_q", case, ms, wall, flops,
+            per_set + 4 * (m + n) + 2 * m * n, plain, None, {"quant": 1},
+            batch=nb, m=m, k=k, n=n)
+        ms, wall = time_ms(lambda *t: batched_matmul_q_cuda(*t, **bf16), sets)
+        plain, _ = time_ms(lambda *t: batched_matmul_q_ref(*t, **bf16), sets)
+        row("batched_matmul_q", case, ms, wall, flops,
+            per_set + 4 * nb * (m + n) + 2 * nb * m * n, plain, None,
+            {"quant": 1}, batch=nb, m=m, k=k, n=n)
+        del sets, shared
+    return rows
+
+
 SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
     "matmul": ("src/repro_torch/kernels/brgemm/csrc/matmul.cu",
                "src/repro/kernels/brgemm/kernel.py:118"),
@@ -1573,6 +2096,13 @@ SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
     "batched_matmul": (
         "src/repro_torch/kernels/brgemm_batched/csrc/batched.cu",
         "src/repro/kernels/brgemm/kernel.py:263"),
+    "matmul_q": ("src/repro_torch/kernels/brgemm_quant/csrc/quant.cu",
+                 "src/repro/kernels/brgemm/quant_kernel.py:75"),
+    "brgemm_q": ("src/repro_torch/kernels/brgemm_quant/csrc/quant.cu",
+                 "src/repro/kernels/brgemm/quant_kernel.py:159"),
+    "batched_matmul_q": (
+        "src/repro_torch/kernels/brgemm_quant/csrc/quant.cu",
+        "src/repro/kernels/brgemm/quant_kernel.py:243"),
 }
 
 
@@ -1625,9 +2155,12 @@ def main():
     phase_build()
     worst = phase_parity(cfg)
     worst.update(phase_parity_paper(ResNetCfg()))
+    worst.update(phase_parity_quant(cfg))
     launches = {"serve": phase_serve(cfg), "train": phase_train(cfg),
-                "resnet": phase_resnet(), "brgemm": phase_brgemm()}
-    rows = phase_times(cfg, card) + phase_times_paper(card)
+                "resnet": phase_resnet(), "brgemm": phase_brgemm(),
+                "quant": phase_quant(cfg)}
+    rows = (phase_times(cfg, card) + phase_times_paper(card)
+            + phase_times_quant(cfg, card))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,12 @@ Precedence, highest first: the explicit ``backend=`` argument of a call, the
 innermost active ``use(backend=...)`` context, then the device of the tensor
 the op was given (a CUDA tensor resolves to ``"cuda"``, a CPU tensor to
 ``"torch"``).  Nothing falls back: a backend that cannot run the call raises.
+
+``use(quant=...)`` switches the GEMM family to quantized execution (a
+``QuantConfig``, dict, or shorthand such as ``"int8"`` / ``"fp8"``; see
+``core/quantize.py``); ``resolve_quant`` gives the explicit argument, else the
+innermost context's config, else None (full precision), as the reference's
+``repro/core/dispatch.py`` does.
 """
 from __future__ import annotations
 
@@ -18,11 +24,15 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.quantize import QuantConfig, as_quant_config
+
 BACKENDS = ("torch", "cuda")
 
 _REGISTRY: dict[str, dict[str, Callable]] = {}
 _BACKEND: contextvars.ContextVar[str | None] = contextvars.ContextVar(
     "repro_torch_backend", default=None)
+_QUANT: contextvars.ContextVar[QuantConfig | None] = contextvars.ContextVar(
+    "repro_torch_quant", default=None)
 
 
 def _check_backend(backend: str) -> str:
@@ -43,17 +53,28 @@ def register(op: str, backend: str):
 
 
 @contextlib.contextmanager
-def use(*, backend: str | None = None):
-    """Scope a backend for every op called inside; ``None`` keeps the outer
-    context's choice."""
-    if backend is None:
-        yield
-        return
-    token = _BACKEND.set(_check_backend(backend))
+def use(*, backend: str | None = None, quant=None):
+    """Scope a backend and a quant config for every op called inside.  A
+    field left ``None`` keeps the outer context's choice; the previous state
+    is restored on exit.  ``quant`` is normalized (and so validated) here."""
+    tokens = []
+    if backend is not None:
+        tokens.append((_BACKEND, _BACKEND.set(_check_backend(backend))))
+    if quant is not None:
+        tokens.append((_QUANT, _QUANT.set(as_quant_config(quant))))
     try:
         yield
     finally:
-        _BACKEND.reset(token)
+        for var, token in reversed(tokens):
+            var.reset(token)
+
+
+def resolve_quant(quant=None) -> QuantConfig | None:
+    """The active ``QuantConfig``: the call's argument, else the innermost
+    ``use(quant=...)``, else None (full precision)."""
+    if quant is not None:
+        return as_quant_config(quant)
+    return _QUANT.get()
 
 
 def resolve(op: str, backend: str | None, tensor: torch.Tensor) -> str:

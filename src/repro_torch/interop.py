@@ -11,6 +11,10 @@ AdamW state (step, m, v, master) across the same way: the port keeps it
 by parameter name, the reference as trees shaped like the parameters.
 ``resnet_params_from_numpy`` and ``resnet_params_to_numpy`` carry
 ResNet-50's parameters, a tree of the same layout in both packages.
+A calibrated reference tree (``repro.quant.calibrate_params``, then numpy
+leaves) carries across too: each stacked ``QuantizedTensor`` leaf (``q``
+(L, k, n), ``scale`` (L, n) or (L,)) is sliced per layer into the port's
+``QuantizedTensor``, its storage bits unchanged.
 Only numpy crosses the boundary, so this module imports nothing of JAX.
 """
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core.dispatch import check_device
+from repro_torch.core.quantize import (TORCH_DTYPES, QuantizedTensor,
+                                       install)
 from repro_torch.models import resnet
 from repro_torch.models.blocks import dtype_of
 from repro_torch.models.transformer import Transformer
@@ -45,6 +51,21 @@ def _to_torch(arr, dtype, device) -> torch.Tensor:
     return torch.tensor(arr).to(device=device, dtype=dtype)
 
 
+def _storage_to_torch(arr, device) -> torch.Tensor:
+    """Quantized storage (int8, or ml_dtypes' fp8, which ``from_numpy``
+    refuses) as the same bits in a torch tensor."""
+    arr = np.array(arr)                  # a writable, contiguous copy
+    dtype = TORCH_DTYPES[arr.dtype.name]
+    if dtype == torch.int8:
+        return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(arr.view(np.uint8)).view(dtype).to(device)
+
+
+def _is_quantized(leaf) -> bool:
+    """A calibrated leaf of the reference (``q`` and ``scale`` children)."""
+    return hasattr(leaf, "q") and hasattr(leaf, "scale")
+
+
 def _leaf(tree, path):
     for key in path:
         tree = tree[key]
@@ -57,13 +78,19 @@ def named_leaves(tree, cfg: ArchCfg):
     yield "embed.table", tree["embed"]["table"]
     yield "final_ln.scale", tree["final_ln"]["scale"]
     for path, attr in _BLOCK_LEAVES:
-        stacked = np.asarray(_leaf(tree["blocks"], path))
+        leaf = _leaf(tree["blocks"], path)
+        stacked = (np.asarray(leaf.q) if _is_quantized(leaf)
+                   else np.asarray(leaf))
         if stacked.shape[0] != cfg.n_layers:
             raise ValueError(f"blocks/{'/'.join(path)} stacks "
                              f"{stacked.shape[0]} layers, config has "
                              f"{cfg.n_layers}")
         for i in range(cfg.n_layers):
-            yield f"blocks.{i}.{attr}", stacked[i]
+            if _is_quantized(leaf):   # (q, scale) of layer i
+                yield (f"blocks.{i}.{attr}",
+                       (stacked[i], np.asarray(leaf.scale)[i]))
+            else:
+                yield f"blocks.{i}.{attr}", stacked[i]
 
 
 def _tree_of(named) -> dict:
@@ -89,14 +116,21 @@ def params_from_numpy(tree, cfg: ArchCfg, device="cuda",
                       dtype: torch.dtype | None = None) -> Transformer:
     """The reference's parameter tree (numpy leaves) as a ``Transformer``.
 
-    ``dtype`` defaults to ``cfg.dtype``; every leaf is cast to it."""
+    ``dtype`` defaults to ``cfg.dtype``; every leaf is cast to it but the
+    calibrated ones, which keep their storage and fp32 scales."""
     model = Transformer(cfg, device=device)
     dtype = dtype or dtype_of(cfg)
     model.to(dtype=dtype)
     named = dict(model.named_parameters())
     with torch.no_grad():
         for name, arr in named_leaves(tree, cfg):
-            named[name].copy_(_to_torch(arr, dtype, model.device))
+            if isinstance(arr, tuple):
+                q, scale = arr
+                install(model, name, QuantizedTensor(
+                    _storage_to_torch(q, model.device),
+                    _to_torch(scale, torch.float32, model.device)))
+            else:
+                named[name].copy_(_to_torch(arr, dtype, model.device))
     return model
 
 

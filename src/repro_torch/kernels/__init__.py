@@ -14,10 +14,15 @@ Kernel families (one directory each, sources under ``csrc/``):
                               convolution);
   * ``brgemm_batched``      — the stacked batch-reduce GEMM and the batched
                               GEMM; their wrappers live in
-                              ``brgemm/kernel.py``.
+                              ``brgemm/kernel.py``;
+  * ``brgemm_quant``        — the quantized GEMMs (int8, or fp8 widened to
+                              bf16) with the dequant fused in the epilogue:
+                              matmul_q, brgemm_q and batched_matmul_q in one
+                              kernel; their wrappers live in
+                              ``brgemm/quant_kernel.py``.
 
-``include/`` holds the tile GEMM that ``conv2d`` and ``brgemm_batched``
-share.
+``include/`` holds the tile GEMM that ``conv2d``, ``brgemm_batched`` and
+``brgemm_quant`` share.
 
 They build at first use (``_build.py``); importing this package builds
 nothing, so it imports on a machine without a card.

@@ -1,5 +1,5 @@
-"""The batch-reduce GEMMs (matmul, the stacked brgemm, batched_matmul):
-plain versions, Hopper kernels, dispatched entries."""
+"""The batch-reduce GEMMs (matmul, the stacked brgemm, batched_matmul) and
+their quantized forms: plain versions, Hopper kernels, dispatched entries."""
 from repro_torch.kernels.brgemm.kernel import (  # noqa: F401
     batched_matmul_cuda,
     brgemm_stacked_cuda,
@@ -10,6 +10,16 @@ from repro_torch.kernels.brgemm.ops import (  # noqa: F401
     brgemm,
     brgemm_bwd,
     matmul,
+)
+from repro_torch.kernels.brgemm.quant_kernel import (  # noqa: F401
+    batched_matmul_q_cuda,
+    brgemm_q_cuda,
+    matmul_q_cuda,
+)
+from repro_torch.kernels.brgemm.quant_ref import (  # noqa: F401
+    batched_matmul_q_ref,
+    brgemm_q_ref,
+    matmul_q_ref,
 )
 from repro_torch.kernels.brgemm.ref import (  # noqa: F401
     batched_matmul_ref,

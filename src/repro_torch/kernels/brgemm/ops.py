@@ -21,13 +21,23 @@ reference's ``_brgemm_bwd`` does, with ``g`` made the same way:
     dB_i = A_i^T (alpha g)   B_i^T / A_i^T read in place through strides
 
 ``batched_matmul`` has no backward on the kernel, as in the reference.
+
+Each entry takes ``quant=`` and routes through ``quant.active_quant``: an
+explicit spec, an ambient ``use(quant=...)`` or a calibrated
+``QuantizedTensor`` weight sends the call to the quantized GEMM
+(``quant.py``) with no change at the call site.  Under an *ambient* quant a
+``c0`` / ``beta`` accumulator chain degrades to full precision (a
+calibrated weight dequantized); an explicit ``quant=`` raises instead, as
+in the reference (``repro/kernels/brgemm/ops.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import dispatch, fusion
+from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.kernels.brgemm import kernel as K
+from repro_torch.kernels.brgemm import quant as Q
 from repro_torch.kernels.brgemm import ref as R
 
 
@@ -78,17 +88,35 @@ def _matmul_cuda(x, w, bias, c0, *, activation, alpha, beta, out_dtype):
                          beta=beta, out_dtype=out_dtype)
 
 
+def _quant_for(w, quant, x, c0, beta):
+    """(QuantConfig or None, w): the ambient quant skips accumulator
+    chains, which have no quantized form, dequantizing a calibrated w."""
+    qcfg = Q.active_quant(w, quant)
+    if qcfg is not None and quant is None and c0 is not None and beta != 0.0:
+        qcfg = None
+        if isinstance(w, QuantizedTensor):
+            w = w.dequantize().to(x.dtype)
+    return qcfg, w
+
+
 def matmul(x, w, bias=None, c0=None, *, activation: str = "none",
            alpha: float = 1.0, beta: float = 0.0, out_dtype=None,
-           backend: str | None = None):
+           backend: str | None = None, quant=None):
     """``act(alpha * x @ w + beta * c0 + bias)``; x may have any leading dims.
 
-    w is (k, n); c0, when given, has x's leading dims and n columns.
+    w is (k, n), or a calibrated ``QuantizedTensor``; c0, when given, has
+    x's leading dims and n columns.
     """
+    qcfg, w = _quant_for(w, quant, x, c0, beta)
     n = w.shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     c02 = c0.reshape(-1, n) if c0 is not None else None
+    if qcfg is not None:
+        y = Q.matmul_q(x2, w, bias, c02, activation=activation, alpha=alpha,
+                       beta=beta, out_dtype=out_dtype, backend=backend,
+                       qcfg=qcfg)
+        return y.reshape(*lead, n)
     impl = dispatch.get_impl("matmul", backend, x)
     y = impl(x2, w, bias, c02, activation=activation, alpha=alpha,
              beta=beta, out_dtype=out_dtype)
@@ -155,12 +183,17 @@ def _brgemm_cuda(a, b, bias, c0, *, activation, alpha, beta, out_dtype):
 
 def brgemm(a, b, bias=None, c0=None, *, activation: str = "none",
            alpha: float = 1.0, beta: float = 0.0, out_dtype=None,
-           backend: str | None = None):
+           backend: str | None = None, quant=None):
     """The paper's batch-reduce GEMM,
     ``act(alpha * sum_i a[i] @ b[i] + beta * c0 + bias)``.
 
     a: (B, m, k), b: (B, k, n) -> (m, n); bias (n,), c0 (m, n).
     """
+    qcfg, b = _quant_for(b, quant, a, c0, beta)
+    if qcfg is not None:
+        return Q.brgemm_q(a, b, bias, c0, activation=activation, alpha=alpha,
+                          beta=beta, out_dtype=out_dtype, backend=backend,
+                          qcfg=qcfg)
     impl = dispatch.get_impl("brgemm", backend, a)
     return impl(a, b, bias, c0, activation=activation, alpha=alpha,
                 beta=beta, out_dtype=out_dtype)
@@ -186,13 +219,18 @@ def _batched_matmul_cuda(a, b, bias, *, activation, alpha, out_dtype):
 
 def batched_matmul(a, b, bias=None, *, activation: str = "none",
                    alpha: float = 1.0, out_dtype=None,
-                   backend: str | None = None):
+                   backend: str | None = None, quant=None):
     """Strided-batched GEMM, ``act(alpha * a[i] @ b[i] + bias)``, with no
     reduction across the batch.
 
     a: (B, m, k) or (m, k) broadcast; b: (B, k, n) or (k, n) broadcast ->
     (B, m, n).
     """
+    qcfg = Q.active_quant(b, quant)
+    if qcfg is not None:
+        return Q.batched_matmul_q(a, b, bias, activation=activation,
+                                  alpha=alpha, out_dtype=out_dtype,
+                                  backend=backend, qcfg=qcfg)
     impl = dispatch.get_impl("batched_matmul", backend, a)
     return impl(a, b, bias, activation=activation, alpha=alpha,
                 out_dtype=out_dtype)

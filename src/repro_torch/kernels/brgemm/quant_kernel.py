@@ -1,0 +1,187 @@
+"""Wrappers of the quantized Hopper GEMM kernel (``kernels/brgemm_quant``).
+
+``matmul_q_cuda``, ``brgemm_q_cuda`` and ``batched_matmul_q_cuda`` launch
+the one kernel of ``brgemm_quant/csrc/quant.cu`` (matmul_q is the stacked
+form with one entry).  Each checks what the kernel takes (int8 operands,
+or fp8 e4m3 / e5m2 ones; fp32 scales; bf16 or fp32 out), allocates the
+output, and launches on the current stream; the library is built at first
+use (``kernels/_build.py``).  Operands are read in place, each matrix row-
+or column-major with any batch stride (the LM head's ``table.T``, quantized
+dynamically, stays column-major); scales through their strides, so an
+expanded per-tensor scale is never copied.  ``<wrapper>.launches`` counts
+each wrapper's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core import fusion
+from repro_torch.kernels import _build
+from repro_torch.kernels.brgemm.kernel import _layout, _raise_on
+
+# Storage dtype -> the kernel's format code (quant.cu, enum Fmt).
+FORMATS = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
+_OUT = (torch.float32, torch.bfloat16)
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("brgemm_quant")
+    operand = [_P, _LL, _LL, _I, _I]
+    scales = [_P, _LL, _LL]
+    lib.repro_quant_gemm.argtypes = (operand * 2 + scales * 2 + [
+        _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P])
+    lib.repro_quant_gemm.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _operand(t: torch.Tensor, name: str) -> list:
+    """[ptr, batch stride, ld, trans, vec] of a (B, r, c) operand read in
+    place, or of a 2-D (r, c) one broadcast over the batch (stride 0).
+    vec: the kernel's wide loads (16 bytes of int8, 8 of fp8) are aligned."""
+    mat = t[0] if t.dim() == 3 else t
+    trans, ld = _layout(mat, name)
+    bstride = t.stride(0) if t.dim() == 3 and t.size(0) > 1 else 0
+    width = 16 if t.dtype == torch.int8 else 8
+    vec = all(v % width == 0 for v in (t.data_ptr(), ld, bstride))
+    return [t.data_ptr(), bstride, ld, trans, int(vec)]
+
+
+def _scales(s: torch.Tensor, name: str, like: torch.Tensor, shape) -> list:
+    """[ptr, batch stride, stride] of an fp32 scale vector (``shape[-1]``
+    entries), one per batch entry when ``shape`` is 2-D, read in place."""
+    if s.device != like.device or s.dtype != torch.float32:
+        raise TypeError(f"{name} must be fp32 on {like.device}, got "
+                        f"{s.dtype} on {s.device}")
+    if tuple(s.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(s.shape)}")
+    if s.dim() == 1:
+        return [s.data_ptr(), 0, s.stride(0)]
+    return [s.data_ptr(), s.stride(0), s.stride(1)]
+
+
+def _check(name, a, b, bias, out_dtype, n):
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError(f"{name} needs its operands on one CUDA device")
+    if a.dtype not in FORMATS or b.dtype not in FORMATS or (
+            (a.dtype == torch.int8) != (b.dtype == torch.int8)):
+        raise TypeError(f"{name} takes int8 operands, or fp8 (e4m3 / e5m2) "
+                        f"ones, got {a.dtype} and {b.dtype}")
+    if out_dtype not in _OUT:
+        raise TypeError(f"{name} out_dtype must be fp32 or bf16, got "
+                        f"{out_dtype}")
+    if bias is not None and (
+            bias.device != a.device or bias.dtype not in _OUT
+            or tuple(bias.shape) != (n,) or bias.stride(0) != 1):
+        raise ValueError(f"{name} bias must be a contiguous fp32 or bf16 "
+                         f"({n},) on {a.device}")
+
+
+def _launch(name, a, b, sa, sb, bias, out, nb, m, n, k, stacked, alpha,
+            activation):
+    lib = _lib()
+    rc = lib.repro_quant_gemm(
+        *_operand(a, "a"), *_operand(b, "b"), *sa, *sb,
+        bias.data_ptr() if bias is not None else None, out.data_ptr(), nb,
+        m, n, k, int(stacked), float(alpha), fusion.code(activation),
+        FORMATS[a.dtype], FORMATS[b.dtype], int(out.dtype == torch.float32),
+        int(bias is not None and bias.dtype == torch.float32),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, lib, name)
+
+
+def matmul_q_cuda(xq, wq, sx, sw, bias=None, *, activation: str = "none",
+                  alpha: float = 1.0, out_dtype=torch.float32):
+    """``act(alpha * (xq @ wq) * (sx x sw) + bias)`` on the card.
+
+    xq: (m, k), wq: (k, n), both int8 or both fp8, each row- or
+    column-major; sx: (m,), sw: (n,) fp32, any stride; bias: (n,)
+    contiguous fp32 or bf16.  Returns a contiguous (m, n) of ``out_dtype``.
+    """
+    _check("matmul_q_cuda", xq, wq, bias, out_dtype, wq.shape[-1])
+    if xq.dim() != 2 or wq.dim() != 2 or xq.size(1) != wq.size(0):
+        raise ValueError(f"matmul_q_cuda shapes {tuple(xq.shape)} @ "
+                         f"{tuple(wq.shape)} do not chain")
+    m, k = xq.shape
+    n = wq.size(1)
+    sa = _scales(sx, "sx", xq, (m,))
+    sb = _scales(sw, "sw", xq, (n,))
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    if m == 0 or n == 0:
+        return out
+    _launch("matmul_q", xq, wq, sa, sb, bias, out, 1, m, n, k, True, alpha,
+            activation)
+    matmul_q_cuda.launches += 1
+    return out
+
+
+def brgemm_q_cuda(aq, bq, sa, sb, bias=None, *, activation: str = "none",
+                  alpha: float = 1.0, out_dtype=torch.float32):
+    """``act(alpha * (sum_i aq[i] @ bq[i]) * (sa x sb) + bias)`` on the card.
+
+    aq: (B, m, k), bq: (B, k, n), each entry row- or column-major with any
+    batch stride; sa: (m,), sb: (n,) fp32, batch-shared.  Returns a
+    contiguous (m, n) of ``out_dtype``.
+    """
+    _check("brgemm_q_cuda", aq, bq, bias, out_dtype, bq.shape[-1])
+    if aq.dim() != 3 or bq.dim() != 3 or aq.size(0) != bq.size(0) \
+            or aq.size(2) != bq.size(1):
+        raise ValueError(f"brgemm_q_cuda shapes {tuple(aq.shape)} @ "
+                         f"{tuple(bq.shape)} do not chain")
+    nb, m, k = aq.shape
+    n = bq.size(2)
+    sr = _scales(sa, "sa", aq, (m,))
+    sc = _scales(sb, "sb", aq, (n,))
+    out = torch.empty((m, n), dtype=out_dtype, device=aq.device)
+    if nb == 0:
+        raise ValueError("brgemm_q_cuda needs at least one batch entry")
+    if m == 0 or n == 0:
+        return out
+    _launch("brgemm_q", aq, bq, sr, sc, bias, out, nb, m, n, k, True, alpha,
+            activation)
+    brgemm_q_cuda.launches += 1
+    return out
+
+
+def batched_matmul_q_cuda(aq, bq, sa, sb, bias=None, *,
+                          activation: str = "none", alpha: float = 1.0,
+                          out_dtype=torch.float32):
+    """``act(alpha * (aq[i] @ bq[i]) * (sa[i] x sb[i]) + bias)`` for each i.
+
+    aq: (B, m, k) or a 2-D (m, k) broadcast over the batch; bq: (B, k, n)
+    or a 2-D (k, n); not both 2-D.  sa: (B, m) or (m,); sb: (B, n) or (n,)
+    (a 1-D scale row is shared by every entry).  Returns a contiguous
+    (B, m, n) of ``out_dtype``.
+    """
+    _check("batched_matmul_q_cuda", aq, bq, bias, out_dtype, bq.shape[-1])
+    if aq.dim() not in (2, 3) or bq.dim() not in (2, 3) \
+            or aq.dim() + bq.dim() == 4 or aq.size(-1) != bq.size(-2) \
+            or (aq.dim() == bq.dim() == 3 and aq.size(0) != bq.size(0)):
+        raise ValueError(f"batched_matmul_q_cuda shapes {tuple(aq.shape)} @ "
+                         f"{tuple(bq.shape)} do not chain (one operand may "
+                         f"be 2-D)")
+    nb = aq.size(0) if aq.dim() == 3 else bq.size(0)
+    m, k = aq.shape[-2:]
+    n = bq.size(-1)
+    sr = _scales(sa, "sa", aq, (nb, m) if sa.dim() == 2 else (m,))
+    sc = _scales(sb, "sb", aq, (nb, n) if sb.dim() == 2 else (n,))
+    out = torch.empty((nb, m, n), dtype=out_dtype, device=aq.device)
+    if nb == 0 or m == 0 or n == 0:
+        return out
+    _launch("batched_matmul_q", aq, bq, sr, sc, bias, out, nb, m, n, k,
+            False, alpha, activation)
+    batched_matmul_q_cuda.launches += 1
+    return out
+
+
+matmul_q_cuda.launches = 0
+brgemm_q_cuda.launches = 0
+batched_matmul_q_cuda.launches = 0

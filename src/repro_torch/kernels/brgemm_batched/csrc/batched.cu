@@ -28,28 +28,6 @@
 
 using namespace repro;
 
-struct Operand {
-  const void* p;
-  long long bstride, ld;
-  int trans, vec;
-};
-
-// A is (m, k) per entry: row-major, or column-major when trans (staged
-// As[k][m]).  B is (k, n): row-major (staged Bs[k][n]) or column-major.
-template <typename T>
-__device__ __forceinline__ Strided<T> a_op(const Operand& a, int m0, int m,
-                                           int k, int bk, int batch0) {
-  return Strided<T>{static_cast<const T*>(a.p), a.bstride, a.ld, a.trans, m0,
-                    m, k, cdiv(k, bk), batch0, a.vec};
-}
-
-template <typename T>
-__device__ __forceinline__ Strided<T> b_op(const Operand& b, int n0, int n,
-                                           int k, int bk, int batch0) {
-  return Strided<T>{static_cast<const T*>(b.p), b.bstride, b.ld, !b.trans,
-                    n0, n, k, cdiv(k, bk), batch0, b.vec};
-}
-
 // One block: the output tile (blockIdx.y, blockIdx.x) of entry batch0, or,
 // when stacked, summed over all nb entries.  Output row `row_base + r`.
 __device__ __forceinline__ void tile_bf16(const Operand& a, const Operand& b,

@@ -1,0 +1,217 @@
+// The quantized batch-reduce GEMMs on Hopper, the dequant fused into the
+// epilogue:
+//
+//   matmul_q:         C   = act(alpha * (Xq @ Wq) * (sx x sw) + bias)
+//                     replaces src/repro/kernels/brgemm/quant_kernel.py::
+//                     matmul_q_pallas;
+//   brgemm_q:         C   = act(alpha * (sum_i Aq_i @ Bq_i) * (sa x sb) + bias)
+//                     replaces quant_kernel.py::brgemm_q_pallas;
+//   batched_matmul_q: C_i = act(alpha * (Aq_i @ Bq_i) * (sa_i x sb_i) + bias)
+//                     replaces quant_kernel.py::batched_matmul_q_pallas.
+//
+// One kernel serves the three, as the batched family's does: matmul_q is
+// the stacked form with one entry, brgemm_q walks the k-blocks of every
+// entry in turn into one accumulator and dequantizes once (its scales are
+// batch-shared, one per output row and channel), batched_matmul_q takes its
+// entry from blockIdx.z with per-entry scale rows.  A 2-D operand or scale
+// row broadcast over the batch has batch stride 0: it is read again by
+// every entry, never copied.  The TPU kernels' lane-broadcast scale layouts
+// (SCALE_LANES, _row_scales) are a TPU idiom and are not carried over: a
+// scale is read where it lies, through a stride (0 for an expanded view).
+//
+//   * int8: the tensor cores on s8 x s8 with int32 accumulators
+//     (repro_tile.cuh, namespace i8).  The int32 sum is exact (k * 127^2 <
+//     2^31 for every reduction here: k <= 1536 in smollm, B * k <= 16,384
+//     in the paper's cases), so before the epilogue the kernel equals the
+//     plain version bit for bit.
+//   * fp8 (e4m3 or e5m2, per operand): each 8-bit value is converted
+//     exactly to bf16 as it is staged in shared memory (Fp8Fetch loads the
+//     raw bytes, Widen converts them at the store, after the products the
+//     load overlapped), then the bf16 wmma mainloop of tc runs with fp32
+//     accumulation.
+//     Every e4m3 and e5m2 value is exact in bf16 and every bf16 x bf16
+//     product exact in fp32, so the kernel computes what the reference's
+//     fp32-upcast dot does, up to the order of the fp32 sums.  Native fp8
+//     wgmma is later work.
+//
+// The epilogue, on the accumulator before the single store, keeps the
+// reference's rounding: acc * (sx[r] * sw[c]), then * alpha, then + bias,
+// each rounded on its own (__fmul_rn / __fadd_rn: nvcc would otherwise
+// contract a multiply and an add into one FMA), then the activation, then
+// the cast to the output type.
+//
+// What bounds it on an H100: serving's decode (m = 8 rows) does 2 * 8 ops a
+// weight byte, so the bound is the bytes of W, which int8 and fp8 halve
+// against bf16; the tile mainloop reads each W byte once per 64-row block
+// row, 16 bytes per thread where aligned, but at m = 8 a layer's weights
+// make 3-24 blocks, too few to draw the card's memory rate (split-K is
+// later work).  Prefill (m = 4096) is tensor-core work at the int8 / fp8
+// peak of 1,979 TOP/s; this kernel reaches it through wmma on 64 x 64
+// tiles, so it runs far under it (wgmma and TMA are later work).
+//
+// Ragged m, n and k are masked inside the kernel (zero-filled tiles,
+// guarded stores).  16-byte int8 loads need k-runs of 16 aligned bytes and
+// 8-byte fp8 loads 8; otherwise the fetch goes element by element.
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include "repro_tile.cuh"
+
+using namespace repro;
+
+enum Fmt { S8 = 0, E4M3 = 1, E5M2 = 2 };
+
+// A fp32 scale vector per batch entry: element (i, r) at p + i * bstride +
+// r * stride.
+struct Scales {
+  const float* p;
+  long long bstride, stride;
+  __device__ __forceinline__ float at(int i, int r) const {
+    return p[i * bstride + r * stride];
+  }
+};
+
+struct QEpilogue {
+  void* out;           // rows of n elements, fp32 or bf16
+  const void* bias;    // (n,) or null, fp32 or bf16
+  Scales rows, cols;
+  int m, n;
+  float alpha;
+  int act, out_f32, bias_f32;
+};
+
+// The reference's dequant epilogue for output element (r, c) of entry z.
+__device__ __forceinline__ void finish_q(const QEpilogue& e, float acc, int z,
+                                         int r, int c) {
+  float s = __fmul_rn(e.rows.at(z, r), e.cols.at(z, c));
+  float v = __fmul_rn(__fmul_rn(acc, s), e.alpha);
+  if (e.bias) v = __fadd_rn(v, load_as_float(e.bias, c, e.bias_f32));
+  v = apply_act(e.act, v);
+  long long o = ((long long)z * e.m + r) * e.n + c;
+  if (e.out_f32) static_cast<float*>(e.out)[o] = v;
+  else static_cast<bf16*>(e.out)[o] = __float2bfloat16(v);
+}
+
+// 8 fp8 values (in .x, .y) to 8 bf16 values, exactly (fp8 -> half ->
+// float -> bf16, each step exact for both formats).
+struct Widen {
+  int fmt;
+  __device__ __forceinline__ uint4 operator()(uint4 v) const {
+    const __nv_fp8_interpretation_t kind =
+        fmt == E5M2 ? __NV_E5M2 : __NV_E4M3;
+    const unsigned int words[2] = {v.x, v.y};
+    unsigned int out[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_fp8x2_storage_t pair =
+          (__nv_fp8x2_storage_t)((words[i / 2] >> (16 * (i % 2))) & 0xffffu);
+      __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(pair, kind));
+      float2 f = __half22float2(h);
+      __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+      out[i] = *reinterpret_cast<const unsigned int*>(&b);
+    }
+    return make_uint4(out[0], out[1], out[2], out[3]);
+  }
+};
+
+// The fp8 operand's piece of a tc (bf16) tile: the 8 fp8 bytes of row r,
+// columns c.. of the slice, raw in .x and .y; Widen makes them 8 bf16
+// values when they are staged.
+struct Fp8Fetch {
+  Strided<unsigned char> op;
+  int r[2], c[2];
+  __device__ __forceinline__ void init(int t, int rr, int cc) {
+    r[t] = rr;
+    c[t] = cc;
+  }
+  __device__ __forceinline__ uint4 operator()(int sl, int t) const {
+    const unsigned char* base;
+    int rmax, cmax;
+    op.origin(sl, tc::BK, base, rmax, cmax);
+    const int rr = r[t], cc = c[t];
+    union { uint2 v; unsigned char b[8]; } u;
+    if (op.vec && rr < rmax && cc + 8 <= cmax) {
+      u.v = *reinterpret_cast<const uint2*>(base + (long long)rr * op.ld + cc);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        u.b[i] = (rr < rmax && cc + i < cmax)
+                     ? base[(long long)rr * op.ld + cc + i] : (unsigned char)0;
+    }
+    return make_uint4(u.v.x, u.v.y, 0u, 0u);   // fp8 zero bytes are +0.0
+  }
+};
+
+// One block: output tile (blockIdx.y, blockIdx.x) of entry blockIdx.z,
+// summed over `entries` batch entries from entry blockIdx.z on (stacked:
+// grid.z = 1, entries = B; batched: entries = 1).
+template <bool INT8>
+__global__ void __launch_bounds__(128)
+quant_gemm_kernel(Operand a, Operand b, QEpilogue e, int k, int entries,
+                  int fmt_a, int fmt_b) {
+  const int z = blockIdx.z;
+  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
+  auto store = [&](int r, int c, float v) {
+    if (m0 + r < e.m && n0 + c < e.n) finish_q(e, v, z, m0 + r, n0 + c);
+  };
+  if constexpr (INT8) {
+    __shared__ __align__(128) signed char As[i8::STAGE];
+    __shared__ __align__(128) signed char Bs[i8::STAGE];
+    __shared__ __align__(128) int Cs[i8::BM * i8::LDC];
+    i8::StridedFetch fa{a_op<signed char>(a, m0, e.m, k, i8::BK, z)};
+    i8::StridedFetch fb{b_op<signed char>(b, n0, e.n, k, i8::BK, z)};
+    i8::Acc acc[2][2];
+    i8::mainloop(acc, As, Bs, a.trans, !b.trans,
+                 entries * cdiv(k, i8::BK), fa, fb);
+    i8::store_tile(acc, Cs, [&](int r, int c, int v) {
+      store(r, c, __int2float_rn(v));
+    });
+  } else {
+    __shared__ __align__(128) bf16 As[tc::STAGE];
+    __shared__ __align__(128) bf16 Bs[tc::STAGE];
+    __shared__ __align__(128) float Cs[tc::BM * tc::LDC];
+    Fp8Fetch fa{a_op<unsigned char>(a, m0, e.m, k, tc::BK, z)};
+    Fp8Fetch fb{b_op<unsigned char>(b, n0, e.n, k, tc::BK, z)};
+    tc::Acc acc[2][2];
+    tc::mainloop(acc, As, Bs, a.trans, !b.trans, entries * cdiv(k, tc::BK),
+                 fa, fb, Widen{fmt_a}, Widen{fmt_b});
+    tc::store_tile(acc, Cs, store);
+  }
+}
+
+// a: entries (m, k), b: entries (k, n), each an Operand (repro_tile.cuh;
+// vec: 16-byte int8 or 8-byte fp8 loads are safe).  fmt_a / fmt_b: S8 for
+// both, or E4M3 / E5M2 each.  Row scales sr (m per entry) and column scales
+// sc (n per entry), fp32, read through their strides.  stacked: sum over
+// the nb entries into one (m, n) output (nb = 1: matmul_q); else nb
+// outputs (nb, m, n).  bias may be null.  Returns the launch's
+// cudaGetLastError().
+extern "C" int repro_quant_gemm(
+    const void* a, long long a_bstride, long long lda, int a_trans, int vec_a,
+    const void* b, long long b_bstride, long long ldb, int b_trans, int vec_b,
+    const float* sr, long long sr_bstride, long long sr_stride,
+    const float* sc, long long sc_bstride, long long sc_stride,
+    const void* bias, void* out, int nb, int m, int n, int k, int stacked,
+    float alpha, int act, int fmt_a, int fmt_b, int out_f32, int bias_f32,
+    void* stream) {
+  if (act < 0 || act >= N_ACT || nb <= 0) return (int)cudaErrorInvalidValue;
+  if ((fmt_a == S8) != (fmt_b == S8)) return (int)cudaErrorInvalidValue;
+  Operand oa{a, a_bstride, lda, a_trans, vec_a};
+  Operand ob{b, b_bstride, ldb, b_trans, vec_b};
+  QEpilogue e{out, bias, Scales{sr, sr_bstride, sr_stride},
+              Scales{sc, sc_bstride, sc_stride}, m, n, alpha, act, out_f32,
+              bias_f32};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(cdiv(n, 64), cdiv(m, 64), stacked ? 1 : nb);
+  const int entries = stacked ? nb : 1;
+  if (fmt_a == S8)
+    quant_gemm_kernel<true><<<grid, 128, 0, st>>>(oa, ob, e, k, entries,
+                                                  fmt_a, fmt_b);
+  else
+    quant_gemm_kernel<false><<<grid, 128, 0, st>>>(oa, ob, e, k, entries,
+                                                   fmt_a, fmt_b);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -27,8 +27,12 @@
 // so only the K / V tile loads need a block barrier.  Registers holding O
 // across tiles, warp-specialised TMA loads and wgmma are later work.
 //
-// Masked scores take p = 0 explicitly; a row with no valid key (l = 0)
-// stores 0 and, with residuals, lse = NEG_INF.
+// Masked scores take p = 0 explicitly.  A row with no valid key (l = 0; it
+// occurs only non-causal and windowed with Tq > Tk) stores what the plain
+// mha_ref and the reference's give it: every score is NEG_INF there, so the
+// softmax weighs each of the Tk keys 1 / Tk (rounded to V's type, as
+// p.to(v.dtype)), and the row is the mean of V, read from device memory by
+// the finish; with residuals its lse is NEG_INF.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -95,6 +99,23 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
       for (int i = 0; i < VEC; ++i) dst[r * LD + c + i] = f[i];
     }
   }
+}
+
+// Column c of a row with no valid key: sum_t w * V[t][c] with the plain
+// version's weight w = 1 / Tk in V's type.
+template <typename T>
+__device__ float mean_of_v(const T* vg, long long st, int tk, int c) {
+  float w = 1.0f / (float)tk;
+  if constexpr (std::is_same<T, bf16>::value)
+    w = __bfloat162float(__float2bfloat16(w));
+  float sum = 0.0f;
+  for (int t = 0; t < tk; ++t) {
+    if constexpr (std::is_same<T, bf16>::value)
+      sum += w * __bfloat162float(vg[(long long)t * st + c]);
+    else
+      sum += w * vg[(long long)t * st + c];
+  }
+  return sum;
 }
 
 template <typename T, int D>
@@ -269,14 +290,16 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     __syncwarp();
   }
 
-  // ---- finish: O / l, lse = m + log l; empty rows give 0 and NEG_INF ----
+  // ---- finish: O / l, lse = m + log l; empty rows give the mean of V
+  // and NEG_INF ----
   __syncthreads();
   T* og = static_cast<T*>(p.o) + ((long long)(b * p.hq + h) * p.tq) * D;
   for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
     int r = idx / D, c = idx % D;
     if (q0 + r >= p.tq) continue;
     float l = Ls[r];
-    float val = l > 0.0f ? Os[r * L::LDO + c] / l : 0.0f;
+    float val = l > 0.0f ? Os[r * L::LDO + c] / l
+                         : mean_of_v(vg, p.v_st, p.tk, c);
     if constexpr (L::TC) og[(long long)(q0 + r) * D + c] = __float2bfloat16(val);
     else og[(long long)(q0 + r) * D + c] = val;
   }

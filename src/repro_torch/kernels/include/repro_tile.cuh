@@ -1,24 +1,25 @@
 // Shared device code of the tile GEMMs written after matmul.cu: the
-// stacked and the batched batch-reduce GEMMs (kernels/brgemm_batched) and
-// the implicit-GEMM direct convolution (kernels/conv2d).
+// stacked and the batched batch-reduce GEMMs (kernels/brgemm_batched), the
+// implicit-GEMM direct convolution (kernels/conv2d) and the quantized GEMMs
+// (kernels/brgemm_quant).
 //
 // One block owns one 64 x 64 output tile and walks a sequence of
 // reduction "slices".  What a slice is belongs to the caller, through two
 // fetch functors: a k-block of one batch entry (batched), a k-block of
 // each batch entry in turn (stacked), a block of the flattened (r, s, c)
-// window of a convolution (conv2d).  The fp32 accumulator stays in
-// registers (wmma fragments for bf16 inputs, plain registers and FMA for
-// fp32 inputs: no TF32, so fp32 keeps fp32 accuracy), and the epilogue
-// (alpha, beta * c0, bias, activation, cast) runs on it before the single
-// store.  Everything but the input type is a run-time value, so each
-// family compiles a handful of instances.
+// window of a convolution (conv2d).  The accumulator stays in registers
+// (wmma fragments: fp32 for bf16 inputs, int32 for int8 inputs; plain
+// registers and FMA for fp32 inputs: no TF32, so fp32 keeps fp32
+// accuracy), and the epilogue runs on it before the single store.
+// Everything but the input type is a run-time value, so each family
+// compiles a handful of instances.
 //
 // A fetch functor F provides
 //   F.init(t, r, c)   once per block: this thread's t-th piece sits at row r,
 //                     column c of the staged tile (the orientation below);
 //   F(slice, t)       that piece of the given slice, zero outside the
-//                     operand: 8 bf16 values as a uint4 (tc) or one float
-//                     (simt).
+//                     operand: 8 bf16 values as a uint4 (tc), 16 int8
+//                     values as a uint4 (i8) or one float (simt).
 // Staging orientation: a tile is staged with the operand's memory rows as
 // its rows, so each piece is a run of contiguous memory.  For A (m x k)
 // that is As[m][k] (row-major A) or As[k][m] (A read column-major, as
@@ -108,6 +109,32 @@ struct Strided {
   }
 };
 
+// A strided operand as the launchers receive it: element (row, col) of
+// entry i at p + i * bstride + row * ld + col (trans = 0) or
+// p + i * bstride + col * ld + row (trans = 1); bstride = 0 broadcasts one
+// matrix to every entry.  vec: the wide loads of the tile are safe.
+struct Operand {
+  const void* p;
+  long long bstride, ld;
+  int trans, vec;
+};
+
+// A is (m, k) per entry: row-major, or column-major when trans (staged
+// As[k][m]).  B is (k, n): row-major (staged Bs[k][n]) or column-major.
+template <typename T>
+__device__ __forceinline__ Strided<T> a_op(const Operand& a, int m0, int m,
+                                           int k, int bk, int batch0) {
+  return Strided<T>{static_cast<const T*>(a.p), a.bstride, a.ld, a.trans, m0,
+                    m, k, cdiv(k, bk), batch0, a.vec};
+}
+
+template <typename T>
+__device__ __forceinline__ Strided<T> b_op(const Operand& b, int n0, int n,
+                                           int k, int bk, int batch0) {
+  return Strided<T>{static_cast<const T*>(b.p), b.bstride, b.ld, !b.trans,
+                    n0, n, k, cdiv(k, bk), batch0, b.vec};
+}
+
 // ---------------------------------------------------------------------------
 // bf16 inputs: tensor cores through wmma.  128 threads = 4 warps in a 2 x 2
 // grid, each warp a 32 x 32 piece of the 64 x 64 tile; BK = 32 per slice.
@@ -192,14 +219,23 @@ __device__ __forceinline__ void mma_slice(Acc (&acc)[2][2], const bf16* As,
   }
 }
 
+// The staged piece as fetched (bf16 operands).
+struct Same {
+  __device__ __forceinline__ uint4 operator()(uint4 v) const { return v; }
+};
+
 // acc = sum over the slices of A_slice @ B_slice.  a_red_rows: A staged
 // As[k][m] (column-major A); b_red_rows: B staged Bs[k][n] (row-major B).
 // The next slice is fetched into registers while the current one is
-// multiplied.
-template <typename FA, typename FB>
+// multiplied.  wa / wb turn a fetched piece into its 8 bf16 values as it
+// is stored to shared memory, after the products it overlapped (a fetch
+// of narrower storage returns raw bytes and widens there, so that the
+// widening does not wait on the load).
+template <typename FA, typename FB, typename WA = Same, typename WB = Same>
 __device__ __forceinline__ void mainloop(Acc (&acc)[2][2], bf16* As, bf16* Bs,
                                          int a_red_rows, int b_red_rows,
-                                         int slices, FA& fa, FB& fb) {
+                                         int slices, FA& fa, FB& fb,
+                                         WA wa = {}, WB wb = {}) {
   const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
   const int lda = a_red_rows ? LD_RED : LD_FIX;
   const int ldb = b_red_rows ? LD_RED : LD_FIX;
@@ -227,8 +263,8 @@ __device__ __forceinline__ void mainloop(Acc (&acc)[2][2], bf16* As, bf16* Bs,
   for (int sl = 0; sl < slices; ++sl) {
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      *reinterpret_cast<uint4*>(&As[a_off[t]]) = ra[t];
-      *reinterpret_cast<uint4*>(&Bs[b_off[t]]) = rb[t];
+      *reinterpret_cast<uint4*>(&As[a_off[t]]) = wa(ra[t]);
+      *reinterpret_cast<uint4*>(&Bs[b_off[t]]) = wb(rb[t]);
     }
     __syncthreads();
     if (sl + 1 < slices) {
@@ -263,6 +299,165 @@ __device__ __forceinline__ void store_tile(Acc (&acc)[2][2], float* Cs,
     store(idx / BN, idx % BN, Cs[(idx / BN) * LDC + idx % BN]);
 }
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// int8 inputs: tensor cores through wmma (s8 x s8 -> s32), the int32 sum
+// exact.  128 threads = 4 warps in a 2 x 2 grid, each warp a 32 x 32 piece
+// of the 64 x 64 tile; BK = 64 per slice, so a staged tile is 64 x 64 bytes
+// in either orientation and each thread moves two 16-byte pieces of A and
+// two of B per slice.  An int8 fragment starts 16 bytes apart along a row,
+// and wmma wants 32-byte aligned fragments, so a tile is staged as four
+// planes of 16 columns (64 rows x 16 bytes each, the fragment's 16 x 16
+// bytes contiguous): element (r, c) at (c / 16) * PLANE + r * 16 + c % 16.
+// The 32 bytes between planes spread a warp's staging stores over the
+// banks.
+// ---------------------------------------------------------------------------
+namespace i8 {
+namespace wmma = nvcuda::wmma;
+constexpr int BM = 64, BN = 64, BK = 64, THREADS = 128;
+constexpr int PLANE = 64 * 16 + 32;
+constexpr int STAGE = 4 * PLANE;
+constexpr int LDC = BN + 4;
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
+
+__device__ __forceinline__ int at(int r, int c) {
+  return (c / 16) * PLANE + r * 16 + c % 16;
+}
+
+// 16 elements from row r, columns c.. of a row-major block at base (row
+// stride ld): one 16-byte load where aligned and inside, else element by
+// element with zero fill.
+__device__ __forceinline__ uint4 load_chunk(const signed char* base,
+                                            long long ld, int r, int c,
+                                            int rmax, int cmax, int vec) {
+  if (vec && r < rmax && c + 16 <= cmax)
+    return *reinterpret_cast<const uint4*>(base + (long long)r * ld + c);
+  union { uint4 v; signed char b[16]; } u;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    u.b[i] = (r < rmax && c + i < cmax) ? base[(long long)r * ld + c + i]
+                                        : (signed char)0;
+  return u.v;
+}
+
+// Chunk t of this thread: 256 chunks of 16 cover a 64 x 64 tile, four
+// neighbouring threads on one 64-byte run of memory.
+__device__ __forceinline__ void chunk_at(int t, int& r, int& c) {
+  int idx = threadIdx.x + t * THREADS;
+  r = idx / 4;
+  c = (idx % 4) * 16;
+}
+
+struct StridedFetch {
+  Strided<signed char> op;
+  int r[2], c[2];
+  __device__ __forceinline__ void init(int t, int rr, int cc) {
+    r[t] = rr;
+    c[t] = cc;
+  }
+  __device__ __forceinline__ uint4 operator()(int sl, int t) const {
+    const signed char* base;
+    int rmax, cmax;
+    op.origin(sl, BK, base, rmax, cmax);
+    return load_chunk(base, op.ld, r[t], c[t], rmax, cmax, op.vec);
+  }
+};
+
+template <typename LA, typename LB>
+__device__ __forceinline__ void mma_slice(Acc (&acc)[2][2],
+                                          const signed char* As,
+                                          const signed char* Bs, int wm,
+                                          int wn) {
+  constexpr bool A_ROW = std::is_same<LA, wmma::row_major>::value;
+  constexpr bool B_ROW = std::is_same<LB, wmma::row_major>::value;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, LA> fa[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, LB> fb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      int m = wm * 32 + i * 16;
+      wmma::load_matrix_sync(fa[i], &As[A_ROW ? at(m, kk) : at(kk, m)], 16);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      int n = wn * 32 + j * 16;
+      wmma::load_matrix_sync(fb[j], &Bs[B_ROW ? at(kk, n) : at(n, kk)], 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  }
+}
+
+// acc = sum over the slices of A_slice @ B_slice, as tc::mainloop.
+template <typename FA, typename FB>
+__device__ __forceinline__ void mainloop(Acc (&acc)[2][2], signed char* As,
+                                         signed char* Bs, int a_red_rows,
+                                         int b_red_rows, int slices, FA& fa,
+                                         FB& fb) {
+  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
+  int off[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    int r, c;
+    chunk_at(t, r, c);
+    fa.init(t, r, c);
+    fb.init(t, r, c);
+    off[t] = at(r, c);
+  }
+  if (slices <= 0) return;
+  uint4 ra[2], rb[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) { ra[t] = fa(0, t); rb[t] = fb(0, t); }
+  using RM = wmma::row_major;
+  using CM = wmma::col_major;
+  for (int sl = 0; sl < slices; ++sl) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      *reinterpret_cast<uint4*>(&As[off[t]]) = ra[t];
+      *reinterpret_cast<uint4*>(&Bs[off[t]]) = rb[t];
+    }
+    __syncthreads();
+    if (sl + 1 < slices) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t) { ra[t] = fa(sl + 1, t); rb[t] = fb(sl + 1, t); }
+    }
+    if (a_red_rows) {
+      if (b_red_rows) mma_slice<CM, RM>(acc, As, Bs, wm, wn);
+      else mma_slice<CM, CM>(acc, As, Bs, wm, wn);
+    } else {
+      if (b_red_rows) mma_slice<RM, RM>(acc, As, Bs, wm, wn);
+      else mma_slice<RM, CM>(acc, As, Bs, wm, wn);
+    }
+    __syncthreads();
+  }
+}
+
+// Hands each element of the 64 x 64 int32 accumulator to
+// store(r, c, value), neighbouring threads on neighbouring columns.
+template <typename Store>
+__device__ __forceinline__ void store_tile(Acc (&acc)[2][2], int* Cs,
+                                           Store store) {
+  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * LDC + wn * 32 + j * 16],
+                              acc[i][j], LDC, wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS)
+    store(idx / BN, idx % BN, Cs[(idx / BN) * LDC + idx % BN]);
+}
+}  // namespace i8
 
 // ---------------------------------------------------------------------------
 // fp32 inputs: FMA on the CUDA cores.  256 threads, each a 4 x 4 piece of

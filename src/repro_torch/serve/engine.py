@@ -7,8 +7,14 @@ tokens, the position bookkeeping, and the order of draws.  Greedy is
 uniforms drawn from the caller's ``torch.Generator`` (the reference uses
 ``jax.random.categorical``, which is the same draw rule on other bits).
 The engine runs under ``torch.inference_mode()``; its backend, when given,
-scopes every op through ``dispatch.use``.  ``ContinuousEngine`` and the
-paged cache come in a later slice.
+scopes every op through ``dispatch.use``.  Its quant tiers are the
+reference's: prefill runs under ``use(quant=quant)``, decode under
+``use(quant=decode_quant)``, which defaults to ``quant`` (the canonical
+production mix is ``quant=None`` with ``decode_quant="int8"``: prefill is
+compute-bound, decode streams the weights).  A calibrated model
+(``quant.calibrate_params``) runs its GEMMs quantized in both phases
+without any tier.  ``ContinuousEngine`` and the paged cache come in a later
+slice.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core import dispatch
+from repro_torch.core.quantize import as_quant_config
 from repro_torch.models import api
 
 
@@ -30,7 +37,8 @@ class ServeConfig:
 
 class Engine:
     def __init__(self, cfg: ArchCfg, params, scfg: ServeConfig, *,
-                 backend: str | None = None, device="cuda"):
+                 backend: str | None = None, device="cuda", quant=None,
+                 decode_quant=None):
         self.device = dispatch.check_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params live on {params.device}, the engine "
@@ -39,6 +47,10 @@ class Engine:
         self.params = params
         self.scfg = scfg
         self.backend = backend
+        # Normalized (so validated) here, not at the first call.
+        self.quant = as_quant_config(quant) if quant is not None else None
+        self.decode_quant = (as_quant_config(decode_quant)
+                             if decode_quant is not None else self.quant)
 
     def _sample(self, logits, generator):
         if self.scfg.temperature <= 0.0:
@@ -72,8 +84,9 @@ class Engine:
         with torch.inference_mode(), dispatch.use(backend=self.backend):
             cache = api.init_cache(self.cfg, b, self.scfg.max_len,
                                    device=self.device)
-            logits, cache = api.prefill(self.params, {"tokens": tokens},
-                                        self.cfg, cache)
+            with dispatch.use(quant=self.quant):
+                logits, cache = api.prefill(self.params, {"tokens": tokens},
+                                            self.cfg, cache)
             tok = self._sample(logits, generator)
             out = [tok]
             finished = (np.isin(tok.cpu().numpy(), stops) if stops
@@ -82,8 +95,9 @@ class Engine:
             for _ in range(n_tokens - 1):
                 if stops and finished.all():
                     break
-                logits, cache = api.decode_step(self.params, tok[:, None],
-                                                self.cfg, cache, pos)
+                with dispatch.use(quant=self.decode_quant):
+                    logits, cache = api.decode_step(
+                        self.params, tok[:, None], self.cfg, cache, pos)
                 tok = self._sample(logits, generator)
                 out.append(tok)
                 if stops:

@@ -1,6 +1,6 @@
 """Card-only tests of the port's CUDA kernels, of serving and of training
-through them, and of ResNet-50's path (the convolution, the stacked and
-batched GEMMs).
+through them, of ResNet-50's path (the convolution, the stacked and
+batched GEMMs), and of the quantized GEMMs and serving tiers.
 
 Marked ``gpu``; each test skips without a CUDA device (decided in a
 fixture, so every test collects alike everywhere).  This file imports no
@@ -8,7 +8,9 @@ JAX: the machine with the card has none.  Run them there with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Tolerances as in ``chip_smoke.py``: fp32 sums in different orders
 (1e-4), one bf16 ulp for bf16 outputs (1e-2), a few for bf16 attention
-(2e-2).
+(2e-2).  The quantized GEMMs: int8 with no activation exactly (the int32
+sum is exact and the epilogue rounds as the plain version's), fp8 as the
+fp32 GEMM's sums (1e-4), one bf16 ulp for bf16 out or an activation's ulp.
 """
 import numpy as np
 import pytest
@@ -16,10 +18,15 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import dispatch, fusion
-from repro_torch.kernels.brgemm import (batched_matmul_cuda,
+from repro_torch import quant
+from repro_torch.kernels.brgemm import (batched_matmul, batched_matmul_cuda,
+                                        batched_matmul_q_cuda,
+                                        batched_matmul_q_ref,
                                         batched_matmul_ref, brgemm,
+                                        brgemm_q_cuda, brgemm_q_ref,
                                         brgemm_ref, brgemm_stacked_cuda,
-                                        matmul, matmul_cuda, matmul_ref)
+                                        matmul, matmul_cuda, matmul_q_cuda,
+                                        matmul_q_ref, matmul_ref)
 from repro_torch.kernels.conv2d import conv2d, conv2d_cuda, conv2d_ref
 from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
                                                  delta_rowsum_ref,
@@ -423,3 +430,153 @@ def test_resnet_launch_counts_and_plain_parity(gen):
                                   resnet.named_leaves(want_grads)):
         err = ((g - w_).norm() / w_.norm().clamp_min(1e-30)).item()
         assert err <= 1e-3, (name, err)
+
+
+# --------------------------------------------------------------------------
+# the quantized GEMMs and serving tiers
+# --------------------------------------------------------------------------
+
+FORMATS = ("int8", "float8_e4m3fn", "float8_e5m2")
+
+
+def _qtol(fmt, out_dtype, activation="none"):
+    if out_dtype == torch.bfloat16:
+        return dict(atol=1e-2, rtol=1e-2)
+    if fmt == "int8":
+        return dict(atol=0, rtol=0) if activation == "none" else dict(
+            atol=1e-5, rtol=1e-5)
+    return dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,trans", [
+    (64, 64, 64, False), (8, 576, 192, False), (77, 100, 133, False),
+    (9, 96, 1000, True), (300, 1536, 576, False)])
+def test_matmul_q_kernel(gen, fmt, out_dtype, m, k, n, trans):
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    w = torch.randn(n, k, device="cuda", generator=gen).T if trans else \
+        torch.randn(k, n, device="cuda", generator=gen)
+    xq, sx = quant.quantize(x, fmt, axis=(-1,))
+    wq, sw = quant.quantize(w, fmt, axis=(-2,))
+    assert (wq.stride(0) == 1) == trans          # table.T stays col-major
+    launches = matmul_q_cuda.launches
+    got = matmul_q_cuda(xq, wq, sx, sw, out_dtype=out_dtype)
+    assert matmul_q_cuda.launches == launches + 1
+    torch.testing.assert_close(got, matmul_q_ref(xq, wq, sx, sw,
+                                                 out_dtype=out_dtype),
+                               **_qtol(fmt, out_dtype))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("activation", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_q_kernel_epilogue(gen, fmt, activation, bias_dtype):
+    x = torch.randn(33, 64, device="cuda", generator=gen)
+    w = torch.randn(64, 40, device="cuda", generator=gen)
+    bias = torch.randn(40, device="cuda", generator=gen).to(bias_dtype)
+    xq, sx = quant.quantize(x, fmt, axis=None)    # per-tensor, expanded
+    wq, sw = quant.quantize(w, fmt, axis=(-2,))
+    sx = sx.expand(33)
+    kw = dict(activation=activation, alpha=0.5)
+    torch.testing.assert_close(matmul_q_cuda(xq, wq, sx, sw, bias, **kw),
+                               matmul_q_ref(xq, wq, sx, sw, bias, **kw),
+                               **_qtol(fmt, torch.float32, activation))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("nb,m,k,n,trans", [
+    (3, 40, 72, 24, False), (16, 64, 64, 64, False), (4, 96, 128, 80, True)])
+def test_brgemm_q_kernel(gen, fmt, nb, m, k, n, trans):
+    a = torch.randn(nb, m, k, device="cuda", generator=gen)
+    b = torch.randn(nb, n, k, device="cuda", generator=gen).transpose(1, 2) \
+        if trans else torch.randn(nb, k, n, device="cuda", generator=gen)
+    aq, sa = quant.quantize(a, fmt, axis=(0, 2))
+    bq, sb = quant.quantize(b, fmt, axis=(0, 1))
+    bias = torch.randn(n, device="cuda", generator=gen)
+    for kw in (dict(), dict(bias=bias, activation="gelu", alpha=2.0)):
+        act = kw.get("activation", "none")
+        torch.testing.assert_close(brgemm_q_cuda(aq, bq, sa, sb, **kw),
+                                   brgemm_q_ref(aq, bq, sa, sb, **kw),
+                                   **_qtol(fmt, torch.float32, act))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("bcast", ["none", "a", "b"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_batched_matmul_q_kernel(gen, fmt, bcast, out_dtype):
+    nb, m, k, n = 5, 70, 96, 48
+    a = torch.randn(m, k, device="cuda", generator=gen) if bcast == "a" \
+        else torch.randn(nb, m, k, device="cuda", generator=gen)
+    b = torch.randn(k, n, device="cuda", generator=gen) if bcast == "b" \
+        else torch.randn(nb, k, n, device="cuda", generator=gen)
+    aq, sa = quant.quantize(a, fmt, axis=(-1,))
+    bq, sb = quant.quantize(b, fmt, axis=(-2,))
+    got = batched_matmul_q_cuda(aq, bq, sa, sb, out_dtype=out_dtype)
+    assert got.shape == (nb, m, n)
+    torch.testing.assert_close(got, batched_matmul_q_ref(
+        aq, bq, sa, sb, out_dtype=out_dtype), **_qtol(fmt, out_dtype))
+
+
+@pytest.mark.parametrize("spec", ["int8", "fp8"])
+def test_quantized_entry_points_launch_once(gen, spec):
+    x = torch.randn(3, 5, 64, device="cuda", generator=gen)
+    w = torch.randn(64, 32, device="cuda", generator=gen)
+    a = torch.randn(4, 16, 64, device="cuda", generator=gen)
+    b = torch.randn(4, 64, 32, device="cuda", generator=gen)
+    counters = (matmul_q_cuda, brgemm_q_cuda, batched_matmul_q_cuda)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        got = [matmul(x, w, quant=spec), brgemm(a, b, quant=spec),
+               batched_matmul(a, b, quant=spec)]
+        assert [c.launches - n for c, n in zip(counters, before)] == [1] * 3
+        with dispatch.use(backend="torch"):
+            want = [matmul(x, w, quant=spec), brgemm(a, b, quant=spec),
+                    batched_matmul(a, b, quant=spec)]
+    assert [c.launches - n for c, n in zip(counters, before)] == [1] * 3
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, **_qtol(spec, torch.float32))
+
+
+@pytest.mark.parametrize("tier", ["decode_int8", "calibrated_int8",
+                                  "calibrated_fp8"])
+def test_engine_quant_tiers_match_plain_greedy(gen, tier):
+    cfg = configs.get("smollm-135m").reduced()
+    params = api.init_params(cfg, gen)
+    kw = {}
+    if tier == "decode_int8":
+        kw["decode_quant"] = "int8"
+    else:
+        params = quant.calibrate_params(params, tier.split("_")[1])
+    engine = Engine(cfg, params, ServeConfig(max_len=32), **kw)
+    tokens = torch.randint(0, cfg.vocab, (2, 9), device="cuda",
+                           generator=gen)
+    matmul_cuda.launches = matmul_q_cuda.launches = 0
+    got = engine.generate({"tokens": tokens}, n_tokens=6, stop_tokens=())
+    per_forward = cfg.n_layers * 7 + 1
+    if tier == "decode_int8":    # prefill full precision, decode quantized
+        expect = (per_forward, per_forward * 5)
+    else:                        # the head's table is not calibrated
+        expect = (6, (per_forward - 1) * 6)
+    assert (matmul_cuda.launches, matmul_q_cuda.launches) == expect
+    with dispatch.use(backend="torch"):
+        want = engine.generate({"tokens": tokens}, n_tokens=6,
+                               stop_tokens=())
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_row_with_no_valid_key(gen, dtype):
+    """Non-causal, windowed, Tq > Tk: rows past Tk + window - 1 see no key
+    and give the mean of V, as mha_ref does, with lse NEG_INF."""
+    q = torch.randn(2, 4, 150, 64, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(2, 2, 70, 64, device="cuda", generator=gen
+                        ).to(dtype) for _ in range(2))
+    o, lse = flash_attention_cuda(q, k, v, causal=False, window=20,
+                                  return_residuals=True)
+    ro, rl = mha_ref(q, k, v, causal=False, window=20, return_lse=True)
+    assert (rl[..., 89:] == -1e30).all() and (rl[..., :89] > -1e29).all()
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=2e-2,
+                                                         rtol=2e-2)
+    torch.testing.assert_close(o, ro, **tol)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)

@@ -14,7 +14,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                the main paths' shapes: smollm-135m's (B = 8 prompts of 512
                tokens; training's backward GEMMs, X or W read transposed in
                place; the flash backward and its fused delta; a flash row
-               with no valid key); the direct convolution forward and its
+               with no valid key, forward and backward); matmul's plans
+               (each layout of X and W, split and not, every epilogue,
+               ragged shapes, row strides TMA cannot read) and ResNet-50's
+               stem weight gradient against float64; the direct
+               convolution forward and its
                dgrad dual at ResNet-50's layer shapes (N = 32); the stacked
                brgemm at the paper's cases and the batched GEMM broadcast and
                transposed as brgemm's backward reads it; in fp32 and bf16,
@@ -23,7 +27,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                the paper's cases.
   4. serve   — full-width smollm-135m (random weights from a seed)
                ``Engine.generate``: 8 prompts x 512 tokens, 64 greedy
-               tokens, bf16.  Once on the kernels (counting launches) and
+               tokens, bf16.  Once on the kernels (counting launches, and
+               matmul's calls by mainloop: bf16 on wgmma only, fp32 on
+               simt, in this phase, train and resnet) and
                once with ``use(backend="torch")``; prefill logits compared;
                then the same in fp32, where the greedy tokens must match.
                Prefill and decode-step times of the kernel path, the
@@ -57,7 +63,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                tier in fp32, where the greedy tokens must match; then
                ``brgemm(quant=)`` and ``batched_matmul(quant=)`` at the
                paper's cases.
-  9. times   — each kernel's device time (profiler) and back-to-back wall
+  9. times   — each kernel's device time (a CUDA graph of its calls; the
+               profiler where a call cannot be captured) and back-to-back wall
                time (CUDA events) at each main-path shape, serving's,
                training's, ResNet-50's, brgemm's and the quantized
                serving's, beside its bound (at the input type's peak), its
@@ -396,8 +403,73 @@ def qkv_views(b, hq, hkv, t, d, dtype, gen):
                  .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv, hq))
 
 
+def plan_cases(dtype, gen):
+    """(case, x, w, kwargs) covering matmul's plans beyond the main paths'
+    shapes: each layout of X and W, with and without a split of k, every
+    epilogue (bias, c0 with beta, alpha, each activation, bf16 and fp32
+    out); a ragged m, k and n that TMA reads through padded row strides;
+    row strides TMA cannot describe (the wmma body in bf16)."""
+    from repro_torch.core import fusion
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    def operands(m, k, n, xt, wt, pad=0):
+        # rows `pad` elements longer than needed; pad < 0: rounded up to 8
+        def rows(inner):
+            return -(-inner // 8) * 8 if pad < 0 else inner + pad
+        x = randn(k, rows(m))[:, :m].T if xt else randn(m, rows(k))[:, :k]
+        w = (randn(n, rows(k), scale=k ** -0.5)[:, :k].T if wt
+             else randn(k, rows(n), scale=k ** -0.5)[:, :n])
+        return x, w
+
+    out = []
+    for m, k, n in ((304, 576, 576), (96, 4096, 200)):   # no split, split
+        for xt in (0, 1):
+            for wt in (0, 1):
+                x, w = operands(m, k, n, xt, wt)
+                out.append((f"m{m} k{k} n{n}", x, w, {}))
+        for i, act in enumerate(fusion.ACTIVATIONS):
+            x, w = operands(m, k, n, i % 2, i // 2 % 2)
+            kw = dict(activation=act, alpha=0.5, beta=0.75,
+                      out_dtype=torch.float32 if i % 3 == 1 else None)
+            out.append((f"m{m} k{k} n{n} bias c0 {act}", x, w,
+                        dict(bias=randn(n), c0=randn(m, n), **kw)))
+    x, w = operands(77, 100, 133, 0, 0, pad=-1)
+    out.append(("ragged m77 k100 n133, rows padded to 8", x, w, {}))
+    x, w = operands(77, 100, 133, 1, 1, pad=3)
+    out.append(("ragged m77 k100 n133, rows 80 and 103 apart", x, w, {}))
+    x, w = operands(96, 4096, 200, 1, 0, pad=3)
+    out.append(("m96 k4096 n200, rows 99 apart", x, w, {}))
+    return out
+
+
+def stem_wgrad_errors(dtype, gen):
+    """ResNet-50's stem weight gradient at N = 32, fp32 out: the window
+    operand as conv2d's backward makes it (rows padded to 152) read
+    transposed, k = 401,408, against float64, in units of the fp32
+    summation bound checked_launches holds (<= 1 passes)."""
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    from repro_torch.kernels.conv2d.ops import patches
+    x = torch.randn(RESNET_BATCH, RESNET_HW, RESNET_HW, 3, device="cuda",
+                    generator=gen).to(dtype)
+    cols = patches(x, 7, 7, 2, 3)
+    g = (torch.randn(cols.size(0), 64, device="cuda", generator=gen)
+         * 1e-2).to(dtype)
+    got = matmul_cuda(cols.T, g, out_dtype=torch.float32)
+    ref = matmul_ref(cols.T, g, out_dtype=torch.float32)
+    truth = cols.T.double() @ g.double()
+    tol = (CONV_BAND * truth.abs().max() + 4 * math.sqrt(cols.size(0))
+           * 2.0 ** -24 * (cols.T.double().abs() @ g.double().abs()))
+    over = ((got.double() - truth).abs() / tol).max().item()
+    plain = ((ref.double() - truth).abs() / tol).max().item()
+    return over, plain, (got.double() - truth).abs().max().item()
+
+
 def phase_parity(cfg):
     from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    from repro_torch.kernels.brgemm.kernel import plan_call
     from repro_torch.kernels.flash_attention import (
         delta_rowsum_cuda, delta_rowsum_ref, flash_attention_bwd_cuda,
         flash_attention_bwd_ref, flash_attention_cuda, mha_ref)
@@ -449,6 +521,25 @@ def phase_parity(cfg):
               / 10).to(dtype)
         record("matmul", "ragged m77 k100 n133", dtype, matmul_cuda(xr, wr),
                matmul_ref(xr, wr), tol)
+        for case, x, w, kw in plan_cases(dtype, gen):
+            p = plan_call(x, w)
+            if dtype == torch.bfloat16 and ("apart" in case) != (
+                    p.mainloop == "wmma"):
+                failed.append(f"matmul:{case}: planned {p.mainloop}")
+            out_tol = (TOL[("matmul", torch.float32)]
+                       if kw.get("out_dtype") else tol)
+            record("matmul", f"{case} x{'T' if x.stride(0) == 1 else ''}"
+                   f"w{'T' if w.stride(0) == 1 else ''} {p.mainloop} "
+                   f"splits {p.splits}", dtype, matmul_cuda(x, w, **kw),
+                   matmul_ref(x, w, **kw), out_tol)
+        over, plain, err = stem_wgrad_errors(dtype, gen)
+        worst["matmul"] = max(worst["matmul"], err)
+        emit({"phase": "parity", "kernel": "matmul",
+              "case": "stem wgrad (147, 401408) @ (401408, 64) vs float64",
+              "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+              "over_band": over, "plain_over_band": plain, "ok": over <= 1})
+        if not over <= 1:
+            failed.append(f"matmul:stem wgrad:{dtype}")
 
         ftol = TOL[("flash_attention", dtype)]
         for case, (b, hq, hkv, t, d) in (
@@ -479,7 +570,19 @@ def phase_parity(cfg):
                dtype, o, ro, ftol)
         record("flash_attention", "no valid key lse", dtype, lse, rl,
                TOL[("lse", None)])
-        del q, k, v, o, lse, ro, rl
+        # Its backward: every key's dV takes those rows' dO / Tk, and dQ,
+        # dK nothing from them, as autograd of mha_ref gives.
+        dy = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        grads = flash_attention_bwd_cuda(q, k, v, o, lse, dy, causal=False,
+                                         window=20)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, dy, causal=False,
+                                       window=20)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+            scale = ref.float().abs().max().item()
+            record("flash_attention_bwd", f"no valid key backward {name} "
+                   f"{shape}", dtype, got, ref,
+                   (GRAD_BAND[dtype] * scale, GRAD_BAND[dtype]))
+        del q, k, v, o, lse, ro, rl, dy, grads, want
 
         # The backward: the forward's residuals from the kernel, as in
         # training; dY a view of the merged heads' gradient.
@@ -806,9 +909,24 @@ def prefill_logits(cfg, params, tokens, backend):
     return logits
 
 
+def mainloop_check(dtype, n_launches):
+    """matmul_cuda's calls by mainloop since its counters were zeroed: a
+    main path's bf16 GEMMs run on wgmma only, its fp32 GEMMs on simt.
+    Returns the record's fields; raises where another mainloop ran."""
+    from repro_torch.kernels.brgemm import matmul_cuda
+    only = "wgmma" if dtype == torch.bfloat16 else "simt"
+    counts = dict(matmul_cuda.mainloops)
+    if counts[only] != n_launches or sum(counts.values()) != n_launches:
+        raise AssertionError(f"{dtype} GEMMs off the {only} mainloop: "
+                             f"{counts} of {n_launches}")
+    return {"matmul_mainloops": counts,
+            "matmul_split_launches": matmul_cuda.split_launches}
+
+
 def phase_serve(base_cfg):
     from repro_torch.core import dispatch
     from repro_torch.kernels.brgemm import matmul_cuda
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     main_launches = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -818,7 +936,8 @@ def phase_serve(base_cfg):
                         stop_tokens=())           # warm-up, not counted
         torch.cuda.synchronize()
         # The main path: counts zeroed just before, read just after.
-        matmul_cuda.launches = flash_attention_cuda.launches = 0
+        reset_matmul_counts()
+        flash_attention_cuda.launches = 0
         t0 = time.perf_counter()
         ids = engine.generate({"tokens": tokens}, n_tokens=NEW_TOKENS,
                               stop_tokens=())
@@ -831,6 +950,7 @@ def phase_serve(base_cfg):
                   "flash_attention": cfg.n_layers}
         if launches != expect:
             raise AssertionError(f"launch counts {launches} != {expect}")
+        by_mainloop = mainloop_check(dtype, launches["matmul"])
         with dispatch.use(backend="torch"):
             ids_plain = engine.generate({"tokens": tokens},
                                         n_tokens=NEW_TOKENS, stop_tokens=())
@@ -848,7 +968,7 @@ def phase_serve(base_cfg):
         rec = {"phase": "serve", "dtype": cfg.dtype, "batch": BATCH,
                "prompt": PROMPT, "new_tokens": NEW_TOKENS,
                "launches": launches, "expected_launches": expect,
-               "generate_s": seconds,
+               **by_mainloop, "generate_s": seconds,
                "tokens_per_s": BATCH * NEW_TOKENS / seconds,
                "prefill_logits_max_abs_err": err,
                "band": LOGITS_BAND[dtype], "logits_finite": finite,
@@ -981,6 +1101,7 @@ def phase_train(base_cfg):
     from repro_torch.core import dispatch
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels.brgemm import matmul_cuda
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.train import optimizer as opt
@@ -1008,6 +1129,7 @@ def phase_train(base_cfg):
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
+        reset_matmul_counts()
         losses, step_s = [], []
         for batch in batches:
             t0 = time.perf_counter()
@@ -1022,6 +1144,7 @@ def phase_train(base_cfg):
         if launches != expect:
             raise AssertionError(f"train launch counts {launches} != "
                                  f"{expect}")
+        by_mainloop = mainloop_check(dtype, launches["matmul"])
 
         plain_step = ts.make_train_step(cfg, ocfg)
         torch.cuda.reset_peak_memory_stats()
@@ -1045,6 +1168,7 @@ def phase_train(base_cfg):
         rec = {"phase": "train", "dtype": cfg.dtype, "batch": TRAIN_BATCH,
                "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
                "launches": launches, "expected_launches": expect,
+               **by_mainloop,
                "expected_per_step": per_step,
                "losses": losses, "plain_losses": plain_losses,
                "step0_loss_err": loss0_err, "trajectory_max_err": traj_err,
@@ -1194,7 +1318,8 @@ def checked_launches(worst):
 
     # The wrappers count into the name they are bound to: these launches
     # are comparisons and leave the path's counters alone.
-    conv.launches = mm.launches = 0
+    conv.launches = 0
+    BK.reset_matmul_counts(mm)
     CK.conv2d_cuda, BK.matmul_cuda = conv, mm
     try:
         yield worst
@@ -1233,6 +1358,7 @@ def phase_resnet():
     or no more than 1.25 times as far from it as the plain bf16 path is.
     """
     from repro_torch.kernels.brgemm import matmul_cuda
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     from repro_torch.kernels.conv2d import conv2d_cuda
     from repro_torch.models import resnet
     cfg = resnet.ResNetCfg()
@@ -1274,6 +1400,7 @@ def phase_resnet():
         # The main path: counts zeroed just before, read just after.
         for c in counters.values():
             c.launches = 0
+        reset_matmul_counts()
         logits = fwd()
         torch.cuda.synchronize()
         fwd_launches = launches()
@@ -1283,6 +1410,8 @@ def phase_resnet():
         loss, grads = step()
         torch.cuda.synchronize()
         step_launches = launches()
+        by_mainloop = mainloop_check(
+            dtype, fwd_launches["matmul"] + step_launches["matmul"])
         peak = torch.cuda.max_memory_allocated()
         if fwd_launches != per_fwd or step_launches != per_step:
             raise AssertionError(f"resnet launch counts {fwd_launches} / "
@@ -1334,7 +1463,7 @@ def phase_resnet():
         rec = {"phase": "resnet", "dtype": str(dtype).replace("torch.", ""),
                "batch": RESNET_BATCH, "image": RESNET_HW,
                "launches_forward": fwd_launches,
-               "launches_step": step_launches,
+               "launches_step": step_launches, **by_mainloop,
                "logits_shape": list(logits.shape), "finite": finite,
                "loss": kern["loss"], "plain_loss": plain["loss"],
                "kernel_vs_plain": resnet_errors(kern, plain),
@@ -1698,15 +1827,53 @@ def host_split(run, calls, top=16):
     return total * 1e3 / calls, {k: ct * 1e3 / calls for k, ct in own}
 
 
+def graph_ms(fn, sets, iters):
+    """Device ms per call: CUDA events around the replay of a CUDA graph of
+    ``iters`` calls (median of three replays), so the time holds the
+    kernels and the gaps between them and no host work.  None where ``fn``
+    cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(side):
+            for i in range(3):
+                fn(*sets[i % len(sets)])
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            for i in range(iters):
+                fn(*sets[i % len(sets)])
+    except Exception:  # noqa: BLE001 - any capture failure: another method
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return median(times)
+
+
 def time_ms(fn, sets, iters=40):
     """(device ms, wall ms) per call, cycling through input ``sets`` that
     together exceed the 50 MB L2, so that each call finds its operands in
-    device memory as the serving path does.  Device ms is the sum of the
-    call's kernel durations; wall ms comes from CUDA events around
-    back-to-back calls and so also holds any host gap between launches.
-    Where the profiler records no device event for ``fn`` (seen for some
-    of cuDNN's convolutions at ResNet-50's shapes, three profiles in a
-    row), device ms is the CUDA-event time, and a line says so."""
+    device memory as the serving path does.  Device ms comes from a CUDA
+    graph of the calls (graph_ms).  The profiler's sum of kernel durations
+    is the fallback where a call cannot be captured: in a process that has
+    run many profiler sessions it drops and gains kernel records (two
+    GEMMs of identical work read 0.0092 and 0.0146 ms in one run of this
+    script on an H100), and a line says where it was used.  Wall ms comes
+    from CUDA events around back-to-back calls and so also holds any host
+    gap between launches.  Where the profiler records no device event
+    either (seen for some of cuDNN's convolutions at ResNet-50's shapes),
+    device ms is the wall time, and a line says so."""
     for i in range(3):
         fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
@@ -1718,13 +1885,19 @@ def time_ms(fn, sets, iters=40):
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
+    ms = graph_ms(fn, sets, iters)
+    if ms is not None:
+        return ms, wall
 
     def run():
         for i in range(iters):
             fn(*sets[i % len(sets)])
 
     try:
-        return sum(device_ms_by_kernel(run, iters).values()), wall
+        ms = sum(device_ms_by_kernel(run, iters).values())
+        emit({"device_ms_from": "profiler (capture failed)", "ms": ms,
+              "wall_ms": wall})
+        return ms, wall
     except NoDeviceTime as exc:
         emit({"profiler_empty": str(exc), "device_ms_from": "cuda events",
               "wall_ms": wall})
@@ -1741,6 +1914,13 @@ def bound(flops, nbytes, card, dtype=torch.bfloat16):
     peak, bw = peaks(card, dtype)
     return (max(flops / peak, nbytes / bw) * 1e3,
             "operations" if flops / peak > nbytes / bw else "bytes")
+
+
+def plan_fields(x, w):
+    """A matmul row's plan: mainloop, tile rows and splits of k."""
+    from repro_torch.kernels.brgemm.kernel import plan_call
+    p = plan_call(x, w)
+    return {"mainloop": p.mainloop, "bm": p.bm, "splits": p.splits}
 
 
 def phase_times(cfg, card):
@@ -1774,7 +1954,8 @@ def phase_times(cfg, card):
         row("matmul", g.name, ms, wall, 2 * g.m * g.n * g.k, nbytes, plain,
             lib, {"serve": serve, "train": g.per_step * TRAIN_STEPS,
                   "quant": quant},
-            m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind)
+            m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind,
+            **plan_fields(*sets[0]))
         del sets
 
     b, hq, hkv, t, d = BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT, cfg.dh
@@ -1909,7 +2090,7 @@ def phase_times_paper(card):
         row("matmul", f"resnet.wgrad.{cv.name}", ms, wall, cv.flops,
             x_bytes + g_bytes + 2 * w_bytes, plain, lib,
             {"resnet": cv.count}, gemm=list(wsets[0][0].shape) + [cv.k],
-            layout="dw", **shape)
+            layout="dw", **plan_fields(*wsets[0]), **shape)
         del wsets
     # The head: forward (with bias), dX = g W^T, dW = X^T g.
     b_, c_, k_ = RESNET_BATCH, 4 * 8 * cfg.width, cfg.n_classes
@@ -1929,7 +2110,7 @@ def phase_times_paper(card):
         lib, _ = time_ms(torch.matmul, hsets)
         row("matmul", f"resnet.head.{name}", ms, wall, 2 * m * k * n,
             2 * (m * k + k * n + m * n), plain, lib, {"resnet": calls},
-            m=m, k=k, n=n, layout=name)
+            m=m, k=k, n=n, layout=name, **plan_fields(*hsets[0]))
 
     for nb, m, k, n in BRGEMM_CASES:
         def gemm_bytes(*mats):

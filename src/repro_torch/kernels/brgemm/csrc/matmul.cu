@@ -2,384 +2,400 @@
 //
 // Replaces src/repro/kernels/brgemm/kernel.py::matmul_pallas (body
 // _make_body).  On the TPU the K axis was a sequential "arbitrary" grid axis
-// carrying an fp32 accumulator in VMEM scratch; here each block owns one
-// BM x BN output tile and walks K in a loop of its own, with the fp32
-// accumulator in registers (wmma fragments, or plain registers on the fp32
-// path).  The epilogue runs on that accumulator before the single store, in
-// the reference's order: alpha, then beta * c0, then bias, then the
-// activation, then the cast to the output type.
+// carrying an fp32 accumulator in VMEM scratch.  Here a block owns one
+// output tile and walks a run of K in a loop of its own, with the fp32
+// accumulator in registers; the epilogue runs once on the whole sum, in the
+// reference's order: alpha, then beta * c0, then bias, then the activation,
+// then the cast to the output type.  X and W are each row- or column-major
+// (x.T, W.T and table.T are read in place), chosen at run time.
 //
-// What bounds it on an H100: the main path's GEMMs are of two kinds.
-//   * Prefill (m = batch * prompt = 4096, k, n <= 1536): about 290-580
-//     FLOP per byte moved, at or above the bf16 ridge (~295), so tensor-core
-//     throughput.  The bf16 path uses the tensor cores through nvcuda::wmma
-//     (mma.sync underneath) on 64 x 64 tiles staged in shared memory; the
-//     next K slice is fetched into registers while the current one is
-//     multiplied.  wgmma, TMA and a persistent schedule are later work.
-//   * Decode and the LM head (m = batch = 8): a few FLOP per byte, so the
-//     bytes of W bound it.  Every W byte is read once per block row (one
-//     block row when m <= 64), 16 bytes per thread where aligned.  The LM
-//     head reads the tied embedding table in place through W's strides
-//     (W = table.T is column-major), so no transposed copy is ever made.
-//   * Training's backward (m = 4096 tokens): dX = g W^T reads W^T, and
-//     dW = X^T g reads X^T, both in place: X, like W, may be row-major
-//     (x_trans = 0) or column-major (x_trans = 1, as x.T is), chosen at run
-//     time, not by template, so the library keeps its 64 instances.  dW's
-//     reduction runs over the 4096 tokens into a (k, n) output of at most
-//     9 x 24 tiles for the layers' weights: too few blocks to fill 132 SMs,
-//     so those GEMMs are bound by the tiles in flight, not by the card's
-//     rate; a split-K schedule is later work.  The LM head's
-//     dW = x^T g is (576 x 4096)(4096 x 49152) and dX = g table is
-//     (4096 x 49152)(49152 x 576): both at the tensor-core bound.
+// Each call runs one of three mainloops, planned by the wrapper
+// (kernel.py::plan) from the shapes, types and layouts:
+//   * wgmma (bf16 operands that TMA can describe: 16-byte aligned base, row
+//     stride a multiple of 8 elements).  128 (or 64, for m <= 64) x 128 x 64
+//     tiles; a 96 KB ring of 3 (or 4) slices of X and W in shared memory,
+//     filled by TMA with the 128-byte swizzle by one producer warp, full
+//     and empty mbarriers per stage; one or two consumer warpgroups issue
+//     wgmma.mma_async m64n128k16 straight from the ring into 64 fp32
+//     registers a thread, one slice's products in flight while the next
+//     slice is awaited.  Two blocks fit an SM, so one's epilogue overlaps
+//     the other's products.  The four layouts are the TMA box and the
+//     descriptor's major-ness alone: row-major X is K-major A, column-major
+//     X M-major A; row-major W is N-major B, column-major W K-major B.
+//     Ragged m, n and k come from TMA's zero fill and guarded stores.  The
+//     finished tile is staged through the ring and stored four columns a
+//     thread by a loop with the activation chosen once per tile: unrolled
+//     over the 64 registers with the activation switched per element, the
+//     epilogue outgrew the instruction cache and slowed the whole kernel.
+//   * wmma (bf16 operands that TMA cannot describe): the shared tile GEMM of
+//     repro_tile.cuh, 64 x 64 x 32 on nvcuda::wmma.  No main path takes it.
+//   * simt (fp32): the same tile GEMM on FMA, no TF32, so fp32 keeps fp32
+//     accuracy.
 //
-// Ragged m, n and k are masked inside the kernel (zero-filled tiles, guarded
-// stores): there is no padding copy.  The fp32 path runs plain FMA on the
-// CUDA cores, not TF32, so fp32 results keep fp32 accuracy.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-#include <type_traits>
+// Split-K.  The main paths' long reductions (ResNet-50's weight gradients,
+// k = N * P * Q up to 401,408 into a few tiles; training's dW, k = 4096;
+// decode, m = 8, where W must stream from many SMs) make too few output
+// tiles to fill 132 SMs.  The plan then cuts k into `splits` runs of
+// `chunk` slices (blockIdx.z), each block writes its fp32 partial tile to
+// a workspace the wrapper allocates, and a second kernel adds the partials
+// in split order, with no atomics, and runs the epilogue once: the result
+// does not change from run to run.  One split runs the epilogue in the
+// GEMM kernel itself.
+//
+// What bounds it on an H100: prefill and training's token-major GEMMs
+// (m = 4096) sit at or above the bf16 ridge (~295 FLOP a byte) and are
+// tensor-core bound; decode (m = 8) and the weight gradients with n = 64
+// are bound by the bytes of their operands.
+#include "repro_sm90.cuh"
+#include "repro_tile.cuh"
 
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
+using namespace repro;
 
-// Kept in the order of repro_torch/core/fusion.py::ACTIVATIONS.
-enum Act { NONE = 0, RELU, SIGMOID, TANH, GELU, SILU, EXP, SQUARE, N_ACT };
+// kernel.py::MAINLOOPS, in order.  (Activation codes: repro_tile.cuh's
+// enum Act, in the order of repro_torch/core/fusion.py::ACTIVATIONS.)
+enum Mainloop { WGMMA = 0, WMMA = 1, SIMT = 2 };
 
-template <int ACT>
-__device__ __forceinline__ float apply_act(float x) {
-  if constexpr (ACT == RELU) return fmaxf(x, 0.0f);
-  else if constexpr (ACT == SIGMOID) return 1.0f / (1.0f + expf(-x));
-  else if constexpr (ACT == TANH) return tanhf(x);
-  else if constexpr (ACT == GELU)
-    return 0.5f * x * (1.0f + tanhf(0.7978845608028654f *
-                                    (x + 0.044715f * x * x * x)));
-  else if constexpr (ACT == SILU) return x * (1.0f / (1.0f + expf(-x)));
-  else if constexpr (ACT == EXP) return expf(x);
-  else if constexpr (ACT == SQUARE) return x * x;
-  else return x;
-}
-
-struct Epilogue {
-  const void* bias;    // (n,), fp32 or the input type
-  const void* c0;      // (m, n) row stride ldc0, fp32 or the input type
-  void* out;           // (m, n) contiguous, fp32 or bf16
-  long long ldc0;
-  float alpha, beta;
-  int bias_f32, c0_f32, out_f32;
+// Where a block's fp32 sums go: the epilogue (one split), or split z's
+// slab of the (splits, m, n) workspace.
+struct Sink {
+  Epilogue e;
+  float* ws;
+  int m, n;
+  __device__ __forceinline__ void operator()(int row, int col,
+                                             float v) const {
+    if (ws)
+      ws[((long long)blockIdx.z * m + row) * n + col] = v;
+    else
+      finish(e, v, row, col);
+  }
+  // Columns col .. col + 3 (col a multiple of 4) of a row, each where it
+  // exists; one 16-byte (fp32) or 8-byte (bf16) store where n % 4 == 0.
+  // ACT: the activation, e.act, chosen once for the tile.
+  template <int ACT>
+  __device__ __forceinline__ void quad(int row, int col, float4 v) const {
+    if (row >= m || col >= n) return;
+    if (n % 4 || col + 3 >= n) {
+      const float f[4] = {v.x, v.y, v.z, v.w};
+      for (int i = 0; i < 4 && col + i < n; ++i) (*this)(row, col + i, f[i]);
+      return;
+    }
+    const long long o = (long long)row * n + col;
+    if (ws) {
+      *reinterpret_cast<float4*>(ws + (long long)blockIdx.z * m * n + o) = v;
+      return;
+    }
+    v = make_float4(epilogue<ACT>(e, v.x, row, col),
+                    epilogue<ACT>(e, v.y, row, col + 1),
+                    epilogue<ACT>(e, v.z, row, col + 2),
+                    epilogue<ACT>(e, v.w, row, col + 3));
+    if (e.out_f32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(e.out) + o) = v;
+    } else {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 u;
+      u.x = *reinterpret_cast<uint32_t*>(&lo);
+      u.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(static_cast<bf16*>(e.out) + o) = u;
+    }
+  }
 };
 
-__device__ __forceinline__ float load_as_float(const void* p, long long i,
-                                               int is_f32) {
-  return is_f32 ? static_cast<const float*>(p)[i]
-                : __bfloat162float(static_cast<const bf16*>(p)[i]);
-}
-
-template <int ACT, bool HAS_BIAS, bool HAS_C0>
-__device__ __forceinline__ void finish(const Epilogue& e, float acc, int row,
-                                       int col, int n) {
-  acc *= e.alpha;
-  if constexpr (HAS_C0)
-    acc += e.beta * load_as_float(e.c0, (long long)row * e.ldc0 + col,
-                                  e.c0_f32);
-  if constexpr (HAS_BIAS) acc += load_as_float(e.bias, col, e.bias_f32);
-  acc = apply_act<ACT>(acc);
-  long long o = (long long)row * n + col;
-  if (e.out_f32) static_cast<float*>(e.out)[o] = acc;
-  else static_cast<bf16*>(e.out)[o] = __float2bfloat16(acc);
-}
-
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through wmma.  128 threads = 4 warps in a 2 x 2 grid,
-// each warp a 32 x 32 piece of the 64 x 64 tile (2 x 2 fragments).
+// wgmma + TMA
 // ---------------------------------------------------------------------------
-namespace tc {
-constexpr int BM = 64, BN = 64, BK = 32, THREADS = 128;
-constexpr int LDA = BK + 8;    // As[BM][LDA] when X is row-major (m, k)
-constexpr int LDAT = BM + 8;   // As[BK][LDAT] when X is column-major
-constexpr int LDB = BN + 8;    // Bs[BK][LDB] when W is row-major (k, n)
-constexpr int LDBT = BK + 8;   // Bs[BN][LDBT] when W is column-major
-constexpr int LDC = BN + 4;    // Cs[BM][LDC], fp32
-constexpr int A_ELEMS = (BM * LDA > BK * LDAT) ? BM * LDA : BK * LDAT;
-constexpr int B_ELEMS = (BK * LDB > BN * LDBT) ? BK * LDB : BN * LDBT;
+namespace wg {
+constexpr int BN = 128, BK = 64;
+constexpr int LDC = BN + 4;           // fp32 staging of the finished tile
+constexpr int BLOCK64 = 64 * BK * 2;  // one 64-row (or 64-wide) box, bytes
 
-// Each thread moves two 8-element chunks of the A tile and two of the B tile
-// per K slice.  A chunk outside the matrix, or one that cannot be loaded as
-// 16 aligned bytes, goes element by element with zero fill.
-struct Chunk { uint4 v; };
+// Two blocks an SM, so that one's epilogue and ring fill overlap the
+// other's products: a ring of 96 KB each.
+template <int BM>
+struct Shape {
+  static constexpr int WGS = BM / 64;             // consumer warpgroups
+  static constexpr int THREADS = WGS * 128 + 32;  // and one producer warp
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int STAGES = 96 * 1024 / STAGE_BYTES;   // 3 or 4
+  static constexpr int RING = STAGES * STAGE_BYTES;
+  // the ring, its 2 * STAGES barriers, and 1 KB to align the ring
+  static constexpr int SMEM = RING + 2 * STAGES * 8 + 1024;
+  static_assert(BM * LDC * 4 <= RING, "staging must fit in the ring");
+};
 
-__device__ __forceinline__ Chunk load_chunk(const bf16* base, long long ld,
-                                            int r, int c, int rmax, int cmax,
-                                            bool vec) {
-  Chunk ch;
-  if (vec && r < rmax && c + 8 <= cmax) {
-    ch.v = *reinterpret_cast<const uint4*>(base + (long long)r * ld + c);
-  } else {
-    union { uint4 v; unsigned short h[8]; } u;   // bf16 bit patterns
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      u.h[i] = (r < rmax && c + i < cmax)
-                   ? __bfloat16_as_ushort(base[(long long)r * ld + c + i])
-                   : (unsigned short)0;
-    ch.v = u.v;
+// X (m x k) in TMA boxes: row-major (A_MN = 0) as one BM x 64 box per
+// slice, rows m, 64 k across; column-major (A_MN = 1) as BM / 64 boxes of
+// 64 k rows, 64 m across.  W (k x n): column-major (B_MN = 0) as one
+// 128 x 64 box, rows n; row-major (B_MN = 1) as two boxes of 64 k rows.
+template <int BM, int A_MN, int B_MN>
+__global__ void __launch_bounds__(Shape<BM>::THREADS, 2)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tw, Sink sink, int k,
+                    int chunk) {
+  using S = Shape<BM>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* As = ring;
+  uint8_t* Bs = ring + STAGES * S::A_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::RING);
+  uint64_t* empty = full + STAGES;
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int s0 = blockIdx.z * chunk;
+  const int slices = min(chunk, cdiv(k, BK) - s0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], S::WGS);
+    }
+    sm90::mbar_fence_init();
   }
-  return ch;
-}
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// One BK slice of this warp's 32 x 32 piece: A from As, B from Bs, each
-// stored row-major or column-major as its operand was read.
-template <typename LA, typename LB>
-__device__ __forceinline__ void mma_slice(Acc (&acc)[2][2], const bf16* As,
-                                          const bf16* Bs, int wm, int wn) {
-  constexpr bool A_ROW = std::is_same<LA, wmma::row_major>::value;
-  constexpr bool B_ROW = std::is_same<LB, wmma::row_major>::value;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int r = wm * 32 + i * 16;
-      if constexpr (A_ROW)
-        wmma::load_matrix_sync(fa[i], &As[r * LDA + kk], LDA);
-      else
-        wmma::load_matrix_sync(fa[i], &As[kk * LDAT + r], LDAT);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      int c = wn * 32 + j * 16;
-      if constexpr (B_ROW)
-        wmma::load_matrix_sync(fb[j], &Bs[kk * LDB + c], LDB);
-      else
-        wmma::load_matrix_sync(fb[j], &Bs[c * LDBT + kk], LDBT);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
-
-template <int ACT, bool HAS_BIAS, bool HAS_C0>
-__global__ void __launch_bounds__(THREADS)
-matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   Epilogue e, int m, int n, int k, long long ldx,
-                   long long ldw, int x_trans, int w_trans, int vec_x,
-                   int vec_w) {
-  __shared__ __align__(128) bf16 As[A_ELEMS];
-  __shared__ __align__(128) bf16 Bs[B_ELEMS];
-  __shared__ __align__(128) float Cs[BM * LDC];
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  Acc acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  // Chunk coordinates of this thread inside the A and B tiles.
-  int a_r[2], a_c[2], b_r[2], b_c[2];
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    int idx = tid + t * THREADS;            // 256 chunks per tile
-    if (x_trans) { a_r[t] = idx / (BM / 8); a_c[t] = (idx % (BM / 8)) * 8; }
-    else         { a_r[t] = idx / (BK / 8); a_c[t] = (idx % (BK / 8)) * 8; }
-    if (w_trans) { b_r[t] = idx / (BK / 8); b_c[t] = (idx % (BK / 8)) * 8; }
-    else         { b_r[t] = idx / (BN / 8); b_c[t] = (idx % (BN / 8)) * 8; }
-  }
-
-  auto fetch = [&](int k0, Chunk (&ra)[2], Chunk (&rb)[2]) {
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      if (x_trans)  // X[mm][kk] at kk * ldx + mm: rows of the tile are k
-        ra[t] = load_chunk(x + (long long)k0 * ldx + m0, ldx, a_r[t], a_c[t],
-                           k - k0, m - m0, vec_x);
-      else
-        ra[t] = load_chunk(x + (long long)m0 * ldx + k0, ldx, a_r[t], a_c[t],
-                           m - m0, k - k0, vec_x);
-      if (w_trans)  // W[kk][nn] at nn * ldw + kk: rows of the tile are n
-        rb[t] = load_chunk(w + (long long)n0 * ldw + k0, ldw, b_r[t], b_c[t],
-                           n - n0, k - k0, vec_w);
-      else
-        rb[t] = load_chunk(w + (long long)k0 * ldw + n0, ldw, b_r[t], b_c[t],
-                           k - k0, n - n0, vec_w);
-    }
-  };
-
-  Chunk ra[2], rb[2];
-  fetch(0, ra, rb);
-  for (int k0 = 0; k0 < k; k0 += BK) {
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      int lda = x_trans ? LDAT : LDA, ldb = w_trans ? LDBT : LDB;
-      *reinterpret_cast<uint4*>(&As[a_r[t] * lda + a_c[t]]) = ra[t].v;
-      *reinterpret_cast<uint4*>(&Bs[b_r[t] * ldb + b_c[t]]) = rb[t].v;
-    }
-    __syncthreads();
-    if (k0 + BK < k) fetch(k0 + BK, ra, rb);   // overlaps the products below
-
-    using RM = wmma::row_major;
-    using CM = wmma::col_major;
-    if (x_trans) {
-      if (w_trans) mma_slice<CM, CM>(acc, As, Bs, wm, wn);
-      else mma_slice<CM, RM>(acc, As, Bs, wm, wn);
-    } else {
-      if (w_trans) mma_slice<RM, CM>(acc, As, Bs, wm, wn);
-      else mma_slice<RM, RM>(acc, As, Bs, wm, wn);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * LDC + wn * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
   __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += THREADS) {
-    int r = idx / BN, c = idx % BN;
-    if (m0 + r < m && n0 + c < n)
-      finish<ACT, HAS_BIAS, HAS_C0>(e, Cs[r * LDC + c], m0 + r, n0 + c, n);
-  }
-}
-}  // namespace tc
 
-// ---------------------------------------------------------------------------
-// fp32: FMA on the CUDA cores.  256 threads, each a 4 x 4 piece of the
-// 64 x 64 tile (rows ty + 16 i, columns tx + 16 j).
-// ---------------------------------------------------------------------------
-namespace simt {
-constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
-
-template <int ACT, bool HAS_BIAS, bool HAS_C0>
-__global__ void __launch_bounds__(THREADS)
-matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  Epilogue e, int m, int n, int k, long long ldx,
-                  long long ldw, int x_trans, int w_trans) {
-  __shared__ float As[BK][BM + 4];   // transposed: As[kk][row]
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
+  if (warp == S::WGS * 4) {  // the producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < slices; ++i) {
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[stage], S::STAGE_BYTES);
+        const int kc = (s0 + i) * BK;
+        uint8_t* a = As + stage * S::A_BYTES;
+        uint8_t* b = Bs + stage * S::B_BYTES;
+        if (A_MN) {
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      int idx = tid + t * THREADS;           // 1024 elements per tile
-      if (x_trans) {   // neighbouring threads on neighbouring rows
-        int r = idx % BM, kk = idx / BM;
-        As[kk][r] = (m0 + r < m && k0 + kk < k)
-                        ? x[(long long)(k0 + kk) * ldx + m0 + r] : 0.0f;
-      } else {
-        int r = idx / BK, kk = idx % BK;
-        As[kk][r] = (m0 + r < m && k0 + kk < k)
-                        ? x[(long long)(m0 + r) * ldx + k0 + kk] : 0.0f;
-      }
-      if (w_trans) {
-        int c = idx / BK, kq = idx % BK;
-        Bs[kq][c] = (n0 + c < n && k0 + kq < k)
-                        ? w[(long long)(n0 + c) * ldw + k0 + kq] : 0.0f;
-      } else {
-        int kq = idx / BN, c = idx % BN;
-        Bs[kq][c] = (k0 + kq < k && n0 + c < n)
-                        ? w[(long long)(k0 + kq) * ldw + n0 + c] : 0.0f;
+          for (int j = 0; j < BM / 64; ++j)
+            sm90::tma_load_2d(a + j * BLOCK64, &tx, &full[stage], m0 + 64 * j,
+                              kc);
+        } else {
+          sm90::tma_load_2d(a, &tx, &full[stage], kc, m0);
+        }
+        if (B_MN) {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            sm90::tma_load_2d(b + j * BLOCK64, &tw, &full[stage], n0 + 64 * j,
+                              kc);
+        } else {
+          sm90::tma_load_2d(b, &tw, &full[stage], kc, n0);
+        }
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
+
+  // The consumers: warpgroup wg owns rows wg * 64 .. of the tile.
+  const int wg = warp / 4;
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < slices; ++i) {
+    sm90::mbar_wait(&full[stage], phase);
+    // Either layout puts this warpgroup's 64 rows in one 8 KB block.
+    const uint8_t* a = As + stage * S::A_BYTES + wg * BLOCK64;
+    const uint8_t* b = Bs + stage * S::B_BYTES;
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int r = m0 + ty + 16 * i, c = n0 + tx + 16 * j;
-      if (r < m && c < n) finish<ACT, HAS_BIAS, HAS_C0>(e, acc[i][j], r, c, n);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t da = A_MN ? sm90::desc_sw128(a + kk * 2048, BLOCK64, 1024)
+                               : sm90::desc_sw128(a + kk * 32, 16, 1024);
+      const uint64_t db = B_MN ? sm90::desc_sw128(b + kk * 2048, BLOCK64, 1024)
+                               : sm90::desc_sw128(b + kk * 32, 16, 1024);
+      sm90::wgmma_m64n128k16<A_MN, B_MN>(acc, da, db);
     }
-}
-}  // namespace simt
-
-template <int ACT, bool HAS_BIAS, bool HAS_C0>
-static void launch(const void* x, const void* w, const Epilogue& e, int m,
-                   int n, int k, long long ldx, long long ldw, int x_trans,
-                   int w_trans, int is_bf16, int vec_x, int vec_w,
-                   cudaStream_t stream) {
-  if (is_bf16) {
-    dim3 grid((n + tc::BN - 1) / tc::BN, (m + tc::BM - 1) / tc::BM);
-    tc::matmul_bf16_kernel<ACT, HAS_BIAS, HAS_C0>
-        <<<grid, tc::THREADS, 0, stream>>>(
-            static_cast<const bf16*>(x), static_cast<const bf16*>(w), e, m, n,
-            k, ldx, ldw, x_trans, w_trans, vec_x, vec_w);
-  } else {
-    dim3 grid((n + simt::BN - 1) / simt::BN, (m + simt::BM - 1) / simt::BM);
-    simt::matmul_f32_kernel<ACT, HAS_BIAS, HAS_C0>
-        <<<grid, simt::THREADS, 0, stream>>>(
-            static_cast<const float*>(x), static_cast<const float*>(w), e, m,
-            n, k, ldx, ldw, x_trans, w_trans);
+    sm90::wgmma_commit();
+    sm90::fence_regs(acc);
+    // The slice before this one is done: give its stage back.
+    sm90::wgmma_wait<1>();
+    if (i > 0 && threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
   }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  // Every consumer is done with the ring: stage the tile through it, then
+  // store it four columns a thread, neighbouring threads on neighbouring
+  // columns, in a loop that keeps the epilogue's code small.
+  sm90::named_sync(1, S::WGS * 128);
+  float* Cs = reinterpret_cast<float*>(ring);
+  const int t = threadIdx.x % 128;
+  const int r0 = wg * 64 + (t / 32) * 16 + (t % 32) / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = j * 8 + (t % 4) * 2;
+    *reinterpret_cast<float2*>(&Cs[r0 * LDC + c]) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(&Cs[(r0 + 8) * LDC + c]) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  sm90::named_sync(1, S::WGS * 128);
+  with_act(sink.ws ? NONE : sink.e.act, [&](auto act) {
+#pragma unroll 1
+    for (int idx = threadIdx.x; idx < BM * BN / 4; idx += S::WGS * 128) {
+      const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+      sink.template quad<decltype(act)::value>(
+          m0 + r, n0 + c, *reinterpret_cast<const float4*>(&Cs[r * LDC + c]));
+    }
+  });
 }
 
-template <int ACT>
-static void launch_act(bool has_bias, bool has_c0, const void* x,
-                       const void* w, const Epilogue& e, int m, int n, int k,
-                       long long ldx, long long ldw, int x_trans, int w_trans,
-                       int is_bf16, int vec_x, int vec_w, cudaStream_t s) {
-  auto go = [&](auto launcher) {
-    launcher(x, w, e, m, n, k, ldx, ldw, x_trans, w_trans, is_bf16, vec_x,
-             vec_w, s);
-  };
-  if (has_bias && has_c0) go(launch<ACT, true, true>);
-  else if (has_bias) go(launch<ACT, true, false>);
-  else if (has_c0) go(launch<ACT, false, true>);
-  else go(launch<ACT, false, false>);
+template <int BM, int A_MN, int B_MN>
+static int launch(const CUtensorMap& tx, const CUtensorMap& tw,
+                  const Sink& sink, int k, int splits, int chunk,
+                  cudaStream_t stream) {
+  using S = Shape<BM>;
+  auto kernel = matmul_wgmma_kernel<BM, A_MN, B_MN>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(cdiv(sink.m, BM), cdiv(sink.n, BN), splits);
+  kernel<<<grid, S::THREADS, S::SMEM, stream>>>(tx, tw, sink, k, chunk);
+  return (int)cudaGetLastError();
+}
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// wmma (bf16) and simt (fp32): the shared tile GEMM, split z walking slices
+// z * chunk .. of the one batch entry.
+// ---------------------------------------------------------------------------
+template <typename F>
+struct FromSlice {
+  F f;
+  int s0;
+  __device__ __forceinline__ void init(int t, int r, int c) {
+    f.init(t, r, c);
+  }
+  __device__ __forceinline__ auto operator()(int sl, int t) const {
+    return f(s0 + sl, t);
+  }
+};
+
+__global__ void __launch_bounds__(tc::THREADS)
+matmul_wmma_kernel(Operand x, Operand w, Sink sink, int k, int chunk) {
+  __shared__ __align__(128) bf16 As[tc::STAGE];
+  __shared__ __align__(128) bf16 Bs[tc::STAGE];
+  __shared__ __align__(128) float Cs[tc::BM * tc::LDC];
+  const int m0 = blockIdx.y * tc::BM, n0 = blockIdx.x * tc::BN;
+  const int s0 = blockIdx.z * chunk;
+  FromSlice<tc::StridedFetch> fa{{a_op<bf16>(x, m0, sink.m, k, tc::BK, 0)},
+                                 s0};
+  FromSlice<tc::StridedFetch> fb{{b_op<bf16>(w, n0, sink.n, k, tc::BK, 0)},
+                                 s0};
+  tc::Acc acc[2][2];
+  tc::mainloop(acc, As, Bs, x.trans, !w.trans,
+               min(chunk, cdiv(k, tc::BK) - s0), fa, fb);
+  tc::store_tile(acc, Cs, [&](int r, int c, float v) {
+    if (m0 + r < sink.m && n0 + c < sink.n) sink(m0 + r, n0 + c, v);
+  });
+}
+
+__global__ void __launch_bounds__(simt::THREADS)
+matmul_simt_kernel(Operand x, Operand w, Sink sink, int k, int chunk) {
+  const int m0 = blockIdx.y * simt::BM, n0 = blockIdx.x * simt::BN;
+  const int s0 = blockIdx.z * chunk;
+  FromSlice<simt::StridedFetch> fa{
+      {a_op<float>(x, m0, sink.m, k, simt::BK, 0)}, s0};
+  FromSlice<simt::StridedFetch> fb{
+      {b_op<float>(w, n0, sink.n, k, simt::BK, 0)}, s0};
+  float acc[4][4];
+  simt::mainloop(acc, x.trans, !w.trans, min(chunk, cdiv(k, simt::BK) - s0),
+                 fa, fb);
+  simt::store_tile(acc, [&](int r, int c, float v) {
+    if (m0 + r < sink.m && n0 + c < sink.n) sink(m0 + r, n0 + c, v);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// Split-K: the partials of each output element summed in split order, then
+// the epilogue, once.  Bytes bound it (splits fp32 reads an element).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(256)
+splitk_reduce_kernel(const float* __restrict__ ws, Epilogue e, int m, int n,
+                     int splits) {
+  const long long mn = (long long)m * n;
+  with_act(e.act, [&](auto act) {
+    for (long long i = blockIdx.x * 256LL + threadIdx.x; i < mn;
+         i += (long long)gridDim.x * 256) {
+      float acc = ws[i];
+      for (int s = 1; s < splits; ++s) acc += ws[s * mn + i];
+      const long long row = i / n;
+      const int col = (int)(i % n);
+      acc = epilogue<decltype(act)::value>(e, acc, row, col);
+      if (e.out_f32) static_cast<float*>(e.out)[i] = acc;
+      else static_cast<bf16*>(e.out)[i] = __float2bfloat16(acc);
+    }
+  });
 }
 
 // x: (m, k) either row-major (x_trans = 0, element (mm, kk) at
 // mm * ldx + kk) or column-major (x_trans = 1, element at kk * ldx + mm).
 // w: (k, n) either row-major (w_trans = 0, element (kk, nn) at
 // kk * ldw + nn) or column-major (w_trans = 1, element at nn * ldw + kk).
-// bias / c0 may be null.  Returns the launch's cudaGetLastError().
+// bias / c0 may be null.  The plan (kernel.py::plan): mainloop (0 wgmma,
+// 1 wmma, 2 simt), bm (wgmma's tile rows, 64 or 128), splits and chunk
+// (slices of the mainloop's BK per split); ws: a (splits, m, n) fp32
+// workspace when splits > 1.  vec_x / vec_w: the wmma path's 16-byte loads
+// are safe.  Returns the first CUDA error of the launches, or 0.
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias,
                             const void* c0, void* out, int m, int n, int k,
                             long long ldx, long long ldw, int x_trans,
                             int w_trans, long long ldc0, float alpha,
                             float beta, int act, int is_bf16, int out_f32,
                             int bias_f32, int c0_f32, int vec_x, int vec_w,
-                            void* stream) {
-  if (act < 0 || act >= N_ACT) return (int)cudaErrorInvalidValue;
-  Epilogue e{bias, c0, out, ldc0, alpha, beta, bias_f32, c0_f32, out_f32};
-  bool hb = bias != nullptr, hc = c0 != nullptr;
+                            int mainloop, int bm, int splits, int chunk,
+                            void* ws, void* stream) {
+  if (act < 0 || act >= N_ACT || splits < 1 || chunk < 1 ||
+      (splits > 1 && ws == nullptr) || (mainloop == SIMT) == (is_bf16 != 0) ||
+      (mainloop == WGMMA && bm != 64 && bm != 128))
+    return (int)cudaErrorInvalidValue;
+  Epilogue e{out, bias, c0, n, ldc0, alpha, beta, act, out_f32, bias_f32,
+             c0_f32};
+  Sink sink{e, splits > 1 ? static_cast<float*>(ws) : nullptr, m, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_ACT_CASE(A)                                                  \
-  case A:                                                                  \
-    launch_act<A>(hb, hc, x, w, e, m, n, k, ldx, ldw, x_trans, w_trans,    \
-                  is_bf16, vec_x, vec_w, s);                               \
-    break;
-  switch (act) {
-    REPRO_ACT_CASE(NONE) REPRO_ACT_CASE(RELU) REPRO_ACT_CASE(SIGMOID)
-    REPRO_ACT_CASE(TANH) REPRO_ACT_CASE(GELU) REPRO_ACT_CASE(SILU)
-    REPRO_ACT_CASE(EXP) REPRO_ACT_CASE(SQUARE)
+  int rc = 0;
+  if (mainloop == WGMMA) {
+    // X: rows of m (x_trans) or of k; W: rows of k (row-major) or of n.
+    CUtensorMap tx, tw;
+    bool ok = x_trans ? sm90::tensor_map_bf16(&tx, x, m, k, ldx, 64)
+                      : sm90::tensor_map_bf16(&tx, x, k, m, ldx, bm);
+    ok = ok && (w_trans ? sm90::tensor_map_bf16(&tw, w, k, n, ldw, wg::BN)
+                        : sm90::tensor_map_bf16(&tw, w, n, k, ldw, 64));
+    if (!ok) return (int)cudaErrorInvalidValue;
+    const int a_mn = x_trans, b_mn = !w_trans;
+#define REPRO_WGMMA(BM, A, B)                                             \
+  if (bm == BM && a_mn == A && b_mn == B)                                 \
+    rc = wg::launch<BM, A, B>(tx, tw, sink, k, splits, chunk, s);
+    REPRO_WGMMA(128, 0, 0) REPRO_WGMMA(128, 0, 1) REPRO_WGMMA(128, 1, 0)
+    REPRO_WGMMA(128, 1, 1) REPRO_WGMMA(64, 0, 0) REPRO_WGMMA(64, 0, 1)
+    REPRO_WGMMA(64, 1, 0) REPRO_WGMMA(64, 1, 1)
+#undef REPRO_WGMMA
+  } else {
+    Operand ox{x, 0, ldx, x_trans, vec_x}, ow{w, 0, ldw, w_trans, vec_w};
+    dim3 grid(cdiv(n, 64), cdiv(m, 64), splits);
+    if (mainloop == WMMA)
+      matmul_wmma_kernel<<<grid, tc::THREADS, 0, s>>>(ox, ow, sink, k, chunk);
+    else
+      matmul_simt_kernel<<<grid, simt::THREADS, 0, s>>>(ox, ow, sink, k,
+                                                        chunk);
+    rc = (int)cudaGetLastError();
   }
-#undef REPRO_ACT_CASE
-  return (int)cudaGetLastError();
+  if (rc == 0 && splits > 1) {
+    const long long mn = (long long)m * n;
+    const int blocks = (int)(mn < 132 * 16 * 256LL ? (mn + 255) / 256
+                                                   : 132 * 16);
+    splitk_reduce_kernel<<<blocks, 256, 0, s>>>(static_cast<float*>(ws), e,
+                                                 m, n, splits);
+    rc = (int)cudaGetLastError();
+  }
+  return rc;
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -6,10 +6,19 @@ a family of its own so that its nvcc runs beside matmul's.  Each checks
 what its kernel takes, allocates the output, and launches on the current
 stream; the libraries are built at first use (``kernels/_build.py``).
 ``<wrapper>.launches`` counts each wrapper's launches.
+
+``plan`` decides how ``matmul_cuda`` runs a call: its mainloop (``wgmma``
+for bf16 operands that TMA can describe, ``wmma`` for other bf16 operands,
+``simt`` for fp32), its tile, and how many runs of k (``splits``) the
+reduction is cut into so that few output tiles still fill the card.
+``matmul_cuda.mainloops`` counts its calls by mainloop and
+``matmul_cuda.split_launches`` the calls that also launched the split-K
+reduction.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -21,13 +30,59 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
+MAINLOOPS = ("wgmma", "wmma", "simt")   # matmul.cu's Mainloop codes
+SMS = 132                               # an H100 SXM's multiprocessors
+# Per mainloop: (tile rows for m > 64, tile columns, k a slice, blocks an
+# SM that a split aims at).  wgmma's tile has 64 rows where m <= 64; two
+# of its blocks fit an SM, but one wave of split blocks ran faster than two
+# or four on an H100 (matmul_sweep.py --variants): each split adds
+# partials to write and add again.
+_TILES = {"wgmma": (128, 128, 64, 1), "wmma": (64, 64, 32, 4),
+          "simt": (64, 64, 16, 4)}
+# A split walks at least this much of k, so that its partials stay small
+# against its products; decode's k = 576 ran no faster split.
+MIN_SPLIT_K = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    mainloop: str      # one of MAINLOOPS
+    bm: int            # tile rows
+    bk: int            # k a slice
+    splits: int        # runs of k, each its own blocks; 1: no split
+    chunk: int         # slices a run
+    tiles: int         # output tiles
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, is_bf16: bool, tma: bool) -> Plan:
+    """How ``matmul_cuda`` runs an (m, k) @ (k, n) product.
+
+    ``tma``: both bf16 operands can be described to TMA (16-byte aligned
+    base, a row stride that is a multiple of 8 elements and covers a row).
+    k is split only while the tiles alone leave SMs idle, into equal runs
+    of whole slices, no shorter than MIN_SPLIT_K, until the blocks fill the
+    SMs once.
+    """
+    mainloop = ("simt" if not is_bf16 else "wgmma" if tma and k > 0
+                else "wmma")
+    bm, bn, bk, per_sm = _TILES[mainloop]
+    if mainloop == "wgmma" and m <= 64:
+        bm = 64
+    tiles = -(-m // bm) * -(-n // bn)
+    slices = -(-k // bk)
+    splits = max(1, min(SMS * per_sm // tiles, slices // (MIN_SPLIT_K // bk)))
+    chunk = max(1, -(-slices // splits))
+    splits = max(1, -(-slices // chunk))
+    return Plan(mainloop, bm, bk, splits, chunk, tiles)
+
 
 @functools.cache
 def _lib():
     lib = _build.load("brgemm")
     lib.repro_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
                                  _I, _I, _LL, _F, _F, _I, _I, _I, _I, _I, _I,
-                                 _I, _P]
+                                 _I, _I, _I, _I, _I, _P, _P]
     lib.repro_matmul.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -69,6 +124,22 @@ def _layout(t: torch.Tensor, name: str) -> tuple[int, int]:
         return 1, t.stride(1)
     raise ValueError(f"the GEMM kernels need {name} row- or column-major, "
                      f"got strides {t.stride()}")
+
+
+def _operand(t: torch.Tensor, name: str) -> tuple[int, int, bool, bool]:
+    """(trans, ld, vec, tma) of a GEMM operand: its layout, whether the wmma
+    body's 16-byte loads are safe (bf16), and whether TMA can describe it
+    (those loads are, and the row stride covers the row it steps over)."""
+    trans, ld = _layout(t, name)
+    vec = t.dtype == torch.bfloat16 and _aligned(t, ld)
+    return trans, ld, vec, vec and ld >= t.size(trans ^ 1)
+
+
+def plan_call(x: torch.Tensor, w: torch.Tensor) -> Plan:
+    """The plan of ``matmul_cuda(x, w)``, from the operands' shapes, type,
+    layouts and alignment (the kernel itself is not touched)."""
+    return plan(x.size(0), w.size(1), x.size(1), x.dtype == torch.bfloat16,
+                _operand(x, "x")[3] and _operand(w, "w")[3])
 
 
 def _check_dtypes(name, a, b, out_dtype):
@@ -115,8 +186,8 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
                          f"{tuple(w.shape)} do not chain")
     m, k = x.shape
     n = w.size(1)
-    x_trans, ldx = _layout(x, "x")
-    w_trans, ldw = _layout(w, "w")
+    x_trans, ldx, vec_x, tma_x = _operand(x, "x")
+    w_trans, ldw, vec_w, tma_w = _operand(w, "w")
     _epilogue_operand("bias", bias, (n,), x)
     _epilogue_operand("c0", c0, (m, n), x)
     has_c0 = c0 is not None and beta != 0.0
@@ -124,6 +195,9 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
     if m == 0 or n == 0:
         return out
     is_bf16 = x.dtype == torch.bfloat16
+    p = plan(m, n, k, is_bf16, tma_x and tma_w)
+    ws = (torch.empty(p.splits * m * n, dtype=torch.float32, device=x.device)
+          if p.splits > 1 else None)
     lib = _lib()
     rc = lib.repro_matmul(
         x.data_ptr(), w.data_ptr(),
@@ -135,14 +209,25 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
         int(out_dtype == torch.float32),
         int(bias is not None and bias.dtype == torch.float32),
         int(has_c0 and c0.dtype == torch.float32),
-        int(is_bf16 and _aligned(x, ldx)), int(is_bf16 and _aligned(w, ldw)),
+        int(vec_x), int(vec_w), MAINLOOPS.index(p.mainloop), p.bm, p.splits,
+        p.chunk, ws.data_ptr() if ws is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, lib, "matmul")
     matmul_cuda.launches += 1
+    matmul_cuda.mainloops[p.mainloop] += 1
+    matmul_cuda.split_launches += p.splits > 1
     return out
 
 
-matmul_cuda.launches = 0
+def reset_matmul_counts(fn=None):
+    """Zero ``matmul_cuda``'s counters (or those of a stand-in ``fn``
+    bound to its name)."""
+    fn = fn or matmul_cuda
+    fn.launches = fn.split_launches = 0
+    fn.mainloops = dict.fromkeys(MAINLOOPS, 0)
+
+
+reset_matmul_counts()
 
 
 def _batched_operand(t: torch.Tensor, name: str) -> list:

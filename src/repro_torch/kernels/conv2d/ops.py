@@ -51,17 +51,24 @@ def patches(x, r, s, stride, padding):
     """(N*P*Q, R*S*C): row (n, p, q) holds the window of output pixel
     (p, q) of image n, taps in (r, s) order, channels innermost (the row
     order of w viewed as an (R*S*C, K) matrix).  A 1x1, stride-1, unpadded
-    conv's is x itself, viewed."""
+    conv's is x itself, viewed.  Otherwise the rows lie a multiple of 8
+    elements apart (16 bytes in bf16), so that the GEMM kernel's TMA can
+    read the window transposed in place: the first R*S*C columns of a
+    wider buffer (the stem's 147 of 152)."""
     n, h, wi, c = x.shape
     if r == s == 1 and stride == 1 and padding == 0:
         return x.reshape(n * h * wi, c)
     p, q = R.out_size(h, r, stride, padding), R.out_size(wi, s, stride,
                                                           padding)
     xp = F.pad(x, (0, 0, padding, padding, padding, padding))
-    taps = [xp[:, i:i + (p - 1) * stride + 1:stride,
-               j:j + (q - 1) * stride + 1:stride]
-            for i in range(r) for j in range(s)]
-    return torch.stack(taps, dim=3).reshape(n * p * q, r * s * c)
+    sn, sh, sw, sc = xp.stride()
+    windows = xp.as_strided((n, p, q, r, s, c), (sn, stride * sh, stride * sw,
+                                                 sh, sw, sc),
+                            xp.storage_offset())
+    rsc = r * s * c
+    cols = x.new_empty((n * p * q, -(-rsc // 8) * 8))[:, :rsc]
+    cols.view(n, p, q, r, s, c).copy_(windows)
+    return cols
 
 
 def conv2d_bwd(conv, mm, x, w, bias, y, dy, *, stride, padding, activation,

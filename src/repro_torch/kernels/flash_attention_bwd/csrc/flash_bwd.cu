@@ -23,10 +23,15 @@
 // loop bounds start and end at the live tiles, as in the forward.
 //
 // Masking happens before the exponential: a pair outside the mask, a row
-// past Tq, or a key past Tk gives p = 0 without evaluating exp, so a row
-// whose lse is NEG_INF (no valid key) contributes nothing and never
-// overflows.  Rows past Tq and keys past Tk are zero-filled and never
-// stored: nothing is padded in device memory.  q, k, v, y and dy are read
+// past Tq, or a key past Tk gives p = 0 without evaluating exp.  A row with
+// no valid key (lse NEG_INF; it occurs only windowed with Tq >= Tk +
+// window) is what mha_ref makes it: every score NEG_INF, so the softmax
+// weighs each of the Tk keys 1 / Tk (rounded to V's type, as the forward
+// does), the row's output is the mean of V, and autograd gives every key's
+// dV that weight times the row's dO and dQ, dK nothing.  Kernel B adds
+// those rows' dO, summed over its group, to each key's dV.  Rows past Tq
+// and keys past Tk are zero-filled and never stored: nothing is padded in
+// device memory.  q, k, v, y and dy are read
 // through their (batch, head, time) strides with a unit head_dim stride, so
 // the attention layer's transposed views (v, and dy, the gradient of the
 // merged heads) are read in place without a copy.
@@ -52,6 +57,7 @@ namespace wmma = nvcuda::wmma;
 
 constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = WARPS * 32;
 constexpr int ROWS = 16;               // rows of a tile owned by one warp
+constexpr float NEG_INF = -1e30f;      // the lse of a row with no valid key
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
@@ -97,7 +103,8 @@ struct Layout {
   static constexpr int O_OFF = DSH_OFF + (TC ? align128(BQ * LDP * 2) : 0);
   static constexpr int LSE_OFF = O_OFF + (TC ? align128(BQ * LDO * 4) : 0);
   static constexpr int DEL_OFF = LSE_OFF + BQ * 4;
-  static constexpr int BYTES = DEL_OFF + BQ * 4;
+  static constexpr int EMPTY_OFF = DEL_OFF + BQ * 4;   // kernel B: D floats
+  static constexpr int BYTES = EMPTY_OFF + D * 4;
 };
 
 // Rows [t0, t0 + rows) of one head into shared memory, zero past tmax, 16
@@ -205,17 +212,21 @@ __device__ __forceinline__ void accumulate_tc(Frag (&acc)[D / 16],
 }
 
 // Stores this warp's 16 rows of an fp32 accumulator to dst (contiguous rows
-// of D), rows at or past `valid` skipped.
+// of D), rows at or past `valid` skipped; add[c], where given, is added to
+// column c of every row.
 template <typename T, int D, int LDO>
 __device__ __forceinline__ void store_tc(Frag (&acc)[D / 16], float* Ow,
-                                         T* dst, int valid, int lane) {
+                                         T* dst, int valid, int lane,
+                                         const float* add = nullptr) {
 #pragma unroll
   for (int ct = 0; ct < D / 16; ++ct)
     wmma::store_matrix_sync(Ow + ct * 16, acc[ct], LDO, wmma::mem_row_major);
   __syncwarp();
   for (int idx = lane; idx < ROWS * D; idx += 32) {
     int r = idx / D, c = idx % D;
-    if (r < valid) dst[(long long)r * D + c] = from_f<T>(Ow[r * LDO + c]);
+    if (r < valid)
+      dst[(long long)r * D + c] =
+          from_f<T>(add ? Ow[r * LDO + c] + add[c] : Ow[r * LDO + c]);
   }
   __syncwarp();
 }
@@ -512,6 +523,28 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(Params p) {
     }
   }
 
+  // Rows with no valid key, which only rows q_pos >= Tk + window - 1 can
+  // be: w * (the sum of their dO over the group) goes to every key's dV.
+  float* EMPTY = reinterpret_cast<float*>(smem + L::EMPTY_OFF);
+  for (int c = threadIdx.x; c < D; c += THREADS) {
+    float sum = 0.0f;
+    if (p.window > 0) {
+      for (int g = 0; g < p.group; ++g) {
+        const int h = hk * p.group + g;
+        const long long row0 = ((long long)b * p.hq + h) * p.tq;
+        const T* dyg = static_cast<const T*>(p.dy) + b * p.dy_sb +
+                       h * p.dy_sh;
+        for (int r = max(0, p.tk + p.window - 1); r < p.tq; ++r)
+          if (p.lse[row0 + r] <= 0.5f * NEG_INF)
+            sum += to_f(dyg[(long long)r * p.dy_st + c]);
+      }
+    }
+    float w = 1.0f / (float)p.tk;
+    if constexpr (L::TC) w = __bfloat162float(__float2bfloat16(w));
+    EMPTY[c] = w * sum;
+  }
+  __syncthreads();
+
   const long long krow = ((long long)b * p.hkv + hk) * p.tk + k0 + wr0;
   T* dkg = static_cast<T*>(p.dk) + krow * D;
   T* dvg = static_cast<T*>(p.dv) + krow * D;
@@ -519,7 +552,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(Params p) {
   if constexpr (L::TC) {
     float* Ow = Os + wr0 * L::LDO;
     store_tc<T, D, L::LDO>(dk_tc, Ow, dkg, valid, lane);
-    store_tc<T, D, L::LDO>(dv_tc, Ow, dvg, valid, lane);
+    store_tc<T, D, L::LDO>(dv_tc, Ow, dvg, valid, lane, EMPTY);
   } else {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
@@ -527,7 +560,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(Params p) {
 #pragma unroll
         for (int i = 0; i < CPL; ++i) {
           dkg[(long long)r * D + lane + 32 * i] = dk[r][i];
-          dvg[(long long)r * D + lane + 32 * i] = dv[r][i];
+          dvg[(long long)r * D + lane + 32 * i] =
+              dv[r][i] + EMPTY[lane + 32 * i];
         }
   }
 }

@@ -1,0 +1,248 @@
+// Hopper's asynchronous building blocks, written as inline PTX: the
+// mbarrier, the Tensor Memory Accelerator's 2-D tile load, the warpgroup
+// matrix multiply (wgmma) with its shared-memory descriptors, and the host
+// side of a TMA tensor map.  Compiled for sm_90a only (wgmma exists on no
+// other target).
+//
+// The layout every piece here assumes is the 128-byte swizzle: a TMA box
+// is 64 bf16 wide (128 bytes) and its rows land in shared memory 128 bytes
+// apart, the 16-byte chunks of row r XOR-permuted by r % 8, so that eight
+// rows (1024 bytes) form one swizzle atom.  Every tile starts on a
+// 1024-byte boundary, so a descriptor's base offset is 0.  A wgmma operand
+// is then either
+//   K-major  (rows along M or N, the 64 k of a slice across a row): LBO
+//            unused (16), SBO = 1024 bytes between groups of 8 rows, and
+//            the k16 step of a slice moves the start 32 bytes along the row;
+//   MN-major (rows along k, 64 of M or N across a row): SBO = 1024 bytes
+//            between groups of 8 k, LBO = the bytes between 64-wide blocks
+//            of M or N, and the k16 step moves the start 16 rows (2048
+//            bytes).
+#pragma once
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
+
+namespace repro {
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier --------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic to wait for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Returns once the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Synchronises the `count` threads that name barrier `id` (1-15; 0 is
+// __syncthreads's), leaving the rest of the block out.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- TMA -------------------------------------------------------------------
+// The box of `map` at element coordinates (c0 along the contiguous
+// dimension, c1 along the rows) into shared memory at dst, completing on
+// bar.  Elements outside the matrix arrive as zeros and still count as
+// transferred bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand at p.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Waits until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulator across an
+// asynchronous wgmma that is still writing it.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64] += A (64 x 16, bf16) @ B (16 x 128, bf16) in fp32, on this
+// warpgroup.  TA / TB: A M-major / B N-major (1) or K-major (0).  Thread t
+// of the warpgroup holds rows (t / 32) * 16 + (t % 32) / 4 (+ 8) and
+// columns 8 j + 2 (t % 4) (+ 1): d[4 j + {0, 1}] on the first row, d[4 j +
+// {2, 3}] on the row 8 below.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+// cuTensorMapEncodeTiled is a driver-API function; the kernels link only
+// the runtime, so it is looked up once through the runtime's entry-point
+// query.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                             cudaEnableDefault, &q);
+#endif
+    return (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 matrix of `rows` rows of `inner` contiguous elements, rows `ld`
+// elements apart (16-byte aligned base, ld a multiple of 8), read in boxes
+// of 64 x box_rows with the 128-byte swizzle and zero fill outside.
+// Returns false where the driver refuses it.
+//
+// The map is a function of these five values alone, and a decode step asks
+// for the same weights' maps every step, so the last 4096 are remembered
+// (direct-mapped on the base address; a hit is always the map the driver
+// would encode again).
+inline bool tensor_map_bf16(CUtensorMap* map, const void* base,
+                            uint64_t inner, uint64_t rows, uint64_t ld,
+                            uint32_t box_rows) {
+  struct Entry {
+    const void* base;
+    uint64_t inner, rows, ld;
+    uint32_t box_rows;
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 4096;
+  static Entry memo[SLOTS] = {};
+  static std::mutex mu;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  Entry& slot = memo[((a >> 4) ^ (a >> 16) ^ box_rows) % SLOTS];
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (slot.base == base && slot.inner == inner && slot.rows == rows &&
+        slot.ld == ld && slot.box_rows == box_rows) {
+      *map = slot.map;
+      return true;
+    }
+  }
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  cuuint64_t dims[2] = {inner, rows};
+  cuuint64_t strides[1] = {ld * 2};
+  cuuint32_t box[2] = {64, box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  std::lock_guard<std::mutex> lock(mu);
+  slot = Entry{base, inner, rows, ld, box_rows, *map};
+  return true;
+}
+
+}  // namespace sm90
+}  // namespace repro

@@ -38,19 +38,40 @@ using bf16 = __nv_bfloat16;
 // Kept in the order of repro_torch/core/fusion.py::ACTIVATIONS.
 enum Act { NONE = 0, RELU, SIGMOID, TANH, GELU, SILU, EXP, SQUARE, N_ACT };
 
-__device__ __forceinline__ float apply_act(int act, float x) {
+template <int ACT>
+__device__ __forceinline__ float act_fn(float x) {
+  if constexpr (ACT == RELU) return fmaxf(x, 0.0f);
+  else if constexpr (ACT == SIGMOID) return 1.0f / (1.0f + expf(-x));
+  else if constexpr (ACT == TANH) return tanhf(x);
+  else if constexpr (ACT == GELU)
+    return 0.5f * x * (1.0f + tanhf(0.7978845608028654f *
+                                    (x + 0.044715f * x * x * x)));
+  else if constexpr (ACT == SILU) return x * (1.0f / (1.0f + expf(-x)));
+  else if constexpr (ACT == EXP) return expf(x);
+  else if constexpr (ACT == SQUARE) return x * x;
+  else return x;
+}
+
+// Calls f(std::integral_constant<int, ACT>{}) for the run-time code act:
+// a loop inside f then applies one activation with no switch per element.
+template <typename F>
+__device__ __forceinline__ void with_act(int act, F&& f) {
   switch (act) {
-    case RELU: return fmaxf(x, 0.0f);
-    case SIGMOID: return 1.0f / (1.0f + expf(-x));
-    case TANH: return tanhf(x);
-    case GELU:
-      return 0.5f * x * (1.0f + tanhf(0.7978845608028654f *
-                                      (x + 0.044715f * x * x * x)));
-    case SILU: return x * (1.0f / (1.0f + expf(-x)));
-    case EXP: return expf(x);
-    case SQUARE: return x * x;
-    default: return x;
+    case RELU: f(std::integral_constant<int, RELU>{}); break;
+    case SIGMOID: f(std::integral_constant<int, SIGMOID>{}); break;
+    case TANH: f(std::integral_constant<int, TANH>{}); break;
+    case GELU: f(std::integral_constant<int, GELU>{}); break;
+    case SILU: f(std::integral_constant<int, SILU>{}); break;
+    case EXP: f(std::integral_constant<int, EXP>{}); break;
+    case SQUARE: f(std::integral_constant<int, SQUARE>{}); break;
+    default: f(std::integral_constant<int, NONE>{}); break;
   }
+}
+
+__device__ __forceinline__ float apply_act(int act, float x) {
+  float y = x;
+  with_act(act, [&](auto a) { y = act_fn<decltype(a)::value>(x); });
+  return y;
 }
 
 struct Epilogue {
@@ -68,13 +89,21 @@ __device__ __forceinline__ float load_as_float(const void* p, long long i,
                 : __bfloat162float(static_cast<const bf16*>(p)[i]);
 }
 
-// The reference's epilogue order: alpha, beta * c0, bias, activation, cast.
-__device__ __forceinline__ void finish(const Epilogue& e, float acc,
-                                       long long row, int col) {
+// The reference's epilogue order: alpha, beta * c0, bias, activation (ACT,
+// chosen by the caller), then the cast as it is stored.
+template <int ACT>
+__device__ __forceinline__ float epilogue(const Epilogue& e, float acc,
+                                          long long row, int col) {
   acc *= e.alpha;
   if (e.c0) acc += e.beta * load_as_float(e.c0, row * e.ldc0 + col, e.c0_f32);
   if (e.bias) acc += load_as_float(e.bias, col, e.bias_f32);
-  acc = apply_act(e.act, acc);
+  return act_fn<ACT>(acc);
+}
+
+// The epilogue with e.act chosen per element, and the store.
+__device__ __forceinline__ void finish(const Epilogue& e, float acc,
+                                       long long row, int col) {
+  acc = apply_act(e.act, epilogue<NONE>(e, acc, row, col));
   long long o = row * e.ld_out + col;
   if (e.out_f32) static_cast<float*>(e.out)[o] = acc;
   else static_cast<bf16*>(e.out)[o] = __float2bfloat16(acc);

@@ -27,7 +27,9 @@ from repro_torch.kernels.brgemm import (batched_matmul, batched_matmul_cuda,
                                         brgemm_ref, brgemm_stacked_cuda,
                                         matmul, matmul_cuda, matmul_q_cuda,
                                         matmul_q_ref, matmul_ref)
+from repro_torch.kernels.brgemm.kernel import plan_call, reset_matmul_counts
 from repro_torch.kernels.conv2d import conv2d, conv2d_cuda, conv2d_ref
+from repro_torch.kernels.conv2d.ops import patches
 from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
                                                  delta_rowsum_ref,
                                                  flash_attention,
@@ -64,6 +66,91 @@ def test_matmul_kernel(gen, dtype, m, k, n, trans):
         if trans else torch.randn(k, n, device="cuda", generator=gen).to(dtype)
     torch.testing.assert_close(matmul_cuda(x, w), matmul_ref(x, w),
                                **TOL[dtype])
+
+
+def _operands(gen, m, k, n, dtype, xt, wt, pad=0):
+    """x (m, k) and w (k, n), row- or column-major, rows ``pad`` elements
+    longer than they need to be (pad < 0: rounded up to a multiple of
+    8)."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    def rows(inner):
+        return -(-inner // 8) * 8 if pad < 0 else inner + pad
+    x = randn(k, rows(m))[:, :m].T if xt else randn(m, rows(k))[:, :k]
+    w = (randn(n, rows(k), scale=k ** -0.5)[:, :k].T if wt
+         else randn(k, rows(n), scale=k ** -0.5)[:, :n])
+    return x, w
+
+
+# (m, k, n): one tile's worth of k (no split) and a long k (split).
+PLAN_SHAPES = [(304, 576, 576), (96, 4096, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+@pytest.mark.parametrize("xt,wt", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_matmul_layouts_split_and_not(gen, dtype, m, k, n, xt, wt):
+    x, w = _operands(gen, m, k, n, dtype, xt, wt)
+    p = plan_call(x, w)
+    assert p.mainloop == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    assert (p.splits > 1) == (k == 4096)
+    reset_matmul_counts()
+    got = matmul_cuda(x, w)
+    assert matmul_cuda.mainloops[p.mainloop] == 1
+    assert matmul_cuda.split_launches == (p.splits > 1)
+    torch.testing.assert_close(got, matmul_ref(x, w), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+@pytest.mark.parametrize("activation", list(fusion.ACTIVATIONS))
+def test_matmul_epilogues_split_and_not(gen, dtype, m, k, n, activation):
+    i = list(fusion.ACTIVATIONS).index(activation)
+    x, w = _operands(gen, m, k, n, dtype, i % 2, i // 2 % 2)
+    bias = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    c0 = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+    for out_dtype in (None, torch.float32):
+        kw = dict(activation=activation, alpha=0.5, beta=0.75,
+                  out_dtype=out_dtype)
+        torch.testing.assert_close(
+            matmul_cuda(x, w, bias, c0, **kw),
+            matmul_ref(x, w, bias, c0=c0, **kw),
+            **TOL[out_dtype or dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,xt,wt,pad,mainloop", [
+    (77, 100, 133, 0, 0, -1, "wgmma"),     # ragged, rows padded to 8
+    (77, 100, 133, 1, 1, 3, "wmma"),       # rows 80 and 103 apart
+    (96, 4096, 200, 1, 0, 3, "wmma"),      # the same, split
+])
+def test_matmul_ragged_and_unaligned(gen, dtype, m, k, n, xt, wt, pad,
+                                     mainloop):
+    x, w = _operands(gen, m, k, n, dtype, xt, wt, pad)
+    assert plan_call(x, w).mainloop == (
+        mainloop if dtype == torch.bfloat16 else "simt")
+    torch.testing.assert_close(matmul_cuda(x, w), matmul_ref(x, w),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_stem_weight_gradient_against_float64(gen, dtype):
+    """ResNet-50's stem wgrad at N = 32: k = 401,408 into a (147, 64)
+    fp32 output, the window operand read transposed through its padded
+    rows; against float64 within the fp32 summation bound (1e-4 of the
+    largest |output| + 4 sqrt(k) 2^-24 (|A| |B|), as chip_smoke.py)."""
+    x = torch.randn(32, 224, 224, 3, device="cuda", generator=gen).to(dtype)
+    cols = patches(x, 7, 7, 2, 3)
+    g = (torch.randn(cols.size(0), 64, device="cuda", generator=gen)
+         * 1e-2).to(dtype)
+    assert plan_call(cols.T, g).splits > 1
+    got = matmul_cuda(cols.T, g, out_dtype=torch.float32).double()
+    truth = cols.T.double() @ g.double()
+    bound = (1e-4 * truth.abs().max() + 4 * cols.size(0) ** 0.5 * 2.0 ** -24
+             * (cols.T.double().abs() @ g.double().abs()))
+    assert bool(((got - truth).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("activation", list(fusion.ACTIVATIONS))
@@ -568,7 +655,8 @@ def test_engine_quant_tiers_match_plain_greedy(gen, tier):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_row_with_no_valid_key(gen, dtype):
     """Non-causal, windowed, Tq > Tk: rows past Tk + window - 1 see no key
-    and give the mean of V, as mha_ref does, with lse NEG_INF."""
+    and give the mean of V, as mha_ref does, with lse NEG_INF; the
+    backward gives what autograd of mha_ref gives there."""
     q = torch.randn(2, 4, 150, 64, device="cuda", generator=gen).to(dtype)
     k, v = (torch.randn(2, 2, 70, 64, device="cuda", generator=gen
                         ).to(dtype) for _ in range(2))
@@ -580,3 +668,13 @@ def test_flash_row_with_no_valid_key(gen, dtype):
                                                          rtol=2e-2)
     torch.testing.assert_close(o, ro, **tol)
     torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    # The backward: every key's dV takes those rows' dO / Tk, dQ and dK
+    # nothing from them, as autograd of mha_ref gives.
+    dy = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, dy, causal=False,
+                                   window=20)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, dy, causal=False,
+                                   window=20)
+    for name, g, gw in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - gw.float()).abs().max().item()
+        assert err <= GRAD_BAND[dtype] * gw.float().abs().max().item(), name

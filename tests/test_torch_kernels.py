@@ -134,8 +134,9 @@ def test_matmul_leading_dims_and_strided_weight():
 
 
 def test_activation_codes_match_cuda_enum():
+    # The kernels' one enum, which matmul.cu and the tile GEMMs include.
     src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-           / "kernels" / "brgemm" / "csrc" / "matmul.cu").read_text()
+           / "kernels" / "include" / "repro_tile.cuh").read_text()
     enum = re.search(r"enum Act \{([^}]*)\}", src).group(1)
     names = [e.split("=")[0].strip().lower() for e in enum.split(",")]
     assert names[:len(fusion.CODES)] == list(fusion.CODES)
@@ -293,3 +294,39 @@ def test_delta_rowsum_ref_matches_pallas_interpret():
     assert got.shape == (2, 3, 20) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2)])
+def test_flash_bwd_ref_row_with_no_valid_key_matches_reference_grad(hq,
+                                                                    hkv):
+    """Non-causal, windowed, Tq > Tk: rows q_pos >= Tk + window - 1 see no
+    key.  Their output is the mean of V, so every key's dV takes the row's
+    dO / Tk and dQ, dK nothing: the plain gradient (autograd of the port's
+    mha_ref, which the card's backward kernel is held to) against
+    ``jax.vjp`` of the reference's mha_ref."""
+    kw = dict(causal=False, window=3)
+    q, k, v = randn(1, hq, 12, 16), randn(1, hkv, 5, 16), \
+        randn(1, hkv, 5, 16)
+    dy = randn(1, hq, 12, 16)
+    _, vjp = jax.vjp(lambda a, b, c: jmha_ref(a, b, c, **kw),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(dy))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    _, lse = mha_ref(tq, tk, tv, return_lse=True, **kw)
+    assert (lse[..., 7:] == -1e30).all() and (lse[..., :7] > -1e29).all()
+    got = flash_attention_bwd_ref(tq, tk, tv, None, lse,
+                                  torch.from_numpy(dy), **kw)
+    for name, g, gw in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(gw), err_msg=name,
+                                   **GRAD)
+    # The empty rows reach dV only, each key by the row's dO / Tk.
+    e = np.zeros_like(dy)
+    e[..., 7:, :] = dy[..., 7:, :]
+    _, vjp_e = jax.vjp(lambda a, b, c: jmha_ref(a, b, c, **kw),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    dq_e, dk_e, dv_e = vjp_e(jnp.asarray(e))
+    assert np.abs(np.asarray(dq_e)).max() == 0
+    assert np.abs(np.asarray(dk_e)).max() == 0
+    per_key = e.reshape(1, hkv, hq // hkv, 12, 16).sum((2, 3)) / 5
+    np.testing.assert_allclose(np.asarray(dv_e), np.broadcast_to(
+        per_key[:, :, None], dv_e.shape), **GRAD)

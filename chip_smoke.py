@@ -13,23 +13,28 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   3. parity  — each kernel against its plain PyTorch version on the card, at
                the main paths' shapes: smollm-135m's (B = 8 prompts of 512
                tokens; training's backward GEMMs, X or W read transposed in
-               place; the flash backward and its fused delta; a flash row
-               with no valid key, forward and backward); matmul's plans
+               place; the flash forward causal, windowed and not, d = 32,
+               64 and 128, Tq != Tk, and on views TMA cannot read; the flash
+               backward and its fused delta; a flash row with no valid key,
+               forward and backward); matmul's plans
                (each layout of X and W, split and not, every epilogue,
                ragged shapes, row strides TMA cannot read) and ResNet-50's
                stem weight gradient against float64; the direct
                convolution forward and its
                dgrad dual at ResNet-50's layer shapes (N = 32); the stacked
                brgemm at the paper's cases and the batched GEMM broadcast and
-               transposed as brgemm's backward reads it; in fp32 and bf16,
+               transposed as brgemm's backward reads it, ragged in m, n and
+               k, with each epilogue, and on strides TMA cannot read (the
+               wmma tile); in fp32 and bf16,
                within stated bands; the quantized GEMMs (int8, e4m3, e5m2;
                bf16 and fp32 out) at the quantized serving path's shapes and
                the paper's cases.
   4. serve   — full-width smollm-135m (random weights from a seed)
                ``Engine.generate``: 8 prompts x 512 tokens, 64 greedy
                tokens, bf16.  Once on the kernels (counting launches, and
-               matmul's calls by mainloop: bf16 on wgmma only, fp32 on
-               simt, in this phase, train and resnet) and
+               matmul's and the flash forward's calls by mainloop: bf16 on
+               wgmma only, fp32 on simt, in this phase, train, resnet and
+               quant; batched_matmul's alike in brgemm) and
                once with ``use(backend="torch")``; prefill logits compared;
                then the same in fp32, where the greedy tokens must match.
                Prefill and decode-step times of the kernel path, the
@@ -396,11 +401,33 @@ def close(got, ref, atol, rtol):
                                    ).max().item()
 
 
-def qkv_views(b, hq, hkv, t, d, dtype, gen):
+def qkv_views(b, hq, hkv, t, d, dtype, gen, tk=None):
     """(B, T, H, d) activations viewed as (B, H, T, d), as the attention
-    layer's head split hands them over (q, k, v, and a dY of q's shape)."""
-    return tuple(torch.randn(b, t, h, d, device="cuda", generator=gen)
-                 .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv, hq))
+    layer's head split hands them over (q, k, v, and a dY of q's shape);
+    k and v ``tk`` long where given."""
+    return tuple(torch.randn(b, n, h, d, device="cuda", generator=gen)
+                 .to(dtype).transpose(1, 2)
+                 for h, n in ((hq, t), (hkv, tk or t), (hkv, tk or t),
+                              (hq, t)))
+
+
+def batched_entries(nb, r, c, col_major, dtype, gen, scale=1.0):
+    """(nb, r, c) entries (a 2-D (r, c) matrix for nb = 0), row- or
+    column-major, each memory row padded to a multiple of 8 elements, as
+    TMA reads them."""
+    inner, outer = (r, c) if col_major else (c, r)
+    lead = (nb,) if nb else ()
+    buf = (torch.randn(*lead, outer, -(-inner // 8) * 8, device="cuda",
+                       generator=gen) * scale).to(dtype)[..., :inner]
+    return buf.transpose(-1, -2) if col_major else buf
+
+
+def overlapping_rows(b, h, t, d, dtype, gen):
+    """A (B, H, T, d) view whose rows overlap (8 elements apart): legal for
+    the first flash kernel, not for TMA (plan: wmma in bf16)."""
+    buf = torch.randn(b * h * (8 * t + d), device="cuda",
+                      generator=gen).to(dtype)
+    return buf.as_strided((b, h, t, d), (h * (8 * t + d), 8 * t + d, 8, 1))
 
 
 def plan_cases(dtype, gen):
@@ -473,6 +500,7 @@ def phase_parity(cfg):
     from repro_torch.kernels.flash_attention import (
         delta_rowsum_cuda, delta_rowsum_ref, flash_attention_bwd_cuda,
         flash_attention_bwd_ref, flash_attention_cuda, mha_ref)
+    from repro_torch.kernels.flash_attention import kernel as FK
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"matmul": 0.0, "flash_attention": 0.0,
              "flash_attention_bwd": 0.0, "delta_rowsum": 0.0}
@@ -542,20 +570,50 @@ def phase_parity(cfg):
             failed.append(f"matmul:stem wgrad:{dtype}")
 
         ftol = TOL[("flash_attention", dtype)]
-        for case, (b, hq, hkv, t, d) in (
-                ("prefill", (BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT,
-                             cfg.dh)),
-                ("ragged T500", (BATCH, cfg.n_heads, cfg.n_kv_heads, 500,
-                                 cfg.dh)),
-                ("d32", (2, 4, 2, 256, 32))):
-            q, k, v, _ = qkv_views(b, hq, hkv, t, d, dtype, gen)
-            o, lse = flash_attention_cuda(q, k, v, causal=True,
+        h, hkv_, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+        for case, (b, hq, hkv, t, tk, d), causal, window in (
+                ("prefill", (BATCH, h, hkv_, PROMPT, None, dh), True, None),
+                ("ragged T500", (BATCH, h, hkv_, 500, None, dh), True, None),
+                ("d32", (2, 4, 2, 256, None, 32), True, None),
+                ("d128 window 100", (2, 4, 1, 300, None, 128), True, 100),
+                ("non-causal group 4", (2, 8, 2, 200, None, 64), False,
+                 None),
+                ("non-causal Tq < Tk d32", (2, 4, 2, 70, 150, 32), False,
+                 None),
+                ("window 33 Tq < Tk d128", (2, 2, 2, 200, 260, 128), False,
+                 33),
+                ("Tq 40 group 1", (2, 3, 3, 40, None, 64), True, None)):
+            q, k, v, _ = qkv_views(b, hq, hkv, t, d, dtype, gen, tk)
+            planned = FK.plan_call(q, k, v)
+            if planned != ("wgmma" if dtype == torch.bfloat16 else "simt"):
+                failed.append(f"flash_attention:{case}: planned {planned}")
+            o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window,
                                           return_residuals=True)
-            ro, rl = mha_ref(q, k, v, causal=True, return_lse=True)
-            shape = f"q{tuple(q.shape)} kv{tuple(k.shape)} causal"
+            ro, rl = mha_ref(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+            shape = (f"q{tuple(q.shape)} kv{tuple(k.shape)} "
+                     f"{'causal' if causal else 'non-causal'} {planned}")
             record("flash_attention", f"{case} {shape}", dtype, o, ro, ftol)
             record("flash_attention", f"{case} lse", dtype, lse, rl,
                    TOL[("lse", None)])
+            record("flash_attention", f"{case} without lse", dtype,
+                   flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window), o, (0.0, 0.0))
+        # Rows 8 elements apart: TMA cannot read them; bf16 runs the wmma
+        # kernel.
+        q, k, v = (overlapping_rows(2, hh, 96, 64, dtype, gen)
+                   for hh in (4, 2, 2))
+        planned = FK.plan_call(q, k, v)
+        if planned != ("wmma" if dtype == torch.bfloat16 else "simt"):
+            failed.append(f"flash_attention:overlapping rows: planned "
+                          f"{planned}")
+        o, lse = flash_attention_cuda(q, k, v, return_residuals=True)
+        ro, rl = mha_ref(q, k, v, return_lse=True)
+        record("flash_attention", f"overlapping rows q(2, 4, 96, 64) "
+               f"{planned}", dtype, o, ro, ftol)
+        record("flash_attention", "overlapping rows lse", dtype, lse, rl,
+               TOL[("lse", None)])
 
         # A row with no valid key (non-causal, windowed, Tq > Tk: rows at
         # q_pos >= Tk + window - 1 = 89): the mean of V, lse NEG_INF.
@@ -711,6 +769,7 @@ def phase_parity_paper(cfg):
     from repro_torch.kernels.brgemm import (batched_matmul_cuda,
                                             batched_matmul_ref, brgemm_ref,
                                             brgemm_stacked_cuda)
+    from repro_torch.kernels.brgemm.kernel import plan_batched_call
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = {"conv2d": 0.0, "brgemm_stacked": 0.0, "batched_matmul": 0.0}
@@ -765,22 +824,55 @@ def phase_parity_paper(cfg):
         record("brgemm_stacked", f"B{nb} m{m} k{k} n{n} bias c0 gelu", dtype,
                brgemm_stacked_cuda(a, b, bias, c0, **kw),
                brgemm_ref(a, b, bias, c0=c0, **kw))
+        del a, b
         # batched: no broadcast; then the backward's two products, g
-        # broadcast and B^T / A^T read in place as transposed views.
-        g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
-        for case, lhs, rhs in (
-                ("A_i @ B_i", a, b),
-                ("g @ B_i^T (A broadcast)", g, b.transpose(1, 2)),
-                ("A_i^T @ g (B broadcast)", a.transpose(1, 2), g)):
-            record("batched_matmul", f"{case} B{nb} m{m} k{k} n{n}", dtype,
-                   batched_matmul_cuda(lhs, rhs),
-                   batched_matmul_ref(lhs, rhs))
-        record("batched_matmul", "bias relu alpha 2", dtype,
-               batched_matmul_cuda(a[:, :300], b, bias, activation="relu",
-                                   alpha=2.0),
-               batched_matmul_ref(a[:, :300], b, bias, activation="relu",
-                                  alpha=2.0))
-        del a, b, g
+        # broadcast and B^T / A^T read in place as transposed views; B
+        # broadcast; both operands column-major.  At the paper's cases, and
+        # ragged in m, n and k with rows padded to 8 elements (k = 100: TMA's
+        # zero fill ends each entry's k), on wgmma in bf16; then rows 36
+        # apart, which TMA cannot read (wmma).
+        for nb, m, k, n in BRGEMM_CASES + [(5, 70, 100, 130)]:
+            a = batched_entries(nb, m, k, False, dtype, gen)
+            b = batched_entries(nb, k, n, False, dtype, gen, k ** -0.5)
+            g = batched_entries(0, m, n, False, dtype, gen)
+            for case, lhs, rhs in (
+                    ("A_i @ B_i", a, b),
+                    ("g @ B_i^T (A broadcast)", g, b.transpose(1, 2)),
+                    ("A_i^T @ g (B broadcast)", a.transpose(1, 2), g),
+                    ("A_i @ B_0 (B broadcast)", a, b[0]),
+                    ("A_i @ B_i both column-major",
+                     batched_entries(nb, m, k, True, dtype, gen),
+                     batched_entries(nb, k, n, True, dtype, gen,
+                                     k ** -0.5))):
+                p = plan_batched_call(lhs, rhs)
+                if p.mainloop != ("wgmma" if dtype == torch.bfloat16
+                                  else "simt"):
+                    failed.append(f"batched_matmul:{case}: planned "
+                                  f"{p.mainloop}")
+                record("batched_matmul", f"{case} B{nb} m{m} k{k} n{n} "
+                       f"{p.mainloop}", dtype,
+                       batched_matmul_cuda(lhs, rhs),
+                       batched_matmul_ref(lhs, rhs))
+            bias = torch.randn(n, device="cuda", generator=gen).to(dtype)
+            for i, act in enumerate(("relu", "gelu", "silu", "tanh")):
+                kw = dict(activation=act, alpha=2.0,
+                          out_dtype=torch.float32 if i % 2 else None)
+                record("batched_matmul", f"bias {act} alpha 2 out "
+                       f"{kw['out_dtype'] or dtype} B{nb} m{m} k{k} n{n}",
+                       dtype, batched_matmul_cuda(a, b, bias, **kw),
+                       batched_matmul_ref(a, b, bias, **kw))
+            del a, b, g
+        a = torch.randn(3, 77, 36, device="cuda", generator=gen).to(dtype)
+        b = (torch.randn(3, 36, 200, device="cuda", generator=gen)
+             / 6).to(dtype)
+        p = plan_batched_call(a, b)
+        if p.mainloop != ("wmma" if dtype == torch.bfloat16 else "simt"):
+            failed.append(f"batched_matmul:rows 36 apart: planned "
+                          f"{p.mainloop}")
+        record("batched_matmul", f"A_i @ B_i B3 m77 k36 n200, rows 36 "
+               f"apart {p.mainloop}", dtype, batched_matmul_cuda(a, b),
+               batched_matmul_ref(a, b))
+        del a, b
     torch.cuda.synchronize()
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -909,25 +1001,39 @@ def prefill_logits(cfg, params, tokens, backend):
     return logits
 
 
-def mainloop_check(dtype, n_launches):
-    """matmul_cuda's calls by mainloop since its counters were zeroed: a
-    main path's bf16 GEMMs run on wgmma only, its fp32 GEMMs on simt.
-    Returns the record's fields; raises where another mainloop ran."""
-    from repro_torch.kernels.brgemm import matmul_cuda
+def counted_mainloops(fn, name, dtype, n_launches):
+    """``fn``'s calls by mainloop since its counters were zeroed: a main
+    path's bf16 calls run on wgmma only, its fp32 calls on simt.  Returns
+    the record's field; raises where another mainloop ran."""
     only = "wgmma" if dtype == torch.bfloat16 else "simt"
-    counts = dict(matmul_cuda.mainloops)
+    counts = dict(fn.mainloops)
     if counts[only] != n_launches or sum(counts.values()) != n_launches:
-        raise AssertionError(f"{dtype} GEMMs off the {only} mainloop: "
-                             f"{counts} of {n_launches}")
-    return {"matmul_mainloops": counts,
+        raise AssertionError(f"{dtype} {name} calls off the {only} "
+                             f"mainloop: {counts} of {n_launches}")
+    return {f"{name}_mainloops": counts}
+
+
+def mainloop_check(dtype, n_launches):
+    """matmul_cuda's calls by mainloop (counted_mainloops), and its split
+    launches."""
+    from repro_torch.kernels.brgemm import matmul_cuda
+    return {**counted_mainloops(matmul_cuda, "matmul", dtype, n_launches),
             "matmul_split_launches": matmul_cuda.split_launches}
+
+
+def flash_mainloop_check(dtype, n_launches):
+    """The flash forward's calls by mainloop (counted_mainloops)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    return counted_mainloops(flash_attention_cuda, "flash_attention", dtype,
+                             n_launches)
 
 
 def phase_serve(base_cfg):
     from repro_torch.core import dispatch
     from repro_torch.kernels.brgemm import matmul_cuda
     from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_flash_counts)
     main_launches = None
     for dtype in (torch.bfloat16, torch.float32):
         cfg, params, engine = make_engine(base_cfg, dtype)
@@ -937,7 +1043,7 @@ def phase_serve(base_cfg):
         torch.cuda.synchronize()
         # The main path: counts zeroed just before, read just after.
         reset_matmul_counts()
-        flash_attention_cuda.launches = 0
+        reset_flash_counts()
         t0 = time.perf_counter()
         ids = engine.generate({"tokens": tokens}, n_tokens=NEW_TOKENS,
                               stop_tokens=())
@@ -950,7 +1056,9 @@ def phase_serve(base_cfg):
                   "flash_attention": cfg.n_layers}
         if launches != expect:
             raise AssertionError(f"launch counts {launches} != {expect}")
-        by_mainloop = mainloop_check(dtype, launches["matmul"])
+        by_mainloop = {**mainloop_check(dtype, launches["matmul"]),
+                       **flash_mainloop_check(dtype,
+                                              launches["flash_attention"])}
         with dispatch.use(backend="torch"):
             ids_plain = engine.generate({"tokens": tokens},
                                         n_tokens=NEW_TOKENS, stop_tokens=())
@@ -1103,7 +1211,7 @@ def phase_train(base_cfg):
     from repro_torch.kernels.brgemm import matmul_cuda
     from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
+        flash_attention_bwd_cuda, flash_attention_cuda, reset_flash_counts)
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
     counters = {"matmul": matmul_cuda, "flash_attention": flash_attention_cuda,
@@ -1130,6 +1238,7 @@ def phase_train(base_cfg):
         for c in counters.values():
             c.launches = 0
         reset_matmul_counts()
+        reset_flash_counts()
         losses, step_s = [], []
         for batch in batches:
             t0 = time.perf_counter()
@@ -1144,7 +1253,9 @@ def phase_train(base_cfg):
         if launches != expect:
             raise AssertionError(f"train launch counts {launches} != "
                                  f"{expect}")
-        by_mainloop = mainloop_check(dtype, launches["matmul"])
+        by_mainloop = {**mainloop_check(dtype, launches["matmul"]),
+                       **flash_mainloop_check(dtype,
+                                              launches["flash_attention"])}
 
         plain_step = ts.make_train_step(cfg, ocfg)
         torch.cuda.reset_peak_memory_stats()
@@ -1511,6 +1622,7 @@ def phase_brgemm():
     from repro_torch.core.brgemm import batched_matmul, brgemm
     from repro_torch.kernels.brgemm import (batched_matmul_cuda,
                                             brgemm_stacked_cuda)
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     counters = {"brgemm_stacked": brgemm_stacked_cuda,
                 "batched_matmul": batched_matmul_cuda}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -1538,6 +1650,7 @@ def phase_brgemm():
         # The main path: counts zeroed just before, read just after.
         for c in counters.values():
             c.launches = 0
+        reset_matmul_counts()
         got = run(None)
         launches = {k: c.launches for k, c in counters.items()}
         expect = {"brgemm_stacked": len(cases),
@@ -1545,6 +1658,9 @@ def phase_brgemm():
         if launches != expect:
             raise AssertionError(f"brgemm launch counts {launches} != "
                                  f"{expect}")
+        by_mainloop = counted_mainloops(batched_matmul_cuda,
+                                        "batched_matmul", dtype,
+                                        launches["batched_matmul"])
         want = run("torch")
         if {k: c.launches for k, c in counters.items()} != expect:
             raise AssertionError("the plain brgemm run launched a kernel")
@@ -1557,7 +1673,7 @@ def phase_brgemm():
         worst = max(errs.items(), key=lambda kv: kv[1])
         emit({"phase": "brgemm", "dtype": str(dtype).replace("torch.", ""),
               "cases": BRGEMM_CASES, "launches": launches,
-              "expected_launches": expect,
+              "expected_launches": expect, **by_mainloop,
               "max_err_of_largest": worst[1], "worst": worst[0],
               "band": GRAD_BAND[dtype]})
         if worst[1] > GRAD_BAND[dtype]:
@@ -1623,7 +1739,8 @@ def phase_quant(base_cfg):
     from repro_torch import quant
     from repro_torch.core import dispatch
     from repro_torch.kernels.brgemm import matmul_cuda, matmul_q_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_flash_counts)
     from repro_torch.models import api
     from repro_torch.serve import Engine, ServeConfig
     counters = {"matmul": matmul_cuda, "matmul_q": matmul_q_cuda,
@@ -1648,6 +1765,7 @@ def phase_quant(base_cfg):
         # The main path: counts zeroed just before, read just after.
         for c in counters.values():
             c.launches = 0
+        reset_flash_counts()
         t0 = time.perf_counter()
         ids = engine.generate({"tokens": tokens}, n_tokens=NEW_TOKENS,
                               stop_tokens=())
@@ -1658,6 +1776,8 @@ def phase_quant(base_cfg):
         if launches != expect:
             raise AssertionError(f"quant {tier} launch counts {launches} != "
                                  f"{expect}")
+        by_mainloop = flash_mainloop_check(dtype,
+                                           launches["flash_attention"])
         with dispatch.use(backend="torch"):
             ids_plain = engine.generate({"tokens": tokens},
                                         n_tokens=NEW_TOKENS, stop_tokens=())
@@ -1704,6 +1824,7 @@ def phase_quant(base_cfg):
         emit({"phase": "quant", "tier": tier, "dtype": cfg.dtype,
               "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
               "launches": launches, "expected_launches": expect,
+              **by_mainloop,
               "generate_s": seconds,
               "tokens_per_s": BATCH * NEW_TOKENS / seconds,
               "prefill_logits_max_abs_err": err,
@@ -1929,6 +2050,7 @@ def phase_times(cfg, card):
     from repro_torch.kernels.flash_attention import (
         delta_rowsum_cuda, delta_rowsum_ref, flash_attention_bwd_cuda,
         flash_attention_bwd_ref, flash_attention_cuda, mha_ref)
+    from repro_torch.kernels.flash_attention import kernel as FK
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     dtype, rows = torch.bfloat16, []
 
@@ -1973,7 +2095,8 @@ def phase_times(cfg, card):
         nbytes, plain, lib, {"serve": cfg.n_layers,
                              "train": cfg.n_layers * TRAIN_STEPS,
                              "quant": len(QUANT_TIERS) * cfg.n_layers},
-        q=[b, hq, t, d], kv=[b, hkv, t, d])
+        q=[b, hq, t, d], kv=[b, hkv, t, d],
+        mainloop=FK.plan_call(*sets[0][:3]))
 
     # The backward at the train shape: q, k, v, o, dO, lse in; dq, dk, dv
     # out; five products over the causal pairs.
@@ -2033,6 +2156,7 @@ def phase_times_paper(card):
                                             batched_matmul_ref, brgemm_ref,
                                             brgemm_stacked_cuda, matmul_cuda,
                                             matmul_ref)
+    from repro_torch.kernels.brgemm.kernel import plan_batched_call
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
     from repro_torch.kernels.conv2d.ops import patches
     from repro_torch.models.resnet import ResNetCfg
@@ -2145,9 +2269,10 @@ def phase_times_paper(card):
             ms, wall = time_ms(batched_matmul_cuda, sets)
             plain, _ = time_ms(batched_matmul_ref, sets)
             lib, _ = time_ms(torch.matmul, sets)
+            p = plan_batched_call(*sets[0])
             row("batched_matmul", f"{name} {case}", ms, wall, flops,
                 gemm_bytes(*mats), plain, lib, {"brgemm": 1}, batch=nb,
-                m=m, k=k, n=n)
+                m=m, k=k, n=n, mainloop=p.mainloop, bm=p.bm)
         del bsets
     return rows
 

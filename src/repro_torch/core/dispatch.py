@@ -3,12 +3,18 @@
 Backends:
   * ``"torch"`` — the plain PyTorch version.  It runs anywhere; it is the CPU
     path, and on the card it is the version a kernel is held against.
-  * ``"cuda"``  — the hand-written Hopper kernel.  CUDA tensors only.
+  * ``"cuda"``  — the hand-written Hopper kernel.  CUDA tensors on a card of
+    compute capability 9.0 only (the kernels are built for ``sm_90a``).
 
-Precedence, highest first: the explicit ``backend=`` argument of a call, the
-innermost active ``use(backend=...)`` context, then the device of the tensor
-the op was given (a CUDA tensor resolves to ``"cuda"``, a CPU tensor to
-``"torch"``).  Nothing falls back: a backend that cannot run the call raises.
+Precedence, highest first, as in the reference's ``repro/core/dispatch.py``:
+the explicit ``backend=`` argument of a call, the innermost active
+``use(backend=...)`` context, the ``REPRO_TORCH_BACKEND`` environment
+variable (``torch`` or ``cuda``; any other value raises), then the hardware
+default: ``"cuda"`` for a tensor on a card of compute capability (9, 0),
+``"torch"`` for every other tensor (the CPU, other cards).  The reference's
+own ``REPRO_BACKEND`` names its backends (``pallas``, ``xla``) and is not
+read here: the tests import both packages in one process.  Nothing falls
+back: a backend that any tier names and that cannot run the call raises.
 
 ``use(quant=...)`` switches the GEMM family to quantized execution (a
 ``QuantConfig``, dict, or shorthand such as ``"int8"`` / ``"fp8"``; see
@@ -20,6 +26,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
+import os
 from typing import Callable
 
 import torch
@@ -27,6 +35,8 @@ import torch
 from repro_torch.core.quantize import QuantConfig, as_quant_config
 
 BACKENDS = ("torch", "cuda")
+ENV_VAR = "REPRO_TORCH_BACKEND"
+HOPPER = (9, 0)        # the compute capability the kernels are built for
 
 _REGISTRY: dict[str, dict[str, Callable]] = {}
 _BACKEND: contextvars.ContextVar[str | None] = contextvars.ContextVar(
@@ -77,18 +87,43 @@ def resolve_quant(quant=None) -> QuantConfig | None:
     return _QUANT.get()
 
 
+@functools.lru_cache(maxsize=None)
+def _is_hopper(index: int) -> bool:
+    """Whether card ``index`` runs the kernels; asked once a card (a
+    dispatch is on every op's path).  ``_is_hopper.cache_clear()`` forgets
+    the answers."""
+    return tuple(torch.cuda.get_device_capability(index)) == HOPPER
+
+
+def _env_backend() -> str | None:
+    name = os.environ.get(ENV_VAR) or None
+    if name is not None and name not in BACKENDS:
+        raise ValueError(f"{ENV_VAR}={name!r} names no backend; known: "
+                         f"{BACKENDS}")
+    return name
+
+
 def resolve(op: str, backend: str | None, tensor: torch.Tensor) -> str:
-    """The backend ``op`` runs on for a call on ``tensor``."""
+    """The backend ``op`` runs on for a call on ``tensor``: the argument,
+    else the innermost context, else ``REPRO_TORCH_BACKEND``, else the
+    hardware default.  Raises where the chosen backend cannot run it."""
     if op not in _REGISTRY:
         raise KeyError(f"unknown op {op!r}; known: {sorted(_REGISTRY)}")
-    name = backend or _BACKEND.get()
+    name = backend or _BACKEND.get() or _env_backend()
     if name is None:
-        name = "cuda" if tensor.is_cuda else "torch"
+        name = ("cuda" if tensor.is_cuda and _is_hopper(tensor.device.index)
+                else "torch")
     _check_backend(name)
-    if name == "cuda" and not tensor.is_cuda:
-        raise ValueError(
-            f"backend 'cuda' for {op!r} needs CUDA tensors, got a tensor on "
-            f"{tensor.device}")
+    if name == "cuda":
+        if not tensor.is_cuda:
+            raise ValueError(
+                f"backend 'cuda' for {op!r} needs CUDA tensors, got a tensor "
+                f"on {tensor.device}")
+        if not _is_hopper(tensor.device.index):
+            raise ValueError(
+                f"backend 'cuda' for {op!r} needs a card of compute "
+                f"capability {HOPPER}, got {tensor.device}: the kernels are "
+                f"built for sm_90a")
     if name not in _REGISTRY[op]:
         raise KeyError(f"op {op!r} has no {name!r} backend")
     return name

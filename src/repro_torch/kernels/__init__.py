@@ -21,8 +21,11 @@ Kernel families (one directory each, sources under ``csrc/``):
                               kernel; their wrappers live in
                               ``brgemm/quant_kernel.py``.
 
-``include/`` holds the tile GEMM that ``conv2d``, ``brgemm_batched`` and
-``brgemm_quant`` share.
+``include/`` holds what several families share: the tile GEMM of
+``conv2d``, ``brgemm_batched`` and ``brgemm_quant`` (``repro_tile.cuh``),
+Hopper's mbarrier, TMA and wgmma wrappers (``repro_sm90.cuh``), and the
+wgmma + TMA GEMM mainloop and epilogue that ``matmul`` and
+``batched_matmul`` share (``repro_gemm_sm90.cuh``).
 
 They build at first use (``_build.py``); importing this package builds
 nothing, so it imports on a machine without a card.

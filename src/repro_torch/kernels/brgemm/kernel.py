@@ -11,9 +11,11 @@ stream; the libraries are built at first use (``kernels/_build.py``).
 for bf16 operands that TMA can describe, ``wmma`` for other bf16 operands,
 ``simt`` for fp32), its tile, and how many runs of k (``splits``) the
 reduction is cut into so that few output tiles still fill the card.
-``matmul_cuda.mainloops`` counts its calls by mainloop and
-``matmul_cuda.split_launches`` the calls that also launched the split-K
-reduction.
+``plan_batched`` decides ``batched_matmul_cuda``'s mainloop and tile the
+same way (one run of k: the batch fills the card).
+``matmul_cuda.mainloops`` and ``batched_matmul_cuda.mainloops`` count the
+calls by mainloop, ``matmul_cuda.split_launches`` the calls that also
+launched the split-K reduction; ``reset_matmul_counts`` zeroes them.
 """
 from __future__ import annotations
 
@@ -96,7 +98,7 @@ def _batched_lib():
     lib.repro_brgemm_stacked.argtypes = operands + [
         _P, _P, _LL, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P]
     lib.repro_batched_matmul.argtypes = operands + [
-        _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]
+        _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P]
     for fn in (lib.repro_brgemm_stacked, lib.repro_batched_matmul):
         fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -133,6 +135,15 @@ def _operand(t: torch.Tensor, name: str) -> tuple[int, int, bool, bool]:
     trans, ld = _layout(t, name)
     vec = t.dtype == torch.bfloat16 and _aligned(t, ld)
     return trans, ld, vec, vec and ld >= t.size(trans ^ 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_batched(m: int, n: int, k: int, is_bf16: bool, tma: bool) -> Plan:
+    """How ``batched_matmul_cuda`` runs a (B, m, k) @ (B, k, n) product:
+    ``plan``'s mainloop and tile for one entry, and one run of k (the
+    entries fill the card; no split).  ``tiles``: output tiles an entry."""
+    p = plan(m, n, k, is_bf16, tma)
+    return dataclasses.replace(p, splits=1, chunk=max(1, -(-k // p.bk)))
 
 
 def plan_call(x: torch.Tensor, w: torch.Tensor) -> Plan:
@@ -220,14 +231,11 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
 
 
 def reset_matmul_counts(fn=None):
-    """Zero ``matmul_cuda``'s counters (or those of a stand-in ``fn``
-    bound to its name)."""
-    fn = fn or matmul_cuda
-    fn.launches = fn.split_launches = 0
-    fn.mainloops = dict.fromkeys(MAINLOOPS, 0)
-
-
-reset_matmul_counts()
+    """Zero the counters of ``matmul_cuda`` and ``batched_matmul_cuda`` (or
+    those of a stand-in ``fn`` bound to matmul's name, alone)."""
+    for f in (fn,) if fn is not None else (matmul_cuda, batched_matmul_cuda):
+        f.launches = f.split_launches = 0
+        f.mainloops = dict.fromkeys(MAINLOOPS, 0)
 
 
 def _batched_operand(t: torch.Tensor, name: str) -> list:
@@ -239,6 +247,26 @@ def _batched_operand(t: torch.Tensor, name: str) -> list:
     vec = (t.dtype == torch.bfloat16 and _aligned(t, ld)
            and bstride % 8 == 0)
     return [t.data_ptr(), bstride, ld, trans, int(vec)]
+
+
+def _batched_tma(t: torch.Tensor, operand: list) -> bool:
+    """TMA can describe a batched operand: matmul's rule for one entry
+    (``_operand``), and entries that lie apart: a batch stride that is a
+    multiple of 8 elements and covers an entry (0 for one entry or a
+    broadcast: a 2-D map)."""
+    _, bstride, ld, trans, vec = operand
+    mat = t[0] if t.dim() == 3 else t
+    return bool(vec) and ld >= mat.size(trans ^ 1) and (
+        bstride == 0 or bstride >= mat.size(trans) * ld)
+
+
+def plan_batched_call(a: torch.Tensor, b: torch.Tensor) -> Plan:
+    """The plan of ``batched_matmul_cuda(a, b)``, from the operands' shapes,
+    type, layouts and alignment (the kernel itself is not touched)."""
+    oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
+    return plan_batched(a.size(-2), b.size(-1), a.size(-1),
+                        a.dtype == torch.bfloat16,
+                        _batched_tma(a, oa) and _batched_tma(b, ob))
 
 
 def _flags(a, out_dtype, *epilogue):
@@ -310,17 +338,20 @@ def batched_matmul_cuda(a, b, bias=None, *, activation: str = "none",
     out = torch.empty((nb, m, n), dtype=out_dtype, device=a.device)
     if nb == 0 or m == 0 or n == 0:
         return out
+    oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
+    p = plan_batched(m, n, k, a.dtype == torch.bfloat16,
+                     _batched_tma(a, oa) and _batched_tma(b, ob))
     lib = _batched_lib()
     rc = lib.repro_batched_matmul(
-        *_batched_operand(a, "a"), *_batched_operand(b, "b"),
-        bias.data_ptr() if bias is not None else None, out.data_ptr(), nb, m,
-        n, k, float(alpha), fusion.code(activation),
-        *_flags(a, out_dtype, bias),
+        *oa, *ob, bias.data_ptr() if bias is not None else None,
+        out.data_ptr(), nb, m, n, k, float(alpha), fusion.code(activation),
+        *_flags(a, out_dtype, bias), MAINLOOPS.index(p.mainloop), p.bm,
         torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, lib, "batched_matmul")
     batched_matmul_cuda.launches += 1
+    batched_matmul_cuda.mainloops[p.mainloop] += 1
     return out
 
 
 brgemm_stacked_cuda.launches = 0
-batched_matmul_cuda.launches = 0
+reset_matmul_counts()

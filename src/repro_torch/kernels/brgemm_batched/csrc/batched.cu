@@ -9,22 +9,38 @@
 //
 // On the TPU both walked a sequential grid axis with an fp32 accumulator in
 // VMEM scratch: (batch x k-block) for the stacked form, k-blocks for the
-// batched one.  Here one block owns one 64 x 64 output tile and walks that
-// axis in a loop of its own, with the accumulator in registers
-// (repro_tile.cuh): the stacked form's loop runs over every batch entry and
-// k-block, so C is written once, never re-read between entries (the
-// paper's point against a loop of GEMMs); the batched form takes its entry
-// from blockIdx.z.  Each operand carries a batch stride (0 for the 2-D
-// operand the batched form broadcasts, read again by every entry, never
-// copied) and may be row- or column-major per entry, so brgemm's backward
-// (dA_i = g B_i^T, dB_i = A_i^T g) reads the transposed views in place.
+// batched one.  Here a block owns one output tile and walks that axis in a
+// loop of its own, with the accumulator in registers.  Each operand carries
+// a batch stride (0 for the 2-D operand the batched form broadcasts, read
+// again by every entry, never copied) and may be row- or column-major per
+// entry, so brgemm's backward (dA_i = g B_i^T, dB_i = A_i^T g) reads the
+// transposed views in place.
+//
+// batched_matmul runs one of three mainloops, planned by the wrapper
+// (kernel.py::plan_batched) from the shapes, types and layouts, as
+// matmul's are:
+//   * wgmma (bf16 operands that TMA can describe): matmul's own mainloop and
+//     epilogue (include/repro_gemm_sm90.cuh), the grid's third axis the
+//     batch entry.  A batched operand is a 3-D tensor map with the entry as
+//     its outer coordinate, so TMA's zero fill stops at each entry's edge
+//     (a 2-D view of (B * k, n) would read the next entry's rows into a
+//     ragged k); a broadcast operand is a 2-D map that ignores the entry.
+//     Entry z writes rows z * m .. of the (B * m, n) output.
+//   * wmma (bf16 operands TMA cannot describe): the 64 x 64 tile of
+//     repro_tile.cuh, blockIdx.z the entry.
+//   * simt (fp32): the same tile on FMA, no TF32.
+// brgemm_stacked keeps the 64 x 64 tile (wmma for bf16, FMA for fp32): its
+// loop runs over every batch entry and k-block, so C is written once, never
+// re-read between entries (the paper's point against a loop of GEMMs).
 //
 // What bounds it on an H100: the paper's shapes (m, n <= 128, k <= 256,
-// B <= 64) make few output tiles (1-4 blocks on 132 SMs), so a block's
-// serial walk over B * k bounds them, not the card's rates; the
-// (8, 4096, 1024, 1024) case fills the card and is tensor-core bound in
-// bf16.  Split-K over the batch, wgmma and TMA are later work.
-#include "repro_tile.cuh"
+// B <= 64) make few output tiles (16-64 blocks of 128 x 128 or 64 x 128
+// on 132 SMs), each a short serial walk of 1-4 slices of k: their time is
+// the latency of a launch, a ring fill and an epilogue, not the card's
+// rates.  The (8, 4096, 1024, 1024) case fills the card (8 x 256 tiles of
+// 128 x 128) and is tensor-core bound in bf16, as matmul's token-major
+// shapes are.
+#include "repro_gemm_sm90.cuh"
 
 using namespace repro;
 
@@ -115,18 +131,47 @@ extern "C" int repro_brgemm_stacked(
   return (int)cudaGetLastError();
 }
 
+// kernel.py::MAINLOOPS, in order.
+enum Mainloop { WGMMA = 0, WMMA = 1, SIMT = 2 };
+
+// The tensor map of a batched operand: (rows, inner) per entry, rows `ld`
+// apart, entries `bstride` apart (3-D), or one matrix (bstride = 0: 2-D).
+static bool operand_map(CUtensorMap* map, const void* p, uint64_t inner,
+                        uint64_t rows, long long ld, long long bstride,
+                        int nb, uint32_t box_rows) {
+  return bstride ? sm90::tensor_map_bf16_3d(map, p, inner, rows, ld, nb,
+                                            bstride, box_rows)
+                 : sm90::tensor_map_bf16(map, p, inner, rows, ld, box_rows);
+}
+
+// mainloop: 0 wgmma (bm: its tile rows, 64 or 128), 1 wmma, 2 simt.
 extern "C" int repro_batched_matmul(
     const void* a, long long sa, long long lda, int a_trans, int vec_a,
     const void* b, long long sb, long long ldb, int b_trans, int vec_b,
     const void* bias, void* out, int nb, int m, int n, int k, float alpha,
-    int act, int is_bf16, int out_f32, int bias_f32, void* stream) {
-  if (act < 0 || act >= N_ACT) return (int)cudaErrorInvalidValue;
-  Operand oa{a, sa, lda, a_trans, vec_a}, ob{b, sb, ldb, b_trans, vec_b};
+    int act, int is_bf16, int out_f32, int bias_f32, int mainloop, int bm,
+    void* stream) {
+  if (act < 0 || act >= N_ACT || (mainloop == SIMT) == (is_bf16 != 0) ||
+      (mainloop == WGMMA && ((bm != 64 && bm != 128) || k < 1)))
+    return (int)cudaErrorInvalidValue;
   Epilogue e{out, bias, nullptr, n, 0, alpha, 0.0f, act, out_f32, bias_f32,
              0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mainloop == WGMMA) {
+    // A: rows of m (a_trans) or of k; B: rows of k (row-major) or of n.
+    CUtensorMap ta, tb;
+    bool ok = a_trans ? operand_map(&ta, a, m, k, lda, sa, nb, 64)
+                      : operand_map(&ta, a, k, m, lda, sa, nb, bm);
+    ok = ok && (b_trans ? operand_map(&tb, b, k, n, ldb, sb, nb, wg::BN)
+                        : operand_map(&tb, b, n, k, ldb, sb, nb, 64));
+    if (!ok) return (int)cudaErrorInvalidValue;
+    return wg::launch<true>(bm, a_trans, !b_trans, ta, tb, sa != 0, sb != 0,
+                            Sink{e, nullptr, m, n}, k, nb, cdiv(k, wg::BK),
+                            st);
+  }
+  Operand oa{a, sa, lda, a_trans, vec_a}, ob{b, sb, ldb, b_trans, vec_b};
   dim3 grid(cdiv(n, 64), cdiv(m, 64), nb);
-  if (is_bf16)
+  if (mainloop == WMMA)
     batched_matmul_bf16_kernel<<<grid, tc::THREADS, 0, st>>>(oa, ob, e, m, n,
                                                              k);
   else

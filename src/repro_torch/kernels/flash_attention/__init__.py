@@ -6,6 +6,7 @@ from repro_torch.kernels.flash_attention.bwd import (  # noqa: F401
 )
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: F401
     flash_attention_cuda,
+    reset_flash_counts,
 )
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
     flash_attention,

@@ -5,27 +5,55 @@
 // flash_attention_pallas.  On the TPU the KV blocks were a sequential
 // "arbitrary" grid axis carrying the output accumulator and the running
 // (m, l) statistics in VMEM scratch.  Here one block owns one
-// (batch, q-head, 64-row q tile) and walks the KV tiles in a loop of its
-// own, so the statistics never leave the SM.  Causal blocks above the
-// diagonal are not skipped by a predicate but never visited: the loop ends
-// at the diagonal tile (and, with a window, starts at the first tile the
-// window reaches).  GQA reads kv head h / group in place: no repeated K or
-// V.  q, k and v are read through their (batch, head, time) strides with a
+// (batch, q-head, q tile) and walks the KV tiles in a loop of its own, so
+// the statistics never leave the SM.  Causal blocks above the diagonal are
+// not skipped by a predicate but never visited: the loop ends at the
+// diagonal tile (and, with a window, starts at the first tile the window
+// reaches).  GQA reads kv head h / group in place: no repeated K or V.
+// q, k and v are read through their (batch, head, time) strides with a
 // unit head_dim stride, so the transposed views that the attention layer's
 // head split produces are read without a copy.  Nothing is padded: rows
 // past Tq are zero-filled and never stored, and KV positions past Tk are
 // masked like any other (k_pos < Tk).
 //
+// Each call runs one of three mainloops, planned by the wrapper
+// (kernel.py::plan):
+//   * wgmma (bf16 q, k, v that TMA can describe; the main paths' case).
+//     One producer warp loads the block's Q tile once and streams K and V
+//     tiles of 64 keys into a 3-stage ring under full and empty mbarriers,
+//     all by TMA from 4-D tensor maps over (d, t, h, b) with the views' own
+//     strides, in 64-wide slices of d with the 128-byte swizzle.  One
+//     consumer warpgroup owns the block's 64 q rows (two warpgroups of 64
+//     rows each, sharing each K / V tile, ran slower at the prefill shape
+//     on an H100; blocks side by side on an SM overlap instead):
+//     S = Q K^T is a wgmma
+//     m64n64k16 with both operands K-major in shared memory, into 32 fp32
+//     registers a thread; the online softmax runs on those fragments (a
+//     row's max by shuffles across its quad of threads; masks only on the
+//     tiles that straddle the diagonal, the window's edge or Tk, each
+//     element's (row, col) from the fragment layout); P is packed to bf16
+//     in registers, and in the accumulator's own layout it is the A
+//     operand of O += P V, a wgmma with A from registers and V the
+//     MN-major B operand from the ring; O stays in registers over every KV
+//     tile, and the epilogue divides by l and writes o and lse once.  The
+//     scores run in the log2 domain (exp2 with the scale folded in).
+//     d = 32 reads 64-wide boxes whose upper half TMA fills with zeros, so
+//     every d runs the n = 64 (or, d = 128, n = 128) products.
+//   * wmma (bf16 views whose strides TMA cannot describe): the first
+//     design below.  One block of 4 warps owns a 64-row q tile; K and V are
+//     loaded by the threads between two block barriers; both products run
+//     on nvcuda::wmma 16x16x16, S staged through shared memory in fp32, P
+//     in bf16, and O kept in shared memory across tiles.
+//   * simt (fp32): the same block on FMA (no TF32), so fp32 parity holds.
+//
 // What bounds it on an H100: at the prefill shape of the main path
 // (B = 8, Hq = 9, Hkv = 3, T = 512, d = 64) the causal work is ~2.4 GFLOP
 // over ~19 MB of q, k, v and o, ~130 FLOP per byte: below the bf16 ridge of
-// ~295, so the bound is bytes, but the kernel is far from either: its time
-// goes to the softmax and to staging every product through shared memory.
-// The bf16 path runs both products, S = Q K^T and O += P V, on the tensor
-// cores (nvcuda::wmma 16x16x16, fp32 accumulate); the fp32 path runs plain
-// FMA (no TF32) so fp32 parity holds.  Each warp owns 16 q rows end to end,
-// so only the K / V tile loads need a block barrier.  Registers holding O
-// across tiles, warp-specialised TMA loads and wgmma are later work.
+// ~295, so the bound is bytes (~0.004 ms).  The wgmma kernel keeps the
+// products on the tensor cores and nothing but K and V tiles in shared
+// memory; its time goes to the softmax between the two products, which
+// one warpgroup does not overlap with its own products (blocks side by
+// side on an SM overlap each other's).
 //
 // Masked scores take p = 0 explicitly.  A row with no valid key (l = 0; it
 // occurs only non-causal and windowed with Tq > Tk) stores what the plain
@@ -38,6 +66,8 @@
 #include <mma.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "repro_sm90.cuh"
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
@@ -355,6 +385,302 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
     if (d == 64) return launch<float, 64>(p, batch, s);
     if (d == 128) return launch<float, 128>(p, batch, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// wgmma + TMA
+// ---------------------------------------------------------------------------
+namespace fa {
+using namespace repro;
+constexpr int KV = 64;                  // keys a tile
+constexpr int SLICE = 64 * 128;         // 64 rows of one 64-wide d slice
+constexpr float LN2 = 0.6931471805599453f;
+
+// A masked score: exp2 of it less any running max (>= NEG_INF) is 0.
+__device__ __forceinline__ float minus_inf() {
+  return __int_as_float(0xff800000);
+}
+
+constexpr int BQ = 64;                  // q rows a block
+constexpr int THREADS = 128 + 32;       // one consumer warpgroup, a producer
+
+template <int D>
+struct Shape {
+  static constexpr int NS = D > 64 ? D / 64 : 1;  // 64-wide slices of d
+  static constexpr int DP = NS * 64;              // d, 32 padded to 64
+  static constexpr int Q_BYTES = NS * SLICE;
+  static constexpr int KV_BYTES = NS * SLICE;     // K, or V, of one tile
+  static constexpr int STAGES = 3;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // Q, the ring, 2 * STAGES + 1 barriers, and 1 KB to align the tiles
+  static constexpr int SMEM =
+      Q_BYTES + STAGES * STAGE_BYTES + (2 * STAGES + 1) * 8 + 1024;
+};
+
+struct WgParams {
+  const bf16* v;       // for the mean of V of a row with no valid key
+  bf16* o;             // (B, Hq, Tq, D) contiguous
+  float* lse;          // (B, Hq, Tq) or null
+  long long v_sb, v_sh, v_st;
+  int hq, group, tq, tk, causal, window;   // window < 0: none
+  float scale_log2;                        // scale * log2(e)
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Block (blockIdx.x from the last q tile: the longest causal rows start
+// first, h, b).  Consumer thread t holds rows (t / 32) * 16 + (t % 32) / 4
+// (+ 8) of the tile, and, of a 64-key S tile or of O, columns
+// 8 j + 2 (t % 4) (+ 1): s[4 j + {0, 1}] on the first row, s[4 j + {2, 3}]
+// on the row 8 below.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                       const __grid_constant__ CUtensorMap tmk,
+                       const __grid_constant__ CUtensorMap tmv, WgParams p) {
+  using S = Shape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = Qs + S::Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::STAGES *
+                                               S::STAGE_BYTES);
+  uint64_t* empty = full + S::STAGES;
+  uint64_t* qbar = empty + S::STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / p.group, q0 = qt * BQ;
+  // KV tiles this q tile can see.
+  int kv_end = p.tk;
+  if (p.causal) kv_end = min(kv_end, q0 + BQ);
+  const int kv_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int j_begin = kv_begin / KV, j_end = (kv_end + KV - 1) / KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 1);
+    }
+    sm90::mbar_init(qbar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(qbar, S::Q_BYTES);
+#pragma unroll
+      for (int s = 0; s < S::NS; ++s)
+        sm90::tma_load_4d(Qs + s * SLICE, &tmq, qbar, 64 * s, q0, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = j_begin; j < j_end; ++j) {
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[stage], S::STAGE_BYTES);
+        uint8_t* ks = ring + stage * S::STAGE_BYTES;
+#pragma unroll
+        for (int s = 0; s < S::NS; ++s) {
+          sm90::tma_load_4d(ks + s * SLICE, &tmk, &full[stage], 64 * s,
+                            j * KV, hk, b);
+          sm90::tma_load_4d(ks + S::KV_BYTES + s * SLICE, &tmv, &full[stage],
+                            64 * s, j * KV, hk, b);
+        }
+        if (++stage == S::STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup.
+  const int t = threadIdx.x, quad = t % 4;
+  const int row_lo = q0 + (t / 32) * 16 + (t % 32) / 4;
+  const int row_hi = row_lo + 8;
+  float o[S::DP / 2];
+#pragma unroll
+  for (int i = 0; i < S::DP / 2; ++i) o[i] = 0.0f;
+  float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.0f, l_hi = 0.0f;
+  sm90::mbar_wait(qbar, 0);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = j_begin; j < j_end; ++j) {
+    sm90::mbar_wait(&full[stage], phase);
+    // The loop bounds leave out the tiles wholly above the diagonal or
+    // wholly before the first row's window.
+    const int k0 = j * KV;
+    const uint8_t* ks = ring + stage * S::STAGE_BYTES;
+    const uint8_t* vs = ks + S::KV_BYTES;
+    // ---- S = Q K^T ----
+    float s[32];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int sl = kk / 4, off = (kk % 4) * 32;
+      sm90::wgmma_m64n64k16<0, 0>(
+          s, sm90::desc_sw128(Qs + sl * SLICE + off, 16, 1024),
+          sm90::desc_sw128(ks + sl * SLICE + off, 16, 1024), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+
+    // ---- the online softmax on the fragments ----
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= p.scale_log2;
+    const bool edge = k0 + KV > p.tk || (p.causal && k0 + KV - 1 > q0) ||
+                      (p.window > 0 && k0 <= q0 + BQ - 1 - p.window);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i / 4) * 8 + quad * 2 + (i & 1);
+        const int row = (i & 2) ? row_hi : row_lo;
+        const bool ok = col < p.tk && (!p.causal || col <= row) &&
+                        (p.window <= 0 || col > row - p.window);
+        if (!ok) s[i] = minus_inf();
+      }
+    }
+    float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) mx_hi = fmaxf(mx_hi, s[i]);
+      else mx_lo = fmaxf(mx_lo, s[i]);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    // Masked scores are -inf and m stays >= NEG_INF, so they give p = 0.
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float corr_lo = exp2f(m_lo - mn_lo), corr_hi = exp2f(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2f(s[i] - ((i & 2) ? mn_hi : mn_lo));
+      if (i & 2) sum_hi += s[i];
+      else sum_lo += s[i];
+    }
+    // l stays a per-thread partial sum until the finish: corr is the
+    // same for the quad.
+    l_lo = l_lo * corr_lo + sum_lo;
+    l_hi = l_hi * corr_hi + sum_hi;
+#pragma unroll
+    for (int i = 0; i < S::DP / 2; ++i) o[i] *= (i & 2) ? corr_hi : corr_lo;
+
+    // ---- O += P V, P from registers ----
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      pa[kb][0] = pack_bf16(s[8 * kb], s[8 * kb + 1]);
+      pa[kb][1] = pack_bf16(s[8 * kb + 2], s[8 * kb + 3]);
+      pa[kb][2] = pack_bf16(s[8 * kb + 4], s[8 * kb + 5]);
+      pa[kb][3] = pack_bf16(s[8 * kb + 6], s[8 * kb + 7]);
+    }
+    sm90::fence_regs(o);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      const uint64_t db = sm90::desc_sw128(vs + kb * 2048, SLICE, 1024);
+      if constexpr (S::DP == 64) sm90::wgmma_m64n64k16_rs<1>(o, pa[kb], db);
+      else sm90::wgmma_m64n128k16_rs<1>(o, pa[kb], db);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    if (t == 0) sm90::mbar_arrive(&empty[stage]);
+    if (++stage == S::STAGES) { stage = 0; phase ^= 1; }
+  }
+
+  // ---- finish: O / l, lse = m + log l; empty rows give the mean of V and
+  // NEG_INF ----
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  bf16* og = p.o + (long long)(b * p.hq + h) * p.tq * D;
+  const bf16* vg = p.v + b * p.v_sb + hk * p.v_sh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row_hi : row_lo;
+    const float l = half ? l_hi : l_lo, m = half ? m_hi : m_lo;
+    if (row >= p.tq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * quad;
+      float v0, v1;
+      if (l > 0.0f) {
+        v0 = o[4 * j + 2 * half] / l;
+        v1 = o[4 * j + 2 * half + 1] / l;
+      } else {
+        v0 = mean_of_v(vg, p.v_st, p.tk, c);
+        v1 = mean_of_v(vg, p.v_st, p.tk, c + 1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(og + (long long)row * D + c) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+    if (p.lse != nullptr && quad == 0)
+      p.lse[(long long)(b * p.hq + h) * p.tq + row] =
+          l > 0.0f ? (m + log2f(l)) * LN2 : NEG_INF;
+  }
+}
+
+template <int D>
+static int launch(const CUtensorMap& tq, const CUtensorMap& tk,
+                  const CUtensorMap& tv, const WgParams& p, int batch,
+                  cudaStream_t stream) {
+  using S = Shape<D>;
+  static_assert(S::SMEM <= 227 * 1024, "shared memory over the SM's limit");
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((p.tq + BQ - 1) / BQ, p.hq, batch);
+  kernel<<<grid, THREADS, S::SMEM, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+// A (B, H, T, D) operand as a 4-D map over (d, t, h, b), box 64 x rows.
+static bool map4d(CUtensorMap* map, const void* base, int d, int t, int h,
+                  int batch, long long st, long long sh, long long sb,
+                  uint32_t rows) {
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)t, (uint64_t)h,
+                            (uint64_t)batch};
+  const uint64_t strides[3] = {(uint64_t)st, (uint64_t)sh, (uint64_t)sb};
+  const uint32_t box[4] = {64, rows, 1, 1};
+  return sm90::tensor_map_bf16_nd(map, base, 4, dims, strides, box);
+}
+}  // namespace fa
+
+// The wgmma mainloop, bf16 only: q, k, v as repro_flash_fwd's, every
+// (batch, head, time) stride a multiple of 8 elements (TMA's 16 bytes; the
+// wrapper gives a size-1 dimension a legal stand-in), 16-byte aligned
+// bases.
+extern "C" int repro_flash_fwd_wgmma(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int batch, int hq, int hkv, int tq, int tk, int d, long long q_sb,
+    long long q_sh, long long q_st, long long k_sb, long long k_sh,
+    long long k_st, long long v_sb, long long v_sh, long long v_st,
+    int causal, int window, float scale, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || tk < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap tmq, tmk, tmv;
+  if (!fa::map4d(&tmq, q, d, tq, hq, batch, q_st, q_sh, q_sb, fa::BQ) ||
+      !fa::map4d(&tmk, k, d, tk, hkv, batch, k_st, k_sh, k_sb, fa::KV) ||
+      !fa::map4d(&tmv, v, d, tk, hkv, batch, v_st, v_sh, v_sb, fa::KV))
+    return (int)cudaErrorInvalidValue;
+  fa::WgParams p{static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
+                 v_sb, v_sh, v_st, hq, hq / hkv, tq, tk, causal, window,
+                 (float)(scale * 1.4426950408889634)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 32) return fa::launch<32>(tmq, tmk, tmv, p, batch, s);
+  if (d == 64) return fa::launch<64>(tmq, tmk, tmv, p, batch, s);
+  if (d == 128) return fa::launch<128>(tmq, tmk, tmv, p, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 

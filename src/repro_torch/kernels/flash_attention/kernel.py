@@ -3,8 +3,14 @@
 ``flash_attention_cuda`` checks what the kernel takes, allocates the
 outputs, and launches on the current stream; the library is built at first
 use (``kernels/_build.py``).  ``flash_attention_cuda.launches`` counts the
-launches.  q, k and v are read through their strides: the transposed views
-of the attention layer's head split need no ``.contiguous()`` copy.
+launches and ``flash_attention_cuda.mainloops`` the calls by mainloop
+(``reset_flash_counts`` zeroes both).  q, k and v are read through their
+strides: the transposed views of the attention layer's head split need no
+``.contiguous()`` copy.
+
+``plan`` picks a call's mainloop: ``wgmma`` (TMA and wgmma, O in
+registers) for bf16 views that TMA can describe, ``wmma`` for other bf16
+views, ``simt`` (FMA, no TF32) for fp32.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 128)
+MAINLOOPS = ("wgmma", "wmma", "simt")
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
@@ -26,6 +33,9 @@ def _lib():
     lib.repro_flash_fwd.argtypes = ([_P] * 5 + [_I] * 6 + [_LL] * 9
                                     + [_I, _I, _F, _I, _P])
     lib.repro_flash_fwd.restype = ctypes.c_int
+    lib.repro_flash_fwd_wgmma.argtypes = ([_P] * 5 + [_I] * 6 + [_LL] * 9
+                                          + [_I, _I, _F, _P])
+    lib.repro_flash_fwd_wgmma.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -46,6 +56,42 @@ def _strides(t: torch.Tensor, name: str) -> list[int]:
                              f"{t.stride()}")
         out.append(s)
     return out
+
+
+def _tma_legal(t: torch.Tensor) -> bool:
+    """TMA can read a (B, H, T, d) bf16 view as a 4-D map over (d, t, h, b):
+    16-byte aligned base, unit d stride, (b, h, t) strides in multiples of
+    8 elements (16 bytes) where the dimension has more than one entry, and
+    rows that do not overlap (a t stride that covers d), as matmul's plan
+    asks of a row stride."""
+    return (t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+            and t.stride(3) == 1
+            and all(t.stride(i) % 8 == 0 for i in range(3) if t.size(i) > 1)
+            and (t.size(2) <= 1 or t.stride(2) >= t.size(3)))
+
+
+def plan(is_bf16: bool, tma: bool) -> str:
+    """The mainloop of a call (one of MAINLOOPS): wgmma for bf16 that TMA
+    can describe, wmma for other bf16, simt for fp32."""
+    if not is_bf16:
+        return "simt"
+    return "wgmma" if tma else "wmma"
+
+
+def plan_call(q, k, v) -> str:
+    """The plan of ``flash_attention_cuda(q, k, v)`` from the views' type,
+    strides and alignment (the kernel itself is not touched); no key at
+    all stays off wgmma."""
+    return plan(q.dtype == torch.bfloat16,
+                k.size(2) > 0 and all(_tma_legal(t) for t in (q, k, v)))
+
+
+def _tma_strides(t: torch.Tensor) -> list[int]:
+    """(batch, head, time) strides for a tensor map: a dimension of one
+    entry is read at 0 alone, so its stride, which PyTorch may give any
+    value, becomes one TMA takes: the span of the tensor, in 8s."""
+    span = -(-max(t.stride(i) * t.size(i) for i in range(4)) // 8) * 8
+    return [t.stride(i) if t.size(i) > 1 else span for i in range(3)]
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
@@ -83,20 +129,33 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     lse = (torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
            if return_residuals else None)
     if o.numel():
+        mainloop = plan_call(q, k, v)
         lib = _lib()
-        rc = lib.repro_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            b, hq, hkv, tq, tk, d, *strides, int(causal),
-            -1 if window is None else int(window), float(scale),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if lse is not None else None,
+                b, hq, hkv, tq, tk, d)
+        tail = (int(causal), -1 if window is None else int(window),
+                float(scale))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if mainloop == "wgmma":
+            tma = _tma_strides(q) + _tma_strides(k) + _tma_strides(v)
+            rc = lib.repro_flash_fwd_wgmma(*args, *tma, *tail, stream)
+        else:
+            rc = lib.repro_flash_fwd(*args, *strides, *tail,
+                                     int(q.dtype == torch.bfloat16), stream)
         if rc != 0:
             raise RuntimeError(
                 f"flash_attention kernel launch failed: CUDA error {rc} "
                 f"({lib.repro_cuda_error_string(rc).decode()})")
         flash_attention_cuda.launches += 1
+        flash_attention_cuda.mainloops[mainloop] += 1
     return (o, lse) if return_residuals else o
 
 
-flash_attention_cuda.launches = 0
+def reset_flash_counts():
+    """Zero ``flash_attention_cuda``'s launches and calls by mainloop."""
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.mainloops = dict.fromkeys(MAINLOOPS, 0)
+
+
+reset_flash_counts()

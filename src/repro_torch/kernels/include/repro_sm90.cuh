@@ -1,7 +1,9 @@
 // Hopper's asynchronous building blocks, written as inline PTX: the
-// mbarrier, the Tensor Memory Accelerator's 2-D tile load, the warpgroup
-// matrix multiply (wgmma) with its shared-memory descriptors, and the host
-// side of a TMA tensor map.  Compiled for sm_90a only (wgmma exists on no
+// mbarrier, the Tensor Memory Accelerator's 2-, 3- and 4-D tile loads, the
+// warpgroup matrix multiply (wgmma: m64n128k16 and m64n64k16 with both
+// operands in shared memory, m64n64k16 and m64n128k16 with A in registers)
+// with its shared-memory descriptors, and the host side of TMA tensor maps
+// (2-D memoised, and 3- to 5-D).  Compiled for sm_90a only (wgmma exists on no
 // other target).
 //
 // The layout every piece here assumes is the 128-byte swizzle: a TMA box
@@ -95,6 +97,30 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same into a 3-D map (c2: the outer coordinate, a batch entry) and a
+// 4-D one.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---- wgmma -----------------------------------------------------------------
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand at p.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
@@ -166,6 +192,119 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d[32] (+)= A (64 x 16, bf16) @ B (16 x 64, bf16) in fp32, both operands
+// from shared memory (descriptors da, db); TA / TB as wgmma_m64n128k16's.
+// accumulate = 0 overwrites d.  d's layout: as wgmma_m64n128k16's, j < 8.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d[32] += A (64 x 16, bf16, in registers) @ B (16 x 64, bf16, shared
+// memory, descriptor db) in fp32.  TB as wgmma_m64n128k16's.  a[4]: this
+// thread's A fragment, two bf16 a register (the lower column in the low
+// half): rows (t / 32) * 16 + (t % 32) / 4 (+ 8), columns 2 (t % 4) (+ 1)
+// (+ 8): a[0] row r columns c, c + 1; a[1] row r + 8; a[2] row r columns
+// c + 8, c + 9; a[3] row r + 8 columns c + 8, c + 9 -- the accumulator's
+// own layout, so a product's fp32 fragment becomes the next one's A by
+// packing pairs.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// d[64] += A (64 x 16, bf16, in registers) @ B (16 x 128, bf16, shared
+// memory, descriptor db) in fp32.  TB as wgmma_m64n128k16's.  a[4]: this
+// thread's A fragment, two bf16 a register (the lower column in the low
+// half): rows (t / 32) * 16 + (t % 32) / 4 (+ 8), columns 2 (t % 4) (+ 1)
+// (+ 8): a[0] row r columns c, c + 1; a[1] row r + 8; a[2] row r columns
+// c + 8, c + 9; a[3] row r + 8 columns c + 8, c + 9 -- the accumulator's
+// own layout, so a product's fp32 fragment becomes the next one's A by
+// packing pairs.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
 }
 
 // ---- host: tensor maps -----------------------------------------------------
@@ -242,6 +381,46 @@ inline bool tensor_map_bf16(CUtensorMap* map, const void* base,
   std::lock_guard<std::mutex> lock(mu);
   slot = Entry{base, inner, rows, ld, box_rows, *map};
   return true;
+}
+
+// A bf16 tensor of `rank` (2-5) dimensions, dims[0] contiguous, dimension
+// i > 0 strides[i - 1] elements apart (each a multiple of 8, 16-byte
+// aligned base), read in boxes of box[] elements (box[0] = 64: 128 bytes)
+// with the 128-byte swizzle and zero fill outside.  Returns false where
+// cuTensorMapEncodeTiled refuses it.  Not memoised: its callers launch few
+// times a step.
+inline bool tensor_map_bf16_nd(CUtensorMap* map, const void* base, int rank,
+                               const uint64_t* dims,
+                               const uint64_t* strides,
+                               const uint32_t* box) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || rank < 2 || rank > 5) return false;
+  cuuint64_t d[5], st[4];
+  cuuint32_t b[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    elem[i] = 1;
+    if (i > 0) st[i - 1] = strides[i - 1] * 2;
+  }
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(base), d, st, b, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// tensor_map_bf16's matrix, one per batch entry, entries `bstride`
+// elements apart: a 3-D map with the entry as its outer coordinate, boxes
+// of 64 x box_rows x 1.
+inline bool tensor_map_bf16_3d(CUtensorMap* map, const void* base,
+                               uint64_t inner, uint64_t rows, uint64_t ld,
+                               uint64_t entries, uint64_t bstride,
+                               uint32_t box_rows) {
+  const uint64_t dims[3] = {inner, rows, entries};
+  const uint64_t strides[2] = {ld, bstride};
+  const uint32_t box[3] = {64, box_rows, 1};
+  return tensor_map_bf16_nd(map, base, 3, dims, strides, box);
 }
 
 }  // namespace sm90

@@ -27,9 +27,11 @@ from repro_torch.kernels.brgemm import (batched_matmul, batched_matmul_cuda,
                                         brgemm_ref, brgemm_stacked_cuda,
                                         matmul, matmul_cuda, matmul_q_cuda,
                                         matmul_q_ref, matmul_ref)
-from repro_torch.kernels.brgemm.kernel import plan_call, reset_matmul_counts
+from repro_torch.kernels.brgemm.kernel import (plan_batched_call, plan_call,
+                                               reset_matmul_counts)
 from repro_torch.kernels.conv2d import conv2d, conv2d_cuda, conv2d_ref
 from repro_torch.kernels.conv2d.ops import patches
+from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
                                                  delta_rowsum_ref,
                                                  flash_attention,
@@ -459,6 +461,119 @@ def test_batched_matmul_kernel(gen, dtype, bcast, trans):
     _band_close(got, batched_matmul_ref(a, b, bias, activation="relu",
                                         alpha=2.0), dtype, "batched")
     assert batched_matmul_cuda.launches - launches == 1
+
+
+def _entries(gen, nb, r, c, col_major, dtype, scale=1.0):
+    """(nb, r, c) entries (2-D for nb = 0), row- or column-major, memory
+    rows padded to a multiple of 8 elements (TMA-legal)."""
+    inner, outer = (r, c) if col_major else (c, r)
+    lead = (nb,) if nb else ()
+    buf = (torch.randn(*lead, outer, -(-inner // 8) * 8, device="cuda",
+                       generator=gen) * scale).to(dtype)[..., :inner]
+    return buf.transpose(-1, -2) if col_major else buf
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("layout", ["A_i @ B_i", "A broadcast", "B broadcast",
+                                    "dA = g B_i^T", "dB = A_i^T g",
+                                    "both column-major"])
+@pytest.mark.parametrize("nb,m,k,n", [(5, 70, 100, 136), (3, 200, 64, 72),
+                                      (16, 64, 64, 64), (2, 130, 300, 257)])
+def test_batched_matmul_wgmma(gen, nb, m, k, n, layout, out_dtype):
+    """bf16 batched_matmul on the wgmma mainloop: ragged m, n and k (k not a
+    multiple of 64: each entry's zero fill), a broadcast operand, both
+    transposed views of brgemm's backward, bias, alpha and every
+    activation, bf16 and fp32 out."""
+    bf = torch.bfloat16
+    a = _entries(gen, nb, m, k, False, bf)
+    b = _entries(gen, nb, k, n, False, bf, k ** -0.5)
+    g = _entries(gen, 0, m, n, False, bf)
+    lhs, rhs = {
+        "A_i @ B_i": (a, b),
+        "A broadcast": (a[0], b),
+        "B broadcast": (a, b[0]),
+        "dA = g B_i^T": (g, b.transpose(1, 2)),
+        "dB = A_i^T g": (a.transpose(1, 2), g),
+        "both column-major": (_entries(gen, nb, m, k, True, bf),
+                              _entries(gen, nb, k, n, True, bf, k ** -0.5)),
+    }[layout]
+    assert plan_batched_call(lhs, rhs).mainloop == "wgmma"
+    reset_matmul_counts()
+    got = batched_matmul_cuda(lhs, rhs, out_dtype=out_dtype)
+    want = batched_matmul_ref(lhs, rhs, out_dtype=out_dtype)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _band_close(got, want, out_dtype or bf, layout)
+    bias = torch.randn(rhs.size(-1), device="cuda", generator=gen).to(bf)
+    for act in fusion.ACTIVATIONS:
+        kw = dict(activation=act, alpha=0.5, out_dtype=out_dtype)
+        _band_close(batched_matmul_cuda(lhs, rhs, bias, **kw),
+                    batched_matmul_ref(lhs, rhs, bias, **kw),
+                    out_dtype or bf, f"{layout} {act}")
+    assert batched_matmul_cuda.mainloops == {
+        "wgmma": 1 + len(fusion.ACTIVATIONS), "wmma": 0, "simt": 0}
+
+
+def test_batched_matmul_tma_illegal_and_fp32_mainloops(gen):
+    """Rows 36 apart (bf16): the wmma tile; fp32: simt; both against the
+    plain version."""
+    for dtype, want in ((torch.bfloat16, "wmma"), (torch.float32, "simt")):
+        a = torch.randn(3, 77, 36, device="cuda", generator=gen).to(dtype)
+        b = (torch.randn(3, 36, 200, device="cuda", generator=gen)
+             / 6).to(dtype)
+        reset_matmul_counts()
+        _band_close(batched_matmul_cuda(a, b), batched_matmul_ref(a, b),
+                    dtype, want)
+        assert batched_matmul_cuda.mainloops[want] == 1
+
+
+def _qkv(gen, b, hq, hkv, tq, tk, d, dtype=torch.bfloat16):
+    """Head-split views, as the attention layer hands them over."""
+    return tuple(torch.randn(b, t, h, d, device="cuda", generator=gen)
+                 .to(dtype).transpose(1, 2)
+                 for h, t in ((hq, tq), (hkv, tk), (hkv, tk)))
+
+
+@pytest.mark.parametrize("tq,tk,hq,hkv,d,causal,window", [
+    (200, 200, 4, 4, 64, True, None),      # causal, group 1, ragged T
+    (130, 130, 6, 2, 32, True, 50),        # windowed, group 3
+    (256, 256, 8, 2, 128, False, None),    # non-causal, group 4
+    (150, 70, 4, 2, 64, False, 20),        # Tq > Tk, rows with no key
+    (70, 150, 3, 1, 128, False, None),     # Tq < Tk
+    (100, 230, 4, 2, 32, True, None),      # causal, Tq < Tk
+    (64, 64, 2, 1, 64, True, None),        # one tile
+])
+def test_flash_forward_wgmma(gen, tq, tk, hq, hkv, d, causal, window):
+    """The wgmma + TMA flash forward against mha_ref, on the attention
+    layer's transposed views, with and without lse."""
+    q, k, v = _qkv(gen, 2, hq, hkv, tq, tk, d)
+    assert FK.plan_call(q, k, v) == "wgmma"
+    FK.reset_flash_counts()
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  return_residuals=True)
+    ro, rl = mha_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.testing.assert_close(o, ro, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    o2 = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(o2, o, atol=0, rtol=0)
+    assert flash_attention_cuda.mainloops == {"wgmma": 2, "wmma": 0,
+                                              "simt": 0}
+
+
+def test_flash_forward_tma_illegal_runs_wmma(gen):
+    """Rows 8 elements apart overlap: bf16 on the wmma kernel, still
+    against mha_ref."""
+    def overlapping(h):
+        buf = torch.randn(2 * h * (8 * 96 + 64), device="cuda",
+                          generator=gen).to(torch.bfloat16)
+        return buf.as_strided((2, h, 96, 64),
+                              (h * (8 * 96 + 64), 8 * 96 + 64, 8, 1))
+    q, k, v = overlapping(4), overlapping(2), overlapping(2)
+    FK.reset_flash_counts()
+    o, lse = flash_attention_cuda(q, k, v, return_residuals=True)
+    ro, rl = mha_ref(q, k, v, return_lse=True)
+    torch.testing.assert_close(o, ro, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    assert flash_attention_cuda.mainloops["wmma"] == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

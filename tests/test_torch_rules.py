@@ -151,8 +151,9 @@ def test_explicit_cuda_backend_on_cpu_tensors_raises():
     assert [c.launches for c in counters] == before
 
 
-def test_dispatch_precedence():
+def test_dispatch_precedence(monkeypatch):
     x = torch.ones(2, 2)
+    monkeypatch.delenv(dispatch.ENV_VAR, raising=False)
     assert dispatch.resolve("matmul", None, x) == "torch"
     with dispatch.use(backend="torch"):
         assert dispatch.resolve("matmul", None, x) == "torch"
@@ -164,6 +165,76 @@ def test_dispatch_precedence():
         dispatch.resolve("matmul", "xla", x)
     with pytest.raises(KeyError):
         dispatch.resolve("no_such_op", None, x)
+    # The env tier: below the context and the argument, above the hardware.
+    monkeypatch.setenv(dispatch.ENV_VAR, "cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        dispatch.resolve("matmul", None, x)      # no fallback to torch
+    with dispatch.use(backend="torch"):
+        assert dispatch.resolve("matmul", None, x) == "torch"
+    assert dispatch.resolve("matmul", "torch", x) == "torch"
+    monkeypatch.setenv(dispatch.ENV_VAR, "torch")
+    assert dispatch.resolve("matmul", None, x) == "torch"
+    monkeypatch.setenv(dispatch.ENV_VAR, "")     # empty: unset
+    assert dispatch.resolve("matmul", None, x) == "torch"
+
+
+@pytest.mark.parametrize("value", ["xla", "pallas", "CUDA", "gpu"])
+def test_dispatch_env_tier_refuses_an_unknown_backend(monkeypatch, value):
+    monkeypatch.setenv(dispatch.ENV_VAR, value)
+    with pytest.raises(ValueError, match=dispatch.ENV_VAR):
+        dispatch.resolve("matmul", None, torch.ones(2, 2))
+    # a higher tier is not overruled, and the bad value is never read
+    assert dispatch.resolve("matmul", "torch", torch.ones(2, 2)) == "torch"
+    with dispatch.use(backend="torch"):
+        assert dispatch.resolve("matmul", None, torch.ones(2, 2)) == "torch"
+
+
+class _FakeCudaTensor:
+    """What ``resolve`` reads of a tensor on card 0, without a card."""
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+
+@pytest.fixture
+def capability(monkeypatch):
+    """Sets the compute capability that card 0 reports."""
+    monkeypatch.delenv(dispatch.ENV_VAR, raising=False)
+    dispatch._is_hopper.cache_clear()
+
+    def set_to(cap):
+        dispatch._is_hopper.cache_clear()
+        monkeypatch.setattr(torch.cuda, "get_device_capability",
+                            lambda index=None: cap)
+    yield set_to
+    dispatch._is_hopper.cache_clear()
+
+
+@pytest.mark.parametrize("cap,want", [((9, 0), "cuda"), ((8, 0), "torch"),
+                                      ((8, 9), "torch"), ((10, 0), "torch")])
+def test_dispatch_hardware_default_follows_the_capability(capability, cap,
+                                                          want):
+    capability(cap)
+    t = _FakeCudaTensor()
+    for op in ("matmul", "flash_attention", "batched_matmul", "conv2d"):
+        assert dispatch.resolve(op, None, t) == want
+    assert dispatch.resolve("matmul", None, torch.ones(2)) == "torch"
+    assert dispatch.resolve("matmul", "torch", t) == "torch"
+
+
+def test_dispatch_cuda_named_on_another_card_raises(capability,
+                                                    monkeypatch):
+    capability((8, 0))
+    t = _FakeCudaTensor()
+    with pytest.raises(ValueError, match="compute capability"):
+        dispatch.resolve("matmul", "cuda", t)
+    with dispatch.use(backend="cuda"), pytest.raises(ValueError,
+                                                     match="capability"):
+        dispatch.resolve("matmul", None, t)
+    monkeypatch.setenv(dispatch.ENV_VAR, "cuda")
+    with pytest.raises(ValueError, match="compute capability"):
+        dispatch.resolve("matmul", None, t)
+    capability((9, 0))
+    assert dispatch.resolve("matmul", None, t) == "cuda"
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -15,14 +15,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                tokens; training's backward GEMMs, X or W read transposed in
                place; the flash forward causal, windowed and not, d = 32,
                64 and 128, Tq != Tk, and on views TMA cannot read; the flash
-               backward and its fused delta; a flash row with no valid key,
-               forward and backward); matmul's plans
+               backward and its fused delta, on wgmma for bf16 (two calls
+               bit for bit alike) and on views TMA cannot read; a flash row
+               with no valid key, forward and backward); matmul's plans
                (each layout of X and W, split and not, every epilogue,
                ragged shapes, row strides TMA cannot read) and ResNet-50's
                stem weight gradient against float64; the direct
                convolution forward and its
                dgrad dual at ResNet-50's layer shapes (N = 32); the stacked
-               brgemm at the paper's cases and the batched GEMM broadcast and
+               brgemm at the paper's cases (on wgmma for bf16, split or not,
+               with each epilogue, transposed, and on strides TMA cannot
+               read) and the batched GEMM broadcast and
                transposed as brgemm's backward reads it, ragged in m, n and
                k, with each epilogue, and on strides TMA cannot read (the
                wmma tile); in fp32 and bf16,
@@ -34,7 +37,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                tokens, bf16.  Once on the kernels (counting launches, and
                matmul's and the flash forward's calls by mainloop: bf16 on
                wgmma only, fp32 on simt, in this phase, train, resnet and
-               quant; batched_matmul's alike in brgemm) and
+               quant; the flash backward's alike in train, batched_matmul's
+               and brgemm_stacked's in brgemm) and
                once with ``use(backend="torch")``; prefill logits compared;
                then the same in fp32, where the greedy tokens must match.
                Prefill and decode-step times of the kernel path, the
@@ -500,6 +504,7 @@ def phase_parity(cfg):
     from repro_torch.kernels.flash_attention import (
         delta_rowsum_cuda, delta_rowsum_ref, flash_attention_bwd_cuda,
         flash_attention_bwd_ref, flash_attention_cuda, mha_ref)
+    from repro_torch.kernels.flash_attention import bwd as FB
     from repro_torch.kernels.flash_attention import kernel as FK
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"matmul": 0.0, "flash_attention": 0.0,
@@ -614,6 +619,20 @@ def phase_parity(cfg):
                f"{planned}", dtype, o, ro, ftol)
         record("flash_attention", "overlapping rows lse", dtype, lse, rl,
                TOL[("lse", None)])
+        # Its backward: bf16 on the wmma kernel.
+        dy = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        planned = FB.plan_call(q, k, v, o, dy)
+        if planned != ("wmma" if dtype == torch.bfloat16 else "simt"):
+            failed.append(f"flash_attention_bwd:overlapping rows: planned "
+                          f"{planned}")
+        want = flash_attention_bwd_ref(q, k, v, o, lse, dy)
+        for name, got, ref in zip(("dq", "dk", "dv"),
+                                  flash_attention_bwd_cuda(q, k, v, o, lse,
+                                                           dy), want):
+            scale = ref.float().abs().max().item()
+            record("flash_attention_bwd", f"overlapping rows {name} "
+                   f"{planned}", dtype, got, ref,
+                   (GRAD_BAND[dtype] * scale, GRAD_BAND[dtype]))
 
         # A row with no valid key (non-causal, windowed, Tq > Tk: rows at
         # q_pos >= Tk + window - 1 = 89): the mean of V, lse NEG_INF.
@@ -631,6 +650,10 @@ def phase_parity(cfg):
         # Its backward: every key's dV takes those rows' dO / Tk, and dQ,
         # dK nothing from them, as autograd of mha_ref gives.
         dy = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        planned = FB.plan_call(q, k, v, o, dy)
+        if planned != ("wgmma" if dtype == torch.bfloat16 else "simt"):
+            failed.append(f"flash_attention_bwd:no valid key: planned "
+                          f"{planned}")
         grads = flash_attention_bwd_cuda(q, k, v, o, lse, dy, causal=False,
                                          window=20)
         want = flash_attention_bwd_ref(q, k, v, o, lse, dy, causal=False,
@@ -638,7 +661,7 @@ def phase_parity(cfg):
         for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
             scale = ref.float().abs().max().item()
             record("flash_attention_bwd", f"no valid key backward {name} "
-                   f"{shape}", dtype, got, ref,
+                   f"{shape} {planned}", dtype, got, ref,
                    (GRAD_BAND[dtype] * scale, GRAD_BAND[dtype]))
         del q, k, v, o, lse, ro, rl, dy, grads, want
 
@@ -652,21 +675,31 @@ def phase_parity(cfg):
                                  500, cfg.dh), None),
                 ("d32", (2, 4, 2, 256, 32), None),
                 ("window 100", (2, 4, 2, 300, 64), 100),
+                ("d128 window 100", (2, 4, 1, 300, 128), 100),
                 ("context 2048", (1, cfg.n_heads, cfg.n_kv_heads, 2048,
                                   cfg.dh), None)):
             q, k, v, dy = qkv_views(b, hq, hkv, t, d, dtype, gen)
             o, lse = flash_attention_cuda(q, k, v, window=window,
                                           return_residuals=True)
+            planned = FB.plan_call(q, k, v, o, dy)
+            if planned != ("wgmma" if dtype == torch.bfloat16 else "simt"):
+                failed.append(f"flash_attention_bwd:{case}: planned "
+                              f"{planned}")
             *grads, delta = flash_attention_bwd_cuda(
                 q, k, v, o, lse, dy, window=window, return_delta=True)
             want = flash_attention_bwd_ref(q, k, v, o, lse, dy,
                                            window=window)
             shape = f"q{tuple(q.shape)} kv{tuple(k.shape)} causal" + (
-                f" window {window}" if window else "")
-            for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+                f" window {window}" if window else "") + f" {planned}"
+            again = flash_attention_bwd_cuda(q, k, v, o, lse, dy,
+                                             window=window)
+            for name, got, ref, got2 in zip(("dq", "dk", "dv"), grads, want,
+                                            again):
                 scale = ref.float().abs().max().item()
                 record("flash_attention_bwd", f"{case} {name} {shape}",
                        dtype, got, ref, (band * scale, band))
+                record("flash_attention_bwd", f"{case} {name} two calls",
+                       dtype, got2, got, (0.0, 0.0))
             record("delta_rowsum", f"{case} fused vs standalone", dtype,
                    delta, delta_rowsum_cuda(o, dy), (0.0, 0.0))
             record("delta_rowsum", f"{case} standalone vs plain", dtype,
@@ -769,7 +802,8 @@ def phase_parity_paper(cfg):
     from repro_torch.kernels.brgemm import (batched_matmul_cuda,
                                             batched_matmul_ref, brgemm_ref,
                                             brgemm_stacked_cuda)
-    from repro_torch.kernels.brgemm.kernel import plan_batched_call
+    from repro_torch.kernels.brgemm.kernel import (plan_batched_call,
+                                                   plan_stacked_call)
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = {"conv2d": 0.0, "brgemm_stacked": 0.0, "batched_matmul": 0.0}
@@ -812,18 +846,44 @@ def phase_parity_paper(cfg):
         record("conv2d", "bias gelu N32 C12 K20 H9 3x3/2", dtype,
                conv2d_cuda(x, w, bias, **kw), conv2d_ref(x, w, bias, **kw))
 
-        for nb, m, k, n in BRGEMM_CASES:
-            a = torch.randn(nb, m, k, device="cuda", generator=gen).to(dtype)
-            b = (torch.randn(nb, k, n, device="cuda", generator=gen)
-                 * (nb * k) ** -0.5).to(dtype)
-            record("brgemm_stacked", f"B{nb} m{m} k{k} n{n}", dtype,
-                   brgemm_stacked_cuda(a, b), brgemm_ref(a, b))
-        bias = torch.randn(n, device="cuda", generator=gen).to(dtype)
-        c0 = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
-        kw = dict(activation="gelu", alpha=0.5, beta=0.75)
-        record("brgemm_stacked", f"B{nb} m{m} k{k} n{n} bias c0 gelu", dtype,
-               brgemm_stacked_cuda(a, b, bias, c0, **kw),
-               brgemm_ref(a, b, bias, c0=c0, **kw))
+        # stacked: at the paper's cases (split or not, by the plan) and
+        # ragged in m, n and k (rows padded to 8 elements, k = 100: TMA's
+        # zero fill ends each entry's k), on wgmma in bf16: plain, with
+        # bias, C0 and gelu, and with both operands column-major; then rows
+        # 36 apart, which TMA cannot read (wmma).
+        for nb, m, k, n in BRGEMM_CASES + [(5, 70, 100, 130)]:
+            scale = (nb * k) ** -0.5
+            a = batched_entries(nb, m, k, False, dtype, gen)
+            b = batched_entries(nb, k, n, False, dtype, gen, scale)
+            at = batched_entries(nb, m, k, True, dtype, gen)
+            bt = batched_entries(nb, k, n, True, dtype, gen, scale)
+            bias = torch.randn(n, device="cuda", generator=gen).to(dtype)
+            c0 = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+            kw = dict(activation="gelu", alpha=0.5, beta=0.75)
+            for case, lhs, rhs, epi in (
+                    ("A_i @ B_i", a, b, {}),
+                    ("bias c0 gelu", a, b, dict(bias=bias, c0=c0, **kw)),
+                    ("both column-major", at, bt, {})):
+                p = plan_stacked_call(lhs, rhs)
+                if p.mainloop != ("wgmma" if dtype == torch.bfloat16
+                                  else "simt"):
+                    failed.append(f"brgemm_stacked:{case}: planned "
+                                  f"{p.mainloop}")
+                record("brgemm_stacked", f"{case} B{nb} m{m} k{k} n{n} "
+                       f"{p.mainloop} splits {p.splits}", dtype,
+                       brgemm_stacked_cuda(lhs, rhs, **epi),
+                       brgemm_ref(lhs, rhs, **epi))
+            del a, b, at, bt
+        a = torch.randn(3, 77, 36, device="cuda", generator=gen).to(dtype)
+        b = (torch.randn(3, 36, 200, device="cuda", generator=gen)
+             / 10).to(dtype)
+        p = plan_stacked_call(a, b)
+        if p.mainloop != ("wmma" if dtype == torch.bfloat16 else "simt"):
+            failed.append(f"brgemm_stacked:rows 36 apart: planned "
+                          f"{p.mainloop}")
+        record("brgemm_stacked", f"B3 m77 k36 n200, rows 36 apart "
+               f"{p.mainloop}", dtype, brgemm_stacked_cuda(a, b),
+               brgemm_ref(a, b))
         del a, b
         # batched: no broadcast; then the backward's two products, g
         # broadcast and B^T / A^T read in place as transposed views; B
@@ -1021,11 +1081,17 @@ def mainloop_check(dtype, n_launches):
             "matmul_split_launches": matmul_cuda.split_launches}
 
 
-def flash_mainloop_check(dtype, n_launches):
-    """The flash forward's calls by mainloop (counted_mainloops)."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    return counted_mainloops(flash_attention_cuda, "flash_attention", dtype,
-                             n_launches)
+def flash_mainloop_check(dtype, n_launches, n_bwd=None):
+    """The flash forward's calls by mainloop (counted_mainloops), and the
+    backward's where ``n_bwd`` is given."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    out = counted_mainloops(flash_attention_cuda, "flash_attention", dtype,
+                            n_launches)
+    if n_bwd is not None:
+        out.update(counted_mainloops(flash_attention_bwd_cuda,
+                                     "flash_attention_bwd", dtype, n_bwd))
+    return out
 
 
 def phase_serve(base_cfg):
@@ -1211,7 +1277,8 @@ def phase_train(base_cfg):
     from repro_torch.kernels.brgemm import matmul_cuda
     from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_cuda, reset_flash_counts)
+        flash_attention_bwd_cuda, flash_attention_cuda,
+        reset_flash_bwd_counts, reset_flash_counts)
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
     counters = {"matmul": matmul_cuda, "flash_attention": flash_attention_cuda,
@@ -1239,6 +1306,7 @@ def phase_train(base_cfg):
             c.launches = 0
         reset_matmul_counts()
         reset_flash_counts()
+        reset_flash_bwd_counts()
         losses, step_s = [], []
         for batch in batches:
             t0 = time.perf_counter()
@@ -1254,8 +1322,9 @@ def phase_train(base_cfg):
             raise AssertionError(f"train launch counts {launches} != "
                                  f"{expect}")
         by_mainloop = {**mainloop_check(dtype, launches["matmul"]),
-                       **flash_mainloop_check(dtype,
-                                              launches["flash_attention"])}
+                       **flash_mainloop_check(
+                           dtype, launches["flash_attention"],
+                           launches["flash_attention_bwd"])}
 
         plain_step = ts.make_train_step(cfg, ocfg)
         torch.cuda.reset_peak_memory_stats()
@@ -1658,9 +1727,13 @@ def phase_brgemm():
         if launches != expect:
             raise AssertionError(f"brgemm launch counts {launches} != "
                                  f"{expect}")
-        by_mainloop = counted_mainloops(batched_matmul_cuda,
-                                        "batched_matmul", dtype,
-                                        launches["batched_matmul"])
+        by_mainloop = {
+            **counted_mainloops(batched_matmul_cuda, "batched_matmul", dtype,
+                                launches["batched_matmul"]),
+            **counted_mainloops(brgemm_stacked_cuda, "brgemm_stacked", dtype,
+                                launches["brgemm_stacked"]),
+            "brgemm_stacked_split_launches":
+                brgemm_stacked_cuda.split_launches}
         want = run("torch")
         if {k: c.launches for k, c in counters.items()} != expect:
             raise AssertionError("the plain brgemm run launched a kernel")
@@ -2050,6 +2123,7 @@ def phase_times(cfg, card):
     from repro_torch.kernels.flash_attention import (
         delta_rowsum_cuda, delta_rowsum_ref, flash_attention_bwd_cuda,
         flash_attention_bwd_ref, flash_attention_cuda, mha_ref)
+    from repro_torch.kernels.flash_attention import bwd as FB
     from repro_torch.kernels.flash_attention import kernel as FK
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     dtype, rows = torch.bfloat16, []
@@ -2114,9 +2188,11 @@ def phase_times(cfg, card):
     plain, _ = time_ms(flash_attention_bwd_ref, bwd_sets)
     lib, _ = time_ms(lambda out, leaves, dy: torch.autograd.grad(
         out, leaves, dy, retain_graph=True), lib_sets)
+    q, k, v, o, _, dy = bwd_sets[0]
     row("flash_attention_bwd", "train", ms, wall, 10 * b * hq * pairs * d,
         nbytes, plain, lib, {"train": cfg.n_layers * TRAIN_STEPS},
-        q=[b, hq, t, d], kv=[b, hkv, t, d])
+        q=[b, hq, t, d], kv=[b, hkv, t, d],
+        mainloop=FB.plan_call(q, k, v, o, dy))
     # No single PyTorch call takes bf16 y, dy to an fp32 rowsum.
     ysets = [(o, dy) for _, _, _, o, _, dy in bwd_sets]
     ms, wall = time_ms(delta_rowsum_cuda, ysets)
@@ -2156,7 +2232,8 @@ def phase_times_paper(card):
                                             batched_matmul_ref, brgemm_ref,
                                             brgemm_stacked_cuda, matmul_cuda,
                                             matmul_ref)
-    from repro_torch.kernels.brgemm.kernel import plan_batched_call
+    from repro_torch.kernels.brgemm.kernel import (plan_batched_call,
+                                                   plan_stacked_call)
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
     from repro_torch.kernels.conv2d.ops import patches
     from repro_torch.models.resnet import ResNetCfg
@@ -2254,8 +2331,10 @@ def phase_times_paper(card):
         plain, _ = time_ms(lambda a, b, g: brgemm_ref(a, b), bsets)
         lib, _ = time_ms(lambda a, b, g: torch.einsum("imk,ikn->mn", a, b),
                          bsets)
+        p = plan_stacked_call(*bsets[0][:2])
         row("brgemm_stacked", case, ms, wall, flops, nbytes, plain, lib,
-            {"brgemm": 1}, batch=nb, m=m, k=k, n=n)
+            {"brgemm": 1}, batch=nb, m=m, k=k, n=n, mainloop=p.mainloop,
+            bm=p.bm, splits=p.splits)
         # batched_matmul's own call, then brgemm's backward: g broadcast,
         # B^T and A^T read in place.
         for name, make, mats in (

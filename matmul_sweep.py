@@ -1,5 +1,6 @@
 """Time the matmul kernel at every GEMM shape of the port's main paths, the
-flash forward at the prefill shape and batched_matmul at the paper's cases.
+flash forward at the prefill shape, the flash backward at the training
+shape, and batched_matmul and brgemm_stacked at the paper's cases.
 
     python3 matmul_sweep.py [--src DIR] [--label NAME] [--variants]
 
@@ -8,12 +9,16 @@ and training GEMMs (chip_smoke.py's main_path_gemms and train_gemms),
 ResNet-50's weight gradients at N = 32 through the package's own window
 operand (conv2d.ops.patches) and its head; the flash forward on the
 attention layer's head-split views at the prefill shape (B = 8, Hq = 9,
-Hkv = 3, T = 512, d = 64, causal); batched_matmul at each of
+Hkv = 3, T = 512, d = 64, causal); the flash backward at the training
+shape (the same views, B = 8, T = 512, from the forward kernel's residuals,
+dY a view of the merged heads' gradient); batched_matmul at each of
 chip_smoke.py's BRGEMM_CASES, as batched_matmul's own call and as brgemm's
-backward's two products (g broadcast with B_i^T, A_i^T with g).  Per shape:
-the device time of a call (a CUDA graph of calls, operands cycled past the
-L2, chip_smoke.time_ms) beside one PyTorch call's on the same inputs
-(torch.matmul, or scaled_dot_product_attention) and the bound; the wall
+backward's two products (g broadcast with B_i^T, A_i^T with g), and
+brgemm_stacked at each.  Per shape: the device time of a call (a CUDA graph
+of calls, operands cycled past the L2, chip_smoke.time_ms) beside one
+PyTorch call's on the same inputs (torch.matmul, scaled_dot_product_attention,
+its backward through autograd, whose kernels the profiler names, or
+torch.einsum) and the bound; the wall
 time a call back to back (CUDA events: where the device time is small, the
 host's cost of a call); the plan the package chose.  --src imports
 repro_torch from another checkout's src, so that an earlier commit's
@@ -114,6 +119,72 @@ def flash_rows(args, card, gen, cfg):
     print(json.dumps(rec), flush=True)
 
 
+def flash_bwd_rows(args, card, gen, cfg):
+    """The flash backward at the training shape, beside SDPA's backward
+    (autograd of scaled_dot_product_attention, which a CUDA graph cannot
+    capture: the profiler's sum of its kernels, named in the row)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import bwd as FB
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    b, hq, hkv, t, d = CS.TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, \
+        CS.TRAIN_SEQ, cfg.dh
+    q_bytes, kv_bytes = 2 * b * hq * t * d, 2 * b * hkv * t * d
+    # q, k, v, y, dY and lse in; dq, dk, dv out
+    nbytes = 4 * q_bytes + 4 * kv_bytes + 4 * b * hq * t
+    sets, lib_sets = [], []
+    for _ in range(CS.n_sets(nbytes)):
+        q, k, v, dy = CS.qkv_views(b, hq, hkv, t, d, torch.bfloat16, gen)
+        o, lse = flash_attention_cuda(q, k, v, return_residuals=True)
+        sets.append((q, k, v, o, lse, dy))
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        lib_sets.append((out, leaves, dy))
+    ms, wall = CS.time_ms(FB.flash_attention_bwd_cuda, sets)
+
+    def sdpa_bwd(out, leaves, dy):
+        return torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+    lib, _ = CS.time_ms(sdpa_bwd, lib_sets)
+    by_name = CS.device_ms_by_kernel(
+        lambda: [sdpa_bwd(*x) for x in lib_sets], len(lib_sets))
+    bms, by = CS.bound(10 * b * hq * (t * (t + 1) // 2) * d, nbytes, card)
+    rec = {"label": args.label, "kernel": "flash_attention_bwd",
+           "shape": f"train q{[b, hq, t, d]} kv{[b, hkv, t, d]} causal",
+           "ms": ms, "wall_ms": wall, "library_ms": lib, "ratio": ms / lib,
+           "bound_ms": bms, "bound_by": by,
+           "library_kernels_ms": {k[:90]: v for k, v in by_name.items()}}
+    if hasattr(FB, "plan_call"):
+        rec["plan"] = {"mainloop": FB.plan_call(*sets[0][:4], sets[0][5])}
+    print(json.dumps(rec), flush=True)
+
+
+def stacked_rows(args, card, gen):
+    """brgemm_stacked at each of BRGEMM_CASES, beside torch.einsum."""
+    from repro_torch.kernels.brgemm import kernel as K
+    bf = torch.bfloat16
+    for nb, m, k, n in CS.BRGEMM_CASES:
+        nbytes = 2 * (nb * m * k + nb * k * n + m * n)
+        sets = [(torch.randn(nb, m, k, device="cuda", generator=gen).to(bf),
+                 (torch.randn(nb, k, n, device="cuda", generator=gen)
+                  * (nb * k) ** -0.5).to(bf))
+                for _ in range(CS.n_sets(nbytes))]
+        ms, wall = CS.time_ms(K.brgemm_stacked_cuda, sets)
+        lib, _ = CS.time_ms(lambda a, b: torch.einsum("imk,ikn->mn", a, b),
+                            sets)
+        bms, by = CS.bound(2 * nb * m * k * n, nbytes, card)
+        rec = {"label": args.label, "kernel": "brgemm_stacked",
+               "shape": f"B{nb} m{m} k{k} n{n}", "ms": ms, "wall_ms": wall,
+               "library_ms": lib, "ratio": ms / lib, "bound_ms": bms,
+               "bound_by": by}
+        if hasattr(K, "plan_stacked_call"):
+            p = K.plan_stacked_call(*sets[0])
+            rec["plan"] = {"mainloop": p.mainloop, "bm": p.bm,
+                           "splits": p.splits, "chunk": p.chunk}
+        print(json.dumps(rec), flush=True)
+        del sets
+
+
 def batched_rows(args, card, gen):
     """batched_matmul at each of BRGEMM_CASES, its own call and brgemm's
     backward's two products, beside torch.matmul."""
@@ -202,7 +273,9 @@ def main():
         print(json.dumps(rec), flush=True)
         del sets
     flash_rows(args, card, gen, get("smollm-135m"))
+    flash_bwd_rows(args, card, gen, get("smollm-135m"))
     batched_rows(args, card, gen)
+    stacked_rows(args, card, gen)
     print(card, flush=True)
 
 

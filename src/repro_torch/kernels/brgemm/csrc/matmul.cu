@@ -29,9 +29,10 @@
 // tiles to fill 132 SMs.  The plan then cuts k into `splits` runs of
 // `chunk` slices (blockIdx.z), each block writes its fp32 partial tile to
 // a workspace the wrapper allocates, and a second kernel adds the partials
-// in split order, with no atomics, and runs the epilogue once: the result
-// does not change from run to run.  One split runs the epilogue in the
-// GEMM kernel itself.
+// in split order, with no atomics, and runs the epilogue once
+// (include/repro_gemm_sm90.cuh's splitk_reduce_kernel): the result does not
+// change from run to run.  One split runs the epilogue in the GEMM kernel
+// itself.
 //
 // What bounds it on an H100: prefill and training's token-major GEMMs
 // (m = 4096) sit at or above the bf16 ridge (~295 FLOP a byte) and are
@@ -96,28 +97,6 @@ matmul_simt_kernel(Operand x, Operand w, Sink sink, int k, int chunk) {
   });
 }
 
-// ---------------------------------------------------------------------------
-// Split-K: the partials of each output element summed in split order, then
-// the epilogue, once.  Bytes bound it (splits fp32 reads an element).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
-splitk_reduce_kernel(const float* __restrict__ ws, Epilogue e, int m, int n,
-                     int splits) {
-  const long long mn = (long long)m * n;
-  with_act(e.act, [&](auto act) {
-    for (long long i = blockIdx.x * 256LL + threadIdx.x; i < mn;
-         i += (long long)gridDim.x * 256) {
-      float acc = ws[i];
-      for (int s = 1; s < splits; ++s) acc += ws[s * mn + i];
-      const long long row = i / n;
-      const int col = (int)(i % n);
-      acc = epilogue<decltype(act)::value>(e, acc, row, col);
-      if (e.out_f32) static_cast<float*>(e.out)[i] = acc;
-      else static_cast<bf16*>(e.out)[i] = __float2bfloat16(acc);
-    }
-  });
-}
-
 // x: (m, k) either row-major (x_trans = 0, element (mm, kk) at
 // mm * ldx + kk) or column-major (x_trans = 1, element at kk * ldx + mm).
 // w: (k, n) either row-major (w_trans = 0, element (kk, nn) at
@@ -152,8 +131,8 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias,
     ok = ok && (w_trans ? sm90::tensor_map_bf16(&tw, w, k, n, ldw, wg::BN)
                         : sm90::tensor_map_bf16(&tw, w, n, k, ldw, 64));
     if (!ok) return (int)cudaErrorInvalidValue;
-    rc = wg::launch<false>(bm, x_trans, !w_trans, tx, tw, 0, 0, sink, k,
-                           splits, chunk, s);
+    rc = wg::launch<wg::SPLIT_K>(bm, x_trans, !w_trans, tx, tw, 0, 0, sink,
+                                 k, splits, chunk, 1, s);
   } else {
     Operand ox{x, 0, ldx, x_trans, vec_x}, ow{w, 0, ldw, w_trans, vec_w};
     dim3 grid(cdiv(n, 64), cdiv(m, 64), splits);
@@ -164,14 +143,8 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias,
                                                         chunk);
     rc = (int)cudaGetLastError();
   }
-  if (rc == 0 && splits > 1) {
-    const long long mn = (long long)m * n;
-    const int blocks = (int)(mn < 132 * 16 * 256LL ? (mn + 255) / 256
-                                                   : 132 * 16);
-    splitk_reduce_kernel<<<blocks, 256, 0, s>>>(static_cast<float*>(ws), e,
-                                                 m, n, splits);
-    rc = (int)cudaGetLastError();
-  }
+  if (rc == 0 && splits > 1)
+    rc = wg::reduce_splits(static_cast<const float*>(ws), e, m, n, splits, s);
   return rc;
 }
 

@@ -12,10 +12,12 @@ for bf16 operands that TMA can describe, ``wmma`` for other bf16 operands,
 ``simt`` for fp32), its tile, and how many runs of k (``splits``) the
 reduction is cut into so that few output tiles still fill the card.
 ``plan_batched`` decides ``batched_matmul_cuda``'s mainloop and tile the
-same way (one run of k: the batch fills the card).
-``matmul_cuda.mainloops`` and ``batched_matmul_cuda.mainloops`` count the
-calls by mainloop, ``matmul_cuda.split_launches`` the calls that also
-launched the split-K reduction; ``reset_matmul_counts`` zeroes them.
+same way (one run of k: the batch fills the card), and ``plan_stacked``
+``brgemm_stacked_cuda``'s, splitting the flattened (entry, k-slice) axis
+as ``plan`` splits k.  ``.mainloops`` of each of the three wrappers counts
+its calls by mainloop, ``.split_launches`` of ``matmul_cuda`` and
+``brgemm_stacked_cuda`` the calls that also launched the split-K
+reduction; ``reset_matmul_counts`` zeroes them.
 """
 from __future__ import annotations
 
@@ -72,11 +74,17 @@ def plan(m: int, n: int, k: int, is_bf16: bool, tma: bool) -> Plan:
     if mainloop == "wgmma" and m <= 64:
         bm = 64
     tiles = -(-m // bm) * -(-n // bn)
-    slices = -(-k // bk)
+    splits, chunk = _split(tiles, -(-k // bk), bk, per_sm)
+    return Plan(mainloop, bm, bk, splits, chunk, tiles)
+
+
+def _split(tiles: int, slices: int, bk: int, per_sm: int) -> tuple[int, int]:
+    """(splits, chunk): ``slices`` slices of a reduction cut into equal runs
+    of ``chunk`` whole slices, no shorter than MIN_SPLIT_K, while ``tiles``
+    output tiles alone leave SMs idle, until the blocks fill them once."""
     splits = max(1, min(SMS * per_sm // tiles, slices // (MIN_SPLIT_K // bk)))
     chunk = max(1, -(-slices // splits))
-    splits = max(1, -(-slices // chunk))
-    return Plan(mainloop, bm, bk, splits, chunk, tiles)
+    return max(1, -(-slices // chunk)), chunk
 
 
 @functools.cache
@@ -96,7 +104,8 @@ def _batched_lib():
     lib = _build.load("brgemm_batched")
     operands = [_P, _LL, _LL, _I, _I] * 2
     lib.repro_brgemm_stacked.argtypes = operands + [
-        _P, _P, _LL, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P]
+        _P, _P, _LL, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _P, _P]
     lib.repro_batched_matmul.argtypes = operands + [
         _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P]
     for fn in (lib.repro_brgemm_stacked, lib.repro_batched_matmul):
@@ -144,6 +153,22 @@ def plan_batched(m: int, n: int, k: int, is_bf16: bool, tma: bool) -> Plan:
     entries fill the card; no split).  ``tiles``: output tiles an entry."""
     p = plan(m, n, k, is_bf16, tma)
     return dataclasses.replace(p, splits=1, chunk=max(1, -(-k // p.bk)))
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_stacked(nb: int, m: int, n: int, k: int, is_bf16: bool,
+                 tma: bool) -> Plan:
+    """How ``brgemm_stacked_cuda`` runs sum_i (m, k) @ (k, n) over ``nb``
+    entries: ``plan``'s mainloop and tile for one entry.  On wgmma the
+    reduction is the flattened (entry, k-slice) axis of nb * ceil(k / bk)
+    slices, split as ``plan`` splits k; the wmma and simt tiles walk it
+    whole, in one block an output tile.  ``chunk``: slices a split."""
+    p = plan(m, n, k, is_bf16, tma and nb > 0)
+    slices = nb * -(-k // p.bk)
+    if p.mainloop != "wgmma":
+        return dataclasses.replace(p, splits=1, chunk=max(1, slices))
+    splits, chunk = _split(p.tiles, slices, p.bk, _TILES["wgmma"][3])
+    return dataclasses.replace(p, splits=splits, chunk=chunk)
 
 
 def plan_call(x: torch.Tensor, w: torch.Tensor) -> Plan:
@@ -231,9 +256,11 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
 
 
 def reset_matmul_counts(fn=None):
-    """Zero the counters of ``matmul_cuda`` and ``batched_matmul_cuda`` (or
-    those of a stand-in ``fn`` bound to matmul's name, alone)."""
-    for f in (fn,) if fn is not None else (matmul_cuda, batched_matmul_cuda):
+    """Zero the counters of ``matmul_cuda``, ``batched_matmul_cuda`` and
+    ``brgemm_stacked_cuda`` (or those of a stand-in ``fn`` bound to
+    matmul's name, alone)."""
+    for f in (fn,) if fn is not None else (matmul_cuda, batched_matmul_cuda,
+                                           brgemm_stacked_cuda):
         f.launches = f.split_launches = 0
         f.mainloops = dict.fromkeys(MAINLOOPS, 0)
 
@@ -269,6 +296,15 @@ def plan_batched_call(a: torch.Tensor, b: torch.Tensor) -> Plan:
                         _batched_tma(a, oa) and _batched_tma(b, ob))
 
 
+def plan_stacked_call(a: torch.Tensor, b: torch.Tensor) -> Plan:
+    """The plan of ``brgemm_stacked_cuda(a, b)``, from the operands' shapes,
+    type, layouts and alignment (the kernel itself is not touched)."""
+    oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
+    return plan_stacked(a.size(0), a.size(1), b.size(2), a.size(2),
+                        a.dtype == torch.bfloat16,
+                        _batched_tma(a, oa) and _batched_tma(b, ob))
+
+
 def _flags(a, out_dtype, *epilogue):
     return [int(a.dtype == torch.bfloat16), int(out_dtype == torch.float32),
             *(int(t is not None and t.dtype == torch.float32)
@@ -300,16 +336,24 @@ def brgemm_stacked_cuda(a, b, bias=None, c0=None, *,
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
+    oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
+    p = plan_stacked(nb, m, n, k, a.dtype == torch.bfloat16,
+                     _batched_tma(a, oa) and _batched_tma(b, ob))
+    ws = (torch.empty(p.splits * m * n, dtype=torch.float32, device=a.device)
+          if p.splits > 1 else None)
     lib = _batched_lib()
     rc = lib.repro_brgemm_stacked(
-        *_batched_operand(a, "a"), *_batched_operand(b, "b"),
-        bias.data_ptr() if bias is not None else None,
+        *oa, *ob, bias.data_ptr() if bias is not None else None,
         c0.data_ptr() if has_c0 else None, _row_stride(c0) if has_c0 else 0,
         out.data_ptr(), nb, m, n, k, float(alpha), float(beta),
         fusion.code(activation), *_flags(a, out_dtype, bias, c0),
+        MAINLOOPS.index(p.mainloop), p.bm, p.splits, p.chunk,
+        ws.data_ptr() if ws is not None else None,
         torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, lib, "brgemm_stacked")
     brgemm_stacked_cuda.launches += 1
+    brgemm_stacked_cuda.mainloops[p.mainloop] += 1
+    brgemm_stacked_cuda.split_launches += p.splits > 1
     return out
 
 
@@ -353,5 +397,4 @@ def batched_matmul_cuda(a, b, bias=None, *, activation: str = "none",
     return out
 
 
-brgemm_stacked_cuda.launches = 0
 reset_matmul_counts()

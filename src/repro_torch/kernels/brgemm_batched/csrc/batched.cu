@@ -29,17 +29,28 @@
 //   * wmma (bf16 operands TMA cannot describe): the 64 x 64 tile of
 //     repro_tile.cuh, blockIdx.z the entry.
 //   * simt (fp32): the same tile on FMA, no TF32.
-// brgemm_stacked keeps the 64 x 64 tile (wmma for bf16, FMA for fp32): its
-// loop runs over every batch entry and k-block, so C is written once, never
-// re-read between entries (the paper's point against a loop of GEMMs).
+// brgemm_stacked runs the same three mainloops, planned by
+// kernel.py::plan_stacked:
+//   * wgmma: the same mainloop and epilogue with the batch folded into the
+//     reduction (the header's STACKED walk): a block's producer walks the
+//     flattened (entry, k-slice) axis of nb * ceil(k / 64) slices through
+//     3-D boxes, the entry the outer coordinate, so each entry's ragged k
+//     ends in TMA's zero fill, and the walk ends in one epilogue (alpha,
+//     beta * C0, bias, activation): C is written once, never re-read
+//     between entries (the paper's point against a loop of GEMMs).  Where
+//     the output has few tiles (the paper's cases: one), the plan splits
+//     that axis as matmul's k is split (runs of at least 8 slices, at most
+//     one wave of blocks); the fp32 partials are added in split order by
+//     the header's reduction.
+//   * wmma / simt: the 64 x 64 tile of repro_tile.cuh walking every entry
+//     and k-block in one block.
 //
 // What bounds it on an H100: the paper's shapes (m, n <= 128, k <= 256,
-// B <= 64) make few output tiles (16-64 blocks of 128 x 128 or 64 x 128
-// on 132 SMs), each a short serial walk of 1-4 slices of k: their time is
-// the latency of a launch, a ring fill and an epilogue, not the card's
-// rates.  The (8, 4096, 1024, 1024) case fills the card (8 x 256 tiles of
-// 128 x 128) and is tensor-core bound in bf16, as matmul's token-major
-// shapes are.
+// B <= 64) make few output tiles: their time is the latency of a launch,
+// a ring fill and an epilogue (and, split, the partials' reduction), not
+// the card's rates.  The (8, 4096, 1024, 1024) case fills the card (256
+// stacked tiles of 128 x 128, or 8 x 256 batched ones) and is tensor-core
+// bound in bf16, as matmul's token-major shapes are.
 #include "repro_gemm_sm90.cuh"
 
 using namespace repro;
@@ -104,33 +115,6 @@ batched_matmul_f32_kernel(Operand a, Operand b, Epilogue e, int m, int n,
   tile_f32(a, b, e, m, n, k, blockIdx.z, 1, (long long)blockIdx.z * m);
 }
 
-// Operand entry i: element (row, col) at p + i * bstride + row * ld + col
-// (trans = 0) or p + i * bstride + col * ld + row (trans = 1); bstride = 0
-// broadcasts one matrix to every entry.  vec: 16-byte loads are safe
-// (bf16 only: aligned base, ld and bstride multiples of 8).  bias / c0 may
-// be null; c0 has row stride ldc0.  Each returns the launch's
-// cudaGetLastError().
-extern "C" int repro_brgemm_stacked(
-    const void* a, long long sa, long long lda, int a_trans, int vec_a,
-    const void* b, long long sb, long long ldb, int b_trans, int vec_b,
-    const void* bias, const void* c0, long long ldc0, void* out, int nb,
-    int m, int n, int k, float alpha, float beta, int act, int is_bf16,
-    int out_f32, int bias_f32, int c0_f32, void* stream) {
-  if (act < 0 || act >= N_ACT) return (int)cudaErrorInvalidValue;
-  Operand oa{a, sa, lda, a_trans, vec_a}, ob{b, sb, ldb, b_trans, vec_b};
-  Epilogue e{out, bias, c0, n, ldc0, alpha, beta, act, out_f32, bias_f32,
-             c0_f32};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(cdiv(n, 64), cdiv(m, 64));
-  if (is_bf16)
-    brgemm_stacked_bf16_kernel<<<grid, tc::THREADS, 0, st>>>(oa, ob, e, nb,
-                                                             m, n, k);
-  else
-    brgemm_stacked_f32_kernel<<<grid, simt::THREADS, 0, st>>>(oa, ob, e, nb,
-                                                              m, n, k);
-  return (int)cudaGetLastError();
-}
-
 // kernel.py::MAINLOOPS, in order.
 enum Mainloop { WGMMA = 0, WMMA = 1, SIMT = 2 };
 
@@ -142,6 +126,68 @@ static bool operand_map(CUtensorMap* map, const void* p, uint64_t inner,
   return bstride ? sm90::tensor_map_bf16_3d(map, p, inner, rows, ld, nb,
                                             bstride, box_rows)
                  : sm90::tensor_map_bf16(map, p, inner, rows, ld, box_rows);
+}
+
+// The wgmma operands' maps: A rows of m (a_trans) or of k; B rows of k
+// (row-major) or of n.
+static bool operand_maps(CUtensorMap* ta, CUtensorMap* tb, const void* a,
+                         long long sa, long long lda, int a_trans,
+                         const void* b, long long sb, long long ldb,
+                         int b_trans, int nb, int m, int n, int k, int bm) {
+  const bool ok = a_trans ? operand_map(ta, a, m, k, lda, sa, nb, 64)
+                          : operand_map(ta, a, k, m, lda, sa, nb, bm);
+  return ok && (b_trans ? operand_map(tb, b, k, n, ldb, sb, nb, wg::BN)
+                        : operand_map(tb, b, n, k, ldb, sb, nb, 64));
+}
+
+// Operand entry i: element (row, col) at p + i * bstride + row * ld + col
+// (trans = 0) or p + i * bstride + col * ld + row (trans = 1); bstride = 0
+// broadcasts one matrix to every entry.  vec: 16-byte loads are safe
+// (bf16 only: aligned base, ld and bstride multiples of 8).  bias / c0 may
+// be null; c0 has row stride ldc0.  Each returns the launches' first
+// cudaGetLastError(), or 0.
+//
+// brgemm_stacked's plan (kernel.py::plan_stacked): mainloop (0 wgmma, 1
+// wmma, 2 simt); for wgmma bm (64 or 128), splits and chunk (slices of the
+// nb * ceil(k / 64) stacked slices a split) and ws, a (splits, m, n) fp32
+// workspace when splits > 1.
+extern "C" int repro_brgemm_stacked(
+    const void* a, long long sa, long long lda, int a_trans, int vec_a,
+    const void* b, long long sb, long long ldb, int b_trans, int vec_b,
+    const void* bias, const void* c0, long long ldc0, void* out, int nb,
+    int m, int n, int k, float alpha, float beta, int act, int is_bf16,
+    int out_f32, int bias_f32, int c0_f32, int mainloop, int bm, int splits,
+    int chunk, void* ws, void* stream) {
+  if (act < 0 || act >= N_ACT || (mainloop == SIMT) == (is_bf16 != 0) ||
+      (mainloop == WGMMA &&
+       ((bm != 64 && bm != 128) || k < 1 || nb < 1 || splits < 1 ||
+        chunk < 1 || (splits > 1 && ws == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  Epilogue e{out, bias, c0, n, ldc0, alpha, beta, act, out_f32, bias_f32,
+             c0_f32};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mainloop == WGMMA) {
+    CUtensorMap ta, tb;
+    if (!operand_maps(&ta, &tb, a, sa, lda, a_trans, b, sb, ldb, b_trans,
+                      nb, m, n, k, bm))
+      return (int)cudaErrorInvalidValue;
+    float* wsf = splits > 1 ? static_cast<float*>(ws) : nullptr;
+    int rc = wg::launch<wg::STACKED>(bm, a_trans, !b_trans, ta, tb, sa != 0,
+                                     sb != 0, Sink{e, wsf, m, n}, k, splits,
+                                     chunk, nb, st);
+    if (rc == 0 && splits > 1) rc = wg::reduce_splits(wsf, e, m, n, splits,
+                                                      st);
+    return rc;
+  }
+  Operand oa{a, sa, lda, a_trans, vec_a}, ob{b, sb, ldb, b_trans, vec_b};
+  dim3 grid(cdiv(n, 64), cdiv(m, 64));
+  if (mainloop == WMMA)
+    brgemm_stacked_bf16_kernel<<<grid, tc::THREADS, 0, st>>>(oa, ob, e, nb,
+                                                             m, n, k);
+  else
+    brgemm_stacked_f32_kernel<<<grid, simt::THREADS, 0, st>>>(oa, ob, e, nb,
+                                                              m, n, k);
+  return (int)cudaGetLastError();
 }
 
 // mainloop: 0 wgmma (bm: its tile rows, 64 or 128), 1 wmma, 2 simt.
@@ -158,16 +204,13 @@ extern "C" int repro_batched_matmul(
              0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mainloop == WGMMA) {
-    // A: rows of m (a_trans) or of k; B: rows of k (row-major) or of n.
     CUtensorMap ta, tb;
-    bool ok = a_trans ? operand_map(&ta, a, m, k, lda, sa, nb, 64)
-                      : operand_map(&ta, a, k, m, lda, sa, nb, bm);
-    ok = ok && (b_trans ? operand_map(&tb, b, k, n, ldb, sb, nb, wg::BN)
-                        : operand_map(&tb, b, n, k, ldb, sb, nb, 64));
-    if (!ok) return (int)cudaErrorInvalidValue;
-    return wg::launch<true>(bm, a_trans, !b_trans, ta, tb, sa != 0, sb != 0,
-                            Sink{e, nullptr, m, n}, k, nb, cdiv(k, wg::BK),
-                            st);
+    if (!operand_maps(&ta, &tb, a, sa, lda, a_trans, b, sb, ldb, b_trans,
+                      nb, m, n, k, bm))
+      return (int)cudaErrorInvalidValue;
+    return wg::launch<wg::PER_ENTRY>(bm, a_trans, !b_trans, ta, tb, sa != 0,
+                                     sb != 0, Sink{e, nullptr, m, n}, k, nb,
+                                     cdiv(k, wg::BK), nb, st);
   }
   Operand oa{a, sa, lda, a_trans, vec_a}, ob{b, sb, ldb, b_trans, vec_b};
   dim3 grid(cdiv(n, 64), cdiv(m, 64), nb);

@@ -3,6 +3,7 @@ dispatched entries."""
 from repro_torch.kernels.flash_attention.bwd import (  # noqa: F401
     delta_rowsum_cuda,
     flash_attention_bwd_cuda,
+    reset_flash_bwd_counts,
 )
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: F401
     flash_attention_cuda,

@@ -6,10 +6,17 @@ than after it; the library is built at first use (``kernels/_build.py``).
 
 ``flash_attention_bwd_cuda`` makes two launches per call (dQ with delta
 fused in, then dK / dV) and counts one call in
-``flash_attention_bwd_cuda.launches``; ``delta_rowsum_cuda`` launches the
-standalone delta pass and counts it in ``delta_rowsum_cuda.launches``.
-q, k, v, y and dy are read through their (batch, head, time) strides, so
-the attention layer's transposed views need no ``.contiguous()`` copy.
+``flash_attention_bwd_cuda.launches``, and the call by mainloop in
+``flash_attention_bwd_cuda.mainloops`` (``reset_flash_bwd_counts`` zeroes
+both); ``delta_rowsum_cuda`` launches the standalone delta pass and counts
+it in ``delta_rowsum_cuda.launches``.  q, k, v, y and dy are read through
+their (batch, head, time) strides, so the attention layer's transposed
+views need no ``.contiguous()`` copy.
+
+``plan_call`` picks a call's mainloop as the forward's plan does:
+``wgmma`` (TMA and wgmma, the gradients in registers) for bf16 q, k, v, y
+and dy that TMA can describe, ``wmma`` for other bf16 views, ``simt``
+(FMA, no TF32) for fp32.
 """
 from __future__ import annotations
 
@@ -19,7 +26,9 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, _strides
+from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, MAINLOOPS,
+                                                       _strides, _tma_legal,
+                                                       _tma_strides, plan)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.c_longlong * 15
@@ -31,6 +40,9 @@ def _lib():
     lib.repro_flash_bwd.argtypes = ([_P] * 10 + [_I] * 6
                                     + [_P, _I, _I, _F, _I, _P])
     lib.repro_flash_bwd.restype = ctypes.c_int
+    lib.repro_flash_bwd_wgmma.argtypes = ([_P] * 10 + [_I] * 6
+                                          + [_P, _I, _I, _F, _P, _P])
+    lib.repro_flash_bwd_wgmma.restype = ctypes.c_int
     lib.repro_delta_rowsum.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _I,
                                        _P]
     lib.repro_delta_rowsum.restype = ctypes.c_int
@@ -51,6 +63,14 @@ def _check_rows(name, t, like):
         raise ValueError(f"flash_attention_bwd_cuda needs {name} shaped, "
                          f"typed and placed like q, got {tuple(t.shape)} "
                          f"{t.dtype} on {t.device}")
+
+
+def plan_call(q, k, v, y, dy) -> str:
+    """The plan of ``flash_attention_bwd_cuda(q, k, v, y, lse, dy)`` from
+    the views' type, strides and alignment (the kernels are not touched);
+    no key at all stays off wgmma."""
+    return plan(q.dtype == torch.bfloat16,
+                k.size(2) > 0 and all(_tma_legal(t) for t in (q, k, v, y, dy)))
 
 
 def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
@@ -105,20 +125,40 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
                   for t in (q, k, v))
     delta = alloc(lse)
     if q.numel() and k.numel():
+        mainloop = plan_call(q, k, v, y, dy)
         lib = _lib()
-        _check(lib.repro_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
-            dy.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, hq, hkv, tq, tk, d, strides,
-            int(causal), -1 if window is None else int(window), float(scale),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream),
-            "flash_attention_bwd", lib)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
+                dy.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, tq,
+                tk, d)
+        tail = (int(causal), -1 if window is None else int(window),
+                float(scale))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if mainloop == "wgmma":
+            tma = _STRIDES(*(s for t in (q, k, v, y, dy)
+                             for s in _tma_strides(t)))
+            # (lse * log2 e, delta) of every row, Tq padded to the 64-row
+            # tile: kernel A writes it, kernel B reads a tile's in one copy.
+            stats = torch.empty(b * hq * -(-tq // 64) * 128,
+                                dtype=torch.float32, device=q.device)
+            rc = lib.repro_flash_bwd_wgmma(*args, tma, *tail,
+                                           stats.data_ptr(), stream)
+        else:
+            rc = lib.repro_flash_bwd(*args, strides, *tail,
+                                     int(q.dtype == torch.bfloat16), stream)
+        _check(rc, "flash_attention_bwd", lib)
         flash_attention_bwd_cuda.launches += 1
+        flash_attention_bwd_cuda.mainloops[mainloop] += 1
     return (dq, dk, dv, delta) if return_delta else (dq, dk, dv)
 
 
-flash_attention_bwd_cuda.launches = 0
+def reset_flash_bwd_counts():
+    """Zero ``flash_attention_bwd_cuda``'s calls and calls by mainloop."""
+    flash_attention_bwd_cuda.launches = 0
+    flash_attention_bwd_cuda.mainloops = dict.fromkeys(MAINLOOPS, 0)
+
+
+reset_flash_bwd_counts()
 
 
 def delta_rowsum_cuda(y, dy):

@@ -22,8 +22,46 @@
 // Causal and window tiles that hold no live pair are never visited: the
 // loop bounds start and end at the live tiles, as in the forward.
 //
-// Masking happens before the exponential: a pair outside the mask, a row
-// past Tq, or a key past Tk gives p = 0 without evaluating exp.  A row with
+// Each call runs one of three mainloops, planned by the wrapper
+// (flash_attention/bwd.py::plan_call), as the forward's are:
+//   * wgmma (bf16 q, k, v, y, dy that TMA can describe; the training
+//     path's case).  A producer warp feeds a ring by TMA, from 4-D tensor
+//     maps over (d, t, h, b) with the views' own strides, as the forward
+//     does; consumer warpgroups run every product on wgmma with the sums in
+//     registers.
+//     Kernel A (one consumer warpgroup, three blocks an SM for d <= 64):
+//     the block's Q, dY and Y tiles arrive once and delta comes from the
+//     last two in shared memory; K and V tiles of 64 keys stream through
+//     the ring.  S = Q K^T and dP = dY V^T are m64n64k16 with both operands
+//     K-major in shared memory; P = 2^(S * scale * log2 e - lse * log2 e)
+//     (one MUFU ex2) and dS are computed on the fragments; dS, packed to
+//     bf16 in the accumulator's own layout, is the register A operand of
+//     dQ += dS K, K the MN-major B operand.  It also writes each row's
+//     (lse * log2 e, delta) pair, +inf and 0 past Tq, into a scratch that
+//     kernel B reads a tile at a time.
+//     Kernel B: K and V of the block's 64 keys stay in shared memory; the
+//     group's Q and dY tiles stream through the ring, each with its 64
+//     (lse, delta) pairs by one 1-D bulk copy.  S^T = K Q^T and dP^T =
+//     V dY^T are SS wgmma, with lse and delta per column; dV += P^T dY and
+//     dK += dS^T Q are RS wgmma with dY and Q the MN-major B operands.  For
+//     d <= 64 two consumer warpgroups take every other step and add their
+//     partial dK, dV in a fixed order at the end, so that the longest
+//     blocks run half as many steps in series.
+//     P and dS never touch shared memory.  Masks are an exponent of -inf,
+//     applied only on the tiles that straddle the diagonal, the window's
+//     edge or Tk.  Both grids put the tile index outermost, heaviest first
+//     (A: the last q tiles, which see the most keys under the causal mask;
+//     B: the first k tiles, which the most q tiles see), so that the long
+//     blocks start in the first wave.  d = 32 reads the forward's
+//     zero-filled 64-wide box.
+//   * wmma (bf16 views TMA cannot describe): the first design below.  Each
+//     warp owns 16 rows; the tiles are loaded by the threads between two
+//     block barriers; S, dP, P and dS go through shared memory between
+//     nvcuda::wmma 16x16x16 products and the elementwise pass.
+//   * simt (fp32): the same block on FMA, not TF32, so fp32 parity holds.
+//
+// Masking happens before the exponential: a pair outside the mask or a key
+// past Tk gives p = 0 without evaluating exp.  A row with
 // no valid key (lse NEG_INF; it occurs only windowed with Tq >= Tk +
 // window) is what mha_ref makes it: every score NEG_INF, so the softmax
 // weighs each of the Tk keys 1 / Tk (rounded to V's type, as the forward
@@ -39,18 +77,19 @@
 // What bounds it on an H100: at the training shape (B = 8, Hq = 9,
 // Hkv = 3, T = 512, d = 64, causal) the five products are ~6.1 GFLOP over
 // ~25 MB of q, k, v, y, dy, lse, dq, dk, dv: ~240 FLOP per byte, under the
-// bf16 ridge of ~295, so bytes bound it on paper, but like the forward this
-// kernel is far from either bound: each warp stages S, dP, P and dS through
-// shared memory between wmma products and the elementwise pass.  The bf16
-// path runs all five products on the tensor cores (nvcuda::wmma 16x16x16,
-// fp32 accumulate); the fp32 path runs plain FMA, not TF32, so fp32 parity
-// holds.  Each warp owns 16 rows end to end, so only the tile loads need a
-// block barrier.  wgmma, TMA and a persistent schedule are later work.
+// bf16 ridge of ~295, so bytes bound it on paper (~0.0076 ms).  On the
+// wgmma path the products are a small share of a step: the elementwise
+// pass between a tile's two pairs of products (an exponential and a few
+// FMAs an element, on the SM's issue slots and MUFU) is the largest, and a
+// warpgroup does not overlap it with its own products (blocks and
+// warpgroups side by side on an SM overlap each other's).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "repro_sm90.cuh"
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
@@ -130,17 +169,31 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
   }
 }
 
-// delta of one row, summed by one warp: the fused and the standalone pass
-// both call this, so their results agree bit for bit.
-template <typename T, int D>
-__device__ __forceinline__ float row_delta(const T* y, const T* dy,
-                                           int lane) {
+// delta of one row, summed by one warp: lane l multiplies columns l,
+// l + 32, .. and adds them in that order, and the warp adds the lanes by
+// shuffles (row_sum).  Every kernel that computes delta goes through
+// row_sum, so the fused and the standalone pass agree bit for bit.
+template <int D>
+__device__ __forceinline__ float row_sum(const float (&y)[D / 32],
+                                         const float (&dy)[D / 32]) {
   float s = 0.0f;
 #pragma unroll
-  for (int c = lane; c < D; c += 32) s += to_f(y[c]) * to_f(dy[c]);
+  for (int e = 0; e < D / 32; ++e) s += y[e] * dy[e];
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(FULL, s, off);
   return s;
+}
+
+template <typename T, int D>
+__device__ __forceinline__ float row_delta(const T* y, const T* dy,
+                                           int lane) {
+  float yv[D / 32], dyv[D / 32];
+#pragma unroll
+  for (int e = 0; e < D / 32; ++e) {
+    yv[e] = to_f(y[lane + 32 * e]);
+    dyv[e] = to_f(dy[lane + 32 * e]);
+  }
+  return row_sum<D>(yv, dyv);
 }
 
 // dS of one (q, k) pair; *p_out receives P.  Masked pairs give 0 without
@@ -678,6 +731,566 @@ extern "C" int repro_delta_rowsum(const void* y, const void* dy, float* delta,
                          1.0f);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(launch_delta, p, batch, d, is_bf16, s);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma + TMA
+// ---------------------------------------------------------------------------
+namespace fb {
+using namespace repro;
+constexpr int TILE = 64;                // q rows, or keys, a tile
+constexpr int SLICE = 64 * 128;         // 64 rows of one 64-wide d slice
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Consumer warpgroups a block.  Kernel A: one.  Kernel B: two for d <= 64,
+// each walking every other step of the block's (q-head, q tile) sequence
+// into dK and dV partials of its own, added in a fixed order at the end, so
+// that the longest blocks (the first k tiles under the causal mask) take
+// half as many steps in series; d = 128 keeps one, whose dK, dV, S^T and
+// dP^T fit 255 registers but not the 168 that a block of two allows.
+template <int D>
+constexpr int B_WGS = D <= 64 ? 2 : 1;
+
+// A block's RES resident tiles (kernel A: Q, dY, Y; kernel B: K, V) and
+// its ring of 2 + WGS stages, one fewer for d = 128.
+template <int D, int WGS, int RES>
+struct Shape {
+  static constexpr int THREADS = WGS * 128 + 32;  // and a producer warp
+  static constexpr int NS = D > 64 ? D / 64 : 1;  // 64-wide slices of d
+  static constexpr int DP = NS * 64;              // d, 32 padded to 64
+  static constexpr int TILE_BYTES = NS * SLICE;   // one operand tile
+  static constexpr int STAGES = 2 + WGS - (D > 64 ? 1 : 0);
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;   // (K, V) or (Q, dY)
+  // The resident tiles, the ring, kernel B's per-stage (lse, delta) rows
+  // and its D sums of rows with no valid key, the barriers, 1 KB to align.
+  static constexpr int RING_OFF = RES * TILE_BYTES;
+  static constexpr int STATS_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static constexpr int STATS_BYTES = TILE * 8;    // 64 (lse, delta) pairs
+  static constexpr int EMPTY_OFF = STATS_OFF + STAGES * STATS_BYTES;
+  static constexpr int BAR_OFF = EMPTY_OFF + D * 4;
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+  static_assert(WGS == 1 || 64 * DP * 4 <= STAGES * STAGE_BYTES,
+                "a warpgroup's partial must fit in the ring");
+  static_assert(SMEM <= 227 * 1024, "shared memory over the SM's limit");
+};
+
+struct WgParams {
+  const bf16* dy;      // read by plain loads for the rows with no valid key
+  const float* lse;    // (B, Hq, Tq)
+  float* delta;        // (B, Hq, Tq)
+  // (B, Hq, TQP) pairs (lse * log2 e, delta), TQP = Tq rounded up to 64,
+  // +inf and 0 past Tq: written by kernel A, read by kernel B by 1-D TMA.
+  float2* stats;
+  bf16 *dq, *dk, *dv;  // contiguous (B, Hq, Tq, D) and (B, Hkv, Tk, D)
+  long long dy_sb, dy_sh, dy_st;
+  int hq, hkv, group, tq, tk, causal, window;   // window < 0: none
+  float scale, scale_log2;                      // scale * log2(e)
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x in one MUFU instruction (exp2f adds range handling around it):
+// -inf gives 0, which is how masked pairs and rows past Tq get P = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float minus_inf() {
+  return __int_as_float(0xff800000);
+}
+
+// A 64 x 64 fp32 fragment, as bf16 register A operands of four k16 steps.
+__device__ __forceinline__ void pack_a(const float (&f)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    a[kb][0] = pack_bf16(f[8 * kb], f[8 * kb + 1]);
+    a[kb][1] = pack_bf16(f[8 * kb + 2], f[8 * kb + 3]);
+    a[kb][2] = pack_bf16(f[8 * kb + 4], f[8 * kb + 5]);
+    a[kb][3] = pack_bf16(f[8 * kb + 6], f[8 * kb + 7]);
+  }
+}
+
+// s = X Y^T and dp = Z W^T over d for one warpgroup, every operand a
+// 64-row tile of D columns in 64-wide swizzled slices (K-major).
+template <int D>
+__device__ __forceinline__ void two_scores(float (&s)[32], float (&dp)[32],
+                                           const uint8_t* x, const uint8_t* y,
+                                           const uint8_t* z,
+                                           const uint8_t* w) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int o = (kk / 4) * SLICE + (kk % 4) * 32;
+    sm90::wgmma_m64n64k16<0, 0>(s, sm90::desc_sw128(x + o, 16, 1024),
+                                sm90::desc_sw128(y + o, 16, 1024), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int o = (kk / 4) * SLICE + (kk % 4) * 32;
+    sm90::wgmma_m64n64k16<0, 0>(dp, sm90::desc_sw128(z + o, 16, 1024),
+                                sm90::desc_sw128(w + o, 16, 1024), kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  sm90::fence_regs(dp);
+}
+
+// acc += A (64 x 64, registers) X, X a 64-row tile (rows along the
+// reduction, d across: the MN-major B operand).  Issued, not awaited.
+template <int DP>
+__device__ __forceinline__ void accumulate(float (&acc)[DP / 2],
+                                           const uint32_t (&a)[4][4],
+                                           const uint8_t* x) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    const uint64_t db = sm90::desc_sw128(x + kb * 2048, SLICE, 1024);
+    if constexpr (DP == 64) sm90::wgmma_m64n64k16_rs<1>(acc, a[kb], db);
+    else sm90::wgmma_m64n128k16_rs<1>(acc, a[kb], db);
+  }
+}
+
+// Warpgroup 1's fragment added to warpgroup 0's, in that order, through
+// shared memory that neither reads any more (`part`, 128 * R floats).
+template <int R>
+__device__ __forceinline__ void add_partial(float (&acc)[R], float* part,
+                                            int wg, int t) {
+  sm90::named_sync(1, 256);          // both are done with `part`
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) part[i * 128 + t] = acc[i];
+  }
+  sm90::named_sync(1, 256);
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] += part[i * 128 + t];
+  }
+}
+
+// Element c of row r of a 64-row bf16 tile as TMA lays it out: 64-wide
+// slices of d, 128-byte rows, 16-byte chunks XOR-permuted by r % 8.
+__device__ __forceinline__ float tile_at(const uint8_t* tile, int r, int c) {
+  const int cs = c % 64;
+  return __bfloat162float(*reinterpret_cast<const bf16*>(
+      tile + (c / 64) * SLICE + r * 128 + ((cs / 8) ^ (r % 8)) * 16 +
+      (cs % 8) * 2));
+}
+
+// This thread's rows r (and r + 8) of a 64-row fp32 fragment, as bf16
+// pairs into rows of D; rows at or past `valid` skipped; add[c], where
+// given, is added to column c.
+template <int D, int R>
+__device__ __forceinline__ void store_rows(const float (&acc)[R], bf16* dst,
+                                           int r, int valid, int quad,
+                                           const float* add = nullptr) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r + 8 * half;
+    if (row >= valid) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * quad;
+      float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+      if (add != nullptr) {
+        v0 += add[c];
+        v1 += add[c + 1];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)row * D + c) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// Kernel A: dQ (and delta) for one (batch, q-head, q tile).  Block
+// (h, b, the q tile counted from the last).  Consumer thread t holds rows
+// (t / 32) * 16 + (t % 32) / 4 (+ 8) of the tile and, of a 64-key tile or
+// of dQ, columns 8 j + 2 (t % 4) (+ 1).
+template <int D>
+__global__ void __launch_bounds__(Shape<D, 1, 3>::THREADS, D <= 64 ? 3 : 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                const __grid_constant__ CUtensorMap tmk,
+                const __grid_constant__ CUtensorMap tmv,
+                const __grid_constant__ CUtensorMap tmdy,
+                const __grid_constant__ CUtensorMap tmy, WgParams p) {
+  using S = Shape<D, 1, 3>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* DYs = Qs + S::TILE_BYTES;
+  uint8_t* Ys = DYs + S::TILE_BYTES;
+  uint8_t* ring = Qs + S::RING_OFF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Qs + S::BAR_OFF);
+  uint64_t* empty = full + S::STAGES;
+  uint64_t* qbar = empty + S::STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int hk = h / p.group, q0 = qt * TILE;
+  int kv_end = p.tk;
+  if (p.causal) kv_end = min(kv_end, q0 + TILE);
+  const int kv_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int j_begin = kv_begin / TILE, j_end = (kv_end + TILE - 1) / TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 1);
+    }
+    sm90::mbar_init(qbar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(qbar, 3 * S::TILE_BYTES);
+#pragma unroll
+      for (int s = 0; s < S::NS; ++s) {
+        sm90::tma_load_4d(Qs + s * SLICE, &tmq, qbar, 64 * s, q0, h, b);
+        sm90::tma_load_4d(DYs + s * SLICE, &tmdy, qbar, 64 * s, q0, h, b);
+        sm90::tma_load_4d(Ys + s * SLICE, &tmy, qbar, 64 * s, q0, h, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = j_begin; j < j_end; ++j) {
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[stage], S::STAGE_BYTES);
+        uint8_t* ks = ring + stage * S::STAGE_BYTES;
+#pragma unroll
+        for (int s = 0; s < S::NS; ++s) {
+          sm90::tma_load_4d(ks + s * SLICE, &tmk, &full[stage], 64 * s,
+                            j * TILE, hk, b);
+          sm90::tma_load_4d(ks + S::TILE_BYTES + s * SLICE, &tmv,
+                            &full[stage], 64 * s, j * TILE, hk, b);
+        }
+        if (++stage == S::STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup.  lse of its two rows in the log2 domain
+  // (+inf past Tq makes P = 0 there), fetched while the tiles arrive.
+  const int t = threadIdx.x, quad = t % 4;
+  const int r_lo = warp * 16 + lane / 4;         // row in the tile
+  const long long row0 = ((long long)b * p.hq + h) * p.tq;
+  const int row_lo = q0 + r_lo, row_hi = row_lo + 8;
+  const float ls_lo = row_lo < p.tq ? p.lse[row0 + row_lo] * LOG2E
+                                    : __int_as_float(0x7f800000);
+  const float ls_hi = row_hi < p.tq ? p.lse[row0 + row_hi] * LOG2E
+                                    : __int_as_float(0x7f800000);
+  float dq[S::DP / 2];
+#pragma unroll
+  for (int i = 0; i < S::DP / 2; ++i) dq[i] = 0.0f;
+  sm90::mbar_wait(qbar, 0);
+
+  // delta of this warp's 16 rows from the Y and dY tiles (zero past Tq),
+  // by the standalone pass's reduction, so the two agree bit for bit; each
+  // thread keeps its own two rows' values.  Kernel B's (lse, delta) rows,
+  // for every row of the tile.
+  float dl_lo = 0.0f, dl_hi = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int row = warp * 16 + r;
+    float yv[D / 32], dyv[D / 32];
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e) {
+      yv[e] = tile_at(Ys, row, lane + 32 * e);
+      dyv[e] = tile_at(DYs, row, lane + 32 * e);
+    }
+    const float dl = row_sum<D>(yv, dyv);
+    if (lane == 0 && q0 + row < p.tq) p.delta[row0 + q0 + row] = dl;
+    if (r == lane / 4) dl_lo = dl;
+    if (r == lane / 4 + 8) dl_hi = dl;
+  }
+  if (quad == 0) {
+    float2* st = p.stats + ((long long)b * p.hq + h) * gridDim.z * TILE;
+    st[row_lo] = make_float2(ls_lo, dl_lo);
+    st[row_hi] = make_float2(ls_hi, dl_hi);
+  }
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = j_begin; j < j_end; ++j) {
+    sm90::mbar_wait(&full[stage], phase);
+    const int k0 = j * TILE;
+    const uint8_t* ks = ring + stage * S::STAGE_BYTES;
+    float s[32], dp[32];
+    two_scores<D>(s, dp, Qs, ks, DYs, ks + S::TILE_BYTES);
+
+    // P = 2^(S * scale * log2 e - lse * log2 e) and dS on the fragments;
+    // masks (an exponent of -inf) only on the tiles that straddle the
+    // diagonal, the window's edge or Tk.
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = fmaf(s[i], p.scale_log2, (i & 2) ? -ls_hi : -ls_lo);
+    if (k0 + TILE > p.tk || (p.causal && k0 + TILE - 1 > q0) ||
+        (p.window > 0 && k0 <= q0 + TILE - 1 - p.window)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = (i & 2) ? row_hi : row_lo;
+        const int col = k0 + (i / 4) * 8 + quad * 2 + (i & 1);
+        if (col >= p.tk || (p.causal && col > row) ||
+            (p.window > 0 && col <= row - p.window))
+          s[i] = minus_inf();
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = ex2(s[i]) * (dp[i] - ((i & 2) ? dl_hi : dl_lo)) * p.scale;
+    uint32_t a[4][4];
+    pack_a(s, a);
+    sm90::fence_regs(dq);
+    sm90::wgmma_fence();
+    accumulate<S::DP>(dq, a, ks);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    if (t == 0) sm90::mbar_arrive(&empty[stage]);
+    if (++stage == S::STAGES) { stage = 0; phase ^= 1; }
+  }
+  store_rows<D>(dq, p.dq + (row0 + q0) * D, r_lo, p.tq - q0, quad);
+}
+
+// Kernel B: dK and dV for one (batch, kv-head, k tile), summed over the
+// q-heads of its group.  Block (hk, b, the k tile).  Thread t of a
+// consumer warpgroup holds keys (t / 32) * 16 + (t % 32) / 4 (+ 8) of the
+// tile and, of a 64-row q tile, columns 8 j + 2 (t % 4) (+ 1).
+template <int D>
+__global__ void __launch_bounds__(Shape<D, B_WGS<D>, 2>::THREADS)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                  const __grid_constant__ CUtensorMap tmk,
+                  const __grid_constant__ CUtensorMap tmv,
+                  const __grid_constant__ CUtensorMap tmdy, WgParams p) {
+  constexpr int WGS = B_WGS<D>;
+  using S = Shape<D, WGS, 2>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Vs = Ks + S::TILE_BYTES;
+  uint8_t* ring = Ks + S::RING_OFF;
+  uint8_t* stats = Ks + S::STATS_OFF;
+  float* EMPTY = reinterpret_cast<float*>(Ks + S::EMPTY_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ks + S::BAR_OFF);
+  uint64_t* empty = full + S::STAGES;
+  uint64_t* kvbar = empty + S::STAGES;
+
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * TILE;
+  const int tqp = (p.tq + TILE - 1) / TILE * TILE;
+  // Live q tiles of this k tile: causal needs q_pos >= k0; the window
+  // needs q_pos < k_pos + window <= k0 + TILE - 1 + window.
+  const int i_begin = p.causal ? k0 / TILE : 0;
+  int q_end = p.tq;
+  if (p.window > 0) q_end = min(q_end, k0 + TILE - 1 + p.window);
+  const int n_i = max(0, (q_end + TILE - 1) / TILE - i_begin);
+  const int steps = p.group * n_i;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 1);
+    }
+    sm90::mbar_init(kvbar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == WGS * 4) {  // the producer
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(kvbar, 2 * S::TILE_BYTES);
+#pragma unroll
+      for (int s = 0; s < S::NS; ++s) {
+        sm90::tma_load_4d(Ks + s * SLICE, &tmk, kvbar, 64 * s, k0, hk, b);
+        sm90::tma_load_4d(Vs + s * SLICE, &tmv, kvbar, 64 * s, k0, hk, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int step = 0; step < steps; ++step) {
+        const int h = hk * p.group + step / n_i;
+        const int q0 = (i_begin + step % n_i) * TILE;
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[stage],
+                                    S::STAGE_BYTES + S::STATS_BYTES);
+        uint8_t* qs = ring + stage * S::STAGE_BYTES;
+#pragma unroll
+        for (int s = 0; s < S::NS; ++s) {
+          sm90::tma_load_4d(qs + s * SLICE, &tmq, &full[stage], 64 * s, q0,
+                            h, b);
+          sm90::tma_load_4d(qs + S::TILE_BYTES + s * SLICE, &tmdy,
+                            &full[stage], 64 * s, q0, h, b);
+        }
+        sm90::bulk_load(stats + stage * S::STATS_BYTES,
+                        p.stats + ((long long)b * p.hq + h) * tqp + q0,
+                        S::STATS_BYTES, &full[stage]);
+        if (++stage == S::STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroups: wg takes steps wg, wg + WGS, ..
+  const int wg = warp / 4, t = threadIdx.x % 128, quad = t % 4;
+  const int r_lo = (warp % 4) * 16 + lane / 4;   // key in the tile
+  const int key_lo = k0 + r_lo, key_hi = key_lo + 8;
+  float dk[S::DP / 2], dv[S::DP / 2];
+#pragma unroll
+  for (int i = 0; i < S::DP / 2; ++i) dk[i] = dv[i] = 0.0f;
+  sm90::mbar_wait(kvbar, 0);
+
+  for (int step = wg; step < steps; step += WGS) {
+    const int q0 = (i_begin + step % n_i) * TILE;
+    const int stage = step % S::STAGES;
+    sm90::mbar_wait(&full[stage], (step / S::STAGES) & 1);
+    const uint8_t* qs = ring + stage * S::STAGE_BYTES;
+    const uint8_t* dys = qs + S::TILE_BYTES;
+    const float2* st =
+        reinterpret_cast<const float2*>(stats + stage * S::STATS_BYTES);
+    float s[32], dp[32];                           // S^T, dP^T
+    two_scores<D>(s, dp, Ks, qs, Vs, dys);
+
+    // P^T and dS^T on the fragments, with (lse, delta) per column; masks
+    // only on the tiles that straddle the diagonal, the window's edge or
+    // Tk.  Rows past Tq have lse +inf, so P = 0 there without a mask.
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = fmaf(s[i], p.scale_log2, -st[(i / 4) * 8 + quad * 2 + (i & 1)].x);
+    if (k0 + TILE > p.tk || (p.causal && k0 + TILE - 1 > q0) ||
+        (p.window > 0 && k0 <= q0 + TILE - 1 - p.window)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = (i & 2) ? key_hi : key_lo;
+        const int col = q0 + (i / 4) * 8 + quad * 2 + (i & 1);
+        if (key >= p.tk || (p.causal && key > col) ||
+            (p.window > 0 && key <= col - p.window))
+          s[i] = minus_inf();
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(s[i]);
+      dp[i] = s[i] * (dp[i] - st[(i / 4) * 8 + quad * 2 + (i & 1)].y) *
+              p.scale;
+    }
+    uint32_t pa[4][4], da[4][4];
+    pack_a(s, pa);
+    pack_a(dp, da);
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::wgmma_fence();
+    accumulate<S::DP>(dv, pa, dys);
+    accumulate<S::DP>(dk, da, qs);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    if (t == 0) sm90::mbar_arrive(&empty[stage]);
+  }
+  if constexpr (WGS == 2) {            // every step is consumed: the ring
+    float* part = reinterpret_cast<float*>(ring);   // is free
+    add_partial(dk, part, wg, t);
+    add_partial(dv, part, wg, t);
+  }
+
+  // Rows with no valid key, which only rows q_pos >= Tk + window - 1 can
+  // be: w * (the sum of their dO over the group) goes to every key's dV.
+  const bool any_empty = p.window > 0 && p.tq > p.tk + p.window - 1;
+  if (any_empty) {
+    for (int c = threadIdx.x; c < D; c += WGS * 128) {
+      float sum = 0.0f;
+      for (int g = 0; g < p.group; ++g) {
+        const int h = hk * p.group + g;
+        const long long row0 = ((long long)b * p.hq + h) * p.tq;
+        const bf16* dyg = p.dy + b * p.dy_sb + h * p.dy_sh;
+        for (int r = max(0, p.tk + p.window - 1); r < p.tq; ++r)
+          if (p.lse[row0 + r] <= 0.5f * NEG_INF)
+            sum += __bfloat162float(dyg[(long long)r * p.dy_st + c]);
+      }
+      EMPTY[c] = __bfloat162float(__float2bfloat16(1.0f / (float)p.tk)) * sum;
+    }
+    sm90::named_sync(1, WGS * 128);
+  }
+  if (wg != 0) return;
+  const long long krow = ((long long)b * p.hkv + hk) * p.tk + k0;
+  store_rows<D>(dk, p.dk + krow * D, r_lo, p.tk - k0, quad);
+  store_rows<D>(dv, p.dv + krow * D, r_lo, p.tk - k0, quad,
+                any_empty ? EMPTY : nullptr);
+}
+
+template <int D>
+static int launch(const CUtensorMap* maps, const WgParams& p, int batch,
+                  cudaStream_t stream) {
+  using SA = Shape<D, 1, 3>;
+  using SB = Shape<D, B_WGS<D>, 2>;
+  auto ka = dq_wgmma_kernel<D>;
+  auto kb = dkdv_wgmma_kernel<D>;
+  static const cudaError_t attr = [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        ka, cudaFuncAttributeMaxDynamicSharedMemorySize, SA::SMEM);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        kb, cudaFuncAttributeMaxDynamicSharedMemorySize, SB::SMEM);
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  ka<<<dim3(p.hq, batch, (p.tq + TILE - 1) / TILE), SA::THREADS, SA::SMEM,
+       stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kb<<<dim3(p.hkv, batch, (p.tk + TILE - 1) / TILE), SB::THREADS, SB::SMEM,
+       stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return (int)cudaGetLastError();
+}
+
+// A (B, H, T, D) operand as a 4-D map over (d, t, h, b), box 64 x 64.
+static bool map4d(CUtensorMap* map, const void* base, int d, int t, int h,
+                  int batch, const long long* st) {
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)t, (uint64_t)h,
+                            (uint64_t)batch};
+  const uint64_t strides[3] = {(uint64_t)st[2], (uint64_t)st[1],
+                               (uint64_t)st[0]};
+  const uint32_t box[4] = {64, TILE, 1, 1};
+  return sm90::tensor_map_bf16_nd(map, base, 4, dims, strides, box);
+}
+}  // namespace fb
+
+// The wgmma mainloop, bf16 only: as repro_flash_bwd, with every (batch,
+// head, time) stride in `strides` a multiple of 8 elements (TMA's 16
+// bytes; the wrapper gives a size-1 dimension a legal stand-in) and
+// 16-byte aligned bases.  stats: a (B, Hq, Tq rounded up to 64, 2) fp32
+// scratch, 16-byte aligned, that kernel A fills and kernel B reads.
+extern "C" int repro_flash_bwd_wgmma(const void* q, const void* k,
+                                     const void* v, const void* y,
+                                     const void* dy, const float* lse,
+                                     float* delta, void* dq, void* dk,
+                                     void* dv, int batch, int hq, int hkv,
+                                     int tq, int tk, int d,
+                                     const long long* strides, int causal,
+                                     int window, float scale, void* stats,
+                                     void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || tq < 1 || tk < 1 || stats == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long* st = strides;   // q, k, v, y, dy: (b, h, t) each
+  CUtensorMap maps[5];             // q, k, v, dy, y
+  if (!fb::map4d(&maps[0], q, d, tq, hq, batch, st) ||
+      !fb::map4d(&maps[1], k, d, tk, hkv, batch, st + 3) ||
+      !fb::map4d(&maps[2], v, d, tk, hkv, batch, st + 6) ||
+      !fb::map4d(&maps[3], dy, d, tq, hq, batch, st + 12) ||
+      !fb::map4d(&maps[4], y, d, tq, hq, batch, st + 9))
+    return (int)cudaErrorInvalidValue;
+  fb::WgParams p{static_cast<const bf16*>(dy), lse, delta,
+                 static_cast<float2*>(stats), static_cast<bf16*>(dq),
+                 static_cast<bf16*>(dk), static_cast<bf16*>(dv), st[12],
+                 st[13], st[14], hq, hkv, hq / hkv, tq, tk, causal, window,
+                 scale, scale * fb::LOG2E};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 32) return fb::launch<32>(maps, p, batch, s);
+  if (d == 64) return fb::launch<64>(maps, p, batch, s);
+  if (d == 128) return fb::launch<128>(maps, p, batch, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -1,5 +1,5 @@
 // The wgmma + TMA GEMM mainloop and its epilogue, shared by matmul
-// (kernels/brgemm/csrc/matmul.cu) and batched_matmul
+// (kernels/brgemm/csrc/matmul.cu), batched_matmul and brgemm_stacked
 // (kernels/brgemm_batched/csrc/batched.cu): one building block.
 //
 // A block owns one output tile of one batch entry and walks a run of k
@@ -18,14 +18,24 @@
 // registers with the activation switched per element, the epilogue outgrew
 // the instruction cache and slowed the whole kernel.
 //
-// The grid is (m tiles, n tiles, z).  matmul (BATCHED = false): z is the
-// split of k, and both operands are 2-D maps.  batched_matmul (BATCHED =
-// true, one split): z is the batch entry; an operand whose tensor map is
-// 3-D (the entry its outer coordinate) is read at the block's entry, so
-// TMA's zero fill stops at each entry's edge, and a 2-D map (a broadcast
-// operand) ignores it; entry z writes rows z * m .. of the (entries * m,
-// n) output.  BATCHED is a template parameter so that matmul's kernel
-// carries none of the entry's arithmetic.
+// The grid is (m tiles, n tiles, z); the template parameter WALK says what
+// z and a block's walk are, so that each instantiation carries only its
+// own walk's arithmetic:
+//   * SPLIT_K (matmul): z is the split of k, slices z * chunk ..; both
+//     operands are 2-D maps.
+//   * PER_ENTRY (batched_matmul, one split): z is the batch entry; an
+//     operand whose tensor map is 3-D (the entry its outer coordinate) is
+//     read at the block's entry, so TMA's zero fill stops at each entry's
+//     edge, and a 2-D map (a broadcast operand) ignores it; entry z writes
+//     rows z * m .. of the (entries * m, n) output.
+//   * STACKED (brgemm_stacked): the reduction is the flattened (entry,
+//     k-slice) axis of nb * ceil(k / 64) slices, and z its split, as
+//     matmul's k: the producer walks 3-D boxes entry by entry, each
+//     entry's ragged k ended by the zero fill, and every block's walk ends
+//     in one epilogue (or one fp32 partial), so C is written once.
+// Split partials (SPLIT_K, STACKED) are added in split order by
+// splitk_reduce_kernel, which then runs the epilogue: no atomics, the same
+// bits every run.
 #pragma once
 #include "repro_sm90.cuh"
 #include "repro_tile.cuh"
@@ -86,6 +96,7 @@ struct Sink {
 };
 
 namespace wg {
+enum Walk { SPLIT_K = 0, PER_ENTRY = 1, STACKED = 2 };
 constexpr int BN = 128, BK = 64;
 constexpr int LDC = BN + 4;           // fp32 staging of the finished tile
 constexpr int BLOCK64 = 64 * BK * 2;  // one 64-row (or 64-wide) box, bytes
@@ -106,11 +117,11 @@ struct Shape {
 };
 
 // The box of `map` at (c0, c1), at entry `z` where the map is 3-D.
-template <bool BATCHED>
+template <int WALK>
 __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int c0, int c1,
                                          int z, int is3d) {
-  if (BATCHED && is3d) sm90::tma_load_3d(dst, map, bar, c0, c1, z);
+  if (WALK != SPLIT_K && is3d) sm90::tma_load_3d(dst, map, bar, c0, c1, z);
   else sm90::tma_load_2d(dst, map, bar, c0, c1);
 }
 
@@ -118,13 +129,17 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 // slice, rows m, 64 k across; column-major (A_MN = 1) as BM / 64 boxes of
 // 64 k rows, 64 m across.  W (k x n): column-major (B_MN = 0) as one
 // 128 x 64 box, rows n; row-major (B_MN = 1) as two boxes of 64 k rows.
-// x3d / w3d (BATCHED): the operand's map is 3-D.  Split z (matmul) walks
-// slices z * chunk ...; an entry (batched_matmul) walks them all.
-template <int BM, int A_MN, int B_MN, bool BATCHED>
-__global__ void __launch_bounds__(Shape<BM>::THREADS, 2)
-gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
-                  const __grid_constant__ CUtensorMap tw, Sink sink, int k,
-                  int chunk, int x3d, int w3d) {
+// x3d / w3d (PER_ENTRY, STACKED): the operand's map is 3-D.  Split z
+// walks slices z * chunk .. of k (SPLIT_K) or of the nb entries' slices
+// (STACKED); an entry (PER_ENTRY) walks them all.  The body of the two
+// kernels below: matmul's and batched_matmul's instantiations take no nb,
+// so they compile as they did before the stacked walk was added.
+template <int BM, int A_MN, int B_MN, int WALK>
+__device__ __forceinline__ void gemm_wgmma(const CUtensorMap& tx,
+                                           const CUtensorMap& tw,
+                                           const Sink& sink, int k,
+                                           int chunk, int x3d, int w3d,
+                                           int nb) {
   using S = Shape<BM>;
   constexpr int STAGES = S::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -136,9 +151,11 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   uint64_t* empty = full + STAGES;
 
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int entry = BATCHED ? blockIdx.z : 0;
-  const int s0 = BATCHED ? 0 : blockIdx.z * chunk;
-  const int slices = min(chunk, cdiv(k, BK) - s0);
+  const int entry = WALK == PER_ENTRY ? blockIdx.z : 0;
+  const int s0 = WALK == PER_ENTRY ? 0 : blockIdx.z * chunk;
+  const int kslices = cdiv(k, BK);
+  const int slices =
+      min(chunk, (WALK == STACKED ? nb * kslices : kslices) - s0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -153,28 +170,32 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     if (lane == 0) {
       int stage = 0;
       uint32_t phase = 0;
+      // STACKED: slice s0 + i is k-slice ks of entry e.
+      int e = WALK == STACKED ? s0 / kslices : entry;
+      int ks = WALK == STACKED ? s0 % kslices : 0;
       for (int i = 0; i < slices; ++i) {
         sm90::mbar_wait(&empty[stage], phase ^ 1);
         sm90::mbar_arrive_expect_tx(&full[stage], S::STAGE_BYTES);
-        const int kc = (s0 + i) * BK;
+        const int kc = (WALK == STACKED ? ks : s0 + i) * BK;
         uint8_t* a = As + stage * S::A_BYTES;
         uint8_t* b = Bs + stage * S::B_BYTES;
         if (A_MN) {
 #pragma unroll
           for (int j = 0; j < BM / 64; ++j)
-            load_box<BATCHED>(a + j * BLOCK64, &tx, &full[stage],
-                              m0 + 64 * j, kc, entry, x3d);
+            load_box<WALK>(a + j * BLOCK64, &tx, &full[stage], m0 + 64 * j,
+                           kc, e, x3d);
         } else {
-          load_box<BATCHED>(a, &tx, &full[stage], kc, m0, entry, x3d);
+          load_box<WALK>(a, &tx, &full[stage], kc, m0, e, x3d);
         }
         if (B_MN) {
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            load_box<BATCHED>(b + j * BLOCK64, &tw, &full[stage],
-                              n0 + 64 * j, kc, entry, w3d);
+            load_box<WALK>(b + j * BLOCK64, &tw, &full[stage], n0 + 64 * j,
+                           kc, e, w3d);
         } else {
-          load_box<BATCHED>(b, &tw, &full[stage], kc, n0, entry, w3d);
+          load_box<WALK>(b, &tw, &full[stage], kc, n0, e, w3d);
         }
+        if (WALK == STACKED && ++ks == kslices) { ks = 0; ++e; }
         if (++stage == STAGES) { stage = 0; phase ^= 1; }
       }
     }
@@ -230,7 +251,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
   sm90::named_sync(1, S::WGS * 128);
-  const long long row0 = BATCHED ? (long long)entry * sink.m : 0;
+  const long long row0 = WALK == PER_ENTRY ? (long long)entry * sink.m : 0;
   with_act(sink.ws ? NONE : sink.e.act, [&](auto act) {
 #pragma unroll 1
     for (int idx = threadIdx.x; idx < BM * BN / 4; idx += S::WGS * 128) {
@@ -242,37 +263,95 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   });
 }
 
-template <int BM, int A_MN, int B_MN, bool BATCHED>
+template <int BM, int A_MN, int B_MN, int WALK>
+__global__ void __launch_bounds__(Shape<BM>::THREADS, 2)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tw, Sink sink, int k,
+                  int chunk, int x3d, int w3d) {
+  gemm_wgmma<BM, A_MN, B_MN, WALK>(tx, tw, sink, k, chunk, x3d, w3d, 1);
+}
+
+template <int BM, int A_MN, int B_MN>
+__global__ void __launch_bounds__(Shape<BM>::THREADS, 2)
+gemm_stacked_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tw, Sink sink, int k,
+                    int chunk, int x3d, int w3d, int nb) {
+  gemm_wgmma<BM, A_MN, B_MN, STACKED>(tx, tw, sink, k, chunk, x3d, w3d, nb);
+}
+
+template <int BM, int A_MN, int B_MN, int WALK>
 static int launch_tile(const CUtensorMap& tx, const CUtensorMap& tw,
                        int x3d, int w3d, const Sink& sink, int k, int z,
-                       int chunk, cudaStream_t stream) {
+                       int chunk, int nb, cudaStream_t stream) {
   using S = Shape<BM>;
-  auto kernel = gemm_wgmma_kernel<BM, A_MN, B_MN, BATCHED>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-  if (attr != cudaSuccess) return (int)attr;
   dim3 grid(cdiv(sink.m, BM), cdiv(sink.n, BN), z);
-  kernel<<<grid, S::THREADS, S::SMEM, stream>>>(tx, tw, sink, k, chunk, x3d,
-                                                w3d);
+  if constexpr (WALK == STACKED) {
+    auto kernel = gemm_stacked_kernel<BM, A_MN, B_MN>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+    kernel<<<grid, S::THREADS, S::SMEM, stream>>>(tx, tw, sink, k, chunk,
+                                                  x3d, w3d, nb);
+  } else {
+    auto kernel = gemm_wgmma_kernel<BM, A_MN, B_MN, WALK>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+    kernel<<<grid, S::THREADS, S::SMEM, stream>>>(tx, tw, sink, k, chunk,
+                                                  x3d, w3d);
+  }
   return (int)cudaGetLastError();
 }
 
 // The launch for tile rows bm (64 or 128) and the operands' major-ness:
 // a_mn (X read column-major), b_mn (W read row-major).  z: splits of k
-// (matmul, chunk slices each) or batch entries (BATCHED, one split).
-template <bool BATCHED>
+// (SPLIT_K) or of the stacked slices (STACKED), chunk slices each, or
+// batch entries (PER_ENTRY, one split); nb: the entries (STACKED).
+template <int WALK>
 static int launch(int bm, int a_mn, int b_mn, const CUtensorMap& tx,
                   const CUtensorMap& tw, int x3d, int w3d, const Sink& sink,
-                  int k, int z, int chunk, cudaStream_t stream) {
+                  int k, int z, int chunk, int nb, cudaStream_t stream) {
 #define REPRO_WGMMA(BM, A, B)                                              \
   if (bm == BM && a_mn == A && b_mn == B)                                  \
-    return launch_tile<BM, A, B, BATCHED>(tx, tw, x3d, w3d, sink, k, z,    \
-                                          chunk, stream);
+    return launch_tile<BM, A, B, WALK>(tx, tw, x3d, w3d, sink, k, z,       \
+                                       chunk, nb, stream);
   REPRO_WGMMA(128, 0, 0) REPRO_WGMMA(128, 0, 1) REPRO_WGMMA(128, 1, 0)
   REPRO_WGMMA(128, 1, 1) REPRO_WGMMA(64, 0, 0) REPRO_WGMMA(64, 0, 1)
   REPRO_WGMMA(64, 1, 0) REPRO_WGMMA(64, 1, 1)
 #undef REPRO_WGMMA
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Split-K: the partials of each output element summed in split order, then
+// the epilogue, once.  Bytes bound it (splits fp32 reads an element).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(256)
+splitk_reduce_kernel(const float* __restrict__ ws, Epilogue e, int m, int n,
+                     int splits) {
+  const long long mn = (long long)m * n;
+  with_act(e.act, [&](auto act) {
+    for (long long i = blockIdx.x * 256LL + threadIdx.x; i < mn;
+         i += (long long)gridDim.x * 256) {
+      float acc = ws[i];
+      for (int s = 1; s < splits; ++s) acc += ws[s * mn + i];
+      const long long row = i / n;
+      const int col = (int)(i % n);
+      acc = epilogue<decltype(act)::value>(e, acc, row, col);
+      if (e.out_f32) static_cast<float*>(e.out)[i] = acc;
+      else static_cast<bf16*>(e.out)[i] = __float2bfloat16(acc);
+    }
+  });
+}
+
+// The reduction of a (splits, m, n) workspace into e's output.
+static int reduce_splits(const float* ws, const Epilogue& e, int m, int n,
+                         int splits, cudaStream_t stream) {
+  const long long mn = (long long)m * n;
+  const int blocks = (int)(mn < 132 * 16 * 256LL ? (mn + 255) / 256
+                                                 : 132 * 16);
+  splitk_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, e, m, n, splits);
+  return (int)cudaGetLastError();
 }
 }  // namespace wg
 }  // namespace repro

@@ -1,10 +1,10 @@
 // Hopper's asynchronous building blocks, written as inline PTX: the
-// mbarrier, the Tensor Memory Accelerator's 2-, 3- and 4-D tile loads, the
-// warpgroup matrix multiply (wgmma: m64n128k16 and m64n64k16 with both
-// operands in shared memory, m64n64k16 and m64n128k16 with A in registers)
-// with its shared-memory descriptors, and the host side of TMA tensor maps
-// (2-D memoised, and 3- to 5-D).  Compiled for sm_90a only (wgmma exists on no
-// other target).
+// mbarrier, the Tensor Memory Accelerator's 2-, 3- and 4-D tile loads and
+// its 1-D bulk copy, the warpgroup matrix multiply (wgmma: m64n128k16 and
+// m64n64k16 with both operands in shared memory, m64n64k16 and m64n128k16
+// with A in registers) with its shared-memory descriptors, and the host
+// side of TMA tensor maps (2-D memoised, and 3- to 5-D).  Compiled for
+// sm_90a only (wgmma exists on no other target).
 //
 // The layout every piece here assumes is the 128-byte swizzle: a TMA box
 // is 64 bf16 wide (128 bytes) and its rows land in shared memory 128 bytes
@@ -118,6 +118,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory at src (16-byte
+// aligned) into shared memory at dst (16-byte aligned), completing on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -28,9 +28,11 @@ from repro_torch.kernels.brgemm import (batched_matmul, batched_matmul_cuda,
                                         matmul, matmul_cuda, matmul_q_cuda,
                                         matmul_q_ref, matmul_ref)
 from repro_torch.kernels.brgemm.kernel import (plan_batched_call, plan_call,
+                                               plan_stacked_call,
                                                reset_matmul_counts)
 from repro_torch.kernels.conv2d import conv2d, conv2d_cuda, conv2d_ref
 from repro_torch.kernels.conv2d.ops import patches
+from repro_torch.kernels.flash_attention import bwd as FB
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
                                                  delta_rowsum_ref,
@@ -38,7 +40,8 @@ from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_cuda,
-                                                 mha_ref)
+                                                 mha_ref,
+                                                 reset_flash_bwd_counts)
 from repro_torch.models import api, resnet
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.train.optimizer import AdamWCfg
@@ -430,7 +433,7 @@ def test_brgemm_stacked_kernel(gen, dtype, nb, m, k, n, epilogue):
         if "c0" in epilogue else None
     kw = dict(activation="tanh", alpha=0.5, beta=0.75 if c0 is not None
               else 0.0)
-    launches = brgemm_stacked_cuda.launches
+    reset_matmul_counts()
     _band_close(brgemm_stacked_cuda(a, b, bias, c0, **kw),
                 brgemm_ref(a, b, bias, c0=c0, **kw), dtype, "brgemm")
     # column-major entries, read in place
@@ -438,7 +441,50 @@ def test_brgemm_stacked_kernel(gen, dtype, nb, m, k, n, epilogue):
         b.transpose(1, 2).contiguous().transpose(1, 2)
     _band_close(brgemm_stacked_cuda(at, bt, bias, c0, **kw),
                 brgemm_ref(a, b, bias, c0=c0, **kw), dtype, "brgemm^T")
-    assert brgemm_stacked_cuda.launches - launches == 2
+    assert brgemm_stacked_cuda.launches == 2
+    # each call on its plan's mainloop (k = 100: rows TMA cannot read)
+    planned = [plan_stacked_call(a, b).mainloop,
+               plan_stacked_call(at, bt).mainloop]
+    assert sum(brgemm_stacked_cuda.mainloops.values()) == 2
+    for mainloop in planned:
+        assert brgemm_stacked_cuda.mainloops[mainloop] >= 1
+    if dtype == torch.float32:
+        assert planned == ["simt", "simt"]
+
+
+# The paper's cases (chip_smoke.py's BRGEMM_CASES) and a ragged one.
+STACKED_CASES = [(16, 64, 64, 64), (32, 128, 128, 128), (64, 64, 256, 64),
+                 (8, 4096, 1024, 1024), (5, 70, 100, 130)]
+
+
+@pytest.mark.parametrize("layout", ["row-major", "column-major"])
+@pytest.mark.parametrize("epilogue", ["plain", "bias c0 gelu"])
+@pytest.mark.parametrize("nb,m,k,n", STACKED_CASES)
+def test_brgemm_stacked_wgmma(gen, nb, m, k, n, epilogue, layout):
+    """bf16 brgemm_stacked on the wgmma mainloop with the batch folded into
+    the reduction, split (the paper's small cases) or not, rows padded to
+    8 elements (k = 100: each entry's zero fill), with and without bias,
+    C0 and gelu, both operands row- or column-major; two calls give the
+    same bits (the splits' partials are added in split order)."""
+    bf = torch.bfloat16
+    col = layout == "column-major"
+    a = _entries(gen, nb, m, k, col, bf)
+    b = _entries(gen, nb, k, n, col, bf, (nb * k) ** -0.5)
+    kw = {}
+    if epilogue != "plain":
+        kw = dict(bias=torch.randn(n, device="cuda", generator=gen).to(bf),
+                  c0=torch.randn(m, n, device="cuda", generator=gen).to(bf),
+                  activation="gelu", alpha=0.5, beta=0.75)
+    p = plan_stacked_call(a, b)
+    assert p.mainloop == "wgmma"
+    reset_matmul_counts()
+    got = brgemm_stacked_cuda(a, b, **kw)
+    _band_close(got, brgemm_ref(a, b, **kw), bf, f"{layout} {epilogue}")
+    torch.testing.assert_close(brgemm_stacked_cuda(a, b, **kw), got, atol=0,
+                               rtol=0)
+    assert brgemm_stacked_cuda.mainloops == {"wgmma": 2, "wmma": 0,
+                                             "simt": 0}
+    assert brgemm_stacked_cuda.split_launches == 2 * (p.splits > 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -793,3 +839,68 @@ def test_flash_row_with_no_valid_key(gen, dtype):
     for name, g, gw in zip(("dq", "dk", "dv"), got, want):
         err = (g.float() - gw.float()).abs().max().item()
         assert err <= GRAD_BAND[dtype] * gw.float().abs().max().item(), name
+
+
+@pytest.mark.parametrize("tq,tk,hq,hkv,d,causal,window", [
+    (512, 512, 9, 3, 64, True, None),      # the training shape, B = 8
+    (500, 500, 9, 3, 64, True, None),      # ragged T
+    (130, 130, 6, 2, 32, True, 50),        # d = 32, windowed, group 3
+    (300, 300, 4, 1, 128, True, 100),      # d = 128, windowed, group 4
+    (256, 256, 8, 2, 128, False, None),    # non-causal
+    (150, 70, 4, 2, 64, False, 20),        # Tq > Tk: rows with no key
+    (70, 150, 3, 1, 128, False, None),     # Tq < Tk
+    (100, 230, 4, 2, 32, True, None),      # causal, Tq < Tk
+])
+def test_flash_backward_wgmma(gen, tq, tk, hq, hkv, d, causal, window):
+    """The wgmma + TMA flash backward against flash_attention_bwd_ref, on
+    the attention layer's views (dY the merged heads' gradient, viewed),
+    from the forward kernel's residuals; its fused delta against the
+    standalone pass bit for bit, and two calls bit for bit alike."""
+    b = 8 if tq == 512 else 2
+    q, k, v = _qkv(gen, b, hq, hkv, tq, tk, d)
+    dy = torch.randn(b, tq, hq, d, device="cuda", generator=gen).to(
+        torch.bfloat16).transpose(1, 2)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  return_residuals=True)
+    assert FB.plan_call(q, k, v, o, dy) == "wgmma"
+    reset_flash_bwd_counts()
+    *got, delta = flash_attention_bwd_cuda(q, k, v, o, lse, dy,
+                                           causal=causal, window=window,
+                                           return_delta=True)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, dy, causal=causal,
+                                   window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _rel_close(g, w, GRAD_BAND[torch.bfloat16], name)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, dy, causal=causal,
+                                     window=window)
+    for g, g2 in zip(got, again):
+        torch.testing.assert_close(g2, g, atol=0, rtol=0)
+    torch.testing.assert_close(delta, delta_rowsum_cuda(o, dy), atol=0,
+                               rtol=0)
+    assert flash_attention_bwd_cuda.mainloops == {"wgmma": 2, "wmma": 0,
+                                                  "simt": 0}
+    assert flash_attention_bwd_cuda.launches == 2
+
+
+def test_flash_backward_tma_illegal_and_fp32_mainloops(gen):
+    """Rows 8 elements apart (bf16): the wmma kernels; fp32: simt; both
+    against flash_attention_bwd_ref."""
+    def overlapping(h, dtype):
+        buf = torch.randn(2 * h * (8 * 96 + 64), device="cuda",
+                          generator=gen).to(dtype)
+        return buf.as_strided((2, h, 96, 64),
+                              (h * (8 * 96 + 64), 8 * 96 + 64, 8, 1))
+    for dtype, mainloop in ((torch.bfloat16, "wmma"),
+                            (torch.float32, "simt")):
+        q, k, v = overlapping(4, dtype), overlapping(2, dtype), \
+            overlapping(2, dtype)
+        dy = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        o, lse = flash_attention_cuda(q, k, v, return_residuals=True)
+        assert FB.plan_call(q, k, v, o, dy) == mainloop
+        reset_flash_bwd_counts()
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, dy)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, dy)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            _rel_close(g, w, GRAD_BAND[dtype], f"{mainloop} {name}")
+        assert flash_attention_bwd_cuda.mainloops[mainloop] == 1

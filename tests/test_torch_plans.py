@@ -1,4 +1,5 @@
-"""The plans of ``batched_matmul`` and the flash forward, on the CPU.
+"""The plans of ``batched_matmul``, ``brgemm_stacked`` and the flash
+forward, on the CPU.
 
 ``kernels/brgemm/kernel.py::plan_batched`` and
 ``kernels/flash_attention/kernel.py::plan`` are plain Python: bf16 operands
@@ -20,6 +21,12 @@ for a row with no valid key.  It is held against the reference's
 against the reference in ``test_torch_kernels.py``), in fp32 at 3e-5 (sums
 in other orders), causal, windowed and not, Tq != Tk with rows that see no
 key, T not a multiple of the tile.
+
+``kernels/brgemm/kernel.py::plan_stacked`` folds the batch into the
+reduction and splits the flattened (entry, k-slice) axis as ``plan``
+splits k; ``stacked_model`` is the split walk in numpy (each entry's
+ragged k zero-filled, the partials added in split order, the epilogue
+once), held against the reference's ``brgemm_ref`` in fp32.
 """
 import math
 
@@ -275,3 +282,100 @@ def test_wgmma_flash_model_matches_reference(tq, tk, hq, hkv, d, causal,
     _, want_lse = mha_ref(*(torch.from_numpy(a) for a in (q, k, v)),
                           causal=causal, window=window, return_lse=True)
     np.testing.assert_allclose(lse, want_lse.numpy(), **F32)
+
+
+# --------------------------------------------------------------------------
+# brgemm_stacked
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nb,m,k,n", CASES + [(5, 70, 100, 130)])
+def test_stacked_plan_at_the_papers_cases(nb, m, k, n):
+    """bf16 on wgmma with the batch folded into the reduction: nb *
+    ceil(k / 64) slices, split into equal runs of at least 8 slices while
+    the output's tiles leave SMs idle, at most one wave of blocks; the
+    (8, 4096, 1024, 1024) case's 256 tiles need no split."""
+    def rows8(*shape):       # memory rows padded to 8 elements: TMA-legal
+        *lead, c = shape
+        return torch.zeros(*lead, -(-c // 8) * 8, dtype=BF)[..., :c]
+
+    a, b = rows8(nb, m, k), rows8(nb, k, n)
+    p = BK.plan_stacked_call(a, b)
+    slices = nb * -(-k // 64)
+    assert p.mainloop == "wgmma" and p.bk == 64
+    assert p.bm == (64 if m <= 64 else 128)
+    assert p.tiles == -(-m // p.bm) * -(-n // 128)
+    assert (p.splits - 1) * p.chunk < slices <= p.splits * p.chunk
+    assert p.splits == 1 or p.splits * p.tiles <= BK.SMS
+    assert p.splits == 1 or p.chunk >= BK.MIN_SPLIT_K // 64
+    want = {(16, 64, 64, 64): 2, (32, 128, 128, 128): 8,
+            (64, 64, 256, 64): 32, (8, 4096, 1024, 1024): 1,
+            (5, 70, 100, 130): 1}[(nb, m, k, n)]
+    assert p.splits == want
+    # transposed entries read in place plan alike; fp32 walks on simt
+    at, bt = rows8(nb, k, m).transpose(1, 2), rows8(nb, n, k).transpose(1, 2)
+    assert BK.plan_stacked_call(at, bt) == p
+    p32 = BK.plan_stacked_call(a.float(), b.float())
+    assert p32.mainloop == "simt" and p32.splits == 1
+
+
+def test_stacked_plan_tma_illegal_and_empty_stay_off_wgmma():
+    a, b = torch.zeros(3, 77, 36, dtype=BF), torch.zeros(3, 36, 200, dtype=BF)
+    p = BK.plan_stacked_call(a, b)        # rows 36 apart: TMA cannot read
+    assert p.mainloop == "wmma" and p.splits == 1
+    assert BK.plan_stacked(0, 64, 64, 64, True, True).mainloop == "wmma"
+    assert BK.plan_stacked(4, 64, 64, 0, True, True).mainloop == "wmma"
+
+
+def stacked_model(a, b, p, bias=None, c0=None, *, activation="none",
+                  alpha=1.0, beta=0.0):
+    """What the stacked wgmma kernel computes under plan ``p``: split z
+    walks slices z * chunk .. of the flattened (entry, k-slice) axis, each
+    slice's fp32 product from k zero-filled past each entry's edge; the
+    splits' partials are added in split order; then alpha, beta * c0, bias
+    and the activation, once."""
+    nb, m, k = a.shape
+    ks = -(-k // p.bk)
+    kp = ks * p.bk
+    ap = np.zeros((nb, m, kp), np.float32)
+    bp = np.zeros((nb, kp, b.shape[2]), np.float32)
+    ap[:, :, :k], bp[:, :k] = a, b
+    acc = None
+    for z in range(p.splits):
+        part = np.zeros((m, b.shape[2]), np.float32)
+        for sl in range(z * p.chunk, min((z + 1) * p.chunk, nb * ks)):
+            e, j = divmod(sl, ks)
+            cut = slice(j * p.bk, (j + 1) * p.bk)
+            part += ap[e][:, cut] @ bp[e][cut]
+        acc = part if acc is None else acc + part
+    acc = acc * np.float32(alpha)
+    if c0 is not None and beta != 0.0:
+        acc = acc + np.float32(beta) * c0
+    if bias is not None:
+        acc = acc + bias
+    from repro_torch.core import fusion
+    return fusion.apply(activation, torch.from_numpy(acc)).numpy()
+
+
+@pytest.mark.parametrize("nb,m,k,n", [(16, 64, 64, 64), (32, 72, 128, 40),
+                                      (64, 64, 100, 64), (5, 70, 100, 130)])
+@pytest.mark.parametrize("epilogue", ["plain", "bias+c0 gelu"])
+def test_stacked_split_sum_matches_reference(nb, m, k, n, epilogue):
+    """The split walk of the paper's cases (and ragged ones: k = 100 ends
+    each entry's last slice in the zero fill), summed in split order,
+    against the reference's brgemm_ref, in fp32."""
+    from repro.kernels.brgemm.ref import brgemm_ref as jbrgemm_ref
+    a = RNG.normal(size=(nb, m, k)).astype(np.float32)
+    b = (RNG.normal(size=(nb, k, n)) * (nb * k) ** -0.5).astype(np.float32)
+    p = BK.plan_stacked(nb, m, n, k, True, True)
+    assert p.mainloop == "wgmma"
+    kw = {}
+    bias = c0 = None
+    if epilogue != "plain":
+        bias = RNG.normal(size=n).astype(np.float32)
+        c0 = RNG.normal(size=(m, n)).astype(np.float32)
+        kw = dict(activation="gelu", alpha=0.5, beta=0.75)
+    got = stacked_model(a, b, p, bias, c0, **kw)
+    want = jbrgemm_ref(jnp.asarray(a), jnp.asarray(b),
+                       None if c0 is None else jnp.asarray(c0),
+                       None if bias is None else jnp.asarray(bias), **kw)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-4, rtol=1e-4)

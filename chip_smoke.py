@@ -22,23 +22,32 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                ragged shapes, row strides TMA cannot read) and ResNet-50's
                stem weight gradient against float64; the direct
                convolution forward and its
-               dgrad dual at ResNet-50's layer shapes (N = 32); the stacked
+               dgrad dual at ResNet-50's layer shapes (N = 32), each on the
+               mainloop its plan states (bf16 on wgmma + TMA im2col but
+               where the stem's 3 channels are C or K); the stacked
                brgemm at the paper's cases (on wgmma for bf16, split or not,
                with each epilogue, transposed, and on strides TMA cannot
                read) and the batched GEMM broadcast and
                transposed as brgemm's backward reads it, ragged in m, n and
                k, with each epilogue, and on strides TMA cannot read (the
                wmma tile); in fp32 and bf16,
-               within stated bands; the quantized GEMMs (int8, e4m3, e5m2;
-               bf16 and fp32 out) at the quantized serving path's shapes and
-               the paper's cases.
+               within stated bands; the quantized GEMMs (int8, e4m3, e5m2,
+               and matmul_q's mixed e4m3 x e5m2; bf16 and fp32 out) at the
+               quantized serving path's shapes, weights K-major as the path
+               stores them, each matmul_q call on its plan's mainloop
+               (the wgmma mainloop where both operands are K-major), and at the
+               paper's cases; fp8 with fp32 out also observed beside
+               float64.
   4. serve   — full-width smollm-135m (random weights from a seed)
                ``Engine.generate``: 8 prompts x 512 tokens, 64 greedy
                tokens, bf16.  Once on the kernels (counting launches, and
                matmul's and the flash forward's calls by mainloop: bf16 on
                wgmma only, fp32 on simt, in this phase, train, resnet and
                quant; the flash backward's alike in train, batched_matmul's
-               and brgemm_stacked's in brgemm) and
+               and brgemm_stacked's in brgemm, conv2d's in resnet but the
+               stem's wmma calls, matmul_q's all on the wgmma mainloop in
+               quant: native 8-bit wgmma for int8, fp8 widened to f16)
+               and
                once with ``use(backend="torch")``; prefill logits compared;
                then the same in fp32, where the greedy tokens must match.
                Prefill and decode-step times of the kernel path, the
@@ -190,7 +199,9 @@ RESNET_BAND = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 # int8 with an activation: the kernel's expf / tanhf against PyTorch's, a
 # few fp32 ulps (1e-5), or one bf16 ulp where that flips a bf16 rounding;
 # fp8: exact operands and products, fp32 sums in other orders, as the fp32
-# GEMM (1e-4), one bf16 ulp for bf16 out.
+# GEMM (1e-4), one bf16 ulp for bf16 out (on wgmma each 128-product slice
+# is summed in the tensor core's accumulator, narrower than fp32, and the
+# slice sums are added in fp32).
 def quant_tol(fmt, out_dtype, activation="none"):
     if fmt == torch.int8 and activation == "none":
         return (0.0, 0.0)
@@ -739,7 +750,9 @@ class Conv:
 
 
 def resnet_convs(cfg, hw=RESNET_HW):
-    """Every convolution of one ResNet forward, in the model's order."""
+    """Every convolution of one ResNet forward, in the model's order: the
+    stem, then each block's conv1..3 and, where it projects, its proj (the
+    list the tests and matmul_sweep.py take too)."""
     from repro_torch.models.resnet import block_stride
     w = cfg.width
     out = [Conv("stem", 3, w, hw, 7, 2, 3)]
@@ -805,6 +818,7 @@ def phase_parity_paper(cfg):
     from repro_torch.kernels.brgemm.kernel import (plan_batched_call,
                                                    plan_stacked_call)
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+    from repro_torch.kernels.conv2d.kernel import plan_conv_call
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = {"conv2d": 0.0, "brgemm_stacked": 0.0, "batched_matmul": 0.0}
     failed = []
@@ -825,16 +839,28 @@ def phase_parity_paper(cfg):
     keys = {cv.key for cv in table}
     shapes = table + [cv for cv in unique_convs(resnet_convs(cfg))
                       if cv.key not in keys]
+
+    def planned(case, x, w, stride=1, padding=0):
+        """The case with its plan: bf16 on wgmma but where the stem's 3
+        channels are C or K (the wmma tiles), fp32 on simt."""
+        p = plan_conv_call(x, w, stride, padding)
+        want = ("simt" if x.dtype == torch.float32 else
+                "wmma" if 3 in (x.size(3), w.size(3)) else "wgmma")
+        if p.mainloop != want:
+            failed.append(f"conv2d:{case}: planned {p.mainloop}")
+        return f"{case} {p.mainloop} splits {p.splits}"
+
     for dtype in (torch.float32, torch.bfloat16):
         for cv in shapes:
             shape = (f"{cv.name} N{RESNET_BATCH} C{cv.c} K{cv.k} H{cv.h} "
                      f"{cv.r}x{cv.r}/{cv.stride} pad {cv.padding}")
             x, w = conv_inputs(cv, dtype, gen)
             kw = dict(stride=cv.stride, padding=cv.padding)
-            record("conv2d", f"fwd {shape}", dtype, conv2d_cuda(x, w, **kw),
-                   conv2d_ref(x, w, **kw))
+            record("conv2d", planned(f"fwd {shape}", x, w, **kw), dtype,
+                   conv2d_cuda(x, w, **kw), conv2d_ref(x, w, **kw))
             gd, wd, pd = dgrad_inputs(cv, w, dtype, gen)
-            record("conv2d", f"dgrad {shape}", dtype,
+            record("conv2d", planned(f"dgrad {shape}", gd, wd, padding=pd),
+                   dtype,
                    conv2d_cuda(gd, wd, padding=pd, out_dtype=torch.float32),
                    conv2d_ref(gd, wd, padding=pd, out_dtype=torch.float32))
             del x, w, gd, wd
@@ -940,29 +966,62 @@ def phase_parity_paper(cfg):
     return worst
 
 
-def quantized(x, w, fmt):
-    """(xq, sx, wq, sw): x quantized per row, w per output channel, as the
-    quantized path hands them over (w keeps its layout)."""
+def quantized(x, w, fmt, w_fmt=None, k_major=False):
+    """(xq, sx, wq, sw): x quantized per row, w per output channel (to
+    ``w_fmt``, default ``fmt``); w K-major, as the quantized path stores a
+    weight (``quantize_weight``), where ``k_major``, else in w's layout."""
     from repro_torch import quant
-    name = str(fmt).replace("torch.", "")
-    xq, sx = quant.quantize(x, name, axis=(-1,))
-    wq, sw = quant.quantize(w, name, axis=(-2,))
+
+    def name(f):
+        return str(f).replace("torch.", "")
+    xq, sx = quant.quantize(x, name(fmt), axis=(-1,))
+    wq, sw = quant.quantize(w, name(w_fmt or fmt), axis=(-2,),
+                            k_major=k_major)
     return xq, sx, wq, sw
 
 
 def phase_parity_quant(cfg):
     """The three quantized GEMMs against their plain versions: matmul_q at
     the quantized serving path's shapes (prefill, decode, the head on the
-    column-major table.T), brgemm_q and batched_matmul_q at the paper's
-    cases (one with a 2-D broadcast operand), in int8, e4m3 and e5m2, with
-    bf16 and fp32 out."""
+    column-major table.T) with the weights K-major as the path stores
+    them, a long k the plan splits and an N-major weight (the wmma tiles),
+    each on the mainloop its plan states; brgemm_q and batched_matmul_q at
+    the paper's cases (one with a 2-D broadcast operand); in int8, e4m3,
+    e5m2 and matmul_q's mixed e4m3 x e5m2, with bf16 and fp32 out."""
     from repro_torch import quant
     from repro_torch.kernels.brgemm import (
         batched_matmul_q_cuda, batched_matmul_q_ref, brgemm_q_cuda,
         brgemm_q_ref, matmul_q_cuda, matmul_q_ref)
+    from repro_torch.kernels.brgemm.quant_kernel import plan_q_call
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     worst = {"matmul_q": 0.0, "brgemm_q": 0.0, "batched_matmul_q": 0.0}
     failed = []
+
+    def vs_f64(got, ref, xq, wq, sx, sw, name, tag):
+        """Observed beside the held check: an fp8 call's fp32 output and
+        the plain version's, each against the float64 product, over the
+        largest |output|; where _scaled_mm takes the shape and formats
+        (rows a multiple of 16, x e4m3), the library's fp8 product (fp8
+        wgmma, whose accumulator is narrower than fp32; scales 1, fp32
+        out) against the float64 one alike."""
+        exact = xq.double() @ wq.double()
+        truth = exact * (sx.double()[:, None] * sw.double()[None, :])
+        scale = truth.abs().max().item()
+        rec = {"phase": "parity", "kernel": "matmul_q", "observed_only":
+               True, "case": f"{name} vs float64, fp32 out", "dtype": tag,
+               "max_abs_err_vs_f64_over_max": (got.double() - truth).abs(
+               ).max().item() / scale,
+               "plain_max_abs_err_vs_f64_over_max": (ref.double() - truth
+                                                     ).abs().max().item()
+               / scale, "max_abs_output": scale}
+        if xq.size(0) % 16 == 0 and xq.dtype == torch.float8_e4m3fn:
+            one = torch.ones((), device="cuda")
+            lib = torch._scaled_mm(xq, wq, scale_a=one, scale_b=one,
+                                   out_dtype=torch.float32)
+            rec["scaled_mm_err_vs_f64_over_max"] = (
+                (lib.double() - exact).abs().max().item()
+                / exact.abs().max().item())
+        emit(rec)
 
     def record(kernel, case, fmt, out_dtype, got, ref, tol):
         ok, abs_err, rel_err = close(got, ref, *tol)
@@ -977,28 +1036,61 @@ def phase_parity_quant(cfg):
 
     gemms = [g for g in main_path_gemms(cfg)
              if not g.name.endswith((".up", ".o"))]   # same shapes as q, gate
-    for fmt in EIGHT_BIT:
+    # formats (x, w): each storage, and fp8's mixed pair
+    pairs = [(f, f) for f in EIGHT_BIT] + [(torch.float8_e4m3fn,
+                                            torch.float8_e5m2)]
+    for fmt, w_fmt in pairs:
+        tag = str(fmt).replace("torch.", "") + (
+            "" if w_fmt == fmt else " x " + str(w_fmt).replace("torch.", ""))
         for out_dtype in (torch.float32, torch.bfloat16):
-            for g in gemms:
+            # the path's layouts (w K-major), a split of a long k, and one
+            # N-major w (the wmma tiles)
+            cases = [(g.name, g.m, g.k, g.n, g.activation, True)
+                     for g in gemms]
+            cases += [("split k", 8, 4096, 128, "none", True),
+                      ("w N-major", 300, 576, 192, "none", False)]
+            for name, m, k, n, act, k_major in cases:
+                g = Gemm(name, m, k, n, act,
+                         kind="head" if name == "lm_head" else "fwd")
                 x, w = gemm_inputs(g, torch.float32, gen)
-                xq, sx, wq, sw = quantized(x, w, fmt)
-                kw = dict(activation=g.activation, out_dtype=out_dtype)
-                record("matmul_q", f"{g.name} m{g.m} k{g.k} n{g.n} "
-                       f"{g.activation} w{'T' if wq.stride(0) == 1 else ''}",
-                       fmt, out_dtype, matmul_q_cuda(xq, wq, sx, sw, **kw),
-                       matmul_q_ref(xq, wq, sx, sw, **kw),
-                       quant_tol(fmt, out_dtype, g.activation))
-                del x, w, xq, wq
+                xq, sx, wq, sw = quantized(x, w, fmt, w_fmt, k_major)
+                p = plan_q_call(xq, wq)
+                if p.mainloop != ("wgmma" if k_major else "wmma"):
+                    failed.append(f"matmul_q:{name}:{tag}: planned "
+                                  f"{p.mainloop}")
+                kw = dict(activation=act, out_dtype=out_dtype)
+                got = matmul_q_cuda(xq, wq, sx, sw, **kw)
+                ref = matmul_q_ref(xq, wq, sx, sw, **kw)
+                record("matmul_q", f"{name} m{m} k{k} n{n} {act} "
+                       f"{p.mainloop} splits {p.splits}", tag, out_dtype,
+                       got, ref, quant_tol(fmt, out_dtype, act))
+                if fmt != torch.int8 and out_dtype == torch.float32 \
+                        and act == "none" and (
+                            name.startswith("prefill") or p.splits > 1):
+                    vs_f64(got, ref, xq, wq, sx, sw, name, tag)
+                del x, w, xq, wq, got, ref
             # the epilogue: bias, alpha, gelu; ragged m, k, n
             x = torch.randn(77, 100, device="cuda", generator=gen)
             w = torch.randn(100, 133, device="cuda", generator=gen) / 10
             bias = torch.randn(133, device="cuda", generator=gen)
-            xq, sx, wq, sw = quantized(x, w, fmt)
+            xq, sx, wq, sw = quantized(x, w, fmt, w_fmt, True)
             kw = dict(activation="gelu", alpha=0.5, out_dtype=out_dtype)
             record("matmul_q", "ragged m77 k100 n133 bias gelu alpha 0.5",
-                   fmt, out_dtype, matmul_q_cuda(xq, wq, sx, sw, bias, **kw),
+                   tag, out_dtype, matmul_q_cuda(xq, wq, sx, sw, bias, **kw),
                    matmul_q_ref(xq, wq, sx, sw, bias, **kw),
                    quant_tol(fmt, out_dtype, "gelu"))
+            x = torch.randn(96, 256, device="cuda", generator=gen)
+            w = torch.randn(256, 200, device="cuda", generator=gen) / 16
+            bias = torch.randn(200, device="cuda", generator=gen)
+            xq, sx, wq, sw = quantized(x, w, fmt, w_fmt, True)
+            kw = dict(activation="silu", alpha=2.0, out_dtype=out_dtype)
+            record("matmul_q", f"m96 k256 n200 bias silu alpha 2 "
+                   f"{plan_q_call(xq, wq).mainloop}", tag,
+                   out_dtype, matmul_q_cuda(xq, wq, sx, sw, bias, **kw),
+                   matmul_q_ref(xq, wq, sx, sw, bias, **kw),
+                   quant_tol(fmt, out_dtype, "silu"))
+            if w_fmt != fmt:
+                continue               # brgemm_q / batched_matmul_q: below
             name = str(fmt).replace("torch.", "")
             for nb, m, k, n in BRGEMM_CASES:
                 a = torch.randn(nb, m, k, device="cuda", generator=gen)
@@ -1061,11 +1153,13 @@ def prefill_logits(cfg, params, tokens, backend):
     return logits
 
 
-def counted_mainloops(fn, name, dtype, n_launches):
+def counted_mainloops(fn, name, dtype, n_launches, only=None):
     """``fn``'s calls by mainloop since its counters were zeroed: a main
-    path's bf16 calls run on wgmma only, its fp32 calls on simt.  Returns
-    the record's field; raises where another mainloop ran."""
-    only = "wgmma" if dtype == torch.bfloat16 else "simt"
+    path's bf16 calls run on wgmma only, its fp32 calls on simt (or all on
+    ``only``: matmul_q's mainloop follows its 8-bit storage, not the
+    activations' dtype).  Returns the record's field; raises where another
+    mainloop ran."""
+    only = only or ("wgmma" if dtype == torch.bfloat16 else "simt")
     counts = dict(fn.mainloops)
     if counts[only] != n_launches or sum(counts.values()) != n_launches:
         raise AssertionError(f"{dtype} {name} calls off the {only} "
@@ -1079,6 +1173,21 @@ def mainloop_check(dtype, n_launches):
     from repro_torch.kernels.brgemm import matmul_cuda
     return {**counted_mainloops(matmul_cuda, "matmul", dtype, n_launches),
             "matmul_split_launches": matmul_cuda.split_launches}
+
+
+def conv_mainloop_check(dtype, n_launches):
+    """conv2d_cuda's calls of one ResNet forward and gradient step by
+    mainloop: in bf16 every one on wgmma but the stem's two (its 3-channel
+    pixels take the gathered wmma tiles), in fp32 every one on simt."""
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    counts = dict(conv2d_cuda.mainloops)
+    want = (dict(wgmma=n_launches - 2, wmma=2, simt=0)
+            if dtype == torch.bfloat16 else dict(wgmma=0, wmma=0,
+                                                 simt=n_launches))
+    if counts != want:
+        raise AssertionError(f"{dtype} conv2d calls by mainloop {counts}, "
+                             f"expected {want}")
+    return {"conv2d_mainloops": counts}
 
 
 def flash_mainloop_check(dtype, n_launches, n_bwd=None):
@@ -1498,7 +1607,7 @@ def checked_launches(worst):
 
     # The wrappers count into the name they are bound to: these launches
     # are comparisons and leave the path's counters alone.
-    conv.launches = 0
+    CK.reset_conv_counts(conv)
     BK.reset_matmul_counts(mm)
     CK.conv2d_cuda, BK.matmul_cuda = conv, mm
     try:
@@ -1540,6 +1649,7 @@ def phase_resnet():
     from repro_torch.kernels.brgemm import matmul_cuda
     from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.kernels.conv2d.kernel import reset_conv_counts
     from repro_torch.models import resnet
     cfg = resnet.ResNetCfg()
     counters = {"conv2d": conv2d_cuda, "matmul": matmul_cuda}
@@ -1581,6 +1691,7 @@ def phase_resnet():
         for c in counters.values():
             c.launches = 0
         reset_matmul_counts()
+        reset_conv_counts()
         logits = fwd()
         torch.cuda.synchronize()
         fwd_launches = launches()
@@ -1590,8 +1701,11 @@ def phase_resnet():
         loss, grads = step()
         torch.cuda.synchronize()
         step_launches = launches()
-        by_mainloop = mainloop_check(
-            dtype, fwd_launches["matmul"] + step_launches["matmul"])
+        by_mainloop = {**mainloop_check(
+            dtype, fwd_launches["matmul"] + step_launches["matmul"]),
+            **conv_mainloop_check(
+                dtype, fwd_launches["conv2d"] + step_launches["conv2d"]),
+            "conv2d_split_launches": conv2d_cuda.split_launches}
         peak = torch.cuda.max_memory_allocated()
         if fwd_launches != per_fwd or step_launches != per_step:
             raise AssertionError(f"resnet launch counts {fwd_launches} / "
@@ -1812,6 +1926,7 @@ def phase_quant(base_cfg):
     from repro_torch import quant
     from repro_torch.core import dispatch
     from repro_torch.kernels.brgemm import matmul_cuda, matmul_q_cuda
+    from repro_torch.kernels.brgemm.quant_kernel import reset_quant_counts
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      reset_flash_counts)
     from repro_torch.models import api
@@ -1839,6 +1954,7 @@ def phase_quant(base_cfg):
         for c in counters.values():
             c.launches = 0
         reset_flash_counts()
+        reset_quant_counts()
         t0 = time.perf_counter()
         ids = engine.generate({"tokens": tokens}, n_tokens=NEW_TOKENS,
                               stop_tokens=())
@@ -1849,8 +1965,15 @@ def phase_quant(base_cfg):
         if launches != expect:
             raise AssertionError(f"quant {tier} launch counts {launches} != "
                                  f"{expect}")
-        by_mainloop = flash_mainloop_check(dtype,
-                                           launches["flash_attention"])
+        # Every matmul_q call, prefill and decode, in both dtypes: the plan
+        # states the wgmma mainloop for the path's K-major weights (int8 on
+        # 8-bit wgmma, fp8 widened to f16 wgmma).
+        by_mainloop = {**flash_mainloop_check(dtype,
+                                              launches["flash_attention"]),
+                       **counted_mainloops(matmul_q_cuda, "matmul_q", dtype,
+                                           launches["matmul_q"], "wgmma"),
+                       "matmul_q_split_launches":
+                       matmul_q_cuda.split_launches}
         with dispatch.use(backend="torch"):
             ids_plain = engine.generate({"tokens": tokens},
                                         n_tokens=NEW_TOKENS, stop_tokens=())
@@ -2117,6 +2240,13 @@ def plan_fields(x, w):
     return {"mainloop": p.mainloop, "bm": p.bm, "splits": p.splits}
 
 
+def conv_plan_fields(x, w, stride=1, padding=0):
+    """A conv2d row's plan: mainloop and splits of the window."""
+    from repro_torch.kernels.conv2d.kernel import plan_conv_call
+    p = plan_conv_call(x, w, stride, padding)
+    return {"mainloop": p.mainloop, "splits": p.splits}
+
+
 def phase_times(cfg, card):
     import torch.nn.functional as F
     from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
@@ -2260,7 +2390,8 @@ def phase_times_paper(card):
         # forward of the measured forward and of the gradient step's
         row("conv2d", f"resnet.fwd.{cv.name}", ms, wall, cv.flops,
             x_bytes + w_bytes + g_bytes, plain, lib,
-            {"resnet": 2 * cv.count}, **shape)
+            {"resnet": 2 * cv.count}, **shape,
+            **conv_plan_fields(*sets[0][:2], **kw))
         if cv.name != "stem":           # the image takes no gradient
             dsets = []
             for x, w, *_ in sets:
@@ -2276,7 +2407,7 @@ def phase_times_paper(card):
             row("conv2d", f"resnet.dgrad.{cv.name}", ms, wall, cv.flops,
                 g_bytes + w_bytes + 2 * x_bytes, plain, lib,
                 {"resnet": cv.count}, dual_input=list(dsets[0][0].shape),
-                **shape)
+                **shape, **conv_plan_fields(*dsets[0][:2], padding=pd))
             del dsets
         wsets = [(patches(x, cv.r, cv.r, cv.stride, cv.padding).T,
                   torch.randn(n * p * p, cv.k, device="cuda",
@@ -2378,6 +2509,7 @@ def phase_times_quant(cfg, card):
     from repro_torch.kernels.brgemm import (
         batched_matmul_q_cuda, batched_matmul_q_ref, brgemm_q_cuda,
         brgemm_q_ref, matmul_q_cuda, matmul_q_ref)
+    from repro_torch.kernels.brgemm.quant_kernel import plan_q_call
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     rows = []
     for fmt in (torch.int8, torch.float8_e4m3fn):
@@ -2393,9 +2525,9 @@ def phase_times_quant(cfg, card):
             sets = []
             for _ in range(n_sets(nbytes)):
                 x, w = gemm_inputs(g, torch.bfloat16, gen)
-                xq, sx, wq, sw = quantized(x, w, fmt)
-                # _scaled_mm wants B column-major: a copy made here, untimed
-                sets.append((xq, sx, wq, sw, wq.t().contiguous().t()))
+                # w K-major, as the path stores it (and _scaled_mm takes)
+                xq, sx, wq, sw = quantized(x, w, fmt, k_major=True)
+                sets.append((xq, sx, wq, sw, wq))
             kw = dict(activation=g.activation, out_dtype=out_dtype)
             ms, wall = time_ms(lambda xq, sx, wq, sw, _: matmul_q_cuda(
                 xq, wq, sx, sw, **kw), sets)
@@ -2426,10 +2558,12 @@ def phase_times_quant(cfg, card):
                                                   else 1)
             else:
                 calls = g.per_forward
+            p = plan_q_call(*sets[0][:3:2])
             row("matmul_q", f"{name} {g.name}", ms, wall,
                 2 * g.m * g.n * g.k, nbytes, plain, lib, {"quant": calls},
                 m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind,
-                library=lib_name)
+                library=lib_name, mainloop=p.mainloop, bm=p.bm,
+                splits=p.splits)
             del sets
     row = row_recorder(rows, card, torch.int8)
     for nb, m, k, n in BRGEMM_CASES:

@@ -1,6 +1,7 @@
 """Time the matmul kernel at every GEMM shape of the port's main paths, the
 flash forward at the prefill shape, the flash backward at the training
-shape, and batched_matmul and brgemm_stacked at the paper's cases.
+shape, batched_matmul and brgemm_stacked at the paper's cases, matmul_q
+at the quantized serving path's shapes and conv2d at ResNet-50's.
 
     python3 matmul_sweep.py [--src DIR] [--label NAME] [--variants]
 
@@ -18,13 +19,17 @@ brgemm_stacked at each.  Per shape: the device time of a call (a CUDA graph
 of calls, operands cycled past the L2, chip_smoke.time_ms) beside one
 PyTorch call's on the same inputs (torch.matmul, scaled_dot_product_attention,
 its backward through autograd, whose kernels the profiler names, or
-torch.einsum) and the bound; the wall
+torch.einsum, torch._int_mm or torch._scaled_mm, channels-last
+F.conv2d) and the bound; the wall
 time a call back to back (CUDA events: where the device time is small, the
 host's cost of a call); the plan the package chose.  --src imports
 repro_torch from another checkout's src, so that an earlier commit's
 kernels are timed on the same card in the same run; --variants also times
-each matmul shape that has few output tiles under other split targets (one
-wave of 132 blocks, two, four, and no split).  One JSON line a shape, then
+each matmul and matmul_q shape that has few output tiles under other split
+targets (one wave of 132 blocks, two, four, and no split).  matmul_q's
+weights are laid out as the imported package's own quantize_weight stores
+them (its main path's layout), conv2d's dual convolutions as its backward
+makes them.  One JSON line a shape, then
 the card's name and power limit.  Needs one CUDA card.
 """
 from __future__ import annotations
@@ -81,11 +86,10 @@ def resnet_shapes(cfg, patches, gen):
         yield name, m, kk, n, sets, {}
 
 
-def variants(K, x, w):
-    """Other plans of the same mainloop and tile: the splits that aim at
-    each of TARGETS blocks, and no split."""
-    p = K.plan_call(x, w)
-    slices = -(-x.size(1) // p.bk)
+def variants(p, k):
+    """Other plans of plan ``p``'s mainloop and tile over a reduction of
+    ``k``: the splits that aim at each of TARGETS blocks, and no split."""
+    slices = -(-k // p.bk)
     out = {}
     for target in TARGETS:
         splits = max(1, min(target // p.tiles, slices))
@@ -223,6 +227,110 @@ def batched_rows(args, card, gen):
         del base
 
 
+def quant_rows(args, card, gen, cfg):
+    """matmul_q at the quantized serving path's shapes (int8 and e4m3,
+    bf16 out; the head int8, fp32 out), beside torch._int_mm (the int32
+    product only) or torch._scaled_mm (row-wise scales, bf16 out)."""
+    from repro_torch import quant
+    from repro_torch.kernels.brgemm import quant_kernel as QK
+    for fmt in ("int8", "float8_e4m3fn"):
+        qcfg = quant.QuantConfig(w_dtype=fmt, a_dtype=fmt)
+        for g in CS.main_path_gemms(cfg):
+            if g.name == "lm_head" and fmt != "int8":
+                continue
+            out_dtype = g.out_dtype or torch.bfloat16
+            sets = []
+            for _ in range(CS.n_sets(g.m * g.k + g.k * g.n)):
+                x, w = CS.gemm_inputs(g, torch.bfloat16, gen)
+                xq, sx = quant.quantize(x, fmt, axis=(-1,))
+                qt = quant.quantize_weight(w, qcfg)
+                # the library calls read a K-major copy, whatever the
+                # package stores
+                sets.append((xq, sx, qt.q, qt.scale,
+                             qt.q.t().contiguous().t()))
+
+            def call(xq, sx, wq, sw, _):
+                return QK.matmul_q_cuda(xq, wq, sx, sw, out_dtype=out_dtype,
+                                        activation=g.activation)
+            ms, wall = CS.time_ms(call, sets)
+            if fmt == "int8":
+                lib = (CS.time_ms(lambda xq, sx, wq, sw, wk: torch._int_mm(
+                    xq, wk), sets)[0] if g.m > 16 else None)
+            else:
+                lib = CS.time_ms(lambda xq, sx, wq, sw, wk: torch._scaled_mm(
+                    xq, wk, scale_a=sx[:, None], scale_b=sw[None, :],
+                    out_dtype=torch.bfloat16), sets)[0]
+            nbytes = (g.m * g.k + g.k * g.n + 4 * (g.m + g.n)
+                      + g.m * g.n * (4 if g.out_dtype else 2))
+            bms, by = CS.bound(2 * g.m * g.n * g.k, nbytes, card,
+                               torch.int8)
+            rec = {"label": args.label, "kernel": "matmul_q",
+                   "shape": f"{fmt} {g.name}", "m": g.m, "k": g.k, "n": g.n,
+                   "w_strides": list(sets[0][2].stride()), "ms": ms,
+                   "wall_ms": wall, "library_ms": lib,
+                   "ratio": ms / lib if lib else None, "bound_ms": bms,
+                   "bound_by": by}
+            if hasattr(QK, "plan_q_call"):
+                p = QK.plan_q_call(sets[0][0], sets[0][2])
+                rec["plan"] = {"mainloop": p.mainloop, "bm": p.bm,
+                               "splits": p.splits, "chunk": p.chunk}
+                if args.variants and 2 * p.tiles <= 132 and \
+                        p.mainloop == "wgmma":
+                    real = QK.plan_q
+                    rec["variants_ms"] = {}
+                    for vname, vp in variants(p, g.k).items():
+                        QK.plan_q = lambda *_, _p=vp: _p
+                        try:
+                            rec["variants_ms"][vname] = [
+                                CS.time_ms(call, sets)[0], vp.splits]
+                        finally:
+                            QK.plan_q = real
+            print(json.dumps(rec), flush=True)
+            del sets
+
+
+def conv_rows(args, card, gen):
+    """conv2d at each distinct ResNet-50 convolution (N = 32, bf16) and its
+    dual (the backward by data, fp32 out), beside channels-last F.conv2d."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv2d import dual_operands, kernel as CK
+    from repro_torch.models.resnet import ResNetCfg
+    for cv in CS.unique_convs(CS.resnet_convs(ResNetCfg())):
+        kw = dict(stride=cv.stride, padding=cv.padding)
+        base = [CS.conv_inputs(cv, torch.bfloat16, gen) for _ in range(2)]
+        cases = [("fwd", [(x, w, *CS.channels_last(x, w)) for x, w in base],
+                  kw, None)]
+        if cv.name != "stem":
+            dual = []
+            for _, w in base:
+                g = torch.randn(CS.RESNET_BATCH, cv.p, cv.p, cv.k,
+                                device="cuda", generator=gen).to(
+                                    torch.bfloat16)
+                gd, wd, pd = dual_operands(g, w, (cv.h, cv.h), cv.stride,
+                                           cv.padding)
+                dual.append((gd, wd, *CS.channels_last(gd, wd)))
+            cases.append(("dgrad", dual, dict(padding=pd), torch.float32))
+        for what, sets, ckw, out_dtype in cases:
+            ms, wall = CS.time_ms(lambda x, w, *_: CK.conv2d_cuda(
+                x, w, out_dtype=out_dtype, **ckw), sets, 10)
+            lib, _ = CS.time_ms(lambda _x, _w, xc, wc: F.conv2d(
+                xc, wc, **ckw), sets, 10)
+            x_bytes = 2 * CS.RESNET_BATCH * cv.h * cv.h * cv.c
+            g_bytes = 2 * CS.RESNET_BATCH * cv.p * cv.p * cv.k
+            nbytes = x_bytes + g_bytes + 2 * cv.r * cv.r * cv.c * cv.k + (
+                x_bytes if what == "dgrad" else 0)
+            bms, by = CS.bound(cv.flops, nbytes, card)
+            rec = {"label": args.label, "kernel": "conv2d",
+                   "shape": f"{what} {cv.name} x{cv.count}",
+                   "key": list(cv.key), "ms": ms, "wall_ms": wall,
+                   "library_ms": lib, "ratio": ms / lib, "bound_ms": bms,
+                   "bound_by": by}
+            if hasattr(CK, "plan_conv_call"):
+                p = CK.plan_conv_call(*sets[0][:2], **ckw)
+                rec["plan"] = {"mainloop": p.mainloop, "splits": p.splits}
+            print(json.dumps(rec), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", help="import repro_torch from this src dir")
@@ -263,7 +371,7 @@ def main():
             if args.variants and 2 * p.tiles <= K.SMS:
                 real = K.plan
                 rec["variants_ms"] = {}
-                for vname, vp in variants(K, *sets[0]).items():
+                for vname, vp in variants(p, k).items():
                     K.plan = lambda *_, _p=vp: _p
                     try:
                         ms_v = CS.time_ms(call, sets)[0]
@@ -276,6 +384,8 @@ def main():
     flash_bwd_rows(args, card, gen, get("smollm-135m"))
     batched_rows(args, card, gen)
     stacked_rows(args, card, gen)
+    quant_rows(args, card, gen, get("smollm-135m"))
+    conv_rows(args, card, gen)
     print(card, flush=True)
 
 

@@ -135,14 +135,17 @@ def as_quant_config(spec) -> QuantConfig:
 # quantize / dequantize
 # --------------------------------------------------------------------------
 
-def quantize(x, dtype: str = "int8", *, axis=None):
+def quantize(x, dtype: str = "int8", *, axis=None, k_major: bool = False):
     """Absmax-quantize ``x``; returns ``(q, scale)`` with fp32 scales.
 
     ``axis`` gives the reduction axes of the absmax (the dims one scale
     covers); ``None`` means one scale for the whole tensor.  The scale drops
     the reduced axes: for a weight ``(..., k, n)`` with ``axis=(-2,)`` it
     is ``(..., n)``.  ``q`` keeps ``x``'s strides (elementwise ops do), so a
-    column-major ``table.T`` quantizes to a column-major ``q``.
+    column-major ``table.T`` quantizes to a column-major ``q``; with
+    ``k_major`` it is column-major over its last two dims whatever ``x``'s
+    layout (the same values, written so by the cast that stores them:
+    the layout the 8-bit wgmma mainloop reads a weight in, k contiguous).
     """
     if dtype not in QMAX:
         raise ValueError(f"unknown quant storage dtype {dtype!r}")
@@ -156,7 +159,11 @@ def quantize(x, dtype: str = "int8", *, axis=None):
     scale = torch.clamp_min(amax, _SCALE_FLOOR) / QMAX[dtype]
     q = x32 / scale
     if dtype == "int8":
-        q = torch.clamp(torch.round(q), -127.0, 127.0).to(torch.int8)
+        q = torch.clamp(torch.round(q), -127.0, 127.0)
+    if k_major:
+        q = torch.empty_like(q.mT, dtype=TORCH_DTYPES[dtype],
+                             memory_format=torch.contiguous_format
+                             ).mT.copy_(q)
     else:
         q = q.to(TORCH_DTYPES[dtype])
     if axis is None:
@@ -221,14 +228,18 @@ def quantize_weight(w, quant) -> QuantizedTensor:
     """Calibrate one GEMM weight ``(..., k, n)`` under ``quant``.
 
     Per-channel scales reduce the contraction dim only, so stacked weights
-    ``(L, k, n)`` get ``(L, n)`` scales."""
+    ``(L, k, n)`` get ``(L, n)`` scales.  The storage is K-major (a
+    column-major ``(k, n)`` view, strides ``(1, k)``; the reference's
+    values, laid out for the 8-bit wgmma mainloop): written so by the cast
+    that stores it, so a weight quantized at every step (``decode_int8``)
+    pays no extra pass for it."""
     qcfg = as_quant_config(quant)
     if getattr(w, "ndim", 0) < 2:
         raise ValueError(f"GEMM weight must be >= 2-D; got shape "
                          f"{tuple(getattr(w, 'shape', ()))}")
     axis = (-2,) if qcfg.granularity == "per_channel" else (-2, -1)
     with torch.no_grad():
-        q, scale = quantize(w, qcfg.w_dtype, axis=axis)
+        q, scale = quantize(w, qcfg.w_dtype, axis=axis, k_major=True)
     return QuantizedTensor(q, scale)
 
 

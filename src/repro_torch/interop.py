@@ -14,7 +14,8 @@ ResNet-50's parameters, a tree of the same layout in both packages.
 A calibrated reference tree (``repro.quant.calibrate_params``, then numpy
 leaves) carries across too: each stacked ``QuantizedTensor`` leaf (``q``
 (L, k, n), ``scale`` (L, n) or (L,)) is sliced per layer into the port's
-``QuantizedTensor``, its storage bits unchanged.
+``QuantizedTensor``, its storage bits unchanged and laid out K-major, as
+the port's own calibration stores them (``core/quantize.py``).
 Only numpy crosses the boundary, so this module imports nothing of JAX.
 """
 from __future__ import annotations
@@ -126,8 +127,9 @@ def params_from_numpy(tree, cfg: ArchCfg, device="cuda",
         for name, arr in named_leaves(tree, cfg):
             if isinstance(arr, tuple):
                 q, scale = arr
+                # K-major, as quantize_weight stores it (a copy)
                 install(model, name, QuantizedTensor(
-                    _storage_to_torch(q, model.device),
+                    _storage_to_torch(q, model.device).mT.contiguous().mT,
                     _to_torch(scale, torch.float32, model.device)))
             else:
                 named[name].copy_(_to_torch(arr, dtype, model.device))

@@ -78,11 +78,13 @@ def plan(m: int, n: int, k: int, is_bf16: bool, tma: bool) -> Plan:
     return Plan(mainloop, bm, bk, splits, chunk, tiles)
 
 
-def _split(tiles: int, slices: int, bk: int, per_sm: int) -> tuple[int, int]:
-    """(splits, chunk): ``slices`` slices of a reduction cut into equal runs
-    of ``chunk`` whole slices, no shorter than MIN_SPLIT_K, while ``tiles``
-    output tiles alone leave SMs idle, until the blocks fill them once."""
-    splits = max(1, min(SMS * per_sm // tiles, slices // (MIN_SPLIT_K // bk)))
+def _split(tiles: int, slices: int, bk: int, per_sm: int,
+           min_split_k: int = MIN_SPLIT_K) -> tuple[int, int]:
+    """(splits, chunk): ``slices`` slices of ``bk`` of a reduction cut into
+    equal runs of ``chunk`` whole slices, no shorter than ``min_split_k``,
+    while ``tiles`` output tiles alone leave SMs idle, until the blocks
+    fill them once."""
+    splits = max(1, min(SMS * per_sm // tiles, slices // (min_split_k // bk)))
     chunk = max(1, -(-slices // splits))
     return max(1, -(-slices // chunk)), chunk
 

@@ -1,15 +1,25 @@
-"""Wrappers of the quantized Hopper GEMM kernel (``kernels/brgemm_quant``).
+"""Wrappers of the quantized Hopper GEMM kernels (``kernels/brgemm_quant``).
 
 ``matmul_q_cuda``, ``brgemm_q_cuda`` and ``batched_matmul_q_cuda`` launch
-the one kernel of ``brgemm_quant/csrc/quant.cu`` (matmul_q is the stacked
-form with one entry).  Each checks what the kernel takes (int8 operands,
-or fp8 e4m3 / e5m2 ones; fp32 scales; bf16 or fp32 out), allocates the
-output, and launches on the current stream; the library is built at first
-use (``kernels/_build.py``).  Operands are read in place, each matrix row-
-or column-major with any batch stride (the LM head's ``table.T``, quantized
-dynamically, stays column-major); scales through their strides, so an
-expanded per-tensor scale is never copied.  ``<wrapper>.launches`` counts
-each wrapper's launches.
+the kernels of ``brgemm_quant/csrc/quant.cu``.  Each checks what the
+kernels take (int8 operands, or fp8 e4m3 / e5m2 ones; fp32 scales; bf16 or
+fp32 out), allocates the output, and launches on the current stream; the
+library is built at first use (``kernels/_build.py``).  Operands are read
+in place, each matrix row- or column-major with any batch stride; scales
+through their strides, so an expanded per-tensor scale is never copied.
+
+``plan_q`` decides how ``matmul_q_cuda`` runs a call: on the shared wgmma +
+TMA mainloop (``wgmma``: native 8-bit wgmma for int8 on 128 or 64 x 128
+tiles, fp8 widened exactly to f16 for f16 wgmma on 64 x 128 tiles, k split
+where the tiles alone leave SMs idle) where both operands are K-major and
+TMA can describe them (xq row-major, wq column-major: the calibrated
+storage of ``core/quantize.py::quantize_weight`` and the LM head's
+``table.T``), else on the first kernel's 64 x 64 wmma tiles (``wmma``),
+which ``brgemm_q_cuda`` and ``batched_matmul_q_cuda`` run too.  The plan
+decides before the launch; nothing falls back.  ``<wrapper>.launches``
+counts each wrapper's launches; ``matmul_q_cuda.mainloops`` its calls by
+mainloop and ``.split_launches`` those that also launched the split-K
+reduction (``reset_quant_counts`` zeroes them).
 """
 from __future__ import annotations
 
@@ -20,13 +30,21 @@ import torch
 
 from repro_torch.core import fusion
 from repro_torch.kernels import _build
-from repro_torch.kernels.brgemm.kernel import _layout, _raise_on
+from repro_torch.kernels.brgemm.kernel import Plan, _layout, _raise_on, _split
 
 # Storage dtype -> the kernel's format code (quant.cu, enum Fmt).
 FORMATS = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 _OUT = (torch.float32, torch.bfloat16)
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+
+MAINLOOPS = ("wgmma", "wmma")    # matmul_q_cuda's mainloops
+BK = 128                          # the wgmma mainloop's k a slice: 128 bytes
+# A split walks at least this much of k.  matmul's bf16 runs of 512 are
+# 1 KB a row; an 8-bit run of 1024 is the same bytes.  fp8, whose slices
+# a block widens to f16 before its products, splits down to one slice.
+MIN_SPLIT_K = 1024
+MIN_SPLIT_K_FP8 = BK
 
 
 @functools.cache
@@ -37,6 +55,10 @@ def _lib():
     lib.repro_quant_gemm.argtypes = (operand * 2 + scales * 2 + [
         _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P])
     lib.repro_quant_gemm.restype = ctypes.c_int
+    lib.repro_matmul_q.argtypes = [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P,
+                                   _P, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _P, _P]
+    lib.repro_matmul_q.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -98,13 +120,67 @@ def _launch(name, a, b, sa, sb, bias, out, nb, m, n, k, stacked, alpha,
     _raise_on(rc, lib, name)
 
 
+@functools.lru_cache(maxsize=4096)
+def plan_q(m: int, n: int, k: int, tma: bool, fp8: bool = False) -> Plan:
+    """How ``matmul_q_cuda`` runs an (m, k) @ (k, n) 8-bit product.
+
+    ``tma``: xq is row-major and wq column-major (K-major both, as 8-bit
+    wgmma needs), each with a 16-byte aligned base and a row stride that
+    is a multiple of 16 elements and covers a row.  Calls TMA cannot read
+    take the 64 x 64 wmma tiles, k whole.  The rest take the wgmma
+    mainloop, int8 and fp8 (``fp8``: widened to f16 in the kernel) alike:
+    64-row tiles where m <= 64 or the operands are fp8, k cut as
+    ``kernel.plan`` cuts bf16's (equal runs of whole 128-element slices,
+    no shorter than MIN_SPLIT_K, or MIN_SPLIT_K_FP8, while the tiles
+    alone leave SMs idle, until the blocks fill them once: two blocks an
+    SM for fp8)."""
+    if not tma or k == 0:
+        return Plan("wmma", 64, 64, 1, max(1, -(-k // 64)),
+                    -(-m // 64) * -(-n // 64))
+    bm = 64 if m <= 64 or fp8 else 128
+    tiles = -(-m // bm) * -(-n // 128)
+    splits, chunk = _split(tiles, -(-k // BK), BK, 2 if fp8 else 1,
+                           MIN_SPLIT_K_FP8 if fp8 else MIN_SPLIT_K)
+    return Plan("wgmma", bm, BK, splits, chunk, tiles)
+
+
+def _k_major(t: torch.Tensor, row_major: bool) -> tuple[int, bool]:
+    """(ld, ok) of a 2-D operand read K-major, k along its rows
+    (``row_major``, as xq) or along its columns (as wq): the stride between
+    its runs of k, and whether TMA can read it so (k contiguous, 16-byte
+    aligned base, ld a multiple of 16 elements that covers a run)."""
+    rows, cols = t.shape
+    outer, inner = (rows, cols) if row_major else (cols, rows)
+    unit = (t.stride(1) if row_major else t.stride(0)) == 1 or inner == 1
+    ld = (t.stride(0) if row_major else t.stride(1)) if outer > 1 else inner
+    return ld, bool(unit and t.data_ptr() % 16 == 0 and ld % 16 == 0
+                    and ld >= inner)
+
+
+def _q_operands(xq, wq) -> tuple[int, int, bool]:
+    """(ldx, ldw, tma): xq's row stride and wq's column stride, and whether
+    the wgmma mainloop can take both (``_k_major``)."""
+    ldx, okx = _k_major(xq, True)
+    ldw, okw = _k_major(wq, False)
+    return ldx, ldw, okx and okw
+
+
+def plan_q_call(xq: torch.Tensor, wq: torch.Tensor) -> Plan:
+    """The plan of ``matmul_q_cuda(xq, wq, ...)``, from the operands'
+    shapes, layouts and alignment (the kernel itself is not touched)."""
+    return plan_q(xq.size(0), wq.size(1), xq.size(1), _q_operands(xq, wq)[2],
+                  xq.dtype != torch.int8)
+
+
 def matmul_q_cuda(xq, wq, sx, sw, bias=None, *, activation: str = "none",
                   alpha: float = 1.0, out_dtype=torch.float32):
     """``act(alpha * (xq @ wq) * (sx x sw) + bias)`` on the card.
 
-    xq: (m, k), wq: (k, n), both int8 or both fp8, each row- or
-    column-major; sx: (m,), sw: (n,) fp32, any stride; bias: (n,)
-    contiguous fp32 or bf16.  Returns a contiguous (m, n) of ``out_dtype``.
+    xq: (m, k), wq: (k, n), both int8 or both fp8 (each operand e4m3 or
+    e5m2), each row- or column-major; xq row-major and wq column-major run
+    the wgmma mainloop (``plan_q``).  sx: (m,), sw: (n,) fp32, any stride;
+    bias: (n,) contiguous fp32 or bf16.  Returns a contiguous (m, n) of
+    ``out_dtype``.
     """
     _check("matmul_q_cuda", xq, wq, bias, out_dtype, wq.shape[-1])
     if xq.dim() != 2 or wq.dim() != 2 or xq.size(1) != wq.size(0):
@@ -117,9 +193,31 @@ def matmul_q_cuda(xq, wq, sx, sw, bias=None, *, activation: str = "none",
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m == 0 or n == 0:
         return out
-    _launch("matmul_q", xq, wq, sa, sb, bias, out, 1, m, n, k, True, alpha,
-            activation)
+    ldx, ldw, tma = _q_operands(xq, wq)
+    p = plan_q(m, n, k, tma, xq.dtype != torch.int8)
+    if p.mainloop == "wgmma":
+        ws = (torch.empty(p.splits * m * n, device=xq.device,
+                          dtype=torch.int32 if xq.dtype == torch.int8
+                          else torch.float32) if p.splits > 1 else None)
+        lib = _lib()
+        rc = lib.repro_matmul_q(
+            xq.data_ptr(), ldx, wq.data_ptr(), ldw, sa[0], sa[2], sb[0],
+            sb[2],
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            m, n, k, float(alpha), fusion.code(activation),
+            FORMATS[xq.dtype], FORMATS[wq.dtype],
+            int(out_dtype == torch.float32),
+            int(bias is not None and bias.dtype == torch.float32),
+            p.bm, p.splits, p.chunk,
+            ws.data_ptr() if ws is not None else None,
+            torch.cuda.current_stream(xq.device).cuda_stream)
+        _raise_on(rc, lib, "matmul_q")
+    else:
+        _launch("matmul_q", xq, wq, sa, sb, bias, out, 1, m, n, k, True,
+                alpha, activation)
     matmul_q_cuda.launches += 1
+    matmul_q_cuda.mainloops[p.mainloop] += 1
+    matmul_q_cuda.split_launches += p.splits > 1
     return out
 
 
@@ -182,6 +280,12 @@ def batched_matmul_q_cuda(aq, bq, sa, sb, bias=None, *,
     return out
 
 
-matmul_q_cuda.launches = 0
-brgemm_q_cuda.launches = 0
-batched_matmul_q_cuda.launches = 0
+def reset_quant_counts():
+    """Zero the counters of the three quantized GEMM wrappers."""
+    for f in (matmul_q_cuda, brgemm_q_cuda, batched_matmul_q_cuda):
+        f.launches = 0
+    matmul_q_cuda.split_launches = 0
+    matmul_q_cuda.mainloops = dict.fromkeys(MAINLOOPS, 0)
+
+
+reset_quant_counts()

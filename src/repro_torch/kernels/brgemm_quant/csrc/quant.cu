@@ -9,52 +9,71 @@
 //   batched_matmul_q: C_i = act(alpha * (Aq_i @ Bq_i) * (sa_i x sb_i) + bias)
 //                     replaces quant_kernel.py::batched_matmul_q_pallas.
 //
-// One kernel serves the three, as the batched family's does: matmul_q is
-// the stacked form with one entry, brgemm_q walks the k-blocks of every
-// entry in turn into one accumulator and dequantizes once (its scales are
-// batch-shared, one per output row and channel), batched_matmul_q takes its
-// entry from blockIdx.z with per-entry scale rows.  A 2-D operand or scale
-// row broadcast over the batch has batch stride 0: it is read again by
-// every entry, never copied.  The TPU kernels' lane-broadcast scale layouts
-// (SCALE_LANES, _row_scales) are a TPU idiom and are not carried over: a
-// scale is read where it lies, through a stride (0 for an expanded view).
+// matmul_q runs one of two mainloops, planned per call by the wrapper
+// (kernels/brgemm/quant_kernel.py::plan_q) from the operands' layouts:
 //
-//   * int8: the tensor cores on s8 x s8 with int32 accumulators
-//     (repro_tile.cuh, namespace i8).  The int32 sum is exact (k * 127^2 <
-//     2^31 for every reduction here: k <= 1536 in smollm, B * k <= 16,384
-//     in the paper's cases), so before the epilogue the kernel equals the
-//     plain version bit for bit.
-//   * fp8 (e4m3 or e5m2, per operand): each 8-bit value is converted
-//     exactly to bf16 as it is staged in shared memory (Fp8Fetch loads the
-//     raw bytes, Widen converts them at the store, after the products the
-//     load overlapped), then the bf16 wmma mainloop of tc runs with fp32
-//     accumulation.
-//     Every e4m3 and e5m2 value is exact in bf16 and every bf16 x bf16
-//     product exact in fp32, so the kernel computes what the reference's
-//     fp32-upcast dot does, up to the order of the fp32 sums.  Native fp8
-//     wgmma is later work.
+//   * wgmma (repro_matmul_q): the shared wgmma + TMA mainloop of
+//     include/repro_gemm_sm90.cuh, its ring filled with 8-bit slices of 128
+//     elements of k (128 bytes, the 128-byte swizzle's width), 128 (or 64,
+//     for m <= 64) x 128 tiles, the dequant as the shared sink's epilogue
+//     (Dequant).  s8 runs native 8-bit wgmma (m64n128k32 into int32).  fp8
+//     (e4m3 / e5m2, each operand its own format) is widened exactly to
+//     f16 in shared memory, a slice at a time, for f16 wgmma into fp32:
+//     Hopper's fp8 wgmma adds its products in fewer bits than fp32 keeps,
+//     even when its sums are moved into fp32 registers after every k32
+//     step (PERF.md), and the reference sums in fp32.  TMA reads 8-bit
+//     operands K-major only, so X must be row-major and W column-major:
+//     the calibrated weights are stored so
+//     (core/quantize.py::quantize_weight), and the LM head's table.T is so
+//     already.  k is split where the tiles alone leave SMs
+//     idle, as matmul's is; the partials (int32 for s8, exact in any
+//     order; fp32 for fp8, added in split order) are summed by the shared
+//     reduction, which then runs the dequant.
+//   * wmma (repro_quant_gemm, the first kernel of this family, kept for
+//     operands TMA or wgmma cannot take: an N-major 8-bit W, rows that are
+//     not 16-byte aligned): one 128-thread block a 64 x 64 tile, s8 on
+//     wmma with int32 accumulators (repro_tile.cuh, namespace i8), fp8
+//     converted exactly to bf16 as it is staged (Widen) for tc's bf16 wmma
+//     with fp32 accumulators.  brgemm_q and batched_matmul_q run it too.
 //
-// The epilogue, on the accumulator before the single store, keeps the
+// One kernel serves the three on the wmma mainloop, as the batched
+// family's does: matmul_q is the stacked form with one entry, brgemm_q
+// walks the k-blocks of every entry in turn into one accumulator and
+// dequantizes once (its scales are batch-shared, one per output row and
+// channel), batched_matmul_q takes its entry from blockIdx.z with
+// per-entry scale rows.  A 2-D operand or scale row broadcast over the
+// batch has batch stride 0: it is read again by every entry, never copied.
+// The TPU kernels' lane-broadcast scale layouts (SCALE_LANES, _row_scales)
+// are a TPU idiom and are not carried over: a scale is read where it lies,
+// through a stride (0 for an expanded view).
+//
+// Both are exact where the reference is: the int32 sum of s8 products is
+// exact (k * 127^2 < 2^31 for every reduction here: k <= 1536 in smollm,
+// B * k <= 16,384 in the paper's cases), so before the epilogue the kernel
+// equals the plain version bit for bit.  Every e4m3 and e5m2 product is
+// exact in fp32: the wmma tiles add them in fp32, so they compute what the
+// reference's fp32-upcast dot does up to the order of the sums, on either
+// mainloop (both widen fp8 exactly, to bf16 or f16, and sum in fp32).  The epilogue keeps the
 // reference's rounding: acc * (sx[r] * sw[c]), then * alpha, then + bias,
 // each rounded on its own (__fmul_rn / __fadd_rn: nvcc would otherwise
 // contract a multiply and an add into one FMA), then the activation, then
 // the cast to the output type.
 //
-// What bounds it on an H100: serving's decode (m = 8 rows) does 2 * 8 ops a
-// weight byte, so the bound is the bytes of W, which int8 and fp8 halve
-// against bf16; the tile mainloop reads each W byte once per 64-row block
-// row, 16 bytes per thread where aligned, but at m = 8 a layer's weights
-// make 3-24 blocks, too few to draw the card's memory rate (split-K is
-// later work).  Prefill (m = 4096) is tensor-core work at the int8 / fp8
-// peak of 1,979 TOP/s; this kernel reaches it through wmma on 64 x 64
-// tiles, so it runs far under it (wgmma and TMA are later work).
+// What bounds it on an H100: serving's decode (m = 8 rows) does 2 * 8 ops
+// a weight byte, so the bound is the bytes of W, which 8-bit storage
+// halves against bf16; there the plan splits k so that a layer's few
+// output tiles still draw W from enough SMs.  Prefill (m = 4096) is
+// tensor-core work: s8 at the 8-bit peak of 1,979 TOP/s, which native
+// 8-bit wgmma reaches for at twice bf16's rate; fp8, widened, at f16's
+// (bf16's).
 //
-// Ragged m, n and k are masked inside the kernel (zero-filled tiles,
-// guarded stores).  16-byte int8 loads need k-runs of 16 aligned bytes and
-// 8-byte fp8 loads 8; otherwise the fetch goes element by element.
+// Ragged m, n and k: TMA's zero fill (wgmma), or masks inside the kernel
+// (wmma: zero-filled tiles, guarded stores; 16-byte int8 loads need
+// k-runs of 16 aligned bytes and 8-byte fp8 loads 8, otherwise the fetch
+// goes element by element).
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
-#include "repro_tile.cuh"
+#include "repro_gemm_sm90.cuh"
 
 using namespace repro;
 
@@ -210,6 +229,46 @@ extern "C" int repro_quant_gemm(
     quant_gemm_kernel<false><<<grid, 128, 0, st>>>(oa, ob, e, k, entries,
                                                    fmt_a, fmt_b);
   return (int)cudaGetLastError();
+}
+
+// matmul_q on the wgmma mainloop: x (m, k) row-major, rows ldx elements
+// apart, and w (k, n) column-major, columns ldw apart (both 16-byte
+// aligned, ldx and ldw multiples of 16); fmt_a / fmt_b: S8 for both, or
+// E4M3 / E5M2 each.  Scales sx (m,) and sw (n,) fp32 through their
+// strides; bias (n,) or null.  The plan (quant_kernel.py::plan_q): bm (64
+// or 128), splits and chunk (128-element slices a split); ws: a (splits,
+// m, n) workspace of int32 (s8) or fp32 (fp8) when splits > 1.  Returns
+// the first CUDA error of the launches, or 0.
+extern "C" int repro_matmul_q(
+    const void* x, long long ldx, const void* w, long long ldw,
+    const float* sx, long long sx_stride, const float* sw,
+    long long sw_stride, const void* bias, void* out, int m, int n, int k,
+    float alpha, int act, int fmt_a, int fmt_b, int out_f32, int bias_f32,
+    int bm, int splits, int chunk, void* ws, void* stream) {
+  if (act < 0 || act >= N_ACT || splits < 1 || chunk < 1 ||
+      (splits > 1 && ws == nullptr) || (fmt_a == S8) != (fmt_b == S8))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!sm90::tensor_map(&tx, x, k, m, ldx, bm, 1) ||
+      !sm90::tensor_map(&tw, w, k, n, ldw, wg::BN, 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto types) {
+    using T = decltype(types);
+    using A = typename T::Acc;
+    const Dequant<A> e{out, bias, sx, sw, sx_stride, sw_stride, n, alpha,
+                       act, out_f32, bias_f32};
+    const SinkOf<Dequant<A>> sink{e, splits > 1 ? static_cast<A*>(ws)
+                                                : nullptr, m, n};
+    int rc = wg::launch_8bit<T>(bm, tx, tw, sink, k, splits, chunk, st);
+    if (rc == 0 && splits > 1)
+      rc = wg::reduce_splits(static_cast<const A*>(ws), e, m, n, splits, st);
+    return rc;
+  };
+  if (fmt_a == S8) return run(wg::S8{});
+  if (fmt_a == E4M3)
+    return fmt_b == E4M3 ? run(wg::F8<0, 0>{}) : run(wg::F8<0, 1>{});
+  return fmt_b == E4M3 ? run(wg::F8<1, 0>{}) : run(wg::F8<1, 1>{});
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -7,33 +7,50 @@
 // the grid walked (n, k-block, output row, output column block) in
 // parallel and (r, s, c-block) as a sequential axis carrying an fp32
 // accumulator in VMEM, over a padded copy of x.  Here the paper's
-// Algorithm 4 becomes one GEMM per block:
-//   * M runs over the flattened output pixels (n, p, q), not along one
-//     output row: a stage-4 row of ResNet-50 has 7 pixels, and a per-row
-//     tile would leave most of a 64-row tile empty.  N runs over K.
-//   * The reduction walks the flattened (r, s, c) window (the row order of
-//     w viewed as an (R*S*C, K) matrix), 32 (bf16) or 16 (fp32) indices a
-//     slice.  Each slice of the A tile is gathered in place from x: the
-//     strided, padded input positions, zero for padding, for the channel
-//     tail and for rows past N*P*Q.  No padded copy of x and no im2col
-//     buffer is ever made.  Where C is a multiple of 8, 8 channels share
-//     one (r, s) tap and come in one 16-byte load; the stem's C = 3 goes
-//     element by element with no channel padding, so its 147-long window
-//     takes 5 slices, not 49.
-//   * bf16 runs on the tensor cores (wmma, fp32 accumulator); fp32 on FMA,
-//     no TF32.  Bias and activation are applied to the accumulator and the
-//     result is stored once, NHWC (repro_tile.cuh).
+// Algorithm 4 becomes one GEMM per block: M runs over the flattened output
+// pixels (n, p, q), not along one output row (a stage-4 row of ResNet-50
+// has 7 pixels, and a per-row tile would leave most of a tile empty), N
+// over K, and the reduction over the window (r, s, c), the row order of w
+// viewed as an (R*S*C, K) matrix.  No padded copy of x and no im2col
+// buffer is ever made.
+//
+// Each call runs one of three mainloops, planned by the wrapper
+// (kernel.py::plan_conv) from the shapes, type and alignment:
+//   * wgmma (bf16, C and K multiples of 8): the shared wgmma + TMA mainloop
+//     of include/repro_gemm_sm90.cuh, 128 x 128 tiles, a slice one tap
+//     (r, s) x 64 channels (128 bytes).  A comes from TMA in im2col mode:
+//     one box a slice, the tile's 128 output pixels moved by the tap, the
+//     map's bounding box giving the padding and its traversal strides the
+//     conv stride, TMA's zero fill the padding, the channel tail and the
+//     rows past N*P*Q (the IM2COL walk).  B is w's (R*S*C, K) row-major
+//     matrix, an N-major operand, its box at row tap * C + the channel
+//     block.  A 1x1, stride-1, unpadded conv is a plain GEMM of x viewed
+//     as (N*H*W, C): matmul's SPLIT_K walk on a 2-D map (on an H100 a
+//     little faster than the im2col walk at each such conv of ResNet-50).  Where the tiles
+//     alone leave SMs idle (stage 4: 52 tiles), the window is split and
+//     the partials added in split order by the shared reduction, which
+//     runs the epilogue.
+//   * wmma (other bf16: the stem's C = 3, whose 6-byte pixels TMA cannot
+//     step through): the first kernel, 64 x 64 tiles on nvcuda::wmma, each
+//     slice of A gathered in place (GatherTc): where C is a multiple of 8,
+//     8 channels of one tap in one 16-byte load, else element by element
+//     with no channel padding, so the stem's 147-long window takes 5
+//     slices of 32, not 49.
+//   * simt (fp32): the same tile walk on FMA, no TF32.
+// Bias and activation are applied to the accumulator and the result is
+// stored once, NHWC.
 //
 // What bounds it on an H100: ResNet-50's convolutions at N = 32 do 50-1000
 // FLOP per byte of x, w and out, so the tensor cores bound them in bf16
-// (and the FMA pipes in fp32).  This first kernel uses wmma (mma.sync) on
-// 64 x 64 tiles with a register prefetch of the next slice; wgmma, TMA
-// (im2col mode) and a persistent schedule are later work.  The backward by
-// data runs through this same kernel as a dual convolution
-// (kernels/conv2d/ops.py).
-#include "repro_tile.cuh"
+// (and the FMA pipes in fp32).  The backward by data runs through this
+// same kernel as a dual convolution (kernels/conv2d/ops.py), at stride 1
+// over a zero-dilated gradient.
+#include "repro_gemm_sm90.cuh"
 
 using namespace repro;
+
+// kernel.py::MAINLOOPS, in order.
+enum Mainloop { WGMMA = 0, WMMA = 1, SIMT = 2 };
 
 struct Geom {
   int n, h, w, c, k, r, s, p, q, stride, pad;
@@ -165,21 +182,61 @@ conv2d_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   });
 }
 
+// The wgmma mainloop: a 2-D map of x as (n*h*w, c) for a 1x1, stride-1,
+// unpadded conv, else its im2col map; w's (r*s*c, k) rows in 64 x 64
+// boxes.
+static int conv_wgmma(const void* x, const void* w, const Sink& sink,
+                      const Geom& g, int splits, int chunk,
+                      cudaStream_t st) {
+  CUtensorMap tx, tw;
+  if (!sm90::tensor_map_bf16(&tw, w, g.k, g.red, g.k, 64))
+    return (int)cudaErrorInvalidValue;
+  if (g.r == 1 && g.s == 1 && g.stride == 1 && g.pad == 0) {
+    if (!sm90::tensor_map_bf16(&tx, x, g.c, (uint64_t)g.n * g.h * g.w, g.c,
+                               128))
+      return (int)cudaErrorInvalidValue;
+    return wg::launch_tile<128, 0, 1, wg::SPLIT_K>(tx, tw, 0, 0, sink, g.c,
+                                                   splits, chunk, 1, st);
+  }
+  if (!sm90::tensor_map_im2col_bf16(&tx, x, g.n, g.h, g.w, g.c, g.r, g.s,
+                                    g.stride, g.pad, 128))
+    return (int)cudaErrorInvalidValue;
+  const wg::Im2col walk{g.c, g.s, cdiv(g.c, 64), g.p, g.q, g.stride, g.pad};
+  return wg::launch_im2col(tx, tw, sink, walk, g.r * g.s * walk.cblocks,
+                           splits, chunk, st);
+}
+
 // x: (n, h, w, c) contiguous; w: (r, s, c, k) contiguous; bias: (k,) or
-// null; out: (n, p, q, k) contiguous.  vec_x / vec_w: 16-byte loads are
-// safe (bf16 only: aligned base, c or k a multiple of 8).  Returns the
-// launch's cudaGetLastError().
+// null; out: (n, p, q, k) contiguous.  The plan (kernel.py::plan_conv):
+// mainloop (0 wgmma, 1 wmma, 2 simt), splits and chunk (wgmma's slices a
+// split); ws: a (splits, n*p*q, k) fp32 workspace when splits > 1.
+// vec_x / vec_w: the wmma gather's 16-byte loads are safe (aligned base,
+// c or k a multiple of 8).  Returns the first CUDA error of the launches,
+// or 0.
 extern "C" int repro_conv2d(const void* x, const void* w, const void* bias,
                             void* out, int n, int h, int wi, int c, int k,
                             int r, int s, int p, int q, int stride, int pad,
                             int act, int is_bf16, int out_f32, int bias_f32,
-                            int vec_x, int vec_w, void* stream) {
-  if (act < 0 || act >= N_ACT) return (int)cudaErrorInvalidValue;
+                            int vec_x, int vec_w, int mainloop, int splits,
+                            int chunk, void* ws, void* stream) {
+  if (act < 0 || act >= N_ACT || splits < 1 || chunk < 1 ||
+      (splits > 1 && (ws == nullptr || mainloop != WGMMA)) ||
+      (mainloop == SIMT) == (is_bf16 != 0))
+    return (int)cudaErrorInvalidValue;
   Geom g{n, h, wi, c, k, r, s, p, q, stride, pad, n * p * q, r * s * c};
   Epilogue e{out, bias, nullptr, k, 0, 1.0f, 0.0f, act, out_f32, bias_f32, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mainloop == WGMMA) {
+    const Sink sink{e, splits > 1 ? static_cast<float*>(ws) : nullptr, g.m,
+                    k};
+    int rc = conv_wgmma(x, w, sink, g, splits, chunk, st);
+    if (rc == 0 && splits > 1)
+      rc = wg::reduce_splits(static_cast<const float*>(ws), e, g.m, k,
+                             splits, st);
+    return rc;
+  }
   dim3 grid(cdiv(g.m, 64), cdiv(k, 64));
-  if (is_bf16)
+  if (mainloop == WMMA)
     conv2d_bf16_kernel<<<grid, tc::THREADS, 0, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), e, g,
         vec_x, vec_w);

@@ -2,8 +2,15 @@
 
 ``conv2d_cuda`` checks what the kernel takes, allocates the output, and
 launches on the current stream; the library is built at first use
-(``kernels/_build.py``).  ``conv2d_cuda.launches`` counts the launches,
-forward and backward-by-data alike (both run this kernel).
+(``kernels/_build.py``).  ``plan_conv`` decides how a call runs: on the
+shared wgmma + TMA mainloop (``wgmma``: bf16 whose C and K are multiples
+of 8, A from TMA in im2col mode, the window split where the output tiles
+alone leave SMs idle), on the first kernel's gathered 64 x 64 wmma tiles
+(``wmma``: other bf16, as the stem's C = 3), or on FMA (``simt``: fp32).
+``conv2d_cuda.launches`` counts the launches, forward and backward-by-data
+alike (both run this kernel); ``.mainloops`` the calls by mainloop and
+``.split_launches`` those that also launched the split reduction
+(``reset_conv_counts`` zeroes them).
 """
 from __future__ import annotations
 
@@ -14,16 +21,58 @@ import torch
 
 from repro_torch.core import fusion
 from repro_torch.kernels import _build
+from repro_torch.kernels.brgemm.kernel import Plan, _split
 from repro_torch.kernels.conv2d.ref import out_size
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+MAINLOOPS = ("wgmma", "wmma", "simt")   # conv2d.cu's Mainloop codes
+BM = BN = 128                           # the wgmma tile
+CBLOCK = 64                             # channels a slice (128 bytes)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_conv(n: int, h: int, w: int, c: int, k: int, r: int, s: int,
+              stride: int, padding: int, is_bf16: bool,
+              aligned: bool) -> Plan:
+    """How ``conv2d_cuda`` runs an (n, h, w, c) x (r, s, c, k) conv.
+
+    wgmma for bf16 where TMA can describe x and w (``aligned``: 16-byte
+    aligned bases; C and K multiples of 8, so that a pixel and a weight
+    row are whole 16-byte steps) and the window's corners and stride fit
+    an im2col map (|corner| <= 127, stride <= 8); wmma for other bf16;
+    simt for fp32.  On wgmma a slice is one tap x 64 channels (``bk``), the
+    reduction r * s * ceil(c / 64) slices, split as ``kernel.plan`` splits
+    k; the other mainloops walk it whole.  ``tiles``: output tiles of the
+    (n * p * q, k) product."""
+    p, q = out_size(h, r, stride, padding), out_size(w, s, stride, padding)
+    m = n * p * q
+    fits = (c % 8 == 0 and k % 8 == 0 and aligned and stride <= 8
+            and padding <= 127 and max(r, s) - 1 - padding <= 128)
+    mainloop = "simt" if not is_bf16 else "wgmma" if fits else "wmma"
+    if mainloop != "wgmma":
+        return Plan(mainloop, 64, 32 if is_bf16 else 16, 1, 1,
+                    -(-m // 64) * -(-k // 64))
+    tiles = -(-m // BM) * -(-k // BN)
+    slices = r * s * -(-c // CBLOCK)
+    splits, chunk = _split(tiles, slices, CBLOCK, 1)
+    return Plan("wgmma", BM, CBLOCK, splits, chunk, tiles)
+
+
+def plan_conv_call(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                   padding: int = 0) -> Plan:
+    """The plan of ``conv2d_cuda(x, w, stride=, padding=)``, from the
+    shapes, type and alignment (the kernel itself is not touched)."""
+    return plan_conv(*x.shape, w.size(3), w.size(0), w.size(1), stride,
+                     padding, x.dtype == torch.bfloat16,
+                     x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
 
 @functools.cache
 def _lib():
     lib = _build.load("conv2d")
-    lib.repro_conv2d.argtypes = [_P, _P, _P, _P] + [_I] * 17 + [_P]
+    lib.repro_conv2d.argtypes = [_P, _P, _P, _P] + [_I] * 20 + [_P, _P]
     lib.repro_conv2d.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -75,6 +124,9 @@ def conv2d_cuda(x, w, bias=None, *, stride: int = 1, padding: int = 0,
     if out.numel() == 0:
         return out
     is_bf16 = x.dtype == torch.bfloat16
+    plan = plan_conv_call(x, w, stride, padding)
+    ws = (torch.empty(plan.splits * out.numel(), dtype=torch.float32,
+                      device=x.device) if plan.splits > 1 else None)
     lib = _lib()
     rc = lib.repro_conv2d(
         x.data_ptr(), w.data_ptr(),
@@ -85,12 +137,24 @@ def conv2d_cuda(x, w, bias=None, *, stride: int = 1, padding: int = 0,
         int(bias is not None and bias.dtype == torch.float32),
         int(is_bf16 and c % 8 == 0 and x.data_ptr() % 16 == 0),
         int(is_bf16 and k % 8 == 0 and w.data_ptr() % 16 == 0),
+        MAINLOOPS.index(plan.mainloop), plan.splits, plan.chunk,
+        ws.data_ptr() if ws is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv2d kernel launch failed: CUDA error {rc} "
                            f"({lib.repro_cuda_error_string(rc).decode()})")
     conv2d_cuda.launches += 1
+    conv2d_cuda.mainloops[plan.mainloop] += 1
+    conv2d_cuda.split_launches += plan.splits > 1
     return out
 
 
-conv2d_cuda.launches = 0
+def reset_conv_counts(fn=None):
+    """Zero the counters of ``conv2d_cuda`` (or of a stand-in ``fn`` bound
+    to its name)."""
+    fn = fn or conv2d_cuda
+    fn.launches = fn.split_launches = 0
+    fn.mainloops = dict.fromkeys(MAINLOOPS, 0)
+
+
+reset_conv_counts()

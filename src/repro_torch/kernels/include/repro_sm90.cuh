@@ -1,13 +1,16 @@
 // Hopper's asynchronous building blocks, written as inline PTX: the
-// mbarrier, the Tensor Memory Accelerator's 2-, 3- and 4-D tile loads and
-// its 1-D bulk copy, the warpgroup matrix multiply (wgmma: m64n128k16 and
-// m64n64k16 with both operands in shared memory, m64n64k16 and m64n128k16
-// with A in registers) with its shared-memory descriptors, and the host
-// side of TMA tensor maps (2-D memoised, and 3- to 5-D).  Compiled for
-// sm_90a only (wgmma exists on no other target).
+// mbarrier, the Tensor Memory Accelerator's 2-, 3- and 4-D tile loads, its
+// 4-D im2col load and its 1-D bulk copy, the warpgroup matrix multiply
+// (wgmma: bf16 m64n128k16 and m64n64k16 with both operands in shared
+// memory, m64n64k16 and m64n128k16 with A in registers; s8 and fp8
+// m64n128k32 from shared memory) with its shared-memory descriptors, and
+// the host side of TMA tensor maps (2-D memoised, bf16 or 8-bit; 3- to
+// 5-D; NHWC im2col).  Compiled for sm_90a only (wgmma exists on no other
+// target).
 //
 // The layout every piece here assumes is the 128-byte swizzle: a TMA box
-// is 64 bf16 wide (128 bytes) and its rows land in shared memory 128 bytes
+// is 128 bytes wide (64 bf16, or 128 8-bit elements, whose k32 step is the
+// same 32 bytes as bf16's k16) and its rows land in shared memory 128 bytes
 // apart, the 16-byte chunks of row r XOR-permuted by r % 8, so that eight
 // rows (1024 bytes) form one swizzle atom.  Every tile starts on a
 // 1024-byte boundary, so a descriptor's base offset is 0.  A wgmma operand
@@ -121,6 +124,26 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The im2col box of a 4-D NHWC map (tensor_map_im2col_bf16): the map's
+// pixels-per-column pixels from pixel (w, h, n) on, walked along W, then H,
+// then N inside the map's bounding box at its traversal strides, each
+// moved by the tap (off_w, off_h) before it is read, channels c.. of each
+// as one row of the box.  Pixels outside the image read as zeros.
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c,
+                                                   int w, int h, int n,
+                                                   uint16_t off_w,
+                                                   uint16_t off_h) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(w), "r"(h), "r"(n), "h"(off_w), "h"(off_h)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16) of contiguous global memory at src (16-byte
 // aligned) into shared memory at dst (16-byte aligned), completing on bar.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -161,6 +184,87 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The 64 accumulator registers of an m64n128 wgmma as asm operands, and
+// their place holders.
+#define REPRO_D64(C, d)                                                     \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]),   \
+  C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]),       \
+  C(d[15]), C(d[16]), C(d[17]), C(d[18]), C(d[19]), C(d[20]), C(d[21]),     \
+  C(d[22]), C(d[23]), C(d[24]), C(d[25]), C(d[26]), C(d[27]), C(d[28]),     \
+  C(d[29]), C(d[30]), C(d[31]), C(d[32]), C(d[33]), C(d[34]), C(d[35]),     \
+  C(d[36]), C(d[37]), C(d[38]), C(d[39]), C(d[40]), C(d[41]), C(d[42]),     \
+  C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47]), C(d[48]), C(d[49]),     \
+  C(d[50]), C(d[51]), C(d[52]), C(d[53]), C(d[54]), C(d[55]), C(d[56]),     \
+  C(d[57]), C(d[58]), C(d[59]), C(d[60]), C(d[61]), C(d[62]), C(d[63])
+#define REPRO_F32(x) "+f"(x)
+#define REPRO_S32(x) "+r"(x)
+#define REPRO_REGS64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                               \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                               \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                               \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                               \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                               \
+  "%56, %57, %58, %59, %60, %61, %62, %63}, "
+
+// d[64] += A (64 x 32, s8) @ B (32 x 128, s8) in s32, both operands
+// K-major in shared memory (PTX has no transpose for 8-bit types); d's
+// layout as wgmma_m64n128k16's.  The int32 sum is exact.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " REPRO_REGS64
+      "%64, %65, p;\n"
+      "}\n"
+      : REPRO_D64(REPRO_S32, d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Two fp8 values (the low byte first; FMT 0 e4m3, 1 e5m2) widened exactly
+// to two f16 (the low half first): f16 holds every e4m3 and e5m2 value.
+template <int FMT>
+__device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t v) {
+  uint32_t h;
+  const uint16_t v16 = static_cast<uint16_t>(v);
+  if constexpr (FMT == 0)
+    asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h) : "h"(v16));
+  else
+    asm("cvt.rn.f16x2.e5m2x2 %0, %1;" : "=r"(h) : "h"(v16));
+  return h;
+}
+
+// d[64] += A (64 x 16, f16) @ B (16 x 128, f16) in fp32, both K-major in
+// shared memory; d's layout as wgmma_m64n128k16's.
+__device__ __forceinline__ void wgmma_m64n128k16_f16(float (&d)[64],
+                                                     uint64_t da,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " REPRO_REGS64
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : REPRO_D64(REPRO_F32, d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Makes this thread's writes to shared memory visible to the async proxy
+// (wgmma and TMA read through it).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // d[64] += A (64 x 16, bf16) @ B (16 x 128, bf16) in fp32, on this
@@ -319,61 +423,77 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
 }
 
 // ---- host: tensor maps -----------------------------------------------------
-// cuTensorMapEncodeTiled is a driver-API function; the kernels link only
-// the runtime, so it is looked up once through the runtime's entry-point
-// query.
+// cuTensorMapEncodeTiled and cuTensorMapEncodeIm2col are driver-API
+// functions; the kernels link only the runtime, so each is looked up once
+// through the runtime's entry-point query.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline void* driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+  cudaError_t rc =
+      cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
+#else
+  cudaError_t rc = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
+#endif
+  return (rc == cudaSuccess && q == cudaDriverEntryPointSuccess) ? p
+                                                                 : nullptr;
+}
 
 inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                             cudaEnableDefault, &q);
-#endif
-    return (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
+  static const EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
   return fn;
 }
 
-// A bf16 matrix of `rows` rows of `inner` contiguous elements, rows `ld`
-// elements apart (16-byte aligned base, ld a multiple of 8), read in boxes
-// of 64 x box_rows with the 128-byte swizzle and zero fill outside.
+inline EncodeIm2col encode_im2col() {
+  static const EncodeIm2col fn = reinterpret_cast<EncodeIm2col>(
+      driver_entry("cuTensorMapEncodeIm2col"));
+  return fn;
+}
+
+// A matrix of `rows` rows of `inner` contiguous elements of `esize` bytes
+// (2: bf16; 1: int8 or fp8, read as bytes), rows `ld` elements apart
+// (16-byte aligned base, ld * esize a multiple of 16), read in boxes of
+// 128 bytes x box_rows with the 128-byte swizzle and zero fill outside.
 // Returns false where the driver refuses it.
 //
-// The map is a function of these five values alone, and a decode step asks
+// The map is a function of these six values alone, and a decode step asks
 // for the same weights' maps every step, so the last 4096 are remembered
 // (direct-mapped on the base address; a hit is always the map the driver
 // would encode again).
-inline bool tensor_map_bf16(CUtensorMap* map, const void* base,
-                            uint64_t inner, uint64_t rows, uint64_t ld,
-                            uint32_t box_rows) {
+inline bool tensor_map(CUtensorMap* map, const void* base, uint64_t inner,
+                       uint64_t rows, uint64_t ld, uint32_t box_rows,
+                       int esize) {
   struct Entry {
     const void* base;
     uint64_t inner, rows, ld;
     uint32_t box_rows;
+    int esize;
     CUtensorMap map;
   };
   constexpr int SLOTS = 4096;
   static Entry memo[SLOTS] = {};
   static std::mutex mu;
   const uintptr_t a = reinterpret_cast<uintptr_t>(base);
-  Entry& slot = memo[((a >> 4) ^ (a >> 16) ^ box_rows) % SLOTS];
+  Entry& slot = memo[((a >> 4) ^ (a >> 16) ^ box_rows ^ esize) % SLOTS];
   {
     std::lock_guard<std::mutex> lock(mu);
     if (slot.base == base && slot.inner == inner && slot.rows == rows &&
-        slot.ld == ld && slot.box_rows == box_rows) {
+        slot.ld == ld && slot.box_rows == box_rows && slot.esize == esize) {
       *map = slot.map;
       return true;
     }
@@ -381,17 +501,53 @@ inline bool tensor_map_bf16(CUtensorMap* map, const void* base,
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   cuuint64_t dims[2] = {inner, rows};
-  cuuint64_t strides[1] = {ld * 2};
-  cuuint32_t box[2] = {64, box_rows};
+  cuuint64_t strides[1] = {ld * esize};
+  cuuint32_t box[2] = {128u / esize, box_rows};
   cuuint32_t elem[2] = {1, 1};
-  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  if (enc(map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+          2, const_cast<void*>(base), dims, strides, box, elem,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   std::lock_guard<std::mutex> lock(mu);
-  slot = Entry{base, inner, rows, ld, box_rows, *map};
+  slot = Entry{base, inner, rows, ld, box_rows, esize, *map};
   return true;
+}
+
+// tensor_map's bf16 matrix: boxes of 64 elements x box_rows.
+inline bool tensor_map_bf16(CUtensorMap* map, const void* base,
+                            uint64_t inner, uint64_t rows, uint64_t ld,
+                            uint32_t box_rows) {
+  return tensor_map(map, base, inner, rows, ld, box_rows, 2);
+}
+
+// A contiguous bf16 NHWC tensor (n, h, w, c; c a multiple of 8, 16-byte
+// aligned base) in im2col mode for an r x s window at `stride`, padded by
+// `pad` on every side: a box is `pixels` output pixels' rows of 64
+// channels (128 bytes, the 128-byte swizzle).  The bounding box of window
+// corners runs from -pad to pad - (r - 1) past the last row (and alike
+// for columns), walked at the conv stride, so that its pixels are the
+// output pixels in (n, p, q) order; taps outside the image, channels past
+// c and images past n read as zeros.  Returns false where the driver
+// refuses it.
+inline bool tensor_map_im2col_bf16(CUtensorMap* map, const void* base,
+                                   uint64_t n, uint64_t h, uint64_t w,
+                                   uint64_t c, int r, int s, int stride,
+                                   int pad, uint32_t pixels) {
+  EncodeIm2col enc = encode_im2col();
+  if (enc == nullptr) return false;
+  cuuint64_t dims[4] = {c, w, h, n};
+  cuuint64_t strides[3] = {c * 2, w * c * 2, h * w * c * 2};
+  int lower[2] = {-pad, -pad};                      // (w, h)
+  int upper[2] = {pad - (s - 1), pad - (r - 1)};
+  cuuint32_t elem[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, lower, upper, 64,
+             pixels, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A bf16 tensor of `rank` (2-5) dimensions, dims[0] contiguous, dimension

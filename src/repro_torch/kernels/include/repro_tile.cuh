@@ -75,6 +75,7 @@ __device__ __forceinline__ float apply_act(int act, float x) {
 }
 
 struct Epilogue {
+  using Acc = float;   // the accumulator it takes
   void* out;           // rows of ld_out elements, fp32 or bf16
   const void* bias;    // (n,) or null, fp32 or the input type
   const void* c0;      // (m, n) with row stride ldc0, or null

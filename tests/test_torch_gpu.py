@@ -12,6 +12,9 @@ Tolerances as in ``chip_smoke.py``: fp32 sums in different orders
 sum is exact and the epilogue rounds as the plain version's), fp8 as the
 fp32 GEMM's sums (1e-4), one bf16 ulp for bf16 out or an activation's ulp.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +33,12 @@ from repro_torch.kernels.brgemm import (batched_matmul, batched_matmul_cuda,
 from repro_torch.kernels.brgemm.kernel import (plan_batched_call, plan_call,
                                                plan_stacked_call,
                                                reset_matmul_counts)
-from repro_torch.kernels.conv2d import conv2d, conv2d_cuda, conv2d_ref
+from repro_torch.kernels.brgemm.quant_kernel import (plan_q_call,
+                                                     reset_quant_counts)
+from repro_torch.kernels.conv2d import (conv2d, conv2d_cuda, conv2d_ref,
+                                        dual_operands)
+from repro_torch.kernels.conv2d.kernel import (plan_conv_call,
+                                               reset_conv_counts)
 from repro_torch.kernels.conv2d.ops import patches
 from repro_torch.kernels.flash_attention import bwd as FB
 from repro_torch.kernels.flash_attention import kernel as FK
@@ -46,6 +54,9 @@ from repro_torch.models import api, resnet
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.train.optimizer import AdamWCfg
 from repro_torch.train.train_step import init_state, make_train_step
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the path's list of ResNet-50's convolutions)
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
@@ -651,6 +662,84 @@ def test_brgemm_gradients_match_plain_autograd(gen, dtype, activation):
         _rel_close(got, want, GRAD_BAND[dtype], name)
 
 
+# Every distinct convolution of ResNet-50's forward, (name, c, k, h, r,
+# stride, padding), at N = 32.
+RESNET50_CONVS = list({cv.key: (cv.name, cv.c, cv.k, cv.h, cv.r, cv.stride,
+                                 cv.padding)
+                        for cv in chip_smoke.resnet_convs(
+                            resnet.ResNetCfg(), 224)}.values())
+
+
+@pytest.mark.parametrize("name,c,k,h,r,stride,padding", RESNET50_CONVS,
+                         ids=[c[0] for c in RESNET50_CONVS])
+def test_conv2d_resnet50_shapes_and_duals(gen, name, c, k, h, r, stride,
+                                          padding):
+    """Each ResNet-50 convolution at N = 32 in bf16 and its dual (the
+    backward by data, fp32 out) against conv2d_ref; every one on the wgmma
+    + TMA im2col mainloop but the stem's (3 channels: the wmma tiles)."""
+    x = torch.randn(32, h, h, c, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    w = (torch.randn(r, r, c, k, device="cuda", generator=gen)
+         * (c * r * r) ** -0.5).to(torch.bfloat16)
+    kw = dict(stride=stride, padding=padding)
+    mainloop = "wmma" if name == "stem" else "wgmma"
+    reset_conv_counts()
+    assert plan_conv_call(x, w, **kw).mainloop == mainloop
+    _band_close(conv2d_cuda(x, w, **kw), conv2d_ref(x, w, **kw),
+                torch.bfloat16, f"{name} forward")
+    calls = 1
+    if name != "stem":                        # the image takes no gradient
+        p = (h + 2 * padding - r) // stride + 1
+        g = torch.randn(32, p, p, k, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        gd, wd, pd = dual_operands(g, w, (h, h), stride, padding)
+        assert plan_conv_call(gd, wd, padding=pd).mainloop == "wgmma"
+        _band_close(conv2d_cuda(gd, wd, padding=pd, out_dtype=torch.float32),
+                    conv2d_ref(gd, wd, padding=pd, out_dtype=torch.float32),
+                    torch.float32, f"{name} dual")
+        calls = 2
+    assert conv2d_cuda.mainloops == {"wgmma": 0, "wmma": 0, "simt": 0,
+                                     mainloop: calls}
+
+
+# (N, H, C, K, R, stride, padding, activation): the im2col walk's edges, a
+# channel block partly past C (40, 96), a 5x5 window at stride 2, an output
+# of fewer pixels than a tile, and a window the plan splits (C = 256 over
+# few tiles).
+IM2COL_EDGES = [
+    (2, 9, 40, 24, 3, 1, 1, "none"),
+    (3, 11, 96, 136, 5, 2, 2, "silu"),
+    (1, 5, 64, 64, 3, 1, 1, "relu"),
+    (2, 10, 256, 72, 3, 1, 1, "none"),
+]
+
+
+@pytest.mark.parametrize("n,h,c,k,r,stride,padding,activation",
+                         IM2COL_EDGES)
+def test_conv2d_im2col_edges(gen, n, h, c, k, r, stride, padding,
+                             activation):
+    """The wgmma + TMA im2col convolution at its edges, bf16 and fp32 out,
+    with a bias, against conv2d_ref; split windows where planned."""
+    x = torch.randn(n, h, h, c, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    w = (torch.randn(r, r, c, k, device="cuda", generator=gen)
+         * (c * r * r) ** -0.5).to(torch.bfloat16)
+    bias = torch.randn(k, device="cuda", generator=gen).to(torch.bfloat16)
+    kw = dict(stride=stride, padding=padding, activation=activation)
+    p = plan_conv_call(x, w, stride, padding)
+    assert p.mainloop == "wgmma"
+    reset_conv_counts()
+    for out_dtype in (None, torch.float32):
+        _band_close(conv2d_cuda(x, w, bias, out_dtype=out_dtype, **kw),
+                    conv2d_ref(x, w, bias, out_dtype=out_dtype, **kw),
+                    torch.float32 if out_dtype else torch.bfloat16,
+                    f"im2col {out_dtype}")
+    assert conv2d_cuda.mainloops["wgmma"] == 2
+    assert conv2d_cuda.split_launches == (2 if p.splits > 1 else 0)
+    if c == 256:
+        assert p.splits > 1
+
+
 def test_resnet_launch_counts_and_plain_parity(gen):
     """A reduced ResNet on the kernels: one conv launch per convolution
     and one head GEMM per forward; a gradient step adds a dual conv for
@@ -714,6 +803,67 @@ def test_matmul_q_kernel(gen, fmt, out_dtype, m, k, n, trans):
     torch.testing.assert_close(got, matmul_q_ref(xq, wq, sx, sw,
                                                  out_dtype=out_dtype),
                                **_qtol(fmt, out_dtype))
+
+
+_CFG = configs.get("smollm-135m")
+# (name, m, k, n) of matmul_q on the quantized serving path (8 prompts of
+# 512 tokens, 8 decode rows; the head is decode_int8's)
+QUANT_SHAPES = [(f"{phase}.{name}", m, k, n)
+                for phase, m in (("prefill", 8 * 512), ("decode", 8))
+                for name, k, n in (
+                    ("q", _CFG.d_model, _CFG.n_heads * _CFG.dh),
+                    ("kv", _CFG.d_model, _CFG.n_kv_heads * _CFG.dh),
+                    ("o", _CFG.n_heads * _CFG.dh, _CFG.d_model),
+                    ("gate_up", _CFG.d_model, _CFG.d_ff),
+                    ("down", _CFG.d_ff, _CFG.d_model))]
+QUANT_SHAPES.append(("decode.lm_head", 8, _CFG.d_model, _CFG.vocab))
+QUANT_PAIRS = [("int8", "int8"), ("float8_e4m3fn", "float8_e4m3fn"),
+               ("float8_e4m3fn", "float8_e5m2")]
+
+
+@pytest.mark.parametrize("x_fmt,w_fmt", QUANT_PAIRS,
+                         ids=["int8", "e4m3", "e4m3 x e5m2"])
+@pytest.mark.parametrize("name,m,k,n", QUANT_SHAPES,
+                         ids=[s[0] for s in QUANT_SHAPES])
+def test_matmul_q_main_path_shapes(gen, name, m, k, n, x_fmt, w_fmt):
+    """matmul_q at every main-path shape with the weight K-major as the
+    path stores it, bf16 and fp32 out, against matmul_q_ref: on 8-bit
+    wgmma (fp8's slice sums added in fp32); int8 exact."""
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    w = (torch.randn(n, k, device="cuda", generator=gen).T
+         if name.endswith("lm_head") else
+         torch.randn(k, n, device="cuda", generator=gen)) * k ** -0.5
+    xq, sx = quant.quantize(x, x_fmt, axis=(-1,))
+    wq, sw = quant.quantize(w, w_fmt, axis=(-2,), k_major=True)
+    assert wq.stride() == (1, k)
+    assert plan_q_call(xq, wq).mainloop == "wgmma"
+    for out_dtype in (torch.bfloat16, torch.float32):
+        reset_quant_counts()
+        got = matmul_q_cuda(xq, wq, sx, sw, out_dtype=out_dtype)
+        assert matmul_q_cuda.mainloops == {"wgmma": 1, "wmma": 0}
+        torch.testing.assert_close(got, matmul_q_ref(
+            xq, wq, sx, sw, out_dtype=out_dtype), **_qtol(x_fmt, out_dtype))
+
+
+@pytest.mark.parametrize("fmt", ["int8", "float8_e4m3fn"])
+def test_matmul_q_wgmma_split_k(gen, fmt):
+    """One output tile over k = 4096: the plan splits k; the partials
+    (int32, or fp32 for fp8) added in split order, then the dequant."""
+    x = torch.randn(8, 4096, device="cuda", generator=gen)
+    w = torch.randn(4096, 128, device="cuda", generator=gen) / 64
+    bias = torch.randn(128, device="cuda", generator=gen)
+    xq, sx = quant.quantize(x, fmt, axis=(-1,))
+    wq, sw = quant.quantize(w, fmt, axis=(-2,), k_major=True)
+    assert plan_q_call(xq, wq).splits > 1
+    reset_quant_counts()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for kw in (dict(), dict(bias=bias, activation="gelu", alpha=0.5)):
+            torch.testing.assert_close(
+                matmul_q_cuda(xq, wq, sx, sw, out_dtype=out_dtype, **kw),
+                matmul_q_ref(xq, wq, sx, sw, out_dtype=out_dtype, **kw),
+                **_qtol(fmt, out_dtype, kw.get("activation", "none")))
+    assert matmul_q_cuda.split_launches == 4
+    assert matmul_q_cuda.mainloops["wgmma"] == 4
 
 
 @pytest.mark.parametrize("fmt", FORMATS)

@@ -202,6 +202,14 @@ RESNET_BAND = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 # GEMM (1e-4), one bf16 ulp for bf16 out (on wgmma each 128-product slice
 # is summed in the tensor core's accumulator, narrower than fp32, and the
 # slice sums are added in fp32).
+# fp8 brgemm_q / batched_matmul_q with fp32 out against the float64
+# product, max |error| over max |output|, stated before the first run:
+# exact fp8 products summed in fp32 (widened to f16 for f16 wgmma) over
+# reductions of up to 16,384 products; matmul_q's fp32 sums erred 0.7-2.8e-7
+# at k <= 1536 on an H100 (PERF.md), fp8 wgmma's own accumulator 1.5-2.9e-4.
+F64_BAND = 1e-5
+
+
 def quant_tol(fmt, out_dtype, activation="none"):
     if fmt == torch.int8 and activation == "none":
         return (0.0, 0.0)
@@ -986,35 +994,49 @@ def phase_parity_quant(cfg):
     column-major table.T) with the weights K-major as the path stores
     them, a long k the plan splits and an N-major weight (the wmma tiles),
     each on the mainloop its plan states; brgemm_q and batched_matmul_q at
-    the paper's cases (one with a 2-D broadcast operand); in int8, e4m3,
-    e5m2 and matmul_q's mixed e4m3 x e5m2, with bf16 and fp32 out."""
+    the paper's cases and a ragged one (rows of 100 bytes: the wmma
+    tiles), B K-major as their routing quantizes it, batched_matmul_q also
+    with A and with B a 2-D broadcast operand, both with bias, activation
+    and alpha, each labelled with its plan's mainloop; in int8, e4m3,
+    e5m2 and matmul_q's mixed e4m3 x e5m2, with bf16 and fp32 out; fp8
+    with fp32 out also against float64."""
     from repro_torch import quant
     from repro_torch.kernels.brgemm import (
         batched_matmul_q_cuda, batched_matmul_q_ref, brgemm_q_cuda,
         brgemm_q_ref, matmul_q_cuda, matmul_q_ref)
-    from repro_torch.kernels.brgemm.quant_kernel import plan_q_call
+    from repro_torch.kernels.brgemm.quant_kernel import (
+        plan_q_batched_call, plan_q_call, plan_q_stacked_call)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     worst = {"matmul_q": 0.0, "brgemm_q": 0.0, "batched_matmul_q": 0.0}
     failed = []
 
-    def vs_f64(got, ref, xq, wq, sx, sw, name, tag):
-        """Observed beside the held check: an fp8 call's fp32 output and
-        the plain version's, each against the float64 product, over the
-        largest |output|; where _scaled_mm takes the shape and formats
-        (rows a multiple of 16, x e4m3), the library's fp8 product (fp8
-        wgmma, whose accumulator is narrower than fp32; scales 1, fp32
-        out) against the float64 one alike."""
-        exact = xq.double() @ wq.double()
-        truth = exact * (sx.double()[:, None] * sw.double()[None, :])
+    def vs_f64(kernel, got, ref, exact, sx, sw, name, tag, held=False,
+               operands=None):
+        """An fp8 call's fp32 output and the plain version's, each against
+        the float64 product ``exact`` (scaled by sx x sw, per entry where
+        the scales are), over the largest |output|: observed for
+        matmul_q, held within F64_BAND for brgemm_q and batched_matmul_q
+        (``held``).  For matmul_q's ``operands`` (xq, wq), where
+        _scaled_mm takes the shape and formats (rows a multiple of 16, x
+        e4m3), the library's fp8 product (fp8 wgmma, whose accumulator is
+        narrower than fp32; scales 1, fp32 out) against the float64 one
+        alike."""
+        truth = exact * (sx.double()[..., :, None] * sw.double()[..., None, :])
         scale = truth.abs().max().item()
-        rec = {"phase": "parity", "kernel": "matmul_q", "observed_only":
-               True, "case": f"{name} vs float64, fp32 out", "dtype": tag,
-               "max_abs_err_vs_f64_over_max": (got.double() - truth).abs(
-               ).max().item() / scale,
+        err = (got.double() - truth).abs().max().item() / scale
+        rec = {"phase": "parity", "kernel": kernel, "observed_only":
+               not held, "case": f"{name} vs float64, fp32 out", "dtype": tag,
+               "max_abs_err_vs_f64_over_max": err,
                "plain_max_abs_err_vs_f64_over_max": (ref.double() - truth
                                                      ).abs().max().item()
                / scale, "max_abs_output": scale}
-        if xq.size(0) % 16 == 0 and xq.dtype == torch.float8_e4m3fn:
+        if held:
+            rec.update(band=F64_BAND, ok=err <= F64_BAND)
+            if err > F64_BAND:
+                failed.append(f"{kernel}:{name}:{tag} vs float64")
+        elif operands and exact.size(0) % 16 == 0 \
+                and operands[0].dtype == torch.float8_e4m3fn:
+            xq, wq = operands
             one = torch.ones((), device="cuda")
             lib = torch._scaled_mm(xq, wq, scale_a=one, scale_b=one,
                                    out_dtype=torch.float32)
@@ -1067,7 +1089,8 @@ def phase_parity_quant(cfg):
                 if fmt != torch.int8 and out_dtype == torch.float32 \
                         and act == "none" and (
                             name.startswith("prefill") or p.splits > 1):
-                    vs_f64(got, ref, xq, wq, sx, sw, name, tag)
+                    vs_f64("matmul_q", got, ref, xq.double() @ wq.double(),
+                           sx, sw, name, tag, operands=(xq, wq))
                 del x, w, xq, wq, got, ref
             # the epilogue: bias, alpha, gelu; ragged m, k, n
             x = torch.randn(77, 100, device="cuda", generator=gen)
@@ -1092,31 +1115,66 @@ def phase_parity_quant(cfg):
             if w_fmt != fmt:
                 continue               # brgemm_q / batched_matmul_q: below
             name = str(fmt).replace("torch.", "")
-            for nb, m, k, n in BRGEMM_CASES:
+            for nb, m, k, n in BRGEMM_CASES + [(5, 70, 100, 130)]:
                 a = torch.randn(nb, m, k, device="cuda", generator=gen)
                 b = (torch.randn(nb, k, n, device="cuda", generator=gen)
                      * (nb * k) ** -0.5)
-                # batch-shared scales, as brgemm(quant=) makes them
-                aq, sa = quant.quantize(a, name, axis=(0, 2))
-                bq, sb = quant.quantize(b, name, axis=(0, 1))
+                bias = torch.randn(n, device="cuda", generator=gen)
                 case = f"B{nb} m{m} k{k} n{n}"
-                kw = dict(out_dtype=out_dtype)
-                record("brgemm_q", case, fmt, out_dtype,
-                       brgemm_q_cuda(aq, bq, sa, sb, **kw),
-                       brgemm_q_ref(aq, bq, sa, sb, **kw),
-                       quant_tol(fmt, out_dtype))
-                # per-entry scales; then A broadcast, as one 2-D operand
+                # the path's cases on wgmma; rows of 100 bytes on wmma
+                want_loop = "wgmma" if k % 16 == 0 else "wmma"
+                epilogues = (("", {}), (" bias gelu alpha 0.5", dict(
+                    bias=bias, activation="gelu", alpha=0.5)))
+                # batch-shared scales, B K-major, as brgemm(quant=) makes
+                # them
+                aq, sa = quant.quantize(a, name, axis=(0, 2))
+                bq, sb = quant.quantize(b, name, axis=(0, 1), k_major=True)
+                p = plan_q_stacked_call(aq, bq)
+                if p.mainloop != want_loop:
+                    failed.append(f"brgemm_q:{case}:{tag}: planned "
+                                  f"{p.mainloop}")
+                for label, kw in epilogues:
+                    kw = dict(kw, out_dtype=out_dtype)
+                    got = brgemm_q_cuda(aq, bq, sa, sb, **kw)
+                    ref = brgemm_q_ref(aq, bq, sa, sb, **kw)
+                    record("brgemm_q", f"{case}{label} {p.mainloop} splits "
+                           f"{p.splits}", fmt, out_dtype, got, ref,
+                           quant_tol(fmt, out_dtype,
+                                     kw.get("activation", "none")))
+                    if fmt != torch.int8 and out_dtype == torch.float32 \
+                            and not label:
+                        vs_f64("brgemm_q", got, ref, torch.einsum(
+                            "imk,ikn->mn", aq.double(), bq.double()), sa, sb,
+                            case, tag, held=True)
+                    del got, ref
+                # per-entry scales; A, then B, broadcast as one 2-D
+                # operand (its scale row shared, entry stride 0)
                 aq, sa = quant.quantize(a, name, axis=(-1,))
-                bq, sb = quant.quantize(b * nb ** 0.5, name, axis=(-2,))
-                record("batched_matmul_q", case, fmt, out_dtype,
-                       batched_matmul_q_cuda(aq, bq, sa, sb, **kw),
-                       batched_matmul_q_ref(aq, bq, sa, sb, **kw),
-                       quant_tol(fmt, out_dtype))
-                record("batched_matmul_q", f"{case} A broadcast", fmt,
-                       out_dtype,
-                       batched_matmul_q_cuda(aq[0], bq, sa[0], sb, **kw),
-                       batched_matmul_q_ref(aq[0], bq, sa[0], sb, **kw),
-                       quant_tol(fmt, out_dtype))
+                bq, sb = quant.quantize(b * nb ** 0.5, name, axis=(-2,),
+                                        k_major=True)
+                for label, args, kw in (
+                        ("", (aq, bq, sa, sb), {}),
+                        (" A broadcast", (aq[0], bq, sa[0], sb), {}),
+                        (" B broadcast", (aq, bq[0], sa, sb[0]), {}),
+                        (" bias silu alpha 2", (aq, bq, sa, sb), dict(
+                            bias=bias, activation="silu", alpha=2.0))):
+                    p = plan_q_batched_call(*args[:2])
+                    if p.mainloop != want_loop:
+                        failed.append(f"batched_matmul_q:{case}{label}:"
+                                      f"{tag}: planned {p.mainloop}")
+                    kw = dict(kw, out_dtype=out_dtype)
+                    got = batched_matmul_q_cuda(*args, **kw)
+                    ref = batched_matmul_q_ref(*args, **kw)
+                    record("batched_matmul_q", f"{case}{label} {p.mainloop}",
+                           fmt, out_dtype, got, ref,
+                           quant_tol(fmt, out_dtype,
+                                     kw.get("activation", "none")))
+                    if fmt != torch.int8 and out_dtype == torch.float32 \
+                            and label in ("", " B broadcast"):
+                        vs_f64("batched_matmul_q", got, ref,
+                               args[0].double() @ args[1].double(), args[2],
+                               args[3], case + label, tag, held=True)
+                    del got, ref
                 del a, b, aq, bq
     torch.cuda.synchronize()
     if failed:
@@ -2046,9 +2104,9 @@ def phase_quant(base_cfg):
 
 def quant_entry_points():
     """``brgemm(quant="int8")`` and ``batched_matmul(quant="int8")`` at the
-    paper's cases, bf16 in and out: one launch a call, and, on the same
-    operands (quantized alike on both paths), exactly the plain path's
-    result (quant_tol)."""
+    paper's cases, bf16 in and out: one launch a call, every one on the
+    8-bit wgmma mainloop, and, on the same operands (quantized alike on
+    both paths), exactly the plain path's result (quant_tol)."""
     from repro_torch.core import dispatch
     from repro_torch.core.brgemm import batched_matmul, brgemm
     from repro_torch.kernels.brgemm import (batched_matmul_q_cuda,
@@ -2071,13 +2129,20 @@ def quant_entry_points():
 
     # The main path: counts zeroed just before, read just after.
     for c in counters.values():
-        c.launches = 0
+        c.launches = c.split_launches = 0
+        c.mainloops = dict.fromkeys(c.mainloops, 0)
     got = run()
     launches = {k: c.launches for k, c in counters.items()}
+    mainloops = {k: dict(c.mainloops) for k, c in counters.items()}
     expect = dict.fromkeys(counters, len(cases))
     if launches != expect:
         raise AssertionError(f"quant brgemm launch counts {launches} != "
                              f"{expect}")
+    # every call of the paper's cases on the 8-bit wgmma mainloop
+    if any(loops != {"wgmma": len(cases), "wmma": 0}
+           for loops in mainloops.values()):
+        raise AssertionError(f"quant brgemm mainloops {mainloops}: every "
+                             f"call should run wgmma")
     with dispatch.use(backend="torch"):
         want = run()
     if {k: c.launches for k, c in counters.items()} != expect:
@@ -2089,7 +2154,9 @@ def quant_entry_points():
             errs[f"{name} B{nb} m{m} k{k} n{n}"] = close(a, b, *tol)
     emit({"phase": "quant", "entry": "brgemm / batched_matmul (quant=int8)",
           "cases": BRGEMM_CASES, "launches": launches,
-          "expected_launches": expect,
+          "expected_launches": expect, "mainloops": mainloops,
+          "split_launches": {k: c.split_launches
+                             for k, c in counters.items()},
           "max_abs_err": {k: v[1] for k, v in errs.items()},
           "atol": tol[0], "rtol": tol[1]})
     bad = [k for k, v in errs.items() if not v[0]]
@@ -2505,11 +2572,16 @@ def phase_times_quant(cfg, card):
     peak: operand bytes at 1 an element, the fp32 scales, the output.  The
     library column: fp8, torch._scaled_mm with row-wise fp32 scales (the
     whole function, bf16 out); int8, torch._int_mm, the int32 product only
-    (no scales, no epilogue), so it undercounts the function's work."""
+    (no scales, no epilogue), so it undercounts the function's work.  No
+    one call computes brgemm_q or batched_matmul_q: their rows carry the
+    bf16 counterpart's time on the same values (``bf16_ms``) and, for
+    brgemm_q, torch._int_mm's over the folded reduction (``int_mm_ms``)."""
     from repro_torch.kernels.brgemm import (
-        batched_matmul_q_cuda, batched_matmul_q_ref, brgemm_q_cuda,
-        brgemm_q_ref, matmul_q_cuda, matmul_q_ref)
-    from repro_torch.kernels.brgemm.quant_kernel import plan_q_call
+        batched_matmul_cuda, batched_matmul_q_cuda, batched_matmul_q_ref,
+        brgemm_q_cuda, brgemm_q_ref, brgemm_stacked_cuda, matmul_q_cuda,
+        matmul_q_ref)
+    from repro_torch.kernels.brgemm.quant_kernel import (
+        plan_q_batched_call, plan_q_call, plan_q_stacked_call)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     rows = []
     for fmt in (torch.int8, torch.float8_e4m3fn):
@@ -2569,29 +2641,52 @@ def phase_times_quant(cfg, card):
     for nb, m, k, n in BRGEMM_CASES:
         case = f"int8 B{nb} m{m} k{k} n{n}"
         flops = 2 * nb * m * k * n
-        sets = []
+        sets, bf16_sets, folded = [], [], []
         per_set = nb * m * k + nb * k * n
         for _ in range(n_sets(per_set)):
             a = torch.randn(nb, m, k, device="cuda", generator=gen)
             b = torch.randn(nb, k, n, device="cuda", generator=gen)
-            aq, sa, bq, sb = quantized(a, b, torch.int8)
+            # B K-major, as the path quantizes it
+            aq, sa, bq, sb = quantized(a, b, torch.int8, k_major=True)
             sets.append((aq, bq, sa, sb))
+            bf16_sets.append((a.to(torch.bfloat16), b.to(torch.bfloat16)))
+            # the int32 product over the folded (B * k) reduction: A as
+            # (m, B * k) row-major, B as a K-major (B * k, n), copied here,
+            # outside the timed region
+            folded.append((aq.transpose(0, 1).reshape(m, nb * k),
+                           bq.reshape(nb * k, n).t().contiguous().t()))
+            del a, b
         # brgemm_q: batch-shared scales (m,), (n,); batched_matmul_q:
         # per-entry scales; bf16 out, as quant_entry_points runs them.  No
-        # one PyTorch call computes either.
+        # one PyTorch call computes either; beside each, its bf16
+        # counterpart on bf16 copies of the same operands, and for
+        # brgemm_q torch._int_mm, the int32 product only.
         shared = [(aq, bq, sa[0], sb[0]) for aq, bq, sa, sb in sets]
         bf16 = dict(out_dtype=torch.bfloat16)
         ms, wall = time_ms(lambda *t: brgemm_q_cuda(*t, **bf16), shared)
         plain, _ = time_ms(lambda *t: brgemm_q_ref(*t, **bf16), shared)
+        bf16_ms, _ = time_ms(brgemm_stacked_cuda, bf16_sets)
+        int_mm = (time_ms(torch._int_mm, folded)[0]
+                  if library_runs(torch._int_mm, *folded[0]) else None)
+        p = plan_q_stacked_call(*shared[0][:2])
         row("brgemm_q", case, ms, wall, flops,
             per_set + 4 * (m + n) + 2 * m * n, plain, None, {"quant": 1},
-            batch=nb, m=m, k=k, n=n)
+            batch=nb, m=m, k=k, n=n, mainloop=p.mainloop, bm=p.bm,
+            splits=p.splits, bf16_ms=bf16_ms,
+            bf16="brgemm_stacked_cuda (bf16 in, bf16 out)",
+            int_mm_ms=int_mm,
+            int_mm="torch._int_mm (the int32 product only, the (B * k) "
+                   "reduction folded, K-major B)")
         ms, wall = time_ms(lambda *t: batched_matmul_q_cuda(*t, **bf16), sets)
         plain, _ = time_ms(lambda *t: batched_matmul_q_ref(*t, **bf16), sets)
+        bf16_ms, _ = time_ms(batched_matmul_cuda, bf16_sets)
+        p = plan_q_batched_call(*sets[0][:2])
         row("batched_matmul_q", case, ms, wall, flops,
             per_set + 4 * nb * (m + n) + 2 * nb * m * n, plain, None,
-            {"quant": 1}, batch=nb, m=m, k=k, n=n)
-        del sets, shared
+            {"quant": 1}, batch=nb, m=m, k=k, n=n, mainloop=p.mainloop,
+            bm=p.bm, bf16_ms=bf16_ms,
+            bf16="batched_matmul_cuda (bf16 in, bf16 out)")
+        del sets, shared, bf16_sets, folded
     return rows
 
 

@@ -1,7 +1,8 @@
 """Time the matmul kernel at every GEMM shape of the port's main paths, the
 flash forward at the prefill shape, the flash backward at the training
 shape, batched_matmul and brgemm_stacked at the paper's cases, matmul_q
-at the quantized serving path's shapes and conv2d at ResNet-50's.
+at the quantized serving path's shapes, brgemm_q and batched_matmul_q at
+the paper's cases and conv2d at ResNet-50's.
 
     python3 matmul_sweep.py [--src DIR] [--label NAME] [--variants]
 
@@ -15,22 +16,24 @@ shape (the same views, B = 8, T = 512, from the forward kernel's residuals,
 dY a view of the merged heads' gradient); batched_matmul at each of
 chip_smoke.py's BRGEMM_CASES, as batched_matmul's own call and as brgemm's
 backward's two products (g broadcast with B_i^T, A_i^T with g), and
-brgemm_stacked at each.  Per shape: the device time of a call (a CUDA graph
-of calls, operands cycled past the L2, chip_smoke.time_ms) beside one
-PyTorch call's on the same inputs (torch.matmul, scaled_dot_product_attention,
-its backward through autograd, whose kernels the profiler names, or
-torch.einsum, torch._int_mm or torch._scaled_mm, channels-last
-F.conv2d) and the bound; the wall
-time a call back to back (CUDA events: where the device time is small, the
-host's cost of a call); the plan the package chose.  --src imports
-repro_torch from another checkout's src, so that an earlier commit's
-kernels are timed on the same card in the same run; --variants also times
-each matmul and matmul_q shape that has few output tiles under other split
-targets (one wave of 132 blocks, two, four, and no split).  matmul_q's
-weights are laid out as the imported package's own quantize_weight stores
-them (its main path's layout), conv2d's dual convolutions as its backward
-makes them.  One JSON line a shape, then
-the card's name and power limit.  Needs one CUDA card.
+brgemm_stacked at each; brgemm_q and batched_matmul_q at each (int8 and
+e4m3, bf16 out, B K-major as the quantized path quantizes it).  Per
+shape: the device time of a call (a CUDA graph of calls, operands cycled
+past the L2, chip_smoke.time_ms) beside one PyTorch call's on the same
+inputs (torch.matmul, scaled_dot_product_attention, its backward through
+autograd, whose kernels the profiler names, or torch.einsum,
+torch._int_mm or torch._scaled_mm, channels-last F.conv2d; none for
+batched_matmul_q, and for brgemm_q torch._int_mm of its int32 product
+alone) and the bound; the wall time a call back to back (CUDA events:
+where the device time is small, the host's cost of a call); the plan the
+package chose.  --src imports repro_torch from another checkout's src, so
+that an earlier commit's kernels are timed on the same card in the same
+run; --variants also times each matmul and matmul_q shape that has few
+output tiles under other split targets (one wave of 132 blocks, two,
+four, and no split).  matmul_q's weights are laid out as the imported
+package's own quantize_weight stores them (its main path's layout),
+conv2d's dual convolutions as its backward makes them.  One JSON line a
+shape, then the card's name and power limit.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -289,6 +292,55 @@ def quant_rows(args, card, gen, cfg):
             del sets
 
 
+def quant_batched_rows(args, card, gen):
+    """brgemm_q and batched_matmul_q at each of BRGEMM_CASES (int8 and
+    e4m3, bf16 out; brgemm_q's scales batch-shared, batched_matmul_q's per
+    entry), B K-major as the quantized path lays it out, beside
+    torch._int_mm of brgemm_q's int32 product over the folded (B * k)
+    reduction (int8 only: the product alone; no one PyTorch call computes
+    either function)."""
+    from repro_torch import quant
+    from repro_torch.kernels.brgemm import quant_kernel as QK
+    bf16 = dict(out_dtype=torch.bfloat16)
+    for fmt in ("int8", "float8_e4m3fn"):
+        for nb, m, k, n in CS.BRGEMM_CASES:
+            per = nb * m * k + nb * k * n
+            sets = []
+            for _ in range(CS.n_sets(per)):
+                a = torch.randn(nb, m, k, device="cuda", generator=gen)
+                b = torch.randn(nb, k, n, device="cuda", generator=gen)
+                aq, sa = quant.quantize(a, fmt, axis=(-1,))
+                bq, sb = quant.quantize(b, fmt, axis=(-2,), k_major=True)
+                folded = ((aq.transpose(0, 1).reshape(m, nb * k),
+                           bq.reshape(nb * k, n).t().contiguous().t())
+                          if fmt == "int8" else None)
+                sets.append((aq, bq, sa, sb, folded))
+            bms, by = CS.bound(2 * nb * m * k * n,
+                               per + 4 * nb * (m + n) + 2 * nb * m * n,
+                               card, torch.int8)
+            for kernel, call in (
+                    ("brgemm_q", lambda aq, bq, sa, sb, _: QK.brgemm_q_cuda(
+                        aq, bq, sa[0], sb[0], **bf16)),
+                    ("batched_matmul_q", lambda aq, bq, sa, sb, _:
+                     QK.batched_matmul_q_cuda(aq, bq, sa, sb, **bf16))):
+                ms, wall = CS.time_ms(call, sets)
+                lib = (CS.time_ms(lambda *t: torch._int_mm(*t[4]), sets)[0]
+                       if kernel == "brgemm_q" and fmt == "int8" else None)
+                rec = {"label": args.label, "kernel": kernel,
+                       "shape": f"{fmt} B{nb} m{m} k{k} n{n}", "ms": ms,
+                       "wall_ms": wall, "library_ms": lib,
+                       "library": "torch._int_mm (the int32 product only)"
+                       if lib else None, "bound_ms": bms, "bound_by": by}
+                plan = getattr(QK, "plan_q_stacked_call" if kernel ==
+                               "brgemm_q" else "plan_q_batched_call", None)
+                if plan is not None:
+                    p = plan(*sets[0][:2])
+                    rec["plan"] = {"mainloop": p.mainloop, "bm": p.bm,
+                                   "splits": p.splits, "chunk": p.chunk}
+                print(json.dumps(rec), flush=True)
+            del sets
+
+
 def conv_rows(args, card, gen):
     """conv2d at each distinct ResNet-50 convolution (N = 32, bf16) and its
     dual (the backward by data, fp32 out), beside channels-last F.conv2d."""
@@ -385,6 +437,7 @@ def main():
     batched_rows(args, card, gen)
     stacked_rows(args, card, gen)
     quant_rows(args, card, gen, get("smollm-135m"))
+    quant_batched_rows(args, card, gen)
     conv_rows(args, card, gen)
     print(card, flush=True)
 

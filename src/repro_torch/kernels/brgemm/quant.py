@@ -14,6 +14,10 @@ ambient ``use(quant=...)`` context, else a calibrated
 :class:`~repro_torch.core.quantize.QuantizedTensor` weight implies its own
 config.  Activations are quantized dynamically per row (or per tensor);
 weights per output channel (or per tensor), unless already calibrated.
+Every quantized B is written K-major (``quantize(..., k_major=True)``, or
+``quantize_weight``'s storage), the reference's values in the layout 8-bit
+wgmma reads, so that ``brgemm`` and ``batched_matmul`` run the wgmma
+mainloop as ``matmul`` does.
 
 The quantized path is inference-only (no gradient; a call with autograd
 on raises) and takes no ``c0`` / ``beta`` accumulation.
@@ -149,7 +153,7 @@ def brgemm_q(a, b, bias=None, c0=None, *, activation="none", alpha=1.0,
         bq, sb = _weight_qparams(b, qcfg, batch_shared=True)
     else:
         w_axis = (0, 1) if qcfg.granularity == "per_channel" else None
-        bq, sb = quantize(b, qcfg.w_dtype, axis=w_axis)
+        bq, sb = quantize(b, qcfg.w_dtype, axis=w_axis, k_major=True)
         sb = _vector(sb, b.shape[-1])
     fn = QK.brgemm_q_cuda if name == "cuda" else QR.brgemm_q_ref
     return fn(aq, bq, _vector(sa, a.shape[1]), sb, bias,
@@ -175,7 +179,7 @@ def batched_matmul_q(a, b, bias=None, *, activation="none", alpha=1.0,
         bq, sb = _weight_qparams(b, qcfg)
     else:
         w_axis = (-2,) if qcfg.granularity == "per_channel" else None
-        bq, sb = quantize(b, qcfg.w_dtype, axis=w_axis)
+        bq, sb = quantize(b, qcfg.w_dtype, axis=w_axis, k_major=True)
         if sb.dim() == 0:
             sb = sb.expand(b.shape[-1])
     fn = (QK.batched_matmul_q_cuda if name == "cuda"

@@ -14,23 +14,29 @@ tiles, fp8 widened exactly to f16 for f16 wgmma on 64 x 128 tiles, k split
 where the tiles alone leave SMs idle) where both operands are K-major and
 TMA can describe them (xq row-major, wq column-major: the calibrated
 storage of ``core/quantize.py::quantize_weight`` and the LM head's
-``table.T``), else on the first kernel's 64 x 64 wmma tiles (``wmma``),
-which ``brgemm_q_cuda`` and ``batched_matmul_q_cuda`` run too.  The plan
-decides before the launch; nothing falls back.  ``<wrapper>.launches``
-counts each wrapper's launches; ``matmul_q_cuda.mainloops`` its calls by
-mainloop and ``.split_launches`` those that also launched the split-K
-reduction (``reset_quant_counts`` zeroes them).
+``table.T``), else on the first kernel's 64 x 64 wmma tiles (``wmma``).
+``plan_q_stacked`` decides ``brgemm_q_cuda``'s the same way, the batch
+folded into the reduction and its (entry, 128-element slice) axis split as
+``plan_q`` splits k, and ``plan_q_batched`` ``batched_matmul_q_cuda``'s,
+one entry a block, one split: each entry of aq row-major and of bq
+column-major (a 2-D operand broadcast over the batch alike).  The plans
+decide before the launch; nothing falls back.  ``<wrapper>.launches``
+counts each wrapper's launches, ``.mainloops`` its calls by mainloop and
+``.split_launches`` those that also launched the split-K reduction
+(``reset_quant_counts`` zeroes them).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from repro_torch.core import fusion
 from repro_torch.kernels import _build
-from repro_torch.kernels.brgemm.kernel import Plan, _layout, _raise_on, _split
+from repro_torch.kernels.brgemm.kernel import (SMS, Plan, _layout,
+                                               _raise_on, _split)
 
 # Storage dtype -> the kernel's format code (quant.cu, enum Fmt).
 FORMATS = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
@@ -38,7 +44,7 @@ _OUT = (torch.float32, torch.bfloat16)
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
-MAINLOOPS = ("wgmma", "wmma")    # matmul_q_cuda's mainloops
+MAINLOOPS = ("wgmma", "wmma")    # the wrappers' mainloops
 BK = 128                          # the wgmma mainloop's k a slice: 128 bytes
 # A split walks at least this much of k.  matmul's bf16 runs of 512 are
 # 1 KB a row; an 8-bit run of 1024 is the same bytes.  fp8, whose slices
@@ -58,7 +64,15 @@ def _lib():
     lib.repro_matmul_q.argtypes = [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P,
                                    _P, _I, _I, _I, _F, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _P, _P]
-    lib.repro_matmul_q.restype = ctypes.c_int
+    lib.repro_brgemm_q.argtypes = [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P,
+                                   _LL, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _P, _P]
+    lib.repro_batched_matmul_q.argtypes = [
+        _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _I,
+        _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P]
+    for fn in (lib.repro_matmul_q, lib.repro_brgemm_q,
+               lib.repro_batched_matmul_q):
+        fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -107,15 +121,23 @@ def _check(name, a, b, bias, out_dtype, n):
                          f"({n},) on {a.device}")
 
 
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _flags(aq, bq, out, bias) -> list:
+    return [FORMATS[aq.dtype], FORMATS[bq.dtype],
+            int(out.dtype == torch.float32),
+            int(bias is not None and bias.dtype == torch.float32)]
+
+
 def _launch(name, a, b, sa, sb, bias, out, nb, m, n, k, stacked, alpha,
             activation):
     lib = _lib()
     rc = lib.repro_quant_gemm(
         *_operand(a, "a"), *_operand(b, "b"), *sa, *sb,
-        bias.data_ptr() if bias is not None else None, out.data_ptr(), nb,
-        m, n, k, int(stacked), float(alpha), fusion.code(activation),
-        FORMATS[a.dtype], FORMATS[b.dtype], int(out.dtype == torch.float32),
-        int(bias is not None and bias.dtype == torch.float32),
+        _ptr(bias), out.data_ptr(), nb, m, n, k, int(stacked), float(alpha),
+        fusion.code(activation), *_flags(a, b, out, bias),
         torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, lib, name)
 
@@ -144,32 +166,107 @@ def plan_q(m: int, n: int, k: int, tma: bool, fp8: bool = False) -> Plan:
     return Plan("wgmma", bm, BK, splits, chunk, tiles)
 
 
-def _k_major(t: torch.Tensor, row_major: bool) -> tuple[int, bool]:
-    """(ld, ok) of a 2-D operand read K-major, k along its rows
-    (``row_major``, as xq) or along its columns (as wq): the stride between
-    its runs of k, and whether TMA can read it so (k contiguous, 16-byte
-    aligned base, ld a multiple of 16 elements that covers a run)."""
-    rows, cols = t.shape
+def _k_major(t: torch.Tensor, row_major: bool) -> tuple[int, int, bool]:
+    """(batch stride, ld, ok) of an operand read K-major, k along the rows
+    of each entry (``row_major``, as xq and aq) or along its columns (as wq
+    and bq): a (B, r, c) operand, or a 2-D one (batch stride 0; read by
+    every entry where the other operand is 3-D).  ld: the stride between
+    an entry's runs of k.  ok: TMA can read it so (k contiguous, 16-byte
+    aligned base, ld a multiple of 16 elements that covers a run, entries
+    apart by a multiple of 16 elements that covers an entry: a 3-D map)."""
+    mat = t[0] if t.dim() == 3 else t
+    rows, cols = mat.shape
     outer, inner = (rows, cols) if row_major else (cols, rows)
-    unit = (t.stride(1) if row_major else t.stride(0)) == 1 or inner == 1
-    ld = (t.stride(0) if row_major else t.stride(1)) if outer > 1 else inner
-    return ld, bool(unit and t.data_ptr() % 16 == 0 and ld % 16 == 0
-                    and ld >= inner)
+    unit = (mat.stride(1) if row_major else mat.stride(0)) == 1 or inner == 1
+    ld = (mat.stride(0) if row_major else mat.stride(1)) if outer > 1 \
+        else inner
+    bstride = t.stride(0) if t.dim() == 3 and t.size(0) > 1 else 0
+    return bstride, ld, bool(
+        unit and t.data_ptr() % 16 == 0 and ld % 16 == 0 and ld >= inner
+        and bstride % 16 == 0 and (bstride == 0 or bstride >= outer * ld))
 
 
-def _q_operands(xq, wq) -> tuple[int, int, bool]:
-    """(ldx, ldw, tma): xq's row stride and wq's column stride, and whether
-    the wgmma mainloop can take both (``_k_major``)."""
-    ldx, okx = _k_major(xq, True)
-    ldw, okw = _k_major(wq, False)
-    return ldx, ldw, okx and okw
+def _q_operands(a, b) -> tuple[list, bool]:
+    """([a's batch stride, lda, b's batch stride, ldb], tma): a read K-major
+    along its rows and b along its columns (``_k_major``), and whether the
+    wgmma mainloop can take both."""
+    sa, lda, oka = _k_major(a, True)
+    sb, ldb, okb = _k_major(b, False)
+    return [sa, lda, sb, ldb], oka and okb
 
 
 def plan_q_call(xq: torch.Tensor, wq: torch.Tensor) -> Plan:
     """The plan of ``matmul_q_cuda(xq, wq, ...)``, from the operands'
     shapes, layouts and alignment (the kernel itself is not touched)."""
-    return plan_q(xq.size(0), wq.size(1), xq.size(1), _q_operands(xq, wq)[2],
+    return plan_q(xq.size(0), wq.size(1), xq.size(1), _q_operands(xq, wq)[1],
                   xq.dtype != torch.int8)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_q_stacked(nb: int, m: int, n: int, k: int, tma: bool,
+                   fp8: bool = False) -> Plan:
+    """How ``brgemm_q_cuda`` runs sum_i (m, k) @ (k, n) over ``nb``
+    entries: ``plan_q``'s mainloop and tile for one entry.  On wgmma the
+    reduction is the flattened (entry, 128-element slice) axis of nb *
+    ceil(k / 128) slices, split as ``plan_q`` splits k (runs no shorter
+    than MIN_SPLIT_K, or MIN_SPLIT_K_FP8); the wmma tiles walk it whole, in
+    one block an output tile.  ``chunk``: slices a split."""
+    p = plan_q(m, n, k, tma and nb > 0, fp8)
+    slices = nb * -(-k // p.bk)
+    if p.mainloop != "wgmma":
+        return dataclasses.replace(p, splits=1, chunk=max(1, slices))
+    splits, chunk = _split(p.tiles, slices, BK, 2 if fp8 else 1,
+                           MIN_SPLIT_K_FP8 if fp8 else MIN_SPLIT_K)
+    return dataclasses.replace(p, splits=splits, chunk=chunk)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_q_batched(nb: int, m: int, n: int, k: int, tma: bool,
+                   fp8: bool = False) -> Plan:
+    """How ``batched_matmul_q_cuda`` runs a (B, m, k) @ (B, k, n) product
+    over ``nb`` entries: ``plan_q``'s mainloop and tile for one entry, and
+    one run of k (the entries fill the card; no split).  64-row tiles also
+    where the entries' 128-row tiles would leave SMs idle: such a call
+    takes a block's latency, which more, shorter blocks cut (B = 32, m = n
+    = k = 128: 0.0111 → 0.0081 ms on an H100, PERF.md).  ``tiles``:
+    output tiles an entry."""
+    p = plan_q(m, n, k, tma, fp8)
+    if p.mainloop == "wgmma" and p.bm == 128 and nb * p.tiles < SMS:
+        p = dataclasses.replace(p, bm=64, tiles=-(-m // 64) * -(-n // 128))
+    return dataclasses.replace(p, splits=1, chunk=max(1, -(-k // p.bk)))
+
+
+def plan_q_stacked_call(aq: torch.Tensor, bq: torch.Tensor) -> Plan:
+    """The plan of ``brgemm_q_cuda(aq, bq, ...)``, from the operands'
+    shapes, layouts and alignment (the kernel itself is not touched)."""
+    return plan_q_stacked(aq.size(0), aq.size(1), bq.size(2), aq.size(2),
+                          _q_operands(aq, bq)[1],
+                          aq.dtype != torch.int8)
+
+
+def plan_q_batched_call(aq: torch.Tensor, bq: torch.Tensor) -> Plan:
+    """The plan of ``batched_matmul_q_cuda(aq, bq, ...)``, from the
+    operands' shapes, layouts and alignment."""
+    nb = aq.size(0) if aq.dim() == 3 else bq.size(0)
+    return plan_q_batched(nb, aq.size(-2), bq.size(-1), aq.size(-1),
+                          _q_operands(aq, bq)[1],
+                          aq.dtype != torch.int8)
+
+
+def _count(fn, p: Plan):
+    fn.launches += 1
+    fn.mainloops[p.mainloop] += 1
+    fn.split_launches += p.splits > 1
+
+
+def _workspace(p: Plan, m: int, n: int, like: torch.Tensor):
+    """The (splits, m, n) partials of a split plan: int32 for int8, fp32
+    for fp8; None for one split."""
+    if p.splits == 1:
+        return None
+    return torch.empty(p.splits * m * n, device=like.device,
+                       dtype=torch.int32 if like.dtype == torch.int8
+                       else torch.float32)
 
 
 def matmul_q_cuda(xq, wq, sx, sw, bias=None, *, activation: str = "none",
@@ -193,31 +290,22 @@ def matmul_q_cuda(xq, wq, sx, sw, bias=None, *, activation: str = "none",
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m == 0 or n == 0:
         return out
-    ldx, ldw, tma = _q_operands(xq, wq)
+    (_, ldx, _, ldw), tma = _q_operands(xq, wq)
     p = plan_q(m, n, k, tma, xq.dtype != torch.int8)
     if p.mainloop == "wgmma":
-        ws = (torch.empty(p.splits * m * n, device=xq.device,
-                          dtype=torch.int32 if xq.dtype == torch.int8
-                          else torch.float32) if p.splits > 1 else None)
+        ws = _workspace(p, m, n, xq)
         lib = _lib()
         rc = lib.repro_matmul_q(
             xq.data_ptr(), ldx, wq.data_ptr(), ldw, sa[0], sa[2], sb[0],
-            sb[2],
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            m, n, k, float(alpha), fusion.code(activation),
-            FORMATS[xq.dtype], FORMATS[wq.dtype],
-            int(out_dtype == torch.float32),
-            int(bias is not None and bias.dtype == torch.float32),
-            p.bm, p.splits, p.chunk,
-            ws.data_ptr() if ws is not None else None,
+            sb[2], _ptr(bias), out.data_ptr(), m, n, k, float(alpha),
+            fusion.code(activation), *_flags(xq, wq, out, bias), p.bm,
+            p.splits, p.chunk, _ptr(ws),
             torch.cuda.current_stream(xq.device).cuda_stream)
         _raise_on(rc, lib, "matmul_q")
     else:
         _launch("matmul_q", xq, wq, sa, sb, bias, out, 1, m, n, k, True,
                 alpha, activation)
-    matmul_q_cuda.launches += 1
-    matmul_q_cuda.mainloops[p.mainloop] += 1
-    matmul_q_cuda.split_launches += p.splits > 1
+    _count(matmul_q_cuda, p)
     return out
 
 
@@ -226,8 +314,9 @@ def brgemm_q_cuda(aq, bq, sa, sb, bias=None, *, activation: str = "none",
     """``act(alpha * (sum_i aq[i] @ bq[i]) * (sa x sb) + bias)`` on the card.
 
     aq: (B, m, k), bq: (B, k, n), each entry row- or column-major with any
-    batch stride; sa: (m,), sb: (n,) fp32, batch-shared.  Returns a
-    contiguous (m, n) of ``out_dtype``.
+    batch stride; entries of aq row-major and of bq column-major run the
+    wgmma mainloop (``plan_q_stacked``).  sa: (m,), sb: (n,) fp32,
+    batch-shared.  Returns a contiguous (m, n) of ``out_dtype``.
     """
     _check("brgemm_q_cuda", aq, bq, bias, out_dtype, bq.shape[-1])
     if aq.dim() != 3 or bq.dim() != 3 or aq.size(0) != bq.size(0) \
@@ -243,9 +332,22 @@ def brgemm_q_cuda(aq, bq, sa, sb, bias=None, *, activation: str = "none",
         raise ValueError("brgemm_q_cuda needs at least one batch entry")
     if m == 0 or n == 0:
         return out
-    _launch("brgemm_q", aq, bq, sr, sc, bias, out, nb, m, n, k, True, alpha,
-            activation)
-    brgemm_q_cuda.launches += 1
+    strides, tma = _q_operands(aq, bq)
+    p = plan_q_stacked(nb, m, n, k, tma, aq.dtype != torch.int8)
+    if p.mainloop == "wgmma":
+        ws = _workspace(p, m, n, aq)
+        lib = _lib()
+        rc = lib.repro_brgemm_q(
+            aq.data_ptr(), *strides[:2], bq.data_ptr(), *strides[2:],
+            sr[0], sr[2], sc[0], sc[2], _ptr(bias), out.data_ptr(), nb,
+            m, n, k, float(alpha), fusion.code(activation),
+            *_flags(aq, bq, out, bias), p.bm, p.splits, p.chunk, _ptr(ws),
+            torch.cuda.current_stream(aq.device).cuda_stream)
+        _raise_on(rc, lib, "brgemm_q")
+    else:
+        _launch("brgemm_q", aq, bq, sr, sc, bias, out, nb, m, n, k, True,
+                alpha, activation)
+    _count(brgemm_q_cuda, p)
     return out
 
 
@@ -255,9 +357,10 @@ def batched_matmul_q_cuda(aq, bq, sa, sb, bias=None, *,
     """``act(alpha * (aq[i] @ bq[i]) * (sa[i] x sb[i]) + bias)`` for each i.
 
     aq: (B, m, k) or a 2-D (m, k) broadcast over the batch; bq: (B, k, n)
-    or a 2-D (k, n); not both 2-D.  sa: (B, m) or (m,); sb: (B, n) or (n,)
-    (a 1-D scale row is shared by every entry).  Returns a contiguous
-    (B, m, n) of ``out_dtype``.
+    or a 2-D (k, n); not both 2-D.  Entries of aq row-major and of bq
+    column-major run the wgmma mainloop (``plan_q_batched``).  sa: (B, m)
+    or (m,); sb: (B, n) or (n,) (a 1-D scale row is shared by every
+    entry).  Returns a contiguous (B, m, n) of ``out_dtype``.
     """
     _check("batched_matmul_q_cuda", aq, bq, bias, out_dtype, bq.shape[-1])
     if aq.dim() not in (2, 3) or bq.dim() not in (2, 3) \
@@ -274,18 +377,28 @@ def batched_matmul_q_cuda(aq, bq, sa, sb, bias=None, *,
     out = torch.empty((nb, m, n), dtype=out_dtype, device=aq.device)
     if nb == 0 or m == 0 or n == 0:
         return out
-    _launch("batched_matmul_q", aq, bq, sr, sc, bias, out, nb, m, n, k,
-            False, alpha, activation)
-    batched_matmul_q_cuda.launches += 1
+    strides, tma = _q_operands(aq, bq)
+    p = plan_q_batched(nb, m, n, k, tma, aq.dtype != torch.int8)
+    if p.mainloop == "wgmma":
+        lib = _lib()
+        rc = lib.repro_batched_matmul_q(
+            aq.data_ptr(), *strides[:2], bq.data_ptr(), *strides[2:], *sr,
+            *sc, _ptr(bias), out.data_ptr(), nb, m, n, k, float(alpha),
+            fusion.code(activation), *_flags(aq, bq, out, bias), p.bm,
+            torch.cuda.current_stream(aq.device).cuda_stream)
+        _raise_on(rc, lib, "batched_matmul_q")
+    else:
+        _launch("batched_matmul_q", aq, bq, sr, sc, bias, out, nb, m, n, k,
+                False, alpha, activation)
+    _count(batched_matmul_q_cuda, p)
     return out
 
 
 def reset_quant_counts():
     """Zero the counters of the three quantized GEMM wrappers."""
     for f in (matmul_q_cuda, brgemm_q_cuda, batched_matmul_q_cuda):
-        f.launches = 0
-    matmul_q_cuda.split_launches = 0
-    matmul_q_cuda.mainloops = dict.fromkeys(MAINLOOPS, 0)
+        f.launches = f.split_launches = 0
+        f.mainloops = dict.fromkeys(MAINLOOPS, 0)
 
 
 reset_quant_counts()

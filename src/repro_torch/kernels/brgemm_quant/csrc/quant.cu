@@ -9,43 +9,51 @@
 //   batched_matmul_q: C_i = act(alpha * (Aq_i @ Bq_i) * (sa_i x sb_i) + bias)
 //                     replaces quant_kernel.py::batched_matmul_q_pallas.
 //
-// matmul_q runs one of two mainloops, planned per call by the wrapper
-// (kernels/brgemm/quant_kernel.py::plan_q) from the operands' layouts:
+// Each runs one of two mainloops, planned per call by the wrapper
+// (kernels/brgemm/quant_kernel.py::plan_q, plan_q_stacked, plan_q_batched)
+// from the operands' layouts:
 //
-//   * wgmma (repro_matmul_q): the shared wgmma + TMA mainloop of
-//     include/repro_gemm_sm90.cuh, its ring filled with 8-bit slices of 128
-//     elements of k (128 bytes, the 128-byte swizzle's width), 128 (or 64,
-//     for m <= 64) x 128 tiles, the dequant as the shared sink's epilogue
-//     (Dequant).  s8 runs native 8-bit wgmma (m64n128k32 into int32).  fp8
-//     (e4m3 / e5m2, each operand its own format) is widened exactly to
-//     f16 in shared memory, a slice at a time, for f16 wgmma into fp32:
-//     Hopper's fp8 wgmma adds its products in fewer bits than fp32 keeps,
-//     even when its sums are moved into fp32 registers after every k32
-//     step (PERF.md), and the reference sums in fp32.  TMA reads 8-bit
-//     operands K-major only, so X must be row-major and W column-major:
-//     the calibrated weights are stored so
-//     (core/quantize.py::quantize_weight), and the LM head's table.T is so
-//     already.  k is split where the tiles alone leave SMs
-//     idle, as matmul's is; the partials (int32 for s8, exact in any
-//     order; fp32 for fp8, added in split order) are summed by the shared
-//     reduction, which then runs the dequant.
+//   * wgmma (repro_matmul_q, repro_brgemm_q, repro_batched_matmul_q): the
+//     shared wgmma + TMA mainloop of include/repro_gemm_sm90.cuh, its ring
+//     filled with 8-bit slices of 128 elements of k (128 bytes, the
+//     128-byte swizzle's width), 128 (or 64, for m <= 64) x 128 tiles, the
+//     dequant as the shared sink's epilogue (Dequant; DequantEntry for
+//     batched_matmul_q's per-entry scales).  s8 runs native 8-bit wgmma
+//     (m64n128k32 into int32).  fp8 (e4m3 / e5m2, each operand its own
+//     format) is widened exactly to f16 in shared memory, a slice at a
+//     time, for f16 wgmma into fp32 on 64-row tiles: Hopper's fp8 wgmma
+//     adds its products in fewer bits than fp32 keeps, even when its sums
+//     are moved into fp32 registers after every k32 step (PERF.md), and
+//     the reference sums in fp32.  TMA reads 8-bit operands K-major only,
+//     so X (A) must be row-major and W (B) column-major: the calibrated
+//     weights are stored so (core/quantize.py::quantize_weight), the LM
+//     head's table.T is so already, and the batched ops' routing
+//     quantizes B so (kernels/brgemm/quant.py).  matmul_q walks SPLIT_K;
+//     brgemm_q the STACKED walk, the batch folded into the reduction (the
+//     nb entries' slices through 3-D maps, each entry's ragged k ended by
+//     TMA's zero fill), split as matmul_q's k where the tiles alone leave
+//     SMs idle; batched_matmul_q the PER_ENTRY walk, an entry a
+//     blockIdx.z, a 2-D map for an operand broadcast over the batch.
+//     Split partials (int32 for s8, exact in any order; fp32 for fp8,
+//     added in split order) are summed by the shared reduction, which then
+//     runs the dequant.
 //   * wmma (repro_quant_gemm, the first kernel of this family, kept for
-//     operands TMA or wgmma cannot take: an N-major 8-bit W, rows that are
-//     not 16-byte aligned): one 128-thread block a 64 x 64 tile, s8 on
-//     wmma with int32 accumulators (repro_tile.cuh, namespace i8), fp8
-//     converted exactly to bf16 as it is staged (Widen) for tc's bf16 wmma
-//     with fp32 accumulators.  brgemm_q and batched_matmul_q run it too.
+//     operands TMA or wgmma cannot take: an N-major 8-bit W or B, rows
+//     that are not 16-byte aligned): one 128-thread block a 64 x 64 tile,
+//     s8 on wmma with int32 accumulators (repro_tile.cuh, namespace i8),
+//     fp8 converted exactly to bf16 as it is staged (Widen) for tc's bf16
+//     wmma with fp32 accumulators.
 //
 // One kernel serves the three on the wmma mainloop, as the batched
 // family's does: matmul_q is the stacked form with one entry, brgemm_q
 // walks the k-blocks of every entry in turn into one accumulator and
 // dequantizes once (its scales are batch-shared, one per output row and
 // channel), batched_matmul_q takes its entry from blockIdx.z with
-// per-entry scale rows.  A 2-D operand or scale row broadcast over the
-// batch has batch stride 0: it is read again by every entry, never copied.
-// The TPU kernels' lane-broadcast scale layouts (SCALE_LANES, _row_scales)
-// are a TPU idiom and are not carried over: a scale is read where it lies,
-// through a stride (0 for an expanded view).
+// per-entry scale rows.  On either mainloop a 2-D operand or scale row
+// broadcast over the batch has batch stride 0: it is read again by every
+// entry, never copied.  The TPU kernels' lane-broadcast scale layouts
+// (SCALE_LANES, _row_scales) are a TPU idiom and are not carried over: a
+// scale is read where it lies, through a stride (0 for an expanded view).
 //
 // Both are exact where the reference is: the int32 sum of s8 products is
 // exact (k * 127^2 < 2^31 for every reduction here: k <= 1536 in smollm,
@@ -53,19 +61,21 @@
 // equals the plain version bit for bit.  Every e4m3 and e5m2 product is
 // exact in fp32: the wmma tiles add them in fp32, so they compute what the
 // reference's fp32-upcast dot does up to the order of the sums, on either
-// mainloop (both widen fp8 exactly, to bf16 or f16, and sum in fp32).  The epilogue keeps the
-// reference's rounding: acc * (sx[r] * sw[c]), then * alpha, then + bias,
-// each rounded on its own (__fmul_rn / __fadd_rn: nvcc would otherwise
-// contract a multiply and an add into one FMA), then the activation, then
-// the cast to the output type.
+// mainloop (both widen fp8 exactly, to bf16 or f16, and sum in fp32).  The
+// epilogue keeps the reference's rounding: acc * (sx[r] * sw[c]), then *
+// alpha, then + bias, each rounded on its own (__fmul_rn / __fadd_rn: nvcc
+// would otherwise contract a multiply and an add into one FMA), then the
+// activation, then the cast to the output type.
 //
 // What bounds it on an H100: serving's decode (m = 8 rows) does 2 * 8 ops
 // a weight byte, so the bound is the bytes of W, which 8-bit storage
 // halves against bf16; there the plan splits k so that a layer's few
-// output tiles still draw W from enough SMs.  Prefill (m = 4096) is
-// tensor-core work: s8 at the 8-bit peak of 1,979 TOP/s, which native
-// 8-bit wgmma reaches for at twice bf16's rate; fp8, widened, at f16's
-// (bf16's).
+// output tiles still draw W from enough SMs.  Prefill (m = 4096) and the
+// batched ops' (8, 4096, 1024, 1024) case are tensor-core work: s8 at the
+// 8-bit peak of 1,979 TOP/s, which native 8-bit wgmma reaches for at
+// twice bf16's rate; fp8, widened, at f16's (bf16's).  The paper's small
+// brgemm cases (m, n <= 128) make one or a few output tiles: a launch,
+// a ring fill and an epilogue (and, split, the reduction) are their time.
 //
 // Ragged m, n and k: TMA's zero fill (wgmma), or masks inside the kernel
 // (wmma: zero-filled tiles, guarded stores; 16-byte int8 loads need
@@ -231,6 +241,16 @@ extern "C" int repro_quant_gemm(
   return (int)cudaGetLastError();
 }
 
+// Runs run(T{}) for the operand types of fmt_a / fmt_b: wg::S8, or
+// wg::F8<fa, fb> (0 e4m3, 1 e5m2 each).
+template <typename F>
+static int by_types(int fmt_a, int fmt_b, F&& run) {
+  if (fmt_a == S8) return run(wg::S8{});
+  if (fmt_a == E4M3)
+    return fmt_b == E4M3 ? run(wg::F8<0, 0>{}) : run(wg::F8<0, 1>{});
+  return fmt_b == E4M3 ? run(wg::F8<1, 0>{}) : run(wg::F8<1, 1>{});
+}
+
 // matmul_q on the wgmma mainloop: x (m, k) row-major, rows ldx elements
 // apart, and w (k, n) column-major, columns ldw apart (both 16-byte
 // aligned, ldx and ldw multiples of 16); fmt_a / fmt_b: S8 for both, or
@@ -253,22 +273,109 @@ extern "C" int repro_matmul_q(
       !sm90::tensor_map(&tw, w, k, n, ldw, wg::BN, 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto types) {
+  return by_types(fmt_a, fmt_b, [&](auto types) {
     using T = decltype(types);
     using A = typename T::Acc;
     const Dequant<A> e{out, bias, sx, sw, sx_stride, sw_stride, n, alpha,
                        act, out_f32, bias_f32};
     const SinkOf<Dequant<A>> sink{e, splits > 1 ? static_cast<A*>(ws)
                                                 : nullptr, m, n};
-    int rc = wg::launch_8bit<T>(bm, tx, tw, sink, k, splits, chunk, st);
+    int rc = wg::launch_8bit<wg::SPLIT_K, T>(bm, tx, tw, 0, 0, sink, k,
+                                             splits, chunk, 1, st);
     if (rc == 0 && splits > 1)
       rc = wg::reduce_splits(static_cast<const A*>(ws), e, m, n, splits, st);
     return rc;
+  });
+}
+
+// The batched ops' wgmma maps: A (m, k) an entry, row-major, rows lda
+// apart; B (k, n) an entry, column-major, columns ldb apart; entries
+// a_bstride / b_bstride elements apart, each a 3-D map with the entry as
+// its outer coordinate, so that the zero fill ends a ragged k inside an
+// entry (batch stride 0: one matrix for every entry, a 2-D map).  Bases
+// 16-byte aligned, lda, ldb and the batch strides multiples of 16.
+static bool batched_maps(CUtensorMap* ta, CUtensorMap* tb, const void* a,
+                         long long a_bstride, long long lda, const void* b,
+                         long long b_bstride, long long ldb, int nb, int m,
+                         int n, int k, int bm) {
+  auto map = [&](CUtensorMap* t, const void* p, long long bstride,
+                 long long ld, int rows, uint32_t box_rows) {
+    return bstride ? sm90::tensor_map_3d(t, p, k, rows, ld, nb, bstride,
+                                         box_rows, 1)
+                   : sm90::tensor_map(t, p, k, rows, ld, box_rows, 1);
   };
-  if (fmt_a == S8) return run(wg::S8{});
-  if (fmt_a == E4M3)
-    return fmt_b == E4M3 ? run(wg::F8<0, 0>{}) : run(wg::F8<0, 1>{});
-  return fmt_b == E4M3 ? run(wg::F8<1, 0>{}) : run(wg::F8<1, 1>{});
+  return map(ta, a, a_bstride, lda, m, bm) &&
+         map(tb, b, b_bstride, ldb, n, wg::BN);
+}
+
+// brgemm_q on the wgmma mainloop: aq (nb, m, k), each entry row-major, and
+// bq (nb, k, n), each entry column-major (maps: batched_maps); scales
+// sa (m,) and sb (n,), batch-shared, through their strides.  The plan
+// (quant_kernel.py::plan_q_stacked): bm, splits and chunk (slices of the
+// nb * ceil(k / 128) stacked slices a split); ws as repro_matmul_q's.
+extern "C" int repro_brgemm_q(
+    const void* a, long long a_bstride, long long lda, const void* b,
+    long long b_bstride, long long ldb, const float* sa, long long sa_stride,
+    const float* sb, long long sb_stride, const void* bias, void* out,
+    int nb, int m, int n, int k, float alpha, int act, int fmt_a, int fmt_b,
+    int out_f32, int bias_f32, int bm, int splits, int chunk, void* ws,
+    void* stream) {
+  if (act < 0 || act >= N_ACT || nb < 1 || k < 1 || splits < 1 ||
+      chunk < 1 || (splits > 1 && ws == nullptr) ||
+      (fmt_a == S8) != (fmt_b == S8))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!batched_maps(&ta, &tb, a, a_bstride, lda, b, b_bstride, ldb, nb, m,
+                    n, k, bm))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_types(fmt_a, fmt_b, [&](auto types) {
+    using T = decltype(types);
+    using A = typename T::Acc;
+    const Dequant<A> e{out, bias, sa, sb, sa_stride, sb_stride, n, alpha,
+                       act, out_f32, bias_f32};
+    A* const w = splits > 1 ? static_cast<A*>(ws) : nullptr;
+    int rc = wg::launch_8bit<wg::STACKED, T>(
+        bm, ta, tb, a_bstride != 0, b_bstride != 0,
+        SinkOf<Dequant<A>>{e, w, m, n}, k, splits, chunk, nb, st);
+    if (rc == 0 && splits > 1)
+      rc = wg::reduce_splits(static_cast<const A*>(w), e, m, n, splits, st);
+    return rc;
+  });
+}
+
+// batched_matmul_q on the wgmma mainloop: aq (nb, m, k) or a 2-D (m, k)
+// broadcast (a_bstride 0), each entry row-major; bq (nb, k, n) or a 2-D
+// (k, n) (b_bstride 0), each entry column-major; scales per entry through
+// their entry and element strides (entry stride 0: one shared row).  The
+// plan (quant_kernel.py::plan_q_batched): bm; one split, an entry a block
+// column of the grid.  out: (nb * m, n) rows.
+extern "C" int repro_batched_matmul_q(
+    const void* a, long long a_bstride, long long lda, const void* b,
+    long long b_bstride, long long ldb, const float* sa,
+    long long sa_bstride, long long sa_stride, const float* sb,
+    long long sb_bstride, long long sb_stride, const void* bias, void* out,
+    int nb, int m, int n, int k, float alpha, int act, int fmt_a, int fmt_b,
+    int out_f32, int bias_f32, int bm, void* stream) {
+  if (act < 0 || act >= N_ACT || nb < 1 || nb > 65535 || m < 1 || k < 1 ||
+      (long long)nb * m > 0x7fffffffLL || (fmt_a == S8) != (fmt_b == S8))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!batched_maps(&ta, &tb, a, a_bstride, lda, b, b_bstride, ldb, nb, m,
+                    n, k, bm))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_types(fmt_a, fmt_b, [&](auto types) {
+    using T = decltype(types);
+    using A = typename T::Acc;
+    const DequantEntry<A> e{out, bias, sa, sb, sa_bstride, sa_stride,
+                            sb_bstride, sb_stride, n, m, alpha, act,
+                            out_f32, bias_f32};
+    return wg::launch_8bit<wg::PER_ENTRY, T>(
+        bm, ta, tb, a_bstride != 0, b_bstride != 0,
+        SinkOf<DequantEntry<A>>{e, nullptr, m, n}, k, nb, cdiv(k, 128), nb,
+        st);
+  });
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

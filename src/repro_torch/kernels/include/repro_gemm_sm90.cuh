@@ -1,7 +1,7 @@
 // The wgmma + TMA GEMM mainloop and its epilogue, shared by matmul
 // (kernels/brgemm/csrc/matmul.cu), batched_matmul and brgemm_stacked
-// (kernels/brgemm_batched/csrc/batched.cu), matmul_q
-// (kernels/brgemm_quant/csrc/quant.cu) and conv2d
+// (kernels/brgemm_batched/csrc/batched.cu), matmul_q, brgemm_q and
+// batched_matmul_q (kernels/brgemm_quant/csrc/quant.cu) and conv2d
 // (kernels/conv2d/csrc/conv2d.cu): one building block.
 //
 // A block owns one output tile of one batch entry and walks a run of k
@@ -29,16 +29,16 @@
 // own walk's arithmetic:
 //   * SPLIT_K (matmul, matmul_q): z is the split of k, slices z * chunk ..;
 //     both operands are 2-D maps.
-//   * PER_ENTRY (batched_matmul, one split): z is the batch entry; an
-//     operand whose tensor map is 3-D (the entry its outer coordinate) is
-//     read at the block's entry, so TMA's zero fill stops at each entry's
-//     edge, and a 2-D map (a broadcast operand) ignores it; entry z writes
-//     rows z * m .. of the (entries * m, n) output.
-//   * STACKED (brgemm_stacked): the reduction is the flattened (entry,
-//     k-slice) axis of nb * ceil(k / 64) slices, and z its split, as
+//   * PER_ENTRY (batched_matmul, batched_matmul_q; one split): z is the
+//     batch entry; an operand whose tensor map is 3-D (the entry its outer
+//     coordinate) is read at the block's entry, so TMA's zero fill stops
+//     at each entry's edge, and a 2-D map (a broadcast operand) ignores
+//     it; entry z writes rows z * m .. of the (entries * m, n) output.
+//   * STACKED (brgemm_stacked, brgemm_q): the reduction is the flattened
+//     (entry, k-slice) axis of nb * ceil(k / BK) slices, and z its split, as
 //     matmul's k: the producer walks 3-D boxes entry by entry, each
 //     entry's ragged k ended by the zero fill, and every block's walk ends
-//     in one epilogue (or one fp32 partial), so C is written once.
+//     in one epilogue (or one fp32 / int32 partial), so C is written once.
 //   * IM2COL (conv2d): M is the flattened output pixels (n, p, q), the
 //     reduction the window's (tap, 64-channel block) slices, and z its
 //     split.  A slice's A is one im2col box of x: the tile's 128 output
@@ -47,8 +47,10 @@
 //     no im2col buffer, no padded copy); its B the 64 rows of the
 //     (r * s * c, K) weights at tap * c + the channel block.
 // The type parameter T says what the operands are (Bf16; S8 or F8 for
-// matmul_q) and SINK where the sums go: the bf16 GEMMs' Epilogue or the
-// quantized GEMMs' Dequant.  Split partials (SPLIT_K, STACKED, IM2COL) are
+// matmul_q, brgemm_q and batched_matmul_q, which walk SPLIT_K, STACKED
+// and PER_ENTRY) and SINK where the sums go: the bf16 GEMMs' Epilogue or
+// the quantized GEMMs' Dequant (DequantEntry: batched_matmul_q's scales
+// per entry).  Split partials (SPLIT_K, STACKED, IM2COL) are
 // added in split order by splitk_reduce_kernel, which then runs the
 // epilogue: no atomics, the same bits every run.
 #pragma once
@@ -88,9 +90,45 @@ __device__ __forceinline__ float epilogue(const Dequant<A>& e, A acc,
   return act_fn<ACT>(v);
 }
 
+// batched_matmul_q's dequant: Dequant's, with a scale vector per batch
+// entry, read through entry strides as quant.cu's first kernel reads them
+// (Scales): row scale (z, r) at sr[z * sr_bstride + r * sr_stride],
+// column scale (z, c) at sc[z * sc_bstride + c * sc_stride]; an entry
+// stride of 0 shares one vector with every entry.  Only the PER_ENTRY walk
+// (one split) takes it: its block's z is the entry, and it hands the
+// epilogue output row z * m + r, m the rows of an entry.  A type of its
+// own, so that matmul_q's and the split reduction's code stays as it was.
 template <typename A>
-__device__ __forceinline__ void finish(const Dequant<A>& e, A acc,
-                                       long long row, int col) {
+struct DequantEntry {
+  using Acc = A;
+  void* out;
+  const void* bias;
+  const float* sr;
+  const float* sc;
+  long long sr_bstride, sr_stride, sc_bstride, sc_stride, ld_out;
+  int m;                 // rows an entry
+  float alpha;
+  int act, out_f32, bias_f32;
+};
+
+template <int ACT, typename A>
+__device__ __forceinline__ float epilogue(const DequantEntry<A>& e, A acc,
+                                          long long row, int col) {
+  const int z = blockIdx.z, r = (int)(row - (long long)z * e.m);
+  float v;
+  if constexpr (std::is_same<A, int>::value) v = __int2float_rn(acc);
+  else v = acc;
+  const float s = __fmul_rn(e.sr[z * e.sr_bstride + r * e.sr_stride],
+                            e.sc[z * e.sc_bstride + col * e.sc_stride]);
+  v = __fmul_rn(__fmul_rn(v, s), e.alpha);
+  if (e.bias) v = __fadd_rn(v, load_as_float(e.bias, col, e.bias_f32));
+  return act_fn<ACT>(v);
+}
+
+// One output element of either dequant (D: Dequant or DequantEntry).
+template <template <typename> class D, typename A>
+__device__ __forceinline__ void finish(const D<A>& e, A acc, long long row,
+                                       int col) {
   float v = 0.0f;
   with_act(e.act, [&](auto act) {
     v = epilogue<decltype(act)::value>(e, acc, row, col);
@@ -559,6 +597,30 @@ gemm_8bit_kernel(const __grid_constant__ CUtensorMap tx,
   gemm_wgmma<BM, 0, 0, SPLIT_K, T, SINK>(tx, tw, sink, k, chunk, 0, 0, 1);
 }
 
+// The 8-bit stacked GEMM (brgemm_q): both operands K-major, the batch
+// folded into the reduction as STACKED, its slices split as SPLIT_K's k,
+// the sums to SINK (the dequant, or int32 / fp32 partials).
+template <int BM, typename T, typename SINK>
+__global__ void __launch_bounds__(Shape<BM, 1>::THREADS, 2)
+gemm_8bit_stacked_kernel(const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tw, SINK sink,
+                         int k, int chunk, int x3d, int w3d, int nb) {
+  gemm_wgmma<BM, 0, 0, STACKED, T, SINK>(tx, tw, sink, k, chunk, x3d, w3d,
+                                         nb);
+}
+
+// The 8-bit batched GEMM (batched_matmul_q): both operands K-major, entry
+// blockIdx.z walking its whole k (PER_ENTRY), the sums to SINK (the
+// per-entry dequant).
+template <int BM, typename T, typename SINK>
+__global__ void __launch_bounds__(Shape<BM, 1>::THREADS, 2)
+gemm_8bit_entry_kernel(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap tw, SINK sink,
+                       int k, int x3d, int w3d) {
+  gemm_wgmma<BM, 0, 0, PER_ENTRY, T, SINK>(
+      tx, tw, sink, k, cdiv(k, Shape<BM, 1>::BK), x3d, w3d, 1);
+}
+
 // The convolution (conv2d): X the im2col map of x, W the row-major
 // (r * s * c, K) weights, split k as SPLIT_K.
 template <int BM>
@@ -617,25 +679,43 @@ static int launch(int bm, int a_mn, int b_mn, const CUtensorMap& tx,
   return (int)cudaErrorInvalidValue;
 }
 
-// The 8-bit launch: operand types T, tile rows bm (64 or 128; 64 for
-// fp8), `splits` runs of `chunk` 128-element slices of k.
-template <typename T, typename SINK>
-static int launch_8bit(int bm, const CUtensorMap& tx, const CUtensorMap& tw,
-                       const SINK& sink, int k, int splits, int chunk,
-                       cudaStream_t stream) {
-  auto go = [&](auto kernel, auto shape) {
-    using S = decltype(shape);
+// The 8-bit launches (both operands K-major, operand types T), walk
+// WALK: SPLIT_K (matmul_q; z splits of k, `chunk` 128-element slices
+// each), STACKED (brgemm_q; z splits of the nb entries' flattened slices)
+// or PER_ENTRY (batched_matmul_q; z = nb entries, one split).  x3d / w3d:
+// the operand's map is 3-D (0: one matrix that every entry reads).  Tile
+// rows bm: 64 or 128 for s8, 64 for fp8.
+template <int BM, int WALK, typename T, typename SINK>
+static int launch_8bit_tile(const CUtensorMap& tx, const CUtensorMap& tw,
+                            int x3d, int w3d, const SINK& sink, int k, int z,
+                            int chunk, int nb, cudaStream_t stream) {
+  using S = Shape<BM, 1, T::WIDEN>;
+  dim3 grid(cdiv(sink.m, BM), cdiv(sink.n, BN), z);
+  auto go = [&](auto kernel, auto... walk) {
     static const int attr = with_smem(kernel, S::SMEM);
     if (attr != 0) return attr;
-    dim3 grid(cdiv(sink.m, S::WGS * 64), cdiv(sink.n, BN), splits);
-    kernel<<<grid, S::THREADS, S::SMEM, stream>>>(tx, tw, sink, k, chunk);
+    kernel<<<grid, S::THREADS, S::SMEM, stream>>>(tx, tw, sink, k, walk...);
     return (int)cudaGetLastError();
   };
+  if constexpr (WALK == SPLIT_K)
+    return go(gemm_8bit_kernel<BM, T, SINK>, chunk);
+  else if constexpr (WALK == STACKED)
+    return go(gemm_8bit_stacked_kernel<BM, T, SINK>, chunk, x3d, w3d, nb);
+  else
+    return go(gemm_8bit_entry_kernel<BM, T, SINK>, x3d, w3d);
+}
+
+template <int WALK, typename T, typename SINK>
+static int launch_8bit(int bm, const CUtensorMap& tx, const CUtensorMap& tw,
+                       int x3d, int w3d, const SINK& sink, int k, int z,
+                       int chunk, int nb, cudaStream_t stream) {
   if constexpr (!T::WIDEN)
     if (bm == 128)
-      return go(gemm_8bit_kernel<128, T, SINK>, Shape<128, 1>{});
+      return launch_8bit_tile<128, WALK, T>(tx, tw, x3d, w3d, sink, k, z,
+                                            chunk, nb, stream);
   if (bm == 64)
-    return go(gemm_8bit_kernel<64, T, SINK>, Shape<64, 1, T::WIDEN>{});
+    return launch_8bit_tile<64, WALK, T>(tx, tw, x3d, w3d, sink, k, z, chunk,
+                                         nb, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -550,16 +550,16 @@ inline bool tensor_map_im2col_bf16(CUtensorMap* map, const void* base,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A bf16 tensor of `rank` (2-5) dimensions, dims[0] contiguous, dimension
-// i > 0 strides[i - 1] elements apart (each a multiple of 8, 16-byte
-// aligned base), read in boxes of box[] elements (box[0] = 64: 128 bytes)
-// with the 128-byte swizzle and zero fill outside.  Returns false where
-// cuTensorMapEncodeTiled refuses it.  Not memoised: its callers launch few
-// times a step.
-inline bool tensor_map_bf16_nd(CUtensorMap* map, const void* base, int rank,
-                               const uint64_t* dims,
-                               const uint64_t* strides,
-                               const uint32_t* box) {
+// A tensor of `rank` (2-5) dimensions of `esize`-byte elements (2: bf16;
+// 1: int8 or fp8, read as bytes), dims[0] contiguous, dimension i > 0
+// strides[i - 1] elements apart (each a multiple of 16 bytes, 16-byte
+// aligned base), read in boxes of box[] elements (box[0] * esize = 128
+// bytes) with the 128-byte swizzle and zero fill outside.  Returns false
+// where cuTensorMapEncodeTiled refuses it.  Not memoised: its callers
+// launch few times a step.
+inline bool tensor_map_nd(CUtensorMap* map, const void* base, int rank,
+                          const uint64_t* dims, const uint64_t* strides,
+                          const uint32_t* box, int esize) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr || rank < 2 || rank > 5) return false;
   cuuint64_t d[5], st[4];
@@ -568,26 +568,44 @@ inline bool tensor_map_bf16_nd(CUtensorMap* map, const void* base, int rank,
     d[i] = dims[i];
     b[i] = box[i];
     elem[i] = 1;
-    if (i > 0) st[i - 1] = strides[i - 1] * 2;
+    if (i > 0) st[i - 1] = strides[i - 1] * esize;
   }
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-             const_cast<void*>(base), d, st, b, elem,
+  return enc(map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+             rank, const_cast<void*>(base), d, st, b, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// tensor_map_bf16's matrix, one per batch entry, entries `bstride`
-// elements apart: a 3-D map with the entry as its outer coordinate, boxes
-// of 64 x box_rows x 1.
+// tensor_map_nd of bf16 elements (box[0] = 64).
+inline bool tensor_map_bf16_nd(CUtensorMap* map, const void* base, int rank,
+                               const uint64_t* dims,
+                               const uint64_t* strides,
+                               const uint32_t* box) {
+  return tensor_map_nd(map, base, rank, dims, strides, box, 2);
+}
+
+// tensor_map's matrix, one per batch entry, entries `bstride` elements
+// apart: a 3-D map with the entry as its outer coordinate, boxes of 128
+// bytes x box_rows x 1, so that the zero fill ends a ragged row inside an
+// entry instead of reading the next entry's.
+inline bool tensor_map_3d(CUtensorMap* map, const void* base, uint64_t inner,
+                          uint64_t rows, uint64_t ld, uint64_t entries,
+                          uint64_t bstride, uint32_t box_rows, int esize) {
+  const uint64_t dims[3] = {inner, rows, entries};
+  const uint64_t strides[2] = {ld, bstride};
+  const uint32_t box[3] = {128u / esize, box_rows, 1};
+  return tensor_map_nd(map, base, 3, dims, strides, box, esize);
+}
+
+// tensor_map_3d of bf16 elements: boxes of 64 x box_rows x 1.
 inline bool tensor_map_bf16_3d(CUtensorMap* map, const void* base,
                                uint64_t inner, uint64_t rows, uint64_t ld,
                                uint64_t entries, uint64_t bstride,
                                uint32_t box_rows) {
-  const uint64_t dims[3] = {inner, rows, entries};
-  const uint64_t strides[2] = {ld, bstride};
-  const uint32_t box[3] = {64, box_rows, 1};
-  return tensor_map_bf16_nd(map, base, 3, dims, strides, box);
+  return tensor_map_3d(map, base, inner, rows, ld, entries, bstride,
+                       box_rows, 2);
 }
 
 }  // namespace sm90

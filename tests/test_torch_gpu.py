@@ -33,7 +33,9 @@ from repro_torch.kernels.brgemm import (batched_matmul, batched_matmul_cuda,
 from repro_torch.kernels.brgemm.kernel import (plan_batched_call, plan_call,
                                                plan_stacked_call,
                                                reset_matmul_counts)
-from repro_torch.kernels.brgemm.quant_kernel import (plan_q_call,
+from repro_torch.kernels.brgemm.quant_kernel import (plan_q_batched_call,
+                                                     plan_q_call,
+                                                     plan_q_stacked_call,
                                                      reset_quant_counts)
 from repro_torch.kernels.conv2d import (conv2d, conv2d_cuda, conv2d_ref,
                                         dual_operands)
@@ -916,6 +918,105 @@ def test_batched_matmul_q_kernel(gen, fmt, bcast, out_dtype):
         aq, bq, sa, sb, out_dtype=out_dtype), **_qtol(fmt, out_dtype))
 
 
+# chip_smoke.py's quant cases for brgemm_q / batched_matmul_q: the paper's
+# BRGEMM_CASES on the wgmma mainloop, rows of 100 bytes on the wmma tiles
+Q_BATCHED_CASES = [(*c, "wgmma") for c in chip_smoke.BRGEMM_CASES] + [
+    (5, 70, 100, 130, "wmma")]
+
+
+def _f64_err(got, exact, sr, sc):
+    """max |got - exact * (sr x sc)| over the largest |output|, float64."""
+    truth = exact * (sr.double()[..., :, None] * sc.double()[..., None, :])
+    return ((got.double() - truth).abs().max() / truth.abs().max()).item()
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("nb,m,k,n,loop", Q_BATCHED_CASES,
+                         ids=[f"B{c[0]} m{c[1]} k{c[2]} n{c[3]}"
+                              for c in Q_BATCHED_CASES])
+def test_brgemm_q_wgmma_cases(gen, fmt, nb, m, k, n, loop):
+    """brgemm_q at the smoke's cases, B K-major as the routing quantizes
+    it: on the mainloop its plan states (split or not, counted), against
+    the plain version with and without bias, activation and alpha; fp8
+    with fp32 out within 2e-6 of the largest output of float64 (fp32 sums
+    of up to 16,384 exact products)."""
+    a = torch.randn(nb, m, k, device="cuda", generator=gen)
+    b = torch.randn(nb, k, n, device="cuda", generator=gen) * (nb * k) ** -.5
+    bias = torch.randn(n, device="cuda", generator=gen)
+    aq, sa = quant.quantize(a, fmt, axis=(0, 2))
+    bq, sb = quant.quantize(b, fmt, axis=(0, 1), k_major=True)
+    p = plan_q_stacked_call(aq, bq)
+    assert p.mainloop == loop
+    reset_quant_counts()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for kw in (dict(), dict(bias=bias, activation="gelu", alpha=0.5)):
+            got = brgemm_q_cuda(aq, bq, sa, sb, out_dtype=out_dtype, **kw)
+            torch.testing.assert_close(
+                got, brgemm_q_ref(aq, bq, sa, sb, out_dtype=out_dtype, **kw),
+                **_qtol(fmt, out_dtype, kw.get("activation", "none")))
+            if fmt != "int8" and out_dtype == torch.float32 and not kw:
+                exact = torch.einsum("imk,ikn->mn", aq.double(), bq.double())
+                assert _f64_err(got, exact, sa, sb) <= 2e-6
+    assert brgemm_q_cuda.mainloops == {"wgmma": 4 * (loop == "wgmma"),
+                                       "wmma": 4 * (loop == "wmma")}
+    assert brgemm_q_cuda.split_launches == 4 * (p.splits > 1)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("nb,m,k,n,loop", Q_BATCHED_CASES,
+                         ids=[f"B{c[0]} m{c[1]} k{c[2]} n{c[3]}"
+                              for c in Q_BATCHED_CASES])
+def test_batched_matmul_q_wgmma_cases(gen, fmt, nb, m, k, n, loop):
+    """batched_matmul_q at the smoke's cases with per-entry scales, A or B
+    a 2-D broadcast operand (its scale row shared), and with bias,
+    activation and alpha: on the mainloop its plan states, against the
+    plain version; fp8 with fp32 out within 2e-6 of float64."""
+    a = torch.randn(nb, m, k, device="cuda", generator=gen)
+    b = torch.randn(nb, k, n, device="cuda", generator=gen) * k ** -.5
+    bias = torch.randn(n, device="cuda", generator=gen)
+    aq, sa = quant.quantize(a, fmt, axis=(-1,))
+    bq, sb = quant.quantize(b, fmt, axis=(-2,), k_major=True)
+    cases = [((aq, bq, sa, sb), {}), ((aq[0], bq, sa[0], sb), {}),
+             ((aq, bq[0], sa, sb[0]), {}),
+             ((aq, bq, sa, sb), dict(bias=bias, activation="silu",
+                                     alpha=2.0))]
+    reset_quant_counts()
+    for args, kw in cases:
+        assert plan_q_batched_call(*args[:2]).mainloop == loop
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = batched_matmul_q_cuda(*args, out_dtype=out_dtype, **kw)
+            assert got.shape == (nb, m, n)
+            torch.testing.assert_close(got, batched_matmul_q_ref(
+                *args, out_dtype=out_dtype, **kw),
+                **_qtol(fmt, out_dtype, kw.get("activation", "none")))
+            if fmt != "int8" and out_dtype == torch.float32 and not kw:
+                exact = args[0].double() @ args[1].double()
+                assert _f64_err(got, exact, args[2], args[3]) <= 2e-6
+    assert batched_matmul_q_cuda.mainloops == {
+        "wgmma": 8 * (loop == "wgmma"), "wmma": 8 * (loop == "wmma")}
+    assert batched_matmul_q_cuda.split_launches == 0
+
+
+def test_quant_batched_n_major_b_runs_wmma(gen):
+    """An N-major 8-bit B handed straight to the wrappers: 8-bit wgmma has
+    no transpose, so the plan takes the wmma tiles, and the result holds."""
+    a = torch.randn(4, 96, 128, device="cuda", generator=gen)
+    b = torch.randn(4, 128, 80, device="cuda", generator=gen) / 16
+    aq, sa = quant.quantize(a, "int8", axis=(0, 2))
+    bq, sb = quant.quantize(b, "int8", axis=(0, 1))
+    assert bq.stride(-1) == 1
+    reset_quant_counts()
+    torch.testing.assert_close(brgemm_q_cuda(aq, bq, sa, sb),
+                               brgemm_q_ref(aq, bq, sa, sb), atol=0, rtol=0)
+    aq, sa = quant.quantize(a, "int8", axis=(-1,))
+    bq, sb = quant.quantize(b, "int8", axis=(-2,))
+    torch.testing.assert_close(batched_matmul_q_cuda(aq, bq, sa, sb),
+                               batched_matmul_q_ref(aq, bq, sa, sb),
+                               atol=0, rtol=0)
+    assert brgemm_q_cuda.mainloops["wmma"] == 1
+    assert batched_matmul_q_cuda.mainloops["wmma"] == 1
+
+
 @pytest.mark.parametrize("spec", ["int8", "fp8"])
 def test_quantized_entry_points_launch_once(gen, spec):
     x = torch.randn(3, 5, 64, device="cuda", generator=gen)
@@ -923,15 +1024,17 @@ def test_quantized_entry_points_launch_once(gen, spec):
     a = torch.randn(4, 16, 64, device="cuda", generator=gen)
     b = torch.randn(4, 64, 32, device="cuda", generator=gen)
     counters = (matmul_q_cuda, brgemm_q_cuda, batched_matmul_q_cuda)
-    before = [c.launches for c in counters]
+    reset_quant_counts()
     with torch.no_grad():
         got = [matmul(x, w, quant=spec), brgemm(a, b, quant=spec),
                batched_matmul(a, b, quant=spec)]
-        assert [c.launches - n for c, n in zip(counters, before)] == [1] * 3
+        assert [c.launches for c in counters] == [1] * 3
         with dispatch.use(backend="torch"):
             want = [matmul(x, w, quant=spec), brgemm(a, b, quant=spec),
                     batched_matmul(a, b, quant=spec)]
-    assert [c.launches - n for c, n in zip(counters, before)] == [1] * 3
+    assert [c.launches for c in counters] == [1] * 3
+    # every B quantized K-major by the routing: all three on wgmma
+    assert [c.mainloops for c in counters] == [{"wgmma": 1, "wmma": 0}] * 3
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, **_qtol(spec, torch.float32))
 

@@ -54,7 +54,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                device's busy and idle share of decode steps under
                torch.profiler, and the host's time by function under
                cProfile.
-  5. train   — full-width smollm-135m (random weights from a seed), B = 8
+  5. continuous — the same weights through ``ContinuousEngine.serve``:
+               24 requests of ragged prompts (32-512 tokens) and lengths
+               (16-64 greedy tokens), 8 slots of 576 positions, in six
+               pools: slotted; paged (pages of 16); paged with 96 pages, so
+               that it preempts; paged with 128-token prefill chunks; int8
+               pages; paged under ``decode_quant="int8"`` (bf16 only).
+               Exact launch counts from the engine's own metrics (211
+               matmul a one-shot prefill, chunk or decode step, 30 flash a
+               one-shot prefill; 211 matmul_q a decode step under
+               decode_quant), calls by mainloop, every logit finite, every
+               pool empty after its run.  In fp32 the paged pool's tokens
+               equal the slotted pool's, and the slotted pool's equal the
+               plain path's (which launches nothing); the other pools'
+               token match is printed, as is every bf16 pool's.  After
+               each dtype's pools, matmul against matmul_ref at every GEMM
+               shape the runs gave it (each prompt's length, each chunk,
+               the head at one row, the decode step), and the flash
+               forward against mha_ref at every one-shot prefill's
+               (1, 9, T, 64), in the parity bands.  For the
+               bf16 slotted and paged pools: tokens/s over ``serve``, the
+               decode step's host ms, the device's busy and idle share of
+               decode steps under torch.profiler, the host's time by
+               function under cProfile, TTFT p50 / p99 and the pool's
+               bytes.
+  6. train   — full-width smollm-135m (random weights from a seed), B = 8
                sequences of 512 tokens of the ported synthetic stream:
                4 steps of ``make_train_step`` on the kernels (counting
                launches), then the same 4 steps from the same state and
@@ -63,16 +87,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                trajectory; in bf16, then in fp32 with tighter bands.  Step
                time, tokens/s, peak memory, and the device's busy and idle
                share of a step under torch.profiler.
-  6. resnet  — full-width ResNet-50 (random weights from a seed), 32 images
+  7. resnet  — full-width ResNet-50 (random weights from a seed), 32 images
                of 224 x 224: one forward and one gradient step on the
                kernels (exact launch counts), then on the plain path;
                logits, loss and every parameter's gradient compared; bf16,
                then fp32.  Forward ms, images/s, step ms, peak memory, and
                the device's busy and idle share under torch.profiler.
-  7. brgemm  — the paper's ``brgemm`` (forward and backward) and
+  8. brgemm  — the paper's ``brgemm`` (forward and backward) and
                ``batched_matmul`` entry points at the paper's cases, on the
                kernels (exact launch counts) and on the plain path.
-  8. quant   — the serving run of phase 4 (bf16) in three quant tiers:
+  9. quant   — the serving run of phase 4 (bf16) in three quant tiers:
                ``decode_quant="int8"`` on full-precision weights, weights
                calibrated to int8, weights calibrated to fp8 (e4m3); on the
                kernels (exact launch counts) and on the plain path; prefill
@@ -81,10 +105,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                tier in fp32, where the greedy tokens must match; then
                ``brgemm(quant=)`` and ``batched_matmul(quant=)`` at the
                paper's cases.
-  9. times   — each kernel's device time (a CUDA graph of its calls; the
+  10. times  — each kernel's device time (a CUDA graph of its calls; the
                profiler where a call cannot be captured) and back-to-back wall
                time (CUDA events) at each main-path shape, serving's,
-               training's, ResNet-50's, brgemm's and the quantized
+               continuous serving's (every shape its bf16 runs gave a
+               kernel), training's, ResNet-50's, brgemm's and the quantized
                serving's, beside its bound (at the input type's peak), its
                plain version and one library call.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
@@ -93,6 +118,7 @@ It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import cProfile
 import dataclasses
@@ -112,6 +138,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 SEED = 0
 BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 8, 512, 64, 1024
+# Continuous serving: 24 requests, prompt lengths and max_tokens drawn from
+# one seeded generator, 8 slots of 576 positions (the longest prompt and
+# the longest generation), pages of 16.
+CONT_REQUESTS, CONT_SLOTS, CONT_MAX_LEN, CONT_PAGE = 24, 8, 576, 16
+CONT_POOLS = (   # name, PoolConfig kwargs, ContinuousEngine kwargs
+    ("slotted", {}, {}),
+    ("paged", {"page_size": CONT_PAGE}, {}),
+    ("preempting", {"page_size": CONT_PAGE, "n_pages": 96}, {}),
+    ("chunked", {"page_size": CONT_PAGE, "prefill_chunk": 128}, {}),
+    ("int8_pages", {"page_size": CONT_PAGE, "kv_quant": "int8"}, {}),
+    ("decode_int8", {"page_size": CONT_PAGE}, {"decode_quant": "int8"}),
+)
 # T = 512, not SmolLM's 2048: the plain path on the card keeps a T^2 fp32
 # score tensor per layer for autograd, which at 2048 and 30 layers would
 # press on 80 GB.
@@ -360,26 +398,59 @@ class Gemm:
         return torch.float32 if self.kind in ("head", "pre") else None
 
 
+def forward_gemms(cfg, prefix, m, per_step=0):
+    """The body GEMMs of one serving forward over m rows (the head apart),
+    with their launches per forward and per train step (``per_step``
+    layers' worth)."""
+    d, dq, dkv, f = cfg.d_model, cfg.n_heads * cfg.dh, \
+        cfg.n_kv_heads * cfg.dh, cfg.d_ff
+    L, step = cfg.n_layers, per_step
+    return [Gemm(f"{prefix}.q", m, d, dq, per_forward=L, per_step=step),
+            Gemm(f"{prefix}.kv", m, d, dkv, per_forward=2 * L,
+                 per_step=2 * step),
+            Gemm(f"{prefix}.o", m, dq, d, per_forward=L, per_step=step),
+            Gemm(f"{prefix}.gate_silu", m, d, f, "silu", per_forward=L,
+                 per_step=step),
+            Gemm(f"{prefix}.up", m, d, f, per_forward=L, per_step=step),
+            Gemm(f"{prefix}.down", m, f, d, per_forward=L, per_step=step)]
+
+
 def main_path_gemms(cfg):
     """Serving's GEMMs; the prefill ones (m = 8 x 512 tokens) are also the
     train step's forward GEMMs."""
-    d, dq, dkv, f = cfg.d_model, cfg.n_heads * cfg.dh, \
-        cfg.n_kv_heads * cfg.dh, cfg.d_ff
-    L, out = cfg.n_layers, []
-    for phase, m in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
-        step = L if phase == "prefill" else 0
-        out += [Gemm(f"{phase}.q", m, d, dq, per_forward=L, per_step=step),
-                Gemm(f"{phase}.kv", m, d, dkv, per_forward=2 * L,
-                     per_step=2 * step),
-                Gemm(f"{phase}.o", m, dq, d, per_forward=L, per_step=step),
-                Gemm(f"{phase}.gate_silu", m, d, f, "silu", per_forward=L,
-                     per_step=step),
-                Gemm(f"{phase}.up", m, d, f, per_forward=L, per_step=step),
-                Gemm(f"{phase}.down", m, f, d, per_forward=L,
-                     per_step=step)]
+    out = (forward_gemms(cfg, "prefill", BATCH * PROMPT, cfg.n_layers)
+           + forward_gemms(cfg, "decode", BATCH))
     # The head sees the last position only, in prefill and in decode.
-    out.append(Gemm("lm_head", BATCH, d, cfg.vocab, kind="head",
+    out.append(Gemm("lm_head", BATCH, cfg.d_model, cfg.vocab, kind="head",
                     per_forward=1))
+    return out
+
+
+def role(g):
+    """A GEMM's place in the forward: q, kv, o, gate_silu, up, down or
+    lm_head."""
+    return g.name.rsplit(".", 1)[-1]
+
+
+def continuous_gemms(cfg, forwards):
+    """The GEMMs of the continuous phase's runs, from its forwards
+    ({(kind, rows): count}: one-shot prefills and chunks at their token
+    counts, decode steps at the slot count): each forward's body GEMMs at
+    its rows, and its head, at one row in prefill and chunks (the last
+    token's logits) and at every slot in decode.  Returns
+    {(role, m): (Gemm, launches)}; a decode_q forward's GEMMs run on
+    matmul_q and are left out."""
+    out = {}
+    for (kind, m), n in sorted(forwards.items()):
+        if kind == "decode_q":
+            continue
+        head_m = m if kind == "decode" else 1
+        for g in forward_gemms(cfg, "continuous", m) + [
+                Gemm("continuous.lm_head", head_m, cfg.d_model, cfg.vocab,
+                     kind="head", per_forward=1)]:
+            key = (role(g), g.m)
+            calls = out[key][1] if key in out else 0
+            out[key] = (g, calls + n * g.per_forward)
     return out
 
 
@@ -1393,7 +1464,345 @@ def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
 
 
 # --------------------------------------------------------------------------
-# 5. full-width training
+# 5. continuous batching
+# --------------------------------------------------------------------------
+
+def continuous_traffic(cfg):
+    """CONT_REQUESTS greedy requests: prompt lengths in [32, 512] and
+    max_tokens in [16, 64], then each prompt's tokens, from one seeded
+    generator."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED + 2)
+    lens = rng.integers(32, 513, CONT_REQUESTS)
+    max_tokens = rng.integers(16, 65, CONT_REQUESTS)
+    return [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                    max_tokens=int(m), stop_tokens=())
+            for n, m in zip(lens, max_tokens)]
+
+
+@contextlib.contextmanager
+def watched_forwards():
+    """Inside, every logit the engine's model entry points return is
+    checked for finiteness on the card, with no sync, and every call is
+    counted by its kind and rows (one-shot prefills and chunks by their
+    tokens, decode steps by their slots).  Yields (a one-element list
+    holding the running all-finite flag, a device bool; the counter)."""
+    from repro_torch.models import api
+    kinds = {"prefill": "prefill", "prefill_chunk": "chunk",
+             "decode_step_slots": "decode", "decode_step_paged": "decode"}
+    saved = {n: getattr(api, n) for n in kinds}
+    flag = [torch.ones((), dtype=torch.bool, device="cuda")]
+    forwards = collections.Counter()
+
+    def watch(name, fn):
+        def run(params, tokens, *args, **kw):
+            out = fn(params, tokens, *args, **kw)
+            flag[0] = flag[0] & torch.isfinite(out[0]).all()
+            rows = (tokens.shape[0] if kinds[name] == "decode"
+                    else tokens["tokens"].shape[1])
+            forwards[kinds[name], rows] += 1
+            return out
+        return run
+
+    for n, fn in saved.items():
+        setattr(api, n, watch(n, fn))
+    try:
+        yield flag, forwards
+    finally:
+        for n, fn in saved.items():
+            setattr(api, n, fn)
+
+
+def expected_continuous_launches(cfg, engine, requests):
+    """Launches of one ``serve``, from the code and the engine's metrics:
+    each one-shot prefill, chunk and decode step is one forward of
+    7 * n_layers + 1 GEMMs (the head at one row, ``logit_pos``), and a
+    one-shot prefill adds a flash forward a layer (chunks and decode
+    attend with mha_ref); under decode_quant every decode GEMM is a
+    matmul_q.  The one-shot prefills are the engine's prefills less the
+    chunked ones, each prompt longer than the chunk staged once (so no
+    preemption where chunks run)."""
+    m, pool = engine.metrics, engine.pool_cfg
+    staged = (sum(len(r.prompt) > pool.prefill_chunk for r in requests)
+              if pool.prefill_chunk else 0)
+    if staged and m.preemptions:
+        raise AssertionError("a chunked pool preempted: its one-shot "
+                             "prefills are not known")
+    one_shot = m.prefills - staged
+    fwd = 7 * cfg.n_layers + 1
+    decode = m.decode_steps * fwd
+    quantized = engine.decode_quant is not None
+    return {"matmul": fwd * (one_shot + m.prefill_chunks)
+            + (0 if quantized else decode),
+            "matmul_q": decode if quantized else 0,
+            "flash_attention": cfg.n_layers * one_shot}
+
+
+def pool_state(engine):
+    """The pool after a run: it must be empty."""
+    pool = engine.pool
+    rec = {"n_free": pool.n_free, "n_slots": pool.n_slots,
+           "alloc_count": pool.alloc_count, "free_count": pool.free_count}
+    empty = pool.n_free == pool.n_slots and pool.alloc_count == \
+        pool.free_count
+    if engine.paged:
+        rec.update(n_free_pages=pool.n_free_pages, n_pages=pool.n_pages,
+                   page_alloc_count=pool.page_alloc_count,
+                   page_free_count=pool.page_free_count)
+        empty &= (pool.page_alloc_count == pool.page_free_count
+                  and pool.n_free_pages == pool.n_pages)
+    return rec, empty
+
+
+def continuous_run(cfg, params, requests, pool_kw, engine_kw, counters):
+    """One ``ContinuousEngine.serve`` of ``requests`` on a new engine, the
+    counters zeroed just before and read just after.  Returns (tokens by
+    request, engine, launches, seconds, decode-step host seconds, all
+    logits finite, forwards by (kind, rows): decode steps under a
+    decode_quant tier are kind ``decode_q``)."""
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.kernels.brgemm.quant_kernel import reset_quant_counts
+    from repro_torch.kernels.flash_attention import reset_flash_counts
+    from repro_torch.serve import ContinuousEngine, PoolConfig
+    engine = ContinuousEngine(
+        cfg, params, PoolConfig(n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                                **pool_kw), **engine_kw)
+    decode_s = []
+    decode = engine._decode
+
+    def timed_decode():           # ends in the sampled tokens' copy: a sync
+        t0 = time.perf_counter()
+        out = decode()
+        decode_s.append(time.perf_counter() - t0)
+        return out
+
+    engine._decode = timed_decode
+    torch.cuda.synchronize()
+    reset_matmul_counts()
+    reset_flash_counts()
+    reset_quant_counts()
+    with watched_forwards() as (flag, forwards):
+        t0 = time.perf_counter()
+        out = engine.serve(requests)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    engine._decode = decode
+    if engine.decode_quant is not None:
+        forwards = collections.Counter({
+            ("decode_q" if kind == "decode" else kind, m): n
+            for (kind, m), n in forwards.items()})
+    return out, engine, launches, seconds, decode_s, bool(flag[0]), forwards
+
+
+def token_match(out, ref):
+    """Per request, whether its tokens equal the reference's; and the
+    share of all tokens equal at their position."""
+    same = [out[r] == ref[r] for r in sorted(ref)]
+    pairs = [(a, b) for r in sorted(ref) for a, b in zip(out[r], ref[r])]
+    return same, sum(a == b for a, b in pairs) / len(pairs)
+
+
+def continuous_times(cfg, params, requests, pool_kw):
+    """Device busy share and host time by function of the decode steps of
+    a pool in its steady state: a new engine serves the traffic until all
+    its slots decode, then four decode steps run under torch.profiler and
+    four under cProfile (each the engine's own decode of every slot, at
+    the slots' positions then), and the run drains."""
+    from repro_torch.serve import ContinuousEngine, PoolConfig
+    engine = ContinuousEngine(
+        cfg, params, PoolConfig(n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                                **pool_kw))
+    for r in requests:
+        engine.submit(r)
+    for _ in range(8):
+        engine.step()
+    if engine.scheduler.n_running != CONT_SLOTS:
+        raise AssertionError(f"{engine.scheduler.n_running} slots decode "
+                             f"after 8 steps, not {CONT_SLOTS}")
+    n = 4
+
+    def steps():
+        with torch.inference_mode():
+            for _ in range(n):
+                engine._decode()
+
+    by_name = device_ms_by_kernel(steps, n)
+    host_ms, host_fns = host_split(steps, n)
+    while engine.has_work():
+        engine.step()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return sum(by_name.values()), host_ms, host_fns, {
+        k[:80]: v for k, v in top}
+
+
+def phase_continuous(base_cfg, card):
+    import numpy as np
+    from repro_torch.core import dispatch
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_q_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    counters = {"matmul": matmul_cuda, "matmul_q": matmul_q_cuda,
+                "flash_attention": flash_attention_cuda}
+    main_launches = dict.fromkeys(counters, 0)
+    worst = {"matmul": 0.0, "flash_attention": 0.0}
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg, params, _ = make_engine(base_cfg, dtype)
+        requests = continuous_traffic(cfg)
+        outs, forwards = {}, collections.Counter()
+        pools = [p for p in CONT_POOLS
+                 if dtype == torch.bfloat16 or p[0] != "decode_int8"]
+        for name, pool_kw, engine_kw in pools:
+            out, engine, launches, seconds, decode_s, finite, fwd = \
+                continuous_run(cfg, params, requests, pool_kw, engine_kw,
+                               counters)
+            outs[name] = out
+            forwards += fwd
+            m = engine.metrics
+            expect = expected_continuous_launches(cfg, engine, requests)
+            by_mainloop = {}
+            if launches == expect:
+                by_mainloop = {
+                    **mainloop_check(dtype, launches["matmul"]),
+                    **flash_mainloop_check(dtype,
+                                           launches["flash_attention"])}
+                if launches["matmul_q"]:
+                    by_mainloop.update(counted_mainloops(
+                        matmul_q_cuda, "matmul_q", dtype,
+                        launches["matmul_q"], "wgmma"))
+            else:
+                failed.append(f"{name} {cfg.dtype}: launches {launches} "
+                              f"!= {expect}")
+            pool, empty = pool_state(engine)
+            ttft = sorted(s.ttft_s for s in engine.scheduler.finished.values())
+            rec = {"phase": "continuous", "pool": name, "dtype": cfg.dtype,
+                   **pool_kw, **engine_kw, "requests": len(requests),
+                   "launches": launches, "expected_launches": expect,
+                   **by_mainloop, "steps": m.steps,
+                   "decode_steps": m.decode_steps, "prefills": m.prefills,
+                   "prefill_chunks": m.prefill_chunks,
+                   "preemptions": m.preemptions,
+                   "tokens_generated": m.tokens_generated,
+                   "occupancy": m.occupancy(), "serve_s": seconds,
+                   "tokens_per_s": m.tokens_generated / seconds,
+                   "decode_step_host_ms_median": median(decode_s) * 1e3,
+                   "ttft_p50_s": m.ttft_hist.quantile(0.5),
+                   "ttft_p99_s": m.ttft_hist.quantile(0.99),
+                   "ttft_exact_p50_s": float(np.percentile(ttft, 50)),
+                   "ttft_exact_p99_s": float(np.percentile(ttft, 99)),
+                   "kv_bytes": engine.pool.kv_bytes(), "pool_state": pool,
+                   "logits_finite": finite}
+            if name != "slotted":
+                rec["requests_matching_slotted"], \
+                    rec["token_match_vs_slotted"] = token_match(
+                        out, outs["slotted"])
+            if name == "preempting" and not m.preemptions:
+                failed.append(f"{cfg.dtype}: the 96-page pool never "
+                              "preempted")
+            if not empty:
+                failed.append(f"{name} {cfg.dtype}: pool not empty {pool}")
+            if not finite:
+                failed.append(f"{name} {cfg.dtype}: logits not finite")
+            if sorted(out) != list(range(len(requests))) or any(
+                    len(out[i]) != r.max_tokens
+                    for i, r in enumerate(requests)):
+                failed.append(f"{name} {cfg.dtype}: wrong token counts")
+            if dtype == torch.float32 and name == "paged" and \
+                    out != outs["slotted"]:
+                failed.append("fp32 paged tokens differ from slotted")
+            if dtype == torch.float32 and name == "slotted":
+                with dispatch.use(backend="torch"):
+                    plain, _, plain_launches, _, _, _, _ = continuous_run(
+                        cfg, params, requests, pool_kw, engine_kw,
+                        counters)
+                rec["plain_launches"] = plain_launches
+                rec["requests_matching_plain"], rec["token_match_vs_plain"] \
+                    = token_match(out, plain)
+                if any(plain_launches.values()):
+                    failed.append(f"the plain run launched {plain_launches}")
+                if out != plain:
+                    failed.append("fp32 slotted tokens differ from the "
+                                  "plain path's")
+            if dtype == torch.bfloat16:
+                for k in counters:
+                    main_launches[k] += launches[k]
+                if name in ("slotted", "paged"):
+                    busy, host_ms, host_fns, by_kernel = continuous_times(
+                        cfg, params, requests, pool_kw)
+                    step_ms = rec["decode_step_host_ms_median"]
+                    rec.update(decode_device_busy_ms=busy,
+                               decode_device_idle_share=1 - busy / step_ms,
+                               decode_device_ms_by_kernel=by_kernel,
+                               decode_host_cprofile_step_ms=host_ms,
+                               decode_host_cprofile_cumulative_ms=host_fns,
+                               card=card)
+            emit(rec)
+            del engine
+        del params
+        torch.cuda.empty_cache()
+        for kernel, err in continuous_parity(cfg, forwards, failed).items():
+            worst[kernel] = max(worst[kernel], err)
+        if dtype == torch.bfloat16:
+            main_forwards = forwards
+    if failed:
+        raise AssertionError(f"continuous serving: {failed}")
+    return main_launches, main_forwards, worst
+
+
+def continuous_parity(cfg, forwards, failed):
+    """matmul_cuda against matmul_ref at every GEMM shape the runs'
+    ``forwards`` gave it, and flash_attention_cuda against mha_ref at every
+    one-shot prefill's (1, Hq, T, dh), in the runs' dtype and the parity
+    phase's bands; one record per role with the worst errors over its
+    rows.  Returns the worst absolute error by kernel; appends each
+    out-of-band role to ``failed``."""
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref)
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst, by_role = {"matmul": 0.0, "flash_attention": 0.0}, {}
+    done = set()
+    for (name, m), (g, _) in continuous_gemms(cfg, forwards).items():
+        key = (m, g.k, g.n, g.activation, g.kind)
+        if key in done:                   # o is q's shape
+            continue
+        done.add(key)
+        x, w = gemm_inputs(g, dtype, gen)
+        tol = TOL[("matmul", torch.float32 if g.out_dtype else dtype)]
+        ok, abs_err, rel_err = close(
+            matmul_cuda(x, w, activation=g.activation,
+                        out_dtype=g.out_dtype),
+            matmul_ref(x, w, activation=g.activation, out_dtype=g.out_dtype),
+            *tol)
+        by_role.setdefault(("matmul", name, tol), []).append(
+            (m, ok, abs_err, rel_err))
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    tol = TOL[("flash_attention", dtype)]
+    for t in sorted(t for kind, t in forwards if kind == "prefill"):
+        q, k, v, _ = qkv_views(1, h, hkv, t, dh, dtype, gen)
+        ok, abs_err, rel_err = close(flash_attention_cuda(q, k, v),
+                                     mha_ref(q, k, v), *tol)
+        by_role.setdefault(("flash_attention", "prefill", tol), []).append(
+            (t, ok, abs_err, rel_err))
+    for (kernel, name, tol), cases in by_role.items():
+        ok = all(c[1] for c in cases)
+        abs_err = max(c[2] for c in cases)
+        worst[kernel] = max(worst[kernel], abs_err)
+        emit({"phase": "continuous_parity", "kernel": kernel,
+              "case": f"continuous.{name}", "dtype": cfg.dtype,
+              "rows": [c[0] for c in cases], "max_abs_err": abs_err,
+              "max_rel_err": max(c[3] for c in cases), "atol": tol[0],
+              "rtol": tol[1], "ok": ok})
+        if not ok:
+            failed.append(f"{kernel}:continuous.{name}:{cfg.dtype} at "
+                          f"{[c[0] for c in cases if not c[1]]}")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# 6. full-width training
 # --------------------------------------------------------------------------
 
 def expected_step_launches(cfg):
@@ -1559,7 +1968,7 @@ def phase_train(base_cfg):
 
 
 # --------------------------------------------------------------------------
-# 6. full-width ResNet-50
+# 7. full-width ResNet-50
 # --------------------------------------------------------------------------
 
 def rel_l2(got, want):
@@ -1856,7 +2265,7 @@ def phase_resnet():
 
 
 # --------------------------------------------------------------------------
-# 7. the paper's brgemm and batched_matmul entry points
+# 8. the paper's brgemm and batched_matmul entry points
 # --------------------------------------------------------------------------
 
 def phase_brgemm():
@@ -1930,7 +2339,7 @@ def phase_brgemm():
 
 
 # --------------------------------------------------------------------------
-# 8. quantized serving, and the quantized brgemm / batched_matmul
+# 9. quantized serving, and the quantized brgemm / batched_matmul
 # --------------------------------------------------------------------------
 
 def expected_quant_launches(cfg, calibrated):
@@ -2166,7 +2575,7 @@ def quant_entry_points():
 
 
 # --------------------------------------------------------------------------
-# 9. kernel times
+# 10. kernel times
 # --------------------------------------------------------------------------
 
 class NoDeviceTime(RuntimeError):
@@ -2314,9 +2723,49 @@ def conv_plan_fields(x, w, stride=1, padding=0):
     return {"mainloop": p.mainloop, "splits": p.splits}
 
 
-def phase_times(cfg, card):
-    import torch.nn.functional as F
+def gemm_times(g, gen):
+    """(ms, wall ms, plain ms, library ms, flops, bytes, plan fields) of
+    one bf16 GEMM at ``g``'s shape and layout; the library call is
+    torch.matmul (no activation, no fp32 out)."""
     from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    out_bytes = 4 if g.out_dtype else 2
+    nbytes = (g.m * g.k + g.k * g.n) * 2 + g.m * g.n * out_bytes
+    sets = [gemm_inputs(g, torch.bfloat16, gen)
+            for _ in range(n_sets(nbytes))]
+    ms, wall = time_ms(lambda x, w: matmul_cuda(
+        x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
+    plain, _ = time_ms(lambda x, w: matmul_ref(
+        x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
+    lib, _ = time_ms(torch.matmul, sets)
+    return ms, wall, plain, lib, 2 * g.m * g.n * g.k, nbytes, \
+        plan_fields(*sets[0])
+
+
+def summed_row(rows, kernel, shape, parts, card, **kw):
+    """One row for the many shapes of one role on one path: ``parts``
+    [(launches, ms, wall ms, plain ms, library ms, flops, bytes)]; each
+    time and the bound are the launch-weighted means, so that a time
+    times the row's launches is the parts' summed time, as kernels_line
+    sums it.  ``bound_by`` is what bounds most of the summed bound."""
+    n = sum(p[0] for p in parts)
+
+    def mean(i):
+        return (None if any(p[i] is None for p in parts)
+                else sum(p[0] * p[i] for p in parts) / n)
+
+    bounds = [(p[0], *bound(p[5], p[6], card)) for p in parts]
+    bms = sum(c * b for c, b, _ in bounds) / n
+    ops = sum(c * b for c, b, by in bounds if by == "operations") / n
+    rows.append({"phase": "times", "kernel": kernel, "shape": shape,
+                 "ms": mean(1), "wall_ms": mean(2), "bound_ms": bms,
+                 "bound_by": "operations" if ops > bms / 2 else "bytes",
+                 "plain_ms": mean(3), "library_ms": mean(4),
+                 "calls": {"continuous": n}, **kw})
+    emit(rows[-1])
+
+
+def phase_times(cfg, card, cont_forwards):
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         delta_rowsum_cuda, delta_rowsum_ref, flash_attention_bwd_cuda,
         flash_attention_bwd_ref, flash_attention_cuda, mha_ref)
@@ -2326,16 +2775,13 @@ def phase_times(cfg, card):
     dtype, rows = torch.bfloat16, []
 
     row = row_recorder(rows, card)
+    # The continuous runs' GEMMs: those at the serving rows' shapes (the
+    # decode step at 8 slots) count on those rows, the rest are timed
+    # below, shape by shape.
+    cont = continuous_gemms(cfg, cont_forwards)
 
     for g in main_path_gemms(cfg) + train_gemms(cfg):
-        out_bytes = 4 if g.out_dtype else 2
-        nbytes = (g.m * g.k + g.k * g.n) * 2 + g.m * g.n * out_bytes
-        sets = [gemm_inputs(g, dtype, gen) for _ in range(n_sets(nbytes))]
-        ms, wall = time_ms(lambda x, w: matmul_cuda(
-            x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
-        plain, _ = time_ms(lambda x, w: matmul_ref(
-            x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
-        lib, _ = time_ms(torch.matmul, sets)
+        ms, wall, plain, lib, flops, nbytes, plan = gemm_times(g, gen)
         # The serving run: one prefill and NEW_TOKENS - 1 decode forwards;
         # the head at the last position of each.  The quant tiers' runs:
         # decode_int8's prefill at full precision; the calibrated tiers'
@@ -2344,12 +2790,51 @@ def phase_times(cfg, card):
             "decode") else NEW_TOKENS if g.name == "lm_head" else 1)
         quant = (1 + 2 * NEW_TOKENS if g.name == "lm_head" else
                  g.per_forward if g.name.startswith("prefill") else 0)
-        row("matmul", g.name, ms, wall, 2 * g.m * g.n * g.k, nbytes, plain,
-            lib, {"serve": serve, "train": g.per_step * TRAIN_STEPS,
-                  "quant": quant},
+        continuous = (0 if g.name.startswith("train")
+                      else cont.pop((role(g), g.m), (g, 0))[1])
+        row("matmul", g.name, ms, wall, flops, nbytes, plain, lib,
+            {"serve": serve, "train": g.per_step * TRAIN_STEPS,
+             "quant": quant, "continuous": continuous},
             m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind,
-            **plan_fields(*sets[0]))
+            **plan)
+
+    # The continuous runs' other GEMMs (one-shot prefills at each prompt's
+    # length, chunks, the head at one row): one row a role, summed over
+    # its shapes.
+    memo, parts = {}, {}
+    for (name, m), (g, n) in sorted(cont.items()):
+        key = (m, g.k, g.n, g.activation, g.kind)
+        if key not in memo:                       # o is q's shape
+            memo[key] = gemm_times(g, gen)
+        parts.setdefault(name, []).append((n, *memo[key][:6]))
+    for name, ps in parts.items():
+        g = cont[next(k for k in cont if k[0] == name)][0]
+        summed_row(rows, "matmul", f"continuous.{name}", ps, card,
+                   m=sorted(k[1] for k in cont if k[0] == name), k=g.k,
+                   n=g.n, activation=g.activation, layout=g.kind)
+
+    # The continuous runs' one-shot prefills' attention, (1, Hq, T, dh)
+    # at each prompt's length.
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    ps = []
+    for (kind, t), n in sorted(cont_forwards.items()):
+        if kind != "prefill":
+            continue
+        q_bytes, kv_bytes = 2 * hq * t * d, 2 * hkv * t * d
+        nbytes = 2 * q_bytes + 2 * kv_bytes
+        sets = [qkv_views(1, hq, hkv, t, d, dtype, gen)
+                for _ in range(n_sets(nbytes))]
+        ms, wall = time_ms(lambda q, k, v, _: flash_attention_cuda(q, k, v),
+                           sets)
+        plain, _ = time_ms(lambda q, k, v, _: mha_ref(q, k, v), sets)
+        lib, _ = time_ms(lambda q, k, v, _: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), sets)
+        ps.append((n * cfg.n_layers, ms, wall, plain, lib,
+                   4 * hq * t * (t + 1) // 2 * d, nbytes))
         del sets
+    summed_row(rows, "flash_attention", "continuous.prefill", ps, card,
+               t=[t for kind, t in sorted(cont_forwards) if kind == "prefill"],
+               q=[1, hq, "T", d], kv=[1, hkv, "T", d])
 
     b, hq, hkv, t, d = BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT, cfg.dh
     pairs = t * (t + 1) // 2                      # causal (q, k) pairs
@@ -2565,7 +3050,7 @@ def library_runs(fn, *args):
     return True
 
 
-def phase_times_quant(cfg, card):
+def phase_times_quant(cfg, card, cont_forwards):
     """The quantized GEMMs at the quantized serving path's shapes (int8 and
     e4m3, bf16 out, fp32 for the head) and the quantized brgemm /
     batched_matmul at the paper's cases (int8), with bounds at the 8-bit
@@ -2584,6 +3069,9 @@ def phase_times_quant(cfg, card):
         plan_q_batched_call, plan_q_call, plan_q_stacked_call)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     rows = []
+    if any(kind == "decode_q" and m != BATCH for kind, m in cont_forwards):
+        raise AssertionError("a continuous decode_q step off the decode "
+                             f"rows' {BATCH} rows: {cont_forwards}")
     for fmt in (torch.int8, torch.float8_e4m3fn):
         row = row_recorder(rows, card, fmt)
         name = str(fmt).replace("torch.", "")
@@ -2630,9 +3118,17 @@ def phase_times_quant(cfg, card):
                                                   else 1)
             else:
                 calls = g.per_forward
+            # The continuous decode_int8 pool: every decode step's GEMMs
+            # and head at its slots, in int8.
+            continuous = 0
+            if fmt == torch.int8 and (g.name.startswith("decode")
+                                      or g.name == "lm_head"):
+                continuous = g.per_forward * cont_forwards[
+                    "decode_q", g.m]
             p = plan_q_call(*sets[0][:3:2])
             row("matmul_q", f"{name} {g.name}", ms, wall,
-                2 * g.m * g.n * g.k, nbytes, plain, lib, {"quant": calls},
+                2 * g.m * g.n * g.k, nbytes, plain, lib,
+                {"quant": calls, "continuous": continuous},
                 m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind,
                 library=lib_name, mainloop=p.mainloop, bm=p.bm,
                 splits=p.splits)
@@ -2722,9 +3218,11 @@ SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
 
 def kernels_line(rows, launches_by_path, worst):
     """Per kernel, each time summed over the launches of the runs that
-    drove the paths, from the per-shape times of phase 8 (each row's
+    drove the paths, from the per-shape times of phase 10 (each row's
     ``calls`` by path); the sums are also given by path.  The paths' runs:
-    serving, one bf16 ``Engine.generate``; training, TRAIN_STEPS bf16
+    serving, one bf16 ``Engine.generate``; continuous, the bf16 pools'
+    ``ContinuousEngine.serve`` runs (every shape they gave a kernel is
+    timed); training, TRAIN_STEPS bf16
     steps; resnet, one bf16 forward and one gradient step; brgemm, the
     bf16 forward and backward of each of BRGEMM_CASES and one
     ``batched_matmul`` each.  ``delta_rowsum`` runs on none of them (it is
@@ -2770,11 +3268,15 @@ def main():
     worst = phase_parity(cfg)
     worst.update(phase_parity_paper(ResNetCfg()))
     worst.update(phase_parity_quant(cfg))
-    launches = {"serve": phase_serve(cfg), "train": phase_train(cfg),
-                "resnet": phase_resnet(), "brgemm": phase_brgemm(),
-                "quant": phase_quant(cfg)}
-    rows = (phase_times(cfg, card) + phase_times_paper(card)
-            + phase_times_quant(cfg, card))
+    launches = {"serve": phase_serve(cfg)}
+    launches["continuous"], cont_forwards, cont_worst = phase_continuous(
+        cfg, card)
+    for kernel, err in cont_worst.items():
+        worst[kernel] = max(worst[kernel], err)
+    launches.update(train=phase_train(cfg), resnet=phase_resnet(),
+                    brgemm=phase_brgemm(), quant=phase_quant(cfg))
+    rows = (phase_times(cfg, card, cont_forwards) + phase_times_paper(card)
+            + phase_times_quant(cfg, card, cont_forwards))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,10 @@ back: a backend that any tier names and that cannot run the call raises.
 ``QuantConfig``, dict, or shorthand such as ``"int8"`` / ``"fp8"``; see
 ``core/quantize.py``); ``resolve_quant`` gives the explicit argument, else the
 innermost context's config, else None (full precision), as the reference's
-``repro/core/dispatch.py`` does.
+``repro/core/dispatch.py`` does.  ``use(tracer=...)`` scopes a
+``repro_torch.obs.Tracer`` to the context.  Every ``resolve`` counts its
+(op, backend) in ``obs.TELEMETRY`` and, under an active tracer, records a
+``dispatch`` event, as the reference's ``_record_dispatch`` does.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.quantize import QuantConfig, as_quant_config
 
 BACKENDS = ("torch", "cuda")
@@ -63,18 +67,23 @@ def register(op: str, backend: str):
 
 
 @contextlib.contextmanager
-def use(*, backend: str | None = None, quant=None):
-    """Scope a backend and a quant config for every op called inside.  A
-    field left ``None`` keeps the outer context's choice; the previous state
-    is restored on exit.  ``quant`` is normalized (and so validated) here."""
+def use(*, backend: str | None = None, quant=None, tracer=None):
+    """Scope a backend, a quant config and a tracer for every op called
+    inside.  A field left ``None`` keeps the outer context's choice; the
+    previous state is restored on exit.  ``quant`` is normalized (and so
+    validated) here.  ``tracer`` (a ``repro_torch.obs.Tracer``) records the
+    dispatch events and every ``obs.span`` entered inside."""
     tokens = []
     if backend is not None:
         tokens.append((_BACKEND, _BACKEND.set(_check_backend(backend))))
     if quant is not None:
         tokens.append((_QUANT, _QUANT.set(as_quant_config(quant))))
+    obs_token = obs._activate(tracer) if tracer is not None else None
     try:
         yield
     finally:
+        if obs_token is not None:
+            obs._deactivate(obs_token)
         for var, token in reversed(tokens):
             var.reset(token)
 
@@ -126,6 +135,10 @@ def resolve(op: str, backend: str | None, tensor: torch.Tensor) -> str:
                 f"built for sm_90a")
     if name not in _REGISTRY[op]:
         raise KeyError(f"op {op!r} has no {name!r} backend")
+    obs.TELEMETRY.record_dispatch(op, name)
+    tr = obs.current_tracer()
+    if tr is not None:
+        tr.event("dispatch", op=op, backend=name)
     return name
 
 

@@ -14,12 +14,14 @@ NEG_INF = -1e30
 
 
 def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
-            scale: float | None = None, q_offset: int = 0,
-            kv_len: int | None = None, return_lse: bool = False):
+            scale: float | None = None, q_offset=0, kv_len=None,
+            return_lse: bool = False):
     """q: (B, Hq, Tq, d); k, v: (B, Hkv, Tk, d); Hq % Hkv == 0.
 
     ``q_offset``: absolute position of q[0] (decode: Tq = 1, offset = pos).
     ``kv_len``: number of valid kv positions (for padded decode caches).
+    Either may be an int, shared by the batch, or a (B,) integer tensor,
+    one per row (a slot pool's decode, each slot at its own position).
     ``window``: sliding-window size (positions <= pos - window masked).
     Masked scores are ``NEG_INF`` (-1e30), not -inf, as in the reference.
     With ``return_lse`` also returns the fp32 (B, Hq, Tq) log-sum-exp of
@@ -39,15 +41,21 @@ def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     kg = k.float()[:, :, None]
     vg = v[:, :, None]
     s = torch.matmul(qg, kg.transpose(-1, -2)) * scale   # (b,hkv,g,tq,tk)
-    q_pos = q_offset + torch.arange(tq, device=q.device)[:, None]
+    q_pos = torch.arange(tq, device=q.device)[:, None]
     k_pos = torch.arange(tk, device=q.device)[None, :]
+    if isinstance(q_offset, torch.Tensor):    # per row: (b, 1, 1, tq, 1)
+        q_pos = q_offset.reshape(b, 1, 1, 1, 1) + q_pos
+    else:
+        q_pos = q_offset + q_pos
+    if isinstance(kv_len, torch.Tensor):
+        kv_len = kv_len.reshape(b, 1, 1, 1, 1)
     mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= k_pos <= q_pos
+        mask = mask & (k_pos <= q_pos)
     if window is not None:
-        mask &= k_pos > q_pos - window
+        mask = mask & (k_pos > q_pos - window)
     if kv_len is not None:
-        mask &= k_pos < kv_len
+        mask = mask & (k_pos < kv_len)
     s = torch.where(mask, s, NEG_INF)
     mx = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - mx)

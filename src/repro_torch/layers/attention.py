@@ -1,17 +1,22 @@
-"""GQA attention: the train, prefill and decode modes.
+"""GQA attention: the train, prefill, prefill_chunk and decode modes.
 
 Every projection routes through the batch-reduce GEMM; prefill and train
 run the flash kernel; decode runs the plain ``mha_ref`` of one query
-against the padded cache (as in the reference, where decode attention is
-no kernel).  That decode attention reads the whole ``max_len`` cache under
-a ``kv_len = pos + 1`` mask every step, so its cost grows with ``max_len``,
-not with the tokens written: a kernel for it is later work.
+against the padded cache, and a prompt chunk ``mha_ref`` of its queries
+against the cache with ``q_offset`` (as in the reference, where neither is
+a kernel: the flash kernel has no ``q_offset``).  Decode attention reads
+the whole cache under a ``kv_len = pos + 1`` mask every step, so its cost
+grows with the cache's length, not with the tokens written.
 
 The KV cache of a layer is ``{"k", "v"}``, each (B, Hkv, max_len, dh),
-preallocated by ``init_cache``.  Prefill and decode write into it **in
-place** (slice assignment, where the reference's ``dynamic_update_slice``
-makes a new array) and return the same dict.  MLA, ``prefill_chunk`` and
-the sliding-window ring cache wait for later slices.
+preallocated by ``init_cache``.  Every mode but train writes into it **in
+place** (slice or indexed assignment, where the reference's
+``dynamic_update_slice`` makes a new array) and returns the same dict.
+Decode takes a (B,) tensor of positions, one per row: a static batch
+passes one position for every row, a slot pool each slot's own length
+(the reference ``vmap``s a batch-1 decode over the slots; here one
+batched call applies RoPE, writes K and V and masks attention per row).
+MLA and the sliding-window ring cache wait for later slices.
 """
 from __future__ import annotations
 
@@ -88,10 +93,14 @@ class Attention(nn.Module):
     def _out(self, o, backend):
         return brgemm.matmul(_merge_heads(o), self.wo, backend=backend)
 
-    def forward(self, x, *, mode: str = "train", cache=None, pos: int = 0,
+    def forward(self, x, *, mode: str = "train", cache=None, pos=0,
                 backend: str | None = None):
-        """x: (B, T, D).  Returns y for train, (y, cache) for prefill and
-        decode; decode takes T = 1 token at absolute position ``pos``."""
+        """x: (B, T, D).  Returns y for train, (y, cache) for the others.
+
+        prefill_chunk: the T queries sit at absolute positions ``pos ..
+        pos+T-1`` (``pos`` an int), see everything already in the cache
+        causally, and write their K and V at ``pos``.  decode: T = 1 token
+        a row, at the row's position in ``pos``, a (B,) tensor."""
         cfg = self.cfg
         t = x.shape[1]
         if mode in ("train", "prefill"):
@@ -103,11 +112,21 @@ class Attention(nn.Module):
             cache["k"][:, :, :t] = k
             cache["v"][:, :, :t] = v
             return self._out(o, backend), cache
-        if mode == "decode":
-            positions = torch.full((t,), pos, device=x.device)
-            q, k, v = self._qkv(x, positions, backend)
+        if mode == "prefill_chunk":
+            q, k, v = self._qkv(x, pos + torch.arange(t, device=x.device),
+                                backend)
             cache["k"][:, :, pos:pos + t] = k
             cache["v"][:, :, pos:pos + t] = v
+            o = mha_ref(q, cache["k"], cache["v"], causal=True,
+                        window=cfg.window, q_offset=pos, kv_len=pos + t)
+            return self._out(o, backend), cache
+        if mode == "decode":
+            if t != 1:
+                raise ValueError(f"decode takes one token a row, got {t}")
+            q, k, v = self._qkv(x, pos[:, None], backend)
+            rows = torch.arange(x.shape[0], device=x.device)
+            cache["k"][rows, :, pos] = k[:, :, 0]
+            cache["v"][rows, :, pos] = v[:, :, 0]
             o = mha_ref(q, cache["k"], cache["v"], causal=False,
                         window=cfg.window, q_offset=pos, kv_len=pos + 1)
             return self._out(o, backend), cache

@@ -1,10 +1,36 @@
-"""Uniform model API, as in the reference; the dense decoder only."""
+"""Uniform model API, as in the reference; the dense decoder only.
+
+Besides the reference's entry points (init, forward, loss, prefill,
+prefill_chunk, decode_step) it holds the two decode steps of continuous
+batching (``repro/models/api.py``):
+
+  * ``decode_step_slots`` — one decode over a slot pool, each slot at its
+    own position.  The reference ``vmap``s a batch-1 decode over the
+    slots; here it is one batched ``decode_step`` with a (S,) tensor of
+    positions (``layers/attention.py``).
+  * ``decode_step_paged`` — one decode over a paged pool: each slot's
+    pages gathered into a contiguous view, the ordinary decode on the
+    views, the result written back.  Optionally int8 pages with one fp32
+    scale a page.
+
+The layouts are explicit, not discovered (the reference diffs abstract
+cache shapes for its batch and time axes): the model's cache is
+``{"blocks": [{"k", "v"} per layer]}``, each (B, Hkv, T, dh); a pool
+stacks the layers, ``{"k", "v"}`` each (L, N, Hkv, T, dh), N slots of T =
+max_len positions or N pages of T = page_size (the reference's stacked
+leaves, batch axis 1, time axis 3), and ``layer_views`` hands the model
+per-layer views of it.
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchCfg
-from repro_torch.models import transformer
+from repro_torch.core.quantize import quantize
+from repro_torch.models import blocks, transformer
+
+KEYS = ("k", "v")
 
 
 def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
@@ -30,3 +56,155 @@ def prefill(params, batch, cfg: ArchCfg, cache, **kw):
 
 def decode_step(params, tokens, cfg: ArchCfg, cache, pos, **kw):
     return transformer.decode_step(params, tokens, cfg, cache, pos, **kw)
+
+
+def prefill_chunk(params, batch, cfg: ArchCfg, cache, pos, *, length=None,
+                  **kw):
+    """One chunk of a longer prompt against a batch-1 cache view."""
+    return transformer.prefill_chunk(params, batch, cfg, cache, pos,
+                                     length=length, **kw)
+
+
+# --------------------------------------------------------------------------
+# pooled caches
+# --------------------------------------------------------------------------
+
+def kv_shape(cfg: ArchCfg, n: int, length: int) -> tuple:
+    """(L, n, Hkv, length, dh): one stacked pool leaf."""
+    return (cfg.n_layers, n, cfg.n_kv_heads, length, blocks.attn_cfg(cfg).dh)
+
+
+def layer_views(leaves) -> dict:
+    """The model's cache as per-layer views of stacked ``{"k", "v"}``
+    leaves (L, B, Hkv, T, dh): a write through the model lands in them."""
+    n_layers = leaves["k"].shape[0]
+    return {"blocks": [{key: leaves[key][i] for key in KEYS}
+                       for i in range(n_layers)]}
+
+
+def stack_layers(cache) -> dict:
+    """The model's cache as stacked ``{"k", "v"}`` leaves (a copy)."""
+    return {key: torch.stack([b[key] for b in cache["blocks"]])
+            for key in KEYS}
+
+
+def decode_step_slots(params, tokens, cfg: ArchCfg, cache, positions,
+                      **kw):
+    """One decode step over a slot pool with per-slot positions.
+
+    ``tokens``: (S, 1) — the last sampled token a slot; ``positions``: (S,)
+    — the absolute position each slot's token is written at; ``cache``: the
+    pool (batch = S), written in place, each slot's K and V in its own
+    row.  Returns (logits (S, V), cache).  Free slots decode garbage that
+    lands in their own rows, where a later prefill overwrites it before
+    any mask exposes it.
+    """
+    positions = torch.as_tensor(positions, device=tokens.device,
+                                dtype=torch.long)
+    return decode_step(params, tokens, cfg, cache, positions, **kw)
+
+
+# --------------------------------------------------------------------------
+# paged decode (page-gather as batch-reduce over page lists)
+# --------------------------------------------------------------------------
+
+def supports_paging(cfg: ArchCfg) -> bool:
+    """Whether the serve cache can be paged (the reference's rule).
+
+    Paging needs every growing cache leaf to be a position-indexed KV
+    tensor whose reads are masked by ``kv_len``: full-attention decoders
+    and the enc-dec decoder.  Sliding-window ring buffers index ``pos %
+    window`` (a page holds no stable position range), recurrent states
+    have no time axis, and a VLM prefix is not paged.
+    """
+    return (cfg.block in ("dense", "moe", "mla_moe", "encdec")
+            and not cfg.window and not cfg.n_patches)
+
+
+def pages_to_view(pages):
+    """(..., P, Hkv, page_size, dh) pages -> (..., Hkv, P * page_size, dh),
+    the contiguous cache view of a page list."""
+    *lead, n_pages, h, ps, dh = pages.shape
+    return pages.transpose(-4, -3).reshape(*lead, h, n_pages * ps, dh)
+
+
+def view_to_pages(view, page_size: int):
+    """Inverse of :func:`pages_to_view`."""
+    *lead, h, t, dh = view.shape
+    return view.reshape(*lead, h, t // page_size, page_size,
+                        dh).transpose(-4, -3)
+
+
+def _dequant_pages(pages, scale, dtype):
+    """int8 pages (L, ..., P, Hkv, ps, dh) * their per-page scales
+    (..., P) -> ``dtype``."""
+    return (pages.float() * scale[..., None, None, None]).to(dtype)
+
+
+def _quant_pages(pages):
+    """Per-page absmax int8 of (L, P, Hkv, ps, dh): one scale a page over
+    every layer, as the reference's stacked leaf gives.  Returns (q, (P,)
+    fp32 scales)."""
+    return quantize(pages, "int8", axis=(0, 2, 3, 4))
+
+
+def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
+                      positions, *, page_size: int, scales=None,
+                      view_dtype=None, **kw):
+    """One decode step over a paged pool.
+
+    ``data``: ``{"k", "v"}``, each (L, n_pages, Hkv, page_size, dh).
+    ``page_tables``: (S, P) page ids, the sentinel ``n_pages`` past each
+    slot's allocation; ``positions``: (S,) the position each slot's token
+    is written at.  Both are host integer arrays: the writes' masks are
+    made on the host, so no write waits on the card.  ``scales``: with int8
+    pages, ``{"k", "v"}`` of (n_pages,) fp32 per-page scales, and
+    ``view_dtype`` the dtype the pages are dequantized to.
+
+    Each slot's pages are gathered (sentinels clipped to the last page:
+    garbage that the ``kv_len`` mask never exposes) into a contiguous
+    view of ``P * page_size`` positions, dequantized with int8 pages, and
+    the ordinary decode runs on the views.  Then, as the reference's
+    scatter with ``mode="drop"`` does, only real page ids are written:
+    full-precision pages take the new token's K and V at its position
+    (every other position of a view is the page it was gathered from);
+    int8 pages are all quantized again from the views, with fresh scales,
+    as the reference re-quantizes every page of a slot each step.
+    Returns (logits (S, V), data, scales), the pool written in place.
+    """
+    n_pages = data["k"].shape[1]
+    dev = tokens.device
+    view_dtype = view_dtype or blocks.dtype_of(cfg)
+    pt = np.asarray(page_tables, np.int64)
+    pos = np.asarray(positions, np.int64)
+    ids = torch.as_tensor(np.minimum(pt, n_pages - 1), device=dev)
+    views = {}
+    for key in KEYS:
+        pages = data[key][:, ids]                 # (L, S, P, Hkv, ps, dh)
+        if scales is not None:
+            pages = _dequant_pages(pages, scales[key][ids], view_dtype)
+        views[key] = pages_to_view(pages)         # (L, S, Hkv, T, dh)
+    logits, _ = decode_step(params, tokens, cfg, layer_views(views),
+                            torch.as_tensor(pos, device=dev), **kw)
+    if scales is None:
+        rows = np.arange(len(pos))
+        page = pt[rows, pos // page_size]
+        live = np.nonzero(page < n_pages)[0]
+        at = torch.as_tensor(pos[live], device=dev)
+        dst = torch.as_tensor(page[live], device=dev)
+        off = torch.as_tensor(pos[live] % page_size, device=dev)
+        src = torch.as_tensor(live, device=dev)
+        for key in KEYS:
+            data[key][:, dst, :, off] = views[key][:, src, :, at]
+        return logits, data, scales
+    flat = pt.reshape(-1)
+    live = np.nonzero(flat < n_pages)[0]
+    src = torch.as_tensor(live, device=dev)
+    dst = torch.as_tensor(flat[live], device=dev)
+    for key in KEYS:
+        pages = view_to_pages(views[key], page_size)
+        pages = pages.reshape(pages.shape[0], -1, *pages.shape[3:])
+        q, sc = _quant_pages(pages[:, src])
+        data[key][:, dst] = q
+        scales[key][dst] = sc
+    return logits, data, scales

@@ -44,10 +44,12 @@ class DecoderBlock(nn.Module):
         self.mlp = MLP(cfg.d_model, cfg.d_ff, activation=cfg.mlp_activation,
                        dtype=dt, device=device)
 
-    def forward(self, x, *, mode: str = "train", cache=None, pos: int = 0,
+    def forward(self, x, *, mode: str = "train", cache=None, pos=0,
                 backend: str | None = None):
         """Returns ``(x, cache)``; the cache is the one given, written in
-        place (``None`` in train mode)."""
+        place (``None`` in train mode).  ``pos``: the chunk's first
+        position (prefill_chunk), the token's positions (decode; a (B,)
+        tensor, one a row)."""
         if self.cfg.window and mode != "train":
             raise NotImplementedError(
                 "sliding-window serving (the ring cache) is not ported yet")

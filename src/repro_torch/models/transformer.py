@@ -1,4 +1,5 @@
-"""The dense decoder-only LM: init, forward, loss, prefill and decode_step.
+"""The dense decoder-only LM: init, forward, loss, prefill, prefill_chunk
+and decode_step.
 
 The reference scans one traced block over layer parameters stacked on a
 leading axis; here the layers are an ``nn.ModuleList`` run by a Python
@@ -66,17 +67,36 @@ class Transformer(nn.Module):
                       backend=backend)
         return self._head(h, backend)
 
-    def prefill(self, tokens, cache, *, backend: str | None = None):
-        """Fills ``cache`` in place; returns (last-token logits (B, V),
-        cache)."""
+    def prefill(self, tokens, cache, *, backend: str | None = None,
+                logit_pos: int | None = None):
+        """Fills ``cache`` in place; returns (logits (B, V), cache).
+
+        The logits are the last position's, or ``logit_pos``'s: bucketed
+        prefill right-pads a prompt, and its true last token sits before
+        the pad."""
         h = self._run(self._embed(tokens), mode="prefill", cache=cache,
                       pos=0, backend=backend)
-        return self._head(h[:, -1:], backend)[:, 0], cache
+        idx = h.shape[1] - 1 if logit_pos is None else int(logit_pos)
+        return self._head(h[:, idx:idx + 1], backend)[:, 0], cache
 
-    def decode_step(self, tokens, cache, pos: int, *,
+    def prefill_chunk(self, tokens, cache, pos: int, *,
+                      length: int | None = None,
+                      backend: str | None = None):
+        """One chunk of a longer prompt, tokens at positions ``pos ..
+        pos+C-1``: it attends causally to everything already written into
+        ``cache`` (earlier chunks) and itself, and appends its K and V at
+        ``pos``, in place.  ``length`` (<= C) marks the valid prefix of a
+        right-padded chunk, whose logits are returned (the last token's by
+        default).  Chaining chunks reproduces one-shot ``prefill``."""
+        h = self._run(self._embed(tokens), mode="prefill_chunk",
+                      cache=cache, pos=int(pos), backend=backend)
+        idx = h.shape[1] - 1 if length is None else int(length) - 1
+        return self._head(h[:, idx:idx + 1], backend)[:, 0], cache
+
+    def decode_step(self, tokens, cache, pos, *,
                     backend: str | None = None):
-        """tokens: (B, 1) at position ``pos``.  Returns (logits (B, V),
-        cache), the cache written in place."""
+        """tokens: (B, 1), row b at position ``pos[b]`` (a (B,) tensor).
+        Returns (logits (B, V), cache), the cache written in place."""
         h = self._run(self._embed(tokens), mode="decode", cache=cache,
                       pos=pos, backend=backend)
         return self._head(h, backend)[:, 0], cache
@@ -142,12 +162,25 @@ def loss_fn(params: Transformer, batch, cfg: ArchCfg, *, backend=None):
 
 
 def prefill(params: Transformer, batch, cfg: ArchCfg, cache, *,
-            backend=None):
-    """Returns (last-token logits, cache)."""
-    return params.prefill(batch["tokens"], cache, backend=backend)
+            backend=None, logit_pos=None):
+    """Returns (logits at ``logit_pos``, default the last token, cache)."""
+    return params.prefill(batch["tokens"], cache, backend=backend,
+                          logit_pos=logit_pos)
+
+
+def prefill_chunk(params: Transformer, batch, cfg: ArchCfg, cache, pos, *,
+                  length=None, backend=None):
+    """One chunk of a longer prompt at positions ``pos..pos+C-1``; returns
+    (logits (B, V), cache)."""
+    return params.prefill_chunk(batch["tokens"], cache, pos, length=length,
+                                backend=backend)
 
 
 def decode_step(params: Transformer, tokens, cfg: ArchCfg, cache, pos, *,
                 backend=None):
-    """tokens: (B, 1); pos: int.  Returns (logits (B, V), cache)."""
-    return params.decode_step(tokens, cache, int(pos), backend=backend)
+    """tokens: (B, 1); pos: an int, or a (B,) tensor of per-row positions.
+    Returns (logits (B, V), cache)."""
+    if not (isinstance(pos, torch.Tensor) and pos.dim() == 1):
+        pos = torch.full((tokens.shape[0],), int(pos),
+                         device=tokens.device)
+    return params.decode_step(tokens, cache, pos, backend=backend)

@@ -1,5 +1,5 @@
-"""Card-only tests of the port's CUDA kernels, of serving and of training
-through them, of ResNet-50's path (the convolution, the stacked and
+"""Card-only tests of the port's CUDA kernels, of serving (static and
+continuous batching) and of training through them, of ResNet-50's path (the convolution, the stacked and
 batched GEMMs), and of the quantized GEMMs and serving tiers.
 
 Marked ``gpu``; each test skips without a CUDA device (decided in a
@@ -53,7 +53,8 @@ from repro_torch.kernels.flash_attention import (delta_rowsum_cuda,
                                                  mha_ref,
                                                  reset_flash_bwd_counts)
 from repro_torch.models import api, resnet
-from repro_torch.serve import Engine, ServeConfig
+from repro_torch.serve import (ContinuousEngine, Engine, PoolConfig, Request,
+                               ServeConfig)
 from repro_torch.train.optimizer import AdamWCfg
 from repro_torch.train.train_step import init_state, make_train_step
 
@@ -214,6 +215,48 @@ def test_engine_kernels_match_plain_greedy(gen):
         want = engine.generate({"tokens": tokens}, n_tokens=6,
                                stop_tokens=())
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# Continuous batching at the reduced width in fp32, each pool on the
+# kernels against the plain path: the same greedy tokens (int8 pages: all
+# requests but at most one, the bound the reference's own test of int8
+# pages uses, since an int8 rounding can flip a near-tie), and launch
+# counts from the engine's metrics (chip_smoke's rule).
+CONT_POOLS = {"slotted": {}, "paged": {"page_size": 8},
+              "preempting": {"page_size": 4, "n_pages": 8},
+              "chunked": {"page_size": 4, "prefill_chunk": 8},
+              "int8_pages": {"page_size": 8, "kv_quant": "int8"}}
+
+
+@pytest.mark.parametrize("pool", sorted(CONT_POOLS))
+def test_continuous_engine_kernels_match_plain(gen, pool):
+    cfg = configs.get("smollm-135m").reduced()
+    params = api.init_params(cfg, gen)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                    max_tokens=m, stop_tokens=())
+            for n, m in zip([5, 20, 3, 17, 7], [6, 4, 8, 3, 5])]
+
+    def serve():
+        engine = ContinuousEngine(cfg, params, PoolConfig(
+            n_slots=3, max_len=32, **CONT_POOLS[pool]))
+        return engine, engine.serve(reqs)
+
+    reset_matmul_counts()
+    flash_attention_cuda.launches = 0
+    engine, got = serve()
+    launches = {"matmul": matmul_cuda.launches, "matmul_q": 0,
+                "flash_attention": flash_attention_cuda.launches}
+    assert launches == chip_smoke.expected_continuous_launches(
+        cfg, engine, reqs)
+    assert engine.pool.n_free == engine.pool.n_slots
+    if pool == "preempting":
+        assert engine.metrics.preemptions > 0
+    with dispatch.use(backend="torch"):
+        _, want = serve()
+    assert matmul_cuda.launches == launches["matmul"]
+    same = sum(got[r] == want[r] for r in want)
+    assert same >= len(want) - (pool == "int8_pages")
 
 
 # Gradients, kernels against plain autograd.  fp32: sums in different

@@ -129,7 +129,7 @@ def test_attention_train_prefill_decode_modes():
             close(cache_t[key], cache_j[key], GEMM)
         x1 = randn(2, 1, 128)
         y_t, cache_t = mod(torch.from_numpy(x1), mode="decode",
-                           cache=cache_t, pos=7)
+                           cache=cache_t, pos=torch.full((2,), 7))
         y_j, cache_j = jattn.apply(pj, jnp.asarray(x1), cfg_j, mode="decode",
                                    cache=cache_j, pos=7, backend="xla")
         close(y_t, y_j, GEMM)

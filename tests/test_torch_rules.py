@@ -76,7 +76,8 @@ def test_defaults_raise_without_cuda(monkeypatch):
     from repro_torch.layers import conv as conv_layer
     from repro_torch.layers import linear
     from repro_torch.models import api, resnet
-    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve import (ContinuousEngine, Engine, PagedKVCache,
+                                   PoolConfig, ServeConfig, SlotKVCache)
     from repro_torch.train.optimizer import AdamWCfg
     from repro_torch.train.train_step import init_state
     cfg = configs.get("smollm-135m").reduced()
@@ -98,6 +99,12 @@ def test_defaults_raise_without_cuda(monkeypatch):
         api.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, params, ServeConfig(max_len=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousEngine(cfg, params, PoolConfig(n_slots=2, max_len=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlotKVCache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(cfg, 2, 8, page_size=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_state(cfg, AdamWCfg())
     with pytest.raises(RuntimeError, match="no CUDA device"):

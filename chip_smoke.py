@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, training, ResNet-50, batch-reduce
-GEMM and quantized serving paths on one NVIDIA Hopper card.
+GEMM, quantized serving, LSTM / FC and windowed-serving paths on one
+NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
@@ -64,7 +65,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                matmul a one-shot prefill, chunk or decode step, 30 flash a
                one-shot prefill; 211 matmul_q a decode step under
                decode_quant), calls by mainloop, every logit finite, every
-               pool empty after its run.  In fp32 the paged pool's tokens
+               pool empty after its run.  In fp32 (at CONT_FP32_LAYERS of
+               the 30 layers) the paged pool's tokens
                equal the slotted pool's, and the slotted pool's equal the
                plain path's (which launches nothing); the other pools'
                token match is printed, as is every bf16 pool's.  After
@@ -105,13 +107,39 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                tier in fp32, where the greedy tokens must match; then
                ``brgemm(quant=)`` and ``batched_matmul(quant=)`` at the
                paper's cases.
-  10. times  — each kernel's device time (a CUDA graph of its calls; the
+  10. lstm   — the paper's LSTM (N = 168, T = 50, C = K of 256 to 2048)
+               forward and gradient pass, its FC layer's forward, dX and dW
+               (N = 1344, C = K of 256 to 1024), and 4 SGDM steps of the
+               LSTM-LM at GNMT width (4 x 1024, vocab 32000, 168 x 50
+               tokens); bf16, then fp32 (the LM at 2 layers).  Exact launch
+               counts (8 matmul a layer-step forward), every matmul launch
+               of one run held against matmul_ref on its own inputs, the
+               fp32 LSTM and the fp32 LM's losses against the plain path;
+               host ms beside the bound, the plain path and the same loop
+               on torch.matmul, GFLOP/s, and the GEMMs' share of device
+               busy time (the paper's Table 1); the LM's step ms, tokens/s,
+               busy and idle share, peak memory.
+  11. windowed — starcoder2-15b at full width and depth (random weights,
+               bf16): ``Engine.generate`` of 2 prompts of window + 256
+               tokens (the ring wraps in prefill) and 64 greedy tokens
+               (exact launch counts: 6 matmul a layer and the head a
+               forward, 40 windowed flash a prefill; prefill and decode
+               ms, busy and idle), then ``ContinuousEngine`` on its
+               slotted pool (8 requests, 4 slots; tokens/s, the pool's
+               bytes, empty after); every distinct matmul shape and the
+               windowed flash at (2, 48/4, 4352, 128) against their plain
+               versions; fp32 at 2 layers, where the kernel path's greedy
+               tokens must equal the plain path's for both engines (or
+               differ only at a top-two logit gap within the fp32 band);
+               mistral-large-123b's untied head GEMM.
+  12. times  — each kernel's device time (a CUDA graph of its calls; the
                profiler where a call cannot be captured) and back-to-back wall
                time (CUDA events) at each main-path shape, serving's,
                continuous serving's (every shape its bf16 runs gave a
-               kernel), training's, ResNet-50's, brgemm's and the quantized
-               serving's, beside its bound (at the input type's peak), its
-               plain version and one library call.
+               kernel), training's, ResNet-50's, brgemm's, the quantized
+               serving's, the lstm, fc and windowed paths', beside its
+               bound (at the input type's peak), its plain version and one
+               library call.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -142,6 +170,10 @@ BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 8, 512, 64, 1024
 # one seeded generator, 8 slots of 576 positions (the longest prompt and
 # the longest generation), pages of 16.
 CONT_REQUESTS, CONT_SLOTS, CONT_MAX_LEN, CONT_PAGE = 24, 8, 576, 16
+# The fp32 pools hold tokens across pools and against the plain path at 8
+# of smollm-135m's 30 layers (full width), which keeps the whole script
+# within half its time limit since the lstm and windowed phases came.
+CONT_FP32_LAYERS = 8
 CONT_POOLS = (   # name, PoolConfig kwargs, ContinuousEngine kwargs
     ("slotted", {}, {}),
     ("paged", {"page_size": CONT_PAGE}, {}),
@@ -289,11 +321,12 @@ QUANT_TIERS = (   # name, Engine quant kwargs, calibration
 )
 
 # Published dense peaks (NVIDIA data sheets), by the card nvidia-smi names:
-# bf16 tensor FLOP/s, int8 / fp8 tensor OP/s, HBM bytes/s.
+# bf16 tensor FLOP/s, int8 / fp8 tensor OP/s, HBM bytes/s, fp32 FLOP/s
+# outside the tensor cores (the simt mainloop's).
 PEAKS = {
-    "sxm": (989e12, 1979e12, 3.35e12),
-    "pcie": (756e12, 1513e12, 2.0e12),
-    "nvl": (835e12, 1671e12, 3.9e12),
+    "sxm": (989e12, 1979e12, 3.35e12, 67e12),
+    "pcie": (756e12, 1513e12, 2.0e12, 51e12),
+    "nvl": (835e12, 1671e12, 3.9e12, 60e12),
 }
 EIGHT_BIT = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 
@@ -317,11 +350,13 @@ def card_line() -> str:
 
 
 def peaks(name: str, dtype=torch.bfloat16):
-    """(tensor-core peak for ``dtype``'s inputs, memory bytes/s)."""
+    """(peak rate for ``dtype``'s inputs, memory bytes/s): the tensor
+    cores' for bf16 and 8-bit inputs, the CUDA cores' for fp32."""
     low = name.lower()
-    bf16, eight, bw = PEAKS["pcie" if "pcie" in low else "nvl" if "nvl" in
-                            low else "sxm"]
-    return (eight if dtype in EIGHT_BIT else bf16), bw
+    bf16, eight, bw, fp32 = PEAKS["pcie" if "pcie" in low else "nvl" if
+                                  "nvl" in low else "sxm"]
+    return (eight if dtype in EIGHT_BIT else fp32 if dtype == torch.float32
+            else bf16), bw
 
 
 # --------------------------------------------------------------------------
@@ -388,10 +423,14 @@ class Gemm:
     #   "dx"   x = g row-major, w = W.T col-major (g @ W.T)
     #   "dx_head" x = g, w = table row-major      (g @ table)
     #   "dw"   x = X.T col-major, w = g row-major (X.T @ g)
-    #   "pre"  as "fwd", fp32 out                 (silu pre-activation)
+    #   "pre"  as "fwd", fp32 out                 (silu pre-activation;
+    #                                             the LSTM's x @ W)
     kind: str = "fwd"
     per_forward: int = 0      # launches in one serving forward
     per_step: int = 0         # launches in one train step
+    bias: bool = False        # a bias (n,) in the epilogue
+    c0: bool = False          # an fp32 c0 (m, n) chained in, beta 1 (the
+                              # LSTM's gate GEMM)
 
     @property
     def out_dtype(self):
@@ -401,18 +440,31 @@ class Gemm:
 def forward_gemms(cfg, prefix, m, per_step=0):
     """The body GEMMs of one serving forward over m rows (the head apart),
     with their launches per forward and per train step (``per_step``
-    layers' worth)."""
+    layers' worth): q, k and v, o, and the MLP's gate (its activation
+    fused) and up, or a plain MLP's up with the activation fused, then
+    down."""
     d, dq, dkv, f = cfg.d_model, cfg.n_heads * cfg.dh, \
         cfg.n_kv_heads * cfg.dh, cfg.d_ff
     L, step = cfg.n_layers, per_step
+    act = cfg.mlp_activation
+    mlp = ([Gemm(f"{prefix}.gate_{act}", m, d, f, act, per_forward=L,
+                 per_step=step),
+            Gemm(f"{prefix}.up", m, d, f, per_forward=L, per_step=step)]
+           if cfg.gated_mlp else
+           [Gemm(f"{prefix}.up_{act}", m, d, f, act, per_forward=L,
+                 per_step=step)])
     return [Gemm(f"{prefix}.q", m, d, dq, per_forward=L, per_step=step),
             Gemm(f"{prefix}.kv", m, d, dkv, per_forward=2 * L,
                  per_step=2 * step),
             Gemm(f"{prefix}.o", m, dq, d, per_forward=L, per_step=step),
-            Gemm(f"{prefix}.gate_silu", m, d, f, "silu", per_forward=L,
-                 per_step=step),
-            Gemm(f"{prefix}.up", m, d, f, per_forward=L, per_step=step),
+            *mlp,
             Gemm(f"{prefix}.down", m, f, d, per_forward=L, per_step=step)]
+
+
+def gemms_per_forward(cfg):
+    """matmul launches of one forward of a dense decoder: q, k, v, o, the
+    MLP's two (plain) or three (gated) GEMMs a layer, and the head."""
+    return (6 + cfg.gated_mlp) * cfg.n_layers + 1
 
 
 def main_path_gemms(cfg):
@@ -427,8 +479,8 @@ def main_path_gemms(cfg):
 
 
 def role(g):
-    """A GEMM's place in the forward: q, kv, o, gate_silu, up, down or
-    lm_head."""
+    """A GEMM's place in the forward: q, kv, o, gate_silu, up, up_gelu,
+    down or lm_head."""
     return g.name.rsplit(".", 1)[-1]
 
 
@@ -486,6 +538,20 @@ def gemm_inputs(g: Gemm, dtype, gen):
     if g.kind in ("head", "dx"):          # table.T or W.T, read in place
         return x, randn(g.n, g.k, scale=g.k ** -0.5).T
     return x, randn(g.k, g.n, scale=g.k ** -0.5)
+
+
+def gemm_call(g: Gemm, dtype, gen):
+    """(x, w, bias, c0) of one call at ``g``'s shape and layout, with the
+    epilogue operands it takes (None where it takes none), and its
+    keyword arguments."""
+    x, w = gemm_inputs(g, dtype, gen)
+    bias = (torch.randn(g.n, device="cuda", generator=gen).to(dtype)
+            if g.bias else None)
+    c0 = (torch.randn(g.m, g.n, device="cuda", generator=gen)
+          if g.c0 else None)
+    return (x, w, bias, c0), dict(activation=g.activation,
+                                  beta=1.0 if g.c0 else 0.0,
+                                  out_dtype=g.out_dtype)
 
 
 def close(got, ref, atol, rtol):
@@ -1355,7 +1421,7 @@ def phase_serve(base_cfg):
         seconds = time.perf_counter() - t0
         launches = {"matmul": matmul_cuda.launches,
                     "flash_attention": flash_attention_cuda.launches}
-        per_forward = cfg.n_layers * 7 + 1
+        per_forward = gemms_per_forward(cfg)
         expect = {"matmul": per_forward * NEW_TOKENS,
                   "flash_attention": cfg.n_layers}
         if launches != expect:
@@ -1401,11 +1467,14 @@ def phase_serve(base_cfg):
 
 
 def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
-               decode_quant=None):
+               decode_quant=None, max_len=MAX_LEN):
     """Host-clock prefill and decode-step times of the kernel path, under a
-    serving tier's quant configs (None: full precision)."""
+    serving tier's quant configs (None: full precision), for the prompts
+    ``tokens`` (B, T) in a cache of ``max_len``; whether every logit of
+    the timed prefill and decode steps was finite."""
     from repro_torch.core import dispatch
     from repro_torch.models import api
+    b, prompt = tokens.shape
 
     def prefill(cache):
         with dispatch.use(quant=prefill_quant):
@@ -1416,20 +1485,22 @@ def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
             return api.decode_step(params, tok, cfg, cache, pos)
 
     with torch.inference_mode():
-        cache = api.init_cache(cfg, BATCH, MAX_LEN, device="cuda")
+        cache = api.init_cache(cfg, b, max_len, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill(cache)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
         tok = logits.argmax(-1).to(torch.int32)[:, None]
         n = 16
         t0 = time.perf_counter()
         for i in range(n):
-            logits, cache = decode(tok, cache, PROMPT + i)
+            logits, cache = decode(tok, cache, prompt + i)
             tok = logits.argmax(-1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
         decode_s = (time.perf_counter() - t0) / n
+        finite = bool(finite & torch.isfinite(logits).all())
         # Device busy time of a few decode steps: the kernels' own
         # durations under the profiler, against the unprofiled step time.
         prof_steps = 4
@@ -1437,7 +1508,7 @@ def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
         def steps():
             nonlocal logits, cache, tok
             for i in range(prof_steps):
-                logits, cache = decode(tok, cache, PROMPT + n + i)
+                logits, cache = decode(tok, cache, prompt + n + i)
                 tok = logits.argmax(-1).to(torch.int32)[:, None]
 
         by_name = device_ms_by_kernel(steps, prof_steps)
@@ -1453,12 +1524,13 @@ def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
            "prefill_device_idle_share": 1 - prefill_busy_ms / (prefill_s
                                                                 * 1e3),
            "decode_step_ms": decode_s * 1e3,
-           "decode_tokens_per_s": BATCH / decode_s,
+           "decode_tokens_per_s": b / decode_s,
            "decode_device_busy_ms": busy_ms,
            "decode_device_idle_share": 1 - busy_ms / (decode_s * 1e3),
            "decode_device_ms_by_kernel": {k[:80]: v for k, v in top},
            "decode_host_cprofile_step_ms": host_ms,
-           "decode_host_cprofile_cumulative_ms": host_fns}
+           "decode_host_cprofile_cumulative_ms": host_fns,
+           "logits_finite": finite}
     emit(rec)
     return rec
 
@@ -1517,7 +1589,7 @@ def watched_forwards():
 def expected_continuous_launches(cfg, engine, requests):
     """Launches of one ``serve``, from the code and the engine's metrics:
     each one-shot prefill, chunk and decode step is one forward of
-    7 * n_layers + 1 GEMMs (the head at one row, ``logit_pos``), and a
+    gemms_per_forward GEMMs (the head at one row, ``logit_pos``), and a
     one-shot prefill adds a flash forward a layer (chunks and decode
     attend with mha_ref); under decode_quant every decode GEMM is a
     matmul_q.  The one-shot prefills are the engine's prefills less the
@@ -1530,7 +1602,7 @@ def expected_continuous_launches(cfg, engine, requests):
         raise AssertionError("a chunked pool preempted: its one-shot "
                              "prefills are not known")
     one_shot = m.prefills - staged
-    fwd = 7 * cfg.n_layers + 1
+    fwd = gemms_per_forward(cfg)
     decode = m.decode_steps * fwd
     quantized = engine.decode_quant is not None
     return {"matmul": fwd * (one_shot + m.prefill_chunks)
@@ -1556,18 +1628,20 @@ def pool_state(engine):
 
 
 def continuous_run(cfg, params, requests, pool_kw, engine_kw, counters):
-    """One ``ContinuousEngine.serve`` of ``requests`` on a new engine, the
-    counters zeroed just before and read just after.  Returns (tokens by
-    request, engine, launches, seconds, decode-step host seconds, all
-    logits finite, forwards by (kind, rows): decode steps under a
-    decode_quant tier are kind ``decode_q``)."""
+    """One ``ContinuousEngine.serve`` of ``requests`` on a new engine (of
+    CONT_SLOTS slots of CONT_MAX_LEN positions unless ``pool_kw`` says
+    otherwise), the counters zeroed just before and read just after.
+    Returns (tokens by request, engine, launches, seconds, decode-step
+    host seconds, all logits finite, forwards by (kind, rows): decode
+    steps under a decode_quant tier are kind ``decode_q``)."""
     from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     from repro_torch.kernels.brgemm.quant_kernel import reset_quant_counts
     from repro_torch.kernels.flash_attention import reset_flash_counts
     from repro_torch.serve import ContinuousEngine, PoolConfig
     engine = ContinuousEngine(
-        cfg, params, PoolConfig(n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
-                                **pool_kw), **engine_kw)
+        cfg, params, PoolConfig(**{"n_slots": CONT_SLOTS,
+                                   "max_len": CONT_MAX_LEN, **pool_kw}),
+        **engine_kw)
     decode_s = []
     decode = engine._decode
 
@@ -1648,7 +1722,9 @@ def phase_continuous(base_cfg, card):
     worst = {"matmul": 0.0, "flash_attention": 0.0}
     failed = []
     for dtype in (torch.float32, torch.bfloat16):
-        cfg, params, _ = make_engine(base_cfg, dtype)
+        cfg, params, _ = make_engine(
+            base_cfg if dtype == torch.bfloat16 else dataclasses.replace(
+                base_cfg, n_layers=CONT_FP32_LAYERS), dtype)
         requests = continuous_traffic(cfg)
         outs, forwards = {}, collections.Counter()
         pools = [p for p in CONT_POOLS
@@ -1753,7 +1829,8 @@ def phase_continuous(base_cfg, card):
 def continuous_parity(cfg, forwards, failed):
     """matmul_cuda against matmul_ref at every GEMM shape the runs'
     ``forwards`` gave it, and flash_attention_cuda against mha_ref at every
-    one-shot prefill's (1, Hq, T, dh), in the runs' dtype and the parity
+    one-shot prefill's (1, Hq, T, dh) (windowed as the config is), in the
+    runs' dtype and the parity
     phase's bands; one record per role with the worst errors over its
     rows.  Returns the worst absolute error by kernel; appends each
     out-of-band role to ``failed``."""
@@ -1782,8 +1859,9 @@ def continuous_parity(cfg, forwards, failed):
     tol = TOL[("flash_attention", dtype)]
     for t in sorted(t for kind, t in forwards if kind == "prefill"):
         q, k, v, _ = qkv_views(1, h, hkv, t, dh, dtype, gen)
-        ok, abs_err, rel_err = close(flash_attention_cuda(q, k, v),
-                                     mha_ref(q, k, v), *tol)
+        ok, abs_err, rel_err = close(
+            flash_attention_cuda(q, k, v, window=cfg.window),
+            mha_ref(q, k, v, window=cfg.window), *tol)
         by_role.setdefault(("flash_attention", "prefill", tol), []).append(
             (t, ok, abs_err, rel_err))
     for (kernel, name, tol), cases in by_role.items():
@@ -1791,7 +1869,8 @@ def continuous_parity(cfg, forwards, failed):
         abs_err = max(c[2] for c in cases)
         worst[kernel] = max(worst[kernel], abs_err)
         emit({"phase": "continuous_parity", "kernel": kernel,
-              "case": f"continuous.{name}", "dtype": cfg.dtype,
+              "case": f"continuous.{name}", "arch": cfg.name,
+              "dtype": cfg.dtype,
               "rows": [c[0] for c in cases], "max_abs_err": abs_err,
               "max_rel_err": max(c[3] for c in cases), "atol": tol[0],
               "rtol": tol[1], "ok": ok})
@@ -2348,7 +2427,7 @@ def expected_quant_launches(cfg, calibrated):
     each decode forward quantized, its head quantizing table.T dynamically;
     a calibrated model runs every forward quantized but the head, whose
     table is not a calibrated weight."""
-    per_forward = cfg.n_layers * 7 + 1
+    per_forward = gemms_per_forward(cfg)
     if calibrated:
         return {"matmul": NEW_TOKENS,
                 "matmul_q": (per_forward - 1) * NEW_TOKENS,
@@ -2575,7 +2654,727 @@ def quant_entry_points():
 
 
 # --------------------------------------------------------------------------
-# 10. kernel times
+# 10. the paper's LSTM and FC primitives; the LSTM-LM trained with SGDM
+# --------------------------------------------------------------------------
+
+# The paper's sizes: the LSTM's (benchmarks/bench_lstm.py's docstring,
+# Figure 6 and Table 1) N = 168 sequences of T = 50 steps, C = K from 256
+# to 2048; the FC layer's (benchmarks/bench_fc.py, Figure 9) N = 1344, C =
+# K from 256 to 1024.
+LSTM_N, LSTM_T, LSTM_SIZES = 168, 50, (256, 512, 1024, 2048)
+FC_N, FC_SIZES = 1344, (256, 512, 1024)
+# The LSTM-LM at GNMT width (Wu et al., arXiv:1609.08144: 1024-unit LSTM
+# layers, a 32k wordpiece vocabulary), B = LSTM_N sequences of LSTM_T
+# tokens, trained with examples/train_lstm_gnmt.py's SGDM on its "next =
+# current + 1" batches; its fp32 leg, kernels against the plain path, at 2
+# layers.
+GNMT = dict(vocab=32000, d_model=1024, n_layers=4)
+GNMT_SGDM = dict(lr=0.3, momentum=0.9, grad_clip=1.0)
+GNMT_STEPS, GNMT_FP32_LAYERS = 4, 2
+# The port's GEMM kernels (and their split-K sums) by name, against every
+# other kernel of a run: the paper's Table 1 split.
+GEMM_KERNELS = re.compile(r"gemm_\w*kernel|matmul_(wmma|simt)_kernel|"
+                          r"splitk_reduce")
+
+
+def lstm_flops(c, k, n, t):
+    """benchmarks/bench_lstm.py's count: 8 GEMMs a step, 2 n c k flops each
+    of the four on W and 2 n k k each of the four on R."""
+    return t * (4 * 2 * n * c * k + 4 * 2 * n * k * k)
+
+
+def expected_lstm_launches(t, x_grad=False):
+    """(forward, backward) matmul launches of an LSTM over t steps, from
+    the code: two a gate a step forward.  Backward, a gate's chained GEMM
+    takes its activation's derivative from its output (no recompute) and
+    launches dR every step and dh every step but the first (h0 takes no
+    gradient); its x @ W GEMM launches dW every step, and dX where x takes
+    a gradient; the bias and the chained c0 take theirs with no launch."""
+    return 8 * t, 4 * (t + (t - 1) + t + (t if x_grad else 0))
+
+
+def expected_lm_step_launches(n_layers, t):
+    """matmul launches of one LSTM-LM gradient step: each layer's LSTM
+    forward and backward, its input taking a gradient (the embedding table
+    does), and the tied head once forward and twice backward (dX, dW)."""
+    return n_layers * sum(expected_lstm_launches(t, x_grad=True)) + 3
+
+
+def lstm_gemms():
+    """The lstm path's bf16 GEMMs by shape, with their launches: at each
+    size one forward and one gradient pass (its own forward, then the
+    parameters' gradients), and GNMT_STEPS steps of the GNMT-width LM
+    (its LSTMs at d_model, their inputs taking gradients, and its head).
+    The gate row is timed with
+    the sigmoid epilogue (three gates of four; tanh's is the fourth).
+    Returns [(Gemm, launches)]."""
+    n, t, d, v = LSTM_N, LSTM_T, GNMT["d_model"], GNMT["vocab"]
+    out = []
+    for ck in LSTM_SIZES:
+        lm = GNMT_STEPS * GNMT["n_layers"] if ck == d else 0
+        out += [(Gemm(f"lstm{ck}.x_w", n, ck, ck, kind="pre"),
+                 4 * t * (2 + lm)),
+                (Gemm(f"lstm{ck}.gate", n, ck, ck, "sigmoid", bias=True,
+                      c0=True), 4 * t * (2 + lm)),
+                (Gemm(f"lstm{ck}.dx", n, ck, ck, kind="dx"),
+                 4 * (t - 1) * (1 + lm) + 4 * t * lm),
+                (Gemm(f"lstm{ck}.dw", ck, n, ck, kind="dw"),
+                 8 * t * (1 + lm))]
+    m = n * t
+    return out + [
+        (Gemm("lstm_lm.head", m, d, v, kind="head"), GNMT_STEPS),
+        (Gemm("lstm_lm.dx.head", m, v, d, kind="dx_head"), GNMT_STEPS),
+        (Gemm("lstm_lm.dw.head", d, m, v, kind="dw"), GNMT_STEPS)]
+
+
+def lstm_library(p, x):
+    """The LSTM forward on torch.matmul (cuBLAS): the same loop over the
+    same per-gate views, each gate's two GEMMs as torch.matmul and
+    torch.addmm, then the bias and the activation."""
+    acts = (torch.sigmoid, torch.tanh, torch.sigmoid, torch.sigmoid)
+    w, r, b = (p[key].unbind(0) for key in ("w", "r", "b"))
+    h = x.new_zeros(x.shape[1], p["r"].shape[-1])
+    s, hs = torch.zeros_like(h), []
+    for x_t in x:
+        i, c, f, o = (act(torch.addmm(torch.matmul(x_t, w[g]), h, r[g])
+                          + b[g]) for g, act in enumerate(acts))
+        s = f * s + i * c
+        h = o * torch.tanh(s)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def wall_ms(fn, reps=3):
+    """Median host ms of ``fn()`` to a synchronised end, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return median(out)
+
+
+def table1_split(fn, wall):
+    """Device busy ms of one ``fn()`` under the profiler, the GEMM kernels'
+    share of it (the paper's Table 1) and the idle share of ``wall`` ms."""
+    by_name = device_ms_by_kernel(fn, 1)
+    busy = sum(by_name.values())
+    gemm = sum(v for k, v in by_name.items() if GEMM_KERNELS.search(k))
+    return {"device_busy_ms": busy, "gemm_share_of_busy": gemm / busy,
+            "device_idle_share": 1 - busy / wall}
+
+
+def lm_batches(cfg):
+    """examples/train_lstm_gnmt.py's batches at GNMT_STEPS x (LSTM_N,
+    LSTM_T): each row counts up by one from a random start, mod vocab."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    out = []
+    for _ in range(GNMT_STEPS):
+        start = rng.integers(0, cfg.vocab, size=(LSTM_N, 1))
+        seq = torch.as_tensor((start + np.arange(LSTM_T + 1)) % cfg.vocab,
+                              device="cuda")
+        out.append({"tokens": seq[:, :-1], "labels": seq[:, 1:]})
+    return out
+
+
+def lm_train(cfg, params, batches, backend=None):
+    """SGDM steps of the LSTM-LM over ``batches``, the parameters updated
+    in place; returns (losses, host ms a step, each to a synchronised
+    end)."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import lstm_lm
+    from repro_torch.train import optimizer as opt
+    ocfg = opt.SGDMCfg(**GNMT_SGDM)
+    named = dict(lstm_lm.named_leaves(params))
+    state = opt.sgdm_init(named, ocfg)
+    losses, step_ms = [], []
+    with dispatch.use(backend=backend):
+        for batch in batches:
+            t0 = time.perf_counter()
+            (loss, _), grads = lstm_lm.loss_and_grads(params, batch, cfg)
+            opt.sgdm_update(named, dict(lstm_lm.named_leaves(grads)), state,
+                            ocfg)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+    return losses, step_ms
+
+
+def phase_lstm(card):
+    """The LSTM forward and gradient pass at the paper's sizes, the FC
+    layer's three passes at its shapes, and the GNMT-width LSTM-LM's SGDM
+    steps; bf16 then fp32.  Every matmul launch of one run of each is held
+    against matmul_ref on its own inputs (checked_launches); exact launch
+    counts; times beside the bound, the plain path and the same loop on
+    torch.matmul.  Returns ({path: launches}, fc rows for the kernels
+    line)."""
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.layers import linear, lstm
+    from repro_torch.models import lstm_lm
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    n, t = LSTM_N, LSTM_T
+    fwd_n, bwd_n = expected_lstm_launches(t)
+    main = {"lstm": 0, "fc": 0}
+    failed, fc_rows = [], []
+
+    def held(per_launch, what):
+        ok = (set(per_launch) == {"matmul"}
+              and per_launch["matmul"]["over_band"] <= 1.0)
+        if not ok:
+            failed.append(f"{what}: {per_launch}")
+        return per_launch
+
+    for dtype in (torch.bfloat16, torch.float32):
+        esize = torch.finfo(dtype).bits // 8
+        for ck in LSTM_SIZES:
+            p = lstm.init(ck, ck, dtype=dtype, generator=gen)
+            x = torch.randn(t, n, ck, device="cuda", generator=gen).to(dtype)
+
+            def fwd(backend=None):
+                with torch.no_grad():
+                    return lstm.forward(p, x, backend=backend)[0]
+
+            def fwd_bwd(backend=None):
+                q = {key: v.detach().requires_grad_() for key, v in p.items()}
+                h, _ = lstm.forward(q, x, backend=backend)
+                return torch.autograd.grad((h.float() ** 2).sum(),
+                                           list(q.values()))
+
+            def lib_fwd():
+                with torch.no_grad():
+                    return lstm_library(p, x)
+
+            def lib_fwd_bwd():
+                q = {key: v.detach().requires_grad_() for key, v in p.items()}
+                return torch.autograd.grad(
+                    (lstm_library(q, x).float() ** 2).sum(), list(q.values()))
+
+            fwd()
+            fwd_bwd()                             # warm-up, not counted
+            torch.cuda.synchronize()
+            # The main path: counts zeroed just before, read just after.
+            reset_matmul_counts()
+            h = fwd()
+            torch.cuda.synchronize()
+            launches_fwd = matmul_cuda.launches
+            grads = fwd_bwd()
+            torch.cuda.synchronize()
+            launches = matmul_cuda.launches
+            by_mainloop = mainloop_check(dtype, launches)
+            if (launches_fwd, launches) != (fwd_n, 2 * fwd_n + bwd_n):
+                failed.append(f"lstm {ck} {dtype}: launches {launches_fwd} "
+                              f"/ {launches}, expected {fwd_n} / "
+                              f"{2 * fwd_n + bwd_n}")
+            if dtype == torch.bfloat16:
+                main["lstm"] += launches
+            with checked_launches({}) as per_launch:
+                fwd()
+                fwd_bwd()
+            held(per_launch, f"lstm {ck} {dtype}")
+            plain_h = fwd("torch")
+            plain_grads = fwd_bwd("torch")
+            h_err = (h.float() - plain_h.float()).abs().max().item()
+            grad_err = {name: rel_l2(a, b) for name, a, b in
+                        zip(("w", "r", "b"), grads, plain_grads)}
+            finite = bool(torch.isfinite(h).all()) and all(
+                bool(torch.isfinite(g).all()) for g in grads)
+            if not finite:
+                failed.append(f"lstm {ck} {dtype}: not finite")
+            # fp32: sums in other orders only; bf16 rounds h and s every
+            # step on both paths, so there each launch is held instead.
+            if dtype == torch.float32 and not (
+                    h_err <= TOL[("matmul", dtype)][0] * (
+                        1 + plain_h.abs().max().item())
+                    and max(grad_err.values())
+                    <= TRAIN_BAND[dtype]["grad_rel_l2"]):
+                failed.append(f"lstm {ck} fp32 against the plain path: h "
+                              f"{h_err}, gradients {grad_err}")
+            fl = lstm_flops(ck, ck, n, t)
+            params_n = 8 * ck * ck + 4 * ck
+            fwd_bound = bound(fl, (t * n * ck + params_n + 2 * t * n * ck)
+                              * esize, card, dtype)
+            bwd_bound = bound(3 * fl, (t * n * ck + 2 * params_n) * esize,
+                              card, dtype)
+            ms = {"fwd_ms": wall_ms(fwd),
+                  "fwd_plain_ms": wall_ms(lambda: fwd("torch")),
+                  "fwd_library_ms": wall_ms(lib_fwd),
+                  "fwd_bwd_ms": wall_ms(fwd_bwd),
+                  "fwd_bwd_plain_ms": wall_ms(lambda: fwd_bwd("torch")),
+                  "fwd_bwd_library_ms": wall_ms(lib_fwd_bwd)}
+            rec = {"phase": "lstm", "dtype": str(dtype)[6:], "n": n, "t": t,
+                   "c": ck, "k": ck, "launches_fwd": launches_fwd,
+                   "launches_fwd_bwd": launches - launches_fwd,
+                   **by_mainloop, "per_launch_worst_over_band": per_launch,
+                   "h_max_abs_err_vs_plain": h_err,
+                   "grad_rel_l2_vs_plain": grad_err, "finite": finite,
+                   **ms, "fwd_bound_ms": fwd_bound[0],
+                   "fwd_bound_by": fwd_bound[1],
+                   "fwd_bwd_bound_ms": bwd_bound[0],
+                   "fwd_bwd_bound_by": bwd_bound[1],
+                   "fwd_gflops": fl / ms["fwd_ms"] / 1e6,
+                   "fwd_library_gflops": fl / ms["fwd_library_ms"] / 1e6,
+                   "fwd_bwd_gflops": 3 * fl / ms["fwd_bwd_ms"] / 1e6,
+                   "fwd_bwd_library_gflops":
+                       3 * fl / ms["fwd_bwd_library_ms"] / 1e6,
+                   "table1_fwd": table1_split(fwd, ms["fwd_ms"]),
+                   "table1_fwd_bwd": table1_split(fwd_bwd, ms["fwd_bwd_ms"]),
+                   "card": card}
+            emit(rec)
+            del p, x, h, grads, plain_h, plain_grads
+        torch.cuda.empty_cache()
+
+        # The FC layer: forward (relu, bias), dX and dW through autograd.
+        for ck in FC_SIZES:
+            p = {key: v.to(dtype) for key, v in
+                 linear.init(ck, ck, generator=gen).items()}
+            x = torch.randn(FC_N, ck, device="cuda", generator=gen).to(dtype)
+            dy = torch.randn(FC_N, ck, device="cuda", generator=gen).to(dtype)
+
+            def fc(backend=None):
+                q = {key: v.detach().requires_grad_() for key, v in p.items()}
+                xx = x.detach().requires_grad_()
+                y = linear.apply(q, xx, activation="relu", backend=backend)
+                return (y, *torch.autograd.grad(y, [xx, q["w"], q["b"]], dy))
+
+            fc()
+            torch.cuda.synchronize()
+            reset_matmul_counts()
+            got = fc()
+            torch.cuda.synchronize()
+            launches = matmul_cuda.launches
+            by_mainloop = mainloop_check(dtype, launches)
+            if launches != 3:
+                failed.append(f"fc {ck} {dtype}: {launches} launches, not 3")
+            if dtype == torch.bfloat16:
+                main["fc"] += launches
+            with checked_launches({}) as per_launch:
+                fc()
+            held(per_launch, f"fc {ck} {dtype}")
+            want = fc("torch")
+            errs = {name: (a.float() - b.float()).abs().max().item()
+                    for name, a, b in zip(("y", "dx", "dw", "db"), got,
+                                          want)}
+            # The three passes, each alone: the kernel, its plain version
+            # and torch.matmul, at the path's layouts.
+            g = (dy * (got[0] > 0)).to(dtype)
+            passes = {"fwd": ((x, p["w"], p["b"]), dict(activation="relu")),
+                      "bwd_dx": ((g, p["w"].T, None), {}),
+                      "upd_dw": ((x.T, g, None), {})}
+            rec = {"phase": "fc", "dtype": str(dtype)[6:], "n": FC_N,
+                   "c": ck, "k": ck, "launches": launches, **by_mainloop,
+                   "per_launch_worst_over_band": per_launch,
+                   "max_abs_err_vs_plain": errs, "card": card}
+            for name, (args, kw) in passes.items():
+                a, b_, bias = args
+                flops = 2 * a.shape[0] * a.shape[1] * b_.shape[1]
+                nbytes = (a.numel() + b_.numel()
+                          + a.shape[0] * b_.shape[1]) * esize
+                sets = [tuple(None if u is None else u.clone()
+                              for u in args) for _ in range(n_sets(nbytes))]
+                k_ms, k_wall = time_ms(
+                    lambda a, b_, bias: matmul_cuda(a, b_, bias, **kw), sets)
+                p_ms, _ = time_ms(
+                    lambda a, b_, bias: matmul_ref(a, b_, bias, **kw), sets)
+                l_ms, _ = time_ms(lambda a, b_, bias: torch.matmul(a, b_),
+                                  sets)
+                bms, by = bound(flops, nbytes, card, dtype)
+                rec[name] = {"ms": k_ms, "wall_ms": k_wall, "plain_ms": p_ms,
+                             "library_ms": l_ms, "bound_ms": bms,
+                             "bound_by": by, "gflops": flops / k_ms / 1e6,
+                             "library_gflops": flops / l_ms / 1e6}
+                if dtype == torch.bfloat16:
+                    fc_rows.append({
+                        "phase": "times", "kernel": "matmul",
+                        "shape": f"fc{ck}.{name}", "ms": k_ms,
+                        "wall_ms": k_wall, "bound_ms": bms, "bound_by": by,
+                        "plain_ms": p_ms, "library_ms": l_ms,
+                        "calls": {"fc": 1}, "m": a.shape[0], "k": a.shape[1],
+                        "n": b_.shape[1], **plan_fields(a, b_)})
+            emit(rec)
+
+    # The LSTM-LM at GNMT width: bf16 SGDM steps on the kernels.
+    cfg = lstm_lm.LSTMLMCfg(**GNMT, dtype="bfloat16")
+    params = lstm_lm.init_params(cfg, gen)
+    batches = lm_batches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_matmul_counts()
+    losses, step_ms = lm_train(cfg, params, batches)
+    launches = matmul_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    per_step = expected_lm_step_launches(cfg.n_layers, LSTM_T)
+    by_mainloop = mainloop_check(torch.bfloat16, launches)
+    if launches != per_step * GNMT_STEPS:
+        failed.append(f"lstm_lm: {launches} launches, expected "
+                      f"{per_step * GNMT_STEPS}")
+    main["lstm"] += launches
+    steady = median(step_ms[1:])
+
+    def one_step():
+        lm_train(cfg, params, batches[:1])
+
+    with checked_launches({}) as per_launch:
+        one_step()
+    held(per_launch, "lstm_lm bf16 step")
+    rec = {"phase": "lstm_lm", "dtype": cfg.dtype, **GNMT, **GNMT_SGDM,
+           "batch": LSTM_N, "seq": LSTM_T, "steps": GNMT_STEPS,
+           "launches": launches, "expected_per_step": per_step,
+           **by_mainloop, "per_launch_worst_over_band": per_launch,
+           "losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
+           "tokens_per_s": LSTM_N * LSTM_T / steady * 1e3,
+           "peak_mem_gb": peak / 1e9,
+           **table1_split(one_step, steady), "card": card}
+    emit(rec)
+    if not all(math.isfinite(v) for v in losses):
+        failed.append(f"lstm_lm bf16 losses {losses}")
+    del params
+    torch.cuda.empty_cache()
+
+    # fp32 at GNMT_FP32_LAYERS layers: the kernels' losses against the
+    # plain path's from the same weights and batches.
+    cfg = lstm_lm.LSTMLMCfg(**{**GNMT, "n_layers": GNMT_FP32_LAYERS},
+                            dtype="float32")
+    params = lstm_lm.init_params(cfg, gen)
+    plain_params = lstm_lm.map_params(torch.clone, params)
+    batches = lm_batches(cfg)
+    reset_matmul_counts()
+    losses, _ = lm_train(cfg, params, batches)
+    launches = matmul_cuda.launches
+    plain_losses, _ = lm_train(cfg, plain_params, batches, backend="torch")
+    err = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    band = TRAIN_BAND[torch.float32]["loss"]
+    emit({"phase": "lstm_lm", "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+          "launches": launches, "plain_launches": matmul_cuda.launches
+          - launches, "losses": losses, "plain_losses": plain_losses,
+          "loss_max_abs_err": err, "band": band})
+    if (launches != expected_lm_step_launches(cfg.n_layers, LSTM_T)
+            * GNMT_STEPS or matmul_cuda.launches != launches
+            or not err <= band):
+        failed.append(f"lstm_lm fp32: launches {launches} (plain "
+                      f"{matmul_cuda.launches - launches}), losses "
+                      f"{losses} against {plain_losses}")
+    del params, plain_params
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"lstm: {failed}")
+    return {path: {"matmul": c} for path, c in main.items()}, fc_rows
+
+
+# --------------------------------------------------------------------------
+# 11. starcoder2-15b: the plain GELU FFN and the sliding-window ring cache
+# --------------------------------------------------------------------------
+
+# starcoder2-15b at its published width and depth (random weights from a
+# seed, bf16: ~31.4 GB): SC_BATCH prompts of window + 256 tokens, so that
+# the ring wraps during prefill, then SC_NEW greedy tokens; then
+# ContinuousEngine on its slotted pool (a ring holds no stable position
+# range, so no paging): SC_REQUESTS greedy requests, prompts of 256 to
+# window + 256 tokens and 16 to SC_NEW new tokens drawn from
+# np.random.default_rng(3), over SC_SLOTS slots.
+SC_BATCH, SC_NEW, SC_SLOTS, SC_REQUESTS = 2, 64, 4, 8
+# mistral-large-123b's head, (8 rows, d_model) @ (d_model, vocab) to fp32:
+# the untied head's GEMM at its width (the model does not fit on a card).
+MISTRAL_HEAD = (8, 12288, 32768)
+
+
+def windowed_traffic(cfg, prompt):
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(3)
+    lens = rng.integers(256, prompt + 1, SC_REQUESTS)
+    new = rng.integers(16, SC_NEW + 1, SC_REQUESTS)
+    return [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                    max_tokens=int(m), stop_tokens=())
+            for n, m in zip(lens, new)]
+
+
+def first_divergence(cfg, params, prompts, got, want):
+    """Per row whose kernel-path tokens ``got`` differ from the plain
+    path's ``want``: the first differing step and the plain path's top-two
+    logit gap there (its prefill of the prompt and the tokens before it)."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import api
+    out = {}
+    for r, (g, w) in enumerate(zip(got, want)):
+        steps = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
+        if not steps:
+            continue
+        toks = torch.tensor([list(prompts[r]) + list(w[:steps[0]])],
+                            device="cuda")
+        with torch.inference_mode(), dispatch.use(backend="torch"):
+            cache = api.init_cache(cfg, 1, toks.shape[1], device="cuda")
+            logits, _ = api.prefill(params, {"tokens": toks}, cfg, cache)
+        top = torch.topk(logits[0], 2).values
+        out[r] = {"step": steps[0], "top2_gap": (top[0] - top[1]).item()}
+    return out
+
+
+def phase_windowed(card):
+    """starcoder2-15b through the static Engine and ContinuousEngine, bf16
+    at full depth (exact launch counts; times; every distinct matmul shape
+    and the windowed flash against their plain versions); then fp32 at 2
+    layers, where the kernel path's greedy tokens must equal the plain
+    path's (a row that differs only at a top-two logit gap within the fp32
+    band, a near-tie); and mistral-large-123b's head GEMM.  Returns
+    ({"windowed": launches}, worst abs error by kernel, the static run's
+    GEMMs with their launches, its windowed flash forward's shape, window
+    and launches)."""
+    from repro_torch.configs import get
+    from repro_torch.core import dispatch
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref,
+                                                     reset_flash_counts)
+    from repro_torch.models import api
+    from repro_torch.models.blocks import cache_len
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get("starcoder2-15b")
+    prompt = cfg.window + 256
+    max_len = prompt + SC_NEW
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    counters = {"matmul": matmul_cuda,
+                "flash_attention": flash_attention_cuda}
+    failed = []
+    params = api.init_params(cfg, gen, device="cuda")
+    engine = Engine(cfg, params, ServeConfig(max_len=max_len))
+    tokens = torch.randint(0, cfg.vocab, (SC_BATCH, prompt), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    engine.generate({"tokens": tokens[:, :16]}, n_tokens=2,
+                    stop_tokens=())               # warm-up, not counted
+    torch.cuda.synchronize()
+    # The main path: counts zeroed just before, read just after.
+    reset_matmul_counts()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate({"tokens": tokens}, n_tokens=SC_NEW,
+                          stop_tokens=())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    expect = {"matmul": gemms_per_forward(cfg) * SC_NEW,
+              "flash_attention": cfg.n_layers}
+    if launches != expect:
+        failed.append(f"static launches {launches} != {expect}")
+    by_mainloop = {**mainloop_check(torch.bfloat16, launches["matmul"]),
+                   **flash_mainloop_check(torch.bfloat16,
+                                          launches["flash_attention"])}
+    steps = step_times(cfg, params, tokens, tier="starcoder2-15b",
+                       max_len=max_len)
+    rec = {"phase": "windowed", "engine": "static", "arch": cfg.name,
+           "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "window": cfg.window,
+           "params_b": cfg.param_counts()[0] / 1e9, "batch": SC_BATCH,
+           "prompt": prompt, "new_tokens": SC_NEW,
+           "cache_positions": cache_len(cfg, max_len),
+           "launches": launches, "expected_launches": expect, **by_mainloop,
+           "generate_s": seconds,
+           "tokens_per_s": SC_BATCH * SC_NEW / seconds,
+           "ids_shape": list(ids.shape), "card": card}
+    emit(rec)
+    if tuple(ids.shape) != (SC_BATCH, SC_NEW) or not steps["logits_finite"]:
+        failed.append(f"static: ids {tuple(ids.shape)}, finite "
+                      f"{steps['logits_finite']}")
+
+    requests = windowed_traffic(cfg, prompt)
+    out, ce, c_launches, c_seconds, decode_s, finite, forwards = \
+        continuous_run(cfg, params, requests, {"n_slots": SC_SLOTS,
+                                               "max_len": max_len}, {},
+                       counters)
+    c_expect = {k: n for k, n in expected_continuous_launches(
+        cfg, ce, requests).items() if k in counters}
+    pool, empty = pool_state(ce)
+    m = ce.metrics
+    emit({"phase": "windowed", "engine": "continuous", "arch": cfg.name,
+          "slots": SC_SLOTS, "max_len": max_len, "paged": ce.paged,
+          "requests": len(requests),
+          "prompt_lens": [len(r.prompt) for r in requests],
+          "max_tokens": [r.max_tokens for r in requests],
+          "launches": c_launches, "expected_launches": c_expect,
+          "decode_steps": m.decode_steps, "prefills": m.prefills,
+          "tokens_generated": m.tokens_generated, "serve_s": c_seconds,
+          "tokens_per_s": m.tokens_generated / c_seconds,
+          "decode_step_host_ms_median": median(decode_s) * 1e3,
+          "kv_bytes": ce.pool.kv_bytes(), "pool_state": pool,
+          "logits_finite": finite, "card": card})
+    if c_launches != c_expect or not empty or not finite or ce.paged or any(
+            len(out[i]) != r.max_tokens for i, r in enumerate(requests)):
+        failed.append(f"continuous: launches {c_launches} != {c_expect}, "
+                      f"empty {empty}, finite {finite}, paged {ce.paged}")
+    del engine, ce, params
+    torch.cuda.empty_cache()
+
+    # Every distinct GEMM shape of the static run and the continuous one,
+    # and the windowed flash at the static prefill's shape, against their
+    # plain versions (the model freed: mha_ref's fp32 scores take ~22 GB).
+    worst = {"matmul": 0.0, "flash_attention": 0.0}
+    b, hq, hkv, dh = SC_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    static = windowed_gemms(cfg, prompt)
+    for g, _ in static:
+        x, w = gemm_inputs(g, torch.bfloat16, gen)
+        tol = TOL[("matmul", torch.float32 if g.out_dtype else
+                   torch.bfloat16)]
+        ok, abs_err, rel_err = close(
+            matmul_cuda(x, w, activation=g.activation, out_dtype=g.out_dtype),
+            matmul_ref(x, w, activation=g.activation, out_dtype=g.out_dtype),
+            *tol)
+        worst["matmul"] = max(worst["matmul"], abs_err)
+        emit({"phase": "windowed_parity", "kernel": "matmul",
+              "case": g.name, "m": g.m, "k": g.k, "n": g.n,
+              "activation": g.activation, "max_abs_err": abs_err,
+              "max_rel_err": rel_err, "atol": tol[0], "rtol": tol[1],
+              "ok": ok})
+        if not ok:
+            failed.append(f"matmul {g.name}")
+        del x, w
+    q, k, v, _ = qkv_views(b, hq, hkv, prompt, dh, torch.bfloat16, gen)
+    tol = TOL[("flash_attention", torch.bfloat16)]
+    ok, abs_err, rel_err = close(
+        flash_attention_cuda(q, k, v, window=cfg.window),
+        mha_ref(q, k, v, window=cfg.window), *tol)
+    worst["flash_attention"] = abs_err
+    emit({"phase": "windowed_parity", "kernel": "flash_attention",
+          "case": "windowed.prefill", "q": [b, hq, prompt, dh],
+          "kv": [b, hkv, prompt, dh], "window": cfg.window,
+          "max_abs_err": abs_err, "max_rel_err": rel_err, "atol": tol[0],
+          "rtol": tol[1], "ok": ok})
+    if not ok:
+        failed.append("flash windowed prefill")
+    del q, k, v
+    torch.cuda.empty_cache()
+    for kernel, err in continuous_parity(cfg, forwards, failed).items():
+        worst[kernel] = max(worst[kernel], err)
+
+    # mistral-large-123b's untied head GEMM.
+    hm, hd, hv = MISTRAL_HEAD
+    head = Gemm("mistral_large.head", hm, hd, hv, kind="pre")
+    x, w = gemm_inputs(head, torch.bfloat16, gen)
+    ok, abs_err, rel_err = close(
+        matmul_cuda(x, w, out_dtype=torch.float32),
+        matmul_ref(x, w, out_dtype=torch.float32), *TOL[("matmul",
+                                                          torch.float32)])
+    worst["matmul"] = max(worst["matmul"], abs_err)
+    emit({"phase": "windowed_parity", "kernel": "matmul",
+          "case": head.name, "m": hm, "k": hd, "n": hv, "out": "float32",
+          "max_abs_err": abs_err, "max_rel_err": rel_err, "ok": ok})
+    if not ok:
+        failed.append("mistral-large head")
+    del x, w
+
+    # fp32 at 2 layers: greedy tokens, the kernels against the plain path.
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = api.init_params(cfg32, gen, device="cuda")
+    engine = Engine(cfg32, params, ServeConfig(max_len=max_len))
+    got = engine.generate({"tokens": tokens}, n_tokens=SC_NEW,
+                          stop_tokens=()).tolist()
+    with dispatch.use(backend="torch"):
+        want = engine.generate({"tokens": tokens}, n_tokens=SC_NEW,
+                               stop_tokens=()).tolist()
+    gaps = {"static": first_divergence(cfg32, params, tokens.tolist(), got,
+                                       want)}
+    c_got, *_ = continuous_run(cfg32, params, requests,
+                               {"n_slots": SC_SLOTS, "max_len": max_len}, {},
+                               {})
+    with dispatch.use(backend="torch"):
+        c_want, *_ = continuous_run(cfg32, params, requests,
+                                    {"n_slots": SC_SLOTS,
+                                     "max_len": max_len}, {}, {})
+    ids = sorted(c_want)
+    gaps["continuous"] = first_divergence(
+        cfg32, params, [requests[i].prompt for i in ids],
+        [c_got[i] for i in ids], [c_want[i] for i in ids])
+    band = LOGITS_BAND[torch.float32]
+    emit({"phase": "windowed", "engine": "static+continuous",
+          "dtype": "float32", "n_layers": 2,
+          "static_rows_matching_plain": [a == b for a, b in zip(got, want)],
+          "continuous_requests_matching_plain": [c_got[i] == c_want[i]
+                                                 for i in ids],
+          "first_divergence": gaps, "band": band})
+    for where, rows in gaps.items():
+        for r, gap in rows.items():
+            if not abs(gap["top2_gap"]) <= band:
+                failed.append(f"fp32 {where} row {r} differs from the plain "
+                              f"path at step {gap['step']}, top-two gap "
+                              f"{gap['top2_gap']}")
+    del engine, params
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"windowed: {failed}")
+    flash = {"shape": (b, hq, hkv, prompt, dh), "window": cfg.window,
+             "launches": cfg.n_layers}
+    return {"windowed": launches}, worst, static, flash
+
+
+def windowed_gemms(cfg, prompt):
+    """The static run's GEMMs with their launches: one prefill forward
+    over SC_BATCH x prompt rows and SC_NEW - 1 decode forwards over
+    SC_BATCH rows, the head at SC_BATCH rows in each."""
+    out = [(g, g.per_forward) for g in
+           forward_gemms(cfg, "windowed.prefill", SC_BATCH * prompt)]
+    out += [(g, g.per_forward * (SC_NEW - 1)) for g in
+            forward_gemms(cfg, "windowed.decode", SC_BATCH)]
+    return out + [(Gemm("windowed.lm_head", SC_BATCH, cfg.d_model,
+                        cfg.vocab, kind="head"), SC_NEW)]
+
+
+def phase_times_slice(card, fc_rows, windowed_static, flash):
+    """Per-shape times of the lstm, fc and windowed paths' bf16 kernels
+    (bf16: the paths' main runs), for the kernels line: each GEMM shape of
+    the lstm path and of the static windowed run, and the windowed flash
+    forward, beside its bound, plain version and library call; the fc
+    rows come timed from phase_lstm."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    row = row_recorder(rows, card)
+    for path, gemms in (("lstm", lstm_gemms()),
+                        ("windowed", windowed_static)):
+        for g, calls in gemms:
+            iters = 40 if 2 * g.m * g.n * g.k < 1e11 else 8
+            ms, wall, plain, lib, flops, nbytes, plan = gemm_times(g, gen,
+                                                                   iters)
+            row("matmul", g.name, ms, wall, flops, nbytes, plain, lib,
+                {path: calls}, m=g.m, k=g.k, n=g.n, activation=g.activation,
+                layout=g.kind, bias=g.bias, c0=g.c0, **plan)
+    for r in fc_rows:
+        rows.append(r)
+        emit(r)
+    b, hq, hkv, t, d = flash["shape"]
+    window = flash["window"]
+    # (q, k) pairs within the window, causal
+    pairs = sum(min(i + 1, window) for i in range(t))
+    q_bytes, kv_bytes = 2 * b * hq * t * d, 2 * b * hkv * t * d
+    nbytes = 2 * q_bytes + 2 * kv_bytes
+    sets = [qkv_views(b, hq, hkv, t, d, torch.bfloat16, gen)
+            for _ in range(n_sets(nbytes))]
+    ms, wall = time_ms(lambda q, k, v, _: flash_attention_cuda(
+        q, k, v, window=window), sets, 8)
+    plain, _ = time_ms(lambda q, k, v, _: mha_ref(q, k, v, window=window),
+                       sets, 4)
+    idx = torch.arange(t, device="cuda")
+    mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None]
+                                              - window)
+    lib, _ = time_ms(lambda q, k, v, _: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), sets, 8)
+    row("flash_attention", "windowed.prefill", ms, wall,
+        4 * b * hq * pairs * d, nbytes, plain, lib,
+        {"windowed": flash["launches"]},
+        q=[b, hq, t, d], kv=[b, hkv, t, d], window=window,
+        mainloop=FK.plan_call(*sets[0][:3]))
+    return rows
+
+
+# --------------------------------------------------------------------------
+# 12. kernel times
 # --------------------------------------------------------------------------
 
 class NoDeviceTime(RuntimeError):
@@ -2723,22 +3522,26 @@ def conv_plan_fields(x, w, stride=1, padding=0):
     return {"mainloop": p.mainloop, "splits": p.splits}
 
 
-def gemm_times(g, gen):
+def gemm_times(g, gen, iters=40):
     """(ms, wall ms, plain ms, library ms, flops, bytes, plan fields) of
-    one bf16 GEMM at ``g``'s shape and layout; the library call is
-    torch.matmul (no activation, no fp32 out)."""
+    one bf16 GEMM at ``g``'s shape and layout, with its bias and fp32 c0
+    where it takes them; the library call is torch.matmul (no epilogue,
+    no fp32 out)."""
     from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
     out_bytes = 4 if g.out_dtype else 2
-    nbytes = (g.m * g.k + g.k * g.n) * 2 + g.m * g.n * out_bytes
-    sets = [gemm_inputs(g, torch.bfloat16, gen)
-            for _ in range(n_sets(nbytes))]
-    ms, wall = time_ms(lambda x, w: matmul_cuda(
-        x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
-    plain, _ = time_ms(lambda x, w: matmul_ref(
-        x, w, activation=g.activation, out_dtype=g.out_dtype), sets)
-    lib, _ = time_ms(torch.matmul, sets)
+    nbytes = ((g.m * g.k + g.k * g.n) * 2 + g.m * g.n * out_bytes
+              + g.bias * 2 * g.n + g.c0 * 4 * g.m * g.n)
+    sets, kw = [], {}
+    for _ in range(n_sets(nbytes)):
+        args, kw = gemm_call(g, torch.bfloat16, gen)
+        sets.append(args)
+    ms, wall = time_ms(lambda x, w, b, c0: matmul_cuda(x, w, b, c0, **kw),
+                       sets, iters)
+    plain, _ = time_ms(lambda x, w, b, c0: matmul_ref(x, w, b, c0=c0, **kw),
+                       sets, iters)
+    lib, _ = time_ms(lambda x, w, b, c0: torch.matmul(x, w), sets, iters)
     return ms, wall, plain, lib, 2 * g.m * g.n * g.k, nbytes, \
-        plan_fields(*sets[0])
+        plan_fields(*sets[0][:2])
 
 
 def summed_row(rows, kernel, shape, parts, card, **kw):
@@ -3218,15 +4021,19 @@ SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
 
 def kernels_line(rows, launches_by_path, worst):
     """Per kernel, each time summed over the launches of the runs that
-    drove the paths, from the per-shape times of phase 10 (each row's
+    drove the paths, from the per-shape times of phase 12 (each row's
     ``calls`` by path); the sums are also given by path.  The paths' runs:
     serving, one bf16 ``Engine.generate``; continuous, the bf16 pools'
     ``ContinuousEngine.serve`` runs (every shape they gave a kernel is
     timed); training, TRAIN_STEPS bf16
     steps; resnet, one bf16 forward and one gradient step; brgemm, the
     bf16 forward and backward of each of BRGEMM_CASES and one
-    ``batched_matmul`` each.  ``delta_rowsum`` runs on none of them (it is
-    the oracle of the fused delta): its times are one call's."""
+    ``batched_matmul`` each; lstm, the bf16 LSTM's forward and gradient
+    pass at each of LSTM_SIZES and GNMT_STEPS bf16 LSTM-LM steps; fc, the
+    bf16 FC layer's three passes at each of FC_SIZES; windowed,
+    starcoder2-15b's bf16 ``Engine.generate``.  ``delta_rowsum`` runs on
+    none of them (it is the oracle of the fused delta): its times are one
+    call's."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     out = []
     for name, (source, replaces) in SOURCES.items():
@@ -3259,6 +4066,18 @@ def kernels_line(rows, launches_by_path, worst):
     return {"kernels": out}
 
 
+def check_row_calls(rows, launches, paths):
+    """Each of ``paths``: its per-shape rows' launches sum, kernel by
+    kernel, to the launches its run counted."""
+    for path in paths:
+        for kernel, counted in launches[path].items():
+            timed = sum(r["calls"].get(path, 0) for r in rows
+                        if r["kernel"] == kernel)
+            if timed != counted:
+                raise AssertionError(f"{path}: {kernel} rows hold {timed} "
+                                     f"launches, the run counted {counted}")
+
+
 def main():
     card = phase_device()
     from repro_torch.configs import get
@@ -3275,8 +4094,16 @@ def main():
         worst[kernel] = max(worst[kernel], err)
     launches.update(train=phase_train(cfg), resnet=phase_resnet(),
                     brgemm=phase_brgemm(), quant=phase_quant(cfg))
+    lstm_launches, fc_rows = phase_lstm(card)
+    launches.update(lstm_launches)
+    win_launches, win_worst, win_static, win_flash = phase_windowed(card)
+    launches.update(win_launches)
+    for kernel, err in win_worst.items():
+        worst[kernel] = max(worst[kernel], err)
     rows = (phase_times(cfg, card, cont_forwards) + phase_times_paper(card)
-            + phase_times_quant(cfg, card, cont_forwards))
+            + phase_times_quant(cfg, card, cont_forwards)
+            + phase_times_slice(card, fc_rows, win_static, win_flash))
+    check_row_calls(rows, launches, ("lstm", "fc", "windowed"))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,6 +7,9 @@ from repro_torch.configs.base import ArchCfg  # noqa: F401
 
 _MODULES = {
     "smollm-135m": "smollm_135m",
+    "starcoder2-15b": "starcoder2_15b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "mistral-large-123b": "mistral_large_123b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

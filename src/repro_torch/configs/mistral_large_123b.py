@@ -1,0 +1,19 @@
+"""mistral-large-123b [dense].
+
+88L d_model=12288 96H (GQA kv=8) d_ff=28672 vocab=32768
+[hf:mistralai/Mistral-Large-Instruct-2407; unverified]
+"""
+from repro_torch.configs.base import ArchCfg
+
+CONFIG = ArchCfg(
+    name="mistral-large-123b",
+    family="dense",
+    block="dense",
+    n_layers=88,
+    d_model=12288,
+    n_heads=96,
+    n_kv_heads=8,
+    d_ff=28672,
+    vocab=32768,
+    tie_embeddings=False,
+)

@@ -10,7 +10,11 @@ inverse.  ``opt_state_from_numpy`` and ``opt_state_to_numpy`` carry the
 AdamW state (step, m, v, master) across the same way: the port keeps it
 by parameter name, the reference as trees shaped like the parameters.
 ``resnet_params_from_numpy`` and ``resnet_params_to_numpy`` carry
-ResNet-50's parameters, a tree of the same layout in both packages.
+ResNet-50's parameters, a tree of the same layout in both packages, and
+``lstm_params_from_numpy`` (one LSTM layer), ``lstm_lm_params_from_numpy``
+and ``lstm_lm_params_to_numpy`` the LSTM language model's alike.  An
+untied head (``head.w``) and an ungated MLP (no ``w_gate``) carry across
+as the tree holds them.
 A calibrated reference tree (``repro.quant.calibrate_params``, then numpy
 leaves) carries across too: each stacked ``QuantizedTensor`` leaf (``q``
 (L, k, n), ``scale`` (L, n) or (L,)) is sliced per layer into the port's
@@ -27,7 +31,7 @@ from repro_torch.configs.base import ArchCfg
 from repro_torch.core.dispatch import check_device
 from repro_torch.core.quantize import (TORCH_DTYPES, QuantizedTensor,
                                        install)
-from repro_torch.models import resnet
+from repro_torch.models import lstm_lm, resnet
 from repro_torch.models.blocks import dtype_of
 from repro_torch.models.transformer import Transformer
 
@@ -73,12 +77,27 @@ def _leaf(tree, path):
     return tree
 
 
+def _block_leaves(cfg: ArchCfg):
+    """_BLOCK_LEAVES of ``cfg``'s blocks: no ``w_gate`` in a plain MLP."""
+    return [(path, attr) for path, attr in _BLOCK_LEAVES
+            if cfg.gated_mlp or path != ("mlp", "w_gate")]
+
+
+def _one(leaf):
+    """A leaf, or a calibrated one's (q, scale)."""
+    if _is_quantized(leaf):
+        return np.asarray(leaf.q), np.asarray(leaf.scale)
+    return leaf
+
+
 def named_leaves(tree, cfg: ArchCfg):
     """(parameter name, numpy array) for every leaf of a reference tree,
     the stacked layers sliced per layer."""
     yield "embed.table", tree["embed"]["table"]
     yield "final_ln.scale", tree["final_ln"]["scale"]
-    for path, attr in _BLOCK_LEAVES:
+    if not cfg.tie_embeddings:
+        yield "head.w", _one(tree["head"]["w"])
+    for path, attr in _block_leaves(cfg):
         leaf = _leaf(tree["blocks"], path)
         stacked = (np.asarray(leaf.q) if _is_quantized(leaf)
                    else np.asarray(leaf))
@@ -103,14 +122,19 @@ def _tree_of(named) -> dict:
     n_layers = len({n.split(".")[1] for n in named if n.startswith("blocks.")})
     blocks: dict = {}
     for path, attr in _BLOCK_LEAVES:
+        if f"blocks.0.{attr}" not in named:      # w_gate of a plain MLP
+            continue
         node = blocks
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.stack(
             [np32(named[f"blocks.{i}.{attr}"]) for i in range(n_layers)])
-    return {"embed": {"table": np32(named["embed.table"])},
+    tree = {"embed": {"table": np32(named["embed.table"])},
             "final_ln": {"scale": np32(named["final_ln.scale"])},
             "blocks": blocks}
+    if "head.w" in named:
+        tree["head"] = {"w": np32(named["head.w"])}
+    return tree
 
 
 def params_from_numpy(tree, cfg: ArchCfg, device="cuda",
@@ -186,7 +210,39 @@ def resnet_params_from_numpy(tree, cfg: resnet.ResNetCfg, device="cuda"):
     return convert(resnet.init_params(cfg, device="meta"), tree, "")
 
 
-def resnet_params_to_numpy(params):
-    """The port's ResNet parameters as the reference's tree, fp32 numpy."""
+def _numpy_tree(params):
+    """A nested dict / list of tensors as the same tree of fp32 numpy."""
     return resnet.map_params(lambda t: t.detach().float().cpu().numpy(),
                              params)
+
+
+def resnet_params_to_numpy(params):
+    """The port's ResNet parameters as the reference's tree, fp32 numpy."""
+    return _numpy_tree(params)
+
+
+def lstm_params_from_numpy(tree, device="cuda", dtype=torch.float32):
+    """One reference LSTM layer ``{"w", "r", "b"}`` (numpy leaves) as the
+    port's, tensors of ``dtype`` on ``device``."""
+    device = check_device(device)
+    return {k: _to_torch(tree[k], dtype, device) for k in ("w", "r", "b")}
+
+
+def lstm_lm_params_from_numpy(tree, cfg: lstm_lm.LSTMLMCfg, device="cuda"):
+    """The reference's LSTM-LM tree (numpy leaves) as the port's, in
+    ``cfg.dtype`` on ``device``; raises where its layer count differs."""
+    if len(tree["layers"]) != cfg.n_layers:
+        raise ValueError(f"layers: {len(tree['layers'])} entries, config "
+                         f"has {cfg.n_layers}")
+    device = check_device(device)
+    dt = getattr(torch, cfg.dtype)
+    return {"embed": {"table": _to_torch(tree["embed"]["table"], dt,
+                                         device)},
+            "layers": [lstm_params_from_numpy(lp, device, dt)
+                       for lp in tree["layers"]]}
+
+
+def lstm_lm_params_to_numpy(params):
+    """The port's LSTM-LM parameters (or gradients) as the reference's
+    tree, fp32 numpy."""
+    return _numpy_tree(params)

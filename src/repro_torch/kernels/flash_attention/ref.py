@@ -27,8 +27,10 @@ def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     With ``return_lse`` also returns the fp32 (B, Hq, Tq) log-sum-exp of
     the scaled scores, ``NEG_INF`` for a row with no valid key.
 
-    GQA runs as a broadcast over the q heads of each kv group (q head h
-    reads kv head h // group), so K and V are never repeated.
+    GQA folds the q heads of each kv group into the rows of one product
+    (q head h reads kv head h // group), so K and V are never repeated: a
+    broadcast over the group would make ``torch.matmul`` copy K and V once
+    a q head.
     """
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -37,10 +39,9 @@ def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     group = hq // hkv
     scale = scale if scale is not None else d ** -0.5
 
-    qg = q.float().reshape(b, hkv, group, tq, d)
-    kg = k.float()[:, :, None]
-    vg = v[:, :, None]
-    s = torch.matmul(qg, kg.transpose(-1, -2)) * scale   # (b,hkv,g,tq,tk)
+    qg = q.float().reshape(b, hkv, group * tq, d)
+    s = torch.matmul(qg, k.float().transpose(-1, -2)).reshape(
+        b, hkv, group, tq, tk) * scale                   # (b,hkv,g,tq,tk)
     q_pos = torch.arange(tq, device=q.device)[:, None]
     k_pos = torch.arange(tk, device=q.device)[None, :]
     if isinstance(q_offset, torch.Tensor):    # per row: (b, 1, 1, tq, 1)
@@ -61,7 +62,8 @@ def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     p = torch.exp(s - mx)
     den = p.sum(dim=-1, keepdim=True)
     p = p / den
-    out = torch.matmul(p.to(v.dtype).float(), vg.float())
+    out = torch.matmul(p.to(v.dtype).float().reshape(b, hkv, group * tq, tk),
+                       v.float())
     out = out.reshape(b, hq, tq, d).to(q.dtype)
     if not return_lse:
         return out

@@ -16,7 +16,16 @@ Decode takes a (B,) tensor of positions, one per row: a static batch
 passes one position for every row, a slot pool each slot's own length
 (the reference ``vmap``s a batch-1 decode over the slots; here one
 batched call applies RoPE, writes K and V and masks attention per row).
-MLA and the sliding-window ring cache wait for later slices.
+
+With a sliding window the cache is a ring of ``w = min(max_len, window)``
+positions (``repro/models/blocks.py``, ``_ring_from_prefill`` and
+``_ring_decode``): prefill runs windowed flash attention over the whole
+prompt and keeps its last ``w`` keys and values, position ``p`` at slot
+``p % w``; decode writes each row's token at ``pos % w`` and attends,
+unmasked by position, over its ``min(pos + 1, w)`` entries.  The reference
+projects K and V a second time for the ring; here the prefill's own are
+kept.  A ring holds no stable position range, so chunked prefill (and
+paging) refuse windowed configs.  MLA waits for a later slice.
 """
 from __future__ import annotations
 
@@ -109,8 +118,13 @@ class Attention(nn.Module):
                                 backend=backend)
             if mode == "train":
                 return self._out(o, backend)
-            cache["k"][:, :, :t] = k
-            cache["v"][:, :, :t] = v
+            w = cache["k"].shape[2]
+            for key, new in (("k", k), ("v", v)):
+                if cfg.window and t >= w:     # the last w, at p % w
+                    cache[key][:] = torch.roll(new[:, :, t - w:],
+                                               (t - w) % w, dims=2)
+                else:
+                    cache[key][:, :, :t] = new
             return self._out(o, backend), cache
         if mode == "prefill_chunk":
             q, k, v = self._qkv(x, pos + torch.arange(t, device=x.device),
@@ -125,9 +139,12 @@ class Attention(nn.Module):
                 raise ValueError(f"decode takes one token a row, got {t}")
             q, k, v = self._qkv(x, pos[:, None], backend)
             rows = torch.arange(x.shape[0], device=x.device)
-            cache["k"][rows, :, pos] = k[:, :, 0]
-            cache["v"][rows, :, pos] = v[:, :, 0]
+            w = cache["k"].shape[2]
+            slot = pos % w if cfg.window else pos
+            cache["k"][rows, :, slot] = k[:, :, 0]
+            cache["v"][rows, :, slot] = v[:, :, 0]
+            kv_len = torch.clamp(pos + 1, max=w) if cfg.window else pos + 1
             o = mha_ref(q, cache["k"], cache["v"], causal=False,
-                        window=cfg.window, q_offset=pos, kv_len=pos + 1)
+                        kv_len=kv_len)
             return self._out(o, backend), cache
         raise ValueError(f"unknown attention mode {mode!r}")

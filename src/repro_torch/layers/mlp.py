@@ -1,8 +1,10 @@
-"""Gated MLP through the batch-reduce GEMM.
+"""Transformer MLPs through the batch-reduce GEMM: gated and plain.
 
-The activation is fused into the gate GEMM's epilogue (paper Sec. 3.3.2:
-apply it while the output block is still hot); ``g * u`` is taken in the
-activations' dtype, as in the reference.
+The activation is fused into the first GEMM's epilogue (paper Sec. 3.3.2:
+apply it while the output block is still hot): the gate GEMM's in the
+gated (SwiGLU-style) MLP, where ``g * u`` is taken in the activations'
+dtype, and the up GEMM's in the plain one (starcoder2's GELU FFN), as in
+the reference (``repro/layers/mlp.py``).
 """
 from __future__ import annotations
 
@@ -14,24 +16,30 @@ from repro_torch.core import brgemm
 
 def apply(w_gate, w_up, w_down, x, *, activation: str = "silu",
           backend: str | None = None):
-    g = brgemm.matmul(x, w_gate, activation=activation, backend=backend)
-    u = brgemm.matmul(x, w_up, backend=backend)
-    return brgemm.matmul(g * u, w_down, backend=backend)
+    """``w_down(act(x w_gate) * (x w_up))``, or ``w_down(act(x w_up))``
+    where ``w_gate`` is None."""
+    if w_gate is None:
+        h = brgemm.matmul(x, w_up, activation=activation, backend=backend)
+    else:
+        g = brgemm.matmul(x, w_gate, activation=activation, backend=backend)
+        h = g * brgemm.matmul(x, w_up, backend=backend)
+    return brgemm.matmul(h, w_down, backend=backend)
 
 
 class MLP(nn.Module):
-    """SwiGLU-style: ``w_down(act(x w_gate) * (x w_up))``; weights (k, n)."""
+    """Weights (k, n): ``w_up``, ``w_down``, and ``w_gate`` when gated."""
 
-    def __init__(self, d: int, d_ff: int, *, activation: str = "silu",
-                 dtype=torch.float32, device="cpu"):
+    def __init__(self, d: int, d_ff: int, *, gated: bool = True,
+                 activation: str = "silu", dtype=torch.float32,
+                 device="cpu"):
         super().__init__()
         self.activation = activation
 
         def w(k, n):
             return nn.Parameter(torch.empty(k, n, dtype=dtype, device=device))
 
-        self.w_gate, self.w_up, self.w_down = w(d, d_ff), w(d, d_ff), \
-            w(d_ff, d)
+        self.w_gate = w(d, d_ff) if gated else None
+        self.w_up, self.w_down = w(d, d_ff), w(d_ff, d)
 
     def forward(self, x, *, backend: str | None = None):
         return apply(self.w_gate, self.w_up, self.w_down, x,

@@ -1,7 +1,9 @@
 """The dense decoder block: ``x += attn(ln1(x)); x += mlp(ln2(x))``.
 
-Other block families (MoE, MLA, xLSTM, RG-LRU, the sliding-window ring
-cache, encoder-decoder) wait for later slices.
+The MLP is gated or plain (``cfg.gated_mlp``); a sliding-window config
+serves from a ring cache of ``min(max_len, window)`` positions
+(``layers/attention.py``).  Other block families (MoE, MLA, xLSTM,
+RG-LRU, encoder-decoder) wait for later slices.
 """
 from __future__ import annotations
 
@@ -25,10 +27,16 @@ def attn_cfg(cfg: ArchCfg) -> attention.AttnCfg:
 
 
 def check_dense(cfg: ArchCfg) -> None:
-    if cfg.block != "dense" or cfg.mla or not cfg.gated_mlp:
+    if cfg.block != "dense" or cfg.mla or cfg.n_patches:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense gated-MLP GQA decoders only "
-            f"(block={cfg.block!r})")
+            f"{cfg.name}: the port serves dense GQA decoders only "
+            f"(block={cfg.block!r}, n_patches={cfg.n_patches})")
+
+
+def cache_len(cfg: ArchCfg, max_len: int) -> int:
+    """A layer's cache positions: a windowed config's ring holds at most
+    ``window``."""
+    return min(max_len, cfg.window) if cfg.window else max_len
 
 
 class DecoderBlock(nn.Module):
@@ -41,8 +49,9 @@ class DecoderBlock(nn.Module):
         self.attn = attention.Attention(attn_cfg(cfg), dtype=dt,
                                         device=device)
         self.ln2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, activation=cfg.mlp_activation,
-                       dtype=dt, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                       activation=cfg.mlp_activation, dtype=dt,
+                       device=device)
 
     def forward(self, x, *, mode: str = "train", cache=None, pos=0,
                 backend: str | None = None):
@@ -50,9 +59,10 @@ class DecoderBlock(nn.Module):
         place (``None`` in train mode).  ``pos``: the chunk's first
         position (prefill_chunk), the token's positions (decode; a (B,)
         tensor, one a row)."""
-        if self.cfg.window and mode != "train":
-            raise NotImplementedError(
-                "sliding-window serving (the ring cache) is not ported yet")
+        if self.cfg.window and mode == "prefill_chunk":
+            raise ValueError(
+                "chunked prefill is not supported for sliding-window archs "
+                "(ring cache holds only the trailing window)")
         h = self.ln1(x)
         if mode == "train":
             x = x + self.attn(h, mode="train", backend=backend)
@@ -66,5 +76,5 @@ class DecoderBlock(nn.Module):
 
 def decoder_block_cache(cfg: ArchCfg, batch: int, max_len: int, *,
                         device="cpu"):
-    return attention.init_cache(attn_cfg(cfg), batch, max_len,
+    return attention.init_cache(attn_cfg(cfg), batch, cache_len(cfg, max_len),
                                 dtype=dtype_of(cfg), device=device)

@@ -1,5 +1,6 @@
 """The dense decoder-only LM: init, forward, loss, prefill, prefill_chunk
-and decode_step.
+and decode_step.  The head is the tied embedding table or, where
+``cfg.tie_embeddings`` is false, its own ``head.w`` (d_model, vocab).
 
 The reference scans one traced block over layer parameters stacked on a
 leading axis; here the layers are an ``nn.ModuleList`` run by a Python
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchCfg
+from repro_torch.core import brgemm
 from repro_torch.core.dispatch import check_device
 from repro_torch.layers.embeddings import Embedding
 from repro_torch.layers.norms import RMSNorm
@@ -24,22 +26,31 @@ ZERO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0,
             "dropped_fraction": 0.0}
 
 
+class Head(nn.Module):
+    """The untied output head: ``w`` (d_model, vocab)."""
+
+    def __init__(self, d: int, vocab: int, *, dtype, device):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d, vocab, dtype=dtype,
+                                          device=device))
+
+
 class Transformer(nn.Module):
-    """Parameters of a dense LM with tied embeddings, uninitialised
-    (``init_params`` fills them from a generator, ``interop`` from the
-    reference's tree).  ``device`` defaults to the card."""
+    """Parameters of a dense LM, uninitialised (``init_params`` fills them
+    from a generator, ``interop`` from the reference's tree).  ``device``
+    defaults to the card."""
 
     def __init__(self, cfg: ArchCfg, *, device="cuda"):
         super().__init__()
         blocks.check_dense(cfg)
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("untied output heads are not ported")
         device = check_device(device)
         dt = blocks.dtype_of(cfg)
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=dt,
                                device=device)
         self.final_ln = RMSNorm(cfg.d_model, dtype=dt, device=device)
+        self.head = (None if cfg.tie_embeddings else
+                     Head(cfg.d_model, cfg.vocab, dtype=dt, device=device))
         self.blocks = nn.ModuleList(
             blocks.DecoderBlock(cfg, device=device)
             for _ in range(cfg.n_layers))
@@ -52,7 +63,11 @@ class Transformer(nn.Module):
         return self.embed.encode(tokens).to(blocks.dtype_of(self.cfg))
 
     def _head(self, h, backend):
-        return self.embed.decode(self.final_ln(h), backend=backend)
+        h = self.final_ln(h)
+        if self.head is None:
+            return self.embed.decode(h, backend=backend)
+        return brgemm.matmul(h, self.head.w, out_dtype=torch.float32,
+                             backend=backend)
 
     def _run(self, h, *, mode, cache, pos, backend):
         for i, block in enumerate(self.blocks):

@@ -110,10 +110,11 @@ class Engine:
         has one (pass ``()`` to disable).  With stop tokens the loop ends as
         soon as every row has emitted one; rows that finish early keep
         decoding until the slowest row is done.  ``generator`` (default: a
-        CPU generator seeded 0) feeds sampling and is unused when greedy.
+        generator on the engine's device, seeded 0) feeds sampling and is
+        unused when greedy.
         """
         if generator is None:
-            generator = torch.Generator().manual_seed(0)
+            generator = torch.Generator(self.device).manual_seed(0)
         if stop_tokens is None:
             stop_tokens = ((self.cfg.eos_token,)
                            if self.cfg.eos_token is not None else ())

@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core.dispatch import check_device
 from repro_torch.models import api
-from repro_torch.models.blocks import dtype_of
+from repro_torch.models.blocks import cache_len, dtype_of
 
 
 def _zeros(cfg: ArchCfg, n: int, length: int, dtype, device) -> dict:
@@ -47,7 +47,9 @@ class SlotKVCache:
 
     Attributes
     ----------
-    leaves:      ``{"k", "v"}``, each (L, n_slots, Hkv, max_len, dh).
+    leaves:      ``{"k", "v"}``, each (L, n_slots, Hkv, T, dh), T =
+                 ``max_len``, or a windowed config's ring of ``min(max_len,
+                 window)`` positions.
     cache:       the model's per-layer views of them (``api.layer_views``),
                  what ``api.decode_step_slots`` takes.
     lengths:     (n_slots,) int32, valid kv length per slot (prompt +
@@ -68,8 +70,8 @@ class SlotKVCache:
         self.n_slots = n_slots
         self.max_len = max_len
         with torch.inference_mode():
-            self.leaves = _zeros(cfg, n_slots, max_len, dtype_of(cfg),
-                                 self.device)
+            self.leaves = _zeros(cfg, n_slots, cache_len(cfg, max_len),
+                                 dtype_of(cfg), self.device)
         self.cache = api.layer_views(self.leaves)
         self.lengths = np.zeros(n_slots, np.int32)
         self.positions = np.zeros(n_slots, np.int32)

@@ -10,7 +10,12 @@ corrections use the incremented step, ``eps`` sits outside the square
 root, and weight decay is applied to the master inside the same step.
 Where the reference builds new arrays, this updates ``m``, ``v`` and
 ``master`` in place (``torch._foreach_*``), so the state costs no second
-copy.  SGDM is not ported yet.
+copy.
+
+SGDM (``SGDMCfg``, ``sgdm_init``, ``sgdm_update``) is the reference's too,
+for the paper's LSTM workloads: the gradients clipped by the global norm of
+the raw gradients, weight decay added to the gradient, an fp32 momentum,
+and the parameters (no master copy) updated in place.
 """
 from __future__ import annotations
 
@@ -99,3 +104,49 @@ def cast_params(state: dict, params: Mapping[str, torch.Tensor]):
     for n, p in params.items():
         p.copy_(state["master"][n])
     return params
+
+
+@dataclasses.dataclass(frozen=True)
+class SGDMCfg:
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0
+
+
+def sgdm_init(params: Mapping[str, torch.Tensor], cfg: SGDMCfg) -> dict:
+    """``{"step": 0, "mom": {name: fp32 zeros}}``."""
+    return {"step": 0,
+            "mom": {n: torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+                    for n, p in params.items()}}
+
+
+@torch.no_grad()
+def sgdm_update(params: Mapping[str, torch.Tensor],
+                grads: Mapping[str, torch.Tensor], state: dict,
+                cfg: SGDMCfg, lr_scale: float = 1.0):
+    """Returns ``(params, new_state, {"grad_norm"})``, in the reference's
+    order of operations: ``scale = min(1, clip / (gnorm + 1e-9))`` (when
+    clipping), ``g32 = g * scale + wd * p``, ``m = mu * m + g32``, ``p =
+    p32 - lr * lr_scale * m`` cast back to the parameter's dtype.  The
+    parameters and the momentum are updated in place."""
+    names = list(state["mom"])
+    gnorm = global_norm([grads[n] for n in names])
+    g32 = [grads[n].float() for n in names]
+    if cfg.grad_clip:
+        g32 = torch._foreach_mul(
+            g32, torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0))
+    p = [params[n] for n in names]
+    p32 = [t.float() for t in p]      # the same tensors when fp32
+    if cfg.weight_decay:
+        torch._foreach_add_(g32, torch._foreach_mul(p32, cfg.weight_decay))
+    mom = [state["mom"][n] for n in names]
+    torch._foreach_mul_(mom, cfg.momentum)
+    torch._foreach_add_(mom, g32)
+    torch._foreach_sub_(p32, torch._foreach_mul(mom, cfg.lr * lr_scale))
+    for dst, src in zip(p, p32):
+        if dst is not src:
+            dst.copy_(src)
+    return params, {"step": state["step"] + 1, "mom": state["mom"]}, {
+        "grad_norm": gnorm}

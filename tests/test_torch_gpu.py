@@ -1200,3 +1200,150 @@ def test_flash_backward_tma_illegal_and_fp32_mainloops(gen):
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             _rel_close(g, w, GRAD_BAND[dtype], f"{mainloop} {name}")
         assert flash_attention_bwd_cuda.mainloops[mainloop] == 1
+
+
+# --------------------------------------------------------------------------
+# the LSTM's chained gate GEMM, the LSTM and its LM; the windowed paths
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["sigmoid", "tanh"])
+def test_lstm_gate_gemm_chain(gen, dtype, activation):
+    """pre = x @ W (fp32 out), then act(h @ R + pre + b) with pre as an
+    fp32 c0 beside operands of ``dtype``: the forward against the plain
+    chain, and every gradient (dc0 flowing back into the first GEMM)
+    against plain autograd, with 2 launches forward and 4 backward."""
+    n, c, k = 40, 72, 96
+    x = torch.randn(n, c, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(c, k, device="cuda", generator=gen) * c ** -0.5
+         ).to(dtype)
+    h = torch.randn(n, k, device="cuda", generator=gen).to(dtype)
+    r = (torch.randn(k, k, device="cuda", generator=gen) * k ** -0.5
+         ).to(dtype)
+    b = torch.randn(k, device="cuda", generator=gen).to(dtype)
+    dy = torch.randn(n, k, device="cuda", generator=gen).to(dtype)
+    pre = matmul_cuda(x, w, out_dtype=torch.float32)
+    assert pre.dtype == torch.float32
+    torch.testing.assert_close(pre, matmul_ref(x, w, out_dtype=torch.float32),
+                               **TOL[torch.float32])
+    got = matmul_cuda(h, r, b, pre, beta=1.0, activation=activation)
+    want = matmul_ref(h, r, b, c0=pre, beta=1.0, activation=activation)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    grads = {}
+    for backend in ("cuda", "torch"):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, h, r,
+                                                                 b)]
+        before = matmul_cuda.launches
+        p = matmul(leaves[0], leaves[1], out_dtype=torch.float32,
+                   backend=backend)
+        y = matmul(leaves[2], leaves[3], leaves[4], p, beta=1.0,
+                   activation=activation, backend=backend)
+        grads[backend] = torch.autograd.grad(y, leaves, dy)
+        assert matmul_cuda.launches - before == (6 if backend == "cuda"
+                                                 else 0)
+    for name, g, want in zip(("dx", "dw", "dh", "dr", "db"), grads["cuda"],
+                             grads["torch"]):
+        assert g.dtype == dtype
+        _rel_close(g, want, GRAD_BAND[dtype], name)
+
+
+def test_lstm_and_lstm_lm_kernels_match_plain(gen):
+    """fp32: the LSTM forward (8 matmul launches a step) and the LSTM-LM's
+    loss and gradients, on the kernels against the plain path."""
+    from repro_torch.layers import lstm
+    from repro_torch.models import lstm_lm
+    p = lstm.init(24, 32, generator=gen)
+    x = torch.randn(5, 6, 24, device="cuda", generator=gen)
+    before = matmul_cuda.launches
+    h, s = lstm.forward(p, x)
+    assert matmul_cuda.launches - before == 8 * 5
+    with dispatch.use(backend="torch"):
+        hr, sr = lstm.forward(p, x)
+    torch.testing.assert_close(h, hr, **TOL[torch.float32])
+    torch.testing.assert_close(s, sr, **TOL[torch.float32])
+    cfg = lstm_lm.LSTMLMCfg(vocab=96, d_model=32, n_layers=2)
+    params = lstm_lm.init_params(cfg, gen)
+    tokens = torch.randint(0, 96, (3, 7), device="cuda", generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    (loss, _), grads = lstm_lm.loss_and_grads(params, batch, cfg)
+    with dispatch.use(backend="torch"):
+        (want, _), wgrads = lstm_lm.loss_and_grads(params, batch, cfg)
+    torch.testing.assert_close(loss, want, atol=1e-5, rtol=1e-5)
+    for (name, g), (_, w) in zip(lstm_lm.named_leaves(grads),
+                                 lstm_lm.named_leaves(wgrads)):
+        _rel_close(g, w, GRAD_BAND[torch.float32], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_windowed_head_dim_128(gen, dtype):
+    """starcoder2's attention shape, reduced: head_dim 128, 12 / 1 heads,
+    T = 300 past a window of 128."""
+    q, k, v = _qkv(gen, 2, 12, 1, 300, 300, 128, dtype)
+    o, lse = flash_attention_cuda(q, k, v, window=128,
+                                  return_residuals=True)
+    ro, rl = mha_ref(q, k, v, window=128, return_lse=True)
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=2e-2,
+                                                         rtol=2e-2)
+    torch.testing.assert_close(o, ro, **tol)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+
+
+def test_windowed_engines_kernels_match_plain(gen):
+    """Reduced starcoder2 (window 8, the plain GELU FFN) in fp32: the
+    static engine with prompts past the window (6 GEMMs a layer and the
+    head a forward, a windowed flash a layer a prefill) and the
+    continuous one on the slotted pool, kernels against the plain path."""
+    cfg = configs.get("starcoder2-15b").reduced()
+    params = api.init_params(cfg, gen)
+    engine = Engine(cfg, params, ServeConfig(max_len=40))
+    tokens = torch.randint(0, cfg.vocab, (2, 13), device="cuda",
+                           generator=gen)
+    reset_matmul_counts()
+    flash_attention_cuda.launches = 0
+    got = engine.generate({"tokens": tokens}, n_tokens=12, stop_tokens=())
+    assert matmul_cuda.launches == (cfg.n_layers * 6 + 1) * 12
+    assert flash_attention_cuda.launches == cfg.n_layers
+    with dispatch.use(backend="torch"):
+        want = engine.generate({"tokens": tokens}, n_tokens=12,
+                               stop_tokens=())
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                    max_tokens=m, stop_tokens=())
+            for n, m in zip([3, 13, 6, 9, 2], [9, 5, 7, 4, 12])]
+
+    def serve():
+        ce = ContinuousEngine(cfg, params, PoolConfig(n_slots=3, max_len=40))
+        assert not ce.paged
+        return ce.serve(reqs)
+
+    out = serve()
+    with dispatch.use(backend="torch"):
+        assert serve() == out
+
+
+def test_engine_sampled_default_generator_on_card(gen):
+    """Sampled static decoding with no generator draws from one on the
+    card, seeded 0: deterministic under it."""
+    from repro_torch.serve import engine as engine_mod
+    cfg = configs.get("smollm-135m").reduced()
+    engine = Engine(cfg, api.init_params(cfg, gen),
+                    ServeConfig(max_len=32, temperature=1.0))
+    tokens = torch.randint(0, cfg.vocab, (2, 7), device="cuda",
+                           generator=gen)
+    devices = []
+    real = engine_mod._gumbel
+
+    def spy(shape, generator, device):
+        devices.append(generator.device.type)
+        return real(shape, generator, device)
+
+    engine_mod._gumbel = spy
+    try:
+        a = engine.generate({"tokens": tokens}, n_tokens=5, stop_tokens=())
+        b = engine.generate({"tokens": tokens}, n_tokens=5, stop_tokens=())
+    finally:
+        engine_mod._gumbel = real
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert devices and set(devices) == {"cuda"}

@@ -144,3 +144,30 @@ def test_sampled_generation_deterministic_under_generator(pair):
     torch.testing.assert_close(a, b, atol=0, rtol=0)
     assert not torch.equal(a, c)
     assert int(a.min()) >= 0 and int(a.max()) < tcfg.vocab
+
+
+def test_sampled_generation_default_generator_on_engine_device(pair,
+                                                               monkeypatch):
+    """With no generator, sampling draws from one on the engine's device,
+    seeded 0: deterministic, and the same draws as an explicit one."""
+    from repro_torch.serve import engine as engine_mod
+    _, tcfg, _, _, model = pair
+    engine = Engine(tcfg, model, ServeConfig(max_len=MAX_LEN,
+                                             temperature=1.0), device="cpu")
+    toks = {"tokens": torch.from_numpy(_tokens(tcfg, 2, 5))}
+    devices = []
+    real = engine_mod._gumbel
+
+    def spy(shape, generator, device):
+        devices.append(generator.device)
+        return real(shape, generator, device)
+
+    monkeypatch.setattr(engine_mod, "_gumbel", spy)
+    a = engine.generate(toks, n_tokens=6, stop_tokens=())
+    b = engine.generate(toks, n_tokens=6, stop_tokens=())
+    c = engine.generate(toks, n_tokens=6, stop_tokens=(),
+                        generator=torch.Generator(
+                            engine.device).manual_seed(0))
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    torch.testing.assert_close(a, c, atol=0, rtol=0)
+    assert devices and all(d == engine.device for d in devices)

@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, training, ResNet-50, batch-reduce
-GEMM, quantized serving, LSTM / FC and windowed-serving paths on one
-NVIDIA Hopper card.
+GEMM, quantized serving, LSTM / FC, windowed-serving and VLM-serving
+(under the measured block policy) paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
@@ -140,6 +140,37 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                serving's, the lstm, fc and windowed paths', beside its
                bound (at the input type's peak), its plain version and one
                library call.
+  13. llava    — llava-next-34b at full width and LLAVA_LAYERS of its 60
+               layers (random weights, bf16; ``patch_embeds`` of 576 x 7168
+               from ``np.random.default_rng``) under
+               ``blocks_policy="autotune"``, the tuning cache persisted
+               under build/ (REPRO_TORCH_TUNING_CACHE; AUTOTUNE_CANDIDATES
+               candidates a shape, AUTOTUNE_REPEATS timed launches each):
+               ``Engine.generate`` (2 x (576 patches + 512 tokens), 32
+               greedy tokens) and a slotted ``ContinuousEngine`` (4 slots,
+               6 requests of 256 and 512 tokens, each with its own patch
+               prefix), each first on a cold cache (searches, candidates
+               measured, none failed, the seconds they took; TTFT), then
+               on the cache reloaded from its file (nothing measured;
+               exact launch counts: 7 matmul a layer, the head and the
+               patch projection's 2 a prefill; a flash forward a layer a
+               prefill); every matmul shape of the runs under its chosen
+               plan and under the heuristic's against matmul_ref, the
+               flash forward at each prefill shape against mha_ref;
+               prefill and decode-step ms, busy and idle; fp32 at
+               LLAVA_FP32_LAYERS layers, where the kernel path's greedy
+               tokens must equal the plain path's in both engines (or
+               differ only at a top-two logit gap within the fp32 band).
+               Train (6) also runs one bf16 step with ``cfg.remat`` (each
+               block checkpointed) and without: loss and gradients bit for
+               bit alike (but where two runs without it differ: the
+               embedding's index backward), launches and peak memory.
+  14. autotune — ``python -m repro_torch.core.autotune`` (its ``main``) at
+               smollm-135m's and llava-next-34b's prefill and decode GEMM
+               shapes, bf16: on a cold cache (measured > 0, failed 0),
+               then on the warm cache in a new process (measured 0, a hit
+               each); per shape the heuristic's plan and the chosen one,
+               each timed, beside torch.matmul and the bound.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -1467,18 +1498,23 @@ def phase_serve(base_cfg):
 
 
 def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
-               decode_quant=None, max_len=MAX_LEN):
+               decode_quant=None, max_len=MAX_LEN, patch_embeds=None):
     """Host-clock prefill and decode-step times of the kernel path, under a
     serving tier's quant configs (None: full precision), for the prompts
-    ``tokens`` (B, T) in a cache of ``max_len``; whether every logit of
-    the timed prefill and decode steps was finite."""
+    ``tokens`` (B, T) (after a VLM's ``patch_embeds``) in a cache of
+    ``max_len``; whether every logit of the timed prefill and decode steps
+    was finite."""
     from repro_torch.core import dispatch
     from repro_torch.models import api
     b, prompt = tokens.shape
+    batch = {"tokens": tokens}
+    if patch_embeds is not None:
+        batch["patch_embeds"] = patch_embeds
+        prompt += patch_embeds.shape[1]
 
     def prefill(cache):
         with dispatch.use(quant=prefill_quant):
-            return api.prefill(params, {"tokens": tokens}, cfg, cache)
+            return api.prefill(params, batch, cfg, cache)
 
     def decode(tok, cache, pos):
         with dispatch.use(quant=decode_quant):
@@ -1558,8 +1594,9 @@ def watched_forwards():
     """Inside, every logit the engine's model entry points return is
     checked for finiteness on the card, with no sync, and every call is
     counted by its kind and rows (one-shot prefills and chunks by their
-    tokens, decode steps by their slots).  Yields (a one-element list
-    holding the running all-finite flag, a device bool; the counter)."""
+    tokens, a VLM's patch prefix included, decode steps by their slots).
+    Yields (a one-element list holding the running all-finite flag, a
+    device bool; the counter)."""
     from repro_torch.models import api
     kinds = {"prefill": "prefill", "prefill_chunk": "chunk",
              "decode_step_slots": "decode", "decode_step_paged": "decode"}
@@ -1572,7 +1609,9 @@ def watched_forwards():
             out = fn(params, tokens, *args, **kw)
             flag[0] = flag[0] & torch.isfinite(out[0]).all()
             rows = (tokens.shape[0] if kinds[name] == "decode"
-                    else tokens["tokens"].shape[1])
+                    else tokens["tokens"].shape[1] + (
+                        tokens["patch_embeds"].shape[1]
+                        if "patch_embeds" in tokens else 0))
             forwards[kinds[name], rows] += 1
             return out
         return run
@@ -1898,6 +1937,78 @@ def expected_step_launches(cfg):
             "flash_attention_bwd": cfg.n_layers}
 
 
+def train_remat(cfg, state, batch, counters):
+    """One step's loss and gradients on the kernels with ``cfg.remat`` (each
+    decoder block checkpointed) and without, from the same weights and
+    batch: the loss and every gradient bit for bit alike, but where two
+    runs without it already differ (the embedding's index backward, a
+    PyTorch scatter-add with atomics: its gradient is then held to that
+    spread); exact launches (the blocks' GEMMs and flash forwards run
+    again in the backward) and peak memory of each."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    model = Transformer(cfg, device="cuda")
+    opt.cast_params(state["opt"], dict(model.named_parameters()))
+    runs = {}
+    for name, remat in (("plain", False), ("plain_again", False),
+                        ("remat", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        metrics, grads = ts.loss_and_grads(
+            model, batch, dataclasses.replace(cfg, remat=remat))
+        torch.cuda.synchronize()
+        runs[name] = {"loss": metrics["loss"].clone(),
+                      "grads": {n: g.clone() for n, g in grads.items()},
+                      "launches": {k: c.launches for k, c in
+                                   counters.items()},
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "peak_over_weights_gb": (
+                          torch.cuda.max_memory_allocated() - base) / 1e9}
+        for p in model.parameters():
+            p.grad = None
+    a, a2, r = runs["plain"], runs["plain_again"], runs["remat"]
+    per_layer = (6 + cfg.gated_mlp) * cfg.n_layers
+    expect = dict(expected_step_launches(cfg))
+    expect_remat = {**expect, "matmul": expect["matmul"] + per_layer,
+                    "flash_attention": 2 * cfg.n_layers}
+    spread = {n: (g - a2["grads"][n]).float().abs().max().item()
+              for n, g in a["grads"].items()
+              if not torch.equal(g, a2["grads"][n])}
+    differ = {}
+    for n, g in a["grads"].items():
+        if torch.equal(r["grads"][n], g):
+            continue
+        differ[n] = (r["grads"][n] - g).float().abs().max().item()
+    failed = [n for n, d in differ.items() if d > spread.get(n, 0.0)]
+    emit({"phase": "train_remat", "dtype": cfg.dtype,
+          "loss": a["loss"].item(), "remat_loss": r["loss"].item(),
+          "loss_bit_equal": bool(torch.equal(a["loss"], r["loss"])),
+          "grads_bit_equal": len(a["grads"]) - len(differ),
+          "grads": len(a["grads"]),
+          "grads_differing_max_abs": differ,
+          "plain_run_to_run_spread": spread,
+          "launches": a["launches"], "remat_launches": r["launches"],
+          "expected_launches": expect,
+          "expected_remat_launches": expect_remat,
+          "peak_mem_gb": a["peak_gb"], "remat_peak_mem_gb": r["peak_gb"],
+          "peak_over_weights_gb": a["peak_over_weights_gb"],
+          "remat_peak_over_weights_gb": r["peak_over_weights_gb"]})
+    if not torch.equal(a["loss"], r["loss"]) or failed or \
+            a["launches"] != expect or r["launches"] != expect_remat or \
+            r["peak_over_weights_gb"] >= a["peak_over_weights_gb"]:
+        raise AssertionError(
+            f"train remat: loss {a['loss'].item()} / {r['loss'].item()}, "
+            f"gradients beyond the run-to-run spread {failed}, launches "
+            f"{a['launches']} / {r['launches']}, peak over the weights "
+            f"{a['peak_over_weights_gb']} / {r['peak_over_weights_gb']} GB")
+    del model, runs
+    torch.cuda.empty_cache()
+
+
 def clone_state(state):
     return {"opt": {"step": state["opt"]["step"],
                     **{k: {n: t.clone() for n, t in state["opt"][k].items()}
@@ -1940,8 +2051,10 @@ def phase_train(base_cfg):
                 "flash_attention_bwd": flash_attention_bwd_cuda}
     main_launches = None
     for dtype in (torch.bfloat16, torch.float32):
+        # remat off: the step's own launches; train_remat runs it on
         cfg = dataclasses.replace(base_cfg,
-                                  dtype=str(dtype).replace("torch.", ""))
+                                  dtype=str(dtype).replace("torch.", ""),
+                                  remat=False)
         ocfg = opt.AdamWCfg()
         pipe = TokenPipeline(cfg, ShapeCfg("smoke", "train", TRAIN_SEQ,
                                            TRAIN_BATCH), seed=SEED)
@@ -2037,6 +2150,8 @@ def phase_train(base_cfg):
                         "host_cprofile_cumulative_ms": host_fns})
             main_launches = launches
         emit(rec)
+        if dtype == torch.bfloat16:
+            train_remat(cfg, state, batches[0], counters)
         if not ok:
             raise AssertionError(
                 f"train {cfg.dtype}: loss err {loss0_err} / {traj_err}, "
@@ -3374,6 +3489,598 @@ def phase_times_slice(card, fc_rows, windowed_static, flash):
 
 
 # --------------------------------------------------------------------------
+# 13. llava-next-34b under the measured block policy
+# --------------------------------------------------------------------------
+
+LLAVA_LAYERS = 16          # of 60: the full width in ~19 GB of bf16
+LLAVA_BATCH, LLAVA_PROMPT, LLAVA_NEW = 2, 512, 32
+LLAVA_SLOTS, LLAVA_REQUESTS, LLAVA_PROMPTS = 4, 6, (256, 512)
+LLAVA_FP32_LAYERS = 2
+# The search's budget: candidates a shape and timed launches a candidate.
+AUTOTUNE_CANDIDATES, AUTOTUNE_REPEATS = 4, 3
+TUNING_CACHE = Path(__file__).resolve().parent / "build" / "tuning_cache.json"
+
+
+@contextlib.contextmanager
+def autotune_env(path):
+    """The persisted tuning cache at ``path`` (removed first: a cold
+    cache) and the search's budget, for the block; the process's cache
+    emptied on the way in and out, so that the other phases resolve as
+    before."""
+    import os
+    from repro_torch.core import autotune, dispatch
+    keys = (dispatch.TUNING_CACHE_ENV, autotune.ENV_MAX_CANDIDATES,
+            autotune.ENV_REPEATS)
+    saved = {k: os.environ.get(k) for k in keys}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    os.environ.update(dict(zip(keys, (str(path), str(AUTOTUNE_CANDIDATES),
+                                      str(AUTOTUNE_REPEATS)))))
+    dispatch.clear_tuning_cache()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        dispatch.clear_tuning_cache()
+
+
+@contextlib.contextmanager
+def search_clock():
+    """Inside, the named ``autotune`` policy's calls are timed: yields a
+    dict whose ``seconds`` the searches (and their cache lookups' misses)
+    took, with the counters' growth filled in on the way out."""
+    from repro_torch.core import autotune, dispatch
+    dispatch.check_blocks_policy("autotune")
+    real = dispatch.BLOCK_POLICIES["autotune"]
+    out = {"seconds": 0.0}
+    before = autotune.STATS.snapshot()
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            out["seconds"] += time.perf_counter() - t0
+
+    dispatch.BLOCK_POLICIES["autotune"] = timed
+    try:
+        yield out
+    finally:
+        dispatch.BLOCK_POLICIES["autotune"] = real
+        after = autotune.STATS.snapshot()
+        out.update({k: after[k] - before[k] for k in after})
+
+
+def llava_traffic(cfg, gen):
+    """LLAVA_REQUESTS greedy requests of the two prompt lengths in turn,
+    16 to 32 new tokens, each with its own patch prefix (576 x d_model,
+    from ``np.random.default_rng``)."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED + 12)
+    out = []
+    for i in range(LLAVA_REQUESTS):
+        n = LLAVA_PROMPTS[i % len(LLAVA_PROMPTS)]
+        pe = torch.from_numpy(rng.standard_normal(
+            (cfg.n_patches, cfg.d_model), dtype=np.float32)).to("cuda")
+        out.append(Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                           max_tokens=int(rng.integers(16, 33)),
+                           stop_tokens=(), patch_embeds=pe))
+    return out
+
+
+def llava_gemms(cfg, forwards):
+    """The GEMMs of the llava runs with their launches: the static run's
+    (one prefill forward over LLAVA_BATCH x (patches + prompt) rows, its
+    patch projection over LLAVA_BATCH x patches rows, LLAVA_NEW - 1 decode
+    forwards over LLAVA_BATCH rows, the head at LLAVA_BATCH rows in each)
+    and the continuous run's (``forwards``: each one-shot prefill's body
+    GEMMs at its rows, its projection at the patch rows, its head at one
+    row; each decode step's at the slots).  Returns {(role, m, kind):
+    [Gemm, launches]}."""
+    d, p = cfg.d_model, cfg.n_patches
+    out = {}
+
+    def add(gemms, calls):
+        for g in gemms:
+            key = (role(g), g.m, g.kind)
+            entry = out.setdefault(key, [g, 0])
+            entry[1] += calls * g.per_forward
+
+    def vision(m):
+        return [Gemm("llava.vision.w1_gelu", m, d, d, "gelu", kind="fwd",
+                     per_forward=1, bias=True),
+                Gemm("llava.vision.w2", m, d, d, kind="fwd", per_forward=1,
+                     bias=True)]
+
+    def head(m):
+        return [Gemm("llava.lm_head", m, d, cfg.vocab, kind="head",
+                     per_forward=1)]
+
+    b = LLAVA_BATCH
+    add(forward_gemms(cfg, "llava.prefill", b * (p + LLAVA_PROMPT)), 1)
+    add(vision(b * p), 1)
+    add(forward_gemms(cfg, "llava.decode", b), LLAVA_NEW - 1)
+    add(head(b), LLAVA_NEW)
+    for (kind, m), n in sorted(forwards.items()):
+        if kind == "prefill":
+            add(forward_gemms(cfg, "llava.cont.prefill", m) + vision(p)
+                + head(1), n)
+        else:
+            add(forward_gemms(cfg, "llava.cont.decode", m) + head(m), n)
+    return out
+
+
+def llava_flashes(cfg, forwards):
+    """The flash forwards of the llava runs: (shape (b, hq, hkv, t, d),
+    launches), the static prefill's and each one-shot prefill's."""
+    h, hkv, dh, p = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.n_patches
+    out = {(LLAVA_BATCH, h, hkv, p + LLAVA_PROMPT, dh): cfg.n_layers}
+    for (kind, t), n in forwards.items():
+        if kind == "prefill":
+            key = (1, h, hkv, t, dh)
+            out[key] = out.get(key, 0) + n * cfg.n_layers
+    return sorted(out.items())
+
+
+def llava_fp32_tokens(cfg, gen, patches, tokens, requests):
+    """fp32 at LLAVA_FP32_LAYERS layers, both engines under the measured
+    policy: the kernel path's greedy tokens against the plain path's
+    (each differing row's first step and top-two logit gap there)."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    cfg32 = dataclasses.replace(cfg, n_layers=LLAVA_FP32_LAYERS,
+                                dtype="float32")
+    params = api.init_params(cfg32, gen, device="cuda")
+    max_len = cfg.n_patches + LLAVA_PROMPT + LLAVA_NEW
+    engine = Engine(cfg32, params, ServeConfig(max_len=max_len),
+                    blocks_policy="autotune")
+    batch = {"tokens": tokens, "patch_embeds": patches}
+    got = engine.generate(batch, n_tokens=LLAVA_NEW, stop_tokens=()).tolist()
+    with dispatch.use(backend="torch"):
+        want = engine.generate(batch, n_tokens=LLAVA_NEW,
+                               stop_tokens=()).tolist()
+    pool = {"n_slots": LLAVA_SLOTS, "max_len": max_len}
+    c_got, *_ = continuous_run(cfg32, params, requests, pool,
+                               {"blocks_policy": "autotune"}, {})
+    with dispatch.use(backend="torch"):
+        c_want, *_ = continuous_run(cfg32, params, requests, pool, {}, {})
+    ids = sorted(c_want)
+
+    def gaps(prompts, pes, got, want):
+        out = {}
+        for r, (g, w) in enumerate(zip(got, want)):
+            steps = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
+            if not steps:
+                continue
+            toks = torch.tensor([list(prompts[r]) + list(w[:steps[0]])],
+                                device="cuda")
+            with torch.inference_mode(), dispatch.use(backend="torch"):
+                cache = api.init_cache(cfg32, 1, max_len, device="cuda")
+                logits, _ = api.prefill(params, {
+                    "tokens": toks, "patch_embeds": pes[r][None]}, cfg32,
+                    cache)
+            top = torch.topk(logits[0], 2).values
+            out[r] = {"step": steps[0],
+                      "top2_gap": (top[0] - top[1]).item()}
+        return out
+
+    found = {"static": gaps(tokens.tolist(), patches, got, want),
+             "continuous": gaps(
+                 [requests[i].prompt for i in ids],
+                 [requests[i].patch_embeds for i in ids],
+                 [c_got[i] for i in ids], [c_want[i] for i in ids])}
+    rec = {"phase": "llava", "engine": "static+continuous",
+           "dtype": "float32", "n_layers": LLAVA_FP32_LAYERS,
+           "blocks_policy": "autotune",
+           "static_rows_matching_plain": [a == b for a, b in zip(got, want)],
+           "continuous_requests_matching_plain": [c_got[i] == c_want[i]
+                                                  for i in ids],
+           "first_divergence": found, "band": LOGITS_BAND[torch.float32]}
+    emit(rec)
+    del engine, params
+    torch.cuda.empty_cache()
+    return [f"fp32 {where} row {r} differs from the plain path at step "
+            f"{gap['step']}, top-two gap {gap['top2_gap']}"
+            for where, rows in found.items() for r, gap in rows.items()
+            if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
+
+
+def phase_llava(card):
+    """llava-next-34b at full width and LLAVA_LAYERS layers, bf16, random
+    weights, through ``Engine.generate`` and a slotted
+    ``ContinuousEngine``, both under ``blocks_policy="autotune"`` with the
+    tuning cache persisted under build/: each engine's first run on a cold
+    cache (searches, candidates measured, none failed, the seconds they
+    took; TTFT), then its main run on the cache reloaded from the file
+    (nothing measured; exact launch counts: counts zeroed just before, read
+    just after); every matmul shape of the leg under its chosen plan and
+    under the heuristic's against matmul_ref, the flash forward at the
+    prefill shapes against mha_ref; prefill and decode-step times, busy
+    and idle; then fp32 at LLAVA_FP32_LAYERS layers.  Returns
+    ({"llava": launches}, worst abs error by kernel, the GEMMs with their
+    launches, the flash forwards with theirs)."""
+    from repro_torch.configs import get
+    from repro_torch.core import dispatch
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    from repro_torch.kernels.brgemm.kernel import (plan_call,
+                                                   reset_matmul_counts)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref,
+                                                     reset_flash_counts)
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = dataclasses.replace(get("llava-next-34b"), n_layers=LLAVA_LAYERS)
+    p = cfg.n_patches
+    max_len = p + LLAVA_PROMPT + LLAVA_NEW
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    counters = {"matmul": matmul_cuda,
+                "flash_attention": flash_attention_cuda}
+    failed = []
+    with autotune_env(TUNING_CACHE):
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init_params(cfg, gen, device="cuda")
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        tokens = torch.randint(0, cfg.vocab, (LLAVA_BATCH, LLAVA_PROMPT),
+                               device="cuda", generator=gen,
+                               dtype=torch.int32)
+        patches = torch.randn(LLAVA_BATCH, p, cfg.d_model, device="cuda",
+                              generator=gen)
+        batch = {"tokens": tokens, "patch_embeds": patches}
+        engine = Engine(cfg, params, ServeConfig(max_len=max_len),
+                        blocks_policy="autotune")
+        torch.cuda.synchronize()
+        with search_clock() as cold:
+            t0 = time.perf_counter()
+            engine.generate(batch, n_tokens=LLAVA_NEW, stop_tokens=())
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+        # The main path on the persisted cache: the process's cache
+        # emptied, so that every plan comes from the file.
+        dispatch.clear_tuning_cache()
+        with search_clock() as warm:
+            reset_matmul_counts()
+            reset_flash_counts()
+            t0 = time.perf_counter()
+            ids = engine.generate(batch, n_tokens=LLAVA_NEW, stop_tokens=())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            mainloops = dict(matmul_cuda.mainloops)
+            splits = matmul_cuda.split_launches
+        expect = {"matmul": gemms_per_forward(cfg) * LLAVA_NEW + 2,
+                  "flash_attention": cfg.n_layers}
+        # bf16 tokens under the heuristic's plans and on the plain path,
+        # beside the tuned run's: split-K sums in another order, so a
+        # near-tie may flip (reported, not held)
+        ids_heuristic = Engine(cfg, params, ServeConfig(
+            max_len=max_len)).generate(batch, n_tokens=LLAVA_NEW,
+                                       stop_tokens=())
+        with dispatch.use(backend="torch"):
+            ids_plain = engine.generate(batch, n_tokens=LLAVA_NEW,
+                                        stop_tokens=())
+        with dispatch.use(blocks_policy="autotune"):
+            steps = step_times(cfg, params, tokens, tier="llava-next-34b",
+                               max_len=max_len, patch_embeds=patches)
+        emit({"phase": "llava", "engine": "static", "arch": cfg.name,
+              "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+              "of_layers": get("llava-next-34b").n_layers,
+              "d_model": cfg.d_model, "n_patches": p,
+              "params_b": cfg.param_counts()[0] / 1e9,
+              "weights_gb": weights_gb, "batch": LLAVA_BATCH,
+              "prompt": LLAVA_PROMPT, "new_tokens": LLAVA_NEW,
+              "blocks_policy": "autotune", "cold_run_s": cold_s,
+              "cold_search": cold, "warm_search": warm,
+              "launches": launches, "expected_launches": expect,
+              "matmul_mainloops": mainloops,
+              "matmul_split_launches": splits,
+              "generate_s": seconds,
+              "tokens_per_s": LLAVA_BATCH * LLAVA_NEW / seconds,
+              "ids_shape": list(ids.shape),
+              "bf16_tokens_equal_heuristic": (
+                  ids == ids_heuristic).float().mean().item(),
+              "bf16_tokens_equal_plain": (ids == ids_plain).float()
+              .mean().item(),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "card": card})
+        if (launches != expect or cold["measured"] == 0 or cold["failed"]
+                or warm["measured"] or warm["searches"]
+                or tuple(ids.shape) != (LLAVA_BATCH, LLAVA_NEW)
+                or not steps["logits_finite"]):
+            failed.append(f"static: launches {launches} != {expect}, cold "
+                          f"{cold}, warm {warm}, ids {tuple(ids.shape)}, "
+                          f"finite {steps['logits_finite']}")
+
+        requests = llava_traffic(cfg, gen)
+        pool = {"n_slots": LLAVA_SLOTS, "max_len": max_len}
+        kw = {"blocks_policy": "autotune"}
+        with search_clock() as c_cold:
+            out0, ce0, _, cold_c_s, _, _, _ = continuous_run(
+                cfg, params, requests, pool, kw, counters)
+        ttft = [ce0.scheduler.finished[i].ttft_s for i in sorted(out0)]
+        dispatch.clear_tuning_cache()
+        with search_clock() as c_warm:
+            out, ce, c_launches, c_seconds, decode_s, finite, forwards = \
+                continuous_run(cfg, params, requests, pool, kw, counters)
+        c_expect = {k: n for k, n in expected_continuous_launches(
+            cfg, ce, requests).items() if k in counters}
+        c_expect["matmul"] += 2 * ce.metrics.prefills    # the projection
+        pool_rec, empty = pool_state(ce)
+        m = ce.metrics
+        emit({"phase": "llava", "engine": "continuous", "arch": cfg.name,
+              "slots": LLAVA_SLOTS, "max_len": max_len, "paged": ce.paged,
+              "requests": len(requests),
+              "prompt_lens": [len(r.prompt) for r in requests],
+              "max_tokens": [r.max_tokens for r in requests],
+              "blocks_policy": "autotune", "cold_search": c_cold,
+              "cold_serve_s": cold_c_s,
+              "cold_ttft_s": ttft,
+              "warm_search": c_warm, "warm_ttft_s": [
+                  ce.scheduler.finished[i].ttft_s for i in sorted(out)],
+              "launches": c_launches, "expected_launches": c_expect,
+              "decode_steps": m.decode_steps, "prefills": m.prefills,
+              "tokens_generated": m.tokens_generated, "serve_s": c_seconds,
+              "tokens_per_s": m.tokens_generated / c_seconds,
+              "decode_step_host_ms_median": median(decode_s) * 1e3,
+              "kv_bytes": ce.pool.kv_bytes(), "pool_state": pool_rec,
+              "same_tokens_cold_and_warm": out == out0,
+              "logits_finite": finite, "card": card})
+        if (c_launches != c_expect or not empty or not finite or ce.paged
+                or c_cold["measured"] == 0 or c_cold["failed"]
+                or c_warm["measured"] or c_warm["searches"] or any(
+                    len(out[i]) != r.max_tokens
+                    for i, r in enumerate(requests))):
+            failed.append(f"continuous: launches {c_launches} != "
+                          f"{c_expect}, empty {empty}, finite {finite}, "
+                          f"cold {c_cold}, warm {c_warm}")
+        del engine, ce, ce0, params
+        torch.cuda.empty_cache()
+
+        # Every matmul shape of the leg under the plan the policy chose and
+        # under the heuristic's, and the flash forward at each prefill
+        # shape, against the plain versions (the cache warm: no search).
+        gemms = llava_gemms(cfg, forwards)
+        flashes = llava_flashes(cfg, forwards)
+        worst = {"matmul": 0.0, "flash_attention": 0.0}
+        plans = {}
+        for (name, mm, kind), (g, calls) in gemms.items():
+            x, w = gemm_inputs(g, torch.bfloat16, gen)
+            bias = (torch.randn(g.n, device="cuda", generator=gen)
+                    .to(torch.bfloat16) if g.bias else None)
+            with dispatch.use(blocks_policy="autotune"):
+                chosen = plan_call(x, w)
+            heuristic = plan_call(x, w)
+            plans[(name, mm, kind)] = (chosen, heuristic)
+            tol = TOL[("matmul", torch.float32 if g.out_dtype
+                       else torch.bfloat16)]
+            want = matmul_ref(x, w, bias, activation=g.activation,
+                              out_dtype=g.out_dtype)
+            for which, plan in (("chosen", chosen), ("heuristic",
+                                                     heuristic)):
+                ok, abs_err, rel_err = close(matmul_cuda(
+                    x, w, bias, activation=g.activation,
+                    out_dtype=g.out_dtype, plan=plan), want, *tol)
+                worst["matmul"] = max(worst["matmul"], abs_err)
+                emit({"phase": "llava_parity", "kernel": "matmul",
+                      "case": g.name, "m": g.m, "k": g.k, "n": g.n,
+                      "launches": calls, "plan": which,
+                      **dataclasses.asdict(plan), "max_abs_err": abs_err,
+                      "max_rel_err": rel_err, "atol": tol[0],
+                      "rtol": tol[1], "ok": ok})
+                if not ok:
+                    failed.append(f"matmul {g.name} m={g.m} ({which})")
+            del x, w, want
+        tol = TOL[("flash_attention", torch.bfloat16)]
+        for (b, hq, hkv, t, dh), n in flashes:
+            q, k, v, _ = qkv_views(b, hq, hkv, t, dh, torch.bfloat16, gen)
+            ok, abs_err, rel_err = close(flash_attention_cuda(q, k, v),
+                                         mha_ref(q, k, v), *tol)
+            worst["flash_attention"] = max(worst["flash_attention"],
+                                           abs_err)
+            emit({"phase": "llava_parity", "kernel": "flash_attention",
+                  "q": [b, hq, t, dh], "kv": [b, hkv, t, dh],
+                  "launches": n, "max_abs_err": abs_err,
+                  "max_rel_err": rel_err, "atol": tol[0], "rtol": tol[1],
+                  "ok": ok})
+            if not ok:
+                failed.append(f"flash {(b, hq, t, dh)}")
+            del q, k, v
+        torch.cuda.empty_cache()
+        failed += llava_fp32_tokens(cfg, gen, patches, tokens, requests)
+    if failed:
+        raise AssertionError(f"llava: {failed}")
+    total = {"matmul": launches["matmul"] + c_launches["matmul"],
+             "flash_attention": launches["flash_attention"]
+             + c_launches["flash_attention"]}
+    return {"llava": total}, worst, gemms, flashes, plans
+
+
+def phase_times_llava(card, gemms, flashes, plans):
+    """Per-shape times of the llava path's bf16 kernels, for the kernels
+    line: each matmul shape under the plan the policy chose (the path's)
+    beside the heuristic's plan, its plain version, torch.matmul and the
+    bound; the flash forward at each prefill shape beside mha_ref and
+    SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows = []
+    row = row_recorder(rows, card)
+    for key, (g, calls) in gemms.items():
+        chosen, heuristic = plans[key]
+        out_bytes = 4 if g.out_dtype else 2
+        nbytes = ((g.m * g.k + g.k * g.n) * 2 + g.m * g.n * out_bytes
+                  + g.bias * 2 * g.n)
+        sets, kw = [], {}
+        for _ in range(n_sets(nbytes)):
+            args, kw = gemm_call(g, torch.bfloat16, gen)
+            sets.append(args)
+        iters = 40 if 2 * g.m * g.n * g.k < 1e11 else 8
+        ms, wall = time_ms(lambda x, w, b, c0: matmul_cuda(
+            x, w, b, plan=chosen, **kw), sets, iters)
+        heur_ms = ms if heuristic == chosen else time_ms(
+            lambda x, w, b, c0: matmul_cuda(x, w, b, plan=heuristic, **kw),
+            sets, iters)[0]
+        plain, _ = time_ms(lambda x, w, b, c0: matmul_ref(x, w, b, **kw),
+                           sets, iters)
+        lib, _ = time_ms(lambda x, w, b, c0: torch.matmul(x, w), sets, iters)
+        row("matmul", f"{g.name} m{g.m}", ms, wall, 2 * g.m * g.n * g.k,
+            nbytes, plain, lib, {"llava": calls}, m=g.m, k=g.k, n=g.n,
+            activation=g.activation, layout=g.kind, bias=g.bias,
+            chosen=dataclasses.asdict(chosen),
+            heuristic=dataclasses.asdict(heuristic), heuristic_ms=heur_ms)
+        del sets
+    for (b, hq, hkv, t, d), n in flashes:
+        nbytes = 2 * (2 * b * hq * t * d + 2 * b * hkv * t * d)
+        sets = [qkv_views(b, hq, hkv, t, d, torch.bfloat16, gen)
+                for _ in range(n_sets(nbytes))]
+        ms, wall = time_ms(lambda q, k, v, _: flash_attention_cuda(q, k, v),
+                           sets, 8)
+        plain, _ = time_ms(lambda q, k, v, _: mha_ref(q, k, v), sets, 4)
+        lib, _ = time_ms(lambda q, k, v, _: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), sets, 8)
+        row("flash_attention", f"llava.prefill B{b} T{t}", ms, wall,
+            4 * b * hq * (t * (t + 1) // 2) * d, nbytes, plain, lib,
+            {"llava": n}, q=[b, hq, t, d], kv=[b, hkv, t, d])
+        del sets
+    return rows
+
+
+# --------------------------------------------------------------------------
+# 14. the autotune CLI, cold and warm
+# --------------------------------------------------------------------------
+
+AUTOTUNE_CLI_CACHE = (Path(__file__).resolve().parent / "build"
+                      / "tuning_cache_cli.json")
+
+
+def autotune_shapes():
+    """(name, m, n, k) of the smollm-135m and llava-next-34b prefill and
+    decode GEMMs (their projections and MLPs; q's shape is o's)."""
+    from repro_torch.configs import get
+    out = []
+    for cfg, prefill, decode in (
+            (get("smollm-135m"), BATCH * PROMPT, BATCH),
+            (get("llava-next-34b"), LLAVA_BATCH * (576 + LLAVA_PROMPT),
+             LLAVA_BATCH)):
+        for phase, m in (("prefill", prefill), ("decode", decode)):
+            seen = set()
+            for g in forward_gemms(cfg, f"{cfg.name}.{phase}", m):
+                if (g.n, g.k) not in seen:
+                    seen.add((g.n, g.k))
+                    out.append((g.name, m, g.n, g.k))
+    return out
+
+
+def phase_autotune(card):
+    """``python -m repro_torch.core.autotune`` (its ``main``) for each of
+    autotune_shapes in bf16: on a cold persisted cache in this process
+    (measured > 0 a shape, none failed), then on the warm cache in a new
+    process (measured = 0 and a cache hit each); then per shape the
+    heuristic's plan and the chosen one, each timed, beside torch.matmul
+    and the bound."""
+    import io
+    import os
+    from repro_torch.core import autotune, blocking, dispatch
+    from repro_torch.kernels.brgemm import matmul_cuda
+    shapes = autotune_shapes()
+    failed = []
+
+    def argv(m, n, k):
+        return ["--op", "matmul", "--shape", str(m), str(n), str(k),
+                "--dtype", "bfloat16"]
+
+    def parse(line):
+        return dict(f.split("=", 1) for f in line.split()
+                    if f.split("=", 1)[0] in ("failed", "measured",
+                                              "cache", "cache_errors"))
+
+    with autotune_env(AUTOTUNE_CLI_CACHE):
+        cold = []
+        for name, m, n, k in shapes:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                autotune.main(argv(m, n, k))
+            cold.append(parse(buf.getvalue().strip()))
+        script = ("import sys; sys.path.insert(0, 'src')\n"
+                  "from repro_torch.core import autotune\n"
+                  f"for a in {[argv(m, n, k) for _, m, n, k in shapes]!r}:\n"
+                  "    autotune.main(a)\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", script],
+                              capture_output=True, text=True, timeout=300,
+                              env=dict(os.environ),
+                              cwd=str(Path(__file__).resolve().parent))
+        warm_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"autotune CLI (warm) failed: "
+                                 f"{proc.stderr[-2000:]}")
+        warm = [parse(ln) for ln in proc.stdout.splitlines()
+                if ln.startswith("autotune ")]
+        entries = json.loads(AUTOTUNE_CLI_CACHE.read_text())["entries"]
+        dispatch.clear_tuning_cache()
+        dispatch.load_cache(str(AUTOTUNE_CLI_CACHE))
+        tuned = dispatch.tuning_cache_info()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+        for (name, m, n, k), c, w in zip(shapes, cold, warm):
+            geometry = blocking.default_geometry("matmul", m, n, k,
+                                                 torch.bfloat16)
+            key = ("matmul", "cuda", m, n, k, "bfloat16", "autotune",
+                   geometry, None, None)
+            chosen = tuned[key]
+            heuristic = blocking.default_plan("matmul", m, n, k,
+                                              torch.bfloat16)
+            nbytes = 2 * (m * k + k * n + m * n)
+            sets = [(torch.randn(m, k, device="cuda", generator=gen)
+                     .to(torch.bfloat16),
+                     (torch.randn(k, n, device="cuda", generator=gen)
+                      * k ** -0.5).to(torch.bfloat16))
+                    for _ in range(n_sets(nbytes))]
+            iters = 40 if 2 * m * n * k < 1e11 else 8
+            ms = time_ms(lambda x, w_, _p=chosen: matmul_cuda(
+                x, w_, plan=_p), sets, iters)[0]
+            heur_ms = ms if chosen == heuristic else time_ms(
+                lambda x, w_: matmul_cuda(x, w_, plan=heuristic), sets,
+                iters)[0]
+            lib = time_ms(torch.matmul, sets, iters)[0]
+            bms, by = bound(2 * m * n * k, nbytes, card)
+            emit({"phase": "autotune", "shape": name, "m": m, "n": n,
+                  "k": k, "cold": c, "warm": w,
+                  "grid": len(blocking.candidate_grid(
+                      "matmul", m, n, k, torch.bfloat16)),
+                  "heuristic": dataclasses.asdict(heuristic),
+                  "chosen": dataclasses.asdict(chosen),
+                  "heuristic_ms": heur_ms, "chosen_ms": ms,
+                  "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                  "card": card})
+            if (int(c["measured"]) == 0 or c["failed"] != "0"
+                    or c["cache"] != "miss" or w["measured"] != "0"
+                    or w["cache"] != "hit" or w["failed"] != "0"):
+                failed.append(f"{name}: cold {c}, warm {w}")
+            del sets
+        emit({"phase": "autotune", "shapes": len(shapes),
+              "measured_cold": sum(int(c["measured"]) for c in cold),
+              "measured_warm": sum(int(w["measured"]) for w in warm),
+              "failed": sum(int(c["failed"]) for c in cold),
+              "entries": len(entries), "warm_process_s": warm_s,
+              "candidates_cap": AUTOTUNE_CANDIDATES,
+              "repeats": AUTOTUNE_REPEATS})
+        if len(warm) != len(shapes):
+            failed.append(f"the warm process reported {len(warm)} of "
+                          f"{len(shapes)} shapes")
+    if failed:
+        raise AssertionError(f"autotune: {failed}")
+
+
+# --------------------------------------------------------------------------
 # 12. kernel times
 # --------------------------------------------------------------------------
 
@@ -4031,7 +4738,9 @@ def kernels_line(rows, launches_by_path, worst):
     ``batched_matmul`` each; lstm, the bf16 LSTM's forward and gradient
     pass at each of LSTM_SIZES and GNMT_STEPS bf16 LSTM-LM steps; fc, the
     bf16 FC layer's three passes at each of FC_SIZES; windowed,
-    starcoder2-15b's bf16 ``Engine.generate``.  ``delta_rowsum`` runs on
+    starcoder2-15b's bf16 ``Engine.generate``; llava, llava-next-34b's
+    bf16 ``Engine.generate`` and ``ContinuousEngine.serve`` main runs
+    under the measured block policy.  ``delta_rowsum`` runs on
     none of them (it is the oracle of the fused delta): its times are one
     call's."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
@@ -4100,10 +4809,17 @@ def main():
     launches.update(win_launches)
     for kernel, err in win_worst.items():
         worst[kernel] = max(worst[kernel], err)
+    llava_launches, llava_worst, llava_gemm, llava_flash, llava_plans = \
+        phase_llava(card)
+    launches.update(llava_launches)
+    for kernel, err in llava_worst.items():
+        worst[kernel] = max(worst[kernel], err)
+    phase_autotune(card)
     rows = (phase_times(cfg, card, cont_forwards) + phase_times_paper(card)
             + phase_times_quant(cfg, card, cont_forwards)
-            + phase_times_slice(card, fc_rows, win_static, win_flash))
-    check_row_calls(rows, launches, ("lstm", "fc", "windowed"))
+            + phase_times_slice(card, fc_rows, win_static, win_flash)
+            + phase_times_llava(card, llava_gemm, llava_flash, llava_plans))
+    check_row_calls(rows, launches, ("lstm", "fc", "windowed", "llava"))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

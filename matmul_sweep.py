@@ -28,9 +28,11 @@ alone) and the bound; the wall time a call back to back (CUDA events:
 where the device time is small, the host's cost of a call); the plan the
 package chose.  --src imports repro_torch from another checkout's src, so
 that an earlier commit's kernels are timed on the same card in the same
-run; --variants also times each matmul and matmul_q shape that has few
-output tiles under other split targets (one wave of 132 blocks, two,
-four, and no split).  matmul_q's weights are laid out as the imported
+run; --variants also times each matmul and matmul_q shape under every
+plan of the autotuner's candidate grid (``candidate_plans`` /
+``candidate_plans_q``: the mainloops, tile rows and split counts the
+kernels take at run time), so that the sweep and the measured block
+policy time the same grid.  matmul_q's weights are laid out as the imported
 package's own quantize_weight stores them (its main path's layout),
 conv2d's dual convolutions as its backward makes them.  One JSON line a
 shape, then the card's name and power limit.  Needs one CUDA card.
@@ -38,7 +40,6 @@ shape, then the card's name and power limit.  Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import sys
@@ -47,9 +48,6 @@ from pathlib import Path
 import torch
 
 import chip_smoke as CS
-
-TARGETS = (132, 264, 528)      # split blocks a variant aims at
-
 
 def smollm_shapes(cfg, gen):
     for g in CS.main_path_gemms(cfg) + CS.train_gemms(cfg):
@@ -89,18 +87,23 @@ def resnet_shapes(cfg, patches, gen):
         yield name, m, kk, n, sets, {}
 
 
-def variants(p, k):
-    """Other plans of plan ``p``'s mainloop and tile over a reduction of
-    ``k``: the splits that aim at each of TARGETS blocks, and no split."""
-    slices = -(-k // p.bk)
-    out = {}
-    for target in TARGETS:
-        splits = max(1, min(target // p.tiles, slices))
-        chunk = -(-slices // splits)
-        out[f"blocks{target}"] = dataclasses.replace(
-            p, splits=-(-slices // chunk), chunk=chunk)
-    out["no_split"] = dataclasses.replace(p, splits=1, chunk=slices)
-    return out
+def variants(x, w, quantized=False):
+    """The plans the autotuner searches for ``matmul_cuda(x, w)`` (or, with
+    ``quantized``, ``matmul_q_cuda(x, w, ...)``), the heuristic first: the
+    package's own grid (``candidate_plans``, ``candidate_plans_q``)."""
+    from repro_torch.kernels.brgemm import kernel as K
+    from repro_torch.kernels.brgemm import quant_kernel as QK
+    m, k, n = x.size(0), x.size(1), w.size(1)
+    if quantized:
+        return QK.candidate_plans_q("matmul", m, n, k,
+                                    QK._q_operands(x, w)[1],
+                                    x.dtype != torch.int8)
+    return K.candidate_plans("matmul", m, n, k, x.dtype == torch.bfloat16,
+                             K._operand(x, "x")[3] and K._operand(w, "w")[3])
+
+
+def plan_name(p):
+    return f"{p.mainloop}.bm{p.bm}.splits{p.splits}"
 
 
 def flash_rows(args, card, gen, cfg):
@@ -252,9 +255,9 @@ def quant_rows(args, card, gen, cfg):
                 sets.append((xq, sx, qt.q, qt.scale,
                              qt.q.t().contiguous().t()))
 
-            def call(xq, sx, wq, sw, _):
+            def call(xq, sx, wq, sw, _, plan=None):
                 return QK.matmul_q_cuda(xq, wq, sx, sw, out_dtype=out_dtype,
-                                        activation=g.activation)
+                                        activation=g.activation, plan=plan)
             ms, wall = CS.time_ms(call, sets)
             if fmt == "int8":
                 lib = (CS.time_ms(lambda xq, sx, wq, sw, wk: torch._int_mm(
@@ -277,17 +280,11 @@ def quant_rows(args, card, gen, cfg):
                 p = QK.plan_q_call(sets[0][0], sets[0][2])
                 rec["plan"] = {"mainloop": p.mainloop, "bm": p.bm,
                                "splits": p.splits, "chunk": p.chunk}
-                if args.variants and 2 * p.tiles <= 132 and \
-                        p.mainloop == "wgmma":
-                    real = QK.plan_q
-                    rec["variants_ms"] = {}
-                    for vname, vp in variants(p, g.k).items():
-                        QK.plan_q = lambda *_, _p=vp: _p
-                        try:
-                            rec["variants_ms"][vname] = [
-                                CS.time_ms(call, sets)[0], vp.splits]
-                        finally:
-                            QK.plan_q = real
+                if args.variants:
+                    rec["variants_ms"] = {
+                        plan_name(vp): CS.time_ms(
+                            lambda *a, _p=vp: call(*a, plan=_p), sets)[0]
+                        for vp in variants(sets[0][0], sets[0][2], True)}
             print(json.dumps(rec), flush=True)
             del sets
 
@@ -388,7 +385,7 @@ def main():
     ap.add_argument("--src", help="import repro_torch from this src dir")
     ap.add_argument("--label", default="", help="tag of every line")
     ap.add_argument("--variants", action="store_true",
-                    help="also time other split targets")
+                    help="also time every plan of the candidate grid")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("matmul_sweep: no CUDA device")
@@ -404,8 +401,8 @@ def main():
     shapes = list(smollm_shapes(get("smollm-135m"), gen))
     shapes += list(resnet_shapes(ResNetCfg(), patches, gen))
     for name, m, k, n, sets, kw in shapes:
-        def call(x, w):
-            return K.matmul_cuda(x, w, **kw)
+        def call(x, w, plan=None):
+            return K.matmul_cuda(x, w, plan=plan, **kw)
         ms, wall = CS.time_ms(call, sets)
         lib, _ = CS.time_ms(torch.matmul, sets)
         out_bytes = 4 if kw.get("out_dtype") == torch.float32 else 2
@@ -420,16 +417,11 @@ def main():
             p = K.plan_call(*sets[0])
             rec["plan"] = {"mainloop": p.mainloop, "bm": p.bm,
                            "splits": p.splits, "chunk": p.chunk}
-            if args.variants and 2 * p.tiles <= K.SMS:
-                real = K.plan
-                rec["variants_ms"] = {}
-                for vname, vp in variants(p, k).items():
-                    K.plan = lambda *_, _p=vp: _p
-                    try:
-                        ms_v = CS.time_ms(call, sets)[0]
-                    finally:
-                        K.plan = real
-                    rec["variants_ms"][vname] = [ms_v, vp.splits]
+            if args.variants:
+                rec["variants_ms"] = {
+                    plan_name(vp): CS.time_ms(
+                        lambda x, w, _p=vp: call(x, w, _p), sets)[0]
+                    for vp in variants(*sets[0])}
         print(json.dumps(rec), flush=True)
         del sets
     flash_rows(args, card, gen, get("smollm-135m"))

@@ -10,6 +10,7 @@ _MODULES = {
     "starcoder2-15b": "starcoder2_15b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "mistral-large-123b": "mistral_large_123b",
+    "llava-next-34b": "llava_next_34b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -6,7 +6,9 @@ zipf(1.3) tokens clipped to the vocabulary, labels the tokens shifted by
 one, so the two packages train on identical batches.  A background thread
 prefetches ahead of the loop; ``start_step`` resumes the stream exactly.
 Batches are numpy arrays until the train step moves them to the device.
-Only the dense decoder's batch (``tokens``, ``labels``) is ported.
+The dense decoder's batch (``tokens``, ``labels``, and a VLM's
+``patch_embeds``, drawn after the tokens as the reference draws them) is
+ported; the encoder-decoder's is not.
 """
 from __future__ import annotations
 
@@ -17,23 +19,16 @@ import numpy as np
 
 from repro_torch.configs.base import ArchCfg
 from repro_torch.configs.shapes import ShapeCfg
-
-
-def token_len(cfg: ArchCfg, shape: ShapeCfg) -> int:
-    """Decoder-token length of the shape for the dense decoder (a stub
-    patch prefix, where a config has one, is deducted)."""
-    if cfg.n_patches and shape.kind in ("train", "prefill"):
-        return shape.seq_len - cfg.n_patches
-    return shape.seq_len
+from repro_torch.models.api import token_len
 
 
 class TokenPipeline:
     def __init__(self, cfg: ArchCfg, shape: ShapeCfg, *, seed: int = 0,
                  host_id: int = 0, n_hosts: int = 1, start_step: int = 0,
                  prefetch: int = 2):
-        if cfg.n_patches or cfg.block == "encdec":
+        if cfg.block == "encdec":
             raise NotImplementedError(
-                f"{cfg.name}: only the dense decoder's batches are ported")
+                f"{cfg.name}: the encoder-decoder's batches are not ported")
         if shape.global_batch % n_hosts:
             raise ValueError(f"global batch {shape.global_batch} does not "
                              f"split over {n_hosts} hosts")
@@ -54,7 +49,12 @@ class TokenPipeline:
         rng = np.random.default_rng((self.seed, step, self.host_id))
         toks = rng.zipf(1.3, size=(self.local_batch, tl + 1))
         toks = np.minimum(toks - 1, self.cfg.vocab - 1).astype(np.int32)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.cfg.n_patches:
+            batch["patch_embeds"] = rng.standard_normal(
+                (self.local_batch, self.cfg.n_patches, self.cfg.d_model),
+                dtype=np.float32)
+        return batch
 
     def _worker(self):
         step = self._step

@@ -13,8 +13,9 @@ by parameter name, the reference as trees shaped like the parameters.
 ResNet-50's parameters, a tree of the same layout in both packages, and
 ``lstm_params_from_numpy`` (one LSTM layer), ``lstm_lm_params_from_numpy``
 and ``lstm_lm_params_to_numpy`` the LSTM language model's alike.  An
-untied head (``head.w``) and an ungated MLP (no ``w_gate``) carry across
-as the tree holds them.
+untied head (``head.w``), an ungated MLP (no ``w_gate``) and a VLM's
+patch projection (``vision_proj``: ``w1``, ``b1``, ``w2``, ``b2``) carry
+across as the tree holds them.
 A calibrated reference tree (``repro.quant.calibrate_params``, then numpy
 leaves) carries across too: each stacked ``QuantizedTensor`` leaf (``q``
 (L, k, n), ``scale`` (L, n) or (L,)) is sliced per layer into the port's
@@ -47,6 +48,9 @@ _BLOCK_LEAVES = (
     (("mlp", "w_up"), "mlp.w_up"),
     (("mlp", "w_down"), "mlp.w_down"),
 )
+
+
+_VISION_LEAVES = ("w1", "b1", "w2", "b2")    # a VLM's patch projection
 
 
 def _to_torch(arr, dtype, device) -> torch.Tensor:
@@ -97,6 +101,9 @@ def named_leaves(tree, cfg: ArchCfg):
     yield "final_ln.scale", tree["final_ln"]["scale"]
     if not cfg.tie_embeddings:
         yield "head.w", _one(tree["head"]["w"])
+    if cfg.n_patches:
+        for key in _VISION_LEAVES:
+            yield f"vision_proj.{key}", tree["vision_proj"][key]
     for path, attr in _block_leaves(cfg):
         leaf = _leaf(tree["blocks"], path)
         stacked = (np.asarray(leaf.q) if _is_quantized(leaf)
@@ -134,6 +141,9 @@ def _tree_of(named) -> dict:
             "blocks": blocks}
     if "head.w" in named:
         tree["head"] = {"w": np32(named["head.w"])}
+    if "vision_proj.w1" in named:
+        tree["vision_proj"] = {key: np32(named[f"vision_proj.{key}"])
+                               for key in _VISION_LEAVES}
     return tree
 
 

@@ -14,8 +14,14 @@ reduction is cut into so that few output tiles still fill the card.
 ``plan_batched`` decides ``batched_matmul_cuda``'s mainloop and tile the
 same way (one run of k: the batch fills the card), and ``plan_stacked``
 ``brgemm_stacked_cuda``'s, splitting the flattened (entry, k-slice) axis
-as ``plan`` splits k.  ``.mainloops`` of each of the three wrappers counts
-its calls by mainloop, ``.split_launches`` of ``matmul_cuda`` and
+as ``plan`` splits k.  Those are the heuristic: each wrapper takes its
+plan from ``dispatch.resolve_blocks`` (op ``matmul``, ``brgemm`` or
+``batched_matmul``, the triple of one entry, as the reference's entry
+points report it), which returns the wrapper's explicit ``plan=``, else the
+active block policy's pick, else the heuristic's.  ``candidate_plans`` is
+the grid a measured policy searches: the plans the kernels take at run
+time without a rebuild.  ``.mainloops`` of each of the three wrappers
+counts its calls by mainloop, ``.split_launches`` of ``matmul_cuda`` and
 ``brgemm_stacked_cuda`` the calls that also launched the split-K
 reduction; ``reset_matmul_counts`` zeroes them.
 """
@@ -27,7 +33,8 @@ import functools
 
 import torch
 
-from repro_torch.core import fusion
+from repro_torch.core import blocking, dispatch, fusion
+from repro_torch.core.blocking import GemmGeometry, Plan, PlanSchema
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -46,16 +53,8 @@ _TILES = {"wgmma": (128, 128, 64, 1), "wmma": (64, 64, 32, 4),
 # A split walks at least this much of k, so that its partials stay small
 # against its products; decode's k = 576 ran no faster split.
 MIN_SPLIT_K = 512
-
-
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    mainloop: str      # one of MAINLOOPS
-    bm: int            # tile rows
-    bk: int            # k a slice
-    splits: int        # runs of k, each its own blocks; 1: no split
-    chunk: int         # slices a run
-    tiles: int         # output tiles
+# Blocks an SM that a candidate's split aims at: one, two or four waves.
+PER_SM = (1, 2, 4)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -173,11 +172,82 @@ def plan_stacked(nb: int, m: int, n: int, k: int, is_bf16: bool,
     return dataclasses.replace(p, splits=splits, chunk=chunk)
 
 
+def candidate_plans(op: str, m: int, n: int, k: int, is_bf16: bool,
+                    tma: bool, nb: int = 1) -> list[Plan]:
+    """The plans a measured policy searches for ``op`` (``matmul``,
+    ``brgemm`` over ``nb`` entries or ``batched_matmul``), heuristic first,
+    then in a fixed order: the mainloops the operands allow (wgmma and
+    wmma where TMA can describe bf16 operands, wmma for other bf16, simt
+    for fp32), wgmma's 64- and 128-row tiles, and the split counts
+    ``_split`` gives at PER_SM blocks an SM (``batched_matmul`` never
+    splits; ``brgemm`` splits its stacked slices on wgmma only).  Every
+    one is a plan ``matmul.cu`` / ``batched.cu`` take at run time."""
+    heuristic = {"matmul": lambda: plan(m, n, k, is_bf16, tma),
+                 "brgemm": lambda: plan_stacked(nb, m, n, k, is_bf16, tma),
+                 "batched_matmul": lambda: plan_batched(m, n, k, is_bf16,
+                                                        tma)}[op]()
+    if not is_bf16:
+        mainloops = ("simt",)
+    elif tma and k > 0 and nb > 0:
+        mainloops = ("wgmma", "wmma")
+    else:
+        mainloops = ("wmma",)
+    out = [heuristic]
+    for mainloop in mainloops:
+        rows, bn, bk, _ = _TILES[mainloop]
+        for bm in (64, 128) if mainloop == "wgmma" else (rows,):
+            tiles = -(-m // bm) * -(-n // bn)
+            slices = -(-k // bk) * (nb if op == "brgemm" else 1)
+            for per_sm in PER_SM:
+                if op == "batched_matmul" or (op == "brgemm"
+                                              and mainloop != "wgmma"):
+                    splits, chunk = 1, max(1, slices)
+                else:
+                    splits, chunk = _split(tiles, slices, bk, per_sm)
+                p = Plan(mainloop, bm, bk, splits, chunk, tiles)
+                if p not in out:
+                    out.append(p)
+    return out
+
+
+def _is_bf16(dtype) -> bool:
+    return blocking.dtype_name(dtype) == "bfloat16"
+
+
+def _plain_geometry(m, n, k, dtype) -> GemmGeometry:
+    """Contiguous row-major operands: TMA reads bf16 rows of 8s."""
+    return GemmGeometry(_is_bf16(dtype) and k % 8 == 0 and n % 8 == 0)
+
+
+for _op, _heuristic in (
+        ("matmul", lambda m, n, k, dt, g: plan(m, n, k, _is_bf16(dt),
+                                               g.tma)),
+        ("brgemm", lambda m, n, k, dt, g: plan_stacked(g.nb, m, n, k,
+                                                       _is_bf16(dt), g.tma)),
+        ("batched_matmul", lambda m, n, k, dt, g: plan_batched(
+            m, n, k, _is_bf16(dt), g.tma))):
+    blocking.register_schema(_op, PlanSchema(
+        heuristic=_heuristic,
+        candidates=lambda m, n, k, dt, g, _op=_op: candidate_plans(
+            _op, m, n, k, _is_bf16(dt), g.tma, g.nb),
+        geometry=_plain_geometry))
+
+
+def _matmul_plan(x, w, explicit=None):
+    """(plan, x's and w's ``_operand``) of ``matmul_cuda(x, w)``."""
+    ox, ow = _operand(x, "x"), _operand(w, "w")
+    geometry = GemmGeometry(ox[3] and ow[3], 1, bool(ox[0]), bool(ow[0]))
+    p = dispatch.resolve_blocks("matmul", x.size(0), w.size(1), x.size(1),
+                                x.dtype, backend="cuda", plan=explicit,
+                                geometry=geometry)
+    return p, ox, ow
+
+
 def plan_call(x: torch.Tensor, w: torch.Tensor) -> Plan:
     """The plan of ``matmul_cuda(x, w)``, from the operands' shapes, type,
-    layouts and alignment (the kernel itself is not touched)."""
-    return plan(x.size(0), w.size(1), x.size(1), x.dtype == torch.bfloat16,
-                _operand(x, "x")[3] and _operand(w, "w")[3])
+    layouts and alignment under the active block policy (the kernel
+    itself is not touched)."""
+    return _matmul_plan(x, w)[0]
 
 
 def _check_dtypes(name, a, b, out_dtype):
@@ -209,13 +279,16 @@ def _raise_on(rc, lib, name):
 
 
 def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
-                alpha: float = 1.0, beta: float = 0.0, out_dtype=None):
+                alpha: float = 1.0, beta: float = 0.0, out_dtype=None,
+                plan: Plan | None = None):
     """``act(alpha * x @ w + beta * c0 + bias)`` on the card.
 
     x: (m, k) and w: (k, n), each either row-major or column-major (as
     ``x.T`` and ``table.T`` are), read in place.  bias: (n,) contiguous;
     c0: (m, n) with unit column stride; both fp32 or x's dtype.  Returns a
     contiguous (m, n) of ``out_dtype`` (fp32 or bf16; default x's dtype).
+    ``plan``: run so (one the kernel cannot take raises), else the block
+    policy's pick (``dispatch.resolve_blocks``).
     """
     out_dtype = out_dtype or x.dtype
     _check_dtypes("matmul_cuda", x, w, out_dtype)
@@ -224,8 +297,6 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
                          f"{tuple(w.shape)} do not chain")
     m, k = x.shape
     n = w.size(1)
-    x_trans, ldx, vec_x, tma_x = _operand(x, "x")
-    w_trans, ldw, vec_w, tma_w = _operand(w, "w")
     _epilogue_operand("bias", bias, (n,), x)
     _epilogue_operand("c0", c0, (m, n), x)
     has_c0 = c0 is not None and beta != 0.0
@@ -233,7 +304,8 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
     if m == 0 or n == 0:
         return out
     is_bf16 = x.dtype == torch.bfloat16
-    p = plan(m, n, k, is_bf16, tma_x and tma_w)
+    p, (x_trans, ldx, vec_x, _), (w_trans, ldw, vec_w, _) = _matmul_plan(
+        x, w, plan)
     ws = (torch.empty(p.splits * m * n, dtype=torch.float32, device=x.device)
           if p.splits > 1 else None)
     lib = _lib()
@@ -289,22 +361,31 @@ def _batched_tma(t: torch.Tensor, operand: list) -> bool:
         bstride == 0 or bstride >= mat.size(trans) * ld)
 
 
+def _batched_plan(op, a, b, explicit=None):
+    """(plan, a's and b's ``_batched_operand``) of a ``brgemm`` (stacked)
+    or ``batched_matmul`` call, its triple one entry's."""
+    oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
+    nb = a.size(0) if a.dim() == 3 else b.size(0)
+    geometry = GemmGeometry(_batched_tma(a, oa) and _batched_tma(b, ob), nb,
+                            bool(oa[3]), bool(ob[3]))
+    p = dispatch.resolve_blocks(op, a.size(-2), b.size(-1), a.size(-1),
+                                a.dtype, backend="cuda", plan=explicit,
+                                geometry=geometry)
+    return p, oa, ob
+
+
 def plan_batched_call(a: torch.Tensor, b: torch.Tensor) -> Plan:
     """The plan of ``batched_matmul_cuda(a, b)``, from the operands' shapes,
-    type, layouts and alignment (the kernel itself is not touched)."""
-    oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
-    return plan_batched(a.size(-2), b.size(-1), a.size(-1),
-                        a.dtype == torch.bfloat16,
-                        _batched_tma(a, oa) and _batched_tma(b, ob))
+    type, layouts and alignment under the active block policy (the kernel
+    itself is not touched)."""
+    return _batched_plan("batched_matmul", a, b)[0]
 
 
 def plan_stacked_call(a: torch.Tensor, b: torch.Tensor) -> Plan:
     """The plan of ``brgemm_stacked_cuda(a, b)``, from the operands' shapes,
-    type, layouts and alignment (the kernel itself is not touched)."""
-    oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
-    return plan_stacked(a.size(0), a.size(1), b.size(2), a.size(2),
-                        a.dtype == torch.bfloat16,
-                        _batched_tma(a, oa) and _batched_tma(b, ob))
+    type, layouts and alignment under the active block policy (the kernel
+    itself is not touched)."""
+    return _batched_plan("brgemm", a, b)[0]
 
 
 def _flags(a, out_dtype, *epilogue):
@@ -315,13 +396,15 @@ def _flags(a, out_dtype, *epilogue):
 
 def brgemm_stacked_cuda(a, b, bias=None, c0=None, *,
                         activation: str = "none", alpha: float = 1.0,
-                        beta: float = 0.0, out_dtype=None):
+                        beta: float = 0.0, out_dtype=None,
+                        plan: Plan | None = None):
     """``act(alpha * sum_i a[i] @ b[i] + beta * c0 + bias)`` on the card.
 
     a: (B, m, k) and b: (B, k, n), each entry row- or column-major with any
     batch stride, read in place.  bias: (n,) contiguous; c0: (m, n) with
     unit column stride; both fp32 or a's dtype.  Returns a contiguous
-    (m, n) of ``out_dtype`` (fp32 or bf16; default a's dtype).
+    (m, n) of ``out_dtype`` (fp32 or bf16; default a's dtype).  ``plan``:
+    as ``matmul_cuda``'s.
     """
     out_dtype = out_dtype or a.dtype
     _check_dtypes("brgemm_stacked_cuda", a, b, out_dtype)
@@ -338,9 +421,7 @@ def brgemm_stacked_cuda(a, b, bias=None, c0=None, *,
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
-    p = plan_stacked(nb, m, n, k, a.dtype == torch.bfloat16,
-                     _batched_tma(a, oa) and _batched_tma(b, ob))
+    p, oa, ob = _batched_plan("brgemm", a, b, plan)
     ws = (torch.empty(p.splits * m * n, dtype=torch.float32, device=a.device)
           if p.splits > 1 else None)
     lib = _batched_lib()
@@ -360,14 +441,16 @@ def brgemm_stacked_cuda(a, b, bias=None, c0=None, *,
 
 
 def batched_matmul_cuda(a, b, bias=None, *, activation: str = "none",
-                        alpha: float = 1.0, out_dtype=None):
+                        alpha: float = 1.0, out_dtype=None,
+                        plan: Plan | None = None):
     """``act(alpha * a[i] @ b[i] + bias)`` for each i, on the card.
 
     a: (B, m, k) or a 2-D (m, k) broadcast over the batch; b: (B, k, n) or
     a 2-D (k, n) broadcast; not both 2-D.  Each entry row- or column-major
     (as ``swapaxes(-1, -2)`` views are) with any batch stride, read in
     place.  bias: (n,) contiguous, fp32 or a's dtype.  Returns a contiguous
-    (B, m, n) of ``out_dtype`` (default a's dtype).
+    (B, m, n) of ``out_dtype`` (default a's dtype).  ``plan``: as
+    ``matmul_cuda``'s.
     """
     out_dtype = out_dtype or a.dtype
     _check_dtypes("batched_matmul_cuda", a, b, out_dtype)
@@ -384,9 +467,7 @@ def batched_matmul_cuda(a, b, bias=None, *, activation: str = "none",
     out = torch.empty((nb, m, n), dtype=out_dtype, device=a.device)
     if nb == 0 or m == 0 or n == 0:
         return out
-    oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
-    p = plan_batched(m, n, k, a.dtype == torch.bfloat16,
-                     _batched_tma(a, oa) and _batched_tma(b, ob))
+    p, oa, ob = _batched_plan("batched_matmul", a, b, plan)
     lib = _batched_lib()
     rc = lib.repro_batched_matmul(
         *oa, *ob, bias.data_ptr() if bias is not None else None,

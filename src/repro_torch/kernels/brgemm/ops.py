@@ -56,10 +56,16 @@ class _MatmulCuda(torch.autograd.Function):
         from_y = activation != "none" and not fusion.needs_preact(activation)
         ctx.save_for_backward(x, w, bias, c0, y if from_y else None)
         ctx.cfg = (activation, alpha, beta)
+        ctx.dispatch = dispatch.snapshot()
         return y
 
     @staticmethod
     def backward(ctx, dy):
+        with dispatch.restored(ctx.dispatch):
+            return _MatmulCuda._backward(ctx, dy)
+
+    @staticmethod
+    def _backward(ctx, dy):
         x, w, bias, c0, y = ctx.saved_tensors
         activation, alpha, beta = ctx.cfg
         g = fusion.output_grad(dy, y, activation, lambda: K.matmul_cuda(
@@ -160,14 +166,16 @@ class _BrgemmCuda(torch.autograd.Function):
         from_y = activation != "none" and not fusion.needs_preact(activation)
         ctx.save_for_backward(a, b, bias, c0, y if from_y else None)
         ctx.cfg = dict(activation=activation, alpha=alpha, beta=beta)
+        ctx.dispatch = dispatch.snapshot()
         return y
 
     @staticmethod
     def backward(ctx, dy):
         a, b, bias, c0, y = ctx.saved_tensors
-        grads = brgemm_bwd(K.brgemm_stacked_cuda, K.batched_matmul_cuda, a,
-                           b, bias, c0, y, dy, needs=ctx.needs_input_grad[:4],
-                           **ctx.cfg)
+        with dispatch.restored(ctx.dispatch):
+            grads = brgemm_bwd(K.brgemm_stacked_cuda, K.batched_matmul_cuda, a,
+                               b, bias, c0, y, dy,
+                               needs=ctx.needs_input_grad[:4], **ctx.cfg)
         return (*grads, None, None, None, None)
 
 

@@ -24,6 +24,8 @@ on raises) and takes no ``c0`` / ``beta`` accumulation.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import dispatch
@@ -132,7 +134,8 @@ def matmul_q(x, w, bias=None, c0=None, *, activation="none", alpha=1.0,
     name = _resolve_backend("matmul", backend, qcfg, x)
     xq, sx = _quantize_act(x, qcfg, axis=(-1,))
     wq, sw = _weight_qparams(w, qcfg)
-    fn = QK.matmul_q_cuda if name == "cuda" else QR.matmul_q_ref
+    fn = (functools.partial(QK.matmul_q_cuda, quant=qcfg) if name == "cuda"
+          else QR.matmul_q_ref)
     return fn(xq, wq, _vector(sx, x.shape[0]), sw, bias,
               activation=activation, alpha=alpha, out_dtype=out_dtype)
 
@@ -155,7 +158,8 @@ def brgemm_q(a, b, bias=None, c0=None, *, activation="none", alpha=1.0,
         w_axis = (0, 1) if qcfg.granularity == "per_channel" else None
         bq, sb = quantize(b, qcfg.w_dtype, axis=w_axis, k_major=True)
         sb = _vector(sb, b.shape[-1])
-    fn = QK.brgemm_q_cuda if name == "cuda" else QR.brgemm_q_ref
+    fn = (functools.partial(QK.brgemm_q_cuda, quant=qcfg) if name == "cuda"
+          else QR.brgemm_q_ref)
     return fn(aq, bq, _vector(sa, a.shape[1]), sb, bias,
               activation=activation, alpha=alpha, out_dtype=out_dtype)
 
@@ -182,7 +186,7 @@ def batched_matmul_q(a, b, bias=None, *, activation="none", alpha=1.0,
         bq, sb = quantize(b, qcfg.w_dtype, axis=w_axis, k_major=True)
         if sb.dim() == 0:
             sb = sb.expand(b.shape[-1])
-    fn = (QK.batched_matmul_q_cuda if name == "cuda"
-          else QR.batched_matmul_q_ref)
+    fn = (functools.partial(QK.batched_matmul_q_cuda, quant=qcfg)
+          if name == "cuda" else QR.batched_matmul_q_ref)
     return fn(aq, bq, sa, sb, bias, activation=activation, alpha=alpha,
               out_dtype=out_dtype)

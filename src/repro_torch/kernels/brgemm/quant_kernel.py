@@ -19,8 +19,14 @@ storage of ``core/quantize.py::quantize_weight`` and the LM head's
 folded into the reduction and its (entry, 128-element slice) axis split as
 ``plan_q`` splits k, and ``plan_q_batched`` ``batched_matmul_q_cuda``'s,
 one entry a block, one split: each entry of aq row-major and of bq
-column-major (a 2-D operand broadcast over the batch alike).  The plans
-decide before the launch; nothing falls back.  ``<wrapper>.launches``
+column-major (a 2-D operand broadcast over the batch alike).  Those are
+the heuristic: each wrapper takes its plan from ``dispatch.resolve_blocks``
+(op ``matmul``, ``brgemm`` or ``batched_matmul``, the weights' storage
+dtype and the quant tag in the key, as the reference's quantized entry
+points resolve theirs), which returns the explicit ``plan=``, else the
+block policy's pick, else the heuristic's; ``candidate_plans_q`` is the
+grid a measured policy searches.  The plans decide before the launch;
+nothing falls back.  ``<wrapper>.launches``
 counts each wrapper's launches, ``.mainloops`` its calls by mainloop and
 ``.split_launches`` those that also launched the split-K reduction
 (``reset_quant_counts`` zeroes them).
@@ -33,9 +39,11 @@ import functools
 
 import torch
 
-from repro_torch.core import fusion
+from repro_torch.core import blocking, dispatch, fusion
+from repro_torch.core.blocking import GemmGeometry, Plan, PlanSchema
+from repro_torch.core.quantize import QuantConfig, storage_name
 from repro_torch.kernels import _build
-from repro_torch.kernels.brgemm.kernel import (SMS, Plan, _layout,
+from repro_torch.kernels.brgemm.kernel import (PER_SM, SMS, _layout,
                                                _raise_on, _split)
 
 # Storage dtype -> the kernel's format code (quant.cu, enum Fmt).
@@ -195,11 +203,33 @@ def _q_operands(a, b) -> tuple[list, bool]:
     return [sa, lda, sb, ldb], oka and okb
 
 
+def _quant(aq, bq, quant):
+    """The call's quant config: the caller's, else the storage dtypes'
+    with the default scales (``QuantConfig``)."""
+    if quant is not None:
+        return quant
+    return QuantConfig(w_dtype=storage_name(bq.dtype),
+                       a_dtype=storage_name(aq.dtype))
+
+
+def _q_plan(op, aq, bq, explicit=None, quant=None):
+    """(plan, [a's batch stride, lda, b's batch stride, ldb]) of a
+    quantized call, its triple one entry's."""
+    strides, tma = _q_operands(aq, bq)
+    nb = 1 if op == "matmul" else (aq.size(0) if aq.dim() == 3
+                                   else bq.size(0))
+    p = dispatch.resolve_blocks(
+        op, aq.size(-2), bq.size(-1), aq.size(-1), bq.dtype, backend="cuda",
+        plan=explicit, geometry=GemmGeometry(tma, nb, False, True),
+        quant=_quant(aq, bq, quant))
+    return p, strides
+
+
 def plan_q_call(xq: torch.Tensor, wq: torch.Tensor) -> Plan:
     """The plan of ``matmul_q_cuda(xq, wq, ...)``, from the operands'
-    shapes, layouts and alignment (the kernel itself is not touched)."""
-    return plan_q(xq.size(0), wq.size(1), xq.size(1), _q_operands(xq, wq)[1],
-                  xq.dtype != torch.int8)
+    shapes, layouts and alignment under the active block policy (the
+    kernel itself is not touched)."""
+    return _q_plan("matmul", xq, wq)[0]
 
 
 @functools.lru_cache(maxsize=4096)
@@ -238,19 +268,71 @@ def plan_q_batched(nb: int, m: int, n: int, k: int, tma: bool,
 
 def plan_q_stacked_call(aq: torch.Tensor, bq: torch.Tensor) -> Plan:
     """The plan of ``brgemm_q_cuda(aq, bq, ...)``, from the operands'
-    shapes, layouts and alignment (the kernel itself is not touched)."""
-    return plan_q_stacked(aq.size(0), aq.size(1), bq.size(2), aq.size(2),
-                          _q_operands(aq, bq)[1],
-                          aq.dtype != torch.int8)
+    shapes, layouts and alignment under the active block policy."""
+    return _q_plan("brgemm", aq, bq)[0]
 
 
 def plan_q_batched_call(aq: torch.Tensor, bq: torch.Tensor) -> Plan:
     """The plan of ``batched_matmul_q_cuda(aq, bq, ...)``, from the
-    operands' shapes, layouts and alignment."""
-    nb = aq.size(0) if aq.dim() == 3 else bq.size(0)
-    return plan_q_batched(nb, aq.size(-2), bq.size(-1), aq.size(-1),
-                          _q_operands(aq, bq)[1],
-                          aq.dtype != torch.int8)
+    operands' shapes, layouts and alignment under the active block
+    policy."""
+    return _q_plan("batched_matmul", aq, bq)[0]
+
+
+def candidate_plans_q(op: str, m: int, n: int, k: int, tma: bool,
+                      fp8: bool = False, nb: int = 1) -> list[Plan]:
+    """The plans a measured policy searches for a quantized ``op``
+    (``matmul``, ``brgemm`` over ``nb`` entries or ``batched_matmul``),
+    heuristic first: on the wgmma mainloop (TMA reads both operands
+    K-major) its tile rows (64 or 128 for int8, 64 for fp8) and the split
+    counts ``_split`` gives at PER_SM blocks an SM (``batched_matmul``
+    never splits); otherwise the one wmma plan.  Every one is a plan
+    ``quant.cu`` takes at run time."""
+    heuristic = {"matmul": lambda: plan_q(m, n, k, tma, fp8),
+                 "brgemm": lambda: plan_q_stacked(nb, m, n, k, tma, fp8),
+                 "batched_matmul": lambda: plan_q_batched(
+                     nb, m, n, k, tma, fp8)}[op]()
+    out = [heuristic]
+    if heuristic.mainloop != "wgmma":
+        return out
+    slices = -(-k // BK) * (nb if op == "brgemm" else 1)
+    for bm in (64,) if fp8 else (64, 128):
+        tiles = -(-m // bm) * -(-n // 128)
+        for per_sm in PER_SM:
+            if op == "batched_matmul":
+                splits, chunk = 1, max(1, slices)
+            else:
+                splits, chunk = _split(tiles, slices, BK, per_sm,
+                                       MIN_SPLIT_K_FP8 if fp8
+                                       else MIN_SPLIT_K)
+            p = Plan("wgmma", bm, BK, splits, chunk, tiles)
+            if p not in out:
+                out.append(p)
+    return out
+
+
+def _is_fp8(dtype) -> bool:
+    return blocking.dtype_name(dtype) != "int8"
+
+
+def _plain_geometry(m, n, k, dtype) -> GemmGeometry:
+    """xq row-major, wq column-major (K-major both), contiguous: TMA reads
+    rows of 16 bytes."""
+    return GemmGeometry(k % 16 == 0, 1, False, True)
+
+
+for _op, _heuristic in (
+        ("matmul", lambda m, n, k, dt, g: plan_q(m, n, k, g.tma,
+                                                 _is_fp8(dt))),
+        ("brgemm", lambda m, n, k, dt, g: plan_q_stacked(
+            g.nb, m, n, k, g.tma, _is_fp8(dt))),
+        ("batched_matmul", lambda m, n, k, dt, g: plan_q_batched(
+            g.nb, m, n, k, g.tma, _is_fp8(dt)))):
+    blocking.register_schema(_op, PlanSchema(
+        heuristic=_heuristic,
+        candidates=lambda m, n, k, dt, g, _op=_op: candidate_plans_q(
+            _op, m, n, k, g.tma, _is_fp8(dt), g.nb),
+        geometry=_plain_geometry), quant=True)
 
 
 def _count(fn, p: Plan):
@@ -270,14 +352,17 @@ def _workspace(p: Plan, m: int, n: int, like: torch.Tensor):
 
 
 def matmul_q_cuda(xq, wq, sx, sw, bias=None, *, activation: str = "none",
-                  alpha: float = 1.0, out_dtype=torch.float32):
+                  alpha: float = 1.0, out_dtype=torch.float32,
+                  plan: Plan | None = None, quant=None):
     """``act(alpha * (xq @ wq) * (sx x sw) + bias)`` on the card.
 
     xq: (m, k), wq: (k, n), both int8 or both fp8 (each operand e4m3 or
     e5m2), each row- or column-major; xq row-major and wq column-major run
     the wgmma mainloop (``plan_q``).  sx: (m,), sw: (n,) fp32, any stride;
     bias: (n,) contiguous fp32 or bf16.  Returns a contiguous (m, n) of
-    ``out_dtype``.
+    ``out_dtype``.  ``plan``: run so, else the block policy's pick, keyed
+    by ``quant`` (the caller's ``QuantConfig``; default the storage
+    dtypes').
     """
     _check("matmul_q_cuda", xq, wq, bias, out_dtype, wq.shape[-1])
     if xq.dim() != 2 or wq.dim() != 2 or xq.size(1) != wq.size(0):
@@ -290,8 +375,7 @@ def matmul_q_cuda(xq, wq, sx, sw, bias=None, *, activation: str = "none",
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m == 0 or n == 0:
         return out
-    (_, ldx, _, ldw), tma = _q_operands(xq, wq)
-    p = plan_q(m, n, k, tma, xq.dtype != torch.int8)
+    p, (_, ldx, _, ldw) = _q_plan("matmul", xq, wq, plan, quant)
     if p.mainloop == "wgmma":
         ws = _workspace(p, m, n, xq)
         lib = _lib()
@@ -310,13 +394,15 @@ def matmul_q_cuda(xq, wq, sx, sw, bias=None, *, activation: str = "none",
 
 
 def brgemm_q_cuda(aq, bq, sa, sb, bias=None, *, activation: str = "none",
-                  alpha: float = 1.0, out_dtype=torch.float32):
+                  alpha: float = 1.0, out_dtype=torch.float32,
+                  plan: Plan | None = None, quant=None):
     """``act(alpha * (sum_i aq[i] @ bq[i]) * (sa x sb) + bias)`` on the card.
 
     aq: (B, m, k), bq: (B, k, n), each entry row- or column-major with any
     batch stride; entries of aq row-major and of bq column-major run the
     wgmma mainloop (``plan_q_stacked``).  sa: (m,), sb: (n,) fp32,
-    batch-shared.  Returns a contiguous (m, n) of ``out_dtype``.
+    batch-shared.  Returns a contiguous (m, n) of ``out_dtype``.  ``plan``
+    and ``quant``: as ``matmul_q_cuda``'s.
     """
     _check("brgemm_q_cuda", aq, bq, bias, out_dtype, bq.shape[-1])
     if aq.dim() != 3 or bq.dim() != 3 or aq.size(0) != bq.size(0) \
@@ -332,8 +418,7 @@ def brgemm_q_cuda(aq, bq, sa, sb, bias=None, *, activation: str = "none",
         raise ValueError("brgemm_q_cuda needs at least one batch entry")
     if m == 0 or n == 0:
         return out
-    strides, tma = _q_operands(aq, bq)
-    p = plan_q_stacked(nb, m, n, k, tma, aq.dtype != torch.int8)
+    p, strides = _q_plan("brgemm", aq, bq, plan, quant)
     if p.mainloop == "wgmma":
         ws = _workspace(p, m, n, aq)
         lib = _lib()
@@ -353,14 +438,16 @@ def brgemm_q_cuda(aq, bq, sa, sb, bias=None, *, activation: str = "none",
 
 def batched_matmul_q_cuda(aq, bq, sa, sb, bias=None, *,
                           activation: str = "none", alpha: float = 1.0,
-                          out_dtype=torch.float32):
+                          out_dtype=torch.float32, plan: Plan | None = None,
+                          quant=None):
     """``act(alpha * (aq[i] @ bq[i]) * (sa[i] x sb[i]) + bias)`` for each i.
 
     aq: (B, m, k) or a 2-D (m, k) broadcast over the batch; bq: (B, k, n)
     or a 2-D (k, n); not both 2-D.  Entries of aq row-major and of bq
     column-major run the wgmma mainloop (``plan_q_batched``).  sa: (B, m)
     or (m,); sb: (B, n) or (n,) (a 1-D scale row is shared by every
-    entry).  Returns a contiguous (B, m, n) of ``out_dtype``.
+    entry).  Returns a contiguous (B, m, n) of ``out_dtype``.  ``plan``
+    and ``quant``: as ``matmul_q_cuda``'s.
     """
     _check("batched_matmul_q_cuda", aq, bq, bias, out_dtype, bq.shape[-1])
     if aq.dim() not in (2, 3) or bq.dim() not in (2, 3) \
@@ -377,8 +464,7 @@ def batched_matmul_q_cuda(aq, bq, sa, sb, bias=None, *,
     out = torch.empty((nb, m, n), dtype=out_dtype, device=aq.device)
     if nb == 0 or m == 0 or n == 0:
         return out
-    strides, tma = _q_operands(aq, bq)
-    p = plan_q_batched(nb, m, n, k, tma, aq.dtype != torch.int8)
+    p, strides = _q_plan("batched_matmul", aq, bq, plan, quant)
     if p.mainloop == "wgmma":
         lib = _lib()
         rc = lib.repro_batched_matmul_q(

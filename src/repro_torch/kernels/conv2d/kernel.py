@@ -10,7 +10,11 @@ alone leave SMs idle), on the first kernel's gathered 64 x 64 wmma tiles
 ``conv2d_cuda.launches`` counts the launches, forward and backward-by-data
 alike (both run this kernel); ``.mainloops`` the calls by mainloop and
 ``.split_launches`` those that also launched the split reduction
-(``reset_conv_counts`` zeroes them).
+(``reset_conv_counts`` zeroes them).  ``plan_conv`` is the heuristic:
+``conv2d_cuda`` takes its plan from ``dispatch.resolve_blocks`` under the
+reference's triple (q, c, k), the rest of the call as a
+``ConvGeometry``; ``candidate_plans_conv`` is the grid a measured policy
+searches (the split counts of the wgmma plan).
 """
 from __future__ import annotations
 
@@ -19,9 +23,10 @@ import functools
 
 import torch
 
-from repro_torch.core import fusion
+from repro_torch.core import blocking, dispatch, fusion
+from repro_torch.core.blocking import ConvGeometry, Plan, PlanSchema
 from repro_torch.kernels import _build
-from repro_torch.kernels.brgemm.kernel import Plan, _split
+from repro_torch.kernels.brgemm.kernel import PER_SM, _split
 from repro_torch.kernels.conv2d.ref import out_size
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -60,13 +65,55 @@ def plan_conv(n: int, h: int, w: int, c: int, k: int, r: int, s: int,
     return Plan("wgmma", BM, CBLOCK, splits, chunk, tiles)
 
 
+def candidate_plans_conv(n: int, h: int, w: int, c: int, k: int, r: int,
+                         s: int, stride: int, padding: int, is_bf16: bool,
+                         aligned: bool) -> list[Plan]:
+    """The plans a measured policy searches, heuristic first: on wgmma the
+    window's split counts that ``_split`` gives at PER_SM blocks an SM;
+    the other mainloops walk the window whole, one plan."""
+    heuristic = plan_conv(n, h, w, c, k, r, s, stride, padding, is_bf16,
+                          aligned)
+    out = [heuristic]
+    if heuristic.mainloop == "wgmma":
+        slices = r * s * -(-c // CBLOCK)
+        for per_sm in PER_SM:
+            splits, chunk = _split(heuristic.tiles, slices, CBLOCK, per_sm)
+            p = Plan("wgmma", BM, CBLOCK, splits, chunk, heuristic.tiles)
+            if p not in out:
+                out.append(p)
+    return out
+
+
+def _geometry_args(q, c, k, dtype, g: ConvGeometry) -> tuple:
+    return (g.n, g.h, g.w, c, k, g.r, g.s, g.stride, g.padding,
+            blocking.dtype_name(dtype) == "bfloat16", g.aligned)
+
+
+blocking.register_schema("conv2d", PlanSchema(
+    heuristic=lambda q, c, k, dt, g: plan_conv(*_geometry_args(q, c, k, dt,
+                                                              g)),
+    candidates=lambda q, c, k, dt, g: candidate_plans_conv(
+        *_geometry_args(q, c, k, dt, g)),
+    # a 1 x 1 convolution over one row of q pixels
+    geometry=lambda q, c, k, dt: ConvGeometry(1, 1, q, 1, 1, 1, 0)))
+
+
+def _conv_plan(x, w, stride, padding, explicit=None) -> Plan:
+    n, h, wi, c = x.shape
+    r, s, _, k = w.shape
+    geometry = ConvGeometry(n, h, wi, r, s, stride, padding,
+                            x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    return dispatch.resolve_blocks(
+        "conv2d", out_size(wi, s, stride, padding), c, k, x.dtype,
+        backend="cuda", plan=explicit, geometry=geometry)
+
+
 def plan_conv_call(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                    padding: int = 0) -> Plan:
     """The plan of ``conv2d_cuda(x, w, stride=, padding=)``, from the
-    shapes, type and alignment (the kernel itself is not touched)."""
-    return plan_conv(*x.shape, w.size(3), w.size(0), w.size(1), stride,
-                     padding, x.dtype == torch.bfloat16,
-                     x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    shapes, type and alignment under the active block policy (the kernel
+    itself is not touched)."""
+    return _conv_plan(x, w, stride, padding)
 
 
 @functools.cache
@@ -80,13 +127,16 @@ def _lib():
 
 
 def conv2d_cuda(x, w, bias=None, *, stride: int = 1, padding: int = 0,
-                activation: str = "none", out_dtype=None):
+                activation: str = "none", out_dtype=None,
+                plan: Plan | None = None):
     """``act(conv(x, w) + bias)`` on the card, NHWC x RSCK -> NPQK.
 
     x: (N, H, W, C) and w: (R, S, C, K), both contiguous, fp32 or bf16 of
     one dtype; bias: (K,) contiguous, fp32 or x's dtype.  The input is
     padded by ``padding`` on every side (zeros, never materialized).
     Returns a contiguous (N, P, Q, K) of ``out_dtype`` (default x's dtype).
+    ``plan``: run so (one the kernel cannot take raises), else the block
+    policy's pick (``dispatch.resolve_blocks``).
     """
     out_dtype = out_dtype or x.dtype
     if not (x.is_cuda and w.device == x.device):
@@ -124,7 +174,7 @@ def conv2d_cuda(x, w, bias=None, *, stride: int = 1, padding: int = 0,
     if out.numel() == 0:
         return out
     is_bf16 = x.dtype == torch.bfloat16
-    plan = plan_conv_call(x, w, stride, padding)
+    plan = _conv_plan(x, w, stride, padding, plan)
     ws = (torch.empty(plan.splits * out.numel(), dtype=torch.float32,
                       device=x.device) if plan.splits > 1 else None)
     lib = _lib()

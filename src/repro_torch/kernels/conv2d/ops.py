@@ -113,13 +113,15 @@ class _Conv2dCuda(torch.autograd.Function):
         from_y = activation != "none" and not fusion.needs_preact(activation)
         ctx.save_for_backward(x, w, bias, y if from_y else None)
         ctx.cfg = dict(stride=stride, padding=padding, activation=activation)
+        ctx.dispatch = dispatch.snapshot()
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, w, bias, y = ctx.saved_tensors
-        grads = conv2d_bwd(K.conv2d_cuda, BK.matmul_cuda, x, w, bias, y, dy,
-                           needs=ctx.needs_input_grad[:3], **ctx.cfg)
+        with dispatch.restored(ctx.dispatch):
+            grads = conv2d_bwd(K.conv2d_cuda, BK.matmul_cuda, x, w, bias, y,
+                               dy, needs=ctx.needs_input_grad[:3], **ctx.cfg)
         return (*grads, None, None, None, None)
 
 

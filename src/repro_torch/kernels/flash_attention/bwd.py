@@ -16,7 +16,8 @@ views need no ``.contiguous()`` copy.
 ``plan_call`` picks a call's mainloop as the forward's plan does:
 ``wgmma`` (TMA and wgmma, the gradients in registers) for bf16 q, k, v, y
 and dy that TMA can describe, ``wmma`` for other bf16 views, ``simt``
-(FMA, no TF32) for fp32.
+(FMA, no TF32) for fp32, through ``dispatch.resolve_blocks`` under op
+``flash_attention_bwd`` (a grid of that one plan).
 """
 from __future__ import annotations
 
@@ -25,10 +26,12 @@ import functools
 
 import torch
 
+from repro_torch.core import blocking
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, MAINLOOPS,
-                                                       _strides, _tma_legal,
-                                                       _tma_strides, plan)
+                                                       _schema, _strides,
+                                                       _tma_strides,
+                                                       resolve_mainloop)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.c_longlong * 15
@@ -65,25 +68,29 @@ def _check_rows(name, t, like):
                          f"{t.dtype} on {t.device}")
 
 
+blocking.register_schema("flash_attention_bwd", _schema())
+
+
 def plan_call(q, k, v, y, dy) -> str:
     """The plan of ``flash_attention_bwd_cuda(q, k, v, y, lse, dy)`` from
-    the views' type, strides and alignment (the kernels are not touched);
-    no key at all stays off wgmma."""
-    return plan(q.dtype == torch.bfloat16,
-                k.size(2) > 0 and all(_tma_legal(t) for t in (q, k, v, y, dy)))
+    the views' type, strides and alignment under the active block policy
+    (the kernels are not touched); no key at all stays off wgmma."""
+    return resolve_mainloop("flash_attention_bwd", q, k, (q, k, v, y, dy))
 
 
 def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
                              window: int | None = None,
                              scale: float | None = None,
-                             return_delta: bool = False):
+                             return_delta: bool = False,
+                             plan: str | None = None):
     """(dq, dk, dv) from the forward's residuals, on the card.
 
     q, y, dy: (B, Hq, Tq, d); k, v: (B, Hkv, Tk, d); fp32 or bf16 of one
     dtype, d in (32, 64, 128).  lse: fp32 (B, Hq, Tq), as
     ``flash_attention_cuda(..., return_residuals=True)`` returns it.  The
     gradients come back contiguous in the inputs' dtype; with
-    ``return_delta`` also the fused fp32 (B, Hq, Tq) delta.
+    ``return_delta`` also the fused fp32 (B, Hq, Tq) delta.  ``plan``: the
+    mainloop to run, else the block policy's pick.
     """
     if not (q.is_cuda and all(t.device == q.device
                               for t in (k, v, y, lse, dy))):
@@ -125,7 +132,8 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
                   for t in (q, k, v))
     delta = alloc(lse)
     if q.numel() and k.numel():
-        mainloop = plan_call(q, k, v, y, dy)
+        mainloop = resolve_mainloop("flash_attention_bwd", q, k,
+                                    (q, k, v, y, dy), plan)
         lib = _lib()
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
                 dy.data_ptr(), lse.data_ptr(), delta.data_ptr(),

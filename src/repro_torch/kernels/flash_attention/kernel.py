@@ -10,7 +10,11 @@ strides: the transposed views of the attention layer's head split need no
 
 ``plan`` picks a call's mainloop: ``wgmma`` (TMA and wgmma, O in
 registers) for bf16 views that TMA can describe, ``wmma`` for other bf16
-views, ``simt`` (FMA, no TF32) for fp32.
+views, ``simt`` (FMA, no TF32) for fp32.  That is the heuristic: the
+wrapper takes its mainloop from ``dispatch.resolve_blocks`` under the
+reference's triple (tq, tk, d), whose grid is that one plan (the kernels
+take no other tile at run time), so a measured policy returns it
+unmeasured.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import functools
 
 import torch
 
+from repro_torch.core import blocking, dispatch
+from repro_torch.core.blocking import AttnGeometry, PlanSchema
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 128)
@@ -78,12 +84,46 @@ def plan(is_bf16: bool, tma: bool) -> str:
     return "wgmma" if tma else "wmma"
 
 
+def _heuristic(tq, tk, d, dtype, g: AttnGeometry) -> str:
+    return plan(blocking.dtype_name(dtype) == "bfloat16", g.tma)
+
+
+def _schema() -> PlanSchema:
+    """The flash kernels' schema (the backward's is alike): the heuristic
+    its own grid."""
+    return PlanSchema(
+        heuristic=_heuristic,
+        candidates=lambda *args: [_heuristic(*args)],
+        geometry=lambda tq, tk, d, dt: AttnGeometry(
+            blocking.dtype_name(dt) == "bfloat16" and d % 8 == 0))
+
+
+blocking.register_schema("flash_attention", _schema())
+
+
+def resolve_mainloop(op: str, q, k, views, explicit=None) -> str:
+    """The mainloop of a flash call (``op`` ``flash_attention`` or
+    ``flash_attention_bwd``) through ``dispatch.resolve_blocks``; an
+    explicit one the views cannot take raises.  No key at all stays off
+    wgmma."""
+    is_bf16 = q.dtype == torch.bfloat16
+    tma = k.size(2) > 0 and all(_tma_legal(t) for t in views)
+    mainloop = dispatch.resolve_blocks(
+        op, q.size(2), k.size(2), q.size(3), q.dtype, backend="cuda",
+        plan=explicit, geometry=AttnGeometry(tma))
+    allowed = ({"wgmma", "wmma"} if tma else {"wmma"}) if is_bf16 \
+        else {"simt"}
+    if mainloop not in allowed:
+        raise ValueError(f"{op}: mainloop {mainloop!r} cannot run these "
+                         f"views; they take {sorted(allowed)}")
+    return mainloop
+
+
 def plan_call(q, k, v) -> str:
     """The plan of ``flash_attention_cuda(q, k, v)`` from the views' type,
-    strides and alignment (the kernel itself is not touched); no key at
-    all stays off wgmma."""
-    return plan(q.dtype == torch.bfloat16,
-                k.size(2) > 0 and all(_tma_legal(t) for t in (q, k, v)))
+    strides and alignment under the active block policy (the kernel
+    itself is not touched)."""
+    return resolve_mainloop("flash_attention", q, k, (q, k, v))
 
 
 def _tma_strides(t: torch.Tensor) -> list[int]:
@@ -97,11 +137,13 @@ def _tma_strides(t: torch.Tensor) -> list[int]:
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int | None = None,
                          scale: float | None = None,
-                         return_residuals: bool = False):
+                         return_residuals: bool = False,
+                         plan: str | None = None):
     """q: (B, Hq, Tq, d); k, v: (B, Hkv, Tk, d) -> o (B, Hq, Tq, d).
 
     fp32 or bf16, d in (32, 64, 128).  With ``return_residuals`` also
     returns lse = m + log l, fp32 (B, Hq, Tq), ``NEG_INF`` for empty rows.
+    ``plan``: the mainloop to run, else the block policy's pick.
     """
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA "
@@ -129,7 +171,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     lse = (torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
            if return_residuals else None)
     if o.numel():
-        mainloop = plan_call(q, k, v)
+        mainloop = resolve_mainloop("flash_attention", q, k, (q, k, v), plan)
         lib = _lib()
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr() if lse is not None else None,

@@ -36,6 +36,7 @@ class _FlashCuda(torch.autograd.Function):
                                         return_residuals=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.cfg = (causal, window, scale)
+        ctx.dispatch = dispatch.snapshot()
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -50,8 +51,10 @@ class _FlashCuda(torch.autograd.Function):
         if do.stride(-1) != 1 or do.data_ptr() % 16 or any(
                 st % vec for st in do.stride()[:3]):
             do = do.contiguous()
-        dq, dk, dv = B.flash_attention_bwd_cuda(
-            q, k, v, o, lse, do, causal=causal, window=window, scale=scale)
+        with dispatch.restored(ctx.dispatch):
+            dq, dk, dv = B.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, causal=causal, window=window,
+                scale=scale)
         return dq, dk, dv, None, None, None
 
 

@@ -1,4 +1,7 @@
-"""Uniform model API, as in the reference; the dense decoder only.
+"""Uniform model API, as in the reference; the dense decoder only (a VLM's
+patch prefix included: its prefill and train batches carry
+``patch_embeds``, and ``token_len`` deducts the prefix from a shape's
+sequence).
 
 Besides the reference's entry points (init, forward, loss, prefill,
 prefill_chunk, decode_step) it holds the two decode steps of continuous
@@ -27,10 +30,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchCfg
+from repro_torch.configs.shapes import ShapeCfg
 from repro_torch.core.quantize import quantize
 from repro_torch.models import blocks, transformer
 
 KEYS = ("k", "v")
+
+
+def token_len(cfg: ArchCfg, shape: ShapeCfg) -> int:
+    """Decoder-token length of the shape (a stub patch prefix, where a
+    config has one, deducted in train and prefill)."""
+    if cfg.n_patches and shape.kind in ("train", "prefill"):
+        return shape.seq_len - cfg.n_patches
+    return shape.seq_len
 
 
 def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,

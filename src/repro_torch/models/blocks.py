@@ -27,10 +27,12 @@ def attn_cfg(cfg: ArchCfg) -> attention.AttnCfg:
 
 
 def check_dense(cfg: ArchCfg) -> None:
-    if cfg.block != "dense" or cfg.mla or cfg.n_patches:
+    """Dense GQA decoders, a VLM's patch prefix (``n_patches``) among
+    them."""
+    if cfg.block != "dense" or cfg.mla:
         raise NotImplementedError(
             f"{cfg.name}: the port serves dense GQA decoders only "
-            f"(block={cfg.block!r}, n_patches={cfg.n_patches})")
+            f"(block={cfg.block!r}, mla={cfg.mla})")
 
 
 def cache_len(cfg: ArchCfg, max_len: int) -> int:

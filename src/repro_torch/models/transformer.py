@@ -1,6 +1,16 @@
 """The dense decoder-only LM: init, forward, loss, prefill, prefill_chunk
 and decode_step.  The head is the tied embedding table or, where
 ``cfg.tie_embeddings`` is false, its own ``head.w`` (d_model, vocab).
+A VLM config (``cfg.n_patches``, llava-next-34b) has a ``vision_proj``:
+its batches carry ``patch_embeds`` (B, n_patches, d_model), projected by
+``gelu(v @ w1 + b1) @ w2 + b2`` (two ``matmul`` calls, the first with its
+bias and GELU in the kernel's epilogue, as the reference's) and prepended
+to the tokens' embeddings; the train forward drops the patch rows before
+the head, and prefill's logits are the last token's, past the prefix.
+With ``cfg.remat`` the train forward runs each decoder block under
+``torch.utils.checkpoint`` (the reference checkpoints each layer of its
+scan): its activations are recomputed in the backward, which changes
+memory and not one bit of the result.
 
 The reference scans one traced block over layer parameters stacked on a
 leading axis; here the layers are an ``nn.ModuleList`` run by a Python
@@ -12,11 +22,14 @@ logits are fp32.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.configs.base import ArchCfg
-from repro_torch.core import brgemm
+from repro_torch.core import brgemm, dispatch
 from repro_torch.core.dispatch import check_device
 from repro_torch.layers.embeddings import Embedding
 from repro_torch.layers.norms import RMSNorm
@@ -33,6 +46,22 @@ class Head(nn.Module):
         super().__init__()
         self.w = nn.Parameter(torch.empty(d, vocab, dtype=dtype,
                                           device=device))
+
+
+class VisionProj(nn.Module):
+    """The patch projection: ``w1``, ``w2`` (d, d), ``b1``, ``b2`` (d,)."""
+
+    def __init__(self, d: int, *, dtype, device):
+        super().__init__()
+        for name, shape in (("w1", (d, d)), ("b1", (d,)), ("w2", (d, d)),
+                            ("b2", (d,))):
+            setattr(self, name, nn.Parameter(torch.empty(
+                shape, dtype=dtype, device=device)))
+
+    def forward(self, v, *, backend=None):
+        v = brgemm.matmul(v, self.w1, self.b1, activation="gelu",
+                          backend=backend)
+        return brgemm.matmul(v, self.w2, self.b2, backend=backend)
 
 
 class Transformer(nn.Module):
@@ -54,13 +83,29 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             blocks.DecoderBlock(cfg, device=device)
             for _ in range(cfg.n_layers))
+        self.vision_proj = (VisionProj(cfg.d_model, dtype=dt, device=device)
+                            if cfg.n_patches else None)
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
 
-    def _embed(self, tokens):
+    def _embed_tokens(self, tokens):
         return self.embed.encode(tokens).to(blocks.dtype_of(self.cfg))
+
+    def _embed(self, tokens, patch_embeds=None, backend=None):
+        """The tokens' embeddings, a VLM's projected patches before them."""
+        dt = blocks.dtype_of(self.cfg)
+        h = self._embed_tokens(tokens)
+        if self.vision_proj is None:
+            return h
+        if patch_embeds is None:
+            raise ValueError(f"{self.cfg.name}: the batch needs "
+                             f"patch_embeds (B, {self.cfg.n_patches}, "
+                             f"{self.cfg.d_model})")
+        v = self.vision_proj(torch.as_tensor(patch_embeds, device=h.device)
+                             .to(dt), backend=backend)
+        return torch.cat([v, h], dim=1)
 
     def _head(self, h, backend):
         h = self.final_ln(h)
@@ -69,42 +114,55 @@ class Transformer(nn.Module):
         return brgemm.matmul(h, self.head.w, out_dtype=torch.float32,
                              backend=backend)
 
-    def _run(self, h, *, mode, cache, pos, backend):
+    def _run(self, h, *, mode, cache, pos, backend, remat=False):
+        remat = remat and mode == "train" and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             layer_cache = None if cache is None else cache["blocks"][i]
+            if remat:
+                h = _checkpointed(block, h, backend)
+                continue
             h, _ = block(h, mode=mode, cache=layer_cache, pos=pos,
                          backend=backend)
         return h
 
-    def forward(self, tokens, *, backend: str | None = None):
-        """Train-mode forward: (B, T) tokens -> fp32 logits (B, T, V)."""
-        h = self._run(self._embed(tokens), mode="train", cache=None, pos=0,
-                      backend=backend)
+    def forward(self, tokens, *, backend: str | None = None,
+                patch_embeds=None, remat: bool | None = None):
+        """Train-mode forward: (B, T) tokens -> fp32 logits (B, T, V)
+        (the patch rows of a VLM dropped before the head).  ``remat``
+        (default ``cfg.remat``) checkpoints each block."""
+        remat = self.cfg.remat if remat is None else remat
+        h = self._run(self._embed(tokens, patch_embeds, backend),
+                      mode="train", cache=None, pos=0, backend=backend,
+                      remat=remat)
+        if self.cfg.n_patches:
+            h = h[:, self.cfg.n_patches:]
         return self._head(h, backend)
 
     def prefill(self, tokens, cache, *, backend: str | None = None,
-                logit_pos: int | None = None):
+                logit_pos: int | None = None, patch_embeds=None):
         """Fills ``cache`` in place; returns (logits (B, V), cache).
 
-        The logits are the last position's, or ``logit_pos``'s: bucketed
+        The logits are the last position's, or ``logit_pos``'s (an index
+        into the sequence, a VLM's patch prefix included): bucketed
         prefill right-pads a prompt, and its true last token sits before
         the pad."""
-        h = self._run(self._embed(tokens), mode="prefill", cache=cache,
-                      pos=0, backend=backend)
+        h = self._run(self._embed(tokens, patch_embeds, backend),
+                      mode="prefill", cache=cache, pos=0, backend=backend)
         idx = h.shape[1] - 1 if logit_pos is None else int(logit_pos)
         return self._head(h[:, idx:idx + 1], backend)[:, 0], cache
 
     def prefill_chunk(self, tokens, cache, pos: int, *,
                       length: int | None = None,
-                      backend: str | None = None):
+                      backend: str | None = None, patch_embeds=None):
         """One chunk of a longer prompt, tokens at positions ``pos ..
         pos+C-1``: it attends causally to everything already written into
         ``cache`` (earlier chunks) and itself, and appends its K and V at
         ``pos``, in place.  ``length`` (<= C) marks the valid prefix of a
         right-padded chunk, whose logits are returned (the last token's by
         default).  Chaining chunks reproduces one-shot ``prefill``."""
-        h = self._run(self._embed(tokens), mode="prefill_chunk",
-                      cache=cache, pos=int(pos), backend=backend)
+        h = self._run(self._embed(tokens, patch_embeds, backend),
+                      mode="prefill_chunk", cache=cache, pos=int(pos),
+                      backend=backend)
         idx = h.shape[1] - 1 if length is None else int(length) - 1
         return self._head(h[:, idx:idx + 1], backend)[:, 0], cache
 
@@ -112,16 +170,29 @@ class Transformer(nn.Module):
                     backend: str | None = None):
         """tokens: (B, 1), row b at position ``pos[b]`` (a (B,) tensor).
         Returns (logits (B, V), cache), the cache written in place."""
-        h = self._run(self._embed(tokens), mode="decode", cache=cache,
+        h = self._run(self._embed_tokens(tokens), mode="decode", cache=cache,
                       pos=pos, backend=backend)
         return self._head(h, backend)[:, 0], cache
+
+
+def _checkpointed(block, h, backend):
+    """A train-mode block under ``torch.utils.checkpoint``: its forward is
+    rerun in the backward, in the dispatch state of the forward (autograd
+    may rerun it on a thread of its own)."""
+    state = dispatch.snapshot()
+    return checkpoint.checkpoint(
+        lambda x: block(x, mode="train", backend=backend)[0], h,
+        use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            dispatch.restored(state)))
 
 
 def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
                 device="cuda") -> Transformer:
     """Random weights with the reference's distributions: each weight is
     normal scaled by ``fan_in ** -0.5`` (the embedding table by
-    ``d_model ** -0.5``), each norm scale ones.  Draws come from
+    ``d_model ** -0.5``), each norm scale ones, a VLM projection's biases
+    zeros.  Draws come from
     ``generator`` (default: a CPU generator seeded 0), in fp32, then are
     cast to ``cfg.dtype``."""
     model = Transformer(cfg, device=device)
@@ -131,6 +202,9 @@ def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
         for name, p in model.named_parameters():
             if name.endswith("scale"):
                 p.fill_(1.0)
+                continue
+            if name.startswith("vision_proj.b"):
+                p.zero_()
                 continue
             fan_in = p.shape[1] if name == "embed.table" else p.shape[0]
             draw = torch.randn(p.shape, generator=generator,
@@ -148,8 +222,11 @@ def init_cache(cfg: ArchCfg, batch: int, max_len: int, *, device="cuda"):
 
 
 def forward(params: Transformer, batch, cfg: ArchCfg, *, backend=None):
-    """Train-mode forward.  Returns (fp32 logits, aux)."""
-    return params(batch["tokens"], backend=backend), dict(ZERO_AUX)
+    """Train-mode forward, ``cfg.remat`` deciding the checkpointing.
+    Returns (fp32 logits, aux)."""
+    return params(batch["tokens"], backend=backend,
+                  patch_embeds=batch.get("patch_embeds"),
+                  remat=cfg.remat), dict(ZERO_AUX)
 
 
 def _xent(logits, labels, mask):
@@ -180,7 +257,8 @@ def prefill(params: Transformer, batch, cfg: ArchCfg, cache, *,
             backend=None, logit_pos=None):
     """Returns (logits at ``logit_pos``, default the last token, cache)."""
     return params.prefill(batch["tokens"], cache, backend=backend,
-                          logit_pos=logit_pos)
+                          logit_pos=logit_pos,
+                          patch_embeds=batch.get("patch_embeds"))
 
 
 def prefill_chunk(params: Transformer, batch, cfg: ArchCfg, cache, pos, *,
@@ -188,7 +266,8 @@ def prefill_chunk(params: Transformer, batch, cfg: ArchCfg, cache, pos, *,
     """One chunk of a longer prompt at positions ``pos..pos+C-1``; returns
     (logits (B, V), cache)."""
     return params.prefill_chunk(batch["tokens"], cache, pos, length=length,
-                                backend=backend)
+                                backend=backend,
+                                patch_embeds=batch.get("patch_embeds"))
 
 
 def decode_step(params: Transformer, tokens, cfg: ArchCfg, cache, pos, *,

@@ -2,8 +2,10 @@
 
 The port of ``repro/obs/__init__.py``: a low-overhead tracer (nested spans
 and instant events in a ring buffer, :mod:`repro_torch.obs.tracer`) that
-dispatch resolutions and the serving engine's request lifecycles record
-into, and the always-on dispatch counters
+dispatch resolutions (``dispatch`` and ``resolve_blocks`` events), the
+autotuner's searches (``autotune.search`` spans, an ``autotune.measure``
+span a candidate) and the serving engine's request lifecycles record
+into, and the always-on dispatch, tuning-cache and autotune counters
 (:mod:`repro_torch.obs.telemetry`).  The reference's Chrome export and
 FLOP accounting are not ported.
 

@@ -12,10 +12,12 @@ families through :func:`prometheus_lines`:
     repro_blocks_source_total{source}      where each blocks pick came from
     repro_autotune_{searches,measured,failed,seeded}_total
 
-The port's dispatch has no fallback tier, no block policies and no
-autotune, so it records only the first family; the others are emitted
-at zero so that a scraper sees the reference's families.  Counters are
-ints behind one lock, always on: unlike spans they cost no memory growth.
+``dispatch.resolve_blocks`` records every lookup (a hit, or the source
+of a fresh pick) and ``core.autotune`` its searches; ``autotune.STATS``
+is a view of the same store.  The port's dispatch has no fallback tier,
+so ``repro_backend_fallbacks_total`` is emitted without samples, that a
+scraper sees the reference's families.  Counters are ints behind one
+lock, always on: unlike spans they cost no memory growth.
 """
 from __future__ import annotations
 
@@ -28,29 +30,54 @@ class DispatchTelemetry:
     def __init__(self):
         self._lock = threading.Lock()
         self.op_dispatch: dict[tuple, int] = {}     # (op, backend) -> n
+        self.blocks_source: dict[str, int] = {}     # source -> n
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.autotune = {"searches": 0, "measured": 0, "failed": 0,
+                         "seeded": 0}
 
     def record_dispatch(self, op: str, backend: str) -> None:
         with self._lock:
             key = (op, backend)
             self.op_dispatch[key] = self.op_dispatch.get(key, 0) + 1
 
+    def record_blocks(self, source: str) -> None:
+        """One ``resolve_blocks`` outcome: ``"cache-hit"``, or the source
+        of a fresh pick (a miss)."""
+        with self._lock:
+            self.blocks_source[source] = \
+                self.blocks_source.get(source, 0) + 1
+            if source == "cache-hit":
+                self.cache_hits += 1
+            else:
+                self.cache_misses += 1
+
+    def set_autotune(self, name: str, value: int) -> None:
+        if name not in self.autotune:
+            raise KeyError(name)
+        with self._lock:
+            self.autotune[name] = int(value)
+
     def snapshot(self) -> dict:
-        """The reference's snapshot keys; all but ``op_dispatch`` hold
-        what the port never records (empty, or zero)."""
+        """The reference's snapshot keys; ``fallbacks`` stays empty (the
+        port never falls back)."""
         with self._lock:
             return {
                 "op_dispatch": dict(self.op_dispatch),
                 "fallbacks": {},
-                "blocks_source": {},
-                "cache_hits": 0,
-                "cache_misses": 0,
-                "autotune": dict.fromkeys(
-                    ("searches", "measured", "failed", "seeded"), 0),
+                "blocks_source": dict(self.blocks_source),
+                "cache_hits": self.cache_hits,
+                "cache_misses": self.cache_misses,
+                "autotune": dict(self.autotune),
             }
 
     def reset(self) -> None:
         with self._lock:
             self.op_dispatch.clear()
+            self.blocks_source.clear()
+            self.cache_hits = self.cache_misses = 0
+            for key in self.autotune:
+                self.autotune[key] = 0
 
 
 TELEMETRY = DispatchTelemetry()

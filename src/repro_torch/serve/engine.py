@@ -5,9 +5,16 @@ tokens, the position bookkeeping, and the order of draws.  Greedy is
 ``argmax``; sampling is Gumbel-max over ``logits / temperature`` with
 uniforms drawn from the caller's ``torch.Generator`` (the reference uses
 ``jax.random.categorical``, which is the same draw rule on other bits).
-Both engines run under ``torch.inference_mode()``; a backend, when given,
-scopes every op through ``dispatch.use``.  Their quant tiers are the
-reference's: prefill runs under ``use(quant=quant)``, decode under
+Both engines run under ``torch.inference_mode()``; a backend and a block
+policy (``blocks_policy``: ``"heuristic"``, ``"autotune"`` or a callable,
+``dispatch.resolve_blocks``), when given, scope prefill and decode through
+``dispatch.use``, as the reference's ``_tier_context`` does: under
+``"autotune"`` the first call at each kernel shape pays the measured
+search (or reads ``REPRO_TORCH_TUNING_CACHE``) and later ones reuse the
+winner.  A VLM config (``cfg.n_patches``) takes ``patch_embeds`` (B,
+n_patches, d_model) beside the tokens, whose positions then start past
+the patch prefix (``pos_off``), as in the reference.  Their quant tiers
+are the reference's: prefill runs under ``use(quant=quant)``, decode under
 ``use(quant=decode_quant)``, which defaults to ``quant`` (the canonical
 production mix is ``quant=None`` with ``decode_quant="int8"``: prefill is
 compute-bound, decode streams the weights).  A calibrated model
@@ -23,8 +30,8 @@ positions, preemption when the page pool runs dry, cancellation,
 streaming callbacks, serving metrics and request spans (``obs``).  Greedy
 outputs match the static ``Engine`` token for token.  The reference's
 ``key`` is a ``torch.Generator`` here (by default one on the engine's
-device, seeded 0, so sampling draws no uniforms on the host); its block
-policy, accumulation dtype, interpret mode and mesh are not ported.
+device, seeded 0, so sampling draws no uniforms on the host); its
+accumulation dtype, interpret mode and mesh are not ported.
 """
 from __future__ import annotations
 
@@ -71,6 +78,18 @@ def _tier(quant):
     return as_quant_config(quant) if quant is not None else None
 
 
+def _pos_off(cfg: ArchCfg) -> int:
+    """Positions a prompt's tokens start at: past a VLM's patch prefix."""
+    return cfg.n_patches or 0
+
+
+def _as_batch1(x, name: str, device):
+    if x is None:
+        raise ValueError(f"request requires {name} for this architecture")
+    x = torch.as_tensor(x, device=device)
+    return x if x.dim() == 3 else x[None]
+
+
 @dataclasses.dataclass
 class ServeConfig:
     max_len: int
@@ -80,7 +99,7 @@ class ServeConfig:
 class Engine:
     def __init__(self, cfg: ArchCfg, params, scfg: ServeConfig, *,
                  backend: str | None = None, device="cuda", quant=None,
-                 decode_quant=None):
+                 decode_quant=None, blocks_policy=None):
         self.device = dispatch.check_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params live on {params.device}, the engine "
@@ -90,6 +109,7 @@ class Engine:
         self.scfg = scfg
         self.backend = backend
         # Normalized (so validated) here, not at the first call.
+        self.blocks_policy = dispatch.check_blocks_policy(blocks_policy)
         self.quant = _tier(quant)
         self.decode_quant = _tier(decode_quant) or self.quant
 
@@ -103,8 +123,9 @@ class Engine:
     def generate(self, batch, *, n_tokens: int,
                  generator: torch.Generator | None = None,
                  stop_tokens=None):
-        """batch: ``{"tokens": (B, T) ints}``.  Returns (B, T') int32 ids on
-        the engine's device, T' <= n_tokens.
+        """batch: ``{"tokens": (B, T) ints}``, and for a VLM config
+        ``"patch_embeds"`` (B, n_patches, d_model).  Returns (B, T') int32
+        ids on the engine's device, T' <= n_tokens.
 
         ``stop_tokens=None`` defaults to ``(cfg.eos_token,)`` when the config
         has one (pass ``()`` to disable).  With stop tokens the loop ends as
@@ -121,17 +142,22 @@ class Engine:
         stops = tuple(stop_tokens)
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         b, prompt_len = tokens.shape
-        with torch.inference_mode(), dispatch.use(backend=self.backend):
+        inputs = {"tokens": tokens}
+        if self.cfg.n_patches:
+            inputs["patch_embeds"] = torch.as_tensor(batch["patch_embeds"],
+                                                     device=self.device)
+        with torch.inference_mode(), dispatch.use(
+                backend=self.backend, blocks_policy=self.blocks_policy):
             cache = api.init_cache(self.cfg, b, self.scfg.max_len,
                                    device=self.device)
             with dispatch.use(quant=self.quant):
-                logits, cache = api.prefill(self.params, {"tokens": tokens},
-                                            self.cfg, cache)
+                logits, cache = api.prefill(self.params, inputs, self.cfg,
+                                            cache)
             tok = self._sample(logits, generator)
             out = [tok]
             finished = (np.isin(tok.cpu().numpy(), stops) if stops
                         else None)
-            pos = prompt_len
+            pos = prompt_len + _pos_off(self.cfg)
             for _ in range(n_tokens - 1):
                 if stops and finished.all():
                     break
@@ -222,7 +248,7 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ArchCfg, params, pool: PoolConfig, *,
                  backend: str | None = None, quant=None, decode_quant=None,
-                 priority_fn=None,
+                 blocks_policy=None, priority_fn=None,
                  generator: torch.Generator | None = None,
                  trace_sample_rate: int | None = None,
                  clock: Callable[[], float] = time.perf_counter,
@@ -256,6 +282,8 @@ class ContinuousEngine:
         self.params = params
         self.pool_cfg = pool
         self.backend = backend
+        self.blocks_policy = dispatch.check_blocks_policy(blocks_policy)
+        self._pos_off = _pos_off(cfg)
         self.quant = _tier(quant)
         # decode streams the weights, so it gets its own quant tier
         self.decode_quant = _tier(decode_quant) or self.quant
@@ -316,7 +344,7 @@ class ContinuousEngine:
         n_prompt = len(request.prompt)
         if n_prompt < 1:
             raise ValueError("empty prompt")
-        need = n_prompt + request.max_tokens
+        need = self._pos_off + n_prompt + request.max_tokens
         if need > self.pool_cfg.max_len:
             raise ValueError(
                 f"prompt ({n_prompt}) + max_tokens ({request.max_tokens}) "
@@ -372,7 +400,11 @@ class ContinuousEngine:
             pad_to = min(self.pool_cfg.max_len, -(-n // bucket) * bucket)
         tokens = np.zeros(pad_to, np.int32)
         tokens[:n] = request.prompt
-        return {"tokens": self._tokens_on_device(tokens)}, n - 1
+        batch = {"tokens": self._tokens_on_device(tokens)}
+        if self.cfg.n_patches:
+            batch["patch_embeds"] = _as_batch1(request.patch_embeds,
+                                               "patch_embeds", self.device)
+        return batch, self._pos_off + n - 1
 
     def _span(self, name: str, state: RequestState, **attrs):
         """A span of a traced request, else the no-op span."""
@@ -394,7 +426,8 @@ class ContinuousEngine:
                 logits, rcache = api.prefill(self.params, batch, self.cfg,
                                              rcache, logit_pos=logit_pos)
             if self.paged:
-                if not self.pool.insert(slot, rcache, len(req.prompt)):
+                n_valid = self._pos_off + len(req.prompt)
+                if not self.pool.insert(slot, rcache, n_valid):
                     # step() pre-checks the page budget, so this only
                     # trips on a logic error: fail loudly, not silently
                     raise RuntimeError(
@@ -442,7 +475,7 @@ class ContinuousEngine:
         if finished:
             self._evict(state)
             return state.request_id, tok, True
-        n_valid = len(req.prompt)
+        n_valid = self._pos_off + len(req.prompt)
         self._tokens[slot] = tok
         self._temps[slot] = req.temperature
         self._topk[slot] = req.top_k
@@ -535,7 +568,8 @@ class ContinuousEngine:
         # prompt fully prefilled: move the view into the pool (page-
         # starved inserts return False and are retried next step)
         if self.paged:
-            if not self.pool.insert(slot, st["cache"], len(prompt)):
+            n_valid = self._pos_off + len(prompt)
+            if not self.pool.insert(slot, st["cache"], n_valid):
                 return consumed, None
         else:
             self.pool.insert(slot, st["cache"])
@@ -618,7 +652,8 @@ class ContinuousEngine:
 
         Returns a list of ``(request_id, token, finished)`` events.
         """
-        with torch.inference_mode(), dispatch.use(backend=self.backend):
+        with torch.inference_mode(), dispatch.use(
+                backend=self.backend, blocks_policy=self.blocks_policy):
             return self._step()
 
     def _step(self):
@@ -663,7 +698,8 @@ class ContinuousEngine:
             if budget is not None and spent + n_prompt > budget:
                 self.scheduler.requeue(state)
                 break
-            if (self.paged and -(-n_prompt // self.pool.page_size)
+            if (self.paged and -(-(self._pos_off + n_prompt)
+                                 // self.pool.page_size)
                     > self.pool.n_free_pages):
                 # not enough pages for the prompt: hold admission (decode
                 # progress frees pages as running requests finish)

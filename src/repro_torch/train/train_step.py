@@ -10,10 +10,11 @@ training they are bf16, as in the reference, and the optimizer casts them to
 fp32.  With microbatches they are summed in fp32 and divided by their
 count.  The learning-rate scale reads the step *before* the update
 increments it, so the first update has lr = 0, as in the reference.
-Gradient compression, block policies, accumulator dtypes and meshes are not
-ported yet.  ``cfg.remat`` is not read: activation checkpointing changes
-memory, not numbers, and smollm-135m's activations at B = 8 x T = 512 fit
-on one card without it.
+``backend`` and ``blocks_policy`` scope the forward and the backward (the
+kernels' backward passes re-enter the forward's dispatch state,
+``dispatch.restored``).  ``cfg.remat`` checkpoints each decoder block
+(``models/transformer.py``): memory, not numbers.  Gradient compression,
+accumulator dtypes and meshes are not ported yet.
 """
 from __future__ import annotations
 
@@ -48,16 +49,19 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
                     accum_dtype=None, mesh=None, axis_specs=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    ``batch`` holds ``tokens`` and ``labels`` (numpy or tensors), moved to
-    the master copy's device.  ``backend`` scopes every op of the step,
+    ``batch`` holds ``tokens`` and ``labels`` (and a VLM's
+    ``patch_embeds``; numpy or tensors), moved to the master copy's
+    device.  ``backend`` and ``blocks_policy`` scope every op of the step,
     forward and backward.
     """
     if grad_compression != "none":
         raise NotImplementedError("gradient compression is not ported yet")
-    if any(x is not None for x in (blocks_policy, accum_dtype, mesh,
-                                   axis_specs)):
-        raise NotImplementedError("block policies, accumulator dtypes and "
-                                  "meshes are not ported yet")
+    if any(x is not None for x in (accum_dtype, mesh, axis_specs)):
+        raise NotImplementedError(
+            "accum_dtype, mesh and axis_specs are not ported yet: the "
+            "port accumulates in fp32 on one device (blocks_policy is "
+            "ported)")
+    blocks_policy = dispatch.check_blocks_policy(blocks_policy)
     model = None     # the working params, built at the first step
 
     def train_step(state, batch):
@@ -66,7 +70,7 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
             device = next(iter(state["opt"]["master"].values())).device
             model = Transformer(cfg, device=device)
         opt.cast_params(state["opt"], dict(model.named_parameters()))
-        with dispatch.use(backend=backend):
+        with dispatch.use(backend=backend, blocks_policy=blocks_policy):
             if microbatches > 1:
                 rows = len(batch["tokens"])
                 if rows % microbatches:

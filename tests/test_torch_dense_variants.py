@@ -1,6 +1,8 @@
 """The port's dense variants against the JAX package, on the CPU: the plain
 GELU FFN (starcoder2-15b), the untied head (mistral-large-123b), the
-sliding-window ring cache (starcoder2-15b), and deepseek-coder-33b as it is.
+sliding-window ring cache (starcoder2-15b), llava-next-34b's patch prefix
+(its projection, the prefix's positions in both engines), and
+deepseek-coder-33b as it is.
 
 Each config is the reference's ``reduced()`` form (fp32; starcoder2's
 window cut to 8), weights made by the reference from a fixed key and handed
@@ -10,6 +12,8 @@ layers).  Greedy tokens must match exactly.  The reference runs under
 ``repro.use(backend="xla")``: its untied head drops a ``backend=`` argument
 and takes the ambient one.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -285,14 +289,179 @@ def test_windowed_refusals(starcoder):
                            tcfg, cache, 0)
 
 
-def test_vlm_config_is_refused():
-    """llava-next-34b's patch projection is not ported: its config raises
-    rather than serving without it."""
-    import dataclasses
-    cfg = dataclasses.replace(tconfigs.get("smollm-135m").reduced(),
-                              n_patches=4)
-    with pytest.raises(NotImplementedError, match="n_patches"):
-        tapi.init_params(cfg, device="cpu")
+def test_vlm_config_is_refused(llava):
+    """What the reference refuses a VLM config the port refuses too:
+    bucketed and chunked prefill raise, a page size leaves it on the
+    slotted pool, and a request or batch without its patches raises."""
+    jcfg, tcfg, jparams, _, model = llava
+    assert not tapi.supports_paging(tcfg)
+    for kw, msg in (({"prefill_chunk": 8}, "prefill_chunk is not supported"),
+                    ({"prefill_bucket": 8}, "prefill_bucket is not "
+                                            "supported")):
+        with pytest.raises(ValueError, match=msg):
+            JContinuousEngine(jcfg, jparams, JPoolConfig(
+                n_slots=2, max_len=MAX_LEN, **kw))
+        with pytest.raises(ValueError, match=msg):
+            ContinuousEngine(tcfg, model, PoolConfig(n_slots=2,
+                                                     max_len=MAX_LEN, **kw),
+                             device="cpu")
+    ce = ContinuousEngine(tcfg, model, PoolConfig(
+        n_slots=2, max_len=MAX_LEN, page_size=8), device="cpu")
+    assert not ce.paged
+    with pytest.raises(ValueError, match="patch_embeds"):
+        ce.serve([Request(prompt=[1, 2], max_tokens=2, stop_tokens=())])
+    # the prefix counts against the pool's positions, as the reference's
+    with pytest.raises(ValueError, match="max_len"):
+        ce.submit(Request(prompt=[1] * (MAX_LEN - 4 - 3), max_tokens=4))
+    with pytest.raises(ValueError, match="patch_embeds"):
+        tapi.forward(model, {"tokens": torch.zeros(1, 3, dtype=torch.long)},
+                     tcfg)
+    with pytest.raises(NotImplementedError, match="mla"):
+        tapi.init_params(dataclasses.replace(tcfg, mla=True), device="cpu")
+
+
+# ==========================================================================
+# llava-next-34b: the patch prefix
+# ==========================================================================
+
+N_PATCHES = 4      # llava's reduced() form
+
+
+@pytest.fixture(scope="module")
+def llava():
+    return _pair("llava-next-34b")
+
+
+def _patches(cfg, b, seed=0):
+    return np.random.default_rng(100 + seed).standard_normal(
+        (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+
+
+def test_llava_config_is_the_references():
+    jcfg, tcfg = jconfigs.get("llava-next-34b"), tconfigs.get(
+        "llava-next-34b")
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.reduced().n_patches == N_PATCHES
+    assert tcfg.param_counts() == jcfg.param_counts()
+
+
+def test_llava_forward_and_loss_match_reference(llava):
+    """The projected patches prepended, their rows dropped before the head:
+    logits (B, T, V) and the loss against the reference's."""
+    jcfg, tcfg, jparams, _, model = llava
+    toks, labels = _tokens(tcfg, 2, 11), _tokens(tcfg, 2, 11, seed=1)
+    labels[0, :3] = -1
+    pe = _patches(tcfg, 2)
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+              "patch_embeds": jnp.asarray(pe)}
+    tbatch = {k: torch.from_numpy(v) for k, v in
+              (("tokens", toks), ("labels", labels), ("patch_embeds", pe))}
+    with repro.use(backend="xla"):
+        want, _ = japi.forward(jparams, jbatch, jcfg)
+        want_loss, _ = japi.loss_fn(jparams, jbatch, jcfg)
+    with torch.no_grad():
+        got, _ = tapi.forward(model, tbatch, tcfg)
+        got_loss, _ = tapi.loss_fn(model, tbatch, tcfg)
+    assert got.shape == (2, 11, tcfg.vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BAND)
+    np.testing.assert_allclose(float(got_loss), float(want_loss), **BAND)
+
+
+def test_llava_patch_projection_fuses_gelu_and_bias(llava, monkeypatch):
+    """The projection is two matmul calls, the first with its bias and GELU
+    in the epilogue, the second with its bias."""
+    from repro_torch.core import brgemm
+    _, tcfg, _, _, model = llava
+    calls = []
+    real = brgemm.matmul
+
+    def spy(x, w, bias=None, *a, **kw):
+        calls.append((tuple(x.shape), bias is not None,
+                      kw.get("activation", "none")))
+        return real(x, w, bias, *a, **kw)
+
+    monkeypatch.setattr(brgemm, "matmul", spy)
+    with torch.no_grad():
+        model.vision_proj(torch.from_numpy(_patches(tcfg, 2)))
+    assert calls == [((2, N_PATCHES, tcfg.d_model), True, "gelu"),
+                     ((2, N_PATCHES, tcfg.d_model), True, "none")]
+
+
+def test_llava_params_round_trip(llava):
+    _, tcfg, _, tree, model = llava
+    back = interop.params_to_numpy(model)
+    assert sorted(back["vision_proj"]) == ["b1", "b2", "w1", "w2"]
+    for key, arr in tree["vision_proj"].items():
+        np.testing.assert_array_equal(back["vision_proj"][key], arr)
+    fresh = tapi.init_params(tcfg, device="cpu")
+    assert not fresh.vision_proj.b1.any() and not fresh.vision_proj.b2.any()
+    assert fresh.vision_proj.w1.std() > 0
+
+
+@pytest.mark.parametrize("prompt", [1, 6])
+def test_llava_engine_greedy_matches_reference(llava, prompt):
+    """Positions start past the prefix; prefill's logits are the last
+    token's."""
+    jcfg, tcfg, jparams, _, model = llava
+    toks, pe = _tokens(tcfg, 2, prompt, seed=prompt), _patches(tcfg, 2)
+    with repro.use(backend="xla"):
+        want = JEngine(jcfg, jparams, JServeConfig(max_len=MAX_LEN)).generate(
+            {"tokens": jnp.asarray(toks), "patch_embeds": jnp.asarray(pe)},
+            n_tokens=12, stop_tokens=())
+    got = Engine(tcfg, model, ServeConfig(max_len=MAX_LEN),
+                 device="cpu").generate(
+        {"tokens": torch.from_numpy(toks), "patch_embeds":
+         torch.from_numpy(pe)}, n_tokens=12, stop_tokens=())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_llava_continuous_greedy_matches_reference(llava):
+    """Three slots of the slotted pool, each request with its own patch
+    prefix (with and without the batch axis)."""
+    jcfg, tcfg, jparams, _, model = llava
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, tcfg.vocab, n).tolist() for n in PROMPT_LENS]
+    pes = [_patches(tcfg, 1, seed=i)[0 if i % 2 else slice(None)]
+           for i in range(len(PROMPT_LENS))]
+    with repro.use(backend="xla"):
+        want = JContinuousEngine(
+            jcfg, jparams, JPoolConfig(n_slots=3, max_len=MAX_LEN)).serve(
+                [JRequest(prompt=p, max_tokens=m, stop_tokens=(),
+                          patch_embeds=pe)
+                 for p, m, pe in zip(prompts, MAX_TOKENS, pes)])
+    ce = ContinuousEngine(tcfg, model, PoolConfig(n_slots=3, max_len=MAX_LEN),
+                          device="cpu")
+    got = ce.serve([Request(prompt=p, max_tokens=m, stop_tokens=(),
+                            patch_embeds=pe)
+                    for p, m, pe in zip(prompts, MAX_TOKENS, pes)])
+    assert got == want
+    assert not ce.paged and ce.pool.n_free == ce.pool.n_slots
+
+
+def test_llava_token_pipeline_matches_reference():
+    """The synthetic stream's batches, patch_embeds drawn after the tokens
+    as the reference draws them, and token_len less the prefix."""
+    from repro.configs.shapes import ShapeCfg as JShapeCfg
+    from repro.data.pipeline import TokenPipeline as JTokenPipeline
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.data.pipeline import TokenPipeline
+    jcfg = jconfigs.get("llava-next-34b").reduced()
+    tcfg = tconfigs.get("llava-next-34b").reduced()
+    shape = ShapeCfg("vlm", "train", 16, 4)
+    assert tapi.token_len(tcfg, shape) == japi.token_len(
+        jcfg, JShapeCfg("vlm", "train", 16, 4)) == 16 - N_PATCHES
+    jp = JTokenPipeline(jcfg, JShapeCfg("vlm", "train", 16, 4), seed=3)
+    tp = TokenPipeline(tcfg, shape, seed=3)
+    try:
+        for _ in range(2):
+            want, got = next(jp), next(tp)
+            assert sorted(got) == sorted(want) == ["labels", "patch_embeds",
+                                                   "tokens"]
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key])
+    finally:
+        jp.close()
+        tp.close()
 
 
 def test_calibrated_untied_head_carries_across():

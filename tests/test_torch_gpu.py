@@ -12,6 +12,7 @@ Tolerances as in ``chip_smoke.py``: fp32 sums in different orders
 sum is exact and the epilogue rounds as the plain version's), fp8 as the
 fp32 GEMM's sums (1e-4), one bf16 ulp for bf16 out or an activation's ulp.
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -1347,3 +1348,155 @@ def test_engine_sampled_default_generator_on_card(gen):
         engine_mod._gumbel = real
     torch.testing.assert_close(a, b, atol=0, rtol=0)
     assert devices and set(devices) == {"cuda"}
+
+
+# ---------------------------------------------------------------------------
+# block policies and the measured autotuner on the card
+# ---------------------------------------------------------------------------
+
+GRID_CASES = [   # (op, triple, nb, dtype, quant)
+    ("matmul", (8, 7168, 20480), 1, torch.bfloat16, None),
+    ("matmul", (300, 576, 1536), 1, torch.bfloat16, None),
+    ("matmul", (512, 512, 4096), 1, torch.float32, None),
+    ("brgemm", (64, 64, 256), 16, torch.bfloat16, None),
+    ("batched_matmul", (64, 128, 64), 32, torch.bfloat16, None),
+    ("matmul", (8, 1536, 4096), 1, torch.int8, "int8"),
+    ("matmul", (64, 576, 4096), 1, torch.float8_e4m3fn, "fp8"),
+    ("brgemm", (64, 64, 256), 16, torch.int8, "int8"),
+    ("batched_matmul", (128, 128, 128), 8, torch.int8, "int8"),
+]
+
+
+@pytest.fixture
+def fresh_cache(monkeypatch, tmp_path):
+    from repro_torch.core import autotune
+    monkeypatch.setenv(dispatch.TUNING_CACHE_ENV, str(tmp_path / "c.json"))
+    monkeypatch.setenv(autotune.ENV_MAX_CANDIDATES, "4")
+    dispatch.clear_tuning_cache()
+    yield tmp_path / "c.json"
+    dispatch.clear_tuning_cache()
+
+
+@pytest.mark.parametrize("op,triple,nb,dtype,quant", GRID_CASES)
+def test_every_candidate_plan_launches_and_matches(gen, op, triple, nb,
+                                                   dtype, quant):
+    """Each plan of the grid the autotuner searches runs on the kernels
+    and agrees with the plain version (the heuristic's bands)."""
+    from repro_torch.core import autotune, blocking
+    m, n, k = triple
+    geometry = blocking.default_geometry(op, m, n, k, dtype, quant=quant)
+    if op != "matmul":
+        geometry = dataclasses.replace(geometry, nb=nb)
+    grid = blocking.candidate_grid(op, m, n, k, dtype, geometry=geometry,
+                                   quant=quant)
+    assert len(grid) > 1
+    outs = []
+    for plan in grid:
+        fn = autotune.proxy_runner(op, m, n, k, dtype, plan,
+                                   geometry=geometry, quant=quant)
+        outs.append(fn().float())
+    want = outs[0]          # ones: every plan computes the same integers
+    for plan, got in zip(grid, outs):
+        torch.testing.assert_close(got, want, atol=0, rtol=0, msg=str(plan))
+    assert want.flatten()[0].item() == k * (nb if op == "brgemm" else 1)
+
+
+def test_autotune_measures_on_the_card_and_persists(gen, fresh_cache):
+    from repro_torch.core import autotune
+    x = torch.randn(8, 7168, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (torch.randn(7168, 4096, device="cuda", generator=gen)
+         * 7168 ** -0.5).to(torch.bfloat16)
+    before = autotune.STATS.snapshot()
+    with dispatch.use(blocks_policy="autotune"):
+        got = matmul_cuda(x, w)
+        chosen = plan_call(x, w)
+    after = autotune.STATS.snapshot()
+    assert after["measured"] - before["measured"] == 4
+    assert after["failed"] == before["failed"]
+    torch.testing.assert_close(got.float(), matmul_ref(x, w).float(),
+                               **TOL[torch.bfloat16])
+    dispatch.clear_tuning_cache()        # a new process: the file answers
+    with dispatch.use(blocks_policy="autotune"):
+        assert plan_call(x, w) == chosen
+    assert autotune.STATS.snapshot()["measured"] == after["measured"]
+
+
+def test_resolve_blocks_raises_on_a_miss_while_capturing(gen, fresh_cache):
+    x = torch.randn(64, 576, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(576, 576, device="cuda", generator=gen).to(torch.bfloat16)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="captured"):
+            with torch.cuda.graph(graph):
+                with dispatch.use(blocks_policy="autotune"):
+                    matmul_cuda(x, w)
+    torch.cuda.synchronize()
+    with dispatch.use(blocks_policy="autotune"):
+        want = matmul_cuda(x, w)                # warms the cache
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = matmul_cuda(x, w)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_backward_resolves_under_the_forwards_policy(gen, fresh_cache):
+    """Autograd runs a CUDA backward on a thread of its own: the GEMMs of
+    matmul's and brgemm's backward, and the flash backward, still resolve
+    under the forward's policy."""
+    seen = []
+
+    def policy(op, m, n, k, dtype, backend, geometry=None, quant=None):
+        from repro_torch.core import blocking
+        seen.append((op, m, n, k))
+        return blocking.default_plan(op, m, n, k, dtype, geometry=geometry,
+                                     quant=quant)
+
+    x = torch.randn(64, 96, device="cuda", generator=gen,
+                    requires_grad=True)
+    w = torch.randn(96, 128, device="cuda", generator=gen,
+                    requires_grad=True)
+    a = torch.randn(4, 64, 32, device="cuda", generator=gen,
+                    requires_grad=True)
+    b = torch.randn(4, 32, 48, device="cuda", generator=gen,
+                    requires_grad=True)
+    q = torch.randn(1, 2, 64, 64, device="cuda", generator=gen,
+                    requires_grad=True)
+    with dispatch.use(blocks_policy=policy):
+        loss = (matmul(x, w).sum() + brgemm(a, b).sum()
+                + flash_attention(q, q, q).sum())
+    assert ("matmul", 64, 96, 128) not in seen     # dx not resolved yet
+    loss.backward()          # outside the context: the snapshot carries it
+    assert ("matmul", 64, 96, 128) in seen        # dx = g @ W.T
+    assert ("matmul", 96, 128, 64) in seen        # dw = X.T @ g
+    assert ("batched_matmul", 64, 32, 48) in seen  # dA_i = g @ B_i.T
+    assert ("flash_attention_bwd", 64, 64, 64) in seen
+
+
+def test_remat_bit_equal_on_the_card(gen):
+    """Reduced smollm in bf16 on the kernels: the loss and each gradient
+    with ``cfg.remat`` equal those without (the embedding's, a scatter-add
+    with atomics, within two plain runs' spread)."""
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(configs.get("smollm-135m").reduced(),
+                              dtype="bfloat16")
+    model = api.init_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab, (4, 64), device="cuda",
+                           generator=gen)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    runs = []
+    for remat in (False, False, True):
+        metrics, grads = ts.loss_and_grads(
+            model, batch, dataclasses.replace(cfg, remat=remat))
+        runs.append((metrics["loss"].clone(),
+                     {n: g.clone() for n, g in grads.items()}))
+    (l0, g0), (_, g1), (lr, gr) = runs
+    assert torch.equal(l0, lr)
+    for n, g in g0.items():
+        spread = (g - g1[n]).float().abs().max().item()
+        assert (gr[n] - g).float().abs().max().item() <= spread, n
+        if n != "embed.table":
+            assert torch.equal(gr[n], g), n

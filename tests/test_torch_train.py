@@ -37,6 +37,8 @@ from repro.train import schedule as jschedule
 from repro.train import train_step as jts
 from repro_torch import configs as tconfigs
 from repro_torch import interop
+from repro_torch.core import dispatch as tdispatch
+from repro_torch.models import api as tapi
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.shapes import SHAPES, ShapeCfg
 from repro_torch.data.pipeline import TokenPipeline
@@ -249,3 +251,83 @@ def test_microbatches_average_gradients(cfgs, ref_state):
     for name in grads[1]:
         torch.testing.assert_close(grads[2][name], grads[1][name],
                                    atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "llava-next-34b"])
+def test_remat_changes_nothing_but_memory(cfgs, ref_state, name,
+                                         monkeypatch):
+    """``cfg.remat`` checkpoints each decoder block: the loss and every
+    gradient equal, bit for bit, those of the step without it (the same
+    ops on the same values, the forward run again in the backward), and
+    so does a train step's new state."""
+    _, tcfg = cfgs
+    if name != "smollm-135m":     # llava's prefix through checkpointed blocks
+        tcfg = tconfigs.get(name).reduced()
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, tcfg.vocab, (2, 12)).astype(np.int32)
+    labels = rng.integers(0, tcfg.vocab, (2, 12)).astype(np.int32)
+    labels[0, :3] = -1
+    batch = {"tokens": tokens, "labels": labels}
+    if tcfg.n_patches:
+        batch["patch_embeds"] = rng.standard_normal(
+            (2, tcfg.n_patches, tcfg.d_model)).astype(np.float32)
+    model = (interop.params_from_numpy(ref_state["opt"]["master"], tcfg,
+                                       device="cpu")
+             if name == "smollm-135m" else
+             tapi.init_params(tcfg, device="cpu"))
+    from repro_torch.models import transformer
+    calls = []
+    real = transformer.checkpoint.checkpoint
+    monkeypatch.setattr(transformer.checkpoint, "checkpoint",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    out = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        metrics, grads = tts.loss_and_grads(model, batch, cfg)
+        out[remat] = (metrics, {n: g.clone() for n, g in grads.items()})
+        assert len(calls) == tcfg.n_layers * remat   # one a block
+    calls.clear()
+    assert torch.equal(out[True][0]["loss"], out[False][0]["loss"])
+    assert set(out[True][1]) == set(out[False][1])
+    for n, g in out[False][1].items():
+        assert torch.equal(out[True][1][n], g), n
+    if name != "smollm-135m":
+        return
+    states = {}
+    b = {k: v for k, v in batch.items()}
+    for remat in (False, True):
+        state = {"opt": interop.opt_state_from_numpy(ref_state["opt"], tcfg,
+                                                     "cpu")}
+        state["opt"]["step"] = 1500
+        states[remat], _ = tts.make_train_step(
+            dataclasses.replace(tcfg, remat=remat), topt.AdamWCfg())(state, b)
+    assert len(calls) == tcfg.n_layers
+    for key in ("m", "v", "master"):
+        for n, t in states[False]["opt"][key].items():
+            assert torch.equal(states[True]["opt"][key][n], t), (key, n)
+
+
+def test_train_step_takes_block_policies_and_refuses_the_rest(
+        cfgs, ref_state, monkeypatch):
+    _, tcfg = cfgs
+    seen = []
+    real = tts.loss_and_grads
+
+    def spy(model, batch, cfg):
+        seen.append(tdispatch.snapshot()[2])   # the block policy
+        return real(model, batch, cfg)
+
+    state = {"opt": interop.opt_state_from_numpy(ref_state["opt"], tcfg,
+                                                 "cpu")}
+    b = {"tokens": np.zeros((2, 8), np.int32),
+         "labels": np.ones((2, 8), np.int32)}
+    monkeypatch.setattr(tts, "loss_and_grads", spy)
+    tts.make_train_step(tcfg, topt.AdamWCfg(),
+                        blocks_policy="autotune")(state, b)
+    assert seen == ["autotune"]
+    for kw in ({"accum_dtype": torch.bfloat16}, {"mesh": object()},
+               {"axis_specs": {}}):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tts.make_train_step(tcfg, topt.AdamWCfg(), **kw)
+    with pytest.raises(ValueError, match="unknown blocks_policy"):
+        tts.make_train_step(tcfg, topt.AdamWCfg(), blocks_policy="fast")

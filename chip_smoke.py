@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, training, ResNet-50, batch-reduce
-GEMM, quantized serving, LSTM / FC, windowed-serving and VLM-serving
-(under the measured block policy) paths on one NVIDIA Hopper card.
+GEMM, quantized serving, LSTM / FC, windowed-serving, VLM-serving (under
+the measured block policy) and MoE / MLA serving paths on one NVIDIA
+Hopper card.
 
     python3 chip_smoke.py
 
@@ -132,7 +133,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                tokens must equal the plain path's for both engines (or
                differ only at a top-two logit gap within the fp32 band);
                mistral-large-123b's untied head GEMM.
-  12. times  — each kernel's device time (a CUDA graph of its calls; the
+  12. times  — first, what a capture that fails leaves behind (the current
+               stream, the allocator's routing into the graph's pool) and
+               that this script's captures undo it; then each kernel's
+               device time (a CUDA graph of its calls; the
                profiler where a call cannot be captured) and back-to-back wall
                time (CUDA events) at each main-path shape, serving's,
                continuous serving's (every shape its bf16 runs gave a
@@ -171,6 +175,23 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                then on the warm cache in a new process (measured 0, a hit
                each); per shape the heuristic's plan and the chosen one,
                each timed, beside torch.matmul and the bound.
+  15. moe     — grok-1-314b (8 experts top-2, GQA) and deepseek-v3-671b
+               (MLA, 256 experts top-8 + 1 shared, untied head, the MTP
+               block in the params) at full width and 2 layers each
+               (deepseek's dense layers cut to 1; random weights, bf16, one
+               model at a time): ``Engine.generate`` (2 x 512 + 32) and
+               ``ContinuousEngine.serve`` (6 requests of 128-512 tokens, 4
+               slots, slotted and paged), exact launch counts of matmul,
+               batched_matmul (3 a MoE layer and forward, the expert
+               GEMMs) and the flash forward (MLA's at q / k 192, v 128),
+               all on wgmma, every pool empty after; tokens/s, prefill and
+               decode ms, busy and idle, pool bytes; every kernel call of
+               one prefill and one decode forward against its plain version
+               on its own inputs, and each kernel at every shape the
+               continuous runs gave it against its plain version; fp32 at
+               the reduced width, 2 layers, where both engines' greedy
+               tokens must equal the plain path's.  Their kernels'
+               per-shape times join phase 12's.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -4126,24 +4147,71 @@ def host_split(run, calls, top=16):
     return total * 1e3 / calls, {k: ct * 1e3 / calls for k, ct in own}
 
 
+CAPTURE_FAILURES = collections.Counter()   # why a capture failed -> times
+
+
+def abandon_capture(graph, stream, prev, pool):
+    """Undo what a failed ``torch.cuda.graph`` block leaves behind, and
+    return what had to be undone.  Its exit ends the capture first; where
+    that raises (a call in the block invalidated the capture), it skips
+    restoring the current stream and the caching allocator's end of
+    routing the capture stream's allocations into the graph's private
+    pool.  Left so, every later call of the process runs on the capture
+    stream and allocates from a pool whose graph is gone."""
+    undone = []
+    if torch.cuda.current_stream() != prev:
+        torch.cuda.set_stream(prev)
+        undone.append("stream")
+    with torch.cuda.stream(stream):
+        if torch.cuda.is_current_stream_capturing():
+            undone.append("capture")
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    try:
+        end(torch.cuda.current_device(), pool)
+        undone.append("pool")
+    except (TypeError, RuntimeError):   # no such binding, or not routing
+        pass
+    torch.cuda.synchronize()
+    return undone
+
+
+def capture(fn, sets, iters):
+    """A CUDA graph of ``iters`` calls of ``fn`` cycling through ``sets``,
+    after three warm-up calls on a side stream; None where the capture
+    fails, with the process put back as it was (abandon_capture) and the
+    failure counted in CAPTURE_FAILURES."""
+    prev = torch.cuda.current_stream()
+    side, stream = torch.cuda.Stream(), torch.cuda.Stream()
+    side.wait_stream(prev)
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(*sets[i % len(sets)])
+    prev.wait_stream(side)
+    graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            for i in range(iters):
+                fn(*sets[i % len(sets)])
+    except Exception as exc:  # noqa: BLE001 - any capture failure
+        undone = abandon_capture(graph, stream, prev, pool)
+        why = (str(exc).strip().splitlines() or [""])[0][:160]
+        CAPTURE_FAILURES[f"{type(exc).__name__}: {why} (undone: "
+                         f"{'+'.join(undone) or 'nothing'})"] += 1
+        return None
+    return graph
+
+
 def graph_ms(fn, sets, iters):
     """Device ms per call: CUDA events around the replay of a CUDA graph of
     ``iters`` calls (median of three replays), so the time holds the
     kernels and the gaps between them and no host work.  None where ``fn``
     cannot be captured."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.stream(side):
-            for i in range(3):
-                fn(*sets[i % len(sets)])
-        torch.cuda.current_stream().wait_stream(side)
-        with torch.cuda.graph(graph):
-            for i in range(iters):
-                fn(*sets[i % len(sets)])
-    except Exception:  # noqa: BLE001 - any capture failure: another method
-        torch.cuda.synchronize()
+    graph = capture(fn, sets, iters)
+    if graph is None:
         return None
     graph.replay()
     torch.cuda.synchronize()
@@ -4158,6 +4226,77 @@ def graph_ms(fn, sets, iters):
         times.append(start.elapsed_time(end) / iters)
     del graph
     return median(times)
+
+
+def capture_probe(repair=True, n=20):
+    """A capture invalidated on purpose (a host read of a device value
+    inside it), then ``n`` captures of a plain fp32 cuBLAS product and one
+    product run and read outside any capture.  With ``repair`` the failed
+    capture goes through capture(); without, through torch.cuda.graph
+    alone, as this script timed before.  Returns what the failure left
+    and how the later captures fared."""
+    x = torch.randn(512, 1024, device="cuda")
+    w = torch.randn(1024, 2048, device="cuda")
+    prev = torch.cuda.current_stream()
+
+    def bad(a, b):
+        torch.matmul(a, b)
+        return a.sum().item()
+
+    before = collections.Counter(CAPTURE_FAILURES)
+    if repair:
+        capture(bad, [(x, w)], 2)
+    else:
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                bad(x, w)
+        except Exception:  # noqa: BLE001 - the failure is the point
+            pass
+    left_on_capture_stream = torch.cuda.current_stream() != prev
+    failed, errors = 0, collections.Counter()
+    for _ in range(n):
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g):
+                torch.matmul(x, w)
+        except Exception as exc:  # noqa: BLE001 - counted
+            failed += 1
+            errors[type(exc).__name__] += 1
+        del g
+    try:
+        ok = bool(torch.isfinite(torch.matmul(x, w)).all())
+        run = "finite" if ok else "not finite"
+    except RuntimeError as exc:
+        run = str(exc).splitlines()[0][:160]
+    return {"repair": repair,
+            "left_on_capture_stream": left_on_capture_stream,
+            "later_captures_failed": failed, "of": n,
+            "errors": dict(errors), "product_after": run,
+            "counted": dict(CAPTURE_FAILURES - before)}
+
+
+def phase_capture():
+    """What a failed capture leaves behind, in a process of its own through
+    torch.cuda.graph alone, and in this one through capture(), which must
+    leave the current stream as it was, later captures succeeding and a
+    product after them finite."""
+    child = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         "chip_smoke.capture_probe(repair=False)))"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=300)
+    try:
+        alone = json.loads(child.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        alone = {"rc": child.returncode, "stderr": child.stderr[-400:]}
+    repaired = capture_probe(repair=True)
+    emit({"phase": "capture_probe", "torch_graph_alone": alone,
+          "repaired": repaired})
+    if repaired["left_on_capture_stream"] or \
+            repaired["later_captures_failed"] or \
+            repaired["product_after"] != "finite":
+        raise AssertionError(f"capture: {repaired}")
 
 
 def time_ms(fn, sets, iters=40):
@@ -4696,6 +4835,582 @@ def phase_times_quant(cfg, card, cont_forwards):
     return rows
 
 
+# --------------------------------------------------------------------------
+# 15. Mixture-of-Experts and MLA: grok-1-314b and deepseek-v3-671b
+# --------------------------------------------------------------------------
+
+# Each at its published width and 2 of its layers (deepseek's leading dense
+# layers cut from 3 to 1, so that one full MoE layer runs): grok 11.45 B
+# parameters (22.9 GB bf16), deepseek 14.52 B (29.0 GB), one at a time.
+MOE_MODELS = (("grok-1-314b", {"n_layers": 2}),
+              ("deepseek-v3-671b", {"n_layers": 2, "n_dense_layers": 1}))
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 2, 512, 32
+MOE_SLOTS, MOE_REQUESTS, MOE_PROMPTS, MOE_TOKENS = 4, 6, (128, 512), (8, 32)
+MOE_POOLS = (("slotted", {}), ("paged", {"page_size": 16}))
+MOE_FP32_LAYERS, MOE_FP32_PROMPT = 2, 64
+MOE_KERNELS = ("matmul", "batched_matmul", "flash_attention")
+
+
+def moe_model_cfg(name, overrides):
+    from repro_torch.configs import get
+    return dataclasses.replace(get(name), **overrides)
+
+
+def moe_forward_calls(cfg, kind, b, t):
+    """The kernel calls of one forward of ``cfg`` over b rows of t tokens,
+    derived from the code (``layers/{attention,moe,mlp}.py``, ``models/
+    transformer.py``): {kernel: Counter{shape: launches}}.  ``kind``:
+    "prefill" (flash attention, MLA's wkv_b expansion, the head at the last
+    token of each row), "decode" (the static engine's, one routing group)
+    or "slot_decode" (a slot pool's, a routing group a slot).  matmul
+    shapes are (role, m, k, n, activation, fp32 out), batched_matmul's (E,
+    G * cap, k, n, activation), flash's (b, hq, hkv, t, dq, dv)."""
+    from repro_torch.layers.moe import capacity, groups
+    from repro_torch.models.blocks import moe_cfg as layer_moe_cfg
+    d, h, m = cfg.d_model, cfg.n_heads, b * t
+    mm, bm, fl = (collections.Counter() for _ in range(3))
+    prefill = kind == "prefill"
+    for i in range(cfg.n_layers):
+        if cfg.mla:
+            qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+            proj = [("wq_a", d, cfg.q_lora_rank),
+                    ("wq_b", cfg.q_lora_rank, h * qk),
+                    ("wkv_a", d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                    ("wo", h * cfg.v_head_dim, d)]
+            if prefill:
+                proj.append(("wkv_b", cfg.kv_lora_rank,
+                             h * (cfg.qk_nope_dim + cfg.v_head_dim)))
+                fl[(b, h, h, t, qk, cfg.v_head_dim)] += 1
+        else:
+            dq, dkv = h * cfg.dh, cfg.n_kv_heads * cfg.dh
+            proj = [("q", d, dq), ("k", d, dkv), ("v", d, dkv), ("o", dq, d)]
+            if prefill:
+                fl[(b, h, cfg.n_kv_heads, t, cfg.dh, cfg.dh)] += 1
+        for role, k, n in proj:
+            mm[(role, m, k, n, "none", False)] += 1
+        is_moe = cfg.block == "moe" or i >= cfg.n_dense_layers
+        if not is_moe:
+            mm[("gate_silu", m, d, cfg.d_ff, "silu", False)] += 1
+            mm[("up", m, d, cfg.d_ff, "none", False)] += 1
+            mm[("down", m, cfg.d_ff, d, "none", False)] += 1
+            continue
+        mcfg = layer_moe_cfg(cfg)
+        mm[("router", m, d, cfg.n_experts, "none", True)] += 1
+        if cfg.n_shared_experts:
+            fs = cfg.moe_d_ff * cfg.n_shared_experts
+            mm[("shared.gate_silu", m, d, fs, "silu", False)] += 1
+            mm[("shared.up", m, d, fs, "none", False)] += 1
+            mm[("shared.down", m, fs, d, "none", False)] += 1
+        g, n_tok = groups(mcfg, b, t, kind == "slot_decode")
+        rows = g * capacity(mcfg, n_tok)
+        e, f = cfg.n_experts, cfg.moe_d_ff
+        bm[(e, rows, d, f, "silu")] += 1
+        bm[(e, rows, d, f, "none")] += 1
+        bm[(e, rows, f, d, "none")] += 1
+    mm[("head", b, d, cfg.vocab, "none", True)] += 1
+    return {"matmul": mm, "batched_matmul": bm, "flash_attention": fl}
+
+
+def moe_calls(cfg, forwards):
+    """The kernel calls of ``forwards`` (Counter {(kind, b, t): count}),
+    summed: {kernel: Counter{shape: launches}}."""
+    out = {k: collections.Counter() for k in MOE_KERNELS}
+    for (kind, b, t), count in forwards.items():
+        for kernel, shapes in moe_forward_calls(cfg, kind, b, t).items():
+            for shape, n in shapes.items():
+                out[kernel][shape] += n * count
+    return out
+
+
+def moe_totals(calls):
+    return {k: sum(calls[k].values()) for k in MOE_KERNELS}
+
+
+def moe_traffic(cfg, gen_seed, vocab=None):
+    """MOE_REQUESTS greedy requests: prompt lengths in MOE_PROMPTS and
+    max_tokens in MOE_TOKENS, then each prompt's tokens, from one seeded
+    generator."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(gen_seed)
+    lens = rng.integers(MOE_PROMPTS[0], MOE_PROMPTS[1] + 1, MOE_REQUESTS)
+    new = rng.integers(MOE_TOKENS[0], MOE_TOKENS[1] + 1, MOE_REQUESTS)
+    return [Request(prompt=rng.integers(0, vocab or cfg.vocab, n).tolist(),
+                    max_tokens=int(m), stop_tokens=())
+            for n, m in zip(lens, new)]
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Inside, every matmul, batched_matmul and flash_attention call of the
+    model's layers is kept with its inputs and output: [(kernel, args, kw,
+    out)]."""
+    from repro_torch.core import brgemm
+    from repro_torch.layers import attention
+    saved = {"matmul": (brgemm, brgemm.matmul),
+             "batched_matmul": (brgemm, brgemm.batched_matmul),
+             "flash_attention": (attention, attention.flash_attention)}
+    calls = []
+
+    def spy(name, fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
+        return run
+
+    for name, (mod, fn) in saved.items():
+        setattr(mod, name, spy(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, (mod, fn) in saved.items():
+            setattr(mod, name, fn)
+
+
+def moe_parity(cfg, params, tokens, failed):
+    """One bf16 prefill forward and one decode forward of the static engine
+    with every kernel call recorded; each launch's output against its plain
+    version on its own inputs (matmul_ref, batched_matmul_ref, mha_ref at
+    the call's scale), one call at a time.  Returns the worst abs error by
+    kernel and the calls checked by kernel."""
+    from repro_torch.kernels.brgemm import batched_matmul_ref, matmul_ref
+    from repro_torch.kernels.flash_attention import mha_ref
+    from repro_torch.models import api
+    worst = dict.fromkeys(MOE_KERNELS, 0.0)
+    checked = collections.Counter()
+    b, t = tokens.shape
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, b, t + 1, device="cuda")
+        with recorded_calls() as calls:
+            logits, cache = api.prefill(params, {"tokens": tokens}, cfg,
+                                        cache)
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            api.decode_step(params, tok, cfg, cache, t)
+        torch.cuda.synchronize()
+        while calls:
+            name, args, kw, out = calls.pop(0)
+            if name == "matmul":
+                x, w = args
+                ref = matmul_ref(x.reshape(-1, x.shape[-1]), w,
+                                 activation=kw.get("activation", "none"),
+                                 out_dtype=kw.get("out_dtype"))
+                got = out.reshape(ref.shape)
+                tol = TOL[("matmul", torch.float32 if kw.get("out_dtype")
+                           else cfg_dtype(cfg))]
+            elif name == "batched_matmul":
+                a, w = args
+                ref = batched_matmul_ref(a, w, activation=kw.get(
+                    "activation", "none"))
+                got = out
+                tol = TOL[("matmul", cfg_dtype(cfg))]
+            else:
+                q, k, v = args
+                ref = mha_ref(q, k, v, causal=kw.get("causal", True),
+                              window=kw.get("window"), scale=kw.get("scale"))
+                got = out
+                tol = TOL[("flash_attention", cfg_dtype(cfg))]
+            ok, abs_err, _ = close(got, ref, *tol)
+            worst[name] = max(worst[name], abs_err)
+            checked[name] += 1
+            if not ok:
+                failed.append(f"{name} {tuple(args[0].shape)} @ "
+                              f"{tuple(args[1].shape)}: {abs_err}")
+            del args, out, ref, got
+    torch.cuda.empty_cache()
+    return worst, dict(checked)
+
+
+def moe_flash_inputs(cfg, b, hq, hkv, t, dq, dv, dtype, gen):
+    """(q, k, v) of one flash call at a moe model's prefill shape, laid out
+    as the attention layer hands them over: MLA's q and k contiguous (the
+    nope and rope halves concatenated), v a slice of the expanded (b, t,
+    h, nope + dv) kv; GQA's (b, t, h, d) projections seen as (b, h, t,
+    d)."""
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    if cfg.mla:
+        kv = randn(b, t, hkv, cfg.qk_nope_dim + dv).transpose(1, 2)
+        return (randn(b, hq, t, dq), randn(b, hkv, t, dq),
+                kv[..., cfg.qk_nope_dim:])
+    return (randn(b, t, hq, dq).transpose(1, 2),
+            randn(b, t, hkv, dq).transpose(1, 2),
+            randn(b, t, hkv, dv).transpose(1, 2))
+
+
+def moe_shape_parity(cfg, params, calls, done, failed):
+    """matmul_cuda, batched_matmul_cuda and flash_attention_cuda against
+    matmul_ref, batched_matmul_ref and mha_ref (at the call's scale, dq
+    ** -0.5) at every shape of ``calls`` (moe_calls) not yet in ``done``,
+    in the parity phase's bands: the batch-1 prefills, the slot decodes'
+    routing groups a slot, the heads.  matmul and flash on seeded inputs;
+    batched_matmul on seeded rows against the model's own expert weights
+    (w_gate for the silu GEMM, w_up, w_down).  Returns (worst abs error by
+    kernel, shapes checked by kernel); appends each out-of-band shape to
+    ``failed``."""
+    from repro_torch.kernels.brgemm import (batched_matmul_cuda,
+                                            batched_matmul_ref, matmul_cuda,
+                                            matmul_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref)
+    from repro_torch.layers.moe import MoE
+    dtype = cfg_dtype(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    moe = next(m for m in params.modules() if isinstance(m, MoE))
+    worst = dict.fromkeys(MOE_KERNELS, 0.0)
+    checked = collections.Counter()
+
+    def held(kernel, shape, got, ref, tol):
+        ok, abs_err, _ = close(got, ref, *tol)
+        worst[kernel] = max(worst[kernel], abs_err)
+        checked[kernel] += 1
+        done.add((kernel, shape))
+        if not ok:
+            failed.append(f"{cfg.name} {kernel} {shape}: {abs_err}")
+
+    with torch.inference_mode():
+        for shape in sorted(calls["matmul"]):
+            if ("matmul", shape) in done:
+                continue
+            role, m, k, n, act, fp32 = shape
+            g = Gemm(role, m, k, n, act, kind="pre" if fp32 else "fwd")
+            x, w = gemm_inputs(g, dtype, gen)
+            held("matmul", shape,
+                 matmul_cuda(x, w, activation=act, out_dtype=g.out_dtype),
+                 matmul_ref(x, w, activation=act, out_dtype=g.out_dtype),
+                 TOL[("matmul", torch.float32 if fp32 else dtype)])
+            del x, w
+        for shape in sorted(calls["batched_matmul"]):
+            if ("batched_matmul", shape) in done:
+                continue
+            e, m, k, n, act = shape
+            w = (moe.w_down if k == cfg.moe_d_ff else
+                 moe.w_gate if act != "none" else moe.w_up).detach()
+            a = torch.randn(e, m, k, device="cuda", generator=gen).to(dtype)
+            held("batched_matmul", shape,
+                 batched_matmul_cuda(a, w, activation=act),
+                 batched_matmul_ref(a, w, activation=act),
+                 TOL[("matmul", dtype)])
+            del a
+            torch.cuda.empty_cache()      # the plain version's fp32 copy
+        for shape in sorted(calls["flash_attention"]):
+            if ("flash_attention", shape) in done:
+                continue
+            b, hq, hkv, t, dq, dv = shape
+            q, k, v = moe_flash_inputs(cfg, b, hq, hkv, t, dq, dv, dtype, gen)
+            held("flash_attention", shape,
+                 flash_attention_cuda(q, k, v, scale=dq ** -0.5),
+                 mha_ref(q, k, v, scale=dq ** -0.5),
+                 TOL[("flash_attention", dtype)])
+            del q, k, v
+    torch.cuda.empty_cache()
+    return worst, dict(checked)
+
+
+def cfg_dtype(cfg):
+    return getattr(torch, cfg.dtype)
+
+
+def moe_fp32_tokens(name, overrides, gen):
+    """fp32 at MOE_FP32_LAYERS layers of the reduced width: both engines'
+    greedy tokens on the kernels against the plain path's (slotted and
+    paged pools); a row that differs must differ at a top-two logit gap
+    within the fp32 band."""
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.core import dispatch
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, Request, ServeConfig
+    red = get(name).reduced()
+    cfg = dataclasses.replace(red, n_layers=MOE_FP32_LAYERS, dtype="float32",
+                              n_dense_layers=min(red.n_dense_layers,
+                                                 overrides.get(
+                                                     "n_dense_layers", 0)))
+    params = api.init_params(cfg, gen, device="cuda")
+    max_len = MOE_FP32_PROMPT + MOE_NEW
+    tokens = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_FP32_PROMPT),
+                           device="cuda", generator=gen, dtype=torch.int32)
+    engine = Engine(cfg, params, ServeConfig(max_len=max_len))
+    got = engine.generate({"tokens": tokens}, n_tokens=MOE_NEW,
+                          stop_tokens=()).tolist()
+    with dispatch.use(backend="torch"):
+        want = engine.generate({"tokens": tokens}, n_tokens=MOE_NEW,
+                               stop_tokens=()).tolist()
+    found = {"static": first_divergence(cfg, params, tokens.tolist(), got,
+                                        want)}
+    rng = np.random.default_rng(SEED + 15)
+    requests = [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                        max_tokens=int(m), stop_tokens=())
+                for n, m in zip(rng.integers(8, MOE_FP32_PROMPT + 1,
+                                             MOE_REQUESTS),
+                                rng.integers(4, MOE_NEW + 1, MOE_REQUESTS))]
+    same = {}
+    for pool, kw in MOE_POOLS:
+        pool_kw = {"n_slots": MOE_SLOTS, "max_len": max_len, **kw}
+        c_got, *_ = continuous_run(cfg, params, requests, pool_kw, {}, {})
+        with dispatch.use(backend="torch"):
+            c_want, *_ = continuous_run(cfg, params, requests, pool_kw, {},
+                                        {})
+        ids = sorted(c_want)
+        same[pool] = [c_got[i] == c_want[i] for i in ids]
+        found[pool] = first_divergence(
+            cfg, params, [requests[i].prompt for i in ids],
+            [c_got[i] for i in ids], [c_want[i] for i in ids])
+    emit({"phase": "moe", "arch": name, "engine": "static+continuous",
+          "dtype": "float32", "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "reduced": True,
+          "static_rows_matching_plain": [a == b for a, b in zip(got, want)],
+          "continuous_requests_matching_plain": same,
+          "first_divergence": found, "band": LOGITS_BAND[torch.float32]})
+    del engine, params
+    torch.cuda.empty_cache()
+    return [f"fp32 {name} {where} row {r} differs from the plain path at "
+            f"step {gap['step']}, top-two gap {gap['top2_gap']}"
+            for where, rows in found.items() for r, gap in rows.items()
+            if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
+
+
+def phase_moe(card):
+    """grok-1-314b and deepseek-v3-671b at full width and 2 layers each
+    (bf16, random weights from a seed, one model at a time): the static
+    ``Engine.generate`` (MOE_BATCH x MOE_PROMPT + MOE_NEW) and
+    ``ContinuousEngine.serve`` of MOE_REQUESTS requests over MOE_SLOTS
+    slots, slotted and paged, each with exact launch counts (counts zeroed
+    just before, read just after, against moe_forward_calls), every
+    kernel call on wgmma, every pool empty after its run; tokens/s,
+    prefill and decode-step ms, busy and idle, pool bytes; every kernel
+    call of one prefill and one decode forward against its plain version
+    on its own inputs, and each kernel at every shape of each pool's run
+    against its plain version (moe_shape_parity); then fp32 at the
+    reduced width, both engines' greedy tokens against the plain path's.
+    Returns ({"moe": launches}, worst abs error by kernel, {model: kernel
+    calls of its runs})."""
+    from repro_torch.kernels.brgemm import batched_matmul_cuda, matmul_cuda
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_flash_counts)
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    counters = {"matmul": matmul_cuda, "batched_matmul": batched_matmul_cuda,
+                "flash_attention": flash_attention_cuda}
+    launches = dict.fromkeys(MOE_KERNELS, 0)
+    worst = dict.fromkeys(MOE_KERNELS, 0.0)
+    calls_by_model = {}
+    failed = []
+    for idx, (name, overrides) in enumerate(MOE_MODELS):
+        cfg = moe_model_cfg(name, overrides)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 20 + idx)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        max_len = MOE_PROMPT + MOE_NEW
+        engine = Engine(cfg, params, ServeConfig(max_len=max_len))
+        tokens = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_PROMPT),
+                               device="cuda", generator=gen,
+                               dtype=torch.int32)
+        engine.generate({"tokens": tokens[:, :16]}, n_tokens=2,
+                        stop_tokens=())           # warm-up, not counted
+        torch.cuda.synchronize()
+        # The main path: counts zeroed just before, read just after.
+        reset_matmul_counts()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        ids = engine.generate({"tokens": tokens}, n_tokens=MOE_NEW,
+                              stop_tokens=())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        forwards = collections.Counter({("prefill", MOE_BATCH, MOE_PROMPT): 1,
+                                        ("decode", MOE_BATCH, 1):
+                                        MOE_NEW - 1})
+        calls = moe_calls(cfg, forwards)
+        expect = moe_totals(calls)
+        if got != expect:
+            failed.append(f"{name} static launches {got} != {expect}")
+        by_mainloop = {
+            **mainloop_check(torch.bfloat16, got["matmul"]),
+            **counted_mainloops(batched_matmul_cuda, "batched_matmul",
+                                torch.bfloat16, got["batched_matmul"]),
+            **flash_mainloop_check(torch.bfloat16, got["flash_attention"])}
+        for k in MOE_KERNELS:
+            launches[k] += got[k]
+        steps = step_times(cfg, params, tokens, tier=name, max_len=max_len)
+        emit({"phase": "moe", "arch": name, "engine": "static",
+              "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+              "n_dense_layers": cfg.n_dense_layers, "d_model": cfg.d_model,
+              "n_experts": cfg.n_experts, "top_k": cfg.top_k, "mla": cfg.mla,
+              "params_b": sum(p.numel() for p in params.parameters()) / 1e9,
+              "init_s": init_s, "batch": MOE_BATCH, "prompt": MOE_PROMPT,
+              "new_tokens": MOE_NEW, "launches": got,
+              "expected_launches": expect, **by_mainloop,
+              "generate_s": seconds,
+              "tokens_per_s": MOE_BATCH * MOE_NEW / seconds,
+              "ids_shape": list(ids.shape),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "card": card})
+        if tuple(ids.shape) != (MOE_BATCH, MOE_NEW) or not \
+                steps["logits_finite"]:
+            failed.append(f"{name} static: ids {tuple(ids.shape)}, finite "
+                          f"{steps['logits_finite']}")
+        del engine
+
+        requests = moe_traffic(cfg, SEED + 21 + idx)
+        done = set()          # (kernel, shape) held against plain
+        for pool, kw in MOE_POOLS:
+            pool_kw = {"n_slots": MOE_SLOTS, "max_len": max_len, **kw}
+            out, ce, c_got, c_seconds, decode_s, finite, c_forwards = \
+                continuous_run(cfg, params, requests, pool_kw, {}, counters)
+            m = ce.metrics
+            fwd = collections.Counter()
+            for (kind, rows), n in c_forwards.items():
+                fwd[("prefill", 1, rows) if kind == "prefill" else
+                    ("slot_decode", rows, 1)] += n
+            c_calls = moe_calls(cfg, fwd)
+            c_expect = moe_totals(c_calls)
+            if (m.prefills, m.decode_steps) != (
+                    sum(n for (k, _, _), n in fwd.items() if k == "prefill"),
+                    sum(n for (k, _, _), n in fwd.items()
+                        if k == "slot_decode")):
+                failed.append(f"{name} {pool}: forwards {dict(fwd)} against "
+                              f"{m.prefills} prefills, {m.decode_steps} "
+                              f"decode steps")
+            pool_rec, empty = pool_state(ce)
+            emit({"phase": "moe", "arch": name, "engine": "continuous",
+                  "pool": pool, "slots": MOE_SLOTS, "max_len": max_len,
+                  "paged": ce.paged, "requests": len(requests),
+                  "prompt_lens": [len(r.prompt) for r in requests],
+                  "max_tokens": [r.max_tokens for r in requests],
+                  "launches": c_got, "expected_launches": c_expect,
+                  "decode_steps": m.decode_steps, "prefills": m.prefills,
+                  "tokens_generated": m.tokens_generated,
+                  "serve_s": c_seconds,
+                  "tokens_per_s": m.tokens_generated / c_seconds,
+                  "decode_step_host_ms_median": median(decode_s) * 1e3,
+                  "kv_bytes": ce.pool.kv_bytes(), "pool_state": pool_rec,
+                  "logits_finite": finite, "card": card})
+            if c_got != c_expect or not empty or not finite or \
+                    ce.paged != bool(kw) or any(
+                        len(out[i]) != r.max_tokens
+                        for i, r in enumerate(requests)):
+                failed.append(f"{name} {pool}: launches {c_got} != "
+                              f"{c_expect}, empty {empty}, finite {finite}, "
+                              f"paged {ce.paged}")
+            for k in MOE_KERNELS:
+                launches[k] += c_got[k]
+                calls[k].update(c_calls[k])
+            del ce
+            # Every shape the pool's run gave a kernel, against plain.
+            errs, checked = moe_shape_parity(cfg, params, c_calls, done,
+                                             failed)
+            emit({"phase": "moe_shape_parity", "arch": name, "pool": pool,
+                  "shapes_checked": checked,
+                  "shapes_run": {k: len(c_calls[k]) for k in MOE_KERNELS},
+                  "max_abs_err": errs})
+            for k, err in errs.items():
+                worst[k] = max(worst[k], err)
+        calls_by_model[name] = calls
+        errs, checked = moe_parity(cfg, params, tokens, failed)
+        emit({"phase": "moe_parity", "arch": name, "calls_checked": checked,
+              "max_abs_err": errs,
+              "bands": {k: TOL[("matmul" if k == "batched_matmul" else k,
+                                torch.bfloat16)] for k in MOE_KERNELS}})
+        for k, err in errs.items():
+            worst[k] = max(worst[k], err)
+        del params
+        torch.cuda.empty_cache()
+        failed += moe_fp32_tokens(name, overrides, gen)
+    if failed:
+        raise AssertionError(f"moe: {failed}")
+    return {"moe": launches}, worst, calls_by_model
+
+
+def phase_times_moe(card, calls_by_model):
+    """Per-shape times of the moe path's bf16 kernels, for the kernels line:
+    each matmul, batched_matmul and flash forward shape of the two models'
+    runs beside its bound, its plain version and one library call
+    (torch.matmul, torch.bmm, SDPA where it takes the head sizes)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.brgemm import (batched_matmul_cuda,
+                                            batched_matmul_ref)
+    from repro_torch.kernels.brgemm.kernel import plan_batched_call
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    cfgs = {name: moe_model_cfg(name, over) for name, over in MOE_MODELS}
+    rows = []
+    row = row_recorder(rows, card)
+    for name, calls in calls_by_model.items():
+        for (role, m, k, n, act, fp32), count in sorted(
+                calls["matmul"].items()):
+            g = Gemm(f"{name}.{role}", m, k, n, act,
+                     kind="pre" if fp32 else "fwd")
+            iters = 40 if 2 * m * n * k < 1e11 else 8
+            ms, wall, plain, lib, flops, nbytes, plan = gemm_times(g, gen,
+                                                                   iters)
+            row("matmul", f"{g.name} m{m}", ms, wall, flops, nbytes, plain,
+                lib, {"moe": count}, m=m, k=k, n=n, activation=act,
+                out="float32" if fp32 else "bfloat16", **plan)
+        weights = {}      # one expert weight a (E, k, n), shared by its rows
+        for (e, m, k, n, act), count in sorted(
+                calls["batched_matmul"].items()):
+            if (e, k, n) not in weights:
+                weights[(e, k, n)] = (torch.randn(e, k, n, device="cuda",
+                                                  generator=gen)
+                                      * k ** -0.5).to(torch.bfloat16)
+            w = weights[(e, k, n)]
+            per_set = 2 * (e * m * k + e * m * n)
+            sets = [(torch.randn(e, m, k, device="cuda", generator=gen)
+                     .to(torch.bfloat16), w)
+                    for _ in range(n_sets(per_set))]
+            big = w.numel() * 2 > 1e9
+            ms, wall = time_ms(lambda a, b: batched_matmul_cuda(
+                a, b, activation=act), sets, 8 if big else 40)
+            plain, _ = time_ms(lambda a, b: batched_matmul_ref(
+                a, b, activation=act), sets, 2 if big else 8)
+            lib, _ = time_ms(torch.bmm, sets, 8 if big else 40)
+            p = plan_batched_call(*sets[0])
+            row("batched_matmul", f"{name}.experts.{act} E{e} m{m} k{k} "
+                f"n{n}", ms, wall, 2 * e * m * k * n,
+                per_set + 2 * e * k * n, plain, lib, {"moe": count},
+                batch=e, m=m, k=k, n=n, activation=act, mainloop=p.mainloop,
+                bm=p.bm)
+            del sets
+        del weights
+        torch.cuda.empty_cache()
+        for (b, hq, hkv, t, dq, dv), count in sorted(
+                calls["flash_attention"].items()):
+            scale = dq ** -0.5
+            nbytes = 2 * (b * hq * t * (dq + dv) + b * hkv * t * (dq + dv))
+
+            sets = [moe_flash_inputs(cfgs[name], b, hq, hkv, t, dq, dv,
+                                     torch.bfloat16, gen)
+                    for _ in range(n_sets(nbytes))]
+            ms, wall = time_ms(lambda q, k, v: flash_attention_cuda(
+                q, k, v, scale=scale), sets, 8)
+            plain, _ = time_ms(lambda q, k, v: mha_ref(q, k, v, scale=scale),
+                               sets, 4)
+            try:
+                lib, _ = time_ms(
+                    lambda q, k, v: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, scale=scale,
+                        enable_gqa=hq != hkv), sets, 8)
+            except RuntimeError as exc:       # no SDPA backend takes it
+                lib = None
+                emit({"library_ms": None, "sdpa": str(exc)[:200]})
+            row("flash_attention", f"{name}.prefill B{b} T{t} d{dq}/{dv}",
+                ms, wall, 2 * b * hq * (t * (t + 1) // 2) * (dq + dv),
+                nbytes, plain, lib, {"moe": count}, q=[b, hq, t, dq],
+                kv=[b, hkv, t, dq], v=[b, hkv, t, dv],
+                head_dims=list(FK.head_dims(dq, dv)),
+                mainloop=FK.plan_call(*sets[0]))
+            del sets
+    return rows
+
+
 SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
     "matmul": ("src/repro_torch/kernels/brgemm/csrc/matmul.cu",
                "src/repro/kernels/brgemm/kernel.py:118"),
@@ -4740,7 +5455,9 @@ def kernels_line(rows, launches_by_path, worst):
     bf16 FC layer's three passes at each of FC_SIZES; windowed,
     starcoder2-15b's bf16 ``Engine.generate``; llava, llava-next-34b's
     bf16 ``Engine.generate`` and ``ContinuousEngine.serve`` main runs
-    under the measured block policy.  ``delta_rowsum`` runs on
+    under the measured block policy; moe, grok-1-314b's and
+    deepseek-v3-671b's bf16 ``Engine.generate`` and slotted and paged
+    ``ContinuousEngine.serve`` runs.  ``delta_rowsum`` runs on
     none of them (it is the oracle of the fused delta): its times are one
     call's."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
@@ -4815,11 +5532,19 @@ def main():
     for kernel, err in llava_worst.items():
         worst[kernel] = max(worst[kernel], err)
     phase_autotune(card)
+    moe_launches, moe_worst, moe_calls_by_model = phase_moe(card)
+    launches.update(moe_launches)
+    for kernel, err in moe_worst.items():
+        worst[kernel] = max(worst[kernel], err)
+    phase_capture()
     rows = (phase_times(cfg, card, cont_forwards) + phase_times_paper(card)
             + phase_times_quant(cfg, card, cont_forwards)
             + phase_times_slice(card, fc_rows, win_static, win_flash)
-            + phase_times_llava(card, llava_gemm, llava_flash, llava_plans))
-    check_row_calls(rows, launches, ("lstm", "fc", "windowed", "llava"))
+            + phase_times_llava(card, llava_gemm, llava_flash, llava_plans)
+            + phase_times_moe(card, moe_calls_by_model))
+    emit({"phase": "capture_failures", "by_cause": dict(CAPTURE_FAILURES)})
+    check_row_calls(rows, launches, ("lstm", "fc", "windowed", "llava",
+                                     "moe"))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

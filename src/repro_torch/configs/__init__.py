@@ -11,6 +11,8 @@ _MODULES = {
     "deepseek-coder-33b": "deepseek_coder_33b",
     "mistral-large-123b": "mistral_large_123b",
     "llava-next-34b": "llava_next_34b",
+    "grok-1-314b": "grok_1_314b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -1,14 +1,20 @@
 """Parameters across frameworks, as numpy arrays.
 
-``params_from_numpy`` takes the JAX package's dense-LM parameter tree,
+``params_from_numpy`` takes the JAX package's decoder-LM parameter tree,
 with every leaf converted to a numpy array, and returns the port's
 ``Transformer``.  That tree stacks the layers on a leading axis
 (``params["blocks"][...][i]`` is layer i); it is sliced into per-layer
-modules here.  The embedding table stays tied: it is the one tensor both
-the input embedding and the output head read.  ``params_to_numpy`` is the
-inverse.  ``opt_state_from_numpy`` and ``opt_state_to_numpy`` carry the
-AdamW state (step, m, v, master) across the same way: the port keeps it
-by parameter name, the reference as trees shaped like the parameters.
+modules here.  The mla_moe family's two stacks, ``dense_blocks`` then
+``moe_blocks``, are the port's ``blocks.0 ..`` in that order, and its
+``mtp_block`` (one block, not stacked) the port's ``mtp_block``.  A leaf's
+path in a block is its parameter name split at the dots (``attn.wq``,
+``attn.q_norm.scale``, ``moe.router``, ``moe.shared.w_up``, ...): the two
+packages nest a block's parameters alike.  The embedding table stays
+tied: it is the one tensor both the input embedding and the output head
+read.  ``params_to_numpy`` is the inverse.  ``opt_state_from_numpy``
+and ``opt_state_to_numpy`` carry the AdamW state (step, m, v, master)
+across the same way: the port keeps it by parameter name, the reference
+as trees shaped like the parameters.
 ``resnet_params_from_numpy`` and ``resnet_params_to_numpy`` carry
 ResNet-50's parameters, a tree of the same layout in both packages, and
 ``lstm_params_from_numpy`` (one LSTM layer), ``lstm_lm_params_from_numpy``
@@ -25,6 +31,8 @@ Only numpy crosses the boundary, so this module imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -33,21 +41,8 @@ from repro_torch.core.dispatch import check_device
 from repro_torch.core.quantize import (TORCH_DTYPES, QuantizedTensor,
                                        install)
 from repro_torch.models import lstm_lm, resnet
-from repro_torch.models.blocks import dtype_of
+from repro_torch.models.blocks import DecoderBlock, dtype_of
 from repro_torch.models.transformer import Transformer
-
-# (path in the reference tree, attribute path in a DecoderBlock)
-_BLOCK_LEAVES = (
-    (("ln1", "scale"), "ln1.scale"),
-    (("attn", "wq"), "attn.wq"),
-    (("attn", "wk"), "attn.wk"),
-    (("attn", "wv"), "attn.wv"),
-    (("attn", "wo"), "attn.wo"),
-    (("ln2", "scale"), "ln2.scale"),
-    (("mlp", "w_gate"), "mlp.w_gate"),
-    (("mlp", "w_up"), "mlp.w_up"),
-    (("mlp", "w_down"), "mlp.w_down"),
-)
 
 
 _VISION_LEAVES = ("w1", "b1", "w2", "b2")    # a VLM's patch projection
@@ -75,16 +70,29 @@ def _is_quantized(leaf) -> bool:
     return hasattr(leaf, "q") and hasattr(leaf, "scale")
 
 
-def _leaf(tree, path):
-    for key in path:
+def _leaf(tree, attr):
+    for key in attr.split("."):
         tree = tree[key]
     return tree
 
 
-def _block_leaves(cfg: ArchCfg):
-    """_BLOCK_LEAVES of ``cfg``'s blocks: no ``w_gate`` in a plain MLP."""
-    return [(path, attr) for path, attr in _BLOCK_LEAVES
-            if cfg.gated_mlp or path != ("mlp", "w_gate")]
+@functools.lru_cache(maxsize=None)
+def _block_attrs(cfg: ArchCfg, use_moe: bool) -> tuple[str, ...]:
+    """The parameter names of one of ``cfg``'s decoder blocks, each the
+    path of its leaf in the reference's tree (no ``w_gate`` in a plain
+    MLP; ``moe.*`` for an MoE block, MLA's projections for an MLA one)."""
+    block = DecoderBlock(cfg, use_moe=use_moe, device="meta")
+    return tuple(name for name, _ in block.named_parameters())
+
+
+def _stacks(cfg: ArchCfg):
+    """(key in the reference's tree, first layer, layers, MoE blocks) of
+    each stack of layers."""
+    if cfg.block == "mla_moe":
+        nd = cfg.n_dense_layers
+        return (("dense_blocks", 0, nd, False),
+                ("moe_blocks", nd, cfg.n_layers - nd, True))
+    return (("blocks", 0, cfg.n_layers, cfg.block == "moe"),)
 
 
 def _one(leaf):
@@ -104,41 +112,63 @@ def named_leaves(tree, cfg: ArchCfg):
     if cfg.n_patches:
         for key in _VISION_LEAVES:
             yield f"vision_proj.{key}", tree["vision_proj"][key]
-    for path, attr in _block_leaves(cfg):
-        leaf = _leaf(tree["blocks"], path)
-        stacked = (np.asarray(leaf.q) if _is_quantized(leaf)
-                   else np.asarray(leaf))
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"blocks/{'/'.join(path)} stacks "
-                             f"{stacked.shape[0]} layers, config has "
-                             f"{cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            if _is_quantized(leaf):   # (q, scale) of layer i
-                yield (f"blocks.{i}.{attr}",
-                       (stacked[i], np.asarray(leaf.scale)[i]))
-            else:
-                yield f"blocks.{i}.{attr}", stacked[i]
+    for key, first, count, use_moe in _stacks(cfg):
+        for attr in _block_attrs(cfg, use_moe):
+            leaf = _leaf(tree[key], attr)
+            stacked = (np.asarray(leaf.q) if _is_quantized(leaf)
+                       else np.asarray(leaf))
+            if stacked.shape[0] != count:
+                raise ValueError(f"{key}/{attr.replace('.', '/')} stacks "
+                                 f"{stacked.shape[0]} layers, config has "
+                                 f"{count}")
+            for i in range(count):
+                name = f"blocks.{first + i}.{attr}"
+                if _is_quantized(leaf):   # (q, scale) of layer i
+                    yield name, (stacked[i], np.asarray(leaf.scale)[i])
+                else:
+                    yield name, stacked[i]
+    if cfg.block == "mla_moe" and cfg.mtp:
+        for attr in _block_attrs(cfg, False):
+            yield f"mtp_block.{attr}", _one(_leaf(tree["mtp_block"], attr))
+
+
+def _put(tree: dict, attr: str, value) -> None:
+    *path, last = attr.split(".")
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
 
 
 def _tree_of(named) -> dict:
-    """The reference's tree layout (layers stacked) with fp32 numpy leaves,
-    from tensors by parameter name."""
+    """The reference's tree layout (layers stacked: MLA's dense and MoE
+    layers apart) with fp32 numpy leaves, from tensors by parameter
+    name."""
     def np32(t):
         return t.detach().float().cpu().numpy()
 
-    n_layers = len({n.split(".")[1] for n in named if n.startswith("blocks.")})
-    blocks: dict = {}
-    for path, attr in _BLOCK_LEAVES:
-        if f"blocks.0.{attr}" not in named:      # w_gate of a plain MLP
-            continue
-        node = blocks
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(
-            [np32(named[f"blocks.{i}.{attr}"]) for i in range(n_layers)])
+    attrs: dict[int, list[str]] = {}
+    for name in named:
+        if name.startswith("blocks."):
+            _, i, attr = name.split(".", 2)
+            attrs.setdefault(int(i), []).append(attr)
+    layers = sorted(attrs)
+    if "attn.wq_a" in attrs[layers[0]]:        # mla_moe's two stacks
+        moe = [i for i in layers if "moe.router" in attrs[i]]
+        stacks = {"dense_blocks": [i for i in layers if i not in moe],
+                  "moe_blocks": moe}
+    else:
+        stacks = {"blocks": layers}
     tree = {"embed": {"table": np32(named["embed.table"])},
-            "final_ln": {"scale": np32(named["final_ln.scale"])},
-            "blocks": blocks}
+            "final_ln": {"scale": np32(named["final_ln.scale"])}}
+    for key, ids in stacks.items():
+        node = tree.setdefault(key, {})
+        for attr in attrs[ids[0]] if ids else ():
+            _put(node, attr, np.stack(
+                [np32(named[f"blocks.{i}.{attr}"]) for i in ids]))
+    for name, t in named.items():
+        if name.startswith("mtp_block."):
+            _put(tree.setdefault("mtp_block", {}), name[len("mtp_block."):],
+                 np32(t))
     if "head.w" in named:
         tree["head"] = {"w": np32(named["head.w"])}
     if "vision_proj.w1" in named:

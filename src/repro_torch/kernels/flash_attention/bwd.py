@@ -103,7 +103,8 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
                         f"{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_attention_bwd_cuda takes 4-D q and "
-                         "equal-shape 4-D k, v")
+                         "equal-shape 4-D k, v (one head size: MLA's "
+                         "(192, 128) backward is not ported)")
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
     if k.size(0) != b or k.size(3) != d or hkv == 0 or hq % hkv:

@@ -12,9 +12,12 @@
 // reaches).  GQA reads kv head h / group in place: no repeated K or V.
 // q, k and v are read through their (batch, head, time) strides with a
 // unit head_dim stride, so the transposed views that the attention layer's
-// head split produces are read without a copy.  Nothing is padded: rows
-// past Tq are zero-filled and never stored, and KV positions past Tk are
-// masked like any other (k_pos < Tk).
+// head split produces are read without a copy.  q and k share one head size
+// DQ and v has its own, DV: (32, 32), (64, 64), (128, 128), and MLA's
+// (192, 128) (128 nope + 64 rope dimensions against values of 128); the
+// wrapper pads another pair with zeros up to the next one.  Nothing else is
+// padded: rows past Tq are zero-filled and never stored, and KV positions
+// past Tk are masked like any other (k_pos < Tk).
 //
 // Each call runs one of three mainloops, planned by the wrapper
 // (kernel.py::plan):
@@ -38,7 +41,9 @@
 //     tile, and the epilogue divides by l and writes o and lse once.  The
 //     scores run in the log2 domain (exp2 with the scale folded in).
 //     d = 32 reads 64-wide boxes whose upper half TMA fills with zeros, so
-//     every d runs the n = 64 (or, d = 128, n = 128) products.
+//     every d runs the n = 64 (or, DV = 128, n = 128) products.  DQ = 192 is
+//     three 64-wide slices of Q and K, 12 k-steps of QK^T; its ring holds
+//     two stages (Q 24 KB, a stage 40 KB), so that two blocks share an SM.
 //   * wmma (bf16 views whose strides TMA cannot describe): the first
 //     design below.  One block of 4 warps owns a 64-row q tile; K and V are
 //     loaded by the threads between two block barriers; both products run
@@ -78,7 +83,7 @@ constexpr int ROWS_PER_WARP = BQ / WARPS;   // 16
 
 struct Params {
   const void *q, *k, *v;
-  void* o;             // (B, Hq, Tq, D) contiguous
+  void* o;             // (B, Hq, Tq, DV) contiguous
   float* lse;          // (B, Hq, Tq) or null
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st;
   int hq, group, tq, tk, causal, window;   // window < 0: none
@@ -87,20 +92,21 @@ struct Params {
 
 constexpr int align128(int b) { return (b + 127) / 128 * 128; }
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 struct Layout {
   static constexpr bool TC = std::is_same<T, bf16>::value;
   // Row strides in elements.  The bf16 tiles feed wmma (ld a multiple of 8,
   // 32-byte aligned tiles); the fp32 tiles are read by lanes across rows,
   // so an odd stride keeps them free of bank conflicts.
-  static constexpr int LDQ = TC ? D + 8 : D + 1;
+  static constexpr int LDQ = TC ? DQ + 8 : DQ + 1;   // Q and K
+  static constexpr int LDV = TC ? DV + 8 : DV + 1;
   static constexpr int LDS = BK + 4;        // scores, fp32
   static constexpr int LDP = BK + 8;        // probabilities, bf16 path
-  static constexpr int LDO = D + 4;         // output accumulator, fp32
+  static constexpr int LDO = DV + 4;        // output accumulator, fp32
   static constexpr int Q_OFF = 0;
   static constexpr int K_OFF = align128(Q_OFF + BQ * LDQ * (int)sizeof(T));
   static constexpr int V_OFF = align128(K_OFF + BK * LDQ * (int)sizeof(T));
-  static constexpr int S_OFF = align128(V_OFF + BK * LDQ * (int)sizeof(T));
+  static constexpr int S_OFF = align128(V_OFF + BK * LDV * (int)sizeof(T));
   static constexpr int P_OFF = align128(S_OFF + BQ * LDS * 4);
   static constexpr int O_OFF = align128(P_OFF + (TC ? BQ * LDP * 2 : 0));
   static constexpr int M_OFF = align128(O_OFF + BQ * LDO * 4);
@@ -148,9 +154,9 @@ __device__ float mean_of_v(const T* vg, long long st, int tk, int c) {
   return sum;
 }
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
-  using L = Layout<T, D>;
+  using L = Layout<T, DQ, DV>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
   T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
@@ -171,7 +177,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_tile<T, D, L::LDQ>(Qs, qg, p.q_st, q0, BQ, p.tq);
+  load_tile<T, DQ, L::LDQ>(Qs, qg, p.q_st, q0, BQ, p.tq);
   for (int i = threadIdx.x; i < BQ * L::LDO; i += THREADS) Os[i] = 0.0f;
   for (int i = threadIdx.x; i < BQ; i += THREADS) {
     Ms[i] = NEG_INF;
@@ -188,8 +194,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   for (int j = j_begin; j < j_end; ++j) {
     const int k0 = j * BK;
     __syncthreads();   // previous tile's readers are done with Ks / Vs
-    load_tile<T, D, L::LDQ>(Ks, kg, p.k_st, k0, BK, p.tk);
-    load_tile<T, D, L::LDQ>(Vs, vg, p.v_st, k0, BK, p.tk);
+    load_tile<T, DQ, L::LDQ>(Ks, kg, p.k_st, k0, BK, p.tk);
+    load_tile<T, DV, L::LDV>(Vs, vg, p.v_st, k0, BK, p.tk);
     __syncthreads();
 
     // ---- S = Q K^T for this warp's 16 rows ----
@@ -200,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
         wmma::fill_fragment(sacc, 0.0f);
 #pragma unroll
-        for (int kk = 0; kk < D; kk += 16) {
+        for (int kk = 0; kk < DQ; kk += 16) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
           wmma::load_matrix_sync(fa, Qs + wr0 * L::LDQ + kk, L::LDQ);
@@ -213,7 +219,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     } else {
       float s[ROWS_PER_WARP][2] = {};
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DQ; ++d) {
         float k0v = Ks[lane * L::LDQ + d], k1v = Ks[(lane + 32) * L::LDQ + d];
 #pragma unroll
         for (int r = 0; r < ROWS_PER_WARP; ++r) {
@@ -266,7 +272,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
         Sw[r * L::LDS + lane] = pv[0];
         Sw[r * L::LDS + lane + 32] = pv[1];
       }
-      for (int c = lane; c < D; c += 32) Os[row * L::LDO + c] *= corr;
+      for (int c = lane; c < DV; c += 32) Os[row * L::LDO + c] *= corr;
       __syncwarp();
       if (lane == 0) {
         Ms[row] = m_new;
@@ -279,7 +285,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     float* Ow = Os + wr0 * L::LDO;
     if constexpr (L::TC) {
 #pragma unroll
-      for (int ct = 0; ct < D / 16; ++ct) {
+      for (int ct = 0; ct < DV / 16; ++ct) {
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
         wmma::load_matrix_sync(oacc, Ow + ct * 16, L::LDO, wmma::mem_row_major);
 #pragma unroll
@@ -287,14 +293,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
           wmma::load_matrix_sync(fa, Ps + wr0 * L::LDP + kk, L::LDP);
-          wmma::load_matrix_sync(fb, Vs + kk * L::LDQ + ct * 16, L::LDQ);
+          wmma::load_matrix_sync(fb, Vs + kk * L::LDV + ct * 16, L::LDV);
           wmma::mma_sync(oacc, fa, fb, oacc);
         }
         wmma::store_matrix_sync(Ow + ct * 16, oacc, L::LDO,
                                 wmma::mem_row_major);
       }
     } else {
-      constexpr int CPL = D / 32;               // columns per lane
+      constexpr int CPL = DV / 32;              // columns per lane
       float acc[ROWS_PER_WARP][CPL];
 #pragma unroll
       for (int r = 0; r < ROWS_PER_WARP; ++r)
@@ -304,7 +310,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
       for (int kk = 0; kk < BK; ++kk) {
         float vv[CPL];
 #pragma unroll
-        for (int i = 0; i < CPL; ++i) vv[i] = Vs[kk * L::LDQ + lane + 32 * i];
+        for (int i = 0; i < CPL; ++i) vv[i] = Vs[kk * L::LDV + lane + 32 * i];
 #pragma unroll
         for (int r = 0; r < ROWS_PER_WARP; ++r) {
           float pr = Sw[r * L::LDS + kk];
@@ -323,15 +329,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   // ---- finish: O / l, lse = m + log l; empty rows give the mean of V
   // and NEG_INF ----
   __syncthreads();
-  T* og = static_cast<T*>(p.o) + ((long long)(b * p.hq + h) * p.tq) * D;
-  for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
-    int r = idx / D, c = idx % D;
+  T* og = static_cast<T*>(p.o) + ((long long)(b * p.hq + h) * p.tq) * DV;
+  for (int idx = threadIdx.x; idx < BQ * DV; idx += THREADS) {
+    int r = idx / DV, c = idx % DV;
     if (q0 + r >= p.tq) continue;
     float l = Ls[r];
     float val = l > 0.0f ? Os[r * L::LDO + c] / l
                          : mean_of_v(vg, p.v_st, p.tk, c);
-    if constexpr (L::TC) og[(long long)(q0 + r) * D + c] = __float2bfloat16(val);
-    else og[(long long)(q0 + r) * D + c] = val;
+    if constexpr (L::TC) og[(long long)(q0 + r) * DV + c] = __float2bfloat16(val);
+    else og[(long long)(q0 + r) * DV + c] = val;
   }
   if (p.lse != nullptr) {
     for (int r = threadIdx.x; r < BQ; r += THREADS) {
@@ -343,11 +349,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 static int launch(const Params& p, int batch, cudaStream_t stream) {
-  using L = Layout<T, D>;
+  using L = Layout<T, DQ, DV>;
   static_assert(L::BYTES <= 227 * 1024, "shared memory over the SM's limit");
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, DQ, DV>;
   static bool smem_set = false;   // once per instantiation (one device)
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -360,13 +366,14 @@ static int launch(const Params& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// q: (B, Hq, Tq, D), k / v: (B, Hkv, Tk, D), each with the given (batch,
-// head, time) strides in elements and a unit D stride.  o is a contiguous
-// (B, Hq, Tq, D) of q's type; lse, when not null, a contiguous fp32
-// (B, Hq, Tq).  is_bf16 selects bf16 (else fp32) for q, k, v and o.
+// q: (B, Hq, Tq, d), k: (B, Hkv, Tk, d), v: (B, Hkv, Tk, dv), each with the
+// given (batch, head, time) strides in elements and a unit head stride;
+// (d, dv) one of the instantiated pairs.  o is a contiguous (B, Hq, Tq, dv)
+// of q's type; lse, when not null, a contiguous fp32 (B, Hq, Tq).  is_bf16
+// selects bf16 (else fp32) for q, k, v and o.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int batch, int hq,
-                               int hkv, int tq, int tk, int d,
+                               int hkv, int tq, int tk, int d, int dv,
                                long long q_sb, long long q_sh, long long q_st,
                                long long k_sb, long long k_sh, long long k_st,
                                long long v_sb, long long v_sh, long long v_st,
@@ -377,13 +384,15 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
            v_sb, v_sh, v_st, hq, hq / hkv, tq, tk, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (d == 32) return launch<bf16, 32>(p, batch, s);
-    if (d == 64) return launch<bf16, 64>(p, batch, s);
-    if (d == 128) return launch<bf16, 128>(p, batch, s);
+    if (d == 32 && dv == 32) return launch<bf16, 32, 32>(p, batch, s);
+    if (d == 64 && dv == 64) return launch<bf16, 64, 64>(p, batch, s);
+    if (d == 128 && dv == 128) return launch<bf16, 128, 128>(p, batch, s);
+    if (d == 192 && dv == 128) return launch<bf16, 192, 128>(p, batch, s);
   } else {
-    if (d == 32) return launch<float, 32>(p, batch, s);
-    if (d == 64) return launch<float, 64>(p, batch, s);
-    if (d == 128) return launch<float, 128>(p, batch, s);
+    if (d == 32 && dv == 32) return launch<float, 32, 32>(p, batch, s);
+    if (d == 64 && dv == 64) return launch<float, 64, 64>(p, batch, s);
+    if (d == 128 && dv == 128) return launch<float, 128, 128>(p, batch, s);
+    if (d == 192 && dv == 128) return launch<float, 192, 128>(p, batch, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -405,14 +414,16 @@ __device__ __forceinline__ float minus_inf() {
 constexpr int BQ = 64;                  // q rows a block
 constexpr int THREADS = 128 + 32;       // one consumer warpgroup, a producer
 
-template <int D>
+template <int DQ, int DV>
 struct Shape {
-  static constexpr int NS = D > 64 ? D / 64 : 1;  // 64-wide slices of d
-  static constexpr int DP = NS * 64;              // d, 32 padded to 64
-  static constexpr int Q_BYTES = NS * SLICE;
-  static constexpr int KV_BYTES = NS * SLICE;     // K, or V, of one tile
-  static constexpr int STAGES = 3;
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int NSQ = DQ > 64 ? DQ / 64 : 1;  // 64-wide slices of q, k
+  static constexpr int NSV = DV > 64 ? DV / 64 : 1;  // and of v
+  static constexpr int DP = NSV * 64;                // dv, 32 padded to 64
+  static constexpr int Q_BYTES = NSQ * SLICE;
+  static constexpr int K_BYTES = NSQ * SLICE;        // K of one tile
+  static constexpr int V_BYTES = NSV * SLICE;        // V of one tile
+  static constexpr int STAGES = DQ > 128 ? 2 : 3;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   // Q, the ring, 2 * STAGES + 1 barriers, and 1 KB to align the tiles
   static constexpr int SMEM =
       Q_BYTES + STAGES * STAGE_BYTES + (2 * STAGES + 1) * 8 + 1024;
@@ -420,7 +431,7 @@ struct Shape {
 
 struct WgParams {
   const bf16* v;       // for the mean of V of a row with no valid key
-  bf16* o;             // (B, Hq, Tq, D) contiguous
+  bf16* o;             // (B, Hq, Tq, DV) contiguous
   float* lse;          // (B, Hq, Tq) or null
   long long v_sb, v_sh, v_st;
   int hq, group, tq, tk, causal, window;   // window < 0: none
@@ -437,12 +448,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // (+ 8) of the tile, and, of a 64-key S tile or of O, columns
 // 8 j + 2 (t % 4) (+ 1): s[4 j + {0, 1}] on the first row, s[4 j + {2, 3}]
 // on the row 8 below.
-template <int D>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                        const __grid_constant__ CUtensorMap tmk,
                        const __grid_constant__ CUtensorMap tmv, WgParams p) {
-  using S = Shape<D>;
+  using S = Shape<DQ, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -474,7 +485,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     if (lane == 0) {
       sm90::mbar_arrive_expect_tx(qbar, S::Q_BYTES);
 #pragma unroll
-      for (int s = 0; s < S::NS; ++s)
+      for (int s = 0; s < S::NSQ; ++s)
         sm90::tma_load_4d(Qs + s * SLICE, &tmq, qbar, 64 * s, q0, h, b);
       int stage = 0;
       uint32_t phase = 0;
@@ -483,12 +494,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
         sm90::mbar_arrive_expect_tx(&full[stage], S::STAGE_BYTES);
         uint8_t* ks = ring + stage * S::STAGE_BYTES;
 #pragma unroll
-        for (int s = 0; s < S::NS; ++s) {
+        for (int s = 0; s < S::NSQ; ++s)
           sm90::tma_load_4d(ks + s * SLICE, &tmk, &full[stage], 64 * s,
                             j * KV, hk, b);
-          sm90::tma_load_4d(ks + S::KV_BYTES + s * SLICE, &tmv, &full[stage],
+#pragma unroll
+        for (int s = 0; s < S::NSV; ++s)
+          sm90::tma_load_4d(ks + S::K_BYTES + s * SLICE, &tmv, &full[stage],
                             64 * s, j * KV, hk, b);
-        }
         if (++stage == S::STAGES) { stage = 0; phase ^= 1; }
       }
     }
@@ -513,12 +525,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     // wholly before the first row's window.
     const int k0 = j * KV;
     const uint8_t* ks = ring + stage * S::STAGE_BYTES;
-    const uint8_t* vs = ks + S::KV_BYTES;
+    const uint8_t* vs = ks + S::K_BYTES;
     // ---- S = Q K^T ----
     float s[32];
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQ / 16; ++kk) {
       const int sl = kk / 4, off = (kk % 4) * 32;
       sm90::wgmma_m64n64k16<0, 0>(
           s, sm90::desc_sw128(Qs + sl * SLICE + off, 16, 1024),
@@ -604,7 +616,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
-  bf16* og = p.o + (long long)(b * p.hq + h) * p.tq * D;
+  bf16* og = p.o + (long long)(b * p.hq + h) * p.tq * DV;
   const bf16* vg = p.v + b * p.v_sb + hk * p.v_sh;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -612,7 +624,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     const float l = half ? l_hi : l_lo, m = half ? m_hi : m_lo;
     if (row >= p.tq) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int c = 8 * j + 2 * quad;
       float v0, v1;
       if (l > 0.0f) {
@@ -622,7 +634,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
         v0 = mean_of_v(vg, p.v_st, p.tk, c);
         v1 = mean_of_v(vg, p.v_st, p.tk, c + 1);
       }
-      *reinterpret_cast<__nv_bfloat162*>(og + (long long)row * D + c) =
+      *reinterpret_cast<__nv_bfloat162*>(og + (long long)row * DV + c) =
           __floats2bfloat162_rn(v0, v1);
     }
     if (p.lse != nullptr && quad == 0)
@@ -631,13 +643,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
-template <int D>
+template <int DQ, int DV>
 static int launch(const CUtensorMap& tq, const CUtensorMap& tk,
                   const CUtensorMap& tv, const WgParams& p, int batch,
                   cudaStream_t stream) {
-  using S = Shape<D>;
+  using S = Shape<DQ, DV>;
   static_assert(S::SMEM <= 227 * 1024, "shared memory over the SM's limit");
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  auto kernel = flash_fwd_wgmma_kernel<DQ, DV>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (attr != cudaSuccess) return (int)attr;
@@ -664,7 +676,8 @@ static bool map4d(CUtensorMap* map, const void* base, int d, int t, int h,
 // bases.
 extern "C" int repro_flash_fwd_wgmma(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int batch, int hq, int hkv, int tq, int tk, int d, long long q_sb,
+    int batch, int hq, int hkv, int tq, int tk, int d, int dv,
+    long long q_sb,
     long long q_sh, long long q_st, long long k_sb, long long k_sh,
     long long k_st, long long v_sb, long long v_sh, long long v_st,
     int causal, int window, float scale, void* stream) {
@@ -672,15 +685,18 @@ extern "C" int repro_flash_fwd_wgmma(
   CUtensorMap tmq, tmk, tmv;
   if (!fa::map4d(&tmq, q, d, tq, hq, batch, q_st, q_sh, q_sb, fa::BQ) ||
       !fa::map4d(&tmk, k, d, tk, hkv, batch, k_st, k_sh, k_sb, fa::KV) ||
-      !fa::map4d(&tmv, v, d, tk, hkv, batch, v_st, v_sh, v_sb, fa::KV))
+      !fa::map4d(&tmv, v, dv, tk, hkv, batch, v_st, v_sh, v_sb, fa::KV))
     return (int)cudaErrorInvalidValue;
   fa::WgParams p{static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
                  v_sb, v_sh, v_st, hq, hq / hkv, tq, tk, causal, window,
                  (float)(scale * 1.4426950408889634)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 32) return fa::launch<32>(tmq, tmk, tmv, p, batch, s);
-  if (d == 64) return fa::launch<64>(tmq, tmk, tmv, p, batch, s);
-  if (d == 128) return fa::launch<128>(tmq, tmk, tmv, p, batch, s);
+  if (d == 32 && dv == 32) return fa::launch<32, 32>(tmq, tmk, tmv, p, batch, s);
+  if (d == 64 && dv == 64) return fa::launch<64, 64>(tmq, tmk, tmv, p, batch, s);
+  if (d == 128 && dv == 128)
+    return fa::launch<128, 128>(tmq, tmk, tmv, p, batch, s);
+  if (d == 192 && dv == 128)
+    return fa::launch<192, 128>(tmq, tmk, tmv, p, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,6 +15,13 @@ wrapper takes its mainloop from ``dispatch.resolve_blocks`` under the
 reference's triple (tq, tk, d), whose grid is that one plan (the kernels
 take no other tile at run time), so a measured policy returns it
 unmeasured.
+
+The kernel takes the head sizes of ``FWD_HEAD_DIMS``, pairs (q and k's,
+v's): one size for all three, or MLA's (192, 128).  Another pair (the
+reduced MLA's (24, 16)) is zero-padded up to the first pair that holds it,
+and the output sliced back: zero columns of q and k add nothing to a
+score, and the scale is the unpadded size's unless the caller passes one.
+A pair that no instantiation holds raises.
 """
 from __future__ import annotations
 
@@ -22,12 +29,14 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import blocking, dispatch
 from repro_torch.core.blocking import AttnGeometry, PlanSchema
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)       # the backward's: q, k and v alike
+FWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
 MAINLOOPS = ("wgmma", "wmma", "simt")
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -36,10 +45,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 @functools.cache
 def _lib():
     lib = _build.load("flash_attention")
-    lib.repro_flash_fwd.argtypes = ([_P] * 5 + [_I] * 6 + [_LL] * 9
+    lib.repro_flash_fwd.argtypes = ([_P] * 5 + [_I] * 7 + [_LL] * 9
                                     + [_I, _I, _F, _I, _P])
     lib.repro_flash_fwd.restype = ctypes.c_int
-    lib.repro_flash_fwd_wgmma.argtypes = ([_P] * 5 + [_I] * 6 + [_LL] * 9
+    lib.repro_flash_fwd_wgmma.argtypes = ([_P] * 5 + [_I] * 7 + [_LL] * 9
                                           + [_I, _I, _F, _P])
     lib.repro_flash_fwd_wgmma.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -119,10 +128,33 @@ def resolve_mainloop(op: str, q, k, views, explicit=None) -> str:
     return mainloop
 
 
+def head_dims(d: int, dv: int) -> tuple[int, int]:
+    """The instantiated (q/k, v) head sizes that run a (d, dv) call: the
+    first pair of FWD_HEAD_DIMS that holds both."""
+    for pair in FWD_HEAD_DIMS:
+        if d <= pair[0] and dv <= pair[1]:
+            return pair
+    raise ValueError(f"flash_attention_cuda head sizes (q/k {d}, v {dv}) "
+                     f"fit no instantiation of {FWD_HEAD_DIMS}")
+
+
+def _padded(q, k, v):
+    """q, k and v as the kernel runs them: zero-padded in the head
+    dimension up to ``head_dims``' pair where theirs is not one."""
+    dp, dvp = head_dims(q.size(3), v.size(3))
+    if dp != q.size(3):
+        q = F.pad(q, (0, dp - q.size(3)))
+        k = F.pad(k, (0, dp - k.size(3)))
+    if dvp != v.size(3):
+        v = F.pad(v, (0, dvp - v.size(3)))
+    return q, k, v
+
+
 def plan_call(q, k, v) -> str:
     """The plan of ``flash_attention_cuda(q, k, v)`` from the views' type,
-    strides and alignment under the active block policy (the kernel
-    itself is not touched)."""
+    strides and alignment (padded as the wrapper pads them) under the
+    active block policy (the kernel itself is not touched)."""
+    q, k, v = _padded(q, k, v)
     return resolve_mainloop("flash_attention", q, k, (q, k, v))
 
 
@@ -139,11 +171,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          scale: float | None = None,
                          return_residuals: bool = False,
                          plan: str | None = None):
-    """q: (B, Hq, Tq, d); k, v: (B, Hkv, Tk, d) -> o (B, Hq, Tq, d).
+    """q: (B, Hq, Tq, d); k: (B, Hkv, Tk, d); v: (B, Hkv, Tk, dv) -> o
+    (B, Hq, Tq, dv).
 
-    fp32 or bf16, d in (32, 64, 128).  With ``return_residuals`` also
-    returns lse = m + log l, fp32 (B, Hq, Tq), ``NEG_INF`` for empty rows.
-    ``plan``: the mainloop to run, else the block policy's pick.
+    fp32 or bf16; (d, dv) a pair of FWD_HEAD_DIMS, or one padded up to
+    one; ``scale`` defaults to ``d ** -0.5``.  With ``return_residuals``
+    also returns lse = m + log l, fp32 (B, Hq, Tq), ``NEG_INF`` for empty
+    rows.  ``plan``: the mainloop to run, else the block policy's pick.
     """
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA "
@@ -152,22 +186,23 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
             k.dtype == v.dtype == q.dtype):
         raise TypeError(f"flash_attention_cuda takes fp32 or bf16 q, k, v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError("flash_attention_cuda takes 4-D q and equal-shape "
-                         "4-D k, v")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError("flash_attention_cuda takes 4-D q, k and v, k and v "
+                         "of one (batch, heads, time)")
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
+    dv = v.size(3)
     if k.size(0) != b or k.size(3) != d or hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention_cuda shapes q {tuple(q.shape)} "
-                         f"and k/v {tuple(k.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda head_dim must be one of "
-                         f"{HEAD_DIMS}, got {d}")
+                         f"and k {tuple(k.shape)} do not match")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    strides = _strides(q, "q") + _strides(k, "k") + _strides(v, "v")
     scale = scale if scale is not None else d ** -0.5
-    o = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
+    q, k, v = _padded(q, k, v)
+    dp, dvp = q.size(3), v.size(3)
+    strides = _strides(q, "q") + _strides(k, "k") + _strides(v, "v")
+    o = torch.empty((b, hq, tq, dvp), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
            if return_residuals else None)
     if o.numel():
@@ -175,7 +210,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         lib = _lib()
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr() if lse is not None else None,
-                b, hq, hkv, tq, tk, d)
+                b, hq, hkv, tq, tk, dp, dvp)
         tail = (int(causal), -1 if window is None else int(window),
                 float(scale))
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -191,6 +226,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                 f"({lib.repro_cuda_error_string(rc).decode()})")
         flash_attention_cuda.launches += 1
         flash_attention_cuda.mainloops[mainloop] += 1
+    if dvp != dv:
+        o = o[..., :dv]
     return (o, lse) if return_residuals else o
 
 

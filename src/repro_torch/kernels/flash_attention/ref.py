@@ -16,7 +16,9 @@ NEG_INF = -1e30
 def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
             scale: float | None = None, q_offset=0, kv_len=None,
             return_lse: bool = False):
-    """q: (B, Hq, Tq, d); k, v: (B, Hkv, Tk, d); Hq % Hkv == 0.
+    """q: (B, Hq, Tq, d); k: (B, Hkv, Tk, d); v: (B, Hkv, Tk, dv);
+    Hq % Hkv == 0.  The output (B, Hq, Tq, dv) has v's head size, which
+    may differ from q's and k's (MLA's q and k are wider than its v).
 
     ``q_offset``: absolute position of q[0] (decode: Tq = 1, offset = pos).
     ``kv_len``: number of valid kv positions (for padded decode caches).
@@ -64,7 +66,7 @@ def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     p = p / den
     out = torch.matmul(p.to(v.dtype).float().reshape(b, hkv, group * tq, tk),
                        v.float())
-    out = out.reshape(b, hq, tq, d).to(q.dtype)
+    out = out.reshape(b, hq, tq, v.shape[-1]).to(q.dtype)
     if not return_lse:
         return out
     lse = torch.where(mask.any(dim=-1, keepdim=True), mx + torch.log(den),

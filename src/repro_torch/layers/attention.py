@@ -1,4 +1,5 @@
-"""GQA attention: the train, prefill, prefill_chunk and decode modes.
+"""Attention: GQA and MLA (DeepSeek-V3), in the train, prefill,
+prefill_chunk and decode modes.
 
 Every projection routes through the batch-reduce GEMM; prefill and train
 run the flash kernel; decode runs the plain ``mha_ref`` of one query
@@ -25,7 +26,18 @@ prompt and keeps its last ``w`` keys and values, position ``p`` at slot
 unmasked by position, over its ``min(pos + 1, w)`` entries.  The reference
 projects K and V a second time for the ring; here the prefill's own are
 kept.  A ring holds no stable position range, so chunked prefill (and
-paging) refuse windowed configs.  MLA waits for a later slice.
+paging) refuse windowed configs.
+
+MLA (``MLAttention``, ``cfg.mla``) caches the *compressed* KV: ``{"c_kv"
+(B, max_len, kv_lora_rank), "k_rope" (B, max_len, qk_rope_dim)}``, no
+head axis.  Train and prefill expand it to per-head K (nope + rope) and V
+and run the flash kernel with q and k of ``qk_nope_dim + qk_rope_dim`` and
+v of ``v_head_dim`` (192 and 128 at full width) under the explicit scale
+``(nope + rope) ** -0.5``.  A prompt chunk and decode use the absorbed
+form against the compressed cache (``wkv_b``'s K half folded into the
+queries, its V half applied to the attended latents): plain PyTorch
+einsums, as the reference's are outside any kernel; decode takes each
+row's position, as GQA's does.
 """
 from __future__ import annotations
 
@@ -36,7 +48,8 @@ from torch import nn
 
 from repro_torch.core import brgemm
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, mha_ref
+from repro_torch.layers.norms import RMSNorm
 from repro_torch.layers.rope import apply_rope
 
 
@@ -48,6 +61,13 @@ class AttnCfg:
     head_dim: int | None = None
     rope_theta: float = 10000.0
     window: int | None = None          # sliding-window size (None = full)
+    # --- MLA (used when mla=True) ---
+    mla: bool = False
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
 
     @property
     def dh(self) -> int:
@@ -56,6 +76,11 @@ class AttnCfg:
 
 def init_cache(cfg: AttnCfg, batch: int, max_len: int, *,
                dtype=torch.float32, device="cpu"):
+    if cfg.mla:
+        return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                      dtype=dtype, device=device)}
     shape = (batch, cfg.n_kv_heads, max_len, cfg.dh)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -147,4 +172,124 @@ class Attention(nn.Module):
             o = mha_ref(q, cache["k"], cache["v"], causal=False,
                         kv_len=kv_len)
             return self._out(o, backend), cache
+        raise ValueError(f"unknown attention mode {mode!r}")
+
+
+class MLAttention(nn.Module):
+    """Multi-head latent attention.  Weights (k, n): ``wq_a`` (D, q_lora),
+    ``q_norm``, ``wq_b`` (q_lora, H * (nope + rope)), ``wkv_a`` (D, kv_lora
+    + rope), ``kv_norm``, ``wkv_b`` (kv_lora, H * (nope + v)), ``wo`` (H *
+    v, D)."""
+
+    def __init__(self, cfg: AttnCfg, *, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        self.cfg = cfg
+        h, qk = cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim
+
+        def w(k, n):
+            return nn.Parameter(torch.empty(k, n, dtype=dtype, device=device))
+
+        self.wq_a = w(cfg.d_model, cfg.q_lora_rank)
+        self.q_norm = RMSNorm(cfg.q_lora_rank, dtype=dtype, device=device)
+        self.wq_b = w(cfg.q_lora_rank, h * qk)
+        self.wkv_a = w(cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_dim)
+        self.kv_norm = RMSNorm(cfg.kv_lora_rank, dtype=dtype, device=device)
+        self.wkv_b = w(cfg.kv_lora_rank,
+                       h * (cfg.qk_nope_dim + cfg.v_head_dim))
+        self.wo = w(h * cfg.v_head_dim, cfg.d_model)
+
+    @property
+    def scale(self) -> float:
+        return (self.cfg.qk_nope_dim + self.cfg.qk_rope_dim) ** -0.5
+
+    def _q(self, x, positions, backend):
+        """(q_nope, q_rope with RoPE), each (B, H, T, ...)."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        cq = self.q_norm(brgemm.matmul(x, self.wq_a, backend=backend))
+        q = brgemm.matmul(cq, self.wq_b, backend=backend).reshape(
+            b, t, cfg.n_heads, -1).transpose(1, 2)
+        return q[..., :cfg.qk_nope_dim], apply_rope(
+            q[..., cfg.qk_nope_dim:], positions, theta=cfg.rope_theta)
+
+    def _compressed_kv(self, x, positions, backend):
+        """(c_kv (B, T, kv_lora) normed, k_rope (B, T, rope) with RoPE)."""
+        cfg = self.cfg
+        full = brgemm.matmul(x, self.wkv_a, backend=backend)
+        c_kv = self.kv_norm(full[..., :cfg.kv_lora_rank])
+        k_rope = apply_rope(full[..., cfg.kv_lora_rank:][:, None], positions,
+                            theta=cfg.rope_theta)[:, 0]
+        return c_kv, k_rope
+
+    def _out(self, o, backend):
+        return brgemm.matmul(_merge_heads(o), self.wo, backend=backend)
+
+    def _full(self, x, backend):
+        """Train and prefill: the compressed KV expanded to per-head K and
+        V, flash attention at head sizes (nope + rope, v)."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        positions = torch.arange(t, device=x.device)
+        q_nope, q_rope = self._q(x, positions, backend)
+        c_kv, k_rope = self._compressed_kv(x, positions, backend)
+        kv = brgemm.matmul(c_kv, self.wkv_b, backend=backend).reshape(
+            b, t, cfg.n_heads, -1).transpose(1, 2)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([kv[..., :cfg.qk_nope_dim], k_rope[:, None].expand(
+            b, cfg.n_heads, t, cfg.qk_rope_dim)], dim=-1)
+        o = flash_attention(q, k, kv[..., cfg.qk_nope_dim:], causal=True,
+                            scale=self.scale, backend=backend)
+        return self._out(o, backend), c_kv, k_rope
+
+    def _absorbed(self, q_nope, q_rope, cache, mask, dtype, backend):
+        """Attention of the queries against the whole compressed cache
+        under ``mask`` (broadcast to (B, H, Tq, S)), with ``wkv_b``
+        absorbed: scores in fp32, probabilities in ``dtype``."""
+        cfg = self.cfg
+        wkv_b = self.wkv_b.reshape(cfg.kv_lora_rank, cfg.n_heads, -1)
+        w_uk, w_uv = wkv_b[..., :cfg.qk_nope_dim], wkv_b[..., cfg.qk_nope_dim:]
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+        q_eff = torch.einsum("bhqn,lhn->bhql", q_nope, w_uk)
+        s = (torch.einsum("bhql,bsl->bhqs", q_eff.float(), c_kv.float())
+             + torch.einsum("bhqr,bsr->bhqs", q_rope.float(), k_rope.float()))
+        s = torch.where(mask, s * self.scale, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(dtype)
+        o_c = torch.einsum("bhqs,bsl->bhql", p, c_kv)
+        o = torch.einsum("bhql,lhv->bhqv", o_c, w_uv)
+        return self._out(o, backend)
+
+    def forward(self, x, *, mode: str = "train", cache=None, pos=0,
+                backend: str | None = None):
+        """As ``Attention.forward``: y for train, (y, cache) for the others,
+        the cache ``{"c_kv", "k_rope"}`` written in place."""
+        t = x.shape[1]
+        if mode in ("train", "prefill"):
+            y, c_kv, k_rope = self._full(x, backend)
+            if mode == "train":
+                return y
+            cache["c_kv"][:, :t] = c_kv
+            cache["k_rope"][:, :t] = k_rope
+            return y, cache
+        if mode == "prefill_chunk":
+            positions = pos + torch.arange(t, device=x.device)
+            q_nope, q_rope = self._q(x, positions, backend)
+            c_kv, k_rope = self._compressed_kv(x, positions, backend)
+            cache["c_kv"][:, pos:pos + t] = c_kv
+            cache["k_rope"][:, pos:pos + t] = k_rope
+            s_pos = torch.arange(cache["c_kv"].shape[1], device=x.device)
+            mask = s_pos[None, :] <= positions[:, None]           # causal
+            return self._absorbed(q_nope, q_rope, cache, mask, x.dtype,
+                                  backend), cache
+        if mode == "decode":
+            if t != 1:
+                raise ValueError(f"decode takes one token a row, got {t}")
+            q_nope, q_rope = self._q(x, pos[:, None], backend)
+            c_kv, k_rope = self._compressed_kv(x, pos[:, None], backend)
+            rows = torch.arange(x.shape[0], device=x.device)
+            cache["c_kv"][rows, pos] = c_kv[:, 0]
+            cache["k_rope"][rows, pos] = k_rope[:, 0]
+            s_pos = torch.arange(cache["c_kv"].shape[1], device=x.device)
+            mask = (s_pos[None, :] < (pos + 1)[:, None])[:, None, None]
+            return self._absorbed(q_nope, q_rope, cache, mask, x.dtype,
+                                  backend), cache
         raise ValueError(f"unknown attention mode {mode!r}")

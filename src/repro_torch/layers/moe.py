@@ -1,0 +1,158 @@
+"""Mixture-of-Experts layer: top-k routing and capacity-based dispatch.
+
+The port of ``repro/layers/moe.py``.  The experts' FFNs are three batched
+GEMMs over the expert axis (``batched_matmul``, silu fused into the gate's
+epilogue): the paper's "loops around the sole kernel".  Dispatch is
+GShard's: each routing group gives every expert ``capacity`` slots, a
+token's k choices take the next free slot of their expert in token-major
+then k order, and a choice past the capacity is dropped (its weight is 0);
+the combine gathers each choice's expert output back and sums the k of a
+token weighted by its renormalised gates.  The aux outputs are the
+load-balance loss, the router z-loss and the dropped fraction.
+
+Groups, as the reference's: one a batch row at prefill and in training
+(t > 1), one global group of all B tokens at decode (t == 1), and, where
+``row_groups`` is set, one a row at decode too.  The reference's slot and
+paged decodes ``vmap`` a batch-1 decode over the slots, so every slot
+routes as a group of its own (capacity 4, no drops, a free slot's garbage
+token competing with no one); the port's one batched decode over the
+slots passes ``row_groups=True`` for that.
+
+The reference runs the expert GEMMs per group (``vmap`` of
+``batched_matmul``; its XLA branch is one ``einsum("gecd,edf->gecf")``);
+here the groups are folded into the rows: the dispatch buffer is (E, G *
+cap, D), so each GEMM is one launch that reads every expert's weights
+once, whatever the number of groups.  The buffer holds one more row, the
+discard slot of every dropped choice, sliced off before the GEMMs.
+
+Top-k is a stable descending sort: equal probabilities keep the lower
+expert first, as ``jax.lax.top_k`` does.  No ``shard_map`` and no
+sharding constraints: the port runs on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.core import brgemm
+from repro_torch.layers.mlp import MLP
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    d_model: int
+    d_ff: int                 # per-expert hidden size
+    n_experts: int
+    top_k: int
+    n_shared: int = 0         # DeepSeek-style always-on shared experts
+    capacity_factor: float = 1.25
+    activation: str = "silu"
+    renormalize: bool = True
+    grouped: bool = True      # one routing group a batch row when t > 1
+
+
+def capacity(cfg: MoECfg, n_tokens: int) -> int:
+    """Slots an expert has in a group of ``n_tokens``: the capacity factor's
+    share, at least 8, rounded up to 4s, and at most the group's tokens
+    (rounded up to 4s): an expert takes a token once at most."""
+    c = int(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts)
+    c = max(8, ((c + 3) // 4) * 4)
+    return min(c, ((n_tokens + 3) // 4) * 4)
+
+
+def groups(cfg: MoECfg, b: int, t: int, row_groups: bool = False):
+    """(G, N): routing groups and tokens a group for a (b, t) input."""
+    if (cfg.grouped and t > 1) or row_groups:
+        return b, t
+    return 1, b * t
+
+
+def route(router, xg, cfg: MoECfg, cap: int, *, backend=None):
+    """The routing of xg (G, N, D): (logits, probs) fp32 (G, N, E); the
+    gates (G, N, k) and expert ids (G, N * k) of each token's top k; which
+    choices fit their expert's capacity (``keep``, (G, N * k)); and each
+    choice's slot there (``cap`` where dropped)."""
+    g, n, _ = xg.shape
+    k = cfg.top_k
+    logits = brgemm.matmul(xg, router, out_dtype=torch.float32,
+                           backend=backend)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, ids = gate_vals[..., :k], ids[..., :k]
+    if cfg.renormalize:
+        gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    flat_ids = ids.reshape(g, n * k)
+    onehot = nn.functional.one_hot(flat_ids, cfg.n_experts)
+    pos = (torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1
+    keep = pos < cap
+    return logits, probs, gate_vals, flat_ids, keep, torch.where(keep, pos,
+                                                                 cap)
+
+
+class MoE(nn.Module):
+    """``router`` (D, E); ``w_gate``, ``w_up`` (E, D, F); ``w_down`` (E, F,
+    D); ``shared``, a gated MLP of F * n_shared, where ``n_shared``."""
+
+    def __init__(self, cfg: MoECfg, *, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        self.cfg = cfg
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+        def w(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype,
+                                            device=device))
+
+        self.router = w(d, e)
+        self.w_gate, self.w_up, self.w_down = w(e, d, f), w(e, d, f), \
+            w(e, f, d)
+        self.shared = (MLP(d, f * cfg.n_shared, activation=cfg.activation,
+                           dtype=dtype, device=device)
+                       if cfg.n_shared else None)
+
+    def forward(self, x, *, row_groups: bool = False,
+                backend: str | None = None):
+        """x: (B, T, D) -> (y (B, T, D), aux).  ``row_groups``: one routing
+        group a row also at decode (a slot pool's)."""
+        cfg = self.cfg
+        b, t, d = x.shape
+        e, k = cfg.n_experts, cfg.top_k
+        g, n = groups(cfg, b, t, row_groups)
+        xg = x.reshape(g, n, d)
+        cap = capacity(cfg, n)
+        logits, probs, gate_vals, flat_ids, keep, pos = route(
+            self.router, xg, cfg, cap, backend=backend)
+
+        # Dispatch: choice (g, i) lands in row (expert, group, slot) of the
+        # folded buffer, a dropped one in the discard row at the end.
+        rows = e * g * cap
+        groups_of = torch.arange(g, device=x.device)[:, None]
+        slot = torch.where(keep, (flat_ids * g + groups_of) * cap + pos, rows)
+        buf = x.new_zeros(rows + 1, d)
+        buf[slot.reshape(-1)] = xg.repeat_interleave(k, dim=1).reshape(-1, d)
+        expert_in = buf[:rows].view(e, g * cap, d)
+
+        gt = brgemm.batched_matmul(expert_in, self.w_gate,
+                                   activation=cfg.activation,
+                                   backend=backend)
+        u = brgemm.batched_matmul(expert_in, self.w_up, backend=backend)
+        out = brgemm.batched_matmul(gt * u, self.w_down, backend=backend)
+
+        # Combine: the discard row reads zeros, as the reference's padded
+        # slot does, and its weight is 0.
+        out = torch.cat([out.reshape(rows, d), out.new_zeros(1, d)])
+        y_tok = out[slot]                                  # (G, N*k, D)
+        w = (gate_vals.reshape(g, n * k) * keep).to(x.dtype)
+        y = (y_tok * w[..., None]).reshape(g, n, k, d).sum(dim=2)
+        if self.shared is not None:
+            y = y + self.shared(xg, backend=backend)
+
+        me = probs.reshape(-1, e).mean(dim=0)
+        ce = torch.bincount(flat_ids.reshape(-1), minlength=e).float() / (
+            g * n * k)
+        aux = {"load_balance_loss": e * torch.sum(me * ce),
+               "router_z_loss": torch.mean(
+                   torch.logsumexp(logits, dim=-1) ** 2),
+               "dropped_fraction": 1.0 - keep.float().mean()}
+        return y.reshape(b, t, d), aux

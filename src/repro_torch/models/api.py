@@ -1,7 +1,7 @@
-"""Uniform model API, as in the reference; the dense decoder only (a VLM's
-patch prefix included: its prefill and train batches carry
+"""Uniform model API, as in the reference; the decoder-only families
+(dense, a VLM's patch prefix included: its prefill and train batches carry
 ``patch_embeds``, and ``token_len`` deducts the prefix from a shape's
-sequence).
+sequence; moe; mla_moe).
 
 Besides the reference's entry points (init, forward, loss, prefill,
 prefill_chunk, decode_step) it holds the two decode steps of continuous
@@ -10,7 +10,8 @@ batching (``repro/models/api.py``):
   * ``decode_step_slots`` — one decode over a slot pool, each slot at its
     own position.  The reference ``vmap``s a batch-1 decode over the
     slots; here it is one batched ``decode_step`` with a (S,) tensor of
-    positions (``layers/attention.py``).
+    positions (``layers/attention.py``), in which an MoE routes each slot
+    as a group of its own, as the ``vmap`` does (``layers/moe.py``).
   * ``decode_step_paged`` — one decode over a paged pool: each slot's
     pages gathered into a contiguous view, the ordinary decode on the
     views, the result written back.  Optionally int8 pages with one fp32
@@ -18,11 +19,14 @@ batching (``repro/models/api.py``):
 
 The layouts are explicit, not discovered (the reference diffs abstract
 cache shapes for its batch and time axes): the model's cache is
-``{"blocks": [{"k", "v"} per layer]}``, each (B, Hkv, T, dh); a pool
-stacks the layers, ``{"k", "v"}`` each (L, N, Hkv, T, dh), N slots of T =
-max_len positions or N pages of T = page_size (the reference's stacked
-leaves, batch axis 1, time axis 3), and ``layer_views`` hands the model
-per-layer views of it.
+``{"blocks": [a dict per layer]}`` of the leaves ``cache_keys(cfg)``
+names: GQA's ``{"k", "v"}``, each (B, Hkv, T, dh), or MLA's compressed
+``{"c_kv" (B, T, kv_lora), "k_rope" (B, T, rope)}``, no head axis.  A
+pool stacks the layers, each leaf (L, N, ...) with N slots of T = max_len
+positions or N pages of T = page_size (the reference's stacked leaves,
+batch axis 1, time axis the second to last; its mla_moe tree stacks the
+dense and the MoE layers apart, the port's pool all L together), and
+``layer_views`` hands the model per-layer views of it.
 """
 from __future__ import annotations
 
@@ -34,7 +38,12 @@ from repro_torch.configs.shapes import ShapeCfg
 from repro_torch.core.quantize import quantize
 from repro_torch.models import blocks, transformer
 
-KEYS = ("k", "v")
+KEYS = ("k", "v")                 # GQA's cache leaves
+MLA_KEYS = ("c_kv", "k_rope")     # MLA's compressed ones
+
+
+def cache_keys(cfg: ArchCfg) -> tuple[str, str]:
+    return MLA_KEYS if cfg.mla else KEYS
 
 
 def token_len(cfg: ArchCfg, shape: ShapeCfg) -> int:
@@ -81,23 +90,27 @@ def prefill_chunk(params, batch, cfg: ArchCfg, cache, pos, *, length=None,
 # pooled caches
 # --------------------------------------------------------------------------
 
-def kv_shape(cfg: ArchCfg, n: int, length: int) -> tuple:
-    """(L, n, Hkv, length, dh): one stacked pool leaf."""
+def kv_shape(cfg: ArchCfg, n: int, length: int, key: str = "k") -> tuple:
+    """One stacked pool leaf: (L, n, Hkv, length, dh) of GQA's, (L, n,
+    length, kv_lora or rope) of MLA's ``c_kv`` or ``k_rope``."""
+    if cfg.mla:
+        return (cfg.n_layers, n, length,
+                cfg.kv_lora_rank if key == "c_kv" else cfg.qk_rope_dim)
     return (cfg.n_layers, n, cfg.n_kv_heads, length, blocks.attn_cfg(cfg).dh)
 
 
 def layer_views(leaves) -> dict:
-    """The model's cache as per-layer views of stacked ``{"k", "v"}``
-    leaves (L, B, Hkv, T, dh): a write through the model lands in them."""
-    n_layers = leaves["k"].shape[0]
-    return {"blocks": [{key: leaves[key][i] for key in KEYS}
+    """The model's cache as per-layer views of stacked leaves (L, B, ...):
+    a write through the model lands in them."""
+    n_layers = next(iter(leaves.values())).shape[0]
+    return {"blocks": [{key: leaf[i] for key, leaf in leaves.items()}
                        for i in range(n_layers)]}
 
 
 def stack_layers(cache) -> dict:
-    """The model's cache as stacked ``{"k", "v"}`` leaves (a copy)."""
+    """The model's cache as stacked leaves (L, B, ...) (a copy)."""
     return {key: torch.stack([b[key] for b in cache["blocks"]])
-            for key in KEYS}
+            for key in cache["blocks"][0]}
 
 
 def decode_step_slots(params, tokens, cfg: ArchCfg, cache, positions,
@@ -109,11 +122,13 @@ def decode_step_slots(params, tokens, cfg: ArchCfg, cache, positions,
     pool (batch = S), written in place, each slot's K and V in its own
     row.  Returns (logits (S, V), cache).  Free slots decode garbage that
     lands in their own rows, where a later prefill overwrites it before
-    any mask exposes it.
+    any mask exposes it; an MoE routes each slot as a group of its own,
+    so that garbage competes with no slot for capacity.
     """
     positions = torch.as_tensor(positions, device=tokens.device,
                                 dtype=torch.long)
-    return decode_step(params, tokens, cfg, cache, positions, **kw)
+    return decode_step(params, tokens, cfg, cache, positions,
+                       row_groups=True, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -134,17 +149,26 @@ def supports_paging(cfg: ArchCfg) -> bool:
 
 
 def pages_to_view(pages):
-    """(..., P, Hkv, page_size, dh) pages -> (..., Hkv, P * page_size, dh),
-    the contiguous cache view of a page list."""
-    *lead, n_pages, h, ps, dh = pages.shape
-    return pages.transpose(-4, -3).reshape(*lead, h, n_pages * ps, dh)
+    """(N, P, Hkv, page_size, dh) pages -> (N, Hkv, P * page_size, dh),
+    the contiguous cache view of each of N page lists.  MLA's leaves have
+    no head axis: (N, P, page_size, c) -> (N, P * page_size, c)."""
+    if pages.dim() == 4:
+        n, n_pages, ps, c = pages.shape
+        return pages.reshape(n, n_pages * ps, c)
+    n, n_pages, h, ps, dh = pages.shape
+    return pages.transpose(1, 2).reshape(n, h, n_pages * ps, dh)
 
 
 def view_to_pages(view, page_size: int):
-    """Inverse of :func:`pages_to_view`."""
-    *lead, h, t, dh = view.shape
-    return view.reshape(*lead, h, t // page_size, page_size,
-                        dh).transpose(-4, -3)
+    """Inverse of :func:`pages_to_view`: (N, Hkv, T, dh) -> (N, T /
+    page_size, Hkv, page_size, dh), or MLA's (N, T, c) -> (N, T /
+    page_size, page_size, c)."""
+    if view.dim() == 3:
+        n, t, c = view.shape
+        return view.reshape(n, t // page_size, page_size, c)
+    n, h, t, dh = view.shape
+    return view.reshape(n, h, t // page_size, page_size,
+                        dh).transpose(1, 2)
 
 
 def _dequant_pages(pages, scale, dtype):
@@ -165,7 +189,8 @@ def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
                       view_dtype=None, **kw):
     """One decode step over a paged pool.
 
-    ``data``: ``{"k", "v"}``, each (L, n_pages, Hkv, page_size, dh).
+    ``data``: ``{"k", "v"}``, each (L, n_pages, Hkv, page_size, dh), or
+    MLA's ``{"c_kv", "k_rope"}``, each (L, n_pages, page_size, c).
     ``page_tables``: (S, P) page ids, the sentinel ``n_pages`` past each
     slot's allocation; ``positions``: (S,) the position each slot's token
     is written at.  Both are host integer arrays: the writes' masks are
@@ -176,7 +201,9 @@ def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
     Each slot's pages are gathered (sentinels clipped to the last page:
     garbage that the ``kv_len`` mask never exposes) into a contiguous
     view of ``P * page_size`` positions, dequantized with int8 pages, and
-    the ordinary decode runs on the views.  Then, as the reference's
+    the ordinary decode runs on the views (an MoE routing each slot as a
+    group of its own, as the reference's ``vmap`` does).  Then, as the
+    reference's
     scatter with ``mode="drop"`` does, only real page ids are written:
     full-precision pages take the new token's K and V at its position
     (every other position of a view is the page it was gathered from);
@@ -184,20 +211,23 @@ def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
     as the reference re-quantizes every page of a slot each step.
     Returns (logits (S, V), data, scales), the pool written in place.
     """
-    n_pages = data["k"].shape[1]
+    keys = tuple(data)
+    n_layers, n_pages = data[keys[0]].shape[:2]
     dev = tokens.device
     view_dtype = view_dtype or blocks.dtype_of(cfg)
     pt = np.asarray(page_tables, np.int64)
     pos = np.asarray(positions, np.int64)
     ids = torch.as_tensor(np.minimum(pt, n_pages - 1), device=dev)
     views = {}
-    for key in KEYS:
+    for key in keys:
         pages = data[key][:, ids]                 # (L, S, P, Hkv, ps, dh)
         if scales is not None:
             pages = _dequant_pages(pages, scales[key][ids], view_dtype)
-        views[key] = pages_to_view(pages)         # (L, S, Hkv, T, dh)
+        views[key] = pages_to_view(pages.flatten(0, 1)).unflatten(
+            0, (n_layers, len(pos)))              # (L, S, Hkv, T, dh)
     logits, _ = decode_step(params, tokens, cfg, layer_views(views),
-                            torch.as_tensor(pos, device=dev), **kw)
+                            torch.as_tensor(pos, device=dev),
+                            row_groups=True, **kw)
     if scales is None:
         rows = np.arange(len(pos))
         page = pt[rows, pos // page_size]
@@ -206,16 +236,16 @@ def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
         dst = torch.as_tensor(page[live], device=dev)
         off = torch.as_tensor(pos[live] % page_size, device=dev)
         src = torch.as_tensor(live, device=dev)
-        for key in KEYS:
-            data[key][:, dst, :, off] = views[key][:, src, :, at]
+        for key in keys:
+            data[key][:, dst, ..., off, :] = views[key][:, src, ..., at, :]
         return logits, data, scales
     flat = pt.reshape(-1)
     live = np.nonzero(flat < n_pages)[0]
     src = torch.as_tensor(live, device=dev)
     dst = torch.as_tensor(flat[live], device=dev)
-    for key in KEYS:
-        pages = view_to_pages(views[key], page_size)
-        pages = pages.reshape(pages.shape[0], -1, *pages.shape[3:])
+    for key in keys:
+        pages = view_to_pages(views[key].flatten(0, 1), page_size)
+        pages = pages.reshape(n_layers, -1, *pages.shape[2:])
         q, sc = _quant_pages(pages[:, src])
         data[key][:, dst] = q
         scales[key][dst] = sc

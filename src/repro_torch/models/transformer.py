@@ -1,6 +1,7 @@
-"""The dense decoder-only LM: init, forward, loss, prefill, prefill_chunk
-and decode_step.  The head is the tied embedding table or, where
-``cfg.tie_embeddings`` is false, its own ``head.w`` (d_model, vocab).
+"""The decoder-only LM: init, forward, loss, prefill, prefill_chunk and
+decode_step, for the dense, moe and mla_moe families.  The head is the tied
+embedding table or, where ``cfg.tie_embeddings`` is false, its own
+``head.w`` (d_model, vocab).
 A VLM config (``cfg.n_patches``, llava-next-34b) has a ``vision_proj``:
 its batches carry ``patch_embeds`` (B, n_patches, d_model), projected by
 ``gelu(v @ w1 + b1) @ w2 + b2`` (two ``matmul`` calls, the first with its
@@ -12,10 +13,21 @@ With ``cfg.remat`` the train forward runs each decoder block under
 scan): its activations are recomputed in the backward, which changes
 memory and not one bit of the result.
 
+The moe family (grok-1) stacks MoE blocks as dense stacks MLP blocks;
+mla_moe (DeepSeek-V3) runs ``n_dense_layers`` dense MLA blocks, then MoE
+MLA blocks, and holds an MTP block (``mtp_block``, a dense block whose
+head predicts the token two steps ahead, train only).  The train forward
+sums the MoE blocks' aux losses and ``loss_fn`` adds them, and the MTP
+loss, with the reference's weights; serving computes the aux and drops
+it.  ``decode_step(row_groups=True)`` routes each row as a group of its
+own (``layers/moe.py``).
+
 The reference scans one traced block over layer parameters stacked on a
 leading axis; here the layers are an ``nn.ModuleList`` run by a Python
-loop, and the serve cache is a list with one ``{"k", "v"}`` dict per layer
-(``interop.py`` maps the stacked layout across).  Dtypes follow the
+loop, and the serve cache is a list with one dict per layer, ``{"k",
+"v"}`` or MLA's ``{"c_kv", "k_rope"}`` (``interop.py`` maps the stacked
+layouts across: the reference's ``blocks``, or its ``dense_blocks`` then
+``moe_blocks``, are the port's ``blocks.0 ..``).  Dtypes follow the
 reference step by step: the embedding is cast to ``cfg.dtype``, every GEMM
 returns its input dtype, the residual adds stay in that dtype, and the
 logits are fp32.
@@ -35,8 +47,14 @@ from repro_torch.layers.embeddings import Embedding
 from repro_torch.layers.norms import RMSNorm
 from repro_torch.models import blocks
 
-ZERO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0,
-            "dropped_fraction": 0.0}
+ZERO_AUX = blocks.ZERO_AUX
+MTP_WEIGHT = 0.3
+LB_WEIGHT = 0.01
+Z_WEIGHT = 1e-4
+
+
+def _acc(a, b):
+    return {k: a[k] + b[k] for k in a}
 
 
 class Head(nn.Module):
@@ -65,13 +83,13 @@ class VisionProj(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense LM, uninitialised (``init_params`` fills them
-    from a generator, ``interop`` from the reference's tree).  ``device``
-    defaults to the card."""
+    """Parameters of a decoder LM, uninitialised (``init_params`` fills
+    them from a generator, ``interop`` from the reference's tree).
+    ``device`` defaults to the card."""
 
     def __init__(self, cfg: ArchCfg, *, device="cuda"):
         super().__init__()
-        blocks.check_dense(cfg)
+        blocks.check_ported(cfg)
         device = check_device(device)
         dt = blocks.dtype_of(cfg)
         self.cfg = cfg
@@ -80,9 +98,13 @@ class Transformer(nn.Module):
         self.final_ln = RMSNorm(cfg.d_model, dtype=dt, device=device)
         self.head = (None if cfg.tie_embeddings else
                      Head(cfg.d_model, cfg.vocab, dtype=dt, device=device))
+        n_dense = {"dense": cfg.n_layers, "moe": 0,
+                   "mla_moe": cfg.n_dense_layers}[cfg.block]
         self.blocks = nn.ModuleList(
-            blocks.DecoderBlock(cfg, device=device)
-            for _ in range(cfg.n_layers))
+            blocks.DecoderBlock(cfg, use_moe=i >= n_dense, device=device)
+            for i in range(cfg.n_layers))
+        self.mtp_block = (blocks.DecoderBlock(cfg, device=device)
+                          if cfg.block == "mla_moe" and cfg.mtp else None)
         self.vision_proj = (VisionProj(cfg.d_model, dtype=dt, device=device)
                             if cfg.n_patches else None)
 
@@ -114,29 +136,46 @@ class Transformer(nn.Module):
         return brgemm.matmul(h, self.head.w, out_dtype=torch.float32,
                              backend=backend)
 
-    def _run(self, h, *, mode, cache, pos, backend, remat=False):
+    def _run(self, h, *, mode, cache, pos, backend, remat=False,
+             row_groups=False):
+        """(h, the blocks' aux losses summed: train mode only, else
+        ZERO_AUX)."""
         remat = remat and mode == "train" and torch.is_grad_enabled()
+        aux = ZERO_AUX
         for i, block in enumerate(self.blocks):
             layer_cache = None if cache is None else cache["blocks"][i]
             if remat:
-                h = _checkpointed(block, h, backend)
-                continue
-            h, _ = block(h, mode=mode, cache=layer_cache, pos=pos,
-                         backend=backend)
-        return h
+                h, a = _checkpointed(block, h, backend)
+            else:
+                h, _, a = block(h, mode=mode, cache=layer_cache, pos=pos,
+                                row_groups=row_groups, backend=backend)
+            if mode == "train" and a is not ZERO_AUX:
+                aux = _acc(aux, a)
+        return h, aux
 
     def forward(self, tokens, *, backend: str | None = None,
                 patch_embeds=None, remat: bool | None = None):
-        """Train-mode forward: (B, T) tokens -> fp32 logits (B, T, V)
-        (the patch rows of a VLM dropped before the head).  ``remat``
-        (default ``cfg.remat``) checkpoints each block."""
+        """Train-mode forward: (B, T) tokens -> fp32 logits (B, T, V) (the
+        patch rows of a VLM dropped before the head).  ``remat`` (default
+        ``cfg.remat``) checkpoints each block."""
+        return self.logits_and_aux(tokens, backend=backend,
+                                   patch_embeds=patch_embeds, remat=remat)[0]
+
+    def logits_and_aux(self, tokens, *, backend: str | None = None,
+                       patch_embeds=None, remat: bool | None = None):
+        """``forward``'s logits and the aux: the MoE blocks' losses summed,
+        and with an MTP block its fp32 logits (``mtp_logits``)."""
         remat = self.cfg.remat if remat is None else remat
-        h = self._run(self._embed(tokens, patch_embeds, backend),
-                      mode="train", cache=None, pos=0, backend=backend,
-                      remat=remat)
+        h, aux = self._run(self._embed(tokens, patch_embeds, backend),
+                           mode="train", cache=None, pos=0, backend=backend,
+                           remat=remat)
         if self.cfg.n_patches:
             h = h[:, self.cfg.n_patches:]
-        return self._head(h, backend)
+        aux = dict(aux)
+        if self.mtp_block is not None:
+            h2, _, _ = self.mtp_block(h, mode="train", backend=backend)
+            aux["mtp_logits"] = self._head(h2, backend)
+        return self._head(h, backend), aux
 
     def prefill(self, tokens, cache, *, backend: str | None = None,
                 logit_pos: int | None = None, patch_embeds=None):
@@ -146,8 +185,8 @@ class Transformer(nn.Module):
         into the sequence, a VLM's patch prefix included): bucketed
         prefill right-pads a prompt, and its true last token sits before
         the pad."""
-        h = self._run(self._embed(tokens, patch_embeds, backend),
-                      mode="prefill", cache=cache, pos=0, backend=backend)
+        h, _ = self._run(self._embed(tokens, patch_embeds, backend),
+                         mode="prefill", cache=cache, pos=0, backend=backend)
         idx = h.shape[1] - 1 if logit_pos is None else int(logit_pos)
         return self._head(h[:, idx:idx + 1], backend)[:, 0], cache
 
@@ -160,28 +199,30 @@ class Transformer(nn.Module):
         ``pos``, in place.  ``length`` (<= C) marks the valid prefix of a
         right-padded chunk, whose logits are returned (the last token's by
         default).  Chaining chunks reproduces one-shot ``prefill``."""
-        h = self._run(self._embed(tokens, patch_embeds, backend),
-                      mode="prefill_chunk", cache=cache, pos=int(pos),
-                      backend=backend)
+        h, _ = self._run(self._embed(tokens, patch_embeds, backend),
+                         mode="prefill_chunk", cache=cache, pos=int(pos),
+                         backend=backend)
         idx = h.shape[1] - 1 if length is None else int(length) - 1
         return self._head(h[:, idx:idx + 1], backend)[:, 0], cache
 
     def decode_step(self, tokens, cache, pos, *,
-                    backend: str | None = None):
+                    backend: str | None = None, row_groups: bool = False):
         """tokens: (B, 1), row b at position ``pos[b]`` (a (B,) tensor).
-        Returns (logits (B, V), cache), the cache written in place."""
-        h = self._run(self._embed_tokens(tokens), mode="decode", cache=cache,
-                      pos=pos, backend=backend)
+        Returns (logits (B, V), cache), the cache written in place.
+        ``row_groups``: MoE routes each row as a group of its own."""
+        h, _ = self._run(self._embed_tokens(tokens), mode="decode",
+                         cache=cache, pos=pos, backend=backend,
+                         row_groups=row_groups)
         return self._head(h, backend)[:, 0], cache
 
 
 def _checkpointed(block, h, backend):
     """A train-mode block under ``torch.utils.checkpoint``: its forward is
     rerun in the backward, in the dispatch state of the forward (autograd
-    may rerun it on a thread of its own)."""
+    may rerun it on a thread of its own).  Returns (h, aux)."""
     state = dispatch.snapshot()
     return checkpoint.checkpoint(
-        lambda x: block(x, mode="train", backend=backend)[0], h,
+        lambda x: block(x, mode="train", backend=backend)[::2], h,
         use_reentrant=False,
         context_fn=lambda: (contextlib.nullcontext(),
                             dispatch.restored(state)))
@@ -190,11 +231,11 @@ def _checkpointed(block, h, backend):
 def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
                 device="cuda") -> Transformer:
     """Random weights with the reference's distributions: each weight is
-    normal scaled by ``fan_in ** -0.5`` (the embedding table by
-    ``d_model ** -0.5``), each norm scale ones, a VLM projection's biases
-    zeros.  Draws come from
-    ``generator`` (default: a CPU generator seeded 0), in fp32, then are
-    cast to ``cfg.dtype``."""
+    normal scaled by ``fan_in ** -0.5`` (its second-to-last dimension: an
+    expert weight's (E, k, n) too; the embedding table by ``d_model **
+    -0.5``), each norm scale ones, a VLM projection's biases zeros.  Draws
+    come from ``generator`` (default: a CPU generator seeded 0), in fp32,
+    then are cast to ``cfg.dtype``."""
     model = Transformer(cfg, device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -206,7 +247,7 @@ def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
             if name.startswith("vision_proj.b"):
                 p.zero_()
                 continue
-            fan_in = p.shape[1] if name == "embed.table" else p.shape[0]
+            fan_in = p.shape[1] if name == "embed.table" else p.shape[-2]
             draw = torch.randn(p.shape, generator=generator,
                                device=generator.device)
             p.copy_(draw * fan_in ** -0.5)
@@ -214,7 +255,9 @@ def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
 
 
 def init_cache(cfg: ArchCfg, batch: int, max_len: int, *, device="cuda"):
-    """``{"blocks": [{"k", "v"} per layer]}``, each (B, Hkv, max_len, dh)."""
+    """``{"blocks": [a dict per layer]}``: ``{"k", "v"}``, each (B, Hkv,
+    max_len, dh), or MLA's ``{"c_kv" (B, max_len, kv_lora), "k_rope" (B,
+    max_len, rope)}``."""
     device = check_device(device)
     return {"blocks": [
         blocks.decoder_block_cache(cfg, batch, max_len, device=device)
@@ -224,9 +267,9 @@ def init_cache(cfg: ArchCfg, batch: int, max_len: int, *, device="cuda"):
 def forward(params: Transformer, batch, cfg: ArchCfg, *, backend=None):
     """Train-mode forward, ``cfg.remat`` deciding the checkpointing.
     Returns (fp32 logits, aux)."""
-    return params(batch["tokens"], backend=backend,
-                  patch_embeds=batch.get("patch_embeds"),
-                  remat=cfg.remat), dict(ZERO_AUX)
+    return params.logits_and_aux(batch["tokens"], backend=backend,
+                                 patch_embeds=batch.get("patch_embeds"),
+                                 remat=cfg.remat)
 
 
 def _xent(logits, labels, mask):
@@ -239,18 +282,29 @@ def loss_fn(params: Transformer, batch, cfg: ArchCfg, *, backend=None):
     """Mean next-token cross-entropy over labels >= 0, from fp32 logits.
 
     Labels < 0 are masked out (and clamped to 0 for the gather), as in the
-    reference.  Returns ``(loss, {"ce_loss", "loss"})``; the dense decoder
-    adds no MoE or MTP terms.
+    reference.  With an MTP block, ``MTP_WEIGHT`` times its cross-entropy
+    against the labels one step further on; in the MoE families,
+    ``LB_WEIGHT`` times the load-balance loss and ``Z_WEIGHT`` times the
+    router z-loss.  Returns ``(loss, {"ce_loss", ["mtp_loss",]
+    ["load_balance_loss",] "loss"})``.
     """
-    if cfg.mtp or cfg.block != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the port's loss covers the dense decoder only "
-            f"(no MoE balance or MTP terms)")
-    logits, _ = forward(params, batch, cfg, backend=backend)
+    logits, aux = forward(params, batch, cfg, backend=backend)
     labels = batch["labels"]
     mask = (labels >= 0).float()
-    loss = _xent(logits, labels.clamp_min(0).long(), mask)
-    return loss, {"ce_loss": loss, "loss": loss}
+    labels = labels.clamp_min(0).long()
+    loss = _xent(logits, labels, mask)
+    metrics = {"ce_loss": loss}
+    if "mtp_logits" in aux:
+        mtp_loss = _xent(aux["mtp_logits"][:, :-1], labels[:, 1:],
+                         mask[:, 1:])
+        loss = loss + MTP_WEIGHT * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+    if cfg.block in ("moe", "mla_moe"):
+        loss = (loss + LB_WEIGHT * aux["load_balance_loss"]
+                + Z_WEIGHT * aux["router_z_loss"])
+        metrics["load_balance_loss"] = aux["load_balance_loss"]
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(params: Transformer, batch, cfg: ArchCfg, cache, *,
@@ -271,10 +325,12 @@ def prefill_chunk(params: Transformer, batch, cfg: ArchCfg, cache, pos, *,
 
 
 def decode_step(params: Transformer, tokens, cfg: ArchCfg, cache, pos, *,
-                backend=None):
+                backend=None, row_groups=False):
     """tokens: (B, 1); pos: an int, or a (B,) tensor of per-row positions.
-    Returns (logits (B, V), cache)."""
+    ``row_groups``: MoE routes each row as a group of its own, as a slot
+    pool's decode does.  Returns (logits (B, V), cache)."""
     if not (isinstance(pos, torch.Tensor) and pos.dim() == 1):
         pos = torch.full((tokens.shape[0],), int(pos),
                          device=tokens.device)
-    return params.decode_step(tokens, cache, pos, backend=backend)
+    return params.decode_step(tokens, cache, pos, backend=backend,
+                              row_groups=row_groups)

@@ -19,7 +19,11 @@ are the reference's: prefill runs under ``use(quant=quant)``, decode under
 production mix is ``quant=None`` with ``decode_quant="int8"``: prefill is
 compute-bound, decode streams the weights).  A calibrated model
 (``quant.calibrate_params``) runs its GEMMs quantized in both phases
-without any tier.
+without any tier.  The MoE and MLA families (grok-1, DeepSeek-V3) serve in
+full precision only: both engines refuse a tier or calibrated weights
+there.  In the static engine an MoE decode routes the batch as one group;
+the continuous engine's slot decode routes each slot as its own
+(``api.decode_step_slots``), as the reference's ``vmap`` does.
 
 ``ContinuousEngine`` is the port of the reference's continuous-batching
 loop (``repro/serve/engine.py``): a slotted or paged KV pool
@@ -45,7 +49,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core import dispatch
-from repro_torch.core.quantize import as_quant_config
+from repro_torch.core.quantize import QuantizedTensor, as_quant_config
 from repro_torch.models import api
 from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache
 from repro_torch.serve.metrics import ServeMetrics
@@ -76,6 +80,19 @@ def _gumbel(shape, generator, device):
 
 def _tier(quant):
     return as_quant_config(quant) if quant is not None else None
+
+
+def _check_tiers(cfg: ArchCfg, params, *tiers) -> None:
+    """The quant tiers (a ``quant`` / ``decode_quant`` tier, calibrated
+    weights) are not ported to the MoE and MLA families: raise there."""
+    if cfg.block not in ("moe", "mla_moe") and not cfg.mla:
+        return
+    if any(t is not None for t in tiers) or any(
+            isinstance(m, QuantizedTensor) for m in params.modules()):
+        raise NotImplementedError(
+            f"{cfg.name}: quantized serving (quant, decode_quant, "
+            f"calibrated weights) is not ported to block={cfg.block!r} "
+            f"(mla={cfg.mla}) yet")
 
 
 def _pos_off(cfg: ArchCfg) -> int:
@@ -112,6 +129,7 @@ class Engine:
         self.blocks_policy = dispatch.check_blocks_policy(blocks_policy)
         self.quant = _tier(quant)
         self.decode_quant = _tier(decode_quant) or self.quant
+        _check_tiers(cfg, params, self.quant, self.decode_quant)
 
     def _sample(self, logits, generator):
         if self.scfg.temperature <= 0.0:
@@ -287,6 +305,7 @@ class ContinuousEngine:
         self.quant = _tier(quant)
         # decode streams the weights, so it gets its own quant tier
         self.decode_quant = _tier(decode_quant) or self.quant
+        _check_tiers(cfg, params, self.quant, self.decode_quant)
         # paged pool where the architecture allows it, else slotted
         self.paged = bool(pool.page_size) and api.supports_paging(cfg)
         if self.paged:

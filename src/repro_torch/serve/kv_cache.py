@@ -10,9 +10,11 @@ span per slot with fixed-size *pages*: each cache leaf becomes a pool of
 Pages are allocated as generation crosses page boundaries, so KV memory is
 bound by live tokens (rounded up to a page), not by the longest request.
 
-Both pools stack the layers: ``{"k", "v"}``, each (L, N, Hkv, T, dh) on
-the pool's device (``device="cuda"`` unless the caller passes ``"cpu"``),
-created and written under ``torch.inference_mode()``.  Freeing a slot or a
+Both pools stack the layers, each leaf of ``api.cache_keys(cfg)`` (L, N,
+...): GQA's ``{"k", "v"}``, each (L, N, Hkv, T, dh), or MLA's compressed
+``{"c_kv", "k_rope"}``, each (L, N, T, c), on the pool's device
+(``device="cuda"`` unless the caller passes ``"cpu"``), created and
+written under ``torch.inference_mode()``.  Freeing a slot or a
 page is host-side bookkeeping: stale device state is never read again (the
 attention mask ``kv_len = pos + 1`` hides it, and the paged writes drop
 the sentinel page id).  The free lists are LIFO over descending stacks, as
@@ -20,7 +22,10 @@ in the reference, so the lowest free slot or page comes first.
 
 With ``kv_quant="int8"`` the paged leaves are stored int8 with one fp32
 absmax scale a page (over every layer, as the reference's stacked leaf
-gives), dequantized in the decode's gather.
+gives), dequantized in the decode's gather.  MLA's pages are not: the
+reference scales its dense and its MoE layers' stacks apart, and the
+port's pool stacks every layer together, so ``kv_quant`` with an MLA
+config raises.
 """
 from __future__ import annotations
 
@@ -34,8 +39,8 @@ from repro_torch.models.blocks import cache_len, dtype_of
 
 
 def _zeros(cfg: ArchCfg, n: int, length: int, dtype, device) -> dict:
-    return {key: torch.zeros(api.kv_shape(cfg, n, length), dtype=dtype,
-                             device=device) for key in api.KEYS}
+    return {key: torch.zeros(api.kv_shape(cfg, n, length, key), dtype=dtype,
+                             device=device) for key in api.cache_keys(cfg)}
 
 
 def _nbytes(tensors) -> int:
@@ -49,7 +54,8 @@ class SlotKVCache:
     ----------
     leaves:      ``{"k", "v"}``, each (L, n_slots, Hkv, T, dh), T =
                  ``max_len``, or a windowed config's ring of ``min(max_len,
-                 window)`` positions.
+                 window)`` positions; MLA's ``{"c_kv", "k_rope"}``, each
+                 (L, n_slots, T, c).
     cache:       the model's per-layer views of them (``api.layer_views``),
                  what ``api.decode_step_slots`` takes.
     lengths:     (n_slots,) int32, valid kv length per slot (prompt +
@@ -123,8 +129,8 @@ class SlotKVCache:
         """Copy a prefilled batch-1 cache into ``slot``'s row."""
         with torch.inference_mode():
             one = api.stack_layers(request_cache)
-            for key in api.KEYS:
-                self.leaves[key][:, slot] = one[key][:, 0]
+            for key, leaf in self.leaves.items():
+                leaf[:, slot] = one[key][:, 0]
 
     def kv_bytes(self) -> int:
         """Device bytes held by the pool (for capacity-per-GB reporting)."""
@@ -137,7 +143,8 @@ class PagedKVCache:
     Layout
     ------
     data:        ``{"k", "v"}``, each (L, n_pages, Hkv, page_size, dh),
-                 int8 with ``kv_quant``, else the model's dtype.
+                 int8 with ``kv_quant``, else the model's dtype; MLA's
+                 ``{"c_kv", "k_rope"}``, each (L, n_pages, page_size, c).
     page_tables: (n_slots, pages_per_slot) int32.  Row ``s`` lists slot
                  ``s``'s pages in position order; entries past the
                  allocation hold the sentinel ``n_pages`` (clipped on
@@ -167,6 +174,11 @@ class PagedKVCache:
             raise ValueError(
                 f"kv_quant={kv_quant!r}: only 'int8' page storage is "
                 "supported")
+        if kv_quant is not None and cfg.mla:
+            raise NotImplementedError(
+                f"{cfg.name}: int8 pages of MLA's compressed cache are not "
+                "ported yet (the reference scales its dense and MoE "
+                "layers' stacks apart)")
         self.device = check_device(device)
         self.cfg = cfg
         self.n_slots = n_slots
@@ -188,7 +200,7 @@ class PagedKVCache:
             self.scales = ({key: torch.zeros(self.n_pages,
                                              dtype=torch.float32,
                                              device=self.device)
-                            for key in api.KEYS} if kv_quant else None)
+                            for key in self.data} if kv_quant else None)
 
         self.lengths = np.zeros(n_slots, np.int32)
         self.positions = np.zeros(n_slots, np.int32)
@@ -304,7 +316,7 @@ class PagedKVCache:
         dst = torch.as_tensor(table[live], device=self.device)
         with torch.inference_mode():
             one = api.stack_layers(request_cache)
-            for key in api.KEYS:
+            for key in self.data:
                 pages = api.view_to_pages(one[key][:, 0],
                                           self.page_size)[:, src]
                 if self.scales is not None:

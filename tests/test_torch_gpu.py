@@ -1500,3 +1500,127 @@ def test_remat_bit_equal_on_the_card(gen):
         assert (gr[n] - g).float().abs().max().item() <= spread, n
         if n != "embed.table":
             assert torch.equal(gr[n], g), n
+
+
+# ==========================================================================
+# Mixture-of-Experts and MLA (grok-1-314b, deepseek-v3-671b)
+# ==========================================================================
+
+def _mla_qkv(gen, b, h, t, dq, dv, dtype):
+    """MLA's views: q and k (B, H, T, dq) built whole, v a (B, H, T, dv)
+    slice of the per-head (nope + v) expansion, as ``layers/attention.py``
+    hands them over."""
+    q = torch.randn(b, h, t, dq, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, h, t, dq, device="cuda", generator=gen).to(dtype)
+    kv = torch.randn(b, t, h, 2 * dv, device="cuda", generator=gen).to(dtype)
+    return q, k, kv.transpose(1, 2)[..., dv:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dq,dv", [(192, 128), (24, 16)],
+                         ids=["mla", "mla_reduced_padded"])
+def test_flash_mla_head_dims(gen, dtype, dq, dv):
+    """q / k of dq against v of dv at the explicit scale (nope + rope) ** -0.5,
+    causal, T = 200: the (192, 128) instantiation on wgmma for bf16 (simt
+    for fp32), and (24, 16) zero-padded to (32, 32), the output sliced
+    back; lse too."""
+    q, k, v = _mla_qkv(gen, 2, 6, 200, dq, dv, dtype)
+    scale = dq ** -0.5
+    flash_attention_cuda.mainloops = dict.fromkeys(FK.MAINLOOPS, 0)
+    o, lse = flash_attention_cuda(q, k, v, scale=scale,
+                                  return_residuals=True)
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert flash_attention_cuda.mainloops[want] == 1
+    ro, rl = mha_ref(q, k, v, scale=scale, return_lse=True)
+    assert o.shape == (2, 6, 200, dv)
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=2e-2,
+                                                         rtol=2e-2)
+    torch.testing.assert_close(o, ro, **tol)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    with pytest.raises(ValueError, match="fit no instantiation"):
+        flash_attention_cuda(*_mla_qkv(gen, 1, 1, 8, 256, 128, dtype))
+
+
+# (E, G * cap, k, n, activation) of the expert GEMMs: grok-1 at prefill (2
+# rows of 512: cap 160) and at a slot decode (4 groups of 4), deepseek-v3
+# at prefill (cap 20) and at the static decode (one group of 4).
+EXPERT_SHAPES = [(8, 320, 6144, 32768, "silu"), (8, 16, 32768, 6144, "none"),
+                 (256, 40, 7168, 2048, "silu"), (256, 4, 2048, 7168, "none")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,m,k,n,act", EXPERT_SHAPES,
+                         ids=["grok_gate_prefill", "grok_down_slots",
+                              "deepseek_gate_prefill",
+                              "deepseek_down_decode"])
+def test_batched_matmul_expert_shapes(gen, dtype, e, m, k, n, act):
+    """The expert GEMMs at the two models' shapes, the gate's silu fused:
+    bf16 on the wgmma mainloop, fp32 on simt, against the plain version
+    (one bf16 ulp; fp32 sums in other orders)."""
+    a = torch.randn(e, m, k, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(e, k, n, device="cuda", generator=gen)
+         * k ** -0.5).to(dtype)
+    assert plan_batched_call(a, w).mainloop == (
+        "wgmma" if dtype == torch.bfloat16 else "simt")
+    got = batched_matmul_cuda(a, w, activation=act)
+    torch.testing.assert_close(got, batched_matmul_ref(a, w, activation=act),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_kernels_match_plain(gen, dtype):
+    """A reduced MoE layer with a shared expert, at prefill (a group a
+    row, capacity binding) and at a slot decode: 3 batched_matmul and 4
+    matmul launches a forward, the output against the plain path's."""
+    from repro_torch.layers import moe
+    cfg = moe.MoECfg(d_model=64, d_ff=128, n_experts=8, top_k=2, n_shared=1,
+                     capacity_factor=0.5)
+    layer = moe.MoE(cfg, dtype=dtype, device="cuda")
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, device="cuda", generator=gen)
+                    * p.shape[-2] ** -0.5)
+    for x, rows in ((torch.randn(3, 40, 64, device="cuda", generator=gen),
+                     False),
+                    (torch.randn(4, 1, 64, device="cuda", generator=gen),
+                     True)):
+        x = x.to(dtype)
+        reset_matmul_counts()
+        with torch.no_grad():
+            got, aux = layer(x, row_groups=rows)
+            assert batched_matmul_cuda.launches == 3
+            assert matmul_cuda.launches == 4
+            with dispatch.use(backend="torch"):
+                want, waux = layer(x, row_groups=rows)
+        torch.testing.assert_close(got, want, **(
+            TOL[dtype] if dtype == torch.float32 else dict(atol=5e-2,
+                                                           rtol=5e-2)))
+        torch.testing.assert_close(aux["dropped_fraction"],
+                                   waux["dropped_fraction"])
+
+
+@pytest.mark.parametrize("name", ["grok-1-314b", "deepseek-v3-671b"])
+def test_moe_engines_kernels_match_plain(gen, name):
+    """Reduced grok-1 / deepseek-v3 in fp32, 2 layers: both engines'
+    greedy tokens on the kernels equal the plain path's (the slotted and
+    paged pools)."""
+    cfg = dataclasses.replace(configs.get(name).reduced(), n_layers=2)
+    params = api.init_params(cfg, gen)
+    engine = Engine(cfg, params, ServeConfig(max_len=40))
+    tokens = torch.randint(0, cfg.vocab, (2, 17), device="cuda",
+                           generator=gen)
+    got = engine.generate({"tokens": tokens}, n_tokens=12, stop_tokens=())
+    with dispatch.use(backend="torch"):
+        want = engine.generate({"tokens": tokens}, n_tokens=12,
+                               stop_tokens=())
+    assert torch.equal(got, want)
+    reqs = [Request(prompt=list(range(3, 3 + n)), max_tokens=6,
+                    stop_tokens=()) for n in (5, 19, 2, 11)]
+    for kw in ({}, {"page_size": 8}):
+        ce = ContinuousEngine(cfg, params, PoolConfig(n_slots=3, max_len=40,
+                                                      **kw))
+        out = ce.serve(reqs)
+        with dispatch.use(backend="torch"):
+            ref = ContinuousEngine(cfg, params, PoolConfig(
+                n_slots=3, max_len=40, **kw)).serve(reqs)
+        assert out == ref

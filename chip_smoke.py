@@ -4851,7 +4851,7 @@ MOE_FP32_LAYERS, MOE_FP32_PROMPT = 2, 64
 MOE_KERNELS = ("matmul", "batched_matmul", "flash_attention")
 
 
-def moe_model_cfg(name, overrides):
+def model_cfg(name, overrides):
     from repro_torch.configs import get
     return dataclasses.replace(get(name), **overrides)
 
@@ -4968,16 +4968,17 @@ def recorded_calls():
             setattr(mod, name, fn)
 
 
-def moe_parity(cfg, params, tokens, failed):
+def forward_parity(cfg, params, tokens, failed, kernels):
     """One bf16 prefill forward and one decode forward of the static engine
     with every kernel call recorded; each launch's output against its plain
-    version on its own inputs (matmul_ref, batched_matmul_ref, mha_ref at
-    the call's scale), one call at a time.  Returns the worst abs error by
-    kernel and the calls checked by kernel."""
+    version on its own inputs (matmul_ref with the call's bias and fp32
+    out, batched_matmul_ref, mha_ref at the call's scale and window), one
+    call at a time.  Returns the worst abs error by kernel (of
+    ``kernels``) and the calls checked by kernel."""
     from repro_torch.kernels.brgemm import batched_matmul_ref, matmul_ref
     from repro_torch.kernels.flash_attention import mha_ref
     from repro_torch.models import api
-    worst = dict.fromkeys(MOE_KERNELS, 0.0)
+    worst = dict.fromkeys(kernels, 0.0)
     checked = collections.Counter()
     b, t = tokens.shape
     with torch.inference_mode():
@@ -4991,8 +4992,9 @@ def moe_parity(cfg, params, tokens, failed):
         while calls:
             name, args, kw, out = calls.pop(0)
             if name == "matmul":
-                x, w = args
+                x, w, *rest = args
                 ref = matmul_ref(x.reshape(-1, x.shape[-1]), w,
+                                 rest[0] if rest else kw.get("bias"),
                                  activation=kw.get("activation", "none"),
                                  out_dtype=kw.get("out_dtype"))
                 got = out.reshape(ref.shape)
@@ -5014,7 +5016,7 @@ def moe_parity(cfg, params, tokens, failed):
             worst[name] = max(worst[name], abs_err)
             checked[name] += 1
             if not ok:
-                failed.append(f"{name} {tuple(args[0].shape)} @ "
+                failed.append(f"{cfg.name} {name} {tuple(args[0].shape)} @ "
                               f"{tuple(args[1].shape)}: {abs_err}")
             del args, out, ref, got
     torch.cuda.empty_cache()
@@ -5199,7 +5201,7 @@ def phase_moe(card):
     calls_by_model = {}
     failed = []
     for idx, (name, overrides) in enumerate(MOE_MODELS):
-        cfg = moe_model_cfg(name, overrides)
+        cfg = model_cfg(name, overrides)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 20 + idx)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -5312,7 +5314,8 @@ def phase_moe(card):
             for k, err in errs.items():
                 worst[k] = max(worst[k], err)
         calls_by_model[name] = calls
-        errs, checked = moe_parity(cfg, params, tokens, failed)
+        errs, checked = forward_parity(cfg, params, tokens, failed,
+                                       MOE_KERNELS)
         emit({"phase": "moe_parity", "arch": name, "calls_checked": checked,
               "max_abs_err": errs,
               "bands": {k: TOL[("matmul" if k == "batched_matmul" else k,
@@ -5340,7 +5343,7 @@ def phase_times_moe(card, calls_by_model):
                                                      mha_ref)
     from repro_torch.kernels.flash_attention import kernel as FK
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
-    cfgs = {name: moe_model_cfg(name, over) for name, over in MOE_MODELS}
+    cfgs = {name: model_cfg(name, over) for name, over in MOE_MODELS}
     rows = []
     row = row_recorder(rows, card)
     for name, calls in calls_by_model.items():
@@ -5411,6 +5414,515 @@ def phase_times_moe(card, calls_by_model):
     return rows
 
 
+# --------------------------------------------------------------------------
+# 16. the recurrent families: xlstm-1.3b and recurrentgemma-9b
+# --------------------------------------------------------------------------
+
+# (name, config overrides, static runs [(batch, prompt, new tokens)],
+# continuous prompt lengths), both at full width and depth: xlstm's
+# prompts obeying mLSTM's chunk rule (at most 256 tokens or a multiple of
+# 256); recurrentgemma's 38 layers (12 (rec, rec, attn) groups and two
+# trailing rec blocks, 18.8 GB), the long prompt past the 2048 window.
+REC_MODELS = (
+    ("xlstm-1.3b", {}, ((2, 256, 32),), (64, 128, 200, 256, 512)),
+    ("recurrentgemma-9b", {}, ((2, 512, 32), (1, 2304, 16)),
+     tuple(range(128, 513))),
+)
+REC_SLOTS, REC_REQUESTS, REC_TOKENS = 4, 6, (8, 32)
+REC_FP32_LAYERS = {"xlstm-1.3b": None, "recurrentgemma-9b": 8}
+REC_KERNELS = ("matmul", "flash_attention")
+
+
+def rec_forward_calls(cfg, kind, b, t):
+    """The kernel calls of one forward of a recurrent config over b rows of
+    t tokens, derived from the code (``layers/recurrent.py``, ``models/
+    blocks.py``): {kernel: Counter{shape: launches}}.  An mLSTM layer runs
+    7 ``matmul`` (q, k, v, the fp32 input and forget gates with their
+    biases, o, out), an sLSTM 1 (the gates' fp32 input part), a rec block
+    5 (gelu branch, rnn input, the two sigmoid gates with their biases,
+    out) and the gated MLP's 3, an attention block q, k, v, o, the MLP's
+    3 and, at prefill, one windowed flash forward; the tied head 1 at the
+    last token of each row.  matmul shapes are (role, m, k, n, activation,
+    fp32 out, bias), flash's (b, hq, hkv, t, dq, dv, window)."""
+    from repro_torch.models.blocks import mlstm_cfg, recurrent_layout
+    d, m = cfg.d_model, b * t
+    mm, fl = collections.Counter(), collections.Counter()
+
+    def add(role, k, n, act="none", fp32=False, bias=False, rows=m):
+        mm[(role, rows, k, n, act, fp32, bias)] += 1
+
+    def mlp():
+        add(f"mlp.gate_{cfg.mlp_activation}", d, cfg.d_ff, cfg.mlp_activation)
+        add("mlp.up", d, cfg.d_ff)
+        add("mlp.down", cfg.d_ff, d)
+
+    for layer, _, _ in recurrent_layout(cfg):
+        if layer == "mlstm":
+            mc = mlstm_cfg(cfg)
+            hk, hv = mc.n_heads * mc.dk, mc.n_heads * mc.dv
+            for role, n in (("mlstm.q", hk), ("mlstm.k", hk),
+                            ("mlstm.v", hv)):
+                add(role, d, n)
+            add("mlstm.i", d, mc.n_heads, fp32=True, bias=True)
+            add("mlstm.f", d, mc.n_heads, fp32=True, bias=True)
+            add("mlstm.o", d, hv)
+            add("mlstm.out", hv, d)
+        elif layer == "slstm":
+            add("slstm.w", d, 4 * d, fp32=True)
+        elif layer == "rec":
+            dr = cfg.d_rnn
+            add("rglru.gelu", d, dr, "gelu")
+            add("rglru.in", d, dr)
+            add("rglru.rgate", dr, dr, "sigmoid", bias=True)
+            add("rglru.igate", dr, dr, "sigmoid", bias=True)
+            add("rglru.out", dr, d)
+            mlp()
+        else:
+            dq, dkv = cfg.n_heads * cfg.dh, cfg.n_kv_heads * cfg.dh
+            for role, k, n in (("attn.q", d, dq), ("attn.k", d, dkv),
+                               ("attn.v", d, dkv), ("attn.o", dq, d)):
+                add(role, k, n)
+            mlp()
+            if kind == "prefill":
+                fl[(b, cfg.n_heads, cfg.n_kv_heads, t, cfg.dh, cfg.dh,
+                    cfg.window)] += 1
+    add("head", d, cfg.vocab, fp32=True, rows=b)
+    return {"matmul": mm, "flash_attention": fl}
+
+
+def rec_calls(cfg, forwards):
+    """The kernel calls of ``forwards`` (Counter {(kind, b, t): count}),
+    summed: {kernel: Counter{shape: launches}}."""
+    out = {k: collections.Counter() for k in REC_KERNELS}
+    for (kind, b, t), count in forwards.items():
+        for kernel, shapes in rec_forward_calls(cfg, kind, b, t).items():
+            for shape, n in shapes.items():
+                out[kernel][shape] += n * count
+    return out
+
+
+def rec_mainloop_check(calls):
+    """matmul_cuda's bf16 calls by mainloop since its counters were zeroed,
+    against ``calls``: on wgmma where TMA reads both operands (k and n
+    multiples of 8), on wmma elsewhere (mLSTM's four-column gates).
+    Returns the record's field; raises where another mainloop ran."""
+    from repro_torch.kernels.brgemm import matmul_cuda
+    want = dict(wgmma=0, wmma=0, simt=0)
+    for (_, _, k, n, *_), count in calls["matmul"].items():
+        want["wgmma" if k % 8 == 0 and n % 8 == 0 else "wmma"] += count
+    if dict(matmul_cuda.mainloops) != want:
+        raise AssertionError(f"bf16 matmul calls by mainloop "
+                             f"{dict(matmul_cuda.mainloops)}, expected "
+                             f"{want}")
+    return {"matmul_mainloops": want}
+
+
+def rec_gemm(shape):
+    """A recurrent matmul shape as a Gemm, laid out as the path hands it
+    over: the tied head reads table.T in place (fp32 out), the fp32 gate
+    GEMMs row-major with fp32 out."""
+    role, m, k, n, act, fp32, bias = shape
+    return Gemm(role, m, k, n, act, bias=bias,
+                kind="head" if role == "head" else "pre" if fp32 else "fwd")
+
+
+def rec_traffic(cfg, lens, gen_seed, vocab=None):
+    """REC_REQUESTS greedy requests: prompt lengths drawn from ``lens`` (the
+    first REC_SLOTS + 1 distinct where there are that many, so the
+    pool's slots free and refill) and max_tokens in REC_TOKENS, from one
+    seeded generator."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(gen_seed)
+    picks = (list(lens) + list(rng.choice(lens, REC_REQUESTS - len(lens)))
+             if len(lens) < REC_REQUESTS else
+             list(rng.choice(lens, REC_REQUESTS, replace=False)))
+    new = rng.integers(REC_TOKENS[0], REC_TOKENS[1] + 1, REC_REQUESTS)
+    return [Request(prompt=rng.integers(0, vocab or cfg.vocab, n).tolist(),
+                    max_tokens=int(m), stop_tokens=())
+            for n, m in zip(picks, new)]
+
+
+def rec_shape_parity(cfg, calls, done, failed):
+    """matmul_cuda and flash_attention_cuda against matmul_ref and mha_ref
+    at every shape of ``calls`` (rec_calls) not yet in ``done``, on seeded
+    inputs laid out as the path hands them over, in the parity phase's
+    bands.  Returns (worst abs error by kernel, shapes checked by
+    kernel)."""
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref)
+    dtype = cfg_dtype(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    worst = dict.fromkeys(REC_KERNELS, 0.0)
+    checked = collections.Counter()
+
+    def held(kernel, shape, got, ref, tol):
+        ok, abs_err, _ = close(got, ref, *tol)
+        worst[kernel] = max(worst[kernel], abs_err)
+        checked[kernel] += 1
+        done.add((kernel, shape))
+        if not ok:
+            failed.append(f"{cfg.name} {kernel} {shape}: {abs_err}")
+
+    with torch.inference_mode():
+        for shape in sorted(calls["matmul"]):
+            if ("matmul", shape) in done:
+                continue
+            g = rec_gemm(shape)
+            (x, w, bias, _), kw = gemm_call(g, dtype, gen)
+            held("matmul", shape, matmul_cuda(x, w, bias, **kw),
+                 matmul_ref(x, w, bias, **kw),
+                 TOL[("matmul", torch.float32 if g.out_dtype else dtype)])
+            del x, w, bias
+        for shape in sorted(calls["flash_attention"]):
+            if ("flash_attention", shape) in done:
+                continue
+            b, hq, hkv, t, dq, dv, window = shape
+            q, k, v, _ = qkv_views(b, hq, hkv, t, dq, dtype, gen)
+            held("flash_attention", shape,
+                 flash_attention_cuda(q, k, v, window=window),
+                 mha_ref(q, k, v, window=window),
+                 TOL[("flash_attention", dtype)])
+            del q, k, v
+    torch.cuda.empty_cache()
+    return worst, dict(checked)
+
+
+def rec_gap(cfg, params, prompt, toks, step):
+    """The plain path's top-two logit gap at generated step ``step`` of a
+    request: its prompt prefilled, then its first ``step`` tokens decoded
+    one at a time, as the engines run it (first_divergence prefills prompt
+    and tokens in one, a length that can break mLSTM's chunk rule)."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import api
+    with torch.inference_mode(), dispatch.use(backend="torch"):
+        cache = api.init_cache(cfg, 1, len(prompt) + step + 1,
+                               device="cuda")
+        logits, cache = api.prefill(params, {"tokens": torch.tensor(
+            [list(prompt)], device="cuda")}, cfg, cache)
+        for i in range(step):
+            logits, cache = api.decode_step(params, torch.tensor(
+                [[toks[i]]], device="cuda"), cfg, cache, len(prompt) + i)
+    top = torch.topk(logits[0], 2).values
+    return (top[0] - top[1]).item()
+
+
+def rec_divergence(cfg, params, prompts, got, want):
+    """Per row whose kernel-path tokens differ from the plain path's: the
+    first differing step and the plain path's top-two gap there."""
+    out = {}
+    for r, (g, w) in enumerate(zip(got, want)):
+        steps = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
+        if steps:
+            out[r] = {"step": steps[0], "top2_gap": rec_gap(
+                cfg, params, prompts[r], w, steps[0])}
+    return out
+
+
+def rec_fp32_tokens(name, gen):
+    """fp32 at the reduced width (head size 32; recurrentgemma at 8
+    layers, its window 8): both engines' greedy tokens on the kernels
+    against the plain path's; a row that differs must differ at a top-two
+    logit gap within the fp32 band."""
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.core import dispatch
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = get(name).reduced()
+    if REC_FP32_LAYERS[name]:
+        cfg = dataclasses.replace(cfg, n_layers=REC_FP32_LAYERS[name])
+    params = api.init_params(cfg, gen, device="cuda")
+    prompt, new = 32, 24                 # two mLSTM chunks of 16
+    tokens = torch.randint(0, cfg.vocab, (2, prompt), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    engine = Engine(cfg, params, ServeConfig(max_len=prompt + new))
+    got = engine.generate({"tokens": tokens}, n_tokens=new,
+                          stop_tokens=()).tolist()
+    with dispatch.use(backend="torch"):
+        want = engine.generate({"tokens": tokens}, n_tokens=new,
+                               stop_tokens=()).tolist()
+    found = {"static": rec_divergence(cfg, params, tokens.tolist(), got,
+                                      want)}
+    rng = np.random.default_rng(SEED + 45)
+    lens = (8, 16, 32, 48, 5, 12)       # each obeys mLSTM's chunk rule
+    requests = [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                        max_tokens=int(m), stop_tokens=())
+                for n, m in zip(lens, rng.integers(6, 16, len(lens)))]
+    pool_kw = {"n_slots": REC_SLOTS, "max_len": 64}
+    c_got, *_ = continuous_run(cfg, params, requests, pool_kw, {}, {})
+    with dispatch.use(backend="torch"):
+        c_want, *_ = continuous_run(cfg, params, requests, pool_kw, {}, {})
+    ids = sorted(c_want)
+    found["slotted"] = rec_divergence(
+        cfg, params, [requests[i].prompt for i in ids],
+        [c_got[i] for i in ids], [c_want[i] for i in ids])
+    emit({"phase": "recurrent", "arch": name, "engine": "static+continuous",
+          "dtype": "float32", "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "head_dim": cfg.dh, "reduced": True,
+          "static_rows_matching_plain": [a == b for a, b in zip(got, want)],
+          "continuous_requests_matching_plain": [c_got[i] == c_want[i]
+                                                 for i in ids],
+          "first_divergence": found, "band": LOGITS_BAND[torch.float32]})
+    del engine, params
+    torch.cuda.empty_cache()
+    return [f"fp32 {name} {where} row {r} differs from the plain path at "
+            f"step {gap['step']}, top-two gap {gap['top2_gap']}"
+            for where, rows in found.items() for r, gap in rows.items()
+            if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
+
+
+def slstm_prefill_share(cfg, params, tokens):
+    """(prefill host s, the sLSTM layers' share of it) of one prefill of
+    ``tokens``, each sLSTM layer timed between two syncs."""
+    from repro_torch.layers.recurrent import SLSTM
+    from repro_torch.models import api
+    real = SLSTM.forward
+    spent = [0.0]
+
+    def timed(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, *args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    b, t = tokens.shape
+    SLSTM.forward = timed
+    try:
+        with torch.inference_mode():
+            cache = api.init_cache(cfg, b, t, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.prefill(params, {"tokens": tokens}, cfg, cache)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+    finally:
+        SLSTM.forward = real
+    return total, spent[0] / total
+
+
+def phase_recurrent(card):
+    """xlstm-1.3b and recurrentgemma-9b at full width and depth (bf16,
+    random weights from a seed, one model at a time): the static ``Engine.generate`` runs of REC_MODELS (the 2304-token
+    prompt past recurrentgemma's window) and ``ContinuousEngine.serve`` of
+    REC_REQUESTS requests over REC_SLOTS slots (the slotted pool; slots
+    reused), each with exact launch counts (counts zeroed just before,
+    read just after, against rec_forward_calls), every call on wgmma but
+    mLSTM's four-column gates, every pool empty after its run; tokens/s,
+    prefill and decode-step ms, busy and idle, the state bytes a slot
+    holds, sLSTM's share of a prefill's host time; every kernel call of
+    one prefill and one decode forward against its plain version on its
+    own inputs, and each kernel at every shape of the runs against its
+    plain version (rec_shape_parity); then fp32 at the reduced width,
+    both engines' greedy tokens against the plain path's.  Returns
+    ({"recurrent": launches}, worst abs error by kernel, {model: kernel
+    calls of its runs})."""
+    from repro_torch.kernels.brgemm import matmul_cuda
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_flash_counts)
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    counters = {"matmul": matmul_cuda, "flash_attention": flash_attention_cuda}
+    launches = dict.fromkeys(REC_KERNELS, 0)
+    worst = dict.fromkeys(REC_KERNELS, 0.0)
+    calls_by_model = {}
+    failed = []
+    for idx, (name, overrides, static_runs, lens) in enumerate(REC_MODELS):
+        cfg = model_cfg(name, overrides)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 40 + idx)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        calls = {k: collections.Counter() for k in REC_KERNELS}
+        done = set()          # (kernel, shape) held against plain
+        for b, prompt, new in static_runs:
+            max_len = prompt + new
+            engine = Engine(cfg, params, ServeConfig(max_len=max_len))
+            tokens = torch.randint(0, cfg.vocab, (b, prompt), device="cuda",
+                                   generator=gen, dtype=torch.int32)
+            engine.generate({"tokens": tokens[:, :16]}, n_tokens=2,
+                            stop_tokens=())       # warm-up, not counted
+            torch.cuda.synchronize()
+            # The main path: counts zeroed just before, read just after.
+            reset_matmul_counts()
+            reset_flash_counts()
+            t0 = time.perf_counter()
+            ids = engine.generate({"tokens": tokens}, n_tokens=new,
+                                  stop_tokens=())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = {k: c.launches for k, c in counters.items()}
+            s_calls = rec_calls(cfg, collections.Counter(
+                {("prefill", b, prompt): 1, ("decode", b, 1): new - 1}))
+            expect = {k: sum(v.values()) for k, v in s_calls.items()}
+            if got != expect:
+                failed.append(f"{name} static {b}x{prompt}: launches {got} "
+                              f"!= {expect}")
+            by_mainloop = {**rec_mainloop_check(s_calls),
+                           **flash_mainloop_check(torch.bfloat16,
+                                                  got["flash_attention"])}
+            for k in REC_KERNELS:
+                launches[k] += got[k]
+                calls[k].update(s_calls[k])
+            steps = step_times(cfg, params, tokens, tier=f"{name} {b}x"
+                               f"{prompt}", max_len=max_len + 24)
+            share = (slstm_prefill_share(cfg, params, tokens)
+                     if cfg.block == "xlstm" else (None, None))
+            emit({"phase": "recurrent", "arch": name, "engine": "static",
+                  "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+                  "d_model": cfg.d_model, "block": cfg.block,
+                  "params_b": sum(p.numel() for p in params.parameters())
+                  / 1e9, "init_s": init_s, "batch": b, "prompt": prompt,
+                  "new_tokens": new, "launches": got,
+                  "expected_launches": expect, **by_mainloop,
+                  "generate_s": seconds, "tokens_per_s": b * new / seconds,
+                  "ids_shape": list(ids.shape),
+                  "state_bytes_a_row": row_state_bytes(cfg, max_len),
+                  "slstm_prefill_host_s": share[0],
+                  "slstm_share_of_prefill_host": share[1],
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "card": card})
+            if tuple(ids.shape) != (b, new) or not steps["logits_finite"]:
+                failed.append(f"{name} static: ids {tuple(ids.shape)}, "
+                              f"finite {steps['logits_finite']}")
+            errs, checked = forward_parity(cfg, params, tokens, failed,
+                                           REC_KERNELS)
+            emit({"phase": "recurrent_parity", "arch": name,
+                  "prompt": prompt, "calls_checked": checked,
+                  "max_abs_err": errs})
+            for k, err in errs.items():
+                worst[k] = max(worst[k], err)
+            del engine
+
+        requests = rec_traffic(cfg, lens, SEED + 41 + idx)
+        pool_kw = {"n_slots": REC_SLOTS,
+                   "max_len": max(len(r.prompt) + r.max_tokens
+                                  for r in requests)}
+        out, ce, c_got, c_seconds, decode_s, finite, c_forwards = \
+            continuous_run(cfg, params, requests, pool_kw, {}, counters)
+        m = ce.metrics
+        fwd = collections.Counter()
+        for (kind, rows), n in c_forwards.items():
+            fwd[("prefill", 1, rows) if kind == "prefill" else
+                ("decode", rows, 1)] += n
+        c_calls = rec_calls(cfg, fwd)
+        c_expect = {k: sum(v.values()) for k, v in c_calls.items()}
+        pool_rec, empty = pool_state(ce)
+        emit({"phase": "recurrent", "arch": name, "engine": "continuous",
+              "pool": "slotted", "slots": REC_SLOTS, **pool_kw,
+              "paged": ce.paged, "requests": len(requests),
+              "prompt_lens": [len(r.prompt) for r in requests],
+              "max_tokens": [r.max_tokens for r in requests],
+              "launches": c_got, "expected_launches": c_expect,
+              "decode_steps": m.decode_steps, "prefills": m.prefills,
+              "tokens_generated": m.tokens_generated,
+              "serve_s": c_seconds,
+              "tokens_per_s": m.tokens_generated / c_seconds,
+              "decode_step_host_ms_median": median(decode_s) * 1e3,
+              "state_bytes": ce.pool.kv_bytes(),
+              "state_bytes_a_slot": ce.pool.kv_bytes() / REC_SLOTS,
+              "pool_state": pool_rec, "logits_finite": finite,
+              "card": card})
+        if c_got != c_expect or not empty or not finite or ce.paged or \
+                m.prefills != len(requests) or \
+                pool_rec["alloc_count"] <= REC_SLOTS or any(
+                    len(out[i]) != r.max_tokens
+                    for i, r in enumerate(requests)):
+            failed.append(f"{name} continuous: launches {c_got} != "
+                          f"{c_expect}, empty {empty}, finite {finite}, "
+                          f"allocs {pool_rec['alloc_count']}")
+        for k in REC_KERNELS:
+            launches[k] += c_got[k]
+            calls[k].update(c_calls[k])
+        del ce
+        errs, checked = rec_shape_parity(cfg, calls, done, failed)
+        emit({"phase": "recurrent_shape_parity", "arch": name,
+              "shapes_checked": checked,
+              "shapes_run": {k: len(calls[k]) for k in REC_KERNELS},
+              "max_abs_err": errs,
+              "bands": {k: TOL[(k, torch.bfloat16)] for k in REC_KERNELS}})
+        for k, err in errs.items():
+            worst[k] = max(worst[k], err)
+        calls_by_model[name] = calls
+        del params
+        torch.cuda.empty_cache()
+        failed += rec_fp32_tokens(name, gen)
+    if failed:
+        raise AssertionError(f"recurrent: {failed}")
+    return {"recurrent": launches}, worst, calls_by_model
+
+
+def row_state_bytes(cfg, max_len):
+    """Bytes of one row's serve cache: a recurrent config's states and
+    rings."""
+    from repro_torch.models import api
+    cache = api.init_cache(cfg, 1, max_len, device="meta")
+    return sum(t.numel() * t.element_size() for layer in cache["blocks"]
+               for t in layer.values())
+
+
+def phase_times_recurrent(card, calls_by_model):
+    """Per-shape times of the recurrent path's bf16 kernels, for the kernels
+    line: each matmul and flash forward shape of the two models' runs
+    beside its bound, its plain version and one library call
+    (torch.matmul; SDPA at head size 256, with the window's mask where the
+    prompt passes the window)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
+    rows = []
+    row = row_recorder(rows, card)
+    for name, calls in calls_by_model.items():
+        for shape, count in sorted(calls["matmul"].items()):
+            g = rec_gemm(shape)
+            iters = 40 if 2 * g.m * g.n * g.k < 1e11 else 8
+            ms, wall, plain, lib, flops, nbytes, plan = gemm_times(g, gen,
+                                                                   iters)
+            row("matmul", f"{name}.{g.name} m{g.m}", ms, wall, flops, nbytes,
+                plain, lib, {"recurrent": count}, m=g.m, k=g.k, n=g.n,
+                activation=g.activation, layout=g.kind, bias=g.bias, **plan)
+        for (b, hq, hkv, t, d, dv, window), count in sorted(
+                calls["flash_attention"].items()):
+            w = window or t
+            pairs = sum(min(i + 1, w) for i in range(t))
+            nbytes = 2 * (b * hq * t * (d + dv) + b * hkv * t * (d + dv))
+            sets = [qkv_views(b, hq, hkv, t, d, torch.bfloat16, gen)[:3]
+                    for _ in range(n_sets(nbytes))]
+            ms, wall = time_ms(lambda q, k, v: flash_attention_cuda(
+                q, k, v, window=window), sets, 8)
+            plain, _ = time_ms(lambda q, k, v: mha_ref(q, k, v,
+                                                       window=window),
+                               sets, 2)
+            idx = torch.arange(t, device="cuda")
+            mask = (idx[None, :] <= idx[:, None]) & (
+                idx[None, :] > idx[:, None] - w)
+            try:
+                lib, _ = time_ms(
+                    lambda q, k, v: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)
+                    if t <= w else F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True), sets, 8)
+            except RuntimeError as exc:       # no SDPA backend takes it
+                lib = None
+                emit({"library_ms": None, "sdpa": str(exc)[:200]})
+            row("flash_attention", f"{name}.prefill B{b} T{t} d{d} "
+                f"window{window}", ms, wall, 2 * b * hq * pairs * (d + dv),
+                nbytes, plain, lib, {"recurrent": count},
+                q=[b, hq, t, d], kv=[b, hkv, t, d], window=window,
+                head_dims=list(FK.head_dims(d, dv)),
+                mainloop=FK.plan_call(*sets[0]))
+            del sets
+    return rows
+
+
 SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
     "matmul": ("src/repro_torch/kernels/brgemm/csrc/matmul.cu",
                "src/repro/kernels/brgemm/kernel.py:118"),
@@ -5457,6 +5969,8 @@ def kernels_line(rows, launches_by_path, worst):
     bf16 ``Engine.generate`` and ``ContinuousEngine.serve`` main runs
     under the measured block policy; moe, grok-1-314b's and
     deepseek-v3-671b's bf16 ``Engine.generate`` and slotted and paged
+    ``ContinuousEngine.serve`` runs; recurrent, xlstm-1.3b's and
+    recurrentgemma-9b's bf16 ``Engine.generate`` and slotted
     ``ContinuousEngine.serve`` runs.  ``delta_rowsum`` runs on
     none of them (it is the oracle of the fused delta): its times are one
     call's."""
@@ -5536,15 +6050,20 @@ def main():
     launches.update(moe_launches)
     for kernel, err in moe_worst.items():
         worst[kernel] = max(worst[kernel], err)
+    rec_launches, rec_worst, rec_calls_by_model = phase_recurrent(card)
+    launches.update(rec_launches)
+    for kernel, err in rec_worst.items():
+        worst[kernel] = max(worst[kernel], err)
     phase_capture()
     rows = (phase_times(cfg, card, cont_forwards) + phase_times_paper(card)
             + phase_times_quant(cfg, card, cont_forwards)
             + phase_times_slice(card, fc_rows, win_static, win_flash)
             + phase_times_llava(card, llava_gemm, llava_flash, llava_plans)
-            + phase_times_moe(card, moe_calls_by_model))
+            + phase_times_moe(card, moe_calls_by_model)
+            + phase_times_recurrent(card, rec_calls_by_model))
     emit({"phase": "capture_failures", "by_cause": dict(CAPTURE_FAILURES)})
     check_row_calls(rows, launches, ("lstm", "fc", "windowed", "llava",
-                                     "moe"))
+                                     "moe", "recurrent"))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,8 @@ _MODULES = {
     "llava-next-34b": "llava_next_34b",
     "grok-1-314b": "grok_1_314b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

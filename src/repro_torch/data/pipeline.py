@@ -8,7 +8,8 @@ prefetches ahead of the loop; ``start_step`` resumes the stream exactly.
 Batches are numpy arrays until the train step moves them to the device.
 The dense decoder's batch (``tokens``, ``labels``, and a VLM's
 ``patch_embeds``, drawn after the tokens as the reference draws them) is
-ported; the encoder-decoder's is not.
+ported, and serves every decoder family, the recurrent ones (xlstm,
+rglru_hybrid) among them; the encoder-decoder's is not.
 """
 from __future__ import annotations
 

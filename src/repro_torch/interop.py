@@ -41,7 +41,9 @@ from repro_torch.core.dispatch import check_device
 from repro_torch.core.quantize import (TORCH_DTYPES, QuantizedTensor,
                                        install)
 from repro_torch.models import lstm_lm, resnet
-from repro_torch.models.blocks import DecoderBlock, dtype_of
+from repro_torch.models.blocks import (RECURRENT, RECURRENT_BLOCKS,
+                                       DecoderBlock, dtype_of,
+                                       recurrent_layout)
 from repro_torch.models.transformer import Transformer
 
 
@@ -85,6 +87,48 @@ def _block_attrs(cfg: ArchCfg, use_moe: bool) -> tuple[str, ...]:
     return tuple(name for name, _ in block.named_parameters())
 
 
+@functools.lru_cache(maxsize=None)
+def _kind_attrs(cfg: ArchCfg, kind: str) -> tuple[str, ...]:
+    """The parameter names of a recurrent config's block of ``kind``, each
+    the path of its leaf in the reference's tree (``mlstm.wq``,
+    ``rglru.lam``, ``attn.wq``, ``mlp.w_gate``, ...)."""
+    block = RECURRENT_BLOCKS[kind](cfg, device="meta")
+    return tuple(name for name, _ in block.named_parameters())
+
+
+def _recurrent_leaves(tree, cfg: ArchCfg):
+    """(parameter name, numpy array) of every layer of a recurrent
+    config: layer i's leaves sliced from its stack at its index
+    (``blocks.recurrent_layout``: ``mlstm_groups`` (g, per, ...),
+    ``slstm_groups`` (g, ...), ``groups.rec`` (g, n_rec, ...),
+    ``groups.attn`` (g, ...), ``tail_rec`` (tail, ...))."""
+    for i, (kind, stack, idx) in enumerate(recurrent_layout(cfg)):
+        for attr in _kind_attrs(cfg, kind):
+            yield f"blocks.{i}.{attr}", np.asarray(
+                _leaf(_leaf(tree, stack), attr))[idx]
+
+
+def _recurrent_tree(named, cfg: ArchCfg) -> dict:
+    """The reference's nested stacks of a recurrent config's layers, from
+    tensors by parameter name (fp32 numpy leaves)."""
+    tree: dict = {}
+    at: dict[str, list] = {}
+    for i, (kind, stack, idx) in enumerate(recurrent_layout(cfg)):
+        at.setdefault(stack, []).append((i, kind, idx))
+    for stack, layers in at.items():
+        kind = layers[0][1]
+        dims = tuple(max(idx[d] for _, _, idx in layers) + 1
+                     for d in range(len(layers[0][2])))
+        for attr in _kind_attrs(cfg, kind):
+            first = named[f"blocks.{layers[0][0]}.{attr}"]
+            arr = np.empty(dims + tuple(first.shape), np.float32)
+            for i, _, idx in layers:
+                arr[idx] = named[f"blocks.{i}.{attr}"].detach().float() \
+                    .cpu().numpy()
+            _put(tree, f"{stack}.{attr}", arr)
+    return tree
+
+
 def _stacks(cfg: ArchCfg):
     """(key in the reference's tree, first layer, layers, MoE blocks) of
     each stack of layers."""
@@ -112,6 +156,9 @@ def named_leaves(tree, cfg: ArchCfg):
     if cfg.n_patches:
         for key in _VISION_LEAVES:
             yield f"vision_proj.{key}", tree["vision_proj"][key]
+    if cfg.block in RECURRENT:
+        yield from _recurrent_leaves(tree, cfg)
+        return
     for key, first, count, use_moe in _stacks(cfg):
         for attr in _block_attrs(cfg, use_moe):
             leaf = _leaf(tree[key], attr)
@@ -152,12 +199,12 @@ def _tree_of(named) -> dict:
             _, i, attr = name.split(".", 2)
             attrs.setdefault(int(i), []).append(attr)
     layers = sorted(attrs)
-    if "attn.wq_a" in attrs[layers[0]]:        # mla_moe's two stacks
+    if layers and "attn.wq_a" in attrs[layers[0]]:   # mla_moe's two stacks
         moe = [i for i in layers if "moe.router" in attrs[i]]
         stacks = {"dense_blocks": [i for i in layers if i not in moe],
                   "moe_blocks": moe}
     else:
-        stacks = {"blocks": layers}
+        stacks = {"blocks": layers} if layers else {}
     tree = {"embed": {"table": np32(named["embed.table"])},
             "final_ln": {"scale": np32(named["final_ln.scale"])}}
     for key, ids in stacks.items():
@@ -201,8 +248,15 @@ def params_from_numpy(tree, cfg: ArchCfg, device="cuda",
 
 
 def params_to_numpy(model: Transformer) -> dict:
-    """The reference's tree layout (layers stacked) with fp32 numpy leaves."""
-    return _tree_of(dict(model.named_parameters()))
+    """The reference's tree layout (layers stacked; a recurrent config's
+    in its nested stacks) with fp32 numpy leaves."""
+    named = dict(model.named_parameters())
+    if model.cfg.block not in RECURRENT:
+        return _tree_of(named)
+    tree = _tree_of({k: v for k, v in named.items()
+                     if not k.startswith("blocks.")})
+    tree.update(_recurrent_tree(named, model.cfg))
+    return tree
 
 
 def opt_state_from_numpy(tree, cfg: ArchCfg, device="cuda") -> dict:

@@ -13,9 +13,9 @@
 // q, k and v are read through their (batch, head, time) strides with a
 // unit head_dim stride, so the transposed views that the attention layer's
 // head split produces are read without a copy.  q and k share one head size
-// DQ and v has its own, DV: (32, 32), (64, 64), (128, 128), and MLA's
-// (192, 128) (128 nope + 64 rope dimensions against values of 128); the
-// wrapper pads another pair with zeros up to the next one.  Nothing else is
+// DQ and v has its own, DV: (32, 32), (64, 64), (128, 128), MLA's (192, 128)
+// (128 nope + 64 rope dimensions against values of 128), and RecurrentGemma's
+// (256, 256); the wrapper pads another pair with zeros up to the next one.  Nothing else is
 // padded: rows past Tq are zero-filled and never stored, and KV positions
 // past Tk are masked like any other (k_pos < Tk).
 //
@@ -44,12 +44,19 @@
 //     every d runs the n = 64 (or, DV = 128, n = 128) products.  DQ = 192 is
 //     three 64-wide slices of Q and K, 12 k-steps of QK^T; its ring holds
 //     two stages (Q 24 KB, a stage 40 KB), so that two blocks share an SM.
+//     DQ = DV = 256 is four slices of each (16 k-steps of QK^T), two stages
+//     (Q 32 KB, a stage 64 KB: one block an SM), and O's 64 x 256 fp32
+//     accumulator is 128 registers a thread, summed by two m64n128k16
+//     products a k-step, one for each half of V's columns.
 //   * wmma (bf16 views whose strides TMA cannot describe): the first
 //     design below.  One block of 4 warps owns a 64-row q tile; K and V are
 //     loaded by the threads between two block barriers; both products run
 //     on nvcuda::wmma 16x16x16, S staged through shared memory in fp32, P
 //     in bf16, and O kept in shared memory across tiles.
 //   * simt (fp32): the same block on FMA (no TF32), so fp32 parity holds.
+//     At DV = 256 its tiles of 64 q rows (Q, K, V, S and O in fp32) would
+//     take ~281 KB of shared memory, past the SM's 227 KB: there the block
+//     owns 32 q rows, 8 a warp (~202 KB).
 //
 // What bounds it on an H100: at the prefill shape of the main path
 // (B = 8, Hq = 9, Hkv = 3, T = 512, d = 64) the causal work is ~2.4 GFLOP
@@ -78,8 +85,14 @@ using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = BQ / WARPS;   // 16
+constexpr int BK = 64, WARPS = 4, THREADS = WARPS * 32;
+
+// q rows a block of the wmma / simt design: 64 (16 a warp, wmma's tile),
+// but 32 for fp32 at DV = 256, whose 64-row tiles overflow shared memory.
+template <typename T, int DV>
+constexpr int tile_q() {
+  return (!std::is_same<T, bf16>::value && DV >= 256) ? 32 : 64;
+}
 
 struct Params {
   const void *q, *k, *v;
@@ -95,6 +108,9 @@ constexpr int align128(int b) { return (b + 127) / 128 * 128; }
 template <typename T, int DQ, int DV>
 struct Layout {
   static constexpr bool TC = std::is_same<T, bf16>::value;
+  static constexpr int BQ = tile_q<T, DV>();
+  static constexpr int ROWS_PER_WARP = BQ / WARPS;
+  static_assert(!TC || ROWS_PER_WARP == 16, "wmma tiles are 16 rows a warp");
   // Row strides in elements.  The bf16 tiles feed wmma (ld a multiple of 8,
   // 32-byte aligned tiles); the fp32 tiles are read by lanes across rows,
   // so an odd stride keeps them free of bank conflicts.
@@ -157,6 +173,7 @@ __device__ float mean_of_v(const T* vg, long long st, int tk, int c) {
 template <typename T, int DQ, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   using L = Layout<T, DQ, DV>;
+  constexpr int BQ = L::BQ, ROWS_PER_WARP = L::ROWS_PER_WARP;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
   T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
@@ -361,7 +378,7 @@ static int launch(const Params& p, int batch, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
-  dim3 grid((p.tq + BQ - 1) / BQ, p.hq, batch);
+  dim3 grid((p.tq + L::BQ - 1) / L::BQ, p.hq, batch);
   kernel<<<grid, THREADS, L::BYTES, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -388,11 +405,13 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
     if (d == 64 && dv == 64) return launch<bf16, 64, 64>(p, batch, s);
     if (d == 128 && dv == 128) return launch<bf16, 128, 128>(p, batch, s);
     if (d == 192 && dv == 128) return launch<bf16, 192, 128>(p, batch, s);
+    if (d == 256 && dv == 256) return launch<bf16, 256, 256>(p, batch, s);
   } else {
     if (d == 32 && dv == 32) return launch<float, 32, 32>(p, batch, s);
     if (d == 64 && dv == 64) return launch<float, 64, 64>(p, batch, s);
     if (d == 128 && dv == 128) return launch<float, 128, 128>(p, batch, s);
     if (d == 192 && dv == 128) return launch<float, 192, 128>(p, batch, s);
+    if (d == 256 && dv == 256) return launch<float, 256, 256>(p, batch, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -599,8 +618,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
 #pragma unroll
     for (int kb = 0; kb < 4; ++kb) {
       const uint64_t db = sm90::desc_sw128(vs + kb * 2048, SLICE, 1024);
-      if constexpr (S::DP == 64) sm90::wgmma_m64n64k16_rs<1>(o, pa[kb], db);
-      else sm90::wgmma_m64n128k16_rs<1>(o, pa[kb], db);
+      if constexpr (S::DP == 64) {
+        sm90::wgmma_m64n64k16_rs<1>(o, pa[kb], db);
+      } else if constexpr (S::DP == 128) {
+        sm90::wgmma_m64n128k16_rs<1>(o, pa[kb], db);
+      } else {   // 256 columns: V's slices 0-1 into o[0, 64), 2-3 into the rest
+        sm90::wgmma_m64n128k16_rs<1>(*reinterpret_cast<float(*)[64]>(o),
+                                     pa[kb], db);
+        sm90::wgmma_m64n128k16_rs<1>(
+            *reinterpret_cast<float(*)[64]>(o + 64), pa[kb],
+            sm90::desc_sw128(vs + 2 * SLICE + kb * 2048, SLICE, 1024));
+      }
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -697,6 +725,8 @@ extern "C" int repro_flash_fwd_wgmma(
     return fa::launch<128, 128>(tmq, tmk, tmv, p, batch, s);
   if (d == 192 && dv == 128)
     return fa::launch<192, 128>(tmq, tmk, tmv, p, batch, s);
+  if (d == 256 && dv == 256)
+    return fa::launch<256, 256>(tmq, tmk, tmv, p, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,8 @@ take no other tile at run time), so a measured policy returns it
 unmeasured.
 
 The kernel takes the head sizes of ``FWD_HEAD_DIMS``, pairs (q and k's,
-v's): one size for all three, or MLA's (192, 128).  Another pair (the
+v's): one size for all three (RecurrentGemma's 256 the widest), or MLA's
+(192, 128).  Another pair (the
 reduced MLA's (24, 16)) is zero-padded up to the first pair that holds it,
 and the output sliced back: zero columns of q and k add nothing to a
 score, and the scale is the unpadded size's unless the caller passes one.
@@ -36,7 +37,7 @@ from repro_torch.core.blocking import AttnGeometry, PlanSchema
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 128)       # the backward's: q, k and v alike
-FWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+FWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 MAINLOOPS = ("wgmma", "wmma", "simt")
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float

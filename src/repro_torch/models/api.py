@@ -1,7 +1,7 @@
 """Uniform model API, as in the reference; the decoder-only families
 (dense, a VLM's patch prefix included: its prefill and train batches carry
 ``patch_embeds``, and ``token_len`` deducts the prefix from a shape's
-sequence; moe; mla_moe).
+sequence; moe; mla_moe; the recurrent xlstm and rglru_hybrid).
 
 Besides the reference's entry points (init, forward, loss, prefill,
 prefill_chunk, decode_step) it holds the two decode steps of continuous
@@ -26,7 +26,12 @@ pool stacks the layers, each leaf (L, N, ...) with N slots of T = max_len
 positions or N pages of T = page_size (the reference's stacked leaves,
 batch axis 1, time axis the second to last; its mla_moe tree stacks the
 dense and the MoE layers apart, the port's pool all L together), and
-``layer_views`` hands the model per-layer views of it.
+``layer_views`` hands the model per-layer views of it.  A recurrent
+config's layers hold different leaves (``models/blocks.py``): its pool
+stacks each by layer kind and leaf, ``"<kind>.<leaf>"`` (``cache_keys``,
+``kv_shape``), over the layers of that kind, and ``layer_views`` /
+``stack_layers`` take ``cfg`` to hand each layer its own (the reference
+stacks its groups alike).
 """
 from __future__ import annotations
 
@@ -42,7 +47,14 @@ KEYS = ("k", "v")                 # GQA's cache leaves
 MLA_KEYS = ("c_kv", "k_rope")     # MLA's compressed ones
 
 
-def cache_keys(cfg: ArchCfg) -> tuple[str, str]:
+def cache_keys(cfg: ArchCfg) -> tuple[str, ...]:
+    """A pool's leaves: GQA's or MLA's, or a recurrent config's
+    ``"<kind>.<leaf>"`` for each layer kind it runs (``mlstm.c``,
+    ``slstm.h``, ``rec.conv``, ``attn.k``, ...)."""
+    if cfg.block in blocks.RECURRENT:
+        kinds = dict.fromkeys(k for k, _, _ in blocks.recurrent_layout(cfg))
+        return tuple(f"{kind}.{leaf}" for kind in kinds
+                     for leaf in blocks.RECURRENT_BLOCKS[kind].leaves)
     return MLA_KEYS if cfg.mla else KEYS
 
 
@@ -79,6 +91,12 @@ def decode_step(params, tokens, cfg: ArchCfg, cache, pos, **kw):
     return transformer.decode_step(params, tokens, cfg, cache, pos, **kw)
 
 
+def check_prompt_len(cfg: ArchCfg, t: int) -> None:
+    """Raises where an xLSTM prefill of ``t`` tokens breaks mLSTM's chunk
+    rule (the reference's ``mlstm_chunkwise``)."""
+    transformer.check_prompt_len(cfg, t)
+
+
 def prefill_chunk(params, batch, cfg: ArchCfg, cache, pos, *, length=None,
                   **kw):
     """One chunk of a longer prompt against a batch-1 cache view."""
@@ -90,25 +108,59 @@ def prefill_chunk(params, batch, cfg: ArchCfg, cache, pos, *, length=None,
 # pooled caches
 # --------------------------------------------------------------------------
 
+def _kind_layers(cfg: ArchCfg) -> list[tuple[str, int]]:
+    """(kind, index among the layers of its kind) of each layer of a
+    recurrent config, in run order."""
+    seen: dict[str, int] = {}
+    out = []
+    for kind, _, _ in blocks.recurrent_layout(cfg):
+        out.append((kind, seen.get(kind, 0)))
+        seen[kind] = seen.get(kind, 0) + 1
+    return out
+
+
 def kv_shape(cfg: ArchCfg, n: int, length: int, key: str = "k") -> tuple:
     """One stacked pool leaf: (L, n, Hkv, length, dh) of GQA's, (L, n,
-    length, kv_lora or rope) of MLA's ``c_kv`` or ``k_rope``."""
+    length, kv_lora or rope) of MLA's ``c_kv`` or ``k_rope``; a recurrent
+    config's ``"<kind>.<leaf>"`` (layers of that kind, n, the leaf's shape
+    a row)."""
+    if cfg.block in blocks.RECURRENT:
+        kind, leaf = key.split(".")
+        count = sum(k == kind for k, _ in _kind_layers(cfg))
+        one = blocks.RECURRENT_BLOCKS[kind].init_cache(cfg, n, length,
+                                                       device="meta")
+        return (count, *one[leaf].shape)
     if cfg.mla:
         return (cfg.n_layers, n, length,
                 cfg.kv_lora_rank if key == "c_kv" else cfg.qk_rope_dim)
     return (cfg.n_layers, n, cfg.n_kv_heads, length, blocks.attn_cfg(cfg).dh)
 
 
-def layer_views(leaves) -> dict:
+def layer_views(leaves, cfg: ArchCfg | None = None) -> dict:
     """The model's cache as per-layer views of stacked leaves (L, B, ...):
-    a write through the model lands in them."""
+    a write through the model lands in them.  A recurrent config's leaves
+    are stacked by kind (``cache_keys``): pass ``cfg``, and each layer
+    gets the views of its kind's leaves at its index among them."""
+    if cfg is not None and cfg.block in blocks.RECURRENT:
+        return {"blocks": [
+            {key.split(".")[1]: leaf[i] for key, leaf in leaves.items()
+             if key.split(".")[0] == kind}
+            for kind, i in _kind_layers(cfg)]}
     n_layers = next(iter(leaves.values())).shape[0]
     return {"blocks": [{key: leaf[i] for key, leaf in leaves.items()}
                        for i in range(n_layers)]}
 
 
-def stack_layers(cache) -> dict:
-    """The model's cache as stacked leaves (L, B, ...) (a copy)."""
+def stack_layers(cache, cfg: ArchCfg | None = None) -> dict:
+    """The model's cache as stacked leaves (L, B, ...) (a copy); a
+    recurrent config's (``cfg`` given) by kind, as ``layer_views``
+    takes them."""
+    if cfg is not None and cfg.block in blocks.RECURRENT:
+        layers = list(zip(_kind_layers(cfg), cache["blocks"]))
+        return {key: torch.stack([c[key.split(".")[1]]
+                                  for (kind, _), c in layers
+                                  if kind == key.split(".")[0]])
+                for key in cache_keys(cfg)}
     return {key: torch.stack([b[key] for b in cache["blocks"]])
             for key in cache["blocks"][0]}
 
@@ -123,7 +175,10 @@ def decode_step_slots(params, tokens, cfg: ArchCfg, cache, positions,
     row.  Returns (logits (S, V), cache).  Free slots decode garbage that
     lands in their own rows, where a later prefill overwrites it before
     any mask exposes it; an MoE routes each slot as a group of its own,
-    so that garbage competes with no slot for capacity.
+    so that garbage competes with no slot for capacity.  A recurrent
+    config's states step each row alone (only its ring layers read the
+    positions); a free slot's garbage state is overwritten whole when a
+    request is admitted there (``SlotKVCache.insert``).
     """
     positions = torch.as_tensor(positions, device=tokens.device,
                                 dtype=torch.long)

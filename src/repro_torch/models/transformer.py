@@ -1,5 +1,6 @@
 """The decoder-only LM: init, forward, loss, prefill, prefill_chunk and
-decode_step, for the dense, moe and mla_moe families.  The head is the tied
+decode_step, for the dense, moe, mla_moe and recurrent (xlstm,
+rglru_hybrid) families.  The head is the tied
 embedding table or, where ``cfg.tie_embeddings`` is false, its own
 ``head.w`` (d_model, vocab).
 A VLM config (``cfg.n_patches``, llava-next-34b) has a ``vision_proj``:
@@ -22,6 +23,16 @@ loss, with the reference's weights; serving computes the aux and drops
 it.  ``decode_step(row_groups=True)`` routes each row as a group of its
 own (``layers/moe.py``).
 
+The recurrent families (xlstm-1.3b, recurrentgemma-9b) run their layers
+in the reference's stack order (``blocks.recurrent_layout``: a group's
+mLSTMs then its sLSTM; a group's rec blocks then its attention block,
+then the trailing rec blocks).  Their serve cache holds each layer's
+state at the reference's initial values (``init_cache``), read as the
+initial state by prefill and decode and overwritten in place; train mode
+starts every layer from the initial state, as the reference's
+``_train_states``.  ``prefill_chunk`` raises for them, and an xLSTM
+prefill raises where T breaks mLSTM's chunk rule (``check_prompt_len``).
+
 The reference scans one traced block over layer parameters stacked on a
 leading axis; here the layers are an ``nn.ModuleList`` run by a Python
 loop, and the serve cache is a list with one dict per layer, ``{"k",
@@ -43,6 +54,7 @@ from torch.utils import checkpoint
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core import brgemm, dispatch
 from repro_torch.core.dispatch import check_device
+from repro_torch.layers import recurrent
 from repro_torch.layers.embeddings import Embedding
 from repro_torch.layers.norms import RMSNorm
 from repro_torch.models import blocks
@@ -98,11 +110,16 @@ class Transformer(nn.Module):
         self.final_ln = RMSNorm(cfg.d_model, dtype=dt, device=device)
         self.head = (None if cfg.tie_embeddings else
                      Head(cfg.d_model, cfg.vocab, dtype=dt, device=device))
-        n_dense = {"dense": cfg.n_layers, "moe": 0,
-                   "mla_moe": cfg.n_dense_layers}[cfg.block]
-        self.blocks = nn.ModuleList(
-            blocks.DecoderBlock(cfg, use_moe=i >= n_dense, device=device)
-            for i in range(cfg.n_layers))
+        if cfg.block in blocks.RECURRENT:
+            self.blocks = nn.ModuleList(
+                blocks.RECURRENT_BLOCKS[kind](cfg, device=device)
+                for kind, _, _ in blocks.recurrent_layout(cfg))
+        else:
+            n_dense = {"dense": cfg.n_layers, "moe": 0,
+                       "mla_moe": cfg.n_dense_layers}[cfg.block]
+            self.blocks = nn.ModuleList(
+                blocks.DecoderBlock(cfg, use_moe=i >= n_dense, device=device)
+                for i in range(cfg.n_layers))
         self.mtp_block = (blocks.DecoderBlock(cfg, device=device)
                           if cfg.block == "mla_moe" and cfg.mtp else None)
         self.vision_proj = (VisionProj(cfg.d_model, dtype=dt, device=device)
@@ -185,6 +202,7 @@ class Transformer(nn.Module):
         into the sequence, a VLM's patch prefix included): bucketed
         prefill right-pads a prompt, and its true last token sits before
         the pad."""
+        check_prompt_len(self.cfg, tokens.shape[1])
         h, _ = self._run(self._embed(tokens, patch_embeds, backend),
                          mode="prefill", cache=cache, pos=0, backend=backend)
         idx = h.shape[1] - 1 if logit_pos is None else int(logit_pos)
@@ -198,7 +216,14 @@ class Transformer(nn.Module):
         ``cache`` (earlier chunks) and itself, and appends its K and V at
         ``pos``, in place.  ``length`` (<= C) marks the valid prefix of a
         right-padded chunk, whose logits are returned (the last token's by
-        default).  Chaining chunks reproduces one-shot ``prefill``."""
+        default).  Chaining chunks reproduces one-shot ``prefill``.  The
+        recurrent families raise, as the reference's engine refuses them
+        chunks."""
+        if self.cfg.block in blocks.RECURRENT:
+            raise ValueError(
+                f"chunked prefill is not supported for block="
+                f"{self.cfg.block!r} (recurrent state has no position "
+                f"range)")
         h, _ = self._run(self._embed(tokens, patch_embeds, backend),
                          mode="prefill_chunk", cache=cache, pos=int(pos),
                          backend=backend)
@@ -228,14 +253,45 @@ def _checkpointed(block, h, backend):
                             dispatch.restored(state)))
 
 
+_ZERO_BIASES = ("vision_proj.b1", "vision_proj.b2", "rglru.b_rgate",
+                "rglru.b_igate", "mlstm.bi")
+
+
+def _recurrent_init(name: str, p, generator) -> bool:
+    """The recurrent layers' leaves that are not fan-in scaled normals, as
+    the reference's inits draw them: RG-LRU's ``lam`` = log(u / (1 - u)),
+    u uniform in [0.9, 0.999] (so that a = sigmoid(lam) lies there), its
+    ``conv_w`` normal scaled by ``d_rnn ** -0.5``; mLSTM's forget bias
+    ``bf`` 3.0; sLSTM's ``b`` zeros but its forget gate's quarter, 3.0.
+    Returns whether ``p`` was one of them (and is now filled)."""
+    if name.endswith("rglru.lam"):
+        u = 0.9 + 0.099 * torch.rand(p.shape, generator=generator,
+                                     device=generator.device)
+        p.copy_(torch.log(u / (1 - u)))
+    elif name.endswith("rglru.conv_w"):
+        p.copy_(torch.randn(p.shape, generator=generator,
+                            device=generator.device) * p.shape[1] ** -0.5)
+    elif name.endswith("mlstm.bf"):
+        p.fill_(3.0)
+    elif name.endswith("slstm.b"):
+        d = p.shape[0] // 4
+        p.zero_()
+        p[2 * d:3 * d] = 3.0
+    else:
+        return False
+    return True
+
+
 def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
                 device="cuda") -> Transformer:
     """Random weights with the reference's distributions: each weight is
     normal scaled by ``fan_in ** -0.5`` (its second-to-last dimension: an
-    expert weight's (E, k, n) too; the embedding table by ``d_model **
-    -0.5``), each norm scale ones, a VLM projection's biases zeros.  Draws
-    come from ``generator`` (default: a CPU generator seeded 0), in fp32,
-    then are cast to ``cfg.dtype``."""
+    expert weight's (E, k, n) and sLSTM's per-head (H, dh, 4 dh) too; the
+    embedding table by ``d_model ** -0.5``), each norm scale ones, the
+    biases zeros (a VLM projection's, the RG-LRU gates', mLSTM's input
+    gate's), and the recurrent layers' own leaves as ``_recurrent_init``
+    draws them.  Draws come from ``generator`` (default: a CPU generator
+    seeded 0), in fp32, then are cast to ``cfg.dtype``."""
     model = Transformer(cfg, device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -244,8 +300,10 @@ def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
             if name.endswith("scale"):
                 p.fill_(1.0)
                 continue
-            if name.startswith("vision_proj.b"):
+            if name.endswith(_ZERO_BIASES):
                 p.zero_()
+                continue
+            if _recurrent_init(name, p, generator):
                 continue
             fan_in = p.shape[1] if name == "embed.table" else p.shape[-2]
             draw = torch.randn(p.shape, generator=generator,
@@ -257,11 +315,27 @@ def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
 def init_cache(cfg: ArchCfg, batch: int, max_len: int, *, device="cuda"):
     """``{"blocks": [a dict per layer]}``: ``{"k", "v"}``, each (B, Hkv,
     max_len, dh), or MLA's ``{"c_kv" (B, max_len, kv_lora), "k_rope" (B,
-    max_len, rope)}``."""
+    max_len, rope)}``; a recurrent layer's state at the reference's
+    initial values (``models/blocks.py``: mLSTM's ``{"c", "n", "m"}``,
+    sLSTM's ``{"h", "c", "n", "m"}``, RG-LRU's ``{"h", "conv"}``) and a
+    local attention layer's ring ``{"k", "v"}`` of ``min(max_len,
+    window)`` positions."""
     device = check_device(device)
+    if cfg.block in blocks.RECURRENT:
+        return {"blocks": [
+            blocks.RECURRENT_BLOCKS[kind].init_cache(cfg, batch, max_len,
+                                                     device=device)
+            for kind, _, _ in blocks.recurrent_layout(cfg)]}
     return {"blocks": [
         blocks.decoder_block_cache(cfg, batch, max_len, device=device)
         for _ in range(cfg.n_layers)]}
+
+
+def check_prompt_len(cfg: ArchCfg, t: int) -> None:
+    """Raises where a prefill of ``t`` tokens breaks mLSTM's chunk rule
+    (``layers/recurrent.py::chunk_len``): xlstm only."""
+    if cfg.block == "xlstm" and t > 1:
+        recurrent.chunk_len(cfg.mlstm_chunk, t)
 
 
 def forward(params: Transformer, batch, cfg: ArchCfg, *, backend=None):

@@ -19,9 +19,13 @@ are the reference's: prefill runs under ``use(quant=quant)``, decode under
 production mix is ``quant=None`` with ``decode_quant="int8"``: prefill is
 compute-bound, decode streams the weights).  A calibrated model
 (``quant.calibrate_params``) runs its GEMMs quantized in both phases
-without any tier.  The MoE and MLA families (grok-1, DeepSeek-V3) serve in
-full precision only: both engines refuse a tier or calibrated weights
-there.  In the static engine an MoE decode routes the batch as one group;
+without any tier.  The MoE and MLA families (grok-1, DeepSeek-V3) and the
+recurrent ones (xLSTM, RecurrentGemma) serve in full precision only: both
+engines refuse a tier or calibrated weights there.  A recurrent config
+serves from the slotted pool only (a page size is ignored and chunked or
+bucketed prefill raise, as in the reference), and an xLSTM prompt that
+breaks mLSTM's chunk rule (at most ``mlstm_chunk`` tokens, or a multiple
+of it) raises before any state is written.  In the static engine an MoE decode routes the batch as one group;
 the continuous engine's slot decode routes each slot as its own
 (``api.decode_step_slots``), as the reference's ``vmap`` does.
 
@@ -84,8 +88,10 @@ def _tier(quant):
 
 def _check_tiers(cfg: ArchCfg, params, *tiers) -> None:
     """The quant tiers (a ``quant`` / ``decode_quant`` tier, calibrated
-    weights) are not ported to the MoE and MLA families: raise there."""
-    if cfg.block not in ("moe", "mla_moe") and not cfg.mla:
+    weights) are not ported to the MoE, MLA and recurrent families: raise
+    there."""
+    if cfg.block not in ("moe", "mla_moe", "xlstm", "rglru_hybrid") \
+            and not cfg.mla:
         return
     if any(t is not None for t in tiers) or any(
             isinstance(m, QuantizedTensor) for m in params.modules()):
@@ -160,6 +166,7 @@ class Engine:
         stops = tuple(stop_tokens)
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         b, prompt_len = tokens.shape
+        api.check_prompt_len(self.cfg, prompt_len)
         inputs = {"tokens": tokens}
         if self.cfg.n_patches:
             inputs["patch_embeds"] = torch.as_tensor(batch["patch_embeds"],
@@ -363,6 +370,7 @@ class ContinuousEngine:
         n_prompt = len(request.prompt)
         if n_prompt < 1:
             raise ValueError("empty prompt")
+        api.check_prompt_len(self.cfg, n_prompt)
         need = self._pos_off + n_prompt + request.max_tokens
         if need > self.pool_cfg.max_len:
             raise ValueError(

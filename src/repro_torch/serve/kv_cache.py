@@ -12,7 +12,10 @@ bound by live tokens (rounded up to a page), not by the longest request.
 
 Both pools stack the layers, each leaf of ``api.cache_keys(cfg)`` (L, N,
 ...): GQA's ``{"k", "v"}``, each (L, N, Hkv, T, dh), or MLA's compressed
-``{"c_kv", "k_rope"}``, each (L, N, T, c), on the pool's device
+``{"c_kv", "k_rope"}``, each (L, N, T, c); a recurrent config's slotted
+pool stacks each leaf over the layers of its kind (``"mlstm.c"``,
+``"rec.conv"``, ``"attn.k"``, ...) at the reference's initial values, and
+a slot's admission overwrites its every leaf; all on the pool's device
 (``device="cuda"`` unless the caller passes ``"cpu"``), created and
 written under ``torch.inference_mode()``.  Freeing a slot or a
 page is host-side bookkeeping: stale device state is never read again (the
@@ -35,7 +38,7 @@ import torch
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core.dispatch import check_device
 from repro_torch.models import api
-from repro_torch.models.blocks import cache_len, dtype_of
+from repro_torch.models.blocks import RECURRENT, cache_len, dtype_of
 
 
 def _zeros(cfg: ArchCfg, n: int, length: int, dtype, device) -> dict:
@@ -55,7 +58,10 @@ class SlotKVCache:
     leaves:      ``{"k", "v"}``, each (L, n_slots, Hkv, T, dh), T =
                  ``max_len``, or a windowed config's ring of ``min(max_len,
                  window)`` positions; MLA's ``{"c_kv", "k_rope"}``, each
-                 (L, n_slots, T, c).
+                 (L, n_slots, T, c); a recurrent config's stacked by layer
+                 kind, ``"<kind>.<leaf>"`` (L of that kind, n_slots, ...)
+                 (``api.cache_keys``), fp32 states (but RG-LRU's ``conv``)
+                 and the local attention layers' rings.
     cache:       the model's per-layer views of them (``api.layer_views``),
                  what ``api.decode_step_slots`` takes.
     lengths:     (n_slots,) int32, valid kv length per slot (prompt +
@@ -76,9 +82,13 @@ class SlotKVCache:
         self.n_slots = n_slots
         self.max_len = max_len
         with torch.inference_mode():
-            self.leaves = _zeros(cfg, n_slots, cache_len(cfg, max_len),
-                                 dtype_of(cfg), self.device)
-        self.cache = api.layer_views(self.leaves)
+            if cfg.block in RECURRENT:     # the states' initial values
+                self.leaves = api.stack_layers(api.init_cache(
+                    cfg, n_slots, max_len, device=self.device), cfg)
+            else:
+                self.leaves = _zeros(cfg, n_slots, cache_len(cfg, max_len),
+                                     dtype_of(cfg), self.device)
+        self.cache = api.layer_views(self.leaves, cfg)
         self.lengths = np.zeros(n_slots, np.int32)
         self.positions = np.zeros(n_slots, np.int32)
         self.alloc_count = 0
@@ -117,18 +127,22 @@ class SlotKVCache:
     # ---------------- device state ----------------
 
     def request_cache(self):
-        """A new zeroed batch-1 cache (a prefill's target).  New on every
+        """A new batch-1 cache (a prefill's target): zeros, a recurrent
+        layer's state at the reference's initial values.  New on every
         call: the port's prefill writes in place, so a chunked prefill's
         staging view and a one-shot admission in the same step must not
-        share one, and every prefill starts from zeros past its prompt."""
+        share one, every prefill starts from zeros past its prompt, and a
+        recurrent prefill from the initial state, whatever the slot held
+        before."""
         with torch.inference_mode():
             return api.init_cache(self.cfg, 1, self.max_len,
                                   device=self.device)
 
     def insert(self, slot: int, request_cache) -> None:
-        """Copy a prefilled batch-1 cache into ``slot``'s row."""
+        """Copy a prefilled batch-1 cache into ``slot``'s row: every leaf,
+        a recurrent state whole."""
         with torch.inference_mode():
-            one = api.stack_layers(request_cache)
+            one = api.stack_layers(request_cache, self.cfg)
             for key, leaf in self.leaves.items():
                 leaf[:, slot] = one[key][:, 0]
 

@@ -1538,7 +1538,7 @@ def test_flash_mla_head_dims(gen, dtype, dq, dv):
     torch.testing.assert_close(o, ro, **tol)
     torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
     with pytest.raises(ValueError, match="fit no instantiation"):
-        flash_attention_cuda(*_mla_qkv(gen, 1, 1, 8, 256, 128, dtype))
+        flash_attention_cuda(*_mla_qkv(gen, 1, 1, 8, 264, 128, dtype))
 
 
 # (E, G * cap, k, n, activation) of the expert GEMMs: grok-1 at prefill (2
@@ -1624,3 +1624,86 @@ def test_moe_engines_kernels_match_plain(gen, name):
             ref = ContinuousEngine(cfg, params, PoolConfig(
                 n_slots=3, max_len=40, **kw)).serve(reqs)
         assert out == ref
+
+
+# ==========================================================================
+# the recurrent families (xlstm-1.3b, recurrentgemma-9b)
+# ==========================================================================
+
+@pytest.mark.parametrize("t,window", [(300, None), (300, 128), (520, 256)],
+                         ids=["causal", "windowed", "windowed_long"])
+@pytest.mark.parametrize("dtype,mainloop", [
+    (torch.bfloat16, "wgmma"), (torch.bfloat16, "wmma"),
+    (torch.float32, "simt")], ids=["bf16_wgmma", "bf16_wmma", "fp32_simt"])
+def test_flash_head_dim_256(gen, dtype, mainloop, t, window):
+    """RecurrentGemma's attention: 16 q heads over one kv head of 256,
+    causal, and windowed with the window under T, on the (256, 256)
+    instantiation of each mainloop (fp32 on 32-row tiles), against
+    mha_ref; lse too."""
+    q, k, v = _qkv(gen, 2, 16, 1, t, t, 256, dtype)
+    FK.reset_flash_counts()
+    o, lse = flash_attention_cuda(q, k, v, causal=True, window=window,
+                                  return_residuals=True, plan=mainloop)
+    assert flash_attention_cuda.mainloops[mainloop] == 1
+    assert FK.head_dims(256, 256) == (256, 256)
+    ro, rl = mha_ref(q, k, v, causal=True, window=window, return_lse=True)
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=2e-2,
+                                                         rtol=2e-2)
+    torch.testing.assert_close(o, ro, **tol)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 512])
+def test_matmul_four_columns_fp32_out_with_bias(gen, dtype, m):
+    """mLSTM's input and forget gates: (m, 2048) @ (2048, 4) with a bias
+    into fp32, on the non-TMA mainloop (n % 8 != 0), against plain."""
+    x = torch.randn(m, 2048, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(2048, 4, device="cuda", generator=gen)
+         * 2048 ** -0.5).to(dtype)
+    bias = torch.full((4,), 3.0, device="cuda").to(dtype)
+    assert plan_call(x, w).mainloop != "wgmma"
+    got = matmul_cuda(x, w, bias, out_dtype=torch.float32)
+    want = matmul_ref(x, w, bias, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (m, 4)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "recurrentgemma-9b"])
+def test_recurrent_engines_kernels_match_plain(gen, name):
+    """Reduced xlstm / recurrentgemma in fp32: both engines' greedy tokens
+    on the kernels equal the plain path's (prompts past recurrentgemma's
+    window, slots reused)."""
+    cfg = configs.get(name).reduced()
+    params = api.init_params(cfg, gen)
+    engine = Engine(cfg, params, ServeConfig(max_len=48))
+    tokens = torch.randint(0, cfg.vocab, (2, 16), device="cuda",
+                           generator=gen)
+    got = engine.generate({"tokens": tokens}, n_tokens=12, stop_tokens=())
+    with dispatch.use(backend="torch"):
+        want = engine.generate({"tokens": tokens}, n_tokens=12,
+                               stop_tokens=())
+    assert torch.equal(got, want)
+    reqs = [Request(prompt=list(range(3, 3 + n)), max_tokens=6,
+                    stop_tokens=()) for n in (5, 16, 2, 11, 32)]
+    ce = ContinuousEngine(cfg, params, PoolConfig(n_slots=3, max_len=48))
+    out = ce.serve(reqs)
+    with dispatch.use(backend="torch"):
+        ref = ContinuousEngine(cfg, params, PoolConfig(
+            n_slots=3, max_len=48)).serve(reqs)
+    assert out == ref
+
+
+def test_recurrentgemma_train_step_raises_at_head_size_256(gen):
+    """Training is not ported to recurrentgemma's head size: its train step
+    on the kernels raises with the flash backward's head-size error (the
+    forward takes 256)."""
+    cfg = dataclasses.replace(configs.get("recurrentgemma-9b").reduced(),
+                              head_dim=256)
+    ocfg = AdamWCfg()
+    state = init_state(cfg, ocfg, torch.Generator().manual_seed(0), "cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 12), device="cuda",
+                           generator=gen)
+    step = make_train_step(cfg, ocfg, backend="cuda")
+    with pytest.raises(ValueError, match="head_dim must be one of"):
+        step(state, {"tokens": tokens, "labels": tokens.roll(-1, 1)})

@@ -99,7 +99,7 @@ def test_flash_head_dims_pick_the_first_pair_that_holds(d, dv, want):
 
 def test_flash_head_dims_refuse_a_pair_too_wide():
     with pytest.raises(ValueError, match="fit no instantiation"):
-        FK.head_dims(256, 128)
+        FK.head_dims(264, 128)
 
 
 def test_zero_padding_leaves_attention_unchanged():
@@ -424,7 +424,7 @@ def test_mla_refusals(deepseek):
                                 mla=True)
     with pytest.raises(NotImplementedError, match="mla_moe"):
         tapi.init_params(dense, device="cpu")
-    for block in ("xlstm", "rglru_hybrid", "encdec"):
+    for block in ("encdec",):
         with pytest.raises(NotImplementedError, match="not ported"):
             tapi.init_params(dataclasses.replace(dense, mla=False,
                                                  block=block), device="cpu")

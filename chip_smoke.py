@@ -202,6 +202,7 @@ import collections
 import contextlib
 import cProfile
 import dataclasses
+import gc
 import json
 import math
 import pstats
@@ -392,6 +393,24 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
+
+
+FREED = {"calls": 0, "gc_s": 0.0}
+
+
+def free_card() -> None:
+    """Frees what a full-width model left on the card before the next is
+    built.  ``del`` drops only the script's own names: an object in a
+    reference cycle keeps its weights and pools alive until the collector
+    runs, and ``empty_cache`` returns only blocks no tensor holds.  So
+    collect first: the next model must not depend on when the collector
+    happens to run.  A full collection costs ~0.6 s late in the run, so
+    only model boundaries call this; FREED adds up its cost."""
+    t0 = time.perf_counter()
+    gc.collect()
+    FREED["calls"] += 1
+    FREED["gc_s"] += time.perf_counter() - t0
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -1514,17 +1533,18 @@ def phase_serve(base_cfg):
             step_times(cfg, params, tokens)
             main_launches = launches
         del params, engine
-        torch.cuda.empty_cache()
+        free_card()
     return main_launches
 
 
 def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
-               decode_quant=None, max_len=MAX_LEN, patch_embeds=None):
+               decode_quant=None, max_len=MAX_LEN, patch_embeds=None,
+               src_embeds=None):
     """Host-clock prefill and decode-step times of the kernel path, under a
     serving tier's quant configs (None: full precision), for the prompts
-    ``tokens`` (B, T) (after a VLM's ``patch_embeds``) in a cache of
-    ``max_len``; whether every logit of the timed prefill and decode steps
-    was finite."""
+    ``tokens`` (B, T) (after a VLM's ``patch_embeds``; over an
+    encoder-decoder's ``src_embeds``) in a cache of ``max_len``; whether
+    every logit of the timed prefill and decode steps was finite."""
     from repro_torch.core import dispatch
     from repro_torch.models import api
     b, prompt = tokens.shape
@@ -1532,6 +1552,10 @@ def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
     if patch_embeds is not None:
         batch["patch_embeds"] = patch_embeds
         prompt += patch_embeds.shape[1]
+    src_len = 0
+    if src_embeds is not None:
+        batch["src_embeds"] = src_embeds
+        src_len = src_embeds.shape[1]
 
     def prefill(cache):
         with dispatch.use(quant=prefill_quant):
@@ -1542,7 +1566,7 @@ def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
             return api.decode_step(params, tok, cfg, cache, pos)
 
     with torch.inference_mode():
-        cache = api.init_cache(cfg, b, max_len, device="cuda")
+        cache = api.init_cache(cfg, b, max_len, src_len, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill(cache)
@@ -1615,9 +1639,10 @@ def watched_forwards():
     """Inside, every logit the engine's model entry points return is
     checked for finiteness on the card, with no sync, and every call is
     counted by its kind and rows (one-shot prefills and chunks by their
-    tokens, a VLM's patch prefix included, decode steps by their slots).
-    Yields (a one-element list holding the running all-finite flag, a
-    device bool; the counter)."""
+    tokens, a VLM's patch prefix included, decode steps by their slots;
+    an encoder-decoder's first chunk, which carries ``src_embeds``, as
+    ``chunk_first``).  Yields (a one-element list holding the running
+    all-finite flag, a device bool; the counter)."""
     from repro_torch.models import api
     kinds = {"prefill": "prefill", "prefill_chunk": "chunk",
              "decode_step_slots": "decode", "decode_step_paged": "decode"}
@@ -1633,7 +1658,10 @@ def watched_forwards():
                     else tokens["tokens"].shape[1] + (
                         tokens["patch_embeds"].shape[1]
                         if "patch_embeds" in tokens else 0))
-            forwards[kinds[name], rows] += 1
+            kind = kinds[name]
+            if kind == "chunk" and "src_embeds" in tokens:
+                kind = "chunk_first"
+            forwards[kind, rows] += 1
             return out
         return run
 
@@ -1722,7 +1750,10 @@ def continuous_run(cfg, params, requests, pool_kw, engine_kw, counters):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
-    engine._decode = decode
+    # Drop the instance attribute, back to the class's method: a bound
+    # method kept on the engine is a cycle that holds its pool and weights
+    # until the collector runs.
+    del engine._decode
     if engine.decode_quant is not None:
         forwards = collections.Counter({
             ("decode_q" if kind == "decode" else kind, m): n
@@ -1743,13 +1774,13 @@ def continuous_times(cfg, params, requests, pool_kw):
     a pool in its steady state: a new engine serves the traffic until all
     its slots decode, then four decode steps run under torch.profiler and
     four under cProfile (each the engine's own decode of every slot, at
-    the slots' positions then), and the run drains."""
+    the slots' positions then); then every request is cancelled, which
+    must leave the pool empty (serving them out would repeat the run)."""
     from repro_torch.serve import ContinuousEngine, PoolConfig
     engine = ContinuousEngine(
         cfg, params, PoolConfig(n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
                                 **pool_kw))
-    for r in requests:
-        engine.submit(r)
+    ids = [engine.submit(r) for r in requests]
     for _ in range(8):
         engine.step()
     if engine.scheduler.n_running != CONT_SLOTS:
@@ -1764,8 +1795,11 @@ def continuous_times(cfg, params, requests, pool_kw):
 
     by_name = device_ms_by_kernel(steps, n)
     host_ms, host_fns = host_split(steps, n)
-    while engine.has_work():
-        engine.step()
+    for rid in ids:
+        engine.cancel(rid)
+    pool_rec, empty = pool_state(engine)
+    if engine.has_work() or not empty:
+        raise AssertionError(f"cancelled pool not empty: {pool_rec}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return sum(by_name.values()), host_ms, host_fns, {
         k[:80]: v for k, v in top}
@@ -1876,7 +1910,7 @@ def phase_continuous(base_cfg, card):
             emit(rec)
             del engine
         del params
-        torch.cuda.empty_cache()
+        free_card()
         for kernel, err in continuous_parity(cfg, forwards, failed).items():
             worst[kernel] = max(worst[kernel], err)
         if dtype == torch.bfloat16:
@@ -2719,7 +2753,7 @@ def phase_quant(base_cfg):
             for k in counters:
                 main_launches[k] += launches[k]
         del params, engine
-        torch.cuda.empty_cache()
+        free_card()
     main_launches.update(quant_entry_points())
     if failed:
         raise AssertionError(f"quantized serving: {failed}")
@@ -3344,7 +3378,7 @@ def phase_windowed(card):
         failed.append(f"continuous: launches {c_launches} != {c_expect}, "
                       f"empty {empty}, finite {finite}, paged {ce.paged}")
     del engine, ce, params
-    torch.cuda.empty_cache()
+    free_card()
 
     # Every distinct GEMM shape of the static run and the continuous one,
     # and the windowed flash at the static prefill's shape, against their
@@ -3861,7 +3895,7 @@ def phase_llava(card):
                           f"{c_expect}, empty {empty}, finite {finite}, "
                           f"cold {c_cold}, warm {c_warm}")
         del engine, ce, ce0, params
-        torch.cuda.empty_cache()
+        free_card()
 
         # Every matmul shape of the leg under the plan the policy chose and
         # under the heuristic's, and the flash forward at each prefill
@@ -4968,24 +5002,28 @@ def recorded_calls():
             setattr(mod, name, fn)
 
 
-def forward_parity(cfg, params, tokens, failed, kernels):
+def forward_parity(cfg, params, tokens, failed, kernels, src_embeds=None):
     """One bf16 prefill forward and one decode forward of the static engine
-    with every kernel call recorded; each launch's output against its plain
-    version on its own inputs (matmul_ref with the call's bias and fp32
-    out, batched_matmul_ref, mha_ref at the call's scale and window), one
-    call at a time.  Returns the worst abs error by kernel (of
-    ``kernels``) and the calls checked by kernel."""
+    (over an encoder-decoder's ``src_embeds``) with every kernel call
+    recorded; each launch's output against its plain version on its own
+    inputs (matmul_ref with the call's bias and fp32 out,
+    batched_matmul_ref, mha_ref at the call's causality, scale and
+    window), one call at a time.  Returns the worst abs error by kernel
+    (of ``kernels``) and the calls checked by kernel."""
     from repro_torch.kernels.brgemm import batched_matmul_ref, matmul_ref
     from repro_torch.kernels.flash_attention import mha_ref
     from repro_torch.models import api
     worst = dict.fromkeys(kernels, 0.0)
     checked = collections.Counter()
     b, t = tokens.shape
+    batch = {"tokens": tokens}
+    if src_embeds is not None:
+        batch["src_embeds"] = src_embeds
     with torch.inference_mode():
-        cache = api.init_cache(cfg, b, t + 1, device="cuda")
+        cache = api.init_cache(cfg, b, t + 1, 0 if src_embeds is None
+                               else src_embeds.shape[1], device="cuda")
         with recorded_calls() as calls:
-            logits, cache = api.prefill(params, {"tokens": tokens}, cfg,
-                                        cache)
+            logits, cache = api.prefill(params, batch, cfg, cache)
             tok = logits.argmax(-1).to(torch.int32)[:, None]
             api.decode_step(params, tok, cfg, cache, t)
         torch.cuda.synchronize()
@@ -5203,6 +5241,8 @@ def phase_moe(card):
     for idx, (name, overrides) in enumerate(MOE_MODELS):
         cfg = model_cfg(name, overrides)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 20 + idx)
+        free_card()
+        resident_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = api.init_params(cfg, gen, device="cuda")
@@ -5245,6 +5285,7 @@ def phase_moe(card):
               "n_dense_layers": cfg.n_dense_layers, "d_model": cfg.d_model,
               "n_experts": cfg.n_experts, "top_k": cfg.top_k, "mla": cfg.mla,
               "params_b": sum(p.numel() for p in params.parameters()) / 1e9,
+              "resident_gb_before_init": resident_gb,
               "init_s": init_s, "batch": MOE_BATCH, "prompt": MOE_PROMPT,
               "new_tokens": MOE_NEW, "launches": got,
               "expected_launches": expect, **by_mainloop,
@@ -5323,7 +5364,7 @@ def phase_moe(card):
         for k, err in errs.items():
             worst[k] = max(worst[k], err)
         del params
-        torch.cuda.empty_cache()
+        free_card()
         failed += moe_fp32_tokens(name, overrides, gen)
     if failed:
         raise AssertionError(f"moe: {failed}")
@@ -5490,12 +5531,13 @@ def rec_forward_calls(cfg, kind, b, t):
     return {"matmul": mm, "flash_attention": fl}
 
 
-def rec_calls(cfg, forwards):
-    """The kernel calls of ``forwards`` (Counter {(kind, b, t): count}),
-    summed: {kernel: Counter{shape: launches}}."""
+def rec_calls(cfg, forwards, forward_calls=rec_forward_calls):
+    """The kernel calls of ``forwards`` (Counter {(kind, b, t, ...):
+    count}, the arguments of ``forward_calls`` after ``cfg``), summed:
+    {kernel: Counter{shape: launches}}."""
     out = {k: collections.Counter() for k in REC_KERNELS}
-    for (kind, b, t), count in forwards.items():
-        for kernel, shapes in rec_forward_calls(cfg, kind, b, t).items():
+    for key, count in forwards.items():
+        for kernel, shapes in forward_calls(cfg, *key).items():
             for shape, n in shapes.items():
                 out[kernel][shape] += n * count
     return out
@@ -5518,9 +5560,10 @@ def rec_mainloop_check(calls):
 
 
 def rec_gemm(shape):
-    """A recurrent matmul shape as a Gemm, laid out as the path hands it
-    over: the tied head reads table.T in place (fp32 out), the fp32 gate
-    GEMMs row-major with fp32 out."""
+    """A recurrent or encoder-decoder matmul shape as a Gemm, laid out as
+    the path hands it over: the tied head (role ``head``) reads table.T in
+    place (fp32 out), the fp32 gate GEMMs and the untied head (role
+    ``lm_head``) row-major with fp32 out."""
     role, m, k, n, act, fp32, bias = shape
     return Gemm(role, m, k, n, act, bias=bias,
                 kind="head" if role == "head" else "pre" if fp32 else "fwd")
@@ -5543,17 +5586,27 @@ def rec_traffic(cfg, lens, gen_seed, vocab=None):
             for n, m in zip(picks, new)]
 
 
-def rec_shape_parity(cfg, calls, done, failed):
+def rec_flash_inputs(shape, dtype, gen):
+    """(q, k, v, keyword arguments) of a recurrent flash shape: causal,
+    windowed."""
+    b, hq, hkv, t, dq, dv, window = shape
+    return (*qkv_views(b, hq, hkv, t, dq, dtype, gen)[:3],
+            {"window": window})
+
+
+def rec_shape_parity(cfg, calls, done, failed, flash_inputs=rec_flash_inputs,
+                     seed=SEED + 44):
     """matmul_cuda and flash_attention_cuda against matmul_ref and mha_ref
-    at every shape of ``calls`` (rec_calls) not yet in ``done``, on seeded
-    inputs laid out as the path hands them over, in the parity phase's
-    bands.  Returns (worst abs error by kernel, shapes checked by
-    kernel)."""
+    at every shape of ``calls`` ({kernel: Counter{shape: launches}}) not
+    yet in ``done``, on seeded inputs laid out as the path hands them over
+    (``flash_inputs(shape, dtype, gen)`` gives a flash call's q, k, v and
+    keyword arguments), in the parity phase's bands.  Returns (worst abs
+    error by kernel, shapes checked by kernel)."""
     from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      mha_ref)
     dtype = cfg_dtype(cfg)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = dict.fromkeys(REC_KERNELS, 0.0)
     checked = collections.Counter()
 
@@ -5578,29 +5631,30 @@ def rec_shape_parity(cfg, calls, done, failed):
         for shape in sorted(calls["flash_attention"]):
             if ("flash_attention", shape) in done:
                 continue
-            b, hq, hkv, t, dq, dv, window = shape
-            q, k, v, _ = qkv_views(b, hq, hkv, t, dq, dtype, gen)
-            held("flash_attention", shape,
-                 flash_attention_cuda(q, k, v, window=window),
-                 mha_ref(q, k, v, window=window),
-                 TOL[("flash_attention", dtype)])
+            q, k, v, kw = flash_inputs(shape, dtype, gen)
+            held("flash_attention", shape, flash_attention_cuda(q, k, v, **kw),
+                 mha_ref(q, k, v, **kw), TOL[("flash_attention", dtype)])
             del q, k, v
     torch.cuda.empty_cache()
     return worst, dict(checked)
 
 
-def rec_gap(cfg, params, prompt, toks, step):
+def rec_gap(cfg, params, prompt, toks, step, src=None):
     """The plain path's top-two logit gap at generated step ``step`` of a
-    request: its prompt prefilled, then its first ``step`` tokens decoded
-    one at a time, as the engines run it (first_divergence prefills prompt
-    and tokens in one, a length that can break mLSTM's chunk rule)."""
+    request: its prompt prefilled (over an encoder-decoder's frames
+    ``src``), then its first ``step`` tokens decoded one at a time, as the
+    engines run it (first_divergence prefills prompt and tokens in one, a
+    length that can break mLSTM's chunk rule)."""
     from repro_torch.core import dispatch
     from repro_torch.models import api
+    batch = {"tokens": torch.tensor([list(prompt)], device="cuda")}
+    if src is not None:
+        batch["src_embeds"] = src.reshape(1, *src.shape[-2:])
     with torch.inference_mode(), dispatch.use(backend="torch"):
         cache = api.init_cache(cfg, 1, len(prompt) + step + 1,
+                               0 if src is None else src.shape[-2],
                                device="cuda")
-        logits, cache = api.prefill(params, {"tokens": torch.tensor(
-            [list(prompt)], device="cuda")}, cfg, cache)
+        logits, cache = api.prefill(params, batch, cfg, cache)
         for i in range(step):
             logits, cache = api.decode_step(params, torch.tensor(
                 [[toks[i]]], device="cuda"), cfg, cache, len(prompt) + i)
@@ -5608,15 +5662,17 @@ def rec_gap(cfg, params, prompt, toks, step):
     return (top[0] - top[1]).item()
 
 
-def rec_divergence(cfg, params, prompts, got, want):
+def rec_divergence(cfg, params, prompts, got, want, srcs=None):
     """Per row whose kernel-path tokens differ from the plain path's: the
-    first differing step and the plain path's top-two gap there."""
+    first differing step and the plain path's top-two gap there (``srcs``:
+    each row's frames, for an encoder-decoder)."""
     out = {}
     for r, (g, w) in enumerate(zip(got, want)):
         steps = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
         if steps:
             out[r] = {"step": steps[0], "top2_gap": rec_gap(
-                cfg, params, prompts[r], w, steps[0])}
+                cfg, params, prompts[r], w, steps[0],
+                None if srcs is None else srcs[r])}
     return out
 
 
@@ -5851,7 +5907,7 @@ def phase_recurrent(card):
             worst[k] = max(worst[k], err)
         calls_by_model[name] = calls
         del params
-        torch.cuda.empty_cache()
+        free_card()
         failed += rec_fp32_tokens(name, gen)
     if failed:
         raise AssertionError(f"recurrent: {failed}")
@@ -5923,6 +5979,383 @@ def phase_times_recurrent(card, calls_by_model):
     return rows
 
 
+ENCDEC = "seamless-m4t-large-v2"
+# Static runs: (batch, src_len, decoder prompt, new tokens).  The second
+# runs the plain cross-attention branch (one query) at prefill and a
+# ragged memory of 1000 frames, whose last key tile is partial.
+ENCDEC_STATIC = ((2, 4096, 256, 32), (1, 1000, 1, 16))
+ENCDEC_SRC, ENCDEC_SLOTS, ENCDEC_REQUESTS = 4096, 4, 6
+ENCDEC_PROMPTS, ENCDEC_TOKENS = (32, 256), (16, 48)
+ENCDEC_POOLS = (("slotted", {}), ("paged", {"page_size": 16}),
+                ("chunked", {"page_size": 16, "prefill_chunk": 128}))
+ENCDEC_KERNELS = REC_KERNELS
+
+
+def encdec_forward_calls(cfg, kind, b, t, src):
+    """The kernel calls of one encoder-decoder forward over b rows of t
+    decoder tokens and ``src`` frames, derived from the code (``models/
+    encdec.py``): {kernel: Counter{shape: launches}}.  ``kind``: "prefill"
+    and "chunk_first" run the encoder (an encoder layer: q, k, v, o, the
+    ReLU up and down ``matmul`` and one non-causal flash call over the
+    frames) and the cross K and V of the memory (two a decoder layer);
+    every kind runs a decoder layer's self q, k, v, o, cross q, o, up and
+    down; "prefill" adds a causal flash call a layer (a chunk's
+    self-attention is mha_ref) and, beside "chunk_first" and "chunk", a
+    non-causal cross flash call over the frames where t > 1 (one query
+    runs mha_ref); "decode" runs no flash call; the untied head 1 at the
+    last token of each row.  matmul shapes are (role, m, k, n,
+    activation, fp32 out, bias), flash's (b, hq, hkv, tq, tk, d,
+    causal)."""
+    d, f, L, E = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.n_enc_layers
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    dq, dkv = h * dh, hkv * dh
+    mm, fl = collections.Counter(), collections.Counter()
+
+    def add(role, rows, k, n, count, act="none", fp32=False):
+        mm[(role, rows, k, n, act, fp32, False)] += count
+
+    def block(prefix, rows, count, roles):
+        for role, k, n in roles:
+            add(f"{prefix}.{role}", rows, k, n, count)
+
+    if kind in ("prefill", "chunk_first"):
+        ms = b * src
+        block("enc", ms, E, (("q", d, dq), ("k", d, dkv), ("v", d, dkv),
+                             ("o", dq, d)))
+        add(f"enc.up_{cfg.mlp_activation}", ms, d, f, E, cfg.mlp_activation)
+        add("enc.down", ms, f, d, E)
+        fl[(b, h, hkv, src, src, dh, False)] += E
+        block("cross", ms, L, (("k", d, dkv), ("v", d, dkv)))
+    m = b * t
+    block("dec", m, L, (("self.q", d, dq), ("self.k", d, dkv),
+                        ("self.v", d, dkv), ("self.o", dq, d),
+                        ("cross.q", d, dq), ("cross.o", dq, d)))
+    add(f"dec.up_{cfg.mlp_activation}", m, d, f, L, cfg.mlp_activation)
+    add("dec.down", m, f, d, L)
+    if kind == "prefill":
+        fl[(b, h, hkv, t, t, dh, True)] += L
+    if kind != "decode" and t > 1:
+        fl[(b, h, hkv, t, src, dh, False)] += L
+    add("lm_head", b, d, cfg.vocab, 1, fp32=True)
+    return {"matmul": mm, "flash_attention": fl}
+
+
+def encdec_flash_inputs(shape, dtype, gen):
+    """(q, k, v, keyword arguments) of an encoder-decoder flash shape: the
+    queries' length apart from the keys'; causal or not."""
+    b, hq, hkv, tq, tk, d, causal = shape
+    return (*qkv_views(b, hq, hkv, tq, d, dtype, gen, tk=tk)[:3],
+            {"causal": causal})
+
+
+def encdec_traffic(cfg, gen, src_len, n, prompts, new, vocab=None):
+    """``n`` greedy requests, prompt lengths in ``prompts`` (inclusive) and
+    max_tokens in ``new``, each with its own ``src_embeds`` (src_len,
+    d_model) on the card, from a seeded numpy generator and ``gen``."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED + 51)
+    lens = rng.integers(prompts[0], prompts[1] + 1, n)
+    maxt = rng.integers(new[0], new[1] + 1, n)
+    return [Request(prompt=rng.integers(0, vocab or cfg.vocab, p).tolist(),
+                    max_tokens=int(m), stop_tokens=(),
+                    src_embeds=torch.randn(src_len, cfg.d_model,
+                                           device="cuda", generator=gen)
+                    .to(cfg_dtype(cfg)))
+            for p, m in zip(lens, maxt)]
+
+
+def encdec_fp32_tokens(gen):
+    """fp32 at the reduced width (2 + 2 layers, d_model 128, heads of 32,
+    a ragged memory of 200 frames): the static engine's greedy tokens and
+    each pool's (slotted, paged, chunked) on the kernels against the plain
+    path's; a row that differs must differ at a top-two logit gap within
+    the fp32 band."""
+    from repro_torch.configs import get
+    from repro_torch.core import dispatch
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get(ENCDEC).reduced()
+    params = api.init_params(cfg, gen, device="cuda")
+    src_len, prompt, new = 200, 32, 24
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, prompt),
+                                     device="cuda", generator=gen),
+             "src_embeds": torch.randn(2, src_len, cfg.d_model,
+                                       device="cuda", generator=gen)}
+    engine = Engine(cfg, params, ServeConfig(max_len=prompt + new,
+                                             src_len=src_len))
+    got = engine.generate(batch, n_tokens=new, stop_tokens=()).tolist()
+    with dispatch.use(backend="torch"):
+        want = engine.generate(batch, n_tokens=new, stop_tokens=()).tolist()
+    found = {"static": rec_divergence(
+        cfg, params, batch["tokens"].tolist(), got, want,
+        batch["src_embeds"])}
+    requests = encdec_traffic(cfg, gen, src_len, 6, (1, 64), (6, 16))
+    for pool, kw in (("slotted", {}), ("paged", {"page_size": 16}),
+                     ("chunked", {"page_size": 16, "prefill_chunk": 32})):
+        pool_kw = {"n_slots": ENCDEC_SLOTS, "max_len": 96,
+                   "src_len": src_len, **kw}
+        c_got, *_ = continuous_run(cfg, params, requests, pool_kw, {}, {})
+        with dispatch.use(backend="torch"):
+            c_want, *_ = continuous_run(cfg, params, requests, pool_kw, {},
+                                        {})
+        ids = sorted(c_want)
+        found[pool] = rec_divergence(
+            cfg, params, [requests[i].prompt for i in ids],
+            [c_got[i] for i in ids], [c_want[i] for i in ids],
+            [requests[i].src_embeds for i in ids])
+    emit({"phase": "encdec", "arch": ENCDEC, "engine": "static+continuous",
+          "dtype": "float32", "n_layers": cfg.n_layers,
+          "n_enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+          "head_dim": cfg.dh, "src_len": src_len, "reduced": True,
+          "static_rows_matching_plain": [a == b for a, b in zip(got, want)],
+          "first_divergence": found, "band": LOGITS_BAND[torch.float32]})
+    del engine, params
+    torch.cuda.empty_cache()
+    return [f"fp32 {ENCDEC} {where} row {r} differs from the plain path at "
+            f"step {gap['step']}, top-two gap {gap['top2_gap']}"
+            for where, rows in found.items() for r, gap in rows.items()
+            if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
+
+
+def encoder_share(params, src_embeds, prefill_busy_ms):
+    """(device ms of the encoder alone, its share of a prefill's device
+    busy time), the encoder timed under the profiler on the same frames."""
+    with torch.inference_mode():
+        enc_ms = sum(device_ms_by_kernel(
+            lambda: params.encode(src_embeds), 1).values())
+    return enc_ms, enc_ms / prefill_busy_ms
+
+
+def cross_bytes(pool):
+    """Device bytes of a pool's cross K and V."""
+    leaves = pool.data if hasattr(pool, "data") else pool.leaves
+    return sum(leaves[k].numel() * leaves[k].element_size()
+               for k in ("cross.k", "cross.v"))
+
+
+def phase_encdec(card):
+    """seamless-m4t-large-v2 at full width and depth (24 + 24 layers, bf16,
+    random weights from a seed): the static ``Engine.generate`` runs of
+    ENCDEC_STATIC (the second a one-token prompt over 1000 frames) and
+    ``ContinuousEngine.serve`` of ENCDEC_REQUESTS requests over
+    ENCDEC_SLOTS slots (slots reused) in each of ENCDEC_POOLS, each with
+    exact launch counts (counts zeroed just before, read just after,
+    against encdec_forward_calls), every call on wgmma but the head's
+    unaligned 256206 columns, every pool empty after its run; tokens/s,
+    prefill and decode-step ms, busy and idle, the encoder's share of a
+    prefill, the cross-KV bytes a slot and the pool's bytes; every kernel
+    call of one prefill and one decode forward against its plain version
+    on its own inputs, and each kernel at every shape of the runs against
+    its plain version (rec_shape_parity); then fp32 at the reduced
+    width, both engines' greedy tokens against the plain path's.  Returns
+    ({"encdec": launches}, worst abs error by kernel, kernel calls of the
+    runs)."""
+    from repro_torch.kernels.brgemm import matmul_cuda
+    from repro_torch.kernels.brgemm.kernel import (plan_call,
+                                                   reset_matmul_counts)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_flash_counts)
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    counters = {"matmul": matmul_cuda, "flash_attention": flash_attention_cuda}
+    launches = dict.fromkeys(ENCDEC_KERNELS, 0)
+    worst = dict.fromkeys(ENCDEC_KERNELS, 0.0)
+    failed = []
+    cfg = model_cfg(ENCDEC, {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    head_plan = plan_call(torch.empty(2, cfg.d_model, device="cuda",
+                                      dtype=cfg_dtype(cfg)), params.head.w)
+    calls = {k: collections.Counter() for k in ENCDEC_KERNELS}
+    done = set()              # (kernel, shape) held against plain
+    for b, src_len, prompt, new in ENCDEC_STATIC:
+        max_len = prompt + new
+        engine = Engine(cfg, params, ServeConfig(max_len=max_len,
+                                                 src_len=src_len))
+        tokens = torch.randint(0, cfg.vocab, (b, prompt), device="cuda",
+                               generator=gen, dtype=torch.int32)
+        src = torch.randn(b, src_len, cfg.d_model, device="cuda",
+                          generator=gen).to(cfg_dtype(cfg))
+        engine.generate({"tokens": tokens[:, :16], "src_embeds": src},
+                        n_tokens=2, stop_tokens=())     # warm-up, not counted
+        torch.cuda.synchronize()
+        # The main path: counts zeroed just before, read just after.
+        reset_matmul_counts()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        ids = engine.generate({"tokens": tokens, "src_embeds": src},
+                              n_tokens=new, stop_tokens=())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        s_calls = rec_calls(cfg, collections.Counter(
+            {("prefill", b, prompt, src_len): 1,
+             ("decode", b, 1, src_len): new - 1}), encdec_forward_calls)
+        expect = {k: sum(v.values()) for k, v in s_calls.items()}
+        if got != expect:
+            failed.append(f"static {b}x{prompt} over {src_len}: launches "
+                          f"{got} != {expect}")
+        by_mainloop = {**rec_mainloop_check(s_calls),
+                       **flash_mainloop_check(torch.bfloat16,
+                                              got["flash_attention"])}
+        for k in ENCDEC_KERNELS:
+            launches[k] += got[k]
+            calls[k].update(s_calls[k])
+        steps = step_times(cfg, params, tokens, tier=f"{ENCDEC} {b}x{prompt}"
+                           f" over {src_len}", max_len=max_len + 24,
+                           src_embeds=src)
+        enc_ms, enc_share = encoder_share(params, src,
+                                          steps["prefill_device_busy_ms"])
+        emit({"phase": "encdec", "arch": ENCDEC, "engine": "static",
+              "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+              "n_enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab,
+              "params_b": sum(p.numel() for p in params.parameters()) / 1e9,
+              "init_s": init_s, "batch": b, "src_len": src_len,
+              "prompt": prompt, "new_tokens": new, "launches": got,
+              "expected_launches": expect, **by_mainloop,
+              "head_mainloop": head_plan.mainloop,
+              "generate_s": seconds, "tokens_per_s": b * new / seconds,
+              "ids_shape": list(ids.shape),
+              "encoder_device_ms": enc_ms,
+              "encoder_share_of_prefill_device": enc_share,
+              "cross_kv_bytes_a_row": 2 * cfg.n_layers * cfg.n_kv_heads
+              * src_len * cfg.dh * 2,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "card": card})
+        if tuple(ids.shape) != (b, new) or not steps["logits_finite"]:
+            failed.append(f"static: ids {tuple(ids.shape)}, finite "
+                          f"{steps['logits_finite']}")
+        errs, checked = forward_parity(cfg, params, tokens, failed,
+                                       ENCDEC_KERNELS, src_embeds=src)
+        emit({"phase": "encdec_parity", "batch": b, "src_len": src_len,
+              "prompt": prompt, "calls_checked": checked,
+              "max_abs_err": errs})
+        for k, err in errs.items():
+            worst[k] = max(worst[k], err)
+        del engine, src
+
+    requests = encdec_traffic(cfg, gen, ENCDEC_SRC, ENCDEC_REQUESTS,
+                              ENCDEC_PROMPTS, ENCDEC_TOKENS)
+    max_len = max(len(r.prompt) + r.max_tokens for r in requests)
+    for pool, kw in ENCDEC_POOLS:
+        pool_kw = {"n_slots": ENCDEC_SLOTS, "max_len": max_len,
+                   "src_len": ENCDEC_SRC, **kw}
+        out, ce, c_got, c_seconds, decode_s, finite, c_forwards = \
+            continuous_run(cfg, params, requests, pool_kw, {}, counters)
+        m = ce.metrics
+        fwd = collections.Counter()
+        for (kind, rows), n in c_forwards.items():
+            fwd[(kind, 1, rows, ENCDEC_SRC) if kind != "decode" else
+                (kind, rows, 1, ENCDEC_SRC)] += n
+        c_calls = rec_calls(cfg, fwd, encdec_forward_calls)
+        c_expect = {k: sum(v.values()) for k, v in c_calls.items()}
+        encodes = sum(n for (k, *_), n in fwd.items()
+                      if k in ("prefill", "chunk_first"))
+        pool_rec, empty = pool_state(ce)
+        emit({"phase": "encdec", "arch": ENCDEC, "engine": "continuous",
+              "pool": pool, **pool_kw, "paged": ce.paged,
+              "requests": len(requests),
+              "prompt_lens": [len(r.prompt) for r in requests],
+              "max_tokens": [r.max_tokens for r in requests],
+              "launches": c_got, "expected_launches": c_expect,
+              "forwards": {" ".join(map(str, k)): n for k, n in fwd.items()},
+              "decode_steps": m.decode_steps, "prefills": m.prefills,
+              "prefill_chunks": m.prefill_chunks,
+              "tokens_generated": m.tokens_generated, "serve_s": c_seconds,
+              "tokens_per_s": m.tokens_generated / c_seconds,
+              "decode_step_host_ms_median": median(decode_s) * 1e3,
+              "kv_bytes": ce.pool.kv_bytes(),
+              "cross_kv_bytes_a_slot": cross_bytes(ce.pool) / ENCDEC_SLOTS,
+              "pool_state": pool_rec, "logits_finite": finite,
+              "card": card})
+        if c_got != c_expect or not empty or not finite or \
+                ce.paged != bool(kw) or encodes != len(requests) or \
+                m.prefills != len(requests) or \
+                pool_rec["alloc_count"] <= ENCDEC_SLOTS or \
+                (pool == "chunked") != (m.prefill_chunks > 0) or any(
+                    len(out[i]) != r.max_tokens
+                    for i, r in enumerate(requests)):
+            failed.append(f"{pool}: launches {c_got} != {c_expect}, empty "
+                          f"{empty}, finite {finite}, encodes {encodes}, "
+                          f"allocs {pool_rec['alloc_count']}, chunks "
+                          f"{m.prefill_chunks}")
+        for k in ENCDEC_KERNELS:
+            launches[k] += c_got[k]
+            calls[k].update(c_calls[k])
+        del ce
+    errs, checked = rec_shape_parity(cfg, calls, done, failed,
+                                     encdec_flash_inputs, SEED + 52)
+    emit({"phase": "encdec_shape_parity", "shapes_checked": checked,
+          "shapes_run": {k: len(calls[k]) for k in ENCDEC_KERNELS},
+          "max_abs_err": errs,
+          "bands": {k: TOL[(k, torch.bfloat16)] for k in ENCDEC_KERNELS}})
+    for k, err in errs.items():
+        worst[k] = max(worst[k], err)
+    del params, requests
+    free_card()
+    failed += encdec_fp32_tokens(gen)
+    if failed:
+        raise AssertionError(f"encdec: {failed}")
+    return {"encdec": launches}, worst, calls
+
+
+def phase_times_encdec(card, calls):
+    """Per-shape times of the encoder-decoder path's bf16 kernels, for the
+    kernels line: each matmul shape of the runs (timed once a distinct
+    shape, one row a role) and each flash forward shape, beside its bound,
+    its plain version and one library call (torch.matmul; SDPA, causal or
+    not); the head's rows are also printed alone."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    rows = []
+    row = row_recorder(rows, card)
+    timed = {}
+    for shape, count in sorted(calls["matmul"].items()):
+        g = rec_gemm(shape)
+        key = (g.m, g.k, g.n, g.activation, g.kind)
+        if key not in timed:
+            iters = 40 if 2 * g.m * g.n * g.k < 1e11 else 8
+            timed[key] = gemm_times(g, gen, iters)
+        ms, wall, plain, lib, flops, nbytes, plan = timed[key]
+        row("matmul", f"{ENCDEC}.{g.name} m{g.m}", ms, wall, flops, nbytes,
+            plain, lib, {"encdec": count}, m=g.m, k=g.k, n=g.n,
+            activation=g.activation, layout=g.kind, **plan)
+        if g.name == "lm_head":
+            emit({"phase": "encdec_head", "m": g.m, "k": g.k, "n": g.n,
+                  "ms": ms, "bound_ms": rows[-1]["bound_ms"],
+                  "bound_by": rows[-1]["bound_by"], "plain_ms": plain,
+                  "torch_matmul_ms": lib, "mainloop": plan["mainloop"],
+                  "launches": count, "card": card})
+    for (b, hq, hkv, tq, tk, d, causal), count in sorted(
+            calls["flash_attention"].items()):
+        pairs = tq * (tq + 1) // 2 if causal else tq * tk
+        nbytes = 2 * (2 * b * hq * tq * d + 2 * b * hkv * tk * d)
+        sets = [qkv_views(b, hq, hkv, tq, d, torch.bfloat16, gen, tk=tk)[:3]
+                for _ in range(n_sets(nbytes))]
+        ms, wall = time_ms(lambda q, k, v: flash_attention_cuda(
+            q, k, v, causal=causal), sets, 8)
+        plain, _ = time_ms(lambda q, k, v: mha_ref(q, k, v, causal=causal),
+                           sets, 2)
+        lib, _ = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), sets, 8)
+        row("flash_attention", f"{ENCDEC}.{'self' if causal else 'cross'} "
+            f"B{b} Tq{tq} Tk{tk}", ms, wall, 4 * b * hq * pairs * d, nbytes,
+            plain, lib, {"encdec": count}, q=[b, hq, tq, d],
+            kv=[b, hkv, tk, d], causal=causal,
+            mainloop=FK.plan_call(*sets[0]))
+        del sets
+    return rows
+
+
 SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
     "matmul": ("src/repro_torch/kernels/brgemm/csrc/matmul.cu",
                "src/repro/kernels/brgemm/kernel.py:118"),
@@ -5971,6 +6404,8 @@ def kernels_line(rows, launches_by_path, worst):
     deepseek-v3-671b's bf16 ``Engine.generate`` and slotted and paged
     ``ContinuousEngine.serve`` runs; recurrent, xlstm-1.3b's and
     recurrentgemma-9b's bf16 ``Engine.generate`` and slotted
+    ``ContinuousEngine.serve`` runs; encdec, seamless-m4t-large-v2's bf16
+    ``Engine.generate`` runs and slotted, paged and chunked
     ``ContinuousEngine.serve`` runs.  ``delta_rowsum`` runs on
     none of them (it is the oracle of the fused delta): its times are one
     call's."""
@@ -6054,16 +6489,22 @@ def main():
     launches.update(rec_launches)
     for kernel, err in rec_worst.items():
         worst[kernel] = max(worst[kernel], err)
+    encdec_launches, encdec_worst, encdec_calls_run = phase_encdec(card)
+    launches.update(encdec_launches)
+    for kernel, err in encdec_worst.items():
+        worst[kernel] = max(worst[kernel], err)
     phase_capture()
     rows = (phase_times(cfg, card, cont_forwards) + phase_times_paper(card)
             + phase_times_quant(cfg, card, cont_forwards)
             + phase_times_slice(card, fc_rows, win_static, win_flash)
             + phase_times_llava(card, llava_gemm, llava_flash, llava_plans)
             + phase_times_moe(card, moe_calls_by_model)
-            + phase_times_recurrent(card, rec_calls_by_model))
+            + phase_times_recurrent(card, rec_calls_by_model)
+            + phase_times_encdec(card, encdec_calls_run))
     emit({"phase": "capture_failures", "by_cause": dict(CAPTURE_FAILURES)})
+    emit({"phase": "free_card", **FREED})
     check_row_calls(rows, launches, ("lstm", "fc", "windowed", "llava",
-                                     "moe", "recurrent"))
+                                     "moe", "recurrent", "encdec"))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

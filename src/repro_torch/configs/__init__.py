@@ -15,6 +15,7 @@ _MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "xlstm-1.3b": "xlstm_1_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 ARCH_NAMES = tuple(_MODULES)

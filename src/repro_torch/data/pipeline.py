@@ -6,10 +6,10 @@ zipf(1.3) tokens clipped to the vocabulary, labels the tokens shifted by
 one, so the two packages train on identical batches.  A background thread
 prefetches ahead of the loop; ``start_step`` resumes the stream exactly.
 Batches are numpy arrays until the train step moves them to the device.
-The dense decoder's batch (``tokens``, ``labels``, and a VLM's
-``patch_embeds``, drawn after the tokens as the reference draws them) is
-ported, and serves every decoder family, the recurrent ones (xlstm,
-rglru_hybrid) among them; the encoder-decoder's is not.
+A batch holds ``tokens`` and ``labels``, a VLM's ``patch_embeds`` and an
+encoder-decoder's ``src_embeds`` (``api.encdec_src_len`` frames), each
+drawn after the tokens in the reference's order, so that every family's
+batch is the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -20,16 +20,13 @@ import numpy as np
 
 from repro_torch.configs.base import ArchCfg
 from repro_torch.configs.shapes import ShapeCfg
-from repro_torch.models.api import token_len
+from repro_torch.models.api import encdec_src_len, is_encdec, token_len
 
 
 class TokenPipeline:
     def __init__(self, cfg: ArchCfg, shape: ShapeCfg, *, seed: int = 0,
                  host_id: int = 0, n_hosts: int = 1, start_step: int = 0,
                  prefetch: int = 2):
-        if cfg.block == "encdec":
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder's batches are not ported")
         if shape.global_batch % n_hosts:
             raise ValueError(f"global batch {shape.global_batch} does not "
                              f"split over {n_hosts} hosts")
@@ -55,6 +52,10 @@ class TokenPipeline:
             batch["patch_embeds"] = rng.standard_normal(
                 (self.local_batch, self.cfg.n_patches, self.cfg.d_model),
                 dtype=np.float32)
+        if is_encdec(self.cfg):
+            batch["src_embeds"] = rng.standard_normal(
+                (self.local_batch, encdec_src_len(self.cfg, self.shape),
+                 self.cfg.d_model), dtype=np.float32)
         return batch
 
     def _worker(self):

@@ -21,7 +21,11 @@ ResNet-50's parameters, a tree of the same layout in both packages, and
 and ``lstm_lm_params_to_numpy`` the LSTM language model's alike.  An
 untied head (``head.w``), an ungated MLP (no ``w_gate``) and a VLM's
 patch projection (``vision_proj``: ``w1``, ``b1``, ``w2``, ``b2``) carry
-across as the tree holds them.
+across as the tree holds them.  The encoder-decoder's tree stacks its
+``enc_blocks`` (``ln1``, ``attn.*``, ``ln2``, ``mlp.*``) and
+``dec_blocks`` (``ln1``, ``self_attn.*``, ``ln_x``, ``cross_attn.*``,
+``ln2``, ``mlp.*``) apart, beside ``enc_ln``, ``final_ln`` and ``head.w``:
+the port's ``EncDec`` (``enc_blocks.0 ..``, ``dec_blocks.0 ..``).
 A calibrated reference tree (``repro.quant.calibrate_params``, then numpy
 leaves) carries across too: each stacked ``QuantizedTensor`` leaf (``q``
 (L, k, n), ``scale`` (L, n) or (L,)) is sliced per layer into the port's
@@ -40,7 +44,7 @@ from repro_torch.configs.base import ArchCfg
 from repro_torch.core.dispatch import check_device
 from repro_torch.core.quantize import (TORCH_DTYPES, QuantizedTensor,
                                        install)
-from repro_torch.models import lstm_lm, resnet
+from repro_torch.models import encdec, lstm_lm, resnet
 from repro_torch.models.blocks import (RECURRENT, RECURRENT_BLOCKS,
                                        DecoderBlock, dtype_of,
                                        recurrent_layout)
@@ -48,6 +52,9 @@ from repro_torch.models.transformer import Transformer
 
 
 _VISION_LEAVES = ("w1", "b1", "w2", "b2")    # a VLM's patch projection
+# the port's stacks of layers: the decoder LMs' and the encoder-decoder's
+# two
+_STACKS = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def _to_torch(arr, dtype, device) -> torch.Tensor:
@@ -129,14 +136,31 @@ def _recurrent_tree(named, cfg: ArchCfg) -> dict:
     return tree
 
 
+@functools.lru_cache(maxsize=None)
+def _encdec_attrs(cfg: ArchCfg, stack: str) -> tuple[str, ...]:
+    """The parameter names of an encoder (``enc_blocks``) or decoder
+    (``dec_blocks``) layer of the encoder-decoder."""
+    cls = encdec.EncoderBlock if stack == "enc_blocks" else \
+        encdec.DecoderBlock
+    return tuple(name for name, _ in cls(cfg, device="meta")
+                 .named_parameters())
+
+
 def _stacks(cfg: ArchCfg):
-    """(key in the reference's tree, first layer, layers, MoE blocks) of
-    each stack of layers."""
+    """(key in the reference's tree, first layer, layers, attrs of a
+    layer, the port's name of the stack) of each stack of layers: MLA's
+    dense and MoE layers are the port's ``blocks`` in that order."""
+    if cfg.block == "encdec":
+        return tuple((key, 0, n, _encdec_attrs(cfg, key), key)
+                     for key, n in (("enc_blocks", cfg.n_enc_layers),
+                                    ("dec_blocks", cfg.n_layers)))
     if cfg.block == "mla_moe":
         nd = cfg.n_dense_layers
-        return (("dense_blocks", 0, nd, False),
-                ("moe_blocks", nd, cfg.n_layers - nd, True))
-    return (("blocks", 0, cfg.n_layers, cfg.block == "moe"),)
+        return (("dense_blocks", 0, nd, _block_attrs(cfg, False), "blocks"),
+                ("moe_blocks", nd, cfg.n_layers - nd,
+                 _block_attrs(cfg, True), "blocks"))
+    return (("blocks", 0, cfg.n_layers,
+             _block_attrs(cfg, cfg.block == "moe"), "blocks"),)
 
 
 def _one(leaf):
@@ -151,6 +175,8 @@ def named_leaves(tree, cfg: ArchCfg):
     the stacked layers sliced per layer."""
     yield "embed.table", tree["embed"]["table"]
     yield "final_ln.scale", tree["final_ln"]["scale"]
+    if cfg.block == "encdec":
+        yield "enc_ln.scale", tree["enc_ln"]["scale"]
     if not cfg.tie_embeddings:
         yield "head.w", _one(tree["head"]["w"])
     if cfg.n_patches:
@@ -159,8 +185,8 @@ def named_leaves(tree, cfg: ArchCfg):
     if cfg.block in RECURRENT:
         yield from _recurrent_leaves(tree, cfg)
         return
-    for key, first, count, use_moe in _stacks(cfg):
-        for attr in _block_attrs(cfg, use_moe):
+    for key, first, count, attrs, port in _stacks(cfg):
+        for attr in attrs:
             leaf = _leaf(tree[key], attr)
             stacked = (np.asarray(leaf.q) if _is_quantized(leaf)
                        else np.asarray(leaf))
@@ -169,7 +195,7 @@ def named_leaves(tree, cfg: ArchCfg):
                                  f"{stacked.shape[0]} layers, config has "
                                  f"{count}")
             for i in range(count):
-                name = f"blocks.{first + i}.{attr}"
+                name = f"{port}.{first + i}.{attr}"
                 if _is_quantized(leaf):   # (q, scale) of layer i
                     yield name, (stacked[i], np.asarray(leaf.scale)[i])
                 else:
@@ -193,25 +219,31 @@ def _tree_of(named) -> dict:
     def np32(t):
         return t.detach().float().cpu().numpy()
 
-    attrs: dict[int, list[str]] = {}
+    attrs: dict[str, dict[int, list[str]]] = {}
     for name in named:
-        if name.startswith("blocks."):
-            _, i, attr = name.split(".", 2)
-            attrs.setdefault(int(i), []).append(attr)
-    layers = sorted(attrs)
-    if layers and "attn.wq_a" in attrs[layers[0]]:   # mla_moe's two stacks
-        moe = [i for i in layers if "moe.router" in attrs[i]]
-        stacks = {"dense_blocks": [i for i in layers if i not in moe],
-                  "moe_blocks": moe}
-    else:
-        stacks = {"blocks": layers} if layers else {}
+        port, _, rest = name.partition(".")
+        if port in _STACKS:
+            i, attr = rest.split(".", 1)
+            attrs.setdefault(port, {}).setdefault(int(i), []).append(attr)
+    stacks = {}      # key in the reference's tree -> (port's stack, layers)
+    for port, by_layer in attrs.items():
+        layers = sorted(by_layer)
+        if "attn.wq_a" in by_layer[layers[0]]:      # mla_moe's two stacks
+            moe = [i for i in layers if "moe.router" in by_layer[i]]
+            stacks["dense_blocks"] = (port, [i for i in layers
+                                             if i not in moe])
+            stacks["moe_blocks"] = (port, moe)
+        else:
+            stacks[port] = (port, layers)
     tree = {"embed": {"table": np32(named["embed.table"])},
             "final_ln": {"scale": np32(named["final_ln.scale"])}}
-    for key, ids in stacks.items():
+    if "enc_ln.scale" in named:
+        tree["enc_ln"] = {"scale": np32(named["enc_ln.scale"])}
+    for key, (port, ids) in stacks.items():
         node = tree.setdefault(key, {})
-        for attr in attrs[ids[0]] if ids else ():
+        for attr in attrs[port][ids[0]] if ids else ():
             _put(node, attr, np.stack(
-                [np32(named[f"blocks.{i}.{attr}"]) for i in ids]))
+                [np32(named[f"{port}.{i}.{attr}"]) for i in ids]))
     for name, t in named.items():
         if name.startswith("mtp_block."):
             _put(tree.setdefault("mtp_block", {}), name[len("mtp_block."):],
@@ -225,12 +257,14 @@ def _tree_of(named) -> dict:
 
 
 def params_from_numpy(tree, cfg: ArchCfg, device="cuda",
-                      dtype: torch.dtype | None = None) -> Transformer:
-    """The reference's parameter tree (numpy leaves) as a ``Transformer``.
+                      dtype: torch.dtype | None = None):
+    """The reference's parameter tree (numpy leaves) as a ``Transformer``,
+    or an encoder-decoder's as an ``EncDec``.
 
     ``dtype`` defaults to ``cfg.dtype``; every leaf is cast to it but the
     calibrated ones, which keep their storage and fp32 scales."""
-    model = Transformer(cfg, device=device)
+    model = (encdec.EncDec if cfg.block == "encdec" else Transformer)(
+        cfg, device=device)
     dtype = dtype or dtype_of(cfg)
     model.to(dtype=dtype)
     named = dict(model.named_parameters())
@@ -247,7 +281,7 @@ def params_from_numpy(tree, cfg: ArchCfg, device="cuda",
     return model
 
 
-def params_to_numpy(model: Transformer) -> dict:
+def params_to_numpy(model) -> dict:
     """The reference's tree layout (layers stacked; a recurrent config's
     in its nested stacks) with fp32 numpy leaves."""
     named = dict(model.named_parameters())

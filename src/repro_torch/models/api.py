@@ -1,7 +1,9 @@
-"""Uniform model API, as in the reference; the decoder-only families
+"""Uniform model API, as in the reference: the decoder-only families
 (dense, a VLM's patch prefix included: its prefill and train batches carry
 ``patch_embeds``, and ``token_len`` deducts the prefix from a shape's
-sequence; moe; mla_moe; the recurrent xlstm and rglru_hybrid).
+sequence; moe; mla_moe; the recurrent xlstm and rglru_hybrid) run
+``models/transformer.py``, the encoder-decoder (encdec) ``models/
+encdec.py``, whose batches carry ``src_embeds`` (B, src_len, d_model).
 
 Besides the reference's entry points (init, forward, loss, prefill,
 prefill_chunk, decode_step) it holds the two decode steps of continuous
@@ -31,7 +33,12 @@ config's layers hold different leaves (``models/blocks.py``): its pool
 stacks each by layer kind and leaf, ``"<kind>.<leaf>"`` (``cache_keys``,
 ``kv_shape``), over the layers of that kind, and ``layer_views`` /
 ``stack_layers`` take ``cfg`` to hand each layer its own (the reference
-stacks its groups alike).
+stacks its groups alike).  The encoder-decoder's layers hold the decoder's
+self-attention ``{"k", "v"}`` and the cross-attention's ``{"cross.k",
+"cross.v"}``, each (L, N, Hkv, src_len, dh) in a pool: K and V of the
+encoder memory, whose size does not depend on ``max_len``.  They are
+*slot-resident* (``resident_keys``): a paged pool keeps them by slot
+beside its pages, as the reference's time axis -1 marks them.
 """
 from __future__ import annotations
 
@@ -41,16 +48,27 @@ import torch
 from repro_torch.configs.base import ArchCfg
 from repro_torch.configs.shapes import ShapeCfg
 from repro_torch.core.quantize import quantize
-from repro_torch.models import blocks, transformer
+from repro_torch.models import blocks, encdec, transformer
 
 KEYS = ("k", "v")                 # GQA's cache leaves
 MLA_KEYS = ("c_kv", "k_rope")     # MLA's compressed ones
 
 
+def is_encdec(cfg: ArchCfg) -> bool:
+    return cfg.block == "encdec"
+
+
+def _module(cfg: ArchCfg):
+    return encdec if is_encdec(cfg) else transformer
+
+
 def cache_keys(cfg: ArchCfg) -> tuple[str, ...]:
-    """A pool's leaves: GQA's or MLA's, or a recurrent config's
+    """A pool's leaves: GQA's or MLA's, a recurrent config's
     ``"<kind>.<leaf>"`` for each layer kind it runs (``mlstm.c``,
-    ``slstm.h``, ``rec.conv``, ``attn.k``, ...)."""
+    ``slstm.h``, ``rec.conv``, ``attn.k``, ...), or the encoder-decoder's
+    self and cross K and V."""
+    if is_encdec(cfg):
+        return encdec.SELF_KEYS + encdec.CROSS_KEYS
     if cfg.block in blocks.RECURRENT:
         kinds = dict.fromkeys(k for k, _, _ in blocks.recurrent_layout(cfg))
         return tuple(f"{kind}.{leaf}" for kind in kinds
@@ -58,9 +76,27 @@ def cache_keys(cfg: ArchCfg) -> tuple[str, ...]:
     return MLA_KEYS if cfg.mla else KEYS
 
 
+def resident_keys(cfg: ArchCfg) -> tuple[str, ...]:
+    """The leaves a paged pool keeps by slot, not in pages: the
+    encoder-decoder's cross K and V."""
+    return encdec.CROSS_KEYS if is_encdec(cfg) else ()
+
+
+def encdec_src_len(cfg: ArchCfg, shape: ShapeCfg) -> int:
+    """Encoder frames of an encoder-decoder's shape (the reference's)."""
+    if shape.kind == "train":
+        return shape.seq_len // 2
+    return min(4096, shape.seq_len // 8)
+
+
 def token_len(cfg: ArchCfg, shape: ShapeCfg) -> int:
     """Decoder-token length of the shape (a stub patch prefix, where a
-    config has one, deducted in train and prefill)."""
+    config has one, deducted in train and prefill; an encoder-decoder's
+    frames likewise)."""
+    if is_encdec(cfg):
+        if shape.kind in ("train", "prefill"):
+            return shape.seq_len - encdec_src_len(cfg, shape)
+        return shape.seq_len
     if cfg.n_patches and shape.kind in ("train", "prefill"):
         return shape.seq_len - cfg.n_patches
     return shape.seq_len
@@ -68,27 +104,32 @@ def token_len(cfg: ArchCfg, shape: ShapeCfg) -> int:
 
 def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
                 device="cuda"):
-    return transformer.init_params(cfg, generator, device=device)
+    return _module(cfg).init_params(cfg, generator, device=device)
 
 
-def init_cache(cfg: ArchCfg, batch: int, max_len: int, *, device="cuda"):
+def init_cache(cfg: ArchCfg, batch: int, max_len: int, src_len: int = 0, *,
+               device="cuda"):
+    """The serve cache of either module (``src_len``: the encoder-decoder's
+    memory length, unused by the others)."""
+    if is_encdec(cfg):
+        return encdec.init_cache(cfg, batch, max_len, src_len, device=device)
     return transformer.init_cache(cfg, batch, max_len, device=device)
 
 
 def forward(params, batch, cfg: ArchCfg, **kw):
-    return transformer.forward(params, batch, cfg, **kw)
+    return _module(cfg).forward(params, batch, cfg, **kw)
 
 
 def loss_fn(params, batch, cfg: ArchCfg, **kw):
-    return transformer.loss_fn(params, batch, cfg, **kw)
+    return _module(cfg).loss_fn(params, batch, cfg, **kw)
 
 
 def prefill(params, batch, cfg: ArchCfg, cache, **kw):
-    return transformer.prefill(params, batch, cfg, cache, **kw)
+    return _module(cfg).prefill(params, batch, cfg, cache, **kw)
 
 
 def decode_step(params, tokens, cfg: ArchCfg, cache, pos, **kw):
-    return transformer.decode_step(params, tokens, cfg, cache, pos, **kw)
+    return _module(cfg).decode_step(params, tokens, cfg, cache, pos, **kw)
 
 
 def check_prompt_len(cfg: ArchCfg, t: int) -> None:
@@ -98,8 +139,15 @@ def check_prompt_len(cfg: ArchCfg, t: int) -> None:
 
 
 def prefill_chunk(params, batch, cfg: ArchCfg, cache, pos, *, length=None,
-                  **kw):
-    """One chunk of a longer prompt against a batch-1 cache view."""
+                  first_chunk: bool = True, **kw):
+    """One chunk of a longer prompt against a batch-1 cache view.
+
+    ``first_chunk`` is the encoder-decoder's only (it runs the encoder
+    and caches the cross K and V); the decoder-only models ignore it."""
+    if is_encdec(cfg):
+        return encdec.prefill_chunk(params, batch, cfg, cache, pos,
+                                    length=length, first_chunk=first_chunk,
+                                    **kw)
     return transformer.prefill_chunk(params, batch, cfg, cache, pos,
                                      length=length, **kw)
 
@@ -119,11 +167,15 @@ def _kind_layers(cfg: ArchCfg) -> list[tuple[str, int]]:
     return out
 
 
-def kv_shape(cfg: ArchCfg, n: int, length: int, key: str = "k") -> tuple:
+def kv_shape(cfg: ArchCfg, n: int, length: int, key: str = "k",
+             src_len: int = 0) -> tuple:
     """One stacked pool leaf: (L, n, Hkv, length, dh) of GQA's, (L, n,
     length, kv_lora or rope) of MLA's ``c_kv`` or ``k_rope``; a recurrent
     config's ``"<kind>.<leaf>"`` (layers of that kind, n, the leaf's shape
-    a row)."""
+    a row); the encoder-decoder's ``cross.k`` / ``cross.v`` (L, n, Hkv,
+    src_len, dh), whatever ``length``."""
+    if key in resident_keys(cfg):
+        length = src_len
     if cfg.block in blocks.RECURRENT:
         kind, leaf = key.split(".")
         count = sum(k == kind for k, _ in _kind_layers(cfg))
@@ -245,7 +297,10 @@ def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
     """One decode step over a paged pool.
 
     ``data``: ``{"k", "v"}``, each (L, n_pages, Hkv, page_size, dh), or
-    MLA's ``{"c_kv", "k_rope"}``, each (L, n_pages, page_size, c).
+    MLA's ``{"c_kv", "k_rope"}``, each (L, n_pages, page_size, c); the
+    encoder-decoder's slot-resident ``{"cross.k", "cross.v"}`` (L, S,
+    Hkv, src_len, dh) beside them (``resident_keys``), handed to the
+    decode as they are: never paged, quantized or written.
     ``page_tables``: (S, P) page ids, the sentinel ``n_pages`` past each
     slot's allocation; ``positions``: (S,) the position each slot's token
     is written at.  Both are host integer arrays: the writes' masks are
@@ -266,14 +321,15 @@ def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
     as the reference re-quantizes every page of a slot each step.
     Returns (logits (S, V), data, scales), the pool written in place.
     """
-    keys = tuple(data)
+    resident = resident_keys(cfg)
+    keys = tuple(k for k in data if k not in resident)
     n_layers, n_pages = data[keys[0]].shape[:2]
     dev = tokens.device
     view_dtype = view_dtype or blocks.dtype_of(cfg)
     pt = np.asarray(page_tables, np.int64)
     pos = np.asarray(positions, np.int64)
     ids = torch.as_tensor(np.minimum(pt, n_pages - 1), device=dev)
-    views = {}
+    views = {key: data[key] for key in resident}
     for key in keys:
         pages = data[key][:, ids]                 # (L, S, P, Hkv, ps, dh)
         if scales is not None:

@@ -16,7 +16,8 @@ stacks run them.  A recurrent block's cache is its state, which it reads
 as the initial state in every mode but train (train starts from the
 initial state, as the reference's ``_train_states``) and overwrites in
 place with the new one, so that a pool's views see the update.  The
-encoder-decoder family waits for a later slice.
+encoder-decoder's blocks live in ``models/encdec.py``, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from repro_torch.layers.norms import RMSNorm
 
 ZERO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0,
             "dropped_fraction": 0.0}
-UNPORTED = ("encdec",)
+UNPORTED = ()
 RECURRENT = ("xlstm", "rglru_hybrid")
 
 
@@ -55,13 +56,13 @@ def moe_cfg(cfg: ArchCfg) -> moe.MoECfg:
 
 
 def check_ported(cfg: ArchCfg) -> None:
-    """The decoder families the port serves: dense (a VLM's patch prefix
-    among them), moe, mla_moe, where MLA is used (DeepSeek-V3), and the
-    recurrent xlstm and rglru_hybrid."""
+    """The families the port serves: dense (a VLM's patch prefix among
+    them), moe, mla_moe, where MLA is used (DeepSeek-V3), the recurrent
+    xlstm and rglru_hybrid, and the encoder-decoder (encdec)."""
     if cfg.block in UNPORTED:
         raise NotImplementedError(
             f"{cfg.name}: block={cfg.block!r} is not ported yet")
-    if cfg.block not in ("dense", "moe", "mla_moe") + RECURRENT:
+    if cfg.block not in ("dense", "moe", "mla_moe", "encdec") + RECURRENT:
         raise ValueError(f"unknown block {cfg.block!r}")
     if cfg.mla and cfg.block != "mla_moe":
         raise NotImplementedError(

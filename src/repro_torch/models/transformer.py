@@ -102,6 +102,9 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchCfg, *, device="cuda"):
         super().__init__()
         blocks.check_ported(cfg)
+        if cfg.block == "encdec":
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it "
+                             f"with models/encdec.py (api.init_params)")
         device = check_device(device)
         dt = blocks.dtype_of(cfg)
         self.cfg = cfg
@@ -292,7 +295,12 @@ def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
     gate's), and the recurrent layers' own leaves as ``_recurrent_init``
     draws them.  Draws come from ``generator`` (default: a CPU generator
     seeded 0), in fp32, then are cast to ``cfg.dtype``."""
-    model = Transformer(cfg, device=device)
+    return fill_params(Transformer(cfg, device=device), generator)
+
+
+def fill_params(model: nn.Module, generator: torch.Generator | None = None):
+    """``model``'s parameters drawn in place as ``init_params`` says (the
+    encoder-decoder's too); returns ``model``."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     with torch.no_grad():
@@ -308,7 +316,7 @@ def init_params(cfg: ArchCfg, generator: torch.Generator | None = None,
             fan_in = p.shape[1] if name == "embed.table" else p.shape[-2]
             draw = torch.randn(p.shape, generator=generator,
                                device=generator.device)
-            p.copy_(draw * fan_in ** -0.5)
+            p.copy_(draw.mul_(fan_in ** -0.5))     # one fp32 copy, not two
     return model
 
 

@@ -12,21 +12,29 @@ policy (``blocks_policy``: ``"heuristic"``, ``"autotune"`` or a callable,
 ``"autotune"`` the first call at each kernel shape pays the measured
 search (or reads ``REPRO_TORCH_TUNING_CACHE``) and later ones reuse the
 winner.  A VLM config (``cfg.n_patches``) takes ``patch_embeds`` (B,
-n_patches, d_model) beside the tokens, whose positions then start past
-the patch prefix (``pos_off``), as in the reference.  Their quant tiers
+n_patches, d_model) beside the tokens, whose positions then start past the
+patch prefix (``pos_off``), as in the reference.  The encoder-decoder
+(seamless-m4t) takes ``src_embeds`` (B, src_len, d_model) of the stub
+frontend beside the tokens (``ServeConfig.src_len`` /
+``PoolConfig.src_len`` size its cross-KV; a request's ``src_embeds`` of
+another length raises); its positions start at 0, the encoder runs at
+prefill or with a chunked prompt's first chunk, and its cross K and V stay
+in the pool's slot for every later chunk and decode step.  The quant tiers
 are the reference's: prefill runs under ``use(quant=quant)``, decode under
 ``use(quant=decode_quant)``, which defaults to ``quant`` (the canonical
 production mix is ``quant=None`` with ``decode_quant="int8"``: prefill is
 compute-bound, decode streams the weights).  A calibrated model
 (``quant.calibrate_params``) runs its GEMMs quantized in both phases
-without any tier.  The MoE and MLA families (grok-1, DeepSeek-V3) and the
-recurrent ones (xLSTM, RecurrentGemma) serve in full precision only: both
-engines refuse a tier or calibrated weights there.  A recurrent config
-serves from the slotted pool only (a page size is ignored and chunked or
-bucketed prefill raise, as in the reference), and an xLSTM prompt that
-breaks mLSTM's chunk rule (at most ``mlstm_chunk`` tokens, or a multiple
-of it) raises before any state is written.  In the static engine an MoE decode routes the batch as one group;
-the continuous engine's slot decode routes each slot as its own
+without any tier (the encoder-decoder's too: its encoder, cross K and V
+and head are GEMMs like the others).  The MoE and MLA families (grok-1,
+DeepSeek-V3) and the recurrent ones (xLSTM, RecurrentGemma) serve in full
+precision only: both engines refuse a tier or calibrated weights there.  A
+recurrent config serves from the slotted pool only (a page size is ignored
+and chunked or bucketed prefill raise, as in the reference), and an xLSTM
+prompt that breaks mLSTM's chunk rule (at most ``mlstm_chunk`` tokens, or
+a multiple of it) raises before any state is written.  In the static
+engine an MoE decode routes the batch as one group; the continuous
+engine's slot decode routes each slot as its own
 (``api.decode_step_slots``), as the reference's ``vmap`` does.
 
 ``ContinuousEngine`` is the port of the reference's continuous-batching
@@ -102,8 +110,9 @@ def _check_tiers(cfg: ArchCfg, params, *tiers) -> None:
 
 
 def _pos_off(cfg: ArchCfg) -> int:
-    """Positions a prompt's tokens start at: past a VLM's patch prefix."""
-    return cfg.n_patches or 0
+    """Positions a prompt's tokens start at: past a VLM's patch prefix (an
+    encoder-decoder's frames are the encoder's, not the decoder's)."""
+    return 0 if api.is_encdec(cfg) else cfg.n_patches or 0
 
 
 def _as_batch1(x, name: str, device):
@@ -113,10 +122,20 @@ def _as_batch1(x, name: str, device):
     return x if x.dim() == 3 else x[None]
 
 
+def _src_embeds(x, src_len: int, where: str):
+    """An encoder-decoder's ``src_embeds``, which must hold ``src_len``
+    frames."""
+    if x.shape[1] != src_len:
+        raise ValueError(f"src_embeds length {x.shape[1]} != {where} src_len "
+                         f"{src_len}")
+    return x
+
+
 @dataclasses.dataclass
 class ServeConfig:
     max_len: int
     temperature: float = 0.0   # 0 => greedy
+    src_len: int = 0           # enc-dec encoder memory length
 
 
 class Engine:
@@ -148,8 +167,9 @@ class Engine:
                  generator: torch.Generator | None = None,
                  stop_tokens=None):
         """batch: ``{"tokens": (B, T) ints}``, and for a VLM config
-        ``"patch_embeds"`` (B, n_patches, d_model).  Returns (B, T') int32
-        ids on the engine's device, T' <= n_tokens.
+        ``"patch_embeds"`` (B, n_patches, d_model), for an encoder-decoder
+        ``"src_embeds"`` (B, ``scfg.src_len``, d_model).  Returns (B, T')
+        int32 ids on the engine's device, T' <= n_tokens.
 
         ``stop_tokens=None`` defaults to ``(cfg.eos_token,)`` when the config
         has one (pass ``()`` to disable).  With stop tokens the loop ends as
@@ -171,10 +191,14 @@ class Engine:
         if self.cfg.n_patches:
             inputs["patch_embeds"] = torch.as_tensor(batch["patch_embeds"],
                                                      device=self.device)
+        if api.is_encdec(self.cfg):
+            inputs["src_embeds"] = _src_embeds(_as_batch1(
+                batch.get("src_embeds"), "src_embeds", self.device),
+                self.scfg.src_len, "ServeConfig")
         with torch.inference_mode(), dispatch.use(
                 backend=self.backend, blocks_policy=self.blocks_policy):
             cache = api.init_cache(self.cfg, b, self.scfg.max_len,
-                                   device=self.device)
+                                   self.scfg.src_len, device=self.device)
             with dispatch.use(quant=self.quant):
                 logits, cache = api.prefill(self.params, inputs, self.cfg,
                                             cache)
@@ -203,8 +227,7 @@ class Engine:
 
 @dataclasses.dataclass
 class PoolConfig:
-    """KV pool sizing + prefill shaping (the reference's, without the
-    enc-dec ``src_len``).
+    """KV pool sizing + prefill shaping (the reference's).
 
     ``n_slots`` bounds concurrent requests (decode cost is O(n_slots) every
     step, so size it to the target batch).  ``max_len`` bounds prompt +
@@ -225,7 +248,9 @@ class PoolConfig:
     one per step, so a long prompt never stalls running decodes for more
     than one chunk's compute; shorter prompts share the same per-step
     token budget.  ``kv_quant="int8"`` stores paged KV as int8 with
-    per-page scales (requires ``page_size``).
+    per-page scales (requires ``page_size``).  ``src_len`` is an
+    encoder-decoder's memory length: every request's ``src_embeds`` holds
+    that many frames, and each slot that many cross K and V.
     """
     n_slots: int
     max_len: int
@@ -234,6 +259,7 @@ class PoolConfig:
     n_pages: int | None = None
     prefill_chunk: int | None = None
     kv_quant: str | None = None
+    src_len: int = 0
 
 
 def _supports_bucketing(cfg: ArchCfg) -> bool:
@@ -319,10 +345,12 @@ class ContinuousEngine:
             self.pool = PagedKVCache(cfg, pool.n_slots, pool.max_len,
                                      page_size=pool.page_size,
                                      n_pages=pool.n_pages,
+                                     src_len=pool.src_len,
                                      kv_quant=pool.kv_quant,
                                      device=self.device)
         else:
             self.pool = SlotKVCache(cfg, pool.n_slots, pool.max_len,
+                                    src_len=pool.src_len,
                                     device=self.device)
         self.scheduler = Scheduler(priority_fn=priority_fn)
         self.metrics = ServeMetrics()
@@ -428,10 +456,18 @@ class ContinuousEngine:
         tokens = np.zeros(pad_to, np.int32)
         tokens[:n] = request.prompt
         batch = {"tokens": self._tokens_on_device(tokens)}
+        if api.is_encdec(self.cfg):
+            batch["src_embeds"] = self._request_src(request)
         if self.cfg.n_patches:
             batch["patch_embeds"] = _as_batch1(request.patch_embeds,
                                                "patch_embeds", self.device)
         return batch, self._pos_off + n - 1
+
+    def _request_src(self, request: Request):
+        """A request's ``src_embeds`` as a batch of one, ``src_len`` long."""
+        return _src_embeds(_as_batch1(request.src_embeds, "src_embeds",
+                                      self.device),
+                           self.pool_cfg.src_len, "pool")
 
     def _span(self, name: str, state: RequestState, **attrs):
         """A span of a traced request, else the no-op span."""
@@ -562,7 +598,8 @@ class ContinuousEngine:
         state.admit_time = self._clock()
         self._staging = {"state": state, "slot": slot,
                          "cache": self.pool.request_cache(),
-                         "pos": 0, "logits": None, "ready": False}
+                         "pos": 0, "first": True, "logits": None,
+                         "ready": False}
         obs.event("engine.prefill_chunk_start", request_id=state.request_id,
                   trace=state.trace, prompt_len=len(state.request.prompt),
                   chunk=self.pool_cfg.prefill_chunk)
@@ -581,10 +618,14 @@ class ContinuousEngine:
             width = min(self.pool_cfg.prefill_chunk, len(prompt) - pos)
             batch = {"tokens": self._tokens_on_device(prompt[pos:pos
                                                              + width])}
+            if api.is_encdec(self.cfg) and st["first"]:
+                batch["src_embeds"] = self._request_src(state.request)
             with self._span("prefill.chunk", state, pos=pos, width=width,
                             slot=slot), dispatch.use(quant=self.quant):
                 logits, st["cache"] = api.prefill_chunk(
-                    self.params, batch, self.cfg, st["cache"], pos)
+                    self.params, batch, self.cfg, st["cache"], pos,
+                    first_chunk=st["first"])
+            st["first"] = False
             st["pos"] = pos + width
             self.metrics.prefill_chunks += 1
             consumed = width

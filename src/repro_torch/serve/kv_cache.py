@@ -29,6 +29,13 @@ gives), dequantized in the decode's gather.  MLA's pages are not: the
 reference scales its dense and its MoE layers' stacks apart, and the
 port's pool stacks every layer together, so ``kv_quant`` with an MLA
 config raises.
+
+The encoder-decoder's pools (``src_len``: its memory's frames) hold the
+cross-attention's K and V, ``{"cross.k", "cross.v"}`` (L, N, Hkv,
+src_len, dh), beside the decoder's self K and V.  Their size does not grow
+with ``max_len``, so a paged pool keeps them slot-resident, (L, n_slots,
+...) beside its pages, at the model's dtype under ``kv_quant`` too, as the
+reference keeps them (``api.resident_keys``).
 """
 from __future__ import annotations
 
@@ -41,9 +48,11 @@ from repro_torch.models import api
 from repro_torch.models.blocks import RECURRENT, cache_len, dtype_of
 
 
-def _zeros(cfg: ArchCfg, n: int, length: int, dtype, device) -> dict:
-    return {key: torch.zeros(api.kv_shape(cfg, n, length, key), dtype=dtype,
-                             device=device) for key in api.cache_keys(cfg)}
+def _zeros(cfg: ArchCfg, n: int, length: int, dtype, device, *,
+           src_len: int = 0, keys=None) -> dict:
+    return {key: torch.zeros(api.kv_shape(cfg, n, length, key, src_len),
+                             dtype=dtype, device=device)
+            for key in keys or api.cache_keys(cfg)}
 
 
 def _nbytes(tensors) -> int:
@@ -61,7 +70,9 @@ class SlotKVCache:
                  (L, n_slots, T, c); a recurrent config's stacked by layer
                  kind, ``"<kind>.<leaf>"`` (L of that kind, n_slots, ...)
                  (``api.cache_keys``), fp32 states (but RG-LRU's ``conv``)
-                 and the local attention layers' rings.
+                 and the local attention layers' rings; the
+                 encoder-decoder's ``{"k", "v"}`` and ``{"cross.k",
+                 "cross.v"}`` (L, n_slots, Hkv, src_len, dh).
     cache:       the model's per-layer views of them (``api.layer_views``),
                  what ``api.decode_step_slots`` takes.
     lengths:     (n_slots,) int32, valid kv length per slot (prompt +
@@ -74,20 +85,22 @@ class SlotKVCache:
     """
 
     def __init__(self, cfg: ArchCfg, n_slots: int, max_len: int, *,
-                 device="cuda"):
+                 src_len: int = 0, device="cuda"):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.device = check_device(device)
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
+        self.src_len = src_len
         with torch.inference_mode():
             if cfg.block in RECURRENT:     # the states' initial values
                 self.leaves = api.stack_layers(api.init_cache(
                     cfg, n_slots, max_len, device=self.device), cfg)
             else:
                 self.leaves = _zeros(cfg, n_slots, cache_len(cfg, max_len),
-                                     dtype_of(cfg), self.device)
+                                     dtype_of(cfg), self.device,
+                                     src_len=src_len)
         self.cache = api.layer_views(self.leaves, cfg)
         self.lengths = np.zeros(n_slots, np.int32)
         self.positions = np.zeros(n_slots, np.int32)
@@ -135,7 +148,7 @@ class SlotKVCache:
         recurrent prefill from the initial state, whatever the slot held
         before."""
         with torch.inference_mode():
-            return api.init_cache(self.cfg, 1, self.max_len,
+            return api.init_cache(self.cfg, 1, self.max_len, self.src_len,
                                   device=self.device)
 
     def insert(self, slot: int, request_cache) -> None:
@@ -158,13 +171,16 @@ class PagedKVCache:
     ------
     data:        ``{"k", "v"}``, each (L, n_pages, Hkv, page_size, dh),
                  int8 with ``kv_quant``, else the model's dtype; MLA's
-                 ``{"c_kv", "k_rope"}``, each (L, n_pages, page_size, c).
+                 ``{"c_kv", "k_rope"}``, each (L, n_pages, page_size, c);
+                 the encoder-decoder's slot-resident ``{"cross.k",
+                 "cross.v"}`` beside them, each (L, n_slots, Hkv,
+                 src_len, dh) of the model's dtype.
     page_tables: (n_slots, pages_per_slot) int32.  Row ``s`` lists slot
                  ``s``'s pages in position order; entries past the
                  allocation hold the sentinel ``n_pages`` (clipped on
                  gather, dropped on every write).
     scales:      with ``kv_quant``, ``{"k", "v"}`` of (n_pages,) fp32
-                 per-page scales, else None; ``view_dtype`` is the dtype
+                 per-page scales (the paged leaves only), else None; ``view_dtype`` is the dtype
                  the pages are dequantized to.
     lengths / positions: as in :class:`SlotKVCache`.
 
@@ -175,7 +191,8 @@ class PagedKVCache:
 
     def __init__(self, cfg: ArchCfg, n_slots: int, max_len: int, *,
                  page_size: int, n_pages: int | None = None,
-                 kv_quant: str | None = None, device="cuda"):
+                 src_len: int = 0, kv_quant: str | None = None,
+                 device="cuda"):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if page_size < 1:
@@ -199,6 +216,7 @@ class PagedKVCache:
         self.page_size = page_size
         self.pages_per_slot = -(-max_len // page_size)
         self.max_len = self.pages_per_slot * page_size   # page-aligned view
+        self.src_len = src_len
         self.n_pages = (n_pages if n_pages is not None
                         else n_slots * self.pages_per_slot)
         if self.n_pages < self.pages_per_slot:
@@ -207,14 +225,20 @@ class PagedKVCache:
                 f"({self.pages_per_slot} pages)")
         self.kv_quant = kv_quant
         self.view_dtype = dtype_of(cfg)
+        resident = api.resident_keys(cfg)
+        paged = tuple(k for k in api.cache_keys(cfg) if k not in resident)
         with torch.inference_mode():
             self.data = _zeros(cfg, self.n_pages, page_size,
                                torch.int8 if kv_quant else self.view_dtype,
-                               self.device)
+                               self.device, keys=paged)
+            if resident:
+                self.data.update(_zeros(cfg, n_slots, page_size,
+                                        self.view_dtype, self.device,
+                                        src_len=src_len, keys=resident))
             self.scales = ({key: torch.zeros(self.n_pages,
                                              dtype=torch.float32,
                                              device=self.device)
-                            for key in self.data} if kv_quant else None)
+                            for key in paged} if kv_quant else None)
 
         self.lengths = np.zeros(n_slots, np.int32)
         self.positions = np.zeros(n_slots, np.int32)
@@ -312,15 +336,16 @@ class PagedKVCache:
         ``pages_per_slot * page_size``; new on every call, as
         :meth:`SlotKVCache.request_cache` says why."""
         with torch.inference_mode():
-            return api.init_cache(self.cfg, 1, self.max_len,
+            return api.init_cache(self.cfg, 1, self.max_len, self.src_len,
                                   device=self.device)
 
     def insert(self, slot: int, request_cache, n_valid: int) -> bool:
         """Allocate pages for ``n_valid`` positions and write a prefilled
         batch-1 view into them (the view's pages past the allocation are
-        dropped, as the reference's sentinel ids are).  False (nothing
-        changed) when the page pool cannot cover the request yet:
-        retryable next step."""
+        dropped, as the reference's sentinel ids are), and its
+        slot-resident leaves into ``slot``'s row.  False (nothing changed)
+        when the page pool cannot cover the request yet: retryable next
+        step."""
         need = -(-n_valid // self.page_size) - int(self.pages_used[slot])
         if not self.alloc_pages(slot, need):
             return False
@@ -331,6 +356,9 @@ class PagedKVCache:
         with torch.inference_mode():
             one = api.stack_layers(request_cache)
             for key in self.data:
+                if key in api.resident_keys(self.cfg):
+                    self.data[key][:, slot] = one[key][:, 0]
+                    continue
                 pages = api.view_to_pages(one[key][:, 0],
                                           self.page_size)[:, src]
                 if self.scales is not None:

@@ -3,9 +3,10 @@
 ``train/train_step``.
 
 The state is ``{"opt": adamw state}``, the reference's tree.  The working
-parameters are a ``Transformer`` in ``cfg.dtype`` that the step builds once
-on the master copy's device and rewrites from the master at the start of
-every step; gradients are taken with respect to it by autograd, so in bf16
+parameters are a model in ``cfg.dtype`` (a ``Transformer``, or the
+encoder-decoder's ``EncDec``, whose batches also carry ``src_embeds``)
+that the step builds once on the master copy's device and rewrites from
+the master at the start of every step; gradients are taken with respect to it by autograd, so in bf16
 training they are bf16, as in the reference, and the optimizer casts them to
 fp32.  With microbatches they are summed in fp32 and divided by their
 count.  The learning-rate scale reads the step *before* the update
@@ -23,6 +24,7 @@ import torch
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core import dispatch
 from repro_torch.models import api
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
 from repro_torch.train import optimizer as opt
 from repro_torch.train.schedule import warmup_cosine
@@ -32,7 +34,7 @@ def _to_device(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def loss_and_grads(model: Transformer, batch, cfg: ArchCfg):
+def loss_and_grads(model: Transformer | EncDec, batch, cfg: ArchCfg):
     """``(metrics, grads)``: the loss's metrics (0-d tensors) and the
     gradient of every parameter, by name, in the parameter's dtype."""
     for p in model.parameters():
@@ -50,8 +52,8 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` holds ``tokens`` and ``labels`` (and a VLM's
-    ``patch_embeds``; numpy or tensors), moved to the master copy's
-    device.  ``backend`` and ``blocks_policy`` scope every op of the step,
+    ``patch_embeds``, an encoder-decoder's ``src_embeds``; numpy or
+    tensors), moved to the master copy's device.  ``backend`` and ``blocks_policy`` scope every op of the step,
     forward and backward.
     """
     if grad_compression != "none":
@@ -68,7 +70,8 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
         nonlocal model
         if model is None:
             device = next(iter(state["opt"]["master"].values())).device
-            model = Transformer(cfg, device=device)
+            model = (EncDec if api.is_encdec(cfg) else Transformer)(
+                cfg, device=device)
         opt.cast_params(state["opt"], dict(model.named_parameters()))
         with dispatch.use(backend=backend, blocks_policy=blocks_policy):
             if microbatches > 1:

@@ -1707,3 +1707,134 @@ def test_recurrentgemma_train_step_raises_at_head_size_256(gen):
     step = make_train_step(cfg, ocfg, backend="cuda")
     with pytest.raises(ValueError, match="head_dim must be one of"):
         step(state, {"tokens": tokens, "labels": tokens.roll(-1, 1)})
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder (seamless-m4t-large-v2)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tk", [(2, 256, 4096), (1, 128, 4096),
+                                     (1, 37, 1000), (1, 1000, 1000)])
+def test_flash_non_causal_cross_lengths(gen, dtype, b, tq, tk):
+    """Cross-attention and the encoder: 16 heads of 64, non-causal, the
+    queries' length apart from the memory's (4096, and a ragged 1000 whose
+    last key tile is partial), against mha_ref; lse too."""
+    q, _, _ = _qkv(gen, b, 16, 16, tq, tq, 64, dtype)
+    _, k, v = _qkv(gen, b, 16, 16, tk, tk, 64, dtype)
+    o, lse = flash_attention_cuda(q, k, v, causal=False,
+                                  return_residuals=True)
+    ro, rl = mha_ref(q, k, v, causal=False, return_lse=True)
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=2e-2,
+                                                         rtol=2e-2)
+    torch.testing.assert_close(o, ro, **tol)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 4, 256])
+def test_matmul_ragged_vocab_head(gen, m):
+    """seamless's untied head: (m, 1024) bf16 @ (1024, 256206) into fp32,
+    rows of the weight and of the output not 16-byte aligned, against
+    matmul_ref."""
+    x = torch.randn(m, 1024, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(1024, 256206, device="cuda", generator=gen)
+         * 1024 ** -0.5).bfloat16()
+    assert plan_call(x, w).mainloop == "wmma"
+    got = matmul_cuda(x, w, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (m, 256206)
+    torch.testing.assert_close(got, matmul_ref(x, w, out_dtype=torch.float32),
+                               **TOL[torch.float32])
+
+
+def test_encdec_paged_pool_keeps_cross_leaves(gen):
+    """The paged pool's resident cross K and V on the card: ``insert``
+    writes the slot's row, a paged decode on the kernels reads and leaves
+    them, and its logits equal the slotted pool's decode."""
+    from repro_torch.serve import PagedKVCache, SlotKVCache
+    cfg = configs.get("seamless-m4t-large-v2").reduced()
+    params = api.init_params(cfg, gen)
+    src = torch.randn(1, 24, cfg.d_model, device="cuda", generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (1, 9), device="cuda",
+                           generator=gen)
+    paged = PagedKVCache(cfg, 2, 32, page_size=8, src_len=24)
+    slotted = SlotKVCache(cfg, 2, 32, src_len=24)
+    with torch.inference_mode():
+        rcache = paged.request_cache()
+        logits, rcache = api.prefill(params, {"src_embeds": src,
+                                              "tokens": tokens}, cfg, rcache)
+        assert paged.insert(1, rcache, 9)
+        slotted.insert(1, rcache)
+        one = api.stack_layers(rcache)
+        before = {k: paged.data[k].clone() for k in ("cross.k", "cross.v")}
+        for k in before:
+            assert torch.equal(paged.data[k][:, 1], one[k][:, 0])
+        tok = torch.tensor([[0], [int(logits.argmax())]], device="cuda",
+                           dtype=torch.int32)
+        positions = np.array([0, 9])
+        got, _, _ = api.decode_step_paged(
+            params, tok, cfg, paged.data, paged.page_tables, positions,
+            page_size=8)
+        want, _ = api.decode_step_slots(params, tok, cfg, slotted.cache,
+                                        positions)
+    for k in before:
+        assert torch.equal(before[k], paged.data[k])
+    torch.testing.assert_close(got[1], want[1], **TOL[torch.float32])
+
+
+def test_encdec_engines_kernels_match_plain(gen):
+    """Reduced seamless in fp32: both engines' greedy tokens on the kernels
+    (slotted, paged, chunked) equal the plain path's, one-token prompts
+    among the requests."""
+    cfg = configs.get("seamless-m4t-large-v2").reduced()
+    params = api.init_params(cfg, gen)
+    engine = Engine(cfg, params, ServeConfig(max_len=48, src_len=40))
+    batch = {"src_embeds": torch.randn(2, 40, cfg.d_model, device="cuda",
+                                       generator=gen),
+             "tokens": torch.randint(0, cfg.vocab, (2, 16), device="cuda",
+                                     generator=gen)}
+    got = engine.generate(batch, n_tokens=12, stop_tokens=())
+    with dispatch.use(backend="torch"):
+        want = engine.generate(batch, n_tokens=12, stop_tokens=())
+    assert torch.equal(got, want)
+    reqs = [Request(prompt=list(range(3, 3 + n)), max_tokens=6,
+                    stop_tokens=(), src_embeds=torch.randn(
+                        40, cfg.d_model, device="cuda", generator=gen))
+            for n in (5, 16, 1, 11, 24)]
+    for pool in ({}, {"page_size": 8}, {"page_size": 8, "prefill_chunk": 8}):
+        pcfg = PoolConfig(n_slots=3, max_len=48, src_len=40, **pool)
+        out = ContinuousEngine(cfg, params, pcfg).serve(reqs)
+        with dispatch.use(backend="torch"):
+            ref = ContinuousEngine(cfg, params, pcfg).serve(reqs)
+        assert out == ref, pool
+
+
+@pytest.mark.parametrize("tier", ["decode_int8", "calibrated_int8",
+                                  "calibrated_fp8"])
+def test_encdec_quant_tiers_match_plain_greedy(gen, tier):
+    """Reduced seamless in fp32 under each quant tier: the static engine's
+    greedy tokens on the kernels equal the plain path's, with the launches
+    the code gives (a prefill 6 GEMMs an encoder layer, 10 a decoder layer
+    and the head; a decode step 8 a decoder layer and the head; every
+    weight calibrated, the untied head too)."""
+    cfg = configs.get("seamless-m4t-large-v2").reduced()
+    params = api.init_params(cfg, gen)
+    kw = {}
+    if tier == "decode_int8":
+        kw["decode_quant"] = "int8"
+    else:
+        params = quant.calibrate_params(params, tier.split("_")[1])
+    engine = Engine(cfg, params, ServeConfig(max_len=32, src_len=40), **kw)
+    batch = {"src_embeds": torch.randn(2, 40, cfg.d_model, device="cuda",
+                                       generator=gen),
+             "tokens": torch.randint(0, cfg.vocab, (2, 9), device="cuda",
+                                     generator=gen)}
+    matmul_cuda.launches = matmul_q_cuda.launches = 0
+    got = engine.generate(batch, n_tokens=6, stop_tokens=())
+    prefill = 6 * cfg.n_enc_layers + 10 * cfg.n_layers + 1
+    decode = 8 * cfg.n_layers + 1
+    expect = ((prefill, decode * 5) if tier == "decode_int8"
+              else (0, prefill + decode * 5))
+    assert (matmul_cuda.launches, matmul_q_cuda.launches) == expect
+    with dispatch.use(backend="torch"):
+        want = engine.generate(batch, n_tokens=6, stop_tokens=())
+    torch.testing.assert_close(got, want, atol=0, rtol=0)

@@ -268,7 +268,7 @@ def test_recurrent_configs_are_the_references():
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
     tblocks.check_ported(tconfigs.get("xlstm-1.3b"))
     tblocks.check_ported(tconfigs.get("recurrentgemma-9b"))
-    assert tblocks.UNPORTED == ("encdec",)
+    assert tblocks.UNPORTED == ()
 
 
 def test_layouts_follow_the_reference_stacks(xlstm, rg):

@@ -57,7 +57,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                torch.profiler, and the host's time by function under
                cProfile.
   5. continuous — the same weights through ``ContinuousEngine.serve``:
-               24 requests of ragged prompts (32-512 tokens) and lengths
+               16 requests of ragged prompts (32-512 tokens) and lengths
                (16-64 greedy tokens), 8 slots of 576 positions, in six
                pools: slotted; paged (pages of 16); paged with 96 pages, so
                that it preempts; paged with 128-token prefill chunks; int8
@@ -81,15 +81,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                decode steps under torch.profiler, the host's time by
                function under cProfile, TTFT p50 / p99 and the pool's
                bytes.
-  6. train   — full-width smollm-135m (random weights from a seed), B = 8
-               sequences of 512 tokens of the ported synthetic stream:
-               4 steps of ``make_train_step`` on the kernels (counting
-               launches), then the same 4 steps from the same state and
-               batches with ``use(backend="torch")``; step-0 loss and
-               every parameter's step-0 gradient compared, and the loss
-               trajectory; in bf16, then in fp32 with tighter bands.  Step
-               time, tokens/s, peak memory, and the device's busy and idle
-               share of a step under torch.profiler.
+  6. train   — full-width smollm-135m (random weights from a seed), B = 2
+               sequences of its own 2048 tokens of the ported synthetic
+               stream: 4 steps of ``make_train_step`` on the kernels at
+               full depth (counting launches); at TRAIN_PLAIN_LAYERS
+               layers, the same 4 steps on the kernels and with
+               ``use(backend="torch")`` from one state and the same
+               batches: step-0 loss and every parameter's step-0 gradient
+               compared, and the loss trajectory; in bf16, then in fp32
+               with tighter bands.  Step time, tokens/s, peak memory, and
+               the device's busy and idle share of a step under
+               torch.profiler.
   7. resnet  — full-width ResNet-50 (random weights from a seed), 32 images
                of 224 x 224: one forward and one gradient step on the
                kernels (exact launch counts), then on the plain path;
@@ -192,6 +194,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                the reduced width, 2 layers, where both engines' greedy
                tokens must equal the plain path's.  Their kernels'
                per-shape times join phase 12's.
+  16. train_families — every other family trained in bf16, widths
+               untouched: grok-1-314b's and deepseek-v3-671b's full-width
+               attention (GQA; MLA at head sizes (192, 128)) and MoE
+               layers' gradients, their reduced whole models' AdamW steps,
+               xlstm-1.3b at full depth, recurrentgemma-9b cut to one
+               (rec, rec, attn) group at T 4096 (the flash backward at
+               (256, 256), windowed, MQA), seamless-m4t-large-v2 at full
+               depth over 4096 and a ragged 1000 frames (held against plain
+               at SEAMLESS_PLAIN_LAYERS): step-0 gradients and losses
+               against the plain path, exact launch counts (the experts'
+               batched backward: dA and dB each one batched launch), every
+               flash backward and batched backward shape against plain
+               autograd; step ms, tokens/s, busy and idle, peak memory.
+               The flash backward's and batched GEMMs' per-shape times join
+               phase 12's.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -203,6 +220,7 @@ import contextlib
 import cProfile
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import pstats
@@ -219,10 +237,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 SEED = 0
 BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 8, 512, 64, 1024
-# Continuous serving: 24 requests, prompt lengths and max_tokens drawn from
-# one seeded generator, 8 slots of 576 positions (the longest prompt and
-# the longest generation), pages of 16.
-CONT_REQUESTS, CONT_SLOTS, CONT_MAX_LEN, CONT_PAGE = 24, 8, 576, 16
+# Continuous serving: 16 requests, prompt lengths and max_tokens drawn
+# from one seeded generator, 8 slots of 576 positions (the longest prompt
+# and the longest generation), pages of 16.
+CONT_REQUESTS, CONT_SLOTS, CONT_MAX_LEN, CONT_PAGE = 16, 8, 576, 16
 # The fp32 pools hold tokens across pools and against the plain path at 8
 # of smollm-135m's 30 layers (full width), which keeps the whole script
 # within half its time limit since the lstm and windowed phases came.
@@ -235,10 +253,12 @@ CONT_POOLS = (   # name, PoolConfig kwargs, ContinuousEngine kwargs
     ("int8_pages", {"page_size": CONT_PAGE, "kv_quant": "int8"}, {}),
     ("decode_int8", {"page_size": CONT_PAGE}, {"decode_quant": "int8"}),
 )
-# T = 512, not SmolLM's 2048: the plain path on the card keeps a T^2 fp32
-# score tensor per layer for autograd, which at 2048 and 30 layers would
-# press on 80 GB.
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
+# SmolLM's own T = 2048, B = 2: the GEMMs see the 4096 rows of serving's
+# 8 x 512 prefill.  The plain path keeps a T^2 fp32 score tensor a layer
+# for autograd, so it is held against the kernels at TRAIN_PLAIN_LAYERS of
+# the 30 layers; the kernel step is counted and timed at full depth.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+TRAIN_PLAIN_LAYERS = 8
 FAMILIES = ("brgemm", "flash_attention", "flash_attention_bwd", "conv2d",
             "brgemm_batched", "brgemm_quant")
 RESNET_BATCH, RESNET_HW = 32, 224
@@ -2064,81 +2084,185 @@ def train_remat(cfg, state, batch, counters):
     torch.cuda.empty_cache()
 
 
-def clone_state(state):
-    return {"opt": {"step": state["opt"]["step"],
-                    **{k: {n: t.clone() for n, t in state["opt"][k].items()}
-                       for k in ("m", "v", "master")}}}
-
-
-def step0_grad_errors(cfg, state, batch):
+def step0_grad_errors(cfg, state, batch, floor=0.0, spread=None):
     """Every parameter's step-0 gradient, kernels against plain, as
-    relative L2 error; the working params cast from the master as the step
-    does."""
-    from repro_torch.core import dispatch
+    relative L2 error (``grad_errors``); the working params (a
+    ``Transformer``, or an ``EncDec`` for an encoder-decoder) cast from
+    the master as the step does."""
+    from repro_torch.models import api
+    from repro_torch.models.encdec import EncDec
     from repro_torch.models.transformer import Transformer
     from repro_torch.train import optimizer as opt
-    from repro_torch.train import train_step as ts
-    model = Transformer(cfg, device="cuda")
+    model = (EncDec if api.is_encdec(cfg) else Transformer)(cfg,
+                                                            device="cuda")
     opt.cast_params(state["opt"], dict(model.named_parameters()))
+    return grad_errors(model, batch, cfg, floor, spread)
+
+
+def grad_rel(got, want, floor=0.0):
+    """||got - want|| / ||want|| by name; with ``floor`` > 0 the norm
+    divided by is at least ``floor`` times the largest gradient norm of
+    the parameter's own layer (its name less the last part), so that a
+    gradient whose terms cancel to rounding (xlstm's input-gate biases:
+    a shift of every i-gate of a head divides out) is measured against
+    its layer's scale."""
+    norms = {n: g.float().norm().item() for n, g in want.items()}
+    layer_max = collections.defaultdict(float)
+    for n, v in norms.items():
+        layer = n.rsplit(".", 1)[0]
+        layer_max[layer] = max(layer_max[layer], v)
+    return {n: (got[n].float() - want[n].float()).norm().item() / max(
+        norms[n], floor * layer_max[n.rsplit(".", 1)[0]], 1e-30)
+        for n in want}
+
+
+def grad_errors(model, batch, cfg, floor=0.0, spread=None):
+    """Every parameter's gradient of one batch, kernels against plain
+    (``grad_rel``).  With ``spread`` also the plain path's own spread: its
+    gradients again with every weight moved by ``spread`` of itself
+    (seeded normal noise, a rounding's worth), against its first ones, and
+    the loss's change.  Returns (errors by name, kernel gradients finite,
+    (spread by name, loss change) or None)."""
+    from repro_torch.core import dispatch
+    from repro_torch.train import train_step as ts
     _, gk = ts.loss_and_grads(model, batch, cfg)   # fresh tensors each call
     with dispatch.use(backend="torch"):
-        _, gp = ts.loss_and_grads(model, batch, cfg)
-    errs, finite = {}, True
-    for n in gk:
-        a, b = gk[n].float(), gp[n].float()
-        finite &= bool(torch.isfinite(a).all())
-        errs[n] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-    return errs, finite
+        mp, gp = ts.loss_and_grads(model, batch, cfg)
+    finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+    errs = grad_rel(gk, gp, floor)
+    del gk
+    moved = None
+    if spread:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 73)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.float() * (1 + spread * torch.randn(
+                    p.shape, device="cuda", generator=gen)))
+        with dispatch.use(backend="torch"):
+            mq, gq = ts.loss_and_grads(model, batch, cfg)
+        moved = (grad_rel(gq, gp, floor),
+                 abs(float(mq["loss"]) - float(mp["loss"])))
+    return errs, finite, moved
+
+
+def steps_run(step, state, batches):
+    """``step`` over ``batches`` from ``state``: (state, losses, seconds a
+    step), each step synchronised."""
+    losses, step_s = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    return state, losses, step_s
+
+
+def train_against_plain(cfg, ocfg, batches, seed, counters, start=0,
+                        floor=0.0, checked=None, spread=None):
+    """Kernels against plain from one seeded state of ``cfg`` (its
+    optimizer at step ``start``: at 0 the first update's learning rate is
+    0): every parameter's step-0 gradient (``grad_errors``, with the plain
+    path's own ``spread``), then ``len(batches)`` steps of
+    ``make_train_step`` each way, the plain run under ``use(backend=
+    "torch")`` launching nothing.  With ``checked`` (a dict) every kernel
+    launch of the kernel side is also held against its plain version
+    (``checked_launches``, bf16 outputs against the truth), its worst
+    collected there.  Returns {grad_err, finite, spread, losses,
+    plain_losses, plain_s, plain_peak}."""
+    from repro_torch.core import dispatch
+    from repro_torch.train import train_step as ts
+
+    def fresh():        # the same seeded state each time, not a copy
+        st = ts.init_state(cfg, ocfg, torch.Generator(
+            device="cuda").manual_seed(seed), "cuda")
+        st["opt"]["step"] = start
+        return st
+    state = fresh()
+    with (checked_launches(checked, bf16_truth=True) if checked is not None
+          else contextlib.nullcontext()):
+        grad_err, finite, moved = step0_grad_errors(
+            cfg, state, batches[0], floor, spread)
+        torch.cuda.empty_cache()
+        _, losses, _ = steps_run(ts.make_train_step(cfg, ocfg), state,
+                                 batches)
+    del state
+    torch.cuda.empty_cache()
+    plain_state = fresh()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with dispatch.use(backend="torch"):
+        _, plain_losses, plain_s = steps_run(
+            ts.make_train_step(cfg, ocfg), plain_state, batches)
+    plain_peak = torch.cuda.max_memory_allocated()
+    if any(c.launches for c in counters.values()):
+        raise AssertionError(f"{cfg.name}: the plain train run launched a "
+                             f"kernel")
+    del plain_state
+    torch.cuda.empty_cache()
+    return {"grad_err": grad_err, "finite": finite, "spread": moved,
+            "losses": losses, "plain_losses": plain_losses,
+            "plain_s": plain_s, "plain_peak": plain_peak}
+
+
+def counted_steps(step, state, batches, counters, profile=True):
+    """The main path: ``step`` over ``batches`` with ``counters`` zeroed
+    just before and read just after, every step synchronised and timed,
+    with ``profile`` the last one under the profiler (its device ms by
+    kernel, and it is not timed).  Returns (state, losses, step seconds,
+    device ms by kernel or None, launches, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_fam_counts(counters)
+    timed = batches[:-1] if profile else batches
+    state, losses, step_s = steps_run(step, state, timed)
+    by_kernel = None
+    if profile:
+        last = {}
+
+        def profiled():
+            last["state"], metrics = step(state, batches[-1])
+            last["loss"] = float(metrics["loss"])
+        by_kernel = device_ms_by_kernel(profiled, 1)
+        state = last["state"]
+        losses.append(last["loss"])
+    launches = {k: c.launches for k, c in counters.items()}
+    return (state, losses, step_s, by_kernel, launches,
+            torch.cuda.max_memory_allocated())
 
 
 def phase_train(base_cfg):
     from repro_torch.configs.shapes import ShapeCfg
-    from repro_torch.core import dispatch
     from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.kernels.brgemm import matmul_cuda
-    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_cuda,
-        reset_flash_bwd_counts, reset_flash_counts)
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
-    counters = {"matmul": matmul_cuda, "flash_attention": flash_attention_cuda,
-                "flash_attention_bwd": flash_attention_bwd_cuda}
+    counters = {k: c for k, c in fam_counters().items()
+                if k != "batched_matmul"}
     main_launches = None
     for dtype in (torch.bfloat16, torch.float32):
         # remat off: the step's own launches; train_remat runs it on
         cfg = dataclasses.replace(base_cfg,
                                   dtype=str(dtype).replace("torch.", ""),
                                   remat=False)
+        plain_cfg = dataclasses.replace(cfg, n_layers=TRAIN_PLAIN_LAYERS)
         ocfg = opt.AdamWCfg()
         pipe = TokenPipeline(cfg, ShapeCfg("smoke", "train", TRAIN_SEQ,
                                            TRAIN_BATCH), seed=SEED)
         batches = [next(pipe) for _ in range(TRAIN_STEPS)]
         pipe.close()
+        # Kernels against plain at TRAIN_PLAIN_LAYERS layers.
+        held = train_against_plain(plain_cfg, ocfg, batches, SEED, counters)
+        grad_err, cmp_losses, plain_losses = (
+            held["grad_err"], held["losses"], held["plain_losses"])
+
+        # The main path at full depth (counted_steps), the bf16 one's last
+        # step profiled.
         state = ts.init_state(cfg, ocfg, torch.Generator(
             device="cuda").manual_seed(SEED), "cuda")
-        plain_state = clone_state(state)
-        grad_err, grads_finite = step0_grad_errors(cfg, state, batches[0])
-        torch.cuda.empty_cache()
-
-        # The main path: counts zeroed just before, read just after.
         step = ts.make_train_step(cfg, ocfg)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
-        reset_matmul_counts()
-        reset_flash_counts()
-        reset_flash_bwd_counts()
-        losses, step_s = [], []
-        for batch in batches:
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            losses.append(float(metrics["loss"]))
-        launches = {k: c.launches for k, c in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
+        state, losses, step_s, by_name, launches, peak = counted_steps(
+            step, state, batches, counters, dtype == torch.bfloat16)
         per_step = expected_step_launches(cfg)
         expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
         if launches != expect:
@@ -2149,31 +2273,19 @@ def phase_train(base_cfg):
                            dtype, launches["flash_attention"],
                            launches["flash_attention_bwd"])}
 
-        plain_step = ts.make_train_step(cfg, ocfg)
-        torch.cuda.reset_peak_memory_stats()
-        plain_losses, plain_s = [], []
-        with dispatch.use(backend="torch"):
-            for batch in batches:
-                t0 = time.perf_counter()
-                plain_state, metrics = plain_step(plain_state, batch)
-                torch.cuda.synchronize()
-                plain_s.append(time.perf_counter() - t0)
-                plain_losses.append(float(metrics["loss"]))
-        plain_peak = torch.cuda.max_memory_allocated()
-        if {k: c.launches for k, c in counters.items()} != expect:
-            raise AssertionError("the plain train run launched a kernel")
-
         band = TRAIN_BAND[dtype]
-        loss0_err = abs(losses[0] - plain_losses[0])
-        traj_err = max(abs(a - b) for a, b in zip(losses, plain_losses))
+        loss0_err = abs(cmp_losses[0] - plain_losses[0])
+        traj_err = max(abs(a - b) for a, b in zip(cmp_losses, plain_losses))
         worst_grad = max(grad_err.items(), key=lambda kv: kv[1])
         steady_s = sorted(step_s[1:])[len(step_s[1:]) // 2]   # median
         rec = {"phase": "train", "dtype": cfg.dtype, "batch": TRAIN_BATCH,
                "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+               "n_layers": cfg.n_layers, "plain_n_layers": plain_cfg.n_layers,
                "launches": launches, "expected_launches": expect,
                **by_mainloop,
                "expected_per_step": per_step,
-               "losses": losses, "plain_losses": plain_losses,
+               "losses": losses, "held_losses": cmp_losses,
+               "plain_losses": plain_losses,
                "step0_loss_err": loss0_err, "trajectory_max_err": traj_err,
                "loss_band": band["loss"],
                "grad_rel_l2_max": worst_grad[1],
@@ -2183,17 +2295,16 @@ def phase_train(base_cfg):
                "grad_rel_l2_table": grad_err["embed.table"],
                "grad_band": band["grad_rel_l2"],
                "step_ms": [x * 1e3 for x in step_s],
-               "plain_step_ms": [x * 1e3 for x in plain_s],
+               "plain_step_ms": [x * 1e3 for x in held["plain_s"]],
                "steady_step_ms": steady_s * 1e3,
                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady_s,
                "peak_mem_gb": peak / 1e9,
-               "plain_peak_mem_gb": plain_peak / 1e9}
-        ok = (grads_finite and all(math.isfinite(x) for x in losses)
+               "plain_peak_mem_gb": held["plain_peak"] / 1e9}
+        ok = (held["finite"] and all(math.isfinite(x) for x in losses)
               and loss0_err <= band["loss"] and traj_err <= band["loss"]
               and worst_grad[1] <= band["grad_rel_l2"])
         if dtype == torch.bfloat16:      # the main path's dtype
-            # One more step each under the profiler and under cProfile.
-            by_name = device_ms_by_kernel(lambda: step(state, batches[0]), 1)
+            # One more step under cProfile.
             busy = sum(by_name.values())
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
             host_ms, host_fns = host_split(lambda: step(state, batches[1]),
@@ -2210,8 +2321,8 @@ def phase_train(base_cfg):
         if not ok:
             raise AssertionError(
                 f"train {cfg.dtype}: loss err {loss0_err} / {traj_err}, "
-                f"worst gradient {worst_grad}, finite {grads_finite}")
-        del state, plain_state, step, plain_step
+                f"worst gradient {worst_grad}, finite {held['finite']}")
+        del state, step
         torch.cuda.empty_cache()
     return main_launches
 
@@ -2240,46 +2351,123 @@ def expected_resnet_launches(cfg):
             {"conv2d": 2 * convs - 1, "matmul": 1 + 2 + convs})
 
 
-@contextlib.contextmanager
-def checked_launches(worst):
-    """Inside, every conv2d and matmul kernel launch is also run through
-    its plain version on the same inputs; ``worst`` collects, by kernel,
-    the largest error over its band and which launch it was.  These are the
-    launches of the path itself, with the activations, gradients, dilated
-    duals and transposed operands the path hands over.
+def flash_bwd_terms(q, k, v, y, dy, *, causal=True, window=None,
+                    scale=None):
+    """The magnitude of the terms that sum to each entry of the flash
+    backward's dq, dk and dv (fp32): scale |dS| |K|, scale |dS|^T |Q| and
+    |P|^T |dY|, with P the softmax under the call's masks (keys at or
+    before the query, within ``window``) and |dS| = P (|dY| |V|^T + rowsum
+    |dY| |Y|), the terms of dS = P (dP - delta) before they cancel (delta
+    reads Y, which the forward rounded to bf16)."""
+    b, hq, tq, d = q.shape
+    group = hq // k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    kf, vf = (x.float().repeat_interleave(group, 1) for x in (k, v))
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    qpos = torch.arange(tq, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    keep = torch.ones(tq, k.shape[2], dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    p = s.masked_fill_(~keep, float("-inf")).softmax(-1).nan_to_num_()
+    del s
+    ady = dy.float().abs()
+    ds = (torch.matmul(ady, vf.abs().transpose(-1, -2))
+          + (ady * y.float().abs()).sum(-1, keepdim=True)).mul_(p)
+    dq = torch.matmul(ds, kf.abs()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().abs()) * scale
+    del ds
+    dv = torch.matmul(p.transpose(-1, -2), ady)
+    del p, kf, vf
 
-    A bf16 output is held to one bf16 ulp of the plain version (``band``).
-    An fp32 output sums up to 401,408 products (the stem's weight
-    gradient), often to a value far smaller than its terms (normalisation
-    makes gradients cancel), so it is held against the float64 value with
-    the fp32 summation error a correct kernel may make,
-    CONV_BAND * max |y| + 4 sqrt(k) 2^-24 (|A| |B|), elementwise (the
+    def fold(t):     # the q heads of a kv head summed, as dk and dv are
+        return t.reshape(b, -1, group, *t.shape[2:]).sum(2)
+    return dq, fold(dk), fold(dv)
+
+
+@contextlib.contextmanager
+def checked_launches(worst, bf16_truth=False):
+    """Inside, every conv2d, matmul, batched_matmul, flash forward and
+    flash backward kernel launch is also run through its plain version on
+    the same inputs; ``worst`` collects, by kernel, the largest error over
+    its band, which launch it was, the largest abs error and the launches
+    checked.  These are the launches of the path itself, with the
+    activations, gradients, dilated duals and transposed operands the path
+    hands over.
+
+    A bf16 GEMM or convolution output is held to one bf16 ulp of the plain
+    version (``band``), or with ``bf16_truth`` as an fp32 one is, plus one
+    bf16 ulp of its own, 2^-7 |y| (a gradient's entries are far below the
+    ulp band's absolute 1e-2).  An fp32 output sums up to 401,408 products
+    (the stem's weight gradient), often to a value far smaller than its
+    terms (normalisation makes gradients cancel), so it is held against
+    the float64 value with the fp32 summation error a correct kernel may
+    make, CONV_BAND * max |y| + 4 sqrt(k) 2^-24 (|A| |B|), elementwise (the
     probabilistic bound of fp32 dot products of length k); the plain
-    version's own error in those units is reported beside it."""
+    version's own error in those units is reported beside it.  Past
+    MOE_EXPERT_SLICE experts a batched product is held on the first
+    MOE_EXPERT_SLICE.  A flash forward's output is held within TOL's bf16
+    2e-2 of its largest |entry| and its log-sum-exp within TOL's lse band;
+    a flash backward's dq, dk and dv (flash_attention_bwd_ref, plain
+    autograd) each within GRAD_BAND of its largest |entry| plus 2^-6 of its
+    terms' magnitude (``flash_bwd_terms``): in bf16 the kernel rounds P and
+    dS before their products and reads the forward's bf16 Y for delta, and
+    a gradient whose terms cancel (seamless's dq over encoder frames
+    alike) is far below them."""
     import torch.nn.functional as F
     from repro_torch.core import fusion
     from repro_torch.kernels.brgemm import kernel as BK
     from repro_torch.kernels.brgemm import ref as BR
     from repro_torch.kernels.conv2d import kernel as CK
     from repro_torch.kernels.conv2d import ref as CR
+    from repro_torch.kernels.flash_attention import bwd as FB
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
     real_conv, real_mm = CK.conv2d_cuda, BK.matmul_cuda
+    real_bm, real_fl, real_fb = (BK.batched_matmul_cuda,
+                                 FK.flash_attention_cuda,
+                                 FB.flash_attention_bwd_cuda)
+
+    def record(kernel, what, excess, plain, abs_err):
+        w = worst.setdefault(kernel, {"over_band": -1.0, "max_abs": 0.0,
+                                      "checked": 0})
+        w["checked"] += 1
+        w["max_abs"] = max(w["max_abs"], abs_err)
+        if excess >= w["over_band"]:
+            w.update(over_band=excess, launch=what, plain_over_band=plain)
 
     def note(kernel, what, got, ref, exact, k):
-        if got.dtype == torch.float32:
-            truth, scale = exact()
-            tol = (CONV_BAND * truth.abs().max()
-                   + 4 * math.sqrt(k) * 2.0 ** -24 * scale).clamp_min(1e-300)
-            excess = ((got.double() - truth).abs() / tol).max().item()
-            plain = ((ref.double() - truth).abs() / tol).max().item()
+        abs_err = (got.float() - ref.float()).abs().max().item()
+        if got.dtype == torch.float32 or bf16_truth:
+            top = ref.double().abs().max()
+            excess = plain = 0.0
+            for idx, truth, scale in exact():     # blocks of the output
+                tol = CONV_BAND * top + 4 * math.sqrt(k) * 2.0 ** -24 * scale
+                if got.dtype != torch.float32:
+                    tol = tol + 2.0 ** -7 * truth.abs()
+                tol = tol.clamp_min(1e-300)
+                excess = max(excess, ((got[idx].double() - truth).abs()
+                                      / tol).max().item())
+                plain = max(plain, ((ref[idx].double() - truth).abs()
+                                    / tol).max().item())
         else:
             atol, rtol = band(ref)
             excess = ((got.float() - ref.float()).abs() / (
                 atol + rtol * ref.float().abs()).clamp_min(1e-30)
                       ).max().item()
             plain = None
-        if excess >= worst.get(kernel, {}).get("over_band", -1.0):
-            worst[kernel] = {"over_band": excess, "launch": what,
-                             "plain_over_band": plain}
+        record(kernel, what, excess, plain, abs_err)
+
+    def scaled(kernel, what, got, ref, band_, terms=None):
+        """|got - ref| over band_ * max |ref| (+ 2^-6 ``terms``)."""
+        d = (got.float() - ref.float()).abs()
+        tol = band_ * ref.float().abs().max()
+        if terms is not None:
+            tol = tol + 2.0 ** -6 * terms
+        record(kernel, what, (d / tol.clamp_min(1e-30)).max().item(), None,
+               d.max().item())
 
     def conv(x, w, bias=None, *, stride=1, padding=0, activation="none",
              out_dtype=None):
@@ -2293,7 +2481,8 @@ def checked_launches(worst):
                                 b.double().permute(3, 2, 0, 1),
                                 **kw).permute(0, 2, 3, 1)
             y64 = f(x, w) + (bias.double() if bias is not None else 0.0)
-            return fusion.apply(activation, y64), f(x.abs(), w.abs())
+            yield slice(None), fusion.apply(activation, y64), f(x.abs(),
+                                                                w.abs())
 
         note("conv2d", f"{tuple(x.shape)} * {tuple(w.shape)} /{stride} "
              f"pad {padding} -> {y.dtype}", y,
@@ -2302,34 +2491,113 @@ def checked_launches(worst):
              w.shape[0] * w.shape[1] * w.shape[2])
         return y
 
+    def gemm_truth(a, b, alpha, bias, c0, beta, activation, blk=4096):
+        """The float64 value of a (batched) GEMM's epilogue, and |A| |B|,
+        by ``blk`` x ``blk`` blocks of the output (index, value, |A| |B|),
+        k summed in slices: a vocabulary-long k or n, or a grok expert
+        gradient's 6144 x 32768 outputs, would take gigabytes a float64
+        copy."""
+        def exact():
+            k, m, n = a.shape[-1], a.shape[-2], b.shape[-1]
+            batch = max(a.dim(), b.dim()) == 3
+            for e in range((a if a.dim() == 3 else b).shape[0]
+                           if batch else 1):
+                ae = a[e] if a.dim() == 3 else a
+                be = b[e] if b.dim() == 3 else b
+                for i, c in itertools.product(range(0, m, blk),
+                                              range(0, n, blk)):
+                    rows, cols = slice(i, i + blk), slice(c, c + blk)
+                    y64 = sc = 0.0
+                    for j in range(0, k, 2 * blk):
+                        ai = ae[rows, j:j + 2 * blk].double()
+                        bj = be[j:j + 2 * blk, cols].double()
+                        y64 = y64 + ai @ bj
+                        sc = sc + ai.abs() @ bj.abs()
+                    y64 = y64 * alpha
+                    if c0 is not None and beta != 0.0:
+                        y64 = y64 + beta * c0[rows, cols].double()
+                    if bias is not None:
+                        y64 = y64 + bias[cols].double()
+                    yield ((e, rows, cols) if batch else (rows, cols)), \
+                        fusion.apply(activation, y64), sc * abs(alpha)
+        return exact
+
     def mm(x, w, bias=None, c0=None, *, activation="none", alpha=1.0,
-           beta=0.0, out_dtype=None):
+           beta=0.0, out_dtype=None, plan=None):
         kw = dict(activation=activation, alpha=alpha, beta=beta,
                   out_dtype=out_dtype)
-        y = real_mm(x, w, bias, c0, **kw)
-
-        def exact():
-            y64 = (x.double() @ w.double()) * alpha
-            if c0 is not None and beta != 0.0:
-                y64 = y64 + beta * c0.double()
-            if bias is not None:
-                y64 = y64 + bias.double()
-            return (fusion.apply(activation, y64),
-                    (x.double().abs() @ w.double().abs()) * abs(alpha))
-
+        y = real_mm(x, w, bias, c0, plan=plan, **kw)
         note("matmul", f"{tuple(x.shape)} @ {tuple(w.shape)} -> {y.dtype}",
-             y, BR.matmul_ref(x, w, bias, c0=c0, **kw), exact, x.shape[1])
+             y, BR.matmul_ref(x, w, bias, c0=c0, **kw),
+             gemm_truth(x, w, alpha, bias, c0, beta, activation), x.shape[1])
         return y
+
+    def bm(a, b, bias=None, *, activation="none", alpha=1.0, out_dtype=None,
+           plan=None):
+        kw = dict(activation=activation, alpha=alpha, out_dtype=out_dtype)
+        y = real_bm(a, b, bias, plan=plan, **kw)
+        e = MOE_EXPERT_SLICE
+
+        def head(t):     # the first e experts of a batched operand
+            return t[:e] if t.dim() == 3 else t
+        a_, b_ = head(a), head(b)
+        note("batched_matmul", f"{tuple(a.shape)} @ {tuple(b.shape)} -> "
+             f"{y.dtype}", y[:e], BR.batched_matmul_ref(a_, b_, bias, **kw),
+             gemm_truth(a_, b_, alpha, bias, None, 0.0, activation),
+             a.shape[-1])
+        return y
+
+    def fl(q, k, v, *, causal=True, window=None, scale=None,
+           return_residuals=False, plan=None):
+        out = real_fl(q, k, v, causal=causal, window=window, scale=scale,
+                      return_residuals=return_residuals, plan=plan)
+        o, lse = out if return_residuals else (out, None)
+        ref_o, ref_lse = FR.mha_ref(q, k, v, causal=causal, window=window,
+                                    scale=scale, return_lse=True)
+        what = (f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)} "
+                f"causal {causal} window {window}")
+        scaled("flash_attention", what, o, ref_o,
+               TOL[("flash_attention", torch.bfloat16)][0])
+        if lse is not None:
+            atol, rtol = TOL[("lse", None)]
+            d = (lse - ref_lse).abs()
+            record("flash_attention.lse", what, (d / (
+                atol + rtol * ref_lse.abs())).max().item(), None,
+                d.max().item())
+        return out
+
+    def fb(q, k, v, y, lse, dy, *, causal=True, window=None, scale=None,
+           return_delta=False, plan=None):
+        out = real_fb(q, k, v, y, lse, dy, causal=causal, window=window,
+                      scale=scale, return_delta=return_delta, plan=plan)
+        want = FR.flash_attention_bwd_ref(q, k, v, y, lse, dy, causal=causal,
+                                          window=window, scale=scale)
+        what = (f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)} "
+                f"causal {causal} window {window}")
+        terms = flash_bwd_terms(q, k, v, y, dy, causal=causal,
+                                window=window, scale=scale)
+        for name, g, w, t in zip(("dq", "dk", "dv"), out, want, terms):
+            scaled("flash_attention_bwd", f"{what} {name}", g, w,
+                   GRAD_BAND[torch.bfloat16 if g.dtype == torch.bfloat16
+                             else torch.float32], t)
+        return out
 
     # The wrappers count into the name they are bound to: these launches
     # are comparisons and leave the path's counters alone.
     CK.reset_conv_counts(conv)
     BK.reset_matmul_counts(mm)
-    CK.conv2d_cuda, BK.matmul_cuda = conv, mm
+    BK.reset_matmul_counts(bm)
+    for f in (fl, fb):
+        f.launches, f.mainloops = 0, collections.Counter()
+    CK.conv2d_cuda, BK.matmul_cuda, BK.batched_matmul_cuda = conv, mm, bm
+    FK.flash_attention_cuda, FB.flash_attention_bwd_cuda = fl, fb
     try:
         yield worst
     finally:
-        CK.conv2d_cuda, BK.matmul_cuda = real_conv, real_mm
+        CK.conv2d_cuda, BK.matmul_cuda, BK.batched_matmul_cuda = \
+            real_conv, real_mm, real_bm
+        FK.flash_attention_cuda, FB.flash_attention_bwd_cuda = \
+            real_fl, real_fb
 
 
 def resnet_errors(got, want):
@@ -3509,7 +3777,7 @@ def phase_times_slice(card, fc_rows, windowed_static, flash):
     for path, gemms in (("lstm", lstm_gemms()),
                         ("windowed", windowed_static)):
         for g, calls in gemms:
-            iters = 40 if 2 * g.m * g.n * g.k < 1e11 else 8
+            iters = 10 if 2 * g.m * g.n * g.k < 1e11 else 8
             ms, wall, plain, lib, flops, nbytes, plan = gemm_times(g, gen,
                                                                    iters)
             row("matmul", g.name, ms, wall, flops, nbytes, plain, lib,
@@ -3978,7 +4246,7 @@ def phase_times_llava(card, gemms, flashes, plans):
         for _ in range(n_sets(nbytes)):
             args, kw = gemm_call(g, torch.bfloat16, gen)
             sets.append(args)
-        iters = 40 if 2 * g.m * g.n * g.k < 1e11 else 8
+        iters = 10 if 2 * g.m * g.n * g.k < 1e11 else 8
         ms, wall = time_ms(lambda x, w, b, c0: matmul_cuda(
             x, w, b, plan=chosen, **kw), sets, iters)
         heur_ms = ms if heuristic == chosen else time_ms(
@@ -4099,7 +4367,7 @@ def phase_autotune(card):
                      (torch.randn(k, n, device="cuda", generator=gen)
                       * k ** -0.5).to(torch.bfloat16))
                     for _ in range(n_sets(nbytes))]
-            iters = 40 if 2 * m * n * k < 1e11 else 8
+            iters = 10 if 2 * m * n * k < 1e11 else 8
             ms = time_ms(lambda x, w_, _p=chosen: matmul_cuda(
                 x, w_, plan=_p), sets, iters)[0]
             heur_ms = ms if chosen == heuristic else time_ms(
@@ -4143,23 +4411,35 @@ class NoDeviceTime(RuntimeError):
     """The profiler recorded no device event in any attempt."""
 
 
+PROFILE_TRACE = Path(__file__).resolve().parent / "build" / "profile.json"
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset", "memcpy", "memset")
+
+
 def device_ms_by_kernel(run, calls, attempts=3):
     """Device ms per call of each kernel that ``run()`` launches, summed
     from the profiler's device events (the kernels' own durations, so host
-    gaps between launches do not count).  A session that comes back with
-    no device event at all (seen once in some hundred sessions on the
-    card) is run again; a third empty one raises NoDeviceTime."""
+    gaps between launches do not count).  Only the device's activity is
+    recorded, and its events are read from the exported trace, not built
+    into Python objects one by one: a run of some hundred thousand small
+    launches (xlstm's sLSTM loop) took minutes that way.  A session that
+    comes back with no device event at all (seen once in some hundred
+    sessions on the card) is run again; a third empty one raises
+    NoDeviceTime."""
+    PROFILE_TRACE.parent.mkdir(parents=True, exist_ok=True)
     for _ in range(attempts):
         with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
+        prof.export_chrome_trace(str(PROFILE_TRACE))
+        events = json.loads(PROFILE_TRACE.read_text()).get("traceEvents", [])
+        PROFILE_TRACE.unlink()
         by_name = {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                                    + ev.device_time_total / 1e3 / calls)
+        for ev in events:
+            if str(ev.get("cat", "")).lower() in DEVICE_EVENTS and \
+                    "dur" in ev:
+                by_name[ev["name"]] = (by_name.get(ev["name"], 0.0)
+                                       + ev["dur"] / 1e3 / calls)
         if by_name:
             return by_name
     raise NoDeviceTime(f"the profiler recorded no device time in "
@@ -4333,7 +4613,7 @@ def phase_capture():
         raise AssertionError(f"capture: {repaired}")
 
 
-def time_ms(fn, sets, iters=40):
+def time_ms(fn, sets, iters=10):
     """(device ms, wall ms) per call, cycling through input ``sets`` that
     together exceed the 50 MB L2, so that each call finds its operands in
     device memory as the serving path does.  Device ms comes from a CUDA
@@ -4402,7 +4682,7 @@ def conv_plan_fields(x, w, stride=1, padding=0):
     return {"mainloop": p.mainloop, "splits": p.splits}
 
 
-def gemm_times(g, gen, iters=40):
+def gemm_times(g, gen, iters=10):
     """(ms, wall ms, plain ms, library ms, flops, bytes, plan fields) of
     one bf16 GEMM at ``g``'s shape and layout, with its bias and fp32 c0
     where it takes them; the library call is torch.matmul (no epilogue,
@@ -4519,26 +4799,29 @@ def phase_times(cfg, card, cont_forwards):
                t=[t for kind, t in sorted(cont_forwards) if kind == "prefill"],
                q=[1, hq, "T", d], kv=[1, hkv, "T", d])
 
-    b, hq, hkv, t, d = BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT, cfg.dh
-    pairs = t * (t + 1) // 2                      # causal (q, k) pairs
-    q_bytes, kv_bytes = 2 * b * hq * t * d, 2 * b * hkv * t * d
-    nbytes = 2 * q_bytes + 2 * kv_bytes           # q, k, v in; o out
-    sets = [qkv_views(b, hq, hkv, t, d, dtype, gen)
-            for _ in range(n_sets(nbytes))]
-    ms, wall = time_ms(lambda q, k, v, _: flash_attention_cuda(q, k, v),
-                       sets)
-    plain, _ = time_ms(lambda q, k, v, _: mha_ref(q, k, v), sets)
-    lib, _ = time_ms(lambda q, k, v, _: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), sets)
-    row("flash_attention", "prefill", ms, wall, 4 * b * hq * pairs * d,
-        nbytes, plain, lib, {"serve": cfg.n_layers,
-                             "train": cfg.n_layers * TRAIN_STEPS,
-                             "quant": len(QUANT_TIERS) * cfg.n_layers},
-        q=[b, hq, t, d], kv=[b, hkv, t, d],
-        mainloop=FK.plan_call(*sets[0][:3]))
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    for name, b, t, calls in (
+            ("prefill", BATCH, PROMPT,
+             {"serve": cfg.n_layers,
+              "quant": len(QUANT_TIERS) * cfg.n_layers}),
+            ("train", TRAIN_BATCH, TRAIN_SEQ,
+             {"train": cfg.n_layers * TRAIN_STEPS})):
+        pairs = t * (t + 1) // 2                  # causal (q, k) pairs
+        q_bytes, kv_bytes = 2 * b * hq * t * d, 2 * b * hkv * t * d
+        nbytes = 2 * q_bytes + 2 * kv_bytes       # q, k, v in; o out
+        sets = [qkv_views(b, hq, hkv, t, d, dtype, gen)
+                for _ in range(n_sets(nbytes))]
+        ms, wall = time_ms(lambda q, k, v, _: flash_attention_cuda(q, k, v),
+                           sets)
+        plain, _ = time_ms(lambda q, k, v, _: mha_ref(q, k, v), sets)
+        lib, _ = time_ms(lambda q, k, v, _: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), sets)
+        row("flash_attention", name, ms, wall, 4 * b * hq * pairs * d,
+            nbytes, plain, lib, calls, q=[b, hq, t, d], kv=[b, hkv, t, d],
+            mainloop=FK.plan_call(*sets[0][:3]))
 
-    # The backward at the train shape: q, k, v, o, dO, lse in; dq, dk, dv
-    # out; five products over the causal pairs.
+    # The backward at the train shape (the last sets): q, k, v, o, dO, lse
+    # in; dq, dk, dv out; five products over the causal pairs.
     lse_bytes = 4 * b * hq * t
     nbytes = 3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes + 2 * kv_bytes
     bwd_sets, lib_sets = [], []
@@ -4890,6 +5173,58 @@ def model_cfg(name, overrides):
     return dataclasses.replace(get(name), **overrides)
 
 
+def attn_calls(cfg, b, t, prefill=True, prefix=""):
+    """One attention layer's kernel calls over b rows of t tokens (``layers/
+    attention.py``): MLA's four projections, and at a prefill its wkv_b
+    expansion and a (q/k, v) flash call; GQA's q, k, v and o and at a
+    prefill its flash call.  Returns (matmul, flash) Counters; roles
+    after ``prefix``."""
+    d, h, m = cfg.d_model, cfg.n_heads, b * t
+    fl = collections.Counter()
+    if cfg.mla:
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        proj = [("wq_a", d, cfg.q_lora_rank),
+                ("wq_b", cfg.q_lora_rank, h * qk),
+                ("wkv_a", d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                ("wo", h * cfg.v_head_dim, d)]
+        if prefill:
+            proj.append(("wkv_b", cfg.kv_lora_rank,
+                         h * (cfg.qk_nope_dim + cfg.v_head_dim)))
+            fl[(b, h, h, t, qk, cfg.v_head_dim)] += 1
+    else:
+        dq, dkv = h * cfg.dh, cfg.n_kv_heads * cfg.dh
+        proj = [("q", d, dq), ("k", d, dkv), ("v", d, dkv), ("o", dq, d)]
+        if prefill:
+            fl[(b, h, cfg.n_kv_heads, t, cfg.dh, cfg.dh)] += 1
+    return collections.Counter(
+        (prefix + role, m, k, n, "none", False) for role, k, n in proj), fl
+
+
+def moe_layer_calls(cfg, b, t, slot=False):
+    """One MoE layer's kernel calls over b rows of t tokens (``layers/
+    moe.py``; ``slot``: a routing group a row): the router (fp32 out), the
+    shared experts' gated MLP and the experts' three batched GEMMs.
+    Returns (matmul, batched_matmul) Counters."""
+    from repro_torch.layers.moe import capacity, groups
+    from repro_torch.models.blocks import moe_cfg as layer_moe_cfg
+    d, m, act = cfg.d_model, b * t, cfg.mlp_activation
+    mm, bm = collections.Counter(), collections.Counter()
+    mcfg = layer_moe_cfg(cfg)
+    mm[("router", m, d, cfg.n_experts, "none", True)] += 1
+    if cfg.n_shared_experts:
+        fs = cfg.moe_d_ff * cfg.n_shared_experts
+        mm[(f"shared.gate_{act}", m, d, fs, act, False)] += 1
+        mm[("shared.up", m, d, fs, "none", False)] += 1
+        mm[("shared.down", m, fs, d, "none", False)] += 1
+    g, n_tok = groups(mcfg, b, t, slot)
+    rows = g * capacity(mcfg, n_tok)
+    e, f = cfg.n_experts, cfg.moe_d_ff
+    bm[(e, rows, d, f, act)] += 1
+    bm[(e, rows, d, f, "none")] += 1
+    bm[(e, rows, f, d, "none")] += 1
+    return mm, bm
+
+
 def moe_forward_calls(cfg, kind, b, t):
     """The kernel calls of one forward of ``cfg`` over b rows of t tokens,
     derived from the code (``layers/{attention,moe,mlp}.py``, ``models/
@@ -4899,48 +5234,20 @@ def moe_forward_calls(cfg, kind, b, t):
     or "slot_decode" (a slot pool's, a routing group a slot).  matmul
     shapes are (role, m, k, n, activation, fp32 out), batched_matmul's (E,
     G * cap, k, n, activation), flash's (b, hq, hkv, t, dq, dv)."""
-    from repro_torch.layers.moe import capacity, groups
-    from repro_torch.models.blocks import moe_cfg as layer_moe_cfg
-    d, h, m = cfg.d_model, cfg.n_heads, b * t
+    d, m = cfg.d_model, b * t
     mm, bm, fl = (collections.Counter() for _ in range(3))
-    prefill = kind == "prefill"
     for i in range(cfg.n_layers):
-        if cfg.mla:
-            qk = cfg.qk_nope_dim + cfg.qk_rope_dim
-            proj = [("wq_a", d, cfg.q_lora_rank),
-                    ("wq_b", cfg.q_lora_rank, h * qk),
-                    ("wkv_a", d, cfg.kv_lora_rank + cfg.qk_rope_dim),
-                    ("wo", h * cfg.v_head_dim, d)]
-            if prefill:
-                proj.append(("wkv_b", cfg.kv_lora_rank,
-                             h * (cfg.qk_nope_dim + cfg.v_head_dim)))
-                fl[(b, h, h, t, qk, cfg.v_head_dim)] += 1
+        amm, afl = attn_calls(cfg, b, t, kind == "prefill")
+        mm.update(amm)
+        fl.update(afl)
+        if cfg.block == "moe" or i >= cfg.n_dense_layers:
+            lmm, lbm = moe_layer_calls(cfg, b, t, kind == "slot_decode")
+            mm.update(lmm)
+            bm.update(lbm)
         else:
-            dq, dkv = h * cfg.dh, cfg.n_kv_heads * cfg.dh
-            proj = [("q", d, dq), ("k", d, dkv), ("v", d, dkv), ("o", dq, d)]
-            if prefill:
-                fl[(b, h, cfg.n_kv_heads, t, cfg.dh, cfg.dh)] += 1
-        for role, k, n in proj:
-            mm[(role, m, k, n, "none", False)] += 1
-        is_moe = cfg.block == "moe" or i >= cfg.n_dense_layers
-        if not is_moe:
             mm[("gate_silu", m, d, cfg.d_ff, "silu", False)] += 1
             mm[("up", m, d, cfg.d_ff, "none", False)] += 1
             mm[("down", m, cfg.d_ff, d, "none", False)] += 1
-            continue
-        mcfg = layer_moe_cfg(cfg)
-        mm[("router", m, d, cfg.n_experts, "none", True)] += 1
-        if cfg.n_shared_experts:
-            fs = cfg.moe_d_ff * cfg.n_shared_experts
-            mm[("shared.gate_silu", m, d, fs, "silu", False)] += 1
-            mm[("shared.up", m, d, fs, "none", False)] += 1
-            mm[("shared.down", m, fs, d, "none", False)] += 1
-        g, n_tok = groups(mcfg, b, t, kind == "slot_decode")
-        rows = g * capacity(mcfg, n_tok)
-        e, f = cfg.n_experts, cfg.moe_d_ff
-        bm[(e, rows, d, f, "silu")] += 1
-        bm[(e, rows, d, f, "none")] += 1
-        bm[(e, rows, f, d, "none")] += 1
     mm[("head", b, d, cfg.vocab, "none", True)] += 1
     return {"matmul": mm, "batched_matmul": bm, "flash_attention": fl}
 
@@ -5392,7 +5699,7 @@ def phase_times_moe(card, calls_by_model):
                 calls["matmul"].items()):
             g = Gemm(f"{name}.{role}", m, k, n, act,
                      kind="pre" if fp32 else "fwd")
-            iters = 40 if 2 * m * n * k < 1e11 else 8
+            iters = 10 if 2 * m * n * k < 1e11 else 8
             ms, wall, plain, lib, flops, nbytes, plan = gemm_times(g, gen,
                                                                    iters)
             row("matmul", f"{g.name} m{m}", ms, wall, flops, nbytes, plain,
@@ -5412,10 +5719,10 @@ def phase_times_moe(card, calls_by_model):
                     for _ in range(n_sets(per_set))]
             big = w.numel() * 2 > 1e9
             ms, wall = time_ms(lambda a, b: batched_matmul_cuda(
-                a, b, activation=act), sets, 8 if big else 40)
+                a, b, activation=act), sets, 8 if big else 10)
             plain, _ = time_ms(lambda a, b: batched_matmul_ref(
                 a, b, activation=act), sets, 2 if big else 8)
-            lib, _ = time_ms(torch.bmm, sets, 8 if big else 40)
+            lib, _ = time_ms(torch.bmm, sets, 8 if big else 10)
             p = plan_batched_call(*sets[0])
             row("batched_matmul", f"{name}.experts.{act} E{e} m{m} k{k} "
                 f"n{n}", ms, wall, 2 * e * m * k * n,
@@ -5460,13 +5767,17 @@ def phase_times_moe(card, calls_by_model):
 # --------------------------------------------------------------------------
 
 # (name, config overrides, static runs [(batch, prompt, new tokens)],
-# continuous prompt lengths), both at full width and depth: xlstm's
-# prompts obeying mLSTM's chunk rule (at most 256 tokens or a multiple of
-# 256); recurrentgemma's 38 layers (12 (rec, rec, attn) groups and two
-# trailing rec blocks, 18.8 GB), the long prompt past the 2048 window.
+# continuous prompt lengths), both at full width and cut in depth, which
+# phase 16 trains at full depth (xlstm) and at one group (recurrentgemma):
+# xlstm at 16 of its 48 layers (two groups of 7 mLSTM and an sLSTM, whose
+# steps through the prompt in Python took most of the phase), prompts
+# obeying mLSTM's chunk rule (at most 256 tokens or a multiple of 256);
+# recurrentgemma at 8 of its 38 layers (2 (rec, rec, attn) groups and two
+# trailing rec blocks), the long prompt past the 2048 window.
 REC_MODELS = (
-    ("xlstm-1.3b", {}, ((2, 256, 32),), (64, 128, 200, 256, 512)),
-    ("recurrentgemma-9b", {}, ((2, 512, 32), (1, 2304, 16)),
+    ("xlstm-1.3b", {"n_layers": 16}, ((2, 256, 32),),
+     (64, 128, 200, 256, 512)),
+    ("recurrentgemma-9b", {"n_layers": 8}, ((2, 512, 32), (1, 2304, 16)),
      tuple(range(128, 513))),
 )
 REC_SLOTS, REC_REQUESTS, REC_TOKENS = 4, 6, (8, 32)
@@ -5939,7 +6250,7 @@ def phase_times_recurrent(card, calls_by_model):
     for name, calls in calls_by_model.items():
         for shape, count in sorted(calls["matmul"].items()):
             g = rec_gemm(shape)
-            iters = 40 if 2 * g.m * g.n * g.k < 1e11 else 8
+            iters = 10 if 2 * g.m * g.n * g.k < 1e11 else 8
             ms, wall, plain, lib, flops, nbytes, plan = gemm_times(g, gen,
                                                                    iters)
             row("matmul", f"{name}.{g.name} m{g.m}", ms, wall, flops, nbytes,
@@ -6323,7 +6634,7 @@ def phase_times_encdec(card, calls):
         g = rec_gemm(shape)
         key = (g.m, g.k, g.n, g.activation, g.kind)
         if key not in timed:
-            iters = 40 if 2 * g.m * g.n * g.k < 1e11 else 8
+            iters = 10 if 2 * g.m * g.n * g.k < 1e11 else 8
             timed[key] = gemm_times(g, gen, iters)
         ms, wall, plain, lib, flops, nbytes, plan = timed[key]
         row("matmul", f"{ENCDEC}.{g.name} m{g.m}", ms, wall, flops, nbytes,
@@ -6353,6 +6664,728 @@ def phase_times_encdec(card, calls):
             kv=[b, hkv, tk, d], causal=causal,
             mainloop=FK.plan_call(*sets[0]))
         del sets
+    return rows
+
+
+# --------------------------------------------------------------------------
+# 17. training every other family
+# --------------------------------------------------------------------------
+
+FAM_KERNELS = ("matmul", "batched_matmul", "flash_attention",
+               "flash_attention_bwd")
+# Each family is held against the plain path from one seeded state at
+# FAM_HELD_START (a full learning rate), at a depth where the plain path
+# fits: every parameter's step-0 gradient (``grad_errors``, relative L2
+# floored at FAM_GRAD_FLOOR of its layer's largest) and the losses of
+# FAM_HELD_STEPS steps, once in fp32 (the kernels on simt) and once in bf16
+# (the main path's mainloops), every kernel launch of the bf16 run also
+# held against its plain version on its own inputs (``checked_launches``).
+# The held depth repeats the main path's layers, and its batches have the
+# main path's lengths, so these launches give every kernel every shape the
+# main path gives it (``train_family`` checks that).  Bands, per dtype: the
+# losses FAM_BAND's; the gradients the larger of FAM_BAND's and twice the
+# plain path's own spread, its gradients again with every weight moved by
+# FAM_SPREAD of itself (fp32 1e-6, a sum's rounding in another order, as
+# phase_resnet moves its input; bf16 2^-9, a bf16 rounding), as
+# phase_resnet floors its band.  The spread is how far a rounding moves a
+# family's gradients: ReLU derivatives that flip where a pre-activation
+# crosses 0 (seamless), exponential gates (xlstm), a router's near-ties
+# (the MoE models).
+FAM_HELD_START, FAM_HELD_STEPS, FAM_STEPS = 1000, 2, 3
+FAM_GRAD_FLOOR = 1e-2
+FAM_BAND = {"float32": {"grad_rel_l2": 1e-3, "loss": 1e-4},
+            "bfloat16": TRAIN_BAND[torch.bfloat16]}
+FAM_SPREAD = {"float32": 1e-6, "bfloat16": 2.0 ** -9}
+# (B, T) and depth of each whole-model run, widths untouched: xlstm-1.3b
+# at full depth, held at FAM_XLSTM_HELD_LAYERS (one group of 7 mLSTM and
+# an sLSTM; its sLSTM steps through T in Python, ~12 s a step at 48
+# layers); recurrentgemma-9b cut to one (rec, rec, attn) group at T 4096,
+# so that its window of 2048 masks; seamless at full depth, one step over
+# a ragged 1000 frames, held at SEAMLESS_PLAIN_LAYERS encoder and decoder
+# layers over a batch of each length (its encoder's T^2 fp32 scores at
+# 4096 frames take ~4 GB a layer on the plain path); grok-1 and deepseek-v3 reduced
+# (``ArchCfg.reduced()``, bf16), since one full MoE layer's AdamW state
+# takes 77 GB (grok) or 180 GB (deepseek).
+FAM_XLSTM = (2, 512)
+FAM_XLSTM_HELD_LAYERS = 8
+FAM_RG = (1, 4096, 3)
+FAM_SEAMLESS = (2, 256, (4096, 4096, 1000))
+SEAMLESS_PLAIN_LAYERS = 4
+FAM_REDUCED = (2, 64)
+# Full-width single layers of grok-1 and deepseek-v3 (an attention layer
+# and a MoE layer each), loss-free: the gradients of a fixed random
+# projection of the layer's output, B x T rows, bf16 against plain
+# autograd in TRAIN_BAND's bf16 band (a single layer is well conditioned).
+FAM_LAYER = (2, 512)
+# deepseek-v3's expert backward is held against plain on this many of its
+# 256 experts (each expert's products untouched); the full layer runs on
+# the kernels alone.
+MOE_EXPERT_SLICE = 16
+
+
+def block_calls(calls):
+    """The calls of a forward's checkpointed blocks (``cfg.remat``): all
+    but the heads and deepseek's MTP block, which run outside them."""
+    out = {k: collections.Counter() for k in calls}
+    for kernel, shapes in calls.items():
+        for shape, n in shapes.items():
+            if kernel == "matmul" and (shape[0] in ("head", "lm_head")
+                                       or shape[0].startswith("mtp.")):
+                continue
+            out[kernel][shape] += n
+    return out
+
+
+def train_step_launches(calls, remat_calls=None):
+    """Launches of one train step from the kernel calls of its forward
+    ({kernel: Counter{shape: launches}}, a GEMM shape's activation at
+    index 4), derived from the code (``kernels/brgemm/ops.py``'s
+    ``_MatmulCuda`` and ``_BatchedCuda``, ``kernels/flash_attention/
+    ops.py``'s ``_FlashCuda``): every GEMM input needs its gradient (the
+    first layer's input is a normed embedding or frame, through a norm's
+    scale), so a matmul or batched_matmul call launches once forward and
+    twice backward (dX, dW), once more where its activation's derivative
+    needs the pre-activation; a flash forward call, one backward call.
+    ``remat_calls``: the checkpointed blocks' calls, which run forward
+    once more in the backward (``block_calls``)."""
+    from repro_torch.core import fusion
+    out = dict.fromkeys(FAM_KERNELS, 0)
+    for kernel in ("matmul", "batched_matmul"):
+        for shape, n in calls.get(kernel, {}).items():
+            out[kernel] += n * (3 + fusion.needs_preact(shape[4]))
+    out["flash_attention"] = out["flash_attention_bwd"] = sum(
+        calls.get("flash_attention", {}).values())
+    for kernel, shapes in (remat_calls or {}).items():
+        out[kernel] += sum(shapes.values())
+    return out
+
+
+def bwd_calls(calls):
+    """{flash_attention_bwd: Counter{(b, hq, hkv, tq, tk, dq, dv, causal,
+    window): launches}, batched_matmul: Counter{(E, rows, k, n, act):
+    forward launches}} of a step from its forward's calls."""
+    flash = collections.Counter()
+    for shape, n in calls.get("flash_attention", {}).items():
+        if len(shape) == 6:                       # moe: (b, h, hkv, t, dq, dv)
+            b, h, hkv, t, dq, dv = shape
+            key = (b, h, hkv, t, t, dq, dv, True, None)
+        elif isinstance(shape[-1], bool):         # encdec: .., tq, tk, d, causal
+            b, h, hkv, tq, tk, d, causal = shape
+            key = (b, h, hkv, tq, tk, d, d, causal, None)
+        else:                                     # rec: .., t, dq, dv, window
+            b, h, hkv, t, dq, dv, window = shape
+            key = (b, h, hkv, t, t, dq, dv, True, window)
+        flash[key] += n
+    return {"flash_attention_bwd": flash,
+            "batched_matmul": collections.Counter(
+                calls.get("batched_matmul", {}))}
+
+
+def mtp_forward_calls(cfg, b, t):
+    """deepseek-v3's MTP block in a train forward (``models/transformer.
+    py``): a dense MLA block (its five projections, MLA's flash and the
+    gated MLP) and the head again."""
+    d, m = cfg.d_model, b * t
+    mm, fl = attn_calls(cfg, b, t, prefix="mtp.")
+    mm[("mtp.gate", m, d, cfg.d_ff, cfg.mlp_activation, False)] += 1
+    mm[("mtp.up", m, d, cfg.d_ff, "none", False)] += 1
+    mm[("mtp.down", m, cfg.d_ff, d, "none", False)] += 1
+    mm[("head", m, d, cfg.vocab, "none", True)] += 1
+    return {"matmul": mm, "flash_attention": fl}
+
+
+def fam_step_launches(cfg, b, t, src=None):
+    """Launches of one train step of ``cfg`` (``train_step_launches``),
+    the checkpointed blocks' second forward where ``cfg.remat``."""
+    calls = fam_forward_calls(cfg, b, t, src)
+    remat = None
+    if cfg.remat and cfg.block != "encdec":
+        remat = block_calls(calls)
+        if cfg.block == "mla_moe" and cfg.mtp:    # the MTP block's flash
+            mtp = mtp_forward_calls(cfg, b, t)["flash_attention"]
+            remat["flash_attention"] -= mtp
+    return train_step_launches(calls, remat)
+
+
+def fam_forward_calls(cfg, b, t, src=None):
+    """One train forward's kernel calls: the prefill's (the head over every
+    position is one launch as at the last), with the MTP block where the
+    config has one."""
+    if cfg.block == "encdec":
+        return encdec_forward_calls(cfg, "prefill", b, t, src)
+    if cfg.block in ("xlstm", "rglru_hybrid"):
+        return rec_forward_calls(cfg, "prefill", b, t)
+    calls = moe_forward_calls(cfg, "prefill", b, t)
+    if cfg.block == "mla_moe" and cfg.mtp:
+        for kernel, shapes in mtp_forward_calls(cfg, b, t).items():
+            calls[kernel].update(shapes)
+    return calls
+
+
+def add_calls(total, calls, times=1):
+    for kernel, shapes in calls.items():
+        for shape, n in shapes.items():
+            total.setdefault(kernel, collections.Counter())[shape] += \
+                n * times
+
+
+def fam_batches(cfg, b, t, seed, srcs=None, steps=FAM_STEPS):
+    """Seeded batches of next-token pairs, one a step (``steps``, or one
+    per entry of ``srcs``, the frames of an encoder-decoder's steps)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for i in range(len(srcs) if srcs else steps):
+        toks = torch.randint(0, cfg.vocab, (b, t + 1), device="cuda",
+                             generator=gen)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if srcs:
+            batch["src_embeds"] = torch.randn(
+                b, srcs[i], cfg.d_model, device="cuda",
+                generator=gen).to(cfg_dtype(cfg))
+        out.append(batch)
+    return out
+
+
+def fam_counters():
+    from repro_torch.kernels.brgemm import batched_matmul_cuda, matmul_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    return {"matmul": matmul_cuda, "batched_matmul": batched_matmul_cuda,
+            "flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda}
+
+
+def reset_fam_counts(counters):
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.kernels.flash_attention import (reset_flash_bwd_counts,
+                                                     reset_flash_counts)
+    reset_matmul_counts()
+    reset_flash_counts()
+    reset_flash_bwd_counts()
+    for c in counters.values():
+        c.launches = 0
+
+
+def fam_mainloops(counters, launches):
+    """The record's calls by mainloop: every flash forward and backward
+    and every batched_matmul call on wgmma (bf16) is checked; matmul's are
+    read (a GEMM whose k or n is not a multiple of 8, mLSTM's four gate
+    columns and seamless's 256206-column head among them, runs on wmma)."""
+    out, failed = {}, []
+    for name in ("flash_attention", "flash_attention_bwd", "batched_matmul"):
+        counts = dict(counters[name].mainloops)
+        out[f"{name}_mainloops"] = counts
+        if counts["wgmma"] != launches[name] or \
+                sum(counts.values()) != launches[name]:
+            failed.append(f"{name} calls off wgmma: {counts} of "
+                          f"{launches[name]}")
+    out["matmul_mainloops"] = dict(counters["matmul"].mainloops)
+    return out, failed
+
+
+def call_shapes(cfg, batches):
+    """{(kernel, shape)} of the forwards of ``cfg`` over ``batches``."""
+    out = set()
+    for batch in batches:
+        b, t = batch["tokens"].shape
+        src = batch["src_embeds"].shape[1] if "src_embeds" in batch else None
+        for kernel, shapes in fam_forward_calls(cfg, b, t, src).items():
+            out |= {(kernel, shape) for shape in shapes}
+    return out
+
+
+def held_against_plain(name, cfg, ocfg, batches, seed, counters, checked):
+    """``cfg`` (fp32 or bf16) against plain (``train_against_plain``
+    from FAM_HELD_START, with the plain path's FAM_SPREAD), bf16's kernel
+    launches into ``checked``.  Returns (record fields, failures)."""
+    held = train_against_plain(
+        cfg, ocfg, batches, seed, counters, start=FAM_HELD_START,
+        floor=FAM_GRAD_FLOOR, spread=FAM_SPREAD[cfg.dtype],
+        checked=checked if cfg.dtype == "bfloat16" else None)
+    spread, spread_loss = held["spread"]
+    band = FAM_BAND[cfg.dtype]
+    limit = max(band["grad_rel_l2"], 2 * max(spread.values()))
+    worst = max(held["grad_err"].items(), key=lambda kv: kv[1])
+    loss_err = max(abs(x - y) for x, y in
+                   zip(held["losses"], held["plain_losses"]))
+    out = {"losses": held["losses"], "plain_losses": held["plain_losses"],
+           "loss_max_err": loss_err, "loss_band": band["loss"],
+           "grad_rel_l2_max": worst[1], "grad_rel_l2_worst_param": worst[0],
+           "grad_rel_l2_median": median(list(held["grad_err"].values())),
+           "grad_band": band["grad_rel_l2"], "grad_limit": limit,
+           "plain_spread": FAM_SPREAD[cfg.dtype],
+           "plain_spread_max": max(spread.values()),
+           "plain_spread_worst_param": max(spread, key=spread.get),
+           "plain_spread_median": median(list(spread.values())),
+           "plain_spread_loss": spread_loss,
+           "plain_step_ms": [x * 1e3 for x in held["plain_s"]],
+           "plain_peak_mem_gb": held["plain_peak"] / 1e9}
+    ok = (held["finite"] and loss_err <= band["loss"] and worst[1] <= limit
+          and all(math.isfinite(x) for x in held["losses"]))
+    return out, ([] if ok else [f"{name} {cfg.dtype} against plain: {out}"])
+
+
+def train_family(name, cfg, batches, card, *, held_cfg=None,
+                 held_batches=None, seed=0):
+    """One family's training on the card.  Held against plain
+    (``held_against_plain``) at ``held_cfg`` (default ``cfg``) over
+    ``held_batches`` (default the first FAM_HELD_STEPS), in fp32 and in
+    bf16, every kernel launch of the bf16 run checked; then the main path
+    at ``cfg``: ``len(batches)`` steps of ``make_train_step`` on the
+    kernels (``counted_steps``: counts zeroed just before and read just
+    after against ``fam_step_launches``, every flash and batched call on
+    wgmma; the last step profiled, the one before it timed), its peak
+    memory.  Returns (record, launches, per-launch worst by kernel,
+    failures)."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    counters = fam_counters()
+    ocfg = opt.AdamWCfg()
+    failed, checked = [], {}
+    held_cfg = held_cfg or cfg
+    held_batches = held_batches or batches[:FAM_HELD_STEPS]
+    if call_shapes(held_cfg, held_batches) != call_shapes(cfg, batches):
+        failed.append(f"{name}: the held run's kernel shapes are not the "
+                      f"main path's")
+    held, t0 = {}, time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        free_card()
+        held[dtype], f = held_against_plain(
+            name, dataclasses.replace(held_cfg, dtype=dtype), ocfg,
+            held_batches, seed, counters, checked)
+        failed += f
+    held_s = time.perf_counter() - t0
+    over = {k: v for k, v in checked.items() if v["over_band"] > 1.0}
+    if over or not {"matmul"} <= set(checked):
+        failed.append(f"{name} launches against plain: {checked}")
+    free_card()
+    state = ts.init_state(cfg, ocfg, torch.Generator(
+        device="cuda").manual_seed(seed), "cuda")
+    step = ts.make_train_step(cfg, ocfg)
+    state, losses, step_s, by_kernel, launches, peak = counted_steps(
+        step, state, batches, counters)
+    b, t = batches[0]["tokens"].shape
+    expect = collections.Counter()
+    for batch in batches:
+        src = batch["src_embeds"].shape[1] if "src_embeds" in batch \
+            else None
+        expect.update(fam_step_launches(cfg, b, t, src))
+    expect = {k: expect[k] for k in FAM_KERNELS}
+    if launches != expect:
+        failed.append(f"{name} train launches {launches} != {expect}")
+    by_mainloop, off = fam_mainloops(counters, launches)
+    failed += [f"{name} {f}" for f in off]
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"{name}: losses {losses}")
+    steady_s = step_s[-1]
+    busy = sum(by_kernel.values())
+    del state, step
+    free_card()
+    rec = {"phase": "train_families", "arch": name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "remat": cfg.remat,
+           "held_n_layers": held_cfg.n_layers,
+           "params_b": cfg.param_counts()[0] / 1e9,
+           "batch": [b, t],
+           "src_frames": [x["src_embeds"].shape[1] for x in batches
+                          if "src_embeds" in x] or None,
+           "held_src_frames": [x["src_embeds"].shape[1] for x in held_batches
+                               if "src_embeds" in x] or None,
+           "launches": launches, "expected_launches": expect,
+           **by_mainloop, "losses": losses,
+           "held_fp32": held["float32"], "held_bf16": held["bfloat16"],
+           "held_bf16_launches_against_plain": checked,
+           "step_ms": [x * 1e3 for x in step_s],
+           "steady_step_ms": steady_s * 1e3,
+           "tokens_per_s": b * t / steady_s,
+           "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / (steady_s * 1e3),
+           "device_ms_by_kernel": {k[:80]: v for k, v in sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])[:6]},
+           "peak_mem_gb": peak / 1e9, "held_s": held_s, "card": card}
+    emit(rec)
+    return rec, launches, checked, failed
+
+
+def layer_grads(layer, x, r, kind, backend):
+    """The gradients of sum(layer(x) * r) with respect to the layer's
+    parameters and x, on ``backend``."""
+    for p in layer.parameters():
+        p.grad = None
+    x.grad = None
+    if kind == "moe":
+        y, _ = layer(x, backend=backend)
+    else:
+        y = layer(x, mode="train", backend=backend)
+    (y.float() * r).sum().backward()
+    return {"x": x.grad, **{n: p.grad for n, p in layer.named_parameters()}}
+
+
+def full_layer_run(name, cfg, kind, card, seed, plain=True):
+    """One full-width layer of ``cfg`` (``kind`` "attn": GQA or MLA
+    attention; "moe": the MoE layer), bf16, random weights and input from
+    a seed: its gradients on the kernels (counts zeroed just before, read
+    just after, against the layer's forward calls; every flash and batched
+    call on wgmma), timed over a second run, and with ``plain`` against
+    plain autograd (relative L2 of each gradient, in TRAIN_BAND's); then
+    once more with every kernel launch held against its plain version on
+    its own inputs (``checked_launches``).  Returns (record, launches,
+    forward calls, per-launch worst by kernel, failures)."""
+    from repro_torch.layers import attention, moe
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import fill_params
+    counters = fam_counters()
+    dt = cfg_dtype(cfg)
+    b, t = FAM_LAYER
+    d = cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    bm, fl = collections.Counter(), collections.Counter()
+    if kind == "attn":
+        layer = (attention.MLAttention if cfg.mla else attention.Attention)(
+            blocks.attn_cfg(cfg), dtype=dt, device="cuda")
+        mm, fl = attn_calls(cfg, b, t)
+    else:
+        layer = moe.MoE(blocks.moe_cfg(cfg), dtype=dt, device="cuda")
+        mm, bm = moe_layer_calls(cfg, b, t)
+    calls = {"matmul": mm, "batched_matmul": bm, "flash_attention": fl}
+    fill_params(layer, gen)
+    x = torch.randn(b, t, d, device="cuda", generator=gen).to(
+        dt).requires_grad_()
+    r = torch.randn(b, t, d, device="cuda", generator=gen)
+    reset_fam_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = layer_grads(layer, x, r, kind, "cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    expect = train_step_launches(calls)
+    failed = []
+    if launches != expect:
+        failed.append(f"{name} {kind} layer launches {launches} != {expect}")
+    by_mainloop, off = fam_mainloops(counters, launches)
+    failed += [f"{name} {kind} layer {f}" for f in off]
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    # deepseek's 256 experts: no second copy of 22.5 GB of gradients
+    got = {n: g.clone() for n, g in got.items()} if plain else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    layer_grads(layer, x, r, kind, "cuda")
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    by_kernel = device_ms_by_kernel(
+        lambda: layer_grads(layer, x, r, kind, "cuda"), 1)
+    busy = sum(by_kernel.values())
+    peak = torch.cuda.max_memory_allocated()
+    errs = {}
+    if plain:
+        want = layer_grads(layer, x, r, kind, "torch")
+        errs = {n: rel_l2(got[n], want[n]) for n in got}
+        del want
+    band = TRAIN_BAND[torch.bfloat16]["grad_rel_l2"]
+    worst = max(errs.items(), key=lambda kv: kv[1]) if errs else (None, 0.0)
+    if not finite or worst[1] > band:
+        failed.append(f"{name} {kind} layer: worst gradient {worst}, "
+                      f"finite {finite}")
+    checked = {}
+    with checked_launches(checked, bf16_truth=True):
+        layer_grads(layer, x, r, kind, "cuda")
+    if any(v["over_band"] > 1.0 for v in checked.values()):
+        failed.append(f"{name} {kind} layer launches against plain: "
+                      f"{checked}")
+    rec = {"phase": "train_families", "arch": name, "layer": kind,
+           "dtype": cfg.dtype, "batch": [b, t],
+           "params_b": sum(p.numel() for p in layer.parameters()) / 1e9,
+           "launches": launches, "expected_launches": expect, **by_mainloop,
+           "grad_rel_l2": errs or "not held (see the expert slice)",
+           "grad_rel_l2_max": worst[1], "grad_band": band,
+           "grads_finite": finite, "launches_against_plain": checked,
+           "first_ms": first_s * 1e3,
+           "grad_ms": again_s * 1e3, "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / (again_s * 1e3),
+           "peak_mem_gb": peak / 1e9, "card": card}
+    emit(rec)
+    del layer, x, r, got
+    free_card()
+    return rec, launches, calls, checked, failed
+
+
+def fam_flash_inputs(shape, dtype, gen):
+    """(q, k, v, dy) of a flash backward shape (b, hq, hkv, tq, tk, dq,
+    dv, causal, window), laid out as the attention layer's head split
+    hands them over."""
+    b, hq, hkv, tq, tk, dq, dv, _, _ = shape
+    return tuple(torch.randn(b, n, h, dd, device="cuda", generator=gen)
+                 .to(dtype).transpose(1, 2)
+                 for h, n, dd in ((hq, tq, dq), (hkv, tk, dq), (hkv, tk, dv),
+                                  (hq, tq, dv)))
+
+
+def batched_bwd_parity(shapes, failed, seed=SEED + 71):
+    """``batched_matmul``'s backward on the kernels (``_BatchedCuda``)
+    against plain autograd through ``batched_matmul_ref`` at every (E,
+    rows, k, n, activation) of ``shapes``, bf16: dA and dB each within
+    GRAD_BAND of its largest entry; past MOE_EXPERT_SLICE experts on the
+    first MOE_EXPERT_SLICE of them (each expert's product untouched).
+    Returns the worst abs error."""
+    from repro_torch.kernels.brgemm import batched_matmul, batched_matmul_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst, band = 0.0, GRAD_BAND[torch.bfloat16]
+    for e, rows, k, n, act in sorted(shapes, key=str):
+        es = min(e, MOE_EXPERT_SLICE)
+        a = torch.randn(es, rows, k, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        w = (torch.randn(es, k, n, device="cuda", generator=gen)
+             * k ** -0.5).to(torch.bfloat16)
+        dy = torch.randn(es, rows, n, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        grads = []
+        for fn in (lambda a_, w_: batched_matmul(a_, w_, activation=act,
+                                                 backend="cuda"),
+                   lambda a_, w_: batched_matmul_ref(a_, w_,
+                                                     activation=act)):
+            leaves = [a.clone().requires_grad_(), w.clone().requires_grad_()]
+            fn(*leaves).backward(dy)
+            grads.append([t.grad for t in leaves])
+            del leaves
+        errs = {}
+        for name, g, wt in zip(("da", "db"), *grads):
+            scale = wt.float().abs().max().item()
+            err = (g.float() - wt.float()).abs().max().item()
+            errs[name] = err / max(scale, 1e-30)
+            worst = max(worst, err)
+            if err > band * scale:
+                failed.append(f"batched_matmul backward {(e, rows, k, n, act)}"
+                              f" {name}: {err} of {scale}")
+        emit({"phase": "train_families", "parity": "batched_matmul_bwd",
+              "shape": [e, rows, k, n, act], "experts_held": es,
+              "rel_to_max": errs, "band": band})
+        del a, w, dy, grads
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_train_families(card):
+    """grok-1-314b, deepseek-v3-671b, xlstm-1.3b, recurrentgemma-9b and
+    seamless-m4t-large-v2 trained on the card (bf16, widths untouched,
+    random weights from seeds): full-width single layers of the two MoE
+    models (full_layer_run), their reduced whole models and the other
+    three at the depths of FAM_* (train_family), each with exact launch
+    counts and every kernel launch of a bf16 run against plain held on its
+    own inputs; then the batched backward at every shape the runs gave it
+    against plain autograd.  Returns ({"train_families": launches}, worst
+    abs error by kernel, {flash_attention_bwd / batched_matmul:
+    Counter{shape: launches}} of the runs)."""
+    from repro_torch.configs import get
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(FAM_KERNELS, 0)
+    shapes = {"flash_attention_bwd": collections.Counter(),
+              "batched_matmul": collections.Counter()}
+    failed, checked = [], {}
+
+    def count(got, calls, per_launch, times=1):
+        for k in FAM_KERNELS:
+            launches[k] += got[k]
+        for kernel, per in bwd_calls(calls).items():
+            for shape, n in per.items():
+                shapes[kernel][shape] += n * times
+        for kernel, w in per_launch.items():
+            acc = checked.setdefault(kernel, {"over_band": -1.0,
+                                              "max_abs": 0.0, "checked": 0})
+            acc["checked"] += w["checked"]
+            acc["max_abs"] = max(acc["max_abs"], w["max_abs"])
+            if w["over_band"] >= acc["over_band"]:
+                acc.update(over_band=w["over_band"], launch=w["launch"])
+
+    for idx, (name, _) in enumerate(MOE_MODELS):
+        cfg = get(name)
+        for kind in ("attn", "moe"):
+            _, got, calls, per_launch, f = full_layer_run(
+                name, cfg, kind, card, SEED + 60 + 2 * idx + (kind == "moe"),
+                plain=not (kind == "moe" and cfg.n_experts > 64))
+            failed += f
+            count(got, calls, per_launch)
+    for idx, (name, _) in enumerate(MOE_MODELS):
+        cfg = dataclasses.replace(get(name).reduced(), dtype="bfloat16")
+        b, t = FAM_REDUCED
+        batches = fam_batches(cfg, b, t, SEED + 64 + idx)
+        _, got, per_launch, f = train_family(f"{name} reduced", cfg, batches,
+                                             card, seed=SEED + 64 + idx)
+        failed += f
+        count(got, fam_forward_calls(cfg, b, t), per_launch, len(batches))
+
+    b, t = FAM_XLSTM
+    cfg = get("xlstm-1.3b")
+    # two steps at ~15 s each: the first timed, the second profiled
+    batches = fam_batches(cfg, b, t, SEED + 66, steps=2)
+    _, got, per_launch, f = train_family(
+        "xlstm-1.3b", cfg, batches, card, seed=SEED + 66,
+        held_cfg=dataclasses.replace(cfg, n_layers=FAM_XLSTM_HELD_LAYERS))
+    failed += f
+    count(got, fam_forward_calls(cfg, b, t), per_launch, len(batches))
+
+    b, t, layers = FAM_RG
+    cfg = dataclasses.replace(get("recurrentgemma-9b"), n_layers=layers)
+    batches = fam_batches(cfg, b, t, SEED + 67)
+    _, got, per_launch, f = train_family("recurrentgemma-9b", cfg, batches,
+                                         card, seed=SEED + 67)
+    failed += f
+    count(got, fam_forward_calls(cfg, b, t), per_launch, len(batches))
+
+    b, t, srcs = FAM_SEAMLESS
+    cfg = get(ENCDEC)
+    batches = fam_batches(cfg, b, t, SEED + 68, srcs)
+    _, got, per_launch, f = train_family(
+        ENCDEC, cfg, batches, card, seed=SEED + 68,
+        held_cfg=dataclasses.replace(cfg, n_layers=SEAMLESS_PLAIN_LAYERS,
+                                     n_enc_layers=SEAMLESS_PLAIN_LAYERS),
+        held_batches=[batches[0], batches[-1]])
+    failed += f
+    total = {}
+    for src in srcs:
+        add_calls(total, fam_forward_calls(cfg, b, t, src))
+    count(got, total, per_launch)
+
+    worst = {k: checked[k]["max_abs"] for k in FAM_KERNELS if k in checked}
+    worst["batched_matmul"] = max(worst.get("batched_matmul", 0.0),
+                                  batched_bwd_parity(
+                                      shapes["batched_matmul"], failed))
+    missing = [k for k in FAM_KERNELS if k not in checked]
+    if missing:
+        failed.append(f"train_families: no launch of {missing} held")
+    emit({"phase": "train_families", "launches": launches,
+          "flash_bwd_shapes": len(shapes["flash_attention_bwd"]),
+          "batched_shapes": len(shapes["batched_matmul"]),
+          "launches_against_plain": checked, "worst_abs": worst,
+          "failed": failed, "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError(f"train_families: {failed}")
+    return {"train_families": launches}, worst, shapes
+
+
+def phase_times_train_families(card, shapes):
+    """Per-shape times of the train_families path's flash backward and
+    batched GEMMs (row 3's new shapes, row 4's backward), for the kernels
+    line: each flash backward shape beside its bound, plain autograd
+    through mha_ref and SDPA's backward where SDPA takes it; each
+    batched_matmul launch of a train step at its shape (the forward, the
+    pre-activation recompute, dA = g B^T and dB = A^T g, the transposed
+    operand read in place) beside its bound, batched_matmul_ref and
+    torch.bmm of the same product."""
+    import torch.nn.functional as F
+    from repro_torch.core import fusion
+    from repro_torch.kernels.brgemm import (batched_matmul_cuda,
+                                            batched_matmul_ref)
+    from repro_torch.kernels.brgemm.kernel import plan_batched_call
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.flash_attention import bwd as FB
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    rows = []
+    row = row_recorder(rows, card)
+    for shape, count in sorted(shapes["flash_attention_bwd"].items(),
+                               key=str):
+        b, hq, hkv, tq, tk, dq, dv, causal, window = shape
+        # the (q, k) pairs the masks keep
+        qpos = torch.arange(tq)[:, None]
+        kpos = torch.arange(tk)[None, :]
+        live = torch.ones(tq, tk, dtype=torch.bool)
+        if causal:
+            live &= kpos <= qpos
+        if window:
+            live &= kpos > qpos - window
+        pairs = int(live.sum())
+        # q, o, dy, k, v and lse in; dq, dk, dv out
+        nbytes = (2 * (b * hq * tq * (dq + 2 * dv) + b * hkv * tk * (dq + dv))
+                  + 4 * b * hq * tq
+                  + 2 * (b * hq * tq * dq + b * hkv * tk * (dq + dv)))
+        sets, lib_sets = [], []
+        for _ in range(n_sets(nbytes)):
+            q, k, v, dy = fam_flash_inputs(shape, torch.bfloat16, gen)
+            o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window,
+                                          return_residuals=True)
+            sets.append((q, k, v, o, lse, dy))
+        kw = dict(causal=causal, window=window)
+        big = b * hq * tq * tk > 1e8
+        ms, wall = time_ms(lambda *a: flash_attention_bwd_cuda(*a, **kw),
+                           sets, 8 if big else 10)
+        plain, _ = time_ms(lambda *a: flash_attention_bwd_ref(*a, **kw),
+                           sets, 2 if big else 8)
+        mask = None if window is None else live.to("cuda")
+        try:
+            for q, k, v, _, _, dy in sets:
+                leaves = [x.detach().clone().requires_grad_()
+                          for x in (q, k, v)]
+                out = F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask,
+                    is_causal=causal and mask is None,
+                    enable_gqa=hq != hkv)
+                lib_sets.append((out, leaves, dy))
+            lib, _ = time_ms(lambda out, leaves, dy: torch.autograd.grad(
+                out, leaves, dy, retain_graph=True), lib_sets,
+                8 if big else 10)
+        except RuntimeError as exc:           # no SDPA backend takes it
+            lib = None
+            emit({"library_ms": None, "sdpa_backward": str(exc)[:200]})
+        q, k, v, o, _, dy = sets[0]
+        row("flash_attention_bwd", f"train_families B{b} H{hq}/{hkv} "
+            f"T{tq}/{tk} d{dq}/{dv}" + (" causal" if causal else "")
+            + (f" window {window}" if window else ""), ms, wall,
+            2 * b * hq * pairs * (3 * dq + 2 * dv), nbytes,
+            plain, lib, {"train_families": count}, q=[b, hq, tq, dq],
+            kv=[b, hkv, tk, dq], v=[b, hkv, tk, dv], causal=causal,
+            window=window, mainloop=FB.plan_call(q, k, v, o, dy))
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+
+    for (e, m, k, n, act), count in sorted(
+            shapes["batched_matmul"].items(), key=str):
+        w = (torch.randn(e, k, n, device="cuda", generator=gen)
+             * k ** -0.5).to(torch.bfloat16)
+        big = w.numel() * 2 > 1e9
+        pre = fusion.needs_preact(act)
+        # (launch, A of the product, B of it, activation, fp32 out): the
+        # forward and the recompute read A (E, m, k) and W; dA reads g
+        # (E, m, n) and W^T, dB A^T and g, both transposes in place.
+        launches = [("fwd", "a", "w", act, False)]
+        if pre:
+            launches.append(("pre", "a", "w", "none", True))
+        launches += [("dA", "g", "wT", "none", False),
+                     ("dB", "aT", "g", "none", False)]
+        per_set = 2 * (e * m * k + e * m * n)
+        sets = [(torch.randn(e, m, k, device="cuda", generator=gen)
+                 .to(torch.bfloat16),
+                 torch.randn(e, m, n, device="cuda", generator=gen)
+                 .to(torch.bfloat16)) for _ in range(n_sets(per_set))]
+        for label, xa, xb, a_act, fp32 in launches:
+            def operands(a, g):
+                return ({"a": a, "g": g, "aT": a.transpose(1, 2)}[xa],
+                        {"w": w, "wT": w.transpose(1, 2), "g": g}[xb])
+            out_dtype = torch.float32 if fp32 else None
+            ops = [operands(a, g) for a, g in sets]
+            mm_, kk, nn_ = ops[0][0].shape[1], ops[0][0].shape[2], \
+                ops[0][1].shape[2]
+            iters = 8 if big else 10
+            ms, wall = time_ms(lambda x, y: batched_matmul_cuda(
+                x, y, activation=a_act, out_dtype=out_dtype), ops, iters)
+            plain, _ = time_ms(lambda x, y: batched_matmul_ref(
+                x, y, activation=a_act, out_dtype=out_dtype), ops,
+                2 if big else 8)
+            lib, _ = time_ms(torch.bmm, ops, iters)
+            p = plan_batched_call(*ops[0])
+            out_bytes = (4 if fp32 else 2) * e * mm_ * nn_
+            row("batched_matmul", f"train_families.{label} E{e} m{mm_} "
+                f"k{kk} n{nn_} {a_act}", ms, wall, 2 * e * mm_ * kk * nn_,
+                2 * e * (mm_ * kk + kk * nn_) + out_bytes, plain, lib,
+                {"train_families": count}, batch=e, m=mm_, k=kk, n=nn_,
+                activation=a_act, launch=label, mainloop=p.mainloop,
+                bm=p.bm)
+            del ops
+        del sets, w
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -6441,11 +7474,14 @@ def kernels_line(rows, launches_by_path, worst):
     return {"kernels": out}
 
 
-def check_row_calls(rows, launches, paths):
+def check_row_calls(rows, launches, paths, kernels=None):
     """Each of ``paths``: its per-shape rows' launches sum, kernel by
-    kernel, to the launches its run counted."""
+    kernel (each of ``kernels``, or all), to the launches its run
+    counted."""
     for path in paths:
         for kernel, counted in launches[path].items():
+            if kernels is not None and kernel not in kernels:
+                continue
             timed = sum(r["calls"].get(path, 0) for r in rows
                         if r["kernel"] == kernel)
             if timed != counted:
@@ -6493,6 +7529,10 @@ def main():
     launches.update(encdec_launches)
     for kernel, err in encdec_worst.items():
         worst[kernel] = max(worst[kernel], err)
+    fam_launches, fam_worst, fam_shapes = phase_train_families(card)
+    launches.update(fam_launches)
+    for kernel, err in fam_worst.items():
+        worst[kernel] = max(worst[kernel], err)
     phase_capture()
     rows = (phase_times(cfg, card, cont_forwards) + phase_times_paper(card)
             + phase_times_quant(cfg, card, cont_forwards)
@@ -6500,11 +7540,14 @@ def main():
             + phase_times_llava(card, llava_gemm, llava_flash, llava_plans)
             + phase_times_moe(card, moe_calls_by_model)
             + phase_times_recurrent(card, rec_calls_by_model)
-            + phase_times_encdec(card, encdec_calls_run))
+            + phase_times_encdec(card, encdec_calls_run)
+            + phase_times_train_families(card, fam_shapes))
     emit({"phase": "capture_failures", "by_cause": dict(CAPTURE_FAILURES)})
     emit({"phase": "free_card", **FREED})
     check_row_calls(rows, launches, ("lstm", "fc", "windowed", "llava",
                                      "moe", "recurrent", "encdec"))
+    check_row_calls(rows, launches, ("train_families",),
+                    ("flash_attention_bwd", "batched_matmul"))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

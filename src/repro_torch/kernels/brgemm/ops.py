@@ -20,7 +20,17 @@ reference's ``_brgemm_bwd`` does, with ``g`` made the same way:
     dA_i = (alpha g) B_i^T   the batched kernel, g broadcast over i and
     dB_i = A_i^T (alpha g)   B_i^T / A_i^T read in place through strides
 
-``batched_matmul`` has no backward on the kernel, as in the reference.
+``batched_matmul``'s ``"cuda"`` backend (``_BatchedCuda``) differentiates
+with the batched kernel itself, ``g`` made the same way, where the
+reference's Pallas op has no VJP and the reference trains its MoE models
+through the XLA einsum that this contraction is:
+
+    dA_i = (alpha g_i) B_i^T   the batched kernel, B_i^T read in place
+    dB_i = A_i^T (alpha g_i)   the batched kernel, A_i^T read in place
+    dbias = sum g over the batch and the rows
+
+and a 2-D operand broadcast over the batch takes the sum of its entries'
+gradients.
 
 Each entry takes ``quant=`` and routes through ``quant.active_quant``: an
 explicit spec, an ambient ``use(quant=...)`` or a calibrated
@@ -213,14 +223,58 @@ def _batched_matmul_torch(a, b, bias, *, activation, alpha, out_dtype):
                                 alpha=alpha, out_dtype=out_dtype)
 
 
+def batched_bwd(batched, a, b, bias, y, dy, *, activation, alpha,
+                needs=(True, True, True)):
+    """(da, db, dbias) of ``batched_matmul`` over the given batched GEMM
+    callable (the kernel on the card, the plain version in the CPU tests):
+    ``g = dy * act'(pre)``, act' from the output or from the fp32
+    pre-activation recomputed by the same GEMM, then one batched GEMM for
+    each operand's gradient, reading the other operand transposed in
+    place.  A broadcast 2-D operand's gradient is summed over the batch
+    in fp32.  ``needs`` says which of the three to compute."""
+    g = fusion.output_grad(dy, y, activation, lambda: batched(
+        a, b, bias, activation="none", alpha=alpha,
+        out_dtype=torch.float32))
+    galpha = (g * alpha).to(a.dtype)
+    da = db = dbias = None
+    if needs[0]:
+        da = batched(galpha, b.transpose(-1, -2),
+                     out_dtype=torch.float32 if a.dim() == 2 else None)
+        da = (da.sum(0) if a.dim() == 2 else da).to(a.dtype)
+    if needs[1]:
+        db = batched(a.transpose(-1, -2), galpha,
+                     out_dtype=torch.float32 if b.dim() == 2 else None)
+        db = (db.sum(0) if b.dim() == 2 else db).to(b.dtype)
+    if bias is not None and needs[2]:
+        dbias = g.sum((0, 1)).to(bias.dtype)
+    return da, db, dbias
+
+
+class _BatchedCuda(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, bias, activation, alpha, out_dtype):
+        y = K.batched_matmul_cuda(a, b, bias, activation=activation,
+                                  alpha=alpha, out_dtype=out_dtype)
+        from_y = activation != "none" and not fusion.needs_preact(activation)
+        ctx.save_for_backward(a, b, bias, y if from_y else None)
+        ctx.cfg = dict(activation=activation, alpha=alpha)
+        ctx.dispatch = dispatch.snapshot()
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, bias, y = ctx.saved_tensors
+        with dispatch.restored(ctx.dispatch):
+            grads = batched_bwd(K.batched_matmul_cuda, a, b, bias, y, dy,
+                                needs=ctx.needs_input_grad[:3], **ctx.cfg)
+        return (*grads, None, None, None)
+
+
 @dispatch.register("batched_matmul", "cuda")
 def _batched_matmul_cuda(a, b, bias, *, activation, alpha, out_dtype):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, bias)):
-        raise NotImplementedError(
-            "batched_matmul has no backward on the 'cuda' backend (nor on "
-            "the reference's Pallas one); use backend='torch' to "
-            "differentiate it")
+        return _BatchedCuda.apply(a, b, bias, activation, alpha, out_dtype)
     return K.batched_matmul_cuda(a, b, bias, activation=activation,
                                  alpha=alpha, out_dtype=out_dtype)
 

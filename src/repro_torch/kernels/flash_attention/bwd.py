@@ -18,6 +18,15 @@ views need no ``.contiguous()`` copy.
 and dy that TMA can describe, ``wmma`` for other bf16 views, ``simt``
 (FMA, no TF32) for fp32, through ``dispatch.resolve_blocks`` under op
 ``flash_attention_bwd`` (a grid of that one plan).
+
+The kernels take the forward's head-size pairs (``FWD_HEAD_DIMS``: q and
+k's, v's, so y's and dy's): one size for all, RecurrentGemma's 256 the
+widest, or MLA's (192, 128).  Another pair (the reduced MLA's (24, 16)) is
+zero-padded up to the first pair that holds it, as the forward pads it:
+zero columns of q and k add nothing to a score, of v, y and dy nothing to
+dP or delta, and their gradients' columns, sliced off, are zero.  The
+scale is the unpadded size's unless the caller passes one.  A pair that
+no instantiation holds raises.
 """
 from __future__ import annotations
 
@@ -25,25 +34,30 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import blocking
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, MAINLOOPS,
-                                                       _schema, _strides,
+from repro_torch.kernels.flash_attention.kernel import (FWD_HEAD_DIMS,
+                                                       MAINLOOPS, _schema,
+                                                       _strides,
                                                        _tma_strides,
                                                        resolve_mainloop)
+from repro_torch.kernels.flash_attention.kernel import _padded as _fwd_padded
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.c_longlong * 15
+# The v head sizes of the pairs: delta's row lengths.
+V_DIMS = tuple(sorted({dv for _, dv in FWD_HEAD_DIMS}))
 
 
 @functools.cache
 def _lib():
     lib = _build.load("flash_attention_bwd")
-    lib.repro_flash_bwd.argtypes = ([_P] * 10 + [_I] * 6
+    lib.repro_flash_bwd.argtypes = ([_P] * 10 + [_I] * 7
                                     + [_P, _I, _I, _F, _I, _P])
     lib.repro_flash_bwd.restype = ctypes.c_int
-    lib.repro_flash_bwd_wgmma.argtypes = ([_P] * 10 + [_I] * 6
+    lib.repro_flash_bwd_wgmma.argtypes = ([_P] * 10 + [_I] * 7
                                           + [_P, _I, _I, _F, _P, _P])
     lib.repro_flash_bwd_wgmma.restype = ctypes.c_int
     lib.repro_delta_rowsum.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _I,
@@ -60,12 +74,22 @@ def _check(rc: int, what: str, lib) -> None:
                            f"({lib.repro_cuda_error_string(rc).decode()})")
 
 
-def _check_rows(name, t, like):
-    if t.shape != like.shape or t.dtype != like.dtype or t.device != \
+def _check_rows(name, t, shape, like):
+    if tuple(t.shape) != shape or t.dtype != like.dtype or t.device != \
             like.device:
-        raise ValueError(f"flash_attention_bwd_cuda needs {name} shaped, "
-                         f"typed and placed like q, got {tuple(t.shape)} "
-                         f"{t.dtype} on {t.device}")
+        raise ValueError(f"flash_attention_bwd_cuda needs {name} of shape "
+                         f"{shape}, typed and placed like q, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _padded(q, k, v, y, dy):
+    """The five views as the kernels run them: q, k and v padded as the
+    forward pads them (``kernel._padded``), y and dy to v's size."""
+    dv = v.size(3)
+    q, k, v = _fwd_padded(q, k, v)
+    if v.size(3) != dv:
+        y, dy = (F.pad(t, (0, v.size(3) - dv)) for t in (y, dy))
+    return q, k, v, y, dy
 
 
 blocking.register_schema("flash_attention_bwd", _schema())
@@ -73,8 +97,10 @@ blocking.register_schema("flash_attention_bwd", _schema())
 
 def plan_call(q, k, v, y, dy) -> str:
     """The plan of ``flash_attention_bwd_cuda(q, k, v, y, lse, dy)`` from
-    the views' type, strides and alignment under the active block policy
-    (the kernels are not touched); no key at all stays off wgmma."""
+    the views' type, strides and alignment (padded as the wrapper pads
+    them) under the active block policy (the kernels are not touched); no
+    key at all stays off wgmma."""
+    q, k, v, y, dy = _padded(q, k, v, y, dy)
     return resolve_mainloop("flash_attention_bwd", q, k, (q, k, v, y, dy))
 
 
@@ -85,12 +111,15 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
                              plan: str | None = None):
     """(dq, dk, dv) from the forward's residuals, on the card.
 
-    q, y, dy: (B, Hq, Tq, d); k, v: (B, Hkv, Tk, d); fp32 or bf16 of one
-    dtype, d in (32, 64, 128).  lse: fp32 (B, Hq, Tq), as
-    ``flash_attention_cuda(..., return_residuals=True)`` returns it.  The
-    gradients come back contiguous in the inputs' dtype; with
-    ``return_delta`` also the fused fp32 (B, Hq, Tq) delta.  ``plan``: the
-    mainloop to run, else the block policy's pick.
+    q: (B, Hq, Tq, d); k: (B, Hkv, Tk, d); v: (B, Hkv, Tk, dv); y, dy:
+    (B, Hq, Tq, dv); fp32 or bf16 of one dtype; (d, dv) a pair of
+    ``FWD_HEAD_DIMS``, or one padded up to one.  Tq and Tk may differ.
+    lse: fp32 (B, Hq, Tq), as ``flash_attention_cuda(...,
+    return_residuals=True)`` returns it.  The gradients come back in the
+    inputs' dtype, contiguous (of a padded pair: the padded gradients
+    sliced back); with ``return_delta`` also the fused fp32 (B, Hq, Tq)
+    delta.  ``scale`` defaults to ``d ** -0.5`` of the unpadded d.
+    ``plan``: the mainloop to run, else the block policy's pick.
     """
     if not (q.is_cuda and all(t.device == q.device
                               for t in (k, v, y, lse, dy))):
@@ -101,31 +130,31 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
         raise TypeError(f"flash_attention_bwd_cuda takes fp32 or bf16 q, k, "
                         f"v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_attention_bwd_cuda takes 4-D q and "
-                         "equal-shape 4-D k, v (one head size: MLA's "
-                         "(192, 128) backward is not ported)")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError("flash_attention_bwd_cuda takes 4-D q, k and v, k "
+                         "and v of one (batch, heads, time)")
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
+    d_v = v.size(3)
     if k.size(0) != b or k.size(3) != d or hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention_bwd_cuda shapes q "
-                         f"{tuple(q.shape)} and k/v {tuple(k.shape)} do not "
+                         f"{tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd_cuda head_dim must be one of "
-                         f"{HEAD_DIMS}, got {d}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    _check_rows("y", y, q)
-    _check_rows("dy", dy, q)
+    _check_rows("y", y, (b, hq, tq, d_v), q)
+    _check_rows("dy", dy, (b, hq, tq, d_v), q)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, tq) or \
             not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd_cuda needs a contiguous fp32 "
                          f"lse of shape {(b, hq, tq)}")
+    scale = scale if scale is not None else d ** -0.5
+    q, k, v, y, dy = _padded(q, k, v, y, dy)
+    dp, dvp = q.size(3), v.size(3)
     strides = _STRIDES(*(_strides(q, "q") + _strides(k, "k")
                          + _strides(v, "v") + _strides(y, "y")
                          + _strides(dy, "dy")))
-    scale = scale if scale is not None else d ** -0.5
     # The kernels write every row of every output; with no query or no key
     # there is nothing to launch and the gradients are zero.
     alloc = torch.empty_like if q.numel() and k.numel() else torch.zeros_like
@@ -139,7 +168,7 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
                 dy.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, tq,
-                tk, d)
+                tk, dp, dvp)
         tail = (int(causal), -1 if window is None else int(window),
                 float(scale))
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -158,6 +187,10 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
         _check(rc, "flash_attention_bwd", lib)
         flash_attention_bwd_cuda.launches += 1
         flash_attention_bwd_cuda.mainloops[mainloop] += 1
+    if dp != d:
+        dq, dk = dq[..., :d], dk[..., :d]
+    if dvp != d_v:
+        dv = dv[..., :d_v]
     return (dq, dk, dv, delta) if return_delta else (dq, dk, dv)
 
 
@@ -181,9 +214,9 @@ def delta_rowsum_cuda(y, dy):
     if dy.shape != y.shape or dy.dtype != y.dtype:
         raise ValueError("delta_rowsum_cuda needs dy shaped and typed like y")
     b, h, t, d = y.shape
-    if d not in HEAD_DIMS:
+    if d not in V_DIMS:
         raise ValueError(f"delta_rowsum_cuda head_dim must be one of "
-                         f"{HEAD_DIMS}, got {d}")
+                         f"{V_DIMS}, got {d}")
     strides = _STRIDES(*(_strides(y, "y") + _strides(dy, "dy")), *([0] * 9))
     delta = torch.empty((b, h, t), dtype=torch.float32, device=y.device)
     if delta.numel():

@@ -36,7 +36,7 @@ from repro_torch.core import blocking, dispatch
 from repro_torch.core.blocking import AttnGeometry, PlanSchema
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)       # the backward's: q, k and v alike
+# (q / k, v) head sizes instantiated, the forward's and the backward's
 FWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 MAINLOOPS = ("wgmma", "wmma", "simt")
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -130,13 +130,13 @@ def resolve_mainloop(op: str, q, k, views, explicit=None) -> str:
 
 
 def head_dims(d: int, dv: int) -> tuple[int, int]:
-    """The instantiated (q/k, v) head sizes that run a (d, dv) call: the
-    first pair of FWD_HEAD_DIMS that holds both."""
+    """The instantiated (q/k, v) head sizes that run a (d, dv) call, forward
+    or backward: the first pair of FWD_HEAD_DIMS that holds both."""
     for pair in FWD_HEAD_DIMS:
         if d <= pair[0] and dv <= pair[1]:
             return pair
-    raise ValueError(f"flash_attention_cuda head sizes (q/k {d}, v {dv}) "
-                     f"fit no instantiation of {FWD_HEAD_DIMS}")
+    raise ValueError(f"flash attention head sizes (q/k {d}, v {dv}) fit no "
+                     f"instantiation of {FWD_HEAD_DIMS}")
 
 
 def _padded(q, k, v):

@@ -1694,19 +1694,191 @@ def test_recurrent_engines_kernels_match_plain(gen, name):
     assert out == ref
 
 
-def test_recurrentgemma_train_step_raises_at_head_size_256(gen):
-    """Training is not ported to recurrentgemma's head size: its train step
-    on the kernels raises with the flash backward's head-size error (the
-    forward takes 256)."""
-    cfg = dataclasses.replace(configs.get("recurrentgemma-9b").reduced(),
-                              head_dim=256)
+def test_recurrentgemma_train_step_at_head_size_256(gen):
+    """recurrentgemma's train step at its head size 256 (reduced width),
+    in fp32 and in bf16: on the kernels the flash backward's (256, 256)
+    instantiation runs on simt in fp32 and on wgmma in bf16, and the losses
+    of two steps equal the plain path's within TRAIN_BAND's band of the
+    dtype (1e-4 fp32, 2e-2 bf16)."""
+    base = dataclasses.replace(configs.get("recurrentgemma-9b").reduced(),
+                               head_dim=256, n_layers=3)
     ocfg = AdamWCfg()
-    state = init_state(cfg, ocfg, torch.Generator().manual_seed(0), "cuda")
-    tokens = torch.randint(0, cfg.vocab, (2, 12), device="cuda",
+    tokens = torch.randint(0, base.vocab, (2, 40), device="cuda",
                            generator=gen)
-    step = make_train_step(cfg, ocfg, backend="cuda")
-    with pytest.raises(ValueError, match="head_dim must be one of"):
-        step(state, {"tokens": tokens, "labels": tokens.roll(-1, 1)})
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    for dtype, mainloop, band in (("float32", "simt", 1e-4),
+                                  ("bfloat16", "wgmma", 2e-2)):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        losses = {}
+        for backend in ("cuda", "torch"):
+            state = init_state(cfg, ocfg, torch.Generator().manual_seed(0),
+                               "cuda")
+            state["opt"]["step"] = 1500          # a non-zero learning rate
+            reset_flash_bwd_counts()
+            step = make_train_step(cfg, ocfg, backend=backend)
+            losses[backend] = [float(step(state, batch)[1]["loss"])
+                               for _ in range(2)]
+            calls = 2 if backend == "cuda" else 0
+            assert flash_attention_bwd_cuda.launches == calls
+            assert flash_attention_bwd_cuda.mainloops[mainloop] == calls
+        np.testing.assert_allclose(losses["cuda"], losses["torch"],
+                                   atol=band, rtol=0, err_msg=dtype)
+
+
+# --------------------------------------------------------------------------
+# training every family: the backward's new head-size pairs, Tq != Tk, the
+# batched GEMM's backward, and each family's train step
+# --------------------------------------------------------------------------
+
+# (b, hq, hkv, tq, tk, d, dv, causal, window); the first six in fp32 and
+# bf16, seamless's 4096 frames in bf16 (the train path's dtype).
+BWD_PAIRS = [
+    (1, 4, 1, 300, 300, 256, 256, True, None),    # (256, 256), MQA
+    (1, 8, 1, 520, 520, 256, 256, True, 128),     # windowed, MQA
+    (2, 4, 2, 150, 70, 256, 256, False, 20),      # rows with no key
+    (2, 4, 4, 200, 200, 192, 128, True, None),    # MLA's pair
+    (1, 4, 4, 130, 300, 192, 128, False, None),   # MLA's, Tq < Tk
+    (2, 4, 4, 100, 100, 24, 16, True, None),      # reduced MLA's, padded
+]
+BWD_FRAMES = [
+    (2, 16, 16, 4096, 4096, 64, 64, False, None),  # seamless's encoder
+    (2, 16, 16, 256, 4096, 64, 64, False, None),  # its cross-attention
+    (2, 16, 16, 256, 1000, 64, 64, False, None),  # over ragged frames
+]
+
+
+@pytest.mark.parametrize("dtype,b,hq,hkv,tq,tk,d,dv,causal,window", [
+    (dtype, *case) for dtype in (torch.float32, torch.bfloat16)
+    for case in BWD_PAIRS] + [(torch.bfloat16, *case)
+                              for case in BWD_FRAMES])
+def test_flash_backward_new_pairs_and_cross_lengths(gen, dtype, b, hq, hkv,
+                                                    tq, tk, d, dv, causal,
+                                                    window):
+    """The flash backward at head-size pairs (256, 256) and (192, 128),
+    the reduced MLA's (24, 16) zero-padded to (32, 32), and non-causal at
+    Tq != Tk, against plain autograd through mha_ref: each gradient within
+    GRAD_BAND of its largest entry, of its unpadded shape; bf16 on wgmma,
+    fp32 on simt; two calls bit for bit alike."""
+    q, k = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype)
+            .transpose(1, 2) for h, t in ((hq, tq), (hkv, tk)))
+    v = torch.randn(b, tk, hkv, dv, device="cuda", generator=gen).to(
+        dtype).transpose(1, 2)
+    dy = torch.randn(b, tq, hq, dv, device="cuda", generator=gen).to(
+        dtype).transpose(1, 2)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  return_residuals=True)
+    planned = FB.plan_call(q, k, v, o, dy)
+    assert planned == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    reset_flash_bwd_counts()
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, dy, causal=causal,
+                                   window=window)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, dy, causal=causal,
+                                   window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype, name
+        _rel_close(g, w, GRAD_BAND[dtype], name)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, dy, causal=causal,
+                                     window=window)
+    for g, g2 in zip(got, again):
+        torch.testing.assert_close(g2, g, atol=0, rtol=0)
+    assert flash_attention_bwd_cuda.mainloops[planned] == 2
+
+
+def test_flash_backward_refuses_a_pair_too_wide(gen):
+    """A pair no instantiation holds raises; nothing runs the plain
+    version instead."""
+    q = torch.randn(1, 2, 8, 264, device="cuda", generator=gen)
+    v = torch.randn(1, 2, 8, 128, device="cuda", generator=gen)
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    with pytest.raises(ValueError, match="fit no instantiation"):
+        flash_attention_bwd_cuda(q, q, v, v, lse, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb,m,k,n,act,bias,bcast", [
+    (8, 96, 128, 64, "silu", False, None),     # an MoE's gate GEMM
+    (8, 96, 64, 128, "none", False, None),     # its down GEMM
+    (4, 50, 40, 72, "gelu", True, "a"),        # broadcast a, a bias
+    (4, 50, 40, 72, "relu", True, "b"),        # broadcast b
+])
+def test_batched_backward_matches_plain_autograd(gen, dtype, nb, m, k, n,
+                                                 act, bias, bcast):
+    """``batched_matmul``'s backward on the kernels (``_BatchedCuda``: the
+    batched kernel for dA and dB, the transposed operand read in place, the
+    pre-activation recomputed where the activation needs it, a broadcast
+    operand summed over the batch) against plain autograd through
+    batched_matmul_ref, within GRAD_BAND of each gradient's largest entry,
+    with the launches the code gives."""
+    a = torch.randn(*((m, k) if bcast == "a" else (nb, m, k)), device="cuda",
+                    generator=gen).to(dtype)
+    b = (torch.randn(*((k, n) if bcast == "b" else (nb, k, n)),
+                     device="cuda", generator=gen) * k ** -0.5).to(dtype)
+    bi = torch.randn(n, device="cuda", generator=gen).to(dtype) \
+        if bias else None
+    dy = torch.randn(nb, m, n, device="cuda", generator=gen).to(dtype)
+    grads = []
+    for backend in ("cuda", "torch"):
+        leaves = [t.clone().requires_grad_() for t in (a, b)]
+        lb = bi.clone().requires_grad_() if bias else None
+        reset_matmul_counts()
+        batched_matmul(*leaves, lb, activation=act,
+                       backend=backend).backward(dy)
+        grads.append([t.grad for t in leaves] + ([lb.grad] if bias else []))
+        if backend == "cuda":
+            assert batched_matmul_cuda.launches == 3 + \
+                fusion.needs_preact(act)
+    for name, g, w in zip(("da", "db", "dbias"), *grads):
+        assert g.shape == w.shape, name
+        _rel_close(g, w, GRAD_BAND[dtype], name)
+
+
+@pytest.mark.parametrize("name", ["grok-1-314b", "deepseek-v3-671b",
+                                  "xlstm-1.3b", "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2"])
+def test_family_train_step_kernels_against_plain(gen, name):
+    """A reduced train step of each family on the kernels (the MoE
+    experts' batched backward, MLA's (24, 16) flash backward padded,
+    recurrentgemma's windowed flash, seamless's cross-attention at
+    Tq != Tk) against the plain path, as chip_smoke's train_families phase
+    holds them: in fp32 and in bf16, every gradient (``grad_errors``,
+    floored at FAM_GRAD_FLOOR of its layer) within the larger of
+    FAM_BAND's and twice the plain path's own FAM_SPREAD, every kernel
+    launch of the bf16 pass against its plain version on its own inputs
+    (``checked_launches``); then a bf16 step's launches as chip_smoke
+    derives them from the code, every flash and batched call on wgmma."""
+    b, t = 2, 32
+    batch = {"tokens": torch.randint(0, configs.get(name).reduced().vocab,
+                                     (b, t), device="cuda", generator=gen)}
+    batch["labels"] = batch["tokens"].roll(-1, 1)
+    src = None
+    if name == "seamless-m4t-large-v2":
+        src = 40
+        batch["src_embeds"] = torch.randn(b, src, 128, device="cuda",
+                                          generator=gen)
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(configs.get(name).reduced(), dtype=dtype)
+        model = api.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))
+        checked = {}
+        with chip_smoke.checked_launches(checked, bf16_truth=True):
+            errs, finite, (spread, _) = chip_smoke.grad_errors(
+                model, batch, cfg, chip_smoke.FAM_GRAD_FLOOR,
+                chip_smoke.FAM_SPREAD[dtype])
+        limit = max(chip_smoke.FAM_BAND[dtype]["grad_rel_l2"],
+                    2 * max(spread.values()))
+        assert finite and max(errs.values()) <= limit, (dtype, max(
+            errs.items(), key=lambda kv: kv[1]), limit)
+        assert "matmul" in checked and all(
+            v["over_band"] <= 1.0 for v in checked.values()), checked
+    counters = chip_smoke.fam_counters()
+    state = init_state(cfg, AdamWCfg(), torch.Generator().manual_seed(0),
+                       "cuda")
+    chip_smoke.reset_fam_counts(counters)
+    make_train_step(cfg, AdamWCfg())(state, batch)
+    launches = {k: c.launches for k, c in counters.items()}
+    assert launches == chip_smoke.fam_step_launches(cfg, b, t, src)
+    _, off = chip_smoke.fam_mainloops(counters, launches)
+    assert not off, off
 
 
 # --------------------------------------------------------------------------

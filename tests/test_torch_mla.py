@@ -411,8 +411,8 @@ def test_pipeline_takes_the_moe_configs(name):
 
 
 def test_mla_refusals(deepseek):
-    """int8 pages of the compressed cache, the quant tiers, MLA outside
-    the mla_moe family, and the flash backward at MLA's head sizes."""
+    """int8 pages of the compressed cache, the quant tiers and MLA outside
+    the mla_moe family."""
     _, tcfg, _, _, model = deepseek
     with pytest.raises(NotImplementedError, match="int8 pages of MLA"):
         PagedKVCache(tcfg, 2, MAX_LEN, page_size=8, kv_quant="int8",

@@ -32,7 +32,6 @@ from repro.serve import ServeConfig as JServeConfig
 from repro_torch import configs as tconfigs
 from repro_torch import interop, quant
 from repro_torch.core import brgemm
-from repro_torch.kernels.brgemm import ops as bops
 from repro_torch.layers import moe
 from repro_torch.models import api as tapi
 from repro_torch.serve import (ContinuousEngine, Engine, PoolConfig, Request,
@@ -346,10 +345,9 @@ def test_grok_init_params_scales():
         assert abs(float(w.detach().std()) - fan_in ** -0.5) < 0.02
 
 
-def test_quant_tiers_and_cuda_backward_refused(grok):
+def test_quant_tiers_refused(grok):
     """What stays queued raises: the quant tiers on an MoE config (both
-    engines, calibrated weights too), and the batched GEMM's backward on
-    the cuda backend, which an MoE train step on the card reaches."""
+    engines, calibrated weights too)."""
     _, tcfg, _, _, model = grok
     scfg = ServeConfig(max_len=MAX_LEN)
     for kw in ({"decode_quant": "int8"}, {"quant": "int8"}):
@@ -362,8 +360,3 @@ def test_quant_tiers_and_cuda_backward_refused(grok):
     with pytest.raises(NotImplementedError, match="quantized serving"):
         Engine(tcfg, quant.calibrate_params(model, "int8"), scfg,
                device="cpu")
-    a = torch.ones(4, 2, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        bops._batched_matmul_cuda(a, torch.ones(4, 8, 3), None,
-                                  activation="none", alpha=1.0,
-                                  out_dtype=None)

@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving, training, ResNet-50, batch-reduce
 GEMM, quantized serving, LSTM / FC, windowed-serving, VLM-serving (under
-the measured block policy) and MoE / MLA serving paths on one NVIDIA
-Hopper card.
+the measured block policy), MoE / MLA, recurrent and encoder-decoder
+serving, every family's training, and routed, self-healing serving paths
+on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
@@ -207,8 +208,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                batched backward: dA and dB each one batched launch), every
                flash backward and batched backward shape against plain
                autograd; step ms, tokens/s, busy and idle, peak memory.
-               The flash backward's and batched GEMMs' per-shape times join
-               phase 12's.
+               Every matmul, flash forward, flash backward and batched
+               GEMM shape of its runs is timed in phase 12.
+  17. cluster — (right after continuous) smollm-135m at full width and
+               depth behind ``EngineRouter``: (a) an ``AsyncFrontend``
+               over a bf16 replica (the slotted pool) and a
+               ``decode_quant="int8"`` one (the decode_int8 pool), the 16
+               continuous requests half to each tier under an installed
+               ``Tracer``, each request's tokens equal to its pool's in
+               phase 5; (b) three slotted replicas with factories under
+               ``HealthConfig`` on a ``FaultClock``, a seeded schedule
+               (transient faults at prefill and decode, a fatal fault, a
+               hang past the watchdog) fired as written, the router's
+               counters (retries, quarantines, re-admissions, probes,
+               requeues) exactly as that schedule gives them, each
+               quarantine the injected fault's or the watchdog's, every
+               replica healthy, every request's tokens equal to its slotted
+               pool's in phase 5, every pool empty and the card's allocated
+               memory back after; (c) ``HttpFrontend``:
+               4 ``POST /generate`` calls with (a)'s tokens, a malformed
+               body answered 400, ``GET /metrics`` by replica with the
+               router's counters; (d) (a)'s trace exported as Chrome JSON
+               under chiprun_out/, validated, summarized, every
+               matmul ``resolve_blocks`` event's FLOPs 2 m n k.  Exact
+               launch counts, wgmma only, the canary's new shapes held
+               against plain; its rows join phase 12's.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -1934,10 +1958,10 @@ def phase_continuous(base_cfg, card):
         for kernel, err in continuous_parity(cfg, forwards, failed).items():
             worst[kernel] = max(worst[kernel], err)
         if dtype == torch.bfloat16:
-            main_forwards = forwards
+            main_forwards, main_outs = forwards, outs
     if failed:
         raise AssertionError(f"continuous serving: {failed}")
-    return main_launches, main_forwards, worst
+    return main_launches, main_forwards, worst, main_outs
 
 
 def continuous_parity(cfg, forwards, failed):
@@ -4704,8 +4728,8 @@ def gemm_times(g, gen, iters=10):
         plan_fields(*sets[0][:2])
 
 
-def summed_row(rows, kernel, shape, parts, card, **kw):
-    """One row for the many shapes of one role on one path: ``parts``
+def summed_row(rows, kernel, shape, parts, card, path="continuous", **kw):
+    """One row for the many shapes of one role on one ``path``: ``parts``
     [(launches, ms, wall ms, plain ms, library ms, flops, bytes)]; each
     time and the bound are the launch-weighted means, so that a time
     times the row's launches is the parts' summed time, as kernels_line
@@ -4723,11 +4747,11 @@ def summed_row(rows, kernel, shape, parts, card, **kw):
                  "ms": mean(1), "wall_ms": mean(2), "bound_ms": bms,
                  "bound_by": "operations" if ops > bms / 2 else "bytes",
                  "plain_ms": mean(3), "library_ms": mean(4),
-                 "calls": {"continuous": n}, **kw})
+                 "calls": {path: n}, **kw})
     emit(rows[-1])
 
 
-def phase_times(cfg, card, cont_forwards):
+def phase_times(cfg, card, cont_forwards, cluster_forwards):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         delta_rowsum_cuda, delta_rowsum_ref, flash_attention_bwd_cuda,
@@ -4738,10 +4762,11 @@ def phase_times(cfg, card, cont_forwards):
     dtype, rows = torch.bfloat16, []
 
     row = row_recorder(rows, card)
-    # The continuous runs' GEMMs: those at the serving rows' shapes (the
-    # decode step at 8 slots) count on those rows, the rest are timed
-    # below, shape by shape.
+    # The continuous and cluster runs' GEMMs: those at the serving rows'
+    # shapes (the decode step at 8 slots) count on those rows, the rest
+    # are timed below, shape by shape.
     cont = continuous_gemms(cfg, cont_forwards)
+    clus = continuous_gemms(cfg, cluster_forwards)
 
     for g in main_path_gemms(cfg) + train_gemms(cfg):
         ms, wall, plain, lib, flops, nbytes, plan = gemm_times(g, gen)
@@ -4753,51 +4778,63 @@ def phase_times(cfg, card, cont_forwards):
             "decode") else NEW_TOKENS if g.name == "lm_head" else 1)
         quant = (1 + 2 * NEW_TOKENS if g.name == "lm_head" else
                  g.per_forward if g.name.startswith("prefill") else 0)
-        continuous = (0 if g.name.startswith("train")
-                      else cont.pop((role(g), g.m), (g, 0))[1])
+        paths = {path: (0 if g.name.startswith("train")
+                        else left.pop((role(g), g.m), (g, 0))[1])
+                 for path, left in (("continuous", cont),
+                                    ("cluster", clus))}
         row("matmul", g.name, ms, wall, flops, nbytes, plain, lib,
             {"serve": serve, "train": g.per_step * TRAIN_STEPS,
-             "quant": quant, "continuous": continuous},
+             "quant": quant, **paths},
             m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind,
             **plan)
 
-    # The continuous runs' other GEMMs (one-shot prefills at each prompt's
-    # length, chunks, the head at one row): one row a role, summed over
-    # its shapes.
-    memo, parts = {}, {}
-    for (name, m), (g, n) in sorted(cont.items()):
-        key = (m, g.k, g.n, g.activation, g.kind)
-        if key not in memo:                       # o is q's shape
-            memo[key] = gemm_times(g, gen)
-        parts.setdefault(name, []).append((n, *memo[key][:6]))
-    for name, ps in parts.items():
-        g = cont[next(k for k in cont if k[0] == name)][0]
-        summed_row(rows, "matmul", f"continuous.{name}", ps, card,
-                   m=sorted(k[1] for k in cont if k[0] == name), k=g.k,
-                   n=g.n, activation=g.activation, layout=g.kind)
+    # The continuous and cluster runs' other GEMMs (one-shot prefills at
+    # each prompt's length, chunks, the head at one row): one row a role
+    # and path, summed over its shapes, each shape timed once.
+    memo = {}
+    for path, left in (("continuous", cont), ("cluster", clus)):
+        parts = {}
+        for (name, m), (g, n) in sorted(left.items()):
+            key = (m, g.k, g.n, g.activation, g.kind)
+            if key not in memo:                   # o is q's shape
+                memo[key] = gemm_times(g, gen)
+            parts.setdefault(name, []).append((n, *memo[key][:6]))
+        for name, ps in parts.items():
+            g = left[next(k for k in left if k[0] == name)][0]
+            summed_row(rows, "matmul", f"{path}.{name}", ps, card, path,
+                       m=sorted(k[1] for k in left if k[0] == name), k=g.k,
+                       n=g.n, activation=g.activation, layout=g.kind)
 
-    # The continuous runs' one-shot prefills' attention, (1, Hq, T, dh)
-    # at each prompt's length.
+    # The continuous and cluster runs' one-shot prefills' attention, (1,
+    # Hq, T, dh) at each prompt's length, each length timed once.
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    ps = []
-    for (kind, t), n in sorted(cont_forwards.items()):
-        if kind != "prefill":
-            continue
-        q_bytes, kv_bytes = 2 * hq * t * d, 2 * hkv * t * d
-        nbytes = 2 * q_bytes + 2 * kv_bytes
-        sets = [qkv_views(1, hq, hkv, t, d, dtype, gen)
-                for _ in range(n_sets(nbytes))]
-        ms, wall = time_ms(lambda q, k, v, _: flash_attention_cuda(q, k, v),
-                           sets)
-        plain, _ = time_ms(lambda q, k, v, _: mha_ref(q, k, v), sets)
-        lib, _ = time_ms(lambda q, k, v, _: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), sets)
-        ps.append((n * cfg.n_layers, ms, wall, plain, lib,
-                   4 * hq * t * (t + 1) // 2 * d, nbytes))
-        del sets
-    summed_row(rows, "flash_attention", "continuous.prefill", ps, card,
-               t=[t for kind, t in sorted(cont_forwards) if kind == "prefill"],
-               q=[1, hq, "T", d], kv=[1, hkv, "T", d])
+    memo = {}
+    for path, forwards in (("continuous", cont_forwards),
+                           ("cluster", cluster_forwards)):
+        ps = []
+        for (kind, t), n in sorted(forwards.items()):
+            if kind != "prefill":
+                continue
+            q_bytes, kv_bytes = 2 * hq * t * d, 2 * hkv * t * d
+            nbytes = 2 * q_bytes + 2 * kv_bytes
+            if t not in memo:
+                sets = [qkv_views(1, hq, hkv, t, d, dtype, gen)
+                        for _ in range(n_sets(nbytes))]
+                ms, wall = time_ms(
+                    lambda q, k, v, _: flash_attention_cuda(q, k, v), sets)
+                plain, _ = time_ms(lambda q, k, v, _: mha_ref(q, k, v),
+                                   sets)
+                lib, _ = time_ms(
+                    lambda q, k, v, _: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), sets)
+                memo[t] = (ms, wall, plain, lib)
+                del sets
+            ps.append((n * cfg.n_layers, *memo[t],
+                       4 * hq * t * (t + 1) // 2 * d, nbytes))
+        summed_row(rows, "flash_attention", f"{path}.prefill", ps, card,
+                   path, t=[t for kind, t in sorted(forwards)
+                            if kind == "prefill"],
+                   q=[1, hq, "T", d], kv=[1, hkv, "T", d])
 
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     for name, b, t, calls in (
@@ -5016,7 +5053,7 @@ def library_runs(fn, *args):
     return True
 
 
-def phase_times_quant(cfg, card, cont_forwards):
+def phase_times_quant(cfg, card, cont_forwards, cluster_forwards):
     """The quantized GEMMs at the quantized serving path's shapes (int8 and
     e4m3, bf16 out, fp32 for the head) and the quantized brgemm /
     batched_matmul at the paper's cases (int8), with bounds at the 8-bit
@@ -5035,9 +5072,10 @@ def phase_times_quant(cfg, card, cont_forwards):
         plan_q_batched_call, plan_q_call, plan_q_stacked_call)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     rows = []
-    if any(kind == "decode_q" and m != BATCH for kind, m in cont_forwards):
-        raise AssertionError("a continuous decode_q step off the decode "
-                             f"rows' {BATCH} rows: {cont_forwards}")
+    for forwards in (cont_forwards, cluster_forwards):
+        if any(kind == "decode_q" and m != BATCH for kind, m in forwards):
+            raise AssertionError("a decode_q step off the decode rows' "
+                                 f"{BATCH} rows: {forwards}")
     for fmt in (torch.int8, torch.float8_e4m3fn):
         row = row_recorder(rows, card, fmt)
         name = str(fmt).replace("torch.", "")
@@ -5084,17 +5122,19 @@ def phase_times_quant(cfg, card, cont_forwards):
                                                   else 1)
             else:
                 calls = g.per_forward
-            # The continuous decode_int8 pool: every decode step's GEMMs
-            # and head at its slots, in int8.
-            continuous = 0
-            if fmt == torch.int8 and (g.name.startswith("decode")
-                                      or g.name == "lm_head"):
-                continuous = g.per_forward * cont_forwards[
-                    "decode_q", g.m]
+            # The continuous decode_int8 pool and the cluster's int8
+            # tier: every decode step's GEMMs and head at its slots, in
+            # int8.
+            decode_q = fmt == torch.int8 and (g.name.startswith("decode")
+                                              or g.name == "lm_head")
+            paths = {path: g.per_forward * forwards["decode_q", g.m]
+                     if decode_q else 0
+                     for path, forwards in (("continuous", cont_forwards),
+                                            ("cluster", cluster_forwards))}
             p = plan_q_call(*sets[0][:3:2])
             row("matmul_q", f"{name} {g.name}", ms, wall,
                 2 * g.m * g.n * g.k, nbytes, plain, lib,
-                {"quant": calls, "continuous": continuous},
+                {"quant": calls, **paths},
                 m=g.m, k=g.k, n=g.n, activation=g.activation, layout=g.kind,
                 library=lib_name, mainloop=p.mainloop, bm=p.bm,
                 splits=p.splits)
@@ -6794,17 +6834,65 @@ def mtp_forward_calls(cfg, b, t):
     return {"matmul": mm, "flash_attention": fl}
 
 
+def fam_remat_calls(cfg, b, t, calls):
+    """The calls ``cfg.remat``'s checkpointed blocks run forward a second
+    time in a train step's backward (None without it): ``block_calls``,
+    less the MTP block's flash."""
+    if not cfg.remat or cfg.block == "encdec":
+        return None
+    remat = block_calls(calls)
+    if cfg.block == "mla_moe" and cfg.mtp:        # the MTP block's flash
+        mtp = mtp_forward_calls(cfg, b, t)["flash_attention"]
+        remat["flash_attention"] -= mtp
+    return remat
+
+
 def fam_step_launches(cfg, b, t, src=None):
     """Launches of one train step of ``cfg`` (``train_step_launches``),
     the checkpointed blocks' second forward where ``cfg.remat``."""
     calls = fam_forward_calls(cfg, b, t, src)
-    remat = None
-    if cfg.remat and cfg.block != "encdec":
-        remat = block_calls(calls)
-        if cfg.block == "mla_moe" and cfg.mtp:    # the MTP block's flash
-            mtp = mtp_forward_calls(cfg, b, t)["flash_attention"]
-            remat["flash_attention"] -= mtp
-    return train_step_launches(calls, remat)
+    return train_step_launches(calls, fam_remat_calls(cfg, b, t, calls))
+
+
+def train_launch_shapes(cfg, b, t, calls, remat_calls=None):
+    """``matmul``'s and the flash forward's launches of one train step by
+    shape, from its forward's ``calls`` by ``train_step_launches``' rule
+    (``kernels/brgemm/ops.py``'s ``_MatmulCuda``): a GEMM call x @ w
+    launches its forward ("fwd"; "pre" where its output is fp32; "head"
+    for a tied head, w the table read transposed), the checkpointed
+    blocks' second forward, the fp32 pre-activation recompute where the
+    activation needs it ("pre", no activation), dX = g @ w.T ("dx"; a
+    tied head's "dx_head", the table read in place) and dW = x.T @ g
+    ("dw"); a head runs at every position (b * t rows).  Returns
+    ({(layout, m, k, n, activation, bias): launches}, {(b, hq, hkv, tq,
+    tk, dq, dv, causal, window): launches}); their sums are
+    ``train_step_launches``' matmul and flash_attention counts (checked
+    here)."""
+    from repro_torch.core import fusion
+    mm = collections.Counter()
+    remat_mm = (remat_calls or {}).get("matmul", {})
+    for shape, n in calls.get("matmul", {}).items():
+        role, m, k, nn, act, fp32 = shape[:6]
+        bias = bool(len(shape) > 6 and shape[6])
+        head = role.endswith("head")
+        tied = head and cfg.tie_embeddings
+        m = b * t if head else m
+        fwd = "head" if tied else "pre" if fp32 else "fwd"
+        mm[(fwd, m, k, nn, act, bias)] += n + remat_mm.get(shape, 0)
+        if fusion.needs_preact(act):
+            mm[("pre", m, k, nn, "none", bias)] += n
+        mm[("dx_head" if tied else "dx", m, nn, k, "none", False)] += n
+        mm[("dw", k, m, nn, "none", False)] += n
+    flash = collections.Counter(bwd_calls(calls)["flash_attention_bwd"])
+    if remat_calls:
+        flash.update(bwd_calls(remat_calls)["flash_attention_bwd"])
+    want = train_step_launches(calls, remat_calls)
+    if (sum(mm.values()), sum(flash.values())) != (
+            want["matmul"], want["flash_attention"]):
+        raise AssertionError(f"train shapes {sum(mm.values())} matmul, "
+                             f"{sum(flash.values())} flash; the step "
+                             f"launches {want}")
+    return mm, flash
 
 
 def fam_forward_calls(cfg, b, t, src=None):
@@ -7175,19 +7263,29 @@ def phase_train_families(card):
     counts and every kernel launch of a bf16 run against plain held on its
     own inputs; then the batched backward at every shape the runs gave it
     against plain autograd.  Returns ({"train_families": launches}, worst
-    abs error by kernel, {flash_attention_bwd / batched_matmul:
-    Counter{shape: launches}} of the runs)."""
+    abs error by kernel, {kernel: Counter{shape: launches}} of the runs:
+    matmul's and the flash forward's as ``train_launch_shapes`` keys them,
+    the flash backward's and batched_matmul's as ``bwd_calls`` does)."""
     from repro_torch.configs import get
     t_phase = time.perf_counter()
     launches = dict.fromkeys(FAM_KERNELS, 0)
-    shapes = {"flash_attention_bwd": collections.Counter(),
-              "batched_matmul": collections.Counter()}
+    shapes = {k: collections.Counter() for k in FAM_KERNELS}
     failed, checked = [], {}
 
-    def count(got, calls, per_launch, times=1):
+    def count(got, calls, per_launch, cfg, bt, times=1, remat=True):
+        """Adds a run's launches, its launches by shape (``times`` steps
+        of b x t, ``bt``, or one layer's gradient: no remat) and its
+        per-launch checks."""
         for k in FAM_KERNELS:
             launches[k] += got[k]
         for kernel, per in bwd_calls(calls).items():
+            for shape, n in per.items():
+                shapes[kernel][shape] += n * times
+        b, t = bt
+        for kernel, per in zip(("matmul", "flash_attention"),
+                               train_launch_shapes(
+                                   cfg, b, t, calls, fam_remat_calls(
+                                       cfg, b, t, calls) if remat else None)):
             for shape, n in per.items():
                 shapes[kernel][shape] += n * times
         for kernel, w in per_launch.items():
@@ -7205,7 +7303,7 @@ def phase_train_families(card):
                 name, cfg, kind, card, SEED + 60 + 2 * idx + (kind == "moe"),
                 plain=not (kind == "moe" and cfg.n_experts > 64))
             failed += f
-            count(got, calls, per_launch)
+            count(got, calls, per_launch, cfg, FAM_LAYER, remat=False)
     for idx, (name, _) in enumerate(MOE_MODELS):
         cfg = dataclasses.replace(get(name).reduced(), dtype="bfloat16")
         b, t = FAM_REDUCED
@@ -7213,7 +7311,8 @@ def phase_train_families(card):
         _, got, per_launch, f = train_family(f"{name} reduced", cfg, batches,
                                              card, seed=SEED + 64 + idx)
         failed += f
-        count(got, fam_forward_calls(cfg, b, t), per_launch, len(batches))
+        count(got, fam_forward_calls(cfg, b, t), per_launch, cfg, (b, t),
+              len(batches))
 
     b, t = FAM_XLSTM
     cfg = get("xlstm-1.3b")
@@ -7223,7 +7322,8 @@ def phase_train_families(card):
         "xlstm-1.3b", cfg, batches, card, seed=SEED + 66,
         held_cfg=dataclasses.replace(cfg, n_layers=FAM_XLSTM_HELD_LAYERS))
     failed += f
-    count(got, fam_forward_calls(cfg, b, t), per_launch, len(batches))
+    count(got, fam_forward_calls(cfg, b, t), per_launch, cfg, (b, t),
+          len(batches))
 
     b, t, layers = FAM_RG
     cfg = dataclasses.replace(get("recurrentgemma-9b"), n_layers=layers)
@@ -7231,7 +7331,8 @@ def phase_train_families(card):
     _, got, per_launch, f = train_family("recurrentgemma-9b", cfg, batches,
                                          card, seed=SEED + 67)
     failed += f
-    count(got, fam_forward_calls(cfg, b, t), per_launch, len(batches))
+    count(got, fam_forward_calls(cfg, b, t), per_launch, cfg, (b, t),
+          len(batches))
 
     b, t, srcs = FAM_SEAMLESS
     cfg = get(ENCDEC)
@@ -7245,7 +7346,7 @@ def phase_train_families(card):
     total = {}
     for src in srcs:
         add_calls(total, fam_forward_calls(cfg, b, t, src))
-    count(got, total, per_launch)
+    count(got, total, per_launch, cfg, (b, t))
 
     worst = {k: checked[k]["max_abs"] for k in FAM_KERNELS if k in checked}
     worst["batched_matmul"] = max(worst.get("batched_matmul", 0.0),
@@ -7264,15 +7365,32 @@ def phase_train_families(card):
     return {"train_families": launches}, worst, shapes
 
 
+def live_keys(tq, tk, causal, window):
+    """The (tq, tk) mask of the (q, k) pairs a flash call keeps."""
+    qpos = torch.arange(tq)[:, None]
+    kpos = torch.arange(tk)[None, :]
+    live = torch.ones(tq, tk, dtype=torch.bool)
+    if causal:
+        live &= kpos <= qpos
+    if window:
+        live &= kpos > qpos - window
+    return live
+
+
 def phase_times_train_families(card, shapes):
-    """Per-shape times of the train_families path's flash backward and
-    batched GEMMs (row 3's new shapes, row 4's backward), for the kernels
-    line: each flash backward shape beside its bound, plain autograd
+    """Per-shape times of the train_families path's kernels, for the
+    kernels line: each matmul launch of a train step at its shape and
+    layout (``train_launch_shapes``: the forward, the remat forward, the
+    fp32 pre-activation, dX and dW, the heads over every position) beside
+    its bound, matmul_ref and torch.matmul (no epilogue); each flash
+    forward shape beside its bound, mha_ref and SDPA (a mask where
+    windowed); each flash backward shape beside its bound, plain autograd
     through mha_ref and SDPA's backward where SDPA takes it; each
     batched_matmul launch of a train step at its shape (the forward, the
     pre-activation recompute, dA = g B^T and dB = A^T g, the transposed
     operand read in place) beside its bound, batched_matmul_ref and
-    torch.bmm of the same product."""
+    torch.bmm of the same product.  Shapes past 1e11 FLOPs (the vocabulary
+    heads) time 3 calls a measurement, not 10."""
     import torch.nn.functional as F
     from repro_torch.core import fusion
     from repro_torch.kernels.brgemm import (batched_matmul_cuda,
@@ -7280,22 +7398,59 @@ def phase_times_train_families(card, shapes):
     from repro_torch.kernels.brgemm.kernel import plan_batched_call
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_bwd_ref,
-                                                     flash_attention_cuda)
+                                                     flash_attention_cuda,
+                                                     mha_ref)
     from repro_torch.kernels.flash_attention import bwd as FB
+    from repro_torch.kernels.flash_attention import kernel as FK
     gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
     rows = []
     row = row_recorder(rows, card)
+    for (kind, m, k, n, act, bias), count in sorted(
+            shapes["matmul"].items(), key=str):
+        g = Gemm(f"train_families.{kind}", m, k, n, act, kind=kind,
+                 bias=bias)
+        ms, wall, plain, lib, flops, nbytes, plan = gemm_times(
+            g, gen, iters=3 if 2 * m * n * k > 1e11 else 10)
+        row("matmul", f"train_families.{kind} m{m} k{k} n{n} {act}"
+            + (" bias" if bias else ""), ms, wall, flops, nbytes, plain,
+            lib, {"train_families": count}, m=m, k=k, n=n, activation=act,
+            layout=kind, bias=bias, **plan)
+        torch.cuda.empty_cache()
+    for shape, count in sorted(shapes["flash_attention"].items(), key=str):
+        b, hq, hkv, tq, tk, dq, dv, causal, window = shape
+        live = live_keys(tq, tk, causal, window)
+        pairs = int(live.sum())
+        # q, k, v in; o out
+        nbytes = 2 * (b * hq * tq * (dq + dv) + b * hkv * tk * (dq + dv))
+        sets = [fam_flash_inputs(shape, torch.bfloat16, gen)[:3]
+                for _ in range(n_sets(nbytes))]
+        kw = dict(causal=causal, window=window)
+        big = b * hq * tq * tk > 1e8
+        ms, wall = time_ms(lambda *a: flash_attention_cuda(*a, **kw), sets,
+                           8 if big else 10)
+        plain, _ = time_ms(lambda *a: mha_ref(*a, **kw), sets,
+                           2 if big else 8)
+        mask = None if window is None else live.to("cuda")
+        try:
+            lib, _ = time_ms(lambda *a: F.scaled_dot_product_attention(
+                *a, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=hq != hkv), sets, 8 if big else 10)
+        except RuntimeError as exc:           # no SDPA backend takes it
+            lib = None
+            emit({"library_ms": None, "sdpa": str(exc)[:200]})
+        row("flash_attention", f"train_families B{b} H{hq}/{hkv} "
+            f"T{tq}/{tk} d{dq}/{dv}" + (" causal" if causal else "")
+            + (f" window {window}" if window else ""), ms, wall,
+            2 * b * hq * pairs * (dq + dv), nbytes, plain, lib,
+            {"train_families": count}, q=[b, hq, tq, dq],
+            kv=[b, hkv, tk, dq], v=[b, hkv, tk, dv], causal=causal,
+            window=window, mainloop=FK.plan_call(*sets[0]))
+        del sets
+        torch.cuda.empty_cache()
     for shape, count in sorted(shapes["flash_attention_bwd"].items(),
                                key=str):
         b, hq, hkv, tq, tk, dq, dv, causal, window = shape
-        # the (q, k) pairs the masks keep
-        qpos = torch.arange(tq)[:, None]
-        kpos = torch.arange(tk)[None, :]
-        live = torch.ones(tq, tk, dtype=torch.bool)
-        if causal:
-            live &= kpos <= qpos
-        if window:
-            live &= kpos > qpos - window
+        live = live_keys(tq, tk, causal, window)
         pairs = int(live.sum())
         # q, o, dy, k, v and lse in; dq, dk, dv out
         nbytes = (2 * (b * hq * tq * (dq + 2 * dv) + b * hkv * tk * (dq + dv))
@@ -7389,6 +7544,416 @@ def phase_times_train_families(card, shapes):
     return rows
 
 
+# --------------------------------------------------------------------------
+# 17. the service layers: router, health, fault injection, front ends
+# --------------------------------------------------------------------------
+
+# (a): the async front end over two tiers, each built as one of
+# phase_continuous's pools (CONT_POOLS), half the requests tagged for each.
+CLUSTER_TIERS = (("bf16", "slotted"), ("int8", "decode_int8"))
+# (b): three replicas of the slotted pool with factories, health checks on
+# one FaultClock, and this schedule: transient faults at r0's first
+# prefill and r1's second decode (retried in place), a fatal fault at r2's
+# second step and a hang past the watchdog at r1's fourth (each
+# quarantines its replica, which is probed, warm-restarted and
+# re-admitted).  Then CLUSTER_WAVE2 requests on the healed cluster.
+CLUSTER_REPLICAS = ("r0", "r1", "r2")
+CLUSTER_WATCHDOG_S = 5.0
+CLUSTER_WAVE2 = 4
+# What that schedule gives on the FaultClock, which decides its outcome:
+# the router's counters exactly, and each quarantine's replica and fault.
+CLUSTER_COUNTERS = {"requests_rejected": 0, "requests_shed": 0,
+                    "requests_timeout": 0, "requests_requeued": 13,
+                    "requests_degraded": 0, "retries": 2,
+                    "replicas_quarantined": 2, "replicas_readmitted": 2,
+                    "probes": 4, "probe_failures": 0}
+CLUSTER_QUARANTINES = (("r2", "FatalError"), ("r1", "ReplicaHungError"))
+CLUSTER_HTTP = 4                  # (c): POST /generate calls, concurrent
+CLUSTER_MEMORY_SLACK = 1 << 20    # bytes the phase may leave on the card
+CLUSTER_TRACE = (Path(__file__).resolve().parent / "chiprun_out"
+                 / "cluster_trace.json")
+
+
+def card_allocated():
+    """Bytes of live tensors on the card, after ``free_card`` and with
+    PyTorch's cuBLAS workspaces released: it keeps one for each (handle,
+    stream) it has used, and each thread has its own handle, so threads
+    that have ended (the front ends' executors; mha_ref's decode
+    attention calls cuBLAS) leave theirs behind."""
+    free_card()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def cluster_faults():
+    from repro_torch.serve import FaultSpec
+    return [FaultSpec(site="prefill", target="r0", at=1, kind="transient"),
+            FaultSpec(site="decode", target="r1", at=2, kind="transient"),
+            FaultSpec(site="step", target="r2", at=2, kind="fatal"),
+            FaultSpec(site="step", target="r1", at=4, kind="hang",
+                      hang_s=2 * CLUSTER_WATCHDOG_S)]
+
+
+def tier_engine(cfg, params, pool_name, made):
+    """A new ContinuousEngine built as phase_continuous's pool
+    ``pool_name``; its metrics (not the engine) go into ``made``."""
+    from repro_torch.serve import ContinuousEngine, PoolConfig
+    _, pool_kw, engine_kw = next(p for p in CONT_POOLS if p[0] == pool_name)
+    engine = ContinuousEngine(
+        cfg, params, PoolConfig(n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                                **pool_kw), **engine_kw)
+    made.append((engine.metrics, engine.decode_quant is not None))
+    return engine
+
+
+def cluster_trace_check(tracer, launches, failed):
+    """(d): the tracer's buffer exported as a Chrome trace under
+    chiprun_out/, loaded and validated (its event count the buffer's
+    records), its summary table printed; every ``resolve_blocks`` event of
+    a matmul (matmul_q's included) carries 2 m n k FLOPs and op_cost's
+    bytes, one event a launch of (a), a flash event a flash launch.
+    Returns the record's fields."""
+    from repro_torch import obs
+    CLUSTER_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    records = len(tracer.records())
+    n = obs.export_chrome(tracer, str(CLUSTER_TRACE))
+    trace = obs.chrome.load(str(CLUSTER_TRACE))
+    counted = obs.chrome.validate(trace)
+    if not counted == n == records:
+        failed.append(f"trace: {counted} events validated, {n} exported, "
+                      f"{records} records")
+    print(obs.summarize(trace), flush=True)
+    mm, flash, bad = 0, 0, []
+    for ev in tracer.events("resolve_blocks"):
+        a = ev.attrs
+        if a["op"] == "flash_attention":
+            flash += 1
+        if a["op"] != "matmul":
+            continue
+        mm += 1
+        want = obs.op_cost("matmul", a["m"], a["n"], a["k"], a["dtype"],
+                           quant=a.get("quant"))
+        if (a.get("flops") != 2 * a["m"] * a["n"] * a["k"]
+                or a.get("bytes") != want.bytes):
+            bad.append(a)
+    if bad:
+        failed.append(f"trace: {len(bad)} matmul events off their cost, "
+                      f"first {bad[0]}")
+    if mm != launches["matmul"] + launches["matmul_q"] or \
+            flash != launches["flash_attention"]:
+        failed.append(f"trace: {mm} matmul and {flash} flash events for "
+                      f"the launches {launches}")
+    return {"trace_records": records, "trace_events_validated": counted,
+            "trace_file": CLUSTER_TRACE.name,
+            "trace_matmul_events_checked": mm - len(bad),
+            "trace_flash_events": flash}
+
+
+def cluster_http(router, requests, tiers, want, failed):
+    """(c): an HttpFrontend on 127.0.0.1, port 0, over (a)'s router:
+    CLUSTER_HTTP concurrent ``POST /generate`` calls (the requests of
+    each tier with the fewest tokens to generate) whose tokens must be
+    (a)'s, one malformed body answered with 400, and ``GET /metrics``
+    holding every ServeMetrics family by replica and the router's
+    ``_total`` counters.  Returns the record's fields."""
+    import urllib.error
+    import urllib.request
+    from repro_torch.serve import HttpFrontend
+    from repro_torch.serve.metrics import _PROM_SPEC
+
+    def post(body):
+        req = urllib.request.Request(
+            hf.url + "/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read())
+
+    # the shortest generations, half of each tier
+    picks = [i for tier, _ in CLUSTER_TIERS for i in sorted(
+        (i for i, t in enumerate(tiers) if t == tier),
+        key=lambda i: requests[i].max_tokens)[:CLUSTER_HTTP // 2]]
+    t0 = time.perf_counter()
+    with HttpFrontend(router, host="127.0.0.1", port=0) as hf:
+        bodies = [json.dumps({"prompt": requests[i].prompt,
+                              "max_tokens": requests[i].max_tokens,
+                              "stop_tokens": [], "tier": tiers[i]}).encode()
+                  for i in picks]
+        with ThreadPoolExecutor(CLUSTER_HTTP) as ex:
+            got = list(ex.map(post, bodies))
+        bad_code, bad_body = post(b'{"prompt": [1, 2,')
+        with urllib.request.urlopen(hf.url + "/metrics", timeout=120) as r:
+            text = r.read().decode()
+    seconds = time.perf_counter() - t0
+    codes = [code for code, _ in got]
+    same = [body.get("tokens") == want[i] and body.get("status")
+            == "completed" for i, (_, body) in zip(picks, got)]
+    families = [f"repro_serve_{suffix}{{replica=\"{name}\"}}"
+                for suffix, *_ in _PROM_SPEC for name, _ in CLUSTER_TIERS]
+    families += [f"repro_serve_{k}_total " for k in router.counters]
+    missing = [f for f in families if f not in text]
+    if codes != [200] * CLUSTER_HTTP or not all(same):
+        failed.append(f"http: codes {codes}, tokens equal to (a)'s {same}")
+    if bad_code != 400:
+        failed.append(f"http: a malformed body answered {bad_code}")
+    if missing:
+        failed.append(f"http: /metrics lacks {missing}")
+    return {"http_requests": picks, "http_codes": codes,
+            "http_tokens_equal_a": same,
+            "http_malformed": [bad_code, bad_body.get("error")],
+            "metrics_lines": len(text.splitlines()),
+            "metrics_families_checked": len(families), "http_s": seconds}
+
+
+def pools_empty(name, router, failed):
+    """{replica: empty} of a router's current engines after its runs."""
+    out = {}
+    for rep in router.replicas:
+        state, empty = pool_state(rep.engine)
+        out[f"{name}.{rep.name}"] = empty
+        if not empty:
+            failed.append(f"{name}.{rep.name} pool not empty {state}")
+    return out
+
+
+def cluster_tiers(cfg, params, requests, tiers, want, made, failed):
+    """(a) the AsyncFrontend over CLUSTER_TIERS' router, serving
+    ``requests`` to ``tiers`` under an installed Tracer (each request's
+    tokens must be ``want``'s), then (d) ``cluster_trace_check`` and (c)
+    ``cluster_http`` over the same router.  Returns the record's fields."""
+    import asyncio
+
+    from repro_torch import obs
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_q_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.serve import AsyncFrontend, EngineReplica, EngineRouter
+    router = EngineRouter([
+        EngineReplica(tier, tier_engine(cfg, params, pool, made), tier=tier)
+        for tier, pool in CLUSTER_TIERS])
+    # (a) records ~54k events: room enough that none falls off the ring
+    tracer = obs.Tracer(capacity=1 << 21)
+
+    async def serve():
+        async with AsyncFrontend(router) as fe:
+            handles = [await fe.submit(r, tier=t)
+                       for r, t in zip(requests, tiers)]
+            return [await h for h in handles]
+
+    prev = obs.install(tracer)
+    t0 = time.perf_counter()
+    try:
+        results = asyncio.run(serve())
+        torch.cuda.synchronize()
+    finally:
+        obs.install(prev)
+    seconds = time.perf_counter() - t0
+    launches = {"matmul": matmul_cuda.launches,
+                "matmul_q": matmul_q_cuda.launches,
+                "flash_attention": flash_attention_cuda.launches}
+    same = [r.status == "completed" and r.tokens == w
+            for r, w in zip(results, want)]
+    if not all(same):
+        failed.append(f"(a) tokens equal to phase_continuous's {same}")
+    by_tier = {}
+    for rep in router.replicas:
+        m = rep.engine.metrics
+        n = sum(len(r.tokens) for r, t in zip(results, tiers)
+                if t == rep.tier)
+        by_tier[rep.tier] = {
+            "requests": tiers.count(rep.tier), "tokens": n,
+            "tokens_per_s": n / seconds,
+            "engine_tokens_per_s": m.tokens_per_s(), "steps": m.steps,
+            "decode_steps": m.decode_steps,
+            "ttft_p50_s": m.ttft_hist.quantile(0.5),
+            "ttft_p99_s": m.ttft_hist.quantile(0.99)}
+    rec = {"serve_a_s": seconds, "tiers": by_tier,
+           "tokens_equal_continuous": same, "launches_a": launches,
+           **cluster_trace_check(tracer, launches, failed),
+           **cluster_http(router, requests, tiers,
+                          [r.tokens for r in results], failed)}
+    rec["pools_empty_a"] = pools_empty("a", router, failed)
+    # no fault on this router: a replica that failed would be quarantined
+    # and its requests served by the other
+    rec["counters_a"] = dict(router.counters)
+    rec["replicas_healthy_a"] = [r.healthy for r in router.replicas]
+    if any(router.counters.values()) or not all(rec["replicas_healthy_a"]):
+        failed.append(f"(a) counters {router.counters}, healthy "
+                      f"{rec['replicas_healthy_a']}")
+    return rec
+
+
+def cluster_healing(cfg, params, requests, want, made, failed):
+    """(b): CLUSTER_REPLICAS, each with a factory, under HealthConfig on a
+    FaultClock with ``cluster_faults`` injected serve ``requests``, are
+    stepped on the clock until every replica is re-admitted, and serve the
+    first CLUSTER_WAVE2 again on the healed cluster.  Every request's tokens
+    must be ``want``'s (phase_continuous's slotted pool: a fault-free run),
+    the counters CLUSTER_COUNTERS, the quarantines CLUSTER_QUARANTINES
+    (the injected fault or the watchdog's, never another error).  Returns
+    the record's fields."""
+    from repro_torch.serve import (EngineReplica, EngineRouter, FaultClock,
+                                   FaultInjector, HealthConfig, RetryPolicy)
+
+    class Router(EngineRouter):
+        """Records each quarantine's replica and fault: ``replica.fault``
+        is cleared when it is re-admitted."""
+
+        def _quarantine(self, replica, exc):
+            self.quarantines.append((replica.name, exc))
+            super()._quarantine(replica, exc)
+
+    def make():
+        return tier_engine(cfg, params, "slotted", made)
+
+    t0 = time.perf_counter()
+    clk = FaultClock()
+    injector = FaultInjector(cluster_faults(), clock=clk, seed=SEED)
+    router = Router(
+        [EngineReplica(n, injector.instrument(make(), n), factory=make)
+         for n in CLUSTER_REPLICAS],
+        clock=clk, sleep=clk.advance,
+        retry=RetryPolicy(max_retries=2, backoff_s=0.01, seed=SEED),
+        health=HealthConfig(probe_interval_s=1.0, probes_to_readmit=2,
+                            max_probes=8, watchdog_s=CLUSTER_WATCHDOG_S))
+    router.quarantines = []
+    out = router.serve(requests)
+    probe_steps = 0
+    while not all(r.healthy for r in router.replicas) and probe_steps < 16:
+        clk.advance(1.0)
+        router.step()
+        probe_steps += 1
+    out.update(router.serve(requests[:CLUSTER_WAVE2]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tickets = [router.tickets[t] for t in sorted(out)]
+    schedule = [(f.site, f.target, f.at, f.kind) for f in cluster_faults()]
+    c = router.counters
+    healthy = [r.healthy for r in router.replicas]
+    # (replica, the fault's class, its message): an injected fault's
+    # message says so, the watchdog's names the deadline
+    quarantines = [(name, type(exc).__name__, str(exc))
+                   for name, exc in router.quarantines]
+    same = [t.status == "completed" and t.tokens == w
+            for t, w in zip(tickets, want + want[:CLUSTER_WAVE2])]
+    if injector.fired != schedule:
+        failed.append(f"(b) fired {injector.fired} != {schedule}")
+    if c != CLUSTER_COUNTERS or not all(healthy):
+        failed.append(f"(b) counters {c} != {CLUSTER_COUNTERS}, healthy "
+                      f"{healthy}")
+    if (tuple(q[:2] for q in quarantines) != CLUSTER_QUARANTINES
+            or not all(msg.startswith("injected fatal fault")
+                       or "watchdog" in msg for _, _, msg in quarantines)):
+        failed.append(f"(b) quarantines {quarantines} != "
+                      f"{CLUSTER_QUARANTINES}")
+    if len(tickets) != len(requests) + CLUSTER_WAVE2 or not all(same):
+        failed.append(f"(b) tokens equal to phase_continuous's slotted "
+                      f"pool's {same}")
+    return {"fired": injector.fired, "counters": dict(c),
+            "quarantines": quarantines,
+            "statuses": collections.Counter(t.status for t in tickets),
+            "replicas_healthy": healthy,
+            "restarts": [r.restarts for r in router.replicas],
+            "probe_steps": probe_steps, "clock_s": clk.now(),
+            "tokens_equal_continuous_b": same, "heal_s": seconds,
+            "pools_empty_b": pools_empty("b", router, failed)}
+
+
+def phase_cluster(base_cfg, card, cont_outs, cont_forwards):
+    """smollm-135m at full width and depth (bf16, random weights from the
+    seed) behind the router on the one card: (a), (c) and (d) in
+    ``cluster_tiers`` (the two tiers' tokens equal to phase_continuous's
+    pools': the decode step is row-independent at a fixed slot count, and
+    int8 activations are scaled per row), (b) in ``cluster_healing``.
+    Launches of the whole phase counted (counts zeroed just before, read
+    just after) against the engines' metrics, every call by mainloop on
+    wgmma, every logit finite, every pool empty, the card's allocated
+    memory back within CLUSTER_MEMORY_SLACK of the phase's start once the
+    phase's objects are dropped, and the shapes phase_continuous did not
+    hold (the canary's prompt) against their plain versions.  Returns
+    ({"cluster": launches}, forwards by (kind, rows) as continuous_run
+    counts them, the worst abs error of those shapes)."""
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_q_cuda
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.kernels.brgemm.quant_kernel import reset_quant_counts
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_flash_counts)
+    t_phase = time.perf_counter()
+    counters = {"matmul": matmul_cuda, "matmul_q": matmul_q_cuda,
+                "flash_attention": flash_attention_cuda}
+    mem0 = card_allocated()
+    cfg, params = make_engine(base_cfg, torch.bfloat16)[:2]
+    requests = continuous_traffic(cfg)
+    tiers = [CLUSTER_TIERS[i % 2][0] for i in range(len(requests))]
+    pools = dict(CLUSTER_TIERS)
+    want = [cont_outs[pools[t]][i] for i, t in enumerate(tiers)]
+    failed, made = [], []
+    torch.cuda.synchronize()
+    reset_matmul_counts()
+    reset_flash_counts()
+    reset_quant_counts()
+    with watched_forwards() as (flag, forwards):
+        rec = cluster_tiers(cfg, params, requests, tiers, want, made, failed)
+        healing = cluster_healing(
+            cfg, params, requests,
+            [cont_outs["slotted"][i] for i in range(len(requests))], made,
+            failed)
+    launches = {k: c.launches for k, c in counters.items()}
+    finite = bool(flag[0])
+    # decode steps of the int8 tier (a paged pool) run on matmul_q
+    n_q = sum(m.decode_steps for m, quant in made if quant)
+    forwards = collections.Counter(forwards)
+    forwards["decode", CONT_SLOTS] -= n_q
+    forwards["decode_q", CONT_SLOTS] += n_q
+    forwards = +forwards
+    fwd = gemms_per_forward(cfg)
+    expect = {"matmul": fwd * sum(m.prefills + (0 if q else m.decode_steps)
+                                  for m, q in made),
+              "matmul_q": fwd * n_q,
+              "flash_attention": cfg.n_layers * sum(m.prefills
+                                                    for m, _ in made)}
+    by_mainloop = {}
+    if launches != expect:
+        failed.append(f"launches {launches} != {expect}")
+    else:
+        by_mainloop = {
+            **mainloop_check(torch.bfloat16, launches["matmul"]),
+            **flash_mainloop_check(torch.bfloat16,
+                                   launches["flash_attention"]),
+            **counted_mainloops(matmul_q_cuda, "matmul_q", torch.bfloat16,
+                                launches["matmul_q"], "wgmma")}
+    if not finite:
+        failed.append("logits not finite")
+    del params, made
+    free_card()
+    mem1 = torch.cuda.memory_allocated()
+    mem2 = card_allocated()
+    if abs(mem2 - mem0) > CLUSTER_MEMORY_SLACK:
+        live = sorted((o.nbytes, tuple(o.shape), str(o.dtype))
+                      for o in gc.get_objects() if torch.is_tensor(o)
+                      and o.is_cuda)[-8:]
+        failed.append(f"card memory {mem0} allocated before the phase, "
+                      f"{mem2} after; the largest live tensors {live}")
+    new = collections.Counter({k: n for k, n in forwards.items()
+                               if k not in cont_forwards})
+    worst = continuous_parity(cfg, new, failed) if new else {}
+    emit({"phase": "cluster", "arch": cfg.name, "dtype": cfg.dtype,
+          "requests": len(requests), **rec, **healing,
+          "launches": launches, "expected_launches": expect, **by_mainloop,
+          "logits_finite": finite,
+          "forwards": {f"{k}:{m}": n for (k, m), n in sorted(
+              forwards.items())},
+          "new_shapes": sorted(f"{k}:{m}" for k, m in new),
+          "memory_allocated_before": mem0, "memory_allocated_after": mem2,
+          "cublas_workspaces_left_by_the_phase": mem1 - mem2,
+          "failed": failed, "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    if failed:
+        raise AssertionError(f"cluster: {failed}")
+    return {"cluster": launches}, forwards, worst
+
+
 SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
     "matmul": ("src/repro_torch/kernels/brgemm/csrc/matmul.cu",
                "src/repro/kernels/brgemm/kernel.py:118"),
@@ -7439,9 +8004,12 @@ def kernels_line(rows, launches_by_path, worst):
     recurrentgemma-9b's bf16 ``Engine.generate`` and slotted
     ``ContinuousEngine.serve`` runs; encdec, seamless-m4t-large-v2's bf16
     ``Engine.generate`` runs and slotted, paged and chunked
-    ``ContinuousEngine.serve`` runs.  ``delta_rowsum`` runs on
-    none of them (it is the oracle of the fused delta): its times are one
-    call's."""
+    ``ContinuousEngine.serve`` runs; train_families, the families' bf16
+    train steps and full-width layers' gradients; cluster, smollm-135m's
+    bf16 runs behind the router (the two tiers through the async front
+    end, the self-healing run, the HTTP calls).
+    ``delta_rowsum`` runs on none of them (it is the oracle of the fused
+    delta): its times are one call's."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     out = []
     for name, (source, replaces) in SOURCES.items():
@@ -7499,9 +8067,14 @@ def main():
     worst.update(phase_parity_paper(ResNetCfg()))
     worst.update(phase_parity_quant(cfg))
     launches = {"serve": phase_serve(cfg)}
-    launches["continuous"], cont_forwards, cont_worst = phase_continuous(
-        cfg, card)
+    launches["continuous"], cont_forwards, cont_worst, cont_outs = \
+        phase_continuous(cfg, card)
     for kernel, err in cont_worst.items():
+        worst[kernel] = max(worst[kernel], err)
+    cluster_launches, cluster_forwards, cluster_worst = phase_cluster(
+        cfg, card, cont_outs, cont_forwards)
+    launches.update(cluster_launches)
+    for kernel, err in cluster_worst.items():
         worst[kernel] = max(worst[kernel], err)
     launches.update(train=phase_train(cfg), resnet=phase_resnet(),
                     brgemm=phase_brgemm(), quant=phase_quant(cfg))
@@ -7534,8 +8107,9 @@ def main():
     for kernel, err in fam_worst.items():
         worst[kernel] = max(worst[kernel], err)
     phase_capture()
-    rows = (phase_times(cfg, card, cont_forwards) + phase_times_paper(card)
-            + phase_times_quant(cfg, card, cont_forwards)
+    rows = (phase_times(cfg, card, cont_forwards, cluster_forwards)
+            + phase_times_paper(card)
+            + phase_times_quant(cfg, card, cont_forwards, cluster_forwards)
             + phase_times_slice(card, fc_rows, win_static, win_flash)
             + phase_times_llava(card, llava_gemm, llava_flash, llava_plans)
             + phase_times_moe(card, moe_calls_by_model)
@@ -7544,10 +8118,9 @@ def main():
             + phase_times_train_families(card, fam_shapes))
     emit({"phase": "capture_failures", "by_cause": dict(CAPTURE_FAILURES)})
     emit({"phase": "free_card", **FREED})
-    check_row_calls(rows, launches, ("lstm", "fc", "windowed", "llava",
-                                     "moe", "recurrent", "encdec"))
-    check_row_calls(rows, launches, ("train_families",),
-                    ("flash_attention_bwd", "batched_matmul"))
+    check_row_calls(rows, launches, ("cluster", "lstm", "fc", "windowed",
+                                     "llava", "moe", "recurrent", "encdec",
+                                     "train_families"))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

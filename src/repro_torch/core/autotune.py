@@ -292,6 +292,8 @@ def autotune_blocks(op: str, m: int, n: int, k: int, dtype, backend: str, *,
         STATS.seeded += 1
     STATS.searches += 1
     tr = obs.current_tracer()
+    cost = obs.op_cost(op, m, n, k, dtype, geometry=geometry,
+                       quant=quant) if tr is not None else None
     search_span = tr.span(
         "autotune.search", op=op, m=int(m), n=int(n), k=int(k),
         dtype=blocking.dtype_name(dtype), candidates=len(candidates),
@@ -304,7 +306,9 @@ def autotune_blocks(op: str, m: int, n: int, k: int, dtype, backend: str, *,
                     with tr.span("autotune.measure", op=op,
                                  blocks=str(cand)) as sp:
                         t = timer(op, m, n, k, dtype, backend, cand)
-                        sp.set(seconds=t)
+                        sp.set(seconds=t, flops=cost.flops,
+                               gflops_per_s=round(cost.flops / t / 1e9, 3)
+                               if t > 0 else None)
                 else:
                     t = timer(op, m, n, k, dtype, backend, cand)
                 STATS.measured += 1

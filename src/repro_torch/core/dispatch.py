@@ -329,12 +329,33 @@ def resolve_blocks(op: str, m: int, n: int, k: int, dtype, *, backend: str,
     obs.TELEMETRY.record_blocks(source)
     tr = obs.current_tracer()
     if tr is not None:
-        tr.event("resolve_blocks", op=op, backend=backend, m=int(m),
-                 n=int(n), k=int(k), dtype=blocking.dtype_name(dtype),
-                 source=source, blocks=str(hit),
-                 **({"quant": quant_tag} if quant_tag is not None else {}))
-        tr.annotate(**{f"blocks_source.{op}": source})
+        _trace_blocks(tr, op, backend, m, n, k, dtype, geometry, quant_tag,
+                      source, hit)
     return hit
+
+
+def _trace_blocks(tr, op, backend, m, n, k, dtype, geometry, quant_tag,
+                  source, plan) -> None:
+    """One ``resolve_blocks`` instant event carrying the decision (op,
+    backend, shape, the plan's source, quant) and the FLOP / byte cost of
+    the problem (an op without a cost model gets none), and a
+    blocks-source annotation on the enclosing span."""
+    ev = {"op": op, "backend": backend, "m": int(m), "n": int(n),
+          "k": int(k), "dtype": blocking.dtype_name(dtype),
+          "source": source, "blocks": str(plan)}
+    if quant_tag is not None:
+        ev["quant"] = quant_tag
+    try:
+        cost = obs.op_cost(op, m, n, k, dtype, geometry=geometry,
+                           quant=quant_tag)
+    except ValueError:
+        cost = None
+    if cost is not None:
+        ev["flops"] = cost.flops
+        ev["bytes"] = cost.bytes
+        ev["intensity"] = round(cost.intensity, 3)
+    tr.event("resolve_blocks", **ev)
+    tr.annotate(**{f"blocks_source.{op}": source})
 
 
 def _blocks_source(policy, auto_before: dict) -> str:

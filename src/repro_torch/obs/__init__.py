@@ -1,13 +1,16 @@
-"""repro_torch.obs: the tracer and the dispatch counters.
+"""repro_torch.obs: the tracer, the dispatch counters, FLOP accounting and
+the Chrome export.
 
 The port of ``repro/obs/__init__.py``: a low-overhead tracer (nested spans
 and instant events in a ring buffer, :mod:`repro_torch.obs.tracer`) that
-dispatch resolutions (``dispatch`` and ``resolve_blocks`` events), the
-autotuner's searches (``autotune.search`` spans, an ``autotune.measure``
-span a candidate) and the serving engine's request lifecycles record
-into, and the always-on dispatch, tuning-cache and autotune counters
-(:mod:`repro_torch.obs.telemetry`).  The reference's Chrome export and
-FLOP accounting are not ported.
+dispatch resolutions (``dispatch`` events, and ``resolve_blocks`` events
+stamped with the problem's FLOPs and bytes), the autotuner's searches
+(``autotune.search`` spans, an ``autotune.measure`` span a candidate), the
+serving engine's request lifecycles and the router's decisions record
+into; the always-on dispatch, tuning-cache and autotune counters
+(:mod:`repro_torch.obs.telemetry`); FLOP / byte accounting
+(:mod:`repro_torch.obs.flops`); and the Chrome trace-event export
+(:mod:`repro_torch.obs.chrome`).
 
 Activation (off by default; the disabled fast path is one bool check):
 
@@ -28,6 +31,10 @@ Instrumented code guards its hot sites with::
 and ``obs.span("name")`` / ``obs.event(...)`` / ``obs.annotate(...)``
 are safe to call unconditionally: with no tracer active they return a
 shared no-op singleton / do nothing, allocating nothing.
+
+Export any session with ``obs.export_chrome(tracer, "trace.json")`` and
+inspect it in Perfetto / ``chrome://tracing`` or through
+``python -m repro_torch.obs summarize trace.json``.
 """
 from __future__ import annotations
 
@@ -35,7 +42,13 @@ import contextlib
 import contextvars
 import threading
 
-from repro_torch.obs import telemetry  # noqa: F401
+from repro_torch.obs import chrome, flops, telemetry  # noqa: F401
+from repro_torch.obs.chrome import (  # noqa: F401
+    export_chrome,
+    summarize,
+    to_chrome,
+)
+from repro_torch.obs.flops import OpCost, op_cost  # noqa: F401
 from repro_torch.obs.telemetry import TELEMETRY  # noqa: F401
 from repro_torch.obs.tracer import (  # noqa: F401
     NULL_SPAN,
@@ -49,7 +62,8 @@ from repro_torch.obs.tracer import (  # noqa: F401
 # True iff a global tracer is installed or any scoped activation is live
 # anywhere in the process, so the common "tracing off" case pays a single
 # module-global bool read.  The context var carries scoped activations
-# (repro_torch.use(tracer=...), activate) and wins over the global install.
+# (repro_torch.use(tracer=...), activate: the async front end carries the
+# loop's tracer into its executor thread) and wins over the global install.
 _GLOBAL: Tracer | None = None
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_obs_tracer", default=None)

@@ -484,10 +484,8 @@ class ContinuousEngine:
         batch, logit_pos = self._prompt_batch(req)
         with self._span("prefill", state, prompt_len=len(req.prompt),
                         slot=slot):
-            rcache = self.pool.request_cache()
-            with dispatch.use(quant=self.quant):
-                logits, rcache = api.prefill(self.params, batch, self.cfg,
-                                             rcache, logit_pos=logit_pos)
+            logits, rcache = self._prefill(batch, self.pool.request_cache(),
+                                           logit_pos)
             if self.paged:
                 n_valid = self._pos_off + len(req.prompt)
                 if not self.pool.insert(slot, rcache, n_valid):
@@ -499,6 +497,15 @@ class ContinuousEngine:
             else:
                 self.pool.insert(slot, rcache)
         return self._first_token(state, slot, logits)
+
+    def _prefill(self, batch, cache, logit_pos):
+        """One-shot prefill of a request's batch into its cache view, in
+        the engine's quant tier: (logits, cache).  With ``step`` and
+        ``_decode``, one of the entry points a fault injector wraps
+        (``serve/faults.py``)."""
+        with dispatch.use(quant=self.quant):
+            return api.prefill(self.params, batch, self.cfg, cache,
+                               logit_pos=logit_pos)
 
     def _first_token(self, state: RequestState, slot: int, logits):
         """Sample the first token from prefill logits and activate the

@@ -2,13 +2,20 @@
 time-to-first-token (both a scheduler-step proxy and wall-clock seconds),
 and a Prometheus text exposition for scraping.
 
-The port of ``repro/serve/metrics.py`` without ``ClusterMetrics`` (the
-multi-replica router is not ported).  All counters are plain host-side
+The port of ``repro/serve/metrics.py``.  All counters are plain host-side
 ints accumulated by ``ContinuousEngine``; ``snapshot()`` renders the
 derived rates.  "Steps" are engine steps (one admission sweep + one
 batched decode), the natural clock of a continuous-batching loop; wall
 time is tracked separately so tokens/s reflects real cost, including
 prefill work.
+
+For multi-replica serving (``serve.cluster.EngineRouter``),
+``ClusterMetrics`` carries one ``ServeMetrics`` per replica plus live
+router gauges (queue depth, free slots, health) and router-level counters
+(rejected / shed / timeout / requeued / retries / quarantines ...);
+``ClusterMetrics.merge`` folds any set of per-replica metrics into one
+cluster-wide ``ServeMetrics``, and ``to_prometheus()`` renders everything
+as one exposition with a ``replica`` label per sample.
 
 Latency distributions (TTFT, per-token decode latency) accumulate in
 bounded-bucket ``LatencyHistogram``s on the engine itself, so percentile
@@ -251,17 +258,38 @@ _PROM_HISTOGRAMS = (
 )
 
 
-# HELP text for the extra gauge families of ``render_prometheus(gauges=)``:
-# the engine's pool gauges (``ContinuousEngine.gauges()``).  A family not
-# listed gets a generic line.
+# HELP text for the router-level families rendered via the generic
+# ``gauges=`` / ``counters=`` hooks of render_prometheus (families not
+# listed fall back to a generic line, so adding a counter in the router
+# never breaks the exposition).
 _GAUGE_HELP = {
-    "kv_occupancy": "Occupied fraction of the engine's KV slots.",
+    "queue_depth": "Requests waiting on this replica.",
+    "running": "Requests currently decoding on this replica.",
+    "slots_free": "Free KV-cache slots on this replica.",
+    "healthy": "1 when the replica is serving traffic, 0 quarantined.",
+    "probing": "1 while the quarantined replica is under health probes.",
+    "kv_occupancy": "Occupied fraction of the replica's KV slots.",
     "kv_page_occupancy":
-        "Allocated fraction of the engine's KV page pool.",
+        "Allocated fraction of the replica's KV page pool.",
     "kv_page_fragmentation":
         "Allocated-but-dead KV fraction (partially filled trailing "
         "pages).",
-    "kv_free_pages": "Free KV pages in the engine's pool.",
+    "kv_free_pages": "Free KV pages on this replica.",
+}
+_COUNTER_HELP = {
+    "requests_rejected": "Requests rejected at a full backlog.",
+    "requests_shed": "Requests shed by priority at a full backlog.",
+    "requests_timeout": "Requests expired by their deadline.",
+    "requests_requeued": "Requests requeued off a quarantined replica.",
+    "requests_degraded":
+        "Tier-affinity requests served off-tier (tier had no healthy "
+        "replica).",
+    "retries": "Transient step failures retried in place with backoff.",
+    "replicas_quarantined": "Replica quarantine events.",
+    "replicas_readmitted":
+        "Replicas re-admitted after passing health probes.",
+    "probes": "Health probes run against quarantined replicas.",
+    "probe_failures": "Health probes that failed.",
 }
 
 
@@ -278,16 +306,17 @@ def _prom_labels(labels: dict) -> str:
     return "{" + ",".join(f'{k}="{v}"' for k, v in esc.items()) + "}"
 
 
-def render_prometheus(rows, *, gauges=None,
+def render_prometheus(rows, *, gauges=None, counters=None,
                       dispatch_telemetry: bool = True) -> str:
     """Render ``rows`` of ``(labels, ServeMetrics)`` as one exposition.
 
     Each family gets its HELP/TYPE header once, then one sample per row.
     ``gauges`` adds extra per-row gauge families as
-    ``{family: [(labels, value), ...]}`` (the engine's ``gauges()``).
+    ``{family: [(labels, value), ...]}``; ``counters`` adds unlabelled
+    top-level counters as ``{family: value}`` (router-level totals).
     ``dispatch_telemetry`` appends the process-wide dispatch/autotune
     counter families from :mod:`repro_torch.obs.telemetry` (they are
-    per-process, not per-row, so they render once, unlabelled).
+    per-process, not per-replica, so they render once, unlabelled).
     """
     lines = []
     for suffix, ptype, help_, extract in _PROM_SPEC:
@@ -306,12 +335,71 @@ def render_prometheus(rows, *, gauges=None,
                 name, _prom_labels(labels)))
     for family in sorted(gauges or ()):
         name = PROM_PREFIX + family
-        help_ = _GAUGE_HELP.get(family, "Live gauge.")
+        help_ = _GAUGE_HELP.get(family, "Live gauge exported by the router.")
         lines.append(f"# HELP {name} {help_}")
         lines.append(f"# TYPE {name} gauge")
         for labels, value in gauges[family]:
             lines.append(f"{name}{_prom_labels(labels)} "
                          f"{_prom_value(value)}")
+    for family in sorted(counters or ()):
+        name = PROM_PREFIX + family + "_total"
+        help_ = _COUNTER_HELP.get(family, "Router-level counter.")
+        lines.append(f"# HELP {name} {help_}")
+        lines.append(f"# TYPE {name} counter")
+        lines.append(f"{name} {_prom_value(counters[family])}")
     if dispatch_telemetry:
         lines.extend(_telemetry.prometheus_lines())
     return "\n".join(lines) + "\n"
+
+
+# ==========================================================================
+# cluster aggregation
+# ==========================================================================
+
+@dataclasses.dataclass
+class ClusterMetrics:
+    """Per-replica metrics plus router-level state, as one exposition.
+
+    ``replicas`` maps replica name -> its live ``ServeMetrics``;
+    ``gauges`` maps replica name -> instantaneous router-side gauges
+    (``queue_depth``, ``running``, ``slots_free``, ``healthy``);
+    ``counters`` holds router-level admission/fault totals.
+    """
+
+    replicas: dict
+    gauges: dict = dataclasses.field(default_factory=dict)
+    counters: dict = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def merge(metrics) -> ServeMetrics:
+        """Fold an iterable of ``ServeMetrics`` into one cluster-wide set:
+        counters sum; ``max_queue_depth`` takes the max (a max over
+        replicas is still a max); derived rates then fall out of the sums
+        (cluster occupancy weights each replica by its decode capacity)."""
+        out = ServeMetrics()
+        for m in metrics:
+            for f in dataclasses.fields(ServeMetrics):
+                if f.name == "max_queue_depth":
+                    out.max_queue_depth = max(out.max_queue_depth,
+                                              m.max_queue_depth)
+                else:
+                    setattr(out, f.name,
+                            getattr(out, f.name) + getattr(m, f.name))
+        return out
+
+    def aggregate(self) -> ServeMetrics:
+        return self.merge(self.replicas.values())
+
+    def to_prometheus(self) -> str:
+        """One exposition: every ``ServeMetrics`` family sampled per
+        replica (``replica="<name>"``), the live router gauges per
+        replica, and the router-level totals."""
+        rows = [({"replica": name}, m)
+                for name, m in sorted(self.replicas.items())]
+        gauges: dict = {}
+        for name in sorted(self.gauges):
+            for family, value in self.gauges[name].items():
+                gauges.setdefault(family, []).append(
+                    ({"replica": name}, value))
+        return render_prometheus(rows, gauges=gauges,
+                                 counters=self.counters)

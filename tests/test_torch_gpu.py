@@ -2010,3 +2010,50 @@ def test_encdec_quant_tiers_match_plain_greedy(gen, tier):
     with dispatch.use(backend="torch"):
         want = engine.generate(batch, n_tokens=6, stop_tokens=())
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_router_replicas_match_one_engine(gen):
+    """Two replicas on the card behind ``EngineRouter`` (least depth, so
+    both serve): every request's greedy tokens equal one
+    ``ContinuousEngine``'s of the same pool, the decode step being
+    row-independent at a fixed slot count."""
+    from repro_torch.serve import EngineReplica, EngineRouter
+    cfg = configs.get("smollm-135m").reduced()
+    params = api.init_params(cfg, gen)
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                    max_tokens=m, stop_tokens=())
+            for n, m in zip([5, 20, 3, 17, 7, 11], [6, 4, 8, 3, 5, 7])]
+    pcfg = PoolConfig(n_slots=3, max_len=32)
+    want = ContinuousEngine(cfg, params, pcfg).serve(reqs)
+    reset_matmul_counts()
+    router = EngineRouter([EngineReplica(name, ContinuousEngine(
+        cfg, params, pcfg)) for name in ("a", "b")])
+    got = router.serve(reqs)
+    assert matmul_cuda.launches > 0
+    assert {t.replica.name for t in router.tickets.values()} == {"a", "b"}
+    assert all(t.status == "completed" for t in router.tickets.values())
+    assert [got[t] for t in sorted(got)] == [want[r] for r in sorted(want)]
+
+
+def test_instrumented_card_engine_is_freed(gen):
+    """``FaultInjector.instrument`` leaves no engine alive on the card:
+    after ``del`` and a collection the engine is gone and its pool's
+    memory with it."""
+    import gc
+    import weakref
+
+    from repro_torch.serve import FaultInjector
+    cfg = configs.get("smollm-135m").reduced()
+    params = api.init_params(cfg, gen)
+    engine = FaultInjector().instrument(
+        ContinuousEngine(cfg, params, PoolConfig(n_slots=2, max_len=32)),
+        "a")
+    engine.serve([Request(prompt=[1, 2, 3], max_tokens=4, stop_tokens=())])
+    torch.cuda.synchronize()
+    ref = weakref.ref(engine)
+    held = torch.cuda.memory_allocated()
+    del engine
+    gc.collect()
+    assert ref() is None
+    assert torch.cuda.memory_allocated() < held

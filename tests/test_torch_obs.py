@@ -1,26 +1,35 @@
-"""The port's tracer, dispatch telemetry and serving metrics, and the
-engine's spans, against the JAX package's where both compute a result.
+"""The port's tracer, dispatch telemetry, FLOP accounting, Chrome export
+and serving metrics, the engine's spans and the router's and front ends'
+tracing, against the JAX package's where both compute a result.
 
-The tracer and the metrics are pure Python in both packages: the same
-observations give the same quantiles and the same Prometheus text.  The
-engine runs the reduced smollm-135m on the CPU with random weights; its
-TTFT breakdown is held exactly under an injected clock.
+The tracer, the cost model, the Chrome export and the metrics are pure
+Python in both packages: the same observations give the same quantiles,
+the same Prometheus text, the same ``op_cost`` over every op, dtype and
+quant spec, and the same ``summarize`` table.  The engine runs the
+reduced smollm-135m on the CPU with random weights; its TTFT breakdown is
+held exactly under an injected clock.
 """
+import asyncio
+import json
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import repro_torch
+from repro import obs as jobs
 from repro.serve import metrics as jmetrics
 from repro_torch import configs, obs
-from repro_torch.core import dispatch
+from repro_torch.core import autotune, dispatch
+from repro_torch.core.blocking import AttnGeometry, ConvGeometry, GemmGeometry
 from repro_torch.kernels.brgemm import matmul
 from repro_torch.models import api
 from repro_torch.obs.telemetry import TELEMETRY
-from repro_torch.serve import (ContinuousEngine, LatencyHistogram,
+from repro_torch.serve import (AsyncFrontend, ContinuousEngine,
+                               EngineReplica, EngineRouter, LatencyHistogram,
                                PoolConfig, Request, ServeMetrics,
                                render_prometheus)
 
@@ -369,3 +378,358 @@ def test_engine_gauges(dense):
     text = render_prometheus([({}, eng.metrics)], gauges={
         k: [({}, v)] for k, v in g.items()}, dispatch_telemetry=False)
     assert "# TYPE repro_serve_kv_free_pages gauge" in text
+
+
+# ---------------------------------------------------------------------
+# chrome export
+# ---------------------------------------------------------------------
+
+def test_chrome_round_trip(tmp_path):
+    tr = obs.Tracer(clock=FakeClock(dt=0.5))
+    with tr.span("outer", op="matmul"):
+        with tr.span("inner"):
+            pass
+        tr.event("mark", k=1)
+    path = tmp_path / "trace.json"
+    n = obs.export_chrome(tr, str(path))
+    trace = obs.chrome.load(str(path))
+    assert obs.chrome.validate(trace) == n == len(tr.records())
+    events = trace["traceEvents"]
+    assert trace["displayTimeUnit"] == "ms"
+    complete = {e["name"]: e for e in events if e["ph"] == "X"}
+    assert set(complete) == {"outer", "inner"}
+    assert complete["outer"]["args"]["op"] == "matmul"
+    # timestamps are microseconds relative to the earliest record
+    assert complete["outer"]["dur"] == pytest.approx(2.0e6)
+    assert complete["inner"]["ts"] >= 0
+    instants = [e for e in events if e["ph"] == "i"]
+    assert len(instants) == 1 and instants[0]["name"] == "mark"
+
+
+def test_chrome_validate_rejects_malformed():
+    with pytest.raises(ValueError):
+        obs.chrome.validate({"nope": []})
+    with pytest.raises(ValueError):
+        obs.chrome.validate({"traceEvents": [{"name": "x"}]})
+    with pytest.raises(ValueError, match="phase"):
+        obs.chrome.validate({"traceEvents": [
+            {"name": "x", "ph": "Q", "ts": 0, "pid": 1, "tid": 0}]})
+    with pytest.raises(ValueError, match="dur"):
+        obs.chrome.validate({"traceEvents": [
+            {"name": "x", "ph": "X", "ts": 0, "pid": 1, "tid": 0}]})
+
+
+def test_chrome_summarize_and_cli(tmp_path, capsys):
+    tr = obs.Tracer(clock=FakeClock())
+    for _ in range(3):
+        with tr.span("step"):
+            pass
+    assert tr.summary()["step"]["count"] == 3
+    path = tmp_path / "t.json"
+    obs.export_chrome(tr, str(path))
+    table = obs.summarize(obs.chrome.load(str(path)))
+    assert "step" in table and "count" in table
+    from repro_torch.obs.__main__ import main as obs_main
+    obs_main(["summarize", str(path)])
+    out = capsys.readouterr().out
+    assert "step" in out and str(path) in out
+
+
+def _synthetic(o):
+    """One record list through package ``o``'s tracer: nested and
+    repeated spans, a synthetic span, events in and out of spans, on two
+    threads, under a fake clock."""
+    tr = o.Tracer(clock=FakeClock(dt=0.125))
+    for i in range(3):
+        with tr.span("prefill", slot=i):
+            tr.event("resolve_blocks", op="matmul", m=8 * i)
+            with tr.span("matmul"):
+                pass
+    with tr.span("decode"):
+        tr.event("dispatch", op="flash_attention")
+    tr.add_span("request", 0.5, 9.75, status="completed")
+    t = threading.Thread(target=lambda: tr.event("router.submit"))
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    tr.event("router.submit")
+    return tr.records()
+
+
+def test_chrome_export_and_summary_match_reference():
+    got, want = _synthetic(obs), _synthetic(jobs)
+    trace, jtrace = obs.to_chrome(got), jobs.to_chrome(want)
+    for ev, jev in zip(trace["traceEvents"], jtrace["traceEvents"]):
+        assert {k: v for k, v in ev.items() if k != "args"} == \
+            {k: v for k, v in jev.items() if k != "args"}
+        # span ids count from 1 in each tracer: the same sequence
+        assert ev["args"] == jev["args"]
+    assert obs.chrome.validate(trace) == len(got) == 14
+    assert obs.summarize(trace) == jobs.summarize(jtrace)
+
+
+# ---------------------------------------------------------------------
+# flops accounting
+# ---------------------------------------------------------------------
+
+def test_op_cost_matmul_and_quant_bytes():
+    c = obs.op_cost("matmul", 64, 32, 16, torch.float32)
+    assert c.flops == 2 * 64 * 32 * 16
+    assert c.bytes == 64 * 16 * 4 + 16 * 32 * 4 + 64 * 32 * 4
+    q = obs.op_cost("matmul", 64, 32, 16, torch.int8, quant="int8")
+    assert q.flops == c.flops
+    assert q.bytes == 64 * 16 * 1 + 16 * 32 * 1 + 64 * 32 * 4
+    assert q.intensity > c.intensity
+    assert obs.op_cost("matmul", 64, 32, 16, "float32") == c
+
+
+def test_op_cost_batch_and_attention():
+    b = obs.op_cost("brgemm", 8, 8, 8, torch.float32, batch=16)
+    assert b.flops == 16 * 2 * 8 * 8 * 8
+    fa = obs.op_cost("flash_attention", 128, 128, 64, torch.float32)
+    assert fa.flops == 4 * 128 * 128 * 64
+    bwd = obs.op_cost("flash_attention_bwd", 128, 128, 64, torch.float32)
+    assert bwd.flops == 10 * 128 * 128 * 64
+    with pytest.raises(ValueError):
+        obs.op_cost("nonsense", 1, 1, 1, torch.float32)
+
+
+COST_OPS = ("matmul", "brgemm", "batched_matmul", "conv2d",
+            "flash_attention", "flash_attention_bwd")
+COST_TRIPLES = ((1, 1, 1), (8, 576, 576), (77, 133, 100), (4096, 49152, 64),
+                (192, 128, 7168))
+def _conv_geometries():
+    """(port geometry, the reference's): none, 1x1 stride 1, 3x3 stride 1
+    padded, the 7x7 stride-2 stem, a 3x3 stride-2 downsample."""
+    from repro.core.blocking import ConvGeometry as JConvGeometry
+    out = [(None, None)]
+    for h, r, st, p in ((56, 1, 1, 0), (56, 3, 1, 1), (224, 7, 2, 3),
+                        (28, 3, 2, 1)):
+        out.append((ConvGeometry(32, h, h, r, r, st, p),
+                    JConvGeometry(stride=st, r=r, s=r)))
+    return out
+
+
+@pytest.mark.parametrize("op", COST_OPS)
+def test_op_cost_matches_reference(op):
+    """The port's cost model is the reference's, over every triple, dtype
+    (bf16, fp32, and the 8-bit storage dtypes a quant spec prices), quant
+    spec, batch and (for the convolution) geometry."""
+    geometries = (_conv_geometries() if op == "conv2d"
+                  else [(None, None), (GemmGeometry(True), None),
+                        (AttnGeometry(True), None)])
+    checked = 0
+    for m, n, k in COST_TRIPLES:
+        for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16),
+                              (torch.float32, jnp.float32),
+                              (torch.int8, jnp.int8)):
+            for quant in (None, "int8", "fp8"):
+                for batch in (1, 3):
+                    for geometry, jgeometry in geometries:
+                        got = obs.op_cost(op, m, n, k, dtype,
+                                          geometry=geometry, batch=batch,
+                                          quant=quant)
+                        want = jobs.op_cost(op, m, n, k, jdtype,
+                                            geometry=jgeometry, batch=batch,
+                                            quant=quant)
+                        assert (got.flops, got.bytes, got.intensity) == (
+                            want.flops, want.bytes, want.intensity)
+                        checked += 1
+    assert checked >= 5 * 3 * 3 * 2 * 3
+
+
+def test_resolve_blocks_events_carry_the_cost():
+    """Every ``resolve_blocks`` event is stamped with the problem's FLOPs,
+    bytes and intensity from ``op_cost`` (the reference's numbers), at the
+    storage dtype and quant tag the call resolved with."""
+    dispatch.clear_tuning_cache()
+    tr = obs.Tracer()
+    conv = ConvGeometry(32, 56, 56, 3, 3, 1, 1)
+    cases = [("matmul", (8, 1536, 576), torch.bfloat16, None, None),
+             ("matmul", (8, 1536, 576), torch.int8, None, "int8"),
+             ("flash_attention", (512, 512, 64), torch.bfloat16,
+              AttnGeometry(True), None),
+             ("conv2d", (56, 64, 64), torch.bfloat16, conv, None)]
+    with repro_torch.use(tracer=tr):
+        for op, triple, dtype, geometry, quant in cases:
+            dispatch.resolve_blocks(op, *triple, dtype, backend="cuda",
+                                    geometry=geometry, quant=quant)
+    events = tr.events("resolve_blocks")
+    assert len(events) == len(cases)
+    from repro.core.blocking import ConvGeometry as JConvGeometry
+    for ev, (op, (m, n, k), dtype, geometry, quant) in zip(events, cases):
+        want = jobs.op_cost(op, m, n, k, getattr(jnp, str(dtype)[6:]),
+                            geometry=JConvGeometry(1, 3, 3)
+                            if op == "conv2d" else None, quant=quant)
+        assert (ev.attrs["flops"], ev.attrs["bytes"]) == (want.flops,
+                                                          want.bytes)
+        assert ev.attrs["intensity"] == round(want.intensity, 3)
+        if op == "matmul":
+            assert ev.attrs["flops"] == 2 * m * n * k
+    assert events[1].attrs["quant"] == "int8"
+    # an op without a cost model gets no stamp, and no error
+    dispatch._trace_blocks(tr, "custom_op", "cuda", 4, 4, 4, torch.float32,
+                           None, None, "custom", "plan")
+    (ev,) = tr.events("resolve_blocks")[-1:]
+    assert ev.attrs["op"] == "custom_op" and "flops" not in ev.attrs
+    dispatch.clear_tuning_cache()
+
+
+def test_autotune_search_spans_carry_the_cost():
+    tr = obs.Tracer()
+    with repro_torch.use(tracer=tr):
+        autotune.autotune_blocks("matmul", 8, 7168, 20480, torch.bfloat16,
+                                 "cuda", max_candidates=3,
+                                 timer=lambda *_: 1e-3)
+    measures = tr.spans("autotune.measure")
+    assert len(measures) == 3
+    flops = 2.0 * 8 * 7168 * 20480
+    for sp in measures:
+        assert sp.attrs["flops"] == flops
+        assert sp.attrs["gflops_per_s"] == round(flops / 1e-3 / 1e9, 3)
+    assert tr.spans("autotune.search")[0].attrs["best_seconds"] == 1e-3
+
+
+# ---------------------------------------------------------------------
+# the router, the async front end and the HTTP shim under tracing
+# ---------------------------------------------------------------------
+
+def test_router_lifecycle_events_and_trace_ids(dense):
+    cfg, params = dense
+    pool = lambda: PoolConfig(n_slots=2, max_len=MAX_LEN)  # noqa: E731
+    flaky = ContinuousEngine(cfg, params, pool(), device="cpu")
+    calls = [0]
+    orig = flaky.step
+
+    def boom():
+        calls[0] += 1
+        if calls[0] == 2:
+            raise RuntimeError("injected")
+        return orig()
+
+    flaky.step = boom
+    router = EngineRouter(
+        [EngineReplica("stable", ContinuousEngine(cfg, params, pool(),
+                                                  device="cpu")),
+         EngineReplica("flaky", flaky)])
+    tr = obs.Tracer()
+    obs.install(tr)
+    try:
+        out = router.serve(_requests(cfg, 4))
+    finally:
+        obs.install(None)
+    assert all(len(v) for v in out.values())
+    assert len(tr.events("router.submit")) == 4
+    assert tr.events("replica.quarantine")[0].attrs["replica"] == "flaky"
+    assert tr.events("router.requeue")
+    finishes = tr.events("request.finish")
+    assert {e.attrs["trace"] for e in finishes} == \
+        {f"t{tid}" for tid in out}
+    assert all(e.attrs["status"] == "completed" for e in finishes)
+    # the engine-side request spans carry the router's ticket trace ids
+    req_traces = {s.attrs["trace"] for s in tr.spans("request")}
+    assert req_traces <= {f"t{tid}" for tid in out}
+
+
+def test_frontend_propagates_tracer_into_executor(dense):
+    cfg, params = dense
+    eng = ContinuousEngine(cfg, params,
+                           PoolConfig(n_slots=2, max_len=MAX_LEN),
+                           device="cpu")
+    router = EngineRouter([EngineReplica("r0", eng)])
+    tr = obs.Tracer()
+
+    async def main():
+        with repro_torch.use(tracer=tr):
+            async with AsyncFrontend(router) as fe:
+                handles = [await fe.submit(r)
+                           for r in _requests(cfg, 3)]
+                return [await h for h in handles]
+
+    results = asyncio.run(main())
+    assert all(r.status == "completed" for r in results)
+    # spans were recorded from the executor thread, not the loop thread
+    prefills = tr.spans("prefill")
+    assert prefills
+    assert any(s.thread != threading.get_ident() for s in prefills)
+    assert len(tr.spans("request")) == 3
+
+
+def test_frontend_tier_is_the_engines_own(dense):
+    """A ``use(backend=...)`` around the front end does not reach the
+    executor thread that steps the router; the engine's own ``backend=``
+    does."""
+    cfg, params = dense
+    eng = ContinuousEngine(cfg, params,
+                           PoolConfig(n_slots=2, max_len=MAX_LEN),
+                           backend="torch", device="cpu")
+    router = EngineRouter([EngineReplica("r0", eng)])
+    tr = obs.Tracer()
+    TELEMETRY.reset()
+
+    async def main():
+        with repro_torch.use(backend="cuda", tracer=tr):
+            async with AsyncFrontend(router) as fe:
+                handle = await fe.submit(_requests(cfg, 1)[0])
+                return await handle
+
+    assert asyncio.run(main()).status == "completed"
+    assert {e.attrs["backend"] for e in tr.events("dispatch")} == {"torch"}
+    TELEMETRY.reset()
+
+
+def test_http_shim_generate_metrics_and_400(dense):
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.serve import HttpFrontend
+
+    cfg, params = dense
+    eng = ContinuousEngine(cfg, params,
+                           PoolConfig(n_slots=2, max_len=MAX_LEN),
+                           device="cpu")
+    router = EngineRouter([EngineReplica("r0", eng)])
+    with HttpFrontend(router) as hf:
+        body = json.dumps({"prompt": [1, 2, 3], "max_tokens": 4,
+                           "stop_tokens": []}).encode()
+        req = urllib.request.Request(
+            hf.url + "/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        out = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert out["status"] == "completed"
+        assert len(out["tokens"]) == 4
+        assert out["ttft_s"] > 0
+
+        met = urllib.request.urlopen(hf.url + "/metrics", timeout=60)
+        assert met.headers["Content-Type"].startswith("text/plain")
+        text = met.read().decode()
+        assert "repro_serve_ttft_seconds_bucket" in text
+        assert 'repro_serve_tokens_generated_total{replica="r0"} 4' in text
+        assert "repro_serve_requests_rejected_total 0" in text
+        assert "repro_op_dispatch_total" in text
+
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(urllib.request.Request(
+                hf.url + "/generate", data=b'{"prompt": []}',
+                headers={"Content-Type": "application/json"}), timeout=60)
+        assert e.value.code == 400
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(hf.url + "/nope", timeout=60)
+        assert e.value.code == 404
+
+
+def test_request_from_payload_validation():
+    from repro.serve import request_from_payload as jrequest_from_payload
+    from repro_torch.serve import request_from_payload
+    payload = {"prompt": [1, 2], "max_tokens": 3, "temperature": 0.5,
+               "tier": "fp32", "deadline_s": 2.5}
+    req, tier, dl = request_from_payload(payload)
+    assert req.prompt == [1, 2] and req.temperature == 0.5
+    assert tier == "fp32" and dl == 2.5
+    jreq, jtier, jdl = jrequest_from_payload(payload)
+    assert (vars(req), tier, dl) == (vars(jreq), jtier, jdl)
+    for bad in ({"prompt": []}, {"prompt": "hi"}, {"prompt": [1], "x": 1},
+                {"prompt": [1], "max_tokens": 0},
+                {"prompt": [1], "stop_tokens": "no"}):
+        with pytest.raises(ValueError):
+            request_from_payload(bad)

@@ -92,7 +92,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                compared, and the loss trajectory; in bf16, then in fp32
                with tighter bands.  Step time, tokens/s, peak memory, and
                the device's busy and idle share of a step under
-               torch.profiler.
+               torch.profiler.  Then one bf16 step under
+               ``grad_compression="int8"`` at full depth (counted) and two
+               against the plain path from a full learning rate.
   7. resnet  — full-width ResNet-50 (random weights from a seed), 32 images
                of 224 x 224: one forward and one gradient step on the
                kernels (exact launch counts), then on the plain path;
@@ -191,15 +193,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                decode ms, busy and idle, pool bytes; every kernel call of
                one prefill and one decode forward against its plain version
                on its own inputs, and each kernel at every shape the
-               continuous runs gave it against its plain version; fp32 at
-               the reduced width, 2 layers, where both engines' greedy
-               tokens must equal the plain path's.  Their kernels'
-               per-shape times join phase 12's.
+               continuous runs gave it against its plain version, and an
+               int8 page pool; the three quant tiers (QUANT_TIERS) on the
+               same params, the experts on batched_matmul_q, exact launch
+               counts, every quantized launch against its plain version at
+               its shape, the bf16 tokens' divergence from the plain path,
+               decode ms, busy and idle (the recurrent phase runs the tiers
+               on xlstm-1.3b and recurrentgemma-9b alike); fp32 at the
+               reduced width, 2 layers, where both engines' greedy tokens
+               must equal the plain path's, in full precision and in each
+               tier.  Their kernels' per-shape times join phase 12's.
   16. train_families — every other family trained in bf16, widths
                untouched: grok-1-314b's and deepseek-v3-671b's full-width
                attention (GQA; MLA at head sizes (192, 128)) and MoE
                layers' gradients, their reduced whole models' AdamW steps,
-               xlstm-1.3b at full depth, recurrentgemma-9b cut to one
+               xlstm-1.3b at 8 of its 48 layers, recurrentgemma-9b cut to one
                (rec, rec, attn) group at T 4096 (the flash backward at
                (256, 256), windowed, MQA), seamless-m4t-large-v2 at full
                depth over 4096 and a ragged 1000 frames (held against plain
@@ -241,6 +249,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import cProfile
 import dataclasses
 import gc
@@ -1583,12 +1592,13 @@ def phase_serve(base_cfg):
 
 def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
                decode_quant=None, max_len=MAX_LEN, patch_embeds=None,
-               src_embeds=None):
+               src_embeds=None, n_steps=16):
     """Host-clock prefill and decode-step times of the kernel path, under a
     serving tier's quant configs (None: full precision), for the prompts
     ``tokens`` (B, T) (after a VLM's ``patch_embeds``; over an
-    encoder-decoder's ``src_embeds``) in a cache of ``max_len``; whether
-    every logit of the timed prefill and decode steps was finite."""
+    encoder-decoder's ``src_embeds``) in a cache of ``max_len`` (past the
+    prompt, ``n_steps`` timed decode steps and 4 profiled); whether every
+    logit of the timed prefill and decode steps was finite."""
     from repro_torch.core import dispatch
     from repro_torch.models import api
     b, prompt = tokens.shape
@@ -1618,7 +1628,7 @@ def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
         prefill_s = time.perf_counter() - t0
         finite = torch.isfinite(logits).all()
         tok = logits.argmax(-1).to(torch.int32)[:, None]
-        n = 16
+        n = n_steps
         t0 = time.perf_counter()
         for i in range(n):
             logits, cache = decode(tok, cache, prompt + i)
@@ -2183,7 +2193,7 @@ def steps_run(step, state, batches):
 
 
 def train_against_plain(cfg, ocfg, batches, seed, counters, start=0,
-                        floor=0.0, checked=None, spread=None):
+                        floor=0.0, checked=None, spread=None, step_kw=None):
     """Kernels against plain from one seeded state of ``cfg`` (its
     optimizer at step ``start``: at 0 the first update's learning rate is
     0): every parameter's step-0 gradient (``grad_errors``, with the plain
@@ -2192,8 +2202,9 @@ def train_against_plain(cfg, ocfg, batches, seed, counters, start=0,
     "torch")`` launching nothing.  With ``checked`` (a dict) every kernel
     launch of the kernel side is also held against its plain version
     (``checked_launches``, bf16 outputs against the truth), its worst
-    collected there.  Returns {grad_err, finite, spread, losses,
-    plain_losses, plain_s, plain_peak}."""
+    collected there.  ``step_kw``: more arguments of both sides'
+    ``make_train_step`` (a ``grad_compression``).  Returns {grad_err,
+    finite, spread, losses, plain_losses, plain_s, plain_peak}."""
     from repro_torch.core import dispatch
     from repro_torch.train import train_step as ts
 
@@ -2208,8 +2219,9 @@ def train_against_plain(cfg, ocfg, batches, seed, counters, start=0,
         grad_err, finite, moved = step0_grad_errors(
             cfg, state, batches[0], floor, spread)
         torch.cuda.empty_cache()
-        _, losses, _ = steps_run(ts.make_train_step(cfg, ocfg), state,
-                                 batches)
+        _, losses, _ = steps_run(ts.make_train_step(cfg, ocfg,
+                                                    **(step_kw or {})),
+                                 state, batches)
     del state
     torch.cuda.empty_cache()
     plain_state = fresh()
@@ -2218,7 +2230,8 @@ def train_against_plain(cfg, ocfg, batches, seed, counters, start=0,
     torch.cuda.reset_peak_memory_stats()
     with dispatch.use(backend="torch"):
         _, plain_losses, plain_s = steps_run(
-            ts.make_train_step(cfg, ocfg), plain_state, batches)
+            ts.make_train_step(cfg, ocfg, **(step_kw or {})), plain_state,
+            batches)
     plain_peak = torch.cuda.max_memory_allocated()
     if any(c.launches for c in counters.values()):
         raise AssertionError(f"{cfg.name}: the plain train run launched a "
@@ -2254,6 +2267,53 @@ def counted_steps(step, state, batches, counters, profile=True):
     launches = {k: c.launches for k, c in counters.items()}
     return (state, losses, step_s, by_kernel, launches,
             torch.cuda.max_memory_allocated())
+
+
+def train_compressed(cfg, plain_cfg, ocfg, batches, counters):
+    """One more bf16 smollm step with ``grad_compression="int8"`` (the
+    gradients quantized to int8, one scale a stacked leaf, and back
+    before AdamW), held as the full-precision steps are: the main path
+    at full depth, one step counted (counts zeroed just before, read just
+    after: the compression launches no kernel, so a step's launches are
+    unchanged); against the plain path at TRAIN_PLAIN_LAYERS from a state
+    at FAM_HELD_START (a full learning rate, so the compressed gradients
+    move the weights), two steps each way, the step-0 gradients and both
+    losses in TRAIN_BAND."""
+    from repro_torch.train import train_step as ts
+    step_kw = {"grad_compression": "int8"}
+    held = train_against_plain(plain_cfg, ocfg, batches[:2], SEED, counters,
+                               start=FAM_HELD_START, step_kw=step_kw)
+    state = ts.init_state(cfg, ocfg, torch.Generator(
+        device="cuda").manual_seed(SEED), "cuda")
+    state["opt"]["step"] = FAM_HELD_START
+    _, losses, step_s, _, launches, peak = counted_steps(
+        ts.make_train_step(cfg, ocfg, **step_kw), state, batches[:1],
+        counters, profile=False)
+    expect = expected_step_launches(cfg)
+    band = TRAIN_BAND[torch.bfloat16]
+    traj_err = max(abs(a - b) for a, b in zip(held["losses"],
+                                              held["plain_losses"]))
+    worst_grad = max(held["grad_err"].items(), key=lambda kv: kv[1])
+    emit({"phase": "train", "dtype": cfg.dtype, "grad_compression": "int8",
+          "n_layers": cfg.n_layers, "plain_n_layers": plain_cfg.n_layers,
+          "start_step": FAM_HELD_START, "launches": launches,
+          "expected_launches": expect, "losses": losses,
+          "held_losses": held["losses"],
+          "plain_losses": held["plain_losses"],
+          "trajectory_max_err": traj_err, "loss_band": band["loss"],
+          "grad_rel_l2_max": worst_grad[1],
+          "grad_rel_l2_worst_param": worst_grad[0],
+          "grad_band": band["grad_rel_l2"], "step_ms": step_s[0] * 1e3,
+          "peak_mem_gb": peak / 1e9})
+    del state
+    torch.cuda.empty_cache()
+    if launches != expect or not held["finite"] or not all(
+            math.isfinite(x) for x in losses) or traj_err > band["loss"] \
+            or worst_grad[1] > band["grad_rel_l2"]:
+        raise AssertionError(
+            f"train int8 compression: launches {launches} != {expect}, "
+            f"loss err {traj_err}, worst gradient {worst_grad}, finite "
+            f"{held['finite']}")
 
 
 def phase_train(base_cfg):
@@ -2342,6 +2402,7 @@ def phase_train(base_cfg):
         emit(rec)
         if dtype == torch.bfloat16:
             train_remat(cfg, state, batches[0], counters)
+            train_compressed(cfg, plain_cfg, ocfg, batches, counters)
         if not ok:
             raise AssertionError(
                 f"train {cfg.dtype}: loss err {loss0_err} / {traj_err}, "
@@ -5204,6 +5265,13 @@ MOE_MODELS = (("grok-1-314b", {"n_layers": 2}),
 MOE_BATCH, MOE_PROMPT, MOE_NEW = 2, 512, 32
 MOE_SLOTS, MOE_REQUESTS, MOE_PROMPTS, MOE_TOKENS = 4, 6, (128, 512), (8, 32)
 MOE_POOLS = (("slotted", {}), ("paged", {"page_size": 16}))
+# deepseek's compressed cache on int8 pages, a scale a page for each of its
+# two layer stacks and each key (grok's int8 pages: the continuous phase's)
+MLA_INT8_POOL = ("paged_int8", {"page_size": 16, "kv_quant": "int8"})
+
+
+def moe_pools(cfg):
+    return MOE_POOLS + ((MLA_INT8_POOL,) if cfg.mla else ())
 MOE_FP32_LAYERS, MOE_FP32_PROMPT = 2, 64
 MOE_KERNELS = ("matmul", "batched_matmul", "flash_attention")
 
@@ -5533,7 +5601,7 @@ def moe_fp32_tokens(name, overrides, gen):
                                              MOE_REQUESTS),
                                 rng.integers(4, MOE_NEW + 1, MOE_REQUESTS))]
     same = {}
-    for pool, kw in MOE_POOLS:
+    for pool, kw in moe_pools(cfg):
         pool_kw = {"n_slots": MOE_SLOTS, "max_len": max_len, **kw}
         c_got, *_ = continuous_run(cfg, params, requests, pool_kw, {}, {})
         with dispatch.use(backend="torch"):
@@ -5550,12 +5618,359 @@ def moe_fp32_tokens(name, overrides, gen):
           "static_rows_matching_plain": [a == b for a, b in zip(got, want)],
           "continuous_requests_matching_plain": same,
           "first_divergence": found, "band": LOGITS_BAND[torch.float32]})
-    del engine, params
+    del engine
+    # under the tiers, one pool: deepseek's int8 pages (MLA's per-stack
+    # scales), grok's slotted pool
+    pool, kw = MLA_INT8_POOL if cfg.mla else MOE_POOLS[0]
+    tiers = tier_fp32_failures(name, tier_fp32_tokens(
+        cfg, params, MOE_FP32_PROMPT, MOE_NEW, requests,
+        [(pool, {"n_slots": MOE_SLOTS, "max_len": max_len, **kw})], gen))
+    del params
     torch.cuda.empty_cache()
-    return [f"fp32 {name} {where} row {r} differs from the plain path at "
-            f"step {gap['step']}, top-two gap {gap['top2_gap']}"
+    return tiers + [
+        f"fp32 {name} {where} row {r} differs from the plain path at "
+        f"step {gap['step']}, top-two gap {gap['top2_gap']}"
+        for where, rows in found.items() for r, gap in rows.items()
+        if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
+
+
+# --------------------------------------------------------------------------
+# 15b. the quant tiers on the MoE, MLA and recurrent families
+# --------------------------------------------------------------------------
+
+# Each tier of QUANT_TIERS on each model of phases 15 and 16, at the width
+# and depth the phase serves it (bf16), on its params: the static Engine on
+# the phase's first static run's batch and prompt (so the full-precision
+# calls a tier leaves take shapes the phase already times) for TIER_NEW
+# tokens.  decode_int8 runs prefill in full precision and quantizes every
+# GEMM of a decode forward (the weights at every step); a calibrated model
+# runs every GEMM quantized in both phases but those on weights
+# calibration leaves alone (not ``w``-named: the router, a tied head's
+# table.T; MLA's wkv_b, which the absorbed decode reads in full precision;
+# an untied head's w is calibrated).
+TIER_NEW, TIER_STEPS = 8, 4      # tokens a run; decode steps timed
+TIER_KERNELS = ("matmul", "batched_matmul", "flash_attention", "matmul_q",
+                "batched_matmul_q")
+TIER_FMT = {"decode_int8": "int8", "calibrated_int8": "int8",
+            "calibrated_fp8": "float8_e4m3fn"}
+UNCALIBRATED_ROLES = ("router", "head", "wkv_b")
+
+
+def tier_counters():
+    from repro_torch.kernels.brgemm import (batched_matmul_cuda,
+                                            batched_matmul_q_cuda,
+                                            matmul_cuda, matmul_q_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    return {"matmul": matmul_cuda, "batched_matmul": batched_matmul_cuda,
+            "flash_attention": flash_attention_cuda,
+            "matmul_q": matmul_q_cuda,
+            "batched_matmul_q": batched_matmul_q_cuda}
+
+
+def reset_tier_counts():
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.kernels.brgemm.quant_kernel import reset_quant_counts
+    from repro_torch.kernels.flash_attention import reset_flash_counts
+    reset_matmul_counts()
+    reset_flash_counts()
+    reset_quant_counts()
+
+
+def tier_calls(cfg, forwards, tier, forward_calls):
+    """The kernel calls of ``forwards`` (Counter {(kind, b, t): count})
+    under ``tier``, from each forward's full-precision calls
+    (``forward_calls``: moe_forward_calls or rec_forward_calls): a
+    quantized GEMM's shape is its full-precision shape with the storage
+    format after it.  {kernel: Counter{shape: launches}} over
+    TIER_KERNELS."""
+    fmt = TIER_FMT[tier]
+    out = {k: collections.Counter() for k in TIER_KERNELS}
+
+    def calibrated(role):        # an untied head's w is calibrated
+        return role not in UNCALIBRATED_ROLES or (
+            role == "head" and not cfg.tie_embeddings)
+    for (kind, b, t), count in forwards.items():
+        for kernel, shapes in forward_calls(cfg, kind, b, t).items():
+            for shape, n in shapes.items():
+                quantized = kernel in ("matmul", "batched_matmul") and (
+                    kind != "prefill" if tier == "decode_int8" else
+                    kernel == "batched_matmul" or calibrated(shape[0]))
+                key = ((kernel + "_q", (*shape, fmt)) if quantized
+                       else (kernel, shape))
+                out[key[0]][key[1]] += n * count
+    return out
+
+
+def quant_launch_keys(calls, dtype):
+    """The operand keys quant_launches_held records, of every quantized
+    shape in ``calls`` (tier_calls)."""
+    keys = {"matmul_q": set(), "batched_matmul_q": set()}
+    for shape in calls["matmul_q"]:
+        _, m, k, n, act, fp32, *rest = shape
+        keys["matmul_q"].add(((m, k), (k, n), act, torch.float32 if fp32
+                              else dtype, len(rest) == 2 and rest[0],
+                              rest[-1]))
+    for e, m, k, n, act, fmt in calls["batched_matmul_q"]:
+        keys["batched_matmul_q"].add(((e, m, k), (e, k, n), act, dtype,
+                                      False, fmt))
+    return keys
+
+
+@contextlib.contextmanager
+def quant_launches_held(failed, tag):
+    """Inside, the first launch of matmul_q_cuda and batched_matmul_q_cuda
+    at each operand shape (with its activation, output dtype, bias and
+    storage format) is held against its plain version on the same
+    quantized operands, in quant_tol's bands: int8 with no activation
+    exactly (the integer sum is exact, the epilogue the same rounding),
+    else the matmul bands.  Yields {kernel: {key: abs err}}.  Launches in
+    here are not counted (the wrappers' counters are stand-ins'), and
+    batched_matmul_q_ref widens a few experts at a time."""
+    from repro_torch.kernels.brgemm import quant_kernel as QK
+    from repro_torch.kernels.brgemm import quant_ref as QR
+    found = {"matmul_q": {}, "batched_matmul_q": {}}
+    real = {"matmul_q": QK.matmul_q_cuda,
+            "batched_matmul_q": QK.batched_matmul_q_cuda}
+    plain = {"matmul_q": QR.matmul_q_ref,
+             "batched_matmul_q": QR.batched_matmul_q_ref}
+
+    def spy(kernel):
+        def run(aq, bq, sa, sb, bias=None, *, activation="none", alpha=1.0,
+                out_dtype=torch.float32, plan=None, quant=None):
+            out = real[kernel](aq, bq, sa, sb, bias, activation=activation,
+                               alpha=alpha, out_dtype=out_dtype, plan=plan,
+                               quant=quant)
+            key = (tuple(aq.shape), tuple(bq.shape), activation, out_dtype,
+                   bias is not None, str(bq.dtype).replace("torch.", ""))
+            if key not in found[kernel]:
+                ref = plain[kernel](aq, bq, sa, sb, bias,
+                                    activation=activation, alpha=alpha,
+                                    out_dtype=out_dtype)
+                ok, err, _ = close(out, ref, *quant_tol(
+                    bq.dtype, out_dtype, activation))
+                found[kernel][key] = err
+                if not ok:
+                    failed.append(f"{tag} {kernel} {key}: {err}")
+                del ref
+            return out
+        run.launches = run.split_launches = 0     # the real ones count
+        run.mainloops = collections.Counter()     # into these here
+        return run
+
+    QK.matmul_q_cuda = spy("matmul_q")
+    QK.batched_matmul_q_cuda = spy("batched_matmul_q")
+    try:
+        yield found
+    finally:
+        QK.matmul_q_cuda = real["matmul_q"]
+        QK.batched_matmul_q_cuda = real["batched_matmul_q"]
+
+
+def tier_model(params, calibration):
+    from repro_torch import quant
+    return (quant.calibrate_params(params, calibration)
+            if calibration is not None else params)
+
+
+def tier_run(cfg, params, tier, kw, calibration, b, prompt, forward_calls,
+             gen, card, failed, path):
+    """One tier on a full-width model (tier_calls): the static Engine's
+    counted run of b x prompt + TIER_NEW tokens (counts zeroed just
+    before, read just after), its launches exactly tier_calls'; the same
+    run again with every quantized launch held against its plain version
+    at its shape (quant_launches_held), every shape of the counted run
+    held; the plain path's bf16 tokens and, per row that differs, the
+    first differing step and the plain path's top-two gap there under the
+    tier (rec_divergence); prefill and decode-step ms, busy and idle
+    (step_times).  Returns ({kernel: Counter{shape: launches}} of the
+    counted run, its launches, worst abs error by quantized kernel)."""
+    from repro_torch.core import dispatch
+    from repro_torch.serve import Engine, ServeConfig
+    counters = tier_counters()
+    t0 = time.perf_counter()
+    model = tier_model(params, calibration)
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    engine = Engine(cfg, model, ServeConfig(max_len=prompt + TIER_NEW), **kw)
+    tokens = torch.randint(0, cfg.vocab, (b, prompt), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    engine.generate({"tokens": tokens[:, :16]}, n_tokens=2,
+                    stop_tokens=())               # warm-up, not counted
+    torch.cuda.synchronize()
+    # The main path: counts zeroed just before, read just after.
+    reset_tier_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate({"tokens": tokens}, n_tokens=TIER_NEW,
+                          stop_tokens=())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    mainloops = {k: dict(counters[k].mainloops)
+                 for k in ("matmul_q", "batched_matmul_q")}
+    calls = tier_calls(cfg, collections.Counter(
+        {("prefill", b, prompt): 1, ("decode", b, 1): TIER_NEW - 1}), tier,
+        forward_calls)
+    expect = {k: sum(v.values()) for k, v in calls.items()}
+    if got != expect:
+        failed.append(f"{cfg.name} {tier}: launches {got} != {expect}")
+    with quant_launches_held(failed, f"{cfg.name} {tier}") as held:
+        engine.generate({"tokens": tokens}, n_tokens=TIER_NEW,
+                        stop_tokens=())
+    want_keys = quant_launch_keys(calls, cfg_dtype(cfg))
+    for k, keys in want_keys.items():
+        if set(held[k]) != keys:
+            failed.append(f"{cfg.name} {tier}: {k} held at "
+                          f"{sorted(map(str, held[k]))}, run at "
+                          f"{sorted(map(str, keys))}")
+    with dispatch.use(backend="torch"):
+        plain_ids = engine.generate({"tokens": tokens}, n_tokens=TIER_NEW,
+                                    stop_tokens=())
+    got_rows, want_rows = ids.tolist(), plain_ids.tolist()
+    found = rec_divergence(cfg, model, tokens.tolist(), got_rows, want_rows,
+                           prefill_quant=engine.quant,
+                           decode_quant=engine.decode_quant)
+    steps = step_times(cfg, model, tokens, f"{cfg.name} {tier}",
+                       engine.quant, engine.decode_quant,
+                       max_len=prompt + 12, n_steps=TIER_STEPS)
+    worst = {k: max(v.values(), default=0.0) for k, v in held.items()}
+    emit({"phase": "quant_tiers", "path": path, "arch": cfg.name,
+          "tier": tier, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+          "batch": b, "prompt": prompt, "new_tokens": TIER_NEW,
+          "calibrate_s": calibrate_s, "launches": got,
+          "expected_launches": expect, "mainloops": mainloops,
+          "generate_s": seconds, "tokens_per_s": b * TIER_NEW / seconds,
+          "shapes_held": {k: len(v) for k, v in held.items()},
+          "max_abs_err": worst,
+          "bf16_rows_matching_plain": [a == w for a, w in
+                                       zip(got_rows, want_rows)],
+          "first_divergence": found,
+          "decode_step_ms": steps["decode_step_ms"],
+          "decode_device_busy_ms": steps["decode_device_busy_ms"],
+          "decode_device_idle_share": steps["decode_device_idle_share"],
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card": card})
+    if tuple(ids.shape) != (b, TIER_NEW) or not steps["logits_finite"]:
+        failed.append(f"{cfg.name} {tier}: ids {tuple(ids.shape)}, finite "
+                      f"{steps['logits_finite']}")
+    del engine, model
+    free_card()
+    return calls, got, worst
+
+
+def tiers_on(cfg, params, b, prompt, forward_calls, gen, card, failed,
+             path, calls, launches, worst):
+    """Every tier of QUANT_TIERS on one full-width model (tier_run), its
+    calls, launches and worst errors added to the phase's."""
+    for tier, kw, calibration in QUANT_TIERS:
+        t_calls, t_got, t_worst = tier_run(
+            cfg, params, tier, kw, calibration, b, prompt, forward_calls,
+            gen, card, failed, path)
+        for k in TIER_KERNELS:
+            calls.setdefault(k, collections.Counter()).update(t_calls[k])
+            launches[k] = launches.get(k, 0) + t_got[k]
+        for k, err in t_worst.items():
+            worst[k] = max(worst.get(k, 0.0), err)
+
+
+# fp32 tokens of a quant tier.  A quantized path is discontinuous: an
+# activation within an ulp of a rounding boundary of its int8 or fp8 grid
+# rounds apart on two paths whose fp32 sums differ in order (fp8's on the
+# card; the full-precision prefill and attention the tiers leave), and
+# moves the logits by its quantization step's effect, not by ulps.  So a
+# row of a tier that parts from the plain path must do so at a top-two gap
+# within the larger of the fp32 band and twice the plain path's own spread
+# there: how far its logits at that step move, under the same tier, when
+# every float weight moves by TIER_SPREAD of itself (a sum's rounding in
+# another order, FAM_SPREAD's fp32 figure), the most of TIER_SPREAD_DRAWS
+# seeded draws.  A calibrated weight's storage is not moved; the embedding
+# and norms it leaves are.
+TIER_SPREAD, TIER_SPREAD_DRAWS = 1e-6, 3
+
+
+def tier_spread(cfg, params, prompt, toks, step, q):
+    """The plain path's own spread at a step (the note above): max |logits
+    moved| over TIER_SPREAD_DRAWS draws of every float weight times (1 +
+    TIER_SPREAD * N(0, 1))."""
+    want = plain_logits(cfg, params, prompt, toks, step, **q)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    spread = 0.0
+    for _ in range(TIER_SPREAD_DRAWS):
+        moved = copy.deepcopy(params)
+        with torch.no_grad():
+            for p in moved.parameters():
+                if p.is_floating_point():
+                    p.mul_(1 + TIER_SPREAD * torch.randn(
+                        p.shape, device=p.device, generator=gen))
+        spread = max(spread, (plain_logits(cfg, moved, prompt, toks, step,
+                                           **q) - want).abs().max().item())
+        del moved
+    return spread
+
+
+def tier_fp32_tokens(cfg, params, prompt, new, requests, pools, gen):
+    """fp32 at the reduced width, each tier: the static engine's greedy
+    tokens on the kernels against the plain path's, and the continuous
+    engine's over each of ``pools`` ((name, PoolConfig kwargs)); per row
+    that differs, the first differing step, the plain path's top-two gap
+    there under the tier and its own spread (tier_spread).  Returns
+    {tier: (divergences {where: {row: gap}}, rows matching)}."""
+    from repro_torch.core import dispatch
+    from repro_torch.serve import Engine, ServeConfig
+    out = {}
+    for tier, kw, calibration in QUANT_TIERS:
+        model = tier_model(params, calibration)
+        engine = Engine(cfg, model, ServeConfig(max_len=prompt + new), **kw)
+        tokens = torch.randint(0, cfg.vocab, (2, prompt), device="cuda",
+                               generator=gen, dtype=torch.int32)
+        got = engine.generate({"tokens": tokens}, n_tokens=new,
+                              stop_tokens=()).tolist()
+        with dispatch.use(backend="torch"):
+            want = engine.generate({"tokens": tokens}, n_tokens=new,
+                                   stop_tokens=()).tolist()
+        q = dict(prefill_quant=engine.quant, decode_quant=engine.decode_quant)
+        prompts = {"static": tokens.tolist()}
+        found = {"static": rec_divergence(cfg, model, prompts["static"], got,
+                                          want, **q)}
+        same = {"static": [a == w for a, w in zip(got, want)]}
+        rows = {"static": want}
+        for pool, pool_kw in pools:
+            c_got, *_ = continuous_run(cfg, model, requests, pool_kw, kw, {})
+            with dispatch.use(backend="torch"):
+                c_want, *_ = continuous_run(cfg, model, requests, pool_kw,
+                                            kw, {})
+            ids = sorted(c_want)
+            same[pool] = [c_got[i] == c_want[i] for i in ids]
+            prompts[pool] = [requests[i].prompt for i in ids]
+            rows[pool] = [c_want[i] for i in ids]
+            found[pool] = rec_divergence(
+                cfg, model, prompts[pool], [c_got[i] for i in ids],
+                rows[pool], **q)
+        for where, diverged in found.items():
+            for r, gap in diverged.items():
+                gap["spread"] = tier_spread(cfg, model, prompts[where][r],
+                                            rows[where][r], gap["step"], q)
+        out[tier] = (found, same)
+        del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tier_fp32_failures(name, by_tier):
+    """The fp32 tier rows whose first divergence lies at a top-two gap
+    past the larger of the fp32 band and twice the plain path's own spread
+    there; the record of each tier."""
+    band = LOGITS_BAND[torch.float32]
+    for tier, (found, same) in by_tier.items():
+        emit({"phase": "quant_tiers", "arch": name, "tier": tier,
+              "dtype": "float32", "reduced": True,
+              "rows_matching_plain": same, "first_divergence": found,
+              "band": band, "spread_factor": 2})
+    return [f"fp32 {name} {tier} {where} row {r} differs from the plain "
+            f"path at step {gap['step']}, top-two gap {gap['top2_gap']}, "
+            f"spread {gap['spread']}"
+            for tier, (found, _) in by_tier.items()
             for where, rows in found.items() for r, gap in rows.items()
-            if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
+            if not abs(gap["top2_gap"]) <= max(band, 2 * gap["spread"])]
 
 
 def phase_moe(card):
@@ -5569,10 +5984,12 @@ def phase_moe(card):
     prefill and decode-step ms, busy and idle, pool bytes; every kernel
     call of one prefill and one decode forward against its plain version
     on its own inputs, and each kernel at every shape of each pool's run
-    against its plain version (moe_shape_parity); then fp32 at the
-    reduced width, both engines' greedy tokens against the plain path's.
-    Returns ({"moe": launches}, worst abs error by kernel, {model: kernel
-    calls of its runs})."""
+    against its plain version (moe_shape_parity); each quant tier on the
+    same params (tiers_on: the experts on batched_matmul_q, the rest on
+    matmul_q but what a tier leaves in full precision); then fp32 at the
+    reduced width, both engines' greedy tokens against the plain path's,
+    at full precision and under each tier.  Returns ({"moe": launches},
+    worst abs error by kernel, {model: kernel calls of its runs})."""
     from repro_torch.kernels.brgemm import batched_matmul_cuda, matmul_cuda
     from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -5649,7 +6066,7 @@ def phase_moe(card):
 
         requests = moe_traffic(cfg, SEED + 21 + idx)
         done = set()          # (kernel, shape) held against plain
-        for pool, kw in MOE_POOLS:
+        for pool, kw in moe_pools(cfg):
             pool_kw = {"n_slots": MOE_SLOTS, "max_len": max_len, **kw}
             out, ce, c_got, c_seconds, decode_s, finite, c_forwards = \
                 continuous_run(cfg, params, requests, pool_kw, {}, counters)
@@ -5710,6 +6127,8 @@ def phase_moe(card):
                                 torch.bfloat16)] for k in MOE_KERNELS}})
         for k, err in errs.items():
             worst[k] = max(worst[k], err)
+        tiers_on(cfg, params, MOE_BATCH, MOE_PROMPT, moe_forward_calls, gen,
+                 card, failed, "moe", calls, launches, worst)
         del params
         free_card()
         failed += moe_fp32_tokens(name, overrides, gen)
@@ -5718,11 +6137,114 @@ def phase_moe(card):
     return {"moe": launches}, worst, calls_by_model
 
 
+def quant_tier_rows(rows, card, name, calls, path, gen):
+    """Per-shape times of the quantized kernels a model's tier runs
+    launched (tier_calls' matmul_q and batched_matmul_q shapes, the roles
+    at one shape in one row), for the kernels line, with bounds at the
+    8-bit peak (operands at a byte an element, the fp32 scales, the
+    output).  Library column: matmul_q's as phase_times_quant's
+    (torch._int_mm, the int32 product only; torch._scaled_mm for e4m3);
+    batched_matmul_q's none, no one PyTorch call computes it."""
+    from repro_torch import quant
+    from repro_torch.kernels.brgemm import (batched_matmul_q_cuda,
+                                            batched_matmul_q_ref,
+                                            matmul_q_cuda, matmul_q_ref)
+    from repro_torch.kernels.brgemm.quant_kernel import (plan_q_batched_call,
+                                                         plan_q_call)
+    by_shape = collections.defaultdict(lambda: [0, []])
+    for (role, m, k, n, act, fp32, *rest), count in calls["matmul_q"].items():
+        key = (m, k, n, act, fp32, len(rest) == 2 and rest[0], rest[-1])
+        by_shape[key][0] += count
+        by_shape[key][1].append(role)
+    for (m, k, n, act, fp32, bias, fmt), (count, roles) in sorted(
+            by_shape.items()):
+        dt = getattr(torch, fmt)
+        row = row_recorder(rows, card, dt)
+        out_dtype = torch.float32 if fp32 else torch.bfloat16
+        nbytes = (m * k + k * n + 4 * (m + n) + m * n * (4 if fp32 else 2)
+                  + 2 * n * bias)
+        sets = []
+        for _ in range(n_sets(nbytes)):
+            x = torch.randn(m, k, device="cuda", generator=gen)
+            w = torch.randn(k, n, device="cuda", generator=gen) * k ** -0.5
+            xq, sx, wq, sw = quantized(x, w, dt, k_major=True)
+            b = (torch.randn(n, device="cuda", generator=gen).to(
+                torch.bfloat16) if bias else None)
+            sets.append((xq, sx, wq, sw, b))
+            del x, w
+        kw = dict(activation=act, out_dtype=out_dtype)
+        ms, wall = time_ms(lambda xq, sx, wq, sw, b: matmul_q_cuda(
+            xq, wq, sx, sw, b, **kw), sets, 8)
+        plain, _ = time_ms(lambda xq, sx, wq, sw, b: matmul_q_ref(
+            xq, wq, sx, sw, b, **kw), sets, 2)
+        if dt == torch.int8:
+            lib_name = "torch._int_mm (int32 product only)"
+
+            def lib_fn(xq, sx, wq, sw, b):
+                return torch._int_mm(xq, wq)
+        else:
+            lib_name = "torch._scaled_mm (row-wise scales, bf16 out)"
+
+            def lib_fn(xq, sx, wq, sw, b):
+                return torch._scaled_mm(xq, wq, scale_a=sx[:, None],
+                                        scale_b=sw[None, :],
+                                        out_dtype=torch.bfloat16)
+        lib = (time_ms(lib_fn, sets, 8)[0] if library_runs(lib_fn, *sets[0])
+               else None)
+        p = plan_q_call(sets[0][0], sets[0][2])
+        row("matmul_q", f"{name}.{'/'.join(sorted(roles))} {fmt} m{m}", ms,
+            wall, 2 * m * n * k, nbytes, plain, lib, {path: count}, m=m,
+            k=k, n=n, activation=act, bias=bias, out=str(out_dtype),
+            library=lib_name, mainloop=p.mainloop, bm=p.bm, splits=p.splits)
+        del sets
+    weights = {}        # one expert stack a (E, k, n, format), K-major
+    for (e, m, k, n, act, fmt), count in sorted(
+            calls["batched_matmul_q"].items()):
+        dt = getattr(torch, fmt)
+        row = row_recorder(rows, card, dt)
+        if (e, k, n, fmt) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            w = torch.empty(e, n, k, dtype=dt, device="cuda").mT
+            for i in range(e):       # an expert at a time, each K-major
+                w[i] = quant.quantize_weight(
+                    torch.randn(k, n, device="cuda", generator=gen)
+                    * k ** -0.5, fmt).q
+            weights[(e, k, n, fmt)] = (w, torch.rand(
+                e, n, device="cuda", generator=gen) * 1e-2)
+        wq, sw = weights[(e, k, n, fmt)]
+        per_set = e * m * k + 4 * e * m
+        sets = []
+        for _ in range(n_sets(per_set)):
+            aq, sa = quant.quantize(torch.randn(e, m, k, device="cuda",
+                                                generator=gen), fmt,
+                                    axis=(-1,))
+            sets.append((aq, wq, sa, sw))
+        bf16 = dict(activation=act, out_dtype=torch.bfloat16)
+        big = e * k * n > 1e9
+        ms, wall = time_ms(lambda *t: batched_matmul_q_cuda(*t, **bf16),
+                           sets, 8)
+        plain, _ = time_ms(lambda *t: batched_matmul_q_ref(*t, **bf16), sets,
+                           1 if big else 2)
+        p = plan_q_batched_call(*sets[0][:2])
+        row("batched_matmul_q", f"{name}.experts.{act} {fmt} E{e} m{m} k{k} "
+            f"n{n}", ms, wall, 2 * e * m * k * n,
+            e * m * k + e * k * n + 4 * e * (m + n) + 2 * e * m * n, plain,
+            None, {path: count}, batch=e, m=m, k=k, n=n, activation=act,
+            library="none: no one PyTorch call computes it",
+            mainloop=p.mainloop, bm=p.bm)
+        del sets
+    del weights
+    torch.cuda.empty_cache()
+
+
 def phase_times_moe(card, calls_by_model):
     """Per-shape times of the moe path's bf16 kernels, for the kernels line:
     each matmul, batched_matmul and flash forward shape of the two models'
     runs beside its bound, its plain version and one library call
-    (torch.matmul, torch.bmm, SDPA where it takes the head sizes)."""
+    (torch.matmul, torch.bmm, SDPA where it takes the head sizes); and
+    the quant tiers' matmul_q and batched_matmul_q shapes
+    (quant_tier_rows)."""
     import torch.nn.functional as F
     from repro_torch.kernels.brgemm import (batched_matmul_cuda,
                                             batched_matmul_ref)
@@ -5799,6 +6321,7 @@ def phase_times_moe(card, calls_by_model):
                 head_dims=list(FK.head_dims(dq, dv)),
                 mainloop=FK.plan_call(*sets[0]))
             del sets
+        quant_tier_rows(rows, card, name, calls, "moe", gen)
     return rows
 
 
@@ -5990,12 +6513,14 @@ def rec_shape_parity(cfg, calls, done, failed, flash_inputs=rec_flash_inputs,
     return worst, dict(checked)
 
 
-def rec_gap(cfg, params, prompt, toks, step, src=None):
-    """The plain path's top-two logit gap at generated step ``step`` of a
-    request: its prompt prefilled (over an encoder-decoder's frames
-    ``src``), then its first ``step`` tokens decoded one at a time, as the
-    engines run it (first_divergence prefills prompt and tokens in one, a
-    length that can break mLSTM's chunk rule)."""
+def plain_logits(cfg, params, prompt, toks, step, src=None,
+                 prefill_quant=None, decode_quant=None):
+    """The plain path's logits at generated step ``step`` of a request:
+    its prompt prefilled (over an encoder-decoder's frames ``src``; under
+    ``prefill_quant``), then its first ``step`` tokens decoded one at a
+    time (under ``decode_quant``), as the engines run it (first_divergence
+    prefills prompt and tokens in one, a length that can break mLSTM's
+    chunk rule)."""
     from repro_torch.core import dispatch
     from repro_torch.models import api
     batch = {"tokens": torch.tensor([list(prompt)], device="cuda")}
@@ -6005,25 +6530,38 @@ def rec_gap(cfg, params, prompt, toks, step, src=None):
         cache = api.init_cache(cfg, 1, len(prompt) + step + 1,
                                0 if src is None else src.shape[-2],
                                device="cuda")
-        logits, cache = api.prefill(params, batch, cfg, cache)
+        with dispatch.use(quant=prefill_quant):
+            logits, cache = api.prefill(params, batch, cfg, cache)
         for i in range(step):
-            logits, cache = api.decode_step(params, torch.tensor(
-                [[toks[i]]], device="cuda"), cfg, cache, len(prompt) + i)
-    top = torch.topk(logits[0], 2).values
+            with dispatch.use(quant=decode_quant):
+                logits, cache = api.decode_step(params, torch.tensor(
+                    [[toks[i]]], device="cuda"), cfg, cache, len(prompt) + i)
+    return logits[0]
+
+
+def rec_gap(cfg, params, prompt, toks, step, src=None, prefill_quant=None,
+            decode_quant=None):
+    """The plain path's top-two logit gap at generated step ``step`` of a
+    request (plain_logits)."""
+    top = torch.topk(plain_logits(cfg, params, prompt, toks, step, src,
+                                  prefill_quant, decode_quant), 2).values
     return (top[0] - top[1]).item()
 
 
-def rec_divergence(cfg, params, prompts, got, want, srcs=None):
+def rec_divergence(cfg, params, prompts, got, want, srcs=None,
+                   prefill_quant=None, decode_quant=None):
     """Per row whose kernel-path tokens differ from the plain path's: the
     first differing step and the plain path's top-two gap there (``srcs``:
-    each row's frames, for an encoder-decoder)."""
+    each row's frames, for an encoder-decoder; a quant tier's prefill and
+    decode configs)."""
     out = {}
     for r, (g, w) in enumerate(zip(got, want)):
         steps = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
         if steps:
             out[r] = {"step": steps[0], "top2_gap": rec_gap(
                 cfg, params, prompts[r], w, steps[0],
-                None if srcs is None else srcs[r])}
+                None if srcs is None else srcs[r], prefill_quant,
+                decode_quant)}
     return out
 
 
@@ -6072,12 +6610,16 @@ def rec_fp32_tokens(name, gen):
           "continuous_requests_matching_plain": [c_got[i] == c_want[i]
                                                  for i in ids],
           "first_divergence": found, "band": LOGITS_BAND[torch.float32]})
-    del engine, params
+    del engine
+    tiers = tier_fp32_failures(name, tier_fp32_tokens(
+        cfg, params, prompt, new, requests, [("slotted", pool_kw)], gen))
+    del params
     torch.cuda.empty_cache()
-    return [f"fp32 {name} {where} row {r} differs from the plain path at "
-            f"step {gap['step']}, top-two gap {gap['top2_gap']}"
-            for where, rows in found.items() for r, gap in rows.items()
-            if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
+    return tiers + [
+        f"fp32 {name} {where} row {r} differs from the plain path at "
+        f"step {gap['step']}, top-two gap {gap['top2_gap']}"
+        for where, rows in found.items() for r, gap in rows.items()
+        if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
 
 
 def slstm_prefill_share(cfg, params, tokens):
@@ -6123,10 +6665,13 @@ def phase_recurrent(card):
     holds, sLSTM's share of a prefill's host time; every kernel call of
     one prefill and one decode forward against its plain version on its
     own inputs, and each kernel at every shape of the runs against its
-    plain version (rec_shape_parity); then fp32 at the reduced width,
-    both engines' greedy tokens against the plain path's.  Returns
-    ({"recurrent": launches}, worst abs error by kernel, {model: kernel
-    calls of its runs})."""
+    plain version (rec_shape_parity); each quant tier on the same params
+    at the first static run's batch and prompt (tiers_on: mLSTM's
+    four-column gates and sLSTM's fp32 gate GEMM on matmul_q among the
+    rest); then fp32 at the reduced width, both engines' greedy tokens
+    against the plain path's, at full precision and under each tier.
+    Returns ({"recurrent": launches}, worst abs error by kernel, {model:
+    kernel calls of its runs})."""
     from repro_torch.kernels.brgemm import matmul_cuda
     from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -6256,6 +6801,9 @@ def phase_recurrent(card):
               "bands": {k: TOL[(k, torch.bfloat16)] for k in REC_KERNELS}})
         for k, err in errs.items():
             worst[k] = max(worst[k], err)
+        b, prompt, _ = static_runs[0]
+        tiers_on(cfg, params, b, prompt, rec_forward_calls, gen, card,
+                 failed, "recurrent", calls, launches, worst)
         calls_by_model[name] = calls
         del params
         free_card()
@@ -6279,7 +6827,8 @@ def phase_times_recurrent(card, calls_by_model):
     line: each matmul and flash forward shape of the two models' runs
     beside its bound, its plain version and one library call
     (torch.matmul; SDPA at head size 256, with the window's mask where the
-    prompt passes the window)."""
+    prompt passes the window); and the quant tiers' matmul_q shapes
+    (quant_tier_rows)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      mha_ref)
@@ -6327,6 +6876,7 @@ def phase_times_recurrent(card, calls_by_model):
                 head_dims=list(FK.head_dims(d, dv)),
                 mainloop=FK.plan_call(*sets[0]))
             del sets
+        quant_tier_rows(rows, card, name, calls, "recurrent", gen)
     return rows
 
 
@@ -6737,9 +7287,9 @@ FAM_BAND = {"float32": {"grad_rel_l2": 1e-3, "loss": 1e-4},
             "bfloat16": TRAIN_BAND[torch.bfloat16]}
 FAM_SPREAD = {"float32": 1e-6, "bfloat16": 2.0 ** -9}
 # (B, T) and depth of each whole-model run, widths untouched: xlstm-1.3b
-# at full depth, held at FAM_XLSTM_HELD_LAYERS (one group of 7 mLSTM and
-# an sLSTM; its sLSTM steps through T in Python, ~12 s a step at 48
-# layers); recurrentgemma-9b cut to one (rec, rec, attn) group at T 4096,
+# at FAM_XLSTM_LAYERS of its 48 (one group of 7 mLSTM and an sLSTM; its
+# sLSTM steps through T in Python, ~12 s a step at 48 layers), held at
+# that depth; recurrentgemma-9b cut to one (rec, rec, attn) group at T 4096,
 # so that its window of 2048 masks; seamless at full depth, one step over
 # a ragged 1000 frames, held at SEAMLESS_PLAIN_LAYERS encoder and decoder
 # layers over a batch of each length (its encoder's T^2 fp32 scores at
@@ -6747,7 +7297,7 @@ FAM_SPREAD = {"float32": 1e-6, "bfloat16": 2.0 ** -9}
 # (``ArchCfg.reduced()``, bf16), since one full MoE layer's AdamW state
 # takes 77 GB (grok) or 180 GB (deepseek).
 FAM_XLSTM = (2, 512)
-FAM_XLSTM_HELD_LAYERS = 8
+FAM_XLSTM_LAYERS = FAM_XLSTM_HELD_LAYERS = 8
 FAM_RG = (1, 4096, 3)
 FAM_SEAMLESS = (2, 256, (4096, 4096, 1000))
 SEAMLESS_PLAIN_LAYERS = 4
@@ -7315,8 +7865,8 @@ def phase_train_families(card):
               len(batches))
 
     b, t = FAM_XLSTM
-    cfg = get("xlstm-1.3b")
-    # two steps at ~15 s each: the first timed, the second profiled
+    cfg = dataclasses.replace(get("xlstm-1.3b"), n_layers=FAM_XLSTM_LAYERS)
+    # two steps: the first timed, the second profiled
     batches = fam_batches(cfg, b, t, SEED + 66, steps=2)
     _, got, per_launch, f = train_family(
         "xlstm-1.3b", cfg, batches, card, seed=SEED + 66,

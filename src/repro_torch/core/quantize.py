@@ -149,17 +149,22 @@ def quantize(x, dtype: str = "int8", *, axis=None, k_major: bool = False):
     """
     if dtype not in QMAX:
         raise ValueError(f"unknown quant storage dtype {dtype!r}")
-    x32 = torch.as_tensor(x).float()
+    x = torch.as_tensor(x)
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        x = x.float()
     if axis is None:
-        dims = tuple(range(x32.dim()))
+        dims = tuple(range(x.dim()))
     else:
         axis = (axis,) if isinstance(axis, int) else tuple(axis)
-        dims = tuple(sorted(a % x32.dim() for a in axis))
-    amax = x32.abs().amax(dim=dims, keepdim=True)
+        dims = tuple(sorted(a % x.dim() for a in axis))
+    # max |x| is exact in x's own dtype, and x / scale promotes x to fp32
+    # exactly: the values of an fp32 copy, in fewer passes over x
+    amax = torch.linalg.vector_norm(x, float("inf"), dim=dims,
+                                    keepdim=True).float()
     scale = torch.clamp_min(amax, _SCALE_FLOOR) / QMAX[dtype]
-    q = x32 / scale
+    q = x / scale
     if dtype == "int8":
-        q = torch.clamp(torch.round(q), -127.0, 127.0)
+        q = q.round_().clamp_(-127.0, 127.0)
     if k_major:
         q = torch.empty_like(q.mT, dtype=TORCH_DTYPES[dtype],
                              memory_format=torch.contiguous_format
@@ -224,6 +229,13 @@ class QuantizedTensor(nn.Module):
                 f"scale_shape={tuple(self.scale.shape)}")
 
 
+# A stacked weight quantizes at most this many fp32 bytes of its entries
+# at a time: each scale covers one entry at most, so the bits are those of
+# one pass, and a full-width expert stack (DeepSeek-V3's 256 x 7168 x 2048
+# is 15 GB in fp32) needs no fp32 copy of itself.
+QUANT_CHUNK_BYTES = 1 << 28
+
+
 def quantize_weight(w, quant) -> QuantizedTensor:
     """Calibrate one GEMM weight ``(..., k, n)`` under ``quant``.
 
@@ -232,15 +244,30 @@ def quantize_weight(w, quant) -> QuantizedTensor:
     column-major ``(k, n)`` view, strides ``(1, k)``; the reference's
     values, laid out for the 8-bit wgmma mainloop): written so by the cast
     that stores it, so a weight quantized at every step (``decode_int8``)
-    pays no extra pass for it."""
+    pays no extra pass for it.  A stacked weight is quantized a few entries
+    at a time (``QUANT_CHUNK_BYTES``), into the same storage."""
     qcfg = as_quant_config(quant)
     if getattr(w, "ndim", 0) < 2:
         raise ValueError(f"GEMM weight must be >= 2-D; got shape "
                          f"{tuple(getattr(w, 'shape', ()))}")
     axis = (-2,) if qcfg.granularity == "per_channel" else (-2, -1)
+    k, n = w.shape[-2:]
+    step = max(1, QUANT_CHUNK_BYTES // max(1, 4 * k * n))
     with torch.no_grad():
-        q, scale = quantize(w, qcfg.w_dtype, axis=axis, k_major=True)
-    return QuantizedTensor(q, scale)
+        if w.dim() == 2 or w.shape[:-2].numel() <= step:
+            return QuantizedTensor(*quantize(w, qcfg.w_dtype, axis=axis,
+                                             k_major=True))
+        flat = w.reshape(-1, k, n)
+        q = torch.empty_like(flat.mT, dtype=TORCH_DTYPES[qcfg.w_dtype],
+                             memory_format=torch.contiguous_format).mT
+        scale = torch.empty(flat.shape[:1] + ((n,) if len(axis) == 1
+                                              else ()),
+                            dtype=torch.float32, device=w.device)
+        for i in range(0, flat.shape[0], step):
+            q[i:i + step], scale[i:i + step] = quantize(
+                flat[i:i + step], qcfg.w_dtype, axis=axis, k_major=True)
+    return QuantizedTensor(q.unflatten(0, w.shape[:-2]),
+                           scale.unflatten(0, w.shape[:-2]))
 
 
 # Param names never auto-quantized even though they start with "w": MLA's
@@ -276,11 +303,23 @@ def calibrate_params(model: nn.Module, quant="int8", *, predicate=None):
     building block without any ``use(quant=...)`` context.  Parameters
     already calibrated (``QuantizedTensor`` buffers) are left alone.
     Calibration is inference-only: the quantized path has no gradient.
+    The copy never holds a full-precision copy of a weight it replaces
+    (each is quantized from ``model``'s own), so calibrating a model on
+    the card costs its quantized weights' bytes, not its own again.
     """
     qcfg = as_quant_config(quant)
     pred = predicate if predicate is not None else default_calibrate_predicate
-    out = copy.deepcopy(model)
-    for name, param in list(out.named_parameters()):
-        if pred(name, param):
-            install(out, name, quantize_weight(param.detach(), qcfg))
+    chosen = [(name, p) for name, p in model.named_parameters()
+              if pred(name, p)]
+    # A parameter held by one module only is left out of the copy (an
+    # empty stand-in until its quantized form is installed); one that is
+    # shared keeps its copy, as the modules that share it do.
+    owners = {}
+    for _, p in model.named_parameters(remove_duplicate=False):
+        owners[id(p)] = owners.get(id(p), 0) + 1
+    memo = {id(p): nn.Parameter(p.new_empty(0), requires_grad=False)
+            for _, p in chosen if owners[id(p)] == 1}
+    out = copy.deepcopy(model, memo)
+    for name, param in chosen:
+        install(out, name, quantize_weight(param.detach(), qcfg))
     return out

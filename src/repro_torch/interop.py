@@ -27,8 +27,9 @@ across as the tree holds them.  The encoder-decoder's tree stacks its
 ``ln2``, ``mlp.*``) apart, beside ``enc_ln``, ``final_ln`` and ``head.w``:
 the port's ``EncDec`` (``enc_blocks.0 ..``, ``dec_blocks.0 ..``).
 A calibrated reference tree (``repro.quant.calibrate_params``, then numpy
-leaves) carries across too: each stacked ``QuantizedTensor`` leaf (``q``
-(L, k, n), ``scale`` (L, n) or (L,)) is sliced per layer into the port's
+leaves) carries across too, the recurrent configs' nested stacks among
+them: each stacked ``QuantizedTensor`` leaf (``q`` (L, ..., k, n),
+``scale`` (L, ..., n) or (L, ...)) is sliced per layer into the port's
 ``QuantizedTensor``, its storage bits unchanged and laid out K-major, as
 the port's own calibration stores them (``core/quantize.py``).
 Only numpy crosses the boundary, so this module imports nothing of JAX.
@@ -108,11 +109,14 @@ def _recurrent_leaves(tree, cfg: ArchCfg):
     config: layer i's leaves sliced from its stack at its index
     (``blocks.recurrent_layout``: ``mlstm_groups`` (g, per, ...),
     ``slstm_groups`` (g, ...), ``groups.rec`` (g, n_rec, ...),
-    ``groups.attn`` (g, ...), ``tail_rec`` (tail, ...))."""
+    ``groups.attn`` (g, ...), ``tail_rec`` (tail, ...)); a calibrated
+    leaf's (q, scale) alike."""
     for i, (kind, stack, idx) in enumerate(recurrent_layout(cfg)):
         for attr in _kind_attrs(cfg, kind):
-            yield f"blocks.{i}.{attr}", np.asarray(
-                _leaf(_leaf(tree, stack), attr))[idx]
+            leaf = _leaf(_leaf(tree, stack), attr)
+            yield f"blocks.{i}.{attr}", (
+                (np.asarray(leaf.q)[idx], np.asarray(leaf.scale)[idx])
+                if _is_quantized(leaf) else np.asarray(leaf)[idx])
 
 
 def _recurrent_tree(named, cfg: ArchCfg) -> dict:
@@ -161,6 +165,23 @@ def _stacks(cfg: ArchCfg):
                  _block_attrs(cfg, True), "blocks"))
     return (("blocks", 0, cfg.n_layers,
              _block_attrs(cfg, cfg.block == "moe"), "blocks"),)
+
+
+@functools.lru_cache(maxsize=None)
+def stacked_leaves(cfg: ArchCfg) -> dict[str, str]:
+    """Each layer parameter's leaf in the reference's tree, by the port's
+    name: ``"blocks.3.attn.wq"`` -> ``"blocks.attn.wq"``, MLA's dense and
+    MoE layers into ``dense_blocks`` / ``moe_blocks``, a recurrent
+    config's into its nested stacks.  The layers one stacked leaf holds
+    share its name; a parameter outside the stacks (the embedding, the
+    final norm, an untied head, MTP's block) is not listed."""
+    if cfg.block in RECURRENT:
+        return {f"blocks.{i}.{attr}": f"{stack}.{attr}"
+                for i, (kind, stack, _) in enumerate(recurrent_layout(cfg))
+                for attr in _kind_attrs(cfg, kind)}
+    return {f"{port}.{first + i}.{attr}": f"{key}.{attr}"
+            for key, first, count, attrs, port in _stacks(cfg)
+            for attr in attrs for i in range(count)}
 
 
 def _one(leaf):

@@ -281,18 +281,22 @@ def _batched_matmul_cuda(a, b, bias, *, activation, alpha, out_dtype):
 
 def batched_matmul(a, b, bias=None, *, activation: str = "none",
                    alpha: float = 1.0, out_dtype=None,
-                   backend: str | None = None, quant=None):
+                   backend: str | None = None, quant=None,
+                   a_groups: int = 1):
     """Strided-batched GEMM, ``act(alpha * a[i] @ b[i] + bias)``, with no
     reduction across the batch.
 
     a: (B, m, k) or (m, k) broadcast; b: (B, k, n) or (k, n) broadcast ->
-    (B, m, n).
+    (B, m, n).  ``a_groups``: the routing groups folded into a's rows,
+    which a quantized call's per-tensor activation scales keep apart
+    (``quant.batched_matmul_q``); full precision ignores it.
     """
     qcfg = Q.active_quant(b, quant)
     if qcfg is not None:
         return Q.batched_matmul_q(a, b, bias, activation=activation,
                                   alpha=alpha, out_dtype=out_dtype,
-                                  backend=backend, qcfg=qcfg)
+                                  backend=backend, a_groups=a_groups,
+                                  qcfg=qcfg)
     impl = dispatch.get_impl("batched_matmul", backend, a)
     return impl(a, b, bias, activation=activation, alpha=alpha,
                 out_dtype=out_dtype)

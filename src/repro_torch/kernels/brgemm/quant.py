@@ -164,8 +164,24 @@ def brgemm_q(a, b, bias=None, c0=None, *, activation="none", alpha=1.0,
               activation=activation, alpha=alpha, out_dtype=out_dtype)
 
 
+def _quantize_act_groups(a, qcfg: QuantConfig, groups: int):
+    """Per-tensor activation scales of a (B, G * c, k) operand whose rows
+    fall into ``groups`` equal groups that the reference quantizes in
+    calls of their own (its MoE's ``vmap`` over routing groups): one scale
+    a group, over every entry's rows of it.  Returns (aq, (B, G * c)
+    per-row scales)."""
+    nb, m, k = a.shape
+    if m % groups:
+        raise ValueError(f"{m} rows do not fall into {groups} equal groups")
+    c = m // groups
+    aq, sg = quantize(a.reshape(nb, groups, c, k), qcfg.a_dtype,
+                      axis=(0, 2, 3))                          # sg: (G,)
+    return aq.reshape(nb, m, k), sg.repeat_interleave(c).expand(nb, m)
+
+
 def batched_matmul_q(a, b, bias=None, *, activation="none", alpha=1.0,
-                     out_dtype=None, backend=None, qcfg: QuantConfig):
+                     out_dtype=None, backend=None, a_groups: int = 1,
+                     qcfg: QuantConfig):
     """Quantized strided-batched GEMM, per-batch scales: each entry
     dequantizes on its own.
 
@@ -173,12 +189,21 @@ def batched_matmul_q(a, b, bias=None, *, activation="none", alpha=1.0,
     stacked weight's per-tensor scale is one per entry); with a 2-D
     broadcast operand, those of its ``_batched_ref_from_raw`` (one scale
     vector for the shared operand).  Both backends take both, so on the card
-    a broadcast operand runs the kernel too, with batch stride 0."""
+    a broadcast operand runs the kernel too, with batch stride 0.
+
+    ``a_groups`` > 1 says that a 3-D A's rows hold that many routing
+    groups folded together (the MoE's (E, G * cap, D) buffer), which the
+    reference runs one call each: per-row activation scales are the same
+    either way, and per-tensor ones are taken a group, across the entries,
+    as those calls take them."""
     _check_inference("batched_matmul", a, b, bias)
     out_dtype = out_dtype or a.dtype
     name = _resolve_backend("batched_matmul", backend, qcfg, a)
-    aq, sa = _quantize_act(a, qcfg, axis=(-1,))
-    sa = sa.expand(a.shape[:-1])
+    if a_groups > 1 and qcfg.a_granularity == "per_tensor":
+        aq, sa = _quantize_act_groups(a, qcfg, a_groups)
+    else:
+        aq, sa = _quantize_act(a, qcfg, axis=(-1,))
+        sa = sa.expand(a.shape[:-1])
     if (a.dim() == 3 and b.ndim == 3) or isinstance(b, QuantizedTensor):
         bq, sb = _weight_qparams(b, qcfg)
     else:

@@ -19,12 +19,18 @@ and on CUDA it has no int32 form.  Every sum fits (|sum| < k * 127^2 <
 kernel's int32 accumulator bit for bit.  fp8 is upcast to fp32 before the
 product, as the reference's ``_ref_dot`` does: every fp8 value is exact in
 fp32, so only the order of the fp32 sums differs from the kernel.
+``batched_matmul_q_ref`` upcasts a few entries at a time
+(``CHUNK_BYTES`` of the widened B), so a full-width expert stack needs no
+float64 copy of itself; the entries are independent, so the values are
+those of one product.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import fusion
+
+CHUNK_BYTES = 1 << 30
 
 
 def _exact(t: torch.Tensor) -> torch.Tensor:
@@ -59,5 +65,17 @@ def batched_matmul_q_ref(aq, bq, sa, sb, bias=None, *,
                          out_dtype=torch.float32):
     """aq: (B, m, k) or (m, k); bq: (B, k, n) or (k, n); sa: (B, m) or (m,);
     sb: (B, n) or (n,) -> (B, m, n)."""
-    acc = torch.matmul(_exact(aq), _exact(bq))
-    return _finish(acc, sa, sb, bias, alpha, activation, out_dtype)
+    nb = aq.shape[0] if aq.dim() == 3 else bq.shape[0]
+    k, n = bq.shape[-2:]
+    step = max(1, CHUNK_BYTES // (8 * k * n))
+    if nb <= step:
+        acc = torch.matmul(_exact(aq), _exact(bq))
+        return _finish(acc, sa, sb, bias, alpha, activation, out_dtype)
+
+    def entries(t, i, rank):
+        return t[i:i + step] if t.dim() == rank else t
+
+    return torch.cat([batched_matmul_q_ref(
+        entries(aq, i, 3), entries(bq, i, 3), entries(sa, i, 2),
+        entries(sb, i, 2), bias, activation=activation, alpha=alpha,
+        out_dtype=out_dtype) for i in range(0, nb, step)])

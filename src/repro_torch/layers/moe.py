@@ -25,6 +25,15 @@ cap, D), so each GEMM is one launch that reads every expert's weights
 once, whatever the number of groups.  The buffer holds one more row, the
 discard slot of every dropped choice, sliced off before the GEMMs.
 
+Under a quant tier (an ambient ``use(quant=...)`` or calibrated weights,
+per-expert per-column scales (E, F)) the router, the shared expert and
+the three expert GEMMs run quantized, the experts on
+``batched_matmul_q``, as on the reference's kernel path; its XLA branch
+computes the experts in full precision whatever the tier, and the port
+does not follow it there.  Per-row activation scales are the same over
+the folded rows as over one call a group; per-tensor ones are taken a
+group (``a_groups``), as the reference's calls take them.
+
 Top-k is a stable descending sort: equal probabilities keep the lower
 expert first, as ``jax.lax.top_k`` does.  No ``shard_map`` and no
 sharding constraints: the port runs on one device.
@@ -135,9 +144,11 @@ class MoE(nn.Module):
 
         gt = brgemm.batched_matmul(expert_in, self.w_gate,
                                    activation=cfg.activation,
-                                   backend=backend)
-        u = brgemm.batched_matmul(expert_in, self.w_up, backend=backend)
-        out = brgemm.batched_matmul(gt * u, self.w_down, backend=backend)
+                                   backend=backend, a_groups=g)
+        u = brgemm.batched_matmul(expert_in, self.w_up, backend=backend,
+                                  a_groups=g)
+        out = brgemm.batched_matmul(gt * u, self.w_down, backend=backend,
+                                    a_groups=g)
 
         # Combine: the discard row reads zeros, as the reference's padded
         # slot does, and its weight is 0.

@@ -17,7 +17,8 @@ batching (``repro/models/api.py``):
   * ``decode_step_paged`` — one decode over a paged pool: each slot's
     pages gathered into a contiguous view, the ordinary decode on the
     views, the result written back.  Optionally int8 pages with one fp32
-    scale a page.
+    scale a page, for each stack of layers the reference's tree keeps
+    (``scale_stacks``: MLA's dense and MoE layers apart).
 
 The layouts are explicit, not discovered (the reference diffs abstract
 cache shapes for its batch and time axes): the model's cache is
@@ -278,17 +279,42 @@ def view_to_pages(view, page_size: int):
                         dh).transpose(1, 2)
 
 
-def _dequant_pages(pages, scale, dtype):
-    """int8 pages (L, ..., P, Hkv, ps, dh) * their per-page scales
-    (..., P) -> ``dtype``."""
-    return (pages.float() * scale[..., None, None, None]).to(dtype)
+def scale_stacks(cfg: ArchCfg, key: str):
+    """The per-page scale arrays of the paged leaf ``key`` under int8
+    pages: ``(scale key, first layer, end layer)`` each.  One scale a page
+    covers every layer of one of the reference's stacked leaves: all L
+    layers, named ``key``, but for ``mla_moe``, whose reference tree
+    stacks its ``n_dense_layers`` dense blocks and its MoE blocks apart
+    (``"dense_blocks.c_kv"``, ``"moe_blocks.c_kv"``, ...), where the
+    port's pool stacks all L together."""
+    n = cfg.n_layers
+    if cfg.block != "mla_moe":
+        return ((key, 0, n),)
+    nd = cfg.n_dense_layers
+    return tuple((f"{stack}.{key}", lo, hi) for stack, lo, hi in (
+        ("dense_blocks", 0, nd), ("moe_blocks", nd, n)) if hi > lo)
 
 
-def _quant_pages(pages):
-    """Per-page absmax int8 of (L, P, Hkv, ps, dh): one scale a page over
-    every layer, as the reference's stacked leaf gives.  Returns (q, (P,)
-    fp32 scales)."""
-    return quantize(pages, "int8", axis=(0, 2, 3, 4))
+def _dequant_pages(pages, scales, stacks, ids, dtype):
+    """int8 pages (L, S, P, ...) times their stack's per-page scale
+    (``scales[scale key][ids]``, (S, P)) -> ``dtype``."""
+    per_layer = torch.cat([scales[skey][ids].expand(hi - lo, *ids.shape)
+                           for skey, lo, hi in stacks])       # (L, S, P)
+    trail = (1,) * (pages.dim() - per_layer.dim())
+    return (pages.float() * per_layer.reshape(*per_layer.shape, *trail)
+            ).to(dtype)
+
+
+def _quant_pages(pages, stacks):
+    """Per-page absmax int8 of (L, P, ...) pages: one scale a page and a
+    stack (over its layers and every other axis, as the reference's
+    stacked leaf gives).  Returns (q, {scale key: (P,) fp32 scales})."""
+    axes = tuple(i for i in range(pages.dim()) if i != 1)
+    qs, scales = [], {}
+    for skey, lo, hi in stacks:
+        q, scales[skey] = quantize(pages[lo:hi], "int8", axis=axes)
+        qs.append(q)
+    return (qs[0] if len(qs) == 1 else torch.cat(qs)), scales
 
 
 def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
@@ -305,8 +331,9 @@ def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
     slot's allocation; ``positions``: (S,) the position each slot's token
     is written at.  Both are host integer arrays: the writes' masks are
     made on the host, so no write waits on the card.  ``scales``: with int8
-    pages, ``{"k", "v"}`` of (n_pages,) fp32 per-page scales, and
-    ``view_dtype`` the dtype the pages are dequantized to.
+    pages, (n_pages,) fp32 per-page scales keyed as ``scale_stacks`` says
+    (``{"k", "v"}``; MLA's by stack and key), and ``view_dtype`` the dtype
+    the pages are dequantized to.
 
     Each slot's pages are gathered (sentinels clipped to the last page:
     garbage that the ``kv_len`` mask never exposes) into a contiguous
@@ -333,7 +360,8 @@ def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
     for key in keys:
         pages = data[key][:, ids]                 # (L, S, P, Hkv, ps, dh)
         if scales is not None:
-            pages = _dequant_pages(pages, scales[key][ids], view_dtype)
+            pages = _dequant_pages(pages, scales, scale_stacks(cfg, key),
+                                   ids, view_dtype)
         views[key] = pages_to_view(pages.flatten(0, 1)).unflatten(
             0, (n_layers, len(pos)))              # (L, S, Hkv, T, dh)
     logits, _ = decode_step(params, tokens, cfg, layer_views(views),
@@ -357,7 +385,8 @@ def decode_step_paged(params, tokens, cfg: ArchCfg, data, page_tables,
     for key in keys:
         pages = view_to_pages(views[key].flatten(0, 1), page_size)
         pages = pages.reshape(n_layers, -1, *pages.shape[2:])
-        q, sc = _quant_pages(pages[:, src])
+        q, sc = _quant_pages(pages[:, src], scale_stacks(cfg, key))
         data[key][:, dst] = q
-        scales[key][dst] = sc
+        for skey, page_scales in sc.items():
+            scales[skey][dst] = page_scales
     return logits, data, scales

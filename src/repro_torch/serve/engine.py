@@ -26,9 +26,10 @@ production mix is ``quant=None`` with ``decode_quant="int8"``: prefill is
 compute-bound, decode streams the weights).  A calibrated model
 (``quant.calibrate_params``) runs its GEMMs quantized in both phases
 without any tier (the encoder-decoder's too: its encoder, cross K and V
-and head are GEMMs like the others).  The MoE and MLA families (grok-1,
-DeepSeek-V3) and the recurrent ones (xLSTM, RecurrentGemma) serve in full
-precision only: both engines refuse a tier or calibrated weights there.  A
+and head are GEMMs like the others), every family alike: the MoE experts
+run on the quantized batched GEMM, MLA's projections and the recurrent
+families' on the quantized GEMM, as in the reference (whose XLA expert
+branch, full precision whatever the tier, the port does not follow).  A
 recurrent config serves from the slotted pool only (a page size is ignored
 and chunked or bucketed prefill raise, as in the reference), and an xLSTM
 prompt that breaks mLSTM's chunk rule (at most ``mlstm_chunk`` tokens, or
@@ -61,7 +62,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core import dispatch
-from repro_torch.core.quantize import QuantizedTensor, as_quant_config
+from repro_torch.core.quantize import as_quant_config
 from repro_torch.models import api
 from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache
 from repro_torch.serve.metrics import ServeMetrics
@@ -92,21 +93,6 @@ def _gumbel(shape, generator, device):
 
 def _tier(quant):
     return as_quant_config(quant) if quant is not None else None
-
-
-def _check_tiers(cfg: ArchCfg, params, *tiers) -> None:
-    """The quant tiers (a ``quant`` / ``decode_quant`` tier, calibrated
-    weights) are not ported to the MoE, MLA and recurrent families: raise
-    there."""
-    if cfg.block not in ("moe", "mla_moe", "xlstm", "rglru_hybrid") \
-            and not cfg.mla:
-        return
-    if any(t is not None for t in tiers) or any(
-            isinstance(m, QuantizedTensor) for m in params.modules()):
-        raise NotImplementedError(
-            f"{cfg.name}: quantized serving (quant, decode_quant, "
-            f"calibrated weights) is not ported to block={cfg.block!r} "
-            f"(mla={cfg.mla}) yet")
 
 
 def _pos_off(cfg: ArchCfg) -> int:
@@ -154,7 +140,6 @@ class Engine:
         self.blocks_policy = dispatch.check_blocks_policy(blocks_policy)
         self.quant = _tier(quant)
         self.decode_quant = _tier(decode_quant) or self.quant
-        _check_tiers(cfg, params, self.quant, self.decode_quant)
 
     def _sample(self, logits, generator):
         if self.scfg.temperature <= 0.0:
@@ -338,7 +323,6 @@ class ContinuousEngine:
         self.quant = _tier(quant)
         # decode streams the weights, so it gets its own quant tier
         self.decode_quant = _tier(decode_quant) or self.quant
-        _check_tiers(cfg, params, self.quant, self.decode_quant)
         # paged pool where the architecture allows it, else slotted
         self.paged = bool(pool.page_size) and api.supports_paging(cfg)
         if self.paged:

@@ -25,10 +25,11 @@ in the reference, so the lowest free slot or page comes first.
 
 With ``kv_quant="int8"`` the paged leaves are stored int8 with one fp32
 absmax scale a page (over every layer, as the reference's stacked leaf
-gives), dequantized in the decode's gather.  MLA's pages are not: the
-reference scales its dense and its MoE layers' stacks apart, and the
-port's pool stacks every layer together, so ``kv_quant`` with an MLA
-config raises.
+gives), dequantized in the decode's gather.  MLA's ``mla_moe`` tree
+stacks its dense and its MoE layers apart in the reference, so each page
+of ``{"c_kv", "k_rope"}`` has one scale a stack there:
+``"dense_blocks.c_kv"``, ``"moe_blocks.c_kv"``, ... (``api.scale_stacks``),
+while the port's pool still stacks all L layers in one tensor.
 
 The encoder-decoder's pools (``src_len``: its memory's frames) hold the
 cross-attention's K and V, ``{"cross.k", "cross.v"}`` (L, N, Hkv,
@@ -179,9 +180,10 @@ class PagedKVCache:
                  ``s``'s pages in position order; entries past the
                  allocation hold the sentinel ``n_pages`` (clipped on
                  gather, dropped on every write).
-    scales:      with ``kv_quant``, ``{"k", "v"}`` of (n_pages,) fp32
-                 per-page scales (the paged leaves only), else None; ``view_dtype`` is the dtype
-                 the pages are dequantized to.
+    scales:      with ``kv_quant``, (n_pages,) fp32 per-page scales of
+                 the paged leaves, keyed as ``api.scale_stacks`` says
+                 (``{"k", "v"}``; MLA's by stack and key), else None;
+                 ``view_dtype`` is the dtype the pages are dequantized to.
     lengths / positions: as in :class:`SlotKVCache`.
 
     The allocator is host-side and O(1) per op: a slot free list plus a
@@ -205,11 +207,6 @@ class PagedKVCache:
             raise ValueError(
                 f"kv_quant={kv_quant!r}: only 'int8' page storage is "
                 "supported")
-        if kv_quant is not None and cfg.mla:
-            raise NotImplementedError(
-                f"{cfg.name}: int8 pages of MLA's compressed cache are not "
-                "ported yet (the reference scales its dense and MoE "
-                "layers' stacks apart)")
         self.device = check_device(device)
         self.cfg = cfg
         self.n_slots = n_slots
@@ -235,10 +232,12 @@ class PagedKVCache:
                 self.data.update(_zeros(cfg, n_slots, page_size,
                                         self.view_dtype, self.device,
                                         src_len=src_len, keys=resident))
-            self.scales = ({key: torch.zeros(self.n_pages,
-                                             dtype=torch.float32,
-                                             device=self.device)
-                            for key in paged} if kv_quant else None)
+            self.scales = ({skey: torch.zeros(self.n_pages,
+                                              dtype=torch.float32,
+                                              device=self.device)
+                            for key in paged
+                            for skey, _, _ in api.scale_stacks(cfg, key)}
+                           if kv_quant else None)
 
         self.lengths = np.zeros(n_slots, np.int32)
         self.positions = np.zeros(n_slots, np.int32)
@@ -362,8 +361,10 @@ class PagedKVCache:
                 pages = api.view_to_pages(one[key][:, 0],
                                           self.page_size)[:, src]
                 if self.scales is not None:
-                    pages, sc = api._quant_pages(pages)
-                    self.scales[key][dst] = sc
+                    pages, sc = api._quant_pages(
+                        pages, api.scale_stacks(self.cfg, key))
+                    for skey, page_scales in sc.items():
+                        self.scales[skey][dst] = page_scales
                 self.data[key][:, dst] = pages
         return True
 

@@ -14,15 +14,22 @@ increments it, so the first update has lr = 0, as in the reference.
 ``backend`` and ``blocks_policy`` scope the forward and the backward (the
 kernels' backward passes re-enter the forward's dispatch state,
 ``dispatch.restored``).  ``cfg.remat`` checkpoints each decoder block
-(``models/transformer.py``): memory, not numbers.  Gradient compression,
-accumulator dtypes and meshes are not ported yet.
+(``models/transformer.py``): memory, not numbers.  ``grad_compression``
+(``"bf16"`` or ``"int8"``) quantizes and dequantizes the gradients between
+the backward and AdamW, which then takes them in fp32, as the reference's
+step does (``distributed/collectives.py``); an int8 scale covers a leaf of
+the reference's tree, every layer of a stack (``interop.stacked_leaves``).
+Accumulator dtypes and meshes are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import interop
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core import dispatch
+from repro_torch.distributed.collectives import (KINDS, compress_grads,
+                                                 decompress_grads)
 from repro_torch.models import api
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
@@ -56,8 +63,9 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
     tensors), moved to the master copy's device.  ``backend`` and ``blocks_policy`` scope every op of the step,
     forward and backward.
     """
-    if grad_compression != "none":
-        raise NotImplementedError("gradient compression is not ported yet")
+    if grad_compression not in ("none", *KINDS):
+        raise ValueError(f"grad_compression={grad_compression!r}; expected "
+                         f"'none' or one of {', '.join(KINDS)}")
     if any(x is not None for x in (accum_dtype, mesh, axis_specs)):
         raise NotImplementedError(
             "accum_dtype, mesh and axis_specs are not ported yet: the "
@@ -92,6 +100,10 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
                 grads = {n: t / microbatches for n, t in grads.items()}
             else:
                 metrics, grads = loss_and_grads(model, batch, cfg)
+        if grad_compression != "none":
+            grads = decompress_grads(*compress_grads(
+                grads, kind=grad_compression,
+                groups=interop.stacked_leaves(cfg)), kind=grad_compression)
         lr_scale = warmup_cosine(state["opt"]["step"])
         new_opt, opt_metrics = opt.adamw_update(grads, state["opt"], ocfg,
                                                 lr_scale)

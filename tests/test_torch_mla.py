@@ -411,15 +411,25 @@ def test_pipeline_takes_the_moe_configs(name):
 
 
 def test_mla_refusals(deepseek):
-    """int8 pages of the compressed cache, the quant tiers and MLA outside
-    the mla_moe family."""
+    """MLA outside the mla_moe family is still refused.  int8 pages of the
+    compressed cache and the quant tiers are not any longer: the pool
+    keeps a scale a page for each stack (the dense and the MoE layers)
+    and key, and an engine serves a tier on them (both held against the
+    reference in ``test_torch_quant_families.py``)."""
     _, tcfg, _, _, model = deepseek
-    with pytest.raises(NotImplementedError, match="int8 pages of MLA"):
-        PagedKVCache(tcfg, 2, MAX_LEN, page_size=8, kv_quant="int8",
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="quantized serving"):
-        ContinuousEngine(tcfg, model, PoolConfig(n_slots=2, max_len=MAX_LEN),
-                         device="cpu", decode_quant="int8")
+    pool = PagedKVCache(tcfg, 2, MAX_LEN, page_size=8, kv_quant="int8",
+                        device="cpu")
+    assert sorted(pool.scales) == ["dense_blocks.c_kv",
+                                   "dense_blocks.k_rope", "moe_blocks.c_kv",
+                                   "moe_blocks.k_rope"]
+    assert all(t.dtype == torch.int8 for t in pool.data.values())
+    ce = ContinuousEngine(tcfg, model, PoolConfig(n_slots=2, max_len=MAX_LEN,
+                                                  page_size=8,
+                                                  kv_quant="int8"),
+                          device="cpu", decode_quant="int8")
+    got = ce.serve([Request(prompt=[3, 1, 4, 1, 5], max_tokens=4,
+                            stop_tokens=())])
+    assert len(got[0]) == 4 and ce.pool.n_free == ce.pool.n_slots
     dense = dataclasses.replace(tconfigs.get("smollm-135m").reduced(),
                                 mla=True)
     with pytest.raises(NotImplementedError, match="mla_moe"):

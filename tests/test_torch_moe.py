@@ -345,18 +345,41 @@ def test_grok_init_params_scales():
         assert abs(float(w.detach().std()) - fan_in ** -0.5) < 0.02
 
 
-def test_quant_tiers_refused(grok):
-    """What stays queued raises: the quant tiers on an MoE config (both
-    engines, calibrated weights too)."""
+def test_quant_tiers_refused(grok, monkeypatch):
+    """Nothing of the quant tiers is refused on an MoE config any longer:
+    both engines serve ``quant`` and ``decode_quant`` tiers and calibrated
+    weights, the experts on the quantized batched GEMM (each tier's tokens
+    are held against the reference's in ``test_torch_quant_families.py``)."""
+    from repro_torch.kernels.brgemm import quant as Q
     _, tcfg, _, _, model = grok
+    calls = []
+    real = Q.batched_matmul_q
+
+    def spy(*args, **kw):
+        calls.append(kw["qcfg"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(Q, "batched_matmul_q", spy)
     scfg = ServeConfig(max_len=MAX_LEN)
+    toks = {"tokens": torch.from_numpy(_tokens(tcfg, 2, 6))}
     for kw in ({"decode_quant": "int8"}, {"quant": "int8"}):
-        with pytest.raises(NotImplementedError, match="quantized serving"):
-            Engine(tcfg, model, scfg, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="quantized serving"):
-            ContinuousEngine(tcfg, model, PoolConfig(n_slots=2,
-                                                     max_len=MAX_LEN),
-                             device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="quantized serving"):
-        Engine(tcfg, quant.calibrate_params(model, "int8"), scfg,
-               device="cpu")
+        calls.clear()
+        out = Engine(tcfg, model, scfg, device="cpu", **kw).generate(
+            toks, n_tokens=3, stop_tokens=())
+        assert out.shape == (2, 3)
+        # 3 expert GEMMs a layer a forward: every forward under "quant",
+        # the two decode forwards under "decode_quant"
+        forwards = 3 if "quant" in kw else 2
+        assert len(calls) == 3 * tcfg.n_layers * forwards
+        ce = ContinuousEngine(tcfg, model, PoolConfig(n_slots=2,
+                                                      max_len=MAX_LEN),
+                              device="cpu", **kw)
+        got = ce.serve([Request(prompt=[3, 1, 4, 1, 5], max_tokens=3,
+                                stop_tokens=())])
+        assert len(got[0]) == 3 and ce.pool.n_free == ce.pool.n_slots
+    calls.clear()
+    out = Engine(tcfg, quant.calibrate_params(model, "int8"), scfg,
+                 device="cpu").generate(toks, n_tokens=3, stop_tokens=())
+    assert out.shape == (2, 3)
+    assert len(calls) == 3 * tcfg.n_layers * 3
+    assert all(c == quant.QuantConfig() for c in calls)

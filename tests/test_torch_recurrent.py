@@ -524,8 +524,8 @@ def test_launches_per_layer(pairs, monkeypatch):
                          ids=["xlstm", "rg"])
 def test_recurrent_refusals(pairs, name):
     """Chunked and bucketed prefill raise (the reference's engine refuses
-    them), the quant tiers and calibrated weights raise, and xlstm's
-    mLSTM chunk rule raises before any state is written."""
+    them), and xlstm's mLSTM chunk rule raises before any state is
+    written; the quant tiers and calibrated weights no longer raise."""
     jcfg, tcfg, jparams, _, model = pairs[name]
     assert not tapi.supports_paging(tcfg)
     for kw, msg in (({"prefill_chunk": 8}, "prefill_chunk is not supported"),
@@ -544,17 +544,24 @@ def test_recurrent_refusals(pairs, name):
         tapi.prefill_chunk(model, {"tokens": torch.zeros(1, 4,
                                                          dtype=torch.long)},
                            tcfg, cache, 0)
-    for kw in ({"quant": "int8"}, {"decode_quant": "int8"}):
-        with pytest.raises(NotImplementedError, match="quantized serving"):
-            Engine(tcfg, model, ServeConfig(max_len=MAX_LEN), device="cpu",
-                   **kw)
-        with pytest.raises(NotImplementedError, match="quantized serving"):
-            ContinuousEngine(tcfg, model, PoolConfig(n_slots=2,
-                                                     max_len=MAX_LEN),
-                             device="cpu", **kw)
+    # the quant tiers are served now (held against the reference in
+    # test_torch_quant_families.py): each engine, a tier or calibrated
+    # weights, sLSTM's recurrent r left in full precision
+    toks = {"tokens": torch.zeros(1, 8, dtype=torch.long)}
+    out = Engine(tcfg, model, ServeConfig(max_len=MAX_LEN), device="cpu",
+                 quant="int8").generate(toks, n_tokens=2, stop_tokens=())
+    assert out.shape == (1, 2)
+    got = ContinuousEngine(tcfg, model, PoolConfig(
+        n_slots=2, max_len=MAX_LEN), device="cpu",
+        decode_quant="int8").serve(
+        [Request(prompt=[1] * 8, max_tokens=2, stop_tokens=())])
+    assert len(got[0]) == 2
     calibrated = quant.calibrate_params(model, "int8")
-    with pytest.raises(NotImplementedError, match="quantized serving"):
-        Engine(tcfg, calibrated, ServeConfig(max_len=MAX_LEN), device="cpu")
+    assert not any(isinstance(m, quant.QuantizedTensor) for n, m in
+                   calibrated.named_modules() if n.endswith(".r"))
+    out = Engine(tcfg, calibrated, ServeConfig(max_len=MAX_LEN),
+                 device="cpu").generate(toks, n_tokens=2, stop_tokens=())
+    assert out.shape == (1, 2)
     if name != "xlstm-1.3b":
         return
     ce = ContinuousEngine(tcfg, model, PoolConfig(n_slots=2,

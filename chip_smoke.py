@@ -52,7 +52,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                quant: native 8-bit wgmma for int8, fp8 widened to f16)
                and
                once with ``use(backend="torch")``; prefill logits compared;
-               then the same in fp32, where the greedy tokens must match.
+               then the same in fp32 (at CONT_FP32_LAYERS of the 30
+               layers), where the greedy tokens must match.
                Prefill and decode-step times of the kernel path, the
                device's busy and idle share of decode steps under
                torch.profiler, and the host's time by function under
@@ -85,7 +86,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   6. train   — full-width smollm-135m (random weights from a seed), B = 2
                sequences of its own 2048 tokens of the ported synthetic
                stream: 4 steps of ``make_train_step`` on the kernels at
-               full depth (counting launches); at TRAIN_PLAIN_LAYERS
+               full depth (counting launches; fp32's at TRAIN_PLAIN_LAYERS);
+               at TRAIN_PLAIN_LAYERS
                layers, the same 4 steps on the kernels and with
                ``use(backend="torch")`` from one state and the same
                batches: step-0 loss and every parameter's step-0 gradient
@@ -95,6 +97,25 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                torch.profiler.  Then one bf16 step under
                ``grad_compression="int8"`` at full depth (counted) and two
                against the plain path from a full learning rate.
+  6b. accum  — bf16 accumulation (``accum_dtype="bfloat16"``: every
+               full-precision GEMM, convolution and flash kernel rounds its
+               fp32 sums to bf16 at the reference's block ends,
+               ``core/blocking.py::accum_block``) on smollm-135m at full
+               width and depth, bf16: ``Engine.generate`` (2 x 512 + 32;
+               prefill logits against the plain path under the same
+               setting), ``ContinuousEngine`` over phase 5's 16 requests
+               on the slotted pool (every pool empty after) and one AdamW
+               step at 2 x 2048 (step-0 loss and gradients against the
+               plain path at TRAIN_PLAIN_LAYERS, in train_families' bands);
+               launches counted, no split-K launch under the rounding, every
+               launch signature held against its blockwise plain version
+               on its own inputs; ResNet-50's convolutions (the stem on the
+               wmma tap walk), the flash pairs (192, 128) and (256, 256),
+               brgemm_stacked and batched_matmul at the paper's cases on
+               random inputs; matmul_q bit for bit under the context.  Each
+               signature's time under bf16 accumulation beside fp32's, the
+               blockwise plain version's and the library's (rows of path
+               ``accum``); the extra shapes' two kernel times.
   7. resnet  — full-width ResNet-50 (random weights from a seed), 32 images
                of 224 x 224: one forward and one gradient step on the
                kernels (exact launch counts), then on the plain path;
@@ -110,7 +131,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                kernels (exact launch counts) and on the plain path; prefill
                logits within a band, prefill and decode-step times and the
                device's idle share beside phase 4's; the calibrated int8
-               tier in fp32, where the greedy tokens must match; then
+               tier in fp32 (at CONT_FP32_LAYERS layers), where the greedy
+               tokens must match; then
                ``brgemm(quant=)`` and ``batched_matmul(quant=)`` at the
                paper's cases.
   10. lstm   — the paper's LSTM (N = 168, T = 50, C = K of 256 to 2048)
@@ -208,7 +230,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                attention (GQA; MLA at head sizes (192, 128)) and MoE
                layers' gradients, their reduced whole models' AdamW steps,
                xlstm-1.3b at 8 of its 48 layers, recurrentgemma-9b cut to one
-               (rec, rec, attn) group at T 4096 (the flash backward at
+               (rec, rec, attn) group at T 3072 (the flash backward at
                (256, 256), windowed, MQA), seamless-m4t-large-v2 at full
                depth over 4096 and a ragged 1000 frames (held against plain
                at SEAMLESS_PLAIN_LAYERS): step-0 gradients and losses
@@ -276,7 +298,10 @@ BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 8, 512, 64, 1024
 CONT_REQUESTS, CONT_SLOTS, CONT_MAX_LEN, CONT_PAGE = 16, 8, 576, 16
 # The fp32 pools hold tokens across pools and against the plain path at 8
 # of smollm-135m's 30 layers (full width), which keeps the whole script
-# within half its time limit since the lstm and windowed phases came.
+# within half its time limit since the lstm and windowed phases came; the
+# serve and quant phases' fp32 runs and phase_train's fp32 main path run at
+# that depth too since the accum phase came (bf16 stays the main path, at
+# full depth).
 CONT_FP32_LAYERS = 8
 CONT_POOLS = (   # name, PoolConfig kwargs, ContinuousEngine kwargs
     ("slotted", {}, {}),
@@ -1530,7 +1555,9 @@ def phase_serve(base_cfg):
                                                      reset_flash_counts)
     main_launches = None
     for dtype in (torch.bfloat16, torch.float32):
-        cfg, params, engine = make_engine(base_cfg, dtype)
+        cfg, params, engine = make_engine(
+            base_cfg if dtype == torch.bfloat16 else dataclasses.replace(
+                base_cfg, n_layers=CONT_FP32_LAYERS), dtype)
         tokens = prompts(cfg)
         engine.generate({"tokens": tokens[:, :16]}, n_tokens=2,
                         stop_tokens=())           # warm-up, not counted
@@ -2325,10 +2352,12 @@ def phase_train(base_cfg):
                 if k != "batched_matmul"}
     main_launches = None
     for dtype in (torch.bfloat16, torch.float32):
-        # remat off: the step's own launches; train_remat runs it on
-        cfg = dataclasses.replace(base_cfg,
-                                  dtype=str(dtype).replace("torch.", ""),
-                                  remat=False)
+        # remat off: the step's own launches; train_remat runs it on.
+        # fp32's main path at the held depth (CONT_FP32_LAYERS says why)
+        cfg = dataclasses.replace(
+            base_cfg, dtype=str(dtype).replace("torch.", ""), remat=False,
+            n_layers=(base_cfg.n_layers if dtype == torch.bfloat16
+                      else TRAIN_PLAIN_LAYERS))
         plain_cfg = dataclasses.replace(cfg, n_layers=TRAIN_PLAIN_LAYERS)
         ocfg = opt.AdamWCfg()
         pipe = TokenPipeline(cfg, ShapeCfg("smoke", "train", TRAIN_SEQ,
@@ -2410,6 +2439,718 @@ def phase_train(base_cfg):
         del state, step
         torch.cuda.empty_cache()
     return main_launches
+
+
+# --------------------------------------------------------------------------
+# 6b. bf16 accumulation (accum_dtype)
+# --------------------------------------------------------------------------
+
+# The wrappers of the kernels that take a rounding block (the reference's
+# rows 1-6): (module, attribute) by kernel name.
+ACCUM_WRAPPERS = {
+    "matmul": ("repro_torch.kernels.brgemm.kernel", "matmul_cuda"),
+    "brgemm_stacked": ("repro_torch.kernels.brgemm.kernel",
+                       "brgemm_stacked_cuda"),
+    "batched_matmul": ("repro_torch.kernels.brgemm.kernel",
+                       "batched_matmul_cuda"),
+    "conv2d": ("repro_torch.kernels.conv2d.kernel", "conv2d_cuda"),
+    "flash_attention": ("repro_torch.kernels.flash_attention.kernel",
+                        "flash_attention_cuda"),
+    "flash_attention_bwd": ("repro_torch.kernels.flash_attention.bwd",
+                            "flash_attention_bwd_cuda"),
+}
+# smollm-135m's path under bf16 accumulation: (a) Engine.generate of
+# ACCUM_BATCH x PROMPT + ACCUM_NEW, (b) phase_continuous's 16 requests on
+# the slotted pool, (c) one AdamW step at TRAIN_BATCH x TRAIN_SEQ, held
+# against plain at TRAIN_PLAIN_LAYERS.
+ACCUM_BATCH, ACCUM_NEW = 2, 32
+ACCUM_PATH_KERNELS = ("matmul", "flash_attention", "flash_attention_bwd")
+# The flash pairs off smollm's path: deepseek-v3's MLA prefill (192, 128)
+# and recurrentgemma-9b's local attention (256, 256), (B, Hq, Hkv, T, dq,
+# dv, window).
+ACCUM_FLASH_EXTRA = ((1, 128, 128, 512, 192, 128, None),
+                     (1, 16, 1, 2048, 256, 256, 2048))
+
+
+def _signature(args, kw):
+    def desc(v):
+        if torch.is_tensor(v):
+            return (tuple(v.shape), tuple(v.stride()), str(v.dtype))
+        return repr(v)
+    return (tuple(desc(a) for a in args),
+            tuple(sorted((k, desc(v)) for k, v in kw.items())))
+
+
+@contextlib.contextmanager
+def accum_recorder():
+    """Inside, every launch of the six wrappers is counted by its call's
+    signature (shapes, strides, dtypes and arguments, the rounding block
+    among them), the first launch's inputs kept: yields {(kernel,
+    signature): [args, kwargs, launches, split launches]}.  A wrapper
+    counts into the name
+    it is bound to, the spy here: its counters (launches, by mainloop,
+    split launches, from 0) are the real wrapper's on the way out."""
+    import importlib
+    calls = {}
+    saved = {}
+    module_of = {name: importlib.import_module(mod)
+                 for name, (mod, _) in ACCUM_WRAPPERS.items()}
+    for name, (mod, attr) in ACCUM_WRAPPERS.items():
+        module = module_of[name]
+        real = getattr(module, attr)
+
+        def spy(*args, _name=name, _real=real, **kw):
+            key = (_name, _signature(args, kw))
+            if key not in calls:
+                calls[key] = [args, kw, 0, 0]
+            me = getattr(module_of[_name], ACCUM_WRAPPERS[_name][1])
+            before = getattr(me, "split_launches", 0)
+            out = _real(*args, **kw)
+            calls[key][2] += 1
+            calls[key][3] += getattr(me, "split_launches", 0) - before
+            return out
+        spy.launches = spy.split_launches = 0
+        spy.mainloops = dict.fromkeys(real.mainloops, 0)
+        saved[name] = (module, attr, real, spy)
+        setattr(module, attr, spy)
+    try:
+        yield calls
+    finally:
+        for module, attr, real, spy in saved.values():
+            setattr(module, attr, real)
+            real.launches, real.mainloops = spy.launches, spy.mainloops
+            real.split_launches = spy.split_launches
+
+
+# bf16 accumulation is held by two measures of a kernel's distance from
+# its blockwise plain version on the same inputs, each element's distance
+# in bf16 ulps of the largest |plain| in its row (the last dimension):
+#   "max":   the largest distance, within (points + 1) ulps (the output's
+#            rounding points, ``accum_points``, and its own rounding) and
+#            never more than the limit.  Both round at the same points, but
+#            the fp32 sums inside a block run in other orders, which now and
+#            then flips a rounding;
+#   "share": the mean distance over the mean distance of the plain version
+#            that accumulates in fp32 (rounding block 0): near 0 for a
+#            kernel that rounds where the plain version does, near 1 for
+#            one that accumulates in fp32.
+# The kernel's fp32 control (the same wrapper, rounding block 0) must come
+# out above the share limit on every output where the two plain versions
+# differ; where a bf16 output hides a single block's rounding, the check is
+# repeated with fp32 output.  The limits sit, for every kernel, between the
+# largest readings of the sound launches and the smallest control share
+# on the card (PERF.md §6).
+ACCUM_LIMITS = {"max": 8.0, "share": 0.25}
+# The wrappers that take an output dtype.
+ACCUM_OUT_DTYPE = ("matmul", "brgemm_stacked", "batched_matmul", "conv2d")
+
+
+def accum_distance(x, ref):
+    """|x - ref| in bf16 ulps of the largest |ref| of each row, or of
+    1/256 of the tensor's mean |ref| where the row's sums cancel below that
+    (the first q row's dQ, whose dS is dP - delta's fp32 noise)."""
+    ref = ref.float()
+    top = ref.abs().amax(-1, keepdim=True).clamp_min(ref.abs().mean() / 256)
+    unit = torch.exp2(torch.floor(torch.log2(top)) - 7).clamp_min(2.0 ** -126)
+    return (x.float() - ref).abs() / unit
+
+
+def accum_points(kernel, args, kw):
+    """The rounding points along each output's reduction in one launch
+    (none for fp32 accumulation): a GEMM's k-blocks, each entry's in a
+    stacked walk; a convolution's (tap, channel block)s; the forward's
+    key blocks; the backward's key blocks for dQ, and the group's q-row
+    blocks for dK and dV."""
+    rb = kw.get("round_k") or kw.get("round_c") or 0
+    if kernel == "flash_attention_bwd":
+        q, k = args[:2]
+        group = q.size(1) // k.size(1)
+        return ([-(-k.size(2) // rb)] + [group * -(-q.size(2) // rb)] * 2
+                if rb else [0, 0, 0])
+    if not rb:
+        return [0]
+    a, b = args[:2]
+    if kernel == "brgemm_stacked":
+        return [a.size(0) * -(-a.size(-1) // rb)]
+    if kernel == "conv2d":
+        return [b.size(0) * b.size(1) * -(-a.size(3) // rb)]
+    if kernel == "flash_attention":
+        return [-(-b.size(2) // rb)]
+    return [-(-a.size(-1) // rb)]
+
+
+def accum_plain(kernel, args, kw):
+    """The blockwise plain version of one launch of ``kernel``'s wrapper
+    (the rounding block 0: fp32 accumulation)."""
+    from repro_torch.kernels.brgemm import ref as BR
+    from repro_torch.kernels.conv2d import ref as CR
+    from repro_torch.kernels.flash_attention import ref as FR
+    kw = dict(kw)
+    kw.pop("plan", None)
+    if kernel == "matmul":
+        x, w, *rest = args
+        bias = rest[0] if rest else kw.pop("bias", None)
+        c0 = rest[1] if len(rest) > 1 else kw.pop("c0", None)
+        return BR.matmul_ref(x, w, bias, c0=c0, **kw)
+    if kernel in ("brgemm_stacked", "batched_matmul"):
+        a, b, *rest = args
+        fn = BR.brgemm_ref if kernel == "brgemm_stacked" else \
+            BR.batched_matmul_ref
+        if kernel == "brgemm_stacked" and len(rest) > 1:
+            kw["c0"] = rest[1]
+        return fn(a, b, rest[0] if rest else kw.pop("bias", None), **kw)
+    if kernel == "conv2d":
+        x, w, *rest = args
+        return CR.conv2d_ref(x, w, rest[0] if rest else kw.pop("bias", None),
+                             **kw)
+    if kernel == "flash_attention":
+        residuals = kw.pop("return_residuals", False)
+        o, lse = FR.flash_fwd_blockwise(*args, **kw)
+        return (o, lse) if residuals else o
+    kw.pop("return_delta", None)
+    return FR.flash_bwd_blockwise(*args, **kw)
+
+
+def _rounding(kw):
+    return bool(kw.get("round_k") or kw.get("round_c"))
+
+
+def _outputs(kernel, out):
+    """The outputs held by the ulp measures (a forward's lse apart)."""
+    if kernel == "flash_attention" and isinstance(out, tuple):
+        return [out[0]]
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def accum_check(kernel, args, kw, real):
+    """One launch of ``real`` (the kernel's wrapper) against its blockwise
+    plain version on the same inputs, and, for a launch that rounds, its
+    fp32 control against the same.  Returns {"excess": the worst of each
+    output's max over min(its points + 1, the max limit), its share over
+    the share limit and an lse over TOL's band; "abs": the worst abs error;
+    "max", "share": the readings; "control": the least control share over
+    the share limit (None: no output shows the rounding); "control_share",
+    "control_max"; "hidden": outputs whose two plain versions agree}.  A
+    launch whose bf16 outputs hide the rounding is checked again with fp32
+    output, and the worse readings kept."""
+    lim = ACCUM_LIMITS
+    got = real(*args, **kw)
+    ref = accum_plain(kernel, args, kw)
+    res = {"excess": 0.0, "abs": 0.0, "max": 0.0, "share": None,
+           "control": None, "control_share": None, "control_max": None,
+           "hidden": 0}
+    if kernel == "flash_attention" and isinstance(got, tuple):
+        atol, rtol = TOL[("lse", None)]
+        d = (got[1] - ref[1]).abs()
+        res["excess"] = (d / (atol + rtol * ref[1].abs())).max().item()
+    fp32 = ctl = None
+    if _rounding(kw):
+        fp32 = _outputs(kernel, accum_plain(kernel, args, _fp32_accum(kw)))
+        ctl = _outputs(kernel, real(*args, **_fp32_accum(kw)))
+    points = accum_points(kernel, args, kw)
+    for i, (g, r) in enumerate(zip(_outputs(kernel, got),
+                                   _outputs(kernel, ref))):
+        d = accum_distance(g, r)
+        top = d.max().item()
+        res["max"] = max(res["max"], top)
+        res["abs"] = max(res["abs"], (g.float() - r.float()).abs().max()
+                         .item())
+        res["excess"] = max(res["excess"],
+                            top / min(lim["max"], points[i] + 1))
+        if fp32 is None:
+            continue
+        base = accum_distance(fp32[i], r).mean().item()
+        if base == 0:
+            res["hidden"] += 1
+            continue
+        share = d.mean().item() / base
+        c = accum_distance(ctl[i], r)
+        c_share = c.mean().item() / base
+        res["share"] = max(res["share"] or 0.0, share)
+        res["excess"] = max(res["excess"], share / lim["share"])
+        res["control_share"] = c_share if res["control_share"] is None \
+            else min(res["control_share"], c_share)
+        res["control_max"] = max(res["control_max"] or 0.0, c.max().item())
+        res["control"] = res["control_share"] / lim["share"]
+    del got, ref, fp32, ctl
+    if _rounding(kw) and res["control"] is None and \
+            kernel in ACCUM_OUT_DTYPE and kw.get("out_dtype") != torch.float32:
+        wide = accum_check(kernel, args, dict(kw, out_dtype=torch.float32),
+                           real)
+        res.update({k: wide[k] for k in ("share", "control", "control_share",
+                                         "control_max")})
+        for k in ("excess", "abs", "max"):
+            res[k] = max(res[k], wide[k])
+        res["fp32_out"] = True
+    return res
+
+
+# By kernel, over the launches held: the largest max and share of the
+# sound kernels, the smallest share of their controls.
+ACCUM_READINGS = {}
+
+
+def accum_held(failed, worst, kernel, what, res):
+    """Fails a reading past its limits, and a rounding launch whose control
+    does not come out above its share limit."""
+    worst[kernel] = max(worst.get(kernel, 0.0), res["abs"])
+    emit({"phase": "accum_held", "kernel": kernel, "what": what, **res})
+    seen = ACCUM_READINGS.setdefault(kernel, {
+        "max": 0.0, "share": 0.0, "control_share": None, "controlled": 0,
+        "held": 0})
+    seen["held"] += 1
+    seen["max"] = max(seen["max"], res["max"])
+    seen["share"] = max(seen["share"], res["share"] or 0.0)
+    if res["control_share"] is not None:
+        seen["controlled"] += 1
+        seen["control_share"] = res["control_share"] if \
+            seen["control_share"] is None else min(seen["control_share"],
+                                                   res["control_share"])
+    if not res["excess"] <= 1.0:
+        failed.append(f"{kernel} {what}: {res['excess']} of its band "
+                      f"({res})")
+    rounds = res["control"] is not None or res["hidden"]
+    if rounds and not (res["control"] or 0.0) > 1.0:
+        failed.append(f"{kernel} {what}: its fp32 control is not told apart "
+                      f"({res})")
+
+
+def phase_accum(base_cfg, card):
+    """bf16 accumulation (``accum_dtype="bfloat16"``) on smollm-135m at
+    full width and depth, bf16: (a) ``Engine.generate`` of ACCUM_BATCH x
+    PROMPT + ACCUM_NEW tokens, its prefill logits held against the plain
+    path under the same setting (LOGITS_BAND); (b) ``ContinuousEngine``
+    over phase_continuous's 16 requests on the slotted pool, every pool
+    empty after; (c) one AdamW step at TRAIN_BATCH x TRAIN_SEQ under
+    ``make_train_step(accum_dtype=)``, its step-0 loss and gradients held
+    against the plain path at TRAIN_PLAIN_LAYERS under the larger of
+    FAM_BAND's bf16 band and twice the plain path's own spread (as
+    train_families).  The launches of (a)-(c) are counted (counts zeroed
+    just before, read just after), every kernel of the path launched, no
+    split-K plan, bf16 on wgmma.  (d) every launch signature of (a)-(c)
+    held against its blockwise plain version on its own inputs, its fp32
+    control told apart (``accum_check``), and ResNet-50's convolutions at
+    RESNET_BATCH x 224^2 (the stem on the wmma tap walk), the flash pairs of
+    ACCUM_FLASH_EXTRA forward and backward, brgemm_stacked and
+    batched_matmul at BRGEMM_CASES, on random inputs; matmul_q under the
+    context equal bit for bit to its run without.  (e) each signature's
+    time under bf16 accumulation beside fp32 accumulation's, the blockwise
+    plain version's and the library call's (which accumulates in fp32) by
+    time_ms, as rows of path "accum"; the extra shapes' two kernel times
+    as records.  Returns ({"accum": launches}, worst abs error by kernel,
+    rows)."""
+    import importlib
+    from repro_torch.core import dispatch
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_q_cuda
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda, reset_flash_bwd_counts,
+        reset_flash_counts)
+    from repro_torch.models import api
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import (ContinuousEngine, Engine, PoolConfig,
+                                   ServeConfig)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.data.pipeline import TokenPipeline
+    t_phase = time.perf_counter()
+    bf16 = "bfloat16"
+    counters = {"matmul": matmul_cuda, "flash_attention": flash_attention_cuda,
+                "flash_attention_bwd": flash_attention_bwd_cuda}
+    cfg = dataclasses.replace(base_cfg, dtype=bf16, remat=False)
+    params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    tokens = prompts(cfg)[:ACCUM_BATCH]
+    requests = continuous_traffic(cfg)
+    pipe = TokenPipeline(cfg, ShapeCfg("smoke", "train", TRAIN_SEQ,
+                                       TRAIN_BATCH), seed=SEED)
+    batch = next(pipe)
+    pipe.close()
+    failed, worst, rec = [], {}, {}
+    torch.cuda.synchronize()
+    reset_matmul_counts()
+    reset_flash_counts()
+    reset_flash_bwd_counts()
+    with accum_recorder() as calls:
+        # (a) the static engine
+        engine = Engine(cfg, params, ServeConfig(max_len=MAX_LEN),
+                        accum_dtype=bf16)
+        t0 = time.perf_counter()
+        ids = engine.generate({"tokens": tokens}, n_tokens=ACCUM_NEW,
+                              stop_tokens=())
+        torch.cuda.synchronize()
+        rec["generate_s"] = time.perf_counter() - t0
+        logits = {}
+        with torch.inference_mode(), dispatch.use(accum_dtype=bf16):
+            for backend in (None, "torch"):
+                cache = api.init_cache(cfg, ACCUM_BATCH, MAX_LEN,
+                                       device="cuda")
+                logits[backend], _ = api.prefill(
+                    params, {"tokens": tokens}, cfg, cache, backend=backend)
+        err = (logits[None] - logits["torch"]).abs().max().item()
+        rec.update(generate_shape=list(ids.shape),
+                   prefill_logits_max_abs_err=err,
+                   logits_band=LOGITS_BAND[torch.bfloat16],
+                   logits_finite=bool(torch.isfinite(logits[None]).all()))
+        if not (rec["logits_finite"] and err <= LOGITS_BAND[torch.bfloat16]
+                and tuple(ids.shape) == (ACCUM_BATCH, ACCUM_NEW)):
+            failed.append(f"(a) generate {list(ids.shape)}, prefill logits "
+                          f"err {err}, finite {rec['logits_finite']}")
+        del engine, logits
+        # (b) continuous batching on the slotted pool
+        engine = ContinuousEngine(
+            cfg, params, PoolConfig(n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN),
+            accum_dtype=bf16)
+        with watched_forwards() as (flag, forwards):
+            t0 = time.perf_counter()
+            out = engine.serve(requests)
+            torch.cuda.synchronize()
+            rec["serve_s"] = time.perf_counter() - t0
+        pool, empty = pool_state(engine)
+        counts_ok = sorted(out) == list(range(len(requests))) and all(
+            len(out[i]) == r.max_tokens for i, r in enumerate(requests))
+        rec.update(continuous_pool_state=pool,
+                   continuous_logits_finite=bool(flag[0]),
+                   continuous_tokens=sum(len(v) for v in out.values()))
+        if not (empty and counts_ok and rec["continuous_logits_finite"]):
+            failed.append(f"(b) pool {pool}, token counts {counts_ok}, "
+                          f"finite {rec['continuous_logits_finite']}")
+        del engine
+        # (c) training: held against plain at TRAIN_PLAIN_LAYERS, then one
+        # step of the full depth
+        plain_cfg = dataclasses.replace(cfg, n_layers=TRAIN_PLAIN_LAYERS)
+        ocfg = opt.AdamWCfg()
+        model = Transformer(plain_cfg, device="cuda")
+        opt.cast_params(ts.init_state(plain_cfg, ocfg, torch.Generator(
+            device="cuda").manual_seed(SEED), "cuda")["opt"],
+            dict(model.named_parameters()))
+        with dispatch.use(accum_dtype=bf16):
+            mk, gk = ts.loss_and_grads(model, batch, plain_cfg)
+            with dispatch.use(backend="torch"):
+                mp, gp = ts.loss_and_grads(model, batch, plain_cfg)
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 73)
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.copy_(p.float() * (1 + FAM_SPREAD[bf16] * torch.randn(
+                            p.shape, device="cuda", generator=gen)))
+                mq, gq = ts.loss_and_grads(model, batch, plain_cfg)
+        errs = grad_rel(gk, gp, FAM_GRAD_FLOOR)
+        spread = grad_rel(gq, gp, FAM_GRAD_FLOOR)
+        limit = max(FAM_BAND[bf16]["grad_rel_l2"], 2 * max(spread.values()))
+        loss_err = abs(float(mk["loss"]) - float(mp["loss"]))
+        loss_limit = max(FAM_BAND[bf16]["loss"],
+                         2 * abs(float(mq["loss"]) - float(mp["loss"])))
+        worst_grad = max(errs.items(), key=lambda kv: kv[1])
+        grads_finite = all(bool(torch.isfinite(g).all())
+                           for g in gk.values())
+        del model, gk, gp, gq
+        state = ts.init_state(cfg, ocfg, torch.Generator(
+            device="cuda").manual_seed(SEED), "cuda")
+        t0 = time.perf_counter()
+        state, metrics = ts.make_train_step(cfg, ocfg, accum_dtype=bf16)(
+            state, batch)
+        torch.cuda.synchronize()
+        rec.update(train_step_s=time.perf_counter() - t0,
+                   train_loss=float(metrics["loss"]),
+                   held_n_layers=TRAIN_PLAIN_LAYERS,
+                   held_loss_err=loss_err, held_loss_limit=loss_limit,
+                   held_grad_rel_l2_max=worst_grad[1],
+                   held_grad_worst_param=worst_grad[0],
+                   held_grad_rel_l2_median=median(list(errs.values())),
+                   held_grad_limit=limit,
+                   plain_spread_max=max(spread.values()))
+        if not (grads_finite and math.isfinite(rec["train_loss"])
+                and loss_err <= loss_limit and worst_grad[1] <= limit):
+            failed.append(f"(c) train: loss err {loss_err} of {loss_limit}, "
+                          f"worst gradient {worst_grad} of {limit}, finite "
+                          f"{grads_finite}, loss {rec['train_loss']}")
+        del state
+        torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    # every launch rounds but the train step's backward GEMMs and their
+    # pre-activation recomputes, fp32 as the reference's VJPs
+    recorded, rounded = collections.Counter(), collections.Counter()
+    rounded_splits = 0
+    for (kernel, _), (_, kw, n, splits) in calls.items():
+        recorded[kernel] += n
+        rounded[kernel] += n * bool(kw.get("round_k"))
+        rounded_splits += splits * bool(kw.get("round_k"))
+    if rounded["flash_attention"] != recorded["flash_attention"] or \
+            rounded["flash_attention_bwd"] != recorded["flash_attention_bwd"] \
+            or not rounded["matmul"]:
+        failed.append(f"rounding launches {dict(rounded)} of "
+                      f"{dict(recorded)}")
+    by_mainloop = {}
+    if dict(recorded) != launches or not all(launches.values()):
+        failed.append(f"launches {launches}, recorded {dict(recorded)}")
+    else:
+        by_mainloop = {**mainloop_check(torch.bfloat16, launches["matmul"]),
+                       **flash_mainloop_check(
+                           torch.bfloat16, launches["flash_attention"],
+                           launches["flash_attention_bwd"])}
+        if rounded_splits:
+            failed.append(f"{rounded_splits} split-K launches under bf16 "
+                          f"accumulation")
+    emit({"phase": "accum", "part": "runs", "arch": cfg.name,
+          "dtype": cfg.dtype, "n_layers": cfg.n_layers, "batch": ACCUM_BATCH,
+          "prompt": PROMPT, "new_tokens": ACCUM_NEW,
+          "requests": len(requests), "train": [TRAIN_BATCH, TRAIN_SEQ],
+          "launches": launches, "rounding_launches": dict(rounded),
+          "rounding_split_launches": rounded_splits,
+          **by_mainloop,
+          "signatures": {k: sum(1 for c in calls if c[0] == k)
+                         for k in launches}, **rec, "card": card})
+
+    # (d) every signature against its blockwise plain version
+    reals = {name: getattr(importlib.import_module(mod), attr)
+             for name, (mod, attr) in ACCUM_WRAPPERS.items()}
+    with torch.no_grad():
+        for (kernel, _), (args, kw, *_) in calls.items():
+            accum_held(failed, worst, kernel, f"{_shape_of(args)}",
+                       accum_check(kernel, args, kw, reals[kernel]))
+        extra = accum_extra_cases()
+        for kernel, what, args, kw in extra:
+            accum_held(failed, worst, kernel, what,
+                       accum_check(kernel, args, kw, reals[kernel]))
+        # matmul_q keeps its storage's accumulator
+        from repro_torch.kernels.brgemm import matmul
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 79)
+        x = torch.randn(8 * PROMPT, cfg.d_model, device="cuda",
+                        generator=gen).bfloat16()
+        w = (torch.randn(cfg.d_model, cfg.d_ff, device="cuda", generator=gen)
+             * cfg.d_model ** -0.5).bfloat16()
+        q_launches = matmul_q_cuda.launches
+        want = matmul(x, w, quant="int8")
+        with dispatch.use(accum_dtype=bf16):
+            got = matmul(x, w, quant="int8")
+        q_same = bool(torch.equal(got, want)) and \
+            matmul_q_cuda.launches == q_launches + 2
+        if not q_same:
+            failed.append("matmul_q under bf16 accumulation differs")
+    emit({"phase": "accum", "part": "held", "worst_abs": worst,
+          "signatures_held": len(calls), "extra_held": len(extra),
+          "readings": ACCUM_READINGS,
+          "matmul_q_bit_equal": q_same, "failed": failed})
+    del params
+    free_card()
+    if failed:
+        raise AssertionError(f"accum: {failed}")
+
+    # (e) times (the recorded inputs include parameters and inference
+    # tensors: nothing here is differentiated but the library's flash
+    # backward, on copies)
+    with torch.no_grad():
+        rows = accum_rows(calls, reals, card)
+        del calls
+        accum_extra_times(extra, reals, card)
+        del extra
+    torch.cuda.empty_cache()
+    emit({"phase": "accum", "part": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return {"accum": launches}, worst, rows
+
+
+def _shape_of(args):
+    return [tuple(a.shape) for a in args if torch.is_tensor(a)]
+
+
+def accum_extra_cases():
+    """The shapes off smollm's path, on random inputs: [(kernel, what,
+    args, kwargs)]: ResNet-50's convolutions at RESNET_BATCH x RESNET_HW^2
+    (one of each shape, the stem among them), the flash pairs of
+    ACCUM_FLASH_EXTRA forward and backward, and the stacked and batched
+    GEMMs at BRGEMM_CASES."""
+    from repro_torch.core import blocking
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.resnet import ResNetCfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    bf16 = torch.bfloat16
+    out = []
+    for cv in unique_convs(resnet_convs(ResNetCfg())):
+        x, w = conv_inputs(cv, bf16, gen)
+        out.append(("conv2d", f"resnet {cv.name} {cv.key}", (x, w),
+                    dict(stride=cv.stride, padding=cv.padding,
+                         round_c=blocking.accum_block("conv2d", cv.c))))
+    for b, hq, hkv, t, dq, dv, window in ACCUM_FLASH_EXTRA:
+        q = torch.randn(b, hq, t, dq, device="cuda", generator=gen).to(bf16)
+        k = torch.randn(b, hkv, t, dq, device="cuda", generator=gen).to(bf16)
+        v = torch.randn(b, hkv, t, dv, device="cuda", generator=gen).to(bf16)
+        dy = torch.randn(b, hq, t, dv, device="cuda", generator=gen).to(bf16)
+        rk = blocking.accum_block("flash_attention", t)
+        kw = dict(causal=True, window=window, round_k=rk)
+        o, lse = flash_attention_cuda(q, k, v, return_residuals=True, **kw)
+        what = f"B{b} H{hq}/{hkv} T{t} d{dq}/{dv}"
+        out += [("flash_attention", what, (q, k, v),
+                 dict(kw, return_residuals=True)),
+                ("flash_attention_bwd", what, (q, k, v, o, lse, dy), kw)]
+    for nb, m, k, n in BRGEMM_CASES:
+        a = torch.randn(nb, m, k, device="cuda", generator=gen).to(bf16)
+        b = (torch.randn(nb, k, n, device="cuda", generator=gen)
+             * (nb * k) ** -0.5).to(bf16)
+        what = f"B{nb} m{m} k{k} n{n}"
+        out += [("brgemm_stacked", what, (a, b), dict(
+                    round_k=blocking.accum_block("brgemm", k))),
+                ("batched_matmul", what, (a, b), dict(
+                    round_k=blocking.accum_block("batched_matmul", k)))]
+    return out
+
+
+def _fp32_accum(kw):
+    return {k: (0 if k in ("round_k", "round_c") else v)
+            for k, v in kw.items()}
+
+
+def _cloned(args, n):
+    """``n`` sets of ``args``, each tensor cloned with its strides."""
+    def clone(t):
+        if not torch.is_tensor(t):
+            return t
+        out = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                  device=t.device)
+        out.copy_(t)
+        return out
+    return [args] + [tuple(clone(a) for a in args) for _ in range(n - 1)]
+
+
+def accum_cost(kernel, args, kw):
+    """(flops, bytes) of one launch: each input read and output written
+    once, the pairs a flash call keeps."""
+    isz = args[0].element_size()
+    if kernel == "matmul":
+        x, w, *rest = args
+        m, k = x.shape
+        n = w.size(1)
+        out = 4 if kw.get("out_dtype") == torch.float32 else isz
+        nbytes = (m * k + k * n) * isz + m * n * out + sum(
+            t.numel() * t.element_size() for t in rest if torch.is_tensor(t))
+        return 2 * m * n * k, nbytes
+    if kernel in ("brgemm_stacked", "batched_matmul"):
+        a, b = args[:2]
+        nb, m, k = a.shape
+        n = b.size(-1)
+        out = m * n if kernel == "brgemm_stacked" else nb * m * n
+        return 2 * nb * m * n * k, (a.numel() + b.numel() + out) * isz
+    if kernel == "conv2d":
+        x, w = args[:2]
+        n, h, wi, c = x.shape
+        r, s, _, k = w.shape
+        st, pad = kw.get("stride", 1), kw.get("padding", 0)
+        p, q = (h + 2 * pad - r) // st + 1, (wi + 2 * pad - s) // st + 1
+        return (2 * n * p * q * k * r * s * c,
+                (x.numel() + w.numel() + n * p * q * k) * isz)
+    q, k, v = args[:3]
+    b, hq, tq, dq = q.shape
+    hkv, tk, dv = k.size(1), k.size(2), v.size(3)
+    pairs = int(live_keys(tq, tk, kw.get("causal", True),
+                          kw.get("window")).sum())
+    if kernel == "flash_attention":
+        return (2 * b * hq * pairs * (dq + dv),
+                isz * (b * hq * tq * (dq + dv) + b * hkv * tk * (dq + dv))
+                + 4 * b * hq * tq)
+    return (2 * b * hq * pairs * (3 * dq + 2 * dv),
+            isz * (b * hq * tq * (dq + 2 * dv) + b * hkv * tk * (dq + dv))
+            + 4 * b * hq * tq
+            + isz * (b * hq * tq * dq + b * hkv * tk * (dq + dv)))
+
+
+def accum_library(kernel, args, kw):
+    """The PyTorch call of the same product on the same inputs (cuBLAS,
+    SDPA, cuDNN), which accumulates in fp32: (fn, sets-mapping)."""
+    import torch.nn.functional as F
+    if kernel == "matmul":
+        return lambda x, w, *rest: torch.matmul(x, w)
+    if kernel == "brgemm_stacked":
+        return lambda a, b, *rest: torch.einsum("imk,ikn->mn", a, b)
+    if kernel == "batched_matmul":
+        return lambda a, b, *rest: torch.matmul(a, b)
+    if kernel == "conv2d":
+        st, pad = kw.get("stride", 1), kw.get("padding", 0)
+        return lambda x, w, *rest: F.conv2d(
+            x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=st,
+            padding=pad)
+    causal, window = kw.get("causal", True), kw.get("window")
+
+    def sdpa(q, k, v, *rest):
+        mask = None
+        if window is not None:
+            mask = live_keys(q.size(2), k.size(2), causal, window).to(
+                q.device)
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=q.size(1) != k.size(1))
+    if kernel == "flash_attention":
+        return sdpa
+    return None       # the backward's library time: SDPA's, below
+
+
+def accum_times_of(kernel, args, kw, real, big):
+    """(bf16-accumulation ms, wall ms, fp32-accumulation ms, plain ms,
+    library ms) of one launch signature by time_ms on copies of its
+    inputs (enough of them to pass the L2 cache)."""
+    flops, nbytes = accum_cost(kernel, args, kw)
+    sets = _cloned(args, n_sets(nbytes) if nbytes < 2e8 else 2)
+    it = 2 if big else 4
+    ms, wall = time_ms(lambda *a: real(*a, **kw), sets, it)
+    fp32 = ms if _fp32_accum(kw) == kw else time_ms(
+        lambda *a: real(*a, **_fp32_accum(kw)), sets, it)[0]
+    plain, _ = time_ms(lambda *a: accum_plain(kernel, a, kw), sets, 2)
+    lib_fn = accum_library(kernel, args, kw)
+    lib = None
+    try:
+        if lib_fn is not None:
+            lib, _ = time_ms(lib_fn, sets, it)
+        else:
+            lib_sets = []
+            with torch.enable_grad():
+                for q, k, v, _, _, dy in sets:
+                    leaves = [t.detach().clone().requires_grad_()
+                              for t in (q, k, v)]
+                    lib_sets.append((accum_library(
+                        "flash_attention", args, kw)(*leaves), leaves,
+                        dy.clone()))
+                lib, _ = time_ms(lambda out, leaves, dy: torch.autograd.grad(
+                    out, leaves, dy, retain_graph=True), lib_sets, it)
+    except RuntimeError as exc:          # no library backend takes it
+        emit({"library_ms": None, "why": str(exc)[:200]})
+    del sets
+    return ms, wall, fp32, plain, lib, flops, nbytes
+
+
+def accum_rows(calls, reals, card):
+    """One row of path "accum" a launch signature of (a)-(c)."""
+    rows = []
+    row = row_recorder(rows, card)
+    for (kernel, _), (args, kw, n, _) in sorted(calls.items(), key=str):
+        flops = accum_cost(kernel, args, kw)[0]
+        ms, wall, fp32, plain, lib, flops, nbytes = accum_times_of(
+            kernel, args, kw, reals[kernel], flops > 1e11)
+        shapes = _shape_of(args)
+        row(kernel, f"accum {shapes}", ms, wall, flops, nbytes, plain, lib,
+            {"accum": n}, fp32_accum_ms=fp32, shapes=shapes,
+            round_k=kw.get("round_k"), library_accumulates="fp32",
+            **{k: repr(v) for k, v in kw.items()
+               if k in ("activation", "out_dtype", "causal", "window")})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def accum_extra_times(extra, reals, card):
+    """The extra shapes' bf16- and fp32-accumulation kernel times (records,
+    not rows: no run of a path gave them)."""
+    for kernel, what, args, kw in extra:
+        flops, nbytes = accum_cost(kernel, args, kw)
+        sets = _cloned(args, n_sets(nbytes) if nbytes < 2e8 else 2)
+        it = 2 if flops > 1e11 else 4
+        ms, wall = time_ms(lambda *a: reals[kernel](*a, **kw), sets, it)
+        fp32, _ = time_ms(lambda *a: reals[kernel](*a, **_fp32_accum(kw)),
+                          sets, it)
+        bms, by = bound(flops, nbytes, card)
+        emit({"phase": "accum_times", "kernel": kernel, "shape": what,
+              "ms": ms, "wall_ms": wall, "fp32_accum_ms": fp32,
+              "bound_ms": bms, "bound_by": by})
+        del sets
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -2500,7 +3241,8 @@ def checked_launches(worst, bf16_truth=False):
     terms' magnitude (``flash_bwd_terms``): in bf16 the kernel rounds P and
     dS before their products and reads the forward's bf16 Y for delta, and
     a gradient whose terms cancel (seamless's dq over encoder frames
-    alike) is far below them."""
+    alike) is far below them.  The path's launches accumulate in fp32
+    here: a launch asking for bf16 accumulation (``round_k``) raises."""
     import torch.nn.functional as F
     from repro_torch.core import fusion
     from repro_torch.kernels.brgemm import kernel as BK
@@ -2554,8 +3296,15 @@ def checked_launches(worst, bf16_truth=False):
         record(kernel, what, (d / tol.clamp_min(1e-30)).max().item(), None,
                d.max().item())
 
+    def fp32_accum(what, rounding):
+        if rounding:
+            raise ValueError(f"checked_launches holds fp32 accumulation, "
+                             f"got a {what} launch rounding every "
+                             f"{rounding}")
+
     def conv(x, w, bias=None, *, stride=1, padding=0, activation="none",
-             out_dtype=None):
+             out_dtype=None, round_c=0):
+        fp32_accum("conv2d", round_c)
         kw = dict(stride=stride, padding=padding)
         y = real_conv(x, w, bias, activation=activation, out_dtype=out_dtype,
                       **kw)
@@ -2608,7 +3357,8 @@ def checked_launches(worst, bf16_truth=False):
         return exact
 
     def mm(x, w, bias=None, c0=None, *, activation="none", alpha=1.0,
-           beta=0.0, out_dtype=None, plan=None):
+           beta=0.0, out_dtype=None, plan=None, round_k=0):
+        fp32_accum("matmul", round_k)
         kw = dict(activation=activation, alpha=alpha, beta=beta,
                   out_dtype=out_dtype)
         y = real_mm(x, w, bias, c0, plan=plan, **kw)
@@ -2618,7 +3368,8 @@ def checked_launches(worst, bf16_truth=False):
         return y
 
     def bm(a, b, bias=None, *, activation="none", alpha=1.0, out_dtype=None,
-           plan=None):
+           plan=None, round_k=0):
+        fp32_accum("batched_matmul", round_k)
         kw = dict(activation=activation, alpha=alpha, out_dtype=out_dtype)
         y = real_bm(a, b, bias, plan=plan, **kw)
         e = MOE_EXPERT_SLICE
@@ -2633,7 +3384,8 @@ def checked_launches(worst, bf16_truth=False):
         return y
 
     def fl(q, k, v, *, causal=True, window=None, scale=None,
-           return_residuals=False, plan=None):
+           return_residuals=False, plan=None, round_k=0):
+        fp32_accum("flash_attention", round_k)
         out = real_fl(q, k, v, causal=causal, window=window, scale=scale,
                       return_residuals=return_residuals, plan=plan)
         o, lse = out if return_residuals else (out, None)
@@ -2652,7 +3404,8 @@ def checked_launches(worst, bf16_truth=False):
         return out
 
     def fb(q, k, v, y, lse, dy, *, causal=True, window=None, scale=None,
-           return_delta=False, plan=None):
+           return_delta=False, plan=None, round_k=0):
+        fp32_accum("flash_attention_bwd", round_k)
         out = real_fb(q, k, v, y, lse, dy, causal=causal, window=window,
                       scale=scale, return_delta=return_delta, plan=plan)
         want = FR.flash_attention_bwd_ref(q, k, v, y, lse, dy, causal=causal,
@@ -3007,8 +3760,10 @@ def phase_quant(base_cfg):
     runs = [(torch.bfloat16, t) for t in QUANT_TIERS] + [
         (torch.float32, QUANT_TIERS[1])]
     for dtype, (tier, kw, calibration) in runs:
-        cfg = dataclasses.replace(base_cfg,
-                                  dtype=str(dtype).replace("torch.", ""))
+        cfg = dataclasses.replace(
+            base_cfg, dtype=str(dtype).replace("torch.", ""),
+            n_layers=(base_cfg.n_layers if dtype == torch.bfloat16
+                      else CONT_FP32_LAYERS))
         params = api.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(SEED),
             device="cuda")
@@ -4939,14 +5694,18 @@ def phase_times(cfg, card, cont_forwards, cluster_forwards):
         nbytes, plain, lib, {"train": cfg.n_layers * TRAIN_STEPS},
         q=[b, hq, t, d], kv=[b, hkv, t, d],
         mainloop=FB.plan_call(q, k, v, o, dy))
-    # No single PyTorch call takes bf16 y, dy to an fp32 rowsum.
+    # No single PyTorch call takes bf16 y, dy to an fp32 rowsum: the
+    # library's is torch.linalg.vecdot over fp32 copies of them (the same
+    # values), made before the timing.
     ysets = [(o, dy) for _, _, _, o, _, dy in bwd_sets]
     ms, wall = time_ms(delta_rowsum_cuda, ysets)
     plain, _ = time_ms(delta_rowsum_ref, ysets)
+    lib, _ = time_ms(torch.linalg.vecdot,
+                     [(y.float(), g.float()) for y, g in ysets])
     # Off every path (the fused delta's oracle): one call's times.
     row("delta_rowsum", "train", ms, wall, 2 * b * hq * t * d,
-        2 * q_bytes + lse_bytes, plain, None, {"one_call": 1},
-        y=[b, hq, t, d])
+        2 * q_bytes + lse_bytes, plain, lib, {"one_call": 1},
+        y=[b, hq, t, d], library="torch.linalg.vecdot on fp32 copies")
     return rows
 
 
@@ -7289,7 +8048,7 @@ FAM_SPREAD = {"float32": 1e-6, "bfloat16": 2.0 ** -9}
 # (B, T) and depth of each whole-model run, widths untouched: xlstm-1.3b
 # at FAM_XLSTM_LAYERS of its 48 (one group of 7 mLSTM and an sLSTM; its
 # sLSTM steps through T in Python, ~12 s a step at 48 layers), held at
-# that depth; recurrentgemma-9b cut to one (rec, rec, attn) group at T 4096,
+# that depth; recurrentgemma-9b cut to one (rec, rec, attn) group at T 3072,
 # so that its window of 2048 masks; seamless at full depth, one step over
 # a ragged 1000 frames, held at SEAMLESS_PLAIN_LAYERS encoder and decoder
 # layers over a batch of each length (its encoder's T^2 fp32 scores at
@@ -7298,7 +8057,7 @@ FAM_SPREAD = {"float32": 1e-6, "bfloat16": 2.0 ** -9}
 # takes 77 GB (grok) or 180 GB (deepseek).
 FAM_XLSTM = (2, 512)
 FAM_XLSTM_LAYERS = FAM_XLSTM_HELD_LAYERS = 8
-FAM_RG = (1, 4096, 3)
+FAM_RG = (1, 3072, 3)
 FAM_SEAMLESS = (2, 256, (4096, 4096, 1000))
 SEAMLESS_PLAIN_LAYERS = 4
 FAM_REDUCED = (2, 64)
@@ -8557,7 +9316,10 @@ def kernels_line(rows, launches_by_path, worst):
     ``ContinuousEngine.serve`` runs; train_families, the families' bf16
     train steps and full-width layers' gradients; cluster, smollm-135m's
     bf16 runs behind the router (the two tiers through the async front
-    end, the self-healing run, the HTTP calls).
+    end, the self-healing run, the HTTP calls); accum, smollm-135m's bf16
+    runs under ``accum_dtype="bfloat16"`` (phase_accum's generate,
+    continuous serve and train step; its rows' library times accumulate
+    in fp32).
     ``delta_rowsum`` runs on none of them (it is the oracle of the fused
     delta): its times are one call's."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
@@ -8626,8 +9388,13 @@ def main():
     launches.update(cluster_launches)
     for kernel, err in cluster_worst.items():
         worst[kernel] = max(worst[kernel], err)
-    launches.update(train=phase_train(cfg), resnet=phase_resnet(),
-                    brgemm=phase_brgemm(), quant=phase_quant(cfg))
+    launches.update(train=phase_train(cfg))
+    accum_launches, accum_worst, accum_rows_ = phase_accum(cfg, card)
+    launches.update(accum_launches)
+    for kernel, err in accum_worst.items():
+        worst[kernel] = max(worst[kernel], err)
+    launches.update(resnet=phase_resnet(), brgemm=phase_brgemm(),
+                    quant=phase_quant(cfg))
     lstm_launches, fc_rows = phase_lstm(card)
     launches.update(lstm_launches)
     win_launches, win_worst, win_static, win_flash = phase_windowed(card)
@@ -8665,12 +9432,13 @@ def main():
             + phase_times_moe(card, moe_calls_by_model)
             + phase_times_recurrent(card, rec_calls_by_model)
             + phase_times_encdec(card, encdec_calls_run)
-            + phase_times_train_families(card, fam_shapes))
+            + phase_times_train_families(card, fam_shapes)
+            + accum_rows_)
     emit({"phase": "capture_failures", "by_cause": dict(CAPTURE_FAILURES)})
     emit({"phase": "free_card", **FREED})
     check_row_calls(rows, launches, ("cluster", "lstm", "fc", "windowed",
                                      "llava", "moe", "recurrent", "encdec",
-                                     "train_families"))
+                                     "train_families", "accum"))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

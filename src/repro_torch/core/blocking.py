@@ -188,3 +188,49 @@ def geometry_from_dict(d: dict):
     fields = {f.name: f.type for f in dataclasses.fields(cls)}
     return cls(**{f: (bool(v) if fields[f] == "bool" else int(v))
                   for f, v in d.items()})
+
+
+# --------------------------------------------------------------------------
+# bf16 accumulation: the reference's rounding blocks
+# --------------------------------------------------------------------------
+#
+# Under ``use(accum_dtype=torch.bfloat16)`` each of the reference's Pallas
+# kernels keeps its accumulator in bf16 and rounds it once a grid step of
+# its reduction, so the rounding points are the ends of the reference's
+# reduction blocks, whatever the port's own plan: its heuristic blocks
+# (``repro/core/blocking.py``: ``choose_blocks``, ``choose_conv_blocks``,
+# ``choose_attention_blocks``, ``choose_attention_bwd_blocks``).  The port
+# rounds there and nowhere else.
+
+LANE = 128
+ACCUM_OPS = ("matmul", "brgemm", "batched_matmul", "conv2d",
+             "flash_attention", "flash_attention_bwd")
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def accum_block(op: str, k: int) -> int:
+    """Elements of the reduction between two of the reference's rounding
+    points under bf16 accumulation, for ``op`` whose reduction is ``k``
+    long (one entry's k; a tap's channels; the keys):
+
+      * ``matmul``, ``brgemm``, ``batched_matmul``: k elements, the
+        reference's bk = min(round_up(k, 128), 512) (its
+        VMEM budget would halve bk, but never does at its default 128 x 128
+        tile).  A stacked walk rounds at each (entry, k-block) end; every
+        walk also rounds at the end of k;
+      * ``conv2d``: 128 channels of one tap (the reference's ``bc``); a
+        tap's last block ends at c;
+      * ``flash_attention``: 128 keys (``block_k``), counted from key 0;
+      * ``flash_attention_bwd``: 128 keys for dQ and 128 q rows
+        for dK and dV (``block_q`` is min(round_up(tq, 8), 128): below 128
+        rows one block, whose end is tq's).
+    """
+    if op in ("matmul", "brgemm", "batched_matmul"):
+        return min(round_up(k, LANE), 512)
+    if op in ("conv2d", "flash_attention", "flash_attention_bwd"):
+        return LANE
+    raise ValueError(f"no accumulation blocks for op {op!r}; known: "
+                     f"{', '.join(ACCUM_OPS)}")

@@ -25,6 +25,16 @@ innermost context's config, else None (full precision), as the reference's
 (op, backend) in ``obs.TELEMETRY`` and, under an active tracer, records a
 ``dispatch`` event, as the reference's ``_record_dispatch`` does.
 
+``use(accum_dtype=...)`` sets the accumulator of every full-precision GEMM,
+convolution and flash kernel (``torch.float32``, the default, or
+``torch.bfloat16``; their names too); :func:`resolve_accum_dtype` gives
+the call's argument, else the innermost context's, else fp32, as the
+reference's ``resolve_accum_dtype``.  Under bf16 accumulation a kernel
+rounds its fp32 sums to bf16 at the ends of the reference's reduction
+blocks (``blocking.accum_block``); the quantized GEMMs keep the
+accumulator their storage implies (int32 for int8, fp32 for fp8) and
+ignore it.
+
 ``use(blocks_policy=...)`` picks how a kernel's plan is chosen
 (:func:`resolve_blocks`): the wrapper's explicit ``plan=`` argument, else
 the innermost context's policy, else ``"heuristic"`` (the op's own
@@ -72,6 +82,9 @@ _QUANT: contextvars.ContextVar[QuantConfig | None] = contextvars.ContextVar(
     "repro_torch_quant", default=None)
 _POLICY: contextvars.ContextVar[str | Callable | None] = \
     contextvars.ContextVar("repro_torch_blocks_policy", default=None)
+_ACCUM: contextvars.ContextVar[torch.dtype | None] = contextvars.ContextVar(
+    "repro_torch_accum_dtype", default=None)
+ACCUM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_backend(backend: str) -> str:
@@ -93,11 +106,12 @@ def register(op: str, backend: str):
 
 @contextlib.contextmanager
 def use(*, backend: str | None = None, quant=None, tracer=None,
-        blocks_policy: str | Callable | None = None):
-    """Scope a backend, a quant config, a block policy and a tracer for
-    every op called inside.  A field left ``None`` keeps the outer
-    context's choice; the previous state is restored on exit.  ``quant``
-    and a named ``blocks_policy`` are validated here.  ``tracer`` (a
+        blocks_policy: str | Callable | None = None, accum_dtype=None):
+    """Scope a backend, a quant config, a block policy, an accumulator
+    dtype and a tracer for every op called inside.  A field left ``None``
+    keeps the outer context's choice; the previous state is restored on
+    exit.  ``quant``, ``accum_dtype`` and a named ``blocks_policy`` are
+    validated here.  ``tracer`` (a
     ``repro_torch.obs.Tracer``) records the dispatch events, the
     ``resolve_blocks`` events, autotune spans and every ``obs.span``
     entered inside."""
@@ -109,6 +123,8 @@ def use(*, backend: str | None = None, quant=None, tracer=None,
     if blocks_policy is not None:
         tokens.append((_POLICY, _POLICY.set(
             check_blocks_policy(blocks_policy))))
+    if accum_dtype is not None:
+        tokens.append((_ACCUM, _ACCUM.set(as_accum_dtype(accum_dtype))))
     obs_token = obs._activate(tracer) if tracer is not None else None
     try:
         yield
@@ -125,6 +141,34 @@ def resolve_quant(quant=None) -> QuantConfig | None:
     if quant is not None:
         return as_quant_config(quant)
     return _QUANT.get()
+
+
+def as_accum_dtype(accum_dtype) -> torch.dtype:
+    """``accum_dtype`` (a dtype or its name) as one of ACCUM_DTYPES, else
+    raises."""
+    dtype = (getattr(torch, accum_dtype, None)
+             if isinstance(accum_dtype, str) else accum_dtype)
+    if dtype not in ACCUM_DTYPES:
+        raise ValueError(f"accum_dtype {accum_dtype!r} is not one of "
+                         f"{ACCUM_DTYPES} (or their names)")
+    return dtype
+
+
+def resolve_accum_dtype(accum_dtype=None) -> torch.dtype:
+    """The accumulator dtype of the full-precision GEMM, convolution and
+    flash kernels: the call's argument, else the innermost
+    ``use(accum_dtype=...)``, else fp32."""
+    if accum_dtype is not None:
+        return as_accum_dtype(accum_dtype)
+    return _ACCUM.get() or torch.float32
+
+
+def accum_block(op: str, k: int) -> int:
+    """The rounding block of a call of ``op`` (``blocking.accum_block``)
+    under the context's accumulator, or 0 for fp32 accumulation."""
+    if resolve_accum_dtype() == torch.float32:
+        return 0
+    return blocking.accum_block(op, k)
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,18 +241,20 @@ def check_blocks_policy(policy):
     return policy
 
 
+_STATE = (_BACKEND, _QUANT, _POLICY, _ACCUM)
+
+
 def snapshot() -> tuple:
-    """This context's backend, quant config and block policy, for
-    :func:`restored` on another thread (autograd's CUDA backward, a
-    checkpointed block's recompute)."""
-    return _BACKEND.get(), _QUANT.get(), _POLICY.get()
+    """This context's backend, quant config, block policy and accumulator
+    dtype, for :func:`restored` on another thread (autograd's CUDA
+    backward, a checkpointed block's recompute)."""
+    return tuple(var.get() for var in _STATE)
 
 
 @contextlib.contextmanager
 def restored(state: tuple):
     """Run inside the state a :func:`snapshot` took."""
-    tokens = [(var, var.set(value))
-              for var, value in zip((_BACKEND, _QUANT, _POLICY), state)]
+    tokens = [(var, var.set(value)) for var, value in zip(_STATE, state)]
     try:
         yield
     finally:

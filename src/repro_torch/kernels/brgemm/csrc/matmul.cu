@@ -34,6 +34,11 @@
 // change from run to run.  One split runs the epilogue in the GEMM kernel
 // itself.
 //
+// bf16 accumulation (the reference's accum_dtype=bfloat16, round_k > 0):
+// each mainloop rounds its fp32 sums to bf16 in place at the end of every
+// round_k elements of k and at k's end, the ends of the reference's
+// k-blocks, on one split (a split would add rounded runs in another order).
+//
 // What bounds it on an H100: prefill and training's token-major GEMMs
 // (m = 4096) sit at or above the bf16 ridge (~295 FLOP a byte) and are
 // tensor-core bound; decode (m = 8) and the weight gradients with n = 64
@@ -63,7 +68,8 @@ struct FromSlice {
 };
 
 __global__ void __launch_bounds__(tc::THREADS)
-matmul_wmma_kernel(Operand x, Operand w, Sink sink, int k, int chunk) {
+matmul_wmma_kernel(Operand x, Operand w, Sink sink, int k, int chunk,
+                   Round rnd) {
   __shared__ __align__(128) bf16 As[tc::STAGE];
   __shared__ __align__(128) bf16 Bs[tc::STAGE];
   __shared__ __align__(128) float Cs[tc::BM * tc::LDC];
@@ -75,14 +81,16 @@ matmul_wmma_kernel(Operand x, Operand w, Sink sink, int k, int chunk) {
                                  s0};
   tc::Acc acc[2][2];
   tc::mainloop(acc, As, Bs, x.trans, !w.trans,
-               min(chunk, cdiv(k, tc::BK) - s0), fa, fb);
+               min(chunk, cdiv(k, tc::BK) - s0), fa, fb, tc::Same{},
+               tc::Same{}, rnd);
   tc::store_tile(acc, Cs, [&](int r, int c, float v) {
     if (m0 + r < sink.m && n0 + c < sink.n) sink(m0 + r, n0 + c, v);
   });
 }
 
 __global__ void __launch_bounds__(simt::THREADS)
-matmul_simt_kernel(Operand x, Operand w, Sink sink, int k, int chunk) {
+matmul_simt_kernel(Operand x, Operand w, Sink sink, int k, int chunk,
+                   Round rnd) {
   const int m0 = blockIdx.y * simt::BM, n0 = blockIdx.x * simt::BN;
   const int s0 = blockIdx.z * chunk;
   FromSlice<simt::StridedFetch> fa{
@@ -91,7 +99,7 @@ matmul_simt_kernel(Operand x, Operand w, Sink sink, int k, int chunk) {
       {b_op<float>(w, n0, sink.n, k, simt::BK, 0)}, s0};
   float acc[4][4];
   simt::mainloop(acc, x.trans, !w.trans, min(chunk, cdiv(k, simt::BK) - s0),
-                 fa, fb);
+                 fa, fb, rnd);
   simt::store_tile(acc, [&](int r, int c, float v) {
     if (m0 + r < sink.m && n0 + c < sink.n) sink(m0 + r, n0 + c, v);
   });
@@ -105,7 +113,9 @@ matmul_simt_kernel(Operand x, Operand w, Sink sink, int k, int chunk) {
 // 1 wmma, 2 simt), bm (wgmma's tile rows, 64 or 128), splits and chunk
 // (slices of the mainloop's BK per split); ws: a (splits, m, n) fp32
 // workspace when splits > 1.  vec_x / vec_w: the wmma path's 16-byte loads
-// are safe.  Returns the first CUDA error of the launches, or 0.
+// are safe.  round_k: bf16 accumulation's rounding block in k elements (a
+// multiple of 64; one split), or 0 for fp32 accumulation.  Returns the
+// first CUDA error of the launches, or 0.
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias,
                             const void* c0, void* out, int m, int n, int k,
                             long long ldx, long long ldw, int x_trans,
@@ -113,8 +123,9 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias,
                             float beta, int act, int is_bf16, int out_f32,
                             int bias_f32, int c0_f32, int vec_x, int vec_w,
                             int mainloop, int bm, int splits, int chunk,
-                            void* ws, void* stream) {
+                            int round_k, void* ws, void* stream) {
   if (act < 0 || act >= N_ACT || splits < 1 || chunk < 1 ||
+      round_k < 0 || round_k % 64 || (round_k && splits > 1) ||
       (splits > 1 && ws == nullptr) || (mainloop == SIMT) == (is_bf16 != 0) ||
       (mainloop == WGMMA && bm != 64 && bm != 128))
     return (int)cudaErrorInvalidValue;
@@ -132,15 +143,19 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias,
                         : sm90::tensor_map_bf16(&tw, w, n, k, ldw, 64));
     if (!ok) return (int)cudaErrorInvalidValue;
     rc = wg::launch<wg::SPLIT_K>(bm, x_trans, !w_trans, tx, tw, 0, 0, sink,
-                                 k, splits, chunk, 1, s);
+                                 k, splits, chunk, 1, s,
+                                 Round{round_k / wg::BK, cdiv(k, wg::BK)});
   } else {
     Operand ox{x, 0, ldx, x_trans, vec_x}, ow{w, 0, ldw, w_trans, vec_w};
     dim3 grid(cdiv(n, 64), cdiv(m, 64), splits);
     if (mainloop == WMMA)
-      matmul_wmma_kernel<<<grid, tc::THREADS, 0, s>>>(ox, ow, sink, k, chunk);
+      matmul_wmma_kernel<<<grid, tc::THREADS, 0, s>>>(
+          ox, ow, sink, k, chunk,
+          Round{round_k / tc::BK, cdiv(k, tc::BK)});
     else
-      matmul_simt_kernel<<<grid, simt::THREADS, 0, s>>>(ox, ow, sink, k,
-                                                        chunk);
+      matmul_simt_kernel<<<grid, simt::THREADS, 0, s>>>(
+          ox, ow, sink, k, chunk,
+          Round{round_k / simt::BK, cdiv(k, simt::BK)});
     rc = (int)cudaGetLastError();
   }
   if (rc == 0 && splits > 1)

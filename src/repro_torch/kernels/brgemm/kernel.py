@@ -24,6 +24,13 @@ time without a rebuild.  ``.mainloops`` of each of the three wrappers
 counts its calls by mainloop, ``.split_launches`` of ``matmul_cuda`` and
 ``brgemm_stacked_cuda`` the calls that also launched the split-K
 reduction; ``reset_matmul_counts`` zeroes them.
+
+Each wrapper's ``round_k`` asks for bf16 accumulation: the fp32 sums
+rounded to bf16 in place at the end of every ``round_k`` elements of an
+entry's k and at its end (``blocking.accum_block``: the reference's
+k-blocks).  Such a call walks its reduction in one run: a policy's split
+plan is taken unsplit (``one_split``), since split partials would add
+rounded runs in another order than the reference's.
 """
 from __future__ import annotations
 
@@ -93,7 +100,7 @@ def _lib():
     lib = _build.load("brgemm")
     lib.repro_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
                                  _I, _I, _LL, _F, _F, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, _P, _P]
+                                 _I, _I, _I, _I, _I, _I, _P, _P]
     lib.repro_matmul.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -106,9 +113,9 @@ def _batched_lib():
     operands = [_P, _LL, _LL, _I, _I] * 2
     lib.repro_brgemm_stacked.argtypes = operands + [
         _P, _P, _LL, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _P, _P]
+        _I, _I, _I, _I, _I, _P, _P]
     lib.repro_batched_matmul.argtypes = operands + [
-        _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P]
+        _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P]
     for fn in (lib.repro_brgemm_stacked, lib.repro_batched_matmul):
         fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -210,6 +217,13 @@ def candidate_plans(op: str, m: int, n: int, k: int, is_bf16: bool,
     return out
 
 
+def one_split(p: Plan, slices: int) -> Plan:
+    """``p`` walking all of its ``slices`` reduction slices in one run (a
+    bf16-accumulation call's plan)."""
+    return p if p.splits == 1 else dataclasses.replace(
+        p, splits=1, chunk=max(1, slices))
+
+
 def _is_bf16(dtype) -> bool:
     return blocking.dtype_name(dtype) == "bfloat16"
 
@@ -233,21 +247,23 @@ for _op, _heuristic in (
         geometry=_plain_geometry))
 
 
-def _matmul_plan(x, w, explicit=None):
+def _matmul_plan(x, w, explicit=None, round_k=0):
     """(plan, x's and w's ``_operand``) of ``matmul_cuda(x, w)``."""
     ox, ow = _operand(x, "x"), _operand(w, "w")
     geometry = GemmGeometry(ox[3] and ow[3], 1, bool(ox[0]), bool(ow[0]))
     p = dispatch.resolve_blocks("matmul", x.size(0), w.size(1), x.size(1),
                                 x.dtype, backend="cuda", plan=explicit,
                                 geometry=geometry)
+    if round_k:
+        p = one_split(p, -(-x.size(1) // p.bk))
     return p, ox, ow
 
 
-def plan_call(x: torch.Tensor, w: torch.Tensor) -> Plan:
-    """The plan of ``matmul_cuda(x, w)``, from the operands' shapes, type,
-    layouts and alignment under the active block policy (the kernel
-    itself is not touched)."""
-    return _matmul_plan(x, w)[0]
+def plan_call(x: torch.Tensor, w: torch.Tensor, round_k: int = 0) -> Plan:
+    """The plan of ``matmul_cuda(x, w, round_k=round_k)``, from the
+    operands' shapes, type, layouts and alignment under the active block
+    policy (the kernel itself is not touched)."""
+    return _matmul_plan(x, w, round_k=round_k)[0]
 
 
 def _check_dtypes(name, a, b, out_dtype):
@@ -280,7 +296,7 @@ def _raise_on(rc, lib, name):
 
 def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
                 alpha: float = 1.0, beta: float = 0.0, out_dtype=None,
-                plan: Plan | None = None):
+                plan: Plan | None = None, round_k: int = 0):
     """``act(alpha * x @ w + beta * c0 + bias)`` on the card.
 
     x: (m, k) and w: (k, n), each either row-major or column-major (as
@@ -288,7 +304,8 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
     c0: (m, n) with unit column stride; both fp32 or x's dtype.  Returns a
     contiguous (m, n) of ``out_dtype`` (fp32 or bf16; default x's dtype).
     ``plan``: run so (one the kernel cannot take raises), else the block
-    policy's pick (``dispatch.resolve_blocks``).
+    policy's pick (``dispatch.resolve_blocks``).  ``round_k``: bf16
+    accumulation's block of k (a multiple of 128), or 0 for fp32.
     """
     out_dtype = out_dtype or x.dtype
     _check_dtypes("matmul_cuda", x, w, out_dtype)
@@ -305,7 +322,7 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
         return out
     is_bf16 = x.dtype == torch.bfloat16
     p, (x_trans, ldx, vec_x, _), (w_trans, ldw, vec_w, _) = _matmul_plan(
-        x, w, plan)
+        x, w, plan, round_k)
     ws = (torch.empty(p.splits * m * n, dtype=torch.float32, device=x.device)
           if p.splits > 1 else None)
     lib = _lib()
@@ -320,7 +337,7 @@ def matmul_cuda(x, w, bias=None, c0=None, *, activation: str = "none",
         int(bias is not None and bias.dtype == torch.float32),
         int(has_c0 and c0.dtype == torch.float32),
         int(vec_x), int(vec_w), MAINLOOPS.index(p.mainloop), p.bm, p.splits,
-        p.chunk, ws.data_ptr() if ws is not None else None,
+        p.chunk, int(round_k), ws.data_ptr() if ws is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, lib, "matmul")
     matmul_cuda.launches += 1
@@ -361,7 +378,7 @@ def _batched_tma(t: torch.Tensor, operand: list) -> bool:
         bstride == 0 or bstride >= mat.size(trans) * ld)
 
 
-def _batched_plan(op, a, b, explicit=None):
+def _batched_plan(op, a, b, explicit=None, round_k=0):
     """(plan, a's and b's ``_batched_operand``) of a ``brgemm`` (stacked)
     or ``batched_matmul`` call, its triple one entry's."""
     oa, ob = _batched_operand(a, "a"), _batched_operand(b, "b")
@@ -371,6 +388,8 @@ def _batched_plan(op, a, b, explicit=None):
     p = dispatch.resolve_blocks(op, a.size(-2), b.size(-1), a.size(-1),
                                 a.dtype, backend="cuda", plan=explicit,
                                 geometry=geometry)
+    if round_k:
+        p = one_split(p, nb * -(-a.size(-1) // p.bk))
     return p, oa, ob
 
 
@@ -381,11 +400,12 @@ def plan_batched_call(a: torch.Tensor, b: torch.Tensor) -> Plan:
     return _batched_plan("batched_matmul", a, b)[0]
 
 
-def plan_stacked_call(a: torch.Tensor, b: torch.Tensor) -> Plan:
-    """The plan of ``brgemm_stacked_cuda(a, b)``, from the operands' shapes,
-    type, layouts and alignment under the active block policy (the kernel
-    itself is not touched)."""
-    return _batched_plan("brgemm", a, b)[0]
+def plan_stacked_call(a: torch.Tensor, b: torch.Tensor,
+                      round_k: int = 0) -> Plan:
+    """The plan of ``brgemm_stacked_cuda(a, b, round_k=round_k)``, from the
+    operands' shapes, type, layouts and alignment under the active block
+    policy (the kernel itself is not touched)."""
+    return _batched_plan("brgemm", a, b, round_k=round_k)[0]
 
 
 def _flags(a, out_dtype, *epilogue):
@@ -397,14 +417,14 @@ def _flags(a, out_dtype, *epilogue):
 def brgemm_stacked_cuda(a, b, bias=None, c0=None, *,
                         activation: str = "none", alpha: float = 1.0,
                         beta: float = 0.0, out_dtype=None,
-                        plan: Plan | None = None):
+                        plan: Plan | None = None, round_k: int = 0):
     """``act(alpha * sum_i a[i] @ b[i] + beta * c0 + bias)`` on the card.
 
     a: (B, m, k) and b: (B, k, n), each entry row- or column-major with any
     batch stride, read in place.  bias: (n,) contiguous; c0: (m, n) with
     unit column stride; both fp32 or a's dtype.  Returns a contiguous
-    (m, n) of ``out_dtype`` (fp32 or bf16; default a's dtype).  ``plan``:
-    as ``matmul_cuda``'s.
+    (m, n) of ``out_dtype`` (fp32 or bf16; default a's dtype).  ``plan``
+    and ``round_k``: as ``matmul_cuda``'s.
     """
     out_dtype = out_dtype or a.dtype
     _check_dtypes("brgemm_stacked_cuda", a, b, out_dtype)
@@ -421,7 +441,7 @@ def brgemm_stacked_cuda(a, b, bias=None, c0=None, *,
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    p, oa, ob = _batched_plan("brgemm", a, b, plan)
+    p, oa, ob = _batched_plan("brgemm", a, b, plan, round_k)
     ws = (torch.empty(p.splits * m * n, dtype=torch.float32, device=a.device)
           if p.splits > 1 else None)
     lib = _batched_lib()
@@ -430,7 +450,7 @@ def brgemm_stacked_cuda(a, b, bias=None, c0=None, *,
         c0.data_ptr() if has_c0 else None, _row_stride(c0) if has_c0 else 0,
         out.data_ptr(), nb, m, n, k, float(alpha), float(beta),
         fusion.code(activation), *_flags(a, out_dtype, bias, c0),
-        MAINLOOPS.index(p.mainloop), p.bm, p.splits, p.chunk,
+        MAINLOOPS.index(p.mainloop), p.bm, p.splits, p.chunk, int(round_k),
         ws.data_ptr() if ws is not None else None,
         torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, lib, "brgemm_stacked")
@@ -442,15 +462,15 @@ def brgemm_stacked_cuda(a, b, bias=None, c0=None, *,
 
 def batched_matmul_cuda(a, b, bias=None, *, activation: str = "none",
                         alpha: float = 1.0, out_dtype=None,
-                        plan: Plan | None = None):
+                        plan: Plan | None = None, round_k: int = 0):
     """``act(alpha * a[i] @ b[i] + bias)`` for each i, on the card.
 
     a: (B, m, k) or a 2-D (m, k) broadcast over the batch; b: (B, k, n) or
     a 2-D (k, n) broadcast; not both 2-D.  Each entry row- or column-major
     (as ``swapaxes(-1, -2)`` views are) with any batch stride, read in
     place.  bias: (n,) contiguous, fp32 or a's dtype.  Returns a contiguous
-    (B, m, n) of ``out_dtype`` (default a's dtype).  ``plan``: as
-    ``matmul_cuda``'s.
+    (B, m, n) of ``out_dtype`` (default a's dtype).  ``plan`` and
+    ``round_k``: as ``matmul_cuda``'s.
     """
     out_dtype = out_dtype or a.dtype
     _check_dtypes("batched_matmul_cuda", a, b, out_dtype)
@@ -473,7 +493,7 @@ def batched_matmul_cuda(a, b, bias=None, *, activation: str = "none",
         *oa, *ob, bias.data_ptr() if bias is not None else None,
         out.data_ptr(), nb, m, n, k, float(alpha), fusion.code(activation),
         *_flags(a, out_dtype, bias), MAINLOOPS.index(p.mainloop), p.bm,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        int(round_k), torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, lib, "batched_matmul")
     batched_matmul_cuda.launches += 1
     batched_matmul_cuda.mainloops[p.mainloop] += 1

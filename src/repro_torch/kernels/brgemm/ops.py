@@ -32,6 +32,13 @@ through the XLA einsum that this contraction is:
 and a 2-D operand broadcast over the batch takes the sum of its entries'
 gradients.
 
+Under ``use(accum_dtype=torch.bfloat16)`` the ``"torch"`` backends round
+the product to bf16 once before the fp32 epilogue, as the reference's XLA
+path does, and the ``"cuda"`` forwards round their sums at the reference's
+k-block ends (``dispatch.accum_block``).  The backward GEMMs and the
+pre-activation recomputes run in fp32 whatever the context, as the
+reference's VJPs call the kernels with no accumulator dtype.
+
 Each entry takes ``quant=`` and routes through ``quant.active_quant``: an
 explicit spec, an ambient ``use(quant=...)`` or a calibrated
 ``QuantizedTensor`` weight sends the call to the quantized GEMM
@@ -54,14 +61,16 @@ from repro_torch.kernels.brgemm import ref as R
 @dispatch.register("matmul", "torch")
 def _matmul_torch(x, w, bias, c0, *, activation, alpha, beta, out_dtype):
     return R.matmul_ref(x, w, bias, activation=activation, alpha=alpha,
-                        beta=beta, c0=c0, out_dtype=out_dtype)
+                        beta=beta, c0=c0, out_dtype=out_dtype,
+                        accum=dispatch.resolve_accum_dtype())
 
 
 class _MatmulCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bias, c0, activation, alpha, beta, out_dtype):
+    def forward(ctx, x, w, bias, c0, activation, alpha, beta, out_dtype,
+                round_k):
         y = K.matmul_cuda(x, w, bias, c0, activation=activation, alpha=alpha,
-                          beta=beta, out_dtype=out_dtype)
+                          beta=beta, out_dtype=out_dtype, round_k=round_k)
         # The output is kept only when the derivative is read from it.
         from_y = activation != "none" and not fusion.needs_preact(activation)
         ctx.save_for_backward(x, w, bias, c0, y if from_y else None)
@@ -91,17 +100,18 @@ class _MatmulCuda(torch.autograd.Function):
             dbias = g.sum(0).to(bias.dtype)
         if c0 is not None and ctx.needs_input_grad[3]:
             dc0 = (g * beta).to(c0.dtype)
-        return dx, dw, dbias, dc0, None, None, None, None
+        return dx, dw, dbias, dc0, None, None, None, None, None
 
 
 @dispatch.register("matmul", "cuda")
 def _matmul_cuda(x, w, bias, c0, *, activation, alpha, beta, out_dtype):
+    round_k = dispatch.accum_block("matmul", x.size(-1))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias, c0)):
         return _MatmulCuda.apply(x, w, bias, c0, activation, alpha, beta,
-                                 out_dtype)
+                                 out_dtype, round_k)
     return K.matmul_cuda(x, w, bias, c0, activation=activation, alpha=alpha,
-                         beta=beta, out_dtype=out_dtype)
+                         beta=beta, out_dtype=out_dtype, round_k=round_k)
 
 
 def _quant_for(w, quant, x, c0, beta):
@@ -164,15 +174,17 @@ def brgemm_bwd(stacked, batched, a, b, bias, c0, y, dy, *, activation,
 @dispatch.register("brgemm", "torch")
 def _brgemm_torch(a, b, bias, c0, *, activation, alpha, beta, out_dtype):
     return R.brgemm_ref(a, b, bias, activation=activation, alpha=alpha,
-                        beta=beta, c0=c0, out_dtype=out_dtype)
+                        beta=beta, c0=c0, out_dtype=out_dtype,
+                        accum=dispatch.resolve_accum_dtype())
 
 
 class _BrgemmCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, bias, c0, activation, alpha, beta, out_dtype):
+    def forward(ctx, a, b, bias, c0, activation, alpha, beta, out_dtype,
+                round_k):
         y = K.brgemm_stacked_cuda(a, b, bias, c0, activation=activation,
                                   alpha=alpha, beta=beta,
-                                  out_dtype=out_dtype)
+                                  out_dtype=out_dtype, round_k=round_k)
         from_y = activation != "none" and not fusion.needs_preact(activation)
         ctx.save_for_backward(a, b, bias, c0, y if from_y else None)
         ctx.cfg = dict(activation=activation, alpha=alpha, beta=beta)
@@ -186,17 +198,19 @@ class _BrgemmCuda(torch.autograd.Function):
             grads = brgemm_bwd(K.brgemm_stacked_cuda, K.batched_matmul_cuda, a,
                                b, bias, c0, y, dy,
                                needs=ctx.needs_input_grad[:4], **ctx.cfg)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 @dispatch.register("brgemm", "cuda")
 def _brgemm_cuda(a, b, bias, c0, *, activation, alpha, beta, out_dtype):
+    round_k = dispatch.accum_block("brgemm", a.size(-1))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, bias, c0)):
         return _BrgemmCuda.apply(a, b, bias, c0, activation, alpha, beta,
-                                 out_dtype)
+                                 out_dtype, round_k)
     return K.brgemm_stacked_cuda(a, b, bias, c0, activation=activation,
-                                 alpha=alpha, beta=beta, out_dtype=out_dtype)
+                                 alpha=alpha, beta=beta, out_dtype=out_dtype,
+                                 round_k=round_k)
 
 
 def brgemm(a, b, bias=None, c0=None, *, activation: str = "none",
@@ -220,7 +234,8 @@ def brgemm(a, b, bias=None, c0=None, *, activation: str = "none",
 @dispatch.register("batched_matmul", "torch")
 def _batched_matmul_torch(a, b, bias, *, activation, alpha, out_dtype):
     return R.batched_matmul_ref(a, b, bias, activation=activation,
-                                alpha=alpha, out_dtype=out_dtype)
+                                alpha=alpha, out_dtype=out_dtype,
+                                accum=dispatch.resolve_accum_dtype())
 
 
 def batched_bwd(batched, a, b, bias, y, dy, *, activation, alpha,
@@ -252,9 +267,10 @@ def batched_bwd(batched, a, b, bias, y, dy, *, activation, alpha,
 
 class _BatchedCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, bias, activation, alpha, out_dtype):
+    def forward(ctx, a, b, bias, activation, alpha, out_dtype, round_k):
         y = K.batched_matmul_cuda(a, b, bias, activation=activation,
-                                  alpha=alpha, out_dtype=out_dtype)
+                                  alpha=alpha, out_dtype=out_dtype,
+                                  round_k=round_k)
         from_y = activation != "none" and not fusion.needs_preact(activation)
         ctx.save_for_backward(a, b, bias, y if from_y else None)
         ctx.cfg = dict(activation=activation, alpha=alpha)
@@ -267,16 +283,19 @@ class _BatchedCuda(torch.autograd.Function):
         with dispatch.restored(ctx.dispatch):
             grads = batched_bwd(K.batched_matmul_cuda, a, b, bias, y, dy,
                                 needs=ctx.needs_input_grad[:3], **ctx.cfg)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 @dispatch.register("batched_matmul", "cuda")
 def _batched_matmul_cuda(a, b, bias, *, activation, alpha, out_dtype):
+    round_k = dispatch.accum_block("batched_matmul", a.size(-1))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, bias)):
-        return _BatchedCuda.apply(a, b, bias, activation, alpha, out_dtype)
+        return _BatchedCuda.apply(a, b, bias, activation, alpha, out_dtype,
+                                  round_k)
     return K.batched_matmul_cuda(a, b, bias, activation=activation,
-                                 alpha=alpha, out_dtype=out_dtype)
+                                 alpha=alpha, out_dtype=out_dtype,
+                                 round_k=round_k)
 
 
 def batched_matmul(a, b, bias=None, *, activation: str = "none",

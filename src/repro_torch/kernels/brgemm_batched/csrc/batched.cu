@@ -44,6 +44,10 @@
 //     the header's reduction.
 //   * wmma / simt: the 64 x 64 tile of repro_tile.cuh walking every entry
 //     and k-block in one block.
+// bf16 accumulation (the reference's accum_dtype=bfloat16, round_k > 0):
+// every mainloop rounds its fp32 sums to bf16 in place at the end of each
+// round_k elements of an entry's k and at its end, the ends of the
+// reference's (entry, k-block) grid steps; the stacked walk on one split.
 //
 // What bounds it on an H100: the paper's shapes (m, n <= 128, k <= 256,
 // B <= 64) make few output tiles: their time is the latency of a launch,
@@ -60,7 +64,7 @@ using namespace repro;
 __device__ __forceinline__ void tile_bf16(const Operand& a, const Operand& b,
                                           const Epilogue& e, int m, int n,
                                           int k, int batch0, int entries,
-                                          long long row_base) {
+                                          long long row_base, int round_k) {
   __shared__ __align__(128) bf16 As[tc::STAGE];
   __shared__ __align__(128) bf16 Bs[tc::STAGE];
   __shared__ __align__(128) float Cs[tc::BM * tc::LDC];
@@ -69,7 +73,8 @@ __device__ __forceinline__ void tile_bf16(const Operand& a, const Operand& b,
   tc::StridedFetch fb{b_op<bf16>(b, n0, n, k, tc::BK, batch0)};
   tc::Acc acc[2][2];
   tc::mainloop(acc, As, Bs, a.trans, !b.trans, entries * cdiv(k, tc::BK), fa,
-               fb);
+               fb, tc::Same{}, tc::Same{},
+               Round{round_k / tc::BK, cdiv(k, tc::BK)});
   tc::store_tile(acc, Cs, [&](int r, int c, float v) {
     if (m0 + r < m && n0 + c < n) finish(e, v, row_base + m0 + r, n0 + c);
   });
@@ -78,13 +83,13 @@ __device__ __forceinline__ void tile_bf16(const Operand& a, const Operand& b,
 __device__ __forceinline__ void tile_f32(const Operand& a, const Operand& b,
                                          const Epilogue& e, int m, int n,
                                          int k, int batch0, int entries,
-                                         long long row_base) {
+                                         long long row_base, int round_k) {
   const int m0 = blockIdx.y * simt::BM, n0 = blockIdx.x * simt::BN;
   simt::StridedFetch fa{a_op<float>(a, m0, m, k, simt::BK, batch0)};
   simt::StridedFetch fb{b_op<float>(b, n0, n, k, simt::BK, batch0)};
   float acc[4][4];
   simt::mainloop(acc, a.trans, !b.trans, entries * cdiv(k, simt::BK), fa,
-                 fb);
+                 fb, Round{round_k / simt::BK, cdiv(k, simt::BK)});
   simt::store_tile(acc, [&](int r, int c, float v) {
     if (m0 + r < m && n0 + c < n) finish(e, v, row_base + m0 + r, n0 + c);
   });
@@ -92,27 +97,29 @@ __device__ __forceinline__ void tile_f32(const Operand& a, const Operand& b,
 
 __global__ void __launch_bounds__(tc::THREADS)
 brgemm_stacked_bf16_kernel(Operand a, Operand b, Epilogue e, int nb, int m,
-                           int n, int k) {
-  tile_bf16(a, b, e, m, n, k, 0, nb, 0);
+                           int n, int k, int round_k) {
+  tile_bf16(a, b, e, m, n, k, 0, nb, 0, round_k);
 }
 
 __global__ void __launch_bounds__(simt::THREADS)
 brgemm_stacked_f32_kernel(Operand a, Operand b, Epilogue e, int nb, int m,
-                          int n, int k) {
-  tile_f32(a, b, e, m, n, k, 0, nb, 0);
+                          int n, int k, int round_k) {
+  tile_f32(a, b, e, m, n, k, 0, nb, 0, round_k);
 }
 
 // Entry blockIdx.z writes rows blockIdx.z * m .. of the (nb * m, n) output.
 __global__ void __launch_bounds__(tc::THREADS)
 batched_matmul_bf16_kernel(Operand a, Operand b, Epilogue e, int m, int n,
-                           int k) {
-  tile_bf16(a, b, e, m, n, k, blockIdx.z, 1, (long long)blockIdx.z * m);
+                           int k, int round_k) {
+  tile_bf16(a, b, e, m, n, k, blockIdx.z, 1, (long long)blockIdx.z * m,
+            round_k);
 }
 
 __global__ void __launch_bounds__(simt::THREADS)
 batched_matmul_f32_kernel(Operand a, Operand b, Epilogue e, int m, int n,
-                          int k) {
-  tile_f32(a, b, e, m, n, k, blockIdx.z, 1, (long long)blockIdx.z * m);
+                          int k, int round_k) {
+  tile_f32(a, b, e, m, n, k, blockIdx.z, 1, (long long)blockIdx.z * m,
+           round_k);
 }
 
 // kernel.py::MAINLOOPS, in order.
@@ -150,15 +157,18 @@ static bool operand_maps(CUtensorMap* ta, CUtensorMap* tb, const void* a,
 // brgemm_stacked's plan (kernel.py::plan_stacked): mainloop (0 wgmma, 1
 // wmma, 2 simt); for wgmma bm (64 or 128), splits and chunk (slices of the
 // nb * ceil(k / 64) stacked slices a split) and ws, a (splits, m, n) fp32
-// workspace when splits > 1.
+// workspace when splits > 1.  round_k (both functions): bf16
+// accumulation's rounding block in k elements (a multiple of 64; one
+// split), or 0 for fp32 accumulation.
 extern "C" int repro_brgemm_stacked(
     const void* a, long long sa, long long lda, int a_trans, int vec_a,
     const void* b, long long sb, long long ldb, int b_trans, int vec_b,
     const void* bias, const void* c0, long long ldc0, void* out, int nb,
     int m, int n, int k, float alpha, float beta, int act, int is_bf16,
     int out_f32, int bias_f32, int c0_f32, int mainloop, int bm, int splits,
-    int chunk, void* ws, void* stream) {
+    int chunk, int round_k, void* ws, void* stream) {
   if (act < 0 || act >= N_ACT || (mainloop == SIMT) == (is_bf16 != 0) ||
+      round_k < 0 || round_k % 64 || (round_k && splits > 1) ||
       (mainloop == WGMMA &&
        ((bm != 64 && bm != 128) || k < 1 || nb < 1 || splits < 1 ||
         chunk < 1 || (splits > 1 && ws == nullptr))))
@@ -174,7 +184,8 @@ extern "C" int repro_brgemm_stacked(
     float* wsf = splits > 1 ? static_cast<float*>(ws) : nullptr;
     int rc = wg::launch<wg::STACKED>(bm, a_trans, !b_trans, ta, tb, sa != 0,
                                      sb != 0, Sink{e, wsf, m, n}, k, splits,
-                                     chunk, nb, st);
+                                     chunk, nb, st,
+                                     Round{round_k / wg::BK, cdiv(k, wg::BK)});
     if (rc == 0 && splits > 1) rc = wg::reduce_splits(wsf, e, m, n, splits,
                                                       st);
     return rc;
@@ -183,10 +194,12 @@ extern "C" int repro_brgemm_stacked(
   dim3 grid(cdiv(n, 64), cdiv(m, 64));
   if (mainloop == WMMA)
     brgemm_stacked_bf16_kernel<<<grid, tc::THREADS, 0, st>>>(oa, ob, e, nb,
-                                                             m, n, k);
+                                                             m, n, k,
+                                                             round_k);
   else
     brgemm_stacked_f32_kernel<<<grid, simt::THREADS, 0, st>>>(oa, ob, e, nb,
-                                                              m, n, k);
+                                                              m, n, k,
+                                                              round_k);
   return (int)cudaGetLastError();
 }
 
@@ -196,8 +209,9 @@ extern "C" int repro_batched_matmul(
     const void* b, long long sb, long long ldb, int b_trans, int vec_b,
     const void* bias, void* out, int nb, int m, int n, int k, float alpha,
     int act, int is_bf16, int out_f32, int bias_f32, int mainloop, int bm,
-    void* stream) {
+    int round_k, void* stream) {
   if (act < 0 || act >= N_ACT || (mainloop == SIMT) == (is_bf16 != 0) ||
+      round_k < 0 || round_k % 64 ||
       (mainloop == WGMMA && ((bm != 64 && bm != 128) || k < 1)))
     return (int)cudaErrorInvalidValue;
   Epilogue e{out, bias, nullptr, n, 0, alpha, 0.0f, act, out_f32, bias_f32,
@@ -210,16 +224,17 @@ extern "C" int repro_batched_matmul(
       return (int)cudaErrorInvalidValue;
     return wg::launch<wg::PER_ENTRY>(bm, a_trans, !b_trans, ta, tb, sa != 0,
                                      sb != 0, Sink{e, nullptr, m, n}, k, nb,
-                                     cdiv(k, wg::BK), nb, st);
+                                     cdiv(k, wg::BK), nb, st,
+                                     Round{round_k / wg::BK, cdiv(k, wg::BK)});
   }
   Operand oa{a, sa, lda, a_trans, vec_a}, ob{b, sb, ldb, b_trans, vec_b};
   dim3 grid(cdiv(n, 64), cdiv(m, 64), nb);
   if (mainloop == WMMA)
     batched_matmul_bf16_kernel<<<grid, tc::THREADS, 0, st>>>(oa, ob, e, m, n,
-                                                             k);
+                                                             k, round_k);
   else
     batched_matmul_f32_kernel<<<grid, simt::THREADS, 0, st>>>(oa, ob, e, m,
-                                                              n, k);
+                                                              n, k, round_k);
   return (int)cudaGetLastError();
 }
 

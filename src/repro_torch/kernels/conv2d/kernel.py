@@ -14,7 +14,11 @@ alike (both run this kernel); ``.mainloops`` the calls by mainloop and
 ``conv2d_cuda`` takes its plan from ``dispatch.resolve_blocks`` under the
 reference's triple (q, c, k), the rest of the call as a
 ``ConvGeometry``; ``candidate_plans_conv`` is the grid a measured policy
-searches (the split counts of the wgmma plan).
+searches (the split counts of the wgmma plan).  ``round_c`` asks for bf16
+accumulation: the sums rounded to bf16 in place at the end of every
+``round_c`` channels of a tap and at the tap's end (the reference's
+(tap, 128-channel block) grid steps), on one split; the wmma and simt
+mainloops then walk the window tap by tap.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 from repro_torch.core import blocking, dispatch, fusion
 from repro_torch.core.blocking import ConvGeometry, Plan, PlanSchema
 from repro_torch.kernels import _build
-from repro_torch.kernels.brgemm.kernel import PER_SM, _split
+from repro_torch.kernels.brgemm.kernel import PER_SM, _split, one_split
 from repro_torch.kernels.conv2d.ref import out_size
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -119,7 +123,7 @@ def plan_conv_call(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 @functools.cache
 def _lib():
     lib = _build.load("conv2d")
-    lib.repro_conv2d.argtypes = [_P, _P, _P, _P] + [_I] * 20 + [_P, _P]
+    lib.repro_conv2d.argtypes = [_P, _P, _P, _P] + [_I] * 21 + [_P, _P]
     lib.repro_conv2d.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -128,7 +132,7 @@ def _lib():
 
 def conv2d_cuda(x, w, bias=None, *, stride: int = 1, padding: int = 0,
                 activation: str = "none", out_dtype=None,
-                plan: Plan | None = None):
+                plan: Plan | None = None, round_c: int = 0):
     """``act(conv(x, w) + bias)`` on the card, NHWC x RSCK -> NPQK.
 
     x: (N, H, W, C) and w: (R, S, C, K), both contiguous, fp32 or bf16 of
@@ -136,7 +140,9 @@ def conv2d_cuda(x, w, bias=None, *, stride: int = 1, padding: int = 0,
     padded by ``padding`` on every side (zeros, never materialized).
     Returns a contiguous (N, P, Q, K) of ``out_dtype`` (default x's dtype).
     ``plan``: run so (one the kernel cannot take raises), else the block
-    policy's pick (``dispatch.resolve_blocks``).
+    policy's pick (``dispatch.resolve_blocks``).  ``round_c``: bf16
+    accumulation's block of a tap's channels (a multiple of 128), or 0 for
+    fp32.
     """
     out_dtype = out_dtype or x.dtype
     if not (x.is_cuda and w.device == x.device):
@@ -175,6 +181,8 @@ def conv2d_cuda(x, w, bias=None, *, stride: int = 1, padding: int = 0,
         return out
     is_bf16 = x.dtype == torch.bfloat16
     plan = _conv_plan(x, w, stride, padding, plan)
+    if round_c:
+        plan = one_split(plan, r * s * -(-c // CBLOCK))
     ws = (torch.empty(plan.splits * out.numel(), dtype=torch.float32,
                       device=x.device) if plan.splits > 1 else None)
     lib = _lib()
@@ -188,7 +196,7 @@ def conv2d_cuda(x, w, bias=None, *, stride: int = 1, padding: int = 0,
         int(is_bf16 and c % 8 == 0 and x.data_ptr() % 16 == 0),
         int(is_bf16 and k % 8 == 0 and w.data_ptr() % 16 == 0),
         MAINLOOPS.index(plan.mainloop), plan.splits, plan.chunk,
-        ws.data_ptr() if ws is not None else None,
+        int(round_c), ws.data_ptr() if ws is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv2d kernel launch failed: CUDA error {rc} "

@@ -16,6 +16,11 @@ plain version in ``ref.py``, differentiated by plain autograd; and
             operand: the reference's R*S GEMMs X_(r,s)^T g side by side,
             the same dot products in the same order    the matmul kernel
     dbias = sum of g over N, P, Q
+
+Under ``use(accum_dtype=torch.bfloat16)`` the ``"cuda"`` forward rounds
+its sums at the reference's (tap, 128-channel block) ends
+(``dispatch.accum_block``); the backward stays fp32, and the ``"torch"``
+backend ignores the context, as the reference's XLA path does.
 """
 from __future__ import annotations
 
@@ -106,9 +111,11 @@ def _conv2d_torch(x, w, bias, *, stride, padding, activation, out_dtype):
 
 class _Conv2dCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bias, stride, padding, activation, out_dtype):
+    def forward(ctx, x, w, bias, stride, padding, activation, out_dtype,
+                round_c):
         y = K.conv2d_cuda(x, w, bias, stride=stride, padding=padding,
-                          activation=activation, out_dtype=out_dtype)
+                          activation=activation, out_dtype=out_dtype,
+                          round_c=round_c)
         # The output is kept only when the derivative is read from it.
         from_y = activation != "none" and not fusion.needs_preact(activation)
         ctx.save_for_backward(x, w, bias, y if from_y else None)
@@ -122,17 +129,19 @@ class _Conv2dCuda(torch.autograd.Function):
         with dispatch.restored(ctx.dispatch):
             grads = conv2d_bwd(K.conv2d_cuda, BK.matmul_cuda, x, w, bias, y,
                                dy, needs=ctx.needs_input_grad[:3], **ctx.cfg)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 @dispatch.register("conv2d", "cuda")
 def _conv2d_cuda(x, w, bias, *, stride, padding, activation, out_dtype):
+    round_c = dispatch.accum_block("conv2d", x.size(3))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias)):
         return _Conv2dCuda.apply(x, w, bias, stride, padding, activation,
-                                 out_dtype)
+                                 out_dtype, round_c)
     return K.conv2d_cuda(x, w, bias, stride=stride, padding=padding,
-                         activation=activation, out_dtype=out_dtype)
+                         activation=activation, out_dtype=out_dtype,
+                         round_c=round_c)
 
 
 def conv2d(x, w, bias=None, *, stride: int = 1, padding: int = 0,

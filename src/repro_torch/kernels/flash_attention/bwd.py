@@ -55,10 +55,10 @@ V_DIMS = tuple(sorted({dv for _, dv in FWD_HEAD_DIMS}))
 def _lib():
     lib = _build.load("flash_attention_bwd")
     lib.repro_flash_bwd.argtypes = ([_P] * 10 + [_I] * 7
-                                    + [_P, _I, _I, _F, _I, _P])
+                                    + [_P, _I, _I, _F, _I, _I, _P])
     lib.repro_flash_bwd.restype = ctypes.c_int
     lib.repro_flash_bwd_wgmma.argtypes = ([_P] * 10 + [_I] * 7
-                                          + [_P, _I, _I, _F, _P, _P])
+                                          + [_P, _I, _I, _F, _P, _I, _P])
     lib.repro_flash_bwd_wgmma.restype = ctypes.c_int
     lib.repro_delta_rowsum.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _I,
                                        _P]
@@ -108,7 +108,7 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
                              window: int | None = None,
                              scale: float | None = None,
                              return_delta: bool = False,
-                             plan: str | None = None):
+                             plan: str | None = None, round_k: int = 0):
     """(dq, dk, dv) from the forward's residuals, on the card.
 
     q: (B, Hq, Tq, d); k: (B, Hkv, Tk, d); v: (B, Hkv, Tk, dv); y, dy:
@@ -120,6 +120,10 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
     sliced back); with ``return_delta`` also the fused fp32 (B, Hq, Tq)
     delta.  ``scale`` defaults to ``d ** -0.5`` of the unpadded d.
     ``plan``: the mainloop to run, else the block policy's pick.
+    ``round_k``: bf16 accumulation, dQ rounded to bf16 in place after each
+    ``round_k`` keys and dK, dV after each ``round_k`` q rows of a q-head
+    (a multiple of 64; ``blocking.accum_block``), and after the last; 0,
+    fp32 accumulation.
     """
     if not (q.is_cuda and all(t.device == q.device
                               for t in (k, v, y, lse, dy))):
@@ -180,10 +184,12 @@ def flash_attention_bwd_cuda(q, k, v, y, lse, dy, *, causal: bool = True,
             stats = torch.empty(b * hq * -(-tq // 64) * 128,
                                 dtype=torch.float32, device=q.device)
             rc = lib.repro_flash_bwd_wgmma(*args, tma, *tail,
-                                           stats.data_ptr(), stream)
+                                           stats.data_ptr(), int(round_k),
+                                           stream)
         else:
             rc = lib.repro_flash_bwd(*args, strides, *tail,
-                                     int(q.dtype == torch.bfloat16), stream)
+                                     int(q.dtype == torch.bfloat16),
+                                     int(round_k), stream)
         _check(rc, "flash_attention_bwd", lib)
         flash_attention_bwd_cuda.launches += 1
         flash_attention_bwd_cuda.mainloops[mainloop] += 1

@@ -67,6 +67,14 @@
 // one warpgroup does not overlap with its own products (blocks side by
 // side on an SM overlap each other's).
 //
+// bf16 accumulation (the reference's accum_dtype=bfloat16, round_k > 0):
+// every mainloop rounds O to bf16 in place after each round_k keys counted
+// from key 0 (two 64-key tiles; the reference's block_k) and after its last
+// tile, the reference's block ends: a tile the loop bounds leave out adds
+// nothing to O, and rounding twice at a point changes nothing, so causal
+// and windowed starts, Tq != Tk and a ragged Tk need no case of their own.
+// The rescale by corr and the running statistics stay fp32.
+//
 // Masked scores take p = 0 explicitly.  A row with no valid key (l = 0; it
 // occurs only non-causal and windowed with Tq > Tk) stores what the plain
 // mha_ref and the reference's give it: every score is NEG_INF there, so the
@@ -87,6 +95,9 @@ namespace wmma = nvcuda::wmma;
 constexpr float NEG_INF = -1e30f;
 constexpr int BK = 64, WARPS = 4, THREADS = WARPS * 32;
 
+using repro::round_after;   // O rounded after key tile j of BK
+using repro::round_bf16;
+
 // q rows a block of the wmma / simt design: 64 (16 a warp, wmma's tile),
 // but 32 for fp32 at DV = 256, whose 64-row tiles overflow shared memory.
 template <typename T, int DV>
@@ -101,6 +112,7 @@ struct Params {
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st;
   int hq, group, tq, tk, causal, window;   // window < 0: none
   float scale;
+  int round_k;         // bf16 accumulation's block of keys; 0: fp32
 };
 
 constexpr int align128(int b) { return (b + 127) / 128 * 128; }
@@ -341,6 +353,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
         for (int i = 0; i < CPL; ++i) Ow[r * L::LDO + lane + 32 * i] = acc[r][i];
     }
     __syncwarp();
+    if (round_after(p.round_k, j, j_end, BK)) {   // this warp's rows of O
+      for (int i = lane; i < ROWS_PER_WARP * DV; i += 32) {
+        float* o = Ow + (i / DV) * L::LDO + i % DV;
+        *o = round_bf16(*o);
+      }
+      __syncwarp();
+    }
   }
 
   // ---- finish: O / l, lse = m + log l; empty rows give the mean of V
@@ -387,7 +406,8 @@ static int launch(const Params& p, int batch, cudaStream_t stream) {
 // given (batch, head, time) strides in elements and a unit head stride;
 // (d, dv) one of the instantiated pairs.  o is a contiguous (B, Hq, Tq, dv)
 // of q's type; lse, when not null, a contiguous fp32 (B, Hq, Tq).  is_bf16
-// selects bf16 (else fp32) for q, k, v and o.
+// selects bf16 (else fp32) for q, k, v and o.  round_k: bf16
+// accumulation's block of keys (a multiple of 64), or 0 for fp32.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int batch, int hq,
                                int hkv, int tq, int tk, int d, int dv,
@@ -395,10 +415,12 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                long long k_sb, long long k_sh, long long k_st,
                                long long v_sb, long long v_sh, long long v_st,
                                int causal, int window, float scale,
-                               int is_bf16, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
+                               int is_bf16, int round_k, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || round_k < 0 || round_k % BK)
+    return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, lse, q_sb, q_sh, q_st, k_sb, k_sh, k_st,
-           v_sb, v_sh, v_st, hq, hq / hkv, tq, tk, causal, window, scale};
+           v_sb, v_sh, v_st, hq, hq / hkv, tq, tk, causal, window, scale,
+           round_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (d == 32 && dv == 32) return launch<bf16, 32, 32>(p, batch, s);
@@ -455,6 +477,7 @@ struct WgParams {
   long long v_sb, v_sh, v_st;
   int hq, group, tq, tk, causal, window;   // window < 0: none
   float scale_log2;                        // scale * log2(e)
+  int round_k;                             // as Params'
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -635,6 +658,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     sm90::fence_regs(o);
     if (t == 0) sm90::mbar_arrive(&empty[stage]);
     if (++stage == S::STAGES) { stage = 0; phase ^= 1; }
+    if (round_after(p.round_k, j, j_end, BK)) {
+#pragma unroll
+      for (int i = 0; i < S::DP / 2; ++i) o[i] = round_bf16(o[i]);
+      sm90::fence_regs(o);
+    }
   }
 
   // ---- finish: O / l, lse = m + log l; empty rows give the mean of V and
@@ -708,8 +736,9 @@ extern "C" int repro_flash_fwd_wgmma(
     long long q_sb,
     long long q_sh, long long q_st, long long k_sb, long long k_sh,
     long long k_st, long long v_sb, long long v_sh, long long v_st,
-    int causal, int window, float scale, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || tk < 1) return (int)cudaErrorInvalidValue;
+    int causal, int window, float scale, int round_k, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || tk < 1 || round_k < 0 || round_k % BK)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tmq, tmk, tmv;
   if (!fa::map4d(&tmq, q, d, tq, hq, batch, q_st, q_sh, q_sb, fa::BQ) ||
       !fa::map4d(&tmk, k, d, tk, hkv, batch, k_st, k_sh, k_sb, fa::KV) ||
@@ -717,7 +746,7 @@ extern "C" int repro_flash_fwd_wgmma(
     return (int)cudaErrorInvalidValue;
   fa::WgParams p{static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
                  v_sb, v_sh, v_st, hq, hq / hkv, tq, tk, causal, window,
-                 (float)(scale * 1.4426950408889634)};
+                 (float)(scale * 1.4426950408889634), round_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 32 && dv == 32) return fa::launch<32, 32>(tmq, tmk, tmv, p, batch, s);
   if (d == 64 && dv == 64) return fa::launch<64, 64>(tmq, tmk, tmv, p, batch, s);

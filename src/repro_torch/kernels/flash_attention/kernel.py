@@ -47,10 +47,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 def _lib():
     lib = _build.load("flash_attention")
     lib.repro_flash_fwd.argtypes = ([_P] * 5 + [_I] * 7 + [_LL] * 9
-                                    + [_I, _I, _F, _I, _P])
+                                    + [_I, _I, _F, _I, _I, _P])
     lib.repro_flash_fwd.restype = ctypes.c_int
     lib.repro_flash_fwd_wgmma.argtypes = ([_P] * 5 + [_I] * 7 + [_LL] * 9
-                                          + [_I, _I, _F, _P])
+                                          + [_I, _I, _F, _I, _P])
     lib.repro_flash_fwd_wgmma.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -171,7 +171,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int | None = None,
                          scale: float | None = None,
                          return_residuals: bool = False,
-                         plan: str | None = None):
+                         plan: str | None = None, round_k: int = 0):
     """q: (B, Hq, Tq, d); k: (B, Hkv, Tk, d); v: (B, Hkv, Tk, dv) -> o
     (B, Hq, Tq, dv).
 
@@ -179,6 +179,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     one; ``scale`` defaults to ``d ** -0.5``.  With ``return_residuals``
     also returns lse = m + log l, fp32 (B, Hq, Tq), ``NEG_INF`` for empty
     rows.  ``plan``: the mainloop to run, else the block policy's pick.
+    ``round_k``: bf16 accumulation, O rounded to bf16 in place after each
+    ``round_k`` keys (a multiple of 64) and after the last
+    (``blocking.accum_block``); 0, fp32 accumulation.
     """
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA "
@@ -217,10 +220,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if mainloop == "wgmma":
             tma = _tma_strides(q) + _tma_strides(k) + _tma_strides(v)
-            rc = lib.repro_flash_fwd_wgmma(*args, *tma, *tail, stream)
+            rc = lib.repro_flash_fwd_wgmma(*args, *tma, *tail, int(round_k),
+                                           stream)
         else:
             rc = lib.repro_flash_fwd(*args, *strides, *tail,
-                                     int(q.dtype == torch.bfloat16), stream)
+                                     int(q.dtype == torch.bfloat16),
+                                     int(round_k), stream)
         if rc != 0:
             raise RuntimeError(
                 f"flash_attention kernel launch failed: CUDA error {rc} "

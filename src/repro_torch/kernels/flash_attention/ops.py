@@ -10,6 +10,12 @@ Hopper backward kernels (``_FlashCuda``): the forward saves
 forward's residuals.  ``"torch"`` is ``flash_attention_bwd_ref`` (autograd
 through ``mha_ref``, ignoring y and lse, like the reference's ``xla``
 backend); ``"cuda"`` the Hopper kernels.
+
+Under ``use(accum_dtype=torch.bfloat16)`` the ``"cuda"`` backends round
+their accumulators at the reference's block ends
+(``dispatch.accum_block``), and ``_FlashCuda`` carries its forward's
+accumulation to its backward, as the reference's ``_Cfg`` does; the
+``"torch"`` backends ignore it, as the reference's ``xla`` backends do.
 """
 from __future__ import annotations
 
@@ -30,12 +36,13 @@ def _flash_torch(q, k, v, *, causal, window, scale, return_residuals):
 
 class _FlashCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, round_k):
         o, lse = K.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window, scale=scale,
-                                        return_residuals=True)
+                                        return_residuals=True,
+                                        round_k=round_k)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.cfg = (causal, window, scale)
+        ctx.cfg = (causal, window, scale, round_k)
         ctx.dispatch = dispatch.snapshot()
         ctx.mark_non_differentiable(lse)
         return o, lse
@@ -43,7 +50,7 @@ class _FlashCuda(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, scale = ctx.cfg
+        causal, window, scale, round_k = ctx.cfg
         # The kernel reads dO through its strides; a gradient it cannot read
         # in place (the zero strides of a sum's broadcast, say) is copied.
         # The training path's dO, a view of the merged heads, never is.
@@ -54,18 +61,20 @@ class _FlashCuda(torch.autograd.Function):
         with dispatch.restored(ctx.dispatch):
             dq, dk, dv = B.flash_attention_bwd_cuda(
                 q, k, v, o, lse, do, causal=causal, window=window,
-                scale=scale)
-        return dq, dk, dv, None, None, None
+                scale=scale, round_k=round_k)
+        return dq, dk, dv, None, None, None, None
 
 
 @dispatch.register("flash_attention", "cuda")
 def _flash_cuda(q, k, v, *, causal, window, scale, return_residuals):
+    round_k = dispatch.accum_block("flash_attention", k.size(-2))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        o, lse = _FlashCuda.apply(q, k, v, causal, window, scale)
+        o, lse = _FlashCuda.apply(q, k, v, causal, window, scale, round_k)
         return (o, lse) if return_residuals else o
     return K.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                   scale=scale,
-                                  return_residuals=return_residuals)
+                                  return_residuals=return_residuals,
+                                  round_k=round_k)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -89,8 +98,9 @@ def _flash_bwd_torch(q, k, v, y, lse, dy, *, causal, window, scale):
 
 @dispatch.register("flash_attention_bwd", "cuda")
 def _flash_bwd_cuda(q, k, v, y, lse, dy, *, causal, window, scale):
-    return B.flash_attention_bwd_cuda(q, k, v, y, lse, dy, causal=causal,
-                                      window=window, scale=scale)
+    return B.flash_attention_bwd_cuda(
+        q, k, v, y, lse, dy, causal=causal, window=window, scale=scale,
+        round_k=dispatch.accum_block("flash_attention_bwd", k.size(-2)))
 
 
 def flash_attention_bwd(q, k, v, y, lse, dy, *, causal: bool = True,

@@ -82,6 +82,17 @@
 //     fragments a thread and spills (off every path: TMA reads the
 //     training path's views).
 //
+// bf16 accumulation (the reference's accum_dtype=bfloat16, round_k > 0):
+// dQ is rounded to bf16 in place after each round_k keys counted from key
+// 0 (two 64-key tiles) and after kernel A's last tile; dK and dV after
+// each round_k q rows of a q-head (two 64-row steps) and after its last
+// live tile, the reference's block ends (its dQ walks k blocks of 128, its
+// dK / dV q blocks of at most 128 rows).  The reference sums each q-head's
+// dK and dV on its own and adds the group's in fp32; kernel B adds the
+// group's heads into the sums it rounds, within the same band.  Kernel B's
+// two warpgroups for d <= 64 would add two sums of every other step: under
+// bf16 accumulation the first takes every step, a sequential sum.
+//
 // Masking happens before the exponential: a pair outside the mask or a key
 // past Tk gives p = 0 without evaluating exp.  A row with
 // no valid key (lse NEG_INF; it occurs only windowed with Tq >= Tk +
@@ -121,6 +132,9 @@ constexpr int BC = 64;                 // columns a step (A: keys; B: q rows)
 constexpr float NEG_INF = -1e30f;      // the lse of a row with no valid key
 constexpr unsigned FULL = 0xffffffffu;
 
+using repro::round_after;   // a sum rounded after tile i of BK
+using repro::round_bf16;
+
 struct Params {
   const void *q, *k, *v, *y, *dy;
   const float* lse;    // (B, Hq, Tq)
@@ -130,6 +144,7 @@ struct Params {
   long long y_sb, y_sh, y_st, dy_sb, dy_sh, dy_st;
   int hq, hkv, group, tq, tk, causal, window;   // window < 0: none
   float scale;
+  int round_k;         // bf16 accumulation's block (keys, q rows); 0: fp32
 };
 
 constexpr int align128(int b) { return (b + 127) / 128 * 128; }
@@ -251,6 +266,23 @@ __device__ __forceinline__ float dscore(const Params& p, int q_pos,
 }
 
 using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+template <int N>
+__device__ __forceinline__ void round_frags(Frag (&acc)[N]) {
+#pragma unroll
+  for (int ct = 0; ct < N; ++ct)
+#pragma unroll
+    for (int e = 0; e < acc[ct].num_elements; ++e)
+      acc[ct].x[e] = round_bf16(acc[ct].x[e]);
+}
+
+template <int R, int C>
+__device__ __forceinline__ void round_regs(float (&acc)[R][C]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int i = 0; i < C; ++i) acc[r][i] = round_bf16(acc[r][i]);
+}
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
                              wmma::row_major>;
 using FragBR = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
@@ -470,6 +502,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
         }
       }
     }
+    if (round_after(p.round_k, j, j_end, BK)) {
+      if constexpr (L::TC) round_frags(acc_tc);
+      else round_regs(acc);
+    }
     __syncwarp();
   }
 
@@ -639,6 +675,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(Params p) {
           }
         }
       }
+      if (round_after(p.round_k, i, i_end, BK)) {
+        if constexpr (L::TC) {
+          round_frags(dk_tc);
+          round_frags(dv_tc);
+        } else {
+          round_regs(dk);
+          round_regs(dv);
+        }
+      }
       __syncwarp();
     }
   }
@@ -757,7 +802,7 @@ static Params make_params(const void* q, const void* k, const void* v,
                 st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                 st[8], st[9], st[10], st[11], st[12], st[13], st[14],
                 hq, hkv, hkv > 0 ? hq / hkv : 0, tq, tk, causal, window,
-                scale};
+                scale, 0};
 }
 
 // q: (B, Hq, Tq, D); k: (B, Hkv, Tk, D); v: (B, Hkv, Tk, DV); y, dy:
@@ -766,8 +811,9 @@ static Params make_params(const void* q, const void* k, const void* v,
 // 15 values, in elements) with a unit head stride.  lse: contiguous fp32
 // (B, Hq, Tq).  Writes delta (contiguous fp32 (B, Hq, Tq)), dq (contiguous
 // (B, Hq, Tq, D)), dk (contiguous (B, Hkv, Tk, D)) and dv (contiguous
-// (B, Hkv, Tk, DV)), all but delta of q's type.  Two launches: kernel A,
-// then kernel B, on `stream`.  Returns the first non-zero
+// (B, Hkv, Tk, DV)), all but delta of q's type.  round_k: bf16
+// accumulation's block of keys and q rows (a multiple of 64), or 0 for
+// fp32.  Two launches: kernel A, then kernel B, on `stream`.  Returns the first non-zero
 // cudaGetLastError(), or 0.
 extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
                                const void* y, const void* dy,
@@ -776,10 +822,12 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
                                int hkv, int tq, int tk, int d, int d_v,
                                const long long* strides, int causal,
                                int window, float scale, int is_bf16,
-                               void* stream) {
-  if (hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
+                               int round_k, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || round_k < 0 || round_k % BK)
+    return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, y, dy, lse, delta, dq, dk, dv, hq, hkv, tq,
                          tk, strides, causal, window, scale);
+  p.round_k = round_k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     REPRO_PAIRS(launch_bwd, bf16, p, batch, d, d_v, s);
@@ -916,6 +964,7 @@ struct WgParams {
   long long dy_sb, dy_sh, dy_st;
   int hq, hkv, group, tq, tk, causal, window;   // window < 0: none
   float scale, scale_log2;                      // scale * log2(e)
+  int round_k;                                  // as Params'
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1254,6 +1303,11 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     sm90::fence_regs(dq);
     if (t == 0) sm90::mbar_arrive(&empty[stage]);
     if (++stage == S::STAGES) { stage = 0; phase ^= 1; }
+    if (round_after(p.round_k, j, j_end, BK)) {
+#pragma unroll
+      for (int i = 0; i < S::DPQ / 2; ++i) dq[i] = round_bf16(dq[i]);
+      sm90::fence_regs(dq);
+    }
   }
   store_rows<DQ>(dq, p.dq + (row0 + q0) * DQ, DQ, r_lo, p.tq - q0, quad);
 }
@@ -1335,8 +1389,11 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     return;
   }
 
-  // The consumer warpgroups: wg takes steps wg, wg + WGS, ..
+  // The consumer warpgroups: wg takes steps wg, wg + WGS, .., or, under
+  // bf16 accumulation, the first takes every step.
   const int wg = warp / 4, t = threadIdx.x % 128, quad = t % 4;
+  const int first = p.round_k ? (wg ? steps : 0) : wg;
+  const int stride = p.round_k ? 1 : WGS;
   const int r_lo = (warp % 4) * 16 + lane / 4;   // key in the tile
   const int key_lo = k0 + r_lo;
   float dk[S::DP / 2], dv[S::DP / 2];
@@ -1344,7 +1401,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   for (int i = 0; i < S::DP / 2; ++i) dk[i] = dv[i] = 0.0f;
   sm90::mbar_wait(kvbar, 0);
 
-  for (int step = wg; step < steps; step += WGS) {
+  for (int step = first; step < steps; step += stride) {
     const int q0 = (i_begin + step % n_i) * TILE;
     const int stage = step % S::STAGES;
     sm90::mbar_wait(&full[stage], (step / S::STAGES) & 1);
@@ -1368,6 +1425,15 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     sm90::fence_regs(dv);
     sm90::fence_regs(dk);
     if (t == 0) sm90::mbar_arrive(&empty[stage]);
+    if (round_after(p.round_k, i_begin + step % n_i, i_begin + n_i, BK)) {
+#pragma unroll
+      for (int i = 0; i < S::DP / 2; ++i) {
+        dk[i] = round_bf16(dk[i]);
+        dv[i] = round_bf16(dv[i]);
+      }
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+    }
   }
   if constexpr (WGS == 2) {            // every step is consumed: the ring
     float* part = reinterpret_cast<float*>(ring);   // is free
@@ -1431,6 +1497,14 @@ __device__ __forceinline__ void dkdv_columns(
     sm90::fence_regs(dv);
     sm90::fence_regs(dk);
     if (t == 0) sm90::mbar_arrive(&empty[stage]);
+    if (round_after(p.round_k, i_begin + step % n_i, i_begin + n_i, BK)) {
+#pragma unroll
+      for (int i = 0; i < KN / 2; ++i) dk[i] = round_bf16(dk[i]);
+#pragma unroll
+      for (int i = 0; i < VN / 2; ++i) dv[i] = round_bf16(dv[i]);
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+    }
     refill(step, stage, parity);
   }
   const long long krow = ((long long)b * p.hkv + hk) * p.tk + k0;
@@ -1574,6 +1648,7 @@ static bool map4d(CUtensorMap* map, const void* base, int d, int t, int h,
 // bytes; the wrapper gives a size-1 dimension a legal stand-in) and
 // 16-byte aligned bases.  stats: a (B, Hq, Tq rounded up to 64, 2) fp32
 // scratch, 16-byte aligned, that kernel A fills and kernel B reads.
+// round_k: as repro_flash_bwd's.
 extern "C" int repro_flash_bwd_wgmma(const void* q, const void* k,
                                      const void* v, const void* y,
                                      const void* dy, const float* lse,
@@ -1582,8 +1657,9 @@ extern "C" int repro_flash_bwd_wgmma(const void* q, const void* k,
                                      int tq, int tk, int d, int d_v,
                                      const long long* strides, int causal,
                                      int window, float scale, void* stats,
-                                     void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || tq < 1 || tk < 1 || stats == nullptr)
+                                     int round_k, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || tq < 1 || tk < 1 || stats == nullptr ||
+      round_k < 0 || round_k % fb::TILE)
     return (int)cudaErrorInvalidValue;
   const long long* st = strides;   // q, k, v, y, dy: (b, h, t) each
   CUtensorMap maps[5];             // q, k, v, dy, y
@@ -1597,7 +1673,7 @@ extern "C" int repro_flash_bwd_wgmma(const void* q, const void* k,
                  static_cast<float2*>(stats), static_cast<bf16*>(dq),
                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), st[12],
                  st[13], st[14], hq, hkv, hq / hkv, tq, tk, causal, window,
-                 scale, scale * fb::LOG2E};
+                 scale, scale * fb::LOG2E, round_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 32 && d_v == 32) return fb::launch<32, 32>(maps, p, batch, s);
   if (d == 64 && d_v == 64) return fb::launch<64, 64>(maps, p, batch, s);

@@ -368,14 +368,19 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 // kernels below:
 // each instantiation carries only its own walk's and types' arithmetic,
 // so matmul's and batched_matmul's compile as they did before the other
-// walks were added.
+// walks were added.  rnd (bf16 operands only): the slices of the walk,
+// counted from its first (s0 + i), after which the fp32 sums are rounded
+// to bf16 in place (bf16 accumulation at the reference's block ends: its
+// segments are an entry's k slices, or a tap's channel blocks for IM2COL);
+// a rounding point waits for its slice's products first.
 template <int BM, int A_MN, int B_MN, int WALK, typename T = Bf16,
           typename SINK = Sink>
 __device__ __forceinline__ void gemm_wgmma(const CUtensorMap& tx,
                                            const CUtensorMap& tw,
                                            const SINK& sink, int k,
                                            int chunk, int x3d, int w3d,
-                                           int nb, const Im2col& g = {}) {
+                                           int nb, const Im2col& g = {},
+                                           Round rnd = {}) {
   using S = Shape<BM, T::ESIZE, T::WIDEN>;
   using Acc = typename T::Acc;
   constexpr int STAGES = S::STAGES;
@@ -536,6 +541,15 @@ __device__ __forceinline__ void gemm_wgmma(const CUtensorMap& tx,
       sm90::wgmma_wait<1>();
       if (i > 0 && threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[prev]);
       prev = stage;
+      if constexpr (std::is_same<T, Bf16>::value) {
+        if (rnd.at(s0 + i)) {
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(acc);
+#pragma unroll
+          for (int e = 0; e < 64; ++e) acc[e] = round_bf16(acc[e]);
+          sm90::fence_regs(acc);
+        }
+      }
     }
     if (++stage == STAGES) { stage = 0; phase ^= 1; }
   }
@@ -575,16 +589,18 @@ template <int BM, int A_MN, int B_MN, int WALK>
 __global__ void __launch_bounds__(Shape<BM>::THREADS, 2)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                   const __grid_constant__ CUtensorMap tw, Sink sink, int k,
-                  int chunk, int x3d, int w3d) {
-  gemm_wgmma<BM, A_MN, B_MN, WALK>(tx, tw, sink, k, chunk, x3d, w3d, 1);
+                  int chunk, int x3d, int w3d, Round rnd) {
+  gemm_wgmma<BM, A_MN, B_MN, WALK>(tx, tw, sink, k, chunk, x3d, w3d, 1, {},
+                                   rnd);
 }
 
 template <int BM, int A_MN, int B_MN>
 __global__ void __launch_bounds__(Shape<BM>::THREADS, 2)
 gemm_stacked_kernel(const __grid_constant__ CUtensorMap tx,
                     const __grid_constant__ CUtensorMap tw, Sink sink, int k,
-                    int chunk, int x3d, int w3d, int nb) {
-  gemm_wgmma<BM, A_MN, B_MN, STACKED>(tx, tw, sink, k, chunk, x3d, w3d, nb);
+                    int chunk, int x3d, int w3d, int nb, Round rnd) {
+  gemm_wgmma<BM, A_MN, B_MN, STACKED>(tx, tw, sink, k, chunk, x3d, w3d, nb,
+                                      {}, rnd);
 }
 
 // The 8-bit GEMM (matmul_q): both operands K-major, split k as SPLIT_K,
@@ -627,8 +643,8 @@ template <int BM>
 __global__ void __launch_bounds__(Shape<BM>::THREADS, 2)
 gemm_im2col_kernel(const __grid_constant__ CUtensorMap tx,
                    const __grid_constant__ CUtensorMap tw, Sink sink, int k,
-                   int chunk, Im2col g) {
-  gemm_wgmma<BM, 0, 1, IM2COL>(tx, tw, sink, k, chunk, 0, 0, 1, g);
+                   int chunk, Im2col g, Round rnd) {
+  gemm_wgmma<BM, 0, 1, IM2COL>(tx, tw, sink, k, chunk, 0, 0, 1, g, rnd);
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory; its cudaError_t.
@@ -641,7 +657,8 @@ static int with_smem(K kernel, int bytes) {
 template <int BM, int A_MN, int B_MN, int WALK>
 static int launch_tile(const CUtensorMap& tx, const CUtensorMap& tw,
                        int x3d, int w3d, const Sink& sink, int k, int z,
-                       int chunk, int nb, cudaStream_t stream) {
+                       int chunk, int nb, cudaStream_t stream,
+                       Round rnd = {}) {
   using S = Shape<BM>;
   dim3 grid(cdiv(sink.m, BM), cdiv(sink.n, BN), z);
   if constexpr (WALK == STACKED) {
@@ -649,13 +666,13 @@ static int launch_tile(const CUtensorMap& tx, const CUtensorMap& tw,
     static const int attr = with_smem(kernel, S::SMEM);
     if (attr != 0) return attr;
     kernel<<<grid, S::THREADS, S::SMEM, stream>>>(tx, tw, sink, k, chunk,
-                                                  x3d, w3d, nb);
+                                                  x3d, w3d, nb, rnd);
   } else {
     auto kernel = gemm_wgmma_kernel<BM, A_MN, B_MN, WALK>;
     static const int attr = with_smem(kernel, S::SMEM);
     if (attr != 0) return attr;
     kernel<<<grid, S::THREADS, S::SMEM, stream>>>(tx, tw, sink, k, chunk,
-                                                  x3d, w3d);
+                                                  x3d, w3d, rnd);
   }
   return (int)cudaGetLastError();
 }
@@ -663,15 +680,17 @@ static int launch_tile(const CUtensorMap& tx, const CUtensorMap& tw,
 // The launch for tile rows bm (64 or 128) and the operands' major-ness:
 // a_mn (X read column-major), b_mn (W read row-major).  z: splits of k
 // (SPLIT_K) or of the stacked slices (STACKED), chunk slices each, or
-// batch entries (PER_ENTRY, one split); nb: the entries (STACKED).
+// batch entries (PER_ENTRY, one split); nb: the entries (STACKED); rnd:
+// the rounding points of bf16 accumulation (one split only).
 template <int WALK>
 static int launch(int bm, int a_mn, int b_mn, const CUtensorMap& tx,
                   const CUtensorMap& tw, int x3d, int w3d, const Sink& sink,
-                  int k, int z, int chunk, int nb, cudaStream_t stream) {
+                  int k, int z, int chunk, int nb, cudaStream_t stream,
+                  Round rnd = {}) {
 #define REPRO_WGMMA(BM, A, B)                                              \
   if (bm == BM && a_mn == A && b_mn == B)                                  \
     return launch_tile<BM, A, B, WALK>(tx, tw, x3d, w3d, sink, k, z,       \
-                                       chunk, nb, stream);
+                                       chunk, nb, stream, rnd);
   REPRO_WGMMA(128, 0, 0) REPRO_WGMMA(128, 0, 1) REPRO_WGMMA(128, 1, 0)
   REPRO_WGMMA(128, 1, 1) REPRO_WGMMA(64, 0, 0) REPRO_WGMMA(64, 0, 1)
   REPRO_WGMMA(64, 1, 0) REPRO_WGMMA(64, 1, 1)
@@ -725,14 +744,15 @@ static int launch_8bit(int bm, const CUtensorMap& tx, const CUtensorMap& tw,
 template <int BM = 128>
 static int launch_im2col(const CUtensorMap& tx, const CUtensorMap& tw,
                          const Sink& sink, const Im2col& g, int slices,
-                         int splits, int chunk, cudaStream_t stream) {
+                         int splits, int chunk, cudaStream_t stream,
+                         Round rnd = {}) {
   using S = Shape<BM>;
   auto kernel = gemm_im2col_kernel<BM>;
   static const int attr = with_smem(kernel, S::SMEM);
   if (attr != 0) return attr;
   dim3 grid(cdiv(sink.m, BM), cdiv(sink.n, BN), splits);
   kernel<<<grid, S::THREADS, S::SMEM, stream>>>(tx, tw, sink, slices * BK,
-                                                chunk, g);
+                                                chunk, g, rnd);
   return (int)cudaGetLastError();
 }
 

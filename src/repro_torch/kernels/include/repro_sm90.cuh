@@ -24,12 +24,28 @@
 //            bytes).
 #pragma once
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
 
 namespace repro {
+
+// bf16 accumulation (the reference's accum_dtype=bfloat16): an fp32 sum
+// rounded to bf16 in place at the end of each of the reference's blocks.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Whether a sum is rounded after slice i of `bk` reduction elements (of a
+// walk ending before i_end): at each round_k end and at the last slice;
+// never for round_k 0.
+__device__ __forceinline__ bool round_after(int round_k, int i, int i_end,
+                                            int bk) {
+  return round_k && ((i + 1) * bk % round_k == 0 || i == i_end - 1);
+}
+
 namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -32,6 +32,8 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "repro_sm90.cuh"   // round_bf16
+
 namespace repro {
 using bf16 = __nv_bfloat16;
 
@@ -111,6 +113,23 @@ __device__ __forceinline__ void finish(const Epilogue& e, float acc,
 }
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// bf16 accumulation (the reference's accum_dtype=bfloat16): where a walk
+// rounds its fp32 sums to bf16 in place, at the ends of the reference's
+// reduction blocks.  The walk is cut into segments of `seg` slices (k of
+// one batch entry, or one tap's channels), each into blocks of `every`
+// slices counted from the segment's start; a block's last slice, and a
+// segment's, is a rounding point.  every = 0: fp32 accumulation, never.
+// The port's partial sum of a block is not rounded on its own before it is
+// added, as the reference's is: the one difference, held to a band.
+struct Round {
+  int every = 0, seg = 1;
+  __host__ __device__ __forceinline__ bool at(int sl) const {
+    if (every == 0) return false;
+    const int p = sl % seg + 1;
+    return p % every == 0 || p == seg;
+  }
+};
 
 // A strided 2-D operand, one matrix per batch entry: element (row, col) of
 // entry i at p + i * bstride + row * ld + col, in memory order (rows are
@@ -261,11 +280,14 @@ struct Same {
 // is stored to shared memory, after the products it overlapped (a fetch
 // of narrower storage returns raw bytes and widens there, so that the
 // widening does not wait on the load).
+// rnd: the slices after which the fp32 sums are rounded to bf16 in place
+// (bf16 accumulation; none by default).
 template <typename FA, typename FB, typename WA = Same, typename WB = Same>
 __device__ __forceinline__ void mainloop(Acc (&acc)[2][2], bf16* As, bf16* Bs,
                                          int a_red_rows, int b_red_rows,
                                          int slices, FA& fa, FB& fb,
-                                         WA wa = {}, WB wb = {}) {
+                                         WA wa = {}, WB wb = {},
+                                         Round rnd = {}) {
   const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
   const int lda = a_red_rows ? LD_RED : LD_FIX;
   const int ldb = b_red_rows ? LD_RED : LD_FIX;
@@ -307,6 +329,15 @@ __device__ __forceinline__ void mainloop(Acc (&acc)[2][2], bf16* As, bf16* Bs,
     } else {
       if (b_red_rows) mma_slice<RM, RM>(acc, As, Bs, lda, ldb, wm, wn);
       else mma_slice<RM, CM>(acc, As, Bs, lda, ldb, wm, wn);
+    }
+    if (rnd.at(sl)) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < acc[i][j].num_elements; ++e)
+            acc[i][j].x[e] = round_bf16(acc[i][j].x[e]);
     }
     __syncthreads();
   }
@@ -527,7 +558,7 @@ struct StridedFetch {
 template <typename FA, typename FB>
 __device__ __forceinline__ void mainloop(float (&acc)[4][4], int a_red_rows,
                                          int b_red_rows, int slices, FA& fa,
-                                         FB& fb) {
+                                         FB& fb, Round rnd = {}) {
   __shared__ float As[BK][BM + 4];   // As[kk][m]
   __shared__ float Bs[BK][BN + 4];   // Bs[kk][n]
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -561,6 +592,12 @@ __device__ __forceinline__ void mainloop(float (&acc)[4][4], int a_red_rows,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (rnd.at(sl)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = round_bf16(acc[i][j]);
     }
     __syncthreads();
   }

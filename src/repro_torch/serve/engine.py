@@ -5,10 +5,14 @@ tokens, the position bookkeeping, and the order of draws.  Greedy is
 ``argmax``; sampling is Gumbel-max over ``logits / temperature`` with
 uniforms drawn from the caller's ``torch.Generator`` (the reference uses
 ``jax.random.categorical``, which is the same draw rule on other bits).
-Both engines run under ``torch.inference_mode()``; a backend and a block
+Both engines run under ``torch.inference_mode()``; a backend, a block
 policy (``blocks_policy``: ``"heuristic"``, ``"autotune"`` or a callable,
-``dispatch.resolve_blocks``), when given, scope prefill and decode through
-``dispatch.use``, as the reference's ``_tier_context`` does: under
+``dispatch.resolve_blocks``) and an accumulator dtype (``accum_dtype``:
+``"bfloat16"`` rounds every full-precision GEMM, convolution and flash
+kernel's sums at the reference's block ends; the quantized GEMMs of a
+quant tier keep their own accumulator), when given, scope prefill and
+decode through ``dispatch.use``, as the reference's ``_tier_context``
+does: under
 ``"autotune"`` the first call at each kernel shape pays the measured
 search (or reads ``REPRO_TORCH_TUNING_CACHE``) and later ones reuse the
 winner.  A VLM config (``cfg.n_patches``) takes ``patch_embeds`` (B,
@@ -48,7 +52,8 @@ streaming callbacks, serving metrics and request spans (``obs``).  Greedy
 outputs match the static ``Engine`` token for token.  The reference's
 ``key`` is a ``torch.Generator`` here (by default one on the engine's
 device, seeded 0, so sampling draws no uniforms on the host); its
-accumulation dtype, interpret mode and mesh are not ported.
+``interpret`` (no counterpart on the card), ``mesh`` and ``axis_specs``
+are not ported.
 """
 from __future__ import annotations
 
@@ -95,6 +100,12 @@ def _tier(quant):
     return as_quant_config(quant) if quant is not None else None
 
 
+def _accum(accum_dtype):
+    """An engine's accumulator dtype, validated at construction."""
+    return (dispatch.as_accum_dtype(accum_dtype) if accum_dtype is not None
+            else None)
+
+
 def _pos_off(cfg: ArchCfg) -> int:
     """Positions a prompt's tokens start at: past a VLM's patch prefix (an
     encoder-decoder's frames are the encoder's, not the decoder's)."""
@@ -127,7 +138,7 @@ class ServeConfig:
 class Engine:
     def __init__(self, cfg: ArchCfg, params, scfg: ServeConfig, *,
                  backend: str | None = None, device="cuda", quant=None,
-                 decode_quant=None, blocks_policy=None):
+                 decode_quant=None, blocks_policy=None, accum_dtype=None):
         self.device = dispatch.check_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params live on {params.device}, the engine "
@@ -138,6 +149,7 @@ class Engine:
         self.backend = backend
         # Normalized (so validated) here, not at the first call.
         self.blocks_policy = dispatch.check_blocks_policy(blocks_policy)
+        self.accum_dtype = _accum(accum_dtype)
         self.quant = _tier(quant)
         self.decode_quant = _tier(decode_quant) or self.quant
 
@@ -181,7 +193,8 @@ class Engine:
                 batch.get("src_embeds"), "src_embeds", self.device),
                 self.scfg.src_len, "ServeConfig")
         with torch.inference_mode(), dispatch.use(
-                backend=self.backend, blocks_policy=self.blocks_policy):
+                backend=self.backend, blocks_policy=self.blocks_policy,
+                accum_dtype=self.accum_dtype):
             cache = api.init_cache(self.cfg, b, self.scfg.max_len,
                                    self.scfg.src_len, device=self.device)
             with dispatch.use(quant=self.quant):
@@ -284,7 +297,7 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ArchCfg, params, pool: PoolConfig, *,
                  backend: str | None = None, quant=None, decode_quant=None,
-                 blocks_policy=None, priority_fn=None,
+                 blocks_policy=None, accum_dtype=None, priority_fn=None,
                  generator: torch.Generator | None = None,
                  trace_sample_rate: int | None = None,
                  clock: Callable[[], float] = time.perf_counter,
@@ -319,6 +332,7 @@ class ContinuousEngine:
         self.pool_cfg = pool
         self.backend = backend
         self.blocks_policy = dispatch.check_blocks_policy(blocks_policy)
+        self.accum_dtype = _accum(accum_dtype)
         self._pos_off = _pos_off(cfg)
         self.quant = _tier(quant)
         # decode streams the weights, so it gets its own quant tier
@@ -712,7 +726,8 @@ class ContinuousEngine:
         Returns a list of ``(request_id, token, finished)`` events.
         """
         with torch.inference_mode(), dispatch.use(
-                backend=self.backend, blocks_policy=self.blocks_policy):
+                backend=self.backend, blocks_policy=self.blocks_policy,
+                accum_dtype=self.accum_dtype):
             return self._step()
 
     def _step(self):

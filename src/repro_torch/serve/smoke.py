@@ -12,8 +12,9 @@ were actually measured — zero on a warm persisted
 where no kernel has a plan.
 
 ``python -m repro_torch.serve.smoke --frontend`` exercises the async
-serving front-end instead: two engine replicas on different tiers (full
-precision, and ``decode_quant="int8"``) behind an ``EngineRouter``, one
+serving front-end instead: two engine replicas on different tiers (fp32
+accumulation, and ``accum_dtype="bfloat16"``, the reference's two) behind
+an ``EngineRouter``, one
 replica hit by an injected ``step()`` fault
 mid-service.  The smoke asserts the replica is quarantined, its in-flight
 requests requeue onto the survivor, and *every* submitted request still
@@ -115,8 +116,8 @@ def _frontend_smoke(args) -> None:
     params = _params(cfg, args)
     pool = lambda: PoolConfig(n_slots=args.n_slots,  # noqa: E731
                               max_len=args.max_len)
-    # two tiers: full precision next to an int8 decode tier
-    flaky = ContinuousEngine(cfg, params, pool(), decode_quant="int8",
+    # two tiers: default accumulation next to an explicit bf16-accum tier
+    flaky = ContinuousEngine(cfg, params, pool(), accum_dtype="bfloat16",
                              device=args.device)
     calls = [0]
     orig_step = flaky.step
@@ -131,8 +132,8 @@ def _frontend_smoke(args) -> None:
     router = EngineRouter(
         [EngineReplica("stable", ContinuousEngine(cfg, params, pool(),
                                                   device=args.device),
-                       tier="full"),
-         EngineReplica("flaky", flaky, tier="int8")],
+                       tier="fp32"),
+         EngineReplica("flaky", flaky, tier="bf16")],
         max_waiting=4 * args.requests)
 
     rng = np.random.default_rng(0)

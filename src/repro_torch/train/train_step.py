@@ -11,15 +11,18 @@ training they are bf16, as in the reference, and the optimizer casts them to
 fp32.  With microbatches they are summed in fp32 and divided by their
 count.  The learning-rate scale reads the step *before* the update
 increments it, so the first update has lr = 0, as in the reference.
-``backend`` and ``blocks_policy`` scope the forward and the backward (the
-kernels' backward passes re-enter the forward's dispatch state,
-``dispatch.restored``).  ``cfg.remat`` checkpoints each decoder block
+``backend``, ``blocks_policy`` and ``accum_dtype`` scope the forward and
+the backward (the kernels' backward passes re-enter the forward's dispatch
+state, ``dispatch.restored``): under ``accum_dtype="bfloat16"`` the
+forward kernels and the flash backward round their sums at the
+reference's block ends, the GEMMs' and convolution's backward stay fp32,
+as in the reference.  ``cfg.remat`` checkpoints each decoder block
 (``models/transformer.py``): memory, not numbers.  ``grad_compression``
 (``"bf16"`` or ``"int8"``) quantizes and dequantizes the gradients between
 the backward and AdamW, which then takes them in fp32, as the reference's
 step does (``distributed/collectives.py``); an int8 scale covers a leaf of
 the reference's tree, every layer of a stack (``interop.stacked_leaves``).
-Accumulator dtypes and meshes are not ported yet.
+Meshes and ``axis_specs`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -60,18 +63,20 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
 
     ``batch`` holds ``tokens`` and ``labels`` (and a VLM's
     ``patch_embeds``, an encoder-decoder's ``src_embeds``; numpy or
-    tensors), moved to the master copy's device.  ``backend`` and ``blocks_policy`` scope every op of the step,
+    tensors), moved to the master copy's device.  ``backend``,
+    ``blocks_policy`` and ``accum_dtype`` scope every op of the step,
     forward and backward.
     """
     if grad_compression not in ("none", *KINDS):
         raise ValueError(f"grad_compression={grad_compression!r}; expected "
                          f"'none' or one of {', '.join(KINDS)}")
-    if any(x is not None for x in (accum_dtype, mesh, axis_specs)):
+    if mesh is not None or axis_specs is not None:
         raise NotImplementedError(
-            "accum_dtype, mesh and axis_specs are not ported yet: the "
-            "port accumulates in fp32 on one device (blocks_policy is "
-            "ported)")
+            "mesh and axis_specs are not ported yet: the port trains on one "
+            "device (blocks_policy and accum_dtype are ported)")
     blocks_policy = dispatch.check_blocks_policy(blocks_policy)
+    if accum_dtype is not None:
+        accum_dtype = dispatch.as_accum_dtype(accum_dtype)
     model = None     # the working params, built at the first step
 
     def train_step(state, batch):
@@ -81,7 +86,8 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
             model = (EncDec if api.is_encdec(cfg) else Transformer)(
                 cfg, device=device)
         opt.cast_params(state["opt"], dict(model.named_parameters()))
-        with dispatch.use(backend=backend, blocks_policy=blocks_policy):
+        with dispatch.use(backend=backend, blocks_policy=blocks_policy,
+                          accum_dtype=accum_dtype):
             if microbatches > 1:
                 rows = len(batch["tokens"])
                 if rows % microbatches:

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import dispatch, fusion
+from repro_torch.core import blocking, dispatch, fusion
 from repro_torch import quant
 from repro_torch.kernels.brgemm import (batched_matmul, batched_matmul_cuda,
                                         batched_matmul_q_cuda,
@@ -2057,3 +2057,128 @@ def test_instrumented_card_engine_is_freed(gen):
     gc.collect()
     assert ref() is None
     assert torch.cuda.memory_allocated() < held
+
+
+# ---------------------------------------------------------------------------
+# bf16 accumulation: each kernel against its blockwise plain version, at
+# the reference's rounding points (core/blocking.py::accum_block), by
+# chip_smoke.accum_check's measures and limits: within them, and the same
+# wrapper with rounding block 0 (fp32 accumulation) told apart.
+# ---------------------------------------------------------------------------
+
+def accum_held(kernel, real, args, kw):
+    res = chip_smoke.accum_check(kernel, args, kw, real)
+    assert res["excess"] <= 1.0, (kernel, res)
+    assert res["control"] is not None and res["control"] > 1.0, (kernel, res)
+
+
+@pytest.mark.parametrize("dtype,case", [
+    (torch.bfloat16, (96, 1300, 200, 0, 0, 0)),   # wgmma, a split plan
+    (torch.bfloat16, (77, 1100, 133, 1, 1, 3)),   # wmma: unaligned rows
+    (torch.float32, (40, 700, 72, 0, 1, 0)),      # simt
+])
+def test_accum_matmul_kernel(gen, dtype, case):
+    m, k, n, xt, wt, pad = case
+    x, w = _operands(gen, m, k, n, dtype, xt, wt, pad)
+    rk = blocking.accum_block("matmul", k)
+    assert plan_call(x, w, round_k=rk).splits == 1
+    reset_matmul_counts()
+    got = matmul_cuda(x, w, out_dtype=torch.float32, round_k=rk)
+    assert matmul_cuda.split_launches == 0
+    # rounded at the end: every output a bf16 value
+    assert torch.equal(got, got.bfloat16().float())
+    accum_held("matmul", matmul_cuda, (x, w),
+               dict(out_dtype=torch.float32, round_k=rk))
+    accum_held("matmul", matmul_cuda, (x, w), dict(round_k=rk))
+
+
+@pytest.mark.parametrize("dtype,col_major", [
+    (torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False)])
+def test_accum_stacked_and_batched_kernels(gen, dtype, col_major):
+    nb, m, k, n = 4, 40, 300, 72
+    a = chip_smoke.batched_entries(nb, m, k, col_major, dtype, gen)
+    b = chip_smoke.batched_entries(nb, k, n, False, dtype, gen, k ** -0.5)
+    rk = blocking.accum_block("brgemm", k)
+    assert plan_stacked_call(a, b, round_k=rk).splits == 1
+    reset_matmul_counts()
+    brgemm_stacked_cuda(a, b, out_dtype=torch.float32, round_k=rk)
+    assert brgemm_stacked_cuda.split_launches == 0
+    accum_held("brgemm_stacked", brgemm_stacked_cuda, (a, b),
+               dict(out_dtype=torch.float32, round_k=rk))
+    a = chip_smoke.batched_entries(3, m, 1100, col_major, dtype, gen)
+    b = chip_smoke.batched_entries(3, 1100, n, False, dtype, gen, 0.03)
+    rk = blocking.accum_block("batched_matmul", 1100)
+    accum_held("batched_matmul", batched_matmul_cuda, (a, b),
+               dict(out_dtype=torch.float32, round_k=rk))
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (2, 32, 32, 3, 7, 64, 2, 3)),     # the stem: wmma
+    (torch.bfloat16, (2, 14, 14, 64, 3, 64, 1, 1)),    # im2col wgmma
+    (torch.bfloat16, (2, 14, 14, 160, 3, 32, 1, 1)),   # 64 + 64 + 32 channels
+    (torch.bfloat16, (2, 14, 14, 256, 1, 64, 1, 0)),   # 1x1: SPLIT_K
+    (torch.float32, (1, 9, 9, 40, 3, 8, 2, 1)),        # simt
+])
+def test_accum_conv_kernel(gen, dtype, shape):
+    n, h, w_, c, r, k, stride, pad = shape
+    x = torch.randn(n, h, w_, c, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(r, r, c, k, device="cuda", generator=gen)
+         * (r * r * c) ** -0.5).to(dtype)
+    kw = dict(stride=stride, padding=pad, out_dtype=torch.float32,
+              round_c=blocking.accum_block("conv2d", c))
+    reset_conv_counts()
+    conv2d_cuda(x, w, **kw)
+    assert conv2d_cuda.split_launches == 0
+    accum_held("conv2d", conv2d_cuda, (x, w), kw)
+
+
+@pytest.mark.parametrize("d,dv,mainloop,dtype", [
+    (64, 64, "wgmma", torch.bfloat16), (32, 32, "wgmma", torch.bfloat16),
+    (128, 128, "wgmma", torch.bfloat16), (192, 128, "wgmma", torch.bfloat16),
+    (256, 256, "wgmma", torch.bfloat16), (64, 64, "wmma", torch.bfloat16),
+    (64, 64, "simt", torch.float32)])
+@pytest.mark.parametrize("kw,tq,tk", [
+    (dict(causal=True), 300, 300), (dict(causal=True, window=100), 200, 200),
+    (dict(causal=False), 70, 333)])
+def test_accum_flash_kernels(gen, d, dv, mainloop, dtype, kw, tq, tk):
+    q = torch.randn(2, 6, tq, d, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(2, 2, tk, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(2, 2, tk, dv, device="cuda", generator=gen).to(dtype)
+    dy = torch.randn(2, 6, tq, dv, device="cuda", generator=gen).to(dtype)
+    kw = dict(kw, plan=mainloop,
+              round_k=blocking.accum_block("flash_attention", tk))
+    accum_held("flash_attention", flash_attention_cuda, (q, k, v),
+               dict(kw, return_residuals=True))
+    o, lse = flash_attention_cuda(q, k, v, return_residuals=True, **kw)
+    accum_held("flash_attention_bwd", flash_attention_bwd_cuda,
+               (q, k, v, o, lse, dy), kw)
+
+
+def test_accum_quantized_gemm_unchanged(gen):
+    """matmul_q keeps its storage's accumulator under the context: the same
+    bits with and without it."""
+    x = torch.randn(64, 576, device="cuda", generator=gen).bfloat16()
+    w = torch.randn(576, 192, device="cuda", generator=gen).bfloat16()
+    want = matmul(x, w, quant="int8")
+    with dispatch.use(accum_dtype="bfloat16"):
+        got = matmul(x, w, quant="int8")
+    assert torch.equal(got, want)
+
+
+def test_accum_train_step_rounds_forward_and_flash(gen):
+    """A bf16 step of the reduced smollm on the kernels under bf16
+    accumulation runs, its loss near fp32 accumulation's."""
+    cfg = dataclasses.replace(configs.get("smollm-135m").reduced(),
+                              dtype="bfloat16")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 256), device="cuda",
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (2, 256), device="cuda",
+                                     generator=gen)}
+    losses = {}
+    for accum in (None, "bfloat16"):
+        state = init_state(cfg, AdamWCfg(),
+                           torch.Generator("cuda").manual_seed(1))
+        _, m = make_train_step(cfg, AdamWCfg(), accum_dtype=accum)(state,
+                                                                   batch)
+        losses[accum] = float(m["loss"])
+    assert abs(losses["bfloat16"] - losses[None]) < 0.1

@@ -325,9 +325,13 @@ def test_train_step_takes_block_policies_and_refuses_the_rest(
     tts.make_train_step(tcfg, topt.AdamWCfg(),
                         blocks_policy="autotune")(state, b)
     assert seen == ["autotune"]
-    for kw in ({"accum_dtype": torch.bfloat16}, {"mesh": object()},
-               {"axis_specs": {}}):
+    for kw in ({"mesh": object()}, {"axis_specs": {}}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tts.make_train_step(tcfg, topt.AdamWCfg(), **kw)
+    # accum_dtype is ported (tests/test_torch_accum.py): a dtype it does
+    # not know raises
+    tts.make_train_step(tcfg, topt.AdamWCfg(), accum_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="accum_dtype"):
+        tts.make_train_step(tcfg, topt.AdamWCfg(), accum_dtype=torch.float16)
     with pytest.raises(ValueError, match="unknown blocks_policy"):
         tts.make_train_step(tcfg, topt.AdamWCfg(), blocks_policy="fast")

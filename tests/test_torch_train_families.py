@@ -254,7 +254,7 @@ def test_batched_backward_formula_matches_autograd(case, monkeypatch):
     monkeypatch.setattr(BK, "batched_matmul_cuda", counted)
     leaves = [x.clone().requires_grad_() for x in (a, b)]
     lb = bias.clone().requires_grad_() if bias is not None else None
-    y = bops._BatchedCuda.apply(*leaves, lb, act, alpha, None)
+    y = bops._BatchedCuda.apply(*leaves, lb, act, alpha, None, 0)
     y.backward(dy)
     got = [x.grad for x in leaves] + ([lb.grad] if lb is not None else [])
     assert calls == [act] + ["none"] * (3 if case in ("silu", "bias_gelu")

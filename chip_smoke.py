@@ -1,8 +1,8 @@
 """Drive the PyTorch port's serving, training, ResNet-50, batch-reduce
 GEMM, quantized serving, LSTM / FC, windowed-serving, VLM-serving (under
 the measured block policy), MoE / MLA, recurrent and encoder-decoder
-serving, every family's training, and routed, self-healing serving paths
-on one NVIDIA Hopper card.
+serving, every family's training, routed, self-healing serving, and
+data x model parallel training paths on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
@@ -137,7 +137,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                paper's cases.
   10. lstm   — the paper's LSTM (N = 168, T = 50, C = K of 256 to 2048)
                forward and gradient pass, its FC layer's forward, dX and dW
-               (N = 1344, C = K of 256 to 1024), and 4 SGDM steps of the
+               (N = 1344, C = K of 256 to 1024), and 2 SGDM steps of the
                LSTM-LM at GNMT width (4 x 1024, vocab 32000, 168 x 50
                tokens); bf16, then fp32 (the LM at 2 layers).  Exact launch
                counts (8 matmul a layer-step forward), every matmul launch
@@ -147,8 +147,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                on torch.matmul, GFLOP/s, and the GEMMs' share of device
                busy time (the paper's Table 1); the LM's step ms, tokens/s,
                busy and idle share, peak memory.
-  11. windowed — starcoder2-15b at full width and depth (random weights,
-               bf16): ``Engine.generate`` of 2 prompts of window + 256
+  11. windowed — starcoder2-15b at full width, SC_LAYERS of its 40 layers
+               (random weights, bf16): ``Engine.generate`` of 2 prompts of window + 256
                tokens (the ring wraps in prefill) and 64 greedy tokens
                (exact launch counts: 6 matmul a layer and the head a
                forward, 40 windowed flash a prefill; prefill and decode
@@ -263,6 +263,25 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                matmul ``resolve_blocks`` event's FLOPs 2 m n k.  Exact
                launch counts, wgmma only, the canary's new shapes held
                against plain; its rows join phase 12's.
+  18. mesh    — (after train_families) (a) smollm-135m's train_4k and
+               decode_32k cells' hot problems on the (16, 16) production
+               mesh, abstract, under ``blocks_policy="autotune"``
+               (``launch/dryrun.py::block_choices``): each global and
+               local triple, both plans, whether they differ; each shard's
+               plan launched at its local problem against the plain
+               version and timed beside the global plan fitted to it.
+               (b) ``launch/train.py`` trains smollm-135m at full width
+               and depth, bf16, B 6 x T 512, 3 steps, on a (2, 1) data
+               mesh (ZeRO-3) and a (1, 3) model mesh (3 q heads, 1 kv
+               head, d_ff 512 and 16384 vocab rows a rank), each a gloo
+               world of processes on this card (``mesh_rank``; the
+               kernels phase_build built), against one rank on the same
+               global batch (MESH_SPREAD's band); rank 0's forward
+               ``resolve_blocks`` triples equal ``local_problem`` of the
+               one rank's, keyed with the mesh signature; rank 0's
+               launches (path ``mesh``) held against plain on their
+               inputs and timed per shape; step ms, tokens/s, every rank's
+               peak memory, collective bytes by kind, the dist backend.
 Then the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -296,13 +315,13 @@ BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 8, 512, 64, 1024
 # from one seeded generator, 8 slots of 576 positions (the longest prompt
 # and the longest generation), pages of 16.
 CONT_REQUESTS, CONT_SLOTS, CONT_MAX_LEN, CONT_PAGE = 16, 8, 576, 16
-# The fp32 pools hold tokens across pools and against the plain path at 8
-# of smollm-135m's 30 layers (full width), which keeps the whole script
-# within half its time limit since the lstm and windowed phases came; the
-# serve and quant phases' fp32 runs and phase_train's fp32 main path run at
-# that depth too since the accum phase came (bf16 stays the main path, at
-# full depth).
-CONT_FP32_LAYERS = 8
+# The fp32 pools hold tokens across pools and against the plain path at 4
+# of smollm-135m's 30 layers (full width; 8 before the mesh phase came,
+# every layer alike, so no shape is lost), which keeps the whole script
+# within its time limit; the serve and quant phases' fp32 runs and
+# phase_train's fp32 main path run at that depth too (bf16 stays the main
+# path, at full depth).
+CONT_FP32_LAYERS = 4
 CONT_POOLS = (   # name, PoolConfig kwargs, ContinuousEngine kwargs
     ("slotted", {}, {}),
     ("paged", {"page_size": CONT_PAGE}, {}),
@@ -314,9 +333,10 @@ CONT_POOLS = (   # name, PoolConfig kwargs, ContinuousEngine kwargs
 # SmolLM's own T = 2048, B = 2: the GEMMs see the 4096 rows of serving's
 # 8 x 512 prefill.  The plain path keeps a T^2 fp32 score tensor a layer
 # for autograd, so it is held against the kernels at TRAIN_PLAIN_LAYERS of
-# the 30 layers; the kernel step is counted and timed at full depth.
+# the 30 layers (8 before the mesh phase came); the kernel step is counted
+# and timed at full depth.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
-TRAIN_PLAIN_LAYERS = 8
+TRAIN_PLAIN_LAYERS = 4
 FAMILIES = ("brgemm", "flash_attention", "flash_attention_bwd", "conv2d",
             "brgemm_batched", "brgemm_quant")
 RESNET_BATCH, RESNET_HW = 32, 224
@@ -1619,13 +1639,14 @@ def phase_serve(base_cfg):
 
 def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
                decode_quant=None, max_len=MAX_LEN, patch_embeds=None,
-               src_embeds=None, n_steps=16):
+               src_embeds=None, n_steps=8):
     """Host-clock prefill and decode-step times of the kernel path, under a
     serving tier's quant configs (None: full precision), for the prompts
     ``tokens`` (B, T) (after a VLM's ``patch_embeds``; over an
     encoder-decoder's ``src_embeds``) in a cache of ``max_len`` (past the
-    prompt, ``n_steps`` timed decode steps and 4 profiled); whether every
-    logit of the timed prefill and decode steps was finite."""
+    prompt, ``n_steps`` timed decode steps and 2 profiled: 16 and 4 before
+    the mesh phase came); whether every logit of the timed prefill and
+    decode steps was finite."""
     from repro_torch.core import dispatch
     from repro_torch.models import api
     b, prompt = tokens.shape
@@ -1665,7 +1686,7 @@ def step_times(cfg, params, tokens, tier="full", prefill_quant=None,
         finite = bool(finite & torch.isfinite(logits).all())
         # Device busy time of a few decode steps: the kernels' own
         # durations under the profiler, against the unprofiled step time.
-        prof_steps = 4
+        prof_steps = 2
 
         def steps():
             nonlocal logits, cache, tok
@@ -3948,7 +3969,7 @@ FC_N, FC_SIZES = 1344, (256, 512, 1024)
 # layers.
 GNMT = dict(vocab=32000, d_model=1024, n_layers=4)
 GNMT_SGDM = dict(lr=0.3, momentum=0.9, grad_clip=1.0)
-GNMT_STEPS, GNMT_FP32_LAYERS = 4, 2
+GNMT_STEPS, GNMT_FP32_LAYERS = 2, 2     # 4 steps before the mesh phase
 # The port's GEMM kernels (and their split-K sums) by name, against every
 # other kernel of a run: the paper's Table 1 split.
 GEMM_KERNELS = re.compile(r"gemm_\w*kernel|matmul_(wmma|simt)_kernel|"
@@ -4348,14 +4369,15 @@ def phase_lstm(card):
 # 11. starcoder2-15b: the plain GELU FFN and the sliding-window ring cache
 # --------------------------------------------------------------------------
 
-# starcoder2-15b at its published width and depth (random weights from a
-# seed, bf16: ~31.4 GB): SC_BATCH prompts of window + 256 tokens, so that
+# starcoder2-15b at its published width and SC_LAYERS of its 40 layers
+# (every layer alike; all 40 before the mesh phase came, ~31.4 GB in bf16;
+# random weights from a seed): SC_BATCH prompts of window + 256 tokens, so that
 # the ring wraps during prefill, then SC_NEW greedy tokens; then
 # ContinuousEngine on its slotted pool (a ring holds no stable position
 # range, so no paging): SC_REQUESTS greedy requests, prompts of 256 to
 # window + 256 tokens and 16 to SC_NEW new tokens drawn from
 # np.random.default_rng(3), over SC_SLOTS slots.
-SC_BATCH, SC_NEW, SC_SLOTS, SC_REQUESTS = 2, 64, 4, 8
+SC_BATCH, SC_NEW, SC_SLOTS, SC_REQUESTS, SC_LAYERS = 2, 64, 4, 8, 20
 # mistral-large-123b's head, (8 rows, d_model) @ (d_model, vocab) to fp32:
 # the untied head's GEMM at its width (the model does not fit on a card).
 MISTRAL_HEAD = (8, 12288, 32768)
@@ -4413,7 +4435,7 @@ def phase_windowed(card):
     from repro_torch.models import api
     from repro_torch.models.blocks import cache_len
     from repro_torch.serve import Engine, ServeConfig
-    cfg = get("starcoder2-15b")
+    cfg = dataclasses.replace(get("starcoder2-15b"), n_layers=SC_LAYERS)
     prompt = cfg.window + 256
     max_len = prompt + SC_NEW
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -5333,16 +5355,16 @@ def abandon_capture(graph, stream, prev, pool):
     return undone
 
 
-def capture(fn, sets, iters):
+def capture(fn, sets, iters, warm=3):
     """A CUDA graph of ``iters`` calls of ``fn`` cycling through ``sets``,
-    after three warm-up calls on a side stream; None where the capture
+    after ``warm`` warm-up calls on a side stream; None where the capture
     fails, with the process put back as it was (abandon_capture) and the
     failure counted in CAPTURE_FAILURES."""
     prev = torch.cuda.current_stream()
     side, stream = torch.cuda.Stream(), torch.cuda.Stream()
     side.wait_stream(prev)
     with torch.cuda.stream(side):
-        for i in range(3):
+        for i in range(warm):
             fn(*sets[i % len(sets)])
     prev.wait_stream(side)
     graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
@@ -5359,12 +5381,12 @@ def capture(fn, sets, iters):
     return graph
 
 
-def graph_ms(fn, sets, iters):
+def graph_ms(fn, sets, iters, replays=3, warm=3):
     """Device ms per call: CUDA events around the replay of a CUDA graph of
-    ``iters`` calls (median of three replays), so the time holds the
+    ``iters`` calls (median of ``replays`` replays), so the time holds the
     kernels and the gaps between them and no host work.  None where ``fn``
     cannot be captured."""
-    graph = capture(fn, sets, iters)
+    graph = capture(fn, sets, iters, warm)
     if graph is None:
         return None
     graph.replay()
@@ -5372,7 +5394,7 @@ def graph_ms(fn, sets, iters):
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     times = []
-    for _ in range(3):
+    for _ in range(replays):
         start.record()
         graph.replay()
         end.record()
@@ -5453,8 +5475,14 @@ def phase_capture():
         raise AssertionError(f"capture: {repaired}")
 
 
-def time_ms(fn, sets, iters=10):
-    """(device ms, wall ms) per call, cycling through input ``sets`` that
+# Every time row's calls: at most TIME_ITERS (10 before the mesh phase
+# came), 2 where a warm-up call takes SLOW_CALL_MS or more.
+TIME_ITERS, SLOW_CALL_MS = 4, 1.0
+
+
+def time_ms(fn, sets, iters=TIME_ITERS):
+    """(device ms, wall ms) per call over ``iters`` calls (at most
+    TIME_ITERS), cycling through input ``sets`` that
     together exceed the 50 MB L2, so that each call finds its operands in
     device memory as the serving path does.  Device ms comes from a CUDA
     graph of the calls (graph_ms).  The profiler's sum of kernel durations
@@ -5465,19 +5493,30 @@ def time_ms(fn, sets, iters=10):
     from CUDA events around back-to-back calls and so also holds any host
     gap between launches.  Where the profiler records no device event
     either (seen for some of cuDNN's convolutions at ResNet-50's shapes),
-    device ms is the wall time, and a line says so."""
-    for i in range(3):
-        fn(*sets[i % len(sets)])
-    torch.cuda.synchronize()
+    device ms is the wall time, and a line says so.  A call whose warm-up
+    takes SLOW_CALL_MS or more (the plain versions at long T, the larger
+    GEMMs) is timed over at most 2 calls, one replay and one warm-up call
+    before its capture: its time is far above the events' resolution."""
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn(*sets[0])
+    end.record()
+    torch.cuda.synchronize()
+    slow = start.elapsed_time(end) >= SLOW_CALL_MS
+    iters = min(iters, 2 if slow else TIME_ITERS)
+    if not slow:
+        for i in range(1, 3):
+            fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
     start.record()
     for i in range(iters):
         fn(*sets[i % len(sets)])
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
-    ms = graph_ms(fn, sets, iters)
+    ms = graph_ms(fn, sets, iters, *((1, 1) if slow else (3, 3)))
     if ms is not None:
         return ms, wall
 
@@ -5522,7 +5561,7 @@ def conv_plan_fields(x, w, stride=1, padding=0):
     return {"mainloop": p.mainloop, "splits": p.splits}
 
 
-def gemm_times(g, gen, iters=10):
+def gemm_times(g, gen, iters=TIME_ITERS):
     """(ms, wall ms, plain ms, library ms, flops, bytes, plan fields) of
     one bf16 GEMM at ``g``'s shape and layout, with its bias and fp32 c0
     where it takes them; the library call is torch.matmul (no epilogue,
@@ -7091,13 +7130,14 @@ def phase_times_moe(card, calls_by_model):
 # (name, config overrides, static runs [(batch, prompt, new tokens)],
 # continuous prompt lengths), both at full width and cut in depth, which
 # phase 16 trains at full depth (xlstm) and at one group (recurrentgemma):
-# xlstm at 16 of its 48 layers (two groups of 7 mLSTM and an sLSTM, whose
-# steps through the prompt in Python took most of the phase), prompts
+# xlstm at 8 of its 48 layers (one group of 7 mLSTM and an sLSTM, whose
+# steps through the prompt in Python took most of the phase; 16 before the
+# mesh phase came: two groups of the same shapes), prompts
 # obeying mLSTM's chunk rule (at most 256 tokens or a multiple of 256);
 # recurrentgemma at 8 of its 38 layers (2 (rec, rec, attn) groups and two
 # trailing rec blocks), the long prompt past the 2048 window.
 REC_MODELS = (
-    ("xlstm-1.3b", {"n_layers": 16}, ((2, 256, 32),),
+    ("xlstm-1.3b", {"n_layers": 8}, ((2, 256, 32),),
      (64, 128, 200, 256, 512)),
     ("recurrentgemma-9b", {"n_layers": 8}, ((2, 512, 32), (1, 2304, 16)),
      tuple(range(128, 513))),
@@ -7413,7 +7453,7 @@ def slstm_prefill_share(cfg, params, tokens):
 
 
 def phase_recurrent(card):
-    """xlstm-1.3b and recurrentgemma-9b at full width and depth (bf16,
+    """xlstm-1.3b and recurrentgemma-9b at full width, REC_MODELS' depth (bf16,
     random weights from a seed, one model at a time): the static ``Engine.generate`` runs of REC_MODELS (the 2304-token
     prompt past recurrentgemma's window) and ``ContinuousEngine.serve`` of
     REC_REQUESTS requests over REC_SLOTS slots (the slotted pool; slots
@@ -7640,6 +7680,9 @@ def phase_times_recurrent(card, calls_by_model):
 
 
 ENCDEC = "seamless-m4t-large-v2"
+# Served at ENCDEC_LAYERS encoder and decoder layers of its 24 + 24 (every
+# layer alike; all before the mesh phase came).
+ENCDEC_LAYERS = 12
 # Static runs: (batch, src_len, decoder prompt, new tokens).  The second
 # runs the plain cross-attention branch (one query) at prefill and a
 # ragged memory of 1000 frames, whose last key tile is partial.
@@ -7795,7 +7838,8 @@ def cross_bytes(pool):
 
 
 def phase_encdec(card):
-    """seamless-m4t-large-v2 at full width and depth (24 + 24 layers, bf16,
+    """seamless-m4t-large-v2 at full width, ENCDEC_LAYERS + ENCDEC_LAYERS
+    of its 24 + 24 layers (bf16,
     random weights from a seed): the static ``Engine.generate`` runs of
     ENCDEC_STATIC (the second a one-token prompt over 1000 frames) and
     ``ContinuousEngine.serve`` of ENCDEC_REQUESTS requests over
@@ -7822,7 +7866,8 @@ def phase_encdec(card):
     launches = dict.fromkeys(ENCDEC_KERNELS, 0)
     worst = dict.fromkeys(ENCDEC_KERNELS, 0.0)
     failed = []
-    cfg = model_cfg(ENCDEC, {})
+    cfg = model_cfg(ENCDEC, {"n_layers": ENCDEC_LAYERS,
+                             "n_enc_layers": ENCDEC_LAYERS})
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -8040,7 +8085,8 @@ FAM_KERNELS = ("matmul", "batched_matmul", "flash_attention",
 # family's gradients: ReLU derivatives that flip where a pre-activation
 # crosses 0 (seamless), exponential gates (xlstm), a router's near-ties
 # (the MoE models).
-FAM_HELD_START, FAM_HELD_STEPS, FAM_STEPS = 1000, 2, 3
+# FAM_HELD_STEPS: 2 before the mesh phase came.
+FAM_HELD_START, FAM_HELD_STEPS, FAM_STEPS = 1000, 1, 3
 FAM_GRAD_FLOOR = 1e-2
 FAM_BAND = {"float32": {"grad_rel_l2": 1e-3, "loss": 1e-4},
             "bfloat16": TRAIN_BAND[torch.bfloat16]}
@@ -9263,6 +9309,332 @@ def phase_cluster(base_cfg, card, cont_outs, cont_forwards):
     return {"cluster": launches}, forwards, worst
 
 
+# --------------------------------------------------------------------------
+# 14. meshes: per-shard plans, and data x model parallel worlds
+# --------------------------------------------------------------------------
+
+# (a) smollm-135m's hot problems of two of the reference's cells on its
+# (16, 16) production mesh, abstract (no 256 ranks here), under the
+# measured policy: the plan of each global triple and of its shard's.
+MESH_CELLS = ("train_4k", "decode_32k")
+# (b) smollm-135m at full width and depth, bf16, MESH_STEPS steps of B x T
+# through launch/train.py on a (2, 1) data mesh (ZeRO-3 on the data axis)
+# and a (1, 3) model mesh (3 q heads and 1 kv head, d_ff 512 and 16384
+# vocab rows a rank), each a gloo world of ranks sharing the card, held
+# against one rank of the same global batch: step 0 within TRAIN_BAND's
+# bf16 loss band (the ranks sum in other orders), later steps within the
+# larger of it and twice the one-rank run's own spread, its losses again
+# from weights moved by MESH_SPREAD of themselves (a bf16 rounding, as
+# FAM_SPREAD), as phase_train_families bands its gradients.
+MESH_WORLDS = ((2, 1), (1, 3))
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 6, 512, 3
+MESH_SPREAD = 2.0 ** -9
+MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
+
+
+def mesh_argv(world, out):
+    d, m = world
+    return ["--arch", "smollm-135m", "--steps", str(MESH_STEPS),
+            "--batch", str(MESH_BATCH), "--seq", str(MESH_SEQ),
+            "--mesh", f"{d}x{m}", "--device", "cuda", "--dist-backend",
+            "gloo", "--seed", str(SEED), "--out", str(out)]
+
+
+def mesh_rank(rank, n, store, world, card):
+    """One rank of a phase-mesh world (a process of its own): joins the
+    gloo world through a file store, warms up, waits for its world's turn
+    (the file ``go_<world>``), then trains (launch/train.py's CLI).  Rank 0
+    counts its launches by signature (``accum_recorder``), then, the world
+    gone, holds each signature against its plain version on its first
+    inputs (``checked_launches``) and times it (rows of path ``mesh``), and
+    writes both beside the world's record.  The kernels are the ones
+    phase_build built (``_build`` loads them by digest)."""
+    import torch.distributed as dist
+    from torch.utils import checkpoint
+    from repro_torch.launch import train
+    tag = f"{world[0]}x{world[1]}"
+    # A first checkpointed backward loads torch._dynamo (~12 s on the
+    # card's host): paid here, while the worlds before this one run.
+    x = torch.ones(8, device="cuda", requires_grad=True)
+    checkpoint.checkpoint(torch.sin, x, use_reentrant=False).sum().backward()
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=n)
+    while not (MESH_DIR / f"go_{tag}").exists():
+        time.sleep(0.05)
+    argv = mesh_argv(world, MESH_DIR / f"{tag}.json")
+    try:
+        if rank:
+            train.main(argv)
+            return
+        with accum_recorder() as calls:
+            train.main(argv)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    # The kept inputs include views the step made under no_grad (the
+    # working weights), written in place since: read them so too.
+    with torch.no_grad():
+        mesh_rank0_rows(calls, card, tag)
+
+
+def mesh_rank0_rows(calls, card, tag):
+    """``mesh_rank``'s rank 0, its world gone: each launch signature held
+    and timed, written to MESH_DIR."""
+    import importlib
+    held = {}
+    with checked_launches(held):
+        for (kernel, _), (args, kw, _, _) in calls.items():
+            mod, attr = ACCUM_WRAPPERS[kernel]
+            getattr(importlib.import_module(mod), attr)(*args, **kw)
+    reals = {k: getattr(importlib.import_module(mod), attr)
+             for k, (mod, attr) in ACCUM_WRAPPERS.items()}
+    rows = []
+    row = row_recorder(rows, card)
+    launches = collections.Counter()
+    for (kernel, _), (args, kw, count, _) in sorted(calls.items(), key=str):
+        launches[kernel] += count
+        ms, wall, _, plain, lib, flops, nbytes = accum_times_of(
+            kernel, args, kw, reals[kernel],
+            accum_cost(kernel, args, kw)[0] > 1e11)
+        shapes = _shape_of(args)
+        row(kernel, f"mesh {tag} {shapes}", ms, wall, flops, nbytes, plain,
+            lib, {"mesh": count}, world=tag, shapes=shapes,
+            **{k: repr(v) for k, v in kw.items()
+               if k in ("activation", "out_dtype", "causal", "window")})
+        torch.cuda.empty_cache()
+    (MESH_DIR / f"{tag}.rank0.json").write_text(json.dumps(
+        {"launches": launches, "held": held, "rows": rows}))
+
+
+def mesh_one_rank(cfg):
+    """One rank of the worlds' global batches (TokenPipeline, seeded as
+    launch/train.py seeds it) from the worlds' initial state, and again
+    from weights moved by MESH_SPREAD: (losses, spread losses, the first
+    step's forward triples, step seconds)."""
+    from repro_torch import obs
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.core import dispatch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    pipe = TokenPipeline(cfg, ShapeCfg("mesh", "train", MESH_SEQ,
+                                       MESH_BATCH), seed=SEED)
+    batches = [next(pipe) for _ in range(MESH_STEPS)]
+    pipe.close()
+    ocfg = opt.AdamWCfg()
+    out = []
+    for moved in (False, True):
+        state = ts.init_state(cfg, ocfg, torch.Generator().manual_seed(SEED),
+                              "cuda")
+        if moved:
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+            for t in state["opt"]["master"].values():
+                t.mul_(1 + MESH_SPREAD * torch.randn(
+                    t.shape, device="cuda", generator=gen).sign())
+        step = ts.make_train_step(cfg, ocfg)
+        tracer, losses, secs = obs.Tracer(), [], []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            with dispatch.use(tracer=tracer) if i == 0 else \
+                    contextlib.nullcontext():
+                state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        out.append((losses, train.forward_triples(tracer), secs))
+        del state, step
+        free_card()
+    return out[0][0], out[1][0], out[0][1], out[0][2]
+
+
+def mesh_plans(cfg, card):
+    """(a): for each of MESH_CELLS' hot problems on the abstract
+    production mesh, the measured policy's plan of the global triple and
+    of the shard's (``launch/dryrun.py::block_choices``); the shard's plan
+    launched at the shard's problem and held against the plain version,
+    and timed beside the global plan fitted to the shard (None where it
+    cannot run it).  Returns (records, worst abs error by kernel,
+    failures)."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.core import blocking, dispatch
+    from repro_torch.kernels.brgemm import kernel as BK
+    from repro_torch.kernels.brgemm import matmul_cuda, matmul_ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     mha_ref)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 97)
+    bf16 = torch.bfloat16
+    out, worst, failed = [], {"matmul": 0.0, "flash_attention": 0.0}, []
+    with autotune_env(MESH_DIR / "tuning_cache.json"), search_clock() as \
+            clock, dispatch.use(blocks_policy="autotune"):
+        table = [(cell, r) for cell in MESH_CELLS
+                 for r in dryrun.block_choices(cfg, SHAPES[cell], mesh)]
+    for cell, r in table:
+        m, n, k = r["local"]
+        local = blocking.plan_from_dict(r["blocks_local"])
+        glob = blocking.plan_from_dict(r["blocks_global"])
+        if r["op"] == "matmul":
+            x = torch.randn(m, k, device="cuda", generator=gen).to(bf16)
+            w = (torch.randn(k, n, device="cuda", generator=gen)
+                 * k ** -0.5).to(bf16)
+            ok, err, _ = close(matmul_cuda(x, w, plan=local),
+                               matmul_ref(x, w), *TOL[("matmul", bf16)])
+            sets = _cloned((x, w), n_sets((m * k + k * n + m * n) * 2))
+            tma = BK._operand(x, "x")[3] and BK._operand(w, "w")[3]
+            times = {}
+            for name, p in (("local", local), ("global", blocking.fit_plan(
+                    glob, -(-k // glob.bk)))):
+                if p.mainloop == "wgmma" and not tma:   # the shard refuses
+                    times[name] = None
+                    r[f"{name}_refused"] = "wgmma, but TMA cannot read it"
+                    continue
+                times[name] = time_ms(
+                    lambda a, b, p=p: matmul_cuda(a, b, plan=p), sets)[0]
+            flops, nbytes = 2 * m * n * k, (m * k + k * n + m * n) * 2
+        else:                                 # (tq, tk, d), one head
+            q = torch.randn(1, 1, m, k, device="cuda", generator=gen).to(bf16)
+            kk = torch.randn(1, 1, n, k, device="cuda", generator=gen).to(bf16)
+            v = torch.randn(1, 1, n, k, device="cuda", generator=gen).to(bf16)
+            causal = m == n
+            ok, err, _ = close(flash_attention_cuda(q, kk, v, causal=causal,
+                                                    plan=local),
+                               mha_ref(q, kk, v, causal=causal),
+                               *TOL[("flash_attention", bf16)])
+            t = time_ms(lambda a, b, c: flash_attention_cuda(
+                a, b, c, causal=causal, plan=local), [(q, kk, v)] * 2)[0]
+            times = {"local": t, "global": t if glob == local else None}
+            pairs = m * (n + 1) // 2 if causal else m * n
+            flops, nbytes = 4 * pairs * k, (m + 2 * n + m) * k * 2
+        worst[r["op"]] = max(worst[r["op"]], err)
+        if not ok:
+            failed.append(f"{cell} {r['name']} {r['local']}: error {err}")
+        bms, _ = bound(flops, nbytes, card)
+        rec = {**r, "cell": cell, "ms_local_plan": times["local"],
+               "ms_global_plan": times["global"], "bound_ms": bms,
+               "max_abs_err": err}
+        out.append(rec)
+        emit({"phase": "mesh_plans", **rec})
+        torch.cuda.empty_cache()
+    emit({"phase": "mesh_plans", "search": clock,
+          "differ": sum(r["differs"] for r in out), "of": len(out)})
+    return out, worst, failed
+
+
+def mesh_world_check(world, rec, want, triples, spread, failed):
+    """A world's record against the one-rank run: the losses in their
+    bands, rank 0's forward triples ``local_problem`` of the one-rank
+    run's (a row-parallel GEMM's under its axes), each keyed with the mesh
+    signature, the ranks on gloo and on the card."""
+    import ast
+    from repro_torch.sharding import local
+    tag = f"{world[0]}x{world[1]}"
+    band = TRAIN_BAND[torch.bfloat16]["loss"]
+    limits = [band] + [max(band, 2 * abs(a - b))
+                       for a, b in zip(want[1:], spread[1:])]
+    errs = [abs(a - b) for a, b in zip(rec["losses"], want)]
+    if len(errs) != MESH_STEPS or any(e > lim for e, lim in zip(errs, limits)) \
+            or not all(math.isfinite(x) for x in rec["losses"]):
+        failed.append(f"{tag} losses {rec['losses']} against one rank's "
+                      f"{want}, limits {limits}")
+    mesh = local.abstract_mesh(world, ("data", "model"))
+    got = rec["forward_triples"]
+    bad = len(got) != len(triples) or not got
+    for g, w in zip(got, triples):
+        specs = ({g["op"]: ast.literal_eval(g["axes"])} if "axes" in g
+                 else None)
+        bad |= (g["op"] != w["op"] or g.get("mesh") != str(("data", "model"))
+                or (g["m"], g["n"], g["k"]) != local.local_problem(
+                    w["op"], w["m"], w["n"], w["k"], mesh, specs))
+    if bad:
+        failed.append(f"{tag}: rank 0's triples are not local_problem's "
+                      f"({len(got)} against {len(triples)})")
+    if rec["dist_backend"] != "gloo" or rec["mesh"] != {
+            "data": world[0], "model": world[1]} or \
+            len(rec["peak_bytes"]) != world[0] * world[1] or \
+            not all(b > 0 for b in rec["peak_bytes"]):
+        failed.append(f"{tag}: not {world[0] * world[1]} ranks of gloo on "
+                      f"the card: {rec['dist_backend']}, {rec['mesh']}, "
+                      f"{rec['peak_bytes']}")
+    return errs, limits
+
+
+def phase_mesh(cfg, card):
+    """(a) per-shard plans (``mesh_plans``); (b) the worlds of MESH_WORLDS
+    (``mesh_rank``) against one rank (``mesh_one_rank``).  Returns
+    ({"mesh": rank 0's launches}, worst abs error by kernel, rows).  Every
+    rank is stopped on the way out, whatever failed."""
+    import shutil
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    # Every world's ranks start now: their imports and warm-up run beside
+    # (a) and the one-rank runs, and each world trains alone, in turn.
+    worlds = {world: torch.multiprocessing.start_processes(
+        mesh_rank, args=(world[0] * world[1], str(
+            MESH_DIR / f"store_{world[0]}x{world[1]}"), world, card),
+        nprocs=world[0] * world[1], join=False, start_method="spawn")
+        for world in MESH_WORLDS}
+    try:
+        return mesh_phases(cfg, card, worlds, t_phase)
+    finally:
+        for ctx in worlds.values():
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+
+
+def mesh_phases(cfg, card, worlds, t_phase):
+    plans, worst, failed = mesh_plans(cfg, card)
+    worst.setdefault("flash_attention_bwd", 0.0)
+    losses, spread, triples, one_s = mesh_one_rank(cfg)
+    tokens = MESH_BATCH * MESH_SEQ
+    emit({"phase": "mesh_one_rank", "losses": losses,
+          "spread_losses": spread, "step_ms": [x * 1e3 for x in one_s],
+          "tokens_per_s": tokens / median(one_s[1:])})
+    launches, rows = collections.Counter(), []
+    for world, ctx in worlds.items():
+        n, tag = world[0] * world[1], f"{world[0]}x{world[1]}"
+        t0 = time.perf_counter()
+        (MESH_DIR / f"go_{tag}").touch()
+        while not ctx.join():     # raises where a rank failed
+            pass
+        rec = json.loads((MESH_DIR / f"{tag}.json").read_text())
+        r0 = json.loads((MESH_DIR / f"{tag}.rank0.json").read_text())
+        errs, limits = mesh_world_check(world, rec, losses, triples, spread,
+                                        failed)
+        for kernel, w in r0["held"].items():
+            if kernel in SOURCES:     # not the flash forward's lse apart
+                worst[kernel] = max(worst.get(kernel, 0.0), w["max_abs"])
+            if w["over_band"] > 1.0:
+                failed.append(f"{tag} {kernel} against plain: {w}")
+        launches.update(r0["launches"])
+        rows += r0["rows"]
+        emit({"phase": "mesh_world", "world": tag, "ranks": n,
+              "dist_backend": rec["dist_backend"], "losses": rec["losses"],
+              "one_rank_losses": losses, "loss_err": errs,
+              "loss_limits": limits, "step_ms": rec["step_ms"],
+              "tokens_per_s": rec["tokens_per_s"],
+              "peak_gb": [b / 1e9 for b in rec["peak_bytes"]],
+              "collective_bytes": {k: v for k, v in rec["collectives"].items()
+                                   if k.endswith("_bytes")},
+              "collective_calls": {k: v for k, v in rec["collectives"].items()
+                                   if k.endswith("_calls")},
+              "triples": len(rec["forward_triples"]),
+              "step_s": rec["step_s"],
+              "launches": r0["launches"], "held": r0["held"],
+              "seconds": time.perf_counter() - t0, "card": card})
+    emit({"phase": "mesh", "launches": dict(launches), "failed": failed,
+          "plans_differ": sum(r["differs"] for r in plans),
+          "plans": len(plans), "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError(f"mesh: {failed}")
+    return {"mesh": dict(launches)}, worst, rows
+
+
 SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
     "matmul": ("src/repro_torch/kernels/brgemm/csrc/matmul.cu",
                "src/repro/kernels/brgemm/kernel.py:118"),
@@ -9319,7 +9691,8 @@ def kernels_line(rows, launches_by_path, worst):
     end, the self-healing run, the HTTP calls); accum, smollm-135m's bf16
     runs under ``accum_dtype="bfloat16"`` (phase_accum's generate,
     continuous serve and train step; its rows' library times accumulate
-    in fp32).
+    in fp32); mesh, rank 0's launches in phase_mesh's two worlds (its
+    MESH_STEPS bf16 steps on each).
     ``delta_rowsum`` runs on none of them (it is the oracle of the fused
     delta): its times are one call's."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
@@ -9423,6 +9796,10 @@ def main():
     launches.update(fam_launches)
     for kernel, err in fam_worst.items():
         worst[kernel] = max(worst[kernel], err)
+    mesh_launches, mesh_worst, mesh_rows = phase_mesh(cfg, card)
+    launches.update(mesh_launches)
+    for kernel, err in mesh_worst.items():
+        worst[kernel] = max(worst[kernel], err)
     phase_capture()
     rows = (phase_times(cfg, card, cont_forwards, cluster_forwards)
             + phase_times_paper(card)
@@ -9433,12 +9810,12 @@ def main():
             + phase_times_recurrent(card, rec_calls_by_model)
             + phase_times_encdec(card, encdec_calls_run)
             + phase_times_train_families(card, fam_shapes)
-            + accum_rows_)
+            + accum_rows_ + mesh_rows)
     emit({"phase": "capture_failures", "by_cause": dict(CAPTURE_FAILURES)})
     emit({"phase": "free_card", **FREED})
     check_row_calls(rows, launches, ("cluster", "lstm", "fc", "windowed",
                                      "llava", "moe", "recurrent", "encdec",
-                                     "train_families", "accum"))
+                                     "train_families", "accum", "mesh"))
     emit(kernels_line(rows, launches, worst))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 It mirrors the JAX package's module names (``configs``, ``core``,
 ``kernels``, ``layers``, ``models``, ``serve``, ``train``, ``data``,
-``checkpoint``, ``launch``) and imports nothing of it or of JAX.  Every
+``checkpoint``, ``launch``, ``sharding``, ``distributed``) and imports
+nothing of it or of JAX.  Every
 Pallas kernel on a ported path is a hand-written CUDA kernel
 (``kernels/*/csrc``), built at first use, beside a plain PyTorch
 version; ``core.dispatch`` picks between them, and ``use(quant=...)`` or

@@ -144,6 +144,23 @@ def candidate_grid(op: str, m: int, n: int, k: int, dtype, *, geometry=None,
     return schema.candidates(m, n, k, dtype, geometry)
 
 
+def fit_plan(plan, slices: int):
+    """``plan`` run over a reduction of ``slices`` slices of its ``bk``.
+    A plan is chosen for its problem's k, but under an abstract mesh
+    (``dispatch.resolve_blocks``) for the shard's, while the call runs the
+    whole: its split count is kept and its runs re-cut to cover the call's
+    slices (at its own problem this changes nothing); the kernels fit
+    their plans while ``dispatch.localising()``.  A flash plan (a
+    mainloop's name) passes through."""
+    if not isinstance(plan, Plan):
+        return plan
+    if plan.splits * plan.chunk >= slices > (plan.splits - 1) * plan.chunk:
+        return plan
+    chunk = max(1, -(-slices // plan.splits))
+    return dataclasses.replace(plan, chunk=chunk,
+                               splits=max(1, -(-slices // chunk)))
+
+
 def dtype_name(dtype) -> str:
     """``torch.bfloat16`` -> ``"bfloat16"`` (the reference's dtype names);
     a string passes through."""

@@ -42,11 +42,25 @@ the innermost context's policy, else ``"heuristic"`` (the op's own
 candidate grid on the card (``core/autotune.py``); a callable is a policy
 of its own.  Picks are memoized in a shape-keyed tuning cache, keyed as
 the reference's (op, backend, m, n, k, dtype, policy, geometry, mesh
-signature, quant tag) with the mesh signature None (no mesh is ported),
-and persisted to JSON (:func:`save_cache` / :func:`load_cache`, or
-through the file ``REPRO_TORCH_TUNING_CACHE`` names: loaded on first use,
-written through on every new named-policy entry).  The reference's
-``REPRO_TUNING_CACHE`` names files of TPU tiles and is not read here.
+signature, quant tag), and persisted to JSON (:func:`save_cache` /
+:func:`load_cache`, or through the file ``REPRO_TORCH_TUNING_CACHE``
+names: loaded on first use, written through on every new named-policy
+entry).  The reference's ``REPRO_TUNING_CACHE`` names files of TPU tiles
+and is not read here.
+
+``use(mesh=..., axis_specs=...)`` makes plans per shard, as the
+reference's: under a mesh the cache key carries its signature (its axis
+names, ``sharding.local.mesh_signature``).  Under an *abstract* mesh (one
+that models a layout: ``sharding.local.abstract_mesh``) the call runs the
+global shape and :func:`resolve_blocks` maps its triple to the shard's
+(``sharding.local.local_problem``, honouring ``axis_specs``), as the
+reference's GSPMD trace does; the kernels fit a plan chosen for the
+shard to the shape they run (``blocking.fit_plan``).  On a
+rank of a running mesh the call's triple is the shard's already, and is
+not divided again.  ``axis_specs`` maps an op to its triple's axes, or to
+``{"axes": ..., "backend": ...}``, whose ``backend`` pins the op's
+backend below an explicit argument and above the context's (the
+reference's order).
 
 Autograd runs a CUDA backward on a thread of its own, where this module's
 context variables hold their defaults: a kernel's backward re-enters its
@@ -84,6 +98,14 @@ _POLICY: contextvars.ContextVar[str | Callable | None] = \
     contextvars.ContextVar("repro_torch_blocks_policy", default=None)
 _ACCUM: contextvars.ContextVar[torch.dtype | None] = contextvars.ContextVar(
     "repro_torch_accum_dtype", default=None)
+_MESH: contextvars.ContextVar[Any] = contextvars.ContextVar(
+    "repro_torch_mesh", default=None)
+_AXIS_SPECS: contextvars.ContextVar[Any] = contextvars.ContextVar(
+    "repro_torch_axis_specs", default=None)
+# The ops whose canonical triple a mesh localises (the reference's
+# ``BLOCK_SCHEMAS``; ``sharding.local.default_axis_specs``).
+MESH_OPS = ("matmul", "brgemm", "batched_matmul", "conv2d",
+            "flash_attention", "flash_attention_bwd")
 ACCUM_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -104,18 +126,107 @@ def register(op: str, backend: str):
     return deco
 
 
+def _axis_spec_axes(spec):
+    """The (m, n, k) axis triple of an axis_specs entry, or None (a dict
+    without ``axes`` pins only the backend)."""
+    if isinstance(spec, dict):
+        return spec.get("axes")
+    return spec
+
+
+def _axis_spec_backend(spec) -> str | None:
+    """The per-op backend pin of an axis_specs entry, or None."""
+    if isinstance(spec, dict):
+        return spec.get("backend")
+    return None
+
+
+def _check_axis_spec(op: str, spec) -> None:
+    """An axis spec is one entry per canonical dim: exactly 3 entries,
+    each ``None`` / axis name / tuple of axis names, or a dict with
+    ``axes`` (the same triple) and/or ``backend`` (a per-op backend pin).
+    A bare string would iterate per character, so it is refused."""
+    if isinstance(spec, dict):
+        unknown = set(spec) - {"axes", "backend"}
+        if unknown:
+            raise ValueError(
+                f"axis_specs[{op!r}]: unknown key(s) {sorted(unknown)}; "
+                f"a dict entry takes 'axes' and/or 'backend'")
+        backend = spec.get("backend")
+        if backend is not None:
+            _check_backend(backend)
+            if op in _REGISTRY and backend not in _REGISTRY[op]:
+                raise ValueError(
+                    f"axis_specs[{op!r}]: backend {backend!r} is not "
+                    f"registered for this op (has: "
+                    f"{', '.join(sorted(_REGISTRY[op]))})")
+        spec = spec.get("axes")
+        if spec is None:
+            return
+    bad = None
+    if isinstance(spec, str) or not hasattr(spec, "__iter__"):
+        bad = f"{spec!r} is not a sequence of 3 entries"
+    else:
+        entries = tuple(spec)
+        if len(entries) != 3:
+            bad = f"expected 3 entries (m, n, k), got {len(entries)}"
+        else:
+            for e in entries:
+                if e is None or isinstance(e, str):
+                    continue
+                if isinstance(e, (tuple, list)) and all(
+                        isinstance(a, str) for a in e):
+                    continue
+                bad = (f"entry {e!r} is not None, an axis name, or a "
+                       f"tuple of axis names")
+                break
+    if bad:
+        raise ValueError(f"axis_specs[{op!r}]: {bad}")
+
+
+def check_axis_specs(axis_specs):
+    """``axis_specs`` when ``use`` takes it (None, or a mapping of known
+    ops to valid entries), else raises."""
+    if axis_specs is not None:
+        unknown = set(axis_specs) - set(MESH_OPS)
+        if unknown:
+            raise ValueError(
+                f"axis_specs for unknown op(s) {sorted(unknown)}; known: "
+                f"{', '.join(sorted(MESH_OPS))}")
+        for op_name, spec in axis_specs.items():
+            _check_axis_spec(op_name, spec)
+    return axis_specs
+
+
+def current_mesh():
+    """The innermost ``use(mesh=...)``'s mesh, else None."""
+    return _MESH.get()
+
+
+def current_axis_specs():
+    """The innermost ``use(axis_specs=...)``'s mapping, else None."""
+    return _AXIS_SPECS.get()
+
+
 @contextlib.contextmanager
 def use(*, backend: str | None = None, quant=None, tracer=None,
-        blocks_policy: str | Callable | None = None, accum_dtype=None):
+        blocks_policy: str | Callable | None = None, accum_dtype=None,
+        mesh=None, axis_specs=None):
     """Scope a backend, a quant config, a block policy, an accumulator
-    dtype and a tracer for every op called inside.  A field left ``None``
-    keeps the outer context's choice; the previous state is restored on
-    exit.  ``quant``, ``accum_dtype`` and a named ``blocks_policy`` are
-    validated here.  ``tracer`` (a
-    ``repro_torch.obs.Tracer``) records the dispatch events, the
-    ``resolve_blocks`` events, autotune spans and every ``obs.span``
-    entered inside."""
+    dtype, a mesh, axis specs and a tracer for every op called inside.  A
+    field left ``None`` keeps the outer context's choice (an ``axis_specs``
+    mapping replaces the outer one whole, it is not merged); the previous
+    state is restored on exit.  ``quant``, ``accum_dtype``,
+    ``axis_specs`` and a named ``blocks_policy`` are validated here.
+    ``tracer`` (a ``repro_torch.obs.Tracer``) records the dispatch
+    events, the ``resolve_blocks`` events, autotune spans and every
+    ``obs.span`` entered inside."""
+    check_axis_specs(axis_specs)
     tokens = []
+    if mesh is not None:
+        tokens.append((_MESH, _MESH.set(mesh)))
+    if axis_specs is not None:
+        tokens.append((_AXIS_SPECS, _AXIS_SPECS.set(axis_specs)))
     if backend is not None:
         tokens.append((_BACKEND, _BACKEND.set(_check_backend(backend))))
     if quant is not None:
@@ -189,11 +300,15 @@ def _env_backend() -> str | None:
 
 def resolve(op: str, backend: str | None, tensor: torch.Tensor) -> str:
     """The backend ``op`` runs on for a call on ``tensor``: the argument,
-    else the innermost context, else ``REPRO_TORCH_BACKEND``, else the
-    hardware default.  Raises where the chosen backend cannot run it."""
+    else the op's ``axis_specs`` pin, else the innermost context, else
+    ``REPRO_TORCH_BACKEND``, else the hardware default.  Raises where the
+    chosen backend cannot run it."""
     if op not in _REGISTRY:
         raise KeyError(f"unknown op {op!r}; known: {sorted(_REGISTRY)}")
-    name = backend or _BACKEND.get() or _env_backend()
+    specs = _AXIS_SPECS.get()
+    pinned = (_axis_spec_backend(specs.get(op))
+              if backend is None and specs is not None else None)
+    name = backend or pinned or _BACKEND.get() or _env_backend()
     if name is None:
         name = ("cuda" if tensor.is_cuda and _is_hopper(tensor.device.index)
                 else "torch")
@@ -241,13 +356,13 @@ def check_blocks_policy(policy):
     return policy
 
 
-_STATE = (_BACKEND, _QUANT, _POLICY, _ACCUM)
+_STATE = (_BACKEND, _QUANT, _POLICY, _ACCUM, _MESH, _AXIS_SPECS)
 
 
 def snapshot() -> tuple:
-    """This context's backend, quant config, block policy and accumulator
-    dtype, for :func:`restored` on another thread (autograd's CUDA
-    backward, a checkpointed block's recompute)."""
+    """This context's backend, quant config, block policy, accumulator
+    dtype, mesh and axis specs, for :func:`restored` on another thread
+    (autograd's CUDA backward, a checkpointed block's recompute)."""
     return tuple(var.get() for var in _STATE)
 
 
@@ -326,10 +441,14 @@ def resolve_blocks(op: str, m: int, n: int, k: int, dtype, *, backend: str,
     ``geometry`` what its plan reads beyond it (a call that names none
     gets plain row-major operands'); ``quant`` (a ``QuantConfig`` or tag)
     marks a quantized call, whose tag joins the key, and ``dtype`` is then
-    the weights' storage dtype.  Policy picks are memoized keyed (op,
-    backend, m, n, k, dtype, policy, geometry, None, quant tag); an
-    explicit ``plan`` bypasses the cache.  A miss while the current stream
-    is being captured into a CUDA graph raises: a policy may launch and
+    the weights' storage dtype.  Under ``use(mesh=...)`` the key carries
+    the mesh's signature, and an abstract mesh's call has its triple
+    mapped to the shard's first (``sharding.local.local_problem``, under
+    ``use(axis_specs=...)``); a rank of a running mesh passes the shard's
+    triple itself.  Policy picks are memoized keyed (op, backend, m, n,
+    k, dtype, policy, geometry, mesh signature, quant tag); an explicit
+    ``plan`` bypasses the cache.  A miss while the current stream is
+    being captured into a CUDA graph raises: a policy may launch and
     synchronise, so warm the cache first.
     """
     if plan is not None:
@@ -338,11 +457,18 @@ def resolve_blocks(op: str, m: int, n: int, k: int, dtype, *, backend: str,
         _maybe_load_env_cache()
     policy = _POLICY.get() or "heuristic"
     policy_fn = policy if callable(policy) else _policy_fn(policy)
+    mesh, mesh_sig = _MESH.get(), None
+    if mesh is not None:
+        from repro_torch.sharding import local as _local
+        if getattr(mesh, "is_abstract", True):
+            m, n, k = _local.local_problem(op, m, n, k, mesh,
+                                           axis_specs=_AXIS_SPECS.get())
+        mesh_sig = _local.mesh_signature(mesh)
     if geometry is None:
         geometry = blocking.default_geometry(op, m, n, k, dtype, quant=quant)
     quant_tag = _quant_tag(quant)
     key = (op, backend, int(m), int(n), int(k), blocking.dtype_name(dtype),
-           policy, geometry, None, quant_tag)
+           policy, geometry, mesh_sig, quant_tag)
     hit = _TUNING_CACHE.get(key)
     if hit is not None:
         source = "cache-hit"
@@ -376,21 +502,35 @@ def resolve_blocks(op: str, m: int, n: int, k: int, dtype, *, backend: str,
     tr = obs.current_tracer()
     if tr is not None:
         _trace_blocks(tr, op, backend, m, n, k, dtype, geometry, quant_tag,
-                      source, hit)
+                      source, hit, mesh_sig)
     return hit
 
 
+def localising() -> bool:
+    """Whether plans are chosen for a shard of the call's problem (an
+    abstract mesh is active), so a kernel fits its plan to the call
+    (``blocking.fit_plan``)."""
+    mesh = _MESH.get()
+    return mesh is not None and getattr(mesh, "is_abstract", True)
+
+
 def _trace_blocks(tr, op, backend, m, n, k, dtype, geometry, quant_tag,
-                  source, plan) -> None:
+                  source, plan, mesh_sig=None) -> None:
     """One ``resolve_blocks`` instant event carrying the decision (op,
-    backend, shape, the plan's source, quant) and the FLOP / byte cost of
-    the problem (an op without a cost model gets none), and a
+    backend, shape, the plan's source, quant, mesh, and the op's
+    ``axis_specs`` axes where the context names them) and the FLOP / byte
+    cost of the problem (an op without a cost model gets none), and a
     blocks-source annotation on the enclosing span."""
     ev = {"op": op, "backend": backend, "m": int(m), "n": int(n),
           "k": int(k), "dtype": blocking.dtype_name(dtype),
           "source": source, "blocks": str(plan)}
     if quant_tag is not None:
         ev["quant"] = quant_tag
+    if mesh_sig is not None:
+        ev["mesh"] = str(mesh_sig)
+        axes = _axis_spec_axes((_AXIS_SPECS.get() or {}).get(op))
+        if axes is not None:
+            ev["axes"] = repr(tuple(axes))
     try:
         cost = obs.op_cost(op, m, n, k, dtype, geometry=geometry,
                            quant=quant_tag)
@@ -458,9 +598,11 @@ def _platform() -> str:
 
 def _entry_key(e: dict) -> tuple:
     geom = e.get("geometry")
+    mesh = e.get("mesh")
     return (e["op"], e["backend"], int(e["m"]), int(e["n"]), int(e["k"]),
             e["dtype"], e["policy"], e.get("platform"),
-            tuple(sorted(geom.items())) if geom else None, e.get("quant"))
+            tuple(sorted(geom.items())) if geom else None,
+            tuple(mesh) if mesh else None, e.get("quant"))
 
 
 def save_cache(path: str | None = None) -> int:
@@ -480,9 +622,9 @@ def save_cache(path: str | None = None) -> int:
             {"op": op, "backend": backend, "m": m, "n": n, "k": k,
              "dtype": dtype, "policy": policy, "platform": platform,
              "geometry": blocking.geometry_to_dict(geometry),
-             "mesh": None, "quant": quant_tag,
-             "plan": blocking.plan_to_dict(plan)}
-            for (op, backend, m, n, k, dtype, policy, geometry, _mesh,
+             "mesh": list(mesh_sig) if mesh_sig is not None else None,
+             "quant": quant_tag, "plan": blocking.plan_to_dict(plan)}
+            for (op, backend, m, n, k, dtype, policy, geometry, mesh_sig,
                  quant_tag), plan in _TUNING_CACHE.items()
             if isinstance(policy, str)
         ]
@@ -542,9 +684,11 @@ def load_cache(path: str | None = None, *, strict: bool = True) -> int:
             try:
                 if e.get("platform", platform) != platform:
                     continue
+                mesh = e.get("mesh")
                 key = (e["op"], e["backend"], int(e["m"]), int(e["n"]),
                        int(e["k"]), e["dtype"], e["policy"],
-                       blocking.geometry_from_dict(e.get("geometry")), None,
+                       blocking.geometry_from_dict(e.get("geometry")),
+                       tuple(str(a) for a in mesh) if mesh else None,
                        e.get("quant"))
                 plan = blocking.plan_from_dict(e["plan"])
             except (KeyError, TypeError, ValueError, AttributeError):

@@ -1,3 +1,4 @@
-"""Distributed optimization.  So far the gradient compression that the
-train step runs between the backward and AdamW (``collectives.py``); the
-collectives themselves come with the port's meshes."""
+"""Distributed execution: the collectives over a mesh axis and gradient
+compression (``collectives.py``), the data x model parallel executor of
+the dense family (``parallel.py``) and the GPipe substrate
+(``pipeline.py``), over ``torch.distributed``."""

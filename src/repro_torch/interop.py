@@ -184,6 +184,25 @@ def stacked_leaves(cfg: ArchCfg) -> dict[str, str]:
             for attr in attrs for i in range(count)}
 
 
+@functools.lru_cache(maxsize=None)
+def stack_dims(cfg: ArchCfg) -> dict[str, tuple[int, ...]]:
+    """The leading stack dims of each layer parameter's leaf in the
+    reference's tree, by the port's name (``"blocks.3.attn.wq"`` ->
+    ``(n_layers,)``; a recurrent config's nested stacks two, as
+    ``groups.rec`` (g, n_rec)); the names of ``stacked_leaves``."""
+    if cfg.block in RECURRENT:
+        dims: dict[str, list[int]] = {}
+        for kind, stack, idx in recurrent_layout(cfg):
+            top = dims.setdefault(stack, [0] * len(idx))
+            dims[stack] = [max(a, b + 1) for a, b in zip(top, idx)]
+        return {f"blocks.{i}.{attr}": tuple(dims[stack])
+                for i, (kind, stack, _) in enumerate(recurrent_layout(cfg))
+                for attr in _kind_attrs(cfg, kind)}
+    return {f"{port}.{first + i}.{attr}": (count,)
+            for key, first, count, attrs, port in _stacks(cfg)
+            for attr in attrs for i in range(count)}
+
+
 def _one(leaf):
     """A leaf, or a calibrated one's (q, scale)."""
     if _is_quantized(leaf):

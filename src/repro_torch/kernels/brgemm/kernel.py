@@ -254,6 +254,8 @@ def _matmul_plan(x, w, explicit=None, round_k=0):
     p = dispatch.resolve_blocks("matmul", x.size(0), w.size(1), x.size(1),
                                 x.dtype, backend="cuda", plan=explicit,
                                 geometry=geometry)
+    if explicit is None and dispatch.localising():
+        p = blocking.fit_plan(p, -(-x.size(1) // p.bk))
     if round_k:
         p = one_split(p, -(-x.size(1) // p.bk))
     return p, ox, ow
@@ -388,6 +390,9 @@ def _batched_plan(op, a, b, explicit=None, round_k=0):
     p = dispatch.resolve_blocks(op, a.size(-2), b.size(-1), a.size(-1),
                                 a.dtype, backend="cuda", plan=explicit,
                                 geometry=geometry)
+    if explicit is None and dispatch.localising():
+        p = blocking.fit_plan(p, (nb if op == "brgemm" else 1)
+                              * -(-a.size(-1) // p.bk))
     if round_k:
         p = one_split(p, nb * -(-a.size(-1) // p.bk))
     return p, oa, ob

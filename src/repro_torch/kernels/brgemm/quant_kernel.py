@@ -222,6 +222,9 @@ def _q_plan(op, aq, bq, explicit=None, quant=None):
         op, aq.size(-2), bq.size(-1), aq.size(-1), bq.dtype, backend="cuda",
         plan=explicit, geometry=GemmGeometry(tma, nb, False, True),
         quant=_quant(aq, bq, quant))
+    if explicit is None and dispatch.localising():
+        p = blocking.fit_plan(p, (nb if op == "brgemm" else 1)
+                              * -(-aq.size(-1) // p.bk))
     return p, strides
 
 

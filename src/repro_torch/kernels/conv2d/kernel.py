@@ -107,9 +107,13 @@ def _conv_plan(x, w, stride, padding, explicit=None) -> Plan:
     r, s, _, k = w.shape
     geometry = ConvGeometry(n, h, wi, r, s, stride, padding,
                             x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    return dispatch.resolve_blocks(
+    p = dispatch.resolve_blocks(
         "conv2d", out_size(wi, s, stride, padding), c, k, x.dtype,
         backend="cuda", plan=explicit, geometry=geometry)
+    if explicit is None and p.mainloop == "wgmma" and \
+            dispatch.localising():
+        p = blocking.fit_plan(p, r * s * -(-c // CBLOCK))
+    return p
 
 
 def plan_conv_call(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

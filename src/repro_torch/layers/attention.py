@@ -47,6 +47,9 @@ import torch
 from torch import nn
 
 from repro_torch.core import brgemm
+from repro_torch.distributed.collectives import (copy_to_model,
+                                                 reduce_from_model,
+                                                 row_parallel)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, mha_ref
 from repro_torch.layers.norms import RMSNorm
@@ -97,7 +100,12 @@ def _merge_heads(x):
 
 
 class Attention(nn.Module):
-    """Weights ``wq, wk, wv`` (d_model, H*dh) and ``wo`` (Hq*dh, d_model)."""
+    """Weights ``wq, wk, wv`` (d_model, H*dh) and ``wo`` (Hq*dh, d_model).
+    On a mesh's model axis (``tp``) a rank holds its heads' columns of
+    ``wq``, ``wk``, ``wv`` and rows of ``wo`` (``cfg`` counts its own
+    heads): the input's gradient and ``wo``'s partial outputs are summed
+    over the axis (``distributed/collectives.py``)."""
+    tp = None     # a mesh's model axis (collectives.AxisGroup), else None
 
     def __init__(self, cfg: AttnCfg, *, dtype=torch.float32, device="cpu"):
         super().__init__()
@@ -114,6 +122,7 @@ class Attention(nn.Module):
 
     def _qkv(self, x, positions, backend):
         cfg = self.cfg
+        x = copy_to_model(x, self.tp)
         q = _split_heads(brgemm.matmul(x, self.wq, backend=backend),
                          cfg.n_heads)
         k = _split_heads(brgemm.matmul(x, self.wk, backend=backend),
@@ -125,7 +134,9 @@ class Attention(nn.Module):
         return q, k, v
 
     def _out(self, o, backend):
-        return brgemm.matmul(_merge_heads(o), self.wo, backend=backend)
+        with row_parallel(self.tp):
+            y = brgemm.matmul(_merge_heads(o), self.wo, backend=backend)
+        return reduce_from_model(y, self.tp)
 
     def forward(self, x, *, mode: str = "train", cache=None, pos=0,
                 backend: str | None = None):

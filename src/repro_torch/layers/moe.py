@@ -36,7 +36,12 @@ group (``a_groups``), as the reference's calls take them.
 
 Top-k is a stable descending sort: equal probabilities keep the lower
 expert first, as ``jax.lax.top_k`` does.  No ``shard_map`` and no
-sharding constraints: the port runs on one device.
+sharding constraints: the MoE runs on one device.  Under an abstract mesh
+its kernels' plans are chosen for the shard (``dispatch.resolve_blocks``);
+expert parallelism over the ranks of a running mesh, with the reference's
+dp-sharded groups, is not ported yet (ROADMAP queue 1, item 6: the data x
+model parallel executor, ``distributed/parallel.py``, runs the dense
+family and refuses this one on more than one rank).
 """
 from __future__ import annotations
 

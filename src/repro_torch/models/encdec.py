@@ -35,6 +35,7 @@ from repro_torch.layers.mlp import MLP
 from repro_torch.layers.norms import RMSNorm
 from repro_torch.models import blocks
 from repro_torch.models.transformer import Head, _xent, fill_params
+from repro_torch.sharding.annotate import constrain
 
 SELF_KEYS = ("k", "v")
 CROSS_KEYS = ("cross.k", "cross.v")
@@ -161,8 +162,8 @@ class EncDec(nn.Module):
 
     def encode(self, src_embeds, *, backend=None):
         """(B, src_len, d_model) frames -> the memory, ``enc_ln``-normed."""
-        x = torch.as_tensor(src_embeds, device=self.device).to(
-            blocks.dtype_of(self.cfg))
+        x = constrain(torch.as_tensor(src_embeds, device=self.device).to(
+            blocks.dtype_of(self.cfg)), "activation")
         for block in self.enc_blocks:
             x = block(x, backend=backend)
         return self.enc_ln(x)
@@ -175,7 +176,8 @@ class EncDec(nn.Module):
                              backend=backend)
 
     def _decoder(self, tokens, memory, *, mode, cache, pos, backend):
-        x = self.embed.encode(tokens).to(blocks.dtype_of(self.cfg))
+        x = constrain(self.embed.encode(tokens).to(
+            blocks.dtype_of(self.cfg)), "activation")
         for i, block in enumerate(self.dec_blocks):
             x = block(x, memory, mode=mode,
                       cache=None if cache is None else cache["blocks"][i],

@@ -54,10 +54,12 @@ from torch.utils import checkpoint
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core import brgemm, dispatch
 from repro_torch.core.dispatch import check_device
+from repro_torch.distributed import collectives
 from repro_torch.layers import recurrent
 from repro_torch.layers.embeddings import Embedding
 from repro_torch.layers.norms import RMSNorm
 from repro_torch.models import blocks
+from repro_torch.sharding.annotate import constrain
 
 ZERO_AUX = blocks.ZERO_AUX
 MTP_WEIGHT = 0.3
@@ -70,7 +72,10 @@ def _acc(a, b):
 
 
 class Head(nn.Module):
-    """The untied output head: ``w`` (d_model, vocab)."""
+    """The untied output head: ``w`` (d_model, vocab).  ``tp``: the model
+    axis of a mesh whose ranks each hold a block of the vocab's columns
+    (``distributed/parallel.py``), else None."""
+    tp = None
 
     def __init__(self, d: int, vocab: int, *, dtype, device):
         super().__init__()
@@ -140,21 +145,23 @@ class Transformer(nn.Module):
         dt = blocks.dtype_of(self.cfg)
         h = self._embed_tokens(tokens)
         if self.vision_proj is None:
-            return h
+            return constrain(h, "activation")
         if patch_embeds is None:
             raise ValueError(f"{self.cfg.name}: the batch needs "
                              f"patch_embeds (B, {self.cfg.n_patches}, "
                              f"{self.cfg.d_model})")
         v = self.vision_proj(torch.as_tensor(patch_embeds, device=h.device)
                              .to(dt), backend=backend)
-        return torch.cat([v, h], dim=1)
+        return constrain(torch.cat([v, h], dim=1), "activation")
 
     def _head(self, h, backend):
         h = self.final_ln(h)
         if self.head is None:
-            return self.embed.decode(h, backend=backend)
-        return brgemm.matmul(h, self.head.w, out_dtype=torch.float32,
-                             backend=backend)
+            return constrain(self.embed.decode(h, backend=backend), "logits")
+        h = collectives.copy_to_model(h, self.head.tp)
+        return constrain(brgemm.matmul(h, self.head.w,
+                                       out_dtype=torch.float32,
+                                       backend=backend), "logits")
 
     def _run(self, h, *, mode, cache, pos, backend, remat=False,
              row_groups=False):
@@ -238,7 +245,8 @@ class Transformer(nn.Module):
         """tokens: (B, 1), row b at position ``pos[b]`` (a (B,) tensor).
         Returns (logits (B, V), cache), the cache written in place.
         ``row_groups``: MoE routes each row as a group of its own."""
-        h, _ = self._run(self._embed_tokens(tokens), mode="decode",
+        h, _ = self._run(constrain(self._embed_tokens(tokens), "activation"),
+                         mode="decode",
                          cache=cache, pos=pos, backend=backend,
                          row_groups=row_groups)
         return self._head(h, backend)[:, 0], cache

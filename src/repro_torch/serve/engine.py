@@ -52,8 +52,17 @@ streaming callbacks, serving metrics and request spans (``obs``).  Greedy
 outputs match the static ``Engine`` token for token.  The reference's
 ``key`` is a ``torch.Generator`` here (by default one on the engine's
 device, seeded 0, so sampling draws no uniforms on the host); its
-``interpret`` (no counterpart on the card), ``mesh`` and ``axis_specs``
-are not ported.
+``interpret`` has no counterpart on the card.
+
+Both engines take the reference's ``mesh`` and ``axis_specs``
+(``_tier_context``: an unset mesh falls back to the one the launcher
+installed, ``sharding.annotate.current_mesh``, read at each call).  They
+only scope dispatch, as the reference's do: every kernel's plan is chosen
+for the shard its op would run on that mesh (``dispatch.resolve_blocks``),
+while the engine runs the whole problem on its one device and shards
+nothing.  So the mesh is an abstract one (``sharding.local.
+abstract_mesh``, ``launch.mesh.make_production_mesh``); serving over the
+ranks of a running mesh is not ported yet (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -72,6 +81,7 @@ from repro_torch.models import api
 from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import Request, RequestState, Scheduler
+from repro_torch.sharding import annotate
 
 
 def completed_lengths(ids, stop_tokens) -> np.ndarray:
@@ -98,6 +108,29 @@ def _gumbel(shape, generator, device):
 
 def _tier(quant):
     return as_quant_config(quant) if quant is not None else None
+
+
+def _tier_context(backend, blocks_policy, accum_dtype, mesh=None,
+                  axis_specs=None, quant=None):
+    """The ``dispatch.use`` kwargs of one serving tier, read at the call:
+    an unset mesh falls back to the one the launcher installed
+    (``sharding.annotate.use_rules``)."""
+    return dict(backend=backend, blocks_policy=blocks_policy,
+                accum_dtype=accum_dtype,
+                mesh=mesh if mesh is not None else annotate.current_mesh(),
+                axis_specs=axis_specs, quant=quant)
+
+
+def _check_mesh(mesh, axis_specs):
+    """An engine's mesh: None, or one that models a layout (a running
+    mesh's ranks would each serve the whole problem)."""
+    dispatch.check_axis_specs(axis_specs)
+    if mesh is not None and not mesh.is_abstract and mesh.size > 1:
+        raise NotImplementedError(
+            f"serving over the {mesh.size} ranks of a running mesh is not "
+            f"ported yet (ROADMAP.md queue 1, item 6); an abstract mesh "
+            f"(sharding.local.abstract_mesh) chooses per-shard plans")
+    return mesh
 
 
 def _accum(accum_dtype):
@@ -138,7 +171,8 @@ class ServeConfig:
 class Engine:
     def __init__(self, cfg: ArchCfg, params, scfg: ServeConfig, *,
                  backend: str | None = None, device="cuda", quant=None,
-                 decode_quant=None, blocks_policy=None, accum_dtype=None):
+                 decode_quant=None, blocks_policy=None, accum_dtype=None,
+                 mesh=None, axis_specs=None):
         self.device = dispatch.check_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params live on {params.device}, the engine "
@@ -150,6 +184,8 @@ class Engine:
         # Normalized (so validated) here, not at the first call.
         self.blocks_policy = dispatch.check_blocks_policy(blocks_policy)
         self.accum_dtype = _accum(accum_dtype)
+        self.mesh = _check_mesh(mesh, axis_specs)
+        self.axis_specs = axis_specs
         self.quant = _tier(quant)
         self.decode_quant = _tier(decode_quant) or self.quant
 
@@ -192,9 +228,9 @@ class Engine:
             inputs["src_embeds"] = _src_embeds(_as_batch1(
                 batch.get("src_embeds"), "src_embeds", self.device),
                 self.scfg.src_len, "ServeConfig")
-        with torch.inference_mode(), dispatch.use(
-                backend=self.backend, blocks_policy=self.blocks_policy,
-                accum_dtype=self.accum_dtype):
+        with torch.inference_mode(), dispatch.use(**_tier_context(
+                self.backend, self.blocks_policy, self.accum_dtype,
+                self.mesh, self.axis_specs)):
             cache = api.init_cache(self.cfg, b, self.scfg.max_len,
                                    self.scfg.src_len, device=self.device)
             with dispatch.use(quant=self.quant):
@@ -297,7 +333,8 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ArchCfg, params, pool: PoolConfig, *,
                  backend: str | None = None, quant=None, decode_quant=None,
-                 blocks_policy=None, accum_dtype=None, priority_fn=None,
+                 blocks_policy=None, accum_dtype=None, mesh=None,
+                 axis_specs=None, priority_fn=None,
                  generator: torch.Generator | None = None,
                  trace_sample_rate: int | None = None,
                  clock: Callable[[], float] = time.perf_counter,
@@ -333,6 +370,8 @@ class ContinuousEngine:
         self.backend = backend
         self.blocks_policy = dispatch.check_blocks_policy(blocks_policy)
         self.accum_dtype = _accum(accum_dtype)
+        self.mesh = _check_mesh(mesh, axis_specs)
+        self.axis_specs = axis_specs
         self._pos_off = _pos_off(cfg)
         self.quant = _tier(quant)
         # decode streams the weights, so it gets its own quant tier
@@ -725,9 +764,9 @@ class ContinuousEngine:
 
         Returns a list of ``(request_id, token, finished)`` events.
         """
-        with torch.inference_mode(), dispatch.use(
-                backend=self.backend, blocks_policy=self.blocks_policy,
-                accum_dtype=self.accum_dtype):
+        with torch.inference_mode(), dispatch.use(**_tier_context(
+                self.backend, self.blocks_policy, self.accum_dtype,
+                self.mesh, self.axis_specs)):
             return self._step()
 
     def _step(self):

@@ -50,23 +50,41 @@ def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWCfg) -> dict:
         }
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in fp32 (0-d tensor)."""
+def global_norm(tensors, *, replicas=None, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in fp32 (0-d tensor).
+
+    On a mesh each rank passes its shards, ``replicas`` (one count a
+    tensor, in order) the ranks that hold each of a shard's elements, and
+    ``group`` (a ``collectives.AxisGroup`` of every rank): the squares are
+    summed over the ranks, each replicated element counted once."""
     tensors = list(tensors.values() if isinstance(tensors, Mapping)
                    else tensors)
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if (group is None or group.size == 1) and all(
+            r == 1 for r in (replicas or ())):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    from repro_torch.distributed.collectives import all_reduce
+    sq = torch.stack(norms).square()
+    if replicas is not None:
+        sq = sq / torch.tensor(list(replicas), dtype=sq.dtype,
+                               device=sq.device)
+    return all_reduce(sq.sum(), group).sqrt()
 
 
 @torch.no_grad()
 def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
-                 cfg: AdamWCfg, lr_scale: float = 1.0):
+                 cfg: AdamWCfg, lr_scale: float = 1.0, *, replicas=None,
+                 group=None):
     """Returns ``(new_state, metrics)``; ``m``, ``v`` and ``master`` are
-    updated in place and carried into the new state."""
+    updated in place and carried into the new state.  On a mesh the state
+    and ``grads`` are a rank's shards, ``replicas`` ({name: ranks that
+    hold each element}) and ``group`` (every rank) give the clipping norm
+    over all of them (:func:`global_norm`)."""
     names = list(state["master"])
     step = state["step"] + 1
     g32 = [grads[n].float() for n in names]
-    gnorm = global_norm(g32)
+    gnorm = global_norm(g32, group=group, replicas=(
+        None if replicas is None else [replicas[n] for n in names]))
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     g32 = torch._foreach_mul(g32, clip)
     b1c = 1.0 - cfg.b1 ** step

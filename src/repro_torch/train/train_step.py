@@ -22,13 +22,23 @@ as in the reference.  ``cfg.remat`` checkpoints each decoder block
 the backward and AdamW, which then takes them in fp32, as the reference's
 step does (``distributed/collectives.py``); an int8 scale covers a leaf of
 the reference's tree, every layer of a stack (``interop.stacked_leaves``).
-Meshes and ``axis_specs`` are not ported yet.
+
+``mesh`` (default: the mesh the launcher installed,
+``sharding.annotate.current_mesh``, read at each step as the reference
+reads it at trace time) and ``axis_specs`` scope dispatch, so plans are
+chosen for the shard (``dispatch.resolve_blocks``).  On an abstract mesh
+the step runs the global problem on one device, as the reference's does
+under GSPMD's view of a layout.  On a mesh of the running world
+(``launch.mesh.make_mesh``) the step is the data x model parallel
+executor's (``distributed/parallel.py``): the state is this rank's shard
+(``init_state(..., mesh=)``), the batch the global one, the loss the
+global mean.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core import dispatch
 from repro_torch.distributed.collectives import (KINDS, compress_grads,
@@ -36,6 +46,7 @@ from repro_torch.distributed.collectives import (KINDS, compress_grads,
 from repro_torch.models import api
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
+from repro_torch.sharding import annotate
 from repro_torch.train import optimizer as opt
 from repro_torch.train.schedule import warmup_cosine
 
@@ -49,7 +60,9 @@ def loss_and_grads(model: Transformer | EncDec, batch, cfg: ArchCfg):
     gradient of every parameter, by name, in the parameter's dtype."""
     for p in model.parameters():
         p.grad = None
-    loss, metrics = api.loss_fn(model, _to_device(batch, model.device), cfg)
+    with obs.span("train.forward"):
+        loss, metrics = api.loss_fn(model, _to_device(batch, model.device),
+                                    cfg)
     loss.backward()
     grads = {n: p.grad for n, p in model.named_parameters()}
     return {k: v.detach() for k, v in metrics.items()}, grads
@@ -64,19 +77,24 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
     ``batch`` holds ``tokens`` and ``labels`` (and a VLM's
     ``patch_embeds``, an encoder-decoder's ``src_embeds``; numpy or
     tensors), moved to the master copy's device.  ``backend``,
-    ``blocks_policy`` and ``accum_dtype`` scope every op of the step,
-    forward and backward.
+    ``blocks_policy``, ``accum_dtype``, ``mesh`` and ``axis_specs`` scope
+    every op of the step, forward and backward; a mesh of the running
+    world makes it the rank's step of ``distributed.parallel``.
     """
     if grad_compression not in ("none", *KINDS):
         raise ValueError(f"grad_compression={grad_compression!r}; expected "
                          f"'none' or one of {', '.join(KINDS)}")
-    if mesh is not None or axis_specs is not None:
-        raise NotImplementedError(
-            "mesh and axis_specs are not ported yet: the port trains on one "
-            "device (blocks_policy and accum_dtype are ported)")
     blocks_policy = dispatch.check_blocks_policy(blocks_policy)
     if accum_dtype is not None:
         accum_dtype = dispatch.as_accum_dtype(accum_dtype)
+    dispatch.check_axis_specs(axis_specs)
+    if mesh is not None and not mesh.is_abstract:
+        from repro_torch.distributed import parallel
+        return parallel.make_train_step(
+            cfg, ocfg, mesh, microbatches=microbatches,
+            grad_compression=grad_compression, backend=backend,
+            blocks_policy=blocks_policy, accum_dtype=accum_dtype,
+            axis_specs=axis_specs)
     model = None     # the working params, built at the first step
 
     def train_step(state, batch):
@@ -86,8 +104,15 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
             model = (EncDec if api.is_encdec(cfg) else Transformer)(
                 cfg, device=device)
         opt.cast_params(state["opt"], dict(model.named_parameters()))
+        step_mesh = mesh if mesh is not None else annotate.current_mesh()
+        if step_mesh is not None and not step_mesh.is_abstract:
+            raise ValueError(
+                f"the launcher installed {step_mesh}, a mesh of the running "
+                f"world: pass it as make_train_step(mesh=) to run its "
+                f"executor")
         with dispatch.use(backend=backend, blocks_policy=blocks_policy,
-                          accum_dtype=accum_dtype):
+                          accum_dtype=accum_dtype, mesh=step_mesh,
+                          axis_specs=axis_specs):
             if microbatches > 1:
                 rows = len(batch["tokens"])
                 if rows % microbatches:
@@ -119,8 +144,13 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, *,
 
 
 def init_state(cfg: ArchCfg, ocfg: opt.AdamWCfg,
-               generator: torch.Generator | None = None, device="cuda"):
+               generator: torch.Generator | None = None, device="cuda", *,
+               mesh=None):
     """``{"opt": adamw_init(params)}`` for random params drawn from
-    ``generator`` in ``cfg.dtype`` (the master copy holds them in fp32)."""
+    ``generator`` in ``cfg.dtype`` (the master copy holds them in fp32).
+    On a mesh of the running world, this rank's shard of it."""
+    if mesh is not None and not mesh.is_abstract:
+        from repro_torch.distributed import parallel
+        return parallel.init_state(cfg, ocfg, mesh, generator, device)
     model = api.init_params(cfg, generator, device=device)
     return {"opt": opt.adamw_init(dict(model.named_parameters()), ocfg)}

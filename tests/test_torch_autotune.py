@@ -460,7 +460,7 @@ def test_restored_carries_the_state_to_another_thread():
     t = threading.Thread(target=other)
     t.start()
     t.join()
-    assert seen["before"] == seen["after"] == (None, None, None, None)
+    assert seen["before"] == seen["after"] == (None,) * 6
     assert seen["inside"] == state
     assert state[0] == "torch" and state[2] == "heuristic"
 

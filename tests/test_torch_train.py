@@ -325,9 +325,18 @@ def test_train_step_takes_block_policies_and_refuses_the_rest(
     tts.make_train_step(tcfg, topt.AdamWCfg(),
                         blocks_policy="autotune")(state, b)
     assert seen == ["autotune"]
-    for kw in ({"mesh": object()}, {"axis_specs": {}}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tts.make_train_step(tcfg, topt.AdamWCfg(), **kw)
+    # mesh and axis_specs are ported (tests/test_torch_mesh.py): they
+    # scope the step's dispatch, and an axis spec dispatch refuses raises
+    from repro_torch.sharding.local import abstract_mesh
+    mesh = abstract_mesh((2, 4), ("data", "model"))
+    specs = {"matmul": (None, "model", None)}
+    monkeypatch.setattr(tts, "loss_and_grads", lambda model, batch, cfg: (
+        seen.append(tdispatch.snapshot()[4:]), real(model, batch, cfg))[1])
+    tts.make_train_step(tcfg, topt.AdamWCfg(), mesh=mesh,
+                        axis_specs=specs)(state, b)
+    assert seen[-1] == (mesh, specs)
+    with pytest.raises(ValueError, match="axis_specs"):
+        tts.make_train_step(tcfg, topt.AdamWCfg(), axis_specs={"mm": None})
     # accum_dtype is ported (tests/test_torch_accum.py): a dtype it does
     # not know raises
     tts.make_train_step(tcfg, topt.AdamWCfg(), accum_dtype=torch.bfloat16)

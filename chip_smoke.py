@@ -6068,6 +6068,13 @@ MOE_POOLS = (("slotted", {}), ("paged", {"page_size": 16}))
 MLA_INT8_POOL = ("paged_int8", {"page_size": 16, "kv_quant": "int8"})
 
 
+# MLA in the dense family: smollm-135m's widths and depth with mla=True and
+# ArchCfg's default ranks (DeepSeek-V3's: q 1536, kv 512, nope 128, rope
+# 64, v 128), bf16 through the static engine (its calls timed as path
+# moe's), then fp32 at CONT_FP32_LAYERS layers through both engines.
+MLA_DENSE = ("smollm-135m+mla", "smollm-135m", {"mla": True})
+
+
 def moe_pools(cfg):
     return MOE_POOLS + ((MLA_INT8_POOL,) if cfg.mla else ())
 MOE_FP32_LAYERS, MOE_FP32_PROMPT = 2, 64
@@ -6146,7 +6153,8 @@ def moe_forward_calls(cfg, kind, b, t):
         amm, afl = attn_calls(cfg, b, t, kind == "prefill")
         mm.update(amm)
         fl.update(afl)
-        if cfg.block == "moe" or i >= cfg.n_dense_layers:
+        if cfg.block == "moe" or (cfg.block == "mla_moe"
+                                  and i >= cfg.n_dense_layers):
             lmm, lbm = moe_layer_calls(cfg, b, t, kind == "slot_decode")
             mm.update(lmm)
             bm.update(lbm)
@@ -6366,20 +6374,25 @@ def cfg_dtype(cfg):
 
 
 def moe_fp32_tokens(name, overrides, gen):
-    """fp32 at MOE_FP32_LAYERS layers of the reduced width: both engines'
-    greedy tokens on the kernels against the plain path's (slotted and
-    paged pools); a row that differs must differ at a top-two logit gap
-    within the fp32 band."""
-    import numpy as np
+    """fp32 at MOE_FP32_LAYERS layers of the reduced width: fp32_tokens."""
     from repro_torch.configs import get
+    red = get(name).reduced()
+    return fp32_tokens(name, dataclasses.replace(
+        red, n_layers=MOE_FP32_LAYERS, dtype="float32",
+        n_dense_layers=min(red.n_dense_layers,
+                           overrides.get("n_dense_layers", 0))), gen)
+
+
+def fp32_tokens(name, cfg, gen, tiers=True):
+    """fp32 ``cfg``: both engines' greedy tokens on the kernels against
+    the plain path's (slotted and paged pools, MLA's int8 pages); a row
+    that differs must differ at a top-two logit gap within the fp32 band
+    (on int8 pages, or within a tier's, int8_pages_gap); with ``tiers``
+    the quant tiers on one pool (tier_fp32_tokens).  Returns failures."""
+    import numpy as np
     from repro_torch.core import dispatch
     from repro_torch.models import api
     from repro_torch.serve import Engine, Request, ServeConfig
-    red = get(name).reduced()
-    cfg = dataclasses.replace(red, n_layers=MOE_FP32_LAYERS, dtype="float32",
-                              n_dense_layers=min(red.n_dense_layers,
-                                                 overrides.get(
-                                                     "n_dense_layers", 0)))
     params = api.init_params(cfg, gen, device="cuda")
     max_len = MOE_FP32_PROMPT + MOE_NEW
     tokens = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_FP32_PROMPT),
@@ -6410,6 +6423,11 @@ def moe_fp32_tokens(name, overrides, gen):
         found[pool] = first_divergence(
             cfg, params, [requests[i].prompt for i in ids],
             [c_got[i] for i in ids], [c_want[i] for i in ids])
+        if kw.get("kv_quant"):       # a quantized cache: a tier's rule
+            for r, gap in found[pool].items():
+                gap.update(int8_pages_gap(cfg, params,
+                                          requests[ids[r]].prompt,
+                                          gap["step"], pool_kw))
     emit({"phase": "moe", "arch": name, "engine": "static+continuous",
           "dtype": "float32", "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "reduced": True,
@@ -6422,14 +6440,67 @@ def moe_fp32_tokens(name, overrides, gen):
     pool, kw = MLA_INT8_POOL if cfg.mla else MOE_POOLS[0]
     tiers = tier_fp32_failures(name, tier_fp32_tokens(
         cfg, params, MOE_FP32_PROMPT, MOE_NEW, requests,
-        [(pool, {"n_slots": MOE_SLOTS, "max_len": max_len, **kw})], gen))
+        [(pool, {"n_slots": MOE_SLOTS, "max_len": max_len, **kw})],
+        gen)) if tiers else []
     del params
     torch.cuda.empty_cache()
+    band = LOGITS_BAND[torch.float32]
     return tiers + [
         f"fp32 {name} {where} row {r} differs from the plain path at "
-        f"step {gap['step']}, top-two gap {gap['top2_gap']}"
+        f"step {gap['step']}, top-two gap {gap['top2_gap']}, int8 pages "
+        f"{gap.get('pages_top2_gap')}, spread {gap.get('spread')}"
         for where, rows in found.items() for r, gap in rows.items()
-        if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
+        if not (abs(gap["top2_gap"]) <= band or (
+            "spread" in gap and abs(gap["pages_top2_gap"])
+            <= max(band, 2 * gap["spread"])))]
+
+
+def int8_pages_gap(cfg, params, prompt, step, pool_kw):
+    """A request of an int8-page pool, held as a quant tier (the note
+    above tier_spread): the request served alone on the plain path over
+    the same pool, its logits at generated step ``step`` (the decode that
+    reads the quantized pages; the first token comes from the prefill's
+    full-precision K and V), their top-two gap, and the plain path's own
+    spread there: the most those logits move, over TIER_SPREAD_DRAWS
+    draws, when every float weight moves by TIER_SPREAD of itself."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import api
+    from repro_torch.serve import ContinuousEngine, PoolConfig, Request
+    if step == 0:
+        return {"pages_top2_gap": 0.0, "spread": 0.0}
+    kw = {**pool_kw, "n_slots": 1}
+
+    def logits(model):
+        seen, real = [], api.decode_step_paged
+
+        def spy(*args, **kwargs):
+            out = real(*args, **kwargs)
+            seen.append(out[0][0].float().clone())
+            return out
+
+        api.decode_step_paged = spy
+        try:
+            with dispatch.use(backend="torch"):
+                ContinuousEngine(cfg, model, PoolConfig(**kw)).serve([
+                    Request(prompt=list(prompt), max_tokens=step + 1,
+                            stop_tokens=())])
+        finally:
+            api.decode_step_paged = real
+        return seen[step - 1]
+
+    want = logits(params)
+    top = torch.topk(want, 2).values
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    spread = 0.0
+    for _ in range(TIER_SPREAD_DRAWS):
+        moved = copy.deepcopy(params)
+        with torch.no_grad():
+            for p in moved.parameters():
+                p.mul_(1 + TIER_SPREAD * torch.randn(
+                    p.shape, device=p.device, generator=gen))
+        spread = max(spread, (logits(moved) - want).abs().max().item())
+        del moved
+    return {"pages_top2_gap": (top[0] - top[1]).item(), "spread": spread}
 
 
 # --------------------------------------------------------------------------
@@ -6930,9 +7001,80 @@ def phase_moe(card):
         del params
         free_card()
         failed += moe_fp32_tokens(name, overrides, gen)
+    mla_dense(card, launches, worst, calls_by_model, failed)
     if failed:
         raise AssertionError(f"moe: {failed}")
     return {"moe": launches}, worst, calls_by_model
+
+
+def mla_dense(card, launches, worst, calls_by_model, failed):
+    """MLA in the dense family (MLA_DENSE): the static engine in bf16 at
+    full width and depth, its launches counted (zeroed just before, read
+    just after, against moe_forward_calls) into path moe and every kernel
+    call of a prefill and a decode forward against plain; then fp32 at
+    CONT_FP32_LAYERS layers through both engines and the tiers
+    (fp32_tokens)."""
+    from repro_torch.kernels.brgemm import batched_matmul_cuda, matmul_cuda
+    from repro_torch.kernels.brgemm.kernel import reset_matmul_counts
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_flash_counts)
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    t_run = time.perf_counter()
+    name, base, overrides = MLA_DENSE
+    cfg = model_cfg(base, overrides)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    params = api.init_params(cfg, gen, device="cuda")
+    engine = Engine(cfg, params, ServeConfig(max_len=MOE_PROMPT + MOE_NEW))
+    tokens = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_PROMPT),
+                           device="cuda", generator=gen, dtype=torch.int32)
+    engine.generate({"tokens": tokens[:, :16]}, n_tokens=2, stop_tokens=())
+    torch.cuda.synchronize()
+    # The main path: counts zeroed just before, read just after.
+    reset_matmul_counts()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate({"tokens": tokens}, n_tokens=MOE_NEW,
+                          stop_tokens=())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = {"matmul": matmul_cuda.launches,
+           "batched_matmul": batched_matmul_cuda.launches,
+           "flash_attention": flash_attention_cuda.launches}
+    calls = moe_calls(cfg, collections.Counter({
+        ("prefill", MOE_BATCH, MOE_PROMPT): 1,
+        ("decode", MOE_BATCH, 1): MOE_NEW - 1}))
+    expect = moe_totals(calls)
+    if got != expect or tuple(ids.shape) != (MOE_BATCH, MOE_NEW):
+        failed.append(f"{name} static launches {got} != {expect}, ids "
+                      f"{tuple(ids.shape)}")
+    by_mainloop = {
+        **mainloop_check(torch.bfloat16, got["matmul"]),
+        **flash_mainloop_check(torch.bfloat16, got["flash_attention"])}
+    for k in MOE_KERNELS:
+        launches[k] += got[k]
+    calls_by_model[name] = {**calls, "matmul_q": collections.Counter(),
+                            "batched_matmul_q": collections.Counter()}
+    errs, checked = forward_parity(cfg, params, tokens, failed,
+                                   ("matmul", "flash_attention"))
+    for k, err in errs.items():
+        worst[k] = max(worst[k], err)
+    emit({"phase": "moe", "arch": name, "engine": "static",
+          "dtype": cfg.dtype, "n_layers": cfg.n_layers, "mla": cfg.mla,
+          "ranks": {"q": cfg.q_lora_rank, "kv": cfg.kv_lora_rank,
+                    "nope": cfg.qk_nope_dim, "rope": cfg.qk_rope_dim,
+                    "v": cfg.v_head_dim},
+          "params_b": sum(p.numel() for p in params.parameters()) / 1e9,
+          "launches": got, "expected_launches": expect, **by_mainloop,
+          "generate_s": seconds,
+          "tokens_per_s": MOE_BATCH * MOE_NEW / seconds,
+          "calls_checked": checked, "max_abs_err": errs, "card": card})
+    del engine, params
+    free_card()
+    failed += fp32_tokens(name, dataclasses.replace(
+        cfg, n_layers=CONT_FP32_LAYERS, dtype="float32"), gen, tiers=False)
+    emit({"phase": "moe", "arch": name, "seconds":
+          time.perf_counter() - t_run})
 
 
 def quant_tier_rows(rows, card, name, calls, path, gen):
@@ -7052,6 +7194,7 @@ def phase_times_moe(card, calls_by_model):
     from repro_torch.kernels.flash_attention import kernel as FK
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     cfgs = {name: model_cfg(name, over) for name, over in MOE_MODELS}
+    cfgs[MLA_DENSE[0]] = model_cfg(*MLA_DENSE[1:])
     rows = []
     row = row_recorder(rows, card)
     for name, calls in calls_by_model.items():
@@ -7414,11 +7557,63 @@ def rec_fp32_tokens(name, gen):
         cfg, params, prompt, new, requests, [("slotted", pool_kw)], gen))
     del params
     torch.cuda.empty_cache()
+    band = LOGITS_BAND[torch.float32]
     return tiers + [
         f"fp32 {name} {where} row {r} differs from the plain path at "
-        f"step {gap['step']}, top-two gap {gap['top2_gap']}"
+        f"step {gap['step']}, top-two gap {gap['top2_gap']}, int8 pages "
+        f"{gap.get('pages_top2_gap')}, spread {gap.get('spread')}"
         for where, rows in found.items() for r, gap in rows.items()
-        if not abs(gap["top2_gap"]) <= LOGITS_BAND[torch.float32]]
+        if not (abs(gap["top2_gap"]) <= band or (
+            "spread" in gap and abs(gap["pages_top2_gap"])
+            <= max(band, 2 * gap["spread"])))]
+
+
+def int8_pages_gap(cfg, params, prompt, step, pool_kw):
+    """A request of an int8-page pool, held as a quant tier (the note
+    above tier_spread): the request served alone on the plain path over
+    the same pool, its logits at generated step ``step`` (the decode that
+    reads the quantized pages; the first token comes from the prefill's
+    full-precision K and V), their top-two gap, and the plain path's own
+    spread there: the most those logits move, over TIER_SPREAD_DRAWS
+    draws, when every float weight moves by TIER_SPREAD of itself."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import api
+    from repro_torch.serve import ContinuousEngine, PoolConfig, Request
+    if step == 0:
+        return {"pages_top2_gap": 0.0, "spread": 0.0}
+    kw = {**pool_kw, "n_slots": 1}
+
+    def logits(model):
+        seen, real = [], api.decode_step_paged
+
+        def spy(*args, **kwargs):
+            out = real(*args, **kwargs)
+            seen.append(out[0][0].float().clone())
+            return out
+
+        api.decode_step_paged = spy
+        try:
+            with dispatch.use(backend="torch"):
+                ContinuousEngine(cfg, model, PoolConfig(**kw)).serve([
+                    Request(prompt=list(prompt), max_tokens=step + 1,
+                            stop_tokens=())])
+        finally:
+            api.decode_step_paged = real
+        return seen[step - 1]
+
+    want = logits(params)
+    top = torch.topk(want, 2).values
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    spread = 0.0
+    for _ in range(TIER_SPREAD_DRAWS):
+        moved = copy.deepcopy(params)
+        with torch.no_grad():
+            for p in moved.parameters():
+                p.mul_(1 + TIER_SPREAD * torch.randn(
+                    p.shape, device=p.device, generator=gen))
+        spread = max(spread, (logits(moved) - want).abs().max().item())
+        del moved
+    return {"pages_top2_gap": (top[0] - top[1]).item(), "spread": spread}
 
 
 def slstm_prefill_share(cfg, params, tokens):
@@ -9326,10 +9521,38 @@ MESH_CELLS = ("train_4k", "decode_32k")
 # larger of it and twice the one-rank run's own spread, its losses again
 # from weights moved by MESH_SPREAD of themselves (a bf16 rounding, as
 # FAM_SPREAD), as phase_train_families bands its gradients.
-MESH_WORLDS = ((2, 1), (1, 3))
+MESH_WORLDS = ((2, 1), (1, 3), (1, 2))
+MESH_SMOLLM_WORLDS = ((2, 1), (1, 3))
 MESH_BATCH, MESH_SEQ, MESH_STEPS = 6, 512, 3
 MESH_SPREAD = 2.0 ** -9
 MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
+# The one-rank baseline, timed warm over steps 2..MESH_TIMED_STEPS while
+# every world's ranks wait idle (after their imports and warm-up), at the
+# worlds' 6 x 512 and at MESH_WIDE_BATCH x 512 (the batch phase train's
+# meshless step once ran at, before remat).
+MESH_TIMED_STEPS, MESH_WIDE_BATCH = 6, 8
+# (c) grok-1-314b's MoE layer at full width (d 6144, 8 experts, top-2, F
+# 32768, bf16), B x T of MESH_EP_LAYER, one routing group a row, on the
+# (1, 2) world: expert parallelism, 4 experts a rank.  Its output and its
+# gradients (of a fixed random projection of the output) with respect to
+# x, the router and the rank's expert stacks, against one rank of the same
+# layer on the card (its expert gradients sliced to the rank's experts),
+# within TRAIN_BAND's bf16 gradient band (phase train_families' band for
+# the full-width layers).  Each rank runs the one-rank layer in turn
+# (30.96 GB at its peak) and frees it before the expert-parallel one.
+MESH_MOE = "grok-1-314b"
+MESH_EP_WORLD, MESH_EP_LAYER = (1, 2), (2, 512)
+# (d) grok-1-314b's reduced() config in bf16, MESH_MOE_BATCH, MESH_STEPS
+# AdamW steps, on the (1, 2) world (2 experts a rank) and the (2, 1) world
+# (ZeRO-3 over the expert stacks, dp-local routing groups, the aux losses
+# reduced over the data axis), the latter also with microbatches and int8
+# gradient compression; each against one rank with the same options in
+# mesh_world_check's loss limits.
+MESH_MOE_BATCH = (4, 64)
+MESH_MOE_OPTIONS = {"plain": {}, "microbatches2": {"microbatches": 2},
+                    "int8": {"grad_compression": "int8"}}
+MESH_MOE_RUNS = {(1, 2): ("plain",), (2, 1): ("plain", "microbatches2",
+                                              "int8")}
 
 
 def mesh_argv(world, out):
@@ -9342,39 +9565,223 @@ def mesh_argv(world, out):
 
 def mesh_rank(rank, n, store, world, card):
     """One rank of a phase-mesh world (a process of its own): joins the
-    gloo world through a file store, warms up, waits for its world's turn
-    (the file ``go_<world>``), then trains (launch/train.py's CLI).  Rank 0
-    counts its launches by signature (``accum_recorder``), then, the world
-    gone, holds each signature against its plain version on its first
-    inputs (``checked_launches``) and times it (rows of path ``mesh``), and
-    writes both beside the world's record.  The kernels are the ones
-    phase_build built (``_build`` loads them by digest)."""
+    gloo world through a file store, warms up, says so (``ready_<world>.
+    <rank>``), waits for its world's turn (the file ``go_<world>``), then
+    runs the world's work: smollm trained through launch/train.py's CLI
+    (MESH_SMOLLM_WORLDS), the expert-parallel layer (c) on MESH_EP_WORLD
+    (``mesh_ep_layer``), grok's reduced runs (d) (``mesh_moe_runs``).
+    Rank 0 counts its launches by signature (``accum_recorder``; not the
+    one-rank layer's), then, the world gone, holds each signature against
+    its plain version on its first inputs (``checked_launches``) and
+    times it (rows of path ``mesh``), and writes both beside the world's
+    records.  The kernels are the ones phase_build built (``_build``
+    loads them by digest)."""
     import torch.distributed as dist
     from torch.utils import checkpoint
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
     tag = f"{world[0]}x{world[1]}"
-    # A first checkpointed backward loads torch._dynamo (~12 s on the
-    # card's host): paid here, while the worlds before this one run.
-    x = torch.ones(8, device="cuda", requires_grad=True)
-    checkpoint.checkpoint(torch.sin, x, use_reentrant=False).sum().backward()
+    if world in MESH_SMOLLM_WORLDS:
+        # A first checkpointed backward (smollm's remat) loads
+        # torch._dynamo (~12 s on the card's host): paid here, before the
+        # world's turn.
+        x = torch.ones(8, device="cuda", requires_grad=True)
+        checkpoint.checkpoint(torch.sin, x,
+                              use_reentrant=False).sum().backward()
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=n)
+    (MESH_DIR / f"ready_{tag}.{rank}").touch()
     while not (MESH_DIR / f"go_{tag}").exists():
         time.sleep(0.05)
-    argv = mesh_argv(world, MESH_DIR / f"{tag}.json")
+    mesh = make_mesh(world, ("data", "model"))
+    out = {}
     try:
-        if rank:
-            train.main(argv)
-            return
-        with accum_recorder() as calls:
-            train.main(argv)
+        want = mesh_ep_want(mesh) if world == MESH_EP_WORLD else None
+        runs = MESH_MOE_RUNS.get(world, ())
+        with accum_recorder() if rank == 0 else contextlib.nullcontext(
+                {}) as calls:
+            if world in MESH_SMOLLM_WORLDS:
+                train.main(mesh_argv(world, MESH_DIR / f"{tag}.json"))
+            if want is not None:
+                out["ep_layer"] = mesh_ep_layer(mesh, want, card)
+                del want
+            for run in runs[:1]:
+                out[run] = mesh_moe_steps(mesh, run)
+        # The other option sets run the same kernels (microbatches at half
+        # the rows): held by their losses, not timed as path mesh.
+        for run in runs[1:]:
+            out[run] = mesh_moe_steps(mesh, run)
     finally:
         dist.destroy_process_group()
     torch.cuda.synchronize()
+    if rank:
+        return
+    (MESH_DIR / f"{tag}.moe.json").write_text(json.dumps(out))
     # The kept inputs include views the step made under no_grad (the
     # working weights), written in place since: read them so too.
     with torch.no_grad():
         mesh_rank0_rows(calls, card, tag)
+
+
+def mesh_model_axis(mesh):
+    from repro_torch.distributed import collectives as C
+    return C.AxisGroup("model", mesh.group("model"), mesh.shape["model"],
+                       mesh.index("model"))
+
+
+def mesh_ep_grads(layer, x, r):
+    """The layer's output and the gradients of sum(y * r) with respect to
+    x and its parameters."""
+    for p in layer.parameters():
+        p.grad = None
+    x.grad = None
+    y, _ = layer(x)
+    (y.float() * r).sum().backward()
+    return {"y": y.detach(), "x": x.grad,
+            **{n: p.grad for n, p in layer.named_parameters()}}
+
+
+def mesh_ep_want(mesh):
+    """(c)'s one-rank layer, each rank of the model axis in turn (the
+    others wait at a barrier): full-width weights and input from one seed,
+    its output and gradients on the kernels, timed; keeps the rank's
+    expert slices of the weights and of their gradients, the router, the
+    input, the projection, the output and the gradients of x and the
+    router.  Returns them."""
+    import torch.distributed as dist
+    from repro_torch.layers import moe
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import fill_params
+    tp = mesh_model_axis(mesh)
+    cfg = model_cfg(MESH_MOE, {})
+    b, t = MESH_EP_LAYER
+    want = {}
+    for turn in range(tp.size):
+        if turn == tp.index:
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+            layer = moe.MoE(blocks.moe_cfg(cfg), dtype=torch.bfloat16,
+                            device="cuda")
+            fill_params(layer, gen)
+            x = torch.randn(b, t, cfg.d_model, device="cuda",
+                            generator=gen).to(torch.bfloat16)
+            r = torch.randn(b, t, cfg.d_model, device="cuda", generator=gen)
+            xg = x.clone().requires_grad_()
+            mesh_ep_grads(layer, xg, r)              # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = mesh_ep_grads(layer, xg, r)
+            torch.cuda.synchronize()
+            n = cfg.n_experts // tp.size
+            part = slice(tp.index * n, (tp.index + 1) * n)
+            want = {"x_in": x, "r": r, "ms": (time.perf_counter() - t0) * 1e3,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "grads": {k: (v[part] if k.startswith("w_") else v)
+                              .clone() for k, v in got.items()},
+                    "weights": {k: (v[part] if k.startswith("w_") else v)
+                                .detach().clone()
+                                for k, v in layer.named_parameters()}}
+            del layer, got, xg
+            torch.cuda.empty_cache()
+        dist.barrier(group=tp.group)
+    return want
+
+
+def mesh_ep_layer(mesh, want, card):
+    """(c): the rank's expert-parallel part of the layer (``MoE.split``),
+    its weights the one-rank layer's slices: output and gradients against
+    ``want``'s (relative L2 each), timed over a second run; peak memory
+    and collective bytes of the rank."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.layers import moe
+    from repro_torch.models import blocks
+    tp = mesh_model_axis(mesh)
+    cfg = model_cfg(MESH_MOE, {})
+    layer = moe.MoE(blocks.moe_cfg(cfg), dtype=torch.bfloat16, device="meta")
+    layer.split(tp, experts=True)
+    layer.to_empty(device="cuda")
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            p.copy_(want["weights"][name])
+    del want["weights"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x = want["x_in"].clone().requires_grad_()
+    C.reset_counts()
+    got = mesh_ep_grads(layer, x, want["r"])
+    counts = dict(C.COUNTS)
+    errs = {k: rel_l2(got[k], want["grads"][k]) for k in want["grads"]}
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    del got
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh_ep_grads(layer, x, want["r"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"experts": list(layer.experts), "rel_l2": errs,
+            "reference_held_gb": sum(v.numel() * v.element_size()
+                                     for v in want["grads"].values()) / 1e9,
+            "band": TRAIN_BAND[torch.bfloat16]["grad_rel_l2"],
+            "finite": finite, "grad_ms": ms, "one_rank_grad_ms": want["ms"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "one_rank_peak_gb": want["peak_bytes"] / 1e9,
+            "collectives": counts, "batch": list(MESH_EP_LAYER),
+            "card": card}
+
+
+def mesh_moe_cfg():
+    from repro_torch.configs import get
+    return dataclasses.replace(get(MESH_MOE).reduced(), dtype="bfloat16")
+
+
+def mesh_moe_steps(mesh, run, moved=False):
+    """(d): MESH_STEPS AdamW steps of grok's reduced config in bf16 at
+    MESH_MOE_BATCH with ``run``'s options from the seeded initial state
+    (``moved``: every weight moved by MESH_SPREAD of itself), on ``mesh``
+    (this rank's part) or on one rank (None): losses, load-balance
+    losses, step ms, peak bytes (every rank's), collectives."""
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import collectives as C
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    cfg = mesh_moe_cfg()
+    b, t = MESH_MOE_BATCH
+    pipe = TokenPipeline(cfg, ShapeCfg("mesh", "train", t, b), seed=SEED)
+    batches = [next(pipe) for _ in range(MESH_STEPS)]
+    pipe.close()
+    ocfg = opt.AdamWCfg()
+    state = ts.init_state(cfg, ocfg, torch.Generator().manual_seed(SEED),
+                          "cuda", mesh=mesh)
+    if moved:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+        for w in state["opt"]["master"].values():
+            w.mul_(1 + MESH_SPREAD * torch.randn(
+                w.shape, device="cuda", generator=gen).sign())
+    step = ts.make_train_step(cfg, ocfg, mesh=mesh, **MESH_MOE_OPTIONS[run])
+    C.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    rec = {"losses": [], "lb": [], "step_ms": []}
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(float(metrics["loss"]))
+        rec["lb"].append(float(metrics["load_balance_loss"]))
+    # the run's own peak: above what the rank held when it began (rank 0
+    # keeps the earlier runs' recorded inputs)
+    peak = [torch.cuda.max_memory_allocated() - resident]
+    if mesh is not None:
+        import torch.distributed as dist
+        peak = [None] * mesh.size
+        dist.all_gather_object(peak, torch.cuda.max_memory_allocated()
+                               - resident)
+    rec.update(peak_bytes=peak, collectives=dict(C.COUNTS))
+    del state, step
+    torch.cuda.empty_cache()
+    return rec
 
 
 def mesh_rank0_rows(calls, card, tag):
@@ -9406,11 +9813,12 @@ def mesh_rank0_rows(calls, card, tag):
         {"launches": launches, "held": held, "rows": rows}))
 
 
-def mesh_one_rank(cfg):
+def mesh_one_rank(cfg, runs):
     """One rank of the worlds' global batches (TokenPipeline, seeded as
-    launch/train.py seeds it) from the worlds' initial state, and again
-    from weights moved by MESH_SPREAD: (losses, spread losses, the first
-    step's forward triples, step seconds)."""
+    launch/train.py seeds it) from the worlds' initial state, for each of
+    ``runs`` ((batch rows, steps, moved): ``moved`` every weight moved by
+    MESH_SPREAD of itself), the first step traced: [(losses, the first
+    step's forward triples, step seconds)] in order."""
     from repro_torch import obs
     from repro_torch.configs.shapes import ShapeCfg
     from repro_torch.core import dispatch
@@ -9418,13 +9826,13 @@ def mesh_one_rank(cfg):
     from repro_torch.launch import train
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
-    pipe = TokenPipeline(cfg, ShapeCfg("mesh", "train", MESH_SEQ,
-                                       MESH_BATCH), seed=SEED)
-    batches = [next(pipe) for _ in range(MESH_STEPS)]
-    pipe.close()
     ocfg = opt.AdamWCfg()
     out = []
-    for moved in (False, True):
+    for batch_rows, steps, moved in runs:
+        pipe = TokenPipeline(cfg, ShapeCfg("mesh", "train", MESH_SEQ,
+                                           batch_rows), seed=SEED)
+        batches = [next(pipe) for _ in range(steps)]
+        pipe.close()
         state = ts.init_state(cfg, ocfg, torch.Generator().manual_seed(SEED),
                               "cuda")
         if moved:
@@ -9442,10 +9850,57 @@ def mesh_one_rank(cfg):
             losses.append(float(metrics["loss"]))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
-        out.append((losses, train.forward_triples(tracer), secs))
+        out.append((losses[:MESH_STEPS], train.forward_triples(tracer),
+                    secs))
         del state, step
         free_card()
-    return out[0][0], out[1][0], out[0][1], out[0][2]
+    return out
+
+
+def baseline_probe():
+    """The meshless smollm-135m train step in a fresh process with no rank
+    on the card (``python3 -c "import chip_smoke;
+    chip_smoke.baseline_probe()"``): warm step ms at MESH_WIDE_BATCH x
+    MESH_SEQ with and without ``cfg.remat`` and at MESH_BATCH x MESH_SEQ,
+    the control for phase mesh's one-rank baseline.  Prints one JSON
+    line."""
+    from repro_torch.configs import get
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    out = {}
+    for rows, remat in ((MESH_WIDE_BATCH, True), (MESH_WIDE_BATCH, False),
+                        (MESH_BATCH, True)):
+        cfg = dataclasses.replace(get("smollm-135m"), remat=remat)
+        pipe = TokenPipeline(cfg, ShapeCfg("probe", "train", MESH_SEQ, rows),
+                             seed=SEED)
+        batches = [next(pipe) for _ in range(MESH_TIMED_STEPS + 1)]
+        pipe.close()
+        ocfg = opt.AdamWCfg()
+        state = ts.init_state(cfg, ocfg, torch.Generator().manual_seed(SEED),
+                              "cuda")
+        step, ms = ts.make_train_step(cfg, ocfg), []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"{rows}x{MESH_SEQ} remat={remat}"] = {
+            "step_ms": ms, "warm_median_ms": median(ms[1:])}
+        del state, step
+        torch.cuda.empty_cache()
+    print(json.dumps({"baseline_probe": out, "card": card_line()}),
+          flush=True)
+
+
+def mesh_moe_one_rank():
+    """(d)'s one-rank runs: for each option set of MESH_MOE_RUNS, grok's
+    reduced steps (mesh_moe_steps) and again from moved weights.  Returns
+    {run: (record, moved record)}."""
+    runs = dict.fromkeys(r for rs in MESH_MOE_RUNS.values() for r in rs)
+    return {run: (mesh_moe_steps(None, run), mesh_moe_steps(None, run, True))
+            for run in runs}
 
 
 def mesh_plans(cfg, card):
@@ -9523,6 +9978,22 @@ def mesh_plans(cfg, card):
     return out, worst, failed
 
 
+def mesh_loss_check(tag, losses, want, spread, failed):
+    """A world's losses against one rank's: step 0 within TRAIN_BAND's
+    bf16 loss band, later steps within the larger of it and twice the one
+    rank's own spread (its losses from weights moved by MESH_SPREAD).
+    Returns (errors, limits)."""
+    band = TRAIN_BAND[torch.bfloat16]["loss"]
+    limits = [band] + [max(band, 2 * abs(a - b))
+                       for a, b in zip(want[1:], spread[1:])]
+    errs = [abs(a - b) for a, b in zip(losses, want)]
+    if len(errs) != MESH_STEPS or any(e > lim for e, lim in zip(errs, limits)) \
+            or not all(math.isfinite(x) for x in losses):
+        failed.append(f"{tag} losses {losses} against one rank's {want}, "
+                      f"limits {limits}")
+    return errs, limits
+
+
 def mesh_world_check(world, rec, want, triples, spread, failed):
     """A world's record against the one-rank run: the losses in their
     bands, rank 0's forward triples ``local_problem`` of the one-rank
@@ -9531,14 +10002,7 @@ def mesh_world_check(world, rec, want, triples, spread, failed):
     import ast
     from repro_torch.sharding import local
     tag = f"{world[0]}x{world[1]}"
-    band = TRAIN_BAND[torch.bfloat16]["loss"]
-    limits = [band] + [max(band, 2 * abs(a - b))
-                       for a, b in zip(want[1:], spread[1:])]
-    errs = [abs(a - b) for a, b in zip(rec["losses"], want)]
-    if len(errs) != MESH_STEPS or any(e > lim for e, lim in zip(errs, limits)) \
-            or not all(math.isfinite(x) for x in rec["losses"]):
-        failed.append(f"{tag} losses {rec['losses']} against one rank's "
-                      f"{want}, limits {limits}")
+    errs, limits = mesh_loss_check(tag, rec["losses"], want, spread, failed)
     mesh = local.abstract_mesh(world, ("data", "model"))
     got = rec["forward_triples"]
     bad = len(got) != len(triples) or not got
@@ -9561,24 +10025,28 @@ def mesh_world_check(world, rec, want, triples, spread, failed):
     return errs, limits
 
 
-def phase_mesh(cfg, card):
-    """(a) per-shard plans (``mesh_plans``); (b) the worlds of MESH_WORLDS
-    (``mesh_rank``) against one rank (``mesh_one_rank``).  Returns
-    ({"mesh": rank 0's launches}, worst abs error by kernel, rows).  Every
-    rank is stopped on the way out, whatever failed."""
+def phase_mesh(cfg, card, meanwhile=()):
+    """(a) per-shard plans (``mesh_plans``); (b) smollm's worlds of
+    MESH_SMOLLM_WORLDS (``mesh_rank``) against one rank (``mesh_one_rank``,
+    timed while every rank waits idle); (c) the expert-parallel layer and
+    (d) grok's reduced worlds against one rank (``mesh_moe_one_rank``).
+    ``meanwhile``: callables run, after (a) and (d)'s one-rank runs, while
+    the ranks import and warm up.  Returns ({"mesh": rank 0's launches},
+    worst abs error by kernel, rows).  Every rank is stopped on the way
+    out, whatever failed."""
     import shutil
     t_phase = time.perf_counter()
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     MESH_DIR.mkdir(parents=True)
     # Every world's ranks start now: their imports and warm-up run beside
-    # (a) and the one-rank runs, and each world trains alone, in turn.
+    # (a), and each world trains alone, in turn.
     worlds = {world: torch.multiprocessing.start_processes(
         mesh_rank, args=(world[0] * world[1], str(
             MESH_DIR / f"store_{world[0]}x{world[1]}"), world, card),
         nprocs=world[0] * world[1], join=False, start_method="spawn")
         for world in MESH_WORLDS}
     try:
-        return mesh_phases(cfg, card, worlds, t_phase)
+        return mesh_phases(cfg, card, worlds, t_phase, meanwhile)
     finally:
         for ctx in worlds.values():
             for p in ctx.processes:
@@ -9587,14 +10055,53 @@ def phase_mesh(cfg, card):
                 p.join()
 
 
-def mesh_phases(cfg, card, worlds, t_phase):
+def mesh_wait_ready(worlds):
+    """Waits until every rank has warmed up and joined its world (its
+    ``ready_`` file); raises where a rank died first."""
+    while True:
+        ready = all((MESH_DIR / f"ready_{w[0]}x{w[1]}.{r}").exists()
+                    for w in worlds for r in range(w[0] * w[1]))
+        if ready:
+            return
+        for ctx in worlds.values():
+            if any(p.exitcode not in (None, 0) for p in ctx.processes):
+                ctx.join()         # raises with the rank's error
+        time.sleep(0.05)
+
+
+def mesh_phases(cfg, card, worlds, t_phase, meanwhile):
     plans, worst, failed = mesh_plans(cfg, card)
     worst.setdefault("flash_attention_bwd", 0.0)
-    losses, spread, triples, one_s = mesh_one_rank(cfg)
+    worst.setdefault("batched_matmul", 0.0)
+    # Untimed work first, while the ranks import and warm up: (d)'s
+    # one-rank runs, the spread run, ``meanwhile``.
+    moe_want = mesh_moe_one_rank()
+    (spread, _, _), = mesh_one_rank(cfg, [(MESH_BATCH, MESH_STEPS, True)])
+    for fn in meanwhile:
+        fn()
+    t0 = time.perf_counter()
+    mesh_wait_ready(worlds)
+    waited = time.perf_counter() - t0
+    (losses, triples, one_s), (_, _, wide_s) = mesh_one_rank(
+        cfg, [(MESH_BATCH, MESH_TIMED_STEPS, False),
+              (MESH_WIDE_BATCH, MESH_TIMED_STEPS, False)])
     tokens = MESH_BATCH * MESH_SEQ
     emit({"phase": "mesh_one_rank", "losses": losses,
           "spread_losses": spread, "step_ms": [x * 1e3 for x in one_s],
-          "tokens_per_s": tokens / median(one_s[1:])})
+          "warm_step_ms": median(one_s[1:]) * 1e3,
+          "tokens_per_s": tokens / median(one_s[1:]),
+          "ranks_idle": True, "waited_for_ranks_s": waited,
+          "wide_batch": [MESH_WIDE_BATCH, MESH_SEQ],
+          "wide_batch_step_ms": [x * 1e3 for x in wide_s],
+          "wide_batch_warm_step_ms": median(wide_s[1:]) * 1e3,
+          "wide_batch_tokens_per_s": MESH_WIDE_BATCH * MESH_SEQ
+          / median(wide_s[1:]), "card": card})
+    emit({"phase": "mesh_moe_one_rank", "batch": list(MESH_MOE_BATCH),
+          "runs": {run: {"losses": a["losses"], "lb": a["lb"],
+                         "spread_losses": b["losses"],
+                         "step_ms": a["step_ms"],
+                         "peak_gb_above_resident": a["peak_bytes"][0] / 1e9}
+                   for run, (a, b) in moe_want.items()}, "card": card})
     launches, rows = collections.Counter(), []
     for world, ctx in worlds.items():
         n, tag = world[0] * world[1], f"{world[0]}x{world[1]}"
@@ -9602,10 +10109,8 @@ def mesh_phases(cfg, card, worlds, t_phase):
         (MESH_DIR / f"go_{tag}").touch()
         while not ctx.join():     # raises where a rank failed
             pass
-        rec = json.loads((MESH_DIR / f"{tag}.json").read_text())
         r0 = json.loads((MESH_DIR / f"{tag}.rank0.json").read_text())
-        errs, limits = mesh_world_check(world, rec, losses, triples, spread,
-                                        failed)
+        moe_recs = json.loads((MESH_DIR / f"{tag}.moe.json").read_text())
         for kernel, w in r0["held"].items():
             if kernel in SOURCES:     # not the flash forward's lse apart
                 worst[kernel] = max(worst.get(kernel, 0.0), w["max_abs"])
@@ -9613,18 +10118,49 @@ def mesh_phases(cfg, card, worlds, t_phase):
                 failed.append(f"{tag} {kernel} against plain: {w}")
         launches.update(r0["launches"])
         rows += r0["rows"]
-        emit({"phase": "mesh_world", "world": tag, "ranks": n,
-              "dist_backend": rec["dist_backend"], "losses": rec["losses"],
-              "one_rank_losses": losses, "loss_err": errs,
-              "loss_limits": limits, "step_ms": rec["step_ms"],
-              "tokens_per_s": rec["tokens_per_s"],
-              "peak_gb": [b / 1e9 for b in rec["peak_bytes"]],
-              "collective_bytes": {k: v for k, v in rec["collectives"].items()
-                                   if k.endswith("_bytes")},
-              "collective_calls": {k: v for k, v in rec["collectives"].items()
-                                   if k.endswith("_calls")},
-              "triples": len(rec["forward_triples"]),
-              "step_s": rec["step_s"],
+        if world in MESH_SMOLLM_WORLDS:
+            rec = json.loads((MESH_DIR / f"{tag}.json").read_text())
+            errs, limits = mesh_world_check(world, rec, losses, triples,
+                                            spread, failed)
+            emit({"phase": "mesh_world", "world": tag, "ranks": n,
+                  "arch": "smollm-135m",
+                  "dist_backend": rec["dist_backend"],
+                  "losses": rec["losses"], "one_rank_losses": losses,
+                  "loss_err": errs, "loss_limits": limits,
+                  "step_ms": rec["step_ms"],
+                  "tokens_per_s": rec["tokens_per_s"],
+                  "peak_gb": [b / 1e9 for b in rec["peak_bytes"]],
+                  **mesh_collectives(rec["collectives"]),
+                  "triples": len(rec["forward_triples"]),
+                  "step_s": rec["step_s"], "card": card})
+        if "ep_layer" in moe_recs:
+            ep = moe_recs["ep_layer"]
+            if not ep["finite"] or max(ep["rel_l2"].values()) > ep["band"]:
+                failed.append(f"{tag} expert-parallel layer against one "
+                              f"rank: {ep['rel_l2']}, band {ep['band']}, "
+                              f"finite {ep['finite']}")
+            emit({"phase": "mesh_ep_layer", "world": tag, "arch": MESH_MOE,
+                  **{k: v for k, v in ep.items() if k != "collectives"},
+                  **mesh_collectives(ep["collectives"])})
+        for run in MESH_MOE_RUNS.get(world, ()):
+            got, (want, moved) = moe_recs[run], moe_want[run]
+            errs, limits = mesh_loss_check(f"{tag} {run}", got["losses"],
+                                           want["losses"], moved["losses"],
+                                           failed)
+            emit({"phase": "mesh_world", "world": tag, "ranks": n,
+                  "arch": f"{MESH_MOE} reduced, bf16", "run": run,
+                  "options": MESH_MOE_OPTIONS[run],
+                  "batch": list(MESH_MOE_BATCH), "losses": got["losses"],
+                  "one_rank_losses": want["losses"], "loss_err": errs,
+                  "loss_limits": limits,
+                  "load_balance_losses": got["lb"],
+                  "one_rank_load_balance_losses": want["lb"],
+                  "step_ms": got["step_ms"],
+                  "one_rank_step_ms": want["step_ms"],
+                  "peak_gb_above_resident": [b / 1e9 for b in
+                                             got["peak_bytes"]],
+                  **mesh_collectives(got["collectives"]), "card": card})
+        emit({"phase": "mesh_rank0", "world": tag,
               "launches": r0["launches"], "held": r0["held"],
               "seconds": time.perf_counter() - t0, "card": card})
     emit({"phase": "mesh", "launches": dict(launches), "failed": failed,
@@ -9633,6 +10169,13 @@ def mesh_phases(cfg, card, worlds, t_phase):
     if failed:
         raise AssertionError(f"mesh: {failed}")
     return {"mesh": dict(launches)}, worst, rows
+
+
+def mesh_collectives(counts):
+    return {"collective_bytes": {k: v for k, v in counts.items()
+                                 if k.endswith("_bytes")},
+            "collective_calls": {k: v for k, v in counts.items()
+                                 if k.endswith("_calls")}}
 
 
 SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
@@ -9796,11 +10339,12 @@ def main():
     launches.update(fam_launches)
     for kernel, err in fam_worst.items():
         worst[kernel] = max(worst[kernel], err)
-    mesh_launches, mesh_worst, mesh_rows = phase_mesh(cfg, card)
+    # phase_capture runs while the mesh worlds' ranks import and warm up
+    mesh_launches, mesh_worst, mesh_rows = phase_mesh(
+        cfg, card, meanwhile=(phase_capture,))
     launches.update(mesh_launches)
     for kernel, err in mesh_worst.items():
         worst[kernel] = max(worst[kernel], err)
-    phase_capture()
     rows = (phase_times(cfg, card, cont_forwards, cluster_forwards)
             + phase_times_paper(card)
             + phase_times_quant(cfg, card, cont_forwards, cluster_forwards)

@@ -82,7 +82,7 @@ class CheckpointManager:
             state = parallel.gather_state(state, cfg, mesh)
             if not _rank0(mesh):
                 return None
-        return {"opt": interop.opt_state_to_numpy(state["opt"])}
+        return {"opt": interop.opt_state_to_numpy(state["opt"], cfg)}
 
     def _write(self, step: int, tree) -> None:
         flat = _flatten(tree)

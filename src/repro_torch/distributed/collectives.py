@@ -149,22 +149,32 @@ class _ReduceFromModel(torch.autograd.Function):
 # (``sharding.local.local_problem``'s override, as the reference's
 # ``launch/dryrun.py::cell_problems`` assigns attn_out and mlp_down).
 ROW_PARALLEL = (("pod", "data"), None, "model")
+# Rows on the data axes, n and k whole on the rank: a GEMM whose weight
+# the model axis replicates (the MoE router), or splits outside the
+# triple (the expert entries of a batched GEMM under expert parallelism).
+DP_ROWS = (("pod", "data"), None, None)
 
 
-def row_parallel(ax: AxisGroup | None):
-    """The dispatch scope of a row-parallel GEMM on a model axis ``ax``:
-    ``matmul``'s axis spec is ``ROW_PARALLEL`` (an outer entry's backend
-    pin kept), so that its ``resolve_blocks`` event names the axes its
-    shard was cut along; a null context off a model axis."""
+def axis_scope(op: str, axes, ax: AxisGroup | None):
+    """The dispatch scope of a call of ``op`` whose shard a model axis
+    ``ax`` cuts along ``axes`` (a triple of ``sharding.local``): the op's
+    axis spec is ``axes`` (an outer entry's backend pin kept), so that its
+    ``resolve_blocks`` event names them; a null context off a model axis
+    or for ``axes`` None (the default rule)."""
     import contextlib
-    if ax is None or ax.size == 1:
+    if ax is None or ax.size == 1 or axes is None:
         return contextlib.nullcontext()
     from repro_torch.core import dispatch
     specs = dict(dispatch.current_axis_specs() or {})
-    pin = dispatch._axis_spec_backend(specs.get("matmul"))
-    specs["matmul"] = ({"axes": ROW_PARALLEL, "backend": pin} if pin
-                       else ROW_PARALLEL)
+    pin = dispatch._axis_spec_backend(specs.get(op))
+    specs[op] = {"axes": axes, "backend": pin} if pin else axes
     return dispatch.use(axis_specs=specs)
+
+
+def row_parallel(ax: AxisGroup | None):
+    """The dispatch scope of a row-parallel ``matmul`` on a model axis
+    ``ax`` (:func:`axis_scope` with ``ROW_PARALLEL``)."""
+    return axis_scope("matmul", ROW_PARALLEL, ax)
 
 
 def copy_to_model(x: torch.Tensor, ax: AxisGroup | None):
@@ -189,19 +199,26 @@ def _check_kind(kind: str) -> None:
                          f"of {', '.join(KINDS)}")
 
 
-def compress_grads(grads: dict, *, kind: str = "int8", groups=None):
+def compress_grads(grads: dict, *, kind: str = "int8", groups=None,
+                   ax: AxisGroup | None = None):
     """``(compressed, scales)``: bf16 copies and None, or int8 tensors and
-    their fp32 0-d scales (one a group), each by the gradient's name."""
+    their fp32 0-d scales (one a group), each by the gradient's name.  On
+    a mesh each rank passes its shards and ``ax``, the ranks that hold a
+    part of them: a group's absmax is the max over all of them (one
+    all-reduce), so that each rank quantizes its part as the whole would
+    be."""
     _check_kind(kind)
     if kind == "bf16":
         return {n: g.to(torch.bfloat16) for n, g in grads.items()}, None
     members = {}
     for n in grads:
         members.setdefault((groups or {}).get(n, n), []).append(n)
+    amaxes = torch.stack([torch.stack([grads[n].float().abs().amax()
+                                       for n in names]).amax()
+                          for names in members.values()])
+    all_reduce(amaxes, ax, "max")
     q, scales = {}, {}
-    for names in members.values():
-        amax = torch.stack([grads[n].float().abs().amax()
-                            for n in names]).amax()
+    for names, amax in zip(members.values(), amaxes):
         scale = torch.clamp_min(amax, 1e-30) / 127.0
         for n in names:
             scales[n] = scale

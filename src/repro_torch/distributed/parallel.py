@@ -1,20 +1,26 @@
-"""Data x model parallel training of the dense family on a mesh of the
-running world: what the reference gets from GSPMD, done by hand.
+"""Data x model parallel training of the dense and MoE families on a mesh
+of the running world: what the reference gets from GSPMD, done by hand.
 
 Each rank holds the shards that ``sharding.rules.param_shardings`` gives
 its coordinate: the fp32 master copy and AdamW's moments split over the
 data axes (ZeRO-3: a column-parallel weight's in dim, a row-parallel
-weight's out dim, the table's embed dim, where they divide) and over the
-model axis (tensor parallelism).  The working model is the dense
-``Transformer`` of the rank's part of the model axis (``local_cfg``: its
-heads, ``d_ff`` and vocab rows), its layers told the model axis
-(``tp``, a ``collectives.AxisGroup``):
+weight's out dim, the table's embed dim, an expert stack's D, where they
+divide) and over the model axis (tensor and expert parallelism).  The
+working model is the ``Transformer`` of the rank's part of the model axis
+(``local_cfg``: its heads, ``d_ff`` and vocab rows), its layers told the
+model axis (``tp``, a ``collectives.AxisGroup``):
 
   * column-parallel ``wq``, ``wk``, ``wv``, ``w_gate`` and ``w_up`` run on
     the rank's heads and ``d_ff`` columns; their input's gradient is
     summed over the axis (``collectives.copy_to_model``);
   * row-parallel ``wo`` and ``w_down`` sum their partial outputs
     (``collectives.reduce_from_model``);
+  * a MoE layer holds E/m whole experts (expert parallelism), or every
+    expert's F/m columns where E does not divide (the reference's
+    few-experts fallback), routes over all E from the replicated router,
+    and sums its partial outputs over the axis (``layers/moe.py``); its
+    routing groups are the rank's batch rows, and its aux losses the
+    reference's global means, reduced over the data axes;
   * the vocab-sharded table embeds by a masked lookup and a sum, and the
     tied head (or an untied ``head.w``) gives the rank's block of the
     logits, which are never gathered: :func:`xent_sum` takes the
@@ -33,11 +39,21 @@ whatever the ranks' counts.  The gradient norm that clips the update sums
 squares over every rank, each leaf's counted once (``optimizer.
 global_norm``).  A rank takes its batch rows by ``rules.batch_spec``.
 
-Other families on a mesh of more than one rank, sequence parallelism (a
-batch the data axes do not divide), a VLM's patch projection, microbatches
-and gradient compression on such a mesh raise ``NotImplementedError``
-(ROADMAP queue 1, item 6).  A one-rank mesh runs the same code with every
-collective a no-op, and matches the meshless step.
+Microbatches are the reference's: microbatch i is rows [i B/mb, (i+1)
+B/mb) of the global batch, of which each rank takes its data share; the
+rank's gradients are summed in fp32 over the microbatches, divided by
+their count and then reduced; the metrics are the last microbatch's.
+Gradient compression quantizes the reduced shards, each stacked leaf of
+the reference's tree with one absmax scale, the max over every rank that
+holds a part of it (``collectives.compress_grads(ax=)``), so the values
+quantized are the reference's global ones.
+
+MLA (dense or ``mla_moe``), the recurrent families, the encoder-decoder
+and a VLM's patch projection on a mesh of more than one rank raise
+``NotImplementedError`` (ROADMAP queue 1, item 6.2), as does sequence
+parallelism, a batch the data axes do not divide (item 6.3).  A one-rank
+mesh runs the same code with every collective a no-op, and matches the
+meshless step.
 """
 from __future__ import annotations
 
@@ -56,24 +72,46 @@ from repro_torch.sharding.local import shard_count
 from repro_torch.train import optimizer as opt
 from repro_torch.train.schedule import warmup_cosine
 
-QUEUE = "ROADMAP.md queue 1, item 6 (Distributed)"
+QUEUE = "ROADMAP.md queue 1, item 6.2 (the other families on a mesh)"
+SEQUENCE = "ROADMAP.md queue 1, item 6.3 (sequence parallelism)"
+
+
+def _refusal(cfg: ArchCfg) -> str | None:
+    """What of ``cfg`` this executor does not run on more than one rank."""
+    if cfg.mla or cfg.block == "mla_moe":
+        return f"MLA (block={cfg.block!r})"
+    if cfg.block not in ("dense", "moe"):
+        return f"block={cfg.block!r}"
+    if cfg.n_patches:
+        return "a VLM's patch projection"
+    return None
 
 
 def check_supported(cfg: ArchCfg, mesh) -> None:
-    """Raises where this executor cannot run ``cfg`` on ``mesh``: another
-    family on more than one rank, or a model axis that would cut a head,
-    ``d_ff`` or the vocab unevenly (it never replicates them silently)."""
+    """Raises where this executor cannot run ``cfg`` on ``mesh``: a family
+    other than dense and moe (or MLA) on more than one rank, or a model
+    axis that would cut a head, ``d_ff``, the vocab or the experts
+    unevenly (it never replicates a weight the rules would shard)."""
     if mesh.size == 1:
         return
-    if cfg.block != "dense" or cfg.mla or cfg.n_patches:
+    what = _refusal(cfg)
+    if what is not None:
         raise NotImplementedError(
-            f"{cfg.name}: block={cfg.block!r}"
-            f"{' with a patch projection' if cfg.n_patches else ''} on a "
-            f"mesh of {mesh.size} ranks is not ported yet ({QUEUE}); the "
-            f"dense family is")
+            f"{cfg.name}: {what} on a mesh of {mesh.size} ranks is not "
+            f"ported yet ({QUEUE}); the dense and moe families are")
     m = model_size(mesh)
-    for what, n in (("q heads", cfg.n_heads), ("kv heads", cfg.n_kv_heads),
-                    ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+    sizes = [("q heads", cfg.n_heads), ("kv heads", cfg.n_kv_heads),
+             ("vocab", cfg.vocab)]
+    if cfg.block == "dense":
+        sizes.append(("d_ff", cfg.d_ff))
+    else:
+        sizes.append(("shared experts' d_ff",
+                      cfg.moe_d_ff * cfg.n_shared_experts))
+        if cfg.n_experts % m and cfg.moe_d_ff % m:
+            raise ValueError(
+                f"{cfg.name}: neither its {cfg.n_experts} experts nor their "
+                f"d_ff {cfg.moe_d_ff} split over a {m}-way model axis")
+    for what, n in sizes:
         if n % m:
             raise ValueError(
                 f"{cfg.name}: {n} {what} do not split over a {m}-way model "
@@ -82,15 +120,22 @@ def check_supported(cfg: ArchCfg, mesh) -> None:
 
 
 def local_cfg(cfg: ArchCfg, mesh) -> ArchCfg:
-    """The dense config of one rank's part of the model axis."""
+    """The config of one rank's part of the model axis: its heads, vocab
+    rows and (dense) ``d_ff``.  A MoE keeps E and F whole here: its layers
+    are cut by ``MoE.split``, and route over all E."""
     m = model_size(mesh)
     return dataclasses.replace(
         cfg, n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
-        d_ff=cfg.d_ff // m, vocab=cfg.vocab // m, head_dim=cfg.dh)
+        d_ff=cfg.d_ff // m if cfg.block == "dense" else cfg.d_ff,
+        vocab=cfg.vocab // m, head_dim=cfg.dh)
 
 
 def _axis(mesh, axes, name) -> C.AxisGroup:
+    """The axis group of ``axes`` on ``mesh``; on an abstract mesh, its
+    size alone (no group, index 0)."""
     size = math.prod(mesh.shape[a] for a in axes) if axes else 1
+    if mesh.is_abstract:
+        return C.AxisGroup(name, None, size, 0)
     return C.AxisGroup(name, mesh.group(axes), size, mesh.index(axes))
 
 
@@ -110,7 +155,8 @@ class Leaf:
 class Layout:
     """The parameters of ``cfg`` on ``mesh`` (a mesh of the running
     world): each one's ``Leaf`` by name, the data and model axes as this
-    rank sees them (``dp``, ``model``, ``world``)."""
+    rank sees them (``dp``, ``model``, ``world``).  On an abstract mesh
+    only the leaves and the axes' sizes are meaningful."""
 
     def __init__(self, cfg: ArchCfg, mesh):
         from repro_torch.models.transformer import Transformer
@@ -191,7 +237,7 @@ class Layout:
             raise NotImplementedError(
                 f"a batch of {rows} rows does not split over "
                 f"{self.dp.size} data ranks, and sequence parallelism is "
-                f"not ported yet ({QUEUE})")
+                f"not ported yet ({SEQUENCE})")
         return slice(None)
 
 
@@ -273,28 +319,29 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
     """``train_step(state, batch) -> (state, metrics)`` on a rank of
     ``mesh``: ``state`` this rank's shard (:func:`init_state`), ``batch``
     the global batch (each rank takes its rows).  Metrics: ``loss`` and
-    ``ce_loss`` (the global mean), ``grad_norm``, ``lr``."""
-    if microbatches > 1 and mesh.size > 1:
-        raise NotImplementedError(
-            f"microbatches on a mesh of {mesh.size} ranks are not ported "
-            f"yet ({QUEUE})")
-    if grad_compression != "none" and mesh.size > 1:
-        raise NotImplementedError(
-            f"grad_compression={grad_compression!r} on a mesh of "
-            f"{mesh.size} ranks is not ported yet ({QUEUE})")
+    ``ce_loss`` (the global mean), a MoE's ``load_balance_loss``,
+    ``grad_norm``, ``lr``."""
+    from repro_torch import interop
+    from repro_torch.models.transformer import LB_WEIGHT, Z_WEIGHT
     layout = Layout(cfg, mesh)
+    moe = cfg.block == "moe"
+    groups = interop.stacked_leaves(cfg)
     work = {}     # the working model, built at the first step
 
     def build(device):
         from repro_torch.models.transformer import Transformer
-        model = Transformer(local_cfg(cfg, mesh), device=device)
+        model = Transformer(local_cfg(cfg, mesh), device="meta")
         tp = layout.model if layout.model.size > 1 else None
         model.embed.tp = tp
         if model.head is not None:
             model.head.tp = tp
-        for block in model.blocks:
+        for i, block in enumerate(model.blocks):
             block.attn.tp = tp
-            block.mlp.tp = tp
+            if hasattr(block, "mlp"):
+                block.mlp.tp = tp
+            else:
+                _wire_moe(block.moe, f"blocks.{i}.moe", layout, tp)
+        model.to_empty(device=device)
         params = dict(model.named_parameters())
         for name, p in params.items():
             want = tuple(layout.model_part(
@@ -315,6 +362,31 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
                 mod.register_forward_pre_hook(gathers[prefix])
         work.update(model=model, params=params, fresh=fresh, gathers=gathers)
 
+    def forward_backward(tokens, labels):
+        """One (micro)batch's loss on this rank's rows, backward; returns
+        (this rank's part of the global mean CE, its part of the loss
+        without a load-balance term, the load-balance loss or None)."""
+        model = work["model"]
+        with obs.span("train.forward"):
+            logits, aux = model.logits_and_aux(tokens, remat=cfg.remat)
+            mask = (labels >= 0).float()
+            count = C.all_reduce(mask.sum(), layout.dp)
+            ce = xent_sum(logits, labels.clamp_min(0).long(), mask,
+                          model.embed.tp) / count.clamp_min(1.0)
+            part, lb = ce, None
+            if moe:
+                # The load-balance loss is global on every data rank; its
+                # reduction's identity backward counts it once.  The
+                # z-loss is this rank's share of its global mean.
+                part = ce + Z_WEIGHT * aux["router_z_loss"]
+                lb = aux["load_balance_loss"]
+                loss = part + LB_WEIGHT * lb
+            else:
+                loss = ce
+        loss.backward()
+        return ce.detach(), part.detach(), None if lb is None else \
+            lb.detach()
+
     def train_step(state, batch):
         master = state["opt"]["master"]
         if not work:
@@ -326,34 +398,67 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
         for prefix in ("embed", "head"):
             if prefix in work["gathers"]:
                 work["gathers"][prefix](None, None)
-        for p in params.values():
-            p.grad = None
         tokens = torch.as_tensor(batch["tokens"])
-        rows = layout.batch_rows(*tokens.shape[:2])
+        labels = torch.as_tensor(batch["labels"])
+        if len(tokens) % microbatches:
+            raise ValueError(f"a batch of {len(tokens)} rows does not split "
+                             f"into {microbatches} microbatches")
+        size = len(tokens) // microbatches
         device = model.device
-        tokens = tokens[rows].to(device)
-        labels = torch.as_tensor(batch["labels"])[rows].to(device)
+        acc = None
         with dispatch.use(backend=backend, blocks_policy=blocks_policy,
                           accum_dtype=accum_dtype, mesh=mesh,
                           axis_specs=axis_specs):
-            with obs.span("train.forward"):
-                logits = model.logits_and_aux(tokens, remat=cfg.remat)[0]
-                mask = (labels >= 0).float()
-                count = C.all_reduce(mask.sum(), layout.dp)
-                loss = xent_sum(logits, labels.clamp_min(0).long(), mask,
-                                model.embed.tp) / count.clamp_min(1.0)
-            loss.backward()
-            grads = {n: layout.reduce_grad(n, p.grad)
-                     for n, p in params.items()}
-        loss = C.all_reduce(loss.detach().clone(), layout.dp)
+            for i in range(microbatches):
+                mb = slice(i * size, (i + 1) * size)
+                rows = layout.batch_rows(size, tokens.shape[1])
+                for p in params.values():
+                    p.grad = None
+                ce, part, lb = forward_backward(
+                    tokens[mb][rows].to(device), labels[mb][rows].to(device))
+                if microbatches > 1:
+                    if acc is None:
+                        acc = {n: p.grad.float() for n, p in params.items()}
+                    else:
+                        torch._foreach_add_(list(acc.values()),
+                                            [params[n].grad.float()
+                                             for n in acc])
+            local = ({n: t / microbatches for n, t in acc.items()}
+                     if acc is not None else
+                     {n: p.grad for n, p in params.items()})
+            grads = {n: layout.reduce_grad(n, g) for n, g in local.items()}
+        if grad_compression != "none":
+            grads = C.decompress_grads(*C.compress_grads(
+                grads, kind=grad_compression, groups=groups,
+                ax=layout.world), kind=grad_compression)
+        # The last microbatch's metrics: the global means.
+        sums = C.all_reduce(torch.stack([ce, part]) if moe
+                            else ce.clone(), layout.dp)
+        metrics = {"ce_loss": sums[0], "loss": sums[1] + LB_WEIGHT * lb,
+                   "load_balance_loss": lb} if moe else \
+            {"ce_loss": sums, "loss": sums}
         lr_scale = warmup_cosine(state["opt"]["step"])
         new_opt, opt_metrics = opt.adamw_update(
             grads, state["opt"], ocfg, lr_scale,
             replicas=layout.replicas(), group=layout.world)
-        return {"opt": new_opt}, {"ce_loss": loss, "loss": loss,
-                                  **opt_metrics}
+        return {"opt": new_opt}, {**metrics, **opt_metrics}
 
     return train_step
+
+
+def _wire_moe(moe, prefix: str, layout: Layout, tp) -> None:
+    """A MoE layer told the data axes and, on a model axis, cut as the
+    rules cut its expert stacks (E on the axis: expert parallelism; F:
+    the few-experts fallback); its shared expert column / row parallel
+    where the rules shard it."""
+    moe.dp = layout.dp
+    if tp is None:
+        return
+    dim = layout.leaves[f"{prefix}.w_gate"].model_dim
+    moe.split(tp, experts=dim == 0)
+    if moe.shared is not None and \
+            layout.leaves[f"{prefix}.shared.w_up"].model_dim is not None:
+        moe.shared.tp = tp
 
 
 def _gather_hook(prefix, names, params, layout, work, fresh, cfg):

@@ -252,10 +252,12 @@ def _put(tree: dict, attr: str, value) -> None:
     tree[last] = value
 
 
-def _tree_of(named) -> dict:
-    """The reference's tree layout (layers stacked: MLA's dense and MoE
+def _tree_of(named, cfg: ArchCfg | None = None) -> dict:
+    """The reference's tree layout (layers stacked: mla_moe's dense and MoE
     layers apart) with fp32 numpy leaves, from tensors by parameter
-    name."""
+    name.  The family is ``cfg.block``'s; without a ``cfg``, a tree is
+    mla_moe's where its MLA layers hold MoE layers among them (a dense
+    MLA tree is ``blocks``, as the reference's)."""
     def np32(t):
         return t.detach().float().cpu().numpy()
 
@@ -268,7 +270,10 @@ def _tree_of(named) -> dict:
     stacks = {}      # key in the reference's tree -> (port's stack, layers)
     for port, by_layer in attrs.items():
         layers = sorted(by_layer)
-        if "attn.wq_a" in by_layer[layers[0]]:      # mla_moe's two stacks
+        mla_moe = (cfg.block == "mla_moe" if cfg is not None else
+                   "attn.wq_a" in by_layer[layers[0]] and any(
+                       "moe.router" in by_layer[i] for i in layers))
+        if mla_moe:                                   # two stacks
             moe = [i for i in layers if "moe.router" in by_layer[i]]
             stacks["dense_blocks"] = (port, [i for i in layers
                                              if i not in moe])
@@ -326,9 +331,9 @@ def params_to_numpy(model) -> dict:
     in its nested stacks) with fp32 numpy leaves."""
     named = dict(model.named_parameters())
     if model.cfg.block not in RECURRENT:
-        return _tree_of(named)
+        return _tree_of(named, model.cfg)
     tree = _tree_of({k: v for k, v in named.items()
-                     if not k.startswith("blocks.")})
+                     if not k.startswith("blocks.")}, model.cfg)
     tree.update(_recurrent_tree(named, model.cfg))
     return tree
 
@@ -344,11 +349,12 @@ def opt_state_from_numpy(tree, cfg: ArchCfg, device="cuda") -> dict:
                for key in ("m", "v", "master")}}
 
 
-def opt_state_to_numpy(state) -> dict:
+def opt_state_to_numpy(state, cfg: ArchCfg | None = None) -> dict:
     """The port's AdamW state in the reference's layout: an int32 step and
-    fp32 numpy trees."""
+    fp32 numpy trees (``cfg``'s stacks; see :func:`_tree_of` without)."""
     return {"step": np.asarray(state["step"], np.int32),
-            **{key: _tree_of(state[key]) for key in ("m", "v", "master")}}
+            **{key: _tree_of(state[key], cfg)
+               for key in ("m", "v", "master")}}
 
 
 def resnet_params_from_numpy(tree, cfg: resnet.ResNetCfg, device="cuda"):

@@ -10,7 +10,7 @@ recording both with the local problem.  So the table shows where a plan
 chosen for the global shape would run a shard no device runs.  The
 reference's lowering (``lower_cell``: memory, cost and collective
 accounts of the compiled program) and ``launch/{costs,roofline}.py`` are
-not ported yet (ROADMAP queue 1, item 6).
+not ported yet (ROADMAP queue 1, item 6.5).
 
 Usage (no card needed under the default heuristic policy):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --blocks-smoke \
@@ -126,7 +126,7 @@ def main(argv=None):
     if not args.blocks_smoke:
         raise SystemExit("only --blocks-smoke is ported: the lowering, cost "
                          "and roofline accounts wait (ROADMAP queue 1, "
-                         "item 6)")
+                         "item 6.5)")
     sys.exit(blocks_smoke(args.arch, args.shape, args.devices))
 
 

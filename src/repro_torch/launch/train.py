@@ -5,7 +5,7 @@ Usage (CPU-scale; the default device is the card):
       --reduced --steps 10 --batch 8 --seq 64 --device cpu [--mesh 2x2]
 
 ``--mesh DxM`` trains on a ``(data, model)`` mesh of D·M ranks (the dense
-family; ``distributed/parallel.py``).  Under ``torchrun`` the ranks are
+and MoE families, with ``--microbatches``; ``distributed/parallel.py``).  Under ``torchrun`` the ranks are
 its processes; otherwise the CLI spawns them itself, each joining the
 world through a file store in a fresh temporary directory.
 ``--dist-backend`` is ``nccl`` where each rank has a card of its own and

@@ -36,12 +36,30 @@ group (``a_groups``), as the reference's calls take them.
 
 Top-k is a stable descending sort: equal probabilities keep the lower
 expert first, as ``jax.lax.top_k`` does.  No ``shard_map`` and no
-sharding constraints: the MoE runs on one device.  Under an abstract mesh
-its kernels' plans are chosen for the shard (``dispatch.resolve_blocks``);
-expert parallelism over the ranks of a running mesh, with the reference's
-dp-sharded groups, is not ported yet (ROADMAP queue 1, item 6: the data x
-model parallel executor, ``distributed/parallel.py``, runs the dense
-family and refuses this one on more than one rank).
+sharding constraints: under an abstract mesh the kernels' plans are
+chosen for the shard (``dispatch.resolve_blocks``).
+
+On a mesh of the running world (``distributed/parallel.py``) the layer is
+told its axes.  ``dp`` (the data axes): a rank's batch rows are its
+routing groups, so routing and capacity are the reference's
+(``_shmap_over_dp``) with no collective; the aux losses are the
+reference's global means: ``me``'s and ``ce``'s sums and the kept count
+are summed over the data axes (forward all-reduce, identity backward, so
+each rank's probabilities get their gradient once), and the z-loss is
+this rank's share of the global mean (its sum over the global token
+count; the ranks' shares add up to it).  ``tp`` (the model axis) with
+:meth:`MoE.split`: a rank holds E/m whole experts (expert parallelism,
+the reference's rule) or, where E does not divide, every expert's F/m
+columns (its few-experts fallback), and routes over all E.  The experts'
+input and the gates enter through ``copy_to_model`` (their gradients,
+partial on each rank, are summed over the axis before they reach x and
+the router, which the axis replicates); the router reads x before that
+copy; the partial outputs are summed with ``reduce_from_model``.  Expert
+parallelism keys its batched GEMMs with the axes ``(dp, None, None)``
+(the model axis splits the entries, outside the triple), the fallback's
+down projection as a row-parallel one.  A routing group across data
+ranks (decode's one global group, ``grouped=False``) and the engines on
+such a mesh are not ported (ROADMAP queue 1, item 6.4).
 """
 from __future__ import annotations
 
@@ -51,6 +69,8 @@ import torch
 from torch import nn
 
 from repro_torch.core import brgemm
+from repro_torch.distributed.collectives import (
+    DP_ROWS, ROW_PARALLEL, axis_scope, copy_to_model, reduce_from_model)
 from repro_torch.layers.mlp import MLP
 
 
@@ -107,7 +127,12 @@ def route(router, xg, cfg: MoECfg, cap: int, *, backend=None):
 
 class MoE(nn.Module):
     """``router`` (D, E); ``w_gate``, ``w_up`` (E, D, F); ``w_down`` (E, F,
-    D); ``shared``, a gated MLP of F * n_shared, where ``n_shared``."""
+    D); ``shared``, a gated MLP of F * n_shared, where ``n_shared``.  On a
+    mesh's model axis (:meth:`split`) the expert stacks hold this rank's
+    part."""
+    tp = None        # the model axis the experts are split over, else None
+    dp = None        # the data axes (collectives.AxisGroup), else None
+    experts = None   # (first, end): this rank's experts under EP
 
     def __init__(self, cfg: MoECfg, *, dtype=torch.float32, device="cpu"):
         super().__init__()
@@ -125,6 +150,26 @@ class MoE(nn.Module):
                            dtype=dtype, device=device)
                        if cfg.n_shared else None)
 
+    def split(self, tp, *, experts: bool) -> None:
+        """Keep this rank's part of the expert stacks on the model axis
+        ``tp`` (new, uninitialised parameters of the part's shape):
+        ``experts`` E/m whole experts, else every expert's F/m columns
+        (``w_gate`` and ``w_up`` column-, ``w_down`` row-parallel)."""
+        e, d, f = self.cfg.n_experts, self.cfg.d_model, self.cfg.d_ff
+        m, r = tp.size, tp.index
+        if experts:
+            n = e // m
+            self.experts = (r * n, (r + 1) * n)
+            gate, down = (n, d, f), (n, f, d)
+        else:
+            gate, down = (e, d, f // m), (e, f // m, d)
+        like = self.w_gate
+        for name, shape in (("w_gate", gate), ("w_up", gate),
+                            ("w_down", down)):
+            setattr(self, name, nn.Parameter(torch.empty(
+                shape, dtype=like.dtype, device=like.device)))
+        self.tp = tp
+
     def forward(self, x, *, row_groups: bool = False,
                 backend: str | None = None):
         """x: (B, T, D) -> (y (B, T, D), aux).  ``row_groups``: one routing
@@ -133,27 +178,48 @@ class MoE(nn.Module):
         b, t, d = x.shape
         e, k = cfg.n_experts, cfg.top_k
         g, n = groups(cfg, b, t, row_groups)
+        dp = self.dp if self.dp is not None and self.dp.size > 1 else None
+        if dp is not None and not ((cfg.grouped and t > 1) or row_groups):
+            raise NotImplementedError(
+                "one routing group across the data ranks (decode, or "
+                "grouped=False) is not ported (ROADMAP queue 1, item 6.4)")
         xg = x.reshape(g, n, d)
         cap = capacity(cfg, n)
-        logits, probs, gate_vals, flat_ids, keep, pos = route(
-            self.router, xg, cfg, cap, backend=backend)
+        tp = self.tp
+        with axis_scope("matmul", DP_ROWS, tp):
+            logits, probs, gate_vals, flat_ids, keep, pos = route(
+                self.router, xg, cfg, cap, backend=backend)
+        # The experts' input and the gates: their gradients are partial on
+        # each rank of the model axis (its experts or its F columns).
+        xe = copy_to_model(xg, tp)
+        gate_vals = copy_to_model(gate_vals, tp)
+        lo, hi = self.experts or (0, e)
 
         # Dispatch: choice (g, i) lands in row (expert, group, slot) of the
-        # folded buffer, a dropped one in the discard row at the end.
-        rows = e * g * cap
+        # folded buffer (the rank's experts), a dropped one (or one of
+        # another rank's expert) in the discard row at the end.
+        rows = (hi - lo) * g * cap
         groups_of = torch.arange(g, device=x.device)[:, None]
-        slot = torch.where(keep, (flat_ids * g + groups_of) * cap + pos, rows)
+        mine = keep & (flat_ids >= lo) & (flat_ids < hi) if self.experts \
+            else keep
+        slot = torch.where(mine, ((flat_ids - lo) * g + groups_of) * cap
+                           + pos, rows)
         buf = x.new_zeros(rows + 1, d)
-        buf[slot.reshape(-1)] = xg.repeat_interleave(k, dim=1).reshape(-1, d)
-        expert_in = buf[:rows].view(e, g * cap, d)
+        buf[slot.reshape(-1)] = xe.repeat_interleave(k, dim=1).reshape(-1, d)
+        expert_in = buf[:rows].view(hi - lo, g * cap, d)
 
-        gt = brgemm.batched_matmul(expert_in, self.w_gate,
-                                   activation=cfg.activation,
-                                   backend=backend, a_groups=g)
-        u = brgemm.batched_matmul(expert_in, self.w_up, backend=backend,
-                                  a_groups=g)
-        out = brgemm.batched_matmul(gt * u, self.w_down, backend=backend,
-                                    a_groups=g)
+        ep = self.experts is not None
+        with axis_scope("batched_matmul", DP_ROWS if ep else None,
+                        tp):
+            gt = brgemm.batched_matmul(expert_in, self.w_gate,
+                                       activation=cfg.activation,
+                                       backend=backend, a_groups=g)
+            u = brgemm.batched_matmul(expert_in, self.w_up, backend=backend,
+                                      a_groups=g)
+        with axis_scope("batched_matmul",
+                        DP_ROWS if ep else ROW_PARALLEL, tp):
+            out = brgemm.batched_matmul(gt * u, self.w_down, backend=backend,
+                                        a_groups=g)
 
         # Combine: the discard row reads zeros, as the reference's padded
         # slot does, and its weight is 0.
@@ -161,14 +227,28 @@ class MoE(nn.Module):
         y_tok = out[slot]                                  # (G, N*k, D)
         w = (gate_vals.reshape(g, n * k) * keep).to(x.dtype)
         y = (y_tok * w[..., None]).reshape(g, n, k, d).sum(dim=2)
+        y = reduce_from_model(y, tp)
         if self.shared is not None:
             y = y + self.shared(xg, backend=backend)
+        return y.reshape(b, t, d), _aux(logits, probs, flat_ids, keep, k,
+                                        dp)
 
-        me = probs.reshape(-1, e).mean(dim=0)
-        ce = torch.bincount(flat_ids.reshape(-1), minlength=e).float() / (
-            g * n * k)
-        aux = {"load_balance_loss": e * torch.sum(me * ce),
-               "router_z_loss": torch.mean(
-                   torch.logsumexp(logits, dim=-1) ** 2),
-               "dropped_fraction": 1.0 - keep.float().mean()}
-        return y.reshape(b, t, d), aux
+
+def _aux(logits, probs, flat_ids, keep, k, dp=None):
+    """GShard's load-balance loss, the router z-loss and the dropped
+    fraction: the reference's means over every token and choice of the
+    layer's groups, on every data rank of ``dp`` (one all-reduce of
+    ``me``'s and ``ce``'s sums and the kept count, whose backward is the
+    identity, so each rank's probabilities get the gradient once); the
+    z-loss there is this rank's share of its global mean."""
+    e = probs.shape[-1]
+    tokens = probs.numel() // e * (dp.size if dp is not None else 1)
+    sums = reduce_from_model(torch.cat([
+        probs.reshape(-1, e).sum(dim=0),
+        torch.bincount(flat_ids.reshape(-1), minlength=e).float(),
+        keep.float().sum().reshape(1)]), dp)
+    me, ce = sums[:e] / tokens, sums[e:2 * e] / (tokens * k)
+    return {"load_balance_loss": e * torch.sum(me * ce),
+            "router_z_loss": (torch.logsumexp(logits, dim=-1) ** 2).sum()
+            / tokens,
+            "dropped_fraction": 1.0 - sums[-1].detach() / (tokens * k)}

@@ -57,17 +57,23 @@ def moe_cfg(cfg: ArchCfg) -> moe.MoECfg:
 
 def check_ported(cfg: ArchCfg) -> None:
     """The families the port serves: dense (a VLM's patch prefix among
-    them), moe, mla_moe, where MLA is used (DeepSeek-V3), the recurrent
-    xlstm and rglru_hybrid, and the encoder-decoder (encdec)."""
+    them), moe, mla_moe (DeepSeek-V3), the recurrent xlstm and
+    rglru_hybrid, and the encoder-decoder (encdec).  MLA (``mla=True``)
+    runs in the dense family and in mla_moe.  It is refused in the
+    encoder-decoder, where the reference itself fails (its decoder block
+    reads ``wq``, which an MLA attention does not have: ``KeyError:
+    'wq'`` in ``loss_fn`` and ``prefill``)."""
     if cfg.block in UNPORTED:
         raise NotImplementedError(
             f"{cfg.name}: block={cfg.block!r} is not ported yet")
     if cfg.block not in ("dense", "moe", "mla_moe", "encdec") + RECURRENT:
         raise ValueError(f"unknown block {cfg.block!r}")
-    if cfg.mla and cfg.block != "mla_moe":
+    if cfg.mla and cfg.block not in ("dense", "mla_moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves mla=True in the mla_moe family "
-            f"only (block={cfg.block!r})")
+            f"{cfg.name}: mla=True runs in the dense and mla_moe families; "
+            f"block={cfg.block!r} with MLA is refused, as the reference "
+            f"fails on it (its {cfg.block} layers read the GQA weights: "
+            f"KeyError: 'wq')")
 
 
 def cache_len(cfg: ArchCfg, max_len: int) -> int:

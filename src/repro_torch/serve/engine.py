@@ -62,7 +62,7 @@ for the shard its op would run on that mesh (``dispatch.resolve_blocks``),
 while the engine runs the whole problem on its one device and shards
 nothing.  So the mesh is an abstract one (``sharding.local.
 abstract_mesh``, ``launch.mesh.make_production_mesh``); serving over the
-ranks of a running mesh is not ported yet (ROADMAP queue 1, item 6).
+ranks of a running mesh is not ported yet (ROADMAP queue 1, item 6.4).
 """
 from __future__ import annotations
 
@@ -128,7 +128,7 @@ def _check_mesh(mesh, axis_specs):
     if mesh is not None and not mesh.is_abstract and mesh.size > 1:
         raise NotImplementedError(
             f"serving over the {mesh.size} ranks of a running mesh is not "
-            f"ported yet (ROADMAP.md queue 1, item 6); an abstract mesh "
+            f"ported yet (ROADMAP.md queue 1, item 6.4); an abstract mesh "
             f"(sharding.local.abstract_mesh) chooses per-shard plans")
     return mesh
 

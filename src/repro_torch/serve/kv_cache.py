@@ -25,9 +25,10 @@ in the reference, so the lowest free slot or page comes first.
 
 With ``kv_quant="int8"`` the paged leaves are stored int8 with one fp32
 absmax scale a page (over every layer, as the reference's stacked leaf
-gives), dequantized in the decode's gather.  MLA's ``mla_moe`` tree
-stacks its dense and its MoE layers apart in the reference, so each page
-of ``{"c_kv", "k_rope"}`` has one scale a stack there:
+gives), dequantized in the decode's gather.  A dense MLA model's pages of
+``{"c_kv", "k_rope"}`` have one scale a key, as its reference tree stacks
+all L layers in ``blocks``; the ``mla_moe`` tree stacks its dense and its
+MoE layers apart, so each page has one scale a stack there:
 ``"dense_blocks.c_kv"``, ``"moe_blocks.c_kv"``, ... (``api.scale_stacks``),
 while the port's pool still stacks all L layers in one tensor.
 

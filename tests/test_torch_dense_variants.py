@@ -292,7 +292,9 @@ def test_windowed_refusals(starcoder):
 def test_vlm_config_is_refused(llava):
     """What the reference refuses a VLM config the port refuses too:
     bucketed and chunked prefill raise, a page size leaves it on the
-    slotted pool, and a request or batch without its patches raises."""
+    slotted pool, and a request or batch without its patches raises.
+    What it runs the port runs: with ``mla=True`` (MLA in the dense
+    family) its loss is the reference's."""
     jcfg, tcfg, jparams, _, model = llava
     assert not tapi.supports_paging(tcfg)
     for kw, msg in (({"prefill_chunk": 8}, "prefill_chunk is not supported"),
@@ -316,8 +318,24 @@ def test_vlm_config_is_refused(llava):
     with pytest.raises(ValueError, match="patch_embeds"):
         tapi.forward(model, {"tokens": torch.zeros(1, 3, dtype=torch.long)},
                      tcfg)
-    with pytest.raises(NotImplementedError, match="mla"):
-        tapi.init_params(dataclasses.replace(tcfg, mla=True), device="cpu")
+    jm, tm = (dataclasses.replace(c, mla=True).reduced()
+              for c in (jconfigs.get("llava-next-34b"),
+                        tconfigs.get("llava-next-34b")))
+    jp = japi.init_params(jax.random.PRNGKey(3), jm)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, jm.vocab, (2, 9)).astype(np.int32)
+    pe = rng.standard_normal((2, jm.n_patches, jm.d_model)).astype(np.float32)
+    with repro.use(backend="xla"):
+        want, _ = japi.loss_fn(jp, {"tokens": jnp.asarray(toks),
+                                    "patch_embeds": jnp.asarray(pe),
+                                    "labels": jnp.asarray(toks)}, jm)
+    mla = interop.params_from_numpy(jax.tree.map(np.asarray, jp), tm,
+                                    device="cpu")
+    with torch.no_grad():
+        got, _ = tapi.loss_fn(mla, {"tokens": torch.from_numpy(toks),
+                                    "patch_embeds": torch.from_numpy(pe),
+                                    "labels": torch.from_numpy(toks)}, tm)
+    np.testing.assert_allclose(float(got), float(want), **BAND)
 
 
 # ==========================================================================

@@ -12,6 +12,7 @@ On the CPU the plain versions run, which resolve no plan; a rank's
 step's ``resolve_blocks`` triples can be read.
 """
 import ast
+import dataclasses
 import json
 import os
 import shutil
@@ -334,6 +335,12 @@ def test_a_model_axis_that_cuts_heads_raises():
     with pytest.raises(ValueError, match="9 q heads do not split"):
         parallel.Layout(smollm, local.abstract_mesh((1, 2),
                                                     ("data", "model")))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        parallel.Layout(configs.get("grok-1-314b").reduced(),
+    with pytest.raises(NotImplementedError, match="queue 1, item 6.2"):
+        parallel.Layout(configs.get("deepseek-v3-671b").reduced(),
                         local.abstract_mesh((2, 2), ("data", "model")))
+    # grok's MoE runs on a mesh now (tests/test_torch_mesh_moe.py)
+    grok = configs.get("grok-1-314b").reduced()
+    parallel.Layout(grok, local.abstract_mesh((2, 2), ("data", "model")))
+    with pytest.raises(ValueError, match="neither its 3 experts nor"):
+        parallel.Layout(dataclasses.replace(grok, n_experts=3, moe_d_ff=63),
+                        local.abstract_mesh((1, 2), ("data", "model")))

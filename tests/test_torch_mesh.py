@@ -638,13 +638,37 @@ def test_executor_refuses_what_it_cannot_run():
         (2, 3), ("data", "model"))) == dataclasses.replace(
             smollm, n_heads=3, n_kv_heads=1, d_ff=512, vocab=16384,
             head_dim=64)
-    for arch in ("grok-1-314b", "deepseek-v3-671b", "xlstm-1.3b",
-                 "recurrentgemma-9b", "seamless-m4t-large-v2",
-                 "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            parallel.check_supported(configs.get(arch).reduced(),
-                                     local.abstract_mesh(
-                                         (2, 1), ("data", "model")))
+    # MLA (dense or mla_moe), the recurrent families, the encoder-decoder
+    # and a VLM's patch projection are refused on more than one rank
+    dense_mla = dataclasses.replace(smollm, mla=True).reduced()
+    for cfg in [dense_mla] + [configs.get(arch).reduced() for arch in (
+            "deepseek-v3-671b", "xlstm-1.3b", "recurrentgemma-9b",
+            "seamless-m4t-large-v2", "llava-next-34b")]:
+        with pytest.raises(NotImplementedError, match="queue 1, item 6.2"):
+            parallel.check_supported(cfg, local.abstract_mesh(
+                (2, 1), ("data", "model")))
     # one rank runs any family's config through the same code
-    parallel.check_supported(configs.get("grok-1-314b").reduced(),
+    parallel.check_supported(configs.get("deepseek-v3-671b").reduced(),
                              local.abstract_mesh((1, 1), ("data", "model")))
+    # the MoE family runs: grok's layout on (2, 2), its expert stacks'
+    # E on the model axis and D on the data axis, the router's D on the
+    # data axis, E whole on every model rank
+    grok = configs.get("grok-1-314b").reduced()
+    layout = parallel.Layout(grok, local.abstract_mesh((2, 2),
+                                                       ("data", "model")))
+    leaves = layout.leaves
+    assert (leaves["blocks.0.moe.w_gate"].model_dim,
+            leaves["blocks.0.moe.w_gate"].dp_dim) == (0, 1)
+    assert (leaves["blocks.3.moe.w_down"].model_dim,
+            leaves["blocks.3.moe.w_down"].dp_dim) == (0, 2)
+    assert (leaves["blocks.0.moe.router"].model_dim,
+            leaves["blocks.0.moe.router"].dp_dim) == (None, 0)
+    assert parallel.local_cfg(grok, local.abstract_mesh(
+        (2, 2), ("data", "model"))) == dataclasses.replace(
+            grok, n_heads=2, n_kv_heads=1, vocab=256, head_dim=32)
+    # three experts on two model ranks: each expert's F on the axis
+    three = dataclasses.replace(grok, n_experts=3)
+    leaves = parallel.Layout(three, local.abstract_mesh(
+        (1, 2), ("data", "model"))).leaves
+    assert leaves["blocks.0.moe.w_up"].model_dim == 2
+    assert leaves["blocks.0.moe.w_down"].model_dim == 1

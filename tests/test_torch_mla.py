@@ -411,9 +411,11 @@ def test_pipeline_takes_the_moe_configs(name):
 
 
 def test_mla_refusals(deepseek):
-    """MLA outside the mla_moe family is still refused.  int8 pages of the
-    compressed cache and the quant tiers are not any longer: the pool
-    keeps a scale a page for each stack (the dense and the MoE layers)
+    """MLA in the encoder-decoder is still refused: the reference fails on
+    it (its decoder layers read ``wq``: ``KeyError: 'wq'`` in ``loss_fn``
+    and ``prefill``).  MLA in the dense family runs (the tests below), and
+    int8 pages of the compressed cache and the quant tiers do: the pool
+    keeps a scale a page for each stack (deepseek's dense and MoE layers)
     and key, and an engine serves a tier on them (both held against the
     reference in ``test_torch_quant_families.py``)."""
     _, tcfg, _, _, model = deepseek
@@ -430,13 +432,112 @@ def test_mla_refusals(deepseek):
     got = ce.serve([Request(prompt=[3, 1, 4, 1, 5], max_tokens=4,
                             stop_tokens=())])
     assert len(got[0]) == 4 and ce.pool.n_free == ce.pool.n_slots
-    dense = dataclasses.replace(tconfigs.get("smollm-135m").reduced(),
-                                mla=True)
-    with pytest.raises(NotImplementedError, match="mla_moe"):
-        tapi.init_params(dense, device="cpu")
-    # the encoder-decoder, the last family refused, is ported now; MLA
-    # in it is not
     seamless = tconfigs.get("seamless-m4t-large-v2")
     blocks.check_ported(seamless)
-    with pytest.raises(NotImplementedError, match="mla_moe"):
+    with pytest.raises(NotImplementedError, match="KeyError: 'wq'"):
         blocks.check_ported(dataclasses.replace(seamless, mla=True))
+
+
+# ==========================================================================
+# MLA in the dense family: smollm-135m with mla=True, reduced
+# ==========================================================================
+
+@pytest.fixture(scope="module")
+def dense_mla():
+    jcfg = dataclasses.replace(jconfigs.get("smollm-135m"), mla=True).reduced()
+    tcfg = dataclasses.replace(tconfigs.get("smollm-135m"), mla=True).reduced()
+    jparams = japi.init_params(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, jparams)
+    return jcfg, tcfg, jparams, tree, interop.params_from_numpy(
+        tree, tcfg, device="cpu")
+
+
+def test_dense_mla_layout_and_round_trip(dense_mla):
+    """The reference's dense tree (``blocks``, not mla_moe's two stacks):
+    MLA attention and a gated MLP a layer, every leaf back bit for bit,
+    the AdamW state too."""
+    from repro.train import optimizer as jopt
+    _, tcfg, jparams, tree, model = dense_mla
+    assert sorted(tree) == ["blocks", "embed", "final_ln"]
+    assert all(isinstance(b.attn, attention.MLAttention) and
+               hasattr(b, "mlp") for b in model.blocks)
+    back = interop.params_to_numpy(model)
+    assert sorted(back) == sorted(tree)
+    flat = dict(jax.tree_util.tree_leaves_with_path(back))
+    leaves = jax.tree_util.tree_leaves_with_path(tree)
+    assert len(flat) == len(leaves)
+    for path, leaf in leaves:
+        np.testing.assert_array_equal(flat[path], leaf)
+    state = jax.tree.map(np.asarray, jopt.adamw_init(jparams,
+                                                     jopt.AdamWCfg()))
+    ported = interop.opt_state_from_numpy(state, tcfg, "cpu")
+    for again in (interop.opt_state_to_numpy(ported, tcfg),
+                  interop.opt_state_to_numpy(ported)):
+        flat = dict(jax.tree_util.tree_leaves_with_path(again))
+        for path, leaf in jax.tree_util.tree_leaves_with_path(state):
+            np.testing.assert_array_equal(flat[path], leaf)
+
+
+def test_dense_mla_forward_and_loss_match_reference(dense_mla):
+    jcfg, tcfg, jparams, _, model = dense_mla
+    toks, labels = _tokens(tcfg, 2, 17), _tokens(tcfg, 2, 17, seed=1)
+    labels[0, 10:] = -1
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    with repro.use(backend="xla"):
+        want, _ = japi.forward(jparams, jb, jcfg)
+        wloss, wmetrics = japi.loss_fn(jparams, jb, jcfg)
+    with torch.no_grad():
+        got, _ = tapi.forward(model, tb, tcfg)
+        loss, metrics = tapi.loss_fn(model, tb, tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BAND)
+    assert sorted(metrics) == sorted(wmetrics)
+    for key in wmetrics:
+        np.testing.assert_allclose(float(metrics[key]), float(wmetrics[key]),
+                                   **BAND)
+
+
+@pytest.mark.parametrize("prompt", [1, 14])
+def test_dense_mla_engine_greedy_matches_reference(dense_mla, prompt):
+    jcfg, tcfg, jparams, _, model = dense_mla
+    toks = _tokens(tcfg, 2, prompt, seed=prompt)
+    with repro.use(backend="xla"):
+        want = JEngine(jcfg, jparams, JServeConfig(max_len=MAX_LEN)).generate(
+            {"tokens": jnp.asarray(toks)}, n_tokens=10, stop_tokens=())
+    got = Engine(tcfg, model, ServeConfig(max_len=MAX_LEN),
+                 device="cpu").generate({"tokens": torch.from_numpy(toks)},
+                                        n_tokens=10, stop_tokens=())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+DENSE_POOLS = {**POOLS, "int8_pages": {"page_size": 8, "kv_quant": "int8"}}
+
+
+@pytest.fixture(scope="module")
+def dense_mla_reference(dense_mla):
+    jcfg, tcfg, jparams, _, _ = dense_mla
+    with repro.use(backend="xla"):
+        return {name: JContinuousEngine(
+            jcfg, jparams, JPoolConfig(n_slots=3, max_len=MAX_LEN,
+                                       **kw)).serve(
+                _requests(tcfg, JRequest))
+            for name, kw in DENSE_POOLS.items()}
+
+
+@pytest.mark.parametrize("pool", list(DENSE_POOLS))
+def test_dense_mla_continuous_greedy_matches_reference(
+        dense_mla, dense_mla_reference, pool):
+    """Slotted, paged, chunked and int8 pages: MLA's compressed leaves,
+    under int8 pages one scale a page for each key over all L layers
+    (the reference's one ``blocks`` stack)."""
+    _, tcfg, _, _, model = dense_mla
+    ce = ContinuousEngine(tcfg, model, PoolConfig(
+        n_slots=3, max_len=MAX_LEN, **DENSE_POOLS[pool]), device="cpu")
+    leaves = ce.pool.data if ce.paged else ce.pool.leaves
+    assert sorted(leaves) == ["c_kv", "k_rope"]
+    if pool == "int8_pages":
+        assert sorted(ce.pool.scales) == ["c_kv", "k_rope"]
+        assert tapi.scale_stacks(tcfg, "c_kv") == (("c_kv", 0,
+                                                    tcfg.n_layers),)
+    assert ce.serve(_requests(tcfg, Request)) == dense_mla_reference[pool]
+    assert ce.pool.n_free == ce.pool.n_slots

@@ -9532,16 +9532,24 @@ MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
 # meshless step once ran at, before remat).
 MESH_TIMED_STEPS, MESH_WIDE_BATCH = 6, 8
 # (c) grok-1-314b's MoE layer at full width (d 6144, 8 experts, top-2, F
-# 32768, bf16), B x T of MESH_EP_LAYER, one routing group a row, on the
-# (1, 2) world: expert parallelism, 4 experts a rank.  Its output and its
-# gradients (of a fixed random projection of the output) with respect to
-# x, the router and the rank's expert stacks, against one rank of the same
-# layer on the card (its expert gradients sliced to the rank's experts),
-# within TRAIN_BAND's bf16 gradient band (phase train_families' band for
-# the full-width layers).  Each rank runs the one-rank layer in turn
-# (30.96 GB at its peak) and frees it before the expert-parallel one.
+# 32768), one routing group a row: expert parallelism, 4 experts a rank;
+# and (e) deepseek-v3-671b's first (dense) block at full width (MLA: 128
+# heads, q_lora 1536, kv_lora 512, nope 128, rope 64, v 128; FFN d_ff
+# 18432) and llava-next-34b's patch projection (576 patches, d 7168): 64
+# heads and 9216 d_ff columns a rank, the low-rank outputs and the
+# projection's column blocks gathered.  Each in bf16 at B x T of
+# MESH_SPLIT_BATCH (the projection over its patches), on the (1, 2) world:
+# its output and its gradients (of a fixed random projection of the
+# output) with respect to its input (the projection takes none) and every
+# parameter, against one rank of the same layer on the card (a split
+# weight's against its block of the one-rank gradient), within
+# TRAIN_BAND's bf16 gradient band (phase train_families' band for the
+# full-width layers).  Each rank runs the one-rank layers in turn (grok's
+# the largest), keeps its blocks of their weights and gradients, and
+# frees the layers before its parts.
 MESH_MOE = "grok-1-314b"
-MESH_EP_WORLD, MESH_EP_LAYER = (1, 2), (2, 512)
+MESH_SPLIT_WORLD, MESH_SPLIT_BATCH = (1, 2), (2, 512)
+MESH_SPLIT_ARCHS = (MESH_MOE, "deepseek-v3-671b", "llava-next-34b")
 # (d) grok-1-314b's reduced() config in bf16, MESH_MOE_BATCH, MESH_STEPS
 # AdamW steps, on the (1, 2) world (2 experts a rank) and the (2, 1) world
 # (ZeRO-3 over the expert stacks, dp-local routing groups, the aux losses
@@ -9553,6 +9561,15 @@ MESH_MOE_OPTIONS = {"plain": {}, "microbatches2": {"microbatches": 2},
                     "int8": {"grad_compression": "int8"}}
 MESH_MOE_RUNS = {(1, 2): ("plain",), (2, 1): ("plain", "microbatches2",
                                               "int8")}
+# (f) deepseek-v3-671b's reduced() config (a dense MLA block, two MoE MLA
+# blocks on 4 experts, the MTP block) and llava-next-34b's in bf16 at
+# MESH_MOE_BATCH, MESH_STEPS AdamW steps, as (d): deepseek on (1, 2) (2
+# experts and 2 heads a rank) and (2, 1), llava on (1, 2); each metric
+# against one rank's in mesh_loss_check's limits.
+MESH_MLA_RUNS = {(1, 2): ("deepseek-v3-671b", "llava-next-34b"),
+                 (2, 1): ("deepseek-v3-671b",)}
+MESH_METRICS = {"losses": "loss", "ce": "ce_loss", "mtp": "mtp_loss",
+                "lb": "load_balance_loss"}
 
 
 def mesh_argv(world, out):
@@ -9568,8 +9585,9 @@ def mesh_rank(rank, n, store, world, card):
     gloo world through a file store, warms up, says so (``ready_<world>.
     <rank>``), waits for its world's turn (the file ``go_<world>``), then
     runs the world's work: smollm trained through launch/train.py's CLI
-    (MESH_SMOLLM_WORLDS), the expert-parallel layer (c) on MESH_EP_WORLD
-    (``mesh_ep_layer``), grok's reduced runs (d) (``mesh_moe_runs``).
+    (MESH_SMOLLM_WORLDS), the layers split over the model axis, (c) and
+    (e), on MESH_SPLIT_WORLD (``mesh_split_part``), grok's reduced runs (d)
+    and the reduced MLA and VLM runs (f) (``mesh_moe_steps``).
     Rank 0 counts its launches by signature (``accum_recorder``; not the
     one-rank layer's), then, the world gone, holds each signature against
     its plain version on its first inputs (``checked_launches``) and
@@ -9595,22 +9613,31 @@ def mesh_rank(rank, n, store, world, card):
         time.sleep(0.05)
     mesh = make_mesh(world, ("data", "model"))
     out = {}
+    marks = [("go", time.perf_counter())]   # rank 0's seconds a stage
     try:
-        want = mesh_ep_want(mesh) if world == MESH_EP_WORLD else None
+        want = mesh_split_want(mesh) if world == MESH_SPLIT_WORLD else None
         runs = MESH_MOE_RUNS.get(world, ())
+        marks.append(("one_rank_layers", time.perf_counter()))
         with accum_recorder() if rank == 0 else contextlib.nullcontext(
                 {}) as calls:
             if world in MESH_SMOLLM_WORLDS:
                 train.main(mesh_argv(world, MESH_DIR / f"{tag}.json"))
             if want is not None:
-                out["ep_layer"] = mesh_ep_layer(mesh, want, card)
+                out["split_layers"] = {
+                    arch: mesh_split_part(mesh, arch, w, card)
+                    for arch, w in want.items()}
                 del want
+            marks.append(("smollm_split_layers", time.perf_counter()))
             for run in runs[:1]:
                 out[run] = mesh_moe_steps(mesh, run)
+            for arch in MESH_MLA_RUNS.get(world, ()):
+                out[arch] = mesh_moe_steps(mesh, "plain", arch=arch)
+            marks.append(("reduced_runs", time.perf_counter()))
         # The other option sets run the same kernels (microbatches at half
         # the rows): held by their losses, not timed as path mesh.
         for run in runs[1:]:
             out[run] = mesh_moe_steps(mesh, run)
+        marks.append(("grok_options", time.perf_counter()))
     finally:
         dist.destroy_process_group()
     torch.cuda.synchronize()
@@ -9620,7 +9647,7 @@ def mesh_rank(rank, n, store, world, card):
     # The kept inputs include views the step made under no_grad (the
     # working weights), written in place since: read them so too.
     with torch.no_grad():
-        mesh_rank0_rows(calls, card, tag)
+        mesh_rank0_rows(calls, card, tag, marks)
 
 
 def mesh_model_axis(mesh):
@@ -9629,123 +9656,178 @@ def mesh_model_axis(mesh):
                        mesh.index("model"))
 
 
-def mesh_ep_grads(layer, x, r):
+def mesh_split_layer(arch, mesh=None, device="cuda"):
+    """(c)'s or (e)'s layer of ``arch``, uninitialised on ``device``:
+    grok's MoE layer, deepseek's first (dense) block or llava's patch
+    projection, whole, or this rank's part on ``mesh``'s model axis as
+    the executor wires it."""
+    from repro_torch.distributed import parallel
+    from repro_torch.layers import moe
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import VisionProj
+    cfg = model_cfg(arch, {})
+    tp = None if mesh is None else mesh_model_axis(mesh)
+    bf16 = torch.bfloat16
+    if cfg.n_patches:
+        layer = VisionProj(cfg.d_model, dtype=bf16, device="meta")
+        if tp is not None:
+            layer.split(tp)
+    elif cfg.block == "moe":
+        layer = moe.MoE(blocks.moe_cfg(cfg), dtype=bf16, device="meta")
+        if tp is not None:
+            layer.split(tp, experts=True)
+    else:
+        layer = blocks.DecoderBlock(cfg if tp is None else
+                                    parallel.local_cfg(cfg, mesh),
+                                    device="meta")
+        if tp is not None:
+            parallel._wire_attn(layer.attn, tp)
+            layer.mlp.tp = tp
+    return layer if device == "meta" else layer.to_empty(device=device)
+
+
+def mesh_split_grads(layer, x, r):
     """The layer's output and the gradients of sum(y * r) with respect to
-    x and its parameters."""
+    its input (where it takes one: ``x.requires_grad``) and its
+    parameters."""
     for p in layer.parameters():
         p.grad = None
     x.grad = None
-    y, _ = layer(x)
+    y = layer(x)
+    y = y[0] if isinstance(y, tuple) else y   # a block's or the MoE's aux
     (y.float() * r).sum().backward()
-    return {"y": y.detach(), "x": x.grad,
+    return {"y": y.detach(), **({"x": x.grad} if x.requires_grad else {}),
             **{n: p.grad for n, p in layer.named_parameters()}}
 
 
-def mesh_ep_want(mesh):
-    """(c)'s one-rank layer, each rank of the model axis in turn (the
-    others wait at a barrier): full-width weights and input from one seed,
-    its output and gradients on the kernels, timed; keeps the rank's
-    expert slices of the weights and of their gradients, the router, the
-    input, the projection, the output and the gradients of x and the
-    router.  Returns them."""
+def mesh_split_want(mesh):
+    """(c)'s and (e)'s one-rank layers, each rank of the model axis in turn
+    (the others wait at a barrier): full-width weights and inputs from one
+    seed, their output and gradients on the kernels, timed; keeps, by
+    arch, the rank's blocks of the weights and of their gradients (the
+    part's shapes, ``mesh_split_layer``), the input, the projection, the
+    output and the input's gradient."""
     import torch.distributed as dist
-    from repro_torch.layers import moe
-    from repro_torch.models import blocks
     from repro_torch.models.transformer import fill_params
     tp = mesh_model_axis(mesh)
-    cfg = model_cfg(MESH_MOE, {})
-    b, t = MESH_EP_LAYER
     want = {}
     for turn in range(tp.size):
         if turn == tp.index:
-            torch.cuda.reset_peak_memory_stats()
-            gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
-            layer = moe.MoE(blocks.moe_cfg(cfg), dtype=torch.bfloat16,
-                            device="cuda")
-            fill_params(layer, gen)
-            x = torch.randn(b, t, cfg.d_model, device="cuda",
-                            generator=gen).to(torch.bfloat16)
-            r = torch.randn(b, t, cfg.d_model, device="cuda", generator=gen)
-            xg = x.clone().requires_grad_()
-            mesh_ep_grads(layer, xg, r)              # warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = mesh_ep_grads(layer, xg, r)
-            torch.cuda.synchronize()
-            n = cfg.n_experts // tp.size
-            part = slice(tp.index * n, (tp.index + 1) * n)
-            want = {"x_in": x, "r": r, "ms": (time.perf_counter() - t0) * 1e3,
-                    "peak_bytes": torch.cuda.max_memory_allocated(),
-                    "grads": {k: (v[part] if k.startswith("w_") else v)
-                              .clone() for k, v in got.items()},
-                    "weights": {k: (v[part] if k.startswith("w_") else v)
-                                .detach().clone()
+            for arch in MESH_SPLIT_ARCHS:
+                cfg = model_cfg(arch, {})
+                b, t = MESH_SPLIT_BATCH
+                t = cfg.n_patches or t
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+                layer = mesh_split_layer(arch)
+                if cfg.n_patches:      # VisionProj: its biases drawn too
+                    with torch.no_grad():
+                        for p in layer.parameters():
+                            p.copy_(torch.randn(p.shape, device="cuda",
+                                                generator=gen)
+                                    * cfg.d_model ** -0.5)
+                else:
+                    fill_params(layer, gen)
+                x = torch.randn(b, t, cfg.d_model, device="cuda",
+                                generator=gen).to(torch.bfloat16)
+                r = torch.randn(b, t, cfg.d_model, device="cuda",
+                                generator=gen)
+                xg = x.clone().requires_grad_(not cfg.n_patches)
+                mesh_split_grads(layer, xg, r)              # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = mesh_split_grads(layer, xg, r)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                part = mesh_split_layer(arch, mesh, "meta")
+                shapes = {n: tuple(p.shape)
+                          for n, p in part.named_parameters()}
+
+                def block(name, v):
+                    dim = next((d for d in range(v.dim()) if name in shapes
+                                and v.shape[d] != shapes[name][d]), None)
+                    if dim is None:
+                        return v
+                    n = shapes[name][dim]
+                    return v.narrow(dim, tp.index * n, n)
+
+                want[arch] = {
+                    "x_in": x, "r": r, "ms": ms,
+                    "peak_bytes": torch.cuda.max_memory_allocated()
+                    - resident,
+                    "grads": {k: block(k, v).clone() for k, v in got.items()},
+                    "weights": {k: block(k, v).detach().clone()
                                 for k, v in layer.named_parameters()}}
-            del layer, got, xg
-            torch.cuda.empty_cache()
+                del layer, got, xg
+                torch.cuda.empty_cache()
         dist.barrier(group=tp.group)
     return want
 
 
-def mesh_ep_layer(mesh, want, card):
-    """(c): the rank's expert-parallel part of the layer (``MoE.split``),
-    its weights the one-rank layer's slices: output and gradients against
-    ``want``'s (relative L2 each), timed over a second run; peak memory
-    and collective bytes of the rank."""
+def mesh_split_part(mesh, arch, want, card):
+    """(c) or (e): the rank's part of ``arch``'s layer, its weights the
+    one-rank layer's blocks: output and gradients against ``want``'s
+    (relative L2 each), timed over a second run; peak memory above what
+    the rank held before (the one-rank gradients it is held against
+    among it) and collective bytes of the rank.  Frees ``want``."""
     from repro_torch.distributed import collectives as C
-    from repro_torch.layers import moe
-    from repro_torch.models import blocks
-    tp = mesh_model_axis(mesh)
-    cfg = model_cfg(MESH_MOE, {})
-    layer = moe.MoE(blocks.moe_cfg(cfg), dtype=torch.bfloat16, device="meta")
-    layer.split(tp, experts=True)
-    layer.to_empty(device="cuda")
+    layer = mesh_split_layer(arch, mesh)
     with torch.no_grad():
         for name, p in layer.named_parameters():
             p.copy_(want["weights"][name])
     del want["weights"]
     torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    x = want["x_in"].clone().requires_grad_()
+    x = want["x_in"].clone().requires_grad_(
+        not model_cfg(arch, {}).n_patches)
     C.reset_counts()
-    got = mesh_ep_grads(layer, x, want["r"])
+    got = mesh_split_grads(layer, x, want["r"])
     counts = dict(C.COUNTS)
     errs = {k: rel_l2(got[k], want["grads"][k]) for k in want["grads"]}
     finite = all(bool(torch.isfinite(v).all()) for v in got.values())
     del got
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mesh_ep_grads(layer, x, want["r"])
+    mesh_split_grads(layer, x, want["r"])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return {"experts": list(layer.experts), "rel_l2": errs,
-            "reference_held_gb": sum(v.numel() * v.element_size()
-                                     for v in want["grads"].values()) / 1e9,
-            "band": TRAIN_BAND[torch.bfloat16]["grad_rel_l2"],
-            "finite": finite, "grad_ms": ms, "one_rank_grad_ms": want["ms"],
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "one_rank_peak_gb": want["peak_bytes"] / 1e9,
-            "collectives": counts, "batch": list(MESH_EP_LAYER),
-            "card": card}
+    rec = {"rel_l2": errs, "band": TRAIN_BAND[torch.bfloat16]["grad_rel_l2"],
+           "finite": finite, "grad_ms": ms, "one_rank_grad_ms": want["ms"],
+           "peak_gb_above_resident": (torch.cuda.max_memory_allocated()
+                                      - resident) / 1e9,
+           "one_rank_peak_gb": want["peak_bytes"] / 1e9,
+           "reference_held_gb": sum(v.numel() * v.element_size()
+                                    for v in want["grads"].values()) / 1e9,
+           "collectives": counts, "input": list(want["x_in"].shape),
+           "card": card}
+    if getattr(layer, "experts", None) is not None:
+        rec["experts"] = list(layer.experts)
+    del layer, x
+    want.clear()
+    torch.cuda.empty_cache()
+    return rec
 
 
-def mesh_moe_cfg():
+def mesh_moe_cfg(arch=MESH_MOE):
     from repro_torch.configs import get
-    return dataclasses.replace(get(MESH_MOE).reduced(), dtype="bfloat16")
+    return dataclasses.replace(get(arch).reduced(), dtype="bfloat16")
 
 
-def mesh_moe_steps(mesh, run, moved=False):
-    """(d): MESH_STEPS AdamW steps of grok's reduced config in bf16 at
-    MESH_MOE_BATCH with ``run``'s options from the seeded initial state
-    (``moved``: every weight moved by MESH_SPREAD of itself), on ``mesh``
-    (this rank's part) or on one rank (None): losses, load-balance
-    losses, step ms, peak bytes (every rank's), collectives."""
+def mesh_moe_steps(mesh, run, moved=False, arch=MESH_MOE):
+    """(d) and (f): MESH_STEPS AdamW steps of ``arch``'s reduced config in
+    bf16 at MESH_MOE_BATCH with ``run``'s options from the seeded initial
+    state (``moved``: every weight moved by MESH_SPREAD of itself), on
+    ``mesh`` (this rank's part) or on one rank (None): each step's
+    metrics by MESH_METRICS' keys (NaN where the config has none), step
+    ms, peak bytes (every rank's), collectives."""
     from repro_torch.configs.shapes import ShapeCfg
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.distributed import collectives as C
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
-    cfg = mesh_moe_cfg()
+    cfg = mesh_moe_cfg(arch)
     b, t = MESH_MOE_BATCH
     pipe = TokenPipeline(cfg, ShapeCfg("mesh", "train", t, b), seed=SEED)
     batches = [next(pipe) for _ in range(MESH_STEPS)]
@@ -9762,14 +9844,14 @@ def mesh_moe_steps(mesh, run, moved=False):
     C.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    rec = {"losses": [], "lb": [], "step_ms": []}
+    rec = {**{k: [] for k in MESH_METRICS}, "step_ms": []}
     for batch in batches:
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
-        rec["losses"].append(float(metrics["loss"]))
-        rec["lb"].append(float(metrics["load_balance_loss"]))
+        for key, name in MESH_METRICS.items():
+            rec[key].append(float(metrics.get(name, math.nan)))
     # the run's own peak: above what the rank held when it began (rank 0
     # keeps the earlier runs' recorded inputs)
     peak = [torch.cuda.max_memory_allocated() - resident]
@@ -9784,15 +9866,17 @@ def mesh_moe_steps(mesh, run, moved=False):
     return rec
 
 
-def mesh_rank0_rows(calls, card, tag):
+def mesh_rank0_rows(calls, card, tag, marks):
     """``mesh_rank``'s rank 0, its world gone: each launch signature held
-    and timed, written to MESH_DIR."""
+    and timed, written to MESH_DIR with the seconds of each of ``marks``'
+    stages ((name, perf_counter at its end), in order) and of these."""
     import importlib
     held = {}
     with checked_launches(held):
         for (kernel, _), (args, kw, _, _) in calls.items():
             mod, attr = ACCUM_WRAPPERS[kernel]
             getattr(importlib.import_module(mod), attr)(*args, **kw)
+    marks.append(("held", time.perf_counter()))
     reals = {k: getattr(importlib.import_module(mod), attr)
              for k, (mod, attr) in ACCUM_WRAPPERS.items()}
     rows = []
@@ -9809,8 +9893,12 @@ def mesh_rank0_rows(calls, card, tag):
             **{k: repr(v) for k, v in kw.items()
                if k in ("activation", "out_dtype", "causal", "window")})
         torch.cuda.empty_cache()
+    marks.append(("timed", time.perf_counter()))
+    stage_s = {name: t - prev for (name, t), (_, prev)
+               in zip(marks[1:], marks)}
     (MESH_DIR / f"{tag}.rank0.json").write_text(json.dumps(
-        {"launches": launches, "held": held, "rows": rows}))
+        {"launches": launches, "held": held, "rows": rows,
+         "signatures": len(calls), "stage_s": stage_s}))
 
 
 def mesh_one_rank(cfg, runs):
@@ -9895,12 +9983,18 @@ def baseline_probe():
 
 
 def mesh_moe_one_rank():
-    """(d)'s one-rank runs: for each option set of MESH_MOE_RUNS, grok's
-    reduced steps (mesh_moe_steps) and again from moved weights.  Returns
-    {run: (record, moved record)}."""
+    """(d)'s and (f)'s one-rank runs: for each option set of MESH_MOE_RUNS,
+    grok's reduced steps (mesh_moe_steps), and for each arch of
+    MESH_MLA_RUNS its reduced steps, each again from moved weights.
+    Returns ({run: (record, moved record)}, {arch: (record, moved
+    record)})."""
     runs = dict.fromkeys(r for rs in MESH_MOE_RUNS.values() for r in rs)
-    return {run: (mesh_moe_steps(None, run), mesh_moe_steps(None, run, True))
-            for run in runs}
+    archs = dict.fromkeys(a for rs in MESH_MLA_RUNS.values() for a in rs)
+    return ({run: (mesh_moe_steps(None, run),
+                   mesh_moe_steps(None, run, True)) for run in runs},
+            {arch: (mesh_moe_steps(None, "plain", arch=arch),
+                    mesh_moe_steps(None, "plain", True, arch=arch))
+             for arch in archs})
 
 
 def mesh_plans(cfg, card):
@@ -10029,7 +10123,9 @@ def phase_mesh(cfg, card, meanwhile=()):
     """(a) per-shard plans (``mesh_plans``); (b) smollm's worlds of
     MESH_SMOLLM_WORLDS (``mesh_rank``) against one rank (``mesh_one_rank``,
     timed while every rank waits idle); (c) the expert-parallel layer and
-    (d) grok's reduced worlds against one rank (``mesh_moe_one_rank``).
+    (e) the full-width MLA block and patch projection, split over the
+    model axis, against one rank; (d) grok's and (f) deepseek-v3's and
+    llava's reduced worlds against one rank (``mesh_moe_one_rank``).
     ``meanwhile``: callables run, after (a) and (d)'s one-rank runs, while
     the ranks import and warm up.  Returns ({"mesh": rank 0's launches},
     worst abs error by kernel, rows).  Every rank is stopped on the way
@@ -10075,7 +10171,9 @@ def mesh_phases(cfg, card, worlds, t_phase, meanwhile):
     worst.setdefault("batched_matmul", 0.0)
     # Untimed work first, while the ranks import and warm up: (d)'s
     # one-rank runs, the spread run, ``meanwhile``.
-    moe_want = mesh_moe_one_rank()
+    t0 = time.perf_counter()
+    moe_want, mla_want = mesh_moe_one_rank()
+    one_rank_s = time.perf_counter() - t0
     (spread, _, _), = mesh_one_rank(cfg, [(MESH_BATCH, MESH_STEPS, True)])
     for fn in meanwhile:
         fn()
@@ -10101,7 +10199,8 @@ def mesh_phases(cfg, card, worlds, t_phase, meanwhile):
                          "spread_losses": b["losses"],
                          "step_ms": a["step_ms"],
                          "peak_gb_above_resident": a["peak_bytes"][0] / 1e9}
-                   for run, (a, b) in moe_want.items()}, "card": card})
+                   for run, (a, b) in (moe_want | mla_want).items()},
+          "seconds": one_rank_s, "card": card})
     launches, rows = collections.Counter(), []
     for world, ctx in worlds.items():
         n, tag = world[0] * world[1], f"{world[0]}x{world[1]}"
@@ -10133,15 +10232,15 @@ def mesh_phases(cfg, card, worlds, t_phase, meanwhile):
                   **mesh_collectives(rec["collectives"]),
                   "triples": len(rec["forward_triples"]),
                   "step_s": rec["step_s"], "card": card})
-        if "ep_layer" in moe_recs:
-            ep = moe_recs["ep_layer"]
-            if not ep["finite"] or max(ep["rel_l2"].values()) > ep["band"]:
-                failed.append(f"{tag} expert-parallel layer against one "
-                              f"rank: {ep['rel_l2']}, band {ep['band']}, "
-                              f"finite {ep['finite']}")
-            emit({"phase": "mesh_ep_layer", "world": tag, "arch": MESH_MOE,
-                  **{k: v for k, v in ep.items() if k != "collectives"},
-                  **mesh_collectives(ep["collectives"])})
+        for arch, part in moe_recs.get("split_layers", {}).items():
+            if not part["finite"] or \
+                    max(part["rel_l2"].values()) > part["band"]:
+                failed.append(f"{tag} {arch} split over the model axis "
+                              f"against one rank: {part['rel_l2']}, band "
+                              f"{part['band']}, finite {part['finite']}")
+            emit({"phase": "mesh_split_layer", "world": tag, "arch": arch,
+                  **{k: v for k, v in part.items() if k != "collectives"},
+                  **mesh_collectives(part["collectives"])})
         for run in MESH_MOE_RUNS.get(world, ()):
             got, (want, moved) = moe_recs[run], moe_want[run]
             errs, limits = mesh_loss_check(f"{tag} {run}", got["losses"],
@@ -10160,8 +10259,31 @@ def mesh_phases(cfg, card, worlds, t_phase, meanwhile):
                   "peak_gb_above_resident": [b / 1e9 for b in
                                              got["peak_bytes"]],
                   **mesh_collectives(got["collectives"]), "card": card})
+        for arch in MESH_MLA_RUNS.get(world, ()):
+            got, (want, moved) = moe_recs[arch], mla_want[arch]
+            checks = {}
+            for key, name in MESH_METRICS.items():
+                if all(math.isnan(v) for v in want[key] + got[key]):
+                    continue          # a metric the config has not
+                checks[name] = mesh_loss_check(
+                    f"{tag} {arch} {name}", got[key], want[key], moved[key],
+                    failed)
+            emit({"phase": "mesh_world", "world": tag, "ranks": n,
+                  "arch": f"{arch} reduced, bf16",
+                  "batch": list(MESH_MOE_BATCH),
+                  **{name: {"got": got[key], "one_rank": want[key],
+                            "err": checks[name][0],
+                            "limits": checks[name][1]}
+                     for key, name in MESH_METRICS.items()
+                     if name in checks},
+                  "step_ms": got["step_ms"],
+                  "one_rank_step_ms": want["step_ms"],
+                  "peak_gb_above_resident": [b / 1e9 for b in
+                                             got["peak_bytes"]],
+                  **mesh_collectives(got["collectives"]), "card": card})
         emit({"phase": "mesh_rank0", "world": tag,
               "launches": r0["launches"], "held": r0["held"],
+              "signatures": r0["signatures"], "stage_s": r0["stage_s"],
               "seconds": time.perf_counter() - t0, "card": card})
     emit({"phase": "mesh", "launches": dict(launches), "failed": failed,
           "plans_differ": sum(r["differs"] for r in plans),
@@ -10234,8 +10356,11 @@ def kernels_line(rows, launches_by_path, worst):
     end, the self-healing run, the HTTP calls); accum, smollm-135m's bf16
     runs under ``accum_dtype="bfloat16"`` (phase_accum's generate,
     continuous serve and train step; its rows' library times accumulate
-    in fp32); mesh, rank 0's launches in phase_mesh's two worlds (its
-    MESH_STEPS bf16 steps on each).
+    in fp32); mesh, rank 0's launches in phase_mesh's worlds (smollm's
+    MESH_STEPS bf16 steps on (2, 1) and (1, 3); on (1, 2) grok's
+    expert-parallel layer, deepseek-v3's MLA block and llava's patch
+    projection at full width, and the reduced grok, deepseek-v3 and
+    llava steps; on (2, 1) the reduced grok and deepseek-v3 steps).
     ``delta_rowsum`` runs on none of them (it is the oracle of the fused
     delta): its times are one call's."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")

@@ -11,9 +11,10 @@ them); a group of one rank moves nothing and counts nothing.  Under NCCL the gat
 NCCL's own; otherwise (gloo, whose CUDA tensors take only broadcast and
 all-reduce) :func:`gather_by_all_reduce` and the scatter's reduce-then-
 slice build them from an all-reduce, on the CPU and on the card alike.
-:func:`copy_to_model` (identity forward, all-reduce of the gradient) and
-:func:`reduce_from_model` (all-reduce forward, identity backward) are
-the tensor-parallel layers' autograd seams.
+:func:`copy_to_model` (identity forward, all-reduce of the gradient),
+:func:`reduce_from_model` (all-reduce forward, identity backward) and
+:func:`gather_from_model` (all-gather forward, the rank's slice of the
+gradient backward) are the tensor-parallel layers' autograd seams.
 
 Compressing the fp32 gradients to int8 (one absmax scale a tensor) or to
 bf16 before the optimizer models the wire format of a compressed
@@ -145,6 +146,17 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.n = ax, dim, x.size(dim)
+        return all_gather(x.contiguous(), ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.ax.index * ctx.n, ctx.n), None, None
+
+
 # A row-parallel GEMM's triple: rows on the data axes, k on the model axis
 # (``sharding.local.local_problem``'s override, as the reference's
 # ``launch/dryrun.py::cell_problems`` assigns attn_out and mlp_down).
@@ -191,6 +203,18 @@ def reduce_from_model(x: torch.Tensor, ax: AxisGroup | None):
     if ax is None or ax.size == 1:
         return x
     return _ReduceFromModel.apply(x, ax)
+
+
+def gather_from_model(x: torch.Tensor, ax: AxisGroup | None, dim: int):
+    """The ranks' parts of a column-parallel GEMM's output concatenated
+    along ``dim`` (GSPMD's all-gather before a whole-width op); the
+    backward keeps this rank's slice of the gradient.  Where the whole
+    tensor feeds GEMMs split by rank, its gradient is partial on each:
+    pass it through :func:`copy_to_model` after this gather, and the two
+    backwards make the reduce-scatter."""
+    if ax is None or ax.size == 1:
+        return x
+    return _GatherFromModel.apply(x, ax, dim)
 
 
 def _check_kind(kind: str) -> None:

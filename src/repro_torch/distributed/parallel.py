@@ -1,5 +1,6 @@
-"""Data x model parallel training of the dense and MoE families on a mesh
-of the running world: what the reference gets from GSPMD, done by hand.
+"""Data x model parallel training of the dense, MoE and MLA families (a
+VLM's patch projection among them) on a mesh of the running world: what
+the reference gets from GSPMD, done by hand.
 
 Each rank holds the shards that ``sharding.rules.param_shardings`` gives
 its coordinate: the fp32 master copy and AdamW's moments split over the
@@ -15,6 +16,12 @@ model axis (``tp``, a ``collectives.AxisGroup``):
     summed over the axis (``collectives.copy_to_model``);
   * row-parallel ``wo`` and ``w_down`` sum their partial outputs
     (``collectives.reduce_from_model``);
+  * MLA (dense, and DeepSeek-V3's dense and MoE stacks and MTP block)
+    runs its heads' ``wq_b``, ``wkv_b`` and ``wo`` so, and all-gathers its
+    blocks of the low-rank outputs ``x @ wq_a`` and ``x @ wkv_a`` to norm
+    them whole (``layers/attention.py::MLAttention``,
+    ``collectives.gather_from_model``); a VLM's patch projection gathers
+    its column blocks likewise (``models/transformer.py::VisionProj``);
   * a MoE layer holds E/m whole experts (expert parallelism), or every
     expert's F/m columns where E does not divide (the reference's
     few-experts fallback), routes over all E from the replicated router,
@@ -48,8 +55,10 @@ the reference's tree with one absmax scale, the max over every rank that
 holds a part of it (``collectives.compress_grads(ax=)``), so the values
 quantized are the reference's global ones.
 
-MLA (dense or ``mla_moe``), the recurrent families, the encoder-decoder
-and a VLM's patch projection on a mesh of more than one rank raise
+With an MTP block the loss adds ``MTP_WEIGHT`` times its cross-entropy
+over the vocab-sharded MTP logits, its own global mean (its token count,
+``labels[:, 1:]``'s, summed over the data axes).  The recurrent families
+and the encoder-decoder on a mesh of more than one rank raise
 ``NotImplementedError`` (ROADMAP queue 1, item 6.2), as does sequence
 parallelism, a batch the data axes do not divide (item 6.3).  A one-rank
 mesh runs the same code with every collective a no-op, and matches the
@@ -76,35 +85,32 @@ QUEUE = "ROADMAP.md queue 1, item 6.2 (the other families on a mesh)"
 SEQUENCE = "ROADMAP.md queue 1, item 6.3 (sequence parallelism)"
 
 
-def _refusal(cfg: ArchCfg) -> str | None:
-    """What of ``cfg`` this executor does not run on more than one rank."""
-    if cfg.mla or cfg.block == "mla_moe":
-        return f"MLA (block={cfg.block!r})"
-    if cfg.block not in ("dense", "moe"):
-        return f"block={cfg.block!r}"
-    if cfg.n_patches:
-        return "a VLM's patch projection"
-    return None
-
-
 def check_supported(cfg: ArchCfg, mesh) -> None:
     """Raises where this executor cannot run ``cfg`` on ``mesh``: a family
-    other than dense and moe (or MLA) on more than one rank, or a model
-    axis that would cut a head, ``d_ff``, the vocab or the experts
-    unevenly (it never replicates a weight the rules would shard)."""
+    other than dense, moe and mla_moe on more than one rank, or a model
+    axis that would cut a head, ``d_ff``, the vocab, MLA's low-rank
+    outputs, a VLM's projection or the experts unevenly (it never
+    replicates a weight the rules would shard)."""
     if mesh.size == 1:
         return
-    what = _refusal(cfg)
-    if what is not None:
+    if cfg.block not in ("dense", "moe", "mla_moe"):
         raise NotImplementedError(
-            f"{cfg.name}: {what} on a mesh of {mesh.size} ranks is not "
-            f"ported yet ({QUEUE}); the dense and moe families are")
+            f"{cfg.name}: block={cfg.block!r} on a mesh of {mesh.size} "
+            f"ranks is not ported yet ({QUEUE}); the dense, moe and "
+            f"mla_moe families are")
     m = model_size(mesh)
-    sizes = [("q heads", cfg.n_heads), ("kv heads", cfg.n_kv_heads),
-             ("vocab", cfg.vocab)]
-    if cfg.block == "dense":
-        sizes.append(("d_ff", cfg.d_ff))
+    sizes = [("q heads", cfg.n_heads), ("vocab", cfg.vocab)]
+    if cfg.mla:
+        sizes += [("q_lora_rank", cfg.q_lora_rank),
+                  ("kv_lora_rank + qk_rope_dim",
+                   cfg.kv_lora_rank + cfg.qk_rope_dim)]
     else:
+        sizes.append(("kv heads", cfg.n_kv_heads))
+    if cfg.n_patches:
+        sizes.append(("d_model (the patch projection)", cfg.d_model))
+    if cfg.block != "moe":        # dense blocks: all, or mla_moe's first
+        sizes.append(("d_ff", cfg.d_ff))
+    if cfg.block != "dense":
         sizes.append(("shared experts' d_ff",
                       cfg.moe_d_ff * cfg.n_shared_experts))
         if cfg.n_experts % m and cfg.moe_d_ff % m:
@@ -121,12 +127,16 @@ def check_supported(cfg: ArchCfg, mesh) -> None:
 
 def local_cfg(cfg: ArchCfg, mesh) -> ArchCfg:
     """The config of one rank's part of the model axis: its heads, vocab
-    rows and (dense) ``d_ff``.  A MoE keeps E and F whole here: its layers
-    are cut by ``MoE.split``, and route over all E."""
+    rows and dense ``d_ff`` (the dense family's, mla_moe's first blocks'
+    and MTP block's).  A MoE keeps E and F whole here: its layers are cut
+    by ``MoE.split``, and route over all E.  MLA's low-rank projections
+    and a VLM's are cut by ``MLAttention.split`` and ``VisionProj.split``;
+    MLA has no KV heads to cut."""
     m = model_size(mesh)
     return dataclasses.replace(
-        cfg, n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
-        d_ff=cfg.d_ff // m if cfg.block == "dense" else cfg.d_ff,
+        cfg, n_heads=cfg.n_heads // m,
+        n_kv_heads=cfg.n_kv_heads if cfg.mla else cfg.n_kv_heads // m,
+        d_ff=cfg.d_ff if cfg.block == "moe" else cfg.d_ff // m,
         vocab=cfg.vocab // m, head_dim=cfg.dh)
 
 
@@ -318,13 +328,15 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
                     axis_specs=None):
     """``train_step(state, batch) -> (state, metrics)`` on a rank of
     ``mesh``: ``state`` this rank's shard (:func:`init_state`), ``batch``
-    the global batch (each rank takes its rows).  Metrics: ``loss`` and
-    ``ce_loss`` (the global mean), a MoE's ``load_balance_loss``,
-    ``grad_norm``, ``lr``."""
+    the global batch (each rank takes its rows, a VLM's ``patch_embeds``
+    too).  Metrics: ``loss`` and ``ce_loss`` (the global mean), an MTP
+    block's ``mtp_loss``, a MoE's ``load_balance_loss``, ``grad_norm``,
+    ``lr``."""
     from repro_torch import interop
-    from repro_torch.models.transformer import LB_WEIGHT, Z_WEIGHT
+    from repro_torch.models.transformer import LB_WEIGHT, MTP_WEIGHT, \
+        Z_WEIGHT
     layout = Layout(cfg, mesh)
-    moe = cfg.block == "moe"
+    moe = cfg.block in ("moe", "mla_moe")
     groups = interop.stacked_leaves(cfg)
     work = {}     # the working model, built at the first step
 
@@ -335,12 +347,17 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
         model.embed.tp = tp
         if model.head is not None:
             model.head.tp = tp
-        for i, block in enumerate(model.blocks):
-            block.attn.tp = tp
+        layers = [(f"blocks.{i}", b) for i, b in enumerate(model.blocks)]
+        if model.mtp_block is not None:
+            layers.append(("mtp_block", model.mtp_block))
+        for prefix, block in layers:
+            _wire_attn(block.attn, tp)
             if hasattr(block, "mlp"):
                 block.mlp.tp = tp
             else:
-                _wire_moe(block.moe, f"blocks.{i}.moe", layout, tp)
+                _wire_moe(block.moe, f"{prefix}.moe", layout, tp)
+        if model.vision_proj is not None and tp is not None:
+            model.vision_proj.split(tp)
         model.to_empty(device=device)
         params = dict(model.named_parameters())
         for name, p in params.items():
@@ -362,30 +379,40 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
                 mod.register_forward_pre_hook(gathers[prefix])
         work.update(model=model, params=params, fresh=fresh, gathers=gathers)
 
-    def forward_backward(tokens, labels):
+    def forward_backward(tokens, labels, patches):
         """One (micro)batch's loss on this rank's rows, backward; returns
-        (this rank's part of the global mean CE, its part of the loss
-        without a load-balance term, the load-balance loss or None)."""
+        (this rank's parts of the global means: ``ce_loss``, an MTP
+        block's ``mtp_loss``, and ``loss`` without a load-balance term;
+        the load-balance loss or None)."""
         model = work["model"]
+        tp = model.embed.tp
         with obs.span("train.forward"):
-            logits, aux = model.logits_and_aux(tokens, remat=cfg.remat)
+            logits, aux = model.logits_and_aux(tokens, patch_embeds=patches,
+                                               remat=cfg.remat)
             mask = (labels >= 0).float()
+            labels = labels.clamp_min(0).long()
             count = C.all_reduce(mask.sum(), layout.dp)
-            ce = xent_sum(logits, labels.clamp_min(0).long(), mask,
-                          model.embed.tp) / count.clamp_min(1.0)
-            part, lb = ce, None
+            ce = xent_sum(logits, labels, mask, tp) / count.clamp_min(1.0)
+            parts = {"ce_loss": ce}
+            loss = ce
+            if "mtp_logits" in aux:
+                # The token two steps on from each position: its own count.
+                count = C.all_reduce(mask[:, 1:].sum(), layout.dp)
+                parts["mtp_loss"] = xent_sum(
+                    aux["mtp_logits"][:, :-1], labels[:, 1:], mask[:, 1:],
+                    tp) / count.clamp_min(1.0)
+                loss = loss + MTP_WEIGHT * parts["mtp_loss"]
+            lb = None
             if moe:
                 # The load-balance loss is global on every data rank; its
                 # reduction's identity backward counts it once.  The
                 # z-loss is this rank's share of its global mean.
-                part = ce + Z_WEIGHT * aux["router_z_loss"]
+                loss = loss + Z_WEIGHT * aux["router_z_loss"]
                 lb = aux["load_balance_loss"]
-                loss = part + LB_WEIGHT * lb
-            else:
-                loss = ce
-        loss.backward()
-        return ce.detach(), part.detach(), None if lb is None else \
-            lb.detach()
+            parts["loss"] = loss
+        (loss if lb is None else loss + LB_WEIGHT * lb).backward()
+        return {k: v.detach() for k, v in parts.items()}, \
+            None if lb is None else lb.detach()
 
     def train_step(state, batch):
         master = state["opt"]["master"]
@@ -400,6 +427,9 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
                 work["gathers"][prefix](None, None)
         tokens = torch.as_tensor(batch["tokens"])
         labels = torch.as_tensor(batch["labels"])
+        patches = batch.get("patch_embeds")
+        if patches is not None:
+            patches = torch.as_tensor(patches)
         if len(tokens) % microbatches:
             raise ValueError(f"a batch of {len(tokens)} rows does not split "
                              f"into {microbatches} microbatches")
@@ -414,8 +444,10 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
                 rows = layout.batch_rows(size, tokens.shape[1])
                 for p in params.values():
                     p.grad = None
-                ce, part, lb = forward_backward(
-                    tokens[mb][rows].to(device), labels[mb][rows].to(device))
+                parts, lb = forward_backward(
+                    tokens[mb][rows].to(device), labels[mb][rows].to(device),
+                    None if patches is None else
+                    patches[mb][rows].to(device))
                 if microbatches > 1:
                     if acc is None:
                         acc = {n: p.grad.float() for n, p in params.items()}
@@ -432,11 +464,11 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
                 grads, kind=grad_compression, groups=groups,
                 ax=layout.world), kind=grad_compression)
         # The last microbatch's metrics: the global means.
-        sums = C.all_reduce(torch.stack([ce, part]) if moe
-                            else ce.clone(), layout.dp)
-        metrics = {"ce_loss": sums[0], "loss": sums[1] + LB_WEIGHT * lb,
-                   "load_balance_loss": lb} if moe else \
-            {"ce_loss": sums, "loss": sums}
+        sums = C.all_reduce(torch.stack(list(parts.values())), layout.dp)
+        metrics = dict(zip(parts, sums))
+        if lb is not None:
+            metrics["loss"] = metrics["loss"] + LB_WEIGHT * lb
+            metrics["load_balance_loss"] = lb
         lr_scale = warmup_cosine(state["opt"]["step"])
         new_opt, opt_metrics = opt.adamw_update(
             grads, state["opt"], ocfg, lr_scale,
@@ -444,6 +476,17 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
         return {"opt": new_opt}, {**metrics, **opt_metrics}
 
     return train_step
+
+
+def _wire_attn(attn, tp) -> None:
+    """An attention layer told the model axis: GQA's heads are the local
+    config's already; MLA also keeps its block of the low-rank
+    projections' columns (``MLAttention.split``)."""
+    from repro_torch.layers.attention import MLAttention
+    if isinstance(attn, MLAttention) and tp is not None:
+        attn.split(tp)
+    else:
+        attn.tp = tp
 
 
 def _wire_moe(moe, prefix: str, layout: Layout, tp) -> None:

@@ -48,6 +48,7 @@ from torch import nn
 
 from repro_torch.core import brgemm
 from repro_torch.distributed.collectives import (copy_to_model,
+                                                 gather_from_model,
                                                  reduce_from_model,
                                                  row_parallel)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -190,7 +191,28 @@ class MLAttention(nn.Module):
     """Multi-head latent attention.  Weights (k, n): ``wq_a`` (D, q_lora),
     ``q_norm``, ``wq_b`` (q_lora, H * (nope + rope)), ``wkv_a`` (D, kv_lora
     + rope), ``kv_norm``, ``wkv_b`` (kv_lora, H * (nope + v)), ``wo`` (H *
-    v, D)."""
+    v, D).
+
+    On a mesh's model axis (``tp``, after :meth:`split`; train and prefill
+    modes) a rank holds the columns the rules give it: a block of
+    ``wq_a``'s and ``wkv_a``'s, its heads' of ``wq_b`` and ``wkv_b``
+    (head-major, so whole heads), and its heads' rows of ``wo``.
+    ``q_norm`` and ``kv_norm`` take the whole low-rank outputs and every
+    head reads ``k_rope``, so the rank's blocks of ``x @ wq_a`` and ``x @
+    wkv_a`` are all-gathered over the axis (``gather_from_model``) and
+    normed whole.  Gathering these activations, not the weights, keeps a
+    rank's working copy its shard (the rules shard ``wq_a`` and
+    ``wkv_a``), and moves B T (q_lora + kv_lora + rope) values a layer
+    against the weights' D (q_lora + kv_lora + rope): less while a rank
+    holds fewer than D tokens (7168 at full width).  The normed ``c_q``
+    and ``c_kv`` and the roped ``k_rope`` enter the rank's heads through
+    ``copy_to_model``: their gradients, partial on each rank, are summed
+    there, so the norms' scales get their whole gradient on every rank
+    (the rules replicate them) and the gather's backward keeps its slice
+    of a whole one (the two make the reduce-scatter).  ``x``'s gradient is summed likewise and
+    ``wo``'s partial outputs with ``reduce_from_model``.  A prompt chunk
+    and decode on a model axis raise (ROADMAP queue 1, item 6.4)."""
+    tp = None     # a mesh's model axis (collectives.AxisGroup), else None
 
     def __init__(self, cfg: AttnCfg, *, dtype=torch.float32, device="cpu"):
         super().__init__()
@@ -209,6 +231,18 @@ class MLAttention(nn.Module):
                        h * (cfg.qk_nope_dim + cfg.v_head_dim))
         self.wo = w(h * cfg.v_head_dim, cfg.d_model)
 
+    def split(self, tp) -> None:
+        """Keep this rank's block of ``wq_a``'s and ``wkv_a``'s columns on
+        the model axis ``tp`` (new, uninitialised parameters); the heads'
+        weights are the local config's already."""
+        cfg, m = self.cfg, tp.size
+        for name, n in (("wq_a", cfg.q_lora_rank),
+                        ("wkv_a", cfg.kv_lora_rank + cfg.qk_rope_dim)):
+            like = getattr(self, name)
+            setattr(self, name, nn.Parameter(torch.empty(
+                cfg.d_model, n // m, dtype=like.dtype, device=like.device)))
+        self.tp = tp
+
     @property
     def scale(self) -> float:
         return (self.cfg.qk_nope_dim + self.cfg.qk_rope_dim) ** -0.5
@@ -217,7 +251,9 @@ class MLAttention(nn.Module):
         """(q_nope, q_rope with RoPE), each (B, H, T, ...)."""
         cfg = self.cfg
         b, t, _ = x.shape
-        cq = self.q_norm(brgemm.matmul(x, self.wq_a, backend=backend))
+        cq = self.q_norm(gather_from_model(
+            brgemm.matmul(x, self.wq_a, backend=backend), self.tp, -1))
+        cq = copy_to_model(cq, self.tp)
         q = brgemm.matmul(cq, self.wq_b, backend=backend).reshape(
             b, t, cfg.n_heads, -1).transpose(1, 2)
         return q[..., :cfg.qk_nope_dim], apply_rope(
@@ -226,14 +262,17 @@ class MLAttention(nn.Module):
     def _compressed_kv(self, x, positions, backend):
         """(c_kv (B, T, kv_lora) normed, k_rope (B, T, rope) with RoPE)."""
         cfg = self.cfg
-        full = brgemm.matmul(x, self.wkv_a, backend=backend)
+        full = gather_from_model(brgemm.matmul(x, self.wkv_a,
+                                               backend=backend), self.tp, -1)
         c_kv = self.kv_norm(full[..., :cfg.kv_lora_rank])
         k_rope = apply_rope(full[..., cfg.kv_lora_rank:][:, None], positions,
                             theta=cfg.rope_theta)[:, 0]
         return c_kv, k_rope
 
     def _out(self, o, backend):
-        return brgemm.matmul(_merge_heads(o), self.wo, backend=backend)
+        with row_parallel(self.tp):
+            y = brgemm.matmul(_merge_heads(o), self.wo, backend=backend)
+        return reduce_from_model(y, self.tp)
 
     def _full(self, x, backend):
         """Train and prefill: the compressed KV expanded to per-head K and
@@ -241,13 +280,16 @@ class MLAttention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device)
+        x = copy_to_model(x, self.tp)
         q_nope, q_rope = self._q(x, positions, backend)
         c_kv, k_rope = self._compressed_kv(x, positions, backend)
-        kv = brgemm.matmul(c_kv, self.wkv_b, backend=backend).reshape(
+        kv = brgemm.matmul(copy_to_model(c_kv, self.tp), self.wkv_b,
+                           backend=backend).reshape(
             b, t, cfg.n_heads, -1).transpose(1, 2)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        k = torch.cat([kv[..., :cfg.qk_nope_dim], k_rope[:, None].expand(
-            b, cfg.n_heads, t, cfg.qk_rope_dim)], dim=-1)
+        k = torch.cat([kv[..., :cfg.qk_nope_dim],
+                       copy_to_model(k_rope, self.tp)[:, None].expand(
+                           b, cfg.n_heads, t, cfg.qk_rope_dim)], dim=-1)
         o = flash_attention(q, k, kv[..., cfg.qk_nope_dim:], causal=True,
                             scale=self.scale, backend=backend)
         return self._out(o, backend), c_kv, k_rope
@@ -281,6 +323,11 @@ class MLAttention(nn.Module):
             cache["c_kv"][:, :t] = c_kv
             cache["k_rope"][:, :t] = k_rope
             return y, cache
+        if self.tp is not None and self.tp.size > 1 and mode in (
+                "prefill_chunk", "decode"):
+            raise NotImplementedError(
+                f"MLA's {mode} on a model axis is not ported (ROADMAP "
+                f"queue 1, item 6.4)")
         if mode == "prefill_chunk":
             positions = pos + torch.arange(t, device=x.device)
             q_nope, q_rope = self._q(x, positions, backend)

@@ -57,7 +57,9 @@ the router, which the axis replicates); the router reads x before that
 copy; the partial outputs are summed with ``reduce_from_model``.  Expert
 parallelism keys its batched GEMMs with the axes ``(dp, None, None)``
 (the model axis splits the entries, outside the triple), the fallback's
-down projection as a row-parallel one.  A routing group across data
+down projection as a row-parallel one, and a shared expert the rules
+keep whole (DeepSeek-V3's, whose stack's layer dim the reference's rule
+takes for experts) with ``(dp, None, None)`` too.  A routing group across data
 ranks (decode's one global group, ``grouped=False``) and the engines on
 such a mesh are not ported (ROADMAP queue 1, item 6.4).
 """
@@ -229,7 +231,11 @@ class MoE(nn.Module):
         y = (y_tok * w[..., None]).reshape(g, n, k, d).sum(dim=2)
         y = reduce_from_model(y, tp)
         if self.shared is not None:
-            y = y + self.shared(xg, backend=backend)
+            # A shared expert the rules keep whole on the model axis (its
+            # stack's layer dim took the axis) runs whole on every rank.
+            with axis_scope("matmul", None if self.shared.tp else DP_ROWS,
+                            tp):
+                y = y + self.shared(xg, backend=backend)
         return y.reshape(b, t, d), _aux(logits, probs, flat_ids, keep, k,
                                         dp)
 

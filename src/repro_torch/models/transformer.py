@@ -84,7 +84,19 @@ class Head(nn.Module):
 
 
 class VisionProj(nn.Module):
-    """The patch projection: ``w1``, ``w2`` (d, d), ``b1``, ``b2`` (d,)."""
+    """The patch projection: ``w1``, ``w2`` (d, d), ``b1``, ``b2`` (d,).
+
+    On a mesh's model axis (``tp``, after :meth:`split`) a rank holds a
+    block of ``w1``'s and ``w2``'s columns (the rules take both for
+    column-parallel) and ``b1`` and ``b2`` whole (they replicate them).
+    It computes its block of ``gelu(v @ w1 + b1)``, all-gathers it over the
+    axis (``gather_from_model``) into ``w2``'s input, whose gradient,
+    partial on each rank, ``copy_to_model`` sums, and all-gathers its
+    block of the output before the concatenation with the tokens.  A rank
+    adds its block of each bias, read through ``copy_to_model``: the
+    gradient of ``b1`` and ``b2``, nonzero on a rank only in its block, is
+    summed whole over the axis."""
+    tp = None     # a mesh's model axis (collectives.AxisGroup), else None
 
     def __init__(self, d: int, *, dtype, device):
         super().__init__()
@@ -93,10 +105,32 @@ class VisionProj(nn.Module):
             setattr(self, name, nn.Parameter(torch.empty(
                 shape, dtype=dtype, device=device)))
 
+    def split(self, tp) -> None:
+        """Keep this rank's block of ``w1``'s and ``w2``'s columns on the
+        model axis ``tp`` (new, uninitialised parameters)."""
+        for name in ("w1", "w2"):
+            like = getattr(self, name)
+            d = like.shape[0]
+            setattr(self, name, nn.Parameter(torch.empty(
+                d, d // tp.size, dtype=like.dtype, device=like.device)))
+        self.tp = tp
+
+    def _bias(self, b):
+        tp = self.tp
+        if tp is None or tp.size == 1:
+            return b
+        n = b.shape[0] // tp.size
+        return collectives.copy_to_model(b, tp).narrow(0, tp.index * n, n)
+
     def forward(self, v, *, backend=None):
-        v = brgemm.matmul(v, self.w1, self.b1, activation="gelu",
+        tp = self.tp
+        v = brgemm.matmul(v, self.w1, self._bias(self.b1), activation="gelu",
                           backend=backend)
-        return brgemm.matmul(v, self.w2, self.b2, backend=backend)
+        v = collectives.copy_to_model(
+            collectives.gather_from_model(v, tp, -1), tp)
+        return collectives.gather_from_model(
+            brgemm.matmul(v, self.w2, self._bias(self.b2), backend=backend),
+            tp, -1)
 
 
 class Transformer(nn.Module):

@@ -336,7 +336,7 @@ def test_a_model_axis_that_cuts_heads_raises():
         parallel.Layout(smollm, local.abstract_mesh((1, 2),
                                                     ("data", "model")))
     with pytest.raises(NotImplementedError, match="queue 1, item 6.2"):
-        parallel.Layout(configs.get("deepseek-v3-671b").reduced(),
+        parallel.Layout(configs.get("xlstm-1.3b").reduced(),
                         local.abstract_mesh((2, 2), ("data", "model")))
     # grok's MoE runs on a mesh now (tests/test_torch_mesh_moe.py)
     grok = configs.get("grok-1-314b").reduced()

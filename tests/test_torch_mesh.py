@@ -638,15 +638,42 @@ def test_executor_refuses_what_it_cannot_run():
         (2, 3), ("data", "model"))) == dataclasses.replace(
             smollm, n_heads=3, n_kv_heads=1, d_ff=512, vocab=16384,
             head_dim=64)
-    # MLA (dense or mla_moe), the recurrent families, the encoder-decoder
-    # and a VLM's patch projection are refused on more than one rank
-    dense_mla = dataclasses.replace(smollm, mla=True).reduced()
-    for cfg in [dense_mla] + [configs.get(arch).reduced() for arch in (
-            "deepseek-v3-671b", "xlstm-1.3b", "recurrentgemma-9b",
-            "seamless-m4t-large-v2", "llava-next-34b")]:
+    # the recurrent families and the encoder-decoder are refused on more
+    # than one rank
+    for arch in ("xlstm-1.3b", "recurrentgemma-9b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="queue 1, item 6.2"):
-            parallel.check_supported(cfg, local.abstract_mesh(
-                (2, 1), ("data", "model")))
+            parallel.check_supported(configs.get(arch).reduced(),
+                                     local.abstract_mesh(
+                                         (2, 1), ("data", "model")))
+    # dense MLA, deepseek-v3 (mla_moe, MTP) and a VLM run: a rank keeps
+    # its heads and vocab rows, and d_ff's block in the dense family and
+    # mla_moe's dense blocks (MLA keeps its KV heads' count: it has none)
+    dense_mla = dataclasses.replace(smollm, mla=True).reduced()
+    deepseek = configs.get("deepseek-v3-671b").reduced()
+    llava = configs.get("llava-next-34b").reduced()
+    two = local.abstract_mesh((2, 2), ("data", "model"))
+    for cfg in (dense_mla, deepseek, llava):
+        parallel.check_supported(cfg, local.abstract_mesh(
+            (2, 1), ("data", "model")))
+        parallel.check_supported(cfg, two)
+    assert parallel.local_cfg(dense_mla, two) == dataclasses.replace(
+        dense_mla, n_heads=2, d_ff=128, vocab=256, head_dim=32)
+    assert parallel.local_cfg(deepseek, two) == dataclasses.replace(
+        deepseek, n_heads=2, d_ff=128, vocab=256, head_dim=32)
+    assert parallel.local_cfg(llava, two) == dataclasses.replace(
+        llava, n_heads=2, n_kv_heads=1, d_ff=128, vocab=256)
+    leaves = parallel.Layout(deepseek, two).leaves
+    assert [leaves[f"blocks.0.attn.{n}"].model_dim for n in (
+        "wq_a", "wkv_a", "wq_b", "wkv_b", "wo", "q_norm.scale")] == \
+        [1, 1, 1, 1, 0, None]
+    assert leaves["mtp_block.mlp.w_up"].model_dim == 1
+    full = configs.get("deepseek-v3-671b")
+    assert parallel.local_cfg(full, local.abstract_mesh(
+        (1, 2), ("data", "model"))).d_ff == 9216
+    with pytest.raises(ValueError, match="25 kv_lora_rank"):
+        parallel.check_supported(dataclasses.replace(
+            deepseek, kv_lora_rank=17), local.abstract_mesh(
+                (1, 2), ("data", "model")))
     # one rank runs any family's config through the same code
     parallel.check_supported(configs.get("deepseek-v3-671b").reduced(),
                              local.abstract_mesh((1, 1), ("data", "model")))

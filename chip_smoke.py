@@ -9550,6 +9550,35 @@ MESH_TIMED_STEPS, MESH_WIDE_BATCH = 6, 8
 MESH_MOE = "grok-1-314b"
 MESH_SPLIT_WORLD, MESH_SPLIT_BATCH = (1, 2), (2, 512)
 MESH_SPLIT_ARCHS = (MESH_MOE, "deepseek-v3-671b", "llava-next-34b")
+# (g) the recurrent families' and the encoder-decoder's layers at full
+# width, bf16, on the (1, 2) world, as (c) and (e): xlstm-1.3b's mLSTM
+# block (2 of 4 heads a rank, its output gate's row-sharded wo gathered)
+# and sLSTM block (w and r gathered, run whole), recurrentgemma-9b's rec
+# block (RG-LRU on 2048 of d_rnn 4096, its MLP on 6144 of d_ff 12288)
+# and attention block (8 of 16 q heads over the one KV head, its columns
+# gathered; window 2048), seamless-m4t-large-v2's encoder block (8 of 16
+# heads, non-causal over 4096 frames) and decoder block (256 tokens over a
+# memory of 4096 frames), each at (B, T) below.  An mLSTM block's
+# input-gate biases' gradients cancel to near zero (its heads' outputs
+# are invariant to a shift of all their input gates but for the
+# denominator's floor), so in bf16 the one-rank layer's own gradients move
+# by more than the band under a bf16 rounding of its weights, and a ReLU
+# FFN's (seamless's) move where a rounding flips a unit: a layer of
+# MESH_SPLIT_SPREAD (each of (g)'s) is held to the larger of the band and
+# MESH_SPLIT_SPREAD_FACTOR times that spread (the one-rank layer again
+# from weights moved by MESH_SPLIT_MOVE of themselves: one bf16 ulp
+# each, up or down), key by key; the spreads are printed.
+MESH_FAMILY_LAYERS = {   # key -> (arch, block, B, T, frames of memory)
+    "xlstm-1.3b mlstm": ("xlstm-1.3b", "mlstm", 2, 512, 0),
+    "xlstm-1.3b slstm": ("xlstm-1.3b", "slstm", 2, 512, 0),
+    "recurrentgemma-9b rec": ("recurrentgemma-9b", "rec", 2, 512, 0),
+    "recurrentgemma-9b attn": ("recurrentgemma-9b", "attn", 2, 512, 0),
+    "seamless-m4t-large-v2 encoder": ("seamless-m4t-large-v2", "encoder",
+                                      2, 4096, 0),
+    "seamless-m4t-large-v2 decoder": ("seamless-m4t-large-v2", "decoder",
+                                      2, 256, 4096)}
+MESH_SPLIT_SPREAD, MESH_SPLIT_SPREAD_FACTOR = tuple(MESH_FAMILY_LAYERS), 2.0
+MESH_SPLIT_MOVE = 2.0 ** -8
 # (d) grok-1-314b's reduced() config in bf16, MESH_MOE_BATCH, MESH_STEPS
 # AdamW steps, on the (1, 2) world (2 experts a rank) and the (2, 1) world
 # (ZeRO-3 over the expert stacks, dp-local routing groups, the aux losses
@@ -9564,10 +9593,15 @@ MESH_MOE_RUNS = {(1, 2): ("plain",), (2, 1): ("plain", "microbatches2",
 # (f) deepseek-v3-671b's reduced() config (a dense MLA block, two MoE MLA
 # blocks on 4 experts, the MTP block) and llava-next-34b's in bf16 at
 # MESH_MOE_BATCH, MESH_STEPS AdamW steps, as (d): deepseek on (1, 2) (2
-# experts and 2 heads a rank) and (2, 1), llava on (1, 2); each metric
-# against one rank's in mesh_loss_check's limits.
-MESH_MLA_RUNS = {(1, 2): ("deepseek-v3-671b", "llava-next-34b"),
-                 (2, 1): ("deepseek-v3-671b",)}
+# experts and 2 heads a rank) and (2, 1), llava on (1, 2); and (h)
+# xlstm-1.3b's (64 tokens: 4 mLSTM chunks of 16), recurrentgemma-9b's and
+# seamless-m4t-large-v2's (32 frames) reduced configs likewise, each on (1,
+# 2) and (2, 1); each metric against one rank's in mesh_loss_check's
+# limits.
+MESH_FAMILIES = ("xlstm-1.3b", "recurrentgemma-9b", "seamless-m4t-large-v2")
+MESH_ARCH_RUNS = {(1, 2): ("deepseek-v3-671b", "llava-next-34b")
+                  + MESH_FAMILIES,
+                  (2, 1): ("deepseek-v3-671b",) + MESH_FAMILIES}
 MESH_METRICS = {"losses": "loss", "ce": "ce_loss", "mtp": "mtp_loss",
                 "lb": "load_balance_loss"}
 
@@ -9585,9 +9619,10 @@ def mesh_rank(rank, n, store, world, card):
     gloo world through a file store, warms up, says so (``ready_<world>.
     <rank>``), waits for its world's turn (the file ``go_<world>``), then
     runs the world's work: smollm trained through launch/train.py's CLI
-    (MESH_SMOLLM_WORLDS), the layers split over the model axis, (c) and
-    (e), on MESH_SPLIT_WORLD (``mesh_split_part``), grok's reduced runs (d)
-    and the reduced MLA and VLM runs (f) (``mesh_moe_steps``).
+    (MESH_SMOLLM_WORLDS), the layers split over the model axis, (c), (e)
+    and (g), on MESH_SPLIT_WORLD (``mesh_split_part``), grok's reduced runs
+    (d) and the reduced MLA, VLM, recurrent and encoder-decoder runs (f)
+    and (h) (``mesh_moe_steps``).
     Rank 0 counts its launches by signature (``accum_recorder``; not the
     one-rank layer's), then, the world gone, holds each signature against
     its plain version on its first inputs (``checked_launches``) and
@@ -9630,7 +9665,7 @@ def mesh_rank(rank, n, store, world, card):
             marks.append(("smollm_split_layers", time.perf_counter()))
             for run in runs[:1]:
                 out[run] = mesh_moe_steps(mesh, run)
-            for arch in MESH_MLA_RUNS.get(world, ()):
+            for arch in MESH_ARCH_RUNS.get(world, ()):
                 out[arch] = mesh_moe_steps(mesh, "plain", arch=arch)
             marks.append(("reduced_runs", time.perf_counter()))
         # The other option sets run the same kernels (microbatches at half
@@ -9656,15 +9691,70 @@ def mesh_model_axis(mesh):
                        mesh.index("model"))
 
 
+class MeshDecoder(torch.nn.Module):
+    """(g)'s seamless decoder block over a memory: its input holds the
+    tokens' ``tokens`` rows, then the memory's, which enters the block
+    through ``copy_to_model`` on the model axis ``tp``, as
+    ``EncDec.logits_and_aux`` reads it."""
+
+    def __init__(self, block, tokens, tp=None):
+        super().__init__()
+        self.block, self.tokens, self.tp = block, tokens, tp
+
+    def forward(self, x):
+        from repro_torch.distributed.collectives import copy_to_model
+        t = self.tokens
+        return self.block(x[:, :t], copy_to_model(x[:, t:], self.tp),
+                          mode="train")
+
+
+def mesh_split_arch(key):
+    """The arch of a layer of (c), (e) or (g)."""
+    return MESH_FAMILY_LAYERS[key][0] if key in MESH_FAMILY_LAYERS else key
+
+
+def mesh_split_shapes(key):
+    """(input shape, output shape) of a layer of (c), (e) or (g): (B, T,
+    d) at MESH_SPLIT_BATCH (the projection over its patches), or (g)'s (B,
+    T + frames of memory, d) and (B, T, d)."""
+    cfg = model_cfg(mesh_split_arch(key), {})
+    if key in MESH_FAMILY_LAYERS:
+        _, _, b, t, frames = MESH_FAMILY_LAYERS[key]
+        return (b, t + frames, cfg.d_model), (b, t, cfg.d_model)
+    b, t = MESH_SPLIT_BATCH
+    t = cfg.n_patches or t
+    return (b, t, cfg.d_model), (b, t, cfg.d_model)
+
+
+def mesh_family_layer(key, mesh):
+    """(g)'s layer of ``key``, whole, or this rank's part on ``mesh``'s
+    model axis as ``distributed.parallel`` cuts and wires it (on meta)."""
+    from repro_torch.distributed import parallel
+    from repro_torch.models import blocks, encdec
+    arch, kind, _, t, _ = MESH_FAMILY_LAYERS[key]
+    cfg = model_cfg(arch, {})
+    tp = None if mesh is None else mesh_model_axis(mesh)
+    local = cfg if tp is None else parallel.local_cfg(cfg, mesh)
+    layer = {"encoder": encdec.EncoderBlock, "decoder": encdec.DecoderBlock,
+             **blocks.RECURRENT_BLOCKS}[kind](local, device="meta")
+    if tp is not None:
+        parallel.wire_block(layer, tp, parallel.kv_split(cfg, tp.size))
+    return MeshDecoder(layer, t, tp) if kind == "decoder" else layer
+
+
 def mesh_split_layer(arch, mesh=None, device="cuda"):
-    """(c)'s or (e)'s layer of ``arch``, uninitialised on ``device``:
-    grok's MoE layer, deepseek's first (dense) block or llava's patch
-    projection, whole, or this rank's part on ``mesh``'s model axis as
-    the executor wires it."""
+    """(c)'s, (e)'s or (g)'s layer of ``arch`` (a key of
+    MESH_FAMILY_LAYERS for (g)), uninitialised on ``device``: grok's MoE
+    layer, deepseek's first (dense) block, llava's patch projection or a
+    recurrent or encoder-decoder block, whole, or this rank's part on
+    ``mesh``'s model axis as the executor wires it."""
     from repro_torch.distributed import parallel
     from repro_torch.layers import moe
     from repro_torch.models import blocks
     from repro_torch.models.transformer import VisionProj
+    if arch in MESH_FAMILY_LAYERS:
+        layer = mesh_family_layer(arch, mesh)
+        return layer if device == "meta" else layer.to_empty(device=device)
     cfg = model_cfg(arch, {})
     tp = None if mesh is None else mesh_model_axis(mesh)
     bf16 = torch.bfloat16
@@ -9681,8 +9771,7 @@ def mesh_split_layer(arch, mesh=None, device="cuda"):
                                     parallel.local_cfg(cfg, mesh),
                                     device="meta")
         if tp is not None:
-            parallel._wire_attn(layer.attn, tp)
-            layer.mlp.tp = tp
+            parallel.wire_block(layer, tp)
     return layer if device == "meta" else layer.to_empty(device=device)
 
 
@@ -9701,22 +9790,23 @@ def mesh_split_grads(layer, x, r):
 
 
 def mesh_split_want(mesh):
-    """(c)'s and (e)'s one-rank layers, each rank of the model axis in turn
-    (the others wait at a barrier): full-width weights and inputs from one
-    seed, their output and gradients on the kernels, timed; keeps, by
-    arch, the rank's blocks of the weights and of their gradients (the
-    part's shapes, ``mesh_split_layer``), the input, the projection, the
-    output and the input's gradient."""
+    """(c)'s, (e)'s and (g)'s one-rank layers, each rank of the model axis
+    in turn (the others wait at a barrier): full-width weights and inputs
+    from one seed, their output and gradients on the kernels, timed; keeps,
+    by arch (by key for (g)), the rank's blocks of the weights and of their
+    gradients (the part's shapes, ``mesh_split_layer``), the input, the
+    projection, the output and the input's gradient, and for a layer of
+    MESH_SPLIT_SPREAD the gradients' spread (relative L2 of the rank's
+    blocks, the weights moved by MESH_SPLIT_MOVE)."""
     import torch.distributed as dist
     from repro_torch.models.transformer import fill_params
     tp = mesh_model_axis(mesh)
     want = {}
     for turn in range(tp.size):
         if turn == tp.index:
-            for arch in MESH_SPLIT_ARCHS:
-                cfg = model_cfg(arch, {})
-                b, t = MESH_SPLIT_BATCH
-                t = cfg.n_patches or t
+            for arch in MESH_SPLIT_ARCHS + tuple(MESH_FAMILY_LAYERS):
+                cfg = model_cfg(mesh_split_arch(arch), {})
+                x_shape, r_shape = mesh_split_shapes(arch)
                 resident = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
                 gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
@@ -9729,10 +9819,9 @@ def mesh_split_want(mesh):
                                     * cfg.d_model ** -0.5)
                 else:
                     fill_params(layer, gen)
-                x = torch.randn(b, t, cfg.d_model, device="cuda",
+                x = torch.randn(x_shape, device="cuda",
                                 generator=gen).to(torch.bfloat16)
-                r = torch.randn(b, t, cfg.d_model, device="cuda",
-                                generator=gen)
+                r = torch.randn(r_shape, device="cuda", generator=gen)
                 xg = x.clone().requires_grad_(not cfg.n_patches)
                 mesh_split_grads(layer, xg, r)              # warm
                 torch.cuda.synchronize()
@@ -9759,6 +9848,17 @@ def mesh_split_want(mesh):
                     "grads": {k: block(k, v).clone() for k, v in got.items()},
                     "weights": {k: block(k, v).detach().clone()
                                 for k, v in layer.named_parameters()}}
+                if arch in MESH_SPLIT_SPREAD:
+                    with torch.no_grad():
+                        for p in layer.parameters():
+                            p.mul_(1 + MESH_SPLIT_MOVE * torch.randn(
+                                p.shape, device="cuda",
+                                generator=gen).sign())
+                    moved = mesh_split_grads(layer, xg, r)
+                    want[arch]["spread"] = {
+                        k: rel_l2(block(k, v), block(k, got[k]))
+                        for k, v in moved.items()}
+                    del moved
                 del layer, got, xg
                 torch.cuda.empty_cache()
         dist.barrier(group=tp.group)
@@ -9781,11 +9881,15 @@ def mesh_split_part(mesh, arch, want, card):
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     x = want["x_in"].clone().requires_grad_(
-        not model_cfg(arch, {}).n_patches)
+        not model_cfg(mesh_split_arch(arch), {}).n_patches)
     C.reset_counts()
     got = mesh_split_grads(layer, x, want["r"])
     counts = dict(C.COUNTS)
     errs = {k: rel_l2(got[k], want["grads"][k]) for k in want["grads"]}
+    band = TRAIN_BAND[torch.bfloat16]["grad_rel_l2"]
+    spread = want.get("spread", {})
+    limits = {k: max(band, MESH_SPLIT_SPREAD_FACTOR * spread.get(k, 0.0))
+              for k in errs}
     finite = all(bool(torch.isfinite(v).all()) for v in got.values())
     del got
     torch.cuda.synchronize()
@@ -9793,7 +9897,10 @@ def mesh_split_part(mesh, arch, want, card):
     mesh_split_grads(layer, x, want["r"])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    rec = {"rel_l2": errs, "band": TRAIN_BAND[torch.bfloat16]["grad_rel_l2"],
+    rec = {"rel_l2": errs, "band": band, "limits": limits,
+           "over_limit": {k: e for k, e in errs.items()
+                          if not e <= limits[k]},
+           **({"one_rank_spread": spread} if spread else {}),
            "finite": finite, "grad_ms": ms, "one_rank_grad_ms": want["ms"],
            "peak_gb_above_resident": (torch.cuda.max_memory_allocated()
                                       - resident) / 1e9,
@@ -9816,7 +9923,7 @@ def mesh_moe_cfg(arch=MESH_MOE):
 
 
 def mesh_moe_steps(mesh, run, moved=False, arch=MESH_MOE):
-    """(d) and (f): MESH_STEPS AdamW steps of ``arch``'s reduced config in
+    """(d), (f) and (h): MESH_STEPS AdamW steps of ``arch``'s reduced config in
     bf16 at MESH_MOE_BATCH with ``run``'s options from the seeded initial
     state (``moved``: every weight moved by MESH_SPREAD of itself), on
     ``mesh`` (this rank's part) or on one rank (None): each step's
@@ -9983,13 +10090,13 @@ def baseline_probe():
 
 
 def mesh_moe_one_rank():
-    """(d)'s and (f)'s one-rank runs: for each option set of MESH_MOE_RUNS,
-    grok's reduced steps (mesh_moe_steps), and for each arch of
-    MESH_MLA_RUNS its reduced steps, each again from moved weights.
+    """(d)'s, (f)'s and (h)'s one-rank runs: for each option set of
+    MESH_MOE_RUNS, grok's reduced steps (mesh_moe_steps), and for each arch
+    of MESH_ARCH_RUNS its reduced steps, each again from moved weights.
     Returns ({run: (record, moved record)}, {arch: (record, moved
     record)})."""
     runs = dict.fromkeys(r for rs in MESH_MOE_RUNS.values() for r in rs)
-    archs = dict.fromkeys(a for rs in MESH_MLA_RUNS.values() for a in rs)
+    archs = dict.fromkeys(a for rs in MESH_ARCH_RUNS.values() for a in rs)
     return ({run: (mesh_moe_steps(None, run),
                    mesh_moe_steps(None, run, True)) for run in runs},
             {arch: (mesh_moe_steps(None, "plain", arch=arch),
@@ -10122,10 +10229,12 @@ def mesh_world_check(world, rec, want, triples, spread, failed):
 def phase_mesh(cfg, card, meanwhile=()):
     """(a) per-shard plans (``mesh_plans``); (b) smollm's worlds of
     MESH_SMOLLM_WORLDS (``mesh_rank``) against one rank (``mesh_one_rank``,
-    timed while every rank waits idle); (c) the expert-parallel layer and
-    (e) the full-width MLA block and patch projection, split over the
-    model axis, against one rank; (d) grok's and (f) deepseek-v3's and
-    llava's reduced worlds against one rank (``mesh_moe_one_rank``).
+    timed while every rank waits idle); (c) the expert-parallel layer, (e)
+    the full-width MLA block and patch projection and (g) the recurrent
+    and encoder-decoder blocks, split over the model axis, against one
+    rank; (d) grok's, (f) deepseek-v3's and llava's and (h) xlstm's,
+    recurrentgemma's and seamless's reduced worlds against one rank
+    (``mesh_moe_one_rank``).
     ``meanwhile``: callables run, after (a) and (d)'s one-rank runs, while
     the ranks import and warm up.  Returns ({"mesh": rank 0's launches},
     worst abs error by kernel, rows).  Every rank is stopped on the way
@@ -10233,11 +10342,11 @@ def mesh_phases(cfg, card, worlds, t_phase, meanwhile):
                   "triples": len(rec["forward_triples"]),
                   "step_s": rec["step_s"], "card": card})
         for arch, part in moe_recs.get("split_layers", {}).items():
-            if not part["finite"] or \
-                    max(part["rel_l2"].values()) > part["band"]:
+            if not part["finite"] or part["over_limit"]:
                 failed.append(f"{tag} {arch} split over the model axis "
-                              f"against one rank: {part['rel_l2']}, band "
-                              f"{part['band']}, finite {part['finite']}")
+                              f"against one rank: {part['over_limit']} over "
+                              f"their limits {part['limits']}, finite "
+                              f"{part['finite']}")
             emit({"phase": "mesh_split_layer", "world": tag, "arch": arch,
                   **{k: v for k, v in part.items() if k != "collectives"},
                   **mesh_collectives(part["collectives"])})
@@ -10259,7 +10368,7 @@ def mesh_phases(cfg, card, worlds, t_phase, meanwhile):
                   "peak_gb_above_resident": [b / 1e9 for b in
                                              got["peak_bytes"]],
                   **mesh_collectives(got["collectives"]), "card": card})
-        for arch in MESH_MLA_RUNS.get(world, ()):
+        for arch in MESH_ARCH_RUNS.get(world, ()):
             got, (want, moved) = moe_recs[arch], mla_want[arch]
             checks = {}
             for key, name in MESH_METRICS.items():

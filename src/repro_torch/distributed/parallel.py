@@ -1,15 +1,16 @@
-"""Data x model parallel training of the dense, MoE and MLA families (a
-VLM's patch projection among them) on a mesh of the running world: what
-the reference gets from GSPMD, done by hand.
+"""Data x model parallel training of every family (the dense, MoE and MLA
+ones, a VLM's patch projection among them, the recurrent xLSTM and
+RecurrentGemma, and the encoder-decoder) on a mesh of the running world:
+what the reference gets from GSPMD, done by hand.
 
 Each rank holds the shards that ``sharding.rules.param_shardings`` gives
 its coordinate: the fp32 master copy and AdamW's moments split over the
 data axes (ZeRO-3: a column-parallel weight's in dim, a row-parallel
 weight's out dim, the table's embed dim, an expert stack's D, where they
 divide) and over the model axis (tensor and expert parallelism).  The
-working model is the ``Transformer`` of the rank's part of the model axis
-(``local_cfg``: its heads, ``d_ff`` and vocab rows), its layers told the
-model axis (``tp``, a ``collectives.AxisGroup``):
+working model is the ``Transformer`` (or ``EncDec``) of the rank's part
+of the model axis (``local_cfg``: its heads, ``d_ff`` and vocab rows),
+its layers told the model axis (``tp``, a ``collectives.AxisGroup``):
 
   * column-parallel ``wq``, ``wk``, ``wv``, ``w_gate`` and ``w_up`` run on
     the rank's heads and ``d_ff`` columns; their input's gradient is
@@ -22,6 +23,16 @@ model axis (``tp``, a ``collectives.AxisGroup``):
     them whole (``layers/attention.py::MLAttention``,
     ``collectives.gather_from_model``); a VLM's patch projection gathers
     its column blocks likewise (``models/transformer.py::VisionProj``);
+  * where the axis cuts within the KV heads (recurrentgemma's one), a
+    rank keeps them whole in its config, computes its block of K's and
+    V's columns and all-gathers it before RoPE (``Attention.split``);
+  * xLSTM's mLSTM runs the rank's heads, its output gate's row-sharded
+    ``wo`` gathered whole; its sLSTM gathers its gate-major ``w`` and
+    ``r`` and runs whole on every rank; RG-LRU runs the rank's block of
+    d_rnn, its block of v gathered for the gates (``layers/
+    recurrent.py``: ``MLSTM.split``, ``SLSTM.split``, ``RGLRU.split``);
+  * the encoder-decoder's encoder and cross-attention read their inputs
+    and the memory through ``copy_to_model`` (``models/encdec.py``);
   * a MoE layer holds E/m whole experts (expert parallelism), or every
     expert's F/m columns where E does not divide (the reference's
     few-experts fallback), routes over all E from the replicated router,
@@ -57,12 +68,10 @@ quantized are the reference's global ones.
 
 With an MTP block the loss adds ``MTP_WEIGHT`` times its cross-entropy
 over the vocab-sharded MTP logits, its own global mean (its token count,
-``labels[:, 1:]``'s, summed over the data axes).  The recurrent families
-and the encoder-decoder on a mesh of more than one rank raise
-``NotImplementedError`` (ROADMAP queue 1, item 6.2), as does sequence
-parallelism, a batch the data axes do not divide (item 6.3).  A one-rank
-mesh runs the same code with every collective a no-op, and matches the
-meshless step.
+``labels[:, 1:]``'s, summed over the data axes).  Sequence parallelism,
+a batch the data axes do not divide, raises ``NotImplementedError``
+(ROADMAP queue 1, item 6.3).  A one-rank mesh runs the same code with
+every collective a no-op, and matches the meshless step.
 """
 from __future__ import annotations
 
@@ -81,36 +90,46 @@ from repro_torch.sharding.local import shard_count
 from repro_torch.train import optimizer as opt
 from repro_torch.train.schedule import warmup_cosine
 
-QUEUE = "ROADMAP.md queue 1, item 6.2 (the other families on a mesh)"
 SEQUENCE = "ROADMAP.md queue 1, item 6.3 (sequence parallelism)"
 
 
+def kv_split(cfg: ArchCfg, m: int) -> bool:
+    """Whether an ``m``-way model axis cuts within ``cfg``'s KV heads (a
+    GQA config whose KV heads do not divide: ``Attention.split``)."""
+    return not cfg.mla and cfg.n_kv_heads % m != 0
+
+
 def check_supported(cfg: ArchCfg, mesh) -> None:
-    """Raises where this executor cannot run ``cfg`` on ``mesh``: a family
-    other than dense, moe and mla_moe on more than one rank, or a model
-    axis that would cut a head, ``d_ff``, the vocab, MLA's low-rank
-    outputs, a VLM's projection or the experts unevenly (it never
-    replicates a weight the rules would shard)."""
+    """Raises ``ValueError`` where the model axis would cut a head, the
+    KV heads' columns (whole heads in the encoder-decoder), ``d_ff``, the
+    vocab, MLA's low-rank outputs, a VLM's projection, the experts, xLSTM's
+    gate columns or RG-LRU's channels unevenly: the executor never
+    replicates a weight the rules would shard."""
     if mesh.size == 1:
         return
-    if cfg.block not in ("dense", "moe", "mla_moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: block={cfg.block!r} on a mesh of {mesh.size} "
-            f"ranks is not ported yet ({QUEUE}); the dense, moe and "
-            f"mla_moe families are")
     m = model_size(mesh)
     sizes = [("q heads", cfg.n_heads), ("vocab", cfg.vocab)]
     if cfg.mla:
         sizes += [("q_lora_rank", cfg.q_lora_rank),
                   ("kv_lora_rank + qk_rope_dim",
                    cfg.kv_lora_rank + cfg.qk_rope_dim)]
-    else:
+    elif cfg.block == "encdec":
         sizes.append(("kv heads", cfg.n_kv_heads))
+    elif cfg.block != "xlstm":
+        sizes.append(("kv heads x head_dim (K's and V's columns)",
+                      cfg.n_kv_heads * cfg.dh))
     if cfg.n_patches:
         sizes.append(("d_model (the patch projection)", cfg.d_model))
-    if cfg.block != "moe":        # dense blocks: all, or mla_moe's first
+    if cfg.block == "xlstm":
+        sizes += [("d_model (mLSTM's output-gate rows)", cfg.d_model),
+                  ("4 x d_model (sLSTM's gate columns)", 4 * cfg.d_model),
+                  ("4 x sLSTM head size (its recurrent columns)",
+                   4 * (cfg.d_model // cfg.n_heads))]
+    elif cfg.block != "moe":     # dense blocks, mla_moe's first, MLPs
         sizes.append(("d_ff", cfg.d_ff))
-    if cfg.block != "dense":
+    if cfg.block == "rglru_hybrid":
+        sizes.append(("d_rnn", cfg.d_rnn))
+    if cfg.block in ("moe", "mla_moe"):
         sizes.append(("shared experts' d_ff",
                       cfg.moe_d_ff * cfg.n_shared_experts))
         if cfg.n_experts % m and cfg.moe_d_ff % m:
@@ -121,23 +140,40 @@ def check_supported(cfg: ArchCfg, mesh) -> None:
         if n % m:
             raise ValueError(
                 f"{cfg.name}: {n} {what} do not split over a {m}-way model "
-                f"axis; the executor shards heads whole and never "
-                f"replicates a weight the rules would shard")
+                f"axis; the executor never replicates a weight the rules "
+                f"would shard")
 
 
 def local_cfg(cfg: ArchCfg, mesh) -> ArchCfg:
     """The config of one rank's part of the model axis: its heads, vocab
     rows and dense ``d_ff`` (the dense family's, mla_moe's first blocks'
-    and MTP block's).  A MoE keeps E and F whole here: its layers are cut
-    by ``MoE.split``, and route over all E.  MLA's low-rank projections
-    and a VLM's are cut by ``MLAttention.split`` and ``VisionProj.split``;
-    MLA has no KV heads to cut."""
+    and MTP block's, RecurrentGemma's and the encoder-decoder's MLPs).  A
+    MoE keeps E and F whole here: its layers are cut by ``MoE.split``, and
+    route over all E.  MLA's low-rank projections and a VLM's are cut by
+    ``MLAttention.split`` and ``VisionProj.split``; MLA has no KV heads to
+    cut.  KV heads the axis cuts within stay whole (``kv_split``:
+    ``Attention.split`` cuts their columns).  xLSTM keeps its heads
+    (``MLSTM.split`` and ``SLSTM.split`` cut its mixers) and RG-LRU its
+    d_rnn (``RGLRU.split``)."""
     m = model_size(mesh)
+    if cfg.block == "xlstm":
+        return dataclasses.replace(cfg, vocab=cfg.vocab // m)
+    whole_kv = cfg.mla or kv_split(cfg, m)
     return dataclasses.replace(
         cfg, n_heads=cfg.n_heads // m,
-        n_kv_heads=cfg.n_kv_heads if cfg.mla else cfg.n_kv_heads // m,
+        n_kv_heads=cfg.n_kv_heads if whole_kv else cfg.n_kv_heads // m,
         d_ff=cfg.d_ff if cfg.block == "moe" else cfg.d_ff // m,
         vocab=cfg.vocab // m, head_dim=cfg.dh)
+
+
+def model_class(cfg: ArchCfg):
+    """The model of ``cfg``: ``EncDec`` for the encoder-decoder, else
+    ``Transformer``."""
+    if cfg.block == "encdec":
+        from repro_torch.models.encdec import EncDec
+        return EncDec
+    from repro_torch.models.transformer import Transformer
+    return Transformer
 
 
 def _axis(mesh, axes, name) -> C.AxisGroup:
@@ -169,7 +205,6 @@ class Layout:
     only the leaves and the axes' sizes are meaningful."""
 
     def __init__(self, cfg: ArchCfg, mesh):
-        from repro_torch.models.transformer import Transformer
         check_supported(cfg, mesh)
         self.cfg, self.mesh = cfg, mesh
         dp = dp_axes(mesh)
@@ -179,7 +214,7 @@ class Layout:
                            else (), "model")
         self.world = _axis(mesh, mesh.axis_names, "world")
         shapes = {n: tuple(p.shape) for n, p in
-                  Transformer(cfg, device="meta").named_parameters()}
+                  model_class(cfg)(cfg, device="meta").named_parameters()}
         self.leaves = {}
         for name, spec in rules.param_shardings(shapes, mesh, cfg).items():
             shape = shapes[name]
@@ -193,9 +228,10 @@ class Layout:
                 axes = (entry,) if isinstance(entry, str) else tuple(entry)
                 kind = "model" if "model" in axes else "dp"
                 if kind == "model" and len(axes) > 1:
-                    raise NotImplementedError(
+                    raise ValueError(
                         f"{name}: spec {spec} shards one dim over the model "
-                        f"and data axes ({QUEUE})")
+                        f"and data axes; the executor cuts a dim over one "
+                        f"kind of axis")
                 dims[kind] = d
             self.leaves[name] = Leaf(shape, tuple(spec), dims["dp"],
                                      dims["model"], mesh.size // shards)
@@ -329,7 +365,7 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
     """``train_step(state, batch) -> (state, metrics)`` on a rank of
     ``mesh``: ``state`` this rank's shard (:func:`init_state`), ``batch``
     the global batch (each rank takes its rows, a VLM's ``patch_embeds``
-    too).  Metrics: ``loss`` and ``ce_loss`` (the global mean), an MTP
+    and an encoder-decoder's ``src_embeds`` too).  Metrics: ``loss`` and ``ce_loss`` (the global mean), an MTP
     block's ``mtp_loss``, a MoE's ``load_balance_loss``, ``grad_norm``,
     ``lr``."""
     from repro_torch import interop
@@ -337,27 +373,14 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
         Z_WEIGHT
     layout = Layout(cfg, mesh)
     moe = cfg.block in ("moe", "mla_moe")
+    encdec = cfg.block == "encdec"
+    extra_key = "src_embeds" if encdec else "patch_embeds"
     groups = interop.stacked_leaves(cfg)
     work = {}     # the working model, built at the first step
 
     def build(device):
-        from repro_torch.models.transformer import Transformer
-        model = Transformer(local_cfg(cfg, mesh), device="meta")
-        tp = layout.model if layout.model.size > 1 else None
-        model.embed.tp = tp
-        if model.head is not None:
-            model.head.tp = tp
-        layers = [(f"blocks.{i}", b) for i, b in enumerate(model.blocks)]
-        if model.mtp_block is not None:
-            layers.append(("mtp_block", model.mtp_block))
-        for prefix, block in layers:
-            _wire_attn(block.attn, tp)
-            if hasattr(block, "mlp"):
-                block.mlp.tp = tp
-            else:
-                _wire_moe(block.moe, f"{prefix}.moe", layout, tp)
-        if model.vision_proj is not None and tp is not None:
-            model.vision_proj.split(tp)
+        model = model_class(cfg)(local_cfg(cfg, mesh), device="meta")
+        wire(model, cfg, layout)
         model.to_empty(device=device)
         params = dict(model.named_parameters())
         for name, p in params.items():
@@ -379,16 +402,20 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
                 mod.register_forward_pre_hook(gathers[prefix])
         work.update(model=model, params=params, fresh=fresh, gathers=gathers)
 
-    def forward_backward(tokens, labels, patches):
-        """One (micro)batch's loss on this rank's rows, backward; returns
-        (this rank's parts of the global means: ``ce_loss``, an MTP
-        block's ``mtp_loss``, and ``loss`` without a load-balance term;
-        the load-balance loss or None)."""
+    def forward_backward(tokens, labels, extra):
+        """One (micro)batch's loss on this rank's rows (``extra``: their
+        patch or frame embeddings, or None), backward; returns (this rank's
+        parts of the global means: ``ce_loss``, an MTP block's
+        ``mtp_loss``, and ``loss`` without a load-balance term; the
+        load-balance loss or None)."""
         model = work["model"]
         tp = model.embed.tp
         with obs.span("train.forward"):
-            logits, aux = model.logits_and_aux(tokens, patch_embeds=patches,
-                                               remat=cfg.remat)
+            if encdec:
+                logits, aux = model.logits_and_aux(tokens, src_embeds=extra)
+            else:
+                logits, aux = model.logits_and_aux(
+                    tokens, patch_embeds=extra, remat=cfg.remat)
             mask = (labels >= 0).float()
             labels = labels.clamp_min(0).long()
             count = C.all_reduce(mask.sum(), layout.dp)
@@ -427,9 +454,11 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
                 work["gathers"][prefix](None, None)
         tokens = torch.as_tensor(batch["tokens"])
         labels = torch.as_tensor(batch["labels"])
-        patches = batch.get("patch_embeds")
-        if patches is not None:
-            patches = torch.as_tensor(patches)
+        extra = batch.get(extra_key)
+        if extra is not None:
+            extra = torch.as_tensor(extra)
+        elif encdec:
+            raise ValueError(f"{cfg.name}: the batch needs src_embeds")
         if len(tokens) % microbatches:
             raise ValueError(f"a batch of {len(tokens)} rows does not split "
                              f"into {microbatches} microbatches")
@@ -446,8 +475,7 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
                     p.grad = None
                 parts, lb = forward_backward(
                     tokens[mb][rows].to(device), labels[mb][rows].to(device),
-                    None if patches is None else
-                    patches[mb][rows].to(device))
+                    None if extra is None else extra[mb][rows].to(device))
                 if microbatches > 1:
                     if acc is None:
                         acc = {n: p.grad.float() for n, p in params.items()}
@@ -478,12 +506,55 @@ def make_train_step(cfg: ArchCfg, ocfg: opt.AdamWCfg, mesh, *,
     return train_step
 
 
-def _wire_attn(attn, tp) -> None:
+def wire(model, cfg: ArchCfg, layout: Layout) -> None:
+    """``model`` (of ``local_cfg(cfg, ...)``, uninitialised) told the
+    model axis of ``layout``'s mesh, each layer cut as the rules cut its
+    leaves; a MoE layer told the data axes too."""
+    tp = layout.model if layout.model.size > 1 else None
+    kv_cut = kv_split(cfg, layout.model.size)
+    model.embed.tp = tp
+    if model.head is not None:
+        model.head.tp = tp
+    if cfg.block == "encdec":
+        model.tp = tp
+        layers = [("", b) for b in (*model.enc_blocks, *model.dec_blocks)]
+    else:
+        layers = [(f"blocks.{i}", b) for i, b in enumerate(model.blocks)]
+        if model.mtp_block is not None:
+            layers.append(("mtp_block", model.mtp_block))
+        if model.vision_proj is not None and tp is not None:
+            model.vision_proj.split(tp)
+    for prefix, block in layers:
+        wire_block(block, tp, kv_cut, layout, prefix)
+
+
+def wire_block(block, tp, kv_cut: bool = False, layout: Layout | None = None,
+               prefix: str = "") -> None:
+    """One block told the model axis ``tp`` (None off one): its attention
+    layers (``_wire_attn``; ``kv_cut``: the axis cuts within the KV
+    heads), its recurrent mixer cut (``MLSTM.split``, ``SLSTM.split``,
+    ``RGLRU.split``), its MLP on the local config's block of d_ff, and its
+    MoE layer (``prefix``: the block's name in ``layout``) told the data
+    axes and cut as the rules cut its expert stacks."""
+    for name in ("attn", "self_attn", "cross_attn"):
+        if hasattr(block, name):
+            _wire_attn(getattr(block, name), tp, kv_cut)
+    for name in ("mlstm", "slstm", "rglru"):
+        if hasattr(block, name) and tp is not None:
+            getattr(block, name).split(tp)
+    if hasattr(block, "mlp"):
+        block.mlp.tp = tp
+    if hasattr(block, "moe"):
+        _wire_moe(block.moe, f"{prefix}.moe", layout, tp)
+
+
+def _wire_attn(attn, tp, kv_cut: bool = False) -> None:
     """An attention layer told the model axis: GQA's heads are the local
-    config's already; MLA also keeps its block of the low-rank
-    projections' columns (``MLAttention.split``)."""
+    config's already, with ``kv_cut`` its KV heads whole and a block of
+    their columns kept (``Attention.split``); MLA also keeps its block of
+    the low-rank projections' columns (``MLAttention.split``)."""
     from repro_torch.layers.attention import MLAttention
-    if isinstance(attn, MLAttention) and tp is not None:
+    if tp is not None and (kv_cut or isinstance(attn, MLAttention)):
         attn.split(tp)
     else:
         attn.tp = tp

@@ -4,8 +4,8 @@ Usage (CPU-scale; the default device is the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --reduced --steps 10 --batch 8 --seq 64 --device cpu [--mesh 2x2]
 
-``--mesh DxM`` trains on a ``(data, model)`` mesh of D·M ranks (the dense
-and MoE families, with ``--microbatches``; ``distributed/parallel.py``).  Under ``torchrun`` the ranks are
+``--mesh DxM`` trains on a ``(data, model)`` mesh of D·M ranks (every
+family, with ``--microbatches``; ``distributed/parallel.py``).  Under ``torchrun`` the ranks are
 its processes; otherwise the CLI spawns them itself, each joining the
 world through a file store in a fresh temporary directory.
 ``--dist-backend`` is ``nccl`` where each rank has a card of its own and

@@ -105,8 +105,15 @@ class Attention(nn.Module):
     On a mesh's model axis (``tp``) a rank holds its heads' columns of
     ``wq``, ``wk``, ``wv`` and rows of ``wo`` (``cfg`` counts its own
     heads): the input's gradient and ``wo``'s partial outputs are summed
-    over the axis (``distributed/collectives.py``)."""
+    over the axis (``distributed/collectives.py``).  Where the axis cuts
+    within the KV heads (:meth:`split`: recurrentgemma's one KV head over
+    two ranks) ``cfg`` keeps them whole and the rank holds a block of
+    ``wk``'s and ``wv``'s columns: its blocks of K and V are all-gathered
+    before RoPE, which pairs a head's columns by their place in it, and
+    enter the rank's q heads through ``copy_to_model``, which sums the
+    gradient each rank's heads give them."""
     tp = None     # a mesh's model axis (collectives.AxisGroup), else None
+    kv_split = False    # wk's and wv's columns cut within the KV heads
 
     def __init__(self, cfg: AttnCfg, *, dtype=torch.float32, device="cpu"):
         super().__init__()
@@ -121,15 +128,34 @@ class Attention(nn.Module):
         self.wv = w(cfg.d_model, cfg.n_kv_heads * dh)
         self.wo = w(cfg.n_heads * dh, cfg.d_model)
 
+    def split(self, tp) -> None:
+        """Keep this rank's block of ``wk``'s and ``wv``'s columns on the
+        model axis ``tp``, which cuts within the KV heads (new,
+        uninitialised parameters); the q heads are the local config's
+        already (train and prefill modes)."""
+        cfg = self.cfg
+        for name in ("wk", "wv"):
+            like = getattr(self, name)
+            setattr(self, name, nn.Parameter(torch.empty(
+                cfg.d_model, cfg.n_kv_heads * cfg.dh // tp.size,
+                dtype=like.dtype, device=like.device)))
+        self.tp, self.kv_split = tp, True
+
+    def _kv(self, x, w, backend):
+        """K or V of ``w``'s heads, (B, Hkv, T, dh): gathered whole where
+        the rank holds a block of a head's columns."""
+        y = brgemm.matmul(x, w, backend=backend)
+        if self.kv_split:
+            y = copy_to_model(gather_from_model(y, self.tp, 2), self.tp)
+        return _split_heads(y, self.cfg.n_kv_heads)
+
     def _qkv(self, x, positions, backend):
         cfg = self.cfg
         x = copy_to_model(x, self.tp)
         q = _split_heads(brgemm.matmul(x, self.wq, backend=backend),
                          cfg.n_heads)
-        k = _split_heads(brgemm.matmul(x, self.wk, backend=backend),
-                         cfg.n_kv_heads)
-        v = _split_heads(brgemm.matmul(x, self.wv, backend=backend),
-                         cfg.n_kv_heads)
+        k = self._kv(x, self.wk, backend)
+        v = self._kv(x, self.wv, backend)
         q = apply_rope(q, positions, theta=cfg.rope_theta)
         k = apply_rope(k, positions, theta=cfg.rope_theta)
         return q, k, v

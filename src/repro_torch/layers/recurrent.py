@@ -40,13 +40,30 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import brgemm
-from repro_torch.layers.norms import RMSNorm
+from repro_torch.distributed.collectives import (DP_ROWS, axis_scope,
+                                                 copy_to_model,
+                                                 gather_from_model,
+                                                 reduce_from_model,
+                                                 row_parallel)
+from repro_torch.layers.norms import RMSNorm, rmsnorm
 
 LOG_EPS = -1e30
 
 
 def _w(*shape, dtype, device):
     return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device))
+
+
+def _own(leaf, tp, dim=0):
+    """This rank's block along ``dim`` of a leaf the rules replicate but
+    the rank uses only in part (its heads' gate biases, its channels'
+    decays), read through ``copy_to_model``: its gradient, nonzero on a
+    rank only in the rank's block, is summed whole over the model axis
+    ``tp``."""
+    if tp is None or tp.size == 1:
+        return leaf
+    n = leaf.shape[dim] // tp.size
+    return copy_to_model(leaf, tp).narrow(dim, tp.index * n, n)
 
 
 # ==========================================================================
@@ -89,7 +106,20 @@ def causal_depthwise_conv(v, conv_w, prefix=None):
 class RGLRU(nn.Module):
     """Weights (k, n): ``w_gelu``, ``w_rnn_in`` (d, d_rnn); ``conv_w`` (W,
     d_rnn); ``w_rgate``, ``w_igate`` (d_rnn, d_rnn) with ``b_rgate``,
-    ``b_igate``; ``lam`` (d_rnn,); ``w_out`` (d_rnn, d)."""
+    ``b_igate``; ``lam`` (d_rnn,); ``w_out`` (d_rnn, d).
+
+    On a mesh's model axis (``tp``, after :meth:`split`; train mode) a rank
+    runs its block of the d_rnn channels: its columns of ``w_gelu``,
+    ``w_rnn_in``, ``w_rgate`` and ``w_igate`` and its rows of ``w_out``
+    (the rules' column- and row-parallel cuts).  The convolution, the
+    scan, ``norm * i * v`` and ``u * h`` are per channel, so they run on
+    the block as they are, their replicated leaves (``conv_w``, ``lam``,
+    the gate biases) cut to it through ``copy_to_model``.  The gates read
+    every channel of v: the rank's block of it is all-gathered
+    (``gather_from_model``) and enters the gate GEMMs through
+    ``copy_to_model``, which sums the gradient each rank's gate columns
+    give it.  ``w_out``'s partial outputs are summed over the axis."""
+    tp = None     # a mesh's model axis (collectives.AxisGroup), else None
 
     def __init__(self, cfg: RGLRUCfg, *, dtype=torch.float32, device="cpu"):
         super().__init__()
@@ -103,13 +133,29 @@ class RGLRU(nn.Module):
         self.lam = _w(dr, **kw)
         self.w_out = _w(dr, d, **kw)
 
+    def split(self, tp) -> None:
+        """Keep this rank's block of the d_rnn channels on the model axis
+        ``tp`` (new, uninitialised parameters)."""
+        d, dr = self.cfg.d_model, self.cfg.d_rnn
+        n = dr // tp.size
+        kw = dict(dtype=self.w_out.dtype, device=self.w_out.device)
+        self.w_gelu, self.w_rnn_in = _w(d, n, **kw), _w(d, n, **kw)
+        self.w_rgate, self.w_igate = _w(dr, n, **kw), _w(dr, n, **kw)
+        self.w_out = _w(n, d, **kw)
+        self.tp = tp
+
     def _gates(self, v):
         """(a, b) in fp32.  The two gate GEMMs take no ``backend=``: the
         reference's ``_rglru_gates`` passes none, so they follow the
         context's or the default backend even when the caller names one."""
-        r = brgemm.matmul(v, self.w_rgate, self.b_rgate, activation="sigmoid")
-        i = brgemm.matmul(v, self.w_igate, self.b_igate, activation="sigmoid")
-        log_a = -self.cfg.c * F.softplus(self.lam.float()) * r.float()
+        tp = self.tp
+        vin = copy_to_model(gather_from_model(v, tp, 2), tp)
+        r = brgemm.matmul(vin, self.w_rgate, _own(self.b_rgate, tp),
+                          activation="sigmoid")
+        i = brgemm.matmul(vin, self.w_igate, _own(self.b_igate, tp),
+                          activation="sigmoid")
+        log_a = (-self.cfg.c * F.softplus(_own(self.lam, tp).float())
+                 * r.float())
         a = torch.exp(log_a)
         # sqrt(1 - a^2) input normaliser (Griffin Eq. 4)
         norm = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
@@ -118,10 +164,13 @@ class RGLRU(nn.Module):
 
     def forward(self, x, *, state=None, backend: str | None = None):
         """x: (B, T, D) -> (y, {"h", "conv"})."""
+        tp = self.tp
+        x = copy_to_model(x, tp)
         u = brgemm.matmul(x, self.w_gelu, activation="gelu", backend=backend)
         v = brgemm.matmul(x, self.w_rnn_in, backend=backend)
         v, conv = causal_depthwise_conv(
-            v, self.conv_w, state["conv"] if state is not None else None)
+            v, _own(self.conv_w, tp, 1),
+            state["conv"] if state is not None else None)
         a, b = self._gates(v)
         if x.shape[1] == 1 and state is not None:       # decode step
             h = a[:, 0] * state["h"] + b[:, 0]
@@ -132,9 +181,10 @@ class RGLRU(nn.Module):
                                b[:, 1:]], dim=1)
             h_seq = linear_scan(a, b)
             h = h_seq[:, -1]
-        y = brgemm.matmul((u.float() * h_seq).to(x.dtype), self.w_out,
-                          backend=backend)
-        return y, {"h": h, "conv": conv}
+        with row_parallel(tp):
+            y = brgemm.matmul((u.float() * h_seq).to(x.dtype), self.w_out,
+                              backend=backend)
+        return reduce_from_model(y, tp), {"h": h, "conv": conv}
 
 
 # ==========================================================================
@@ -254,7 +304,21 @@ def mlstm_step(q1, k1, v1, li1, lf1, state):
 class MLSTM(nn.Module):
     """Weights (k, n): ``wq``, ``wk`` (d, H dk); ``wv``, ``wo`` (d, H dv);
     ``wi``, ``wf`` (d, H) with ``bi``, ``bf``; ``head_norm`` (dv); ``w_out``
-    (H dv, d).  Seven ``matmul`` launches a forward."""
+    (H dv, d).  Seven ``matmul`` launches a forward.
+
+    On a mesh's model axis (``tp``, after :meth:`split`; train mode) a rank
+    runs its heads: its columns of ``wq``, ``wk``, ``wv``, ``wi`` and
+    ``wf`` (n = H / m for the gates), its rows of ``w_out`` (the partial
+    outputs summed over the axis), and its heads' entries of ``bi`` and
+    ``bf`` and the whole ``head_norm`` scale, which the rules replicate,
+    read through ``copy_to_model``.  The rules put ``wo``'s *rows* on the
+    axis (its name is in their row-parallel set), so a rank holds d / m
+    rows of every head's output-gate columns: it all-gathers them
+    (``gather_from_model``) and reads the whole ``wo`` through
+    ``copy_to_model`` before taking its heads' columns, so that the
+    gradient, partial on each rank, is summed before the gather's backward
+    keeps the rank's rows."""
+    tp = None     # a mesh's model axis (collectives.AxisGroup), else None
 
     def __init__(self, cfg: MLSTMCfg, *, dtype=torch.float32, device="cpu"):
         super().__init__()
@@ -269,11 +333,37 @@ class MLSTM(nn.Module):
         self.head_norm = RMSNorm(cfg.dv, **kw)
         self.w_out = _w(h * cfg.dv, d, **kw)
 
+    def split(self, tp) -> None:
+        """Keep this rank's heads on the model axis ``tp`` and its block of
+        ``wo``'s rows (new, uninitialised parameters); ``cfg`` counts the
+        rank's heads."""
+        cfg = self.cfg
+        d, h = cfg.d_model, cfg.n_heads // tp.size
+        kw = dict(dtype=self.wo.dtype, device=self.wo.device)
+        self.wq, self.wk = _w(d, h * cfg.dk, **kw), _w(d, h * cfg.dk, **kw)
+        self.wv = _w(d, h * cfg.dv, **kw)
+        self.wi, self.wf = _w(d, h, **kw), _w(d, h, **kw)
+        self.wo = _w(d // tp.size, cfg.n_heads * cfg.dv, **kw)
+        self.w_out = _w(h * cfg.dv, d, **kw)
+        self.cfg = dataclasses.replace(cfg, n_heads=h)
+        self.tp = tp
+
+    def _out_gate(self):
+        """``wo``'s columns of this rank's heads (the whole ``wo`` off a
+        model axis)."""
+        tp = self.tp
+        if tp is None or tp.size == 1:
+            return self.wo
+        wo = copy_to_model(gather_from_model(self.wo, tp, 0), tp)
+        n = self.cfg.n_heads * self.cfg.dv
+        return wo.narrow(1, tp.index * n, n)
+
     def forward(self, x, *, state=None, backend: str | None = None):
         """x: (B, T, D) -> (y, {"c", "n", "m"})."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         b, t, _ = x.shape
         h = cfg.n_heads
+        x = copy_to_model(x, tp)
 
         def heads(y, dh):
             return y.reshape(b, t, h, dh).transpose(1, 2)
@@ -282,10 +372,11 @@ class MLSTM(nn.Module):
         k = heads(brgemm.matmul(x, self.wk, backend=backend), cfg.dk)
         k = k * cfg.dk ** -0.5
         v = heads(brgemm.matmul(x, self.wv, backend=backend), cfg.dv)
-        logi = brgemm.matmul(x, self.wi, self.bi, out_dtype=torch.float32,
+        logi = brgemm.matmul(x, self.wi, _own(self.bi, tp),
+                             out_dtype=torch.float32,
                              backend=backend).transpose(1, 2)   # (B, H, T)
         logf = F.logsigmoid(brgemm.matmul(
-            x, self.wf, self.bf, out_dtype=torch.float32,
+            x, self.wf, _own(self.bf, tp), out_dtype=torch.float32,
             backend=backend)).transpose(1, 2)
         carried = (None if state is None else
                    (state["c"], state["n"], state["m"]))
@@ -297,12 +388,13 @@ class MLSTM(nn.Module):
         else:
             hv, (c, n, m) = mlstm_chunkwise(q, k, v, logi, logf,
                                             chunk=cfg.chunk, state=carried)
-        hv = self.head_norm(hv.to(x.dtype))
-        o = torch.sigmoid(brgemm.matmul(x, self.wo, backend=backend))
+        hv = rmsnorm(hv.to(x.dtype), copy_to_model(self.head_norm.scale, tp))
+        o = torch.sigmoid(brgemm.matmul(x, self._out_gate(), backend=backend))
         y = (hv * heads(o, cfg.dv)).transpose(1, 2).reshape(b, t,
                                                             h * cfg.dv)
-        y = brgemm.matmul(y, self.w_out, backend=backend)
-        return y, {"c": c, "n": n, "m": m}
+        with row_parallel(tp):
+            y = brgemm.matmul(y, self.w_out, backend=backend)
+        return reduce_from_model(y, tp), {"c": c, "n": n, "m": m}
 
 
 # ==========================================================================
@@ -330,7 +422,18 @@ def slstm_initial(b, d, device):
 class SLSTM(nn.Module):
     """Weights: ``w`` (d, 4d), the input part of the gates z, i, f, o;
     ``r`` (H, dh, 4 dh), the per-head recurrent part; ``b`` (4d,).  One
-    ``matmul`` launch a forward, then T steps of plain ops."""
+    ``matmul`` launch a forward, then T steps of plain ops.
+
+    On a mesh's model axis (``tp``, after :meth:`split`; train mode) a rank
+    holds a block of ``w``'s and ``r``'s columns, as the rules cut them.
+    Their layout is gate-major, so a block holds whole gates, not whole
+    channels, and the recurrence needs all four gates of a channel at
+    every step: the rank all-gathers the two weights once a forward
+    (``gather_from_model``) and runs the layer whole, as every rank does.
+    Its input and output gradients are then whole on every rank, so the
+    input takes no ``copy_to_model`` and the output no reduction, and the
+    gather's backward keeps the rank's block of a whole gradient."""
+    tp = None     # a mesh's model axis (collectives.AxisGroup), else None
 
     def __init__(self, cfg: SLSTMCfg, *, dtype=torch.float32, device="cpu"):
         super().__init__()
@@ -341,14 +444,26 @@ class SLSTM(nn.Module):
         self.r = _w(h, dh, 4 * dh, **kw)
         self.b = _w(4 * d, **kw)
 
+    def split(self, tp) -> None:
+        """Keep this rank's block of ``w``'s and ``r``'s columns on the
+        model axis ``tp`` (new, uninitialised parameters)."""
+        d, h, dh = self.cfg.d_model, self.cfg.n_heads, self.cfg.dh
+        kw = dict(dtype=self.w.dtype, device=self.w.device)
+        self.w = _w(d, 4 * d // tp.size, **kw)
+        self.r = _w(h, dh, 4 * dh // tp.size, **kw)
+        self.tp = tp
+
     def forward(self, x, *, state=None, backend: str | None = None):
         """x: (B, T, D) -> (y in x's dtype, {"h", "c", "n", "m"})."""
         b, t, d = x.shape
         h, dh = self.cfg.n_heads, self.cfg.dh
-        x_part = brgemm.matmul(x, self.w, out_dtype=torch.float32,
-                               backend=backend)               # (B, T, 4D)
+        tp = self.tp
+        w = gather_from_model(self.w, tp, 1)
+        with axis_scope("matmul", DP_ROWS, tp):
+            x_part = brgemm.matmul(x, w, out_dtype=torch.float32,
+                                   backend=backend)           # (B, T, 4D)
         bias = self.b.float()
-        r_w = self.r.float()
+        r_w = gather_from_model(self.r, tp, 2).float()
         st = state if state is not None else slstm_initial(b, d, x.device)
         h_prev, c, n, m = st["h"], st["c"], st["n"], st["m"]
         hs = []

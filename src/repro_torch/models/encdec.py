@@ -29,6 +29,7 @@ from torch import nn
 from repro_torch.configs.base import ArchCfg
 from repro_torch.core import brgemm
 from repro_torch.core.dispatch import check_device
+from repro_torch.distributed.collectives import copy_to_model
 from repro_torch.layers import attention
 from repro_torch.layers.embeddings import Embedding
 from repro_torch.layers.mlp import MLP
@@ -84,7 +85,7 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x, *, backend=None):
         a = self.attn
-        h = self.ln1(x)
+        h = copy_to_model(self.ln1(x), a.tp)
         q = _heads(h, a.wq, a.cfg.n_heads, backend)
         k, v = cross_kv(a, h, backend)
         o = attention.flash_attention(q, k, v, causal=False, backend=backend)
@@ -128,7 +129,8 @@ class DecoderBlock(nn.Module):
                 cache["cross.v"].copy_(v)
         else:
             k, v = cache["cross.k"], cache["cross.v"]
-        x = x + cross_apply(self.cross_attn, self.ln_x(x), k, v, backend)
+        x = x + cross_apply(self.cross_attn, copy_to_model(
+            self.ln_x(x), self.cross_attn.tp), k, v, backend)
         return x + self.mlp(self.ln2(x), backend=backend)
 
 
@@ -136,7 +138,18 @@ class EncDec(nn.Module):
     """Parameters of the encoder-decoder, uninitialised (``init_params``
     fills them from a generator, ``interop`` from the reference's tree):
     ``embed``, ``enc_blocks``, ``dec_blocks``, ``enc_ln``, ``final_ln``
-    and, untied, ``head.w``.  ``device`` defaults to the card."""
+    and, untied, ``head.w``.  ``device`` defaults to the card.
+
+    On a mesh's model axis (``tp``, train mode: ``distributed/
+    parallel.py``) each attention runs the rank's heads and each MLP its
+    block of d_ff.  The encoder's and cross-attention's projections are
+    run here, not by ``Attention.forward``, so their inputs (``ln1(x)``
+    of an encoder block, ``ln_x(x)`` of a decoder block) and the memory
+    enter them through ``copy_to_model``: the memory is whole on every
+    rank after ``enc_ln``, and each rank's cross K and V give it a partial
+    gradient, summed over the axis once for all the decoder's layers.
+    The untied head gives the rank's block of the vocab's logits."""
+    tp = None     # a mesh's model axis (collectives.AxisGroup), else None
 
     def __init__(self, cfg: ArchCfg, *, device="cuda"):
         super().__init__()
@@ -172,8 +185,17 @@ class EncDec(nn.Module):
         h = self.final_ln(h)
         if self.head is None:
             return self.embed.decode(h, backend=backend)
-        return brgemm.matmul(h, self.head.w, out_dtype=torch.float32,
-                             backend=backend)
+        return brgemm.matmul(copy_to_model(h, self.head.tp), self.head.w,
+                             out_dtype=torch.float32, backend=backend)
+
+    def logits_and_aux(self, tokens, *, src_embeds, backend=None):
+        """Train forward of ``tokens`` over the frames ``src_embeds``:
+        (fp32 logits (B, T, V), {})."""
+        memory = copy_to_model(self.encode(src_embeds, backend=backend),
+                               self.tp)
+        x = self._decoder(tokens, memory, mode="train", cache=None, pos=0,
+                          backend=backend)
+        return self._head(x, backend), {}
 
     def _decoder(self, tokens, memory, *, mode, cache, pos, backend):
         x = constrain(self.embed.encode(tokens).to(
@@ -206,10 +228,8 @@ def encode(params: EncDec, src_embeds, cfg: ArchCfg, *, backend=None):
 def forward(params: EncDec, batch, cfg: ArchCfg, *, backend=None):
     """Train forward of ``{"src_embeds", "tokens"}``: (fp32 logits (B, T,
     V), {})."""
-    memory = params.encode(_src(batch), backend=backend)
-    x = params._decoder(batch["tokens"], memory, mode="train", cache=None,
-                        pos=0, backend=backend)
-    return params._head(x, backend), {}
+    return params.logits_and_aux(batch["tokens"], src_embeds=_src(batch),
+                                 backend=backend)
 
 
 def loss_fn(params: EncDec, batch, cfg: ArchCfg, *, backend=None):

@@ -30,7 +30,7 @@ chosen for the shard (``dispatch.resolve_blocks``).  On an abstract mesh
 the step runs the global problem on one device, as the reference's does
 under GSPMD's view of a layout.  On a mesh of the running world
 (``launch.mesh.make_mesh``) the step is the data x model parallel
-executor's (``distributed/parallel.py``; the dense and MoE families, with
+executor's (``distributed/parallel.py``; every family, with
 ``microbatches`` and ``grad_compression`` as here): the state is this
 rank's shard (``init_state(..., mesh=)``), the batch the global one, the
 loss the global mean.

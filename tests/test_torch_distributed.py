@@ -335,9 +335,13 @@ def test_a_model_axis_that_cuts_heads_raises():
     with pytest.raises(ValueError, match="9 q heads do not split"):
         parallel.Layout(smollm, local.abstract_mesh((1, 2),
                                                     ("data", "model")))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6.2"):
+    # xlstm runs on a mesh now (tests/test_torch_mesh_families.py); its 4
+    # heads do not split three ways
+    parallel.Layout(configs.get("xlstm-1.3b").reduced(),
+                    local.abstract_mesh((2, 2), ("data", "model")))
+    with pytest.raises(ValueError, match="4 q heads do not split"):
         parallel.Layout(configs.get("xlstm-1.3b").reduced(),
-                        local.abstract_mesh((2, 2), ("data", "model")))
+                        local.abstract_mesh((1, 3), ("data", "model")))
     # grok's MoE runs on a mesh now (tests/test_torch_mesh_moe.py)
     grok = configs.get("grok-1-314b").reduced()
     parallel.Layout(grok, local.abstract_mesh((2, 2), ("data", "model")))

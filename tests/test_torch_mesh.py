@@ -638,13 +638,35 @@ def test_executor_refuses_what_it_cannot_run():
         (2, 3), ("data", "model"))) == dataclasses.replace(
             smollm, n_heads=3, n_kv_heads=1, d_ff=512, vocab=16384,
             head_dim=64)
-    # the recurrent families and the encoder-decoder are refused on more
-    # than one rank
+    # the recurrent families and the encoder-decoder run on any mesh that
+    # cuts them evenly, full and reduced; what still raises: an uneven cut
+    # (ValueError), and a batch the data axes do not divide (sequence
+    # parallelism, queue 1, item 6.3)
     for arch in ("xlstm-1.3b", "recurrentgemma-9b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6.2"):
-            parallel.check_supported(configs.get(arch).reduced(),
-                                     local.abstract_mesh(
-                                         (2, 1), ("data", "model")))
+        for cfg in (configs.get(arch), configs.get(arch).reduced()):
+            for shape in ((1, 2), (2, 1), (2, 2)):
+                parallel.check_supported(cfg, local.abstract_mesh(
+                    shape, ("data", "model")))
+    xlstm = configs.get("xlstm-1.3b")
+    with pytest.raises(ValueError, match="4 q heads"):
+        parallel.check_supported(xlstm, local.abstract_mesh(
+            (1, 3), ("data", "model")))
+    layout = parallel.Layout(xlstm.reduced(), local.abstract_mesh(
+        (2, 1), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="queue 1, item 6.3"):
+        layout.batch_rows(3, 16)
+    # recurrentgemma's one KV head stays whole in a rank's config (a
+    # block of its columns is the rank's: Attention.split), as do its
+    # d_rnn (RGLRU.split) and xLSTM's heads (MLSTM.split, SLSTM.split)
+    gemma = configs.get("recurrentgemma-9b")
+    assert parallel.local_cfg(gemma, local.abstract_mesh(
+        (1, 2), ("data", "model"))) == dataclasses.replace(
+            gemma, n_heads=8, n_kv_heads=1, d_ff=6144, vocab=128000,
+            head_dim=256)
+    assert parallel.kv_split(gemma, 2) and not parallel.kv_split(smollm, 3)
+    assert parallel.local_cfg(xlstm, local.abstract_mesh(
+        (2, 2), ("data", "model"))) == dataclasses.replace(xlstm,
+                                                           vocab=25152)
     # dense MLA, deepseek-v3 (mla_moe, MTP) and a VLM run: a rank keeps
     # its heads and vocab rows, and d_ff's block in the dense family and
     # mla_moe's dense blocks (MLA keeps its KV heads' count: it has none)
